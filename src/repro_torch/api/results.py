@@ -1,0 +1,34 @@
+"""Typed run results (port of ``repro.api.results.RunReport``)."""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any
+
+import numpy as np
+
+__all__ = ["RunReport"]
+
+
+@dataclasses.dataclass
+class RunReport:
+    """What a :meth:`Session.run` / :meth:`Session.train` call did.
+
+    ``state`` is the final protocol/training state (the resume seed);
+    ``trajectory`` the per-round diagnostics as host numpy arrays (leaves
+    (rounds, ...)); ``rounds`` the rounds executed; ``epsilon_spent`` the
+    composed epsilon of the protected rounds (sync rounds excluded);
+    ``compile_s`` the wall seconds of the first segment (it includes the
+    kernels' build or load on first use); ``run_s`` the wall seconds of
+    everything after.
+    """
+
+    state: Any
+    trajectory: dict[str, np.ndarray]
+    rounds: int
+    epsilon_spent: float
+    compile_s: float = 0.0
+    run_s: float = 0.0
+
+    @property
+    def wall_clock(self) -> float:
+        return self.compile_s + self.run_s

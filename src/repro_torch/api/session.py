@@ -1,0 +1,275 @@
+"""Session — the front door of the port (mirrors ``repro.api.session``).
+
+:meth:`Session.build` owns the setup block once: the device, the (C',
+lambda) calibration (unless the :class:`PrivacySpec` pins them), the
+:class:`repro_torch.engine.ProtocolPlan`, the configs stamped with the
+plan's choices, the partition and the node-stacked initial parameters.
+``run`` drives DPPS consensus, ``train`` PartPSP training; both return a
+:class:`repro_torch.api.results.RunReport`.
+
+Device rule: ``device=None`` is the CUDA card and raises without one;
+``device="cpu"`` runs the plain PyTorch path.
+
+Typical use::
+
+    session = Session.build(DOutGraph(n_nodes=10, d=2), schedule="dense",
+                            privacy=PrivacySpec(b=5.0, gamma_n=1e-3))
+    report = session.run(200, values=private_values)
+    consensus = session.consensus(report.state)
+"""
+from __future__ import annotations
+
+import dataclasses
+import time
+from typing import Any, Callable, Iterator
+
+import numpy as np
+import torch
+
+from repro_torch.api.results import RunReport
+from repro_torch.core.dpps import (
+    DPPSConfig,
+    DPPSState,
+    dpps_consensus,
+    dpps_init,
+    is_sync_round,
+)
+from repro_torch.core.partition import Partition
+from repro_torch.core.partpsp import (
+    PartPSPConfig,
+    PartPSPState,
+    consensus_params,
+    make_baseline_config,
+    partpsp_init,
+)
+from repro_torch.core.topology import Topology, calibrate_constants
+from repro_torch.core.tree_utils import PyTree, tree_map
+from repro_torch.device import resolve_device
+from repro_torch.engine import ProtocolPlan, run_dpps, run_partpsp
+
+__all__ = ["PrivacySpec", "ProtocolSession", "Session"]
+
+
+@dataclasses.dataclass(frozen=True)
+class PrivacySpec:
+    """The privacy side of a session. ``c_prime`` / ``lam`` default to
+    ``None``: calibrated to the topology by :func:`calibrate_constants`."""
+
+    b: float = 5.0
+    gamma_n: float = 1.0
+    noise: bool = True
+    c_prime: float | None = None
+    lam: float | None = None
+    sensitivity_mode: str = "estimated"
+    fixed_sensitivity: float = 0.0
+
+
+def _to_device(tree: PyTree, device: torch.device) -> PyTree:
+    return tree_map(lambda x: torch.as_tensor(x).to(device), tree)
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class ProtocolSession:
+    """A frozen, fully derived protocol deployment (see module docstring)."""
+
+    topology: Topology
+    plan: ProtocolPlan
+    cfg: DPPSConfig                      # resolved consensus/protocol config
+    train_cfg: PartPSPConfig | None      # resolved training config
+    partition: Partition | None
+    loss_fn: Callable | None
+    init_params: PyTree | None           # node-stacked initial parameters
+    seed: int
+    algorithm: str
+    n_nodes: int
+
+    @property
+    def device(self) -> torch.device:
+        return self.plan.device
+
+    @classmethod
+    def build(
+        cls,
+        topology: Topology,
+        privacy: PrivacySpec | None = None,
+        plan: ProtocolPlan | None = None,
+        model: Callable | None = None,
+        partition: Any = None,
+        *,
+        params: PyTree | None = None,
+        params_stacked: PyTree | None = None,
+        algorithm: str = "partpsp",
+        gamma_l: float = 0.05,
+        gamma_s: float = 0.05,
+        clip: float = 100.0,
+        schedule: str | None = None,
+        sync_interval: int | str | None = None,
+        use_kernels: bool | None = None,
+        chunk: int = 50,
+        seed: int = 0,
+        device: str | torch.device | None = None,
+    ) -> "ProtocolSession":
+        """Derive a session from topology + privacy + deployment choices.
+
+        ``model`` is the loss ``loss_fn(params, batch) -> (N,)`` over
+        node-stacked params and batch; it makes the session trainable.
+        ``params`` are single-node (copied to every node); pass
+        ``params_stacked`` when they already carry the node axis.
+        ``partition`` is a :class:`Partition` or a rules tuple (unmatched
+        leaves stay local). ``seed`` keys the noise stream.
+        """
+        spec = PrivacySpec() if privacy is None else privacy
+        dev = resolve_device(device) if plan is None else plan.device
+        n_nodes = topology.n_nodes
+        if spec.c_prime is None or spec.lam is None:
+            cal_c, cal_l = calibrate_constants(topology)
+        c_prime = spec.c_prime if spec.c_prime is not None else cal_c
+        lam = spec.lam if spec.lam is not None else cal_l
+        if plan is None:
+            plan = ProtocolPlan.from_topology(
+                topology, schedule=schedule, use_kernels=use_kernels,
+                sync_interval=sync_interval, chunk=chunk, device=dev)
+        cfg_sync = sync_interval if isinstance(sync_interval, int) else 0
+
+        train_cfg = part = stacked = None
+        if model is not None:
+            train_cfg = make_baseline_config(
+                algorithm, gamma_l=gamma_l, gamma_s=gamma_s, clip=clip,
+                b=spec.b, gamma_n=spec.gamma_n, c_prime=c_prime, lam=lam,
+                schedule=plan.schedule, sync_interval=cfg_sync,
+                sensitivity_mode=spec.sensitivity_mode)
+            dpps = train_cfg.dpps
+            if not spec.noise and algorithm != "sgp":
+                dpps = dataclasses.replace(dpps, noise=False)
+            if spec.sensitivity_mode == "fixed" and algorithm != "pedfl":
+                dpps = dataclasses.replace(
+                    dpps, fixed_sensitivity=spec.fixed_sensitivity)
+            train_cfg = plan.resolve_partpsp(
+                dataclasses.replace(train_cfg, dpps=dpps))
+            cfg = train_cfg.dpps
+            if params_stacked is not None:
+                stacked = _to_device(params_stacked, dev)
+            elif params is not None:
+                stacked = tree_map(
+                    lambda x: x[None].repeat((n_nodes,) + (1,) * x.dim()),
+                    _to_device(params, dev))
+            if stacked is not None:
+                rules = ((".*", "shared"),) if partition is None else partition
+                part = (rules if isinstance(rules, Partition) else
+                        Partition.from_rules(stacked, tuple(rules),
+                                             default="local"))
+        else:
+            cfg = plan.resolve_dpps(DPPSConfig(
+                b=spec.b, gamma_n=spec.gamma_n, noise=spec.noise,
+                c_prime=c_prime, lam=lam, sync_interval=cfg_sync,
+                sensitivity_mode=spec.sensitivity_mode,
+                fixed_sensitivity=spec.fixed_sensitivity))
+        return cls(topology=topology, plan=plan, cfg=cfg, train_cfg=train_cfg,
+                   partition=part, loss_fn=model, init_params=stacked,
+                   seed=int(seed), algorithm=algorithm, n_nodes=n_nodes)
+
+    # -- state ---------------------------------------------------------------
+
+    def consensus_state(self, values: PyTree) -> DPPSState:
+        """Protocol state over per-node private ``values`` (node-stacked)."""
+        return dpps_init(_to_device(values, self.device), self.cfg)
+
+    def train_state(self) -> PartPSPState:
+        """Fresh PartPSP state from the session's initial parameters."""
+        if self.partition is None or self.init_params is None:
+            raise ValueError("training needs model= and params= at build time")
+        return partpsp_init(self.init_params, self.partition, self.train_cfg)
+
+    def consensus(self, state: DPPSState) -> PyTree:
+        """Protocol output s-bar (Alg. 1 Output) of a consensus run."""
+        return dpps_consensus(state)
+
+    def consensus_view(self, state: PartPSPState, node: int = 0) -> PyTree:
+        """Network-average shared params merged with ``node``'s local ones."""
+        return tree_map(lambda x: x[node],
+                        consensus_params(state, self.partition))
+
+    # -- drivers -------------------------------------------------------------
+
+    @property
+    def _protected(self) -> bool:
+        return bool(self.cfg.noise and self.cfg.gamma_n > 0)
+
+    def epsilon_spent(self, rounds: int, *, start: int = 0) -> float:
+        """Composed epsilon of rounds [start, start + rounds) (sync rounds
+        spend none)."""
+        if not self._protected or rounds <= 0:
+            return 0.0
+        protected = sum(1 for t in range(start, start + rounds)
+                        if not is_sync_round(t, self.cfg.sync_interval))
+        return protected * self.cfg.epsilon_per_round
+
+    def _drive(self, segments: Iterator, start: int) -> RunReport:
+        """Collect segments: each trajectory goes to the host (one sync a
+        segment); the first segment's wall time is ``compile_s``."""
+        t0 = time.perf_counter()
+        compile_s = 0.0
+        trajs, state, done = [], None, 0
+        for n, state, traj in segments:
+            trajs.append({k: v.cpu().numpy() for k, v in traj.items()})
+            if len(trajs) == 1:
+                compile_s = time.perf_counter() - t0
+            done += n
+        trajectory = ({k: np.concatenate([t[k] for t in trajs])
+                       for k in trajs[0]} if trajs else {})
+        return RunReport(state=state, trajectory=trajectory, rounds=done,
+                         epsilon_spent=self.epsilon_spent(done, start=start),
+                         compile_s=compile_s,
+                         run_s=time.perf_counter() - t0 - compile_s)
+
+    def run(self, rounds: int, *, values: PyTree | None = None,
+            state: DPPSState | None = None,
+            eps_at: Callable[[int], PyTree] | None = None,
+            bits_at: Callable[[int], torch.Tensor] | None = None) -> RunReport:
+        """``rounds`` DPPS rounds from ``values`` (fresh) or ``state``.
+
+        ``eps_at(t)`` gives the perturbation tree of round t (``None``:
+        pure consensus). ``bits_at(t)`` feeds explicit (N, d_s) uint32
+        noise bits instead of the seeded Philox stream (tests only).
+        """
+        if state is None:
+            if values is None:
+                raise ValueError("run() needs values= (fresh) or state=")
+            state = self.consensus_state(values)
+        start = state.t
+
+        def segments():
+            st = state
+            for t0 in range(start, start + rounds, self.plan.chunk):
+                n = min(self.plan.chunk, start + rounds - t0)
+                st, traj = run_dpps(st, eps_at, cfg=self.cfg, plan=self.plan,
+                                    rounds=n, seed=self.seed, bits_at=bits_at)
+                yield n, st, traj
+
+        return self._drive(segments(), start)
+
+    def train(self, rounds: int, batch_at: Callable[[int], Any], *,
+              state: PartPSPState | None = None,
+              bits_at: Callable[[int], torch.Tensor] | None = None) -> RunReport:
+        """``rounds`` PartPSP rounds (Alg. 2); ``batch_at(t)`` gives round
+        t's node-stacked batch."""
+        if self.loss_fn is None:
+            raise ValueError("training needs model= at build time")
+        if state is None:
+            state = self.train_state()
+        start = state.dpps.t
+
+        def segments():
+            st = state
+            for t0 in range(start, start + rounds, self.plan.chunk):
+                n = min(self.plan.chunk, start + rounds - t0)
+                st, traj = run_partpsp(
+                    st, batch_at, cfg=self.train_cfg, partition=self.partition,
+                    loss_fn=self.loss_fn, plan=self.plan, rounds=n,
+                    seed=self.seed, bits_at=bits_at)
+                yield n, st, traj
+
+        return self._drive(segments(), start)
+
+
+Session = ProtocolSession

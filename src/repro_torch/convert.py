@@ -1,0 +1,49 @@
+"""Weights across: numpy copies of the reference's params and protocol
+states -> the port's.
+
+Takes trees of numpy arrays (e.g. ``jax.tree_util.tree_map(np.asarray,
+x)`` of a ``repro`` params tree, ``DPPSState`` or ``PartPSPState``); reads
+the reference states by attribute (``push.s``, ``push.a``, ``sens.*``,
+``t``), so nothing of ``repro`` or ``jax`` is imported. Containers keep
+their structure, and :mod:`repro_torch.core.tree_utils` flattens dicts in
+sorted-key order, as ``jax.tree_util.tree_flatten`` does, so packing
+offsets agree.
+"""
+from __future__ import annotations
+
+from typing import Any
+
+import numpy as np
+import torch
+
+from repro_torch.core.dpps import DPPSState
+from repro_torch.core.partpsp import PartPSPState
+from repro_torch.core.pushsum import PushSumState
+from repro_torch.core.sensitivity import SensitivityState
+from repro_torch.core.tree_utils import PyTree, tree_map
+
+__all__ = ["tree_from_numpy", "dpps_state_from_reference",
+           "partpsp_state_from_reference"]
+
+
+def tree_from_numpy(tree: PyTree, device="cpu") -> PyTree:
+    """Nested dict/list/tuple of arrays -> the same of torch tensors (copies:
+    numpy views of the reference's arrays are read-only)."""
+    return tree_map(lambda x: torch.tensor(np.asarray(x), device=device), tree)
+
+
+def dpps_state_from_reference(state: Any, device="cpu") -> DPPSState:
+    """A reference ``DPPSState`` (numpy leaves, unpacked tree ``push.s``)."""
+    sens = state.sens
+    return DPPSState(
+        push=PushSumState(s=tree_from_numpy(state.push.s, device),
+                          a=tree_from_numpy(state.push.a, device)),
+        sens=SensitivityState(*(tree_from_numpy(getattr(sens, f), device)
+                                for f in SensitivityState._fields)),
+        t=int(np.asarray(state.t)))
+
+
+def partpsp_state_from_reference(state: Any, device="cpu") -> PartPSPState:
+    """A reference ``PartPSPState`` (numpy leaves)."""
+    return PartPSPState(dpps=dpps_state_from_reference(state.dpps, device),
+                        local=list(tree_from_numpy(list(state.local), device)))

@@ -1,0 +1,153 @@
+"""PartPSP — Partial Communication Push-Sum SGD with DP (paper Algorithm 2),
+port of ``repro.core.partpsp`` (packed path).
+
+Per round, for every node i (the node axis is a batch dimension):
+
+  1. l^(t+1) = l^(t) - gamma_l g_l(y^(t), l^(t))          (line 4, Eq. 23)
+  2. g_s = clip_L1(grad_s F(y^(t), l^(t+1)), C)           (line 5, Eq. 24)
+  3. eps = -gamma_s g_s                                   (line 6, Eq. 25)
+  4. a DPPS round on the shared leaves with eps           (Alg. 1)
+
+Baselines (paper SV.D) are the same step under other configs: SGP (share
+all, no clip, no noise), SGPDP (share all, DPPS noise), PEDFL (share all,
+fixed noise scale 2C).
+
+``loss_fn(params, batch) -> (N,)`` takes node-stacked params and batch and
+returns the per-node losses. Every node's loss touches only its own slice,
+so one backward over their sum gives every node's gradient.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Callable, NamedTuple, Sequence
+
+import torch
+
+from repro_torch.core.dpps import DPPSConfig, DPPSState, dpps_init, dpps_step
+from repro_torch.core.packing import PackedLayout
+from repro_torch.core.partition import Partition
+from repro_torch.core.privacy import l1_clip_per_node
+from repro_torch.core.pushsum import correct
+from repro_torch.core.tree_utils import PyTree, l1_norm_per_node, node_mean
+
+__all__ = ["PartPSPConfig", "PartPSPState", "make_baseline_config",
+           "partpsp_init", "partpsp_step", "consensus_params"]
+
+LossFn = Callable[[PyTree, Any], torch.Tensor]
+
+
+@dataclasses.dataclass(frozen=True)
+class PartPSPConfig:
+    gamma_l: float = 0.05          # local learning rate
+    gamma_s: float = 0.05          # shared learning rate
+    clip: float = 100.0            # L1 clipping threshold C (0 disables)
+    dpps: DPPSConfig = dataclasses.field(default_factory=DPPSConfig)
+    algorithm: str = "partpsp"     # partpsp | sgp | sgpdp | pedfl
+
+    def __post_init__(self):
+        if self.algorithm not in ("partpsp", "sgp", "sgpdp", "pedfl"):
+            raise ValueError(f"unknown algorithm {self.algorithm!r}")
+
+
+def make_baseline_config(
+    algorithm: str, *, gamma_l: float = 0.05, gamma_s: float = 0.05,
+    clip: float = 100.0, b: float = 1.0, gamma_n: float = 1.0,
+    c_prime: float = 0.78, lam: float = 0.55, schedule: str = "dense",
+    sync_interval: int = 0, sensitivity_mode: str = "estimated",
+) -> PartPSPConfig:
+    """The paper's algorithm variants from one knob."""
+    common = dict(b=b, c_prime=c_prime, lam=lam, schedule=schedule,
+                  sync_interval=sync_interval)
+    if algorithm == "sgp":
+        dpps = DPPSConfig(gamma_n=0.0, noise=False, **common)
+        return PartPSPConfig(gamma_l, gamma_s, 0.0, dpps, "sgp")
+    if algorithm == "pedfl":
+        # Fixed sensitivity from the parameter-norm clip: two parameter
+        # vectors in the L1 ball of radius C are at most 2C apart.
+        dpps = DPPSConfig(gamma_n=gamma_n, noise=True,
+                          sensitivity_mode="fixed",
+                          fixed_sensitivity=2.0 * clip, **common)
+        return PartPSPConfig(gamma_l, gamma_s, clip, dpps, "pedfl")
+    dpps = DPPSConfig(gamma_n=gamma_n, noise=True,
+                      sensitivity_mode=sensitivity_mode, **common)
+    return PartPSPConfig(gamma_l, gamma_s, clip, dpps, algorithm)
+
+
+class PartPSPState(NamedTuple):
+    dpps: DPPSState            # push-sum + sensitivity state of the shared leaves
+    local: list                # node-stacked local leaves
+
+
+def partpsp_init(params: PyTree, partition: Partition,
+                 cfg: PartPSPConfig) -> PartPSPState:
+    shared, local = partition.split(params)
+    return PartPSPState(dpps=dpps_init(list(shared), cfg.dpps),
+                        local=list(local))
+
+
+def _grads(loss_fn: LossFn, partition: Partition, shared: Sequence,
+           local: Sequence, batch: Any, wrt: Sequence) -> tuple:
+    """Per-node losses (N,) and the gradients of their sum w.r.t. ``wrt``
+    (leaves of ``shared``/``local`` that require grad)."""
+    with torch.enable_grad():
+        losses = loss_fn(partition.merge(shared, local), batch)
+        if not wrt:
+            return losses.detach(), []
+        grads = torch.autograd.grad(losses.sum(), list(wrt), allow_unused=True)
+    return losses.detach(), [torch.zeros_like(x) if g is None else g
+                             for x, g in zip(wrt, grads)]
+
+
+def partpsp_step(
+    state: PartPSPState,
+    batch: Any,
+    *,
+    cfg: PartPSPConfig,
+    partition: Partition,
+    loss_fn: LossFn,
+    layout: PackedLayout,
+    w: torch.Tensor | None = None,
+    offsets: Sequence[int] | None = None,
+    mix_weights: torch.Tensor | None = None,
+    seed: int = 0,
+    bits: torch.Tensor | None = None,
+) -> tuple[PartPSPState, dict[str, Any]]:
+    """One PartPSP round over the packed DPPS state (``layout``)."""
+    push = state.dpps.push
+    y = layout.unpack(correct(push.s, push.a))      # Eq. 10, shared leaves
+
+    # -- pass 1: local gradient at (y, l_t) (Eq. 5) ---------------------------
+    local_req = [l.detach().requires_grad_(True) for l in state.local]
+    losses, g_local = _grads(loss_fn, partition, y, local_req, batch,
+                             local_req)
+    local_new = [l - cfg.gamma_l * g.to(l.dtype)
+                 for l, g in zip(state.local, g_local)]
+
+    # -- pass 2: shared gradient at (y, l_{t+1}) (Eq. 6) -----------------------
+    y_req = [v.detach().requires_grad_(True) for v in y]
+    _, g_shared = _grads(loss_fn, partition, y_req, local_new, batch, y_req)
+
+    # -- clip (Eq. 24) and the DPPS perturbation (Eq. 25) ---------------------
+    if cfg.clip > 0:
+        g_shared, g_norms = l1_clip_per_node(g_shared, cfg.clip)
+    else:
+        g_norms = l1_norm_per_node(g_shared)
+    eps = [(-cfg.gamma_s * g).to(torch.float32) for g in g_shared]
+
+    dpps_new, diag = dpps_step(state.dpps, eps, cfg.dpps, layout, w=w,
+                               offsets=offsets, mix_weights=mix_weights,
+                               seed=seed, bits=bits)
+    metrics = {"loss_mean": losses.mean(), "loss_per_node": losses,
+               "grad_l1_max": g_norms.max(), **diag}
+    return PartPSPState(dpps=dpps_new, local=local_new), metrics
+
+
+def consensus_params(state: PartPSPState, partition: Partition) -> PyTree:
+    """Evaluation parameters (paper SV.D): every node gets the network
+    average of the shared parameters and keeps its own local ones."""
+    push = state.dpps.push
+    s_bar = node_mean(correct(push.s, push.a))
+    n = push.a.shape[0]
+    return partition.merge([x[None].expand((n,) + tuple(x.shape)) for x in s_bar],
+                           state.local)
+

@@ -1,0 +1,73 @@
+"""Differential-privacy primitives: Laplace noise through a bits seam,
+L1 clipping and accounting (port of ``repro.core.privacy``).
+
+* Lemma 1 / Eq. 8: noise is ``kernels.ref.laplace_from_bits(bits, S / b)``,
+  computed inside the DPPS round's fused perturb (``core/dpps.py``). The
+  bits come from Philox in production (a pure function of (seed, round,
+  node, element); ``kernels.ref.philox_bits``) or, in the conformance
+  tests, are the exact uint32 values the reference's kernel path consumed.
+  The reference's eager threefry ``jax.random.laplace`` cannot be
+  reproduced in PyTorch and is not ported.
+* Eq. 24: L1 gradient clip ``g / max(1, ||g||_1 / C)``.
+* Accounting: pure-DP linear composition, ``rounds * b / gamma_n``.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any
+
+import torch
+
+from repro_torch.core.tree_utils import PyTree, l1_norm_per_node, tree_map
+
+__all__ = ["l1_clip_per_node", "PrivacyAccountant"]
+
+
+def l1_clip_per_node(tree: PyTree, clip: float) -> tuple[PyTree, torch.Tensor]:
+    """Paper Eq. 24: per-node L1 clip. Returns (clipped tree, pre-clip norms)."""
+    norms = l1_norm_per_node(tree)
+    denom = torch.clamp_min(norms / clip, 1.0)
+    return tree_map(
+        lambda x: x / denom.reshape((-1,) + (1,) * (x.dim() - 1)).to(x.dtype),
+        tree), norms
+
+
+@dataclasses.dataclass
+class PrivacyAccountant:
+    """Pure-epsilon accountant under linear composition (Theorem 1: each
+    protected round is (b / gamma_n)-DP; sync rounds are not private)."""
+
+    b: float
+    gamma_n: float
+    rounds: int = 0
+    unprotected_rounds: int = 0
+    budget: float | None = None
+
+    @property
+    def epsilon_per_round(self) -> float:
+        return float("inf") if self.gamma_n <= 0 else self.b / self.gamma_n
+
+    @property
+    def epsilon_total(self) -> float:
+        return 0.0 if self.rounds == 0 else self.rounds * self.epsilon_per_round
+
+    def step(self, *, protected: bool = True) -> "PrivacyAccountant":
+        return dataclasses.replace(
+            self, rounds=self.rounds + (1 if protected else 0),
+            unprotected_rounds=self.unprotected_rounds + (0 if protected else 1))
+
+    def remaining(self) -> float:
+        if self.budget is None:
+            return float("inf")
+        return max(self.budget - self.epsilon_total, 0.0)
+
+    @property
+    def exhausted(self) -> bool:
+        return self.budget is not None and self.epsilon_total > self.budget
+
+    def summary(self) -> dict[str, Any]:
+        return {"epsilon_per_round": self.epsilon_per_round,
+                "epsilon_total": self.epsilon_total, "rounds": self.rounds,
+                "unprotected_rounds": self.unprotected_rounds,
+                "budget": self.budget, "remaining": self.remaining(),
+                "exhausted": self.exhausted}

@@ -1,0 +1,107 @@
+"""Perturbed Push-Sum runtime (paper Alg. 1 lines 6-8), port of
+``repro.core.pushsum``.
+
+State: gossiped values ``s`` (a tree of node-stacked leaves, or the packed
+(N, d_pad) buffer) and the push-sum weights ``a`` (N,). With the paper's
+doubly-stochastic W, ``a`` stays 1 (Eq. 16).
+
+Schedules ported here: dense (``W @ s``) and circulant (a weighted sum of
+rolls along the node axis). In the dense packed branch the contraction goes
+through the ``pushsum_mix`` kernel when ``use_kernels``; the (N,) weights
+``a`` stay a plain product, as the reference left them to XLA.
+"""
+from __future__ import annotations
+
+from typing import NamedTuple, Sequence
+
+import torch
+
+from repro_torch.core.tree_utils import PyTree, tree_leaves, tree_map
+from repro_torch.kernels import ops as kops
+
+__all__ = [
+    "PushSumState",
+    "init_push_sum",
+    "gossip_dense",
+    "gossip_packed",
+    "correct",
+    "consensus_error",
+]
+
+
+class PushSumState(NamedTuple):
+    s: PyTree            # gossiped values, leaves (N, ...), or (N, d_pad)
+    a: torch.Tensor      # push-sum normalizing weights, (N,)
+
+
+def init_push_sum(s: PyTree, n_nodes: int, device) -> PushSumState:
+    return PushSumState(s=s, a=torch.ones((n_nodes,), dtype=torch.float32,
+                                          device=device))
+
+
+def _mix_dense(w: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """out[i] = sum_j w[i, j] x[j] over the leading node axis."""
+    flat = x.reshape(x.shape[0], -1)
+    return (w.to(x.dtype) @ flat).reshape(x.shape)
+
+
+def _mix_circulant(offsets: Sequence[int], weights: torch.Tensor,
+                   x: torch.Tensor) -> torch.Tensor:
+    """Receiver i sums w_k x[(i - k) mod N]: roll(+k) brings i-k to slot i."""
+    out = weights[0].to(x.dtype) * torch.roll(x, offsets[0], dims=0)
+    for k, off in enumerate(offsets[1:], start=1):
+        out = out + weights[k].to(x.dtype) * torch.roll(x, off, dims=0)
+    return out
+
+
+def gossip_dense(state: PushSumState, w: torch.Tensor) -> PushSumState:
+    """One mixing round of a tree state with an (N, N) weight matrix."""
+    return PushSumState(s=tree_map(lambda x: _mix_dense(w, x), state.s),
+                        a=_mix_dense(w, state.a))
+
+
+def gossip_packed(state: PushSumState, *, w: torch.Tensor | None = None,
+                  offsets: Sequence[int] | None = None,
+                  weights: torch.Tensor | None = None,
+                  use_kernels: bool = False) -> PushSumState:
+    """Eq. 9 over the packed (N, d_pad) buffer: one mix per round."""
+    buf = state.s
+    if offsets is not None:
+        offsets = tuple(int(o) for o in offsets)
+        if weights is None:
+            weights = torch.full((len(offsets),), 1.0 / len(offsets),
+                                 dtype=torch.float32, device=buf.device)
+        return PushSumState(s=_mix_circulant(offsets, weights, buf),
+                            a=_mix_circulant(offsets, weights, state.a))
+    if w is None:
+        raise ValueError("gossip_packed() needs w= or offsets=")
+    s_new = kops.pushsum_mix(w, buf) if use_kernels else _mix_dense(w, buf)
+    return PushSumState(s=s_new, a=_mix_dense(w, state.a))
+
+
+def correct(s: PyTree, a: torch.Tensor) -> PyTree:
+    """Push-sum correction y_i = s_i / a_i (paper Eq. 10)."""
+    return tree_map(
+        lambda x: x / a.reshape((-1,) + (1,) * (x.dim() - 1)).to(x.dtype), s)
+
+
+def consensus_error(s: torch.Tensor | PyTree, *, a: torch.Tensor | None = None,
+                    chunk: int | None = None) -> torch.Tensor:
+    """max_i ||y_i - y_bar||_1 over the flat rows, y = s / a (or s).
+
+    ``s`` is a tree or a 2-D (N, d) row buffer. ``chunk`` sweeps the
+    columns of a 2-D buffer in blocks so the temporaries stay at
+    (N, chunk) — the per-node L1 norms add across blocks.
+    """
+    if not isinstance(s, torch.Tensor):
+        rows = [x.reshape(x.shape[0], -1) for x in tree_leaves(s)]
+        s = rows[0] if len(rows) == 1 else torch.cat(rows, dim=1)
+    n, d = s.shape
+    step = d if chunk is None else max(1, int(chunk))
+    total = torch.zeros((n,), dtype=torch.float32, device=s.device)
+    for c0 in range(0, d, step):
+        block = s[:, c0:c0 + step]
+        if a is not None:
+            block = block / a[:, None].to(block.dtype)
+        total += (block - block.mean(dim=0, keepdim=True)).abs().sum(dim=1)
+    return total.max()

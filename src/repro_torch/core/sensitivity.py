@@ -1,0 +1,47 @@
+"""Sensitivity estimation for DPPS (paper Lemma 2 / Remark 1), port of
+``repro.core.sensitivity``.
+
+Each node i keeps a running scalar estimate
+
+    S_i^(0) = 2 C' (||s_i^(0)||_1 + ||eps_i^(0)||_1)
+    S_i^(t) = lambda S_i^(t-1) + 2 C' (||eps_i^(t)||_1 + lambda gamma_n ||n_i^(t-1)||_1)
+
+and the network uses S^(t) = max_i S_i^(t). Only two scalars per node
+persist between rounds. ``real_sensitivity`` computes the exact
+max_{i,j} ||s_i - s_j||_1 for validation.
+"""
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+from repro_torch.core.tree_utils import PyTree, l1_norm_per_node, tree_leaves
+
+__all__ = ["SensitivityState", "init_sensitivity", "real_sensitivity"]
+
+
+class SensitivityState(NamedTuple):
+    s_local: torch.Tensor        # (N,) per-node estimates S_i^(t)
+    prev_noise_l1: torch.Tensor  # (N,) ||n_i^(t-1)||_1 (zero at t=0)
+    c_prime: torch.Tensor        # 0-d f32 constant C'
+    lam: torch.Tensor            # 0-d f32 constant lambda
+
+
+def init_sensitivity(s0: PyTree, eps0_l1: torch.Tensor, *, c_prime: float,
+                     lam: float) -> SensitivityState:
+    """t = 0 branch of Remark 1."""
+    dev = eps0_l1.device
+    c = torch.tensor(c_prime, dtype=torch.float32, device=dev)
+    s_local = 2.0 * c * (l1_norm_per_node(s0) + eps0_l1)
+    return SensitivityState(
+        s_local=s_local, prev_noise_l1=torch.zeros_like(s_local), c_prime=c,
+        lam=torch.tensor(lam, dtype=torch.float32, device=dev))
+
+
+def real_sensitivity(s_half: PyTree | torch.Tensor) -> torch.Tensor:
+    """Exact max_{i,j} ||s_i - s_j||_1 (validation only, O(N^2 d))."""
+    leaves = [s_half] if isinstance(s_half, torch.Tensor) else tree_leaves(s_half)
+    flats = [x.reshape(x.shape[0], -1) for x in leaves]
+    return sum((f[:, None, :] - f[None, :, :]).abs().sum(-1)
+               for f in flats).max()

@@ -1,0 +1,222 @@
+"""Decentralized network topologies and doubly-stochastic weight matrices.
+
+Port of ``repro.core.topology`` (numpy there too, so W, the offsets and the
+calibrated ``(C', lambda)`` are computed by the same numpy code and match
+exactly). The paper (Def. 1) requires every round's W^(t) to be doubly
+stochastic with w_ij > 0 iff j sends to i, plus self loops. d-Out and EXP
+(Remark 2) are circulant: node i sends to (i + k) mod N for k in a
+per-round offset set.
+
+Row convention: ``s_new[i] = sum_j W[i, j] s[j]``.
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Sequence
+
+import numpy as np
+import torch
+
+__all__ = [
+    "Topology",
+    "DOutGraph",
+    "ExpGraph",
+    "RingGraph",
+    "FullyConnectedGraph",
+    "TimeVaryingTopology",
+    "spectral_gap",
+    "contraction_rate",
+    "calibrate_constants",
+]
+
+
+@dataclasses.dataclass(frozen=True)
+class Topology:
+    """A (possibly time-varying) sequence of directed graphs.
+
+    Subclasses return the circulant offset set of round ``t`` from
+    :meth:`offsets` (offset 0 is the self loop).
+    """
+
+    n_nodes: int
+
+    def offsets(self, t: int) -> Sequence[int] | None:
+        raise NotImplementedError(
+            f"{type(self).__name__} does not implement offsets()")
+
+    def weight_matrix(self, t: int) -> np.ndarray:
+        """Doubly stochastic W^(t) as float64 numpy (row convention)."""
+        offs = self.offsets(t)
+        if offs is None:
+            raise NotImplementedError(
+                f"{type(self).__name__}.offsets() returned None but the "
+                "subclass does not override weight_matrix()")
+        n = self.n_nodes
+        w = 1.0 / len(offs)
+        mat = np.zeros((n, n), dtype=np.float64)
+        for i in range(n):
+            for k in offs:
+                # node j = i sends to node (i + k) mod n  =>  receiver row.
+                mat[(i + k) % n, i] += w
+        return mat
+
+    def weight_matrix_torch(self, t: int, *, device=None,
+                            dtype=torch.float32) -> torch.Tensor:
+        return torch.as_tensor(self.weight_matrix(t), dtype=dtype,
+                               device=device)
+
+    def mixing_weights(self, t: int) -> tuple[tuple[int, ...], np.ndarray]:
+        """(offsets, per-offset weights): ``s_new[i] = sum_k w_k s[i - k]``."""
+        offs = self.offsets(t)
+        if offs is None:
+            raise NotImplementedError(
+                f"{type(self).__name__} is not circulant; use the dense "
+                "schedule")
+        offs = tuple(offs)
+        return offs, np.full((len(offs),), 1.0 / len(offs), dtype=np.float64)
+
+
+@dataclasses.dataclass(frozen=True)
+class DOutGraph(Topology):
+    """Paper Remark 2: node i sends to (i+0) ... (i+d-1) mod N each round."""
+
+    d: int = 2
+
+    def __post_init__(self):
+        if not (1 <= self.d <= self.n_nodes):
+            raise ValueError(
+                f"d-Out degree d={self.d} must be in [1, N={self.n_nodes}]")
+
+    def offsets(self, t: int) -> Sequence[int]:
+        return tuple(range(self.d))
+
+
+@dataclasses.dataclass(frozen=True)
+class ExpGraph(Topology):
+    """Paper Remark 2: i sends to i + 2^(t mod (floor(log2(N-1)) + 1))."""
+
+    def __post_init__(self):
+        if self.n_nodes < 2:
+            raise ValueError("EXP graph needs N >= 2")
+
+    @property
+    def period(self) -> int:
+        if self.n_nodes <= 2:
+            return 1
+        return int(math.floor(math.log2(self.n_nodes - 1))) + 1
+
+    def offsets(self, t: int) -> Sequence[int]:
+        k = 2 ** (t % self.period)
+        return (0, k % self.n_nodes)
+
+
+@dataclasses.dataclass(frozen=True)
+class RingGraph(Topology):
+    """Bidirectional ring: i sends to i +- 1 plus self loop (weight 1/3)."""
+
+    def offsets(self, t: int) -> Sequence[int]:
+        if self.n_nodes == 1:
+            return (0,)
+        if self.n_nodes == 2:
+            return (0, 1)
+        return (0, 1, self.n_nodes - 1)
+
+
+@dataclasses.dataclass(frozen=True)
+class FullyConnectedGraph(Topology):
+    """Complete graph: one gossip round is exact averaging."""
+
+    def offsets(self, t: int) -> Sequence[int]:
+        return tuple(range(self.n_nodes))
+
+
+@dataclasses.dataclass(frozen=True)
+class TimeVaryingTopology(Topology):
+    """Cycles through a list of topologies (one per round)."""
+
+    schedule: tuple[Topology, ...] = ()
+
+    def __post_init__(self):
+        if not self.schedule:
+            raise ValueError("schedule must be non-empty")
+        for topo in self.schedule:
+            if topo.n_nodes != self.n_nodes:
+                raise ValueError("all scheduled topologies must share n_nodes")
+
+    @property
+    def period(self) -> int:
+        """lcm(cycle length, member periods): W^(t + period) == W^(t)."""
+        period = len(self.schedule)
+        for topo in self.schedule:
+            period = math.lcm(period, int(getattr(topo, "period", 1)))
+        return period
+
+    def _at(self, t: int) -> Topology:
+        return self.schedule[t % len(self.schedule)]
+
+    def offsets(self, t: int) -> Sequence[int] | None:
+        return self._at(t).offsets(t)
+
+    def weight_matrix(self, t: int) -> np.ndarray:
+        return self._at(t).weight_matrix(t)
+
+
+def spectral_gap(topo: Topology, t: int = 0) -> float:
+    """1 - |second eigenvalue| of W^(t)."""
+    eig = np.sort(np.abs(np.linalg.eigvals(topo.weight_matrix(t))))[::-1]
+    second = eig[1] if len(eig) > 1 else 0.0
+    return float(1.0 - second)
+
+
+def contraction_rate(topo: Topology, *, period: int | None = None) -> float:
+    """Worst per-round second singular value of W^(t) over the period."""
+    if period is None:
+        period = getattr(topo, "period", 1)
+    n = topo.n_nodes
+    j = np.ones((n, n)) / n
+    worst = 0.0
+    for t in range(period):
+        worst = max(worst, float(np.linalg.norm(topo.weight_matrix(t) - j, 2)))
+    return worst
+
+
+def calibrate_constants(
+    topo: Topology,
+    *,
+    dim: int = 64,
+    rounds: int = 50,
+    trials: int = 3,
+    margin: float = 1.25,
+    seed: int = 0,
+) -> tuple[float, float]:
+    """Empirical (C', lambda) the way the paper tunes them.
+
+    Short noiseless Perturbed Push-Sum traces with random inputs; C' is the
+    tightest constant for which the Remark-1 recursion bounds the real
+    sensitivity, times ``margin``. Same numpy stream as the reference, so
+    the result is identical.
+    """
+    rng = np.random.default_rng(seed)
+    n = topo.n_nodes
+    lam = min(0.995, max(0.05, contraction_rate(topo)))
+    best_c = 0.0
+    for _ in range(trials):
+        s = rng.normal(size=(n, dim))
+        eps_scale = 10.0 ** rng.uniform(-2, 0)
+        s_rec = None
+        for t in range(rounds):
+            eps = eps_scale * rng.normal(size=(n, dim))
+            s_half = s + eps
+            real = max(np.abs(s_half[i] - s_half[j]).sum()
+                       for i in range(n) for j in range(n))
+            eps_l1 = np.abs(eps).sum(axis=1)
+            if s_rec is None:
+                s_rec = 2.0 * (np.abs(s).sum(axis=1) + eps_l1)
+            else:
+                s_rec = lam * s_rec + 2.0 * eps_l1
+            bound_unit = float(s_rec.max())
+            if bound_unit > 0:
+                best_c = max(best_c, real / bound_unit)
+            s = topo.weight_matrix(t) @ s_half
+    return float(best_c * margin), float(lam)

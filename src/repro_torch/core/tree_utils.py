@@ -1,0 +1,102 @@
+"""Minimal parameter trees and per-node reductions over them.
+
+The reference keeps parameters as JAX pytrees. The port keeps plain nested
+``dict`` / ``list`` / ``tuple`` containers of tensors and flattens them in
+``jax.tree_util.tree_flatten`` order (dict keys sorted), because packing
+offsets depend on the leaf order. Every leaf of node-stacked state carries a
+leading node dimension ``N``.
+"""
+from __future__ import annotations
+
+from typing import Any, Callable, NamedTuple
+
+import torch
+
+__all__ = [
+    "TreeDef",
+    "tree_flatten",
+    "tree_flatten_with_path",
+    "tree_unflatten",
+    "tree_leaves",
+    "tree_map",
+    "l1_norm_per_node",
+    "node_mean",
+]
+
+PyTree = Any
+
+
+class TreeDef(NamedTuple):
+    kind: str                 # "leaf" | "dict" | "list" | "tuple"
+    keys: tuple = ()          # dict keys, sorted
+    children: tuple = ()      # child TreeDefs
+
+
+def _flatten(tree, path: tuple, out: list) -> TreeDef:
+    if isinstance(tree, dict):
+        keys = tuple(sorted(tree))
+        return TreeDef("dict", keys, tuple(
+            _flatten(tree[k], path + (str(k),), out) for k in keys))
+    if isinstance(tree, (list, tuple)):
+        kind = "list" if isinstance(tree, list) else "tuple"
+        return TreeDef(kind, (), tuple(
+            _flatten(x, path + (str(i),), out) for i, x in enumerate(tree)))
+    out.append(("/".join(path), tree))
+    return TreeDef("leaf")
+
+
+def tree_flatten_with_path(tree: PyTree) -> tuple[list[tuple[str, Any]], TreeDef]:
+    """``[(path, leaf)]`` with ``"/"``-joined key paths, and the tree def."""
+    out: list = []
+    return out, _flatten(tree, (), out)
+
+
+def tree_flatten(tree: PyTree) -> tuple[list, TreeDef]:
+    pairs, treedef = tree_flatten_with_path(tree)
+    return [leaf for _, leaf in pairs], treedef
+
+
+def tree_leaves(tree: PyTree) -> list:
+    return tree_flatten(tree)[0]
+
+
+def tree_unflatten(treedef: TreeDef, leaves) -> PyTree:
+    it = iter(leaves)
+
+    def build(td: TreeDef):
+        if td.kind == "leaf":
+            return next(it)
+        kids = [build(c) for c in td.children]
+        if td.kind == "dict":
+            return dict(zip(td.keys, kids))
+        return kids if td.kind == "list" else tuple(kids)
+
+    out = build(treedef)
+    if next(it, None) is not None:
+        raise ValueError("more leaves than the tree def holds")
+    return out
+
+
+def tree_map(fn: Callable, tree: PyTree, *rest: PyTree) -> PyTree:
+    leaves, treedef = tree_flatten(tree)
+    others = [tree_leaves(r) for r in rest]
+    return tree_unflatten(treedef, [fn(x, *ys)
+                                    for x, *ys in zip(leaves, *others)])
+
+
+def l1_norm_per_node(tree: PyTree) -> torch.Tensor:
+    """sum over leaves of ||leaf_i||_1 for each node i -> (N,).
+
+    One reduction over the flat wire row (leaf rows concatenated in leaf
+    order), as ``repro.core.tree_utils.tree_l1_norm_per_node`` does.
+    """
+    leaves = tree_leaves(tree)
+    rows = [x.reshape(x.shape[0] if x.dim() else 1, -1) for x in leaves]
+    row = rows[0] if len(rows) == 1 else torch.cat(rows, dim=1)
+    return row.abs().sum(dim=1)
+
+
+def node_mean(tree: PyTree) -> PyTree:
+    """Average over the leading node dimension (the consensus target)."""
+    return tree_map(lambda x: x.mean(dim=0), tree)
+

@@ -1,0 +1,71 @@
+"""Deterministic synthetic classification data (port of
+``repro.data.synthetic``'s ``SyntheticClassification`` and
+``dirichlet_partition``).
+
+The teacher weights and the Dirichlet matrix come from
+``np.random.default_rng(seed)`` as in the reference, so they match exactly.
+Sampling uses an explicit ``torch.Generator`` on the data's device (the
+reference's ``jax.random`` stream cannot be reproduced); the tests feed
+both packages the same batches instead.
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+__all__ = ["SyntheticClassification", "dirichlet_partition"]
+
+
+@dataclasses.dataclass
+class SyntheticClassification:
+    """Teacher-MLP generated classification (stands in for MNIST/FMNIST)."""
+
+    d_in: int = 32
+    n_classes: int = 10
+    teacher_hidden: int = 64
+    seed: int = 0
+    device: torch.device | str = "cpu"
+
+    def __post_init__(self):
+        rng = np.random.default_rng(self.seed)
+        w1 = rng.normal(size=(self.d_in, self.teacher_hidden)) / np.sqrt(self.d_in)
+        w2 = (rng.normal(size=(self.teacher_hidden, self.n_classes))
+              / np.sqrt(self.teacher_hidden))
+        self.w1 = torch.as_tensor(w1, dtype=torch.float32, device=self.device)
+        self.w2 = torch.as_tensor(w2, dtype=torch.float32, device=self.device)
+
+    def label(self, x: torch.Tensor) -> torch.Tensor:
+        return (torch.tanh(x @ self.w1) @ self.w2).argmax(dim=-1)
+
+    def sample(self, gen: torch.Generator, n: int) -> tuple[torch.Tensor, torch.Tensor]:
+        x = torch.randn((n, self.d_in), generator=gen, device=self.w1.device)
+        return x, self.label(x)
+
+    def node_batches(self, gen: torch.Generator, n_nodes: int, per_node: int,
+                     partition: np.ndarray | None = None):
+        """Per-node batches ``(x (N, per_node, d_in), y (N, per_node))``,
+        optionally label-skewed by a Dirichlet matrix (N, n_classes):
+        Gumbel-top-k sampling without replacement from 4 * per_node draws
+        with probability proportional to the node's class weights."""
+        dev = self.w1.device
+        xs = torch.randn((n_nodes, 4 * per_node, self.d_in), generator=gen,
+                         device=dev)
+        ys = self.label(xs)
+        if partition is None:
+            return xs[:, :per_node], ys[:, :per_node]
+        probs = torch.as_tensor(partition, dtype=torch.float32, device=dev)
+        w = torch.gather(probs, 1, ys)
+        u = torch.rand(w.shape, generator=gen, device=dev).clamp_min(1e-20)
+        g = -torch.log(-torch.log(u))
+        idx = torch.argsort(-(torch.log(w + 1e-9) + g), dim=1)[:, :per_node]
+        x_sel = torch.gather(xs, 1, idx[..., None].expand(-1, -1, self.d_in))
+        return x_sel, torch.gather(ys, 1, idx)
+
+
+def dirichlet_partition(n_nodes: int, n_classes: int, alpha: float = 0.5,
+                        seed: int = 0) -> np.ndarray:
+    """Per-node class distributions: rows ~ Dirichlet(alpha)."""
+    rng = np.random.default_rng(seed)
+    return rng.dirichlet(np.full(n_classes, alpha), size=n_nodes)

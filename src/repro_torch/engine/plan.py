@@ -1,0 +1,114 @@
+"""ProtocolPlan — deployment choices derived from the topology, port of
+``repro.engine.plan``.
+
+* Schedule: ``circulant`` whenever the topology exposes circulant offsets
+  (d-Out and EXP do), unless ``schedule="dense"`` forces the paper-faithful
+  ``W @ s``; ``dense`` for non-circulant topologies. The sparse, dynamic
+  and async schedules are not ported yet.
+* Time-varying topologies: circulant plans hold the superset offsets and a
+  (period, K) weight table; dense plans a (period, N, N) stack of W.
+* Kernel routing: ``use_kernels=None`` picks the CUDA kernels on a CUDA
+  device and the plain versions on the CPU (:mod:`repro_torch.device`).
+* ``sync_interval="auto"`` syncs every ``max(2, 2 * period)`` rounds.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any
+
+import numpy as np
+import torch
+
+from repro_torch.core.dpps import DPPSConfig
+from repro_torch.core.packing import LANE
+from repro_torch.core.partpsp import PartPSPConfig
+from repro_torch.core.topology import Topology
+from repro_torch.device import resolve_device, resolve_use_kernels
+
+__all__ = ["ProtocolPlan"]
+
+
+@dataclasses.dataclass(frozen=True)
+class ProtocolPlan:
+    """Static protocol-execution choices plus their per-round operands.
+
+    Fields: ``schedule`` ("dense" | "circulant"), ``period``, ``offsets``
+    and ``mix_weights`` (P, K) for circulant plans, ``ws`` (P, N, N) f32 for
+    dense ones, ``use_kernels``, ``sync_interval`` (None keeps the
+    config's), ``chunk`` (rounds between host syncs of the trajectory) and
+    ``device``.
+    """
+
+    schedule: str
+    period: int
+    device: torch.device
+    offsets: tuple[int, ...] | None = None
+    mix_weights: torch.Tensor | None = None
+    ws: torch.Tensor | None = None
+    use_kernels: bool = False
+    sync_interval: int | None = None
+    chunk: int = 50
+
+    @classmethod
+    def from_topology(cls, topo: Topology, *, schedule: str | None = None,
+                      use_kernels: bool | None = None,
+                      sync_interval: int | str | None = None, chunk: int = 50,
+                      device=None) -> "ProtocolPlan":
+        if schedule not in (None, "dense", "circulant"):
+            raise ValueError(f"unknown or unported schedule {schedule!r}")
+        dev = resolve_device(device)
+        use_kernels = resolve_use_kernels(use_kernels, dev)
+        period = int(getattr(topo, "period", 1))
+        per_round = []
+        for t in range(period):
+            if topo.offsets(t) is None:
+                per_round = None
+                break
+            per_round.append(topo.mixing_weights(t))
+        if schedule is None:
+            schedule = "circulant" if per_round is not None else "dense"
+        if schedule == "circulant" and per_round is None:
+            raise ValueError(f"{type(topo).__name__} is not circulant; use "
+                             "schedule='dense'")
+        offsets = mix_weights = ws = None
+        if schedule == "circulant":
+            superset = tuple(sorted({o for offs, _ in per_round for o in offs}))
+            rows = np.zeros((period, len(superset)), np.float32)
+            col = {o: i for i, o in enumerate(superset)}
+            for t, (offs, wts) in enumerate(per_round):
+                for o, wv in zip(offs, wts):
+                    rows[t, col[o]] += wv
+            offsets = superset
+            mix_weights = torch.as_tensor(rows, device=dev)
+        else:
+            ws = torch.stack([topo.weight_matrix_torch(t, device=dev)
+                              for t in range(period)])
+        if sync_interval == "auto":
+            sync_interval = max(2, 2 * period)
+        return cls(schedule=schedule, period=period, device=dev,
+                   offsets=offsets, mix_weights=mix_weights, ws=ws,
+                   use_kernels=use_kernels, sync_interval=sync_interval,
+                   chunk=chunk)
+
+    @property
+    def lane(self) -> int:
+        """Column alignment of the packed buffer: 128 for the kernels, 1
+        for the plain path (``repro.engine.rounds.wire_layout``)."""
+        return LANE if self.use_kernels else 1
+
+    def mix_at(self, t: int) -> dict[str, Any]:
+        """``dpps_step`` mixing kwargs for round ``t``."""
+        r = t % self.period
+        if self.schedule == "circulant":
+            return dict(offsets=self.offsets, mix_weights=self.mix_weights[r])
+        return dict(w=self.ws[r])
+
+    def resolve_dpps(self, cfg: DPPSConfig) -> DPPSConfig:
+        updates: dict[str, Any] = dict(schedule=self.schedule,
+                                       use_kernels=self.use_kernels)
+        if self.sync_interval is not None:
+            updates["sync_interval"] = int(self.sync_interval)
+        return dataclasses.replace(cfg, **updates)
+
+    def resolve_partpsp(self, cfg: PartPSPConfig) -> PartPSPConfig:
+        return dataclasses.replace(cfg, dpps=self.resolve_dpps(cfg.dpps))

@@ -1,0 +1,48 @@
+// Shared pieces of the row-reduction kernels (l1_norm.cu, dpps_perturb.cu).
+//
+// Both kernels reduce each row of a (N, d_pad) f32 buffer in two passes:
+// pass one gives one partial per (row, chunk) block, pass two sums a row's
+// partials in a fixed order. No atomics, so the result is deterministic.
+// Element offsets are int64 throughout: at the full-width shape N * d_pad
+// exceeds 2^31.
+#pragma once
+
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace repro_torch {
+
+constexpr int kThreads = 256;
+constexpr int kQuadsPerThread = 8;
+// Elements per pass-one block: the 64 x 128 tile of the Pallas kernels.
+constexpr int64_t kChunk = (int64_t)kThreads * kQuadsPerThread * 4;
+
+// Sum over the block in a fixed order: warp shuffles, then thread 0 adds
+// the warp totals in warp order. The result is valid in thread 0 only.
+__device__ __forceinline__ float block_sum(float v, float* smem) {
+  for (int off = 16; off > 0; off >>= 1) v += __shfl_down_sync(0xffffffffu, v, off);
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  if (lane == 0) smem[warp] = v;
+  __syncthreads();
+  float total = 0.f;
+  if (threadIdx.x == 0) {
+    const int n_warps = (blockDim.x + 31) >> 5;
+    for (int i = 0; i < n_warps; ++i) total += smem[i];
+  }
+  __syncthreads();
+  return total;
+}
+
+// Pass two: out[row] = sum over partials[row, 0:n_chunks]; one block a row.
+static __global__ void sum_partials_kernel(const float* __restrict__ partials,
+                                           int64_t n_chunks,
+                                           float* __restrict__ out) {
+  __shared__ float smem[32];
+  const float* p = partials + (int64_t)blockIdx.x * n_chunks;
+  float acc = 0.f;
+  for (int64_t j = threadIdx.x; j < n_chunks; j += blockDim.x) acc += p[j];
+  const float total = block_sum(acc, smem);
+  if (threadIdx.x == 0) out[blockIdx.x] = total;
+}
+
+}  // namespace repro_torch

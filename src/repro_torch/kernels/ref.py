@@ -1,0 +1,150 @@
+"""Plain PyTorch versions of the hand-written kernels.
+
+Each function computes exactly what its CUDA kernel in ``csrc/`` computes,
+over the same (N, d_pad) row layout. The wrappers in
+:mod:`repro_torch.kernels.ops` take these for tensors on the CPU; the tests
+hold them against ``repro.kernels.ref`` and the interpret-mode Pallas
+kernels, and ``chip_smoke.py`` holds the CUDA kernels against them on the
+card.
+
+torch on the CPU has no ``>>`` for ``uint32``, so bits are widened to
+``int64`` before any shift.
+"""
+from __future__ import annotations
+
+import torch
+
+__all__ = [
+    "philox4x32_10",
+    "philox_bits",
+    "laplace_from_bits",
+    "l1_norm_rows",
+    "dpps_perturb_rows",
+    "pushsum_mix",
+]
+
+_MASK32 = 0xFFFFFFFF
+_PHILOX_M0, _PHILOX_M1 = 0xD2511F53, 0xCD9E8D57
+_PHILOX_W0, _PHILOX_W1 = 0x9E3779B9, 0xBB67AE85
+
+
+def _mulhilo(a: int, b: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """(hi, lo) 32-bit words of ``a * b`` for a < 2^32 and int64 b < 2^32,
+    from 16-bit halves of ``a`` so no product leaves int64."""
+    p_lo = b * (a & 0xFFFF)            # < 2^48
+    p_hi = b * (a >> 16)               # < 2^48
+    lo = (p_lo + ((p_hi & 0xFFFF) << 16)) & _MASK32
+    hi = (p_hi + (p_lo >> 16)) >> 16
+    return hi, lo
+
+
+def philox4x32_10(ctr: tuple[torch.Tensor, ...], key: tuple[int, int]):
+    """Philox4x32-10 (Salmon et al., SC'11) on int64 tensors holding uint32
+    words. ``ctr`` is four broadcastable tensors; ``key`` two ints.
+
+    Plain version of ``philox4x32_10`` in ``csrc/dpps_perturb.cu``. It has
+    no Pallas counterpart: the reference draws its bits outside the kernel
+    with ``jax.random.bits`` (``repro/kernels/ops.py::dpps_perturb_flat``),
+    whose threefry stream the port does not reproduce; the tests feed those
+    bits in through the bits-in variant instead."""
+    c0, c1, c2, c3 = ctr
+    k0, k1 = key[0] & _MASK32, key[1] & _MASK32
+    for _ in range(10):
+        hi0, lo0 = _mulhilo(_PHILOX_M0, c0)
+        hi1, lo1 = _mulhilo(_PHILOX_M1, c2)
+        c0, c1, c2, c3 = hi1 ^ c1 ^ k0, lo1, hi0 ^ c3 ^ k1, lo0
+        k0 = (k0 + _PHILOX_W0) & _MASK32
+        k1 = (k1 + _PHILOX_W1) & _MASK32
+    return c0, c1, c2, c3
+
+
+def philox_bits(seed: int, t: int, n_nodes: int, start: int, stop: int,
+                device=None) -> torch.Tensor:
+    """The production noise bits of round ``t``: (n_nodes, stop - start)
+    int64 holding uint32 values for elements [start, stop) of every row.
+
+    Element ``e`` of node ``n`` is word ``e % 4`` of Philox4x32-10 with key
+    ``(seed lo, seed hi)`` and counter ``(e // 4 lo, e // 4 hi, n, t)`` —
+    a pure function of (seed, t, node, e), as the Philox variant of
+    ``csrc/dpps_perturb.cu`` computes it. It stands where the reference's
+    ``fold_in(key, t)`` / ``split(key, N)`` / ``jax.random.bits`` chain
+    stands (``repro/engine/rounds.py``, ``repro/kernels/ops.py``).
+    """
+    q0, q1 = start // 4, -(-stop // 4)
+    q = torch.arange(q0, q1, dtype=torch.int64, device=device)[None, :]
+    nodes = torch.arange(n_nodes, dtype=torch.int64, device=device)[:, None]
+    shape = (n_nodes, q1 - q0)
+    ctr = (q.expand(shape) & _MASK32, (q >> 32).expand(shape),
+           nodes.expand(shape),
+           torch.full(shape, int(t) & _MASK32, dtype=torch.int64,
+                      device=device))
+    words = philox4x32_10(ctr, (seed & _MASK32, (seed >> 32) & _MASK32))
+    flat = torch.stack(words, dim=-1).reshape(n_nodes, 4 * (q1 - q0))
+    lo = start - 4 * q0
+    return flat[:, lo:lo + (stop - start)]
+
+
+def laplace_from_bits(bits: torch.Tensor, scale) -> torch.Tensor:
+    """Laplace(0, scale) from uint32 bits by the inverse CDF.
+
+    Mirrors ``repro.kernels.ref.laplace_from_bits`` (the transform of the
+    Pallas kernel ``repro/kernels/laplace_noise.py::_laplace_transform``):
+    ``u = (bits >> 8) 2^-24``, ``c = u - 1/2``,
+    ``-scale sign(c) log(max(1 - 2|c|, 1e-30))``. Bits ``1 << 31`` give
+    exactly zero noise.
+    """
+    u = (bits.to(torch.int64) >> 8).to(torch.float32) * (1.0 / (1 << 24))
+    c = u - 0.5
+    mag = torch.clamp_min(1.0 - 2.0 * c.abs(), 1e-30)
+    if isinstance(scale, torch.Tensor):
+        scale = scale.to(torch.float32)
+    return -scale * torch.sign(c) * torch.log(mag)
+
+
+def l1_norm_rows(buf: torch.Tensor, d_s: int) -> torch.Tensor:
+    """Per-row L1 norm of the first ``d_s`` columns -> (N,).
+
+    Plain version of ``csrc/l1_norm.cu``; mirrors the Pallas
+    ``repro/kernels/l1_clip.py::l1_norm`` as ``repro.kernels.ops.
+    l1_norm_packed`` applies it per node (oracle: ``repro.kernels.ref.
+    l1_norm``).
+    """
+    return buf[:, :d_s].to(torch.float32).abs().sum(dim=1)
+
+
+def dpps_perturb_rows(s: torch.Tensor, eps: torch.Tensor, scale,
+                      gamma_n: float, d_s: int, *,
+                      bits: torch.Tensor | None = None,
+                      seed: int | None = None, t: int | None = None):
+    """Fused Eq. 7 + Eq. 8 over the packed rows.
+
+    ``s_noise = s + eps + gamma_n Lap(bits; scale)`` on the first ``d_s``
+    columns, exact zeros in the pad columns, plus per-row ``||eps||_1`` and
+    ``||noise||_1``. ``bits`` (N, d_s) uint32 feeds explicit bits (the
+    bits-in variant); otherwise :func:`philox_bits` of ``(seed, t)``.
+
+    Plain version of ``csrc/dpps_perturb.cu``; mirrors the Pallas
+    ``repro/kernels/dpps_perturb.py::dpps_perturb`` as ``repro.kernels.ops.
+    dpps_perturb_packed`` applies it (oracle: ``repro.kernels.ref.
+    dpps_perturb``).
+    """
+    n, d_pad = s.shape
+    if bits is None:
+        bits = philox_bits(seed, t, n, 0, d_s, device=s.device)
+    noise = laplace_from_bits(bits, scale)
+    eps_w = eps[:, :d_s].to(torch.float32)
+    row = s[:, :d_s].to(torch.float32) + eps_w + gamma_n * noise
+    if d_pad != d_s:
+        row = torch.cat([row, row.new_zeros((n, d_pad - d_s))], dim=1)
+    return (row.to(s.dtype), eps_w.abs().sum(dim=1),
+            noise.abs().sum(dim=1))
+
+
+def pushsum_mix(w: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """``W @ x`` with f32 accumulation, result in x's dtype.
+
+    Plain version of ``csrc/pushsum_mix.cu``; mirrors the Pallas
+    ``repro/kernels/pushsum_mix.py::pushsum_mix`` (oracle:
+    ``repro.kernels.ref.pushsum_mix``).
+    """
+    return (w.to(torch.float32) @ x.to(torch.float32)).to(x.dtype)

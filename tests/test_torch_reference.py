@@ -1,0 +1,119 @@
+"""JAX-side helpers for the port's conformance tests, and their own tests.
+
+Other ``tests/test_torch_*.py`` files import from here
+(``from test_torch_reference import ...``; ``tests/`` has no
+``__init__.py``, so it is on ``sys.path``).
+
+* :func:`load_reference` imports the reference package ``repro``. On jax
+  0.9 ``jax.interpreters.batching.primitive_batchers`` is a proxy without
+  ``__contains__``, so the membership test in ``repro/core/tree_utils.py``
+  raises ``TypeError`` at import. The helper gives the proxy class the
+  missing ``__contains__`` (membership in the batcher table the proxy
+  writes to) before importing. It is called from fixtures at test time,
+  never at module import, so collecting the suite does not change which
+  reference test files import.
+* :func:`reference_bits` rebuilds the exact uint32 noise bits the
+  reference's kernel path consumed in round ``t``, so the port can be fed
+  the same bits through its ``bits_at`` seam.
+"""
+from __future__ import annotations
+
+import importlib
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+__all__ = ["load_reference", "reference_bits", "to_numpy"]
+
+
+def _install_batchers_contains() -> None:
+    from jax._src.interpreters import batching as batching_internal
+    from jax.interpreters import batching
+
+    proxy_cls = type(batching.primitive_batchers)
+    if not hasattr(proxy_cls, "__contains__"):
+        table = batching_internal.fancy_primitive_batchers
+        proxy_cls.__contains__ = lambda self, prim: prim in table
+
+
+def load_reference():
+    """The reference package ``repro`` with the modules the tests use
+    (``repro.api``, ``repro.kernels.ops``, ``repro.kernels.ref``) imported."""
+    _install_batchers_contains()
+    repro = importlib.import_module("repro")
+    for name in ("repro.api", "repro.core.packing", "repro.data",
+                 "repro.kernels.ops", "repro.kernels.ref"):
+        importlib.import_module(name)
+    return repro
+
+
+def reference_bits(seed: int, t: int, n_nodes: int, d_s: int, *,
+                   partpsp: bool = False) -> np.ndarray:
+    """The (N, d_s) uint32 bits the reference kernel path drew in round t.
+
+    ``run_dpps`` folds the round into the base key (``rounds.py``), and
+    ``ops.dpps_perturb_packed`` splits that key over the nodes and draws
+    ``jax.random.bits(node_key, (d_s,), uint32)`` for each, under ``vmap``.
+    ``run_partpsp`` first splits the round key in three and hands the
+    third to the DPPS round (``partpsp.py``).
+    """
+    key = jax.random.fold_in(jax.random.PRNGKey(seed), t)
+    if partpsp:
+        key = jax.random.split(key, 3)[2]
+    node_keys = jax.random.split(key, n_nodes)
+    bits = jax.vmap(lambda k: jax.random.bits(k, (d_s,), jnp.uint32))(node_keys)
+    return np.array(bits)  # a writable copy: torch.from_numpy shares it
+
+
+def to_numpy(x) -> np.ndarray:
+    if isinstance(x, torch.Tensor):
+        return x.detach().cpu().numpy()
+    return np.asarray(x)
+
+
+# -- the helpers' own tests --------------------------------------------------
+
+@pytest.fixture(scope="module")
+def R():
+    return load_reference()
+
+
+def test_load_reference_imports_the_protocol_front_door(R):
+    assert hasattr(R.api, "Session")
+    assert hasattr(R.kernels.ops, "dpps_perturb_packed")
+    # A second call is a no-op: the shim is installed once.
+    assert load_reference() is R
+
+
+@pytest.mark.parametrize("n_nodes,d_s", [(4, 3), (3, 200)])
+def test_reference_bits_are_the_bits_the_kernel_path_consumes(R, n_nodes, d_s):
+    """The fused Pallas round with the round key equals the plain oracle
+    fed :func:`reference_bits`, bit for bit."""
+    seed, t = 7, 3
+    rng = np.random.default_rng(0)
+    s = rng.normal(size=(n_nodes, d_s)).astype(np.float32)
+    eps = rng.normal(size=(n_nodes, d_s)).astype(np.float32)
+    key = jax.random.fold_in(jax.random.PRNGKey(seed), t)
+    s_noise, eps_l1, noise_l1 = R.kernels.ops.dpps_perturb_packed(
+        jnp.asarray(s), jnp.asarray(eps), key, 0.5, 0.25, d_s)
+    bits = reference_bits(seed, t, n_nodes, d_s)
+    assert bits.dtype == np.uint32 and bits.shape == (n_nodes, d_s)
+    for i in range(n_nodes):
+        want, _, want_l1 = R.kernels.ref.dpps_perturb(
+            jnp.asarray(s[i]), jnp.asarray(eps[i]), jnp.asarray(bits[i]),
+            0.5, 0.25)
+        np.testing.assert_array_equal(np.asarray(s_noise[i]), np.asarray(want))
+        np.testing.assert_allclose(float(noise_l1[i]), float(want_l1),
+                                   rtol=1e-6)  # tile partials vs one sum
+
+
+def test_reference_bits_partpsp_uses_the_third_split():
+    a = reference_bits(0, 2, 3, 16)
+    b = reference_bits(0, 2, 3, 16, partpsp=True)
+    assert not np.array_equal(a, b)
+    key = jax.random.split(jax.random.fold_in(jax.random.PRNGKey(0), 2), 3)[2]
+    first = jax.random.bits(jax.random.split(key, 3)[0], (16,), jnp.uint32)
+    np.testing.assert_array_equal(b[0], np.asarray(first))
