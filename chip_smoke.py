@@ -6,26 +6,40 @@
 
 Phases, each printing one JSON line:
 
-1. ``build``      compile the three kernels (one nvcc each, in parallel).
+1. ``build``      compile the six kernels (one nvcc each, in parallel).
 2. ``kernels``    each kernel against its plain PyTorch version at the main
-                  path's two shapes: the paper MLP's shared layer (N = 10,
-                  d_s = 7840) and the full-width consensus buffer (N = 5,
-                  d_s = 505,956,352), plus the Philox noise statistics.
+                  paths' shapes: the dense kernels at the paper MLP's shared
+                  layer (N = 10, d_s = 7840) and the dense full-width buffer
+                  (N = 5, d_s = 505,956,352), plus the Philox noise
+                  statistics; the norm and the perturbation also at the
+                  sparse paths' shapes (N = 24, d_s = 95,669,064 and
+                  N = 128, d_s = 7840); ``spmm`` at the sparse full width (N = 24,
+                  d_s = 95,669,064), the sparse training shape (N = 128,
+                  d_s = 7840) and the widest sparse sweep (N = 4096, D = 8),
+                  and bit for bit against ``pushsum_mix`` at full width.
 3. ``consensus``  ``Session.build(DOutGraph(5, 2), schedule="dense")`` then
-                  20 rounds over a (5, 505,956,352) f32 buffer: ms a round
-                  and the consensus error of every round.
+                  ``run(20)`` over a (5, 505,956,352) f32 buffer, in one
+                  call (timed), and one round a call (the error by round).
 4. ``training``   PartPSP on the paper MLP (N = 10, 2-out, partpsp-1), 50
-                  steps.
-5. ``agreement``  the same seeded consensus and training runs on the card
-                  (kernels) and on the CPU (plain versions) agree.
+                  steps, dense schedule.
+5. ``sparse_consensus``  ``Session.build(ErdosRenyiGraph(24, p=8/24),
+                  schedule="sparse")`` then ``run(20)`` over a (24,
+                  95,669,064) f32 buffer, as in phase 3.
+6. ``sparse_training``   PartPSP on the paper MLP at N = 128 on ER(128,
+                  p=8/128), sparse schedule, 50 steps.
+7. ``tree_ops``   ``ops.l1_clip_tree`` and ``ops.laplace_noise_tree`` on the
+                  sparse full-width tree, each against its plain version,
+                  with the Laplace statistics.
+8. ``agreement``  seeded consensus and training runs on the card (kernels)
+                  and on the CPU (plain versions) agree, dense and sparse.
 
-Each kernel counts its launches. The counts are set to 0 just before
-phases 3 and 4, which are the main path, and read just after; a kernel
-that the main path did not launch fails the run. Then come the card's name
-and power limit (``nvidia-smi``), the ``kernels`` line with every kernel's
-times beside its bound, and the status line. Any failure raises and exits
-non-zero. Without a CUDA card, or without the repository beside it, the
-script prints nothing on stdout and exits 2.
+Each kernel counts its launches. The counts are set to 0 just before each
+path (phases 3-7) and read just after; each path names the kernels it must
+launch (and the sparse paths must launch ``pushsum_mix`` no time). Then
+come the card's name and power limit (``nvidia-smi``), the ``kernels`` line
+with every kernel's times beside its bound, and the status line. Any
+failure raises and exits non-zero. Without a CUDA card, or without the
+repository beside it, the script prints nothing on stdout and exits 2.
 """
 from __future__ import annotations
 
@@ -47,6 +61,14 @@ INT32_OPS_PER_S = 33.5e12  # half the f32 lanes of an SM are int32 lanes
 
 PAPER = dict(n=10, d_s=7840)             # the paper MLP's shared layer l1
 FULL = dict(n=5, d_s=505_956_352)        # full-width shared vector, N = 5
+# The shared vector PartPSP gossips for xlstm-125m under its own rule
+# ("group_0/mlstm/.*" shared, default local), on ER(24, p = 8/24).
+SPARSE_FULL = dict(n=24, d_s=95_669_064)
+SPARSE_TRAIN_N = 128                     # ER(128, p = 8/128): K = 21
+SPARSE_TRAIN = dict(n=SPARSE_TRAIN_N, d_s=PAPER["d_s"])
+# The widest point of benchmarks/bench_sparse.py: ER(4096, p = 8/N) at its
+# seed (2024, K = 24) and its width d = 8.
+SPARSE_SWEEP = dict(n=4096, d=8, seed=2024)
 CONSENSUS_ROUNDS, TRAIN_STEPS = 20, 50
 SEED = 2024
 
@@ -58,7 +80,16 @@ KERNELS = {
         replaces="src/repro/kernels/dpps_perturb.py:49"),
     "pushsum_mix": dict(source="src/repro_torch/kernels/csrc/pushsum_mix.cu",
                         replaces="src/repro/kernels/pushsum_mix.py:38"),
+    "spmm": dict(source="src/repro_torch/kernels/csrc/spmm.cu",
+                 replaces="src/repro/kernels/spmm.py:52"),
+    "clip_scale_rows": dict(source="src/repro_torch/kernels/csrc/clip_scale.cu",
+                            replaces="src/repro/kernels/l1_clip.py:50"),
+    "laplace_from_bits": dict(
+        source="src/repro_torch/kernels/csrc/laplace_noise.cu",
+        replaces="src/repro/kernels/laplace_noise.py:40"),
 }
+DENSE_PATH = ("l1_norm_rows", "dpps_perturb_rows", "pushsum_mix")
+SPARSE_PATH = ("l1_norm_rows", "dpps_perturb_rows", "spmm")
 
 
 def emit(obj) -> None:
@@ -98,6 +129,37 @@ def d_pad_of(d_s: int) -> int:
     return -(-d_s // 128) * 128
 
 
+def require_launches(launches: dict, expected, where: str,
+                     absent=()) -> None:
+    """Every kernel in ``expected`` ran on this path; none in ``absent``."""
+    missing = [k for k in expected if launches[k] <= 0]
+    require(not missing, f"{missing} did not run on the {where} path: "
+                         f"{launches}")
+    extra = [k for k in absent if launches[k] != 0]
+    require(not extra, f"{extra} ran on the {where} path: {launches}")
+
+
+def timed_windows(torch, plain, check, d: int, cols: int) -> float:
+    """Run ``plain(c0, c1)`` over column windows of [0, d) and hand each
+    result to ``check(c0, c1, result)``; returns the summed device
+    milliseconds of the ``plain`` calls alone, by CUDA events. Used where
+    a plain version's temporaries would not fit beside full-width buffers:
+    its time is then the same work in pieces."""
+    events = []
+    for c0 in range(0, d, cols):
+        c1 = min(d, c0 + cols)
+        ev0 = torch.cuda.Event(enable_timing=True)
+        ev1 = torch.cuda.Event(enable_timing=True)
+        ev0.record()
+        result = plain(c0, c1)
+        ev1.record()
+        events.append((ev0, ev1))
+        check(c0, c1, result)
+        del result
+    torch.cuda.synchronize()
+    return sum(a.elapsed_time(b) for a, b in events)
+
+
 def compare(got, want, rtol: float, atol: float, cols: int = 1 << 24):
     """(max abs error, all |got - want| <= atol + rtol |want|), taken over
     column windows so no full-size temporary is made."""
@@ -113,21 +175,25 @@ def compare(got, want, rtol: float, atol: float, cols: int = 1 << 24):
 # -- phase 2: each kernel against its plain version --------------------------
 
 def check_kernels(torch, ops, ref, shape: dict, dev, iters: int,
-                  cols: int) -> dict:
-    """Kernel vs plain at one shape; returns per-kernel errors and times.
+                  cols: int, mix: bool = True) -> dict:
+    """The dense path's kernels vs plain at one shape (``pushsum_mix`` only
+    with ``mix``); returns per-kernel errors and times.
 
-    Where the plain version's temporaries would not fit beside the
-    full-width buffers (its Philox draw holds a dozen int64 copies of the
-    row), it runs over column windows of ``cols``; its time is then the sum
-    of the windows' times, the same work in pieces.
+    The pad columns of the inputs hold 1e4, not 0: the norms must leave
+    them out and the perturbed rows must come out 0 there, so a wrong mask
+    or a wrong row offset (past 2^31 elements at full width) shows. Where
+    the plain version's temporaries would not fit beside the full-width
+    buffers (its Philox draw holds a dozen int64 copies of the row), it
+    runs over column windows of ``cols``; its time is then the sum of the
+    windows' times, the same work in pieces.
     """
     n, d_s = shape["n"], shape["d_s"]
     d_pad = d_pad_of(d_s)
     gen = torch.Generator(device=dev).manual_seed(SEED)
     s = torch.randn((n, d_pad), generator=gen, device=dev)
     eps = torch.randn((n, d_pad), generator=gen, device=dev).mul_(0.1)
-    s[:, d_s:] = 0
-    eps[:, d_s:] = 0
+    s[:, d_s:] = 1e4
+    eps[:, d_s:] = 1e4
     scale_v, gamma_n, t = 0.7, 0.1, 3
     scale = torch.tensor(scale_v, device=dev)
     out = {}
@@ -201,6 +267,8 @@ def check_kernels(torch, ops, ref, shape: dict, dev, iters: int,
         bound=bound(8.0 * n * d_s + 4.0 * n * d_pad + 8 * n + 4,
                     f32_ops=17.0 * n * d_s, int_ops=25.0 * n * d_s))
     del k_out
+    if not mix:
+        return out
 
     # pushsum_mix: W of the d-Out graph; the plain version fits
     w = torch.zeros((n, n), device=dev)
@@ -221,6 +289,60 @@ def check_kernels(torch, ops, ref, shape: dict, dev, iters: int,
         library_ms=cuda_ms(torch, lambda: torch.matmul(w, s),
                            max(1, iters // 2)),
         bound=bound(8.0 * n * d_pad + 4 * n * n, f32_ops=2.0 * n * n * d_pad))
+    return out
+
+
+def csr_of(torch, topo, dev):
+    """Round 0's padded CSR of ``topo`` on the card, its dense W, and the
+    number of real edges (nonzero weights)."""
+    idx, vals = topo.sparse_weights(0)
+    nnz = int((vals > 0).sum())
+    return (torch.as_tensor(idx, device=dev),
+            torch.as_tensor(vals, dtype=torch.float32, device=dev),
+            topo.weight_matrix_torch(0, device=dev), nnz)
+
+
+def check_spmm(torch, ops, ref, topo, d: int, dev, iters: int,
+               cols: int) -> dict:
+    """``spmm`` against its plain version (over column windows of ``cols``:
+    its per-slot (N, cols) temporaries would not fit at full width), and
+    ``torch.sparse.mm`` of the CSR W (one cuSPARSE call) as the library
+    yardstick, at x (N, d)."""
+    n = topo.n_nodes
+    idx, vals, w, nnz = csr_of(torch, topo, dev)
+    k = idx.shape[1]
+    gen = torch.Generator(device=dev).manual_seed(SEED + n)
+    x = torch.randn((n, d), generator=gen, device=dev)
+    got = ops.spmm(idx, vals, x)
+    err = [0.0]
+
+    def check(c0, c1, want):
+        # rtol 1e-6 / atol 1e-6: fma against a separate multiply and add
+        e, ok = compare(got[:, c0:c1], want, rtol=1e-6, atol=1e-6)
+        require(ok, f"spmm disagrees at N={n}, d={d}, cols [{c0}, {c1}): "
+                    f"max abs err {e}")
+        err[0] = max(err[0], e)
+
+    ref.spmm(idx, vals, x[:, :min(d, cols)])  # warm-up
+    plain_ms = timed_windows(
+        torch, lambda c0, c1: ref.spmm(idx, vals, x[:, c0:c1]), check, d,
+        cols)
+    bit_exact = None
+    if n <= ops.MAX_MIX_NODES:
+        bit_exact = bool(torch.equal(got, ops.pushsum_mix(w, x)))
+        require(bit_exact, f"spmm differs from pushsum_mix at N={n}, d={d}")
+    del got
+    w_csr = w.to_sparse_csr()
+    out = dict(n=n, d=d, k=k, edges=nnz, max_abs_err=err[0],
+               equals_pushsum_mix=bit_exact,
+               ms=cuda_ms(torch, lambda: ops.spmm(idx, vals, x), iters),
+               plain_ms=plain_ms,
+               library_ms=cuda_ms(torch, lambda: torch.sparse.mm(w_csr, x),
+                                  max(1, iters // 2)),
+               bound=bound(8.0 * n * d + 8.0 * n * k,
+                           f32_ops=2.0 * nnz * d))
+    del x
+    torch.cuda.empty_cache()
     return out
 
 
@@ -246,89 +368,161 @@ def philox_statistics(torch, ops, dev) -> dict:
     return stats
 
 
-# -- phase 3: consensus at full width ----------------------------------------
+# -- phases 3 and 5: consensus at full width ---------------------------------
 
-def consensus(torch, api, T, ops, dev) -> dict:
+def consensus(torch, api, T, ops, dev, *, topo, shape: dict, schedule: str,
+              phase: str, expected, absent=()) -> dict:
+    """``Session.run(CONSENSUS_ROUNDS)`` over an (N, d_s) f32 buffer, as a
+    user calls it: one call, timed on the host around it, with the launch
+    counts read over it. The consensus error by round comes from a second,
+    untimed pass of one round a call (each call packs the state anew), whose
+    last state must agree with the timed run's."""
     from repro_torch.core.pushsum import consensus_error
 
-    n, d_s = FULL["n"], FULL["d_s"]
-    topo = T.DOutGraph(n, 2)
+    n, d_s = shape["n"], shape["d_s"]
+    t0 = time.perf_counter()
     c_prime, lam = T.calibrate_constants(topo)
+    calib_s = time.perf_counter() - t0
     b = 1.0
     # The Remark-1 recursion stays bounded only for
     # gamma_n < (1/lam - 1) * b / (2 C' d_s); take half of that.
     gamma_max = (1.0 / lam - 1.0) * b / (2.0 * c_prime * d_s)
     gamma_n = 0.5 * gamma_max
     session = api.Session.build(topo, privacy=api.PrivacySpec(
-        b=b, gamma_n=gamma_n, c_prime=c_prime, lam=lam), schedule="dense",
+        b=b, gamma_n=gamma_n, c_prime=c_prime, lam=lam), schedule=schedule,
         seed=SEED)
     require(session.plan.use_kernels and session.device.type == "cuda",
             "the session did not pick the card and its kernels")
+    require(session.plan.schedule == schedule, "schedule")
     gen = torch.Generator(device=dev).manual_seed(SEED)
     values = {"shared": torch.randn((n, d_s), generator=gen, device=dev)}
     err0 = consensus_error(values["shared"], chunk=1 << 24).item()
-    torch.cuda.synchronize()
-    ops.reset_launch_counts()
-    state, round_ms, errors = None, [], []
+
+    # the errors by round (this pass also warms the allocator)
+    state, errors = None, []
     for r in range(CONSENSUS_ROUNDS):
-        t0 = time.perf_counter()
-        rep = (session.run(1, values=values) if state is None
-               else session.run(1, state=state))
-        torch.cuda.synchronize()
-        round_ms.append((time.perf_counter() - t0) * 1e3)
-        state = rep.state
+        state = (session.run(1, values=values) if state is None
+                 else session.run(1, state=state)).state
         errors.append(consensus_error(state.push.s["shared"], a=state.push.a,
                                       chunk=1 << 24).item())
-    launches = ops.launch_counts()
+    del state
+
+    # the timed run: every round in one call
     torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    rep = session.run(CONSENSUS_ROUNDS, values=values)
+    torch.cuda.synchronize()
+    run_ms = (time.perf_counter() - t0) * 1e3
+    launches = ops.launch_counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    state = rep.state
     a_mean = state.push.a.double().mean().item()
     finite = all(bool(torch.isfinite(x).all()) for x in
                  (state.push.s["shared"], state.push.a, state.sens.s_local))
-    require(finite, "consensus state not finite")
+    require(finite, f"{phase} state not finite")
     require(abs(a_mean - 1.0) < 1e-6, f"mean(a) = {a_mean}, not 1")
-    require(all(v > 0 for v in launches.values()),
-            f"a kernel did not run on the consensus path: {launches}")
+    require_launches(launches, expected, phase, absent)
     require(state.t == CONSENSUS_ROUNDS, "round counter")
-    steady = sorted(round_ms[1:])
-    return dict(phase="consensus", n=n, d_s=d_s, d_pad=d_pad_of(d_s),
-                rounds=CONSENSUS_ROUNDS, c_prime=c_prime, lam=lam, b=b,
-                gamma_n=gamma_n, gamma_n_stability_limit=gamma_max,
-                ms_per_round_median=steady[len(steady) // 2],
-                ms_round_0=round_ms[0], ms_per_round=round_ms,
+    err_last = consensus_error(state.push.s["shared"], a=state.push.a,
+                               chunk=1 << 24).item()
+    # the same seeded rounds in one call or in twenty: the same state
+    require(abs(err_last - errors[-1]) <= 1e-6 * abs(errors[-1]),
+            f"{phase}: one call ends at error {err_last}, one round a call "
+            f"at {errors[-1]}")
+    k = (None if session.plan.sparse_idx is None
+         else int(session.plan.sparse_idx.shape[-1]))
+    del state, rep
+    per_round, per_run = round_breakdown(torch, ops, session.plan, values,
+                                         d_s, gamma_n)
+    return dict(phase=phase, n=n, d_s=d_s, d_pad=d_pad_of(d_s),
+                topology=type(topo).__name__, schedule=schedule, csr_k=k,
+                rounds=CONSENSUS_ROUNDS, c_prime=c_prime, lam=lam,
+                calibrate_s=calib_s, b=b, gamma_n=gamma_n,
+                gamma_n_stability_limit=gamma_max, run_ms=run_ms,
+                ms_per_round=run_ms / CONSENSUS_ROUNDS,
                 consensus_error_initial=err0,
-                consensus_error_by_round=errors, a_mean=a_mean,
-                launches=launches,
-                peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
+                consensus_error_by_round=errors,
+                consensus_error_final_one_call=err_last, a_mean=a_mean,
+                launches=launches, peak_mem_gb=peak_gb,
+                round_breakdown_ms=per_round,
+                round_breakdown_sum_ms=sum(per_round.values()),
+                per_run_ms=per_run)
 
 
-# -- phase 4: PartPSP training -----------------------------------------------
+def round_breakdown(torch, ops, plan, values: dict, d_s: int,
+                    gamma_n: float) -> tuple[dict, dict]:
+    """Device milliseconds of the pieces of a run, each timed alone on
+    buffers of the round's shape: per round, the three kernels; per
+    ``Session.run`` call, the packing of the state at its segment boundary
+    (a copy when d_s is no multiple of 128) and the zero perturbation of a
+    consensus run. What the measured run takes beyond them is host work
+    and the (N,) bookkeeping."""
+    from repro_torch.core.packing import LANE, PackedLayout
 
-def training_setup(api, T, mlp, data, torch, device, *, steps: int):
+    layout = PackedLayout.from_tree(values, lane=LANE)
+    buf = layout.pack(values)
+    # the perturb reads s and eps from separate buffers, as in the round:
+    # one buffer passed twice would be read from device memory once
+    eps = torch.zeros_like(buf)
+    scale = torch.tensor(1.0, device=buf.device)
+    mix = plan.mix_at(1)
+    if plan.schedule == "sparse":
+        mix_fn = lambda: ops.spmm(mix["sparse_idx"], mix["sparse_vals"], buf)
+    else:
+        mix_fn = lambda: ops.pushsum_mix(mix["w"], buf)
+    per_round = dict(
+        l1_norm_rows=cuda_ms(torch, lambda: ops.l1_norm_rows(buf, d_s), 3),
+        dpps_perturb_rows=cuda_ms(torch, lambda: ops.dpps_perturb_rows(
+            buf, eps, scale, gamma_n, d_s, seed=SEED, t=1), 3),
+        mix=cuda_ms(torch, mix_fn, 3))
+    per_run = dict(
+        pack=cuda_ms(torch, lambda: layout.pack(values), 3),
+        zero_perturbation=cuda_ms(torch, lambda: torch.zeros_like(buf), 3))
+    del buf, eps
+    torch.cuda.empty_cache()
+    return per_round, per_run
+
+
+# -- phases 4 and 6: PartPSP training ----------------------------------------
+
+def training_batches(mlp, data, torch, n: int, steps: int) -> list:
+    """Seeded per-node batches of 32, drawn on the CPU so that every device
+    sees the same ones."""
+    task = data.SyntheticClassification(d_in=mlp.D_IN, seed=SEED,
+                                        device="cpu")
+    skew = data.dirichlet_partition(n, mlp.N_CLASSES, seed=SEED)
+    return [task.node_batches(torch.Generator().manual_seed(SEED + 1 + t),
+                              n, 32, skew) for t in range(steps)]
+
+
+def training_setup(api, mlp, torch, device, *, topo, schedule: str,
+                   batches: list, c_prime=None, lam=None):
     """The paper MLP setup of benchmarks/common.py build_setup, with the
     noise rate cut to 1e-5: its default 0.005 lies outside the recursion's
     stability region at the calibrated constants, where the reference's
-    losses turn to NaN as well. Batches are drawn on the CPU from a seeded
-    generator, so every device sees the same ones."""
-    n = 10
+    losses turn to NaN as well. (C', lambda) are calibrated unless given."""
     params = mlp.init_mlp(torch.Generator().manual_seed(SEED))
     session = api.Session.build(
-        T.DOutGraph(n, 2), privacy=api.PrivacySpec(b=1.0, gamma_n=1e-5),
+        topo, privacy=api.PrivacySpec(b=1.0, gamma_n=1e-5, c_prime=c_prime,
+                                      lam=lam),
         model=mlp.mlp_loss, params=params, partition=mlp.PARTITIONS[
             "partpsp-1"], algorithm="partpsp", gamma_l=0.1, gamma_s=0.1,
-        clip=100.0, schedule="dense", sync_interval=5, seed=SEED,
+        clip=100.0, schedule=schedule, sync_interval=5, seed=SEED,
         device=device)
-    task = data.SyntheticClassification(d_in=mlp.D_IN, seed=SEED)
-    skew = data.dirichlet_partition(n, mlp.N_CLASSES, seed=SEED)
-    batches = [task.node_batches(torch.Generator().manual_seed(SEED + 1 + t),
-                                 n, 32, skew) for t in range(steps)]
-    batches = [tuple(x.to(session.device) for x in b) for b in batches]
-    return session, (lambda t: batches[t])
+    on_device = [tuple(x.to(session.device) for x in b) for b in batches]
+    return session, (lambda t: on_device[t])
 
 
-def training(torch, api, T, mlp, data, ops) -> tuple[dict, object]:
-    session, batch_at = training_setup(api, T, mlp, data, torch, None,
-                                       steps=TRAIN_STEPS)
-    require(session.plan.use_kernels, "training did not pick the kernels")
+def training(torch, api, mlp, ops, *, topo, schedule: str, batches: list,
+             phase: str, expected, absent=()) -> tuple[dict, object]:
+    t0 = time.perf_counter()
+    session, batch_at = training_setup(api, mlp, torch, None, topo=topo,
+                                       schedule=schedule, batches=batches)
+    build_s = time.perf_counter() - t0  # mostly the (C', lambda) calibration
+    require(session.plan.use_kernels, f"{phase} did not pick the kernels")
+    require(session.plan.schedule == schedule, "schedule")
     torch.cuda.synchronize()
     ops.reset_launch_counts()
     t0 = time.perf_counter()
@@ -337,55 +531,203 @@ def training(torch, api, T, mlp, data, ops) -> tuple[dict, object]:
     wall = time.perf_counter() - t0
     launches = ops.launch_counts()
     loss = rep.trajectory["loss_mean"]
-    require(all(v > 0 for v in launches.values()),
-            f"a kernel did not run on the training path: {launches}")
+    require_launches(launches, expected, phase, absent)
     require(all(math.isfinite(float(x)) for x in loss),
-            "training loss not finite")
+            f"{phase} loss not finite")
     first, last = float(loss[:10].mean()), float(loss[-10:].mean())
-    require(last < first, f"loss did not fall: {first} -> {last}")
-    return dict(phase="training", n=10, d_s=session.partition.d_shared(),
+    require(last < first, f"{phase} loss did not fall: {first} -> {last}")
+    return dict(phase=phase, n=topo.n_nodes, topology=type(topo).__name__,
+                schedule=schedule, d_s=session.partition.d_shared(),
                 steps=TRAIN_STEPS, gamma_n=session.cfg.gamma_n,
                 c_prime=session.cfg.c_prime, lam=session.cfg.lam,
-                loss_first10=first, loss_last10=last,
-                ms_per_step=wall / TRAIN_STEPS * 1e3,
-                compile_s=rep.compile_s, launches=launches), rep
+                session_build_s=build_s, loss_first10=first,
+                loss_last10=last, ms_per_step=wall / TRAIN_STEPS * 1e3,
+                compile_s=rep.compile_s, launches=launches), (session, rep)
 
 
-# -- phase 5: the card against the CPU ---------------------------------------
+# -- phase 7: the tree ops (L1 clip, Laplace noise) at full width -------------
 
-def agreement(torch, api, T, mlp, data, train_rep) -> dict:
+def tree_ops(torch, ops, ref, dev) -> tuple[dict, dict]:
+    """``ops.l1_clip_tree`` and ``ops.laplace_noise_tree`` on the sparse
+    full-width tree (N = 24, d_s = 95,669,064), each against its plain
+    version on the card; then each kernel's time alone."""
+    n, d_s = SPARSE_FULL["n"], SPARSE_FULL["d_s"]
+    d_pad = d_pad_of(d_s)
+    m = n * d_s
+    cols = 1 << 24
+    gen = torch.Generator(device=dev).manual_seed(SEED + 7)
+    # rows at scales 0.5 .. 1.5: a clip at the median norm scales about
+    # half of them and leaves the others
+    x = torch.randn((n, d_pad), generator=gen, device=dev)
+    x[:, d_s:] = 0
+    x *= torch.linspace(0.5, 1.5, n, device=dev)[:, None]
+    plain_norms = ref.l1_norm_rows(x, d_s)
+    clip = plain_norms.median().item()
+    # Philox bits of (SEED, round 0) for every element, built in windows
+    bits = torch.empty((n, d_s), dtype=torch.uint32, device=dev)
+    for c0 in range(0, d_s, 1 << 21):
+        c1 = min(d_s, c0 + (1 << 21))
+        bits[:, c0:c1] = ref.philox_bits(SEED, 0, n, c0, c1,
+                                         device=dev).to(torch.uint32)
+    scale_v = 0.7
+    scale = torch.tensor(scale_v, device=dev)
+    torch.cuda.synchronize()
+
+    ops.reset_launch_counts()
+    clipped, norms = ops.l1_clip_tree({"shared": x[:, :d_s]}, clip)
+    noise = ops.laplace_noise_tree({"shared": bits}, scale)
+    torch.cuda.synchronize()
+    launches = ops.launch_counts()
+    require_launches(launches, ("l1_norm_rows", "clip_scale_rows",
+                                "laplace_from_bits"), "tree-ops",
+                     absent=("dpps_perturb_rows", "pushsum_mix", "spmm"))
+
+    # -- the clip against its plain version
+    clipped, noise = clipped["shared"], noise["shared"]
+    rel = ((norms - plain_norms).abs() / plain_norms).max().item()
+    require(rel < 1e-5, f"l1_clip_tree norms off by {rel}")
+    denom = torch.clamp_min(norms / clip, 1.0)
+    n_scaled = int((denom > 1).sum())
+    require(0 < n_scaled < n, f"{n_scaled} of {n} rows scaled")
+    err = [0.0]
+
+    def check_clip(c0, c1, want):
+        # rtol 1e-6: the same correctly rounded division; expect 0
+        e, ok = compare(clipped[:, c0:c1], want, rtol=1e-6, atol=0.0)
+        require(ok, f"clip_scale_rows disagrees at cols [{c0}, {c1})")
+        err[0] = max(err[0], e)
+
+    clip_plain_ms = timed_windows(
+        torch, lambda c0, c1: ref.clip_scale_rows(x[:, c0:c1], c1 - c0, denom),
+        check_clip, d_s, cols)
+    clip_err = err[0]
+    del clipped
+
+    # -- the noise against its plain version, and its statistics
+    err[0] = 0.0
+    sums = torch.zeros(2, dtype=torch.float64, device=dev)
+
+    def check_noise(c0, c1, want):
+        # rtol 1e-6: the card's logf may differ from the plain log by an ulp
+        e, ok = compare(noise[:, c0:c1], want, rtol=1e-6, atol=0.0)
+        require(ok, f"laplace_from_bits disagrees at cols [{c0}, {c1})")
+        err[0] = max(err[0], e)
+        body = noise[:, c0:c1].abs() / scale_v
+        sums[0] += body.double().sum()
+        sums[1] += (body > 1).double().sum()
+
+    noise_plain_ms = timed_windows(
+        torch, lambda c0, c1: ref.laplace_from_bits(bits[:, c0:c1], scale),
+        check_noise, d_s, cols)
+    mean_abs, frac_above = (sums / m).tolist()
+    require(abs(mean_abs - 1.0) < 6.0 / math.sqrt(m) + 1e-4,
+            f"Laplace mean|x|/scale = {mean_abs}")
+    p = math.exp(-1)
+    require(abs(frac_above - p) < 6.0 * math.sqrt(p * (1 - p) / m) + 1e-4,
+            f"Laplace P(|x| > scale) = {frac_above}")
+    pad = ops.laplace_from_bits(
+        torch.full((64,), 1 << 31, dtype=torch.int64, device=dev).to(
+            torch.uint32), scale)
+    pad_zero = bool((pad == 0).all())
+    require(pad_zero, "bits 1 << 31 do not give exactly 0")
+    noise_err = err[0]
+    del noise
+
+    flat_bits = bits.reshape(-1)
+    results = {
+        "clip_scale_rows": dict(
+            max_abs_err=clip_err,
+            ms=cuda_ms(torch, lambda: ops.clip_scale_rows(x, d_s, denom), 5),
+            plain_ms=clip_plain_ms,
+            library_ms=cuda_ms(torch, lambda: x / denom[:, None], 3),
+            bound=bound(8.0 * n * d_pad + 4 * n, f32_ops=1.0 * n * d_s)),
+        # about 25 f32 operations an element: the transform and logf
+        "laplace_from_bits": dict(
+            max_abs_err=noise_err,
+            ms=cuda_ms(torch, lambda: ops.laplace_from_bits(flat_bits, scale),
+                       5),
+            plain_ms=noise_plain_ms, library_ms=None,
+            bound=bound(8.0 * m + 4, f32_ops=25.0 * m)),
+    }
+    del x, bits, flat_bits
+    torch.cuda.empty_cache()
+    return dict(phase="tree_ops", n=n, d_s=d_s, d_pad=d_pad, clip=clip,
+                rows_scaled=n_scaled, norms_max_rel_err=rel,
+                laplace=dict(scale=scale_v, elements=m,
+                             mean_abs_over_scale=mean_abs,
+                             frac_abs_above_scale=frac_above,
+                             expected_frac=p, pad_bits_give_zero=pad_zero),
+                launches=launches), results
+
+
+# -- phase 8: the card against the CPU ---------------------------------------
+
+def agreement(torch, api, T, mlp, trained: dict) -> dict:
     """Seeded runs on the card (kernels) and on the CPU (plain versions)
     draw the same Philox bits, so they agree to rounding: rtol 1e-5 plus
     1e-6 of the largest magnitude for consensus, whose near-zero entries
     are differences of much larger mixed terms; 1e-3 for the training
     losses, through which 50 steps of tanh gradients pass the last-ulp
-    differences on."""
-    n, d_s = PAPER["n"], PAPER["d_s"]
-    vals = torch.randn((n, d_s), generator=torch.Generator().manual_seed(1))
+    differences on. ``trained`` maps a name to (topology, schedule,
+    batches, card session, card report) of a training phase; the CPU run
+    takes the card session's calibrated (C', lambda)."""
+    d_s = PAPER["d_s"]
     out = {}
-    states = {}
-    for device in ("cuda", "cpu"):
-        session = api.Session.build(
-            T.DOutGraph(n, 2), privacy=api.PrivacySpec(b=1.0, gamma_n=1e-6),
-            schedule="dense", sync_interval=5, chunk=3, seed=SEED,
-            device=device)
-        require(session.plan.use_kernels == (device == "cuda"), "routing")
-        rep = session.run(7, values={"x": vals})
-        states[device] = rep.state.push.s["x"].cpu()
-    want = states["cpu"]
-    err = (states["cuda"] - want).abs().max().item()
-    lim = 1e-6 * want.abs().max().item()
-    require(torch.allclose(states["cuda"], want, rtol=1e-5, atol=lim),
-            f"consensus on the card differs from the CPU by {err}")
-    out["consensus_max_abs_err"] = err
-    session, batch_at = training_setup(api, T, mlp, data, torch, "cpu",
-                                       steps=TRAIN_STEPS)
-    cpu_loss = session.train(TRAIN_STEPS, batch_at).trajectory["loss_mean"]
-    gpu_loss = train_rep.trajectory["loss_mean"]
-    rel = float(abs(gpu_loss - cpu_loss).max() / abs(cpu_loss).max())
-    require(rel < 1e-3, f"training loss on the card vs CPU: rel diff {rel}")
-    out["training_loss_max_rel_diff"] = rel
+    for name, topo, schedule in (
+            ("dense", T.DOutGraph(PAPER["n"], 2), "dense"),
+            ("sparse", sparse_graph(SPARSE_FULL["n"]), "sparse")):
+        n = topo.n_nodes
+        vals = torch.randn((n, d_s),
+                           generator=torch.Generator().manual_seed(1))
+        states = {}
+        for device in ("cuda", "cpu"):
+            session = api.Session.build(
+                topo, privacy=api.PrivacySpec(b=1.0, gamma_n=1e-6),
+                schedule=schedule, sync_interval=5, chunk=3, seed=SEED,
+                device=device)
+            require(session.plan.use_kernels == (device == "cuda"),
+                    "routing")
+            rep = session.run(7, values={"x": vals})
+            states[device] = rep.state.push.s["x"].cpu()
+        want = states["cpu"]
+        err = (states["cuda"] - want).abs().max().item()
+        lim = 1e-6 * want.abs().max().item()
+        require(torch.allclose(states["cuda"], want, rtol=1e-5, atol=lim),
+                f"{name} consensus on the card differs from the CPU by {err}")
+        out[f"{name}_consensus_n{n}_max_abs_err"] = err
+    for name, (topo, schedule, batches, card, card_rep) in trained.items():
+        session, batch_at = training_setup(
+            api, mlp, torch, "cpu", topo=topo, schedule=schedule,
+            batches=batches, c_prime=card.cfg.c_prime, lam=card.cfg.lam)
+        cpu_loss = session.train(TRAIN_STEPS,
+                                 batch_at).trajectory["loss_mean"]
+        gpu_loss = card_rep.trajectory["loss_mean"]
+        rel = float(abs(gpu_loss - cpu_loss).max() / abs(cpu_loss).max())
+        require(rel < 1e-3,
+                f"{name} training loss on the card vs CPU: rel diff {rel}")
+        out[f"{name}_training_n{topo.n_nodes}_loss_max_rel_diff"] = rel
     return dict(phase="agreement", **out)
+
+
+def sparse_graph(n: int, seed: int = 0):
+    from repro_torch.net import ErdosRenyiGraph
+
+    return ErdosRenyiGraph(n, p=8.0 / n, seed=seed)
+
+
+def kernel_entry(name: str, r: dict, launches: int, **extra) -> dict:
+    meta = KERNELS[name]
+    return dict(name=name, route="cuda", source=meta["source"],
+                replaces=meta["replaces"], launches=launches,
+                max_abs_err=r["max_abs_err"], ms=r["ms"],
+                plain_ms=r["plain_ms"], bound_ms=r["bound"][0],
+                bound_by=r["bound"][1], library_ms=r["library_ms"], **extra)
+
+
+def at_shape(r: dict) -> dict:
+    return dict(max_abs_err=r["max_abs_err"], ms=r["ms"],
+                plain_ms=r["plain_ms"], bound_ms=r["bound"][0],
+                bound_by=r["bound"][1], library_ms=r["library_ms"])
 
 
 def main() -> int:
@@ -430,35 +772,98 @@ def main() -> int:
     stats = philox_statistics(torch, ops, dev)
     full = check_kernels(torch, ops, ref, FULL, dev, iters=5, cols=1 << 25)
     torch.cuda.empty_cache()
-    emit(dict(phase="kernels", paper_shape=PAPER, full_shape=FULL,
-              philox=stats, results={"paper": paper, "full": full}))
-
-    torch.cuda.reset_peak_memory_stats()
-    cons = consensus(torch, api, T, ops, dev)
-    emit(cons)
+    # the sparse paths' shapes: pad lanes past 2^31 elements at full width
+    sparse_full = check_kernels(torch, ops, ref, SPARSE_FULL, dev, iters=5,
+                                cols=1 << 22, mix=False)
     torch.cuda.empty_cache()
-    train, train_rep = training(torch, api, T, mlp, data, ops)
+    sparse_train = check_kernels(torch, ops, ref, SPARSE_TRAIN, dev,
+                                 iters=200, cols=1 << 20, mix=False)
+    spmm = {
+        "full": check_spmm(torch, ops, ref, sparse_graph(SPARSE_FULL["n"]),
+                           d_pad_of(SPARSE_FULL["d_s"]), dev, iters=5,
+                           cols=1 << 24),
+        "train": check_spmm(torch, ops, ref, sparse_graph(SPARSE_TRAIN_N),
+                            d_pad_of(PAPER["d_s"]), dev, iters=200,
+                            cols=1 << 20),
+        "sweep": check_spmm(torch, ops, ref, sparse_graph(
+            SPARSE_SWEEP["n"], SPARSE_SWEEP["seed"]), SPARSE_SWEEP["d"], dev,
+            iters=200, cols=1 << 20),
+    }
+    emit(dict(phase="kernels", paper_shape=PAPER, full_shape=FULL,
+              sparse_full_shape=SPARSE_FULL, sparse_train_shape=SPARSE_TRAIN,
+              philox=stats, results={"paper": paper, "full": full,
+                                     "sparse_full": sparse_full,
+                                     "sparse_train": sparse_train,
+                                     "spmm": spmm}))
+
+    launches = []
+    cons = consensus(torch, api, T, ops, dev, topo=T.DOutGraph(FULL["n"], 2),
+                     shape=FULL, schedule="dense", phase="consensus",
+                     expected=DENSE_PATH)
+    emit(cons)
+    launches.append(cons["launches"])
+    torch.cuda.empty_cache()
+    batches = training_batches(mlp, data, torch, 10, TRAIN_STEPS)
+    topo = T.DOutGraph(10, 2)
+    train, (card, rep) = training(
+        torch, api, mlp, ops, topo=topo, schedule="dense", batches=batches,
+        phase="training", expected=DENSE_PATH)
     emit(train)
-    emit(agreement(torch, api, T, mlp, data, train_rep))
+    launches.append(train["launches"])
+    trained = {"dense": (topo, "dense", batches, card, rep)}
+
+    scons = consensus(torch, api, T, ops, dev,
+                      topo=sparse_graph(SPARSE_FULL["n"]), shape=SPARSE_FULL,
+                      schedule="sparse", phase="sparse_consensus",
+                      expected=SPARSE_PATH, absent=("pushsum_mix",))
+    emit(scons)
+    launches.append(scons["launches"])
+    torch.cuda.empty_cache()
+    batches = training_batches(mlp, data, torch, SPARSE_TRAIN_N, TRAIN_STEPS)
+    topo = sparse_graph(SPARSE_TRAIN_N)
+    strain, (card, rep) = training(
+        torch, api, mlp, ops, topo=topo, schedule="sparse", batches=batches,
+        phase="sparse_training", expected=SPARSE_PATH,
+        absent=("pushsum_mix",))
+    emit(strain)
+    launches.append(strain["launches"])
+    trained["sparse"] = (topo, "sparse", batches, card, rep)
+
+    tree, tree_results = tree_ops(torch, ops, ref, dev)
+    emit(tree)
+    launches.append(tree["launches"])
+    emit(agreement(torch, api, T, mlp, trained))
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True, check=True,
         timeout=60).stdout.strip().splitlines()[0]
+    total = {k: sum(path[k] for path in launches) for k in KERNELS}
     kernels = []
-    for name, meta in KERNELS.items():
+    for name in DENSE_PATH:
         f, p = full[name], paper[name]
-        kernels.append(dict(
-            name=name, route="cuda", source=meta["source"],
-            replaces=meta["replaces"],
-            launches=cons["launches"][name] + train["launches"][name],
-            max_abs_err=max(f["max_abs_err"], p["max_abs_err"]),
-            ms=f["ms"], plain_ms=f["plain_ms"], bound_ms=f["bound"][0],
-            bound_by=f["bound"][1], library_ms=f["library_ms"],
-            shape=dict(FULL, d_pad=d_pad_of(FULL["d_s"])),
-            paper_shape=dict(ms=p["ms"], plain_ms=p["plain_ms"],
-                             bound_ms=p["bound"][0], bound_by=p["bound"][1],
-                             library_ms=p["library_ms"])))
+        at = {"paper_shape": at_shape(p)}
+        if name in SPARSE_PATH:
+            at.update(sparse_full_shape=at_shape(sparse_full[name]),
+                      sparse_train_shape=at_shape(sparse_train[name]))
+        kernels.append(kernel_entry(
+            name, dict(f, max_abs_err=max(
+                [f["max_abs_err"]] + [a["max_abs_err"] for a in at.values()])),
+            total[name], shape=dict(FULL, d_pad=d_pad_of(FULL["d_s"])), **at))
+    sp = spmm["full"]
+    kernels.append(kernel_entry(
+        "spmm", dict(sp, max_abs_err=max(r["max_abs_err"]
+                                         for r in spmm.values())),
+        total["spmm"],
+        shape=dict(n=sp["n"], d=sp["d"], k=sp["k"], edges=sp["edges"]),
+        train_shape=dict(at_shape(spmm["train"]), n=spmm["train"]["n"],
+                         d=spmm["train"]["d"], k=spmm["train"]["k"]),
+        sweep_shape=dict(at_shape(spmm["sweep"]), n=spmm["sweep"]["n"],
+                         d=spmm["sweep"]["d"], k=spmm["sweep"]["k"])))
+    for name in ("clip_scale_rows", "laplace_from_bits"):
+        kernels.append(kernel_entry(
+            name, tree_results[name], total[name],
+            shape=dict(SPARSE_FULL, d_pad=d_pad_of(SPARSE_FULL["d_s"]))))
     print(smi, flush=True)
     emit({"kernels": kernels, "card": smi})
     emit({"ok": True, "device": {"platform": "gpu",

@@ -10,6 +10,11 @@ plan's choices, the partition and the node-stacked initial parameters.
 Device rule: ``device=None`` is the CUDA card and raises without one;
 ``device="cpu"`` runs the plain PyTorch path.
 
+Schedules: ``"dense"``, ``"circulant"`` (chosen by default where the
+topology has circulant offsets) and ``"sparse"`` (only when asked for: the
+round's padded-CSR edge list, O(edges d) a round, for large networks such
+as :class:`repro_torch.net.ErdosRenyiGraph`).
+
 Typical use::
 
     session = Session.build(DOutGraph(n_nodes=10, d=2), schedule="dense",

@@ -8,6 +8,10 @@ the reference states by attribute (``push.s``, ``push.a``, ``sens.*``,
 their structure, and :mod:`repro_torch.core.tree_utils` flattens dicts in
 sorted-key order, as ``jax.tree_util.tree_flatten`` does, so packing
 offsets agree.
+
+``device=None`` is the CUDA card, as everywhere in the port
+(:func:`repro_torch.device.resolve_device`); pass ``device="cpu"`` for
+the CPU.
 """
 from __future__ import annotations
 
@@ -21,19 +25,22 @@ from repro_torch.core.partpsp import PartPSPState
 from repro_torch.core.pushsum import PushSumState
 from repro_torch.core.sensitivity import SensitivityState
 from repro_torch.core.tree_utils import PyTree, tree_map
+from repro_torch.device import resolve_device
 
 __all__ = ["tree_from_numpy", "dpps_state_from_reference",
            "partpsp_state_from_reference"]
 
 
-def tree_from_numpy(tree: PyTree, device="cpu") -> PyTree:
+def tree_from_numpy(tree: PyTree, device=None) -> PyTree:
     """Nested dict/list/tuple of arrays -> the same of torch tensors (copies:
     numpy views of the reference's arrays are read-only)."""
-    return tree_map(lambda x: torch.tensor(np.asarray(x), device=device), tree)
+    dev = resolve_device(device)
+    return tree_map(lambda x: torch.tensor(np.asarray(x), device=dev), tree)
 
 
-def dpps_state_from_reference(state: Any, device="cpu") -> DPPSState:
+def dpps_state_from_reference(state: Any, device=None) -> DPPSState:
     """A reference ``DPPSState`` (numpy leaves, unpacked tree ``push.s``)."""
+    device = resolve_device(device)
     sens = state.sens
     return DPPSState(
         push=PushSumState(s=tree_from_numpy(state.push.s, device),
@@ -43,7 +50,8 @@ def dpps_state_from_reference(state: Any, device="cpu") -> DPPSState:
         t=int(np.asarray(state.t)))
 
 
-def partpsp_state_from_reference(state: Any, device="cpu") -> PartPSPState:
+def partpsp_state_from_reference(state: Any, device=None) -> PartPSPState:
     """A reference ``PartPSPState`` (numpy leaves)."""
+    device = resolve_device(device)
     return PartPSPState(dpps=dpps_state_from_reference(state.dpps, device),
                         local=list(tree_from_numpy(list(state.local), device)))

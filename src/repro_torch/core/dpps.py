@@ -11,9 +11,10 @@ clipped shared gradient``; consensus: zero) and one round does
   5. correct              y = s / a                                   (Eq. 10)
 
 over the packed (N, d_pad) buffer of :class:`repro_torch.core.packing.
-PackedLayout`. With ``cfg.use_kernels`` the per-round passes are the three
-CUDA kernels (``l1_norm_rows``, ``dpps_perturb_rows``, ``pushsum_mix``);
-otherwise their plain versions, which compute the same thing.
+PackedLayout`. With ``cfg.use_kernels`` the per-round passes are CUDA
+kernels (``l1_norm_rows``, ``dpps_perturb_rows``, and ``pushsum_mix`` on
+the dense schedule or ``spmm`` on the sparse one); otherwise their plain
+versions, which compute the same thing.
 
 The round counter ``DPPSState.t`` is a host integer, so the ``t == 0``
 sensitivity init and the sync schedule are decided on the host with no
@@ -68,14 +69,14 @@ class DPPSConfig:
     lam: float = 0.55         # lambda in Eq. (11)
     noise: bool = True        # False => plain Perturbed Push-Sum (SGP)
     sync_interval: int = 0    # full sync every k rounds; 0 = never
-    schedule: str = "dense"   # "dense" | "circulant"
+    schedule: str = "dense"   # "dense" | "circulant" | "sparse"
     use_kernels: bool = False # the CUDA kernels instead of plain versions
     # "estimated" (Remark 1), "real" (exact, O(N^2 d)), "fixed" (constant)
     sensitivity_mode: str = "estimated"
     fixed_sensitivity: float = 0.0
 
     def __post_init__(self):
-        if self.schedule not in ("dense", "circulant"):
+        if self.schedule not in ("dense", "circulant", "sparse"):
             raise ValueError(f"unknown or unported schedule {self.schedule!r}")
         if self.sensitivity_mode not in ("estimated", "real", "fixed"):
             raise ValueError(f"unknown sensitivity_mode {self.sensitivity_mode!r}")
@@ -117,6 +118,8 @@ def dpps_step(
     w: torch.Tensor | None = None,
     offsets: Sequence[int] | None = None,
     mix_weights: torch.Tensor | None = None,
+    sparse_idx: torch.Tensor | None = None,
+    sparse_vals: torch.Tensor | None = None,
     seed: int = 0,
     bits: torch.Tensor | None = None,
 ) -> tuple[DPPSState, dict[str, Any]]:
@@ -125,8 +128,9 @@ def dpps_step(
     ``state.push.s`` is the (N, d_pad) buffer; ``eps`` is an (N, d_pad)
     buffer or the shared leaf tree (packed here). The noise bits of round
     ``t`` are Philox of ``(seed, t)`` unless ``bits`` (N, d_s) uint32 is
-    given. ``w`` (dense) or ``offsets`` (+ ``mix_weights``, circulant) must
-    match ``cfg.schedule``.
+    given. ``w`` (dense), ``offsets`` (+ ``mix_weights``, circulant) or
+    ``sparse_idx`` + ``sparse_vals`` (sparse, (N, K) padded CSR) must match
+    ``cfg.schedule``.
     """
     k = kops if cfg.use_kernels else kref
     s = state.push.s
@@ -187,6 +191,13 @@ def dpps_step(
                 raise ValueError("circulant schedule requires offsets=")
             push_new = gossip_packed(push_half, offsets=offsets,
                                      weights=mix_weights)
+        elif cfg.schedule == "sparse":
+            if sparse_idx is None or sparse_vals is None:
+                raise ValueError(
+                    "sparse schedule requires sparse_idx=/sparse_vals=")
+            push_new = gossip_packed(push_half, sparse_idx=sparse_idx,
+                                     sparse_vals=sparse_vals,
+                                     use_kernels=cfg.use_kernels)
         else:
             if w is None:
                 raise ValueError("dense schedule requires w=")

@@ -109,6 +109,8 @@ def partpsp_step(
     w: torch.Tensor | None = None,
     offsets: Sequence[int] | None = None,
     mix_weights: torch.Tensor | None = None,
+    sparse_idx: torch.Tensor | None = None,
+    sparse_vals: torch.Tensor | None = None,
     seed: int = 0,
     bits: torch.Tensor | None = None,
 ) -> tuple[PartPSPState, dict[str, Any]]:
@@ -136,6 +138,7 @@ def partpsp_step(
 
     dpps_new, diag = dpps_step(state.dpps, eps, cfg.dpps, layout, w=w,
                                offsets=offsets, mix_weights=mix_weights,
+                               sparse_idx=sparse_idx, sparse_vals=sparse_vals,
                                seed=seed, bits=bits)
     metrics = {"loss_mean": losses.mean(), "loss_per_node": losses,
                "grad_l1_max": g_norms.max(), **diag}

@@ -5,10 +5,13 @@ State: gossiped values ``s`` (a tree of node-stacked leaves, or the packed
 (N, d_pad) buffer) and the push-sum weights ``a`` (N,). With the paper's
 doubly-stochastic W, ``a`` stays 1 (Eq. 16).
 
-Schedules ported here: dense (``W @ s``) and circulant (a weighted sum of
-rolls along the node axis). In the dense packed branch the contraction goes
-through the ``pushsum_mix`` kernel when ``use_kernels``; the (N,) weights
-``a`` stay a plain product, as the reference left them to XLA.
+Schedules ported here: dense (``W @ s``), circulant (a weighted sum of
+rolls along the node axis) and sparse (a padded receiver-major CSR edge
+list, ``core.topology.padded_csr``: O(edges d) a round instead of
+O(N^2 d)). With ``use_kernels`` the packed branch's contraction goes
+through the ``pushsum_mix`` kernel (dense) or the ``spmm`` kernel
+(sparse); the (N,) weights ``a`` stay on the plain path, as the reference
+left them to XLA.
 """
 from __future__ import annotations
 
@@ -18,12 +21,15 @@ import torch
 
 from repro_torch.core.tree_utils import PyTree, tree_leaves, tree_map
 from repro_torch.kernels import ops as kops
+from repro_torch.kernels import ref as kref
 
 __all__ = [
     "PushSumState",
     "init_push_sum",
     "gossip_dense",
+    "gossip_sparse",
     "gossip_packed",
+    "sparse_mix",
     "correct",
     "consensus_error",
 ]
@@ -54,17 +60,40 @@ def _mix_circulant(offsets: Sequence[int], weights: torch.Tensor,
     return out
 
 
+def sparse_mix(idx: torch.Tensor, vals: torch.Tensor,
+               x: torch.Tensor) -> torch.Tensor:
+    """Padded-CSR mix ``out[i] = sum_k vals[i, k] x[idx[i, k]]`` over the
+    leading node axis of ``x`` (any trailing shape); the output takes its
+    leading dim from ``idx``. The slots are added in storage order
+    (ascending senders, zero-weight pads), one gather-and-add a slot."""
+    flat = x.reshape(x.shape[0], -1)
+    out = kref.spmm(idx, vals, flat)
+    return out.reshape((idx.shape[0],) + tuple(x.shape[1:]))
+
+
 def gossip_dense(state: PushSumState, w: torch.Tensor) -> PushSumState:
     """One mixing round of a tree state with an (N, N) weight matrix."""
     return PushSumState(s=tree_map(lambda x: _mix_dense(w, x), state.s),
                         a=_mix_dense(w, state.a))
 
 
+def gossip_sparse(state: PushSumState, idx: torch.Tensor,
+                  vals: torch.Tensor) -> PushSumState:
+    """One mixing round of a tree state over a padded-CSR edge list."""
+    return PushSumState(s=tree_map(lambda x: sparse_mix(idx, vals, x),
+                                   state.s),
+                        a=sparse_mix(idx, vals, state.a))
+
+
 def gossip_packed(state: PushSumState, *, w: torch.Tensor | None = None,
                   offsets: Sequence[int] | None = None,
                   weights: torch.Tensor | None = None,
+                  sparse_idx: torch.Tensor | None = None,
+                  sparse_vals: torch.Tensor | None = None,
                   use_kernels: bool = False) -> PushSumState:
-    """Eq. 9 over the packed (N, d_pad) buffer: one mix per round."""
+    """Eq. 9 over the packed (N, d_pad) buffer: one mix per round, by
+    ``offsets`` (circulant), ``sparse_idx``/``sparse_vals`` (sparse) or
+    ``w`` (dense)."""
     buf = state.s
     if offsets is not None:
         offsets = tuple(int(o) for o in offsets)
@@ -73,8 +102,14 @@ def gossip_packed(state: PushSumState, *, w: torch.Tensor | None = None,
                                  dtype=torch.float32, device=buf.device)
         return PushSumState(s=_mix_circulant(offsets, weights, buf),
                             a=_mix_circulant(offsets, weights, state.a))
+    if sparse_idx is not None:
+        s_new = (kops.spmm(sparse_idx, sparse_vals, buf) if use_kernels
+                 else sparse_mix(sparse_idx, sparse_vals, buf))
+        return PushSumState(s=s_new,
+                            a=sparse_mix(sparse_idx, sparse_vals, state.a))
     if w is None:
-        raise ValueError("gossip_packed() needs w= or offsets=")
+        raise ValueError("gossip_packed() needs w=, offsets= or "
+                         "sparse_idx=/sparse_vals=")
     s_new = kops.pushsum_mix(w, buf) if use_kernels else _mix_dense(w, buf)
     return PushSumState(s=s_new, a=_mix_dense(w, state.a))
 

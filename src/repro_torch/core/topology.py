@@ -7,7 +7,8 @@ stochastic with w_ij > 0 iff j sends to i, plus self loops. d-Out and EXP
 (Remark 2) are circulant: node i sends to (i + k) mod N for k in a
 per-round offset set.
 
-Row convention: ``s_new[i] = sum_j W[i, j] s[j]``.
+Row convention: ``s_new[i] = sum_j W[i, j] s[j]``. The sparse schedule
+reads W as a padded receiver-major edge list (:func:`padded_csr`).
 """
 from __future__ import annotations
 
@@ -25,10 +26,44 @@ __all__ = [
     "RingGraph",
     "FullyConnectedGraph",
     "TimeVaryingTopology",
+    "padded_csr",
     "spectral_gap",
     "contraction_rate",
     "calibrate_constants",
 ]
+
+
+def padded_csr(w: np.ndarray, k: int | None = None
+               ) -> tuple[np.ndarray, np.ndarray]:
+    """Dense W -> padded receiver-major CSR ``(idx, vals)``.
+
+    ``idx`` (N, K) int32 names the senders each receiver mixes, ascending
+    per row; ``vals`` (N, K) float64 the matching weights. Rows with fewer
+    than K in-edges are padded with the receiver's own index and weight 0,
+    sorted into place, so every row stays ascending. The sparse mix adds
+    the K slots in storage order; in ascending sender order, with the
+    zero-weight pads adding exactly 0, it reproduces the dense mix's sum bit
+    for bit. ``k`` forces the slot count (at least the max in-degree) so
+    the per-round CSRs of a period stack into one (P, N, K) array.
+    Port of ``repro.core.topology.padded_csr``; equal to it exactly.
+    """
+    w = np.asarray(w)
+    n = w.shape[0]
+    support = [np.nonzero(w[i] > 0.0)[0] for i in range(n)]  # ascending
+    need = max((len(s) for s in support), default=0)
+    if k is None:
+        k = need
+    elif k < need:
+        raise ValueError(f"k={k} slots cannot hold the max in-degree {need}")
+    idx = np.tile(np.arange(n, dtype=np.int64)[:, None], (1, k))
+    vals = np.zeros((n, k), dtype=np.float64)
+    for i, senders in enumerate(support):
+        idx[i, :len(senders)] = senders
+        vals[i, :len(senders)] = w[i, senders]
+    order = np.argsort(idx, axis=1, kind="stable")
+    idx = np.take_along_axis(idx, order, axis=1)
+    vals = np.take_along_axis(vals, order, axis=1)
+    return idx.astype(np.int32), vals
 
 
 @dataclasses.dataclass(frozen=True)
@@ -36,7 +71,9 @@ class Topology:
     """A (possibly time-varying) sequence of directed graphs.
 
     Subclasses return the circulant offset set of round ``t`` from
-    :meth:`offsets` (offset 0 is the self loop).
+    :meth:`offsets` (offset 0 is the self loop); non-circulant ones return
+    ``None`` there and override :meth:`weight_matrix`
+    (:mod:`repro_torch.net.graphs`).
     """
 
     n_nodes: int
@@ -75,6 +112,17 @@ class Topology:
                 "schedule")
         offs = tuple(offs)
         return offs, np.full((len(offs),), 1.0 / len(offs), dtype=np.float64)
+
+    def max_in_degree(self, t: int) -> int:
+        """Largest per-receiver in-edge count at round t (self loop
+        included)."""
+        return int((self.weight_matrix(t) > 0.0).sum(axis=1).max())
+
+    def sparse_weights(self, t: int, k: int | None = None
+                       ) -> tuple[np.ndarray, np.ndarray]:
+        """Round t's W as padded CSR (:func:`padded_csr`); ``k`` fixes the
+        slot count so the rounds of a period stack."""
+        return padded_csr(self.weight_matrix(t), k)
 
 
 @dataclasses.dataclass(frozen=True)

@@ -7,6 +7,9 @@ The teacher weights and the Dirichlet matrix come from
 Sampling uses an explicit ``torch.Generator`` on the data's device (the
 reference's ``jax.random`` stream cannot be reproduced); the tests feed
 both packages the same batches instead.
+
+``device=None`` is the CUDA card (:func:`repro_torch.device.resolve_device`);
+pass ``device="cpu"`` for the CPU.
 """
 from __future__ import annotations
 
@@ -14,6 +17,8 @@ import dataclasses
 
 import numpy as np
 import torch
+
+from repro_torch.device import resolve_device
 
 __all__ = ["SyntheticClassification", "dirichlet_partition"]
 
@@ -26,9 +31,10 @@ class SyntheticClassification:
     n_classes: int = 10
     teacher_hidden: int = 64
     seed: int = 0
-    device: torch.device | str = "cpu"
+    device: torch.device | str | None = None
 
     def __post_init__(self):
+        self.device = resolve_device(self.device)
         rng = np.random.default_rng(self.seed)
         w1 = rng.normal(size=(self.d_in, self.teacher_hidden)) / np.sqrt(self.d_in)
         w2 = (rng.normal(size=(self.teacher_hidden, self.n_classes))

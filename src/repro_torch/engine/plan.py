@@ -3,10 +3,14 @@
 
 * Schedule: ``circulant`` whenever the topology exposes circulant offsets
   (d-Out and EXP do), unless ``schedule="dense"`` forces the paper-faithful
-  ``W @ s``; ``dense`` for non-circulant topologies. The sparse, dynamic
-  and async schedules are not ported yet.
+  ``W @ s``; ``dense`` for non-circulant topologies. ``sparse`` (only when
+  asked for, never chosen automatically) mixes over each round's padded
+  CSR edge list: O(edges d) a round instead of O(N^2 d), for large
+  networks. The dynamic and async schedules are not ported yet.
 * Time-varying topologies: circulant plans hold the superset offsets and a
-  (period, K) weight table; dense plans a (period, N, N) stack of W.
+  (period, K) weight table; dense plans a (period, N, N) stack of W;
+  sparse plans (period, N, K) int32 / f32 stacks of the edge lists, with K
+  the largest in-degree over the period (no dense W is stacked).
 * Kernel routing: ``use_kernels=None`` picks the CUDA kernels on a CUDA
   device and the plain versions on the CPU (:mod:`repro_torch.device`).
 * ``sync_interval="auto"`` syncs every ``max(2, 2 * period)`` rounds.
@@ -22,7 +26,7 @@ import torch
 from repro_torch.core.dpps import DPPSConfig
 from repro_torch.core.packing import LANE
 from repro_torch.core.partpsp import PartPSPConfig
-from repro_torch.core.topology import Topology
+from repro_torch.core.topology import Topology, padded_csr
 from repro_torch.device import resolve_device, resolve_use_kernels
 
 __all__ = ["ProtocolPlan"]
@@ -32,9 +36,10 @@ __all__ = ["ProtocolPlan"]
 class ProtocolPlan:
     """Static protocol-execution choices plus their per-round operands.
 
-    Fields: ``schedule`` ("dense" | "circulant"), ``period``, ``offsets``
-    and ``mix_weights`` (P, K) for circulant plans, ``ws`` (P, N, N) f32 for
-    dense ones, ``use_kernels``, ``sync_interval`` (None keeps the
+    Fields: ``schedule`` ("dense" | "circulant" | "sparse"), ``period``,
+    ``offsets`` and ``mix_weights`` (P, K) for circulant plans, ``ws``
+    (P, N, N) f32 for dense ones, ``sparse_idx`` (P, N, K) int32 and
+    ``sparse_vals`` (P, N, K) f32 for sparse ones, ``use_kernels``, ``sync_interval`` (None keeps the
     config's), ``chunk`` (rounds between host syncs of the trajectory) and
     ``device``.
     """
@@ -45,6 +50,8 @@ class ProtocolPlan:
     offsets: tuple[int, ...] | None = None
     mix_weights: torch.Tensor | None = None
     ws: torch.Tensor | None = None
+    sparse_idx: torch.Tensor | None = None
+    sparse_vals: torch.Tensor | None = None
     use_kernels: bool = False
     sync_interval: int | None = None
     chunk: int = 50
@@ -54,7 +61,7 @@ class ProtocolPlan:
                       use_kernels: bool | None = None,
                       sync_interval: int | str | None = None, chunk: int = 50,
                       device=None) -> "ProtocolPlan":
-        if schedule not in (None, "dense", "circulant"):
+        if schedule not in (None, "dense", "circulant", "sparse"):
             raise ValueError(f"unknown or unported schedule {schedule!r}")
         dev = resolve_device(device)
         use_kernels = resolve_use_kernels(use_kernels, dev)
@@ -70,8 +77,18 @@ class ProtocolPlan:
         if schedule == "circulant" and per_round is None:
             raise ValueError(f"{type(topo).__name__} is not circulant; use "
                              "schedule='dense'")
-        offsets = mix_weights = ws = None
-        if schedule == "circulant":
+        offsets = mix_weights = ws = sparse_idx = sparse_vals = None
+        if schedule == "sparse":
+            # each round's W once: a random sequence draws it anew per call
+            dense = [topo.weight_matrix(t) for t in range(period)]
+            k = max(int((w > 0.0).sum(axis=1).max()) for w in dense)
+            pairs = [padded_csr(w, k) for w in dense]
+            del dense
+            sparse_idx = torch.as_tensor(np.stack([i for i, _ in pairs]),
+                                         dtype=torch.int32, device=dev)
+            sparse_vals = torch.as_tensor(np.stack([v for _, v in pairs]),
+                                          dtype=torch.float32, device=dev)
+        elif schedule == "circulant":
             superset = tuple(sorted({o for offs, _ in per_round for o in offs}))
             rows = np.zeros((period, len(superset)), np.float32)
             col = {o: i for i, o in enumerate(superset)}
@@ -87,6 +104,7 @@ class ProtocolPlan:
             sync_interval = max(2, 2 * period)
         return cls(schedule=schedule, period=period, device=dev,
                    offsets=offsets, mix_weights=mix_weights, ws=ws,
+                   sparse_idx=sparse_idx, sparse_vals=sparse_vals,
                    use_kernels=use_kernels, sync_interval=sync_interval,
                    chunk=chunk)
 
@@ -101,6 +119,9 @@ class ProtocolPlan:
         r = t % self.period
         if self.schedule == "circulant":
             return dict(offsets=self.offsets, mix_weights=self.mix_weights[r])
+        if self.schedule == "sparse":
+            return dict(sparse_idx=self.sparse_idx[r],
+                        sparse_vals=self.sparse_vals[r])
         return dict(w=self.ws[r])
 
     def resolve_dpps(self, cfg: DPPSConfig) -> DPPSConfig:

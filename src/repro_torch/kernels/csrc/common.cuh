@@ -1,8 +1,10 @@
-// Shared pieces of the row-reduction kernels (l1_norm.cu, dpps_perturb.cu).
+// Shared pieces of the kernels: the Laplace transform (dpps_perturb.cu,
+// laplace_noise.cu) and the two-pass row reduction (l1_norm.cu,
+// dpps_perturb.cu).
 //
-// Both kernels reduce each row of a (N, d_pad) f32 buffer in two passes:
-// pass one gives one partial per (row, chunk) block, pass two sums a row's
-// partials in a fixed order. No atomics, so the result is deterministic.
+// The row-reduction kernels reduce each row of a (N, d_pad) f32 buffer in
+// two passes: pass one gives one partial per (row, chunk) block, pass two
+// sums a row's partials in a fixed order. No atomics, so the result is deterministic.
 // Element offsets are int64 throughout: at the full-width shape N * d_pad
 // exceeds 2^31.
 #pragma once
@@ -16,6 +18,20 @@ constexpr int kThreads = 256;
 constexpr int kQuadsPerThread = 8;
 // Elements per pass-one block: the 64 x 128 tile of the Pallas kernels.
 constexpr int64_t kChunk = (int64_t)kThreads * kQuadsPerThread * 4;
+
+// Laplace(0, scale) from uint32 bits by the inverse CDF, the transform of
+// repro/kernels/laplace_noise.py::_laplace_transform:
+//   u = (bits >> 8) 2^-24, c = u - 1/2, -scale sign(c) log(max(1 - 2|c|, 1e-30)).
+// Bits 1 << 31 give c = 0 and so exactly 0. Each step is rounded as the
+// plain version (repro_torch.kernels.ref.laplace_from_bits) rounds it; the
+// card's logf may differ from the CPU's log by an ulp.
+__device__ __forceinline__ float laplace_from_bits(uint32_t bits, float scale) {
+  const float u = (float)(bits >> 8) * (1.0f / 16777216.0f);
+  const float c = u - 0.5f;
+  const float mag = fmaxf(1.0f - 2.0f * fabsf(c), 1e-30f);
+  const float sgn = c > 0.f ? 1.f : (c < 0.f ? -1.f : 0.f);
+  return -scale * sgn * logf(mag);
+}
 
 // Sum over the block in a fixed order: warp shuffles, then thread 0 adds
 // the warp totals in warp order. The result is valid in thread 0 only.

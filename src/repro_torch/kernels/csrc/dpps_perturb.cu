@@ -47,14 +47,6 @@ __device__ __forceinline__ void philox4x32_10(uint32_t c[4], uint32_t k0, uint32
   }
 }
 
-__device__ __forceinline__ float laplace_from_bits(uint32_t bits, float scale) {
-  const float u = (float)(bits >> 8) * (1.0f / 16777216.0f);
-  const float c = u - 0.5f;
-  const float mag = fmaxf(1.0f - 2.0f * fabsf(c), 1e-30f);
-  const float sgn = c > 0.f ? 1.f : (c < 0.f ? -1.f : 0.f);
-  return -scale * sgn * logf(mag);
-}
-
 template <bool kBitsIn>
 __global__ void perturb_kernel(const float* __restrict__ s, const float* __restrict__ eps,
                                const uint32_t* __restrict__ bits,

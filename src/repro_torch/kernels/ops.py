@@ -7,18 +7,28 @@ falls back. A wrapper checks device, dtype, shape and contiguity, allocates
 its outputs and scratch with ``torch.empty``, launches on the current
 stream, raises if the C function reports a CUDA error, and adds one to its
 ``launches`` count (read with :func:`launch_counts`).
+
+:func:`l1_clip_tree` and :func:`laplace_noise_tree` are the tree-level ops
+over them, the counterparts of ``repro.kernels.ops.l1_clip_tree`` and
+``laplace_noise_tree``.
 """
 from __future__ import annotations
 
 import torch
 
+from repro_torch.core.packing import LANE, PackedLayout
+from repro_torch.core.tree_utils import PyTree, tree_leaves, tree_map
 from repro_torch.kernels import build, ref
 
-__all__ = ["l1_norm_rows", "dpps_perturb_rows", "pushsum_mix",
-           "launch_counts", "reset_launch_counts", "CHUNK", "MAX_MIX_NODES"]
+__all__ = ["l1_norm_rows", "dpps_perturb_rows", "pushsum_mix", "spmm",
+           "clip_scale_rows", "laplace_from_bits", "l1_clip_tree",
+           "laplace_noise_tree", "launch_counts", "reset_launch_counts",
+           "CHUNK", "MAX_MIX_NODES", "MAX_SPMM_NODES"]
 
 CHUNK = 8192        # columns per pass-one block (csrc/common.cuh kChunk)
 MAX_MIX_NODES = 32  # csrc/pushsum_mix.cu template range
+# csrc/spmm.cu: N rows of a 4-column tile in 227 KB of shared memory
+MAX_SPMM_NODES = 232448 // 16
 
 
 def _is_cpu(*tensors: torch.Tensor) -> bool:
@@ -49,6 +59,17 @@ def _stream(t: torch.Tensor) -> int:
 def _raise_on(rc: int, what: str) -> None:
     if rc != 0:
         raise RuntimeError(f"{what}: CUDA error {rc} at launch")
+
+
+def _device_scale(scale, device: torch.device) -> torch.Tensor:
+    """``scale`` as one f32 value on ``device``, for the kernel to read
+    through its pointer."""
+    if not isinstance(scale, torch.Tensor):
+        scale = torch.tensor(float(scale), dtype=torch.float32, device=device)
+    if scale.numel() != 1 or scale.dtype != torch.float32 \
+            or scale.device != device:
+        raise ValueError("scale must be one f32 value on the same device")
+    return scale.contiguous()
 
 
 def l1_norm_rows(buf: torch.Tensor, d_s: int) -> torch.Tensor:
@@ -99,11 +120,7 @@ def dpps_perturb_rows(s: torch.Tensor, eps: torch.Tensor, scale,
         _check(bits, "bits", torch.uint32, 2)
         if tuple(bits.shape) != (n, d_s):
             raise ValueError(f"bits {tuple(bits.shape)} != {(n, d_s)}")
-    if not isinstance(scale, torch.Tensor):
-        scale = torch.tensor(float(scale), dtype=torch.float32, device=s.device)
-    if scale.numel() != 1 or scale.dtype != torch.float32 \
-            or scale.device != s.device:
-        raise ValueError("scale must be one f32 value on the same device")
+    scale = _device_scale(scale, s.device)
     if not (0 <= int(t if t is not None else 0) < 2 ** 32):
         raise ValueError(f"round t={t} out of the uint32 counter range")
     n_chunks = -(-d_pad // CHUNK)
@@ -113,7 +130,6 @@ def dpps_perturb_rows(s: torch.Tensor, eps: torch.Tensor, scale,
     noise_part = torch.empty((n, n_chunks), dtype=torch.float32, device=dev)
     eps_l1 = torch.empty((n,), dtype=torch.float32, device=dev)
     noise_l1 = torch.empty((n,), dtype=torch.float32, device=dev)
-    scale = scale.contiguous()
     lib = build.load("dpps_perturb")
     _raise_on(lib.dpps_perturb_rows(
         s.data_ptr(), eps.data_ptr(),
@@ -145,7 +161,101 @@ def pushsum_mix(w: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     return out
 
 
-_KERNELS = (l1_norm_rows, dpps_perturb_rows, pushsum_mix)
+def spmm(idx: torch.Tensor, vals: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """Padded-CSR mix ``out[i] = sum_k vals[i, k] x[idx[i, k]]`` -> (N, D).
+
+    ``idx`` (N, K) int32 with entries in [0, N) (``core.topology.
+    padded_csr`` builds them; the kernel does not check the range),
+    ``vals`` (N, K) f32, ``x`` (N, D) f32 with D % 4 == 0."""
+    if _is_cpu(idx, vals, x):
+        return ref.spmm(idx, vals, x)
+    _check(idx, "idx", torch.int32, 2)
+    _check(vals, "vals", torch.float32, 2)
+    _check(x, "x", torch.float32, 2, align=True)
+    n, d = x.shape
+    k = idx.shape[1]
+    if tuple(vals.shape) != tuple(idx.shape) or idx.shape[0] != n or k < 1:
+        raise ValueError(f"need idx, vals (N, K) for x (N, D), got idx "
+                         f"{tuple(idx.shape)}, vals {tuple(vals.shape)}, x "
+                         f"{tuple(x.shape)}")
+    if not (1 <= n <= MAX_SPMM_NODES) or d < 4 or d % 4:
+        raise ValueError(f"need 1 <= N <= {MAX_SPMM_NODES} and D % 4 == 0, "
+                         f"got x {tuple(x.shape)}")
+    out = torch.empty_like(x)
+    lib = build.load("spmm")
+    _raise_on(lib.spmm(idx.data_ptr(), vals.data_ptr(), x.data_ptr(),
+                       out.data_ptr(), n, k, d, _stream(x)), "spmm")
+    spmm.launches += 1
+    return out
+
+
+def clip_scale_rows(buf: torch.Tensor, d_s: int,
+                    denom: torch.Tensor) -> torch.Tensor:
+    """Row i of ``buf[:, :d_s]`` divided by ``denom[i]``, pad columns 0 ->
+    (N, d_pad)."""
+    if _is_cpu(buf, denom):
+        return ref.clip_scale_rows(buf, d_s, denom)
+    _check(buf, "buf", torch.float32, 2, align=True)
+    _check(denom, "denom", torch.float32, 1)
+    n, d_pad = buf.shape
+    if not (0 < d_s <= d_pad) or d_pad % 4 or denom.shape[0] != n:
+        raise ValueError(f"need 0 < d_s <= d_pad, d_pad % 4 == 0 and denom "
+                         f"(N,), got d_s={d_s}, buf {tuple(buf.shape)}, "
+                         f"denom {tuple(denom.shape)}")
+    out = torch.empty_like(buf)
+    lib = build.load("clip_scale")
+    _raise_on(lib.clip_scale_rows(buf.data_ptr(), denom.data_ptr(), n, d_pad,
+                                  d_s, out.data_ptr(), _stream(buf)),
+              "clip_scale_rows")
+    clip_scale_rows.launches += 1
+    return out
+
+
+def laplace_from_bits(bits: torch.Tensor, scale) -> torch.Tensor:
+    """Laplace(0, scale) from flat (M,) uint32 bits -> (M,) f32. On CUDA
+    ``scale`` is a 0-d f32 device tensor (a float is moved there)."""
+    if _is_cpu(bits):
+        return ref.laplace_from_bits(bits, scale)
+    _check(bits, "bits", torch.uint32, 1, align=True)
+    scale = _device_scale(scale, bits.device)
+    out = torch.empty(bits.shape, dtype=torch.float32, device=bits.device)
+    if bits.numel() == 0:
+        return out
+    lib = build.load("laplace_noise")
+    _raise_on(lib.laplace_from_bits(bits.data_ptr(), scale.data_ptr(),
+                                    bits.numel(), out.data_ptr(),
+                                    _stream(bits)), "laplace_from_bits")
+    laplace_from_bits.launches += 1
+    return out
+
+
+def l1_clip_tree(tree: PyTree, clip: float) -> tuple[PyTree, torch.Tensor]:
+    """Per-node L1 clip (paper Eq. 24) of a node-stacked tree.
+
+    Packs the tree into the (N, d_pad) buffer at lane 128, takes the
+    per-node norms with :func:`l1_norm_rows`, ``denom = max(1, norm /
+    clip)`` on the device, scales the rows with :func:`clip_scale_rows`
+    and unpacks. Returns (clipped tree, pre-clip norms (N,)).
+    """
+    layout = PackedLayout.from_tree(tree, lane=LANE)
+    buf = layout.pack(tree)
+    norms = l1_norm_rows(buf, layout.d_s)
+    denom = torch.clamp_min(norms / clip, 1.0)
+    return layout.unpack(clip_scale_rows(buf, layout.d_s, denom)), norms
+
+
+def laplace_noise_tree(bits_tree: PyTree, scale) -> PyTree:
+    """Laplace(0, scale) noise shaped like ``bits_tree``: one uint32 bit
+    tensor per leaf, one launch of :func:`laplace_from_bits` per leaf."""
+    device = tree_leaves(bits_tree)[0].device
+    if device.type == "cuda":  # one device scalar for every leaf
+        scale = _device_scale(scale, device)
+    return tree_map(lambda b: laplace_from_bits(
+        b.contiguous().reshape(-1), scale).reshape(b.shape), bits_tree)
+
+
+_KERNELS = (l1_norm_rows, dpps_perturb_rows, pushsum_mix, spmm,
+            clip_scale_rows, laplace_from_bits)
 for _fn in _KERNELS:
     _fn.launches = 0
 

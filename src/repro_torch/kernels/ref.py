@@ -19,8 +19,10 @@ __all__ = [
     "philox_bits",
     "laplace_from_bits",
     "l1_norm_rows",
+    "clip_scale_rows",
     "dpps_perturb_rows",
     "pushsum_mix",
+    "spmm",
 ]
 
 _MASK32 = 0xFFFFFFFF
@@ -91,7 +93,9 @@ def laplace_from_bits(bits: torch.Tensor, scale) -> torch.Tensor:
     Pallas kernel ``repro/kernels/laplace_noise.py::_laplace_transform``):
     ``u = (bits >> 8) 2^-24``, ``c = u - 1/2``,
     ``-scale sign(c) log(max(1 - 2|c|, 1e-30))``. Bits ``1 << 31`` give
-    exactly zero noise.
+    exactly zero noise. Plain version of ``csrc/laplace_noise.cu`` (the
+    Pallas ``repro/kernels/laplace_noise.py::laplace_from_bits``) and of
+    the transform inside ``csrc/dpps_perturb.cu``.
     """
     u = (bits.to(torch.int64) >> 8).to(torch.float32) * (1.0 / (1 << 24))
     c = u - 0.5
@@ -110,6 +114,23 @@ def l1_norm_rows(buf: torch.Tensor, d_s: int) -> torch.Tensor:
     l1_norm``).
     """
     return buf[:, :d_s].to(torch.float32).abs().sum(dim=1)
+
+
+def clip_scale_rows(buf: torch.Tensor, d_s: int,
+                    denom: torch.Tensor) -> torch.Tensor:
+    """Row i of ``buf[:, :d_s]`` divided by ``denom[i]``; pad columns 0.
+
+    A division, as the Pallas kernel divides, not a product with the
+    reciprocal. Plain version of ``csrc/clip_scale.cu``; mirrors the
+    Pallas ``repro/kernels/l1_clip.py::clip_scale`` as ``repro.kernels.ops.
+    l1_clip_tree`` applies it per node (oracle: ``repro.kernels.ref.
+    clip_scale``).
+    """
+    n, d_pad = buf.shape
+    row = buf[:, :d_s].to(torch.float32) / denom.to(torch.float32)[:, None]
+    if d_pad != d_s:
+        row = torch.cat([row, row.new_zeros((n, d_pad - d_s))], dim=1)
+    return row
 
 
 def dpps_perturb_rows(s: torch.Tensor, eps: torch.Tensor, scale,
@@ -148,3 +169,23 @@ def pushsum_mix(w: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     ``repro.kernels.ref.pushsum_mix``).
     """
     return (w.to(torch.float32) @ x.to(torch.float32)).to(x.dtype)
+
+
+def spmm(idx: torch.Tensor, vals: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """Padded-CSR mix ``out[i] = sum_k vals[i, k] x[idx[i, k]]`` in f32.
+
+    ``idx`` (B, K) integer sender indices into the rows of ``x`` (N, D),
+    ``vals`` (B, K) their weights; the result has B rows. The slots are
+    added in storage order, one gather-and-add a slot, so no (B, K, D)
+    temporary is made. Plain version of ``csrc/spmm.cu``; mirrors the
+    Pallas ``repro/kernels/spmm.py::spmm`` as ``repro.kernels.ops.
+    pushsum_mix_sparse`` applies it (oracle: ``repro.kernels.ref.spmm``).
+    """
+    idx = idx.to(torch.int64)
+    w = vals.to(torch.float32)
+    xf = x.to(torch.float32)
+    out = torch.zeros((idx.shape[0], x.shape[1]), dtype=torch.float32,
+                      device=x.device)
+    for k in range(idx.shape[1]):
+        out += w[:, k, None] * xf[idx[:, k]]
+    return out.to(x.dtype)

@@ -113,13 +113,14 @@ def test_topology_rejects_bad_degree():
 def test_layout_offsets_and_pack_match_exactly(R, lane):
     vals = _values(4)
     vals["z"] = np.arange(4, dtype=np.float32)  # a scalar-per-node leaf
-    mine = PackedLayout.from_tree(tree_from_numpy(vals), lane=lane)
+    mine = PackedLayout.from_tree(tree_from_numpy(vals, device="cpu"),
+                                  lane=lane)
     theirs = R.core.packing.PackedLayout.from_tree(
         jax.tree_util.tree_map(jnp.asarray, vals), lane=lane)
     assert (mine.d_s, mine.d_pad) == (theirs.d_s, theirs.d_pad)
     assert [(s.shape, s.offset, s.size) for s in mine.segments] == \
         [(s.shape, s.offset, s.size) for s in theirs.segments]
-    buf = mine.pack(tree_from_numpy(vals))
+    buf = mine.pack(tree_from_numpy(vals, device="cpu"))
     want = theirs.pack(jax.tree_util.tree_map(jnp.asarray, vals))
     np.testing.assert_array_equal(to_numpy(buf), np.asarray(want))
     back = mine.unpack(buf)
@@ -128,7 +129,8 @@ def test_layout_offsets_and_pack_match_exactly(R, lane):
     np.testing.assert_array_equal(to_numpy(mine.wire_slice(buf)),
                                   np.asarray(theirs.wire_slice(want)))
     _close(mine.l1_norm_per_node(buf), theirs.l1_norm_per_node(want))
-    delta = tree_from_numpy(_values(4, seed=1) | {"z": np.ones(4, np.float32)})
+    delta = tree_from_numpy(_values(4, seed=1) | {"z": np.ones(4, np.float32)},
+                            device="cpu")
     _close(mine.add_wire(buf, delta),
            theirs.add_wire(want, jax.tree_util.tree_map(
                lambda x: jnp.asarray(to_numpy(x)), delta)))
@@ -156,7 +158,7 @@ def test_dense_and_circulant_mixes_match_reference(R, topo_i):
         want = R.core.pushsum.gossip_packed(rs, w=jnp.asarray(w))
         _close(got.s, want.s)
         _close(got.a, want.a)
-        tree = tree_from_numpy(_values(n, seed=t))
+        tree = tree_from_numpy(_values(n, seed=t), device="cpu")
         got_t = gossip_dense(PushSumState(tree, ps.a), torch.from_numpy(w))
         want_t = R.core.pushsum.gossip_dense(R.core.pushsum.PushSumState(
             jax.tree_util.tree_map(jnp.asarray, _values(n, seed=t)), rs.a),
@@ -175,7 +177,7 @@ def test_dense_and_circulant_mixes_match_reference(R, topo_i):
 def test_correct_and_consensus_error_match_reference(R):
     vals = _values(5)
     _, a = _push_pair(5, 1)
-    tree_t, a_t = tree_from_numpy(vals), torch.from_numpy(a)
+    tree_t, a_t = tree_from_numpy(vals, device="cpu"), torch.from_numpy(a)
     tree_j = jax.tree_util.tree_map(jnp.asarray, vals)
     y_t = correct(tree_t, a_t)
     y_j = R.core.pushsum.correct(tree_j, jnp.asarray(a))
@@ -196,20 +198,21 @@ def test_sensitivity_init_and_real_sensitivity_match_reference(R):
     vals = _values(4)
     eps0 = np.random.default_rng(3).uniform(0, 3, size=4).astype(np.float32)
     vals_j = jax.tree_util.tree_map(jnp.asarray, vals)
-    mine = init_sensitivity(tree_from_numpy(vals), torch.from_numpy(eps0),
+    mine = init_sensitivity(tree_from_numpy(vals, device="cpu"),
+                            torch.from_numpy(eps0),
                             c_prime=0.78, lam=0.55)
     theirs = R.core.sensitivity.init_sensitivity(
         vals_j, jnp.asarray(eps0), c_prime=0.78, lam=0.55)
     for f in mine._fields:
         _close(getattr(mine, f), getattr(theirs, f))
-    _close(real_sensitivity(tree_from_numpy(vals)),
+    _close(real_sensitivity(tree_from_numpy(vals, device="cpu")),
            R.core.sensitivity.real_sensitivity(vals_j))
 
 
 def test_l1_clip_and_accountant_match_reference(R):
     vals = _values(6)
     vals["w"][2] *= 100.0  # one node above the clip
-    got, norms = l1_clip_per_node(tree_from_numpy(vals), 10.0)
+    got, norms = l1_clip_per_node(tree_from_numpy(vals, device="cpu"), 10.0)
     want, want_norms = R.core.privacy.l1_clip_per_node(
         jax.tree_util.tree_map(jnp.asarray, vals), 10.0)
     _trees_close(got, want)
@@ -236,13 +239,13 @@ def test_partition_matches_reference(R, rules):
               "l2": rng.normal(size=(3, 4, 8)).astype(np.float32),
               "blocks": {"w": rng.normal(size=(3, 5, 2, 2)).astype(np.float32)},
               "l3": rng.normal(size=(3, 8)).astype(np.float32)}
-    mine = Partition.from_rules(tree_from_numpy(params), rules,
+    mine = Partition.from_rules(tree_from_numpy(params, device="cpu"), rules,
                                 default="local")
     pj = jax.tree_util.tree_map(jnp.asarray, params)
     theirs = R.core.partition.Partition.from_rules(pj, rules, default="local")
     assert mine.d_shared() == theirs.d_shared()
     assert mine.d_shared(per_node=False) == theirs.d_shared(per_node=False)
-    sh, lo = mine.split(tree_from_numpy(params))
+    sh, lo = mine.split(tree_from_numpy(params, device="cpu"))
     sh_j, lo_j = theirs.split(pj)
     _trees_close(sh, sh_j, 0, 0)
     _trees_close(lo, lo_j, 0, 0)
@@ -276,8 +279,9 @@ def _run_rounds(R, *, noise, lane, mode="estimated", rounds=4, sync=3, n=5,
     r_state = r_state._replace(push=r_state.push._replace(
         s=r_layout.pack(r_state.push.s)))
     cfg = DPPSConfig(**kw)
-    layout = PackedLayout.from_tree(tree_from_numpy(vals), lane=lane)
-    state = dpps_init(tree_from_numpy(vals), cfg)
+    layout = PackedLayout.from_tree(tree_from_numpy(vals, device="cpu"),
+                                    lane=lane)
+    state = dpps_init(tree_from_numpy(vals, device="cpu"), cfg)
     state = state._replace(push=state.push._replace(
         s=layout.pack(state.push.s)))
     base = jax.random.PRNGKey(seed)
@@ -290,7 +294,8 @@ def _run_rounds(R, *, noise, lane, mode="estimated", rounds=4, sync=3, n=5,
             layout=r_layout)
         bits = (torch.from_numpy(reference_bits(seed, t, n, layout.d_s))
                 if noise else None)
-        state, diag = dpps_step(state, tree_from_numpy(eps_seq[t]), cfg,
+        state, diag = dpps_step(state,
+                                tree_from_numpy(eps_seq[t], device="cpu"), cfg,
                                 layout, w=torch.from_numpy(w), bits=bits)
         out.append(((state, diag, layout), (r_state, r_diag, r_layout)))
     return out
@@ -327,7 +332,8 @@ def test_states_convert_from_reference(R):
         default="local")
     rs = R.core.partpsp.partpsp_init(
         jax.tree_util.tree_map(jnp.asarray, vals), part, cfg)
-    st = partpsp_state_from_reference(jax.tree_util.tree_map(np.asarray, rs))
+    st = partpsp_state_from_reference(jax.tree_util.tree_map(np.asarray, rs),
+                                      device="cpu")
     assert st.dpps.t == 0
     _trees_close(st.dpps.push.s, rs.dpps.push.s, 0, 0)
     _trees_close(st.local, rs.local, 0, 0)
@@ -335,14 +341,43 @@ def test_states_convert_from_reference(R):
     _close(st.dpps.sens.s_local, rs.dpps.sens.s_local, 0, 0)
     _close(st.dpps.sens.c_prime, rs.dpps.sens.c_prime, 0, 0)
     alone = dpps_state_from_reference(
-        jax.tree_util.tree_map(np.asarray, rs.dpps))
+        jax.tree_util.tree_map(np.asarray, rs.dpps), device="cpu")
     _trees_close(alone.push.s, rs.dpps.push.s, 0, 0)
+
+
+def test_convert_defaults_to_the_card(R, monkeypatch):
+    """Without a CUDA card the default device raises; "cpu" works."""
+    vals = _values(3)
+    cfg = R.core.partpsp.make_baseline_config("partpsp")
+    part = R.core.partition.Partition.from_rules(
+        jax.tree_util.tree_map(jnp.asarray, vals), (("w", "shared"),),
+        default="local")
+    rs = jax.tree_util.tree_map(np.asarray, R.core.partpsp.partpsp_init(
+        jax.tree_util.tree_map(jnp.asarray, vals), part, cfg))
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for fn, arg in ((tree_from_numpy, vals), (dpps_state_from_reference,
+                                              rs.dpps),
+                    (partpsp_state_from_reference, rs)):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            fn(arg)
+    assert tree_from_numpy(vals, device="cpu")["w"].device.type == "cpu"
+    st = partpsp_state_from_reference(rs, device="cpu")
+    assert st.dpps.push.a.device.type == "cpu"
+    assert dpps_state_from_reference(rs.dpps, device="cpu").t == 0
 
 
 # -- data --------------------------------------------------------------------
 
+def test_synthetic_data_defaults_to_the_card(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        SyntheticClassification(d_in=4)
+    task = SyntheticClassification(d_in=4, device="cpu")
+    assert task.w1.device.type == "cpu" and task.device.type == "cpu"
+
+
 def test_synthetic_teacher_and_dirichlet_match_exactly(R):
-    mine = SyntheticClassification(d_in=12, seed=5)
+    mine = SyntheticClassification(d_in=12, seed=5, device="cpu")
     theirs = R.data.SyntheticClassification(d_in=12, seed=5)
     np.testing.assert_array_equal(to_numpy(mine.w1), np.asarray(theirs._w1))
     np.testing.assert_array_equal(to_numpy(mine.w2), np.asarray(theirs._w2))

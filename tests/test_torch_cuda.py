@@ -8,7 +8,12 @@ card. On a GPU machine (which needs no JAX for this file):
 Tolerances: the fused perturb agrees elementwise to rtol 1e-6 / atol 1e-6
 (the card's logf may differ from the CPU's log by an ulp); row sums to
 rtol 1e-5 (per-block partials against PyTorch's reduction order); the mix
-to rtol 1e-5 / atol 1e-6 (fma in j order against cuBLAS's order).
+to rtol 1e-5 / atol 1e-6 (fma in j order against cuBLAS's order). The
+sparse mix to rtol 1e-6 / atol 1e-6 (fma against the plain version's
+separate multiply and add), and bit for bit against the dense kernel on a
+topology's own CSR; the clip scale exactly (one correctly rounded
+division); the Laplace transform to rtol 1e-6 (logf against the CPU's
+log, an ulp).
 """
 from __future__ import annotations
 
@@ -18,6 +23,7 @@ import torch
 from repro_torch.api import PrivacySpec, Session
 from repro_torch.core.topology import DOutGraph
 from repro_torch.kernels import ops, ref
+from repro_torch.net import ErdosRenyiGraph
 
 pytestmark = pytest.mark.requires_cuda
 
@@ -67,8 +73,13 @@ def test_wrappers_count_launches_and_reject_what_the_kernels_do_not_take(dev):
     ops.l1_norm_rows(s, 200)
     ops.dpps_perturb_rows(s, s, 1.0, 1.0, 200, seed=0, t=0)
     ops.pushsum_mix(torch.eye(3, device=dev), s)
-    assert ops.launch_counts() == {"l1_norm_rows": 1, "dpps_perturb_rows": 1,
-                                   "pushsum_mix": 1}
+    idx = torch.tensor([[0, 1], [1, 2], [0, 2]], dtype=torch.int32, device=dev)
+    ops.spmm(idx, torch.full((3, 2), 0.5, device=dev), s)
+    ops.clip_scale_rows(s, 200, torch.ones(3, device=dev))
+    ops.laplace_from_bits(torch.zeros(9, dtype=torch.uint32, device=dev), 1.0)
+    assert ops.launch_counts() == {
+        "l1_norm_rows": 1, "dpps_perturb_rows": 1, "pushsum_mix": 1,
+        "spmm": 1, "clip_scale_rows": 1, "laplace_from_bits": 1}
     with pytest.raises(TypeError):
         ops.l1_norm_rows(s.double(), 200)
     with pytest.raises(ValueError):
@@ -80,7 +91,60 @@ def test_wrappers_count_launches_and_reject_what_the_kernels_do_not_take(dev):
         ops.pushsum_mix(torch.eye(33, device=dev), big)
     with pytest.raises(ValueError):
         ops.pushsum_mix(torch.eye(3), s)  # W on the CPU, x on the card
-    assert sum(ops.launch_counts().values()) == 3
+    with pytest.raises(ValueError):
+        ops.spmm(idx, torch.ones((3, 2), device=dev), s[:, :126])  # D % 4
+    with pytest.raises(TypeError):
+        ops.spmm(idx.long(), torch.ones((3, 2), device=dev), s)
+    assert sum(ops.launch_counts().values()) == 6
+
+
+@pytest.mark.parametrize("n,d", [(4, 7936), (24, 1024), (128, 7936),
+                                 (4096, 8), (33, 12)])
+def test_spmm_matches_plain_and_the_dense_kernel(dev, n, d):
+    topo = ErdosRenyiGraph(n, p=min(1.0, 8 / n), seed=0)
+    w = topo.weight_matrix_torch(0, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(n)
+    x = torch.randn((n, d), generator=gen, device=dev)
+    for k in (None, topo.max_in_degree(0) + 3):
+        idx, vals = topo.sparse_weights(0, k)
+        idx = torch.as_tensor(idx, device=dev)
+        vals = torch.as_tensor(vals, dtype=torch.float32, device=dev)
+        got = ops.spmm(idx, vals, x)
+        torch.testing.assert_close(got, ref.spmm(idx, vals, x), rtol=1e-6,
+                                   atol=1e-6)
+        if n <= ops.MAX_MIX_NODES:
+            assert torch.equal(got, ops.pushsum_mix(w, x))
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("n,d_s", [(4, 7840), (3, 130), (24, 8192)])
+def test_clip_scale_and_laplace_match_plain(dev, n, d_s):
+    gen = torch.Generator(device=dev).manual_seed(d_s)
+    buf = _rows(gen, dev, n, d_s)
+    norms = ops.l1_norm_rows(buf, d_s)
+    denom = torch.clamp_min(norms / norms.median(), 1.0)
+    got = ops.clip_scale_rows(buf, d_s, denom)
+    assert torch.equal(got, ref.clip_scale_rows(buf, d_s, denom))
+    tree = {"a": buf[:, :d_s].reshape(n, -1, 2) if d_s % 2 == 0
+            else buf[:, :d_s], "b": buf[:, :7].clone()}
+    clipped, tree_norms = ops.l1_clip_tree(tree, 50.0)
+    want, want_norms = ops.l1_clip_tree({k: v.cpu() for k, v in tree.items()},
+                                        50.0)
+    for k in tree:
+        torch.testing.assert_close(clipped[k].cpu(), want[k], rtol=1e-6,
+                                   atol=0)
+    torch.testing.assert_close(tree_norms.cpu(), want_norms, rtol=1e-5,
+                               atol=0)
+    bits = torch.randint(0, 2 ** 32, (n * d_s + 3,), generator=gen,
+                         device=dev, dtype=torch.int64)
+    bits[:5] = 1 << 31  # the padding bits give exactly 0
+    bits = bits.to(torch.uint32)
+    scale = torch.tensor(0.7, device=dev)
+    noise = ops.laplace_from_bits(bits, scale)
+    torch.testing.assert_close(noise, ref.laplace_from_bits(bits, scale),
+                               rtol=1e-6, atol=0)
+    assert bool((noise[:5] == 0).all())
+    torch.cuda.synchronize()
 
 
 def test_session_on_the_card_matches_the_cpu(dev):

@@ -190,5 +190,13 @@ def test_cpu_tensors_take_the_plain_version_and_count_no_launch():
     ops.l1_norm_rows(buf, 100)
     ops.dpps_perturb_rows(buf, buf, 1.0, 1.0, 100, seed=0, t=0)
     ops.pushsum_mix(torch.eye(2), buf)
-    assert ops.launch_counts() == {"l1_norm_rows": 0, "dpps_perturb_rows": 0,
-                                   "pushsum_mix": 0}
+    ops.spmm(torch.tensor([[0, 1], [0, 1]], dtype=torch.int32),
+             torch.full((2, 2), 0.5), buf)
+    ops.clip_scale_rows(buf, 100, torch.ones(2))
+    ops.laplace_from_bits(torch.zeros(8, dtype=torch.uint32), 1.0)
+    ops.l1_clip_tree({"x": buf}, 1.0)
+    ops.laplace_noise_tree({"x": torch.zeros((2, 3), dtype=torch.uint32)},
+                           1.0)
+    assert ops.launch_counts() == {
+        "l1_norm_rows": 0, "dpps_perturb_rows": 0, "pushsum_mix": 0,
+        "spmm": 0, "clip_scale_rows": 0, "laplace_from_bits": 0}

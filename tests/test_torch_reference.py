@@ -15,6 +15,8 @@ Other ``tests/test_torch_*.py`` files import from here
 * :func:`reference_bits` rebuilds the exact uint32 noise bits the
   reference's kernel path consumed in round ``t``, so the port can be fed
   the same bits through its ``bits_at`` seam.
+* :func:`reference_tree_bits` rebuilds the bits ``repro.kernels.ops.
+  laplace_noise_tree`` feeds its Laplace kernel, leaf by leaf.
 """
 from __future__ import annotations
 
@@ -26,7 +28,8 @@ import numpy as np
 import pytest
 import torch
 
-__all__ = ["load_reference", "reference_bits", "to_numpy"]
+__all__ = ["load_reference", "reference_bits", "reference_tree_bits",
+           "to_numpy"]
 
 
 def _install_batchers_contains() -> None:
@@ -41,11 +44,13 @@ def _install_batchers_contains() -> None:
 
 def load_reference():
     """The reference package ``repro`` with the modules the tests use
-    (``repro.api``, ``repro.kernels.ops``, ``repro.kernels.ref``) imported."""
+    (``repro.api``, ``repro.kernels.ops``, ``repro.net.graphs``, ...)
+    imported."""
     _install_batchers_contains()
     repro = importlib.import_module("repro")
-    for name in ("repro.api", "repro.core.packing", "repro.data",
-                 "repro.kernels.ops", "repro.kernels.ref"):
+    for name in ("repro.api", "repro.core.packing", "repro.core.pushsum",
+                 "repro.data", "repro.engine.plan", "repro.kernels.ops",
+                 "repro.kernels.ref", "repro.net.graphs"):
         importlib.import_module(name)
     return repro
 
@@ -66,6 +71,21 @@ def reference_bits(seed: int, t: int, n_nodes: int, d_s: int, *,
     node_keys = jax.random.split(key, n_nodes)
     bits = jax.vmap(lambda k: jax.random.bits(k, (d_s,), jnp.uint32))(node_keys)
     return np.array(bits)  # a writable copy: torch.from_numpy shares it
+
+
+def reference_tree_bits(key, tree) -> list[np.ndarray]:
+    """The uint32 bits ``repro.kernels.ops.laplace_noise_tree(key, tree,
+    scale)`` draws: ``split(key, n_leaves)``, then ``split(., N)`` per leaf,
+    then ``bits(node_key, (leaf_size,))`` per node. One (N, *leaf shape)
+    array per leaf, in tree-flatten order."""
+    leaves = jax.tree_util.tree_leaves(tree)
+    out = []
+    for k, leaf in zip(jax.random.split(key, len(leaves)), leaves):
+        n, size = leaf.shape[0], int(np.prod(leaf.shape[1:]))
+        bits = jax.vmap(lambda kk: jax.random.bits(kk, (size,), jnp.uint32))(
+            jax.random.split(k, n))
+        out.append(np.array(bits).reshape(leaf.shape))
+    return out
 
 
 def to_numpy(x) -> np.ndarray:

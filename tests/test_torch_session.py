@@ -110,8 +110,8 @@ def test_session_run_matches_reference(R, noise, schedule):
     assert session.plan.schedule == ref_session.plan.schedule == schedule
     bits_at = ((lambda t: torch.from_numpy(
         reference_bits(SEED, t, N_CONS, d_s))) if noise else None)
-    rep = session.run(ROUNDS, values=tree_from_numpy(vals),
-                      eps_at=lambda t: tree_from_numpy(eps[t]),
+    rep = session.run(ROUNDS, values=tree_from_numpy(vals, device="cpu"),
+                      eps_at=lambda t: tree_from_numpy(eps[t], device="cpu"),
                       bits_at=bits_at)
     _check_report(rep, ref_rep, 1e-5, 1e-6)
     _check_dpps_state(rep.state, ref_rep.state, 1e-5, 1e-6)
@@ -184,13 +184,15 @@ def test_session_train_matches_reference(R, noise):
 
     session = Session.build(T.DOutGraph(N_TRAIN, 2),
                             privacy=PrivacySpec(**privacy), model=mlp_loss,
-                            params=tree_from_numpy(params), device="cpu",
+                            params=tree_from_numpy(params, device="cpu"),
+                            device="cpu",
                             **deploy)
     d_s = session.partition.d_shared()
     assert d_s == ref_session.partition.d_shared() == D_IN * HIDDEN
     bits_at = ((lambda t: torch.from_numpy(reference_bits(
         SEED, t, N_TRAIN, d_s, partpsp=True))) if noise else None)
-    rep = session.train(ROUNDS, lambda t: tree_from_numpy(batches[t]),
+    rep = session.train(ROUNDS,
+                        lambda t: tree_from_numpy(batches[t], device="cpu"),
                         bits_at=bits_at)
     _check_report(rep, ref_rep, 1e-4, 1e-5)
     _check_dpps_state(rep.state.dpps, ref_rep.state.dpps, 1e-4, 1e-5)
