@@ -6,7 +6,7 @@
 
 Phases, each printing one JSON line:
 
-1. ``build``      compile the six kernels (one nvcc each, in parallel).
+1. ``build``      compile the seven kernels (one nvcc each, in parallel).
 2. ``kernels``    each kernel against its plain PyTorch version at the main
                   paths' shapes: the dense kernels at the paper MLP's shared
                   layer (N = 10, d_s = 7840) and the dense full-width buffer
@@ -32,9 +32,22 @@ Phases, each printing one JSON line:
                   with the Laplace statistics.
 8. ``agreement``  seeded consensus and training runs on the card (kernels)
                   and on the CPU (plain versions) agree, dense and sparse.
+9. ``flash``      ``flash_attention`` against its plain version at the serving
+                  shapes: (a) llama3.2-1b's prefill (B = 1, S = 32,768,
+                  H = 32, K = 8, D = 64), (b) gemma3-1b's (H = 4, K = 1,
+                  D = 256) with window 512 and global, (c) a ragged B = 2,
+                  S = 1,000, H = 24, K = 8, D = 128; the plain version over
+                  windows of query rows (rows [r0, r1) against keys [0, r1)),
+                  every row checked; SDPA timed as the yardstick.
+10. ``serve``     ``Session.build(model=...).serve`` of llama3.2-1b and then
+                  gemma3-1b at full width (all layers, f32, flash_prefill)
+                  on one 32,768-token prompt, 32 tokens generated.
+11. ``serve_agreement``  llama3.2-1b at full width, 2 layers: serve on the
+                  card (kernel) and on the CPU (plain) under the same Gumbel
+                  noise; then flash against plain prefill on the card.
 
 Each kernel counts its launches. The counts are set to 0 just before each
-path (phases 3-7) and read just after; each path names the kernels it must
+path (phases 3-7 and 10) and read just after; each path names the kernels it must
 launch (and the sparse paths must launch ``pushsum_mix`` no time). Then
 come the card's name and power limit (``nvidia-smi``), the ``kernels`` line
 with every kernel's times beside its bound, and the status line. Any
@@ -71,6 +84,16 @@ SPARSE_TRAIN = dict(n=SPARSE_TRAIN_N, d_s=PAPER["d_s"])
 SPARSE_SWEEP = dict(n=4096, d=8, seed=2024)
 CONSENSUS_ROUNDS, TRAIN_STEPS = 20, 50
 SEED = 2024
+# Serving: prefill_32k's sequence length (configs/base.py), its batch of 32
+# cut to 1 to fit one card; 32 tokens generated.
+SERVE_PROMPT, SERVE_GEN = 32_768, 32
+FLASH_SHAPES = {  # (B, S, H, K, D, window)
+    "llama_32k": (1, SERVE_PROMPT, 32, 8, 64, None),
+    "gemma3_32k_window512": (1, SERVE_PROMPT, 4, 1, 256, 512),
+    "gemma3_32k_global": (1, SERVE_PROMPT, 4, 1, 256, None),
+    "ragged_minitron": (2, 1000, 24, 8, 128, None),
+}
+FLASH_SDPA = ("llama_32k", "gemma3_32k_global")
 
 KERNELS = {
     "l1_norm_rows": dict(source="src/repro_torch/kernels/csrc/l1_norm.cu",
@@ -87,6 +110,9 @@ KERNELS = {
     "laplace_from_bits": dict(
         source="src/repro_torch/kernels/csrc/laplace_noise.cu",
         replaces="src/repro/kernels/laplace_noise.py:40"),
+    "flash_attention": dict(
+        source="src/repro_torch/kernels/csrc/flash_attention.cu",
+        replaces="src/repro/kernels/flash_attention.py:91"),
 }
 DENSE_PATH = ("l1_norm_rows", "dpps_perturb_rows", "pushsum_mix")
 SPARSE_PATH = ("l1_norm_rows", "dpps_perturb_rows", "spmm")
@@ -709,6 +735,277 @@ def agreement(torch, api, T, mlp, trained: dict) -> dict:
     return dict(phase="agreement", **out)
 
 
+# -- phase 9: flash attention against its plain version ----------------------
+
+def visible_pairs(s: int, window) -> int:
+    """(query, key) pairs a causal row set of length s sees: sum over rows i
+    of min(i + 1, window)."""
+    if window is None or window >= s:
+        return s * (s + 1) // 2
+    return window * (window + 1) // 2 + (s - window) * window
+
+
+def check_flash(torch, F, ops, ref, name: str, dev, iters: int) -> dict:
+    """``ops.flash_attention_bshd`` against ``ref.flash_attention`` at one
+    shape. The plain version's (B, H, rows, keys) scores do not fit at 32k,
+    so it runs over windows of query rows: rows [r0, r1) against keys
+    [0, r1), positions offset by ``q_start = r0``; every row is checked.
+    Tolerance atol 1e-5 / rtol 1e-4 on outputs of magnitude about 1: the
+    online softmax sums in another order than the plain one and expf may
+    differ from the plain exp by an ulp."""
+    b, s, h, kh, d, window = FLASH_SHAPES[name]
+    gen = torch.Generator(device=dev).manual_seed(SEED + s + d)
+    q = torch.randn((b, s, h, d), generator=gen, device=dev)
+    k = torch.randn((b, s, kh, d), generator=gen, device=dev)
+    v = torch.randn((b, s, kh, d), generator=gen, device=dev)
+    got = ops.flash_attention_bshd(q, k, v, window=window)
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))  # (B, heads, S, D)
+    rows = max(16, min(s, (1 << 29) // (b * h * s)))
+    errs = dict(abs=0.0, rel=0.0)
+
+    def plain(r0, r1):
+        return ref.flash_attention(qt[:, :, r0:r1], kt[:, :, :r1],
+                                   vt[:, :, :r1], group=h // kh,
+                                   window=window, q_start=r0)
+
+    def check(r0, r1, want):
+        g = got[:, r0:r1].transpose(1, 2)
+        diff = (g - want).abs()
+        require(bool((diff <= 1e-5 + 1e-4 * want.abs()).all()),
+                f"flash_attention disagrees at {name}, rows [{r0}, {r1}): "
+                f"max abs err {diff.max().item()}")
+        errs["abs"] = max(errs["abs"], diff.max().item())
+        big = want.abs() >= 1e-3  # relative error where it means something
+        if bool(big.any()):
+            errs["rel"] = max(errs["rel"],
+                              (diff[big] / want.abs()[big]).max().item())
+
+    plain(0, min(s, rows))  # warm-up
+    plain_ms = timed_windows(torch, plain, check, s, rows)
+    ms = cuda_ms(torch, lambda: ops.flash_attention_bshd(q, k, v, window=window),
+                 iters, warmup=1)
+    library_ms = sdpa_err = None
+    if name in FLASH_SDPA:
+        # the yardstick: one PyTorch call, KV heads repeated to the query
+        # heads (the memory-efficient backend takes f32 and is_causal)
+        kr = kt.repeat_interleave(h // kh, dim=1)
+        vr = vt.repeat_interleave(h // kh, dim=1)
+        sdpa = lambda: F.scaled_dot_product_attention(qt, kr, vr, is_causal=True)
+        sdpa_err = (sdpa().transpose(1, 2) - got).abs().max().item()
+        library_ms = cuda_ms(torch, sdpa, iters, warmup=1)
+        del kr, vr
+    pairs = visible_pairs(s, window) * b * h
+    out = dict(shape=dict(b=b, s=s, h=h, kh=kh, d=d, window=window),
+               rows_per_plain_window=rows, max_abs_err=errs["abs"],
+               max_rel_err=errs["rel"], ms=ms, plain_ms=plain_ms,
+               library_ms=library_ms, sdpa_max_abs_diff=sdpa_err,
+               bound=bound(4.0 * (2 * b * s * h * d + 2 * b * s * kh * d),
+                           f32_ops=4.0 * d * pairs))
+    out["pct_of_bound"] = 100.0 * out["bound"][0] / ms
+    del q, k, v, got, qt, kt, vt
+    torch.cuda.empty_cache()
+    return out
+
+
+# -- phase 10: serving at full width -----------------------------------------
+
+def serve(torch, ops, dev, arch: str) -> dict:
+    """``Session.build(model=...).serve`` of ``arch`` at its full published
+    width, all layers, f32, ``flash_prefill`` on: one 32,768-token prompt,
+    ``SERVE_GEN`` tokens. Each flash launch of the prefill is bracketed by
+    CUDA events (the wrapper itself is called as the model calls it), for
+    the kernel's share of the prefill."""
+    import dataclasses
+
+    from repro_torch.api import Session
+    from repro_torch.configs import get_config
+    from repro_torch.core.tree_utils import tree_leaves
+    from repro_torch.models.transformer import Transformer
+
+    cfg = dataclasses.replace(get_config(arch).model, flash_prefill=True)
+    model = Transformer(cfg)
+    n_layers = cfg.total_layers
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    params = model.init(gen)  # on the card: the port's default device
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(x.numel() for x in tree_leaves(params))
+    session = Session.build(model=model, seed=SEED)
+    require(session.device.type == "cuda", "serve session not on the card")
+    tokens = torch.randint(0, cfg.vocab_size, (1, SERVE_PROMPT),
+                           generator=gen, device=dev)
+
+    events = []
+    wrapped = ops.flash_attention_bshd
+
+    def timed_flash(*args, **kwargs):
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        out = wrapped(*args, **kwargs)
+        e1.record()
+        events.append((e0, e1, kwargs.get("window")))
+        return out
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    ops.flash_attention_bshd = timed_flash
+    try:
+        rep = session.serve(params, {"tokens": tokens}, gen=SERVE_GEN)
+    finally:
+        ops.flash_attention_bshd = wrapped
+    launches = ops.launch_counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    require(launches["flash_attention"] == n_layers,
+            f"{arch}: {launches['flash_attention']} flash launches for "
+            f"{n_layers} layers")
+    require_launches(launches, ("flash_attention",), f"{arch} serve",
+                     absent=tuple(k for k in KERNELS if k != "flash_attention"))
+    logits = rep.logits
+    require(tuple(logits.shape) == (1, cfg.vocab_size)
+            and bool(torch.isfinite(logits).all()), f"{arch}: logits")
+    toks = rep.tokens
+    require(tuple(toks.shape) == (1, SERVE_GEN)
+            and bool(((toks >= 0) & (toks < cfg.vocab_size)).all()),
+            f"{arch}: tokens {toks.tolist()}")
+    slots = {g: tuple(c["k"].shape) for g, c in rep.cache.items()}
+    require(all(sh[2] == SERVE_PROMPT + SERVE_GEN for sh in slots.values()),
+            f"{arch}: cache slots {slots}")
+    require(all(bool(torch.isfinite(c["k"]).all()) for c in rep.cache.values()),
+            f"{arch}: cache not finite")
+    decode = decode_profile(torch, model, params, rep)
+    flash_ms = [a.elapsed_time(b) for a, b, _ in events]
+    windowed = [w is not None and w >= 0 for _, _, w in events]
+    out = dict(phase="serve", arch=arch, layers=n_layers, params=n_params,
+               d_model=cfg.d_model, heads=cfg.n_heads, kv_heads=cfg.n_kv_heads,
+               head_dim=cfg.head_dim, batch=1, prompt=SERVE_PROMPT,
+               gen=SERVE_GEN, init_s=init_s, prefill_s=rep.prefill_s,
+               prompt_tokens_per_s=SERVE_PROMPT / rep.prefill_s,
+               decode_s=rep.decode_s, decode_ms_per_token=rep.ms_per_token,
+               decode_device_busy_ms_per_step=decode["busy_ms"],
+               decode_device_idle_share=(
+                   None if decode["busy_ms"] is None
+                   else 1.0 - decode["busy_ms"] / rep.ms_per_token),
+               decode_top_kernels=decode["top"],
+               flash_ms_total=sum(flash_ms),
+               flash_ms_global=sum(m for m, w in zip(flash_ms, windowed)
+                                   if not w),
+               flash_ms_windowed=sum(m for m, w in zip(flash_ms, windowed)
+                                     if w),
+               flash_launches_windowed=sum(windowed),
+               flash_share_of_prefill=sum(flash_ms) / (rep.prefill_s * 1e3),
+               peak_mem_gb=peak_gb, cache_shape=slots,
+               tokens=toks[0].tolist(), launches=launches)
+    del params, rep, logits, tokens
+    torch.cuda.empty_cache()
+    return out
+
+
+def decode_profile(torch, model, params, rep, steps: int = 3) -> dict:
+    """Device time of a decode step by kernel, from ``torch.profiler``:
+    ``steps`` steps at the cache's last free slot. ``busy_ms`` is the
+    summed kernel time a step (None if the profiler saw no device time);
+    against the served ms per token it gives the device's idle share in
+    decode. ``top``: the five kernels with the most time, ms a step."""
+    from torch.profiler import ProfilerActivity, profile
+
+    pos = SERVE_PROMPT + SERVE_GEN - 1
+    last = rep.tokens[:, -1]
+    with torch.no_grad():
+        model.decode_step(params, rep.cache, last, pos)  # warm-up
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(steps):
+                model.decode_step(params, rep.cache, last, pos)
+            torch.cuda.synchronize()
+    rows = []
+    for e in prof.key_averages():
+        us = getattr(e, "self_device_time_total", None)
+        if us is None:
+            us = e.self_cuda_time_total
+        if us > 0:
+            rows.append((us / 1e3 / steps, e.count / steps, e.key))
+    rows.sort(reverse=True)
+    busy = sum(r[0] for r in rows)
+    return dict(busy_ms=busy if busy > 0 else None,
+                top=[dict(kernel=k[:80], ms_per_step=ms, calls_per_step=n)
+                     for ms, n, k in rows[:5]])
+
+
+# -- phase 11: serving, the card against the CPU ------------------------------
+
+def serve_agreement(torch, ops, dev) -> dict:
+    """llama3.2-1b at full width, 2 layers, flash_prefill, B = 2, a 384-token
+    prompt (ragged against the kernel's 64-row tiles only in that it needs
+    none), 8 tokens: the card (kernel) and the CPU (plain) with the same
+    parameters and the same Gumbel noise give prefill logits within
+    rtol 1e-4 / atol 1e-4 (f32 matmuls and softmax in other orders) and the
+    same tokens. Then flash against plain prefill on the card at B = 4,
+    S = 2,048, same tolerance."""
+    import dataclasses
+
+    from repro_torch.api import Session
+    from repro_torch.configs import get_config
+    from repro_torch.core.tree_utils import tree_map
+    from repro_torch.engine.rounds import gumbel
+    from repro_torch.models.config import AttnGroup
+    from repro_torch.models.transformer import Transformer
+
+    cfg = dataclasses.replace(get_config("llama3.2-1b").model,
+                              flash_prefill=True,
+                              groups=(AttnGroup(n_layers=2),))
+    model = Transformer(cfg)
+    cpu_gen = torch.Generator().manual_seed(SEED)
+    params = model.init(cpu_gen, device="cpu")
+    b, s, gen_len = 2, 384, 8
+    tokens = torch.randint(0, cfg.vocab_size, (b, s), generator=cpu_gen)
+    noise = gumbel(cpu_gen, (gen_len - 1, b, cfg.vocab_size), "cpu")
+    out, launches = {}, None
+    for device in ("cuda", "cpu"):
+        p = tree_map(lambda x: x.to(device), params)
+        noise_d = noise.to(device)
+        ops.reset_launch_counts()
+        out[device] = Session.build(model=model, device=device).serve(
+            p, {"tokens": tokens.to(device)}, gen=gen_len,
+            noise_at=lambda t: noise_d[t])
+        if device == "cuda":
+            launches = ops.launch_counts()
+    require(launches["flash_attention"] == 2, f"agreement launches {launches}")
+    card, cpu = out["cuda"], out["cpu"]
+    err = (card.logits.cpu() - cpu.logits).abs().max().item()
+    require(torch.allclose(card.logits.cpu(), cpu.logits, rtol=1e-4,
+                           atol=1e-4), f"serve logits card vs CPU: {err}")
+    same = bool(torch.equal(card.tokens.cpu(), cpu.tokens))
+    require(same, f"serve tokens card {card.tokens.tolist()} vs CPU "
+                  f"{cpu.tokens.tolist()}")
+
+    # flash against plain prefill on the card, B = 4, S = 2,048
+    p = tree_map(lambda x: x.to(dev), params)
+    toks = torch.randint(0, cfg.vocab_size, (4, 2048), generator=cpu_gen).to(dev)
+    plain = Transformer(dataclasses.replace(cfg, flash_prefill=False))
+    with torch.no_grad():
+        lf, cf = model.prefill(p, {"tokens": toks})
+        lp, cp = plain.prefill(p, {"tokens": toks})
+    err2 = (lf - lp).abs().max().item()
+    require(torch.allclose(lf, lp, rtol=1e-4, atol=1e-4),
+            f"flash vs plain prefill logits on the card: {err2}")
+    # layer 0's K/V come before any attention: equal; layer 1's within
+    # the logits' tolerance
+    kf, kp = cf["group_0"]["k"], cp["group_0"]["k"]
+    require(torch.equal(kf[0], kp[0]) and torch.allclose(
+        kf, kp, rtol=1e-4, atol=1e-4), "flash and plain prefill caches differ")
+    del p, lf, lp, cf, cp, kf, kp
+    torch.cuda.empty_cache()
+    return dict(phase="serve_agreement", layers=2, batch=b, prompt=s,
+                gen=gen_len, logits_max_abs_err=err, tokens_equal=same,
+                tokens=card.tokens.tolist(), flash_launches=launches[
+                    "flash_attention"],
+                flash_vs_plain_b4_s2048_logits_max_abs_err=err2)
+
+
 def sparse_graph(n: int, seed: int = 0):
     from repro_torch.net import ErdosRenyiGraph
 
@@ -752,8 +1049,14 @@ def main() -> int:
     from repro_torch.kernels import build, ops, ref
     from repro_torch.models import mlp
 
+    import torch.nn.functional as F
+
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    emit(dict(phase="precision",
+              matmul_allow_tf32=torch.backends.cuda.matmul.allow_tf32,
+              cudnn_allow_tf32=torch.backends.cudnn.allow_tf32,
+              float32_matmul_precision=torch.get_float32_matmul_precision()))
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
 
@@ -833,6 +1136,18 @@ def main() -> int:
     emit(tree)
     launches.append(tree["launches"])
     emit(agreement(torch, api, T, mlp, trained))
+    del trained, card, rep
+    torch.cuda.empty_cache()
+
+    flash = {name: check_flash(torch, F, ops, ref, name, dev,
+                               iters=3 if FLASH_SHAPES[name][1] > 4096 else 20)
+             for name in FLASH_SHAPES}
+    emit(dict(phase="flash", results=flash))
+    for arch in ("llama3.2-1b", "gemma3-1b"):
+        served = serve(torch, ops, dev, arch)
+        emit(served)
+        launches.append(served["launches"])
+    emit(serve_agreement(torch, ops, dev))
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -864,6 +1179,17 @@ def main() -> int:
         kernels.append(kernel_entry(
             name, tree_results[name], total[name],
             shape=dict(SPARSE_FULL, d_pad=d_pad_of(SPARSE_FULL["d_s"]))))
+    fa = flash["llama_32k"]
+    kernels.append(kernel_entry(
+        "flash_attention",
+        dict(fa, max_abs_err=max(r["max_abs_err"] for r in flash.values())),
+        total["flash_attention"], shape=fa["shape"],
+        max_rel_err=max(r["max_rel_err"] for r in flash.values()),
+        pct_of_bound=fa["pct_of_bound"],
+        **{f"{name}_shape": dict(at_shape(r), shape=r["shape"],
+                                 max_rel_err=r["max_rel_err"],
+                                 pct_of_bound=r["pct_of_bound"])
+           for name, r in flash.items() if name != "llama_32k"}))
     print(smi, flush=True)
     emit({"kernels": kernels, "card": smi})
     emit({"ok": True, "device": {"platform": "gpu",

@@ -1,4 +1,5 @@
-"""Typed run results (port of ``repro.api.results.RunReport``)."""
+"""Typed run results (port of ``repro.api.results``: ``RunReport`` and
+``ServeReport``)."""
 from __future__ import annotations
 
 import dataclasses
@@ -6,7 +7,7 @@ from typing import Any
 
 import numpy as np
 
-__all__ = ["RunReport"]
+__all__ = ["RunReport", "ServeReport"]
 
 
 @dataclasses.dataclass
@@ -32,3 +33,26 @@ class RunReport:
     @property
     def wall_clock(self) -> float:
         return self.compile_s + self.run_s
+
+
+@dataclasses.dataclass
+class ServeReport:
+    """One batched prefill + decode pass (:meth:`Session.serve`).
+
+    ``tokens`` is the generated sequence per batch row, (batch, gen): the
+    argmax first token followed by the sampled continuation. ``prefill_s``
+    and ``decode_s`` are wall seconds, each ending in a device
+    synchronisation. The port adds ``logits``, the prefill's last-token
+    logits (B, V) f32, and ``cache``, the KV cache after the last step.
+    """
+
+    tokens: Any
+    prefill_s: float
+    decode_s: float
+    steps: int
+    logits: Any = None
+    cache: Any = None
+
+    @property
+    def ms_per_token(self) -> float:
+        return self.decode_s / max(self.steps, 1) * 1e3

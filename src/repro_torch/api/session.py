@@ -5,7 +5,10 @@ lambda) calibration (unless the :class:`PrivacySpec` pins them), the
 :class:`repro_torch.engine.ProtocolPlan`, the configs stamped with the
 plan's choices, the partition and the node-stacked initial parameters.
 ``run`` drives DPPS consensus, ``train`` PartPSP training; both return a
-:class:`repro_torch.api.results.RunReport`.
+:class:`repro_torch.api.results.RunReport`. ``Session.build(model=...)``
+without a topology builds a serve-only session: ``serve`` runs a batched
+prefill and decode on a :class:`repro_torch.models.transformer.Transformer`
+and returns a :class:`repro_torch.api.results.ServeReport`.
 
 Device rule: ``device=None`` is the CUDA card and raises without one;
 ``device="cpu"`` runs the plain PyTorch path.
@@ -31,7 +34,7 @@ from typing import Any, Callable, Iterator
 import numpy as np
 import torch
 
-from repro_torch.api.results import RunReport
+from repro_torch.api.results import RunReport, ServeReport
 from repro_torch.core.dpps import (
     DPPSConfig,
     DPPSState,
@@ -50,7 +53,7 @@ from repro_torch.core.partpsp import (
 from repro_torch.core.topology import Topology, calibrate_constants
 from repro_torch.core.tree_utils import PyTree, tree_map
 from repro_torch.device import resolve_device
-from repro_torch.engine import ProtocolPlan, run_dpps, run_partpsp
+from repro_torch.engine import ProtocolPlan, run_decode, run_dpps, run_partpsp
 
 __all__ = ["PrivacySpec", "ProtocolSession", "Session"]
 
@@ -75,11 +78,12 @@ def _to_device(tree: PyTree, device: torch.device) -> PyTree:
 
 @dataclasses.dataclass(frozen=True, eq=False)
 class ProtocolSession:
-    """A frozen, fully derived protocol deployment (see module docstring)."""
+    """A frozen, fully derived protocol deployment (see module docstring).
+    A serve-only session has no topology, plan or protocol configs."""
 
-    topology: Topology
-    plan: ProtocolPlan
-    cfg: DPPSConfig                      # resolved consensus/protocol config
+    topology: Topology | None
+    plan: ProtocolPlan | None
+    cfg: DPPSConfig | None               # resolved consensus/protocol config
     train_cfg: PartPSPConfig | None      # resolved training config
     partition: Partition | None
     loss_fn: Callable | None
@@ -87,18 +91,16 @@ class ProtocolSession:
     seed: int
     algorithm: str
     n_nodes: int
-
-    @property
-    def device(self) -> torch.device:
-        return self.plan.device
+    device: torch.device
+    model: Any = None                    # the servable model, if any
 
     @classmethod
     def build(
         cls,
-        topology: Topology,
+        topology: Topology | None = None,
         privacy: PrivacySpec | None = None,
         plan: ProtocolPlan | None = None,
-        model: Callable | None = None,
+        model: Any = None,
         partition: Any = None,
         *,
         params: PyTree | None = None,
@@ -116,15 +118,27 @@ class ProtocolSession:
     ) -> "ProtocolSession":
         """Derive a session from topology + privacy + deployment choices.
 
-        ``model`` is the loss ``loss_fn(params, batch) -> (N,)`` over
-        node-stacked params and batch; it makes the session trainable.
+        ``model`` is either the loss ``loss_fn(params, batch) -> (N,)`` over
+        node-stacked params and batch, which makes the session trainable,
+        or a servable model (``prefill`` / ``init_cache`` /
+        ``decode_step``, e.g. a :class:`Transformer`) for :meth:`serve`.
+        Without a topology the session is serve-only and needs a servable
+        ``model``.
         ``params`` are single-node (copied to every node); pass
         ``params_stacked`` when they already carry the node axis.
         ``partition`` is a :class:`Partition` or a rules tuple (unmatched
         leaves stay local). ``seed`` keys the noise stream.
         """
-        spec = PrivacySpec() if privacy is None else privacy
         dev = resolve_device(device) if plan is None else plan.device
+        if topology is None:
+            if not hasattr(model, "prefill"):
+                raise ValueError("Session.build needs a topology, or a "
+                                 "servable model= for a serve-only session")
+            return cls(topology=None, plan=None, cfg=None, train_cfg=None,
+                       partition=None, loss_fn=None, init_params=None,
+                       seed=int(seed), algorithm=algorithm, n_nodes=0,
+                       device=dev, model=model)
+        spec = PrivacySpec() if privacy is None else privacy
         n_nodes = topology.n_nodes
         if spec.c_prime is None or spec.lam is None:
             cal_c, cal_l = calibrate_constants(topology)
@@ -137,7 +151,8 @@ class ProtocolSession:
         cfg_sync = sync_interval if isinstance(sync_interval, int) else 0
 
         train_cfg = part = stacked = None
-        if model is not None:
+        loss_fn = model if callable(model) else None
+        if loss_fn is not None:
             train_cfg = make_baseline_config(
                 algorithm, gamma_l=gamma_l, gamma_s=gamma_s, clip=clip,
                 b=spec.b, gamma_n=spec.gamma_n, c_prime=c_prime, lam=lam,
@@ -170,8 +185,9 @@ class ProtocolSession:
                 sensitivity_mode=spec.sensitivity_mode,
                 fixed_sensitivity=spec.fixed_sensitivity))
         return cls(topology=topology, plan=plan, cfg=cfg, train_cfg=train_cfg,
-                   partition=part, loss_fn=model, init_params=stacked,
-                   seed=int(seed), algorithm=algorithm, n_nodes=n_nodes)
+                   partition=part, loss_fn=loss_fn, init_params=stacked,
+                   seed=int(seed), algorithm=algorithm, n_nodes=n_nodes,
+                   device=dev, model=model)
 
     # -- state ---------------------------------------------------------------
 
@@ -237,6 +253,8 @@ class ProtocolSession:
         pure consensus). ``bits_at(t)`` feeds explicit (N, d_s) uint32
         noise bits instead of the seeded Philox stream (tests only).
         """
+        if self.plan is None:
+            raise ValueError("run() needs a session built with a topology")
         if state is None:
             if values is None:
                 raise ValueError("run() needs values= (fresh) or state=")
@@ -259,7 +277,8 @@ class ProtocolSession:
         """``rounds`` PartPSP rounds (Alg. 2); ``batch_at(t)`` gives round
         t's node-stacked batch."""
         if self.loss_fn is None:
-            raise ValueError("training needs model= at build time")
+            raise ValueError("training needs a topology and a loss model= at "
+                             "build time")
         if state is None:
             state = self.train_state()
         start = state.dpps.t
@@ -275,6 +294,74 @@ class ProtocolSession:
                 yield n, st, traj
 
         return self._drive(segments(), start)
+
+
+    # -- serving -------------------------------------------------------------
+
+    def _sync(self) -> None:
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+
+    def serve(self, params: PyTree, batch: dict[str, Any], *, gen: int,
+              temperature: float = 1.0,
+              generator: torch.Generator | None = None,
+              step_inputs: torch.Tensor | None = None,
+              noise_at: Callable[[int], torch.Tensor] | None = None
+              ) -> ServeReport:
+        """Batched prefill + decode of ``gen`` tokens on ``params``.
+
+        ``batch`` holds ``tokens`` (B, S) or, for embedding-input models,
+        ``embeds`` (B, S, d_model); those models also need ``step_inputs``
+        (gen - 1, B, d_model). The first token is the prefill's argmax; the
+        other gen - 1 are sampled by :func:`repro_torch.engine.run_decode`
+        with Gumbel noise from ``generator`` (default: a generator on the
+        session's device seeded with its seed) or from ``noise_at(step)``.
+
+        The reference prefills into a prompt-sized cache and grafts it into
+        a prompt + gen one; the port allocates the prompt + gen cache first
+        and prefill writes the prompt's K/V into it, so no second copy of
+        the cache is made (2.1 GB for llama3.2-1b at a 32k prompt).
+        """
+        model = self.model
+        if model is None or not hasattr(model, "prefill"):
+            raise ValueError("serve() needs a servable model= at build time "
+                             "(prefill/init_cache/decode_step)")
+        ref = batch["tokens"] if "tokens" in batch else batch["embeds"]
+        b, prompt_len = ref.shape[0], ref.shape[1]
+        steps = gen - 1
+        cfg = getattr(model, "cfg", None)
+        if (getattr(cfg, "input_mode", None) == "embeddings" and steps > 0
+                and step_inputs is None):
+            raise ValueError("embedding-input models need step_inputs= "
+                             "of shape (gen-1, B, d_model)")
+        if generator is None and noise_at is None:
+            generator = torch.Generator(device=self.device).manual_seed(
+                self.seed)
+
+        with torch.no_grad():
+            self._sync()
+            t0 = time.perf_counter()
+            logits, cache = model.prefill(params, batch,
+                                          capacity=prompt_len + gen)
+            self._sync()
+            prefill_s = time.perf_counter() - t0
+
+            t0 = time.perf_counter()
+            tok = torch.argmax(logits, dim=-1)
+            if steps > 0:
+                toks, cache = run_decode(
+                    lambda c, step_in, pos: model.decode_step(params, c,
+                                                              step_in, pos),
+                    cache, tok, start_pos=prompt_len, steps=steps,
+                    temperature=temperature, step_inputs=step_inputs,
+                    generator=generator, noise_at=noise_at)
+                tokens = torch.cat([tok[:, None], toks.T], dim=1)
+            else:
+                tokens = tok[:, None]
+            self._sync()
+        return ServeReport(tokens=tokens, prefill_s=prefill_s,
+                           decode_s=time.perf_counter() - t0, steps=steps,
+                           logits=logits, cache=cache)
 
 
 Session = ProtocolSession

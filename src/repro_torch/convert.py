@@ -24,11 +24,12 @@ from repro_torch.core.dpps import DPPSState
 from repro_torch.core.partpsp import PartPSPState
 from repro_torch.core.pushsum import PushSumState
 from repro_torch.core.sensitivity import SensitivityState
-from repro_torch.core.tree_utils import PyTree, tree_map
+from repro_torch.core.tree_utils import PyTree, tree_flatten_with_path, tree_map
 from repro_torch.device import resolve_device
 
 __all__ = ["tree_from_numpy", "dpps_state_from_reference",
-           "partpsp_state_from_reference"]
+           "partpsp_state_from_reference",
+           "transformer_params_from_reference"]
 
 
 def tree_from_numpy(tree: PyTree, device=None) -> PyTree:
@@ -55,3 +56,28 @@ def partpsp_state_from_reference(state: Any, device=None) -> PartPSPState:
     device = resolve_device(device)
     return PartPSPState(dpps=dpps_state_from_reference(state.dpps, device),
                         local=list(tree_from_numpy(list(state.local), device)))
+
+
+def transformer_params_from_reference(params: PyTree, cfg, device=None) -> dict:
+    """A reference ``Transformer.init`` tree (numpy leaves) for the model
+    ``cfg`` -> the port's parameter dict. Every path and shape is checked
+    against the port's own ``Transformer(cfg).init`` tree (built on the
+    meta device, so nothing is allocated), so that a renamed, missing or
+    reshaped leaf fails here rather than in the forward pass."""
+    from repro_torch.models.transformer import Transformer
+
+    model = Transformer(cfg)
+    want, _ = tree_flatten_with_path(model.init(torch.Generator(),
+                                                device="meta"))
+    got, _ = tree_flatten_with_path(params)
+    want_shapes = {p: tuple(x.shape) for p, x in want}
+    got_shapes = {p: tuple(np.shape(x)) for p, x in got}
+    if want_shapes != got_shapes:
+        missing = sorted(set(want_shapes) - set(got_shapes))
+        extra = sorted(set(got_shapes) - set(want_shapes))
+        wrong = sorted(p for p in set(want_shapes) & set(got_shapes)
+                       if want_shapes[p] != got_shapes[p])
+        raise ValueError(f"params do not fit {cfg.name}: missing {missing}, "
+                         f"unexpected {extra}, wrong shape {wrong}")
+    dtype = model.dtype
+    return tree_map(lambda x: x.to(dtype), tree_from_numpy(params, device))

@@ -10,6 +10,9 @@ see :mod:`repro_torch.kernels.ref`), as ``fold_in(key, t)`` makes them in
 the reference, so split runs and resumed states continue the same stream.
 ``bits_at(t) -> (N, d_s) uint32`` feeds explicit bits instead; the
 conformance tests use it to hand the port the reference's exact bits.
+
+:func:`run_decode` is the serving loop (the reference's scan-compiled
+``run_decode``), one Python iteration a token.
 """
 from __future__ import annotations
 
@@ -24,9 +27,10 @@ from repro_torch.core.pushsum import PushSumState
 from repro_torch.core.tree_utils import PyTree
 from repro_torch.engine.plan import ProtocolPlan
 
-__all__ = ["run_dpps", "run_partpsp", "wire_layout"]
+__all__ = ["run_dpps", "run_partpsp", "run_decode", "gumbel", "wire_layout"]
 
 BitsAt = Callable[[int], torch.Tensor] | None
+NoiseAt = Callable[[int], torch.Tensor] | None
 
 
 def wire_layout(plan: ProtocolPlan, shared: PyTree) -> PackedLayout:
@@ -97,3 +101,45 @@ def run_partpsp(state: PartPSPState, batch_at: Callable[[int], Any], *,
                 bits=bits_at(t) if bits_at else None, **plan.mix_at(t))
             rows.append(metrics)
     return st._replace(dpps=_unpack(st.dpps, layout)), _stack(rows)
+
+
+def gumbel(generator: torch.Generator, shape: tuple[int, ...],
+           device) -> torch.Tensor:
+    """Standard Gumbel noise ``-log(-log(u))``, u uniform on [tiny, 1), as
+    ``jax.random.gumbel`` forms it (from other uniforms: a torch generator
+    and a JAX key give different numbers)."""
+    u = torch.rand(shape, generator=generator, device=device)
+    return -torch.log(-torch.log(u.clamp_min_(torch.finfo(u.dtype).tiny)))
+
+
+def run_decode(decode_fn: Callable, cache: PyTree, tok0: torch.Tensor, *,
+               start_pos: int, steps: int, temperature: float = 1.0,
+               step_inputs: torch.Tensor | None = None,
+               generator: torch.Generator | None = None,
+               noise_at: NoiseAt = None) -> tuple[torch.Tensor, PyTree]:
+    """Autoregressive decode (the serving hot loop), one step an iteration.
+
+    ``decode_fn(cache, step_in, pos) -> (logits (B, V), cache)``. Each step
+    samples ``argmax(logits / temperature + g)`` with Gumbel noise g, which
+    is what ``jax.random.categorical`` draws. g comes from ``generator`` (a
+    ``torch.Generator`` on the logits' device), or from ``noise_at(step) ->
+    (B, V)`` when given: the tests feed the reference's own draws through
+    it. For token models the sampled token feeds back as the next
+    ``step_in``; embedding models pass ``step_inputs`` (steps, B, d_model).
+    Returns ((steps, B) sampled tokens, final cache).
+    """
+    if noise_at is None and generator is None:
+        raise ValueError("run_decode needs generator= or noise_at=")
+    tok, toks = tok0, []
+    with torch.no_grad():
+        for step in range(steps):
+            step_in = tok if step_inputs is None else step_inputs[step]
+            logits, cache = decode_fn(cache, step_in, start_pos + step)
+            g = (noise_at(step) if noise_at is not None
+                 else gumbel(generator, tuple(logits.shape), logits.device))
+            tok = torch.argmax(logits / temperature + g, dim=-1)
+            toks.append(tok)
+    if not toks:
+        return torch.empty((0, tok0.shape[0]), dtype=torch.int64,
+                           device=tok0.device), cache
+    return torch.stack(toks), cache

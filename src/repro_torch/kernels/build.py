@@ -40,6 +40,8 @@ _SIGNATURES = {
     "spmm": ("spmm", [_P, _P, _P, _P, _I64, _I64, _I64, _P]),
     "clip_scale": ("clip_scale_rows", [_P, _P, _I64, _I64, _I64, _P, _P]),
     "laplace_noise": ("laplace_from_bits", [_P, _P, _I64, _P, _P]),
+    "flash_attention": ("flash_attention", [_P, _P, _P, _P] + [_I64] * 12
+                        + [_P]),
 }
 SOURCES = tuple(_SIGNATURES)
 

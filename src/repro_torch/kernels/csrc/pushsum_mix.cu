@@ -1,7 +1,7 @@
 // Push-sum mixing: out = W @ x for W (N, N) f32 and x (N, D) f32 (Eq. 9).
 //
 // Replaces the Pallas kernel repro/kernels/pushsum_mix.py::_kernel
-// (wrapper pushsum_mix), reached from repro.core.pushsum.gossip_packed
+// (wrapper pushsum_mix), reached through repro.core.pushsum.gossip_packed
 // (dense schedule) once a round.
 //
 // Bound on the card: memory. It reads x and writes out once, 8 bytes per

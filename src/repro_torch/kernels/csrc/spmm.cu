@@ -3,7 +3,7 @@
 // for idx (N, K) int32, vals (N, K) f32, x and out (N, D) f32.
 //
 // Replaces the Pallas kernel repro/kernels/spmm.py::_kernel (wrapper spmm),
-// reached from repro.core.pushsum.gossip_sparse and the sparse branch of
+// reached through repro.core.pushsum.gossip_sparse and the sparse branch of
 // gossip_packed (through repro.kernels.ops.pushsum_mix_sparse) once a round
 // on the sparse schedule.
 //

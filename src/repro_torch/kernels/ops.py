@@ -10,7 +10,10 @@ stream, raises if the C function reports a CUDA error, and adds one to its
 
 :func:`l1_clip_tree` and :func:`laplace_noise_tree` are the tree-level ops
 over them, the counterparts of ``repro.kernels.ops.l1_clip_tree`` and
-``laplace_noise_tree``.
+``laplace_noise_tree``. :func:`flash_attention` (the (H, S, D) layout of the
+Pallas kernel) and :func:`flash_attention_bshd` (the model's (B, S, H, D)
+layout, counterpart of ``repro.kernels.ops.flash_attention_bshd``) launch
+one kernel and share its count, under ``flash_attention``.
 """
 from __future__ import annotations
 
@@ -22,13 +25,15 @@ from repro_torch.kernels import build, ref
 
 __all__ = ["l1_norm_rows", "dpps_perturb_rows", "pushsum_mix", "spmm",
            "clip_scale_rows", "laplace_from_bits", "l1_clip_tree",
-           "laplace_noise_tree", "launch_counts", "reset_launch_counts",
-           "CHUNK", "MAX_MIX_NODES", "MAX_SPMM_NODES"]
+           "laplace_noise_tree", "flash_attention", "flash_attention_bshd",
+           "launch_counts", "reset_launch_counts", "CHUNK", "MAX_MIX_NODES",
+           "MAX_SPMM_NODES", "FLASH_HEAD_DIMS"]
 
 CHUNK = 8192        # columns per pass-one block (csrc/common.cuh kChunk)
 MAX_MIX_NODES = 32  # csrc/pushsum_mix.cu template range
 # csrc/spmm.cu: N rows of a 4-column tile in 227 KB of shared memory
 MAX_SPMM_NODES = 232448 // 16
+FLASH_HEAD_DIMS = (64, 128, 256)  # csrc/flash_attention.cu instantiations
 
 
 def _is_cpu(*tensors: torch.Tensor) -> bool:
@@ -254,8 +259,81 @@ def laplace_noise_tree(bits_tree: PyTree, scale) -> PyTree:
         b.contiguous().reshape(-1), scale).reshape(b.shape), bits_tree)
 
 
+def _flash_window(window) -> int:
+    """The window as the kernel takes it: -1 for global (``None`` or < 0),
+    else a positive int."""
+    if window is None:
+        return -1
+    window = int(window)
+    if window == 0:
+        raise ValueError("window must be >= 1, or None / < 0 for global")
+    return max(window, -1)
+
+
+def _flash_launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                  b: int, s: int, h: int, kh: int, d: int, q_strides: tuple,
+                  k_strides: tuple, window: int) -> torch.Tensor:
+    """One launch of ``csrc/flash_attention.cu`` for contiguous q, k, v whose
+    (batch, position, head) element strides are given; o is laid out as q."""
+    for t, name in ((q, "q"), (k, "k"), (v, "v")):
+        _check(t, name, torch.float32, q.dim(), align=True)
+    if d not in FLASH_HEAD_DIMS:
+        raise ValueError(f"head dim {d} not in {FLASH_HEAD_DIMS}")
+    if kh < 1 or h % kh or v.shape != k.shape:
+        raise ValueError(f"need k, v of one shape with h % kh == 0, got q "
+                         f"{tuple(q.shape)}, k {tuple(k.shape)}, v "
+                         f"{tuple(v.shape)}")
+    out = torch.empty_like(q)
+    if out.numel() == 0:
+        return out
+    lib = build.load("flash_attention")
+    _raise_on(lib.flash_attention(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, s, h, kh,
+        d, *q_strides, *k_strides, window, _stream(q)), "flash_attention")
+    flash_attention.launches += 1
+    return out
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    group: int = 1, window: int | None = None) -> torch.Tensor:
+    """Causal GQA attention, optional sliding ``window`` (``None`` or < 0:
+    global), in the Pallas kernel's layout: q (H, S, D), k, v (H // group,
+    S, D) -> (H, S, D). Any S; D in :data:`FLASH_HEAD_DIMS` on the card."""
+    window = _flash_window(window)
+    if _is_cpu(q, k, v):
+        return ref.flash_attention(q, k, v, group=group, window=window)
+    h, s, d = q.shape
+    kh = k.shape[0]
+    if h != kh * group or tuple(k.shape) != (kh, s, d):
+        raise ValueError(f"need k, v (H // group, S, D) for q {tuple(q.shape)},"
+                         f" group {group}; got k {tuple(k.shape)}")
+    return _flash_launch(q, k, v, b=1, s=s, h=h, kh=kh, d=d,
+                         q_strides=(h * s * d, d, s * d),
+                         k_strides=(kh * s * d, d, s * d), window=window)
+
+
+def flash_attention_bshd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                         window: int | None = None) -> torch.Tensor:
+    """Model-layout flash attention: q (B, S, H, D), k, v (B, S, K, D), rope
+    already applied -> (B, S, H, D). One launch for the whole batch, any S
+    (the kernel masks the ragged edge; nothing is padded)."""
+    window = _flash_window(window)
+    b, s, h, d = q.shape
+    kh = k.shape[2]
+    if kh < 1 or h % kh or tuple(k.shape) != (b, s, kh, d):
+        raise ValueError(f"need k, v (B, S, K, D) with H % K == 0 for q "
+                         f"{tuple(q.shape)}; got k {tuple(k.shape)}")
+    if _is_cpu(q, k, v):
+        return ref.flash_attention(
+            q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+            group=h // kh, window=window).transpose(1, 2)
+    return _flash_launch(q, k, v, b=b, s=s, h=h, kh=kh, d=d,
+                         q_strides=(s * h * d, h * d, d),
+                         k_strides=(s * kh * d, kh * d, d), window=window)
+
+
 _KERNELS = (l1_norm_rows, dpps_perturb_rows, pushsum_mix, spmm,
-            clip_scale_rows, laplace_from_bits)
+            clip_scale_rows, laplace_from_bits, flash_attention)
 for _fn in _KERNELS:
     _fn.launches = 0
 

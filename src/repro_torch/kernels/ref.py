@@ -1,7 +1,7 @@
 """Plain PyTorch versions of the hand-written kernels.
 
 Each function computes exactly what its CUDA kernel in ``csrc/`` computes,
-over the same (N, d_pad) row layout. The wrappers in
+over the same (N, d_pad) row layout (flash attention over (..., H, S, D)). The wrappers in
 :mod:`repro_torch.kernels.ops` take these for tensors on the CPU; the tests
 hold them against ``repro.kernels.ref`` and the interpret-mode Pallas
 kernels, and ``chip_smoke.py`` holds the CUDA kernels against them on the
@@ -23,6 +23,7 @@ __all__ = [
     "dpps_perturb_rows",
     "pushsum_mix",
     "spmm",
+    "flash_attention",
 ]
 
 _MASK32 = 0xFFFFFFFF
@@ -189,3 +190,36 @@ def spmm(idx: torch.Tensor, vals: torch.Tensor, x: torch.Tensor) -> torch.Tensor
     for k in range(idx.shape[1]):
         out += w[:, k, None] * xf[idx[:, k]]
     return out.to(x.dtype)
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    group: int = 1, window: int | None = None,
+                    q_start: int = 0) -> torch.Tensor:
+    """Causal (optionally sliding-window) GQA attention, softmax in f32.
+
+    q (..., H, Sq, D); k, v (..., H // group, Sk, D); query head h reads KV
+    head h // group. Query row i sits at position ``q_start + i``, key j at
+    position j; key j is seen by row i when ``j <= q_start + i`` and, with
+    ``window`` >= 0, ``q_start + i - j < window`` (``None`` or < 0: global).
+    ``q_start`` lets a caller take the rows of a long sequence in windows
+    against the keys up to the window's end. Scores are scaled by
+    1/sqrt(D) and masked with -1e30, as the Pallas kernel does. Plain
+    version of ``csrc/flash_attention.cu``; mirrors the Pallas
+    ``repro/kernels/flash_attention.py::flash_attention`` (oracle:
+    ``repro.kernels.ref.flash_attention``).
+    """
+    *lead, h, sq, d = q.shape
+    kh, sk = k.shape[-3], k.shape[-2]
+    if h != kh * group:
+        raise ValueError(f"{h} query heads != {kh} KV heads x group {group}")
+    qg = q.float().reshape(*lead, kh, group, sq, d)
+    scores = torch.einsum("...kgqd,...ktd->...kgqt", qg, k.float()) / \
+        torch.sqrt(torch.tensor(float(d)))
+    qpos = torch.arange(q_start, q_start + sq, device=q.device)[:, None]
+    kpos = torch.arange(sk, device=q.device)[None, :]
+    mask = qpos >= kpos
+    if window is not None and window >= 0:
+        mask = mask & ((qpos - kpos) < window)
+    probs = torch.softmax(scores.masked_fill_(~mask, -1e30), dim=-1)
+    out = torch.einsum("...kgqt,...ktd->...kgqd", probs, v.float())
+    return out.reshape(q.shape).to(q.dtype)

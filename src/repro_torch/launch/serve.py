@@ -1,0 +1,75 @@
+"""Serving driver of the port: batched prefill + decode on a fresh model
+(port of ``repro.launch.serve``).
+
+Builds the model of ``--arch`` (``--reduced``: its smoke config) from a
+seeded ``torch.Generator``, makes a seeded batch of prompts and runs
+``Session.build(model=...).serve(...)``. On the card by default; pass
+``--device cpu`` for the plain PyTorch path.
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3.2-1b \\
+        --reduced --device cpu --batch 2 --prompt-len 8 --gen 6
+
+``--checkpoint`` waits for the checkpoint port (ROADMAP Queue 1) and
+raises if given.
+"""
+from __future__ import annotations
+
+import argparse
+
+import torch
+
+from repro_torch.api import Session
+from repro_torch.configs import ARCH_NAMES, get_config
+from repro_torch.device import resolve_device
+from repro_torch.models.transformer import Transformer
+
+
+def main(argv=None) -> None:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--arch", choices=ARCH_NAMES, default="llama3.2-1b")
+    ap.add_argument("--reduced", action="store_true")
+    ap.add_argument("--batch", type=int, default=4)
+    ap.add_argument("--prompt-len", type=int, default=32)
+    ap.add_argument("--gen", type=int, default=16)
+    ap.add_argument("--temperature", type=float, default=0.8)
+    ap.add_argument("--checkpoint", default=None)
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--device", default=None,
+                    help="torch device (default: the CUDA card)")
+    args = ap.parse_args(argv)
+    if args.checkpoint:
+        raise NotImplementedError("--checkpoint: the checkpoint is not ported "
+                                  "yet (ROADMAP Queue 1)")
+
+    arch = get_config(args.arch)
+    cfg = arch.smoke if args.reduced else arch.model
+    dev = resolve_device(args.device)
+    model = Transformer(cfg)
+    gen = torch.Generator(device=dev).manual_seed(args.seed)
+    params = model.init(gen, device=dev)
+    session = Session.build(model=model, seed=args.seed, device=dev)
+
+    b, s = args.batch, args.prompt_len
+    if cfg.input_mode == "embeddings":
+        batch = {"embeds": torch.randn((b, s, cfg.d_model), generator=gen,
+                                       device=dev) * 0.1}
+    else:
+        batch = {"tokens": torch.randint(0, cfg.vocab_size, (b, s),
+                                         generator=gen, device=dev)}
+    step_inputs = None
+    if cfg.input_mode == "embeddings" and args.gen > 1:
+        step_inputs = torch.randn((args.gen - 1, b, cfg.d_model),
+                                  generator=gen, device=dev) * 0.1
+
+    report = session.serve(params, batch, gen=args.gen,
+                           temperature=args.temperature,
+                           step_inputs=step_inputs)
+    print(f"device: {dev}")
+    print(f"prefill: {report.prefill_s:.2f}s")
+    print(f"decode: {report.steps} steps in {report.decode_s:.2f}s "
+          f"({report.ms_per_token:.1f} ms/token/batch)")
+    print("generated token ids (first sequence):", report.tokens[0].tolist())
+
+
+if __name__ == "__main__":
+    main()

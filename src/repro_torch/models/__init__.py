@@ -1,2 +1,3 @@
-"""Models of the port. So far the paper's MLP (``mlp``); the model zoo of
-``repro.models`` is not ported yet."""
+"""Models of the port: the paper's MLP (``mlp``) and the attention-only
+family of ``repro.models`` (``config``, ``layers``, ``attention``,
+``transformer``); the other group kinds are not ported yet."""

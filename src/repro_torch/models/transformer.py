@@ -1,0 +1,362 @@
+"""Config-driven decoder transformer: the attention-only family (port of
+``repro.models.transformer``).
+
+Parameters are plain dicts with the reference's paths (``embed``,
+``final_ln/scale``, ``lm_head`` when untied, ``group_<i>/{ln1,attn,ln2,mlp}
+/...``); the leaves of a group are stacked over its layers (a leading
+``n_layers`` axis), as the reference stacks them for ``lax.scan``. The
+reference scans the layers; the port runs them as a Python loop over the
+stacked leaves.
+
+Modes:
+  prefill(params, batch, capacity=None)  -> (last-token logits, cache)
+  decode_step(params, cache, token, pos) -> (logits, cache)
+
+Prefill attention goes through the flash-attention kernel
+(:func:`repro_torch.kernels.ops.flash_attention_bshd`) when
+``cfg.flash_prefill`` is set, else through the plain einsum with
+materialised scores, as in the reference.
+
+Caches are ``{"group_<i>": {"k", "v"}}`` of shape (n_layers, B, T, K, D).
+Decode writes the new token's K/V into its slot of the stacked cache in
+place and reads the layer's slice: the layout the reference's
+``decode_cache_in_carry`` path uses. The port takes it whatever that flag
+says (the reference's other path streams the whole stack through its scan);
+the results are the same either way. A group whose layers all share one
+window keeps a ring buffer of that many slots.
+
+Group kinds other than ``attn`` (MoE, xLSTM, Mamba, Zamba, cross-attention)
+raise ``NotImplementedError``; ``forward_train`` and ``loss_fn`` wait for
+the training slice (ROADMAP Queue 1).
+"""
+from __future__ import annotations
+
+import math
+from typing import Any
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.core.tree_utils import tree_flatten, tree_map, tree_unflatten
+from repro_torch.device import resolve_device
+from repro_torch.kernels import ops as kops
+from repro_torch.models.attention import init_attention
+from repro_torch.models.config import AttnGroup, ModelConfig
+from repro_torch.models.layers import (dense_init, init_rms_norm, mlp_apply,
+                                       mlp_init, rms_norm, rope, softcap)
+
+__all__ = ["Transformer"]
+
+_NEG_INF = -1e30
+# Slots a chunk of the decode P V contraction (see _probs_v).
+_PV_CHUNK = 512
+
+
+# ---------------------------------------------------------------------------
+# Attention core
+# ---------------------------------------------------------------------------
+
+def _attn_qkv(params, x, cfg: ModelConfig):
+    b, s, _ = x.shape
+    q = (x @ params["wq"]).reshape(b, s, cfg.n_heads, cfg.head_dim)
+    k = (x @ params["wk"]).reshape(b, s, cfg.n_kv_heads, cfg.head_dim)
+    v = (x @ params["wv"]).reshape(b, s, cfg.n_kv_heads, cfg.head_dim)
+    return q, k, v
+
+
+def _probs_v(probs, v):
+    """probs (B, K, g, S, T) @ v (B, T, K, D) -> (B, S, K, g, D).
+
+    For one query row against a long cache (decode) the contraction over
+    T is split into chunks of ``_PV_CHUNK`` slots, one batched product
+    over the chunks, summed after, plus the tail: for a single product of
+    g x T by T x D with T in the tens of thousands, cuBLAS picks a
+    small-N kernel that took most of a decode step's device time on an
+    H100 (``chip_smoke.py`` profiles the decode step by kernel).
+    """
+    b, kh, g, s, t = probs.shape
+    if s > 1 or t < 2 * _PV_CHUNK:
+        return torch.einsum("bkgst,btkd->bskgd", probs, v)
+    c, d = t // _PV_CHUNK, v.shape[-1]
+    t1 = c * _PV_CHUNK
+    pp = probs[:, :, :, 0, :t1].reshape(b, kh, g, c, _PV_CHUNK).transpose(2, 3)
+    vv = v[:, :t1].reshape(b, c, _PV_CHUNK, kh, d).permute(0, 3, 1, 2, 4)
+    out = torch.matmul(pp, vv).sum(dim=2)  # (B, K, g, D)
+    if t1 < t:
+        out += torch.einsum("bkgt,btkd->bkgd", probs[:, :, :, 0, t1:],
+                            v[:, t1:])
+    return out[:, None]
+
+
+def _softmax_attend(q, k, v, mask, cfg: ModelConfig, dtype):
+    """Plain GQA attention of q (B, S, H, D) over k, v (B, T, K, D) under
+    ``mask`` (broadcast to (B, K, g, S, T)) -> (B, S, H * D)."""
+    b, s = q.shape[:2]
+    group = cfg.n_heads // cfg.n_kv_heads
+    qg = q.reshape(b, s, cfg.n_kv_heads, group, cfg.head_dim)
+    scores = torch.einsum("bskgd,btkd->bkgst", qg.float(), k.float()) / \
+        math.sqrt(cfg.head_dim)
+    probs = torch.softmax(scores.masked_fill_(~mask, _NEG_INF), dim=-1)
+    out = _probs_v(probs, v.float())
+    return out.reshape(b, s, cfg.n_heads * cfg.head_dim).to(dtype)
+
+
+def _attn_train(params, x, positions, cfg: ModelConfig, theta: float,
+                window: int, use_flash: bool = False):
+    """Full-sequence causal GQA; ``window`` < 0 is global. Returns
+    (out, k, v): k, v (rope applied) feed the prefill cache. ``use_flash``
+    routes the softmax through the flash-attention kernel."""
+    q, k, v = _attn_qkv(params, x, cfg)
+    q = rope(q, positions, theta)
+    k = rope(k, positions, theta)
+    if use_flash:
+        b, s = x.shape[:2]
+        out = kops.flash_attention_bshd(q, k, v, window=window)
+        out = out.reshape(b, s, cfg.n_heads * cfg.head_dim).to(x.dtype)
+        return out @ params["wo"], k, v
+    qpos = positions[:, None, None, :, None]
+    kpos = positions[:, None, None, None, :]
+    mask = qpos >= kpos
+    if window >= 0:
+        mask = mask & ((qpos - kpos) < window)
+    return _softmax_attend(q, k, v, mask, cfg, x.dtype) @ params["wo"], k, v
+
+
+def _attn_decode(params, x, pos: int, k_cache, v_cache, cfg: ModelConfig,
+                 theta: float, window: int, ring: bool):
+    """One-token GQA against one layer's cache k, v (B, T, K, D), whose
+    token slot it writes in place (slot ``pos % T`` for a ring buffer of
+    T = window slots)."""
+    b = x.shape[0]
+    t = k_cache.shape[1]
+    posv = torch.full((b, 1), pos, dtype=torch.int64, device=x.device)
+    q, k_new, v_new = _attn_qkv(params, x, cfg)
+    q = rope(q, posv, theta)
+    k_new = rope(k_new, posv, theta)
+    slot = pos % t if ring else pos
+    k_cache[:, slot] = k_new[:, 0].to(k_cache.dtype)
+    v_cache[:, slot] = v_new[:, 0].to(v_cache.dtype)
+    slots = torch.arange(t, device=x.device)
+    if ring:
+        # slot s holds position pos - ((pos - s) mod t): every slot is in the
+        # window once pos >= t, before that only the slots <= pos are filled
+        mask = slots <= pos if pos < t else torch.ones_like(slots, dtype=torch.bool)
+    else:
+        mask = slots <= pos
+        if window >= 0:
+            mask = mask & ((pos - slots) < window)
+    out = _softmax_attend(q, k_cache, v_cache, mask, cfg, x.dtype)
+    return out @ params["wo"]
+
+
+def _init_attn_block(gen, cfg: ModelConfig, dtype, device):
+    return {
+        "ln1": init_rms_norm(cfg.d_model, dtype, device),
+        "attn": init_attention(gen, cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
+                               cfg.head_dim, dtype, device),
+        "ln2": init_rms_norm(cfg.d_model, dtype, device),
+        "mlp": mlp_init(gen, cfg.d_model, cfg.d_ff, cfg.activation, dtype,
+                        device),
+    }
+
+
+def _stack_init(n: int, init_one) -> dict:
+    """``n`` draws of ``init_one()`` stacked leaf by leaf on a leading axis,
+    filled layer by layer (one layer's temporaries at a time)."""
+    first = init_one()
+    leaves, treedef = tree_flatten(first)
+    stacked = [torch.empty((n,) + tuple(x.shape), dtype=x.dtype,
+                           device=x.device) for x in leaves]
+    for i in range(n):
+        layer = leaves if i == 0 else tree_flatten(init_one())[0]
+        for dst, src in zip(stacked, layer):
+            dst[i] = src
+    return tree_unflatten(treedef, stacked)
+
+
+def _layer(params, i: int):
+    return tree_map(lambda x: x[i], params)
+
+
+def _write_prompt(cache: torch.Tensor, kv: torch.Tensor) -> None:
+    """Positions [0, S) of ``kv`` (B, S, K, D) into one layer's cache
+    (B, T, K, D): slots [0, S) when T >= S, else (a ring buffer) the last T
+    positions at their slots ``p % T``."""
+    s, t = kv.shape[1], cache.shape[1]
+    if t >= s:
+        cache[:, :s] = kv.to(cache.dtype)
+    else:
+        slots = torch.arange(s - t, s, device=kv.device) % t
+        cache[:, slots] = kv[:, s - t:].to(cache.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Group implementation
+# ---------------------------------------------------------------------------
+
+class _AttnGroupImpl:
+    """n GQA decoder blocks (pre-norm attention and MLP)."""
+
+    def __init__(self, spec: AttnGroup, cfg: ModelConfig):
+        self.spec, self.cfg = spec, cfg
+        ws = spec.layer_windows()
+        self.windows = [w if w is not None else -1 for w in ws]
+        self.thetas = [float(t) for t in spec.layer_thetas(cfg.rope_theta)]
+        finite = [w for w in ws if w is not None]
+        self.uniform_window = finite[0] if (len(finite) == len(ws) and all(
+            w == finite[0] for w in finite)) else None
+
+    def init(self, gen: torch.Generator, dtype, device) -> dict:
+        return _stack_init(self.spec.n_layers, lambda: _init_attn_block(
+            gen, self.cfg, dtype, device))
+
+    def train(self, params, x, positions, cache=None, use_flash=False):
+        """Forward over the layers; with ``cache`` (this group's
+        :meth:`init_cache`) each layer's K/V is written into it. The
+        reference also returns an auxiliary loss, which only MoE groups
+        make."""
+        cfg = self.cfg
+        for i in range(self.spec.n_layers):
+            lp = _layer(params, i)
+            a, k, v = _attn_train(lp["attn"], rms_norm(lp["ln1"], x, cfg.norm_eps),
+                                  positions, cfg, self.thetas[i],
+                                  self.windows[i], use_flash=use_flash)
+            x = x + a
+            x = x + mlp_apply(lp["mlp"], rms_norm(lp["ln2"], x, cfg.norm_eps),
+                              cfg.activation)
+            if cache is not None:
+                _write_prompt(cache["k"][i], k)
+                _write_prompt(cache["v"][i], v)
+        return x
+
+    def init_cache(self, batch: int, capacity: int, dtype, device) -> dict:
+        cfg = self.cfg
+        t = (capacity if self.uniform_window is None
+             else min(capacity, self.uniform_window))
+        shape = (self.spec.n_layers, batch, t, cfg.n_kv_heads, cfg.head_dim)
+        return {"k": torch.zeros(shape, dtype=dtype, device=device),
+                "v": torch.zeros(shape, dtype=dtype, device=device)}
+
+    def decode(self, params, x, pos: int, cache):
+        """One token through the layers, each writing its K/V slot of
+        ``cache`` in place."""
+        cfg = self.cfg
+        ring = self.uniform_window is not None
+        for i in range(self.spec.n_layers):
+            lp = _layer(params, i)
+            a = _attn_decode(lp["attn"], rms_norm(lp["ln1"], x, cfg.norm_eps),
+                             pos, cache["k"][i], cache["v"][i], cfg,
+                             self.thetas[i], self.windows[i], ring)
+            x = x + a
+            x = x + mlp_apply(lp["mlp"], rms_norm(lp["ln2"], x, cfg.norm_eps),
+                              cfg.activation)
+        return x
+
+
+def _group_impl(spec, cfg: ModelConfig):
+    if spec.kind != "attn":
+        raise NotImplementedError(
+            f"group kind {spec.kind!r} is not ported yet: MoE, xLSTM, Mamba, "
+            "Zamba and cross-attention groups wait for a later slice (ROADMAP "
+            "Queue 1, the other group kinds for serving)")
+    return _AttnGroupImpl(spec, cfg)
+
+
+# ---------------------------------------------------------------------------
+# Full model
+# ---------------------------------------------------------------------------
+
+class Transformer:
+    """The assembled model: embed -> groups -> final norm -> (tied) LM head."""
+
+    def __init__(self, cfg: ModelConfig):
+        self.cfg = cfg
+        self.groups = [_group_impl(g, cfg) for g in cfg.groups]
+
+    @property
+    def dtype(self) -> torch.dtype:
+        return getattr(torch, self.cfg.param_dtype)
+
+    # -- parameters -----------------------------------------------------------
+    def init(self, gen: torch.Generator, device=None) -> dict:
+        """Fresh parameters from ``gen`` (a generator on ``device``; the
+        card by default)."""
+        cfg = self.cfg
+        dev = resolve_device(device)
+        params: dict[str, Any] = {
+            "embed": dense_init(gen, (cfg.vocab_size, cfg.d_model), self.dtype,
+                                dev),
+            "final_ln": init_rms_norm(cfg.d_model, self.dtype, dev),
+        }
+        if not cfg.tie_embedding:
+            params["lm_head"] = dense_init(gen, (cfg.d_model, cfg.vocab_size),
+                                           self.dtype, dev)
+        for i, g in enumerate(self.groups):
+            params[f"group_{i}"] = g.init(gen, self.dtype, dev)
+        return params
+
+    # -- forward --------------------------------------------------------------
+    def _scale_embed(self, x: torch.Tensor) -> torch.Tensor:
+        if self.cfg.embed_scale:  # sqrt(d_model) rounded to f32, as a scalar
+            x = x * float(torch.tensor(math.sqrt(self.cfg.d_model),
+                                       dtype=torch.float32))
+        return x
+
+    def _embed_inputs(self, params, batch):
+        if self.cfg.input_mode == "embeddings":
+            x = batch["embeds"].to(self.dtype)
+        else:
+            x = F.embedding(batch["tokens"], params["embed"])
+        return self._scale_embed(x)
+
+    def _backbone(self, params, x, positions, caches=None, use_flash=False):
+        for i, g in enumerate(self.groups):
+            x = g.train(params[f"group_{i}"], x, positions,
+                        cache=None if caches is None else caches[f"group_{i}"],
+                        use_flash=use_flash)
+        return rms_norm(params["final_ln"], x, self.cfg.norm_eps)
+
+    def _head(self, params, x):
+        if self.cfg.tie_embedding:
+            logits = x @ params["embed"].T
+        else:
+            logits = x @ params["lm_head"]
+        return softcap(logits.float(), self.cfg.logit_softcap)
+
+    # -- serving ----------------------------------------------------------------
+    def init_cache(self, batch: int, capacity: int, dtype=None,
+                   device=None) -> dict:
+        dev = resolve_device(device)
+        dtype = dtype or self.dtype
+        return {f"group_{i}": g.init_cache(batch, capacity, dtype, dev)
+                for i, g in enumerate(self.groups)}
+
+    def prefill(self, params, batch, capacity: int | None = None):
+        """Forward over the prompt -> (last-token logits (B, V) f32, cache).
+
+        The cache holds ``capacity`` slots (default: the prompt length, as
+        the reference's prefill returns), the prompt's K/V written into
+        them; a caller that goes on decoding passes prompt + gen and so
+        needs no second, larger cache."""
+        x = self._embed_inputs(params, batch)
+        b, s = x.shape[:2]
+        positions = torch.arange(s, device=x.device)[None].expand(b, s)
+        caches = self.init_cache(b, s if capacity is None else capacity,
+                                 device=x.device)
+        h = self._backbone(params, x, positions, caches=caches,
+                           use_flash=self.cfg.flash_prefill)
+        return self._head(params, h[:, -1:])[:, 0], caches
+
+    def decode_step(self, params, cache, token, pos: int):
+        """One token for the whole batch. ``token``: (B,) int (or (B, d)
+        embeddings for embedding-input models); ``pos``: its position. The
+        cache is updated in place and returned."""
+        if self.cfg.input_mode == "embeddings":
+            x = token[:, None, :].to(self.dtype)
+        else:
+            x = F.embedding(token, params["embed"])[:, None, :]
+        x = self._scale_embed(x)
+        for i, g in enumerate(self.groups):
+            x = g.decode(params[f"group_{i}"], x, int(pos), cache[f"group_{i}"])
+        x = rms_norm(params["final_ln"], x, self.cfg.norm_eps)
+        return self._head(params, x)[:, 0], cache

@@ -5,7 +5,9 @@ card. On a GPU machine (which needs no JAX for this file):
 
     PYTHONPATH=src python -m pytest -q -m requires_cuda tests/test_torch_cuda.py
 
-Tolerances: the fused perturb agrees elementwise to rtol 1e-6 / atol 1e-6
+Tolerances: flash attention to rtol 1e-4 / atol 1e-5 on outputs of
+magnitude about 1 (online softmax in another order, expf against the
+CPU's exp); the fused perturb agrees elementwise to rtol 1e-6 / atol 1e-6
 (the card's logf may differ from the CPU's log by an ulp); row sums to
 rtol 1e-5 (per-block partials against PyTorch's reduction order); the mix
 to rtol 1e-5 / atol 1e-6 (fma in j order against cuBLAS's order). The
@@ -20,9 +22,14 @@ from __future__ import annotations
 import pytest
 import torch
 
+import dataclasses
+
 from repro_torch.api import PrivacySpec, Session
+from repro_torch.configs import get_config
 from repro_torch.core.topology import DOutGraph
+from repro_torch.core.tree_utils import tree_map
 from repro_torch.kernels import ops, ref
+from repro_torch.models.transformer import Transformer
 from repro_torch.net import ErdosRenyiGraph
 
 pytestmark = pytest.mark.requires_cuda
@@ -77,9 +84,12 @@ def test_wrappers_count_launches_and_reject_what_the_kernels_do_not_take(dev):
     ops.spmm(idx, torch.full((3, 2), 0.5, device=dev), s)
     ops.clip_scale_rows(s, 200, torch.ones(3, device=dev))
     ops.laplace_from_bits(torch.zeros(9, dtype=torch.uint32, device=dev), 1.0)
+    q = torch.zeros((1, 5, 2, 64), device=dev)
+    ops.flash_attention_bshd(q, q, q)
     assert ops.launch_counts() == {
         "l1_norm_rows": 1, "dpps_perturb_rows": 1, "pushsum_mix": 1,
-        "spmm": 1, "clip_scale_rows": 1, "laplace_from_bits": 1}
+        "spmm": 1, "clip_scale_rows": 1, "laplace_from_bits": 1,
+        "flash_attention": 1}
     with pytest.raises(TypeError):
         ops.l1_norm_rows(s.double(), 200)
     with pytest.raises(ValueError):
@@ -95,7 +105,13 @@ def test_wrappers_count_launches_and_reject_what_the_kernels_do_not_take(dev):
         ops.spmm(idx, torch.ones((3, 2), device=dev), s[:, :126])  # D % 4
     with pytest.raises(TypeError):
         ops.spmm(idx.long(), torch.ones((3, 2), device=dev), s)
-    assert sum(ops.launch_counts().values()) == 6
+    with pytest.raises(ValueError):
+        ops.flash_attention_bshd(q[..., :32], q[..., :32], q[..., :32])
+    with pytest.raises(ValueError):
+        ops.flash_attention_bshd(q, q, q, window=0)
+    with pytest.raises(TypeError):
+        ops.flash_attention_bshd(q.double(), q.double(), q.double())
+    assert sum(ops.launch_counts().values()) == 7
 
 
 @pytest.mark.parametrize("n,d", [(4, 7936), (24, 1024), (128, 7936),
@@ -165,3 +181,59 @@ def test_session_on_the_card_matches_the_cpu(dev):
     for k, v in out["cpu"].trajectory.items():
         torch.testing.assert_close(torch.as_tensor(out["cuda"].trajectory[k]),
                                    torch.as_tensor(v), rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.parametrize("d", ops.FLASH_HEAD_DIMS)
+@pytest.mark.parametrize("s,group,window", [
+    (1, 1, None), (100, 4, None), (128, 1, 37), (300, 4, 1), (300, 1, 200),
+    (257, 2, 64)])
+def test_flash_attention_matches_plain(dev, d, s, group, window):
+    """Ragged S (no multiple of any tile), GQA groups, windows that cut
+    inside a key tile and across several; both layouts, one launch each."""
+    gen = torch.Generator(device=dev).manual_seed(s * d + group)
+    b, kh = 2, 2
+    q = torch.randn((b, s, kh * group, d), generator=gen, device=dev)
+    k = torch.randn((b, s, kh, d), generator=gen, device=dev)
+    v = torch.randn((b, s, kh, d), generator=gen, device=dev)
+    ops.reset_launch_counts()
+    got = ops.flash_attention_bshd(q, k, v, window=window)
+    want = ref.flash_attention(q.transpose(1, 2), k.transpose(1, 2),
+                               v.transpose(1, 2), group=group,
+                               window=window).transpose(1, 2)
+    torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-5)
+    hsd = ops.flash_attention(q[0].transpose(0, 1).contiguous(),
+                              k[0].transpose(0, 1).contiguous(),
+                              v[0].transpose(0, 1).contiguous(), group=group,
+                              window=window)
+    torch.testing.assert_close(hsd, want[0].transpose(0, 1), rtol=1e-4,
+                               atol=1e-5)
+    assert ops.launch_counts()["flash_attention"] == 2
+    torch.cuda.synchronize()
+
+
+def test_flash_prefill_on_the_card_matches_the_cpu(dev):
+    """A two-layer llama3.2-1b-shaped model (head_dim 64, the kernel's) with
+    a local and a global layer: the card's flash prefill against the CPU's
+    plain prefill, and the card's serve tokens against the CPU's under the
+    same Gumbel noise."""
+    cfg = dataclasses.replace(
+        get_config("llama3.2-1b").smoke, head_dim=64, flash_prefill=True,
+        groups=(get_config("gemma3-1b").smoke.groups[0],))
+    model = Transformer(cfg)
+    params = model.init(torch.Generator().manual_seed(0), device="cpu")
+    toks = torch.randint(0, cfg.vocab_size, (2, 150),
+                         generator=torch.Generator().manual_seed(1))
+    noise = torch.randn((4, 2, cfg.vocab_size),
+                        generator=torch.Generator().manual_seed(2))
+    out = {}
+    for device in ("cuda", "cpu"):
+        p = tree_map(lambda x: x.to(device), params)
+        session = Session.build(model=model, device=device)
+        ops.reset_launch_counts()
+        out[device] = session.serve(p, {"tokens": toks.to(device)}, gen=5,
+                                    noise_at=lambda t: noise[t].to(device))
+        if device == "cuda":
+            assert ops.launch_counts()["flash_attention"] == 2
+    torch.testing.assert_close(out["cuda"].logits.cpu(), out["cpu"].logits,
+                               rtol=1e-4, atol=1e-4)
+    assert torch.equal(out["cuda"].tokens.cpu(), out["cpu"].tokens)

@@ -197,6 +197,12 @@ def test_cpu_tensors_take_the_plain_version_and_count_no_launch():
     ops.l1_clip_tree({"x": buf}, 1.0)
     ops.laplace_noise_tree({"x": torch.zeros((2, 3), dtype=torch.uint32)},
                            1.0)
+    q = torch.ones((1, 5, 2, 16))
+    ops.flash_attention_bshd(q, q, q)
+    ops.flash_attention(q[0].transpose(0, 1).contiguous(),
+                        q[0].transpose(0, 1).contiguous(),
+                        q[0].transpose(0, 1).contiguous(), window=3)
     assert ops.launch_counts() == {
         "l1_norm_rows": 0, "dpps_perturb_rows": 0, "pushsum_mix": 0,
-        "spmm": 0, "clip_scale_rows": 0, "laplace_from_bits": 0}
+        "spmm": 0, "clip_scale_rows": 0, "laplace_from_bits": 0,
+        "flash_attention": 0}

@@ -17,6 +17,9 @@ Other ``tests/test_torch_*.py`` files import from here
   the same bits through its ``bits_at`` seam.
 * :func:`reference_tree_bits` rebuilds the bits ``repro.kernels.ops.
   laplace_noise_tree`` feeds its Laplace kernel, leaf by leaf.
+* :func:`reference_gumbel` rebuilds the Gumbel noise the reference's
+  ``run_decode`` adds to the logits at each decode step, so the port's
+  ``run_decode`` can be fed the same draws through its ``noise_at`` seam.
 """
 from __future__ import annotations
 
@@ -29,7 +32,7 @@ import pytest
 import torch
 
 __all__ = ["load_reference", "reference_bits", "reference_tree_bits",
-           "to_numpy"]
+           "reference_gumbel", "to_numpy"]
 
 
 def _install_batchers_contains() -> None:
@@ -50,7 +53,9 @@ def load_reference():
     repro = importlib.import_module("repro")
     for name in ("repro.api", "repro.core.packing", "repro.core.pushsum",
                  "repro.data", "repro.engine.plan", "repro.kernels.ops",
-                 "repro.kernels.ref", "repro.net.graphs"):
+                 "repro.kernels.ref", "repro.net.graphs",
+                 "repro.kernels.flash_attention", "repro.models",
+                 "repro.models.layers", "repro.configs"):
         importlib.import_module(name)
     return repro
 
@@ -86,6 +91,19 @@ def reference_tree_bits(key, tree) -> list[np.ndarray]:
             jax.random.split(k, n))
         out.append(np.array(bits).reshape(leaf.shape))
     return out
+
+
+def reference_gumbel(key, steps: int, batch: int, vocab: int) -> np.ndarray:
+    """The (steps, B, V) Gumbel noise ``repro.engine.run_decode`` adds at
+    each step: it carries ``k``, takes ``k, sub = split(k)`` a step and
+    samples ``categorical(sub, logits / T)``, which is
+    ``argmax(gumbel(sub, (B, V)) + logits / T)``."""
+    out, k = [], key
+    for _ in range(steps):
+        k, sub = jax.random.split(k)
+        out.append(np.array(jax.random.gumbel(sub, (batch, vocab),
+                                              jnp.float32)))
+    return np.stack(out) if out else np.zeros((0, batch, vocab), np.float32)
 
 
 def to_numpy(x) -> np.ndarray:
@@ -137,3 +155,17 @@ def test_reference_bits_partpsp_uses_the_third_split():
     key = jax.random.split(jax.random.fold_in(jax.random.PRNGKey(0), 2), 3)[2]
     first = jax.random.bits(jax.random.split(key, 3)[0], (16,), jnp.uint32)
     np.testing.assert_array_equal(b[0], np.asarray(first))
+
+
+def test_reference_gumbel_is_the_noise_run_decode_samples_with(R):
+    """The reference's run_decode with fixed logits picks argmax(logits / T
+    + g) with g from :func:`reference_gumbel`, step by step."""
+    b, v, steps, temp = 3, 11, 4, 0.7
+    logits = jax.random.normal(jax.random.PRNGKey(3), (b, v))
+    key = jax.random.PRNGKey(5)
+    toks, _ = R.engine.rounds.run_decode(
+        lambda c, tok, pos: (logits, c), jnp.zeros(()), jnp.zeros(b, jnp.int32),
+        key, start_pos=0, steps=steps, temperature=temp)
+    g = reference_gumbel(key, steps, b, v)
+    want = np.argmax(np.asarray(logits)[None] / temp + g, axis=-1)
+    np.testing.assert_array_equal(np.asarray(toks), want)
