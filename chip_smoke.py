@@ -6,7 +6,9 @@
 
 Phases, each printing one JSON line:
 
-1. ``build``      compile the seven kernels (one nvcc each, in parallel).
+1. ``build``      compile the seven kernels (one nvcc each, in parallel);
+                  the registers, spills and static shared memory of every
+                  flash-attention and spmm instantiation (``-Xptxas -v``).
 2. ``kernels``    each kernel against its plain PyTorch version at the main
                   paths' shapes: the dense kernels at the paper MLP's shared
                   layer (N = 10, d_s = 7840) and the dense full-width buffer
@@ -16,7 +18,9 @@ Phases, each printing one JSON line:
                   N = 128, d_s = 7840); ``spmm`` at the sparse full width (N = 24,
                   d_s = 95,669,064), the sparse training shape (N = 128,
                   d_s = 7840) and the widest sparse sweep (N = 4096, D = 8),
-                  and bit for bit against ``pushsum_mix`` at full width.
+                  with the launch plan of each (``ops.spmm_plan``: column
+                  tiles or rows), and bit for bit against ``pushsum_mix``
+                  at full width.
 3. ``consensus``  ``Session.build(DOutGraph(5, 2), schedule="dense")`` then
                   ``run(20)`` over a (5, 505,956,352) f32 buffer, in one
                   call (timed), and one round a call (the error by round).
@@ -38,7 +42,11 @@ Phases, each printing one JSON line:
                   D = 256) with window 512 and global, (c) a ragged B = 2,
                   S = 1,000, H = 24, K = 8, D = 128; the plain version over
                   windows of query rows (rows [r0, r1) against keys [0, r1)),
-                  every row checked; SDPA timed as the yardstick.
+                  every row checked; SDPA timed as the yardstick at all
+                  four (``is_causal``, or a banded boolean mask where
+                  windowed). The bound is the 3xTF32 tensor-core one (three
+                  TF32 products for each f32 one, 495 TFLOP/s);
+                  ``f32_core_bound_ms`` keeps the f32 CUDA-core figure.
 10. ``serve``     ``Session.build(model=...).serve`` of llama3.2-1b and then
                   gemma3-1b at full width (all layers, f32, flash_prefill)
                   on one 32,768-token prompt, 32 tokens generated.
@@ -59,6 +67,7 @@ from __future__ import annotations
 import argparse
 import json
 import math
+import re
 import subprocess
 import sys
 import time
@@ -71,6 +80,7 @@ SRC = ROOT / "src"
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12      # f32 outside the tensor cores
 INT32_OPS_PER_S = 33.5e12  # half the f32 lanes of an SM are int32 lanes
+TF32_OPS_PER_S = 495e12    # dense TF32 on the tensor cores
 
 PAPER = dict(n=10, d_s=7840)             # the paper MLP's shared layer l1
 FULL = dict(n=5, d_s=505_956_352)        # full-width shared vector, N = 5
@@ -93,7 +103,10 @@ FLASH_SHAPES = {  # (B, S, H, K, D, window)
     "gemma3_32k_global": (1, SERVE_PROMPT, 4, 1, 256, None),
     "ragged_minitron": (2, 1000, 24, 8, 128, None),
 }
-FLASH_SDPA = ("llama_32k", "gemma3_32k_global")
+# SDPA as the yardstick: is_causal where global, a banded boolean attn_mask
+# (S x S, 1 GiB at 32k) where windowed
+FLASH_SDPA = ("llama_32k", "gemma3_32k_window512", "gemma3_32k_global",
+              "ragged_minitron")
 
 KERNELS = {
     "l1_norm_rows": dict(source="src/repro_torch/kernels/csrc/l1_norm.cu",
@@ -127,13 +140,56 @@ def require(cond: bool, what: str) -> None:
         raise AssertionError(what)
 
 
-def bound(nbytes: float, f32_ops: float = 0.0, int_ops: float = 0.0):
+def bound(nbytes: float, f32_ops: float = 0.0, int_ops: float = 0.0,
+          tf32_ops: float = 0.0):
     """(bound_ms, bound_by): the larger of the bytes over the memory rate
     and the operations over their peak rate."""
     t_bytes = nbytes / HBM_BYTES_PER_S
-    t_ops = f32_ops / F32_OPS_PER_S + int_ops / INT32_OPS_PER_S
+    t_ops = (f32_ops / F32_OPS_PER_S + int_ops / INT32_OPS_PER_S
+             + tf32_ops / TF32_OPS_PER_S)
     return (max(t_bytes, t_ops) * 1e3,
             "bytes" if t_bytes >= t_ops else "operations")
+
+
+def demangled(name: str) -> str:
+    """``ns::fn<1, 2>`` from an Itanium-mangled ``_ZN2ns2fnILi1ELi2EE...``
+    (nested names and integer template arguments only)."""
+    parts, i = [], 3 if name.startswith("_ZN") else 0
+    while i < len(name) and name[i].isdigit():
+        j = i
+        while name[j].isdigit():
+            j += 1
+        parts.append(name[j:j + int(name[i:j])])
+        i = j + int(name[i:j])
+    args = re.findall(r"Li(\d+)E", name[i:]) if name[i:i + 1] == "I" else []
+    return "::".join(parts) + (f"<{', '.join(args)}>" if args else "")
+
+
+def ptxas_summary(log: str, kernel: str) -> list:
+    """Registers, spilled bytes and static shared memory of each entry
+    function whose (mangled) name holds ``kernel``, from ``-Xptxas -v``'s
+    report (empty where the library was cached)."""
+    entries, cur = [], None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            cur = (dict(function=demangled(m.group(1)))
+                   if kernel in m.group(1) else None)
+            if cur is not None:
+                entries.append(cur)
+            continue
+        if cur is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m:
+            cur["spill_stores"], cur["spill_loads"] = map(int, m.groups())
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            cur["registers"] = int(m.group(1))
+        m = re.search(r"(\d+) bytes smem", line)
+        if m:
+            cur["static_smem_bytes"] = int(m.group(1))
+    return entries
 
 
 def cuda_ms(torch, fn, iters: int, warmup: int = 2) -> float:
@@ -359,7 +415,9 @@ def check_spmm(torch, ops, ref, topo, d: int, dev, iters: int,
         require(bit_exact, f"spmm differs from pushsum_mix at N={n}, d={d}")
     del got
     w_csr = w.to_sparse_csr()
-    out = dict(n=n, d=d, k=k, edges=nnz, max_abs_err=err[0],
+    plan = ops.spmm_plan(n, k, d, torch.cuda.get_device_properties(
+        dev).multi_processor_count)
+    out = dict(n=n, d=d, k=k, edges=nnz, plan=plan, max_abs_err=err[0],
                equals_pushsum_mix=bit_exact,
                ms=cuda_ms(torch, lambda: ops.spmm(idx, vals, x), iters),
                plain_ms=plain_ms,
@@ -787,20 +845,30 @@ def check_flash(torch, F, ops, ref, name: str, dev, iters: int) -> dict:
     library_ms = sdpa_err = None
     if name in FLASH_SDPA:
         # the yardstick: one PyTorch call, KV heads repeated to the query
-        # heads (the memory-efficient backend takes f32 and is_causal)
+        # heads (the memory-efficient backend takes f32, is_causal and a
+        # mask); a window as a banded boolean (S, S) mask
         kr = kt.repeat_interleave(h // kh, dim=1)
         vr = vt.repeat_interleave(h // kh, dim=1)
-        sdpa = lambda: F.scaled_dot_product_attention(qt, kr, vr, is_causal=True)
+        band = None
+        if window is not None:
+            pos = torch.arange(s, device=dev)
+            band = (pos[:, None] >= pos[None, :]) & (
+                pos[:, None] - pos[None, :] < window)
+        sdpa = lambda: F.scaled_dot_product_attention(
+            qt, kr, vr, attn_mask=band, is_causal=band is None)
         sdpa_err = (sdpa().transpose(1, 2) - got).abs().max().item()
         library_ms = cuda_ms(torch, sdpa, iters, warmup=1)
-        del kr, vr
+        del kr, vr, band
     pairs = visible_pairs(s, window) * b * h
+    nbytes = 4.0 * (2 * b * s * h * d + 2 * b * s * kh * d)
+    # 4 D flops a visible pair and head, each as three TF32 products
     out = dict(shape=dict(b=b, s=s, h=h, kh=kh, d=d, window=window),
+               geometry=ops.flash_geometry(b, s, h, d),
                rows_per_plain_window=rows, max_abs_err=errs["abs"],
                max_rel_err=errs["rel"], ms=ms, plain_ms=plain_ms,
                library_ms=library_ms, sdpa_max_abs_diff=sdpa_err,
-               bound=bound(4.0 * (2 * b * s * h * d + 2 * b * s * kh * d),
-                           f32_ops=4.0 * d * pairs))
+               bound=bound(nbytes, tf32_ops=3 * 4.0 * d * pairs),
+               f32_core_bound_ms=bound(nbytes, f32_ops=4.0 * d * pairs)[0])
     out["pct_of_bound"] = 100.0 * out["bound"][0] / ms
     del q, k, v, got, qt, kt, vt
     torch.cuda.empty_cache()
@@ -1067,9 +1135,17 @@ def main() -> int:
         args.out.mkdir(parents=True, exist_ok=True)
         (args.out / "ptxas.txt").write_text("\n".join(
             f"== {k}\n{v['ptxas']}" for k, v in report.items()))
+    # the two redesigned kernels: ptxas's registers and spills; their shared
+    # memory is dynamic (flash: by head dim here; spmm: in each plan below)
     emit(dict(phase="build", seconds=build_s, kernels={
         k: {"seconds": v["seconds"], "cached": v["cached"]}
-        for k, v in report.items()}))
+        for k, v in report.items()}, ptxas={
+        k: ptxas_summary(report[k]["ptxas"], kernel)
+        for k, kernel in (("flash_attention", "flash_attention_kernel"),
+                          ("spmm", "spmm_"))},
+        flash_dynamic_smem_bytes={
+            d: ops.flash_geometry(1, 1, 1, d)["smem_bytes"]
+            for d in ops.FLASH_HEAD_DIMS}))
 
     paper = check_kernels(torch, ops, ref, PAPER, dev, iters=200, cols=1 << 20)
     stats = philox_statistics(torch, ops, dev)
@@ -1171,10 +1247,13 @@ def main() -> int:
                                          for r in spmm.values())),
         total["spmm"],
         shape=dict(n=sp["n"], d=sp["d"], k=sp["k"], edges=sp["edges"]),
+        regime=sp["plan"]["regime"],
         train_shape=dict(at_shape(spmm["train"]), n=spmm["train"]["n"],
-                         d=spmm["train"]["d"], k=spmm["train"]["k"]),
+                         d=spmm["train"]["d"], k=spmm["train"]["k"],
+                         regime=spmm["train"]["plan"]["regime"]),
         sweep_shape=dict(at_shape(spmm["sweep"]), n=spmm["sweep"]["n"],
-                         d=spmm["sweep"]["d"], k=spmm["sweep"]["k"])))
+                         d=spmm["sweep"]["d"], k=spmm["sweep"]["k"],
+                         regime=spmm["sweep"]["plan"]["regime"])))
     for name in ("clip_scale_rows", "laplace_from_bits"):
         kernels.append(kernel_entry(
             name, tree_results[name], total[name],
@@ -1186,9 +1265,11 @@ def main() -> int:
         total["flash_attention"], shape=fa["shape"],
         max_rel_err=max(r["max_rel_err"] for r in flash.values()),
         pct_of_bound=fa["pct_of_bound"],
+        f32_core_bound_ms=fa["f32_core_bound_ms"],
         **{f"{name}_shape": dict(at_shape(r), shape=r["shape"],
                                  max_rel_err=r["max_rel_err"],
-                                 pct_of_bound=r["pct_of_bound"])
+                                 pct_of_bound=r["pct_of_bound"],
+                                 f32_core_bound_ms=r["f32_core_bound_ms"])
            for name, r in flash.items() if name != "llama_32k"}))
     print(smi, flush=True)
     emit({"kernels": kernels, "card": smi})

@@ -1,6 +1,7 @@
 // Shared pieces of the kernels: the Laplace transform (dpps_perturb.cu,
-// laplace_noise.cu) and the two-pass row reduction (l1_norm.cu,
-// dpps_perturb.cu).
+// laplace_noise.cu), the two-pass row reduction (l1_norm.cu,
+// dpps_perturb.cu) and the 16-byte asynchronous copies that fill the
+// shared-memory rings of flash_attention.cu and spmm.cu.
 //
 // The row-reduction kernels reduce each row of a (N, d_pad) f32 buffer in
 // two passes: pass one gives one partial per (row, chunk) block, pass two
@@ -47,6 +48,28 @@ __device__ __forceinline__ float block_sum(float v, float* smem) {
   }
   __syncthreads();
   return total;
+}
+
+// 16 bytes from device memory to shared memory without passing through
+// registers (cp.async, L2 only). With `valid` false nothing is read and
+// the 16 bytes are zero-filled; `src` must still be a device address.
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d), "l"(src),
+               "r"(valid ? 16 : 0)
+               : "memory");
+}
+
+// Close the group of this thread's copies issued since the last commit.
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// Wait until at most `kPending` of this thread's committed groups are in
+// flight; a __syncthreads() after it makes the landed data visible to all.
+template <int kPending>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(kPending) : "memory");
 }
 
 // Pass two: out[row] = sum over partials[row, 0:n_chunks]; one block a row.

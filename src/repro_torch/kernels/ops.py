@@ -17,6 +17,8 @@ one kernel and share its count, under ``flash_attention``.
 """
 from __future__ import annotations
 
+import functools
+
 import torch
 
 from repro_torch.core.packing import LANE, PackedLayout
@@ -26,14 +28,30 @@ from repro_torch.kernels import build, ref
 __all__ = ["l1_norm_rows", "dpps_perturb_rows", "pushsum_mix", "spmm",
            "clip_scale_rows", "laplace_from_bits", "l1_clip_tree",
            "laplace_noise_tree", "flash_attention", "flash_attention_bshd",
-           "launch_counts", "reset_launch_counts", "CHUNK", "MAX_MIX_NODES",
-           "MAX_SPMM_NODES", "FLASH_HEAD_DIMS"]
+           "launch_counts", "reset_launch_counts", "spmm_plan",
+           "flash_geometry", "flash_strides", "CHUNK", "MAX_MIX_NODES",
+           "MAX_SPMM_NODES", "FLASH_TILES", "FLASH_HEAD_DIMS"]
 
 CHUNK = 8192        # columns per pass-one block (csrc/common.cuh kChunk)
 MAX_MIX_NODES = 32  # csrc/pushsum_mix.cu template range
-# csrc/spmm.cu: N rows of a 4-column tile in 227 KB of shared memory
-MAX_SPMM_NODES = 232448 // 16
-FLASH_HEAD_DIMS = (64, 128, 256)  # csrc/flash_attention.cu instantiations
+MAX_SPMM_NODES = 2 ** 31 - 1  # csrc/spmm.cu: idx is int32
+
+# csrc/spmm.cu launch plan (spmm_plan)
+SPMM_STAGE_BYTES = 16 * 1024  # a ring slot: N rows of one column tile
+SPMM_STAGES = 3               # ring slots (csrc/spmm.cu kSpmmStages)
+SPMM_TABLE_BYTES = 32 * 1024  # the (N, K) slot table in shared memory
+SPMM_BLOCKS_PER_SM = 8        # at most, persistent column-tile blocks
+SPMM_THREADS = 256
+SPMM_MAX_TILE = 512
+SM_SMEM_BYTES = 233_472       # shared memory of an SM, 1 KB a block reserved
+
+# csrc/flash_attention.cu tiles, for each head dim D: (BQ query rows a block,
+# BK key rows a tile, DSPLIT warps sharing a group of 16 rows, each owning
+# D / DSPLIT columns). The C function has one instantiation of each entry
+# and refuses any other tile.
+FLASH_TILES = {64: (64, 32, 1), 128: (64, 64, 2), 256: (64, 16, 2)}
+FLASH_HEAD_DIMS = tuple(FLASH_TILES)
+FLASH_STAGES = 2  # the K/V ring of csrc/flash_attention.cu
 
 
 def _is_cpu(*tensors: torch.Tensor) -> bool:
@@ -186,12 +204,57 @@ def spmm(idx: torch.Tensor, vals: torch.Tensor, x: torch.Tensor) -> torch.Tensor
     if not (1 <= n <= MAX_SPMM_NODES) or d < 4 or d % 4:
         raise ValueError(f"need 1 <= N <= {MAX_SPMM_NODES} and D % 4 == 0, "
                          f"got x {tuple(x.shape)}")
+    plan = spmm_plan(n, k, d, _sm_count(x.device))
     out = torch.empty_like(x)
     lib = build.load("spmm")
     _raise_on(lib.spmm(idx.data_ptr(), vals.data_ptr(), x.data_ptr(),
-                       out.data_ptr(), n, k, d, _stream(x)), "spmm")
+                       out.data_ptr(), n, k, d, plan["tile"], plan["stages"],
+                       plan["threads"], plan["blocks"], plan["smem_bytes"],
+                       _stream(x)), "spmm")
     spmm.launches += 1
     return out
+
+
+def spmm_plan(n: int, k: int, d: int, sms: int) -> dict:
+    """The launch of ``csrc/spmm.cu`` for K slots a row over x (N, D) on a
+    card with ``sms`` SMs: ``{"regime", "tile", "stages", "threads",
+    "blocks", "smem_bytes"}``.
+
+    The tile is the largest power of two <= 512 with N * tile * 4 bytes <=
+    :data:`SPMM_STAGE_BYTES`. Column tiles (``"tiles"``) where such a tile
+    of at least 4 columns exists (N <= 1024), the row holds at least one
+    tile for each SM (D >= sms * tile) and the slot table (N rows of K
+    rounded up to 4 slots, 8 bytes a slot) fits in
+    :data:`SPMM_TABLE_BYTES`: as many persistent blocks of 256 threads as
+    the tiles, the SMs' shared memory and :data:`SPMM_BLOCKS_PER_SM` allow,
+    each streaming its tiles through a ring of :data:`SPMM_STAGES` slots.
+    Otherwise rows (``"rows"``, tile 0): one thread a (receiver row,
+    4 columns), the block halved from 256 threads (to 32 at least) until
+    the grid has a block for each SM.
+    """
+    tile = SPMM_MAX_TILE
+    while tile > 4 and n * tile * 4 > SPMM_STAGE_BYTES:
+        tile //= 2
+    n_tiles = -(-d // tile)
+    table = 8 * n * (-(-k // 4) * 4)
+    smem = SPMM_STAGES * n * tile * 4 + table
+    if (n * tile * 4 <= SPMM_STAGE_BYTES and n_tiles >= sms
+            and table <= SPMM_TABLE_BYTES):
+        per_sm = min(SPMM_BLOCKS_PER_SM, SM_SMEM_BYTES // (smem + 1024))
+        return dict(regime="tiles", tile=tile, stages=SPMM_STAGES,
+                    threads=SPMM_THREADS, blocks=min(n_tiles, per_sm * sms),
+                    smem_bytes=smem)
+    items = n * (d // 4)
+    threads = SPMM_THREADS
+    while threads > 32 and -(-items // threads) < sms:
+        threads //= 2
+    return dict(regime="rows", tile=0, stages=0, threads=threads,
+                blocks=-(-items // threads), smem_bytes=0)
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def clip_scale_rows(buf: torch.Tensor, d_s: int,
@@ -286,12 +349,40 @@ def _flash_launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     out = torch.empty_like(q)
     if out.numel() == 0:
         return out
+    geo = flash_geometry(b, s, h, d)
     lib = build.load("flash_attention")
     _raise_on(lib.flash_attention(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, s, h, kh,
-        d, *q_strides, *k_strides, window, _stream(q)), "flash_attention")
+        d, *q_strides, *k_strides, window, geo["bq"], geo["bk"],
+        geo["dsplit"], geo["smem_bytes"], _stream(q)), "flash_attention")
     flash_attention.launches += 1
     return out
+
+
+def flash_geometry(b: int, s: int, h: int, d: int) -> dict:
+    """The launch of ``csrc/flash_attention.cu`` for B sequences of S
+    positions, H query heads of dim D: the tile of :data:`FLASH_TILES`
+    (``bq``, ``bk``, ``dsplit``), ``threads`` (a warp for each 16 query rows
+    and D slice), ``smem_bytes`` (the two-stage K/V ring at rows of D + 4
+    floats, plus the partial scores of every warp where D is split) and
+    ``grid`` (query tiles, heads, batch)."""
+    bq, bk, dsplit = FLASH_TILES[d]
+    warps = bq // 16 * dsplit
+    ring = FLASH_STAGES * 2 * bk * (d + 4)
+    xch = warps * (bk // 2) * 32 if dsplit > 1 else 0
+    return dict(bq=bq, bk=bk, dsplit=dsplit, threads=32 * warps,
+                smem_bytes=4 * (ring + xch), grid=(-(-s // bq), h, b))
+
+
+def flash_strides(layout: str, s: int, h: int, d: int) -> tuple:
+    """Element strides (batch, position, head) of a contiguous tensor of
+    ``h`` heads in ``layout``: ``"bshd"`` (B, S, H, D), the model's, or
+    ``"hsd"`` (H, S, D), the Pallas kernel's (one sequence)."""
+    if layout == "bshd":
+        return (s * h * d, h * d, d)
+    if layout == "hsd":
+        return (h * s * d, d, s * d)
+    raise ValueError(f"layout {layout!r} is not 'bshd' or 'hsd'")
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -308,8 +399,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         raise ValueError(f"need k, v (H // group, S, D) for q {tuple(q.shape)},"
                          f" group {group}; got k {tuple(k.shape)}")
     return _flash_launch(q, k, v, b=1, s=s, h=h, kh=kh, d=d,
-                         q_strides=(h * s * d, d, s * d),
-                         k_strides=(kh * s * d, d, s * d), window=window)
+                         q_strides=flash_strides("hsd", s, h, d),
+                         k_strides=flash_strides("hsd", s, kh, d),
+                         window=window)
 
 
 def flash_attention_bshd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -328,8 +420,9 @@ def flash_attention_bshd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
             q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
             group=h // kh, window=window).transpose(1, 2)
     return _flash_launch(q, k, v, b=b, s=s, h=h, kh=kh, d=d,
-                         q_strides=(s * h * d, h * d, d),
-                         k_strides=(s * kh * d, kh * d, d), window=window)
+                         q_strides=flash_strides("bshd", s, h, d),
+                         k_strides=flash_strides("bshd", s, kh, d),
+                         window=window)
 
 
 _KERNELS = (l1_norm_rows, dpps_perturb_rows, pushsum_mix, spmm,

@@ -1,0 +1,155 @@
+"""Time the launch plans of ``csrc/flash_attention.cu`` and ``csrc/spmm.cu``
+on the card, at the shapes ``chip_smoke.py`` runs.
+
+    python -m repro_torch.kernels.sweep [--out FILE]
+
+Flash attention runs at the tile of :data:`repro_torch.kernels.ops.
+FLASH_TILES` for its head dim (to time another tile, change that table and
+the C file's ``REPRO_FLASH_TILES`` list alike); ``spmm`` runs at each of
+``SPMM_CANDIDATES``' stage size, blocks per SM and threads (patched into
+``ops``), beside one ``torch.sparse.mm`` call. Each result is held against the
+plain version (flash: the last 256 query rows; spmm: every column) and
+printed as one JSON line, with the card's name and power limit. A tool for
+choosing the tables in ``ops.py``; it needs a CUDA card.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import subprocess
+import sys
+
+import torch
+
+from repro_torch.kernels import ops, ref
+
+FLASH_SHAPES = {  # (B, S, H, K, D, window), as chip_smoke.py
+    "llama_32k": (1, 32_768, 32, 8, 64, None),
+    "gemma3_32k_window512": (1, 32_768, 4, 1, 256, 512),
+    "gemma3_32k_global": (1, 32_768, 4, 1, 256, None),
+    "ragged_minitron": (2, 1000, 24, 8, 128, None),
+    "minitron_32k": (1, 32_768, 24, 8, 128, None),
+}
+# (stage bytes, blocks an SM at most, threads a block) of the column-tile
+# ring; stage bytes 0 forces the rows regime
+SPMM_CANDIDATES = [(16 << 10, 8, 256), (16 << 10, 4, 256), (16 << 10, 8, 128),
+                   (16 << 10, 4, 512), (8 << 10, 8, 256), (32 << 10, 8, 256),
+                   (32 << 10, 4, 512), (0, 8, 256)]
+SPMM_SHAPES = {  # (N, D, graph seed): ER(N, p = 8/N), as chip_smoke.py
+    "sparse_full": (24, 95_669_120, 0),
+    "sparse_train": (128, 7936, 0),
+    "sweep": (4096, 8, 2024),
+}
+
+
+def cuda_ms(fn, iters: int, warmup: int = 1) -> float:
+    for _ in range(warmup):
+        fn()
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(iters):
+        fn()
+    stop.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(stop) / iters
+
+
+def sweep_flash(dev, emit) -> None:
+    for name, (b, s, h, kh, d, window) in FLASH_SHAPES.items():
+        gen = torch.Generator(device=dev).manual_seed(s + d)
+        q = torch.randn((b, s, h, d), generator=gen, device=dev)
+        k = torch.randn((b, s, kh, d), generator=gen, device=dev)
+        v = torch.randn((b, s, kh, d), generator=gen, device=dev)
+        r0 = max(0, s - 256)
+        want = ref.flash_attention(
+            q[:, r0:].transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+            group=h // kh, window=window, q_start=r0).transpose(1, 2)
+        iters = 3 if s > 4096 else 20
+        got = ops.flash_attention_bshd(q, k, v, window=window)
+        err = (got[:, r0:] - want).abs().max().item()
+        ms = cuda_ms(lambda: ops.flash_attention_bshd(q, k, v, window=window),
+                     iters)
+        emit(dict(kernel="flash_attention", shape=name, tile=ops.FLASH_TILES[d],
+                  geometry=ops.flash_geometry(b, s, h, d), ms=ms,
+                  max_abs_err_last_rows=err))
+        del q, k, v, want, got
+        torch.cuda.empty_cache()
+
+
+def sweep_spmm(dev, emit) -> None:
+    from repro_torch.net import ErdosRenyiGraph
+
+    saved = (ops.SPMM_STAGE_BYTES, ops.SPMM_BLOCKS_PER_SM, ops.SPMM_THREADS)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    for name, (n, d, seed) in SPMM_SHAPES.items():
+        idx, vals = ErdosRenyiGraph(n, p=8.0 / n, seed=seed).sparse_weights(0)
+        idx = torch.as_tensor(idx, device=dev)
+        vals = torch.as_tensor(vals, dtype=torch.float32, device=dev)
+        gen = torch.Generator(device=dev).manual_seed(n)
+        x = torch.randn((n, d), generator=gen, device=dev)
+        base = ops.spmm(idx, vals, x)
+        cols = 1 << 24
+        err = max((base[:, c:c + cols] - ref.spmm(idx, vals, x[:, c:c + cols]))
+                  .abs().max().item() for c in range(0, d, cols))
+        iters = 5 if n * d > 1 << 28 else 200
+        for candidate in SPMM_CANDIDATES:
+            (ops.SPMM_STAGE_BYTES, ops.SPMM_BLOCKS_PER_SM,
+             ops.SPMM_THREADS) = candidate
+            try:
+                plan = ops.spmm_plan(n, idx.shape[1], d, sms)
+                same = bool(torch.equal(ops.spmm(idx, vals, x), base))
+                ms = cuda_ms(lambda: ops.spmm(idx, vals, x), iters)
+            finally:
+                (ops.SPMM_STAGE_BYTES, ops.SPMM_BLOCKS_PER_SM,
+                 ops.SPMM_THREADS) = saved
+            emit(dict(kernel="spmm", shape=name, candidate=candidate,
+                      plan=plan, ms=ms, equals_default_plan=same,
+                      default_max_abs_err=err))
+        w_csr = torch.sparse_csr_tensor(
+            *_csr_of(idx, vals, n), size=(n, n), device=dev)
+        emit(dict(kernel="spmm", shape=name, library="torch.sparse.mm",
+                  ms=cuda_ms(lambda: torch.sparse.mm(w_csr, x), iters)))
+        del x, base
+        torch.cuda.empty_cache()
+
+
+def _csr_of(idx, vals, n):
+    """(crow, col, values) of W from the padded CSR (zero-weight pads
+    dropped)."""
+    keep = vals != 0
+    crow = torch.zeros(n + 1, dtype=torch.int64, device=idx.device)
+    crow[1:] = torch.cumsum(keep.sum(1), 0)
+    return crow, idx[keep].to(torch.int64), vals[keep]
+
+
+def main() -> int:
+    parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    parser.add_argument("--out", default=None, help="also append lines here")
+    args = parser.parse_args()
+    if not torch.cuda.is_available():
+        print("sweep: no CUDA card is available", file=sys.stderr)
+        return 2
+    dev = torch.device("cuda", 0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    sink = open(args.out, "a") if args.out else None
+
+    def emit(obj):
+        line = json.dumps(obj)
+        print(line, flush=True)
+        if sink is not None:
+            sink.write(line + "\n")
+
+    emit(dict(card=subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60).stdout.strip()))
+    sweep_flash(dev, emit)
+    sweep_spmm(dev, emit)
+    if sink is not None:
+        sink.close()
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -3,11 +3,14 @@
 Every test here is marked ``requires_cuda`` and skips where there is no
 card. On a GPU machine (which needs no JAX for this file):
 
-    PYTHONPATH=src python -m pytest -q -m requires_cuda tests/test_torch_cuda.py
+    PYTHONPATH=src python -m pytest -q --noconftest -m requires_cuda tests/test_torch_cuda.py
+
+(``--noconftest``: ``tests/conftest.py`` imports JAX, which that machine
+need not have.)
 
 Tolerances: flash attention to rtol 1e-4 / atol 1e-5 on outputs of
-magnitude about 1 (online softmax in another order, expf against the
-CPU's exp); the fused perturb agrees elementwise to rtol 1e-6 / atol 1e-6
+magnitude about 1 (online softmax in another order, 3xTF32 products on the
+tensor cores, expf against the CPU's exp); the fused perturb agrees elementwise to rtol 1e-6 / atol 1e-6
 (the card's logf may differ from the CPU's log by an ulp); row sums to
 rtol 1e-5 (per-block partials against PyTorch's reduction order); the mix
 to rtol 1e-5 / atol 1e-6 (fma in j order against cuBLAS's order). The
@@ -114,10 +117,31 @@ def test_wrappers_count_launches_and_reject_what_the_kernels_do_not_take(dev):
     assert sum(ops.launch_counts().values()) == 7
 
 
-@pytest.mark.parametrize("n,d", [(4, 7936), (24, 1024), (128, 7936),
-                                 (4096, 8), (33, 12)])
+# Widths set from the card's SM count and the column tile at N, each on a
+# stated side of ops.spmm_plan's threshold (D >= SMs * tile): (D, regime).
+_SPMM_WIDTHS = {
+    "tiles_min": lambda sms, tile: (sms * tile, "tiles"),
+    "rows_max": lambda sms, tile: ((sms - 1) * tile, "rows"),
+    # no multiple of the tile: the last tile is ragged
+    "tiles_ragged": lambda sms, tile: (sms * tile + tile // 2 + 4, "tiles"),
+}
+
+
+@pytest.mark.parametrize("n,d", [
+    (4, 7936), (24, 1024), (128, 7936), (4096, 8), (33, 12),
+    (24, "tiles_min"), (24, "rows_max"), (24, "tiles_ragged"),
+    (128, "tiles_min"), (128, "rows_max"), (128, "tiles_ragged"),
+    (64, "tiles_min"), (1025, 4096)])
 def test_spmm_matches_plain_and_the_dense_kernel(dev, n, d):
+    """Both regimes of ``ops.spmm_plan`` (N = 1025 has no column tile: rows),
+    each with the topology's own K and with 3 zero-weight pad slots more."""
     topo = ErdosRenyiGraph(n, p=min(1.0, 8 / n), seed=0)
+    if isinstance(d, str):
+        sms = torch.cuda.get_device_properties(dev).multi_processor_count
+        k = topo.max_in_degree(0)
+        d, regime = _SPMM_WIDTHS[d](
+            sms, ops.spmm_plan(n, k, 1 << 30, sms)["tile"])
+        assert ops.spmm_plan(n, k, d, sms)["regime"] == regime
     w = topo.weight_matrix_torch(0, device=dev)
     gen = torch.Generator(device=dev).manual_seed(n)
     x = torch.randn((n, d), generator=gen, device=dev)
@@ -186,12 +210,27 @@ def test_session_on_the_card_matches_the_cpu(dev):
 @pytest.mark.parametrize("d", ops.FLASH_HEAD_DIMS)
 @pytest.mark.parametrize("s,group,window", [
     (1, 1, None), (100, 4, None), (128, 1, 37), (300, 4, 1), (300, 1, 200),
-    (257, 2, 64)])
+    (257, 2, 64),
+    # below one tile; one row past a multiple of BQ (64) and of BK (16, 32,
+    # 64); windows of 1 and of exactly one key tile (BK: 32 at D = 64, 64
+    # at D = 128, 16 at D = 256); groups 1, 4 and 8
+    (17, 8, None), (65, 1, None), (65, 4, 64), (129, 8, 32), (97, 8, 1),
+    (193, 1, 64), (161, 4, 32), (145, 8, 16)])
 def test_flash_attention_matches_plain(dev, d, s, group, window):
     """Ragged S (no multiple of any tile), GQA groups, windows that cut
     inside a key tile and across several; both layouts, one launch each."""
+    _flash_against_plain(dev, 2, s, 2, group, d, window)
+
+
+@pytest.mark.parametrize("d,window", [(256, None), (64, None), (256, 512)])
+def test_flash_attention_matches_plain_over_many_key_tiles(dev, d, window):
+    """B = 1, S = 4,096: the K/V ring's steady state over up to 256 key
+    tiles a query tile, and a window of several tiles."""
+    _flash_against_plain(dev, 1, 4096, 1, 4, d, window)
+
+
+def _flash_against_plain(dev, b, s, kh, group, d, window):
     gen = torch.Generator(device=dev).manual_seed(s * d + group)
-    b, kh = 2, 2
     q = torch.randn((b, s, kh * group, d), generator=gen, device=dev)
     k = torch.randn((b, s, kh, d), generator=gen, device=dev)
     v = torch.randn((b, s, kh, d), generator=gen, device=dev)

@@ -14,6 +14,8 @@ partials and the plain versions add in one reduction, in another order.
 """
 from __future__ import annotations
 
+import math
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -206,3 +208,164 @@ def test_cpu_tensors_take_the_plain_version_and_count_no_launch():
         "l1_norm_rows": 0, "dpps_perturb_rows": 0, "pushsum_mix": 0,
         "spmm": 0, "clip_scale_rows": 0, "laplace_from_bits": 0,
         "flash_attention": 0}
+
+
+# -- the CUDA kernels' launch geometry (stated in ops.py, checked here) -----
+
+def _chip_smoke():
+    """``chip_smoke.py``'s module (its shapes; it imports no torch at load)."""
+    import importlib.util
+    from pathlib import Path
+
+    path = Path(__file__).resolve().parents[1] / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+@pytest.mark.parametrize("layout", ["bshd", "hsd"])
+@pytest.mark.parametrize("d", ops.FLASH_HEAD_DIMS)
+def test_flash_geometry_covers_every_head_dim_and_layout(d, layout):
+    """Each head dim has a tile whose warps, shared memory and grid the card
+    takes, the grid covers every query row once, and the strides handed to
+    the kernel address each element of the contiguous tensor of that layout."""
+    for s in (1, 63, 64, 65, 1000, 32_768):
+        b = 1 if layout == "hsd" else 2
+        geo = ops.flash_geometry(b, s, 8, d)
+        bq, bk, dsplit = ops.FLASH_TILES[d]
+        assert (geo["bq"], geo["bk"], geo["dsplit"]) == (bq, bk, dsplit)
+        assert bq % 16 == 0 and bk % 8 == 0 and (d // dsplit) % 8 == 0
+        assert geo["threads"] == 32 * (bq // 16) * dsplit <= 1024
+        assert geo["smem_bytes"] <= 232_448  # 227 KB, the opt-in limit
+        nq, h, gb = geo["grid"]
+        assert (nq - 1) * bq < s <= nq * bq and (h, gb) == (8, b)
+    b, s, h = (1, 5, 3) if layout == "hsd" else (2, 5, 3)
+    shape = (h, s, d) if layout == "hsd" else (b, s, h, d)
+    flat = torch.arange(math.prod(shape)).reshape(shape)
+    sb, ss, sh = ops.flash_strides(layout, s, h, d)
+    for bi in range(b):
+        for p in range(s):
+            for hi in range(h):
+                row = flat[hi, p] if layout == "hsd" else flat[bi, p, hi]
+                assert int(row[0]) == bi * sb + p * ss + hi * sh
+                assert torch.equal(row, row[0] + torch.arange(d))
+
+
+def test_flash_tiles_serve_every_ported_architecture():
+    """The head dims of the five attention-only configs, and the tiles the
+    serving shapes of chip_smoke.py launch: 4 row groups of 16 a block,
+    D = 128 and 256 split over two warps a row group (one warp's
+    accumulator and Q fragments would spill)."""
+    from repro_torch.configs import get_config
+
+    for arch in ("llama3.2-1b", "gemma3-1b", "gemma-7b", "minitron-4b",
+                 "musicgen-large"):
+        assert get_config(arch).model.head_dim in ops.FLASH_HEAD_DIMS
+    smoke = _chip_smoke()
+    want = {64: (64, 32, 1, 128, 34_816), 128: (64, 64, 2, 256, 167_936),
+            256: (64, 16, 2, 256, 74_752)}
+    for b, s, h, _, d, _ in smoke.FLASH_SHAPES.values():
+        geo = ops.flash_geometry(b, s, h, d)
+        assert (geo["bq"], geo["bk"], geo["dsplit"], geo["threads"],
+                geo["smem_bytes"]) == want[d]
+        assert geo["grid"] == (-(-s // 64), h, b)
+
+
+def test_spmm_plan_at_the_shapes_of_the_sparse_paths():
+    """The regime and tile at each shape chip_smoke.py runs, on an H100
+    (132 SMs): column tiles at the sparse full width and the sparse
+    training shape (K = 14 and 21 on their ER graphs), rows at the widest
+    sweep point (N = 4096: no 4-column tile of all rows fits a slot)."""
+    from repro_torch.net import ErdosRenyiGraph
+
+    smoke = _chip_smoke()
+    sms = 132
+    n, d = smoke.SPARSE_FULL["n"], smoke.d_pad_of(smoke.SPARSE_FULL["d_s"])
+    k = ErdosRenyiGraph(n, p=8.0 / n, seed=0).max_in_degree(0)
+    assert k == 14
+    # ring 3 x 24 x 128 x 4 bytes, slot table 24 rows of 16 slots x 8 bytes;
+    # 5 blocks an SM fit in 228 KB
+    assert ops.spmm_plan(n, k, d, sms) == dict(
+        regime="tiles", tile=128, stages=3, threads=256, blocks=5 * sms,
+        smem_bytes=36_864 + 3_072)
+    n, d = smoke.SPARSE_TRAIN["n"], smoke.d_pad_of(smoke.SPARSE_TRAIN["d_s"])
+    k = ErdosRenyiGraph(n, p=8.0 / n, seed=0).max_in_degree(0)
+    assert k == 21
+    assert ops.spmm_plan(n, k, d, sms) == dict(
+        regime="tiles", tile=32, stages=3, threads=256, blocks=7936 // 32,
+        smem_bytes=49_152 + 24_576)
+    assert ops.spmm_plan(smoke.SPARSE_SWEEP["n"], 24, smoke.SPARSE_SWEEP["d"],
+                         sms) == dict(regime="rows", tile=0, stages=0,
+                                      threads=32, blocks=4096 * 2 // 32,
+                                      smem_bytes=0)
+
+
+@pytest.mark.parametrize("n,k", [(1, 1), (24, 14), (128, 21), (1024, 4),
+                                 (1024, 20), (4096, 24)])
+@pytest.mark.parametrize("d", [8, 7936, 16_900, 95_669_120])
+def test_spmm_plan_is_a_launch_the_kernel_takes(n, k, d):
+    """Either regime covers every (row, 4 columns) once: column tiles only
+    where a ring slot and the slot table fit and every SM gets a tile, with
+    no more blocks than tiles or than the SMs' shared memory holds; rows
+    with one thread an output quad."""
+    sms = 132
+    plan = ops.spmm_plan(n, k, d, sms)
+    table = 8 * n * (-(-k // 4) * 4)
+    if plan["regime"] == "tiles":
+        tile = plan["tile"]
+        assert 4 <= tile <= 512 and tile & (tile - 1) == 0
+        assert n * tile * 4 <= ops.SPMM_STAGE_BYTES
+        assert tile == 512 or n * tile * 8 > ops.SPMM_STAGE_BYTES
+        assert table <= ops.SPMM_TABLE_BYTES
+        assert plan["smem_bytes"] == plan["stages"] * n * tile * 4 + table
+        n_tiles = -(-d // tile)
+        per_sm = -(-plan["blocks"] // sms)
+        assert n_tiles >= sms and plan["blocks"] <= n_tiles
+        assert per_sm * (plan["smem_bytes"] + 1024) <= 233_472
+    else:
+        assert plan["tile"] == 0 and plan["threads"] in (32, 64, 128, 256)
+        items = n * d // 4
+        assert (plan["blocks"] - 1) * plan["threads"] < items
+        assert plan["blocks"] * plan["threads"] >= items
+        assert (n > 1024 or table > ops.SPMM_TABLE_BYTES
+                or -(-d // 512) < sms)
+
+
+def _tf32(x: torch.Tensor) -> torch.Tensor:
+    """``cvt.rna.tf32.f32``: x rounded to 10 mantissa bits, ties away from
+    zero (finite x)."""
+    bits = x.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def _mm_tf32(a: torch.Tensor, b: torch.Tensor, passes: int) -> torch.Tensor:
+    """a @ b as the tensor cores form it from TF32 operands (exact products,
+    f32 sums): one pass (hi hi), or 3xTF32 (lo hi + hi lo + hi hi)."""
+    ah, bh = _tf32(a), _tf32(b)
+    if passes == 1:
+        return ah @ bh
+    return _tf32(a - ah) @ bh + ah @ _tf32(b - bh) + ah @ bh
+
+
+@pytest.mark.parametrize("d", ops.FLASH_HEAD_DIMS)
+def test_three_tf32_products_keep_the_flash_tolerance(d):
+    """The arithmetic of csrc/flash_attention.cu: Q K^T and P V in 3xTF32
+    agree with the plain version at the kernel's atol 1e-5 / rtol 1e-4;
+    a single TF32 pass (10 mantissa bits) does not, which is why the kernel
+    never takes one."""
+    rng = np.random.default_rng(d)
+    s = 256
+    q, k, v = (torch.from_numpy(rng.normal(size=(s, d)).astype(np.float32))
+               for _ in range(3))
+    want = ref.flash_attention(q[None], k[None], v[None])[0]
+    pos = torch.arange(s)
+    seen = pos[:, None] >= pos[None, :]
+    out = {}
+    for passes in (1, 3):
+        scores = _mm_tf32(q, k.T.contiguous(), passes) * (1.0 / math.sqrt(d))
+        p = torch.softmax(scores.masked_fill(~seen, -math.inf), dim=-1)
+        out[passes] = _mm_tf32(p, v, passes)
+    torch.testing.assert_close(out[3], want, rtol=1e-4, atol=1e-5)
+    assert not bool(((out[1] - want).abs()
+                     <= 1e-5 + 1e-4 * want.abs()).all())
