@@ -8,16 +8,24 @@ Phases, each printing one JSON line:
 
 1. ``build``      compile the seven kernels (one nvcc each, in parallel);
                   the registers, spills and static shared memory of every
-                  flash-attention and spmm instantiation (``-Xptxas -v``).
+                  flash-attention and spmm instantiation, and the registers
+                  and spills of every pushsum_mix (N = 1..32) and l1_norm
+                  one (``-Xptxas -v``; any spill there fails).
 2. ``kernels``    each kernel against its plain PyTorch version at the main
                   paths' shapes: the dense kernels at the paper MLP's shared
                   layer (N = 10, d_s = 7840) and the dense full-width buffer
                   (N = 5, d_s = 505,956,352), plus the Philox noise
                   statistics; the norm and the perturbation also at the
                   sparse paths' shapes (N = 24, d_s = 95,669,064 and
-                  N = 128, d_s = 7840); ``spmm`` at the sparse full width (N = 24,
-                  d_s = 95,669,064), the sparse training shape (N = 128,
-                  d_s = 7840) and the widest sparse sweep (N = 4096, D = 8),
+                  N = 128, d_s = 7840). The norm and the mix must give the
+                  same bits on a second launch. At the two small shapes
+                  the norm, the mix (paper shape) and their library calls
+                  are also timed as host µs a call (1,000 calls, no
+                  synchronise in between) and, after phase 11, device µs a
+                  call (``torch.profiler``). ``spmm`` at the sparse full
+                  width (N = 24, d_s = 95,669,064), the sparse training
+                  shape (N = 128, d_s = 7840) and the widest sparse sweep
+                  (N = 4096, D = 8),
                   with the launch plan of each (``ops.spmm_plan``: column
                   tiles or rows), and bit for bit against ``pushsum_mix``
                   at full width.
@@ -192,6 +200,14 @@ def ptxas_summary(log: str, kernel: str) -> list:
     return entries
 
 
+def ptxas_brief(entries: list) -> dict:
+    """Registers of each instantiation and the spilled bytes of all."""
+    return dict(instantiations=len(entries),
+                spill_bytes=sum(e.get("spill_stores", 0) + e.get("spill_loads", 0)
+                                for e in entries),
+                registers={e["function"]: e.get("registers") for e in entries})
+
+
 def cuda_ms(torch, fn, iters: int, warmup: int = 2) -> float:
     """Mean milliseconds of ``fn()`` on the card, by CUDA events."""
     for _ in range(warmup):
@@ -256,6 +272,66 @@ def compare(got, want, rtol: float, atol: float, cols: int = 1 << 24):
 
 # -- phase 2: each kernel against its plain version --------------------------
 
+def host_us(torch, fn, calls: int = 1000) -> float:
+    """Host µs a call of ``fn()``: a host clock around ``calls`` calls with no
+    synchronise in between (one synchronise after), over ``calls``. Taken
+    before any profiler runs in the process: a profiled process launches
+    more slowly afterwards."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    us = (time.perf_counter() - t0) / calls * 1e6
+    torch.cuda.synchronize()
+    return us
+
+
+def device_us(torch, fn, calls: int = 200) -> tuple:
+    """(device µs a call, kernels a call) of ``fn()``: the kernel time
+    ``torch.profiler`` records over ``calls`` calls (None where it records
+    none), over ``calls``."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    busy, count = 0.0, 0
+    for e in prof.key_averages():
+        us = getattr(e, "self_device_time_total", None)
+        if us is None:
+            us = e.self_cuda_time_total
+        if us > 0:
+            busy += us
+            count += e.count
+    return (busy / calls if busy > 0 else None), count / calls
+
+
+def small_shape_calls(torch, ops, dev) -> dict:
+    """{(shape, kernel): (wrapper call, library call)} for the norm at the
+    paper and sparse-train shapes and the mix at the paper shape (the
+    sparse paths mix through ``spmm``), on seeded inputs: the calls whose
+    host and device µs the kernels line gives."""
+    calls = {}
+    for name, shape in (("paper", PAPER), ("sparse_train", SPARSE_TRAIN)):
+        n, d_s = shape["n"], shape["d_s"]
+        gen = torch.Generator(device=dev).manual_seed(SEED)
+        x = torch.randn((n, d_pad_of(d_s)), generator=gen, device=dev)
+        calls[name, "l1_norm_rows"] = (
+            lambda x=x, d_s=d_s: ops.l1_norm_rows(x, d_s),
+            lambda x=x, d_s=d_s: torch.linalg.vector_norm(x[:, :d_s], 1,
+                                                          dim=1))
+        if name == "paper":
+            w = torch.full((n, n), 1.0 / n, device=dev)
+            calls[name, "pushsum_mix"] = (
+                lambda x=x, w=w: ops.pushsum_mix(w, x),
+                lambda x=x, w=w: torch.matmul(w, x))
+    return calls
+
+
 def check_kernels(torch, ops, ref, shape: dict, dev, iters: int,
                   cols: int, mix: bool = True) -> dict:
     """The dense path's kernels vs plain at one shape (``pushsum_mix`` only
@@ -282,11 +358,13 @@ def check_kernels(torch, ops, ref, shape: dict, dev, iters: int,
 
     # l1_norm_rows: the plain version fits (one |x| temporary)
     # rtol 1e-5: per-block partials against PyTorch's reduction order
-    err, ok = compare(ops.l1_norm_rows(eps, d_s), ref.l1_norm_rows(eps, d_s),
-                      rtol=1e-5, atol=0.0)
+    got = ops.l1_norm_rows(eps, d_s)
+    err, ok = compare(got, ref.l1_norm_rows(eps, d_s), rtol=1e-5, atol=0.0)
     require(ok, f"l1_norm_rows disagrees at {shape}: max abs err {err}")
+    require(torch.equal(ops.l1_norm_rows(eps, d_s), got),
+            f"l1_norm_rows gives other bits on a second launch at {shape}")
     out["l1_norm_rows"] = dict(
-        max_abs_err=err,
+        max_abs_err=err, plan=ops.l1_plan(n, d_s),
         ms=cuda_ms(torch, lambda: ops.l1_norm_rows(eps, d_s), iters),
         plain_ms=cuda_ms(torch, lambda: ref.l1_norm_rows(eps, d_s),
                          max(1, iters // 2)),
@@ -362,7 +440,10 @@ def check_kernels(torch, ops, ref, shape: dict, dev, iters: int,
     # rtol 1e-5 / atol 1e-6: fma in j order against cuBLAS's order
     err, ok = compare(got, want, rtol=1e-5, atol=1e-6)
     require(ok, f"pushsum_mix disagrees at {shape}: max abs err {err}")
-    del got, want
+    del want
+    require(torch.equal(ops.pushsum_mix(w, s), got),
+            f"pushsum_mix gives other bits on a second launch at {shape}")
+    del got
     out["pushsum_mix"] = dict(
         max_abs_err=err,
         ms=cuda_ms(torch, lambda: ops.pushsum_mix(w, s), iters),
@@ -1089,10 +1170,16 @@ def kernel_entry(name: str, r: dict, launches: int, **extra) -> dict:
                 bound_by=r["bound"][1], library_ms=r["library_ms"], **extra)
 
 
+HOST_DEVICE_KEYS = ("host_us", "device_us", "kernels_a_call",
+                    "library_host_us", "library_device_us",
+                    "library_kernels_a_call", "plan")
+
+
 def at_shape(r: dict) -> dict:
     return dict(max_abs_err=r["max_abs_err"], ms=r["ms"],
                 plain_ms=r["plain_ms"], bound_ms=r["bound"][0],
-                bound_by=r["bound"][1], library_ms=r["library_ms"])
+                bound_by=r["bound"][1], library_ms=r["library_ms"],
+                **{k: r[k] for k in HOST_DEVICE_KEYS if k in r})
 
 
 def main() -> int:
@@ -1135,17 +1222,26 @@ def main() -> int:
         args.out.mkdir(parents=True, exist_ok=True)
         (args.out / "ptxas.txt").write_text("\n".join(
             f"== {k}\n{v['ptxas']}" for k, v in report.items()))
-    # the two redesigned kernels: ptxas's registers and spills; their shared
-    # memory is dynamic (flash: by head dim here; spmm: in each plan below)
+    # ptxas's registers and spills of four kernels; flash's and spmm's
+    # shared memory is dynamic (flash: by head dim here; spmm: in each plan
+    # below)
+    brief = {k: ptxas_brief(ptxas_summary(report[k]["ptxas"], kernel))
+             for k, kernel in (("pushsum_mix", "mix_kernel"),
+                               ("l1_norm", "l1_norm_kernel"))}
     emit(dict(phase="build", seconds=build_s, kernels={
         k: {"seconds": v["seconds"], "cached": v["cached"]}
         for k, v in report.items()}, ptxas={
         k: ptxas_summary(report[k]["ptxas"], kernel)
         for k, kernel in (("flash_attention", "flash_attention_kernel"),
-                          ("spmm", "spmm_"))},
+                          ("spmm", "spmm_"))}, ptxas_brief=brief,
         flash_dynamic_smem_bytes={
             d: ops.flash_geometry(1, 1, 1, d)["smem_bytes"]
             for d in ops.FLASH_HEAD_DIMS}))
+    for k, b in brief.items():
+        # a library built by an earlier process of this checkout has no report
+        require(report[k]["cached"] or b["instantiations"] > 0,
+                f"no ptxas report for {k}")
+        require(b["spill_bytes"] == 0, f"{k} spills: {b}")
 
     paper = check_kernels(torch, ops, ref, PAPER, dev, iters=200, cols=1 << 20)
     stats = philox_statistics(torch, ops, dev)
@@ -1168,6 +1264,13 @@ def main() -> int:
             SPARSE_SWEEP["n"], SPARSE_SWEEP["seed"]), SPARSE_SWEEP["d"], dev,
             iters=200, cols=1 << 20),
     }
+    # host µs before any profiler session in this process; device µs after
+    # every timed path
+    small = {"paper": paper, "sparse_train": sparse_train}
+    calls = small_shape_calls(torch, ops, dev)
+    for (shape, k), (fn, library) in calls.items():
+        small[shape][k].update(host_us=host_us(torch, fn),
+                               library_host_us=host_us(torch, library))
     emit(dict(phase="kernels", paper_shape=PAPER, full_shape=FULL,
               sparse_full_shape=SPARSE_FULL, sparse_train_shape=SPARSE_TRAIN,
               philox=stats, results={"paper": paper, "full": full,
@@ -1225,6 +1328,11 @@ def main() -> int:
         launches.append(served["launches"])
     emit(serve_agreement(torch, ops, dev))
 
+    for (shape, k), (fn, library) in calls.items():
+        r = small[shape][k]
+        r["device_us"], r["kernels_a_call"] = device_us(torch, fn)
+        r["library_device_us"], r["library_kernels_a_call"] = device_us(
+            torch, library)
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True, check=True,
@@ -1240,7 +1348,8 @@ def main() -> int:
         kernels.append(kernel_entry(
             name, dict(f, max_abs_err=max(
                 [f["max_abs_err"]] + [a["max_abs_err"] for a in at.values()])),
-            total[name], shape=dict(FULL, d_pad=d_pad_of(FULL["d_s"])), **at))
+            total[name], shape=dict(FULL, d_pad=d_pad_of(FULL["d_s"])),
+            **{k: f[k] for k in ("plan",) if k in f}, **at))
     sp = spmm["full"]
     kernels.append(kernel_entry(
         "spmm", dict(sp, max_abs_err=max(r["max_abs_err"]

@@ -21,7 +21,7 @@ import subprocess
 import time
 from pathlib import Path
 
-__all__ = ["SOURCES", "build_all", "load", "library_path"]
+__all__ = ["SOURCES", "build_all", "load", "function", "library_path"]
 
 _CSRC = Path(__file__).resolve().parent / "csrc"
 _BUILD = Path(__file__).resolve().parent / "_build"
@@ -32,7 +32,7 @@ _P, _I64, _F32, _U64 = (ctypes.c_void_p, ctypes.c_int64, ctypes.c_float,
                         ctypes.c_uint64)
 # C signatures: pointers and the stream are c_void_p, sizes c_int64.
 _SIGNATURES = {
-    "l1_norm": ("l1_norm_rows", [_P, _I64, _I64, _I64, _P, _I64, _P, _P]),
+    "l1_norm": ("l1_norm_rows", [_P] + [_I64] * 6 + [_P, _P, _P, _P]),
     "dpps_perturb": ("dpps_perturb_rows",
                      [_P, _P, _P, _P, _F32, _I64, _I64, _I64, _U64, _I64,
                       _P, _P, _P, _I64, _P, _P, _P]),
@@ -46,6 +46,7 @@ _SIGNATURES = {
 SOURCES = tuple(_SIGNATURES)
 
 _LOADED: dict[str, ctypes.CDLL] = {}
+_FUNCTIONS: dict[str, ctypes._CFuncPtr] = {}
 
 
 def _nvcc() -> str:
@@ -116,4 +117,15 @@ def load(name: str) -> ctypes.CDLL:
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
         _LOADED[name] = lib
+        _FUNCTIONS[name] = fn
     return lib
+
+
+def function(name: str):
+    """The C function of library ``name`` (:func:`load` first if needed),
+    looked up once: the wrappers call it on every launch."""
+    fn = _FUNCTIONS.get(name)
+    if fn is None:
+        load(name)
+        fn = _FUNCTIONS[name]
+    return fn

@@ -1,7 +1,8 @@
 // Shared pieces of the kernels: the Laplace transform (dpps_perturb.cu,
-// laplace_noise.cu), the two-pass row reduction (l1_norm.cu,
-// dpps_perturb.cu) and the 16-byte asynchronous copies that fill the
-// shared-memory rings of flash_attention.cu and spmm.cu.
+// laplace_noise.cu), the two-pass row reduction (dpps_perturb.cu; l1_norm.cu
+// takes block_sum and sums its partials in pass two's order in one pass)
+// and the 16-byte asynchronous copies that fill the shared-memory rings of
+// flash_attention.cu and spmm.cu.
 //
 // The row-reduction kernels reduce each row of a (N, d_pad) f32 buffer in
 // two passes: pass one gives one partial per (row, chunk) block, pass two

@@ -28,13 +28,18 @@ from repro_torch.kernels import build, ref
 __all__ = ["l1_norm_rows", "dpps_perturb_rows", "pushsum_mix", "spmm",
            "clip_scale_rows", "laplace_from_bits", "l1_clip_tree",
            "laplace_noise_tree", "flash_attention", "flash_attention_bshd",
-           "launch_counts", "reset_launch_counts", "spmm_plan",
+           "launch_counts", "reset_launch_counts", "spmm_plan", "l1_plan",
            "flash_geometry", "flash_strides", "CHUNK", "MAX_MIX_NODES",
            "MAX_SPMM_NODES", "FLASH_TILES", "FLASH_HEAD_DIMS"]
 
-CHUNK = 8192        # columns per pass-one block (csrc/common.cuh kChunk)
+CHUNK = 8192        # columns per pass-one block of csrc/dpps_perturb.cu (kChunk)
 MAX_MIX_NODES = 32  # csrc/pushsum_mix.cu template range
 MAX_SPMM_NODES = 2 ** 31 - 1  # csrc/spmm.cu: idx is int32
+MAX_L1_ROWS = 65_535  # csrc/l1_norm.cu: a row is a grid row
+
+# csrc/l1_norm.cu launch plan (l1_plan), from repro_torch.kernels.sweep
+L1_THREADS = 256
+L1_QUADS_PER_BLOCK = 2048  # 8 float4 loads a thread
 
 # csrc/spmm.cu launch plan (spmm_plan)
 SPMM_STAGE_BYTES = 16 * 1024  # a ring slot: N rows of one column tile
@@ -55,12 +60,12 @@ FLASH_STAGES = 2  # the K/V ring of csrc/flash_attention.cu
 
 
 def _is_cpu(*tensors: torch.Tensor) -> bool:
+    if all(t.is_cuda for t in tensors):
+        return False
     devices = {t.device.type for t in tensors}
-    if devices == {"cpu"}:
-        return True
-    if devices != {"cuda"}:
+    if devices != {"cpu"}:
         raise ValueError(f"tensors on mixed or unsupported devices: {devices}")
-    return False
+    return True
 
 
 def _check(t: torch.Tensor, name: str, dtype: torch.dtype, ndim: int,
@@ -76,7 +81,10 @@ def _check(t: torch.Tensor, name: str, dtype: torch.dtype, ndim: int,
 
 
 def _stream(t: torch.Tensor) -> int:
-    return torch.cuda.current_stream(t.device).cuda_stream
+    """The handle of the current stream on ``t``'s card (what
+    ``torch.cuda.current_stream(t.device).cuda_stream`` gives, without
+    building a ``Stream`` object)."""
+    return torch._C._cuda_getCurrentRawStream(t.get_device())
 
 
 def _raise_on(rc: int, what: str) -> None:
@@ -101,18 +109,69 @@ def l1_norm_rows(buf: torch.Tensor, d_s: int) -> torch.Tensor:
         return ref.l1_norm_rows(buf, d_s)
     _check(buf, "buf", torch.float32, 2, align=True)
     n, d_pad = buf.shape
-    if not (0 < d_s <= d_pad) or d_pad % 4:
-        raise ValueError(f"need 0 < d_s <= d_pad and d_pad % 4 == 0, got "
-                         f"d_s={d_s}, d_pad={d_pad}")
-    n_chunks = -(-d_s // CHUNK)
-    partials = torch.empty((n, n_chunks), dtype=torch.float32, device=buf.device)
-    out = torch.empty((n,), dtype=torch.float32, device=buf.device)
-    lib = build.load("l1_norm")
-    _raise_on(lib.l1_norm_rows(buf.data_ptr(), n, d_pad, d_s,
-                               partials.data_ptr(), n_chunks, out.data_ptr(),
-                               _stream(buf)), "l1_norm_rows")
+    if not (0 < d_s <= d_pad) or d_pad % 4 or not (1 <= n <= MAX_L1_ROWS):
+        raise ValueError(f"need 0 < d_s <= d_pad, d_pad % 4 == 0 and 1 <= N "
+                         f"<= {MAX_L1_ROWS}, got N={n}, d_s={d_s}, "
+                         f"d_pad={d_pad}")
+    plan = l1_plan(n, d_s)
+    bpr = plan["blocks_per_row"]
+    stream = _stream(buf)
+    partials, tickets = _l1_scratch(buf, stream, n * bpr, n)
+    out = buf.new_empty((n,))
+    _raise_on(build.function("l1_norm")(
+        buf.data_ptr(), n, d_pad, d_s, plan["threads"], bpr,
+        plan["quads_per_block"], partials.data_ptr(), tickets.data_ptr(),
+        out.data_ptr(), stream), "l1_norm_rows")
     l1_norm_rows.launches += 1
     return out
+
+
+# (device index, stream handle) -> (partials f32, tickets int32 at zero)
+_L1_SCRATCH: dict[tuple[int, int], tuple[torch.Tensor, torch.Tensor]] = {}
+
+
+def _l1_scratch(buf: torch.Tensor, stream: int, partials: int,
+                rows: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """The scratch of ``csrc/l1_norm.cu`` on one stream: at least
+    ``partials`` floats and ``rows`` ticket counters at zero.
+
+    The kernel is right only while its counters start at zero and no two
+    launches use one set at once. Eager launches keep one set for each
+    (device, stream handle) between calls: launches on one stream run in
+    order, each leaves the counters at zero, and two streams never share a
+    set (zeroing counters each call cost more host time than the launch).
+    A stream handle names one stream for the process's life for PyTorch's
+    own streams; a ``torch.cuda.ExternalStream`` destroyed while a launch
+    on it is pending must not have its handle reused for another stream
+    that launches this kernel. A launch captured into a CUDA graph gets
+    scratch of its own, allocated in the capture and not kept here: the
+    graph zeroes its counters on every replay, and a replay never shares
+    counters with eager launches or other graphs.
+    """
+    if torch.cuda.is_current_stream_capturing():
+        return (buf.new_empty((partials,)),
+                torch.zeros((rows,), dtype=torch.int32, device=buf.device))
+    key = (buf.get_device(), stream)
+    have = _L1_SCRATCH.get(key)
+    if have is None or have[0].numel() < partials or have[1].numel() < rows:
+        size = max(partials, 0 if have is None else have[0].numel())
+        count = max(rows, 0 if have is None else have[1].numel())
+        have = (buf.new_empty((size,)),
+                torch.zeros((count,), dtype=torch.int32, device=buf.device))
+        _L1_SCRATCH[key] = have
+    return have
+
+
+def l1_plan(n: int, d_s: int) -> dict:
+    """The launch of ``csrc/l1_norm.cu`` for the first ``d_s`` columns of N
+    rows: ``{"threads", "blocks_per_row", "quads_per_block"}``.
+
+    Block b of a row reads the 16-byte quads [b q, min((b + 1) q, d_s // 4))
+    for q = :data:`L1_QUADS_PER_BLOCK`; the last block also reads the d_s %
+    4 columns of the ragged tail. No block is empty.
+    """
+    return dict(threads=L1_THREADS, quads_per_block=L1_QUADS_PER_BLOCK,
+                blocks_per_row=max(1, -(-(d_s // 4) // L1_QUADS_PER_BLOCK)))
 
 
 def dpps_perturb_rows(s: torch.Tensor, eps: torch.Tensor, scale,
@@ -153,8 +212,7 @@ def dpps_perturb_rows(s: torch.Tensor, eps: torch.Tensor, scale,
     noise_part = torch.empty((n, n_chunks), dtype=torch.float32, device=dev)
     eps_l1 = torch.empty((n,), dtype=torch.float32, device=dev)
     noise_l1 = torch.empty((n,), dtype=torch.float32, device=dev)
-    lib = build.load("dpps_perturb")
-    _raise_on(lib.dpps_perturb_rows(
+    _raise_on(build.function("dpps_perturb")(
         s.data_ptr(), eps.data_ptr(),
         bits.data_ptr() if bits is not None else None,
         scale.data_ptr(), float(gamma_n), n, d_pad, d_s,
@@ -177,9 +235,9 @@ def pushsum_mix(w: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
         raise ValueError(f"need w (N, N) with 1 <= N <= {MAX_MIX_NODES}, got "
                          f"w {tuple(w.shape)}, x {tuple(x.shape)}")
     out = torch.empty_like(x)
-    lib = build.load("pushsum_mix")
-    _raise_on(lib.pushsum_mix(w.data_ptr(), x.data_ptr(), out.data_ptr(), n,
-                              d, _stream(x)), "pushsum_mix")
+    _raise_on(build.function("pushsum_mix")(
+        w.data_ptr(), x.data_ptr(), out.data_ptr(), n, d, _stream(x)),
+        "pushsum_mix")
     pushsum_mix.launches += 1
     return out
 
@@ -206,11 +264,10 @@ def spmm(idx: torch.Tensor, vals: torch.Tensor, x: torch.Tensor) -> torch.Tensor
                          f"got x {tuple(x.shape)}")
     plan = spmm_plan(n, k, d, _sm_count(x.device))
     out = torch.empty_like(x)
-    lib = build.load("spmm")
-    _raise_on(lib.spmm(idx.data_ptr(), vals.data_ptr(), x.data_ptr(),
-                       out.data_ptr(), n, k, d, plan["tile"], plan["stages"],
-                       plan["threads"], plan["blocks"], plan["smem_bytes"],
-                       _stream(x)), "spmm")
+    _raise_on(build.function("spmm")(
+        idx.data_ptr(), vals.data_ptr(), x.data_ptr(), out.data_ptr(), n, k,
+        d, plan["tile"], plan["stages"], plan["threads"], plan["blocks"],
+        plan["smem_bytes"], _stream(x)), "spmm")
     spmm.launches += 1
     return out
 
@@ -271,10 +328,9 @@ def clip_scale_rows(buf: torch.Tensor, d_s: int,
                          f"(N,), got d_s={d_s}, buf {tuple(buf.shape)}, "
                          f"denom {tuple(denom.shape)}")
     out = torch.empty_like(buf)
-    lib = build.load("clip_scale")
-    _raise_on(lib.clip_scale_rows(buf.data_ptr(), denom.data_ptr(), n, d_pad,
-                                  d_s, out.data_ptr(), _stream(buf)),
-              "clip_scale_rows")
+    _raise_on(build.function("clip_scale")(
+        buf.data_ptr(), denom.data_ptr(), n, d_pad, d_s, out.data_ptr(),
+        _stream(buf)), "clip_scale_rows")
     clip_scale_rows.launches += 1
     return out
 
@@ -289,10 +345,9 @@ def laplace_from_bits(bits: torch.Tensor, scale) -> torch.Tensor:
     out = torch.empty(bits.shape, dtype=torch.float32, device=bits.device)
     if bits.numel() == 0:
         return out
-    lib = build.load("laplace_noise")
-    _raise_on(lib.laplace_from_bits(bits.data_ptr(), scale.data_ptr(),
-                                    bits.numel(), out.data_ptr(),
-                                    _stream(bits)), "laplace_from_bits")
+    _raise_on(build.function("laplace_noise")(
+        bits.data_ptr(), scale.data_ptr(), bits.numel(), out.data_ptr(),
+        _stream(bits)), "laplace_from_bits")
     laplace_from_bits.launches += 1
     return out
 
@@ -350,8 +405,7 @@ def _flash_launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if out.numel() == 0:
         return out
     geo = flash_geometry(b, s, h, d)
-    lib = build.load("flash_attention")
-    _raise_on(lib.flash_attention(
+    _raise_on(build.function("flash_attention")(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, s, h, kh,
         d, *q_strides, *k_strides, window, geo["bq"], geo["bk"],
         geo["dsplit"], geo["smem_bytes"], _stream(q)), "flash_attention")

@@ -1,16 +1,23 @@
-"""Time the launch plans of ``csrc/flash_attention.cu`` and ``csrc/spmm.cu``
-on the card, at the shapes ``chip_smoke.py`` runs.
+"""Time the launch plans of the hand-written kernels on the card, at the
+shapes ``chip_smoke.py`` runs.
 
-    python -m repro_torch.kernels.sweep [--out FILE]
+    python -m repro_torch.kernels.sweep [--out FILE] [--only SECTION ...]
 
-Flash attention runs at the tile of :data:`repro_torch.kernels.ops.
-FLASH_TILES` for its head dim (to time another tile, change that table and
-the C file's ``REPRO_FLASH_TILES`` list alike); ``spmm`` runs at each of
-``SPMM_CANDIDATES``' stage size, blocks per SM and threads (patched into
-``ops``), beside one ``torch.sparse.mm`` call. Each result is held against the
-plain version (flash: the last 256 query rows; spmm: every column) and
-printed as one JSON line, with the card's name and power limit. A tool for
-choosing the tables in ``ops.py``; it needs a CUDA card.
+Sections (all by default):
+
+- ``flash``: flash attention at the tile of :data:`repro_torch.kernels.ops.
+  FLASH_TILES` for its head dim (to time another tile, change that table
+  and the C file's ``REPRO_FLASH_TILES`` list alike), the last 256 query
+  rows held against the plain version.
+- ``spmm``: each of ``SPMM_CANDIDATES``' stage size, blocks per SM and
+  threads (patched into ``ops``), beside one ``torch.sparse.mm`` call.
+- ``l1``: ``l1_norm_rows`` at each of ``L1_CANDIDATES``' threads and quads
+  a block, beside ``torch.linalg.vector_norm(x, 1, dim=1)``, at the paths'
+  shapes and at N = 5 with N = 24's bytes (row count against size).
+
+Each result is held against the plain version and printed as one JSON
+line, with the card's name and power limit. A tool for choosing the tables
+in ``ops.py``; it needs a CUDA card.
 """
 from __future__ import annotations
 
@@ -39,6 +46,16 @@ SPMM_SHAPES = {  # (N, D, graph seed): ER(N, p = 8/N), as chip_smoke.py
     "sparse_full": (24, 95_669_120, 0),
     "sparse_train": (128, 7936, 0),
     "sweep": (4096, 8, 2024),
+}
+# (threads a block, quads a block) of l1_norm.cu
+L1_CANDIDATES = [(256, 2048), (512, 4096), (256, 4096), (128, 1024),
+                 (256, 1024)]
+L1_SHAPES = {  # (N, d_pad, d_s)
+    "dense_full": (5, 505_956_352, 505_956_352),
+    "sparse_full": (24, 95_669_120, 95_669_064),
+    "n5_sparse_full_bytes": (5, 459_211_776, 459_211_507),
+    "paper": (10, 7936, 7840),
+    "sparse_train": (128, 7936, 7840),
 }
 
 
@@ -124,9 +141,59 @@ def _csr_of(idx, vals, n):
     return crow, idx[keep].to(torch.int64), vals[keep]
 
 
+def _patched(names: tuple, values: tuple, fn):
+    """``fn()`` with ``ops``' tables ``names`` set to ``values``."""
+    saved = tuple(getattr(ops, k) for k in names)
+    for k, v in zip(names, values):
+        setattr(ops, k, v)
+    try:
+        return fn()
+    finally:
+        for k, v in zip(names, saved):
+            setattr(ops, k, v)
+
+
+def _shape_iters(elements: int) -> int:
+    return 5 if elements > 1 << 28 else 200
+
+
+def sweep_l1(dev, emit) -> None:
+    names = ("L1_THREADS", "L1_QUADS_PER_BLOCK")
+    for name, (n, d_pad, d_s) in L1_SHAPES.items():
+        gen = torch.Generator(device=dev).manual_seed(n + d_s)
+        buf = torch.randn((n, d_pad), generator=gen, device=dev)
+        buf[:, d_s:] = 1e4  # pad lanes: never read
+        want = ref.l1_norm_rows(buf, d_s)
+        iters = _shape_iters(n * d_pad)
+        for candidate in L1_CANDIDATES:
+            plan = _patched(names, candidate, lambda: ops.l1_plan(n, d_s))
+            got = _patched(names, candidate,
+                           lambda: ops.l1_norm_rows(buf, d_s))
+            again = _patched(names, candidate,
+                             lambda: ops.l1_norm_rows(buf, d_s))
+            rel = ((got - want).abs() / want).max().item()
+            emit(dict(kernel="l1_norm_rows", shape=name, n=n, d_pad=d_pad,
+                      d_s=d_s, candidate=candidate, plan=plan,
+                      ms=_patched(names, candidate, lambda: cuda_ms(
+                          lambda: ops.l1_norm_rows(buf, d_s), iters)),
+                      max_rel_err=rel, within_tol=rel <= 1e-5,
+                      two_launches_equal=bool(torch.equal(got, again))))
+        emit(dict(kernel="l1_norm_rows", shape=name,
+                  library="torch.linalg.vector_norm", ms=cuda_ms(
+                      lambda: torch.linalg.vector_norm(buf[:, :d_s], 1, dim=1),
+                      iters)))
+        del buf
+        torch.cuda.empty_cache()
+
+
+SECTIONS = {"flash": sweep_flash, "spmm": sweep_spmm, "l1": sweep_l1}
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--out", default=None, help="also append lines here")
+    parser.add_argument("--only", nargs="+", choices=tuple(SECTIONS),
+                        default=tuple(SECTIONS), help="sections to run")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("sweep: no CUDA card is available", file=sys.stderr)
@@ -144,8 +211,8 @@ def main() -> int:
     emit(dict(card=subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60).stdout.strip()))
-    sweep_flash(dev, emit)
-    sweep_spmm(dev, emit)
+    for name in args.only:
+        SECTIONS[name](dev, emit)
     if sink is not None:
         sink.close()
     return 0

@@ -13,7 +13,9 @@ magnitude about 1 (online softmax in another order, 3xTF32 products on the
 tensor cores, expf against the CPU's exp); the fused perturb agrees elementwise to rtol 1e-6 / atol 1e-6
 (the card's logf may differ from the CPU's log by an ulp); row sums to
 rtol 1e-5 (per-block partials against PyTorch's reduction order); the mix
-to rtol 1e-5 / atol 1e-6 (fma in j order against cuBLAS's order). The
+to rtol 1e-5 / atol 1e-6 (fma in j order against cuBLAS's order), also
+on unaligned x, with the bits it gives on an aligned copy. Every kernel
+gives the same bits on two launches. The
 sparse mix to rtol 1e-6 / atol 1e-6 (fma against the plain version's
 separate multiply and add), and bit for bit against the dense kernel on a
 topology's own CSR; the clip scale exactly (one correctly rounded
@@ -37,7 +39,10 @@ from repro_torch.net import ErdosRenyiGraph
 
 pytestmark = pytest.mark.requires_cuda
 
-SHAPES = [(n, d_s) for n in (4, 10) for d_s in (7840, 8192, 3)]
+# N = 1 and 32 the ends of pushsum_mix.cu's range, 24 the sparse full
+# width's; d_s 300,001: a ragged tail, and longer than one l1_norm.cu block
+SHAPES = [(n, d_s) for n in (1, 4, 10, 24, 32)
+          for d_s in (7840, 8192, 3, 300_001)]
 
 
 @pytest.fixture
@@ -48,18 +53,22 @@ def dev():
     return torch.device("cuda", 0)
 
 
-def _rows(gen, dev, n, d_s):
+def _rows(gen, dev, n, d_s, pad=0.0):
     d_pad = -(-d_s // 128) * 128
     x = torch.randn((n, d_pad), generator=gen, device=dev)
-    x[:, d_s:] = 0
+    x[:, d_s:] = pad
     return x
 
 
 @pytest.mark.parametrize("n,d_s", SHAPES)
 def test_kernels_match_plain(dev, n, d_s):
+    """1e4 in the pad lanes: the norms and the perturbation must leave them
+    out."""
     gen = torch.Generator(device=dev).manual_seed(n * d_s)
-    s, eps = _rows(gen, dev, n, d_s), _rows(gen, dev, n, d_s)
+    s, eps = _rows(gen, dev, n, d_s, 1e4), _rows(gen, dev, n, d_s, 1e4)
     scale = torch.tensor(0.7, device=dev)
+    if d_s == 300_001:
+        assert ops.l1_plan(n, d_s)["blocks_per_row"] > 1
     torch.testing.assert_close(ops.l1_norm_rows(s, d_s),
                                ref.l1_norm_rows(s, d_s), rtol=1e-5, atol=0)
     want = ref.dpps_perturb_rows(s, eps, scale, 0.1, d_s, seed=5, t=3)
@@ -74,6 +83,131 @@ def test_kernels_match_plain(dev, n, d_s):
     w = w / w.sum(0, keepdim=True)
     torch.testing.assert_close(ops.pushsum_mix(w, s), ref.pushsum_mix(w, s),
                                rtol=1e-5, atol=1e-6)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("n", [1, 5, 10, 32])
+@pytest.mark.parametrize("d,offset", [(7936, 1), (7939, 0), (7939, 3),
+                                      (300_001, 0)])
+def test_pushsum_mix_takes_unaligned_and_ragged_x(dev, n, d, offset):
+    """x unaligned (a flat buffer offset by ``offset`` floats, then
+    reshaped) or D % 4 != 0: within the tolerance of the plain version,
+    and bit for bit what an aligned copy padded to D % 4 == 0 gives."""
+    gen = torch.Generator(device=dev).manual_seed(n + d + offset)
+    flat = torch.randn(n * d + offset, generator=gen, device=dev)
+    x = flat[offset:].view(n, d)
+    assert x.is_contiguous() and (x.data_ptr() % 16 != 0 or d % 4 != 0)
+    w = torch.rand((n, n), generator=gen, device=dev)
+    w = w / w.sum(0, keepdim=True)
+    got = ops.pushsum_mix(w, x)
+    torch.testing.assert_close(got, ref.pushsum_mix(w, x), rtol=1e-5,
+                               atol=1e-6)
+    wide = torch.zeros((n, -(-d // 4) * 4), device=dev)
+    wide[:, :d] = x
+    assert torch.equal(ops.pushsum_mix(w, wide)[:, :d], got)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("plan", [(256, 2048), (512, 4096), (128, 1024)])
+@pytest.mark.parametrize("n,d_s", [(1, 300_001), (10, 7840), (24, 1 << 20)])
+def test_l1_norm_plans_match_plain_and_leave_the_tickets_at_zero(
+        dev, monkeypatch, plan, n, d_s):
+    """The table's plan of csrc/l1_norm.cu and two of the sweep's, within
+    rtol 1e-5 of the plain version; each launch leaves its stream's ticket
+    counters at zero, so the next launch gives the same bits; two streams
+    at once each get their own counters."""
+    monkeypatch.setattr(ops, "L1_THREADS", plan[0])
+    monkeypatch.setattr(ops, "L1_QUADS_PER_BLOCK", plan[1])
+    gen = torch.Generator(device=dev).manual_seed(n + d_s)
+    buf = _rows(gen, dev, n, d_s, 1e4)
+    other = _rows(gen, dev, n, d_s, 1e4)
+    first = ops.l1_norm_rows(buf, d_s)
+    torch.testing.assert_close(first, ref.l1_norm_rows(buf, d_s), rtol=1e-5,
+                               atol=0)
+    assert torch.equal(ops.l1_norm_rows(buf, d_s), first)
+    streams = [torch.cuda.Stream(dev) for _ in range(2)]
+    torch.cuda.synchronize()
+    outs = []
+    for st, x in zip(streams, (buf, other)):
+        with torch.cuda.stream(st):
+            outs.append(ops.l1_norm_rows(x, d_s))
+    torch.cuda.synchronize()
+    assert torch.equal(outs[0], first)
+    torch.testing.assert_close(outs[1], ref.l1_norm_rows(other, d_s),
+                               rtol=1e-5, atol=0)
+    for _, tickets in ops._L1_SCRATCH.values():
+        assert int(tickets.count_nonzero()) == 0
+
+
+@pytest.mark.parametrize("n,d_s", [(10, 7840), (24, 300_001)])
+def test_l1_norm_rows_in_a_cuda_graph(dev, n, d_s):
+    """A launch captured into a CUDA graph takes counters of its own, not
+    the eager set of its capture stream: every replay gives the eager
+    launch's bits, with eager launches between replays, and the capture
+    adds no scratch."""
+    gen = torch.Generator(device=dev).manual_seed(n + d_s)
+    buf = _rows(gen, dev, n, d_s, 1e4)
+    want = ops.l1_norm_rows(buf, d_s)
+    side = torch.cuda.Stream(dev)
+    side.wait_stream(torch.cuda.current_stream(dev))
+    with torch.cuda.stream(side):  # warm-up off the capture, as PyTorch asks
+        ops.l1_norm_rows(buf, d_s)
+    torch.cuda.current_stream(dev).wait_stream(side)
+    kept = {k: (p.data_ptr(), t.data_ptr())
+            for k, (p, t) in ops._L1_SCRATCH.items()}
+    assert (dev.index, side.cuda_stream) in kept
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=side):
+        got = ops.l1_norm_rows(buf, d_s)
+    assert {k: (p.data_ptr(), t.data_ptr())
+            for k, (p, t) in ops._L1_SCRATCH.items()} == kept
+    for _ in range(3):
+        graph.replay()
+        assert torch.equal(ops.l1_norm_rows(buf, d_s), want)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want)
+    for _, tickets in ops._L1_SCRATCH.values():
+        assert int(tickets.count_nonzero()) == 0
+
+
+def _each_kernel(dev):
+    """One call of each of the seven kernels on seeded inputs (the main
+    paths' kinds of shape, small): name -> thunk."""
+    gen = torch.Generator(device=dev).manual_seed(7)
+    n, d_s = 24, 100_003
+    s, eps = _rows(gen, dev, n, d_s, 1e4), _rows(gen, dev, n, d_s, 1e4)
+    topo = ErdosRenyiGraph(n, p=8 / n, seed=0)
+    idx, vals = (torch.as_tensor(a, device=dev) for a in topo.sparse_weights(0))
+    vals = vals.to(torch.float32)
+    w = topo.weight_matrix_torch(0, device=dev)
+    bits = torch.randint(0, 2 ** 32, (n * 1000,), generator=gen, device=dev,
+                         dtype=torch.int64).to(torch.uint32)
+    denom = torch.linspace(1.0, 3.0, n, device=dev)
+    q, k, v = (torch.randn((2, 300, h, 128), generator=gen, device=dev)
+               for h in (8, 4, 4))
+    return {
+        "l1_norm_rows": lambda: ops.l1_norm_rows(eps, d_s),
+        "dpps_perturb_rows": lambda: ops.dpps_perturb_rows(
+            s, eps, 0.7, 0.1, d_s, seed=3, t=2),
+        "pushsum_mix": lambda: ops.pushsum_mix(w, s),
+        "pushsum_mix_ragged": lambda: ops.pushsum_mix(w, s[:, :d_s].contiguous()),
+        "spmm": lambda: ops.spmm(idx, vals, s),
+        "clip_scale_rows": lambda: ops.clip_scale_rows(s, d_s, denom),
+        "laplace_from_bits": lambda: ops.laplace_from_bits(bits, 0.7),
+        "flash_attention": lambda: ops.flash_attention_bshd(q, k, v),
+    }
+
+
+@pytest.mark.parametrize("kernel", [
+    "l1_norm_rows", "dpps_perturb_rows", "pushsum_mix", "pushsum_mix_ragged",
+    "spmm", "clip_scale_rows", "laplace_from_bits", "flash_attention"])
+def test_two_launches_give_the_same_bits(dev, kernel):
+    """No kernel sums with float atomics or in an order that depends on
+    timing."""
+    fn = _each_kernel(dev)[kernel]
+    a, b = fn(), fn()
+    for x, y in zip(*((a, b) if isinstance(a, tuple) else ((a,), (b,)))):
+        assert torch.equal(x, y)
     torch.cuda.synchronize()
 
 
@@ -128,8 +262,9 @@ _SPMM_WIDTHS = {
 
 
 @pytest.mark.parametrize("n,d", [
-    (4, 7936), (24, 1024), (128, 7936), (4096, 8), (33, 12),
+    (4, 7936), (24, 1024), (128, 7936), (4096, 8), (33, 12), (32, 7936),
     (24, "tiles_min"), (24, "rows_max"), (24, "tiles_ragged"),
+    (32, "tiles_min"), (32, "rows_max"),
     (128, "tiles_min"), (128, "rows_max"), (128, "tiles_ragged"),
     (64, "tiles_min"), (1025, 4096)])
 def test_spmm_matches_plain_and_the_dense_kernel(dev, n, d):

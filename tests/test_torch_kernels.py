@@ -332,6 +332,199 @@ def test_spmm_plan_is_a_launch_the_kernel_takes(n, k, d):
                 or -(-d // 512) < sms)
 
 
+# -- l1_norm.cu launch plan and scratch -----------------------------------------
+
+@pytest.mark.parametrize("quads_per_block", [None, 1024, 4096])
+@pytest.mark.parametrize("d_s", [3, 7840, 8192, 300_001, 95_669_064])
+def test_l1_plan_reads_every_quad_once_and_the_tail_in_the_last_block(
+        monkeypatch, d_s, quads_per_block):
+    """Block b of a row reads quads [b q, min((b + 1) q, d_s // 4)): together
+    every whole quad once, no block empty, the d_s % 4 tail columns in the
+    last block, for N = 1..32; the table's q and the sweep's others."""
+    if quads_per_block is not None:
+        monkeypatch.setattr(ops, "L1_QUADS_PER_BLOCK", quads_per_block)
+    n_quads, tail = divmod(d_s, 4)
+    for n in range(1, 33):
+        plan = ops.l1_plan(n, d_s)
+        q, bpr = plan["quads_per_block"], plan["blocks_per_row"]
+        assert q == ops.L1_QUADS_PER_BLOCK and q % plan["threads"] == 0
+        assert plan["threads"] % 32 == 0
+        starts = [b * q for b in range(bpr)]
+        ends = [min(s + q, n_quads) for s in starts]
+        assert starts[0] == 0 and ends[-1] == n_quads
+        assert all(e == s for e, s in zip(ends[:-1], starts[1:]))
+        assert all(e > s for s, e in zip(starts, ends)) or (
+            n_quads == 0 and bpr == 1)
+        assert 4 * ends[-1] + tail == d_s and tail < 4
+        # the C function's own check of the plan
+        assert bpr * q >= n_quads and (bpr - 1) * q < max(n_quads, 1)
+
+
+def test_l1_plans_at_the_shapes_of_the_paths():
+    """The grids chip_smoke.py's paths launch: 2048 quads a block (the
+    paper and sparse-train rows fit one block)."""
+    smoke = _chip_smoke()
+    for shape, bpr in ((smoke.PAPER, 1), (smoke.SPARSE_TRAIN, 1),
+                       (smoke.SPARSE_FULL, 11_679), (smoke.FULL, 61_763)):
+        assert ops.l1_plan(shape["n"], shape["d_s"]) == dict(
+            threads=256, quads_per_block=2048, blocks_per_row=bpr)
+
+
+@pytest.mark.parametrize("capturing", [False, True])
+def test_l1_scratch_is_kept_per_stream_and_never_for_a_graph_capture(
+        monkeypatch, capturing):
+    """Eager launches reuse one set of counters for each (device, stream),
+    grown when a launch needs more; a launch captured into a CUDA graph
+    gets fresh zeroed counters, kept nowhere, so replays share them with
+    no other launch."""
+    monkeypatch.setattr(ops, "_L1_SCRATCH", {})
+    monkeypatch.setattr(torch.cuda, "is_current_stream_capturing",
+                        lambda: capturing)
+    buf = torch.zeros((4, 128))
+    first = ops._l1_scratch(buf, 11, 8, 4)
+    again = ops._l1_scratch(buf, 11, 6, 3)
+    other = ops._l1_scratch(buf, 12, 8, 4)
+    grown = ops._l1_scratch(buf, 11, 20, 4)
+    for partials, tickets in (first, again, other, grown):
+        assert partials.dtype == torch.float32 and tickets.dtype == torch.int32
+        assert int(tickets.count_nonzero()) == 0
+    assert grown[0].numel() >= 20 and grown[1].numel() >= 4
+    if capturing:
+        assert ops._L1_SCRATCH == {}
+        assert first[1].data_ptr() != again[1].data_ptr()
+        assert (first[0].numel(), first[1].numel()) == (8, 4)
+    else:
+        assert set(ops._L1_SCRATCH) == {(-1, 11), (-1, 12)}
+        assert again[1] is first[1] and other[1] is not first[1]
+        assert ops._L1_SCRATCH[(-1, 11)] == grown
+
+
+def _block_sum(v: np.ndarray) -> np.float32:
+    """common.cuh block_sum in f32: a shuffle-down tree in each warp (lane
+    0's sum), then the warp totals added in warp order from 0."""
+    v = v.astype(np.float32).reshape(-1, 32)
+    for off in (16, 8, 4, 2, 1):
+        v = np.concatenate([v[:, :32 - off] + v[:, off:], v[:, 32 - off:]],
+                           axis=1)
+    total = np.float32(0)
+    for w in v[:, 0]:
+        total = np.float32(total + w)
+    return total
+
+
+def _l1_kernel_order(row: np.ndarray, d_s: int, plan: dict) -> np.float32:
+    """csrc/l1_norm.cu's sum of one row, in its order: thread t of block b
+    adds |x| over each quad (x + y + z + w, left to right) into accumulator
+    k % 8 for its k-th quad b q + t + k T; the last block's threads add the
+    tail columns into accumulator 0; each thread adds its 8 accumulators in
+    index order; block_sum; then the row's last block sums the partials,
+    thread t adding partials t, t + T, ..., and block_sum."""
+    threads, unroll = plan["threads"], 8
+    q, bpr = plan["quads_per_block"], plan["blocks_per_row"]
+    n_quads = d_s // 4
+    a = np.abs(row[:4 * n_quads].astype(np.float32)).reshape(-1, 4)
+    quad = ((a[:, 0] + a[:, 1]) + a[:, 2]) + a[:, 3]
+    partials = []
+    for b in range(bpr):
+        seg = quad[b * q:min((b + 1) * q, n_quads)]
+        acc = np.zeros((unroll, threads), np.float32)
+        for k in range(-(-len(seg) // threads)):
+            part = seg[k * threads:(k + 1) * threads]
+            acc[k % unroll, :len(part)] += part
+        if b == bpr - 1:
+            tail = np.abs(row[4 * n_quads:d_s].astype(np.float32))
+            acc[0, :len(tail)] += tail
+        total = acc[0].copy()
+        for u in range(1, unroll):
+            total += acc[u]
+        partials.append(_block_sum(total))
+    p = np.array(partials, np.float32)
+    acc = np.zeros(threads, np.float32)
+    for k in range(-(-len(p) // threads)):
+        part = p[k * threads:(k + 1) * threads]
+        acc[:len(part)] += part
+    return _block_sum(acc)
+
+
+@pytest.mark.parametrize("plan", [None, (128, 1024), (512, 4096)])
+@pytest.mark.parametrize("n,d_s", [(3, 3), (10, 7840), (4, 8192),
+                                   (2, 300_001), (1, 1_048_579)])
+def test_l1_kernel_sum_order_stays_within_the_tolerance(monkeypatch, n, d_s,
+                                                        plan):
+    """An f32 emulation of the kernel's sum order (the table's plan and two
+    of the sweep's) agrees with the plain version and the exact sum to rtol
+    1e-5, the tolerance the card is held to; pad lanes of 1e4 are never
+    read."""
+    if plan is not None:
+        monkeypatch.setattr(ops, "L1_THREADS", plan[0])
+        monkeypatch.setattr(ops, "L1_QUADS_PER_BLOCK", plan[1])
+    rng = np.random.default_rng(n + d_s)
+    buf = _rows(rng, n, d_s, pad_value=1e4)
+    launch = ops.l1_plan(n, d_s)
+    got = np.array([_l1_kernel_order(buf[i], d_s, launch) for i in range(n)])
+    want = to_numpy(ref.l1_norm_rows(torch.from_numpy(buf), d_s))
+    np.testing.assert_allclose(got, want, rtol=1e-5)
+    np.testing.assert_allclose(got, np.abs(buf[:, :d_s].astype(np.float64))
+                               .sum(1), rtol=1e-5)
+
+
+def _bad_inputs():
+    """(wrapper call, exception) pairs: the inputs the wrappers refuse
+    before any launch, as tests/test_torch_cuda.py asserts them on the card."""
+    s = torch.zeros((3, 256))
+    q = torch.zeros((1, 5, 2, 64))
+    idx = torch.tensor([[0, 1], [1, 2], [0, 2]], dtype=torch.int32)
+    return {
+        "l1_dtype": (lambda: ops.l1_norm_rows(s.double(), 200), TypeError),
+        "l1_not_contiguous": (lambda: ops.l1_norm_rows(
+            s.t().contiguous().t(), 2), ValueError),
+        "l1_unaligned": (lambda: ops.l1_norm_rows(
+            torch.zeros(3 * 256 + 1)[1:].view(3, 256), 200), ValueError),
+        "l1_d_s": (lambda: ops.l1_norm_rows(s, 300), ValueError),
+        "perturb_d_s": (lambda: ops.dpps_perturb_rows(
+            s, s, 1.0, 1.0, 300, seed=0, t=0), ValueError),
+        "mix_33_nodes": (lambda: ops.pushsum_mix(
+            torch.eye(33), torch.zeros((33, 128))), ValueError),
+        "mix_w_shape": (lambda: ops.pushsum_mix(torch.eye(4), s), ValueError),
+        "mix_dtype": (lambda: ops.pushsum_mix(torch.eye(3), s.double()),
+                      TypeError),
+        "spmm_d": (lambda: ops.spmm(idx, torch.ones((3, 2)), s[:, :126]
+                                    .contiguous()), ValueError),
+        "spmm_idx_dtype": (lambda: ops.spmm(idx.long(), torch.ones((3, 2)), s),
+                           TypeError),
+        "flash_d": (lambda: ops.flash_attention_bshd(
+            q[..., :32], q[..., :32], q[..., :32]), ValueError),
+        "flash_window": (lambda: ops.flash_attention_bshd(q, q, q, window=0),
+                         ValueError),
+        "flash_dtype": (lambda: ops.flash_attention_bshd(
+            q.double(), q.double(), q.double()), TypeError),
+    }
+
+
+@pytest.mark.parametrize("case", list(_bad_inputs()))
+def test_wrappers_refuse_what_the_kernels_do_not_take(monkeypatch, case):
+    """The kernel branch of each wrapper (entered here for CPU tensors by
+    routing them as if on the card) raises before it builds or launches
+    anything; no launch is counted."""
+    monkeypatch.setattr(ops, "_is_cpu", lambda *tensors: False)
+    monkeypatch.setattr(ops.build, "function", lambda name: pytest.fail(
+        f"{case} reached the {name} launch"))
+    ops.reset_launch_counts()
+    call, error = _bad_inputs()[case]
+    with pytest.raises(error):
+        call()
+    assert sum(ops.launch_counts().values()) == 0
+
+
+@pytest.mark.parametrize("devices", [("cpu", "meta"), ("meta",),
+                                     ("meta", "meta")])
+def test_wrappers_refuse_mixed_or_unsupported_devices(devices):
+    tensors = [torch.zeros((2, 128), device=d) for d in devices]
+    with pytest.raises(ValueError, match="mixed or unsupported"):
+        ops.l1_norm_rows(tensors[0], 100) if len(tensors) == 1 else \
+            ops.pushsum_mix(torch.eye(2, device=devices[0]), tensors[-1])
+
+
 def _tf32(x: torch.Tensor) -> torch.Tensor:
     """``cvt.rna.tf32.f32``: x rounded to 10 mantissa bits, ties away from
     zero (finite x)."""
