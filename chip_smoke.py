@@ -28,7 +28,8 @@ Phases, each printing one JSON line:
                   (N = 4096, D = 8),
                   with the launch plan of each (``ops.spmm_plan``: column
                   tiles or rows), and bit for bit against ``pushsum_mix``
-                  at full width.
+                  at all three. The dense kernels also at the training
+                  path's buffer (N = 4, d_s = 243,286,016).
 3. ``consensus``  ``Session.build(DOutGraph(5, 2), schedule="dense")`` then
                   ``run(20)`` over a (5, 505,956,352) f32 buffer, in one
                   call (timed), and one round a call (the error by round).
@@ -61,12 +62,28 @@ Phases, each printing one JSON line:
 11. ``serve_agreement``  llama3.2-1b at full width, 2 layers: serve on the
                   card (kernel) and on the CPU (plain) under the same Gumbel
                   noise; then flash against plain prefill on the card.
+12. ``mix_wide``  ``pushsum_mix`` past its template (N = 33, 64, 256 at D =
+                  2^20; N = 4096 at D = 8) against its plain version, beside
+                  ``torch.matmul``; bit for bit equal to the template kernel
+                  at N = 32 and to ``spmm`` on ER(64).
+13. ``rows_wide`` the norm, the perturbation and the clip scale at N =
+                  65,536 and 100,003 (d_s = 300) against their plain
+                  versions; one ``dpps_step`` on a 70,000-node ring CSR.
+14. ``transformer_training``  ``Session.build(DOutGraph(4, 2),
+                  model=Transformer(llama3.2-1b), partition=its rules,
+                  schedule="dense")`` at full width (16 layers, d_s =
+                  243,286,016), ``train(5)`` on 2 x 1,024 synthetic tokens
+                  a node: ms a step, tokens/s, gradient passes against the
+                  DPPS round (CUDA events), peak memory, exact launches.
+15. ``training_agreement``  the same model with 2 layers, 4 nodes, 3 steps,
+                  noise through ``bits_at``: the card against the CPU.
 
 Each kernel counts its launches. The counts are set to 0 just before each
-path (phases 3-7 and 10) and read just after; each path names the kernels it must
-launch (and the sparse paths must launch ``pushsum_mix`` no time). Then
-come the card's name and power limit (``nvidia-smi``), the ``kernels`` line
-with every kernel's times beside its bound, and the status line. Any
+path (phases 3-7, 10 and 14) and read just after; each path names the
+kernels it must launch (and the sparse paths must launch ``pushsum_mix``
+no time; the training path exactly its counts). Then come the card's
+name and power limit (``nvidia-smi``), the ``kernels`` line with every
+kernel's times beside its bound, and the status line. Any
 failure raises and exits non-zero. Without a CUDA card, or without the
 repository beside it, the script prints nothing on stdout and exits 2.
 """
@@ -115,6 +132,24 @@ FLASH_SHAPES = {  # (B, S, H, K, D, window)
 # (S x S, 1 GiB at 32k) where windowed
 FLASH_SDPA = ("llama_32k", "gemma3_32k_window512", "gemma3_32k_global",
               "ragged_minitron")
+
+# pushsum_mix past its template (N > 32): (N, D); N = 4096 at d = 8 is
+# bench_sparse.py's dense point
+MIX_WIDE = ((33, 1 << 20), (64, 1 << 20), (256, 1 << 20), (4096, 8))
+# the row kernels past a grid of 65,535 rows: (N, d_s); a ring of 70,000
+# nodes (K = 3) for one dpps_step
+ROWS_WIDE = ((65_536, 300), (100_003, 300))
+RING = dict(n=70_000, d_s=300)
+# PartPSP training of llama3.2-1b at full width under its own rule
+# (group_0 layers [:4] shared) on a 2-out graph of 4 nodes: N = 8, the
+# reference launcher's default, needs about 115 GB and does not fit one
+# card. Per-node batch 2 of 1,024 tokens, 5 steps.
+TRAIN_LM = dict(arch="llama3.2-1b", n=4, per_node_batch=2, seq_len=1024,
+                steps=5, d_s=243_286_016)
+TRAIN_FULL = dict(n=TRAIN_LM["n"], d_s=TRAIN_LM["d_s"])
+# card against CPU: the same model at full width with 2 layers, 4 nodes,
+# one sequence of 64 tokens a node, 3 steps, the noise through bits_at
+AGREE_LM = dict(n=4, layers=2, per_node_batch=1, seq_len=64, steps=3)
 
 KERNELS = {
     "l1_norm_rows": dict(source="src/repro_torch/kernels/csrc/l1_norm.cu",
@@ -490,10 +525,8 @@ def check_spmm(torch, ops, ref, topo, d: int, dev, iters: int,
     plain_ms = timed_windows(
         torch, lambda c0, c1: ref.spmm(idx, vals, x[:, c0:c1]), check, d,
         cols)
-    bit_exact = None
-    if n <= ops.MAX_MIX_NODES:
-        bit_exact = bool(torch.equal(got, ops.pushsum_mix(w, x)))
-        require(bit_exact, f"spmm differs from pushsum_mix at N={n}, d={d}")
+    bit_exact = bool(torch.equal(got, ops.pushsum_mix(w, x)))
+    require(bit_exact, f"spmm differs from pushsum_mix at N={n}, d={d}")
     del got
     w_csr = w.to_sparse_csr()
     plan = ops.spmm_plan(n, k, d, torch.cuda.get_device_properties(
@@ -1155,6 +1188,477 @@ def serve_agreement(torch, ops, dev) -> dict:
                 flash_vs_plain_b4_s2048_logits_max_abs_err=err2)
 
 
+# -- phase 12: pushsum_mix past its template ---------------------------------
+
+def mix_wide(torch, ops, ref, dev) -> dict:
+    """``pushsum_mix`` at N > 32 (its tiled kernel) against its plain
+    version, with ``torch.matmul`` timed beside it, at :data:`MIX_WIDE`;
+    then its fma chain bit for bit against the template kernel's at N = 32
+    (a 33-node W whose last row and column are zero, first 32 rows) and
+    against ``spmm`` on ER(64)'s CSR. Tolerance rtol 1e-5 / atol 1e-6: fma
+    in j order against cuBLAS's order."""
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    out = {}
+    for n, d in MIX_WIDE:
+        gen = torch.Generator(device=dev).manual_seed(SEED + n)
+        x = torch.randn((n, d), generator=gen, device=dev)
+        w = torch.rand((n, n), generator=gen, device=dev)
+        w /= w.sum(0, keepdim=True)
+        got = ops.pushsum_mix(w, x)
+        err, ok = compare(got, ref.pushsum_mix(w, x), rtol=1e-5, atol=1e-6)
+        require(ok, f"pushsum_mix disagrees at N={n}, D={d}: max abs err "
+                    f"{err}")
+        require(torch.equal(ops.pushsum_mix(w, x), got),
+                f"pushsum_mix gives other bits on a second launch at N={n}")
+        iters = 20 if n * d > 1 << 22 else 200
+        out[f"n{n}_d{d}"] = dict(
+            n=n, d=d, plan=ops.mix_plan(n, d, sms), max_abs_err=err,
+            ms=cuda_ms(torch, lambda: ops.pushsum_mix(w, x), iters),
+            plain_ms=cuda_ms(torch, lambda: ref.pushsum_mix(w, x), iters // 2),
+            library_ms=cuda_ms(torch, lambda: torch.matmul(w, x), iters // 2),
+            bound=bound(8.0 * n * d + 4.0 * n * n, f32_ops=2.0 * n * n * d))
+        del x, w, got
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    x = torch.randn((33, 1 << 20), generator=gen, device=dev)
+    w32 = torch.rand((32, 32), generator=gen, device=dev)
+    w32 /= w32.sum(0, keepdim=True)
+    w33 = torch.zeros((33, 33), device=dev)
+    w33[:32, :32] = w32
+    wide = ops.pushsum_mix(w33, x)
+    equals_template = bool(torch.equal(
+        wide[:32], ops.pushsum_mix(w32, x[:32].contiguous())))
+    require(equals_template, "the tiled mix differs from the template at N=32")
+    idx, vals, w, _ = csr_of(torch, sparse_graph(64), dev)
+    x = torch.randn((64, 1 << 20), generator=gen, device=dev)
+    equals_spmm = bool(torch.equal(ops.spmm(idx, vals, x),
+                                   ops.pushsum_mix(w, x)))
+    require(equals_spmm, "pushsum_mix differs from spmm on ER(64)")
+    del x, wide
+    torch.cuda.empty_cache()
+    return dict(phase="mix_wide", results=out,
+                tiled_equals_template_at_32=equals_template,
+                equals_spmm_er64=equals_spmm)
+
+
+# -- phase 13: the row kernels past 65,535 rows ------------------------------
+
+def rows_wide(torch, ops, ref, dev) -> dict:
+    """``l1_norm_rows``, ``dpps_perturb_rows`` (Philox) and
+    ``clip_scale_rows`` at :data:`ROWS_WIDE`, each against its plain
+    version (1e4 in the pad lanes), as in phase 2; then one ``dpps_step``
+    on the sparse schedule over a ring of 70,000 nodes (K = 3), the
+    kernels against the plain path on the card from the same state and
+    Philox bits: state rtol 1e-5 plus 1e-6 of its largest magnitude."""
+    from repro_torch.core.dpps import DPPSConfig, dpps_init, dpps_step
+    from repro_torch.core.packing import PackedLayout
+
+    out = {}
+    for n, d_s in ROWS_WIDE:
+        d_pad = d_pad_of(d_s)
+        gen = torch.Generator(device=dev).manual_seed(SEED + n)
+        s = torch.randn((n, d_pad), generator=gen, device=dev)
+        eps = torch.randn((n, d_pad), generator=gen, device=dev).mul_(0.1)
+        s[:, d_s:] = 1e4
+        eps[:, d_s:] = 1e4
+        scale = torch.tensor(0.7, device=dev)
+        norms = ops.l1_norm_rows(eps, d_s)
+        err_l1, ok = compare(norms, ref.l1_norm_rows(eps, d_s), rtol=1e-5,
+                             atol=0.0)
+        require(ok, f"l1_norm_rows disagrees at N={n}: {err_l1}")
+        k_out = ops.dpps_perturb_rows(s, eps, scale, 0.1, d_s, seed=SEED, t=3)
+        p_out = ref.dpps_perturb_rows(s, eps, scale, 0.1, d_s, seed=SEED, t=3)
+        err_p, ok = compare(k_out[0], p_out[0], rtol=1e-6, atol=1e-6)
+        require(ok and bool((k_out[0][:, d_s:] == 0).all()),
+                f"dpps_perturb_rows disagrees at N={n}: {err_p}")
+        for k, p in zip(k_out[1:], p_out[1:]):
+            require(compare(k, p, rtol=1e-5, atol=0.0)[1],
+                    f"dpps_perturb_rows norms disagree at N={n}")
+        denom = torch.clamp_min(norms / norms.median(), 1.0)
+        clipped = ops.clip_scale_rows(s, d_s, denom)
+        require(torch.equal(clipped, ref.clip_scale_rows(s, d_s, denom)),
+                f"clip_scale_rows disagrees at N={n}")
+        del k_out, p_out, clipped
+        out[f"n{n}_d{d_s}"] = {
+            "l1_norm_rows": dict(
+                max_abs_err=err_l1,
+                ms=cuda_ms(torch, lambda: ops.l1_norm_rows(eps, d_s), 50),
+                plain_ms=cuda_ms(torch, lambda: ref.l1_norm_rows(eps, d_s),
+                                 20),
+                library_ms=cuda_ms(torch, lambda: torch.linalg.vector_norm(
+                    eps[:, :d_s], 1, dim=1), 20),
+                bound=bound(4.0 * n * d_s + 4 * n, f32_ops=2.0 * n * d_s)),
+            "dpps_perturb_rows": dict(
+                max_abs_err=err_p,
+                ms=cuda_ms(torch, lambda: ops.dpps_perturb_rows(
+                    s, eps, scale, 0.1, d_s, seed=SEED, t=3), 50),
+                plain_ms=cuda_ms(torch, lambda: ref.dpps_perturb_rows(
+                    s, eps, scale, 0.1, d_s, seed=SEED, t=3), 5),
+                library_ms=None,
+                bound=bound(8.0 * n * d_s + 4.0 * n * d_pad + 8 * n + 4,
+                            f32_ops=17.0 * n * d_s, int_ops=25.0 * n * d_s)),
+            "clip_scale_rows": dict(
+                max_abs_err=0.0,
+                ms=cuda_ms(torch, lambda: ops.clip_scale_rows(s, d_s, denom),
+                           50),
+                plain_ms=cuda_ms(torch, lambda: ref.clip_scale_rows(
+                    s, d_s, denom), 20),
+                library_ms=cuda_ms(torch, lambda: s / denom[:, None], 20),
+                bound=bound(8.0 * n * d_pad + 4 * n, f32_ops=1.0 * n * d_s)),
+        }
+        del s, eps
+    # one round on a ring of RING["n"] nodes
+    n, d_s = RING["n"], RING["d_s"]
+    i = torch.arange(n, device=dev)
+    idx = torch.sort(torch.stack([(i - 1) % n, i, (i + 1) % n], dim=1),
+                     dim=1).values.to(torch.int32)
+    vals = torch.full((n, 3), 1.0 / 3.0, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    x = torch.randn((n, d_s), generator=gen, device=dev)
+    eps = 0.01 * torch.randn((n, d_s), generator=gen, device=dev)
+    ring = {}
+    for kernels in (True, False):
+        cfg = DPPSConfig(b=1.0, gamma_n=1e-4, schedule="sparse",
+                         use_kernels=kernels)
+        layout = PackedLayout.from_tree({"x": x}, lane=128 if kernels else 1)
+        state = dpps_init({"x": x}, cfg)
+        state = state._replace(push=state.push._replace(
+            s=layout.pack(state.push.s)))
+        ops.reset_launch_counts()
+        new, diag = dpps_step(state, {"x": eps}, cfg, layout, sparse_idx=idx,
+                              sparse_vals=vals, seed=SEED)
+        ring[kernels] = (layout.unpack(new.push.s)["x"], new.push.a,
+                         diag["sensitivity_used"], ops.launch_counts())
+    got, want = ring[True][0], ring[False][0]
+    lim = 1e-6 * want.abs().max().item()
+    err = (got - want).abs().max().item()
+    require(torch.allclose(got, want, rtol=1e-5, atol=lim),
+            f"ring dpps_step: kernels against plain {err}")
+    require(torch.equal(ring[True][1], ring[False][1]), "ring: a differs")
+    require(abs(ring[True][2].item() - ring[False][2].item())
+            <= 1e-5 * abs(ring[False][2].item()), "ring: sensitivity differs")
+    counts = ring[True][3]
+    require(counts["l1_norm_rows"] == 2 and counts["dpps_perturb_rows"] == 1
+            and counts["spmm"] == 1 and counts["pushsum_mix"] == 0,
+            f"ring dpps_step launches {counts}")
+    del ring, got, want, x, eps
+    torch.cuda.empty_cache()
+    return dict(phase="rows_wide", results=out, ring=dict(
+        RING, k=3, max_abs_err=err, launches=counts))
+
+
+# -- phase 14: PartPSP training of llama3.2-1b at full width ------------------
+
+def stability_gamma_n(T, topo, d_s: int, b: float = 1.0) -> tuple:
+    """(C', lambda, the Remark-1 recursion's stability limit on gamma_n,
+    half of it): the recursion stays bounded only for gamma_n < (1/lambda -
+    1) b / (2 C' d_s)."""
+    c_prime, lam = T.calibrate_constants(topo)
+    limit = (1.0 / lam - 1.0) * b / (2.0 * c_prime * d_s)
+    return c_prime, lam, limit, 0.5 * limit
+
+
+def shared_dim(torch, model, rules, n: int) -> int:
+    """d_s of ``model`` under the partition ``rules`` on ``n`` nodes, from
+    its parameter shapes alone (an init on the meta device)."""
+    from repro_torch.core.partition import Partition
+    from repro_torch.core.tree_utils import tree_map
+
+    meta = model.init(torch.Generator(), device="meta")
+    stacked = tree_map(lambda x: x[None].expand((n,) + tuple(x.shape)), meta)
+    return Partition.from_rules(stacked, tuple(rules),
+                                default="local").d_shared()
+
+
+def lm_flops(cfg, tokens: int, seq: int) -> float:
+    """Matmul flops of one forward of ``cfg`` over ``tokens`` tokens in
+    sequences of ``seq``: the projections, the MLP, the LM head, and the
+    einsum attention's two products over the full S x S scores (the plain
+    route masks, it does not skip)."""
+    d, hd, kd = cfg.d_model, cfg.n_heads * cfg.head_dim, \
+        cfg.n_kv_heads * cfg.head_dim
+    mlp = (3 if cfg.activation in ("silu", "geglu") else 2) * d * cfg.d_ff
+    per_layer = 2.0 * tokens * (2 * d * hd + 2 * d * kd + mlp) \
+        + 4.0 * tokens * seq * hd
+    return cfg.total_layers * per_layer + 2.0 * tokens * d * cfg.vocab_size
+
+
+def transformer_training(torch, ops, T, dev) -> dict:
+    """The main path of training: ``Session.build(DOutGraph(4, 2),
+    model=Transformer(llama3.2-1b), partition=its shared_rules,
+    schedule="dense", algorithm="partpsp")`` on the card at full width (16
+    layers, d_model 2048, vocab 128,256: d_s = 243,286,016), then
+    ``Session.train(5, batch_at)`` on batches of ``NodeShardedLoader(
+    SyntheticLMStream(...))`` (made before the run; their time is given
+    apart). The host time of each step comes from a synchronise at its
+    start (in ``batch_at``); CUDA events bracket its two gradient passes
+    and its DPPS round; the last step runs under ``torch.profiler`` (its
+    kernels by device time), so the steady step is the mean of steps 1 to
+    3. gamma_n is half the Remark-1 recursion's stability limit at this
+    d_s, so the five rounds stay finite."""
+    from repro_torch.api import PrivacySpec, Session
+    from repro_torch.configs import get_config
+    from repro_torch.core import partpsp
+    from repro_torch.core.dpps import is_sync_round
+    from repro_torch.core.tree_utils import tree_leaves
+    from repro_torch.data import NodeShardedLoader, SyntheticLMStream
+    from repro_torch.models.transformer import Transformer
+
+    arch = get_config(TRAIN_LM["arch"])
+    cfg = arch.model
+    n, steps = TRAIN_LM["n"], TRAIN_LM["steps"]
+    pnb, seq = TRAIN_LM["per_node_batch"], TRAIN_LM["seq_len"]
+    topo = T.DOutGraph(n, 2)
+    model = Transformer(cfg)
+    d_s = shared_dim(torch, model, arch.shared_rules, n)
+    require(d_s == TRAIN_LM["d_s"], f"d_s {d_s}")
+    c_prime, lam, limit, gamma_n = stability_gamma_n(T, topo, d_s)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    session = Session.build(
+        topo, privacy=PrivacySpec(b=1.0, gamma_n=gamma_n, c_prime=c_prime,
+                                  lam=lam),
+        model=model, partition=arch.shared_rules, algorithm="partpsp",
+        gamma_l=0.05, gamma_s=0.05, clip=100.0, schedule="dense",
+        sync_interval=5, seed=SEED)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    require(session.plan.use_kernels and session.device.type == "cuda"
+            and session.plan.schedule == "dense",
+            "the training session did not pick the card, its kernels and the "
+            "dense schedule")
+    require(session.partition.d_shared() == d_s, "session d_s")
+    n_params = sum(x[0].numel() for x in tree_leaves(session.init_params))
+
+    t0 = time.perf_counter()
+    stream = SyntheticLMStream(vocab_size=cfg.vocab_size, seq_len=seq,
+                               n_nodes=n, seed=SEED)
+    loader = NodeShardedLoader(stream, per_node_batch=pnb, seed=SEED)
+    batches = [loader.batch_at(t) for t in range(steps)]
+    torch.cuda.synchronize()
+    data_s = time.perf_counter() - t0
+    require(tuple(batches[0]["tokens"].shape) == (n, pnb, seq), "batch shape")
+
+    events = {"grads": [], "dpps": []}
+
+    def timed(name, fn):
+        def call(*args, **kwargs):
+            e0 = torch.cuda.Event(enable_timing=True)
+            e1 = torch.cuda.Event(enable_timing=True)
+            e0.record()
+            result = fn(*args, **kwargs)
+            e1.record()
+            events[name].append((e0, e1))
+            return result
+        return call
+
+    from torch.profiler import ProfilerActivity, profile
+
+    starts = []
+    prof = profile(activities=[ProfilerActivity.CUDA])
+
+    def batch_at(t):
+        torch.cuda.synchronize()
+        starts.append(time.perf_counter())
+        if t == steps - 1:  # the last step runs under the profiler
+            prof.start()
+        return batches[t]
+
+    real = (partpsp._grads, partpsp.dpps_step)
+    torch.cuda.synchronize()
+    resident_gb = torch.cuda.memory_allocated() / 1e9
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    partpsp._grads = timed("grads", real[0])
+    partpsp.dpps_step = timed("dpps", real[1])
+    try:
+        rep = session.train(steps, batch_at)
+        torch.cuda.synchronize()
+    finally:
+        partpsp._grads, partpsp.dpps_step = real
+    starts.append(time.perf_counter())
+    prof.stop()
+    launches = ops.launch_counts()
+    kernel_ms = []
+    for e in prof.key_averages():
+        us = getattr(e, "self_device_time_total", None)
+        if us is None:
+            us = e.self_cuda_time_total
+        if us > 0:
+            kernel_ms.append((us / 1e3, e.count, e.key))
+    kernel_ms.sort(reverse=True)
+    busy_ms = sum(k[0] for k in kernel_ms)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+
+    loss = [float(x) for x in rep.trajectory["loss_mean"]]
+    require(all(math.isfinite(x) for x in loss), f"losses {loss}")
+    state = rep.state
+    a_mean = state.dpps.push.a.double().mean().item()
+    require(abs(a_mean - 1.0) < 1e-5, f"mean(a) = {a_mean}")
+    require(all(bool(torch.isfinite(x).all()) for x in
+                tree_leaves(state.dpps.push.s) + list(state.local)),
+            "trained state not finite")
+    mixes = sum(not is_sync_round(t, 5) for t in range(steps))
+    expected = {k: 0 for k in KERNELS}
+    # round 0 also takes the norm of s for the recursion's start
+    expected.update(l1_norm_rows=steps + 1, dpps_perturb_rows=steps,
+                    pushsum_mix=mixes)
+    require(launches == expected, f"training launches {launches}, expected "
+                                  f"{expected}")
+    step_ms = [(b - a) * 1e3 for a, b in zip(starts, starts[1:])]
+    grads_ms = [a.elapsed_time(b) for a, b in events["grads"]]
+    dpps_ms = [a.elapsed_time(b) for a, b in events["dpps"]]
+    require(len(grads_ms) == 2 * steps and len(dpps_ms) == steps,
+            "event count")
+    # the first step also warms the allocator; the last runs profiled
+    steady = slice(1, steps - 1)
+    ms = sum(step_ms[steady]) / (steps - 2)
+    passes = [grads_ms[2 * t] + grads_ms[2 * t + 1] for t in range(steps)]
+    tokens = n * pnb * seq
+    fwd = lm_flops(cfg, pnb * seq, seq)
+    # a pass: the forward, its recompute under checkpoint and a backward of
+    # about twice the forward, at every node
+    pass_flops = 2 * n * 4 * fwd
+    out = dict(
+        phase="transformer_training", arch=TRAIN_LM["arch"],
+        layers=cfg.total_layers, d_model=cfg.d_model, vocab=cfg.vocab_size,
+        params_per_node=n_params, nodes=n, topology="DOutGraph(4, 2)",
+        schedule="dense", shared_rules=repr(arch.shared_rules), d_s=d_s,
+        d_local=session.partition.d_local(), per_node_batch=pnb,
+        seq_len=seq, steps=steps, sync_interval=5, c_prime=c_prime, lam=lam,
+        b=1.0, gamma_n=gamma_n, gamma_n_stability_limit=limit,
+        gamma_n_reason="half the Remark-1 recursion's stability limit "
+                       "(1/lam - 1) b / (2 C' d_s) at this d_s: above it the "
+                       "sensitivity grows every round and the run diverges",
+        matmul_allow_tf32=torch.backends.cuda.matmul.allow_tf32,
+        session_build_s=build_s, batches_s=data_s,
+        step_ms=step_ms, ms_per_step=ms, first_step_ms=step_ms[0],
+        tokens_per_step=tokens, tokens_per_s=tokens / (ms / 1e3),
+        grad_passes_ms=passes, dpps_round_ms=dpps_ms,
+        grad_passes_ms_steady=sum(passes[steady]) / (steps - 2),
+        dpps_round_ms_steady=sum(dpps_ms[steady]) / (steps - 2),
+        rest_ms_steady=ms - (sum(passes[steady]) + sum(dpps_ms[steady]))
+        / (steps - 2),
+        profiled_step_ms=step_ms[-1],
+        profiled_step_device_busy_ms=busy_ms if kernel_ms else None,
+        profiled_step_device_idle_share=(
+            1.0 - busy_ms / step_ms[-1] if kernel_ms else None),
+        profiled_step_top_kernels=[
+            dict(kernel=k[:90], ms=m, calls=c) for m, c, k in kernel_ms[:10]],
+        matmul_flops_per_step=pass_flops,
+        matmul_tflops_per_s=pass_flops / (ms / 1e3) / 1e12,
+        resident_gb_before=resident_gb, peak_mem_gb=peak_gb,
+        loss_first=loss[0], loss_last=loss[-1], losses=loss, a_mean=a_mean,
+        launches=launches)
+    del session, rep, state, batches, stream, loader
+    torch.cuda.empty_cache()
+    return out
+
+
+# -- phase 15: training, the card against the CPU -----------------------------
+
+def philox_rows(torch, ref, t: int, n: int, d_s: int, dev):
+    """Round t's Philox bits (N, d_s) uint32 on the card, built in windows
+    (the plain draw holds a dozen int64 copies of its window)."""
+    bits = torch.empty((n, d_s), dtype=torch.uint32, device=dev)
+    for c0 in range(0, d_s, 1 << 22):
+        c1 = min(d_s, c0 + (1 << 22))
+        bits[:, c0:c1] = ref.philox_bits(SEED, t, n, c0, c1,
+                                         device=dev).to(torch.uint32)
+    return bits
+
+
+def training_agreement(torch, ops, ref, T, dev) -> dict:
+    """llama3.2-1b at full width with 2 layers (split point clamped to 1:
+    d_s = 60,821,504), N = 4, 3 steps, the same parameters, tokens and
+    noise bits (``bits_at``) on the card (kernels) and on the CPU (plain
+    versions). The trajectory agrees within rtol 1e-4 plus 1e-6 of each
+    entry's largest magnitude, the trained state within rtol 1e-4 plus
+    1e-5 of each array's largest magnitude: cuBLAS and the CPU sum the
+    matmuls in other orders, and an updated weight near zero, e - gamma g,
+    shows the difference of g's sums (the tied embedding's, over 64
+    positions and 128,256 logits, reached 1.9e-6 of its largest
+    magnitude on an H100)."""
+    import dataclasses
+
+    from repro_torch.api import PrivacySpec, Session
+    from repro_torch.configs import get_config
+    from repro_torch.core.tree_utils import tree_leaves, tree_map
+    from repro_torch.models.config import AttnGroup
+    from repro_torch.models.transformer import Transformer
+
+    arch = get_config("llama3.2-1b")
+    cfg = dataclasses.replace(arch.model,
+                              groups=(AttnGroup(n_layers=AGREE_LM["layers"]),))
+    rules = tuple((pat, ("split_layers", 1) if isinstance(act, tuple)
+                   else act) for pat, act in arch.shared_rules)
+    model = Transformer(cfg)
+    n, steps = AGREE_LM["n"], AGREE_LM["steps"]
+    params = model.init(torch.Generator().manual_seed(SEED), device="cpu")
+    gen = torch.Generator().manual_seed(SEED + 1)
+    batches = [{"tokens": torch.randint(
+        0, cfg.vocab_size, (n, AGREE_LM["per_node_batch"],
+                            AGREE_LM["seq_len"]), generator=gen)}
+               for _ in range(steps)]
+    topo = T.DOutGraph(n, 2)
+    d_s = shared_dim(torch, model, rules, n)
+    c_prime, lam, _, gamma_n = stability_gamma_n(T, topo, d_s)
+    bits = [philox_rows(torch, ref, t, n, d_s, dev) for t in range(steps)]
+    out, launches = {}, None
+    for device in ("cuda", "cpu"):
+        session = Session.build(
+            topo, privacy=PrivacySpec(b=1.0, gamma_n=gamma_n,
+                                      c_prime=c_prime, lam=lam),
+            model=model, params=tree_map(lambda x: x.to(device), params),
+            partition=rules, algorithm="partpsp", gamma_l=0.05,
+            gamma_s=0.05, clip=100.0, schedule="dense", sync_interval=5,
+            seed=SEED, device=device)
+        require(session.partition.d_shared() == d_s, "agreement d_s")
+        require(session.plan.use_kernels == (device == "cuda"), "routing")
+        on = [{k: v.to(device) for k, v in b.items()} for b in batches]
+        bits_d = [b.to(device) for b in bits]
+        ops.reset_launch_counts()
+        rep = session.train(steps, lambda t: on[t],
+                            bits_at=lambda t: bits_d[t])
+        if device == "cuda":
+            torch.cuda.synchronize()
+            launches = ops.launch_counts()
+        st = rep.state
+        out[device] = (rep.trajectory,
+                       [x.cpu() for x in tree_leaves(st.dpps.push.s)]
+                       + [st.dpps.push.a.cpu()] + [x.cpu() for x in st.local])
+        del session, rep, st, on, bits_d
+    require(launches["l1_norm_rows"] == steps + 1
+            and launches["dpps_perturb_rows"] == steps
+            and launches["pushsum_mix"] == steps, f"launches {launches}")
+    errs = {}
+    for k, v in out["cpu"][0].items():
+        g = torch.as_tensor(out["cuda"][0][k])
+        w = torch.as_tensor(v)
+        errs[k] = (g - w).abs().max().item()
+        require(torch.allclose(g, w, rtol=1e-4,
+                               atol=1e-6 * w.abs().max().item()),
+                f"training agreement: {k} card {g} CPU {w}")
+    state_err, worst = 0.0, []
+    for i, (g, w) in enumerate(zip(out["cuda"][1], out["cpu"][1])):
+        d = (g - w).abs()
+        state_err = max(state_err, d.max().item())
+        lim = 1e-5 * w.abs().max().item() + 1e-4 * w.abs()
+        worst.append(dict(array=i, shape=list(w.shape),
+                          max_abs_err=d.max().item(),
+                          max_abs=w.abs().max().item(),
+                          over=int((d > lim).sum())))
+    require(all(x["over"] == 0 for x in worst),
+            f"training agreement: the trained state differs: {worst}, "
+            f"trajectory errors {errs}")
+    loss = out["cuda"][0]["loss_mean"]
+    del out, bits
+    torch.cuda.empty_cache()
+    return dict(phase="training_agreement", layers=AGREE_LM["layers"],
+                nodes=n, steps=steps, d_s=d_s, gamma_n=gamma_n,
+                losses=[float(x) for x in loss], trajectory_max_abs_err=errs,
+                state_max_abs_err=state_err, launches=launches)
+
+
 def sparse_graph(n: int, seed: int = 0):
     from repro_torch.net import ErdosRenyiGraph
 
@@ -1222,11 +1726,12 @@ def main() -> int:
         args.out.mkdir(parents=True, exist_ok=True)
         (args.out / "ptxas.txt").write_text("\n".join(
             f"== {k}\n{v['ptxas']}" for k, v in report.items()))
-    # ptxas's registers and spills of four kernels; flash's and spmm's
+    # ptxas's registers and spills of four kernels (pushsum_mix: both of its
+    # kernels, every instantiation); flash's and spmm's
     # shared memory is dynamic (flash: by head dim here; spmm: in each plan
     # below)
     brief = {k: ptxas_brief(ptxas_summary(report[k]["ptxas"], kernel))
-             for k, kernel in (("pushsum_mix", "mix_kernel"),
+             for k, kernel in (("pushsum_mix", "mix_"),
                                ("l1_norm", "l1_norm_kernel"))}
     emit(dict(phase="build", seconds=build_s, kernels={
         k: {"seconds": v["seconds"], "cached": v["cached"]}
@@ -1253,6 +1758,11 @@ def main() -> int:
     torch.cuda.empty_cache()
     sparse_train = check_kernels(torch, ops, ref, SPARSE_TRAIN, dev,
                                  iters=200, cols=1 << 20, mix=False)
+    torch.cuda.empty_cache()
+    # the training path's buffer: llama3.2-1b's shared layers, N = 4
+    train_full = check_kernels(torch, ops, ref, TRAIN_FULL, dev, iters=5,
+                               cols=1 << 25)
+    torch.cuda.empty_cache()
     spmm = {
         "full": check_spmm(torch, ops, ref, sparse_graph(SPARSE_FULL["n"]),
                            d_pad_of(SPARSE_FULL["d_s"]), dev, iters=5,
@@ -1273,10 +1783,11 @@ def main() -> int:
                                library_host_us=host_us(torch, library))
     emit(dict(phase="kernels", paper_shape=PAPER, full_shape=FULL,
               sparse_full_shape=SPARSE_FULL, sparse_train_shape=SPARSE_TRAIN,
+              training_shape=TRAIN_FULL,
               philox=stats, results={"paper": paper, "full": full,
                                      "sparse_full": sparse_full,
                                      "sparse_train": sparse_train,
-                                     "spmm": spmm}))
+                                     "training": train_full, "spmm": spmm}))
 
     launches = []
     cons = consensus(torch, api, T, ops, dev, topo=T.DOutGraph(FULL["n"], 2),
@@ -1327,6 +1838,16 @@ def main() -> int:
         emit(served)
         launches.append(served["launches"])
     emit(serve_agreement(torch, ops, dev))
+    torch.cuda.empty_cache()
+
+    wide = mix_wide(torch, ops, ref, dev)
+    emit(wide)
+    rows = rows_wide(torch, ops, ref, dev)
+    emit(rows)
+    lm = transformer_training(torch, ops, T, dev)
+    emit(lm)
+    launches.append(lm["launches"])
+    emit(training_agreement(torch, ops, ref, T, dev))
 
     for (shape, k), (fn, library) in calls.items():
         r = small[shape][k]
@@ -1341,10 +1862,18 @@ def main() -> int:
     kernels = []
     for name in DENSE_PATH:
         f, p = full[name], paper[name]
-        at = {"paper_shape": at_shape(p)}
+        at = {"paper_shape": at_shape(p),
+              "training_shape": dict(at_shape(train_full[name]), **TRAIN_FULL)}
         if name in SPARSE_PATH:
             at.update(sparse_full_shape=at_shape(sparse_full[name]),
                       sparse_train_shape=at_shape(sparse_train[name]))
+        if name == "pushsum_mix":
+            at.update({f"wide_{k}_shape": dict(at_shape(r), n=r["n"], d=r["d"],
+                                               plan=r["plan"])
+                       for k, r in wide["results"].items()})
+        else:
+            at.update({f"rows_wide_{k}_shape": at_shape(r[name])
+                       for k, r in rows["results"].items()})
         kernels.append(kernel_entry(
             name, dict(f, max_abs_err=max(
                 [f["max_abs_err"]] + [a["max_abs_err"] for a in at.values()])),
@@ -1364,9 +1893,13 @@ def main() -> int:
                          d=spmm["sweep"]["d"], k=spmm["sweep"]["k"],
                          regime=spmm["sweep"]["plan"]["regime"])))
     for name in ("clip_scale_rows", "laplace_from_bits"):
+        extra = {} if name != "clip_scale_rows" else {
+            f"rows_wide_{k}_shape": at_shape(r[name])
+            for k, r in rows["results"].items()}
         kernels.append(kernel_entry(
             name, tree_results[name], total[name],
-            shape=dict(SPARSE_FULL, d_pad=d_pad_of(SPARSE_FULL["d_s"]))))
+            shape=dict(SPARSE_FULL, d_pad=d_pad_of(SPARSE_FULL["d_s"])),
+            **extra))
     fa = flash["llama_32k"]
     kernels.append(kernel_entry(
         "flash_attention",

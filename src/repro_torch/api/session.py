@@ -5,10 +5,13 @@ lambda) calibration (unless the :class:`PrivacySpec` pins them), the
 :class:`repro_torch.engine.ProtocolPlan`, the configs stamped with the
 plan's choices, the partition and the node-stacked initial parameters.
 ``run`` drives DPPS consensus, ``train`` PartPSP training; both return a
-:class:`repro_torch.api.results.RunReport`. ``Session.build(model=...)``
-without a topology builds a serve-only session: ``serve`` runs a batched
+:class:`repro_torch.api.results.RunReport`. ``serve`` runs a batched
 prefill and decode on a :class:`repro_torch.models.transformer.Transformer`
-and returns a :class:`repro_torch.api.results.ServeReport`.
+and returns a :class:`repro_torch.api.results.ServeReport`; without a
+topology, ``Session.build(model=...)`` builds a serve-only session. A
+session built with a topology and ``model=Transformer(cfg)`` trains it
+(the model's ``loss_fn`` over every node, :func:`repro_torch.core.partpsp.
+node_stacked`) and serves it.
 
 Device rule: ``device=None`` is the CUDA card and raises without one;
 ``device="cpu"`` runs the plain PyTorch path.
@@ -48,6 +51,7 @@ from repro_torch.core.partpsp import (
     PartPSPState,
     consensus_params,
     make_baseline_config,
+    node_stacked,
     partpsp_init,
 )
 from repro_torch.core.topology import Topology, calibrate_constants
@@ -118,16 +122,24 @@ class ProtocolSession:
     ) -> "ProtocolSession":
         """Derive a session from topology + privacy + deployment choices.
 
-        ``model`` is either the loss ``loss_fn(params, batch) -> (N,)`` over
-        node-stacked params and batch, which makes the session trainable,
-        or a servable model (``prefill`` / ``init_cache`` /
-        ``decode_step``, e.g. a :class:`Transformer`) for :meth:`serve`.
-        Without a topology the session is serve-only and needs a servable
-        ``model``.
-        ``params`` are single-node (copied to every node); pass
-        ``params_stacked`` when they already carry the node axis.
-        ``partition`` is a :class:`Partition` or a rules tuple (unmatched
-        leaves stay local). ``seed`` keys the noise stream.
+        ``model`` is one of:
+
+        * a loss ``loss_fn(params, batch) -> (N,)`` over node-stacked params
+          and batch (a bare callable), which makes the session trainable;
+        * a model with a single-node ``loss_fn(params, batch)`` (a
+          :class:`Transformer`): the session trains it through
+          :func:`node_stacked`, as the reference vmaps it; with ``prefill``
+          / ``init_cache`` / ``decode_step`` it also serves;
+        * a servable model without a topology: a serve-only session.
+
+        ``params`` are single-node, broadcast to every node as a view (no
+        copy: every node starts from the same values, and each round writes
+        new tensors); pass ``params_stacked`` when they already carry the
+        node axis. Without either, a trainable model's ``init`` (from a
+        ``torch.Generator`` on the session's device seeded with ``seed``)
+        is broadcast so. ``partition`` is a :class:`Partition` or a rules
+        tuple (unmatched leaves stay local; ``None`` shares every leaf).
+        ``seed`` keys the noise stream.
         """
         dev = resolve_device(device) if plan is None else plan.device
         if topology is None:
@@ -151,7 +163,10 @@ class ProtocolSession:
         cfg_sync = sync_interval if isinstance(sync_interval, int) else 0
 
         train_cfg = part = stacked = None
-        loss_fn = model if callable(model) else None
+        if hasattr(model, "loss_fn"):
+            loss_fn = node_stacked(model.loss_fn)
+        else:
+            loss_fn = model if callable(model) else None
         if loss_fn is not None:
             train_cfg = make_baseline_config(
                 algorithm, gamma_l=gamma_l, gamma_s=gamma_s, clip=clip,
@@ -167,11 +182,16 @@ class ProtocolSession:
             train_cfg = plan.resolve_partpsp(
                 dataclasses.replace(train_cfg, dpps=dpps))
             cfg = train_cfg.dpps
+            if params is None and params_stacked is None \
+                    and hasattr(model, "init"):
+                params = model.init(
+                    torch.Generator(device=dev).manual_seed(int(seed)),
+                    device=dev)
             if params_stacked is not None:
                 stacked = _to_device(params_stacked, dev)
             elif params is not None:
                 stacked = tree_map(
-                    lambda x: x[None].repeat((n_nodes,) + (1,) * x.dim()),
+                    lambda x: x[None].expand((n_nodes,) + tuple(x.shape)),
                     _to_device(params, dev))
             if stacked is not None:
                 rules = ((".*", "shared"),) if partition is None else partition

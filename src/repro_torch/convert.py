@@ -58,26 +58,33 @@ def partpsp_state_from_reference(state: Any, device=None) -> PartPSPState:
                         local=list(tree_from_numpy(list(state.local), device)))
 
 
-def transformer_params_from_reference(params: PyTree, cfg, device=None) -> dict:
+def transformer_params_from_reference(params: PyTree, cfg, device=None, *,
+                                      nodes: int | None = None) -> dict:
     """A reference ``Transformer.init`` tree (numpy leaves) for the model
-    ``cfg`` -> the port's parameter dict. Every path and shape is checked
-    against the port's own ``Transformer(cfg).init`` tree (built on the
-    meta device, so nothing is allocated), so that a renamed, missing or
-    reshaped leaf fails here rather than in the forward pass."""
+    ``cfg`` -> the port's parameter dict. With ``nodes``, a node-stacked
+    tree (every leaf with a leading axis of ``nodes``, as a PartPSP
+    session holds it). Every path and shape is checked against the port's
+    own ``Transformer(cfg).init`` tree (built on the meta device, so
+    nothing is allocated), so that a renamed, missing or reshaped leaf
+    fails here rather than in the forward pass. The PartPSP state over such
+    params converts with :func:`partpsp_state_from_reference`."""
     from repro_torch.models.transformer import Transformer
 
     model = Transformer(cfg)
     want, _ = tree_flatten_with_path(model.init(torch.Generator(),
                                                 device="meta"))
     got, _ = tree_flatten_with_path(params)
-    want_shapes = {p: tuple(x.shape) for p, x in want}
+    lead = () if nodes is None else (int(nodes),)
+    want_shapes = {p: lead + tuple(x.shape) for p, x in want}
     got_shapes = {p: tuple(np.shape(x)) for p, x in got}
     if want_shapes != got_shapes:
         missing = sorted(set(want_shapes) - set(got_shapes))
         extra = sorted(set(got_shapes) - set(want_shapes))
         wrong = sorted(p for p in set(want_shapes) & set(got_shapes)
                        if want_shapes[p] != got_shapes[p])
-        raise ValueError(f"params do not fit {cfg.name}: missing {missing}, "
-                         f"unexpected {extra}, wrong shape {wrong}")
+        raise ValueError(f"params do not fit {cfg.name}"
+                         f"{'' if nodes is None else f' x {nodes} nodes'}: "
+                         f"missing {missing}, unexpected {extra}, wrong "
+                         f"shape {wrong}")
     dtype = model.dtype
     return tree_map(lambda x: x.to(dtype), tree_from_numpy(params, device))

@@ -7,6 +7,13 @@ matching rule wins, ``default`` otherwise): ``"shared"``, ``"local"``, or
 ``("split_layers", k)`` for layer-stacked leaves (N, L, ...): layers [:k]
 shared, [k:] local. Patterns are regexes searched in the leaf's key path
 (``"/"``-joined, dict keys sorted, as ``jax.tree_util`` orders them).
+
+``merge(..., layer_parts=True)`` hands a split leaf back as
+:class:`LayerParts` (its two parts, uncopied) instead of their
+concatenation: a model that walks the layers one by one (the transformer's
+training forward) reads each layer from its part, so a training pass makes
+no copy of the layer stack and its backward computes no gradient for the
+part that does not require one.
 """
 from __future__ import annotations
 
@@ -24,12 +31,45 @@ from repro_torch.core.tree_utils import (
     tree_unflatten,
 )
 
-__all__ = ["Partition", "SHARE_ALL", "SHARE_NONE"]
+__all__ = ["Partition", "LayerParts", "layer_list", "SHARE_ALL",
+           "SHARE_NONE"]
 
 Action = Any  # "shared" | "local" | ("split_layers", int)
 
 SHARE_ALL: Sequence[tuple[str, Action]] = ((".*", "shared"),)
 SHARE_NONE: Sequence[tuple[str, Action]] = ((".*", "local"),)
+
+
+class LayerParts:
+    """A layer-stacked leaf as consecutive parts along its layer axis (the
+    shared layers [:k] and the local [k:] of a ``("split_layers", k)``
+    leaf), standing for their concatenation without making it.
+
+    ``layer_axis`` is 1 for a node-stacked leaf (N, L, ...), 0 for one
+    node's (L, ...). :meth:`unbind` splits the node axis, as
+    ``Tensor.unbind(0)`` would; :func:`layer_list` gives the layers.
+    """
+
+    def __init__(self, parts, layer_axis: int = 1):
+        self.parts = tuple(parts)
+        self.layer_axis = layer_axis
+
+    def unbind(self, dim: int = 0) -> list["LayerParts"]:
+        """One node's parts for each node (``dim`` must be the node axis)."""
+        if dim != 0 or self.layer_axis != 1:
+            raise ValueError("LayerParts.unbind splits the node axis only")
+        return [LayerParts(ps, layer_axis=0)
+                for ps in zip(*(p.unbind(0) for p in self.parts))]
+
+
+def layer_list(leaf) -> list[torch.Tensor]:
+    """The layers of one node's layer-stacked leaf (L, ...), as views: of
+    the tensor, or of each part of a :class:`LayerParts` in order."""
+    if isinstance(leaf, LayerParts):
+        if leaf.layer_axis != 0:
+            raise ValueError("layer_list takes one node's leaf (L, ...)")
+        return [layer for part in leaf.parts for layer in part.unbind(0)]
+    return list(leaf.unbind(0))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -88,8 +128,10 @@ class Partition:
                 local.append(leaf[:, k:])
         return shared, local
 
-    def merge(self, shared: Sequence, local: Sequence) -> PyTree:
-        """Inverse of :meth:`split`."""
+    def merge(self, shared: Sequence, local: Sequence, *,
+              layer_parts: bool = False) -> PyTree:
+        """Inverse of :meth:`split`. With ``layer_parts`` a split leaf is
+        a :class:`LayerParts` of its two parts, not their concatenation."""
         shared, local = list(shared), list(local)
         si = li = 0
         leaves = []
@@ -101,7 +143,9 @@ class Partition:
                 leaves.append(local[li])
                 li += 1
             else:
-                leaves.append(torch.cat([shared[si], local[li]], dim=1))
+                parts = (shared[si], local[li])
+                leaves.append(LayerParts(parts) if layer_parts
+                              else torch.cat(parts, dim=1))
                 si += 1
                 li += 1
         if si != len(shared) or li != len(local):
@@ -123,3 +167,15 @@ class Partition:
                 k = plan.action[1]
                 total += n * k // plan.shape[1] if plan.shape[1] else 0
         return int(total)
+
+    def d_local(self, *, per_node: bool = True) -> int:
+        """Number of scalars that stay on the node (per node)."""
+        total = 0
+        for plan in self._plans:
+            n = 1
+            for d in plan.shape:
+                n *= d
+            if per_node and plan.shape:
+                n //= plan.shape[0]
+            total += n
+        return int(total) - self.d_shared(per_node=per_node)

@@ -15,6 +15,12 @@ fixed noise scale 2C).
 ``loss_fn(params, batch) -> (N,)`` takes node-stacked params and batch and
 returns the per-node losses. Every node's loss touches only its own slice,
 so one backward over their sum gives every node's gradient.
+:func:`node_stacked` makes such a loss of a single-node one (a model's
+``loss_fn``), as the reference's ``jax.vmap`` over the nodes does.
+
+Memory: a round holds the local leaves twice (the state's and the
+updated ones, since the state is never written in place) and frees each
+pass's gradients as soon as they are used.
 """
 from __future__ import annotations
 
@@ -28,12 +34,43 @@ from repro_torch.core.packing import PackedLayout
 from repro_torch.core.partition import Partition
 from repro_torch.core.privacy import l1_clip_per_node
 from repro_torch.core.pushsum import correct
-from repro_torch.core.tree_utils import PyTree, l1_norm_per_node, node_mean
+from repro_torch.core.tree_utils import (PyTree, l1_norm_per_node, node_mean,
+                                         tree_flatten, tree_unflatten)
 
 __all__ = ["PartPSPConfig", "PartPSPState", "make_baseline_config",
-           "partpsp_init", "partpsp_step", "consensus_params"]
+           "partpsp_init", "partpsp_step", "consensus_params", "node_stacked"]
 
 LossFn = Callable[[PyTree, Any], torch.Tensor]
+
+
+def node_stacked(loss_fn: Callable) -> LossFn:
+    """``(params, batch) -> (N,)`` from a single-node ``loss_fn(params,
+    batch) -> scalar``: node i's loss on node i's slice of the node-stacked
+    params and batch, stacked over i.
+
+    A Python loop over the nodes stands in for the reference's
+    ``jax.vmap(loss_fn)``: ``torch.func.vmap`` does not compose with
+    ``torch.utils.checkpoint``, which the transformer's training forward
+    runs every layer under. Each leaf is unbound over the nodes once, so
+    the backward stacks one gradient for it rather than adding a full-size
+    tensor for every node. The returned loss takes split layer stacks as
+    :class:`repro_torch.core.partition.LayerParts` (``takes_layer_parts``),
+    which ``loss_fn`` must read through
+    :func:`repro_torch.core.partition.layer_list`.
+    """
+
+    def stacked(params: PyTree, batch: Any) -> torch.Tensor:
+        p_leaves, p_def = tree_flatten(params)
+        b_leaves, b_def = tree_flatten(batch)
+        p_nodes = [x.unbind(0) for x in p_leaves]
+        b_nodes = [x.unbind(0) for x in b_leaves]
+        return torch.stack([
+            loss_fn(tree_unflatten(p_def, [p[i] for p in p_nodes]),
+                    tree_unflatten(b_def, [b[i] for b in b_nodes]))
+            for i in range(len(b_nodes[0]))])
+
+    stacked.takes_layer_parts = True
+    return stacked
 
 
 @dataclasses.dataclass(frozen=True)
@@ -90,7 +127,10 @@ def _grads(loss_fn: LossFn, partition: Partition, shared: Sequence,
     """Per-node losses (N,) and the gradients of their sum w.r.t. ``wrt``
     (leaves of ``shared``/``local`` that require grad)."""
     with torch.enable_grad():
-        losses = loss_fn(partition.merge(shared, local), batch)
+        params = partition.merge(
+            shared, local,
+            layer_parts=getattr(loss_fn, "takes_layer_parts", False))
+        losses = loss_fn(params, batch)
         if not wrt:
             return losses.detach(), []
         grads = torch.autograd.grad(losses.sum(), list(wrt), allow_unused=True)
@@ -122,12 +162,15 @@ def partpsp_step(
     local_req = [l.detach().requires_grad_(True) for l in state.local]
     losses, g_local = _grads(loss_fn, partition, y, local_req, batch,
                              local_req)
-    local_new = [l - cfg.gamma_l * g.to(l.dtype)
-                 for l, g in zip(state.local, g_local)]
+    local_new = []
+    for l in state.local:  # each gradient is freed once its leaf is updated
+        local_new.append(l - cfg.gamma_l * g_local.pop(0).to(l.dtype))
+    del local_req
 
     # -- pass 2: shared gradient at (y, l_{t+1}) (Eq. 6) -----------------------
     y_req = [v.detach().requires_grad_(True) for v in y]
     _, g_shared = _grads(loss_fn, partition, y_req, local_new, batch, y_req)
+    del y, y_req
 
     # -- clip (Eq. 24) and the DPPS perturbation (Eq. 25) ---------------------
     if cfg.clip > 0:
@@ -135,6 +178,7 @@ def partpsp_step(
     else:
         g_norms = l1_norm_per_node(g_shared)
     eps = [(-cfg.gamma_s * g).to(torch.float32) for g in g_shared]
+    del g_shared
 
     dpps_new, diag = dpps_step(state.dpps, eps, cfg.dpps, layout, w=w,
                                offsets=offsets, mix_weights=mix_weights,

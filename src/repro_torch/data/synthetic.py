@@ -1,8 +1,13 @@
-"""Deterministic synthetic classification data (port of
-``repro.data.synthetic``'s ``SyntheticClassification`` and
-``dirichlet_partition``).
+"""Deterministic synthetic data (port of ``repro.data.synthetic``).
 
-The teacher weights and the Dirichlet matrix come from
+* :class:`SyntheticLMStream`: a learnable token stream for the language
+  models, a random low-rank first-order Markov chain with a transition
+  temperature for each node (non-IID across nodes).
+* :class:`SyntheticClassification` and :func:`dirichlet_partition`: the
+  teacher-MLP task of the paper's benchmarks.
+
+The fixed arrays (the Markov chain's factors and node temperatures, the
+teacher weights, the Dirichlet matrix) come from
 ``np.random.default_rng(seed)`` as in the reference, so they match exactly.
 Sampling uses an explicit ``torch.Generator`` on the data's device (the
 reference's ``jax.random`` stream cannot be reproduced); the tests feed
@@ -20,7 +25,56 @@ import torch
 
 from repro_torch.device import resolve_device
 
-__all__ = ["SyntheticClassification", "dirichlet_partition"]
+__all__ = ["SyntheticLMStream", "SyntheticClassification",
+           "dirichlet_partition"]
+
+
+@dataclasses.dataclass
+class SyntheticLMStream:
+    """Tokens of a random first-order Markov chain with low-rank
+    transitions ``softmax(ctx[tok] @ emit / temp[node])``, so next-token
+    cross entropy is reducible and training curves mean something."""
+
+    vocab_size: int
+    seq_len: int
+    n_nodes: int
+    seed: int = 0
+    markov_rank: int = 64       # low-rank transition structure
+    node_skew: float = 0.5      # spread of the node temperatures (non-IID)
+    device: torch.device | str | None = None
+
+    def __post_init__(self):
+        self.device = resolve_device(self.device)
+        rng = np.random.default_rng(self.seed)
+        v, r = self.vocab_size, min(self.markov_rank, self.vocab_size)
+        # the reference's draws, in its order, rounded to f32 as it does
+        emit = rng.normal(size=(r, v)) * 2.0
+        ctx = rng.normal(size=(v, r))
+        temp = 1.0 + self.node_skew * rng.uniform(-1, 1, size=(self.n_nodes,))
+        self.emit = torch.as_tensor(emit, dtype=torch.float32,
+                                    device=self.device)
+        self.ctx = torch.as_tensor(ctx, dtype=torch.float32,
+                                   device=self.device)
+        self.node_temp = torch.as_tensor(temp, dtype=torch.float32,
+                                         device=self.device)
+
+    def batch(self, gen: torch.Generator, per_node_batch: int) -> dict:
+        """-> ``{"tokens": (n_nodes, per_node_batch, seq_len) int32}``.
+
+        Each step samples ``argmax(logits + Gumbel)`` (what
+        ``jax.random.categorical`` draws) for every sequence of every node
+        at once; the first token is uniform over the vocabulary."""
+        n, b, v = self.n_nodes, per_node_batch, self.vocab_size
+        tok = torch.randint(0, v, (n, b), generator=gen, device=self.device)
+        toks = [tok]
+        temp = self.node_temp[:, None, None]
+        for _ in range(self.seq_len - 1):
+            logits = self.ctx[tok] @ self.emit / temp          # (N, B, V)
+            u = torch.rand(logits.shape, generator=gen, device=self.device)
+            g = -torch.log(-torch.log(u.clamp_min_(torch.finfo(u.dtype).tiny)))
+            tok = torch.argmax(logits + g, dim=-1)
+            toks.append(tok)
+        return {"tokens": torch.stack(toks, dim=-1).to(torch.int32)}
 
 
 @dataclasses.dataclass

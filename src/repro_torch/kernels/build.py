@@ -36,7 +36,7 @@ _SIGNATURES = {
     "dpps_perturb": ("dpps_perturb_rows",
                      [_P, _P, _P, _P, _F32, _I64, _I64, _I64, _U64, _I64,
                       _P, _P, _P, _I64, _P, _P, _P]),
-    "pushsum_mix": ("pushsum_mix", [_P, _P, _P, _I64, _I64, _P]),
+    "pushsum_mix": ("pushsum_mix", [_P, _P, _P, _I64, _I64, _I64, _P]),
     "spmm": ("spmm", [_P, _P, _P, _P] + [_I64] * 8 + [_P]),
     "clip_scale": ("clip_scale_rows", [_P, _P, _I64, _I64, _I64, _P, _P]),
     "laplace_noise": ("laplace_from_bits", [_P, _P, _I64, _P, _P]),

@@ -13,14 +13,16 @@
 //
 // Bound on the card: memory. It reads buf and writes out once, 8 bytes an
 // element. One block per (8192-column chunk, row), 16-byte loads and
-// stores; element offsets are int64.
+// stores; element offsets are int64. More than 65,535 rows take one launch
+// for each block of 65,535 rows, each told its first row.
 #include "common.cuh"
 
 namespace repro_torch {
 
 __global__ void clip_scale_kernel(const float* __restrict__ buf, const float* __restrict__ denom,
-                                  int64_t d_pad, int64_t d_s, float* __restrict__ out) {
-  const int64_t row = blockIdx.y;
+                                  int64_t row0, int64_t d_pad, int64_t d_s,
+                                  float* __restrict__ out) {
+  const int64_t row = row0 + blockIdx.y;
   const float dn = __ldg(denom + row);
   const int64_t c0 = (int64_t)blockIdx.x * kChunk;
   const int64_t c1 = c0 + kChunk < d_pad ? c0 + kChunk : d_pad;
@@ -45,8 +47,13 @@ __global__ void clip_scale_kernel(const float* __restrict__ buf, const float* __
 extern "C" int clip_scale_rows(const float* buf, const float* denom, int64_t n, int64_t d_pad,
                                int64_t d_s, float* out, void* stream) {
   using namespace repro_torch;
-  const dim3 grid((unsigned)((d_pad + kChunk - 1) / kChunk), (unsigned)n);
-  clip_scale_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(buf, denom, d_pad,
-                                                                              d_s, out);
-  return (int)cudaGetLastError();
+  for (int64_t row0 = 0; row0 < n; row0 += kMaxGridRows) {
+    const dim3 grid((unsigned)((d_pad + kChunk - 1) / kChunk),
+                    (unsigned)(n - row0 < kMaxGridRows ? n - row0 : kMaxGridRows));
+    clip_scale_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+        buf, denom, row0, d_pad, d_s, out);
+    const cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+  }
+  return (int)cudaSuccess;
 }

@@ -17,6 +17,10 @@
 namespace repro_torch {
 
 constexpr int kThreads = 256;
+// Rows a grid holds in gridDim.y. The row kernels (l1_norm.cu,
+// dpps_perturb.cu, clip_scale.cu) take more rows in one launch for each
+// block of kMaxGridRows, each kernel told its first row.
+constexpr int64_t kMaxGridRows = 65535;
 constexpr int kQuadsPerThread = 8;
 // Elements per pass-one block: the 64 x 128 tile of the Pallas kernels.
 constexpr int64_t kChunk = (int64_t)kThreads * kQuadsPerThread * 4;

@@ -25,7 +25,10 @@
 // about 10 x 4 integer ops an element quad, far under the card's integer
 // rate. Each thread handles quads of 4 columns with 16-byte loads and
 // stores; one block per (8192-column chunk, row); the norms use the same
-// two-pass partials as l1_norm.cu. The card's logf may differ from the
+// two-pass partials as l1_norm.cu (pass two one block a row, in gridDim.x).
+// More than 65,535 rows take a launch of pass one for each block of 65,535
+// rows, told its first row: the Philox counter holds the row itself, so the
+// bits do not depend on the split. The card's logf may differ from the
 // CPU's log by an ulp, so the noise agrees with the plain version to about
 // 1e-7 relative, not bit for bit.
 #include "common.cuh"
@@ -51,12 +54,12 @@ template <bool kBitsIn>
 __global__ void perturb_kernel(const float* __restrict__ s, const float* __restrict__ eps,
                                const uint32_t* __restrict__ bits,
                                const float* __restrict__ scale_ptr, float gamma_n,
-                               int64_t d_pad, int64_t d_s, uint32_t seed_lo,
+                               int64_t row0, int64_t d_pad, int64_t d_s, uint32_t seed_lo,
                                uint32_t seed_hi, uint32_t t, float* __restrict__ out,
                                float* __restrict__ eps_part, float* __restrict__ noise_part,
                                int64_t n_chunks) {
   __shared__ float smem[32];
-  const int64_t row = blockIdx.y;
+  const int64_t row = row0 + blockIdx.y;
   const int64_t base = row * d_pad;
   const float scale = __ldg(scale_ptr);
   const int64_t c0 = (int64_t)blockIdx.x * kChunk;
@@ -120,19 +123,24 @@ extern "C" int dpps_perturb_rows(const float* s, const float* eps, const uint32_
                                  void* stream) {
   using namespace repro_torch;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const dim3 grid((unsigned)n_chunks, (unsigned)n);
   const uint32_t seed_lo = (uint32_t)(seed & 0xffffffffu), seed_hi = (uint32_t)(seed >> 32);
-  if (bits != nullptr) {
-    perturb_kernel<true><<<grid, kThreads, 0, st>>>(s, eps, bits, scale, gamma_n, d_pad, d_s,
-                                                     seed_lo, seed_hi, (uint32_t)t, out,
-                                                     eps_part, noise_part, n_chunks);
-  } else {
-    perturb_kernel<false><<<grid, kThreads, 0, st>>>(s, eps, bits, scale, gamma_n, d_pad, d_s,
-                                                      seed_lo, seed_hi, (uint32_t)t, out,
-                                                      eps_part, noise_part, n_chunks);
+  cudaError_t err;
+  for (int64_t row0 = 0; row0 < n; row0 += kMaxGridRows) {
+    const dim3 grid((unsigned)n_chunks,
+                    (unsigned)(n - row0 < kMaxGridRows ? n - row0 : kMaxGridRows));
+    if (bits != nullptr) {
+      perturb_kernel<true><<<grid, kThreads, 0, st>>>(s, eps, bits, scale, gamma_n, row0, d_pad,
+                                                       d_s, seed_lo, seed_hi, (uint32_t)t, out,
+                                                       eps_part, noise_part, n_chunks);
+    } else {
+      perturb_kernel<false><<<grid, kThreads, 0, st>>>(s, eps, bits, scale, gamma_n, row0,
+                                                        d_pad, d_s, seed_lo, seed_hi,
+                                                        (uint32_t)t, out, eps_part, noise_part,
+                                                        n_chunks);
+    }
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
   }
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
   sum_partials_kernel<<<(unsigned)n, kThreads, 0, st>>>(eps_part, n_chunks, eps_l1);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;

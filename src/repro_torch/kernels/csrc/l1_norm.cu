@@ -7,7 +7,7 @@
 // Bound on the card: memory. It reads N * d_s * 4 bytes once and writes N
 // floats; an H100 moves that at 3.35 TB/s. The design keeps enough loads in
 // flight to cover the memory's latency, in one launch:
-// * Grid (blocks_per_row, N), from the wrapper's plan
+// * Grid (blocks_per_row, rows), from the wrapper's plan
 //   (repro_torch.kernels.ops.l1_plan): block b of a row reads the
 //   `quads_per_block` 16-byte quads from b * quads_per_block on (the last
 //   block fewer), and the last block also reads the ragged tail (d_s % 4
@@ -15,7 +15,9 @@
 //   plan gives 2048 quads a block, 8 a thread: small blocks that the card
 //   hands out as SMs free up. A few persistent blocks an SM, each reading
 //   one long range, were 1-15 % slower (repro_torch.kernels.sweep, variant
-//   not kept).
+//   not kept). A grid holds at most 65,535 rows (gridDim.y): more rows take
+//   one launch for each block of 65,535 rows, each told its first row, so
+//   every row is reduced as it is in a single launch.
 // * Each thread keeps kUnroll = 8 independent float4 loads in flight (quad
 //   k of the thread into accumulator k % 8; 4 was no faster), with loads
 //   that skip L1 (nothing reads the buffer again; about 1 % faster than
@@ -49,15 +51,15 @@ __device__ __forceinline__ float abs_sum(const float4 v) {
 
 constexpr int kUnroll = 8;
 
-// Row blockIdx.y, quads [blockIdx.x * qpb, min(+ qpb, n_quads)); the last
+// Row row0 + blockIdx.y, quads [blockIdx.x * qpb, min(+ qpb, n_quads)); the last
 // block of the row adds columns [4 n_quads, d_s). The last block of the row
 // to finish writes out[row] and puts its ticket back to zero.
-__global__ void l1_norm_kernel(const float* __restrict__ buf, int64_t d_pad, int64_t d_s,
-                               int64_t qpb, float* __restrict__ partials,
+__global__ void l1_norm_kernel(const float* __restrict__ buf, int64_t row0, int64_t d_pad,
+                               int64_t d_s, int64_t qpb, float* __restrict__ partials,
                                unsigned* __restrict__ tickets, float* __restrict__ out) {
   __shared__ float smem[32];
   __shared__ bool last;
-  const int64_t row = blockIdx.y;
+  const int64_t row = row0 + blockIdx.y;
   const float* x = buf + row * d_pad;
   const float4* x4 = reinterpret_cast<const float4*>(x);
   const int64_t n_quads = d_s / 4;
@@ -116,14 +118,19 @@ extern "C" int l1_norm_rows(const float* buf, int64_t n, int64_t d_pad, int64_t 
                             float* partials, unsigned* tickets, float* out, void* stream) {
   using namespace repro_torch;
   const int64_t n_quads = d_s / 4;
-  if (n < 1 || n > 65535 || d_s < 1 || d_s > d_pad || d_pad % 4 != 0 ||
+  if (n < 1 || d_s < 1 || d_s > d_pad || d_pad % 4 != 0 ||
       (uintptr_t)buf % 16 != 0 || threads < 32 || threads > 1024 || threads % 32 != 0 ||
       blocks_per_row < 1 || blocks_per_row >= ((int64_t)1 << 31) || quads_per_block < 0 ||
       blocks_per_row * quads_per_block < n_quads ||
       (blocks_per_row - 1) * quads_per_block >= (n_quads > 0 ? n_quads : 1))
     return (int)cudaErrorInvalidValue;
-  l1_norm_kernel<<<dim3((unsigned)blocks_per_row, (unsigned)n), (unsigned)threads, 0,
-                   static_cast<cudaStream_t>(stream)>>>(buf, d_pad, d_s, quads_per_block,
-                                                        partials, tickets, out);
-  return (int)cudaGetLastError();
+  for (int64_t row0 = 0; row0 < n; row0 += kMaxGridRows) {
+    const int64_t rows = n - row0 < kMaxGridRows ? n - row0 : kMaxGridRows;
+    l1_norm_kernel<<<dim3((unsigned)blocks_per_row, (unsigned)rows), (unsigned)threads, 0,
+                     static_cast<cudaStream_t>(stream)>>>(buf, row0, d_pad, d_s, quads_per_block,
+                                                          partials, tickets, out);
+    const cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+  }
+  return (int)cudaSuccess;
 }

@@ -29,13 +29,20 @@ __all__ = ["l1_norm_rows", "dpps_perturb_rows", "pushsum_mix", "spmm",
            "clip_scale_rows", "laplace_from_bits", "l1_clip_tree",
            "laplace_noise_tree", "flash_attention", "flash_attention_bshd",
            "launch_counts", "reset_launch_counts", "spmm_plan", "l1_plan",
-           "flash_geometry", "flash_strides", "CHUNK", "MAX_MIX_NODES",
-           "MAX_SPMM_NODES", "FLASH_TILES", "FLASH_HEAD_DIMS"]
+           "mix_plan", "flash_geometry", "flash_strides", "CHUNK",
+           "MIX_TEMPLATE_NODES", "MAX_SPMM_NODES", "FLASH_TILES",
+           "FLASH_HEAD_DIMS"]
 
 CHUNK = 8192        # columns per pass-one block of csrc/dpps_perturb.cu (kChunk)
-MAX_MIX_NODES = 32  # csrc/pushsum_mix.cu template range
 MAX_SPMM_NODES = 2 ** 31 - 1  # csrc/spmm.cu: idx is int32
-MAX_L1_ROWS = 65_535  # csrc/l1_norm.cu: a row is a grid row
+
+# csrc/pushsum_mix.cu: N <= MIX_TEMPLATE_NODES takes the kernel with N as a
+# template parameter (one column a thread); larger N the tiled kernel, whose
+# block of 8 warps owns 8 x (rows a thread) rows and MIX_TILE_COLS columns
+# (mix_plan).
+MIX_TEMPLATE_NODES = 32
+MIX_TILE_COLS = 128
+MIX_BLOCKS_PER_SM = 2  # fewer blocks than this a card: 2 rows a thread
 
 # csrc/l1_norm.cu launch plan (l1_plan), from repro_torch.kernels.sweep
 L1_THREADS = 256
@@ -109,10 +116,9 @@ def l1_norm_rows(buf: torch.Tensor, d_s: int) -> torch.Tensor:
         return ref.l1_norm_rows(buf, d_s)
     _check(buf, "buf", torch.float32, 2, align=True)
     n, d_pad = buf.shape
-    if not (0 < d_s <= d_pad) or d_pad % 4 or not (1 <= n <= MAX_L1_ROWS):
-        raise ValueError(f"need 0 < d_s <= d_pad, d_pad % 4 == 0 and 1 <= N "
-                         f"<= {MAX_L1_ROWS}, got N={n}, d_s={d_s}, "
-                         f"d_pad={d_pad}")
+    if not (0 < d_s <= d_pad) or d_pad % 4 or n < 1:
+        raise ValueError(f"need 0 < d_s <= d_pad, d_pad % 4 == 0 and N >= 1, "
+                         f"got N={n}, d_s={d_s}, d_pad={d_pad}")
     plan = l1_plan(n, d_s)
     bpr = plan["blocks_per_row"]
     stream = _stream(buf)
@@ -225,21 +231,43 @@ def dpps_perturb_rows(s: torch.Tensor, eps: torch.Tensor, scale,
 
 
 def pushsum_mix(w: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
-    """``W @ x`` for W (N, N) and x (N, D), f32 accumulation -> (N, D)."""
+    """``W @ x`` for W (N, N) and x (N, D), any N >= 1 and D >= 1, f32
+    accumulation -> (N, D). Each output is one fma chain over the senders
+    in increasing order, whichever kernel :func:`mix_plan` picks."""
     if _is_cpu(w, x):
         return ref.pushsum_mix(w, x)
     _check(w, "w", torch.float32, 2)
     _check(x, "x", torch.float32, 2)
     n, d = x.shape
-    if tuple(w.shape) != (n, n) or not (1 <= n <= MAX_MIX_NODES):
-        raise ValueError(f"need w (N, N) with 1 <= N <= {MAX_MIX_NODES}, got "
+    if tuple(w.shape) != (n, n) or n < 1 or d < 1:
+        raise ValueError(f"need w (N, N) for x (N, D) with N, D >= 1, got "
                          f"w {tuple(w.shape)}, x {tuple(x.shape)}")
+    plan = mix_plan(n, d, _sm_count(x.device))
     out = torch.empty_like(x)
     _raise_on(build.function("pushsum_mix")(
-        w.data_ptr(), x.data_ptr(), out.data_ptr(), n, d, _stream(x)),
-        "pushsum_mix")
+        w.data_ptr(), x.data_ptr(), out.data_ptr(), n, d,
+        plan["rows_per_thread"], _stream(x)), "pushsum_mix")
     pushsum_mix.launches += 1
     return out
+
+
+def mix_plan(n: int, d: int, sms: int) -> dict:
+    """The launch of ``csrc/pushsum_mix.cu`` for W (N, N) and x (N, D) on a
+    card with ``sms`` SMs: ``{"kernel", "rows_per_thread", "blocks"}``.
+
+    N <= :data:`MIX_TEMPLATE_NODES`: ``"template"``, one column a thread in
+    blocks of 256 (``rows_per_thread`` 0: every row). Larger N:
+    ``"tiles"``, blocks of 8 * ``rows_per_thread`` rows x
+    :data:`MIX_TILE_COLS` columns, 8 rows a thread where that gives at
+    least :data:`MIX_BLOCKS_PER_SM` blocks an SM, else 2.
+    """
+    if n <= MIX_TEMPLATE_NODES:
+        return dict(kernel="template", rows_per_thread=0,
+                    blocks=-(-d // 256))
+    col_tiles = -(-d // MIX_TILE_COLS)
+    rows = 8 if -(-n // (8 * 8)) * col_tiles >= MIX_BLOCKS_PER_SM * sms else 2
+    return dict(kernel="tiles", rows_per_thread=rows,
+                blocks=-(-n // (8 * rows)) * col_tiles)
 
 
 def spmm(idx: torch.Tensor, vals: torch.Tensor, x: torch.Tensor) -> torch.Tensor:

@@ -9,8 +9,20 @@ reference scans the layers; the port runs them as a Python loop over the
 stacked leaves.
 
 Modes:
+  forward_train(params, batch)           -> (final hidden (B, S, d), aux)
+  loss_fn(params, batch)                 -> mean next-token cross entropy
   prefill(params, batch, capacity=None)  -> (last-token logits, cache)
   decode_step(params, cache, token, pos) -> (logits, cache)
+
+Training runs every layer under ``torch.utils.checkpoint`` (the
+reference's ``jax.checkpoint`` over its scan body) when grad is enabled,
+and takes the loss over sequence chunks of ``LOSS_CHUNK`` positions, each
+chunk's head and logsumexp checkpointed too, so no (B, S, V) logits are
+kept. Training attention is the plain einsum, as in the reference (its
+flash route is forward-only, for the prefill). A layer-stacked leaf may
+come as a :class:`repro_torch.core.partition.LayerParts` (PartPSP's
+shared and local layers, uncopied); layers are read through
+:func:`repro_torch.core.partition.layer_list`.
 
 Prefill attention goes through the flash-attention kernel
 (:func:`repro_torch.kernels.ops.flash_attention_bshd`) when
@@ -26,8 +38,7 @@ the results are the same either way. A group whose layers all share one
 window keeps a ring buffer of that many slots.
 
 Group kinds other than ``attn`` (MoE, xLSTM, Mamba, Zamba, cross-attention)
-raise ``NotImplementedError``; ``forward_train`` and ``loss_fn`` wait for
-the training slice (ROADMAP Queue 1).
+raise ``NotImplementedError`` (ROADMAP Queue 1).
 """
 from __future__ import annotations
 
@@ -36,7 +47,9 @@ from typing import Any
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
+from repro_torch.core.partition import layer_list
 from repro_torch.core.tree_utils import tree_flatten, tree_map, tree_unflatten
 from repro_torch.device import resolve_device
 from repro_torch.kernels import ops as kops
@@ -178,6 +191,17 @@ def _layer(params, i: int):
     return tree_map(lambda x: x[i], params)
 
 
+def _remat(fn, *args):
+    """``fn(*args)``, under ``torch.utils.checkpoint`` when grad is enabled:
+    its activations are recomputed in the backward instead of kept (the
+    reference's ``jax.checkpoint``). No layer draws random numbers, so the
+    RNG state is not saved."""
+    if not torch.is_grad_enabled():
+        return fn(*args)
+    return checkpoint(fn, *args, use_reentrant=False,
+                      preserve_rng_state=False)
+
+
 def _write_prompt(cache: torch.Tensor, kv: torch.Tensor) -> None:
     """Positions [0, S) of ``kv`` (B, S, K, D) into one layer's cache
     (B, T, K, D): slots [0, S) when T >= S, else (a ring buffer) the last T
@@ -212,21 +236,33 @@ class _AttnGroupImpl:
 
     def train(self, params, x, positions, cache=None, use_flash=False):
         """Forward over the layers; with ``cache`` (this group's
-        :meth:`init_cache`) each layer's K/V is written into it. The
+        :meth:`init_cache`) each layer's K/V is written into it. Each layer
+        runs under :func:`_remat` (checkpointed when grad is enabled). The
         reference also returns an auxiliary loss, which only MoE groups
         make."""
-        cfg = self.cfg
+        leaves, treedef = tree_flatten(params)
+        layers = [layer_list(leaf) for leaf in leaves]
         for i in range(self.spec.n_layers):
-            lp = _layer(params, i)
-            a, k, v = _attn_train(lp["attn"], rms_norm(lp["ln1"], x, cfg.norm_eps),
-                                  positions, cfg, self.thetas[i],
-                                  self.windows[i], use_flash=use_flash)
-            x = x + a
-            x = x + mlp_apply(lp["mlp"], rms_norm(lp["ln2"], x, cfg.norm_eps),
-                              cfg.activation)
-            if cache is not None:
-                _write_prompt(cache["k"][i], k)
-                _write_prompt(cache["v"][i], v)
+
+            def block(h, *weights, i=i):
+                lp = tree_unflatten(treedef, weights)
+                return self._block(lp, h, positions, i, cache, use_flash)
+
+            x = _remat(block, x, *(ls[i] for ls in layers))
+        return x
+
+    def _block(self, lp, x, positions, i: int, cache, use_flash: bool):
+        """Layer i: pre-norm attention and MLP, each added to the residual."""
+        cfg = self.cfg
+        a, k, v = _attn_train(lp["attn"], rms_norm(lp["ln1"], x, cfg.norm_eps),
+                              positions, cfg, self.thetas[i], self.windows[i],
+                              use_flash=use_flash)
+        x = x + a
+        x = x + mlp_apply(lp["mlp"], rms_norm(lp["ln2"], x, cfg.norm_eps),
+                          cfg.activation)
+        if cache is not None:
+            _write_prompt(cache["k"][i], k)
+            _write_prompt(cache["v"][i], v)
         return x
 
     def init_cache(self, batch: int, capacity: int, dtype, device) -> dict:
@@ -268,6 +304,8 @@ def _group_impl(spec, cfg: ModelConfig):
 
 class Transformer:
     """The assembled model: embed -> groups -> final norm -> (tied) LM head."""
+
+    LOSS_CHUNK = 512  # sequence positions a chunk of the cross entropy
 
     def __init__(self, cfg: ModelConfig):
         self.cfg = cfg
@@ -322,6 +360,44 @@ class Transformer:
         else:
             logits = x @ params["lm_head"]
         return softcap(logits.float(), self.cfg.logit_softcap)
+
+    # -- training ---------------------------------------------------------------
+    def _labels(self, batch):
+        return batch["labels"] if "labels" in batch else batch["tokens"]
+
+    def forward_train(self, params, batch):
+        """-> (final hidden states (B, S, d), aux loss). The logits are made
+        chunk by chunk inside :meth:`loss_fn`. ``aux`` is a zero scalar: only
+        MoE groups make one."""
+        x = self._embed_inputs(params, batch)
+        b, s = x.shape[:2]
+        positions = torch.arange(s, device=x.device)[None].expand(b, s)
+        h = self._backbone(params, x, positions)
+        return h, torch.zeros((), dtype=torch.float32, device=x.device)
+
+    def loss_fn(self, params, batch) -> torch.Tensor:
+        """Mean next-token cross entropy over B (S - 1) positions (+ aux),
+        over sequence chunks of :attr:`LOSS_CHUNK` and the remainder, each
+        chunk's head and logsumexp under :func:`_remat`. One node's params
+        and batch: ``tokens`` (B, S), or ``embeds`` (B, S, d_model) and
+        ``labels`` (B, S) for embedding-input models. The reference's
+        ``key`` argument is not taken: no layer draws random numbers."""
+        h, aux = self.forward_train(params, batch)
+        targets = self._labels(batch)[:, 1:].long()  # token t+1 from hidden t
+        h = h[:, :-1]
+        b, sm1 = h.shape[:2]
+        chunk = min(self.LOSS_CHUNK, sm1)
+
+        def chunk_loss(h_c, t_c):
+            logits = self._head(params, h_c)  # (B, c, V) f32
+            picked = logits.gather(-1, t_c[..., None])[..., 0]
+            return (torch.logsumexp(logits, dim=-1) - picked).sum()
+
+        total = torch.zeros((), dtype=torch.float32, device=h.device)
+        for c0 in range(0, sm1, chunk):  # the last chunk is the remainder
+            total = total + _remat(chunk_loss, h[:, c0:c0 + chunk],
+                                   targets[:, c0:c0 + chunk])
+        return total / (b * sm1) + aux
 
     # -- serving ----------------------------------------------------------------
     def init_cache(self, batch: int, capacity: int, dtype=None,

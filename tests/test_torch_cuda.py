@@ -14,7 +14,9 @@ tensor cores, expf against the CPU's exp); the fused perturb agrees elementwise 
 (the card's logf may differ from the CPU's log by an ulp); row sums to
 rtol 1e-5 (per-block partials against PyTorch's reduction order); the mix
 to rtol 1e-5 / atol 1e-6 (fma in j order against cuBLAS's order), also
-on unaligned x, with the bits it gives on an aligned copy. Every kernel
+on unaligned x, with the bits it gives on an aligned copy; its tiled
+kernel (N > 32) bit for bit equal to the template kernel's chain (an
+f64 check of the same terms bounds both) and to ``spmm``. Every kernel
 gives the same bits on two launches. The
 sparse mix to rtol 1e-6 / atol 1e-6 (fma against the plain version's
 separate multiply and add), and bit for bit against the dense kernel on a
@@ -32,7 +34,7 @@ import dataclasses
 from repro_torch.api import PrivacySpec, Session
 from repro_torch.configs import get_config
 from repro_torch.core.topology import DOutGraph
-from repro_torch.core.tree_utils import tree_map
+from repro_torch.core.tree_utils import tree_leaves, tree_map
 from repro_torch.kernels import ops, ref
 from repro_torch.models.transformer import Transformer
 from repro_torch.net import ErdosRenyiGraph
@@ -106,6 +108,105 @@ def test_pushsum_mix_takes_unaligned_and_ragged_x(dev, n, d, offset):
     wide[:, :d] = x
     assert torch.equal(ops.pushsum_mix(w, wide)[:, :d], got)
     torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("n,d", [(33, 7936), (64, 4099), (64, 1 << 20),
+                                 (4096, 8), (257, 1000), (33, 1)])
+def test_pushsum_mix_past_the_template_matches_plain(dev, n, d):
+    """The tiled kernel (N > 32; both rows-a-thread plans at these shapes)
+    within the mix tolerance of the plain version, and bit for bit the
+    same chain as the template kernel: a W whose rows past 32 and senders
+    past 32 are zero gives, on the first 32 rows, the template kernel's
+    bits for the 32 x 32 corner."""
+    gen = torch.Generator(device=dev).manual_seed(n * 7 + d)
+    x = torch.randn((n, d), generator=gen, device=dev)
+    w = torch.rand((n, n), generator=gen, device=dev)
+    w = w / w.sum(0, keepdim=True)
+    plan = ops.mix_plan(n, d, torch.cuda.get_device_properties(
+        dev).multi_processor_count)
+    assert plan["kernel"] == "tiles"
+    torch.testing.assert_close(ops.pushsum_mix(w, x), ref.pushsum_mix(w, x),
+                               rtol=1e-5, atol=1e-6)
+    corner = torch.zeros_like(w)
+    corner[:32, :32] = w[:32, :32]
+    got = ops.pushsum_mix(corner, x)
+    assert torch.equal(got[:32], ops.pushsum_mix(
+        w[:32, :32].contiguous(), x[:32].contiguous()))
+    assert not bool(got[32:].any())
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("n", [65_536, 100_003])
+def test_row_kernels_past_a_grid_of_rows(dev, n):
+    """More rows than a grid holds (65,535): each of the three row kernels
+    against its plain version, with 1e4 in the pad lanes, and the rows past
+    65,535 equal to the same rows launched alone (the Philox counter holds
+    the row, so the split changes no bits)."""
+    d_s = 300
+    gen = torch.Generator(device=dev).manual_seed(n)
+    s, eps = _rows(gen, dev, n, d_s, 1e4), _rows(gen, dev, n, d_s, 1e4)
+    norms = ops.l1_norm_rows(eps, d_s)
+    torch.testing.assert_close(norms, ref.l1_norm_rows(eps, d_s), rtol=1e-5,
+                               atol=0)
+    scale = torch.tensor(0.7, device=dev)
+    got = ops.dpps_perturb_rows(s, eps, scale, 0.1, d_s, seed=5, t=3)
+    want = ref.dpps_perturb_rows(s, eps, scale, 0.1, d_s, seed=5, t=3)
+    torch.testing.assert_close(got[0], want[0], rtol=1e-6, atol=1e-6)
+    assert bool((got[0][:, d_s:] == 0).all())
+    for g, w in zip(got[1:], want[1:]):
+        torch.testing.assert_close(g, w, rtol=1e-5, atol=0)
+    denom = torch.clamp_min(norms / norms.median(), 1.0)
+    clipped = ops.clip_scale_rows(s, d_s, denom)
+    assert torch.equal(clipped, ref.clip_scale_rows(s, d_s, denom))
+    tail = slice(65_535, n)
+    assert torch.equal(ops.l1_norm_rows(eps[tail].contiguous(), d_s),
+                       norms[tail])
+    assert torch.equal(ops.clip_scale_rows(s[tail].contiguous(), d_s,
+                                           denom[tail].contiguous()),
+                       clipped[tail])
+    torch.cuda.synchronize()
+
+
+def test_dpps_step_on_a_ring_of_70000_nodes(dev):
+    """One DPPS round on the sparse schedule over a hand-built ring CSR
+    (K = 3: left, self, right), N = 70,000: the card against the CPU's
+    plain path from the same state and the same Philox bits."""
+    from repro_torch.core.dpps import DPPSConfig, dpps_init, dpps_step
+    from repro_torch.core.packing import PackedLayout
+
+    n, d_s = 70_000, 300
+    i = torch.arange(n)
+    idx = torch.stack([(i - 1) % n, i, (i + 1) % n], dim=1)
+    idx = torch.sort(idx, dim=1).values.to(torch.int32)
+    vals = torch.full((n, 3), 1.0 / 3.0)
+    x = torch.randn((n, d_s), generator=torch.Generator().manual_seed(0))
+    eps = 0.01 * torch.randn((n, d_s),
+                             generator=torch.Generator().manual_seed(1))
+    out = {}
+    for device, kernels in (("cuda", True), ("cpu", False)):
+        cfg = DPPSConfig(b=1.0, gamma_n=1e-4, schedule="sparse",
+                         use_kernels=kernels)
+        layout = PackedLayout.from_tree({"x": x}, lane=128 if kernels else 1)
+        state = dpps_init({"x": x.to(device)}, cfg)
+        state = state._replace(push=state.push._replace(
+            s=layout.pack(state.push.s)))
+        ops.reset_launch_counts()
+        new, diag = dpps_step(state, {"x": eps.to(device)}, cfg, layout,
+                              sparse_idx=idx.to(device),
+                              sparse_vals=vals.to(device), seed=3)
+        if kernels:
+            counts = ops.launch_counts()
+            assert counts["l1_norm_rows"] == 2 and counts["spmm"] == 1
+            assert counts["dpps_perturb_rows"] == 1
+        out[device] = (layout.unpack(new.push.s)["x"].cpu(), new.push.a.cpu(),
+                       diag["sensitivity_used"].cpu())
+    want = out["cpu"][0]
+    torch.testing.assert_close(out["cuda"][0], want, rtol=1e-5,
+                               atol=1e-6 * want.abs().max().item())
+    torch.testing.assert_close(out["cuda"][1], out["cpu"][1], rtol=1e-6,
+                               atol=0)
+    torch.testing.assert_close(out["cuda"][2], out["cpu"][2], rtol=1e-5,
+                               atol=0)
 
 
 @pytest.mark.parametrize("plan", [(256, 2048), (512, 4096), (128, 1024)])
@@ -233,9 +334,9 @@ def test_wrappers_count_launches_and_reject_what_the_kernels_do_not_take(dev):
         ops.l1_norm_rows(s.t().contiguous().t(), 2)  # not contiguous
     with pytest.raises(ValueError):
         ops.dpps_perturb_rows(s, s, 1.0, 1.0, 300, seed=0, t=0)  # d_s > d_pad
-    with pytest.raises(ValueError):
+    with pytest.raises(ValueError):  # W not (N, N)
         big = torch.zeros((33, 128), device=dev)
-        ops.pushsum_mix(torch.eye(33, device=dev), big)
+        ops.pushsum_mix(torch.eye(33, device=dev)[:, :32].contiguous(), big)
     with pytest.raises(ValueError):
         ops.pushsum_mix(torch.eye(3), s)  # W on the CPU, x on the card
     with pytest.raises(ValueError):
@@ -287,8 +388,7 @@ def test_spmm_matches_plain_and_the_dense_kernel(dev, n, d):
         got = ops.spmm(idx, vals, x)
         torch.testing.assert_close(got, ref.spmm(idx, vals, x), rtol=1e-6,
                                    atol=1e-6)
-        if n <= ops.MAX_MIX_NODES:
-            assert torch.equal(got, ops.pushsum_mix(w, x))
+        assert torch.equal(got, ops.pushsum_mix(w, x))
     torch.cuda.synchronize()
 
 
@@ -411,3 +511,44 @@ def test_flash_prefill_on_the_card_matches_the_cpu(dev):
     torch.testing.assert_close(out["cuda"].logits.cpu(), out["cpu"].logits,
                                rtol=1e-4, atol=1e-4)
     assert torch.equal(out["cuda"].tokens.cpu(), out["cpu"].tokens)
+
+
+def test_transformer_training_on_the_card_matches_the_cpu(dev):
+    """PartPSP of llama3.2-1b's smoke model (split point 1, N = 4, 3
+    rounds, noise on from the same Philox stream): the card (kernels)
+    against the CPU (plain versions). Trajectory within rtol 1e-4 plus 1e-6
+    of each entry's largest magnitude; trained state within rtol 1e-4 plus
+    1e-5 of each array's largest magnitude (an updated weight near zero
+    carries the difference of its gradient's sums, which cuBLAS and the CPU
+    add in other orders)."""
+    cfg = get_config("llama3.2-1b").smoke
+    model = Transformer(cfg)
+    params = model.init(torch.Generator().manual_seed(0), device="cpu")
+    toks = torch.randint(0, cfg.vocab_size, (4, 2, 32),
+                         generator=torch.Generator().manual_seed(1))
+    out = {}
+    for device in ("cuda", "cpu"):
+        session = Session.build(
+            DOutGraph(4, 2), privacy=PrivacySpec(b=1.0, gamma_n=1e-7),
+            model=model, params=tree_map(lambda x: x.to(device), params),
+            partition=(("group_0/.*", ("split_layers", 1)),),
+            schedule="dense", sync_interval=5, seed=3, device=device)
+        ops.reset_launch_counts()
+        rep = session.train(3, lambda t: {"tokens": toks.to(device)})
+        if device == "cuda":
+            counts = ops.launch_counts()
+            assert counts["l1_norm_rows"] == 4 and counts["pushsum_mix"] == 3
+            assert counts["dpps_perturb_rows"] == 3
+            assert counts["flash_attention"] == 0
+        state = rep.state
+        out[device] = (rep.trajectory, [x.cpu() for x in
+                                        tree_leaves(state.dpps.push.s)
+                                        + list(state.local)])
+    for k, want in out["cpu"][0].items():
+        want = torch.as_tensor(want)
+        torch.testing.assert_close(torch.as_tensor(out["cuda"][0][k]), want,
+                                   rtol=1e-4,
+                                   atol=1e-6 * want.abs().max().item())
+    for got, want in zip(out["cuda"][1], out["cpu"][1]):
+        torch.testing.assert_close(got, want, rtol=1e-4,
+                                   atol=1e-5 * want.abs().max().item())

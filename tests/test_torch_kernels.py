@@ -483,8 +483,10 @@ def _bad_inputs():
         "l1_d_s": (lambda: ops.l1_norm_rows(s, 300), ValueError),
         "perturb_d_s": (lambda: ops.dpps_perturb_rows(
             s, s, 1.0, 1.0, 300, seed=0, t=0), ValueError),
+        # 33 nodes take the tiled kernel; W (33, 32) is not (N, N)
         "mix_33_nodes": (lambda: ops.pushsum_mix(
-            torch.eye(33), torch.zeros((33, 128))), ValueError),
+            torch.eye(33)[:, :32].contiguous(), torch.zeros((33, 128))),
+            ValueError),
         "mix_w_shape": (lambda: ops.pushsum_mix(torch.eye(4), s), ValueError),
         "mix_dtype": (lambda: ops.pushsum_mix(torch.eye(3), s.double()),
                       TypeError),
@@ -562,3 +564,18 @@ def test_three_tf32_products_keep_the_flash_tolerance(d):
     torch.testing.assert_close(out[3], want, rtol=1e-4, atol=1e-5)
     assert not bool(((out[1] - want).abs()
                      <= 1e-5 + 1e-4 * want.abs()).all())
+
+
+@pytest.mark.parametrize("n,d,kernel,rows", [
+    (1, 7936, "template", 0), (32, 1 << 20, "template", 0),
+    (33, 1 << 20, "tiles", 8), (256, 1 << 20, "tiles", 8),
+    (4096, 8, "tiles", 2), (64, 300, "tiles", 2), (33, 1, "tiles", 2)])
+def test_mix_plan_takes_the_template_to_32_nodes_and_tiles_above(n, d, kernel,
+                                                                 rows):
+    """N <= 32: one column a thread; above, 64-row tiles where they give at
+    least two blocks an SM of a 132-SM card, else 16-row tiles."""
+    plan = ops.mix_plan(n, d, 132)
+    assert (plan["kernel"], plan["rows_per_thread"]) == (kernel, rows)
+    if kernel == "tiles":
+        assert plan["blocks"] == -(-n // (8 * rows)) * -(-d // 128)
+        assert plan["blocks"] < 2 ** 31
