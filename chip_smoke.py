@@ -8,9 +8,11 @@ Phases, each printing one JSON line:
 
 1. ``build``      compile the seven kernels (one nvcc each, in parallel);
                   the registers, spills and static shared memory of every
-                  flash-attention and spmm instantiation, and the registers
-                  and spills of every pushsum_mix (N = 1..32) and l1_norm
-                  one (``-Xptxas -v``; any spill there fails).
+                  flash-attention, spmm, tiled pushsum_mix and dpps_perturb
+                  instantiation (the mix tiles' dynamic shared memory from
+                  ``ops.mix_plan``), and the registers and spills of every
+                  pushsum_mix (N = 1..32), l1_norm and dpps_perturb one
+                  (``-Xptxas -v``; any spill in those fails).
 2. ``kernels``    each kernel against its plain PyTorch version at the main
                   paths' shapes: the dense kernels at the paper MLP's shared
                   layer (N = 10, d_s = 7840) and the dense full-width buffer
@@ -21,15 +23,19 @@ Phases, each printing one JSON line:
                   same bits on a second launch. At the two small shapes
                   the norm, the mix (paper shape) and their library calls
                   are also timed as host µs a call (1,000 calls, no
-                  synchronise in between) and, after phase 11, device µs a
-                  call (``torch.profiler``). ``spmm`` at the sparse full
-                  width (N = 24, d_s = 95,669,064), the sparse training
-                  shape (N = 128, d_s = 7840) and the widest sparse sweep
-                  (N = 4096, D = 8),
-                  with the launch plan of each (``ops.spmm_plan``: column
+                  synchronise in between) and, after the last phase, device
+                  µs a call (``torch.profiler``); the perturbation at the
+                  paper shape too, beside its copy yardstick. ``spmm`` at
+                  the sparse full width (N = 24, d_s = 95,669,064), the
+                  sparse training shape (N = 128, d_s = 7840) and the
+                  widest sparse sweep (N = 4096, D = 8), with the launch
+                  plan of each (``ops.spmm_plan``: column
                   tiles or rows), and bit for bit against ``pushsum_mix``
                   at all three. The dense kernels also at the training
-                  path's buffer (N = 4, d_s = 243,286,016).
+                  path's buffer (N = 4, d_s = 243,286,016). Beside the
+                  perturbation, which no PyTorch call computes,
+                  ``torch.add(s, eps, out=o)`` is timed as the copy
+                  yardstick: the same bytes moved, no noise.
 3. ``consensus``  ``Session.build(DOutGraph(5, 2), schedule="dense")`` then
                   ``run(20)`` over a (5, 505,956,352) f32 buffer, in one
                   call (timed), and one round a call (the error by round).
@@ -63,23 +69,35 @@ Phases, each printing one JSON line:
                   card (kernel) and on the CPU (plain) under the same Gumbel
                   noise; then flash against plain prefill on the card.
 12. ``mix_wide``  ``pushsum_mix`` past its template (N = 33, 64, 256 at D =
-                  2^20; N = 4096 at D = 8) against its plain version, beside
-                  ``torch.matmul``; bit for bit equal to the template kernel
-                  at N = 32 and to ``spmm`` on ER(64).
-13. ``rows_wide`` the norm, the perturbation and the clip scale at N =
+                  2^20; N = 4096 at D = 8 and 128; N = 128 at D = 7936)
+                  against its plain version, beside ``torch.matmul``; every
+                  tile of ``ops.MIX_TILES`` at every shape giving the same
+                  bits; bit for bit equal to the template kernel at N = 32
+                  and to ``spmm`` on ER(64) and ER(4096).
+13. ``dense_er4096``  ``Session.build(ErdosRenyiGraph(4096, p=8/4096,
+                  seed=2024))`` with its default (dense) schedule, then
+                  ``run(20)`` at d_s = 8 (bench_sparse.py's widest dense
+                  point; the kernel path pads it to 128 lanes), beside the
+                  sparse schedule on the same graph: ms a round, and
+                  ``pushsum_mix`` launched once a round that is not a sync
+                  round, on a tiled plan.
+14. ``rows_wide`` the norm, the perturbation and the clip scale at N =
                   65,536 and 100,003 (d_s = 300) against their plain
-                  versions; one ``dpps_step`` on a 70,000-node ring CSR.
-14. ``transformer_training``  ``Session.build(DOutGraph(4, 2),
+                  versions; the perturbation's s_noise bit for bit the same
+                  under every plan of ``PERTURB_PLANS`` at those short rows
+                  and at long ones; one ``dpps_step`` on a 70,000-node
+                  ring CSR.
+15. ``transformer_training``  ``Session.build(DOutGraph(4, 2),
                   model=Transformer(llama3.2-1b), partition=its rules,
                   schedule="dense")`` at full width (16 layers, d_s =
                   243,286,016), ``train(5)`` on 2 x 1,024 synthetic tokens
                   a node: ms a step, tokens/s, gradient passes against the
                   DPPS round (CUDA events), peak memory, exact launches.
-15. ``training_agreement``  the same model with 2 layers, 4 nodes, 3 steps,
+16. ``training_agreement``  the same model with 2 layers, 4 nodes, 3 steps,
                   noise through ``bits_at``: the card against the CPU.
 
 Each kernel counts its launches. The counts are set to 0 just before each
-path (phases 3-7, 10 and 14) and read just after; each path names the
+path (phases 3-7, 10, 13 and 15) and read just after; each path names the
 kernels it must launch (and the sparse paths must launch ``pushsum_mix``
 no time; the training path exactly its counts). Then come the card's
 name and power limit (``nvidia-smi``), the ``kernels`` line with every
@@ -134,8 +152,23 @@ FLASH_SDPA = ("llama_32k", "gemma3_32k_window512", "gemma3_32k_global",
               "ragged_minitron")
 
 # pushsum_mix past its template (N > 32): (N, D); N = 4096 at d = 8 is
-# bench_sparse.py's dense point
-MIX_WIDE = ((33, 1 << 20), (64, 1 << 20), (256, 1 << 20), (4096, 8))
+# bench_sparse.py's dense point, at 128 the same as the kernel path pads it;
+# (128, 7936) the paper MLP's shared layer on ER(128) under the default
+# dense schedule
+MIX_WIDE = ((33, 1 << 20), (64, 1 << 20), (256, 1 << 20), (4096, 8),
+            (128, 7936), (4096, 128))
+# dpps_perturb.cu's plans held to the same s_noise bits: tables patched
+# into ops ({} the default), at the short rows of ROWS_WIDE and at the
+# long rows of PERTURB_LONG
+PERTURB_PLANS = {
+    "default": {},
+    "long_512": dict(PERTURB_QUADS_PER_BLOCK=512, PERTURB_SHORT_QUADS=0),
+    "short_32_lanes": dict(PERTURB_ROW_LANES=32,
+                           PERTURB_SHORT_QUADS=1 << 20),
+    "short_8_lanes_t64": dict(PERTURB_ROW_LANES=8, PERTURB_THREADS=64,
+                              PERTURB_SHORT_QUADS=1 << 20),
+}
+PERTURB_LONG = dict(n=24, d_s=(1 << 20) - 3)
 # the row kernels past a grid of 65,535 rows: (N, d_s); a ring of 70,000
 # nodes (K = 3) for one dpps_step
 ROWS_WIDE = ((65_536, 300), (100_003, 300))
@@ -196,7 +229,7 @@ def bound(nbytes: float, f32_ops: float = 0.0, int_ops: float = 0.0,
 
 def demangled(name: str) -> str:
     """``ns::fn<1, 2>`` from an Itanium-mangled ``_ZN2ns2fnILi1ELi2EE...``
-    (nested names and integer template arguments only)."""
+    (nested names and integer or bool template arguments only)."""
     parts, i = [], 3 if name.startswith("_ZN") else 0
     while i < len(name) and name[i].isdigit():
         j = i
@@ -204,7 +237,7 @@ def demangled(name: str) -> str:
             j += 1
         parts.append(name[j:j + int(name[i:j])])
         i = j + int(name[i:j])
-    args = re.findall(r"Li(\d+)E", name[i:]) if name[i:i + 1] == "I" else []
+    args = re.findall(r"L[ib](\d+)E", name[i:]) if name[i:i + 1] == "I" else []
     return "::".join(parts) + (f"<{', '.join(args)}>" if args else "")
 
 
@@ -346,10 +379,12 @@ def device_us(torch, fn, calls: int = 200) -> tuple:
 
 
 def small_shape_calls(torch, ops, dev) -> dict:
-    """{(shape, kernel): (wrapper call, library call)} for the norm at the
-    paper and sparse-train shapes and the mix at the paper shape (the
-    sparse paths mix through ``spmm``), on seeded inputs: the calls whose
-    host and device µs the kernels line gives."""
+    """{(shape, kernel): (wrapper call, yardstick call, yardstick name)}
+    for the norm at the paper and sparse-train shapes, the mix and the
+    perturbation at the paper shape (the sparse paths mix through
+    ``spmm``), on seeded inputs: the calls whose host and device µs the
+    kernels line gives, the yardstick's under ``library_*`` (one PyTorch
+    call of the same function) or ``copy_*`` (the perturbation's copy)."""
     calls = {}
     for name, shape in (("paper", PAPER), ("sparse_train", SPARSE_TRAIN)):
         n, d_s = shape["n"], shape["d_s"]
@@ -358,12 +393,18 @@ def small_shape_calls(torch, ops, dev) -> dict:
         calls[name, "l1_norm_rows"] = (
             lambda x=x, d_s=d_s: ops.l1_norm_rows(x, d_s),
             lambda x=x, d_s=d_s: torch.linalg.vector_norm(x[:, :d_s], 1,
-                                                          dim=1))
+                                                          dim=1), "library")
         if name == "paper":
             w = torch.full((n, n), 1.0 / n, device=dev)
             calls[name, "pushsum_mix"] = (
                 lambda x=x, w=w: ops.pushsum_mix(w, x),
-                lambda x=x, w=w: torch.matmul(w, x))
+                lambda x=x, w=w: torch.matmul(w, x), "library")
+            eps, o = torch.randn_like(x), torch.empty_like(x)
+            scale = torch.tensor(0.7, device=dev)
+            calls[name, "dpps_perturb_rows"] = (
+                lambda x=x, eps=eps, d_s=d_s: ops.dpps_perturb_rows(
+                    x, eps, scale, 0.1, d_s, seed=SEED, t=1),
+                lambda x=x, eps=eps, o=o: torch.add(x, eps, out=o), "copy")
     return calls
 
 
@@ -458,9 +499,9 @@ def check_kernels(torch, ops, ref, shape: dict, dev, iters: int,
     # adds and the two norms about 17 f32 operations
     out["dpps_perturb_rows"] = dict(
         max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=None,
-        noise_mean_abs_over_scale=mean_abs,
-        bound=bound(8.0 * n * d_s + 4.0 * n * d_pad + 8 * n + 4,
-                    f32_ops=17.0 * n * d_s, int_ops=25.0 * n * d_s))
+        copy_ms=copy_ms(torch, s, eps, iters),
+        plan=ops.perturb_plan(n, d_pad), noise_mean_abs_over_scale=mean_abs,
+        bound=perturb_bound(n, d_s, d_pad))
     del k_out
     if not mix:
         return out
@@ -488,6 +529,22 @@ def check_kernels(torch, ops, ref, shape: dict, dev, iters: int,
                            max(1, iters // 2)),
         bound=bound(8.0 * n * d_pad + 4 * n * n, f32_ops=2.0 * n * n * d_pad))
     return out
+
+
+def perturb_bound(n: int, d_s: int, d_pad: int):
+    """The perturbation's bound: s and eps read, s_noise written (pad
+    columns too), the norms; 25 int32 and 17 f32 operations an element."""
+    return bound(8.0 * n * d_s + 4.0 * n * d_pad + 8 * n + 4,
+                 f32_ops=17.0 * n * d_s, int_ops=25.0 * n * d_s)
+
+
+def copy_ms(torch, s, eps, iters: int) -> float:
+    """The copy yardstick of the perturbation: ``torch.add(s, eps, out=o)``
+    reads and writes the same bytes (no noise, no norms)."""
+    o = torch.empty_like(s)
+    ms = cuda_ms(torch, lambda: torch.add(s, eps, out=o), iters)
+    del o
+    return ms
 
 
 def csr_of(torch, topo, dev):
@@ -569,17 +626,20 @@ def philox_statistics(torch, ops, dev) -> dict:
 # -- phases 3 and 5: consensus at full width ---------------------------------
 
 def consensus(torch, api, T, ops, dev, *, topo, shape: dict, schedule: str,
-              phase: str, expected, absent=()) -> dict:
+              phase: str, expected, absent=(), constants=None,
+              default_schedule: bool = False) -> dict:
     """``Session.run(CONSENSUS_ROUNDS)`` over an (N, d_s) f32 buffer, as a
     user calls it: one call, timed on the host around it, with the launch
     counts read over it. The consensus error by round comes from a second,
     untimed pass of one round a call (each call packs the state anew), whose
-    last state must agree with the timed run's."""
+    last state must agree with the timed run's. (C', lambda) are calibrated
+    unless ``constants`` gives them; with ``default_schedule`` the session
+    picks its own schedule, which must be ``schedule``."""
     from repro_torch.core.pushsum import consensus_error
 
     n, d_s = shape["n"], shape["d_s"]
     t0 = time.perf_counter()
-    c_prime, lam = T.calibrate_constants(topo)
+    c_prime, lam = constants or T.calibrate_constants(topo)
     calib_s = time.perf_counter() - t0
     b = 1.0
     # The Remark-1 recursion stays bounded only for
@@ -587,8 +647,8 @@ def consensus(torch, api, T, ops, dev, *, topo, shape: dict, schedule: str,
     gamma_max = (1.0 / lam - 1.0) * b / (2.0 * c_prime * d_s)
     gamma_n = 0.5 * gamma_max
     session = api.Session.build(topo, privacy=api.PrivacySpec(
-        b=b, gamma_n=gamma_n, c_prime=c_prime, lam=lam), schedule=schedule,
-        seed=SEED)
+        b=b, gamma_n=gamma_n, c_prime=c_prime, lam=lam),
+        schedule=None if default_schedule else schedule, seed=SEED)
     require(session.plan.use_kernels and session.device.type == "cuda",
             "the session did not pick the card and its kernels")
     require(session.plan.schedule == schedule, "schedule")
@@ -636,6 +696,7 @@ def consensus(torch, api, T, ops, dev, *, topo, shape: dict, schedule: str,
                                          d_s, gamma_n)
     return dict(phase=phase, n=n, d_s=d_s, d_pad=d_pad_of(d_s),
                 topology=type(topo).__name__, schedule=schedule, csr_k=k,
+                sync_interval=session.cfg.sync_interval,
                 rounds=CONSENSUS_ROUNDS, c_prime=c_prime, lam=lam,
                 calibrate_s=calib_s, b=b, gamma_n=gamma_n,
                 gamma_n_stability_limit=gamma_max, run_ms=run_ms,
@@ -1192,12 +1253,15 @@ def serve_agreement(torch, ops, dev) -> dict:
 
 def mix_wide(torch, ops, ref, dev) -> dict:
     """``pushsum_mix`` at N > 32 (its tiled kernel) against its plain
-    version, with ``torch.matmul`` timed beside it, at :data:`MIX_WIDE`;
-    then its fma chain bit for bit against the template kernel's at N = 32
-    (a 33-node W whose last row and column are zero, first 32 rows) and
-    against ``spmm`` on ER(64)'s CSR. Tolerance rtol 1e-5 / atol 1e-6: fma
-    in j order against cuBLAS's order."""
+    version, with ``torch.matmul`` timed beside it, at :data:`MIX_WIDE`,
+    and every tile of ``ops.MIX_TILES`` at each shape giving the default
+    plan's bits; then its fma chain bit for bit against the template
+    kernel's at N = 32 (a 33-node W whose last row and column are zero,
+    first 32 rows) and against ``spmm`` on ER(64)'s and ER(4096)'s CSR.
+    Tolerance rtol 1e-5 / atol 1e-6: fma in j order against cuBLAS's
+    order."""
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    plan = ops.mix_plan
     out = {}
     for n, d in MIX_WIDE:
         gen = torch.Generator(device=dev).manual_seed(SEED + n)
@@ -1210,9 +1274,19 @@ def mix_wide(torch, ops, ref, dev) -> dict:
                     f"{err}")
         require(torch.equal(ops.pushsum_mix(w, x), got),
                 f"pushsum_mix gives other bits on a second launch at N={n}")
+        for tile in ops.MIX_TILES:
+            ops.mix_plan = lambda n_, d_, sms_, tile=tile: plan(n_, d_, sms_,
+                                                                tile)
+            try:
+                same = torch.equal(ops.pushsum_mix(w, x), got)
+            finally:
+                ops.mix_plan = plan
+            require(same, f"pushsum_mix tile {tile} gives other bits at "
+                          f"N={n}, D={d}")
         iters = 20 if n * d > 1 << 22 else 200
         out[f"n{n}_d{d}"] = dict(
-            n=n, d=d, plan=ops.mix_plan(n, d, sms), max_abs_err=err,
+            n=n, d=d, plan=plan(n, d, sms), max_abs_err=err,
+            every_tile_same_bits=True,
             ms=cuda_ms(torch, lambda: ops.pushsum_mix(w, x), iters),
             plain_ms=cuda_ms(torch, lambda: ref.pushsum_mix(w, x), iters // 2),
             library_ms=cuda_ms(torch, lambda: torch.matmul(w, x), iters // 2),
@@ -1228,27 +1302,97 @@ def mix_wide(torch, ops, ref, dev) -> dict:
     equals_template = bool(torch.equal(
         wide[:32], ops.pushsum_mix(w32, x[:32].contiguous())))
     require(equals_template, "the tiled mix differs from the template at N=32")
-    idx, vals, w, _ = csr_of(torch, sparse_graph(64), dev)
-    x = torch.randn((64, 1 << 20), generator=gen, device=dev)
-    equals_spmm = bool(torch.equal(ops.spmm(idx, vals, x),
-                                   ops.pushsum_mix(w, x)))
-    require(equals_spmm, "pushsum_mix differs from spmm on ER(64)")
+    equals_spmm = {}
+    for name, topo, d in (("er64", sparse_graph(64), 1 << 20),
+                          ("er4096_d8", sparse_graph(
+                              SPARSE_SWEEP["n"], SPARSE_SWEEP["seed"]),
+                           SPARSE_SWEEP["d"]),
+                          ("er4096_d128", sparse_graph(
+                              SPARSE_SWEEP["n"], SPARSE_SWEEP["seed"]), 128)):
+        idx, vals, w, _ = csr_of(torch, topo, dev)
+        x = torch.randn((topo.n_nodes, d), generator=gen, device=dev)
+        equals_spmm[name] = bool(torch.equal(ops.spmm(idx, vals, x),
+                                             ops.pushsum_mix(w, x)))
+        require(equals_spmm[name], f"pushsum_mix differs from spmm on {name}")
     del x, wide
     torch.cuda.empty_cache()
     return dict(phase="mix_wide", results=out,
                 tiled_equals_template_at_32=equals_template,
-                equals_spmm_er64=equals_spmm)
+                equals_spmm=equals_spmm)
 
 
-# -- phase 13: the row kernels past 65,535 rows ------------------------------
+# -- phase 13: the default dense schedule on ER(4096) -------------------------
+
+def dense_er4096(torch, api, T, ops, dev) -> dict:
+    """bench_sparse.py's widest dense point as a user runs it:
+    ``Session.build(ErdosRenyiGraph(4096, p=8/4096, seed=2024))`` with the
+    schedule left to its default (dense: every round mixes through
+    ``pushsum_mix``'s tiled kernel at (4096, 128)), ``run(20)`` at d_s = 8;
+    then the same graph on the sparse schedule. The recursion's constants
+    are bench_sparse.py's (C' 0.8, lambda 0.6): the calibration's pairwise
+    sweep is O(N^2) a round on the host."""
+    from repro_torch.core.dpps import is_sync_round
+    from repro_torch.net import ErdosRenyiGraph
+
+    n, d = SPARSE_SWEEP["n"], SPARSE_SWEEP["d"]
+    topo = ErdosRenyiGraph(n, p=8.0 / n, seed=SPARSE_SWEEP["seed"])
+    shape = dict(n=n, d_s=d)
+    plan = ops.mix_plan(n, d_pad_of(d), torch.cuda.get_device_properties(
+        dev).multi_processor_count)
+    require(plan["kernel"] != "template", f"mix plan {plan}")
+    dense = consensus(torch, api, T, ops, dev, topo=topo, shape=shape,
+                      schedule="dense", phase="dense_er4096",
+                      expected=DENSE_PATH, absent=("spmm",),
+                      constants=(0.8, 0.6), default_schedule=True)
+    mixes = sum(not is_sync_round(t, dense["sync_interval"])
+                for t in range(CONSENSUS_ROUNDS))
+    require(dense["launches"]["pushsum_mix"] == mixes,
+            f"pushsum_mix launched {dense['launches']['pushsum_mix']} times "
+            f"in {CONSENSUS_ROUNDS} rounds with {mixes} mixes")
+    sparse = consensus(torch, api, T, ops, dev, topo=topo, shape=shape,
+                       schedule="sparse", phase="sparse_er4096",
+                       expected=SPARSE_PATH, absent=("pushsum_mix",),
+                       constants=(0.8, 0.6))
+    return dict(dense, mix_plan=plan, mixes=mixes, sparse_schedule=sparse,
+                dense_over_sparse=dense["ms_per_round"]
+                / sparse["ms_per_round"])
+
+
+# -- phase 14: the row kernels past 65,535 rows ------------------------------
+
+def perturb_plans_agree(torch, ops, s, eps, scale, d_s: int, want) -> list:
+    """``dpps_perturb_rows`` (Philox) under each of :data:`PERTURB_PLANS`:
+    s_noise bit for bit ``want``'s (the default plan's), the norms within
+    rtol 1e-5 of it. Returns the plans' names."""
+    for name, tables in PERTURB_PLANS.items():
+        saved = {k: getattr(ops, k) for k in tables}
+        for k, v in tables.items():
+            setattr(ops, k, v)
+        try:
+            got = ops.dpps_perturb_rows(s, eps, scale, 0.1, d_s, seed=SEED,
+                                        t=3)
+        finally:
+            for k, v in saved.items():
+                setattr(ops, k, v)
+        require(torch.equal(got[0], want[0]),
+                f"dpps_perturb_rows plan {name} gives other bits at "
+                f"{tuple(s.shape)}")
+        for g, w in zip(got[1:], want[1:]):
+            require(compare(g, w, rtol=1e-5, atol=0.0)[1],
+                    f"dpps_perturb_rows plan {name} norms at {tuple(s.shape)}")
+        del got
+    return list(PERTURB_PLANS)
+
 
 def rows_wide(torch, ops, ref, dev) -> dict:
     """``l1_norm_rows``, ``dpps_perturb_rows`` (Philox) and
     ``clip_scale_rows`` at :data:`ROWS_WIDE`, each against its plain
-    version (1e4 in the pad lanes), as in phase 2; then one ``dpps_step``
-    on the sparse schedule over a ring of 70,000 nodes (K = 3), the
-    kernels against the plain path on the card from the same state and
-    Philox bits: state rtol 1e-5 plus 1e-6 of its largest magnitude."""
+    version (1e4 in the pad lanes), as in phase 2, the perturbation's
+    s_noise the same bits under every plan there and at the long rows of
+    :data:`PERTURB_LONG`; then one ``dpps_step`` on the sparse schedule
+    over a ring of 70,000 nodes (K = 3), the kernels against the plain
+    path on the card from the same state and Philox bits: state rtol 1e-5
+    plus 1e-6 of its largest magnitude."""
     from repro_torch.core.dpps import DPPSConfig, dpps_init, dpps_step
     from repro_torch.core.packing import PackedLayout
 
@@ -1273,6 +1417,7 @@ def rows_wide(torch, ops, ref, dev) -> dict:
         for k, p in zip(k_out[1:], p_out[1:]):
             require(compare(k, p, rtol=1e-5, atol=0.0)[1],
                     f"dpps_perturb_rows norms disagree at N={n}")
+        plans = perturb_plans_agree(torch, ops, s, eps, scale, d_s, k_out)
         denom = torch.clamp_min(norms / norms.median(), 1.0)
         clipped = ops.clip_scale_rows(s, d_s, denom)
         require(torch.equal(clipped, ref.clip_scale_rows(s, d_s, denom)),
@@ -1288,14 +1433,14 @@ def rows_wide(torch, ops, ref, dev) -> dict:
                     eps[:, :d_s], 1, dim=1), 20),
                 bound=bound(4.0 * n * d_s + 4 * n, f32_ops=2.0 * n * d_s)),
             "dpps_perturb_rows": dict(
-                max_abs_err=err_p,
+                max_abs_err=err_p, plan=ops.perturb_plan(n, d_pad),
+                plans_same_bits=plans,
                 ms=cuda_ms(torch, lambda: ops.dpps_perturb_rows(
                     s, eps, scale, 0.1, d_s, seed=SEED, t=3), 50),
                 plain_ms=cuda_ms(torch, lambda: ref.dpps_perturb_rows(
                     s, eps, scale, 0.1, d_s, seed=SEED, t=3), 5),
-                library_ms=None,
-                bound=bound(8.0 * n * d_s + 4.0 * n * d_pad + 8 * n + 4,
-                            f32_ops=17.0 * n * d_s, int_ops=25.0 * n * d_s)),
+                library_ms=None, copy_ms=copy_ms(torch, s, eps, 50),
+                bound=perturb_bound(n, d_s, d_pad)),
             "clip_scale_rows": dict(
                 max_abs_err=0.0,
                 ms=cuda_ms(torch, lambda: ops.clip_scale_rows(s, d_s, denom),
@@ -1306,6 +1451,15 @@ def rows_wide(torch, ops, ref, dev) -> dict:
                 bound=bound(8.0 * n * d_pad + 4 * n, f32_ops=1.0 * n * d_s)),
         }
         del s, eps
+    # the long rows: every plan, s_noise bit for bit
+    n, d_s = PERTURB_LONG["n"], PERTURB_LONG["d_s"]
+    gen = torch.Generator(device=dev).manual_seed(SEED + n)
+    s = torch.randn((n, d_pad_of(d_s)), generator=gen, device=dev)
+    eps = torch.randn_like(s)
+    scale = torch.tensor(0.7, device=dev)
+    want = ops.dpps_perturb_rows(s, eps, scale, 0.1, d_s, seed=SEED, t=3)
+    long_plans = perturb_plans_agree(torch, ops, s, eps, scale, d_s, want)
+    del s, eps, want
     # one round on a ring of RING["n"] nodes
     n, d_s = RING["n"], RING["d_s"]
     i = torch.arange(n, device=dev)
@@ -1342,11 +1496,13 @@ def rows_wide(torch, ops, ref, dev) -> dict:
             f"ring dpps_step launches {counts}")
     del ring, got, want, x, eps
     torch.cuda.empty_cache()
-    return dict(phase="rows_wide", results=out, ring=dict(
-        RING, k=3, max_abs_err=err, launches=counts))
+    return dict(phase="rows_wide", results=out,
+                perturb_long_rows=dict(PERTURB_LONG,
+                                       plans_same_bits=long_plans),
+                ring=dict(RING, k=3, max_abs_err=err, launches=counts))
 
 
-# -- phase 14: PartPSP training of llama3.2-1b at full width ------------------
+# -- phase 15: PartPSP training of llama3.2-1b at full width ------------------
 
 def stability_gamma_n(T, topo, d_s: int, b: float = 1.0) -> tuple:
     """(C', lambda, the Remark-1 recursion's stability limit on gamma_n,
@@ -1554,7 +1710,7 @@ def transformer_training(torch, ops, T, dev) -> dict:
     return out
 
 
-# -- phase 15: training, the card against the CPU -----------------------------
+# -- phase 16: training, the card against the CPU -----------------------------
 
 def philox_rows(torch, ref, t: int, n: int, d_s: int, dev):
     """Round t's Philox bits (N, d_s) uint32 on the card, built in windows
@@ -1676,7 +1832,8 @@ def kernel_entry(name: str, r: dict, launches: int, **extra) -> dict:
 
 HOST_DEVICE_KEYS = ("host_us", "device_us", "kernels_a_call",
                     "library_host_us", "library_device_us",
-                    "library_kernels_a_call", "plan")
+                    "library_kernels_a_call", "copy_ms", "copy_host_us",
+                    "copy_device_us", "copy_kernels_a_call", "plan")
 
 
 def at_shape(r: dict) -> dict:
@@ -1727,21 +1884,29 @@ def main() -> int:
         (args.out / "ptxas.txt").write_text("\n".join(
             f"== {k}\n{v['ptxas']}" for k, v in report.items()))
     # ptxas's registers and spills of four kernels (pushsum_mix: both of its
-    # kernels, every instantiation); flash's and spmm's
-    # shared memory is dynamic (flash: by head dim here; spmm: in each plan
-    # below)
+    # kernels, every instantiation); flash's, spmm's and the mix tiles'
+    # shared memory is dynamic (flash and the mix tiles: here; spmm: in
+    # each plan below)
     brief = {k: ptxas_brief(ptxas_summary(report[k]["ptxas"], kernel))
              for k, kernel in (("pushsum_mix", "mix_"),
-                               ("l1_norm", "l1_norm_kernel"))}
+                               ("l1_norm", "l1_norm_kernel"),
+                               ("dpps_perturb", "perturb_kernel"))}
     emit(dict(phase="build", seconds=build_s, kernels={
         k: {"seconds": v["seconds"], "cached": v["cached"]}
         for k, v in report.items()}, ptxas={
-        k: ptxas_summary(report[k]["ptxas"], kernel)
-        for k, kernel in (("flash_attention", "flash_attention_kernel"),
-                          ("spmm", "spmm_"))}, ptxas_brief=brief,
+        k: ptxas_summary(report[source]["ptxas"], kernel)
+        for k, source, kernel in (
+            ("flash_attention", "flash_attention", "flash_attention_kernel"),
+            ("spmm", "spmm", "spmm_"),
+            ("pushsum_mix_tiles", "pushsum_mix", "mix_tile_kernel"),
+            ("dpps_perturb", "dpps_perturb", "perturb_kernel"))},
+        ptxas_brief=brief,
         flash_dynamic_smem_bytes={
             d: ops.flash_geometry(1, 1, 1, d)["smem_bytes"]
-            for d in ops.FLASH_HEAD_DIMS}))
+            for d in ops.FLASH_HEAD_DIMS},
+        mix_dynamic_smem_bytes={
+            tile: ops.mix_plan(33, 1, 1, tile)["smem_bytes"]
+            for tile in ops.MIX_TILES}))
     for k, b in brief.items():
         # a library built by an earlier process of this checkout has no report
         require(report[k]["cached"] or b["instantiations"] > 0,
@@ -1778,9 +1943,9 @@ def main() -> int:
     # every timed path
     small = {"paper": paper, "sparse_train": sparse_train}
     calls = small_shape_calls(torch, ops, dev)
-    for (shape, k), (fn, library) in calls.items():
-        small[shape][k].update(host_us=host_us(torch, fn),
-                               library_host_us=host_us(torch, library))
+    for (shape, k), (fn, other, name) in calls.items():
+        small[shape][k].update({"host_us": host_us(torch, fn),
+                                f"{name}_host_us": host_us(torch, other)})
     emit(dict(phase="kernels", paper_shape=PAPER, full_shape=FULL,
               sparse_full_shape=SPARSE_FULL, sparse_train_shape=SPARSE_TRAIN,
               training_shape=TRAIN_FULL,
@@ -1842,6 +2007,9 @@ def main() -> int:
 
     wide = mix_wide(torch, ops, ref, dev)
     emit(wide)
+    er = dense_er4096(torch, api, T, ops, dev)
+    emit(er)
+    launches += [er["launches"], er["sparse_schedule"]["launches"]]
     rows = rows_wide(torch, ops, ref, dev)
     emit(rows)
     lm = transformer_training(torch, ops, T, dev)
@@ -1849,11 +2017,11 @@ def main() -> int:
     launches.append(lm["launches"])
     emit(training_agreement(torch, ops, ref, T, dev))
 
-    for (shape, k), (fn, library) in calls.items():
+    for (shape, k), (fn, other, name) in calls.items():
         r = small[shape][k]
         r["device_us"], r["kernels_a_call"] = device_us(torch, fn)
-        r["library_device_us"], r["library_kernels_a_call"] = device_us(
-            torch, library)
+        r[f"{name}_device_us"], r[f"{name}_kernels_a_call"] = device_us(
+            torch, other)
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True, check=True,
@@ -1878,7 +2046,7 @@ def main() -> int:
             name, dict(f, max_abs_err=max(
                 [f["max_abs_err"]] + [a["max_abs_err"] for a in at.values()])),
             total[name], shape=dict(FULL, d_pad=d_pad_of(FULL["d_s"])),
-            **{k: f[k] for k in ("plan",) if k in f}, **at))
+            **{k: f[k] for k in ("plan", "copy_ms") if k in f}, **at))
     sp = spmm["full"]
     kernels.append(kernel_entry(
         "spmm", dict(sp, max_abs_err=max(r["max_abs_err"]

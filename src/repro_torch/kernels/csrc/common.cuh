@@ -1,14 +1,13 @@
 // Shared pieces of the kernels: the Laplace transform (dpps_perturb.cu,
-// laplace_noise.cu), the two-pass row reduction (dpps_perturb.cu; l1_norm.cu
-// takes block_sum and sums its partials in pass two's order in one pass)
-// and the 16-byte asynchronous copies that fill the shared-memory rings of
-// flash_attention.cu and spmm.cu.
+// laplace_noise.cu), the block reduction in a fixed order and the
+// read-once 16-byte load of the row kernels (l1_norm.cu, dpps_perturb.cu,
+// which finish each row's sum in one launch through per-row ticket
+// counters), and the asynchronous copies that fill the shared-memory rings
+// of flash_attention.cu, spmm.cu and pushsum_mix.cu.
 //
-// The row-reduction kernels reduce each row of a (N, d_pad) f32 buffer in
-// two passes: pass one gives one partial per (row, chunk) block, pass two
-// sums a row's partials in a fixed order. No atomics, so the result is deterministic.
-// Element offsets are int64 throughout: at the full-width shape N * d_pad
-// exceeds 2^31.
+// No float atomics anywhere, so every sum is deterministic. Element
+// offsets are int64 throughout: at the full-width shape N * d_pad exceeds
+// 2^31.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -22,7 +21,7 @@ constexpr int kThreads = 256;
 // block of kMaxGridRows, each kernel told its first row.
 constexpr int64_t kMaxGridRows = 65535;
 constexpr int kQuadsPerThread = 8;
-// Elements per pass-one block: the 64 x 128 tile of the Pallas kernels.
+// Elements a block of clip_scale.cu: the 64 x 128 tile of the Pallas kernels.
 constexpr int64_t kChunk = (int64_t)kThreads * kQuadsPerThread * 4;
 
 // Laplace(0, scale) from uint32 bits by the inverse CDF, the transform of
@@ -55,6 +54,16 @@ __device__ __forceinline__ float block_sum(float v, float* smem) {
   return total;
 }
 
+// A 16-byte load of data this kernel reads once: through the read-only
+// path, without allocating in L1.
+__device__ __forceinline__ float4 ld_once(const float4* p) {
+  float4 v;
+  asm("ld.global.nc.L1::no_allocate.v4.f32 {%0, %1, %2, %3}, [%4];"
+      : "=f"(v.x), "=f"(v.y), "=f"(v.z), "=f"(v.w)
+      : "l"(p));
+  return v;
+}
+
 // 16 bytes from device memory to shared memory without passing through
 // registers (cp.async, L2 only). With `valid` false nothing is read and
 // the 16 bytes are zero-filled; `src` must still be a device address.
@@ -62,6 +71,14 @@ __device__ __forceinline__ void cp_async16(void* dst, const void* src, bool vali
   const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d), "l"(src),
                "r"(valid ? 16 : 0)
+               : "memory");
+}
+
+// 4 bytes the same way (cp.async.ca: no 16-byte alignment needed).
+__device__ __forceinline__ void cp_async4(void* dst, const void* src, bool valid) {
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(d), "l"(src),
+               "r"(valid ? 4 : 0)
                : "memory");
 }
 
@@ -75,18 +92,6 @@ __device__ __forceinline__ void cp_async_commit() {
 template <int kPending>
 __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(kPending) : "memory");
-}
-
-// Pass two: out[row] = sum over partials[row, 0:n_chunks]; one block a row.
-static __global__ void sum_partials_kernel(const float* __restrict__ partials,
-                                           int64_t n_chunks,
-                                           float* __restrict__ out) {
-  __shared__ float smem[32];
-  const float* p = partials + (int64_t)blockIdx.x * n_chunks;
-  float acc = 0.f;
-  for (int64_t j = threadIdx.x; j < n_chunks; j += blockDim.x) acc += p[j];
-  const float total = block_sum(acc, smem);
-  if (threadIdx.x == 0) out[blockIdx.x] = total;
 }
 
 }  // namespace repro_torch

@@ -24,26 +24,18 @@
 //   default loads); the 8 sums are added in index order at the end, then
 //   over the block (common.cuh block_sum).
 // * One partial per (row, block). The block of the row that draws the last
-//   ticket of a per-row counter sums the row's partials as
-//   sum_partials_kernel does (common.cuh; with this block's threads) and
-//   puts the counter back to zero. A second launch instead cost about 4 us
+//   ticket of a per-row counter sums the row's partials (thread t adds
+//   partials t, t + blockDim.x, ..., then block_sum) and puts the counter
+//   back to zero. A second launch instead cost about 4 us
 //   of host time a call at the paper shape and saved nothing at full width
 //   (sweep, variant not kept). The wrapper keeps one set of counters for
 //   each stream, so two streams never share one, and gives a launch
 //   captured into a CUDA graph counters of its own
-//   (repro_torch.kernels.ops._l1_scratch). No float atomics: the same bits
+//   (repro_torch.kernels.ops._row_scratch). No float atomics: the same bits
 //   every launch.
 #include "common.cuh"
 
 namespace repro_torch {
-
-__device__ __forceinline__ float4 ld_once(const float4* p) {
-  float4 v;
-  asm("ld.global.nc.L1::no_allocate.v4.f32 {%0, %1, %2, %3}, [%4];"
-      : "=f"(v.x), "=f"(v.y), "=f"(v.z), "=f"(v.w)
-      : "l"(p));
-  return v;
-}
 
 __device__ __forceinline__ float abs_sum(const float4 v) {
   return fabsf(v.x) + fabsf(v.y) + fabsf(v.z) + fabsf(v.w);
@@ -94,7 +86,7 @@ __global__ void l1_norm_kernel(const float* __restrict__ buf, int64_t row0, int6
   }
   __syncthreads();
   if (!last) return;
-  // every partial of the row has landed: sum them as sum_partials_kernel does
+  // every partial of the row has landed: sum them in a fixed order
   float a = 0.f;
   for (int64_t j = threadIdx.x; j < gridDim.x; j += blockDim.x) a += __ldcg(p + j);
   a = block_sum(a, smem);

@@ -20,29 +20,55 @@
 // outputs. N is a template parameter (1..32) so the column stays in
 // registers.
 //
-// N > 32 (mix_wide_kernel): at 2N flops for 8 bytes an element the mix
+// N > 32 (mix_tile_kernel): at 2N flops for 8 bytes an element the mix
 // turns bound by the f32 CUDA cores near N = 64 (67 TFLOP/s against 3.35
-// TB/s), and a column no longer fits in registers. A block of 256 threads
-// owns a tile of 8 TM output rows x 128 columns (TM = 8, or 2 where the
-// card would otherwise hold too few blocks: the wrapper's plan,
-// repro_torch.kernels.ops.mix_plan). It walks the senders in steps of 16,
-// staging W[rows, step] (transposed, rows padded by 4 floats against bank
-// conflicts) and x[step, cols] in shared memory, two buffers deep with the
-// next step's loads in flight during this step's fmas. Each thread keeps
-// TM x 4 sums in registers (rows ty TM .. + TM, columns tx + 32 c), reading
-// TM broadcast W values and 4 x values a sender for 4 TM fmas. Loads and
-// stores of x and out are scalar and coalesced, so x needs no alignment and
-// D may be anything. Blocks are numbered row tile fastest, so the blocks
-// that share a column tile of x run together and read it from L2.
-#include <cuda_runtime.h>
-#include <stdint.h>
+// TB/s), and a column no longer fits in registers. An SGEMM-shaped kernel
+// without split-K (a split over the senders would break the one chain an
+// output): a block owns a BM x BN tile of out and walks the senders in
+// stages of BK, each stage's W[rows, stage] and x[stage, cols] copied to
+// shared memory by cp.async into a ring of STAGES slots, so the copies of
+// the next STAGES - 1 stages are in flight while one is multiplied, one
+// barrier a stage. W is staged as it lies (rows of BK senders padded by 4
+// floats, an odd number of 16-byte quads, so lanes on neighbouring rows
+// hit other banks) and read as 16-byte quads: four senders of a row a
+// load. Each thread owns TM rows (ty, ty + BM/TM, ...) x TN columns (in
+// loads of up to 4 neighbouring columns, BN/(TN/4) apart) and so TM TN
+// sums in registers, each sender costing it TM/4 + max(TN/4, 1) shared
+// loads for TM TN fmas; in a stage of real senders the next sender's
+// loads are issued before this one's fmas. Copies are 16 bytes where W's
+// or x's rows are 16-byte aligned (N or D % 4 == 0 and an aligned base),
+// else 4 bytes, so x needs no alignment and D may be anything; past N or
+// D they fill zeros that no output keeps.
+//
+// The tiles (ops.MIX_TILES, chosen by ops.mix_plan from N, D and the
+// card's SMs; this file instantiates exactly those and refuses others),
+// each the fastest at its shapes of the 21 tiles and stagings timed
+// (repro_torch.kernels.sweep, H100 80GB HBM3 at 700 W):
+// * 128 x 128, 8 x 8 a thread: large D and N, where the f32 cores bound it;
+// * 64 x 128: N <= 64 in one row tile, so x is read from device memory
+//   once (bytes-bound at N = 33..64);
+// * 32 x 64, 4 x 4 a thread, stages of 64 senders: enough blocks where D
+//   is narrow against N (N = 4096, D = 128 gives 256 blocks, the 128 x 128
+//   tile 32);
+// * 16 x 8, one column a thread, for D <= 8, where W's bytes bound it (N =
+//   4096, D = 8: 64 MB of W against 0.27 GFLOP): a column tile sized to D,
+//   so no lane stages zeros, a thread for each output (with 4 columns a
+//   thread the card held 2 warps an SM and ran 1.4x slower), and a deep
+//   ring of long stages (BK = 128) streaming W's rows.
+// A block for each tile, numbered row tile fastest where D >= N (the
+// blocks that share a column tile of x run together and read it from L2),
+// else column tile fastest (those that share a row tile of W). A block
+// whose last rows pass N runs the fmas of its real rows only. Variants not
+// kept: persistent blocks with the ring running on from tile to tile were
+// 2-25 % slower at every shape (more registers, fewer blocks an SM); W
+// staged transposed, 8 neighbouring rows a thread read one sender ahead,
+// 13 % slower at N = 256 (145 registers, capped at 128 with a spill).
+#include "common.cuh"
 
 namespace repro_torch {
 
 constexpr int kMixThreads = 256;
 constexpr int kMaxNodes = 32;
-constexpr int kWideCols = 128;  // columns of a wide block tile: 32 lanes x 4
-constexpr int kWideDepth = 16;  // senders staged in shared memory a step
 
 template <int N>
 __global__ void mix_kernel(const float* __restrict__ w, const float* __restrict__ x,
@@ -70,130 +96,314 @@ static void launch(const float* w, const float* x, float* out, int64_t d, cudaSt
   mix_kernel<N><<<blocks, kMixThreads, 0, st>>>(w, x, out, d);
 }
 
-// One sender jj of the staged step: TM x 4 fmas from TM broadcast W values
-// (16- or 8-byte shared loads: with 4 scalar x loads a sender, the shared
-// memory pipe keeps pace with the fmas) and 4 x values.
-template <int TM, int BM>
-__device__ __forceinline__ void mix_wide_step(float (*ws)[BM + 4], float (*xs)[kWideCols],
-                                              int jj, int ty, int tx, float (&acc)[TM][4]) {
-  static_assert(TM % 2 == 0, "W rows are read in pairs or quads");
-  float wv[TM], xv[4];
-  const float* wrow = &ws[jj][ty * TM];  // 8 TM-byte aligned
-  if constexpr (TM % 4 == 0) {
-#pragma unroll
-    for (int r = 0; r < TM; r += 4) {
-      const float4 q = *reinterpret_cast<const float4*>(wrow + r);
-      wv[r] = q.x;
-      wv[r + 1] = q.y;
-      wv[r + 2] = q.z;
-      wv[r + 3] = q.w;
-    }
+// One tile shape of the N > 32 kernel: BM x BN outputs a block, TM x TN a
+// thread, BK senders a stage, STAGES stages in the ring.
+template <int BM, int BN, int TM, int TN, int BK, int STAGES>
+struct MixTile {
+  static_assert((TN == 1 || TN == 2 || TN % 4 == 0) && BN % TN == 0 && BM % TM == 0, "tile");
+  static_assert(BK % 8 == 0, "a staged W row must hold an odd number of quads");
+  static constexpr int kRowGroups = BM / TM;
+  static constexpr int kColGroups = BN / TN;
+  static constexpr int kThreads = kRowGroups * kColGroups;
+  static constexpr int kVec = TN < 4 ? TN : 4;         // columns a shared load
+  static constexpr int kVecs = TN / kVec;              // shared loads a sender
+  static constexpr int kVecStride = BN / kVecs;        // columns between them
+  static constexpr int kWStride = BK + 4;              // floats a staged W row
+  static constexpr int kStageFloats = BM * kWStride + BK * BN;
+  static constexpr int kSmemBytes = STAGES * kStageFloats * 4;
+};
+
+// V (1, 2 or 4) neighbouring floats from shared memory in one load.
+template <int V>
+__device__ __forceinline__ void lds_vec(const float* p, float* v) {
+  if constexpr (V == 4) {
+    const float4 t = *reinterpret_cast<const float4*>(p);
+    v[0] = t.x;
+    v[1] = t.y;
+    v[2] = t.z;
+    v[3] = t.w;
+  } else if constexpr (V == 2) {
+    const float2 t = *reinterpret_cast<const float2*>(p);
+    v[0] = t.x;
+    v[1] = t.y;
   } else {
-#pragma unroll
-    for (int r = 0; r < TM; r += 2) {
-      const float2 q = *reinterpret_cast<const float2*>(wrow + r);
-      wv[r] = q.x;
-      wv[r + 1] = q.y;
-    }
+    v[0] = *p;
   }
-#pragma unroll
-  for (int c = 0; c < 4; ++c) xv[c] = xs[jj][tx + 32 * c];
-#pragma unroll
-  for (int r = 0; r < TM; ++r)
-#pragma unroll
-    for (int c = 0; c < 4; ++c) acc[r][c] = fmaf(wv[r], xv[c], acc[r][c]);
 }
 
-// Block b: row tile b % row_tiles (8 TM rows), column tile b / row_tiles
-// (128 columns). The staged senders are double-buffered: a step's compute
-// runs on one buffer while the next step's W and x values are already
-// loaded into registers, then stored into the other buffer; one barrier a
-// step.
-template <int TM>
-__global__ void __launch_bounds__(kMixThreads)
-    mix_wide_kernel(const float* __restrict__ w, const float* __restrict__ x,
-                    float* __restrict__ out, int64_t n, int64_t d, int64_t row_tiles) {
-  constexpr int BM = 8 * TM;
-  constexpr int kWLoads = BM * kWideDepth / kMixThreads;         // W values a thread stages
-  constexpr int kXLoads = kWideDepth * kWideCols / kMixThreads;  // x values a thread stages
-  // ws[b][jj][r] = W[row0 + r, j0 + jj], xs[b][jj][c] = x[j0 + jj, col0 + c]
-  __shared__ __align__(16) float ws[2][kWideDepth][BM + 4];
-  __shared__ __align__(16) float xs[2][kWideDepth][kWideCols];
-  const int tx = threadIdx.x & 31, ty = threadIdx.x >> 5;
-  const int64_t row0 = ((int64_t)blockIdx.x % row_tiles) * BM;
-  const int64_t col0 = ((int64_t)blockIdx.x / row_tiles) * kWideCols;
-  const int64_t cols = d - col0 < kWideCols ? d - col0 : kWideCols;  // real columns
-  float wr[kWLoads], xr[kXLoads];
-  // the W and x values of the step at sender j0 into registers (0 past N)
-  auto fetch = [&](int64_t j0) {
+// flags of a launch: 16-byte copies of W's rows, of x's rows, stores of
+// out; tiles numbered column tile fastest
+constexpr int kVecW = 1, kVecX = 2, kVecOut = 4, kColsFastest = 8;
+
+// Copy stage [j0, j0 + BK) of W's rows [row0, row0 + BM) and x's columns
+// [col0, col0 + BN) into one ring slot (zeros past N and D).
+template <int BM, int BN, int TM, int TN, int BK, int STAGES>
+__device__ __forceinline__ void mix_load(float* slot, const float* __restrict__ w,
+                                         const float* __restrict__ x, int64_t n, int64_t d,
+                                         int64_t row0, int64_t col0, int64_t j0, int flags) {
+  using T = MixTile<BM, BN, TM, TN, BK, STAGES>;
+  float* ws = slot;                       // ws[r][jj] = W[row0 + r, j0 + jj]
+  float* xs = slot + BM * T::kWStride;    // xs[jj][c] = x[j0 + jj, col0 + c]
+  // Each loop hands element e = threadIdx.x + it T of the stage to this thread.
+  constexpr int kWQuads = BM * BK / 4, kXQuads = BK * BN / 4;
+  if (flags & kVecW) {
 #pragma unroll
-    for (int k = 0; k < kWLoads; ++k) {
-      const int e = threadIdx.x + k * kMixThreads;
-      const int64_t i = row0 + e / kWideDepth, j = j0 + e % kWideDepth;  // 16 senders of a row
-      wr[k] = (i < n && j < n) ? w[i * n + j] : 0.f;
+    for (int it = 0; it < (kWQuads + T::kThreads - 1) / T::kThreads; ++it) {
+      const int e = threadIdx.x + it * T::kThreads;
+      if (kWQuads % T::kThreads != 0 && e >= kWQuads) break;
+      const int r = e / (BK / 4), jj = 4 * (e % (BK / 4));
+      const int64_t i = row0 + r, j = j0 + jj;  // N % 4 == 0: a quad is all in or all out
+      const bool ok = i < n && j < n;
+      cp_async16(ws + r * T::kWStride + jj, ok ? w + i * n + j : w, ok);
     }
+  } else {
+#pragma unroll 4
+    for (int it = 0; it < (4 * kWQuads + T::kThreads - 1) / T::kThreads; ++it) {
+      const int e = threadIdx.x + it * T::kThreads;
+      if ((4 * kWQuads) % T::kThreads != 0 && e >= 4 * kWQuads) break;
+      const int r = e / BK, jj = e % BK;
+      const int64_t i = row0 + r, j = j0 + jj;
+      const bool ok = i < n && j < n;
+      cp_async4(ws + r * T::kWStride + jj, ok ? w + i * n + j : w, ok);
+    }
+  }
+  if (flags & kVecX) {
 #pragma unroll
-    for (int k = 0; k < kXLoads; ++k) {
-      const int e = threadIdx.x + k * kMixThreads;
-      const int64_t j = j0 + e / kWideCols;
-      const int c = e % kWideCols;
-      xr[k] = (j < n && c < cols) ? x[j * d + col0 + c] : 0.f;
+    for (int it = 0; it < (kXQuads + T::kThreads - 1) / T::kThreads; ++it) {
+      const int e = threadIdx.x + it * T::kThreads;
+      if (kXQuads % T::kThreads != 0 && e >= kXQuads) break;
+      const int jj = e / (BN / 4), c = 4 * (e % (BN / 4));
+      const int64_t j = j0 + jj, col = col0 + c;  // D % 4 == 0
+      const bool ok = j < n && col < d;
+      cp_async16(xs + jj * BN + c, ok ? x + j * d + col : x, ok);
     }
+  } else {
+#pragma unroll 4
+    for (int it = 0; it < (4 * kXQuads + T::kThreads - 1) / T::kThreads; ++it) {
+      const int e = threadIdx.x + it * T::kThreads;
+      if ((4 * kXQuads) % T::kThreads != 0 && e >= 4 * kXQuads) break;
+      const int jj = e / BN, c = e % BN;
+      const int64_t j = j0 + jj, col = col0 + c;
+      const bool ok = j < n && col < d;
+      cp_async4(xs + jj * BN + c, ok ? x + j * d + col : x, ok);
+    }
+  }
+}
+
+// The fmas of one staged slot over its first `jn` senders (all BK where
+// kFull), in sender order; only the thread's first `live` rows (all TM
+// where !kRowGuard) take them.
+template <int BM, int BN, int TM, int TN, int BK, int STAGES, bool kFull, bool kRowGuard>
+__device__ __forceinline__ void mix_multiply(const float* slot, int ty, int tx, int jn,
+                                             int live, float (&acc)[TM][TN]) {
+  using T = MixTile<BM, BN, TM, TN, BK, STAGES>;
+  const float* ws = slot + ty * T::kWStride;
+  const float* xs = slot + BM * T::kWStride + T::kVec * tx;
+#pragma unroll
+  for (int jj = 0; jj < BK; jj += 4) {
+    if (!kFull && jj >= jn) break;
+    float4 wq[TM];
+#pragma unroll
+    for (int k = 0; k < TM; ++k)
+      wq[k] = *reinterpret_cast<const float4*>(ws + k * T::kRowGroups * T::kWStride + jj);
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      if (!kFull && jj + q >= jn) break;
+      float xv[TN];
+#pragma unroll
+      for (int m = 0; m < T::kVecs; ++m)
+        lds_vec<T::kVec>(xs + (jj + q) * BN + m * T::kVecStride, xv + m * T::kVec);
+#pragma unroll
+      for (int k = 0; k < TM; ++k) {
+        if (kRowGuard && k >= live) break;
+        const float wk = q == 0 ? wq[k].x : q == 1 ? wq[k].y : q == 2 ? wq[k].z : wq[k].w;
+#pragma unroll
+        for (int c = 0; c < TN; ++c) acc[k][c] = fmaf(wk, xv[c], acc[k][c]);
+      }
+    }
+  }
+}
+
+// mix_multiply for a whole stage of real senders and rows, software
+// pipelined: the next sender's x values (and, where registers allow, the
+// next four senders' W values) are loaded before this sender's fmas, so
+// the shared loads' latency hides behind them. The same chains in the same
+// order as mix_multiply.
+template <int BM, int BN, int TM, int TN, int BK, int STAGES>
+__device__ __forceinline__ void mix_multiply_full(const float* slot, int ty, int tx,
+                                                  float (&acc)[TM][TN]) {
+  using T = MixTile<BM, BN, TM, TN, BK, STAGES>;
+  constexpr bool kPrefetchW = TM * TN <= 32;  // 8 TM more registers
+  const float* ws = slot + ty * T::kWStride;
+  const float* xs = slot + BM * T::kWStride + T::kVec * tx;
+  auto load_w = [&](float4 (&q)[TM], int jj) {
+#pragma unroll
+    for (int k = 0; k < TM; ++k)
+      q[k] = *reinterpret_cast<const float4*>(ws + k * T::kRowGroups * T::kWStride + jj);
   };
-  auto stash = [&](int b) {
+  auto load_x = [&](float (&v)[TN], int jj) {
 #pragma unroll
-    for (int k = 0; k < kWLoads; ++k) {
-      const int e = threadIdx.x + k * kMixThreads;
-      ws[b][e % kWideDepth][e / kWideDepth] = wr[k];
-    }
-#pragma unroll
-    for (int k = 0; k < kXLoads; ++k) {
-      const int e = threadIdx.x + k * kMixThreads;
-      xs[b][e / kWideCols][e % kWideCols] = xr[k];
-    }
+    for (int m = 0; m < T::kVecs; ++m)
+      lds_vec<T::kVec>(xs + jj * BN + m * T::kVecStride, v + m * T::kVec);
   };
-  float acc[TM][4];
+  float4 wq[TM], wn[TM];
+  float xv[2][TN];
+  load_w(wq, 0);
+  load_x(xv[0], 0);
 #pragma unroll
-  for (int r = 0; r < TM; ++r)
+  for (int jj = 0; jj < BK; ++jj) {
+    const int q = jj % 4;
+    if (jj + 1 < BK) load_x(xv[(jj + 1) % 2], jj + 1);
+    if (kPrefetchW && q == 2 && jj + 2 < BK) load_w(wn, jj + 2);
 #pragma unroll
-    for (int c = 0; c < 4; ++c) acc[r][c] = 0.f;
-  fetch(0);
-  stash(0);
-  __syncthreads();
-  int b = 0;
-  for (int64_t j0 = 0; j0 < n; j0 += kWideDepth) {
-    const int jn = n - j0 < kWideDepth ? (int)(n - j0) : kWideDepth;
-    const bool more = j0 + kWideDepth < n;
-    if (more) fetch(j0 + kWideDepth);  // in flight during this step's fmas
+    for (int k = 0; k < TM; ++k) {
+      const float wk = q == 0 ? wq[k].x : q == 1 ? wq[k].y : q == 2 ? wq[k].z : wq[k].w;
 #pragma unroll
-    for (int jj = 0; jj < kWideDepth; ++jj)  // only the real senders join the chain
-      if (jj < jn) mix_wide_step<TM, BM>(ws[b], xs[b], jj, ty, tx, acc);
-    if (more) stash(b ^ 1);  // every thread left buffer b ^ 1 at the last barrier
-    __syncthreads();
-    b ^= 1;
+      for (int c = 0; c < TN; ++c) acc[k][c] = fmaf(wk, xv[jj % 2][c], acc[k][c]);
+    }
+    if (q == 3 && jj + 1 < BK) {
+      if (kPrefetchW) {
+#pragma unroll
+        for (int k = 0; k < TM; ++k) wq[k] = wn[k];
+      } else {
+        load_w(wq, jj + 1);
+      }
+    }
+  }
+}
+
+// The rows and columns of output tile t: tiles are numbered along the
+// operand the most blocks share (kColsFastest: column tile fastest, so the
+// blocks that read one row tile of W run together; else row tile fastest,
+// for x), so that operand is read from L2.
+struct MixGrid {
+  int64_t row_tiles, col_tiles;
+  int flags;
+  template <int BM, int BN>
+  __device__ __forceinline__ void origin(int64_t t, int64_t& row0, int64_t& col0) const;
+};
+
+template <int BM, int BN>
+__device__ __forceinline__ void MixGrid::origin(int64_t t, int64_t& row0, int64_t& col0) const {
+  if (flags & kColsFastest) {
+    row0 = t / col_tiles * BM;
+    col0 = t % col_tiles * BN;
+  } else {
+    row0 = t % row_tiles * BM;
+    col0 = t / row_tiles * BN;
+  }
+}
+
+// The block's whole sender walk over its tile: the ring filled STAGES - 1
+// stages ahead, one barrier a stage, each stage multiplied in sender order.
+template <int BM, int BN, int TM, int TN, int BK, int STAGES, bool kRowGuard>
+__device__ __forceinline__ void mix_walk(float* smem, const float* __restrict__ w,
+                                         const float* __restrict__ x, int64_t n, int64_t d,
+                                         int64_t row0, int64_t col0, int flags, int ty,
+                                         int tx, int live, float (&acc)[TM][TN]) {
+  using T = MixTile<BM, BN, TM, TN, BK, STAGES>;
+  const int64_t steps = (n + BK - 1) / BK;
+#pragma unroll
+  for (int st = 0; st < STAGES - 1; ++st) {
+    if (st < steps)
+      mix_load<BM, BN, TM, TN, BK, STAGES>(smem + st * T::kStageFloats, w, x, n, d, row0, col0,
+                                           (int64_t)st * BK, flags);
+    cp_async_commit();
+  }
+  int slot = 0;
+  for (int64_t k = 0; k < steps; ++k) {
+    cp_async_wait<STAGES - 2>();  // stage k has landed for this thread ...
+    __syncthreads();              // ... and for all; all are done with stage k - 1
+    if (k + STAGES - 1 < steps)   // into stage k - 1's slot
+      mix_load<BM, BN, TM, TN, BK, STAGES>(smem + (slot == 0 ? STAGES - 1 : slot - 1) *
+                                                      T::kStageFloats,
+                                           w, x, n, d, row0, col0, (k + STAGES - 1) * BK, flags);
+    cp_async_commit();
+    const float* stage = smem + slot * T::kStageFloats;
+    const int64_t j0 = k * BK;
+    if (j0 + BK > n)  // the last, short stage: only its real senders join the chains
+      mix_multiply<BM, BN, TM, TN, BK, STAGES, false, kRowGuard>(stage, ty, tx, (int)(n - j0),
+                                                                 live, acc);
+    else if (kRowGuard)
+      mix_multiply<BM, BN, TM, TN, BK, STAGES, true, true>(stage, ty, tx, BK, live, acc);
+    else
+      mix_multiply_full<BM, BN, TM, TN, BK, STAGES>(stage, ty, tx, acc);
+    slot = slot == STAGES - 1 ? 0 : slot + 1;
+  }
+}
+
+// Block b owns output tile b (MixGrid::origin).
+template <int BM, int BN, int TM, int TN, int BK, int STAGES>
+__global__ void __launch_bounds__((MixTile<BM, BN, TM, TN, BK, STAGES>::kThreads))
+    mix_tile_kernel(const float* __restrict__ w, const float* __restrict__ x,
+                    float* __restrict__ out, int64_t n, int64_t d, MixGrid grid) {
+  using T = MixTile<BM, BN, TM, TN, BK, STAGES>;
+  extern __shared__ __align__(16) float smem[];
+  const int tx = threadIdx.x % T::kColGroups, ty = threadIdx.x / T::kColGroups;
+  int64_t row0, col0;
+  grid.origin<BM, BN>(blockIdx.x, row0, col0);
+  float acc[TM][TN];
+#pragma unroll
+  for (int k = 0; k < TM; ++k)
+#pragma unroll
+    for (int c = 0; c < TN; ++c) acc[k][c] = 0.f;
+  if (row0 + BM <= n) {
+    mix_walk<BM, BN, TM, TN, BK, STAGES, false>(smem, w, x, n, d, row0, col0, grid.flags, ty, tx,
+                                                TM, acc);
+  } else {  // rows ty + k BM/TM < N: the first `live` of the thread's rows
+    const int64_t real = n - row0 - ty;
+    const int live = real <= 0 ? 0 : (int)((real + T::kRowGroups - 1) / T::kRowGroups);
+    mix_walk<BM, BN, TM, TN, BK, STAGES, true>(smem, w, x, n, d, row0, col0, grid.flags, ty, tx,
+                                               live, acc);
   }
 #pragma unroll
   for (int r = 0; r < TM; ++r) {
-    const int64_t i = row0 + ty * TM + r;
+    const int64_t i = row0 + ty + r * T::kRowGroups;
+    if (i >= n) continue;
 #pragma unroll
-    for (int c = 0; c < 4; ++c) {
-      const int64_t col = col0 + tx + 32 * c;
-      if (i < n && col < d) out[i * d + col] = acc[r][c];
+    for (int m = 0; m < T::kVecs; ++m) {
+      const int64_t col = col0 + m * T::kVecStride + T::kVec * tx;
+      const float* a = acc[r] + m * T::kVec;
+      float* o = out + i * d + col;
+      if (T::kVec == 4 && (grid.flags & kVecOut) && col < d) {  // the quad is all in
+        *reinterpret_cast<float4*>(o) = make_float4(a[0], a[1], a[2], a[3]);
+      } else {
+#pragma unroll
+        for (int c = 0; c < T::kVec; ++c)
+          if (col + c < d) o[c] = a[c];
+      }
     }
   }
 }
 
-template <int TM>
-static int launch_wide(const float* w, const float* x, float* out, int64_t n, int64_t d,
-                       cudaStream_t st) {
-  const int64_t row_tiles = (n + 8 * TM - 1) / (8 * TM);
-  const int64_t blocks = row_tiles * ((d + kWideCols - 1) / kWideCols);
-  if (blocks >= ((int64_t)1 << 31)) return (int)cudaErrorInvalidValue;
-  mix_wide_kernel<TM><<<(unsigned)blocks, kMixThreads, 0, st>>>(w, x, out, n, d, row_tiles);
+template <int BM, int BN, int TM, int TN, int BK, int STAGES>
+static int launch_tile(const float* w, const float* x, float* out, int64_t n, int64_t d,
+                       int64_t smem_bytes, cudaStream_t st) {
+  using T = MixTile<BM, BN, TM, TN, BK, STAGES>;
+  if (smem_bytes != T::kSmemBytes) return (int)cudaErrorInvalidValue;
+  MixGrid grid{(n + BM - 1) / BM, (d + BN - 1) / BN, 0};
+  const int64_t tiles = grid.row_tiles * grid.col_tiles;
+  if (tiles >= ((int64_t)1 << 31)) return (int)cudaErrorInvalidValue;
+  grid.flags = ((uintptr_t)w % 16 == 0 && n % 4 == 0 ? kVecW : 0) |
+               ((uintptr_t)x % 16 == 0 && d % 4 == 0 ? kVecX : 0) |
+               ((uintptr_t)out % 16 == 0 && d % 4 == 0 ? kVecOut : 0) |
+               (d < n ? kColsFastest : 0);  // W (N x N) outweighs x (N x D)
+  auto kernel = mix_tile_kernel<BM, BN, TM, TN, BK, STAGES>;
+  const cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, T::kSmemBytes);
+  if (err != cudaSuccess) return (int)err;
+  kernel<<<(unsigned)tiles, T::kThreads, T::kSmemBytes, st>>>(w, x, out, n, d, grid);
   return (int)cudaGetLastError();
 }
 
 }  // namespace repro_torch
+
+// The tiles of ops.MIX_TILES: (BM, BN, TM, TN, BK, STAGES).
+#define REPRO_MIX_TILES(X) \
+  X(128, 128, 8, 8, 16, 3)   \
+  X(64, 128, 4, 8, 16, 4)    \
+  X(32, 64, 4, 4, 64, 3)     \
+  X(16, 8, 1, 1, 128, 4)
 
 #define REPRO_MIX_CASE(K) \
   case K:                 \
@@ -201,19 +411,27 @@ static int launch_wide(const float* w, const float* x, float* out, int64_t n, in
     break;
 
 // w (n, n) f32, x and out (n, d) f32, n >= 1, d >= 1. n <= 32 takes
-// mix_kernel<n>; n > 32 takes mix_wide_kernel<rows_per_thread>, with
-// rows_per_thread 8 or 2 (the wrapper's plan). Returns cudaGetLastError(),
-// or cudaErrorInvalidValue for arguments the kernels do not take.
+// mix_kernel<n> (the tile arguments all 0); n > 32 takes the
+// mix_tile_kernel instantiation of tile (bm, bn, tm, tn, bk, stages) with
+// its dynamic shared memory smem_bytes (the wrapper's plan). Returns
+// cudaGetLastError(), or cudaErrorInvalidValue for arguments the kernels
+// do not take.
 extern "C" int pushsum_mix(const float* w, const float* x, float* out, int64_t n, int64_t d,
-                           int64_t rows_per_thread, void* stream) {
+                           int64_t bm, int64_t bn, int64_t tm, int64_t tn, int64_t bk,
+                           int64_t stages, int64_t smem_bytes, void* stream) {
   using namespace repro_torch;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (d < 1) return (int)cudaErrorInvalidValue;
   if (n > kMaxNodes) {
-    if (rows_per_thread == 8) return launch_wide<8>(w, x, out, n, d, st);
-    if (rows_per_thread == 2) return launch_wide<2>(w, x, out, n, d, st);
+#define REPRO_MIX_TILE_CASE(BM, BN, TM, TN, BK, STAGES)                                  \
+  if (bm == BM && bn == BN && tm == TM && tn == TN && bk == BK && stages == STAGES)      \
+    return launch_tile<BM, BN, TM, TN, BK, STAGES>(w, x, out, n, d, smem_bytes, st);
+    REPRO_MIX_TILES(REPRO_MIX_TILE_CASE)
+#undef REPRO_MIX_TILE_CASE
     return (int)cudaErrorInvalidValue;
   }
+  if (bm != 0 || bn != 0 || tm != 0 || tn != 0 || bk != 0 || stages != 0 || smem_bytes != 0)
+    return (int)cudaErrorInvalidValue;
   switch (n) {
     REPRO_MIX_CASE(1) REPRO_MIX_CASE(2) REPRO_MIX_CASE(3) REPRO_MIX_CASE(4)
     REPRO_MIX_CASE(5) REPRO_MIX_CASE(6) REPRO_MIX_CASE(7) REPRO_MIX_CASE(8)

@@ -29,20 +29,40 @@ __all__ = ["l1_norm_rows", "dpps_perturb_rows", "pushsum_mix", "spmm",
            "clip_scale_rows", "laplace_from_bits", "l1_clip_tree",
            "laplace_noise_tree", "flash_attention", "flash_attention_bshd",
            "launch_counts", "reset_launch_counts", "spmm_plan", "l1_plan",
-           "mix_plan", "flash_geometry", "flash_strides", "CHUNK",
-           "MIX_TEMPLATE_NODES", "MAX_SPMM_NODES", "FLASH_TILES",
+           "mix_plan", "perturb_plan", "flash_geometry", "flash_strides",
+           "MIX_TEMPLATE_NODES", "MIX_TILES", "MAX_SPMM_NODES", "FLASH_TILES",
            "FLASH_HEAD_DIMS"]
 
-CHUNK = 8192        # columns per pass-one block of csrc/dpps_perturb.cu (kChunk)
 MAX_SPMM_NODES = 2 ** 31 - 1  # csrc/spmm.cu: idx is int32
 
 # csrc/pushsum_mix.cu: N <= MIX_TEMPLATE_NODES takes the kernel with N as a
-# template parameter (one column a thread); larger N the tiled kernel, whose
-# block of 8 warps owns 8 x (rows a thread) rows and MIX_TILE_COLS columns
-# (mix_plan).
+# template parameter (one column a thread); larger N the tiled kernel at one
+# of MIX_TILES: name -> (BM, BN, TM, TN, BK, STAGES), a block's BM x BN
+# outputs, a thread's TM x TN, BK senders a stage, STAGES stages in the
+# cp.async ring (the C file's REPRO_MIX_TILES, which refuses any other).
+# mix_plan: D <= MIX_NARROW_D takes the narrow tile; N <= MIX_ONE_ROW_TILE
+# the 64-row tile (x read from device memory once); else the first of
+# MIX_WIDE_TILES with a tile for each SM, or the last. From
+# repro_torch.kernels.sweep.
 MIX_TEMPLATE_NODES = 32
-MIX_TILE_COLS = 128
-MIX_BLOCKS_PER_SM = 2  # fewer blocks than this a card: 2 rows a thread
+MIX_TILES = {
+    "128x128": (128, 128, 8, 8, 16, 3),
+    "64x128": (64, 128, 4, 8, 16, 4),
+    "32x64": (32, 64, 4, 4, 64, 3),
+    "16x8": (16, 8, 1, 1, 128, 4),
+}
+MIX_NARROW_D = 8
+MIX_ONE_ROW_TILE = 64
+MIX_WIDE_TILES = ("128x128", "64x128", "32x64")
+
+# csrc/dpps_perturb.cu launch plan (perturb_plan), from
+# repro_torch.kernels.sweep: rows of at most PERTURB_SHORT_QUADS quads
+# (d_pad / 4) take PERTURB_ROW_LANES lanes a row, several rows a block;
+# longer rows blocks of PERTURB_QUADS_PER_BLOCK quads
+PERTURB_THREADS = 256
+PERTURB_QUADS_PER_BLOCK = 2048
+PERTURB_SHORT_QUADS = 256
+PERTURB_ROW_LANES = 16
 
 # csrc/l1_norm.cu launch plan (l1_plan), from repro_torch.kernels.sweep
 L1_THREADS = 256
@@ -122,7 +142,7 @@ def l1_norm_rows(buf: torch.Tensor, d_s: int) -> torch.Tensor:
     plan = l1_plan(n, d_s)
     bpr = plan["blocks_per_row"]
     stream = _stream(buf)
-    partials, tickets = _l1_scratch(buf, stream, n * bpr, n)
+    partials, tickets = _row_scratch("l1_norm", buf, stream, n * bpr, n)
     out = buf.new_empty((n,))
     _raise_on(build.function("l1_norm")(
         buf.data_ptr(), n, d_pad, d_s, plan["threads"], bpr,
@@ -132,39 +152,42 @@ def l1_norm_rows(buf: torch.Tensor, d_s: int) -> torch.Tensor:
     return out
 
 
-# (device index, stream handle) -> (partials f32, tickets int32 at zero)
-_L1_SCRATCH: dict[tuple[int, int], tuple[torch.Tensor, torch.Tensor]] = {}
+# (kernel, device index, stream handle) -> (partials f32, tickets int32 at
+# zero)
+_ROW_SCRATCH: dict[tuple, tuple[torch.Tensor, torch.Tensor]] = {}
 
 
-def _l1_scratch(buf: torch.Tensor, stream: int, partials: int,
-                rows: int) -> tuple[torch.Tensor, torch.Tensor]:
-    """The scratch of ``csrc/l1_norm.cu`` on one stream: at least
-    ``partials`` floats and ``rows`` ticket counters at zero.
+def _row_scratch(kernel: str, buf: torch.Tensor, stream: int, partials: int,
+                 rows: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """The scratch of a row kernel that finishes its rows through ticket
+    counters (``csrc/l1_norm.cu``, ``csrc/dpps_perturb.cu``) on one stream:
+    at least ``partials`` floats and ``rows`` ticket counters at zero.
 
-    The kernel is right only while its counters start at zero and no two
+    Such a kernel is right only while its counters start at zero and no two
     launches use one set at once. Eager launches keep one set for each
-    (device, stream handle) between calls: launches on one stream run in
-    order, each leaves the counters at zero, and two streams never share a
-    set (zeroing counters each call cost more host time than the launch).
-    A stream handle names one stream for the process's life for PyTorch's
-    own streams; a ``torch.cuda.ExternalStream`` destroyed while a launch
-    on it is pending must not have its handle reused for another stream
-    that launches this kernel. A launch captured into a CUDA graph gets
-    scratch of its own, allocated in the capture and not kept here: the
-    graph zeroes its counters on every replay, and a replay never shares
-    counters with eager launches or other graphs.
+    (kernel, device, stream handle) between calls: launches on one stream
+    run in order, each leaves the counters at zero, and two streams or two
+    kernels never share a set (zeroing counters each call cost more host
+    time than the launch). A stream handle names one stream for the
+    process's life for PyTorch's own streams; a ``torch.cuda.ExternalStream``
+    destroyed while a launch on it is pending must not have its handle
+    reused for another stream that launches these kernels. A launch
+    captured into a CUDA graph gets scratch of its own, allocated in the
+    capture and not kept here: the graph zeroes its counters on every
+    replay, and a replay never shares counters with eager launches or other
+    graphs.
     """
     if torch.cuda.is_current_stream_capturing():
         return (buf.new_empty((partials,)),
                 torch.zeros((rows,), dtype=torch.int32, device=buf.device))
-    key = (buf.get_device(), stream)
-    have = _L1_SCRATCH.get(key)
+    key = (kernel, buf.get_device(), stream)
+    have = _ROW_SCRATCH.get(key)
     if have is None or have[0].numel() < partials or have[1].numel() < rows:
         size = max(partials, 0 if have is None else have[0].numel())
         count = max(rows, 0 if have is None else have[1].numel())
         have = (buf.new_empty((size,)),
                 torch.zeros((count,), dtype=torch.int32, device=buf.device))
-        _L1_SCRATCH[key] = have
+        _ROW_SCRATCH[key] = have
     return have
 
 
@@ -211,23 +234,52 @@ def dpps_perturb_rows(s: torch.Tensor, eps: torch.Tensor, scale,
     scale = _device_scale(scale, s.device)
     if not (0 <= int(t if t is not None else 0) < 2 ** 32):
         raise ValueError(f"round t={t} out of the uint32 counter range")
-    n_chunks = -(-d_pad // CHUNK)
-    dev = s.device
+    plan = perturb_plan(n, d_pad)
+    bpr = plan["blocks_per_row"]
+    stream = _stream(s)
+    partials = tickets = None
+    if bpr > 1:
+        partials, tickets = _row_scratch("dpps_perturb", s, stream,
+                                         2 * n * bpr, n)
     out = torch.empty_like(s)
-    eps_part = torch.empty((n, n_chunks), dtype=torch.float32, device=dev)
-    noise_part = torch.empty((n, n_chunks), dtype=torch.float32, device=dev)
-    eps_l1 = torch.empty((n,), dtype=torch.float32, device=dev)
-    noise_l1 = torch.empty((n,), dtype=torch.float32, device=dev)
+    eps_l1, noise_l1 = s.new_empty((n,)), s.new_empty((n,))
     _raise_on(build.function("dpps_perturb")(
         s.data_ptr(), eps.data_ptr(),
         bits.data_ptr() if bits is not None else None,
         scale.data_ptr(), float(gamma_n), n, d_pad, d_s,
-        int(seed or 0) & 0xFFFFFFFFFFFFFFFF, int(t or 0), out.data_ptr(),
-        eps_part.data_ptr(), noise_part.data_ptr(), n_chunks,
-        eps_l1.data_ptr(), noise_l1.data_ptr(), _stream(s)),
-        "dpps_perturb_rows")
+        int(seed or 0) & 0xFFFFFFFFFFFFFFFF, int(t or 0), plan["threads"],
+        plan["rows_per_block"], plan["quads_per_block"], bpr,
+        None if partials is None else partials.data_ptr(),
+        None if tickets is None else tickets.data_ptr(), out.data_ptr(),
+        eps_l1.data_ptr(), noise_l1.data_ptr(), stream), "dpps_perturb_rows")
     dpps_perturb_rows.launches += 1
     return out, eps_l1, noise_l1
+
+
+def perturb_plan(n: int, d_pad: int) -> dict:
+    """The launch of ``csrc/dpps_perturb.cu`` for N rows of ``d_pad``
+    columns: ``{"threads", "rows_per_block", "quads_per_block",
+    "blocks_per_row", "blocks"}``.
+
+    Rows of at most :data:`PERTURB_SHORT_QUADS` quads: ``rows_per_block``
+    rows a block of :data:`PERTURB_THREADS`, :data:`PERTURB_ROW_LANES`
+    lanes a row, each block writing whole rows (``quads_per_block`` the
+    row's quads, one block a row). Longer rows: one row a block, block b of
+    a row writing quads [b q, min((b + 1) q, d_pad // 4)) for q =
+    :data:`PERTURB_QUADS_PER_BLOCK`; no block is empty. The plan never
+    changes ``s_noise``: each quad's value depends on its row and index
+    only.
+    """
+    quads = d_pad // 4
+    if quads <= PERTURB_SHORT_QUADS:
+        rows = PERTURB_THREADS // PERTURB_ROW_LANES
+        return dict(threads=PERTURB_THREADS, rows_per_block=rows,
+                    quads_per_block=quads, blocks_per_row=1,
+                    blocks=-(-n // rows))
+    bpr = -(-quads // PERTURB_QUADS_PER_BLOCK)
+    return dict(threads=PERTURB_THREADS, rows_per_block=1,
+                quads_per_block=PERTURB_QUADS_PER_BLOCK, blocks_per_row=bpr,
+                blocks=n * bpr)
 
 
 def pushsum_mix(w: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
@@ -246,28 +298,47 @@ def pushsum_mix(w: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     out = torch.empty_like(x)
     _raise_on(build.function("pushsum_mix")(
         w.data_ptr(), x.data_ptr(), out.data_ptr(), n, d,
-        plan["rows_per_thread"], _stream(x)), "pushsum_mix")
+        *plan["args"], _stream(x)), "pushsum_mix")
     pushsum_mix.launches += 1
     return out
 
 
-def mix_plan(n: int, d: int, sms: int) -> dict:
+def mix_plan(n: int, d: int, sms: int, tile: str | None = None) -> dict:
     """The launch of ``csrc/pushsum_mix.cu`` for W (N, N) and x (N, D) on a
-    card with ``sms`` SMs: ``{"kernel", "rows_per_thread", "blocks"}``.
+    card with ``sms`` SMs: ``{"kernel", "tile", "threads", "tiles",
+    "smem_bytes", "args"}`` (``tiles``: output tiles, each a block's walk
+    over the senders; ``args``: the C function's tile arguments, BM, BN,
+    TM, TN, BK, STAGES and the dynamic shared memory).
 
     N <= :data:`MIX_TEMPLATE_NODES`: ``"template"``, one column a thread in
-    blocks of 256 (``rows_per_thread`` 0: every row). Larger N:
-    ``"tiles"``, blocks of 8 * ``rows_per_thread`` rows x
-    :data:`MIX_TILE_COLS` columns, 8 rows a thread where that gives at
-    least :data:`MIX_BLOCKS_PER_SM` blocks an SM, else 2.
+    blocks of 256, a block for each 256 columns (the tile arguments all 0).
+    Larger N: ``"tiles"`` at ``tile`` where given (any name of
+    :data:`MIX_TILES`), else by the rule above :data:`MIX_TILES`. A block
+    for each tile of BM rows x BN columns, numbered row tile fastest where
+    D >= N (the blocks that share a column tile of x run together), else
+    column tile fastest (those that share a row tile of W).
     """
     if n <= MIX_TEMPLATE_NODES:
-        return dict(kernel="template", rows_per_thread=0,
-                    blocks=-(-d // 256))
-    col_tiles = -(-d // MIX_TILE_COLS)
-    rows = 8 if -(-n // (8 * 8)) * col_tiles >= MIX_BLOCKS_PER_SM * sms else 2
-    return dict(kernel="tiles", rows_per_thread=rows,
-                blocks=-(-n // (8 * rows)) * col_tiles)
+        return dict(kernel="template", tile=None, threads=256,
+                    tiles=-(-d // 256), smem_bytes=0, args=(0,) * 7)
+
+    def tiles(name):
+        bm, bn = MIX_TILES[name][:2]
+        return -(-n // bm) * -(-d // bn)
+
+    if tile is None:
+        if d <= MIX_NARROW_D:
+            tile = "16x8"
+        elif n <= MIX_ONE_ROW_TILE:
+            tile = "64x128"
+        else:
+            tile = next((t for t in MIX_WIDE_TILES if tiles(t) >= sms),
+                        MIX_WIDE_TILES[-1])
+    bm, bn, tm, tn, bk, stages = MIX_TILES[tile]
+    smem = stages * (bm * (bk + 4) + bk * bn) * 4
+    return dict(kernel="tiles", tile=tile, threads=(bm // tm) * (bn // tn),
+                tiles=tiles(tile), smem_bytes=smem,
+                args=(bm, bn, tm, tn, bk, stages, smem))
 
 
 def spmm(idx: torch.Tensor, vals: torch.Tensor, x: torch.Tensor) -> torch.Tensor:

@@ -14,10 +14,20 @@ Sections (all by default):
 - ``l1``: ``l1_norm_rows`` at each of ``L1_CANDIDATES``' threads and quads
   a block, beside ``torch.linalg.vector_norm(x, 1, dim=1)``, at the paths'
   shapes and at N = 5 with N = 24's bytes (row count against size).
+- ``mix``: ``pushsum_mix`` past its template at ``MIX_SHAPES`` under its
+  default plan and each tile of ``ops.MIX_TILES`` (bit for bit the default
+  plan's), beside one ``torch.matmul`` call.
+- ``perturb``: ``dpps_perturb_rows`` (Philox) at ``PERTURB_SHAPES`` under
+  each of ``PERTURB_CANDIDATES``' tables (s_noise bit for bit the default
+  plan's), beside ``torch.add(s, eps, out=o)``, a copy that moves the same
+  bytes (the ceiling of a streaming kernel, not the same function).
 
 Each result is held against the plain version and printed as one JSON
 line, with the card's name and power limit. A tool for choosing the tables
-in ``ops.py``; it needs a CUDA card.
+in ``ops.py``; it needs a CUDA card. Run by its path with an older tree's
+``src`` first on ``PYTHONPATH``, the ``mix`` and ``perturb`` sections time
+that tree's kernels under their default plans alone (the tables they do
+not have are skipped), at the same shapes.
 """
 from __future__ import annotations
 
@@ -50,6 +60,24 @@ SPMM_SHAPES = {  # (N, D, graph seed): ER(N, p = 8/N), as chip_smoke.py
 # (threads a block, quads a block) of l1_norm.cu
 L1_CANDIDATES = [(256, 2048), (512, 4096), (256, 4096), (128, 1024),
                  (256, 1024)]
+MIX_SHAPES = ((33, 1 << 20), (64, 1 << 20), (256, 1 << 20), (4096, 8),
+              (128, 7936), (4096, 128))  # (N, D), as chip_smoke.py
+# tables patched into ops; {} is the default plan
+PERTURB_CANDIDATES = [
+    {}, {"PERTURB_QUADS_PER_BLOCK": 1024}, {"PERTURB_QUADS_PER_BLOCK": 4096},
+    {"PERTURB_THREADS": 128, "PERTURB_QUADS_PER_BLOCK": 1024},
+    {"PERTURB_ROW_LANES": 32}, {"PERTURB_ROW_LANES": 8},
+    {"PERTURB_SHORT_QUADS": 0}]
+PERTURB_SHAPES = {  # (N, d_s), as chip_smoke.py
+    "dense_full": (5, 505_956_352),
+    "sparse_full": (24, 95_669_064),
+    "training": (4, 243_286_016),
+    "paper": (10, 7840),
+    "sparse_train": (128, 7840),
+    "rows_65536": (65_536, 300),
+    "rows_100003": (100_003, 300),
+    "er4096": (4096, 8),
+}
 L1_SHAPES = {  # (N, d_pad, d_s)
     "dense_full": (5, 505_956_352, 505_956_352),
     "sparse_full": (24, 95_669_120, 95_669_064),
@@ -186,7 +214,76 @@ def sweep_l1(dev, emit) -> None:
         torch.cuda.empty_cache()
 
 
-SECTIONS = {"flash": sweep_flash, "spmm": sweep_spmm, "l1": sweep_l1}
+def sweep_mix(dev, emit) -> None:
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    tiles = getattr(ops, "MIX_TILES", {})
+    plan = ops.mix_plan
+    for n, d in MIX_SHAPES:
+        gen = torch.Generator(device=dev).manual_seed(n + d)
+        x = torch.randn((n, d), generator=gen, device=dev)
+        w = torch.rand((n, n), generator=gen, device=dev)
+        w /= w.sum(0, keepdim=True)
+        base = ops.pushsum_mix(w, x)
+        err = (base - ref.pushsum_mix(w, x)).abs().max().item()
+        iters = _shape_iters(n * d * 64)
+        # a first timing after the inputs are made reads slow: untimed
+        cuda_ms(lambda: ops.pushsum_mix(w, x), iters)
+        emit(dict(kernel="pushsum_mix", n=n, d=d, plan=plan(n, d, sms),
+                  ms=cuda_ms(lambda: ops.pushsum_mix(w, x), iters),
+                  max_abs_err=err))
+        for tile in tiles:
+            forced = lambda n_, d_, sms_, tile=tile: plan(n_, d_, sms_, tile)
+            same = _patched(("mix_plan",), (forced,), lambda: bool(
+                torch.equal(ops.pushsum_mix(w, x), base)))
+            emit(dict(kernel="pushsum_mix", n=n, d=d, tile=tile,
+                      ms=_patched(("mix_plan",), (forced,), lambda: cuda_ms(
+                          lambda: ops.pushsum_mix(w, x), iters)),
+                      equals_default_plan=same))
+        emit(dict(kernel="pushsum_mix", n=n, d=d, library="torch.matmul",
+                  ms=cuda_ms(lambda: torch.matmul(w, x), iters)))
+        del x, w, base
+        torch.cuda.empty_cache()
+
+
+def sweep_perturb(dev, emit) -> None:
+    scale = torch.tensor(0.7, device=dev)
+    candidates = PERTURB_CANDIDATES if hasattr(ops, "perturb_plan") else [{}]
+    for name, (n, d_s) in PERTURB_SHAPES.items():
+        d_pad = -(-d_s // 128) * 128
+        gen = torch.Generator(device=dev).manual_seed(n + d_s)
+        s = torch.randn((n, d_pad), generator=gen, device=dev)
+        eps = torch.randn((n, d_pad), generator=gen, device=dev)
+        s[:, d_s:] = 1e4
+        eps[:, d_s:] = 1e4
+        call = lambda: ops.dpps_perturb_rows(s, eps, scale, 0.1, d_s, seed=7,
+                                             t=3)
+        base = call()
+        iters = _shape_iters(n * d_pad)
+        cuda_ms(call, iters)  # untimed warm-up, as in sweep_mix
+        for candidate in candidates:
+            names, values = tuple(candidate), tuple(candidate.values())
+            got = _patched(names, values, call)
+            plan = (_patched(names, values,
+                             lambda: ops.perturb_plan(n, d_pad))
+                    if hasattr(ops, "perturb_plan") else None)
+            emit(dict(kernel="dpps_perturb_rows", shape=name, n=n, d_s=d_s,
+                      candidate=candidate, plan=plan,
+                      ms=_patched(names, values, lambda: cuda_ms(call, iters)),
+                      equals_default_plan=bool(torch.equal(got[0], base[0])),
+                      norms_max_rel_diff=max(
+                          ((g - b).abs() / b).max().item()
+                          for g, b in zip(got[1:], base[1:]))))
+            del got
+        out = torch.empty_like(s)
+        emit(dict(kernel="dpps_perturb_rows", shape=name, n=n, d_s=d_s,
+                  copy_yardstick="torch.add(s, eps, out=o)",
+                  ms=cuda_ms(lambda: torch.add(s, eps, out=out), iters)))
+        del s, eps, out, base
+        torch.cuda.empty_cache()
+
+
+SECTIONS = {"flash": sweep_flash, "spmm": sweep_spmm, "l1": sweep_l1,
+            "mix": sweep_mix, "perturb": sweep_perturb}
 
 
 def main() -> int:

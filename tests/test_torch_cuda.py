@@ -16,8 +16,10 @@ rtol 1e-5 (per-block partials against PyTorch's reduction order); the mix
 to rtol 1e-5 / atol 1e-6 (fma in j order against cuBLAS's order), also
 on unaligned x, with the bits it gives on an aligned copy; its tiled
 kernel (N > 32) bit for bit equal to the template kernel's chain (an
-f64 check of the same terms bounds both) and to ``spmm``. Every kernel
-gives the same bits on two launches. The
+f64 check of the same terms bounds both) and to ``spmm``, under every
+tile. The perturbation's s_noise is bit for bit the plain version's on
+the card under every plan (the same logf), its norms within rtol 1e-5.
+Every kernel gives the same bits on two launches. The
 sparse mix to rtol 1e-6 / atol 1e-6 (fma against the plain version's
 separate multiply and add), and bit for bit against the dense kernel on a
 topology's own CSR; the clip scale exactly (one correctly rounded
@@ -236,7 +238,7 @@ def test_l1_norm_plans_match_plain_and_leave_the_tickets_at_zero(
     assert torch.equal(outs[0], first)
     torch.testing.assert_close(outs[1], ref.l1_norm_rows(other, d_s),
                                rtol=1e-5, atol=0)
-    for _, tickets in ops._L1_SCRATCH.values():
+    for _, tickets in ops._ROW_SCRATCH.values():
         assert int(tickets.count_nonzero()) == 0
 
 
@@ -255,19 +257,166 @@ def test_l1_norm_rows_in_a_cuda_graph(dev, n, d_s):
         ops.l1_norm_rows(buf, d_s)
     torch.cuda.current_stream(dev).wait_stream(side)
     kept = {k: (p.data_ptr(), t.data_ptr())
-            for k, (p, t) in ops._L1_SCRATCH.items()}
-    assert (dev.index, side.cuda_stream) in kept
+            for k, (p, t) in ops._ROW_SCRATCH.items()}
+    assert ("l1_norm", dev.index, side.cuda_stream) in kept
     graph = torch.cuda.CUDAGraph()
     with torch.cuda.graph(graph, stream=side):
         got = ops.l1_norm_rows(buf, d_s)
     assert {k: (p.data_ptr(), t.data_ptr())
-            for k, (p, t) in ops._L1_SCRATCH.items()} == kept
+            for k, (p, t) in ops._ROW_SCRATCH.items()} == kept
     for _ in range(3):
         graph.replay()
         assert torch.equal(ops.l1_norm_rows(buf, d_s), want)
         torch.cuda.synchronize()
         assert torch.equal(got, want)
-    for _, tickets in ops._L1_SCRATCH.values():
+    for _, tickets in ops._ROW_SCRATCH.values():
+        assert int(tickets.count_nonzero()) == 0
+
+
+# -- the tiled mix (N > 32) under every tile --------------------------------
+
+def _each_tile(monkeypatch, dev, fn):
+    """{tile: fn()} with ``ops.mix_plan`` held at each tile of MIX_TILES."""
+    plan = ops.mix_plan
+    out = {}
+    for tile in ops.MIX_TILES:
+        monkeypatch.setattr(ops, "mix_plan",
+                            lambda n, d, sms, tile=tile: plan(n, d, sms, tile))
+        out[tile] = fn()
+    monkeypatch.setattr(ops, "mix_plan", plan)
+    return out
+
+
+# D = 1, 7, 8, 128, 129 and 2^20 against N = 33, 64, 128, 256 and 4096;
+# offset > 0: x unaligned (a flat buffer offset by that many floats)
+@pytest.mark.parametrize("n,d,offset", [
+    (33, 1, 0), (33, 129, 1), (33, 1 << 20, 0), (64, 7, 0), (64, 1 << 20, 3),
+    (128, 8, 0), (128, 129, 0), (128, 7936, 1), (256, 128, 0),
+    (256, 1 << 20, 0), (4096, 8, 0), (4096, 128, 0), (4096, 1, 0),
+    (4096, 7, 2)])
+def test_tiled_mix_is_one_chain_under_every_tile(dev, monkeypatch, n, d,
+                                                 offset):
+    """Every tile of the N > 32 kernel gives the same bits (and the same on
+    a second launch), within rtol 1e-5 / atol 1e-6 of the plain version
+    (fma in j order against cuBLAS's order); on a W whose rows and senders
+    past 32 are zero, the first 32 rows are the template kernel's bits and
+    the rest exact zeros."""
+    gen = torch.Generator(device=dev).manual_seed(n * 7 + d + offset)
+    flat = torch.randn(n * d + offset, generator=gen, device=dev)
+    x = flat[offset:].view(n, d)
+    w = torch.rand((n, n), generator=gen, device=dev)
+    w = w / w.sum(0, keepdim=True)
+    corner = torch.zeros_like(w)
+    corner[:32, :32] = w[:32, :32]
+    template = ops.pushsum_mix(w[:32, :32].contiguous(), x[:32].contiguous())
+    got = _each_tile(monkeypatch, dev, lambda: (
+        ops.pushsum_mix(w, x), ops.pushsum_mix(w, x),
+        ops.pushsum_mix(corner, x)))
+    first = got[next(iter(got))][0]
+    torch.testing.assert_close(first, ref.pushsum_mix(w, x), rtol=1e-5,
+                               atol=1e-6)
+    for tile, (a, b, c) in got.items():
+        assert torch.equal(a, first), tile
+        assert torch.equal(b, first), tile
+        assert torch.equal(c[:32], template), tile
+        assert not bool(c[32:].any()), tile
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("n,d", [(64, 128), (64, 1 << 20), (4096, 8),
+                                 (4096, 128)])
+def test_tiled_mix_equals_spmm_under_every_tile(dev, monkeypatch, n, d):
+    """On ER(64) and bench_sparse.py's ER(4096, p = 8/4096, seed 2024) every
+    tile gives ``spmm``'s bits on the graph's own CSR."""
+    topo = ErdosRenyiGraph(n, p=8 / n, seed=2024 if n == 4096 else 0)
+    idx, vals = (torch.as_tensor(a, device=dev)
+                 for a in topo.sparse_weights(0))
+    vals = vals.to(torch.float32)
+    w = topo.weight_matrix_torch(0, device=dev)
+    x = torch.randn((n, d), generator=torch.Generator(device=dev)
+                    .manual_seed(n + d), device=dev)
+    want = ops.spmm(idx, vals, x)
+    for tile, got in _each_tile(monkeypatch, dev,
+                                lambda: ops.pushsum_mix(w, x)).items():
+        assert torch.equal(got, want), tile
+    torch.cuda.synchronize()
+
+
+# -- dpps_perturb.cu under every plan ---------------------------------------
+
+# (name, tables patched into ops): the short-row and long-row plans, each
+# with other blocks, lanes a row, and each regime forced at the other's rows
+_PERTURB_PLANS = {
+    "default": {},
+    "long_512": dict(PERTURB_QUADS_PER_BLOCK=512, PERTURB_SHORT_QUADS=0),
+    "long_4096_t128": dict(PERTURB_QUADS_PER_BLOCK=4096, PERTURB_THREADS=128,
+                           PERTURB_SHORT_QUADS=0),
+    "short_8_lanes": dict(PERTURB_ROW_LANES=8, PERTURB_SHORT_QUADS=1 << 20),
+    "short_16_lanes_t64": dict(PERTURB_ROW_LANES=16, PERTURB_THREADS=64,
+                               PERTURB_SHORT_QUADS=1 << 20),
+}
+
+
+@pytest.mark.parametrize("n,d_s", [(20_000, 300), (4096, 8), (3, 300_001),
+                                   (10, 7840)])
+def test_perturb_plans_give_the_same_bits(dev, monkeypatch, n, d_s):
+    """Short rows (d_s 300 and 8) and long ones (300,001: many blocks a
+    row; 7,840: one): every plan gives the plain version's s_noise bit for
+    bit (Philox variant and bits-in), the same bits on a second launch,
+    norms within rtol 1e-5, and leaves its ticket counters at zero."""
+    gen = torch.Generator(device=dev).manual_seed(n + d_s)
+    s, eps = _rows(gen, dev, n, d_s, 1e4), _rows(gen, dev, n, d_s, 1e4)
+    scale = torch.tensor(0.7, device=dev)
+    want = ref.dpps_perturb_rows(s, eps, scale, 0.1, d_s, seed=5, t=3)
+    bits = ref.philox_bits(5, 3, n, 0, d_s, device=dev).to(torch.uint32)
+    for name, tables in _PERTURB_PLANS.items():
+        for k, v in tables.items():
+            monkeypatch.setattr(ops, k, v)
+        runs = [ops.dpps_perturb_rows(s, eps, scale, 0.1, d_s, **kw)
+                for kw in (dict(seed=5, t=3), dict(seed=5, t=3),
+                           dict(bits=bits))]
+        for got in runs:
+            assert torch.equal(got[0], want[0]), name
+            for g, w in zip(got[1:], want[1:]):
+                torch.testing.assert_close(g, w, rtol=1e-5, atol=0)
+        for a, b in zip(*runs[:2]):  # the same bits on a second launch
+            assert torch.equal(a, b), name
+        monkeypatch.undo()
+    torch.cuda.synchronize()
+    for _, tickets in ops._ROW_SCRATCH.values():
+        assert int(tickets.count_nonzero()) == 0
+
+
+@pytest.mark.parametrize("n,d_s", [(10, 7840), (3, 300_001), (4096, 8)])
+def test_dpps_perturb_rows_in_a_cuda_graph(dev, n, d_s):
+    """A launch captured into a CUDA graph (one block a row, many, and short
+    rows) replays the eager launch's bits, with eager launches between
+    replays, and adds nothing to the eager scratch."""
+    gen = torch.Generator(device=dev).manual_seed(n + d_s)
+    s, eps = _rows(gen, dev, n, d_s, 1e4), _rows(gen, dev, n, d_s, 1e4)
+    scale = torch.tensor(0.7, device=dev)
+    call = lambda: ops.dpps_perturb_rows(s, eps, scale, 0.1, d_s, seed=5,
+                                         t=3)
+    want = call()
+    side = torch.cuda.Stream(dev)
+    side.wait_stream(torch.cuda.current_stream(dev))
+    with torch.cuda.stream(side):  # warm-up off the capture, as PyTorch asks
+        call()
+    torch.cuda.current_stream(dev).wait_stream(side)
+    kept = {k: (p.data_ptr(), t.data_ptr())
+            for k, (p, t) in ops._ROW_SCRATCH.items()}
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=side):
+        got = call()
+    assert {k: (p.data_ptr(), t.data_ptr())
+            for k, (p, t) in ops._ROW_SCRATCH.items()} == kept
+    for _ in range(3):
+        graph.replay()
+        again = call()
+        torch.cuda.synchronize()
+        for g, a, w in zip(got, again, want):
+            assert torch.equal(g, w) and torch.equal(a, w)
+    for _, tickets in ops._ROW_SCRATCH.values():
         assert int(tickets.count_nonzero()) == 0
 
 

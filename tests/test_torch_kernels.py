@@ -373,30 +373,37 @@ def test_l1_plans_at_the_shapes_of_the_paths():
 @pytest.mark.parametrize("capturing", [False, True])
 def test_l1_scratch_is_kept_per_stream_and_never_for_a_graph_capture(
         monkeypatch, capturing):
-    """Eager launches reuse one set of counters for each (device, stream),
-    grown when a launch needs more; a launch captured into a CUDA graph
-    gets fresh zeroed counters, kept nowhere, so replays share them with
-    no other launch."""
-    monkeypatch.setattr(ops, "_L1_SCRATCH", {})
+    """The row kernels' scratch (``ops._row_scratch``, for csrc/l1_norm.cu
+    and csrc/dpps_perturb.cu): eager launches reuse one set of counters for
+    each (kernel, device, stream), grown when a launch needs more, and the
+    two kernels never share one; a launch captured into a CUDA graph gets
+    fresh zeroed counters, kept nowhere, so replays share them with no
+    other launch."""
+    monkeypatch.setattr(ops, "_ROW_SCRATCH", {})
     monkeypatch.setattr(torch.cuda, "is_current_stream_capturing",
                         lambda: capturing)
     buf = torch.zeros((4, 128))
-    first = ops._l1_scratch(buf, 11, 8, 4)
-    again = ops._l1_scratch(buf, 11, 6, 3)
-    other = ops._l1_scratch(buf, 12, 8, 4)
-    grown = ops._l1_scratch(buf, 11, 20, 4)
-    for partials, tickets in (first, again, other, grown):
+    first = ops._row_scratch("l1_norm", buf, 11, 8, 4)
+    again = ops._row_scratch("l1_norm", buf, 11, 6, 3)
+    other = ops._row_scratch("l1_norm", buf, 12, 8, 4)
+    perturb = ops._row_scratch("dpps_perturb", buf, 11, 8, 4)
+    grown = ops._row_scratch("l1_norm", buf, 11, 20, 4)
+    for partials, tickets in (first, again, other, perturb, grown):
         assert partials.dtype == torch.float32 and tickets.dtype == torch.int32
         assert int(tickets.count_nonzero()) == 0
     assert grown[0].numel() >= 20 and grown[1].numel() >= 4
     if capturing:
-        assert ops._L1_SCRATCH == {}
+        assert ops._ROW_SCRATCH == {}
         assert first[1].data_ptr() != again[1].data_ptr()
         assert (first[0].numel(), first[1].numel()) == (8, 4)
     else:
-        assert set(ops._L1_SCRATCH) == {(-1, 11), (-1, 12)}
+        assert set(ops._ROW_SCRATCH) == {("l1_norm", -1, 11),
+                                         ("l1_norm", -1, 12),
+                                         ("dpps_perturb", -1, 11)}
         assert again[1] is first[1] and other[1] is not first[1]
-        assert ops._L1_SCRATCH[(-1, 11)] == grown
+        assert perturb[1] is not first[1]
+        assert ops._ROW_SCRATCH[("l1_norm", -1, 11)] == grown
+        assert ops._ROW_SCRATCH[("dpps_perturb", -1, 11)] == perturb
 
 
 def _block_sum(v: np.ndarray) -> np.float32:
@@ -566,16 +573,185 @@ def test_three_tf32_products_keep_the_flash_tolerance(d):
                      <= 1e-5 + 1e-4 * want.abs()).all())
 
 
-@pytest.mark.parametrize("n,d,kernel,rows", [
-    (1, 7936, "template", 0), (32, 1 << 20, "template", 0),
-    (33, 1 << 20, "tiles", 8), (256, 1 << 20, "tiles", 8),
-    (4096, 8, "tiles", 2), (64, 300, "tiles", 2), (33, 1, "tiles", 2)])
+@pytest.mark.parametrize("n,d,kernel,tile", [
+    (1, 7936, "template", None), (32, 1 << 20, "template", None),
+    (33, 1 << 20, "tiles", "64x128"), (64, 1 << 20, "tiles", "64x128"),
+    (256, 1 << 20, "tiles", "128x128"), (4096, 8, "tiles", "16x8"),
+    (128, 7936, "tiles", "32x64"), (4096, 128, "tiles", "32x64"),
+    (64, 300, "tiles", "64x128"), (33, 1, "tiles", "16x8"),
+    (100, 20, "tiles", "32x64"), (1024, 1 << 16, "tiles", "128x128")])
 def test_mix_plan_takes_the_template_to_32_nodes_and_tiles_above(n, d, kernel,
-                                                                 rows):
-    """N <= 32: one column a thread; above, 64-row tiles where they give at
-    least two blocks an SM of a 132-SM card, else 16-row tiles."""
+                                                                 tile):
+    """N <= 32: one column a thread; above, D <= 8 the 16 x 8 tile, N <= 64
+    one row tile of 64, else the first of 128 x 128, 64 x 128, 32 x 64 with
+    a tile for each SM of a 132-SM card, or 32 x 64."""
     plan = ops.mix_plan(n, d, 132)
-    assert (plan["kernel"], plan["rows_per_thread"]) == (kernel, rows)
-    if kernel == "tiles":
-        assert plan["blocks"] == -(-n // (8 * rows)) * -(-d // 128)
-        assert plan["blocks"] < 2 ** 31
+    assert (plan["kernel"], plan["tile"]) == (kernel, tile)
+    if kernel == "template":
+        assert plan["args"] == (0,) * 7
+        return
+    bm, bn, tm, tn, bk, stages = ops.MIX_TILES[tile]
+    assert plan["tiles"] == -(-n // bm) * -(-d // bn) < 2 ** 31
+    assert plan["threads"] == (bm // tm) * (bn // tn) <= 1024
+    assert plan["args"] == (bm, bn, tm, tn, bk, stages, plan["smem_bytes"])
+
+
+@pytest.mark.parametrize("n,d", [(33, 1), (33, 1 << 20), (64, 300),
+                                 (256, 129), (4096, 8), (4096, 128),
+                                 (100_003, 7), (5000, 1 << 20)])
+@pytest.mark.parametrize("tile", list(ops.MIX_TILES))
+def test_mix_plan_covers_every_output_once(n, d, tile):
+    """Under every tile, the tiles and thread t of a tile (rows ty + k
+    BM/TM, columns v BN/(TN/V) + V tx + c for V = min(TN, 4) neighbours) own
+    each output (i, c) of the (N, D) result exactly once, no tile is empty,
+    the grid is under 2^31 blocks, the threads fit a block and the ring
+    fits an SM's shared memory."""
+    plan = ops.mix_plan(n, d, 132, tile)
+    bm, bn, tm, tn, bk, stages = ops.MIX_TILES[tile]
+    assert bk % 8 == 0 and bn % tn == 0 and bm % tm == 0
+    assert tn in (1, 2) or tn % 4 == 0
+    assert plan["threads"] <= 1024 and plan["smem_bytes"] <= 227 * 1024
+    row_tiles, col_tiles = -(-n // bm), -(-d // bn)
+    assert plan["tiles"] == row_tiles * col_tiles < 2 ** 31
+    # one block's ownership of its BM x BN tile, then the tiles of the grid
+    vec = min(tn, 4)
+    groups = bn // tn
+    owned = np.zeros((bm, bn), np.int64)
+    for t in range(plan["threads"]):
+        tx, ty = t % groups, t // groups
+        for k in range(tm):
+            for m in range(tn // vec):
+                for c in range(vec):
+                    owned[ty + k * (bm // tm),
+                          m * (bn // (tn // vec)) + vec * tx + c] += 1
+    assert (owned == 1).all()
+    # the grid's tiles [BM r, + BM) and [BN c, + BN): the last of each holds
+    # a real row and a real column
+    assert (row_tiles - 1) * bm < n <= row_tiles * bm
+    assert (col_tiles - 1) * bn < d <= col_tiles * bn
+
+
+# -- csrc/dpps_perturb.cu launch plan and its sum order ---------------------
+
+@pytest.mark.parametrize("tables", [
+    {}, {"PERTURB_QUADS_PER_BLOCK": 512}, {"PERTURB_ROW_LANES": 32},
+    {"PERTURB_ROW_LANES": 8, "PERTURB_THREADS": 64},
+    {"PERTURB_SHORT_QUADS": 0}, {"PERTURB_SHORT_QUADS": 1 << 20}])
+@pytest.mark.parametrize("n,d_s", [(1, 3), (10, 7840), (100_003, 300),
+                                   (4096, 8), (5, 505_956_352),
+                                   (24, 300_001)])
+def test_perturb_plan_writes_every_quad_once(monkeypatch, tables, n, d_s):
+    """Long rows: block b of a row writes quads [b q, min((b + 1) q, d_pad /
+    4)), together every quad of the row once, no block empty. Short rows:
+    rows_per_block rows a block, a power of two <= 32 lanes a row, lane l
+    writing quads l, l + lanes, ...: every quad once. Either way every real
+    quad (a column < d_s) is read by the thread that writes it and no pad
+    quad is read, the grid is under 2^31 blocks (65,535 rows a launch of
+    long rows) and the plan is one the C function takes."""
+    for k, v in tables.items():
+        monkeypatch.setattr(ops, k, v)
+    d_pad = _d_pad(d_s)
+    quads, real = d_pad // 4, -(-d_s // 4)
+    plan = ops.perturb_plan(n, d_pad)
+    threads, rpb = plan["threads"], plan["rows_per_block"]
+    q, bpr = plan["quads_per_block"], plan["blocks_per_row"]
+    assert threads % 32 == 0 and 32 <= threads <= 256 and threads % rpb == 0
+    if rpb > 1:
+        lanes = threads // rpb
+        assert lanes <= 32 and lanes & (lanes - 1) == 0
+        assert bpr == 1 and q >= quads
+        assert plan["blocks"] == -(-n // rpb) < 2 ** 31
+        written = np.zeros(quads, np.int64)
+        for lane in range(lanes):
+            written[lane::lanes] += 1
+        assert (written == 1).all()
+        return
+    assert plan["blocks"] == n * bpr and bpr < 2 ** 31
+    starts = [b * q for b in range(bpr)]
+    ends = [min(s + q, quads) for s in starts]
+    assert starts[0] == 0 and ends[-1] == quads
+    assert all(e == s for e, s in zip(ends[:-1], starts[1:]))
+    assert all(e > s for s, e in zip(starts, ends))
+    assert bpr * q >= quads and (bpr - 1) * q < quads
+    assert real <= quads
+
+
+def _perturb_kernel_order(v: np.ndarray, d_s: int, plan: dict) -> np.float32:
+    """csrc/dpps_perturb.cu's sum of |v| over one row's first d_s columns,
+    in its order: each thread adds |v| of its quads' real elements (quad
+    by quad in its order, element by element) into one f32 sum. Short rows:
+    lane l of the row takes quads l, l + lanes, ...; the lanes' sums meet
+    in a shuffle-down tree over the row's lanes. Long rows: thread t of
+    block b takes quads b q + t, + T, ...; block_sum; with more than one
+    block a row, the row's last block adds the partials, thread t adding
+    partials t, t + T, ..., then block_sum."""
+    d_pad = _d_pad(d_s)
+    quads, threads = d_pad // 4, plan["threads"]
+    a = np.zeros(d_pad, np.float32)
+    a[:d_s] = np.abs(v[:d_s].astype(np.float32))
+    a = a.reshape(quads, 4)
+
+    def thread_sum(qs):
+        acc = np.float32(0)
+        for qq in qs:
+            for k in range(4):
+                if 4 * qq + k < d_s:
+                    acc = np.float32(acc + a[qq, k])
+        return acc
+
+    if plan["rows_per_block"] > 1:
+        lanes = threads // plan["rows_per_block"]
+        sums = np.array([thread_sum(range(l, quads, lanes))
+                         for l in range(lanes)], np.float32)
+        off = lanes // 2
+        while off:
+            sums[:lanes - off] = sums[:lanes - off] + sums[off:lanes]
+            off //= 2
+        return sums[0]
+    q, bpr = plan["quads_per_block"], plan["blocks_per_row"]
+    partials = []
+    for b in range(bpr):
+        hi = min((b + 1) * q, quads)
+        partials.append(_block_sum(np.array(
+            [thread_sum(range(b * q + t, hi, threads))
+             for t in range(threads)], np.float32)))
+    if bpr == 1:
+        return partials[0]
+    p = np.array(partials, np.float32)
+    acc = np.zeros(threads, np.float32)
+    for k in range(-(-len(p) // threads)):
+        part = p[k * threads:(k + 1) * threads]
+        acc[:len(part)] += part
+    return _block_sum(acc)
+
+
+@pytest.mark.parametrize("tables", [
+    {}, {"PERTURB_QUADS_PER_BLOCK": 512}, {"PERTURB_ROW_LANES": 32},
+    {"PERTURB_ROW_LANES": 8}, {"PERTURB_SHORT_QUADS": 1 << 20}])
+@pytest.mark.parametrize("n,d_s", [(3, 3), (4, 300), (2, 7840),
+                                   (2, 8192 + 5), (1, 300_001)])
+def test_perturb_kernel_sum_order_stays_within_the_tolerance(monkeypatch,
+                                                             tables, n, d_s):
+    """An f32 emulation of the kernel's order for eps_l1 and noise_l1 (the
+    table's plan and others, short rows and long, one block a row and
+    many) agrees with the plain version and the exact sum to rtol 1e-5,
+    the tolerance the card is held to; pad lanes of 1e4 are never read."""
+    for k, v in tables.items():
+        monkeypatch.setattr(ops, k, v)
+    rng = np.random.default_rng(n + d_s)
+    s, eps = _rows(rng, n, d_s, pad_value=1e4), _rows(rng, n, d_s,
+                                                      pad_value=1e4)
+    plan = ops.perturb_plan(n, _d_pad(d_s))
+    _, eps_l1, noise_l1 = ref.dpps_perturb_rows(
+        torch.from_numpy(s), torch.from_numpy(eps), 0.7, 0.1, d_s, seed=5,
+        t=3)
+    noise = to_numpy(ref.laplace_from_bits(
+        ref.philox_bits(5, 3, n, 0, d_s), 0.7))
+    for i in range(n):
+        got = [_perturb_kernel_order(eps[i], d_s, plan),
+               _perturb_kernel_order(noise[i], d_s, plan)]
+        want = [float(eps_l1[i]), float(noise_l1[i])]
+        exact = [np.abs(eps[i, :d_s].astype(np.float64)).sum(),
+                 np.abs(noise[i].astype(np.float64)).sum()]
+        np.testing.assert_allclose(got, want, rtol=1e-5)
+        np.testing.assert_allclose(got, exact, rtol=1e-5)
