@@ -11,8 +11,9 @@ Phases, each printing one JSON line:
                   flash-attention, spmm, tiled pushsum_mix and dpps_perturb
                   instantiation (the mix tiles' dynamic shared memory from
                   ``ops.mix_plan``), and the registers and spills of every
-                  pushsum_mix (N = 1..32), l1_norm and dpps_perturb one
-                  (``-Xptxas -v``; any spill in those fails).
+                  pushsum_mix (N = 1..32), l1_norm, dpps_perturb and
+                  flash_attention one (``-Xptxas -v``; any spill in those
+                  fails).
 2. ``kernels``    each kernel against its plain PyTorch version at the main
                   paths' shapes: the dense kernels at the paper MLP's shared
                   layer (N = 10, d_s = 7840) and the dense full-width buffer
@@ -55,10 +56,12 @@ Phases, each printing one JSON line:
                   shapes: (a) llama3.2-1b's prefill (B = 1, S = 32,768,
                   H = 32, K = 8, D = 64), (b) gemma3-1b's (H = 4, K = 1,
                   D = 256) with window 512 and global, (c) a ragged B = 2,
-                  S = 1,000, H = 24, K = 8, D = 128; the plain version over
+                  S = 1,000, H = 24, K = 8, D = 128, (d) zamba2-7b's shared
+                  attention block (B = 1, S = 4,096, H = K = 32, D = 112);
+                  the plain version over
                   windows of query rows (rows [r0, r1) against keys [0, r1)),
                   every row checked; SDPA timed as the yardstick at all
-                  four (``is_causal``, or a banded boolean mask where
+                  five (``is_causal``, or a banded boolean mask where
                   windowed). The bound is the 3xTF32 tensor-core one (three
                   TF32 products for each f32 one, 495 TFLOP/s);
                   ``f32_core_bound_ms`` keeps the f32 CUDA-core figure.
@@ -95,9 +98,20 @@ Phases, each printing one JSON line:
                   DPPS round (CUDA events), peak memory, exact launches.
 16. ``training_agreement``  the same model with 2 layers, 4 nodes, 3 steps,
                   noise through ``bits_at``: the card against the CPU.
+17. ``serve`` of the other group kinds at full width on a 4,096-token
+                  prompt, 32 tokens generated: zamba2-7b (all 81 layer
+                  applications), llama-3.2-vision-11b (all 40 layers, 1,600
+                  image tokens, gates at 0.5), xlstm-125m (all 12) and
+                  llama4-scout-17b-a16e at 4 of its 48 layers; as phase 10,
+                  with each recurrent scan bracketed by CUDA events too (its
+                  share of the prefill).
+18. ``group_serve_agreement``  those kinds' five smoke configs (maverick's
+                  moe_every = 2 among them) and zamba2-7b at full width with
+                  one unit (flash at D = 112): the card against the CPU,
+                  same parameters and Gumbel noise.
 
 Each kernel counts its launches. The counts are set to 0 just before each
-path (phases 3-7, 10, 13 and 15) and read just after; each path names the
+path (phases 3-7, 10, 13, 15 and 17) and read just after; each path names the
 kernels it must launch (and the sparse paths must launch ``pushsum_mix``
 no time; the training path exactly its counts). Then come the card's
 name and power limit (``nvidia-smi``), the ``kernels`` line with every
@@ -140,16 +154,33 @@ SEED = 2024
 # Serving: prefill_32k's sequence length (configs/base.py), its batch of 32
 # cut to 1 to fit one card; 32 tokens generated.
 SERVE_PROMPT, SERVE_GEN = 32_768, 32
+# The other group kinds at full width on a prompt of train_4k's length
+# (4,096): arch -> layers kept (None: all). llama4-scout keeps 4 of its 48
+# layers: 8.81 GB a layer in f32 (16 experts of 3 x 5120 x 8192), 43.5 GB
+# with the embedding and head; all 48 would be 431 GB. llama4-maverick
+# (65.9 GB a unit of one dense and one 128-expert layer) runs at its smoke
+# config only, in phase 18.
+GROUP_SERVE_PROMPT = 4096
+GROUP_SERVE = {"zamba2-7b": None, "llama-3.2-vision-11b": None,
+               "xlstm-125m": None, "llama4-scout-17b-a16e": 4}
+GROUP_SERVE_SMOKE = ("llama4-scout-17b-a16e", "llama4-maverick-400b-a17b",
+                     "xlstm-125m", "zamba2-7b", "llama-3.2-vision-11b")
 FLASH_SHAPES = {  # (B, S, H, K, D, window)
     "llama_32k": (1, SERVE_PROMPT, 32, 8, 64, None),
     "gemma3_32k_window512": (1, SERVE_PROMPT, 4, 1, 256, 512),
     "gemma3_32k_global": (1, SERVE_PROMPT, 4, 1, 256, None),
     "ragged_minitron": (2, 1000, 24, 8, 128, None),
+    # zamba2-7b's shared attention block at GROUP_SERVE_PROMPT: D = 112
+    "zamba2_4k": (1, GROUP_SERVE_PROMPT, 32, 32, 112, None),
+    # llama4-scout's (a GQA group of 5) and llama-3.2-vision-11b's self
+    # layers at GROUP_SERVE_PROMPT
+    "scout_4k": (1, GROUP_SERVE_PROMPT, 40, 8, 128, None),
+    "vision_4k": (1, GROUP_SERVE_PROMPT, 32, 8, 128, None),
 }
 # SDPA as the yardstick: is_causal where global, a banded boolean attn_mask
 # (S x S, 1 GiB at 32k) where windowed
 FLASH_SDPA = ("llama_32k", "gemma3_32k_window512", "gemma3_32k_global",
-              "ragged_minitron")
+              "ragged_minitron", "zamba2_4k", "scout_4k", "vision_4k")
 
 # pushsum_mix past its template (N > 32): (N, D); N = 4096 at d = 8 is
 # bench_sparse.py's dense point, at 128 the same as the kernel path pads it;
@@ -1050,62 +1081,123 @@ def check_flash(torch, F, ops, ref, name: str, dev, iters: int) -> dict:
     return out
 
 
-# -- phase 10: serving at full width -----------------------------------------
+# -- phases 10 and 17: serving at full width ----------------------------------
 
-def serve(torch, ops, dev, arch: str) -> dict:
+def attention_layers(cfg) -> int:
+    """Attention applications in one forward pass of ``cfg``: one flash
+    launch each in a flash prefill. An MoE group's every layer (dense or
+    MoE) has one, a Zamba unit one (its shared block), a cross/self unit
+    one for each self layer; cross layers and xLSTM have none."""
+    n = 0
+    for g in cfg.groups:
+        if g.kind in ("attn", "moe"):
+            n += g.n_layers
+        elif g.kind == "zamba":
+            n += g.n_units
+        elif g.kind == "cross_self":
+            n += g.n_units * g.self_per_unit
+    return n
+
+
+def bracketed(torch, module, names, events: dict, length: int | None = None):
+    """Replace ``module.<name>`` for each of ``names`` by a wrapper that
+    records CUDA events around each call into ``events[name]``, with the
+    call's ``window`` keyword. With ``length``, only the calls whose last
+    argument has ``length`` positions on its second axis (a recurrent
+    scan's inputs are (B, S, ...): the prefill's, not a decode step's) are
+    recorded; the others run as they are. Returns the function that puts
+    the originals back."""
+    saved = {n: getattr(module, n) for n in names}
+
+    def wrap(name, fn):
+        def timed(*args, **kwargs):
+            if length is not None and args[-1].shape[1] != length:
+                return fn(*args, **kwargs)
+            e0 = torch.cuda.Event(enable_timing=True)
+            e1 = torch.cuda.Event(enable_timing=True)
+            e0.record()
+            out = fn(*args, **kwargs)
+            e1.record()
+            events.setdefault(name, []).append((e0, e1, kwargs.get("window")))
+            return out
+        return timed
+
+    for n, fn in saved.items():
+        setattr(module, n, wrap(n, fn))
+
+    def restore():
+        for n, fn in saved.items():
+            setattr(module, n, fn)
+    return restore
+
+
+def serve(torch, ops, dev, arch: str, *, prompt: int = SERVE_PROMPT,
+          layers: int | None = None) -> dict:
     """``Session.build(model=...).serve`` of ``arch`` at its full published
-    width, all layers, f32, ``flash_prefill`` on: one 32,768-token prompt,
-    ``SERVE_GEN`` tokens. Each flash launch of the prefill is bracketed by
-    CUDA events (the wrapper itself is called as the model calls it), for
-    the kernel's share of the prefill."""
+    width, f32, ``flash_prefill`` on: one ``prompt``-token prompt,
+    ``SERVE_GEN`` tokens; all layers, or the first ``layers`` of its one
+    group. A VLM gets image embeddings (normal x 0.1, its n_image_tokens)
+    and its gates at 0.5. Each flash launch of the prefill, and each
+    recurrent scan (``ssm._mlstm_scan``, ``_slstm_scan``, ``_mamba2_scan``),
+    is bracketed by CUDA events (the functions themselves are called as
+    the model calls them), for their shares of the prefill. Requires
+    exactly one flash launch an attention application and no other
+    kernel, finite logits, tokens in range, every cache leaf finite and
+    every KV cache at prompt + gen slots."""
     import dataclasses
 
     from repro_torch.api import Session
     from repro_torch.configs import get_config
-    from repro_torch.core.tree_utils import tree_leaves
+    from repro_torch.core.tree_utils import tree_flatten_with_path, tree_leaves
+    from repro_torch.models import ssm
+    from repro_torch.models.attention import open_cross_gates
     from repro_torch.models.transformer import Transformer
 
-    cfg = dataclasses.replace(get_config(arch).model, flash_prefill=True)
+    spec = get_config(arch)
+    cfg = dataclasses.replace(spec.model, flash_prefill=True)
+    if layers is not None:
+        (group,) = cfg.groups
+        cfg = dataclasses.replace(cfg, groups=(
+            dataclasses.replace(group, n_layers=layers),))
     model = Transformer(cfg)
-    n_layers = cfg.total_layers
+    n_attn = attention_layers(cfg)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     gen = torch.Generator(device=dev).manual_seed(SEED)
-    params = model.init(gen)  # on the card: the port's default device
+    # on the card: the port's default device
+    params = open_cross_gates(model.init(gen))
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
     n_params = sum(x.numel() for x in tree_leaves(params))
     session = Session.build(model=model, seed=SEED)
     require(session.device.type == "cuda", "serve session not on the card")
-    tokens = torch.randint(0, cfg.vocab_size, (1, SERVE_PROMPT),
-                           generator=gen, device=dev)
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (1, prompt),
+                                     generator=gen, device=dev)}
+    enc = None
+    if spec.family == "vlm":
+        enc = torch.randn((1, cfg.groups[0].n_image_tokens, cfg.d_model),
+                          generator=gen, device=dev) * 0.1
+        batch["image_embeds"] = enc
 
-    events = []
-    wrapped = ops.flash_attention_bshd
-
-    def timed_flash(*args, **kwargs):
-        e0 = torch.cuda.Event(enable_timing=True)
-        e1 = torch.cuda.Event(enable_timing=True)
-        e0.record()
-        out = wrapped(*args, **kwargs)
-        e1.record()
-        events.append((e0, e1, kwargs.get("window")))
-        return out
-
+    events = {}
+    loops = ("_mlstm_scan", "_slstm_scan", "_mamba2_scan")
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     ops.reset_launch_counts()
-    ops.flash_attention_bshd = timed_flash
+    restore = [bracketed(torch, ops, ("flash_attention_bshd",), events),
+               bracketed(torch, ssm, loops, events, length=prompt)]
     try:
-        rep = session.serve(params, {"tokens": tokens}, gen=SERVE_GEN)
+        rep = session.serve(params, batch, gen=SERVE_GEN, enc=enc)
     finally:
-        ops.flash_attention_bshd = wrapped
+        for r in restore:
+            r()
     launches = ops.launch_counts()
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    require(launches["flash_attention"] == n_layers,
+    require(launches["flash_attention"] == n_attn,
             f"{arch}: {launches['flash_attention']} flash launches for "
-            f"{n_layers} layers")
-    require_launches(launches, ("flash_attention",), f"{arch} serve",
+            f"{n_attn} attention layers")
+    require_launches(launches, ("flash_attention",) if n_attn else (),
+                     f"{arch} serve",
                      absent=tuple(k for k in KERNELS if k != "flash_attention"))
     logits = rep.logits
     require(tuple(logits.shape) == (1, cfg.vocab_size)
@@ -1114,19 +1206,28 @@ def serve(torch, ops, dev, arch: str) -> dict:
     require(tuple(toks.shape) == (1, SERVE_GEN)
             and bool(((toks >= 0) & (toks < cfg.vocab_size)).all()),
             f"{arch}: tokens {toks.tolist()}")
-    slots = {g: tuple(c["k"].shape) for g, c in rep.cache.items()}
-    require(all(sh[2] == SERVE_PROMPT + SERVE_GEN for sh in slots.values()),
-            f"{arch}: cache slots {slots}")
-    require(all(bool(torch.isfinite(c["k"]).all()) for c in rep.cache.values()),
+    leaves = dict(tree_flatten_with_path(rep.cache)[0])
+    shapes = {p: tuple(x.shape) for p, x in leaves.items()}
+    kv = {p: sh for p, sh in shapes.items()
+          if p.rsplit("/", 1)[-1] in ("k", "v")}
+    require(all(sh[-3] == prompt + SERVE_GEN for sh in kv.values())
+            and bool(kv) == (n_attn > 0), f"{arch}: cache slots {shapes}")
+    require(all(bool(torch.isfinite(x).all()) for x in leaves.values()),
             f"{arch}: cache not finite")
-    decode = decode_profile(torch, model, params, rep)
-    flash_ms = [a.elapsed_time(b) for a, b, _ in events]
-    windowed = [w is not None and w >= 0 for _, _, w in events]
-    out = dict(phase="serve", arch=arch, layers=n_layers, params=n_params,
-               d_model=cfg.d_model, heads=cfg.n_heads, kv_heads=cfg.n_kv_heads,
-               head_dim=cfg.head_dim, batch=1, prompt=SERVE_PROMPT,
+    decode = decode_profile(torch, model, params, rep, prompt, enc)
+    flash = events.get("flash_attention_bshd", [])
+    flash_ms = [a.elapsed_time(b) for a, b, _ in flash]
+    windowed = [w is not None and w >= 0 for _, _, w in flash]
+    loop_ms = {name: sum(a.elapsed_time(b) for a, b, _ in events[name])
+               for name in loops if name in events}
+    prefill_ms = rep.prefill_s * 1e3
+    out = dict(phase="serve", arch=arch, layers=cfg.total_layers,
+               attention_layers=n_attn, params=n_params, d_model=cfg.d_model,
+               heads=cfg.n_heads, kv_heads=cfg.n_kv_heads,
+               head_dim=cfg.head_dim, batch=1, prompt=prompt,
+               image_tokens=None if enc is None else enc.shape[1],
                gen=SERVE_GEN, init_s=init_s, prefill_s=rep.prefill_s,
-               prompt_tokens_per_s=SERVE_PROMPT / rep.prefill_s,
+               prompt_tokens_per_s=prompt / rep.prefill_s,
                decode_s=rep.decode_s, decode_ms_per_token=rep.ms_per_token,
                decode_device_busy_ms_per_step=decode["busy_ms"],
                decode_device_idle_share=(
@@ -1139,15 +1240,19 @@ def serve(torch, ops, dev, arch: str) -> dict:
                flash_ms_windowed=sum(m for m, w in zip(flash_ms, windowed)
                                      if w),
                flash_launches_windowed=sum(windowed),
-               flash_share_of_prefill=sum(flash_ms) / (rep.prefill_s * 1e3),
-               peak_mem_gb=peak_gb, cache_shape=slots,
+               flash_share_of_prefill=sum(flash_ms) / prefill_ms,
+               recurrent_loop_ms=loop_ms,
+               recurrent_loop_share_of_prefill=sum(loop_ms.values())
+               / prefill_ms,
+               peak_mem_gb=peak_gb, cache_shape=shapes,
                tokens=toks[0].tolist(), launches=launches)
-    del params, rep, logits, tokens
+    del params, rep, logits, batch, enc
     torch.cuda.empty_cache()
     return out
 
 
-def decode_profile(torch, model, params, rep, steps: int = 3) -> dict:
+def decode_profile(torch, model, params, rep, prompt: int, enc=None,
+                   steps: int = 3) -> dict:
     """Device time of a decode step by kernel, from ``torch.profiler``:
     ``steps`` steps at the cache's last free slot. ``busy_ms`` is the
     summed kernel time a step (None if the profiler saw no device time);
@@ -1155,14 +1260,14 @@ def decode_profile(torch, model, params, rep, steps: int = 3) -> dict:
     decode. ``top``: the five kernels with the most time, ms a step."""
     from torch.profiler import ProfilerActivity, profile
 
-    pos = SERVE_PROMPT + SERVE_GEN - 1
+    pos = prompt + SERVE_GEN - 1
     last = rep.tokens[:, -1]
     with torch.no_grad():
-        model.decode_step(params, rep.cache, last, pos)  # warm-up
+        model.decode_step(params, rep.cache, last, pos, enc)  # warm-up
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             for _ in range(steps):
-                model.decode_step(params, rep.cache, last, pos)
+                model.decode_step(params, rep.cache, last, pos, enc)
             torch.cuda.synchronize()
     rows = []
     for e in prof.key_averages():
@@ -1815,6 +1920,78 @@ def training_agreement(torch, ops, ref, T, dev) -> dict:
                 state_max_abs_err=state_err, launches=launches)
 
 
+# -- phase 18: the other group kinds, the card against the CPU ----------------
+
+def group_serve_agreement(torch, ops, dev) -> dict:
+    """The five architectures of the other group kinds at their smoke
+    configs (plain prefill: their smoke head dims have no flash tile),
+    then zamba2-7b at full width with one unit of one Mamba2 layer and
+    its shared attention block (flash, D = 112), each served on the card
+    and on the CPU from the same parameters (the VLM's gates at 0.5 and
+    its image embeddings the same), B = 2 (zamba2: 1), the same Gumbel
+    noise: prefill logits within rtol 1e-4 / atol 1e-4 (f32 matmuls and
+    softmax in other orders, through the recurrences too) and the same
+    tokens."""
+    import dataclasses
+
+    from repro_torch.api import Session
+    from repro_torch.configs import get_config
+    from repro_torch.core.tree_utils import tree_map
+    from repro_torch.engine.rounds import gumbel
+    from repro_torch.models.config import ZambaGroup
+    from repro_torch.models.attention import open_cross_gates
+    from repro_torch.models.transformer import Transformer
+
+    zamba = get_config("zamba2-7b").model
+    cases = {arch: (get_config(arch).smoke, 2, 64)
+             for arch in GROUP_SERVE_SMOKE}
+    cases["zamba2-7b_full_width_1_unit"] = (dataclasses.replace(
+        zamba, flash_prefill=True, groups=(ZambaGroup(
+            n_units=1, mamba_per_unit=1, d_state=zamba.groups[0].d_state,
+            expand=zamba.groups[0].expand),)), 1, 256)
+    gen_len = 8
+    out = {}
+    for name, (cfg, b, s) in cases.items():
+        model = Transformer(cfg)
+        cpu_gen = torch.Generator().manual_seed(SEED)
+        params = open_cross_gates(model.init(cpu_gen, device="cpu"))
+        batch = {"tokens": torch.randint(0, cfg.vocab_size, (b, s),
+                                         generator=cpu_gen)}
+        if cfg.groups[0].kind == "cross_self":
+            batch["image_embeds"] = torch.randn(
+                (b, cfg.groups[0].n_image_tokens, cfg.d_model),
+                generator=cpu_gen) * 0.1
+        noise = gumbel(cpu_gen, (gen_len - 1, b, cfg.vocab_size), "cpu")
+        rep, launches = {}, None
+        for device in ("cuda", "cpu"):
+            bd = {k: v.to(device) for k, v in batch.items()}
+            noise_d = noise.to(device)
+            ops.reset_launch_counts()
+            rep[device] = Session.build(model=model, device=device).serve(
+                tree_map(lambda x: x.to(device), params), bd, gen=gen_len,
+                noise_at=lambda t: noise_d[t], enc=bd.get("image_embeds"))
+            if device == "cuda":
+                launches = ops.launch_counts()
+        want_flash = attention_layers(cfg) if cfg.flash_prefill else 0
+        require(launches["flash_attention"] == want_flash
+                and sum(launches.values()) == want_flash,
+                f"{name}: launches {launches}")
+        card, cpu = rep["cuda"], rep["cpu"]
+        err = (card.logits.cpu() - cpu.logits).abs().max().item()
+        require(torch.allclose(card.logits.cpu(), cpu.logits, rtol=1e-4,
+                               atol=1e-4), f"{name} logits card vs CPU: {err}")
+        require(torch.equal(card.tokens.cpu(), cpu.tokens),
+                f"{name} tokens card {card.tokens.tolist()} vs CPU "
+                f"{cpu.tokens.tolist()}")
+        out[name] = dict(batch=b, prompt=s, gen=gen_len,
+                         head_dim=cfg.head_dim, flash=cfg.flash_prefill,
+                         logits_max_abs_err=err, tokens_equal=True,
+                         flash_launches=launches["flash_attention"])
+        del params, rep, card, cpu
+    torch.cuda.empty_cache()
+    return dict(phase="group_serve_agreement", results=out)
+
+
 def sparse_graph(n: int, seed: int = 0):
     from repro_torch.net import ErdosRenyiGraph
 
@@ -1890,7 +2067,8 @@ def main() -> int:
     brief = {k: ptxas_brief(ptxas_summary(report[k]["ptxas"], kernel))
              for k, kernel in (("pushsum_mix", "mix_"),
                                ("l1_norm", "l1_norm_kernel"),
-                               ("dpps_perturb", "perturb_kernel"))}
+                               ("dpps_perturb", "perturb_kernel"),
+                               ("flash_attention", "flash_attention_kernel"))}
     emit(dict(phase="build", seconds=build_s, kernels={
         k: {"seconds": v["seconds"], "cached": v["cached"]}
         for k, v in report.items()}, ptxas={
@@ -2016,6 +2194,13 @@ def main() -> int:
     emit(lm)
     launches.append(lm["launches"])
     emit(training_agreement(torch, ops, ref, T, dev))
+    torch.cuda.empty_cache()
+    for arch, layers in GROUP_SERVE.items():
+        served = serve(torch, ops, dev, arch, prompt=GROUP_SERVE_PROMPT,
+                       layers=layers)
+        emit(served)
+        launches.append(served["launches"])
+    emit(group_serve_agreement(torch, ops, dev))
 
     for (shape, k), (fn, other, name) in calls.items():
         r = small[shape][k]

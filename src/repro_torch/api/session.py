@@ -326,8 +326,8 @@ class ProtocolSession:
               temperature: float = 1.0,
               generator: torch.Generator | None = None,
               step_inputs: torch.Tensor | None = None,
-              noise_at: Callable[[int], torch.Tensor] | None = None
-              ) -> ServeReport:
+              noise_at: Callable[[int], torch.Tensor] | None = None,
+              enc: torch.Tensor | None = None) -> ServeReport:
         """Batched prefill + decode of ``gen`` tokens on ``params``.
 
         ``batch`` holds ``tokens`` (B, S) or, for embedding-input models,
@@ -336,6 +336,9 @@ class ProtocolSession:
         other gen - 1 are sampled by :func:`repro_torch.engine.run_decode`
         with Gumbel noise from ``generator`` (default: a generator on the
         session's device seeded with its seed) or from ``noise_at(step)``.
+        ``enc`` is a cross-attention model's image embeddings (B, M,
+        d_model) for the decode steps; its prefill reads them from
+        ``batch["image_embeds"]``, as the reference's does.
 
         The reference prefills into a prompt-sized cache and grafts it into
         a prompt + gen one; the port allocates the prompt + gen cache first
@@ -370,8 +373,8 @@ class ProtocolSession:
             tok = torch.argmax(logits, dim=-1)
             if steps > 0:
                 toks, cache = run_decode(
-                    lambda c, step_in, pos: model.decode_step(params, c,
-                                                              step_in, pos),
+                    lambda c, step_in, pos: model.decode_step(
+                        params, c, step_in, pos, enc),
                     cache, tok, start_pos=prompt_len, steps=steps,
                     temperature=temperature, step_inputs=step_inputs,
                     generator=generator, noise_at=noise_at)

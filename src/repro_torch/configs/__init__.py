@@ -1,10 +1,10 @@
 """Architecture registry of the port: ``get_config("<arch-id>")`` ->
 ArchSpec (mirrors ``repro.configs``).
 
-The port serves the attention-only family so far: the five architectures
-whose every group is an ``AttnGroup``. The reference's other five names
-(MoE, xLSTM, Zamba, the VLM) are known here and raise ``KeyError`` saying
-that they wait for a later slice (ROADMAP Queue 1).
+All ten of the reference's architectures serve. ``TRAIN_ARCHS`` are the
+five that also train: those whose every group is an ``AttnGroup``. The
+MoE, xLSTM, Zamba and VLM models raise ``NotImplementedError`` in
+``Transformer.loss_fn`` (ROADMAP Queue 1, item 3b).
 """
 from __future__ import annotations
 
@@ -18,22 +18,26 @@ _ARCH_MODULES = {
     "minitron-4b": "repro_torch.configs.minitron_4b",
     "gemma-7b": "repro_torch.configs.gemma_7b",
     "musicgen-large": "repro_torch.configs.musicgen_large",
+    "xlstm-125m": "repro_torch.configs.xlstm_125m",
+    "llama-3.2-vision-11b": "repro_torch.configs.llama3_2_vision_11b",
+    "llama4-scout-17b-a16e": "repro_torch.configs.llama4_scout_17b_a16e",
+    "llama4-maverick-400b-a17b": "repro_torch.configs.llama4_maverick_400b_a17b",
+    "zamba2-7b": "repro_torch.configs.zamba2_7b",
 }
-# The reference's architectures whose group kinds the port does not run yet.
-_LATER = ("xlstm-125m", "llama-3.2-vision-11b", "llama4-scout-17b-a16e",
-          "llama4-maverick-400b-a17b", "zamba2-7b")
 
 ARCH_NAMES = tuple(_ARCH_MODULES)
 
 
 def get_config(name: str) -> ArchSpec:
-    if name in _LATER:
-        raise KeyError(
-            f"arch {name!r} is not ported yet: its MoE / xLSTM / Mamba / Zamba "
-            "/ cross-attention groups wait for a later slice (ROADMAP Queue 1)")
     if name not in _ARCH_MODULES:
         raise KeyError(f"unknown arch {name!r}; known: {', '.join(ARCH_NAMES)}")
     return importlib.import_module(_ARCH_MODULES[name]).SPEC
 
 
-__all__ = ["ARCH_NAMES", "ArchSpec", "ShapeSpec", "INPUT_SHAPES", "get_config"]
+# The architectures the port trains: those whose every group is attention.
+TRAIN_ARCHS = tuple(n for n in ARCH_NAMES if all(
+    g.kind == "attn" for g in get_config(n).model.groups))
+
+
+__all__ = ["ARCH_NAMES", "TRAIN_ARCHS", "ArchSpec", "ShapeSpec",
+           "INPUT_SHAPES", "get_config"]

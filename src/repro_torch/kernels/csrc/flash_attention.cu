@@ -42,10 +42,15 @@
 // Registers set the tiles. With DSPLIT = 2 the two warps of a row group
 // each form the scores over their half of D and add the two halves through
 // shared memory, in slice order, so both hold bitwise equal scores and
-// probabilities: D = 128 and 256 are split, as one warp's O accumulator and
-// Q fragments (D / 2 registers each) would spill. At D = 256 the key tile
-// is 16 rows: at 32 the kernel needs one register more than the 255 a
-// thread has and spills it (it then ran 10 % faster, 62.4 against 68.8 ms
+// probabilities: D = 112 (zamba2-7b's head dim: 56 columns, 7 k-steps a
+// warp), 128 and 256 are split, as one warp's O accumulator and Q
+// fragments (D / 2 registers each) would spill. At D = 112 the key tile is
+// 32 rows: at 128 registers a thread and 74 KB of shared memory two blocks
+// share an SM, where 64-row tiles fit one (PERF.md section 6 times both:
+// repro_torch.kernels.sweep --only flash, with ops.FLASH_TILES and the
+// list below changed alike). At D = 256 the key tile is 16 rows: at 32
+// the kernel needs one register more than the 255 a thread has and
+// spills it (it then ran 10 % faster, 62.4 against 68.8 ms
 // at gemma3-1b's global 32k layer on an H100 80GB HBM3 at 700 W,
 // repro_torch.kernels.sweep; the table keeps to no spills). Rows padded to
 // D + 4 floats put the fragments' reads on distinct banks. The tile table
@@ -359,6 +364,7 @@ __global__ void __launch_bounds__(FlashTile<D, WM, BK, DSPLIT>::kThreads)
 // The instantiations: ops.FLASH_TILES, one (D, BQ, BK, DSPLIT) each.
 #define REPRO_FLASH_TILES                                                \
   REPRO_FLASH_TILE(64, 64, 32, 1)                                        \
+  REPRO_FLASH_TILE(112, 64, 32, 2)                                       \
   REPRO_FLASH_TILE(128, 64, 64, 2)                                       \
   REPRO_FLASH_TILE(256, 64, 16, 2)
 
@@ -380,7 +386,7 @@ static int launch(FlashArgs a, int64_t b, int64_t h, int64_t smem_bytes, cudaStr
 
 // q, o: (b, s, h, d) at element strides (q_sb, q_ss, q_sh) and unit stride
 // over d; k, v: (b, s, kh, d) at (k_sb, k_ss, k_sh). f32, 16-byte aligned,
-// every stride a multiple of 4. d in {64, 128, 256}, h = kh * group,
+// every stride a multiple of 4. d in {64, 112, 128, 256}, h = kh * group,
 // window < 0 (global) or >= 1. (bq, bk, dsplit, smem_bytes) is the wrapper's
 // tile for d (repro_torch.kernels.ops.FLASH_TILES); the grid is
 // (ceil(s / bq), h, b). Returns cudaGetLastError(), or

@@ -81,7 +81,8 @@ SM_SMEM_BYTES = 233_472       # shared memory of an SM, 1 KB a block reserved
 # BK key rows a tile, DSPLIT warps sharing a group of 16 rows, each owning
 # D / DSPLIT columns). The C function has one instantiation of each entry
 # and refuses any other tile.
-FLASH_TILES = {64: (64, 32, 1), 128: (64, 64, 2), 256: (64, 16, 2)}
+FLASH_TILES = {64: (64, 32, 1), 112: (64, 32, 2), 128: (64, 64, 2),
+               256: (64, 16, 2)}
 FLASH_HEAD_DIMS = tuple(FLASH_TILES)
 FLASH_STAGES = 2  # the K/V ring of csrc/flash_attention.cu
 

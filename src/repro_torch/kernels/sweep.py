@@ -46,6 +46,9 @@ FLASH_SHAPES = {  # (B, S, H, K, D, window), as chip_smoke.py
     "gemma3_32k_global": (1, 32_768, 4, 1, 256, None),
     "ragged_minitron": (2, 1000, 24, 8, 128, None),
     "minitron_32k": (1, 32_768, 24, 8, 128, None),
+    "zamba2_4k": (1, 4096, 32, 32, 112, None),
+    "scout_4k": (1, 4096, 40, 8, 128, None),
+    "vision_4k": (1, 4096, 32, 8, 128, None),
 }
 # (stage bytes, blocks an SM at most, threads a block) of the column-tile
 # ring; stage bytes 0 forces the rows regime

@@ -3,11 +3,15 @@
 
 Builds the model of ``--arch`` (``--reduced``: its smoke config) from a
 seeded ``torch.Generator``, makes a seeded batch of prompts and runs
-``Session.build(model=...).serve(...)``. On the card by default; pass
+``Session.build(model=...).serve(...)``. A VLM (llama-3.2-vision-11b) also
+gets image embeddings, normal x 0.1 of (B, n_image_tokens, d_model), as
+``batch["image_embeds"]`` and ``enc=``. On the card by default; pass
 ``--device cpu`` for the plain PyTorch path.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3.2-1b \\
         --reduced --device cpu --batch 2 --prompt-len 8 --gen 6
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2-7b \\
+        --reduced --device cpu
 
 ``--checkpoint`` waits for the checkpoint port (ROADMAP Queue 1) and
 raises if given.
@@ -56,6 +60,11 @@ def main(argv=None) -> None:
     else:
         batch = {"tokens": torch.randint(0, cfg.vocab_size, (b, s),
                                          generator=gen, device=dev)}
+    enc = None
+    if arch.family == "vlm":
+        enc = torch.randn((b, cfg.groups[0].n_image_tokens, cfg.d_model),
+                          generator=gen, device=dev) * 0.1
+        batch["image_embeds"] = enc
     step_inputs = None
     if cfg.input_mode == "embeddings" and args.gen > 1:
         step_inputs = torch.randn((args.gen - 1, b, cfg.d_model),
@@ -63,7 +72,7 @@ def main(argv=None) -> None:
 
     report = session.serve(params, batch, gen=args.gen,
                            temperature=args.temperature,
-                           step_inputs=step_inputs)
+                           step_inputs=step_inputs, enc=enc)
     print(f"device: {dev}")
     print(f"prefill: {report.prefill_s:.2f}s")
     print(f"decode: {report.steps} steps in {report.decode_s:.2f}s "

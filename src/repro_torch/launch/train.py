@@ -29,7 +29,7 @@ import time
 import torch
 
 from repro_torch.api import PrivacySpec, Session
-from repro_torch.configs import ARCH_NAMES, get_config
+from repro_torch.configs import TRAIN_ARCHS, get_config
 from repro_torch.core.topology import (DOutGraph, ExpGraph,
                                        FullyConnectedGraph, RingGraph)
 from repro_torch.data import NodeShardedLoader, SyntheticLMStream
@@ -134,7 +134,9 @@ def lm_batches(model_cfg, loader: NodeShardedLoader):
 
 def _parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--arch", choices=ARCH_NAMES, default="llama3.2-1b")
+    ap.add_argument("--arch", choices=TRAIN_ARCHS, default="llama3.2-1b",
+                    help="the attention-only architectures; the others "
+                         "serve only (ROADMAP Queue 1, item 3b)")
     ap.add_argument("--reduced", action="store_true",
                     help="use the smoke-scale config (CPU friendly)")
     ap.add_argument("--nodes", type=int, default=8)

@@ -9,10 +9,9 @@ shapes agree between the two packages.
 * ``AttnGroup``     — n identical GQA decoder blocks; per-layer sliding
                       windows / rope thetas (gemma3's 5-local:1-global).
 * ``MoEGroup``, ``XLSTMGroup``, ``MambaGroup``, ``ZambaGroup``,
-  ``CrossSelfGroup`` — the other families. Their configs are kept so that
-  every architecture's config can be described; the port's
-  :class:`repro_torch.models.transformer.Transformer` runs ``AttnGroup``
-  only so far (ROADMAP Queue 1).
+  ``CrossSelfGroup`` — the other families. The port's
+  :class:`repro_torch.models.transformer.Transformer` serves every kind
+  and trains ``AttnGroup`` only so far (ROADMAP Queue 1, item 3b).
 """
 from __future__ import annotations
 

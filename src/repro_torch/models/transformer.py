@@ -1,5 +1,5 @@
-"""Config-driven decoder transformer: the attention-only family (port of
-``repro.models.transformer``).
+"""Config-driven decoder transformer: every group kind of the model zoo
+(port of ``repro.models.transformer``).
 
 Parameters are plain dicts with the reference's paths (``embed``,
 ``final_ln/scale``, ``lm_head`` when untied, ``group_<i>/{ln1,attn,ln2,mlp}
@@ -37,8 +37,16 @@ says (the reference's other path streams the whole stack through its scan);
 the results are the same either way. A group whose layers all share one
 window keeps a ring buffer of that many slots.
 
-Group kinds other than ``attn`` (MoE, xLSTM, Mamba, Zamba, cross-attention)
-raise ``NotImplementedError`` (ROADMAP Queue 1).
+Every group kind of the reference serves: ``attn``, ``moe`` (all-MoE, or
+``moe_every`` - 1 dense layers before each MoE one), ``xlstm`` (units of
+mLSTM layers and an sLSTM), ``mamba``, ``zamba`` (units of Mamba2 layers,
+each followed by one shared attention block with a KV cache of its own
+for each application, then trailing Mamba2 layers) and ``cross_self``
+(units of one tanh-gated cross-attention over ``batch["image_embeds"]``
+and self-attention layers). A recurrent group's cache is its state (f32),
+written by the prefill and in place by each decode step. Training
+(``forward_train``, ``loss_fn``) takes ``attn`` groups only; the other
+kinds raise ``NotImplementedError`` (ROADMAP Queue 1, item 3b).
 """
 from __future__ import annotations
 
@@ -53,10 +61,15 @@ from repro_torch.core.partition import layer_list
 from repro_torch.core.tree_utils import tree_flatten, tree_map, tree_unflatten
 from repro_torch.device import resolve_device
 from repro_torch.kernels import ops as kops
-from repro_torch.models.attention import init_attention
-from repro_torch.models.config import AttnGroup, ModelConfig
+from repro_torch.models import ssm
+from repro_torch.models.attention import (cross_attention, init_attention,
+                                          init_cross_attention)
+from repro_torch.models.config import (AttnGroup, CrossSelfGroup, MambaGroup,
+                                       ModelConfig, MoEGroup, XLSTMGroup,
+                                       ZambaGroup)
 from repro_torch.models.layers import (dense_init, init_rms_norm, mlp_apply,
                                        mlp_init, rms_norm, rope, softcap)
+from repro_torch.models.moe import init_moe, moe_apply
 
 __all__ = ["Transformer"]
 
@@ -187,8 +200,12 @@ def _stack_init(n: int, init_one) -> dict:
     return tree_unflatten(treedef, stacked)
 
 
-def _layer(params, i: int):
-    return tree_map(lambda x: x[i], params)
+def _layers(tree) -> list:
+    """The layers of a layer-stacked tree, as trees of views (one
+    :func:`layer_list` a leaf)."""
+    leaves, treedef = tree_flatten(tree)
+    return [tree_unflatten(treedef, list(layer))
+            for layer in zip(*(layer_list(x) for x in leaves))]
 
 
 def _remat(fn, *args):
@@ -214,6 +231,11 @@ def _write_prompt(cache: torch.Tensor, kv: torch.Tensor) -> None:
         cache[:, slots] = kv[:, s - t:].to(cache.dtype)
 
 
+def _mlp_residual(lp, x, cfg: ModelConfig):
+    return x + mlp_apply(lp["mlp"], rms_norm(lp["ln2"], x, cfg.norm_eps),
+                         cfg.activation)
+
+
 # ---------------------------------------------------------------------------
 # Group implementation
 # ---------------------------------------------------------------------------
@@ -234,7 +256,8 @@ class _AttnGroupImpl:
         return _stack_init(self.spec.n_layers, lambda: _init_attn_block(
             gen, self.cfg, dtype, device))
 
-    def train(self, params, x, positions, cache=None, use_flash=False):
+    def train(self, params, x, positions, cache=None, use_flash=False,
+              enc=None):
         """Forward over the layers; with ``cache`` (this group's
         :meth:`init_cache`) each layer's K/V is written into it. Each layer
         runs under :func:`_remat` (checkpointed when grad is enabled). The
@@ -253,17 +276,28 @@ class _AttnGroupImpl:
 
     def _block(self, lp, x, positions, i: int, cache, use_flash: bool):
         """Layer i: pre-norm attention and MLP, each added to the residual."""
+        return _mlp_residual(lp, self.attend(lp, x, positions, i, cache,
+                                             use_flash), self.cfg)
+
+    def attend(self, lp, x, positions, i: int, cache, use_flash: bool):
+        """x + layer i's pre-norm attention over the whole sequence; with
+        ``cache``, its K/V into the cache's layer ``i``."""
         cfg = self.cfg
         a, k, v = _attn_train(lp["attn"], rms_norm(lp["ln1"], x, cfg.norm_eps),
                               positions, cfg, self.thetas[i], self.windows[i],
                               use_flash=use_flash)
-        x = x + a
-        x = x + mlp_apply(lp["mlp"], rms_norm(lp["ln2"], x, cfg.norm_eps),
-                          cfg.activation)
         if cache is not None:
             _write_prompt(cache["k"][i], k)
             _write_prompt(cache["v"][i], v)
-        return x
+        return x + a
+
+    def attend_step(self, lp, x, pos: int, i: int, cache):
+        """One token of :meth:`attend`, writing its K/V slot in place."""
+        cfg = self.cfg
+        return x + _attn_decode(lp["attn"], rms_norm(lp["ln1"], x, cfg.norm_eps),
+                                pos, cache["k"][i], cache["v"][i], cfg,
+                                self.thetas[i], self.windows[i],
+                                self.uniform_window is not None)
 
     def init_cache(self, batch: int, capacity: int, dtype, device) -> dict:
         cfg = self.cfg
@@ -273,29 +307,318 @@ class _AttnGroupImpl:
         return {"k": torch.zeros(shape, dtype=dtype, device=device),
                 "v": torch.zeros(shape, dtype=dtype, device=device)}
 
-    def decode(self, params, x, pos: int, cache):
+    def decode(self, params, x, pos: int, cache, enc=None):
         """One token through the layers, each writing its K/V slot of
         ``cache`` in place."""
-        cfg = self.cfg
-        ring = self.uniform_window is not None
-        for i in range(self.spec.n_layers):
-            lp = _layer(params, i)
-            a = _attn_decode(lp["attn"], rms_norm(lp["ln1"], x, cfg.norm_eps),
-                             pos, cache["k"][i], cache["v"][i], cfg,
-                             self.thetas[i], self.windows[i], ring)
-            x = x + a
-            x = x + mlp_apply(lp["mlp"], rms_norm(lp["ln2"], x, cfg.norm_eps),
-                              cfg.activation)
+        for i, lp in enumerate(_layers(params)):
+            x = _mlp_residual(lp, self.attend_step(lp, x, pos, i, cache),
+                              self.cfg)
         return x
 
 
-def _group_impl(spec, cfg: ModelConfig):
-    if spec.kind != "attn":
-        raise NotImplementedError(
-            f"group kind {spec.kind!r} is not ported yet: MoE, xLSTM, Mamba, "
-            "Zamba and cross-attention groups wait for a later slice (ROADMAP "
-            "Queue 1, the other group kinds for serving)")
-    return _AttnGroupImpl(spec, cfg)
+def _stacked(n: int, tree: dict) -> dict:
+    """Each leaf of ``tree`` repeated on a new leading axis of ``n`` (a
+    cache for ``n`` units)."""
+    return tree_map(lambda x: x.expand((n,) + tuple(x.shape)).clone(), tree)
+
+
+def _residual_mixer(fn, lp, x, state, eps: float, **kw):
+    """x + ``fn(cell, norm(x), state=state)`` for a pre-norm recurrent
+    layer ``lp`` = {"ln", "cell"}; the new state is copied into ``state``
+    (a view of the cache) in place."""
+    y, new = fn(lp["cell"], rms_norm(lp["ln"], x, eps), state=state, **kw)
+    for key, value in new.items():
+        state[key].copy_(value)
+    return x + y
+
+
+class _MoEGroupImpl:
+    """All-MoE units (``moe_every`` = 1, llama4-scout) or units of
+    ``moe_every`` - 1 dense blocks and one MoE block (llama4-maverick's
+    alternation). An MoE block is global attention and the routed experts;
+    its aux loss is not kept (training these groups is ROADMAP Queue 1,
+    item 3b). Like every group but ``attn``, it runs with a cache only:
+    its ``train`` is the prefill."""
+
+    def __init__(self, spec: MoEGroup, cfg: ModelConfig):
+        self.spec, self.cfg = spec, cfg
+        self._dense_unit = (_AttnGroupImpl(AttnGroup(n_layers=spec.moe_every - 1),
+                                           cfg) if spec.moe_every > 1 else None)
+        # the MoE blocks' attention halves: one global layer a unit
+        self._attn = _AttnGroupImpl(AttnGroup(n_layers=spec.n_units), cfg)
+
+    def _init_block(self, gen, dtype, device) -> dict:
+        cfg, spec = self.cfg, self.spec
+        return {
+            "ln1": init_rms_norm(cfg.d_model, dtype, device),
+            "attn": init_attention(gen, cfg.d_model, cfg.n_heads,
+                                   cfg.n_kv_heads, cfg.head_dim, dtype, device),
+            "ln2": init_rms_norm(cfg.d_model, dtype, device),
+            "moe": init_moe(gen, cfg.d_model, cfg.d_ff, spec.n_experts,
+                            shared_expert=spec.shared_expert, dtype=dtype,
+                            device=device),
+        }
+
+    def init(self, gen: torch.Generator, dtype, device) -> dict:
+        if self._dense_unit is None:
+            return _stack_init(self.spec.n_units,
+                               lambda: self._init_block(gen, dtype, device))
+        return _stack_init(self.spec.n_units, lambda: {
+            "dense": self._dense_unit.init(gen, dtype, device),
+            "moe": self._init_block(gen, dtype, device)})
+
+    def init_cache(self, batch: int, capacity: int, dtype, device) -> dict:
+        kv = self._attn.init_cache(batch, capacity, dtype, device)
+        if self._dense_unit is None:
+            return kv
+        return {"dense": _stacked(self.spec.n_units, self._dense_unit.init_cache(
+            batch, capacity, dtype, device)), "moe": kv}
+
+    def _moe(self, lp, x):
+        spec = self.spec
+        out, _ = moe_apply(lp["moe"], rms_norm(lp["ln2"], x, self.cfg.norm_eps),
+                           n_experts=spec.n_experts,
+                           capacity_factor=spec.capacity_factor,
+                           router_aux_weight=spec.router_aux_weight)
+        return x + out
+
+    def _units(self, params, cache):
+        """(unit params, its dense blocks' cache) of each unit, and the MoE
+        blocks' KV cache."""
+        if self._dense_unit is None:
+            return zip(_layers(params), [None] * self.spec.n_units), cache
+        return zip(_layers(params), _layers(cache["dense"])), cache["moe"]
+
+    def train(self, params, x, positions, cache, use_flash=False, enc=None):
+        units, kv = self._units(params, cache)
+        for i, (lp, dense_cache) in enumerate(units):
+            if self._dense_unit is not None:
+                x = self._dense_unit.train(lp["dense"], x, positions,
+                                           cache=dense_cache,
+                                           use_flash=use_flash)
+                lp = lp["moe"]
+            x = self._moe(lp, self._attn.attend(lp, x, positions, i, kv,
+                                                use_flash))
+        return x
+
+    def decode(self, params, x, pos: int, cache, enc=None):
+        units, kv = self._units(params, cache)
+        for i, (lp, dense_cache) in enumerate(units):
+            if self._dense_unit is not None:
+                x = self._dense_unit.decode(lp["dense"], x, pos, dense_cache)
+                lp = lp["moe"]
+            x = self._moe(lp, self._attn.attend_step(lp, x, pos, i, kv))
+        return x
+
+
+class _XLSTMGroupImpl:
+    """Units of ``mlstm_per_unit`` mLSTM layers and one sLSTM layer, each
+    pre-norm and added to the residual; attention-free. The cache is the
+    states: mLSTM ``C``, ``n``, ``m`` (units, mlstm_per_unit, B, ...) and
+    sLSTM ``c``, ``n``, ``m``, ``h`` (units, B, d)."""
+
+    def __init__(self, spec: XLSTMGroup, cfg: ModelConfig):
+        self.spec, self.cfg = spec, cfg
+
+    def _init_unit(self, gen, dtype, device) -> dict:
+        cfg, spec = self.cfg, self.spec
+        return {
+            "mlstm": _stack_init(spec.mlstm_per_unit, lambda: {
+                "ln": init_rms_norm(cfg.d_model, dtype, device),
+                "cell": ssm.init_mlstm(gen, cfg.d_model, cfg.n_heads,
+                                       spec.proj_factor, dtype, device)}),
+            "slstm": {"ln": init_rms_norm(cfg.d_model, dtype, device),
+                      "cell": ssm.init_slstm(gen, cfg.d_model, dtype, device)},
+        }
+
+    def init(self, gen: torch.Generator, dtype, device) -> dict:
+        return _stack_init(self.spec.n_units,
+                           lambda: self._init_unit(gen, dtype, device))
+
+    def init_cache(self, batch: int, capacity: int, dtype, device) -> dict:
+        cfg, spec = self.cfg, self.spec
+        m = ssm.mlstm_state(batch, cfg.d_model, cfg.n_heads, spec.proj_factor,
+                            device)
+        s = ssm.slstm_state(batch, cfg.d_model, device)
+        return {"mlstm": _stacked(spec.n_units,
+                                  _stacked(spec.mlstm_per_unit, m)),
+                "slstm": _stacked(spec.n_units, s)}
+
+    def _run(self, params, x, cache, m_fn, s_fn):
+        cfg = self.cfg
+        for up, st in zip(_layers(params), _layers(cache)):
+            for lp, m_st in zip(_layers(up["mlstm"]), _layers(st["mlstm"])):
+                x = _residual_mixer(m_fn, lp, x, m_st, cfg.norm_eps,
+                                    n_heads=cfg.n_heads)
+            x = _residual_mixer(s_fn, up["slstm"], x, st["slstm"],
+                                cfg.norm_eps)
+        return x
+
+    def train(self, params, x, positions, cache, use_flash=False, enc=None):
+        return self._run(params, x, cache, ssm.mlstm_seq, ssm.slstm_seq)
+
+    def decode(self, params, x, pos: int, cache, enc=None):
+        return self._run(params, x, cache, ssm.mlstm_step, ssm.slstm_step)
+
+
+class _MambaGroupImpl:
+    """n pre-norm Mamba2 layers; attention-free. Mamba2's head dim is its
+    own (64, as in the reference), not ``cfg.head_dim``. The cache is each
+    layer's state ``h`` (n, B, heads, d_state, 64)."""
+
+    HEAD_DIM = 64
+
+    def __init__(self, spec: MambaGroup, cfg: ModelConfig):
+        self.spec, self.cfg = spec, cfg
+
+    def init(self, gen: torch.Generator, dtype, device) -> dict:
+        cfg, spec = self.cfg, self.spec
+        return _stack_init(self.spec.n_layers, lambda: {
+            "ln": init_rms_norm(cfg.d_model, dtype, device),
+            "cell": ssm.init_mamba2(gen, cfg.d_model, spec.d_state,
+                                    spec.expand, self.HEAD_DIM, dtype, device)})
+
+    def init_cache(self, batch: int, capacity: int, dtype, device) -> dict:
+        return _stacked(self.spec.n_layers, ssm.mamba2_state(
+            batch, self.cfg.d_model, self.spec.d_state, self.spec.expand,
+            self.HEAD_DIM, device))
+
+    def _run(self, params, x, cache, fn):
+        for lp, st in zip(_layers(params), _layers(cache)):
+            x = _residual_mixer(fn, lp, x, st, self.cfg.norm_eps,
+                                head_dim=self.HEAD_DIM)
+        return x
+
+    def train(self, params, x, positions, cache, use_flash=False, enc=None):
+        return self._run(params, x, cache, ssm.mamba2_seq)
+
+    def decode(self, params, x, pos: int, cache, enc=None):
+        return self._run(params, x, cache, ssm.mamba2_step)
+
+
+class _ZambaGroupImpl:
+    """Units of ``mamba_per_unit`` Mamba2 layers and one application of a
+    shared attention block (one set of weights for every unit: Zamba2's
+    parameter sharing), then the trailing Mamba2 layers. Each application
+    keeps a KV cache of its own (``attn``: (units, B, T, K, D))."""
+
+    def __init__(self, spec: ZambaGroup, cfg: ModelConfig):
+        self.spec, self.cfg = spec, cfg
+        self._mamba_unit = _MambaGroupImpl(
+            MambaGroup(n_layers=spec.mamba_per_unit, d_state=spec.d_state,
+                       expand=spec.expand), cfg)
+        self._trailing = (_MambaGroupImpl(
+            MambaGroup(n_layers=spec.trailing_mamba, d_state=spec.d_state,
+                       expand=spec.expand), cfg)
+            if spec.trailing_mamba else None)
+        # the shared block's applications: one global layer a unit, each
+        # with its own cache
+        self._shared = _AttnGroupImpl(AttnGroup(n_layers=spec.n_units), cfg)
+
+    def init(self, gen: torch.Generator, dtype, device) -> dict:
+        params = {
+            "units_mamba": _stack_init(
+                self.spec.n_units,
+                lambda: self._mamba_unit.init(gen, dtype, device)),
+            "shared_attn": _init_attn_block(gen, self.cfg, dtype, device),
+        }
+        if self._trailing is not None:
+            params["trailing"] = self._trailing.init(gen, dtype, device)
+        return params
+
+    def init_cache(self, batch: int, capacity: int, dtype, device) -> dict:
+        n = self.spec.n_units
+        cache = {"mamba": _stacked(n, self._mamba_unit.init_cache(
+                     batch, capacity, dtype, device)),
+                 "attn": self._shared.init_cache(batch, capacity, dtype,
+                                                 device)}
+        if self._trailing is not None:
+            cache["trailing"] = self._trailing.init_cache(batch, capacity,
+                                                          dtype, device)
+        return cache
+
+    def train(self, params, x, positions, cache, use_flash=False, enc=None):
+        shared = params["shared_attn"]
+        for u, (up, m_cache) in enumerate(zip(_layers(params["units_mamba"]),
+                                              _layers(cache["mamba"]))):
+            x = self._mamba_unit.train(up, x, positions, cache=m_cache)
+            x = _mlp_residual(shared, self._shared.attend(
+                shared, x, positions, u, cache["attn"], use_flash), self.cfg)
+        if self._trailing is not None:
+            x = self._trailing.train(params["trailing"], x, positions,
+                                     cache=cache["trailing"])
+        return x
+
+    def decode(self, params, x, pos: int, cache, enc=None):
+        shared = params["shared_attn"]
+        for u, (up, m_cache) in enumerate(zip(_layers(params["units_mamba"]),
+                                              _layers(cache["mamba"]))):
+            x = self._mamba_unit.decode(up, x, pos, m_cache)
+            x = _mlp_residual(shared, self._shared.attend_step(
+                shared, x, pos, u, cache["attn"]), self.cfg)
+        if self._trailing is not None:
+            x = self._trailing.decode(params["trailing"], x, pos,
+                                      cache["trailing"])
+        return x
+
+
+class _CrossSelfGroupImpl:
+    """Units of one tanh-gated cross-attention over the image embeddings
+    ``enc`` (B, M, d_model) and ``self_per_unit`` self-attention blocks
+    (Llama-3.2-Vision). The cache is the self blocks' K/V, (units,
+    self_per_unit, B, T, K, D); the cross layers recompute theirs from
+    ``enc`` at every step, as the reference does."""
+
+    def __init__(self, spec: CrossSelfGroup, cfg: ModelConfig):
+        self.spec, self.cfg = spec, cfg
+        self._self_unit = _AttnGroupImpl(AttnGroup(n_layers=spec.self_per_unit),
+                                         cfg)
+
+    def init(self, gen: torch.Generator, dtype, device) -> dict:
+        cfg = self.cfg
+        return _stack_init(self.spec.n_units, lambda: {
+            "cross_ln": init_rms_norm(cfg.d_model, dtype, device),
+            "cross": init_cross_attention(gen, cfg.d_model, cfg.n_heads,
+                                          cfg.n_kv_heads, cfg.head_dim, dtype,
+                                          device),
+            "self": self._self_unit.init(gen, dtype, device)})
+
+    def init_cache(self, batch: int, capacity: int, dtype, device) -> dict:
+        return _stacked(self.spec.n_units, self._self_unit.init_cache(
+            batch, capacity, dtype, device))
+
+    def _cross(self, up, x, enc):
+        if enc is None:
+            raise ValueError("a cross_self group needs the image embeddings: "
+                             "batch['image_embeds'] in prefill, enc= in decode")
+        cfg = self.cfg
+        return x + cross_attention(up["cross"],
+                                   rms_norm(up["cross_ln"], x, cfg.norm_eps),
+                                   enc, n_heads=cfg.n_heads,
+                                   n_kv_heads=cfg.n_kv_heads,
+                                   head_dim=cfg.head_dim)
+
+    def train(self, params, x, positions, cache, use_flash=False, enc=None):
+        for up, c in zip(_layers(params), _layers(cache)):
+            x = self._self_unit.train(up["self"], self._cross(up, x, enc),
+                                      positions, cache=c, use_flash=use_flash)
+        return x
+
+    def decode(self, params, x, pos: int, cache, enc=None):
+        for up, c in zip(_layers(params), _layers(cache)):
+            x = self._self_unit.decode(up["self"], self._cross(up, x, enc),
+                                       pos, c)
+        return x
+
+
+_GROUP_IMPLS = {
+    "attn": _AttnGroupImpl,
+    "moe": _MoEGroupImpl,
+    "xlstm": _XLSTMGroupImpl,
+    "mamba": _MambaGroupImpl,
+    "zamba": _ZambaGroupImpl,
+    "cross_self": _CrossSelfGroupImpl,
+}
 
 
 # ---------------------------------------------------------------------------
@@ -309,7 +632,7 @@ class Transformer:
 
     def __init__(self, cfg: ModelConfig):
         self.cfg = cfg
-        self.groups = [_group_impl(g, cfg) for g in cfg.groups]
+        self.groups = [_GROUP_IMPLS[g.kind](g, cfg) for g in cfg.groups]
 
     @property
     def dtype(self) -> torch.dtype:
@@ -347,11 +670,12 @@ class Transformer:
             x = F.embedding(batch["tokens"], params["embed"])
         return self._scale_embed(x)
 
-    def _backbone(self, params, x, positions, caches=None, use_flash=False):
+    def _backbone(self, params, x, positions, caches=None, use_flash=False,
+                  enc=None):
         for i, g in enumerate(self.groups):
             x = g.train(params[f"group_{i}"], x, positions,
                         cache=None if caches is None else caches[f"group_{i}"],
-                        use_flash=use_flash)
+                        use_flash=use_flash, enc=enc)
         return rms_norm(params["final_ln"], x, self.cfg.norm_eps)
 
     def _head(self, params, x):
@@ -368,7 +692,14 @@ class Transformer:
     def forward_train(self, params, batch):
         """-> (final hidden states (B, S, d), aux loss). The logits are made
         chunk by chunk inside :meth:`loss_fn`. ``aux`` is a zero scalar: only
-        MoE groups make one."""
+        MoE groups make one. Groups other than ``attn`` raise
+        ``NotImplementedError``: they serve, and train in a later slice."""
+        kinds = sorted({g.kind for g in self.cfg.groups} - {"attn"})
+        if kinds:
+            raise NotImplementedError(
+                f"training {self.cfg.name}: group kinds {kinds} serve only; "
+                "their training waits for ROADMAP Queue 1, item 3b (training "
+                "the MoE, xLSTM, Mamba2/Zamba2 and cross-attention kinds)")
         x = self._embed_inputs(params, batch)
         b, s = x.shape[:2]
         positions = torch.arange(s, device=x.device)[None].expand(b, s)
@@ -413,26 +744,31 @@ class Transformer:
         The cache holds ``capacity`` slots (default: the prompt length, as
         the reference's prefill returns), the prompt's K/V written into
         them; a caller that goes on decoding passes prompt + gen and so
-        needs no second, larger cache."""
+        needs no second, larger cache. A recurrent group's cache is its
+        state after the prompt. A cross-attention model reads the image
+        embeddings ``batch["image_embeds"]`` (B, M, d_model)."""
         x = self._embed_inputs(params, batch)
         b, s = x.shape[:2]
         positions = torch.arange(s, device=x.device)[None].expand(b, s)
         caches = self.init_cache(b, s if capacity is None else capacity,
                                  device=x.device)
         h = self._backbone(params, x, positions, caches=caches,
-                           use_flash=self.cfg.flash_prefill)
+                           use_flash=self.cfg.flash_prefill,
+                           enc=batch.get("image_embeds"))
         return self._head(params, h[:, -1:])[:, 0], caches
 
-    def decode_step(self, params, cache, token, pos: int):
+    def decode_step(self, params, cache, token, pos: int, enc=None):
         """One token for the whole batch. ``token``: (B,) int (or (B, d)
-        embeddings for embedding-input models); ``pos``: its position. The
-        cache is updated in place and returned."""
+        embeddings for embedding-input models); ``pos``: its position;
+        ``enc``: the image embeddings of a cross-attention model. The cache
+        is updated in place and returned."""
         if self.cfg.input_mode == "embeddings":
             x = token[:, None, :].to(self.dtype)
         else:
             x = F.embedding(token, params["embed"])[:, None, :]
         x = self._scale_embed(x)
         for i, g in enumerate(self.groups):
-            x = g.decode(params[f"group_{i}"], x, int(pos), cache[f"group_{i}"])
+            x = g.decode(params[f"group_{i}"], x, int(pos), cache[f"group_{i}"],
+                         enc=enc)
         x = rms_norm(params["final_ln"], x, self.cfg.norm_eps)
         return self._head(params, x)[:, 0], cache

@@ -38,6 +38,7 @@ from repro_torch.configs import get_config
 from repro_torch.core.topology import DOutGraph
 from repro_torch.core.tree_utils import tree_leaves, tree_map
 from repro_torch.kernels import ops, ref
+from repro_torch.models.attention import open_cross_gates
 from repro_torch.models.transformer import Transformer
 from repro_torch.net import ErdosRenyiGraph
 
@@ -599,18 +600,31 @@ def test_session_on_the_card_matches_the_cpu(dev):
     # 64); windows of 1 and of exactly one key tile (BK: 32 at D = 64, 64
     # at D = 128, 16 at D = 256); groups 1, 4 and 8
     (17, 8, None), (65, 1, None), (65, 4, 64), (129, 8, 32), (97, 8, 1),
-    (193, 1, 64), (161, 4, 32), (145, 8, 16)])
+    (193, 1, 64), (161, 4, 32), (145, 8, 16),
+    # a group of 5 (llama4's 40 query heads on 8 KV heads)
+    (203, 5, None), (131, 5, 48)])
 def test_flash_attention_matches_plain(dev, d, s, group, window):
     """Ragged S (no multiple of any tile), GQA groups, windows that cut
     inside a key tile and across several; both layouts, one launch each."""
     _flash_against_plain(dev, 2, s, 2, group, d, window)
 
 
-@pytest.mark.parametrize("d,window", [(256, None), (64, None), (256, 512)])
+@pytest.mark.parametrize("d,window", [(256, None), (64, None), (256, 512),
+                                      (112, None)])
 def test_flash_attention_matches_plain_over_many_key_tiles(dev, d, window):
     """B = 1, S = 4,096: the K/V ring's steady state over up to 256 key
     tiles a query tile, and a window of several tiles."""
     _flash_against_plain(dev, 1, 4096, 1, 4, d, window)
+
+
+@pytest.mark.parametrize("kh,group,d", [(32, 1, 112), (8, 5, 128),
+                                         (8, 4, 128)])
+def test_flash_attention_at_the_4k_prefill_shapes(dev, kh, group, d):
+    """The attention of zamba2-7b's shared block (H = K = 32, D = 112, a
+    tile of its own), llama4-scout (H = 40, K = 8, D = 128) and
+    llama-3.2-vision-11b's self layers (H = 32, K = 8) at a 4,096-token
+    prompt: B = 1, causal."""
+    _flash_against_plain(dev, 1, 4096, kh, group, d, None)
 
 
 def _flash_against_plain(dev, b, s, kh, group, d, window):
@@ -657,6 +671,38 @@ def test_flash_prefill_on_the_card_matches_the_cpu(dev):
                                     noise_at=lambda t: noise[t].to(device))
         if device == "cuda":
             assert ops.launch_counts()["flash_attention"] == 2
+    torch.testing.assert_close(out["cuda"].logits.cpu(), out["cpu"].logits,
+                               rtol=1e-4, atol=1e-4)
+    assert torch.equal(out["cuda"].tokens.cpu(), out["cpu"].tokens)
+
+
+@pytest.mark.parametrize("arch", ["llama4-scout-17b-a16e",
+                                  "llama4-maverick-400b-a17b", "xlstm-125m",
+                                  "zamba2-7b", "llama-3.2-vision-11b"])
+def test_other_group_kinds_serve_on_the_card_as_on_the_cpu(dev, arch):
+    """The MoE, xLSTM, Zamba2 and VLM smoke models (plain prefill: their
+    smoke head dims have no flash tile), the VLM's gates at 0.5: the card's
+    prefill logits within rtol 1e-4 / atol 1e-4 of the CPU's, the same
+    tokens under the same Gumbel noise."""
+    cfg = get_config(arch).smoke
+    model = Transformer(cfg)
+    params = open_cross_gates(model.init(torch.Generator().manual_seed(0),
+                                         device="cpu"))
+    gen = torch.Generator().manual_seed(1)
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (2, 40), generator=gen)}
+    enc = None
+    if cfg.groups[0].kind == "cross_self":
+        enc = torch.randn((2, cfg.groups[0].n_image_tokens, cfg.d_model),
+                          generator=gen) * 0.1
+        batch["image_embeds"] = enc
+    noise = torch.randn((5, 2, cfg.vocab_size), generator=gen)
+    out = {}
+    for device in ("cuda", "cpu"):
+        out[device] = Session.build(model=model, device=device).serve(
+            tree_map(lambda x: x.to(device), params),
+            {k: v.to(device) for k, v in batch.items()}, gen=6,
+            noise_at=lambda t: noise[t].to(device),
+            enc=None if enc is None else enc.to(device))
     torch.testing.assert_close(out["cuda"].logits.cpu(), out["cpu"].logits,
                                rtol=1e-4, atol=1e-4)
     assert torch.equal(out["cuda"].tokens.cpu(), out["cpu"].tokens)

@@ -253,18 +253,21 @@ def test_flash_geometry_covers_every_head_dim_and_layout(d, layout):
 
 
 def test_flash_tiles_serve_every_ported_architecture():
-    """The head dims of the five attention-only configs, and the tiles the
-    serving shapes of chip_smoke.py launch: 4 row groups of 16 a block,
-    D = 128 and 256 split over two warps a row group (one warp's
-    accumulator and Q fragments would spill)."""
-    from repro_torch.configs import get_config
+    """The head dims of every config with attention (all but xlstm-125m's,
+    zamba2-7b's 112 among them), and the tiles the serving shapes of
+    chip_smoke.py launch: 4 row groups of 16 a block, D = 112, 128 and 256
+    split over two warps a row group (one warp's accumulator and Q
+    fragments would spill, or take 254 registers at D = 112)."""
+    from repro_torch.configs import ARCH_NAMES, get_config
 
-    for arch in ("llama3.2-1b", "gemma3-1b", "gemma-7b", "minitron-4b",
-                 "musicgen-large"):
-        assert get_config(arch).model.head_dim in ops.FLASH_HEAD_DIMS
+    for arch in ARCH_NAMES:
+        cfg = get_config(arch).model
+        if {g.kind for g in cfg.groups} != {"xlstm"}:
+            assert cfg.head_dim in ops.FLASH_HEAD_DIMS, arch
+    assert get_config("zamba2-7b").model.head_dim == 112
     smoke = _chip_smoke()
-    want = {64: (64, 32, 1, 128, 34_816), 128: (64, 64, 2, 256, 167_936),
-            256: (64, 16, 2, 256, 74_752)}
+    want = {64: (64, 32, 1, 128, 34_816), 112: (64, 32, 2, 256, 75_776),
+            128: (64, 64, 2, 256, 167_936), 256: (64, 16, 2, 256, 74_752)}
     for b, s, h, _, d, _ in smoke.FLASH_SHAPES.values():
         geo = ops.flash_geometry(b, s, h, d)
         assert (geo["bq"], geo["bk"], geo["dsplit"], geo["threads"],

@@ -1,8 +1,11 @@
-"""The port's model zoo (attention-only family) against the reference.
+"""The port's model zoo (all ten architectures) against the reference.
 
 Same inputs, made with numpy from a seed, go through ``repro`` and
 ``repro_torch`` on the CPU; parameters come from the reference's own
 ``Transformer.init`` through ``convert.transformer_params_from_reference``.
+The VLM's cross-attention gates are set to 0.5 in the parameters both
+packages get (the reference starts them at zero, which would make every
+cross layer add zeros), and it gets seeded image embeddings.
 
 Tolerances: the layers to rtol 1e-6 / atol 1e-6 (the same f32 arithmetic,
 one op at a time); flash attention to rtol 1e-5 / atol 1e-5 (softmax over
@@ -10,7 +13,8 @@ blocks in the Pallas kernel, over the whole row in the plain version);
 prefill and decode logits and caches to rtol 1e-4 / atol 1e-4, the
 reference's own tolerance for its flash and plain prefill paths
 (``tests/test_models.py``), since matmuls through layers sum in other
-orders in XLA and PyTorch.
+orders in XLA and PyTorch. Caches are compared leaf by leaf: KV leaves
+over the filled slots, recurrent states whole.
 """
 from __future__ import annotations
 
@@ -23,10 +27,12 @@ import pytest
 import torch
 
 from repro_torch import convert
-from repro_torch.configs import ARCH_NAMES, get_config
+from repro_torch.configs import ARCH_NAMES, TRAIN_ARCHS, get_config
+from repro_torch.core.tree_utils import tree_flatten_with_path
 from repro_torch.kernels import ops
 from repro_torch.models import layers
-from repro_torch.models.config import AttnGroup
+from repro_torch.models.attention import open_cross_gates
+from repro_torch.models.config import AttnGroup, MambaGroup
 from repro_torch.models.transformer import Transformer
 from test_torch_reference import load_reference, to_numpy
 
@@ -162,12 +168,12 @@ def test_flash_attention_rejects_a_zero_window():
         ops.flash_attention_bshd(q, q, q, window=0)
 
 
-# -- (iii) prefill of the five SMOKE configs ----------------------------------
+# -- (iii) prefill of the SMOKE configs --------------------------------------
 
 def _models(R, cfg):
     ref_model = R.models.Transformer(cfg_to_reference(R, cfg))
-    params = jax.tree_util.tree_map(np.asarray,
-                                    ref_model.init(jax.random.PRNGKey(0)))
+    params = open_cross_gates(jax.tree_util.tree_map(
+        np.asarray, ref_model.init(jax.random.PRNGKey(0))))
     port = convert.transformer_params_from_reference(params, cfg,
                                                      device="cpu")
     return ref_model, Transformer(cfg), params, port
@@ -175,12 +181,25 @@ def _models(R, cfg):
 
 def cfg_to_reference(R, cfg):
     """The reference's ModelConfig with the port's fields (the dataclasses
-    are field-for-field copies)."""
-    groups = tuple(R.models.AttnGroup(n_layers=g.n_layers, windows=g.windows,
-                                      thetas=g.thetas) for g in cfg.groups)
+    are field-for-field copies, group kinds included)."""
+    def group(g):
+        return getattr(R.models, type(g).__name__)(**{
+            f.name: getattr(g, f.name) for f in dataclasses.fields(g) if f.init})
+
     fields = {f.name: getattr(cfg, f.name) for f in dataclasses.fields(cfg)}
-    fields["groups"] = groups
+    fields["groups"] = tuple(group(g) for g in cfg.groups)
     return R.models.ModelConfig(**fields)
+
+
+def image_embeds(cfg, b, seed):
+    """Seeded (B, n_image_tokens, d_model) image embeddings for a VLM, else
+    None."""
+    g = cfg.groups[0]
+    if g.kind != "cross_self":
+        return None
+    rng = np.random.default_rng(seed + 1000)
+    return (rng.normal(size=(b, g.n_image_tokens, cfg.d_model))
+            * 0.1).astype(np.float32)
 
 
 def _batch(cfg, b, s, seed):
@@ -197,12 +216,21 @@ def _to_port(batch):
             torch.tensor(v.astype(np.int64)) for k, v in batch.items()}
 
 
+def cache_leaves(tree) -> dict:
+    """{"group_0/attn/k": array, ...} of a cache tree (dicts of arrays)."""
+    return dict(tree_flatten_with_path(tree)[0])
+
+
 def _assert_cache_close(got, want, s, rtol=RTOL, atol=ATOL):
-    for g in want:
-        for kv in ("k", "v"):
-            w = np.asarray(want[g][kv])[:, :, :s]
-            np.testing.assert_allclose(to_numpy(got[g][kv])[:, :, :s], w,
-                                       rtol=rtol, atol=atol)
+    """Every leaf: KV caches (..., B, T, K, D) over their first ``s`` slots,
+    recurrent states whole."""
+    got, want = cache_leaves(got), cache_leaves(want)
+    assert set(got) == set(want)
+    for path, w in want.items():
+        w, g = np.asarray(w), to_numpy(got[path])
+        if path.rsplit("/", 1)[-1] in ("k", "v"):
+            w, g = w[..., :s, :, :], g[..., :s, :, :]
+        np.testing.assert_allclose(g, w, rtol=rtol, atol=atol, err_msg=path)
 
 
 @pytest.mark.parametrize("flash", [False, True])
@@ -211,6 +239,9 @@ def test_prefill_matches_reference(R, arch, flash):
     cfg = dataclasses.replace(get_config(arch).smoke, flash_prefill=flash)
     ref_model, model, params, port = _models(R, cfg)
     batch = _batch(cfg, 2, 20, seed=3)
+    enc = image_embeds(cfg, 2, seed=3)
+    if enc is not None:
+        batch["image_embeds"] = enc
     want_logits, want_cache = ref_model.prefill(
         jax.tree_util.tree_map(jnp.asarray, params),
         jax.tree_util.tree_map(jnp.asarray, batch))
@@ -220,8 +251,8 @@ def test_prefill_matches_reference(R, arch, flash):
     assert logits.shape == (2, cfg.vocab_size) and logits.dtype == torch.float32
     np.testing.assert_allclose(to_numpy(logits), np.asarray(want_logits),
                                rtol=RTOL, atol=ATOL)
-    assert {g: tuple(c["k"].shape) for g, c in cache.items()} == {
-        g: tuple(c["k"].shape) for g, c in want_cache.items()}
+    assert {p: tuple(x.shape) for p, x in cache_leaves(cache).items()} == {
+        p: tuple(x.shape) for p, x in cache_leaves(want_cache).items()}
     _assert_cache_close(cache, want_cache, 20)
 
 
@@ -246,13 +277,16 @@ def test_prefill_writes_a_larger_cache_and_a_ring_buffer():
 
 # -- (iv) decode -------------------------------------------------------------
 
-DECODE_CFGS = list(ARCH_NAMES) + ["ring"]
+DECODE_CFGS = list(ARCH_NAMES) + ["ring", "mamba"]
 
 
 def _decode_cfg(name):
     if name == "ring":  # every layer one window: the ring-buffer cache
         return dataclasses.replace(get_config("llama3.2-1b").smoke,
                                    groups=(AttnGroup(n_layers=2, windows=(8,)),))
+    if name == "mamba":  # a plain Mamba2 group (zamba2 runs it in units)
+        return dataclasses.replace(get_config("llama3.2-1b").smoke,
+                                   groups=(MambaGroup(n_layers=2, d_state=16),))
     return get_config(name).smoke
 
 
@@ -260,12 +294,16 @@ def _decode_cfg(name):
 @pytest.mark.parametrize("name", DECODE_CFGS)
 def test_decode_step_matches_reference(R, name, carry):
     """Prefill 5 tokens, then 6 teacher-forced decode steps (positions 5-10,
-    past the ring's 8 slots); logits at every step and the final caches."""
+    past the ring's 8 slots); logits at every step and the final caches
+    (KV slots and recurrent states)."""
     cfg = dataclasses.replace(_decode_cfg(name), decode_cache_in_carry=carry)
     ref_model, model, params, port = _models(R, cfg)
     b, s, steps = 2, 5, 6
     batch = _batch(cfg, b, s + steps, seed=4)
     first = {k: v[:, :s] for k, v in batch.items()}
+    enc = image_embeds(cfg, b, seed=4)
+    if enc is not None:
+        first["image_embeds"] = enc
     jp = jax.tree_util.tree_map(jnp.asarray, params)
     _, pre = ref_model.prefill(jp, jax.tree_util.tree_map(jnp.asarray, first))
     ref_cache = jax.tree_util.tree_map(
@@ -276,9 +314,11 @@ def test_decode_step_matches_reference(R, name, carry):
     for t in range(steps):
         step_in = batch[key][:, s + t]
         want, ref_cache = ref_model.decode_step(
-            jp, ref_cache, jnp.asarray(step_in), jnp.asarray(s + t, jnp.int32))
+            jp, ref_cache, jnp.asarray(step_in), jnp.asarray(s + t, jnp.int32),
+            None if enc is None else jnp.asarray(enc))
         got, cache = model.decode_step(
-            port, cache, _to_port({key: step_in})[key], s + t)
+            port, cache, _to_port({key: step_in})[key], s + t,
+            enc=None if enc is None else torch.tensor(enc))
         np.testing.assert_allclose(to_numpy(got), np.asarray(want), rtol=RTOL,
                                    atol=ATOL)
     _assert_cache_close(cache, ref_cache, s + steps)
@@ -311,6 +351,8 @@ def test_decode_against_a_long_cache_matches_reference(R):
 # -- configs and conversion --------------------------------------------------
 
 def test_configs_are_the_references(R):
+    """All ten configs, full and smoke, and their PartPSP rules, equal the
+    reference's; TRAIN_ARCHS are its dense and audio (attention-only) ones."""
     for name in ARCH_NAMES:
         spec, ref_spec = get_config(name), R.configs.get_config(name)
         for mine, theirs in ((spec.model, ref_spec.model),
@@ -318,27 +360,44 @@ def test_configs_are_the_references(R):
             assert mine == dataclasses.replace(
                 mine) and cfg_to_reference(R, mine) == theirs
         assert tuple(spec.shared_rules) == tuple(ref_spec.shared_rules)
-    assert ARCH_NAMES == tuple(n for n in R.configs.ARCH_NAMES
-                               if R.configs.get_config(n).family in
-                               ("dense", "audio"))
+        assert (spec.name, spec.family) == (ref_spec.name, ref_spec.family)
+    assert ARCH_NAMES == tuple(R.configs.ARCH_NAMES)
+    assert TRAIN_ARCHS == tuple(n for n in R.configs.ARCH_NAMES
+                                if R.configs.get_config(n).family in
+                                ("dense", "audio"))
 
 
 @pytest.mark.parametrize("name", ["xlstm-125m", "llama-3.2-vision-11b",
                                   "llama4-scout-17b-a16e",
                                   "llama4-maverick-400b-a17b", "zamba2-7b"])
 def test_later_archs_raise_and_name_the_roadmap(name):
-    with pytest.raises(KeyError, match="ROADMAP"):
-        get_config(name)
+    """The five serve (their configs load) but do not train yet: the loss
+    raises and names the ROADMAP item."""
+    cfg = get_config(name).smoke
+    model = Transformer(cfg)
+    params = model.init(torch.Generator().manual_seed(0), device="cpu")
+    batch = {"tokens": torch.zeros((1, 4), dtype=torch.int64)}
+    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1, item 3b"):
+        model.loss_fn(params, batch)
+    assert name not in TRAIN_ARCHS
 
 
 def test_other_group_kinds_raise():
-    from repro_torch.models.config import MambaGroup, ModelConfig
+    """A model with a group kind other than ``attn`` builds and serves, and
+    raises ``NotImplementedError`` naming the ROADMAP when trained."""
+    from repro_torch.models.config import ModelConfig
 
     cfg = ModelConfig(name="m", d_model=32, vocab_size=64, n_heads=4,
                       n_kv_heads=2, head_dim=8, d_ff=64,
-                      groups=(MambaGroup(n_layers=2),))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        Transformer(cfg)
+                      groups=(MambaGroup(n_layers=2, d_state=8),))
+    model = Transformer(cfg)
+    params = model.init(torch.Generator().manual_seed(0), device="cpu")
+    toks = {"tokens": torch.zeros((1, 3), dtype=torch.int64)}
+    logits, _ = model.prefill(params, toks)
+    assert logits.shape == (1, 64) and bool(torch.isfinite(logits).all())
+    for fn in (model.loss_fn, model.forward_train):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            fn(params, toks)
 
 
 def test_transformer_params_from_reference_checks_every_path(R):

@@ -6,7 +6,9 @@ The reference samples with ``jax.random.categorical``; the port samples
 as the reference drew it (``test_torch_reference.reference_gumbel``). The
 tokens must then be equal: the logits agree to 1e-4 and a near-tie at that
 level among the smoke vocabularies' Gumbel-perturbed logits would be a
-1-in-10^4 event per token, which these seeds do not hit.
+1-in-10^4 event per token, which these seeds do not hit. The VLM gets
+seeded image embeddings (``batch["image_embeds"]`` and ``enc=``) and its
+cross-attention gates at 0.5 in both packages' parameters.
 """
 from __future__ import annotations
 
@@ -27,8 +29,9 @@ from repro_torch.api import ServeReport, Session
 from repro_torch.configs import get_config
 from repro_torch.engine.rounds import run_decode
 from repro_torch.launch import serve as serve_cli
+from repro_torch.models.attention import open_cross_gates
 from repro_torch.models.transformer import Transformer
-from test_torch_models import cfg_to_reference
+from test_torch_models import cache_leaves, cfg_to_reference, image_embeds
 from test_torch_reference import load_reference, reference_gumbel
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
@@ -43,7 +46,8 @@ def R():
 def _setup(R, cfg, b, s, gen):
     ref_model = R.models.Transformer(cfg_to_reference(R, cfg))
     key = jax.random.PRNGKey(SEED)
-    params = jax.tree_util.tree_map(np.asarray, ref_model.init(key))
+    params = open_cross_gates(jax.tree_util.tree_map(np.asarray,
+                                                     ref_model.init(key)))
     rng = np.random.default_rng(SEED)
     step_inputs = None
     if cfg.input_mode == "embeddings":
@@ -57,22 +61,30 @@ def _setup(R, cfg, b, s, gen):
         toks = rng.integers(0, cfg.vocab_size, size=(b, s), dtype=np.int32)
         ref_batch = {"tokens": toks}
         port_batch = {"tokens": torch.tensor(toks.astype(np.int64))}
-    return ref_model, key, params, ref_batch, port_batch, step_inputs
+    enc = image_embeds(cfg, b, SEED)
+    if enc is not None:
+        ref_batch["image_embeds"] = enc
+        port_batch["image_embeds"] = torch.tensor(enc)
+    return ref_model, key, params, ref_batch, port_batch, step_inputs, enc
 
 
 @pytest.mark.parametrize("arch,flash,gen", [
     ("llama3.2-1b", False, 6), ("llama3.2-1b", True, 6), ("llama3.2-1b", False, 1),
     ("gemma3-1b", True, 5), ("minitron-4b", False, 4), ("gemma-7b", True, 3),
-    ("musicgen-large", False, 5), ("musicgen-large", True, 1)])
+    ("musicgen-large", False, 5), ("musicgen-large", True, 1),
+    ("llama4-scout-17b-a16e", True, 6), ("llama4-maverick-400b-a17b", False, 5),
+    ("xlstm-125m", False, 6), ("zamba2-7b", True, 6),
+    ("llama-3.2-vision-11b", True, 5), ("llama-3.2-vision-11b", False, 1)])
 def test_serve_tokens_equal_the_references(R, arch, flash, gen):
     cfg = dataclasses.replace(get_config(arch).smoke, flash_prefill=flash)
     b, s, temp = 2, 12, 0.8
-    ref_model, key, params, ref_batch, port_batch, step_inputs = _setup(
+    ref_model, key, params, ref_batch, port_batch, step_inputs, enc = _setup(
         R, cfg, b, s, gen)
     ref_rep = R.api.Session.build(model=ref_model, key=key).serve(
         jax.tree_util.tree_map(jnp.asarray, params),
         jax.tree_util.tree_map(jnp.asarray, ref_batch), gen=gen,
         temperature=temp, key=key,
+        enc=None if enc is None else jnp.asarray(enc),
         step_inputs=None if step_inputs is None else jnp.asarray(step_inputs))
     noise = torch.tensor(reference_gumbel(key, gen - 1, b, cfg.vocab_size))
     model = Transformer(cfg)
@@ -80,13 +92,18 @@ def test_serve_tokens_equal_the_references(R, arch, flash, gen):
         convert.transformer_params_from_reference(params, cfg, device="cpu"),
         port_batch, gen=gen, temperature=temp,
         step_inputs=None if step_inputs is None else torch.tensor(step_inputs),
-        noise_at=lambda t: noise[t])
+        noise_at=lambda t: noise[t],
+        enc=None if enc is None else torch.tensor(enc))
     assert isinstance(rep, ServeReport) and rep.steps == gen - 1
     assert tuple(rep.tokens.shape) == (b, gen)
     np.testing.assert_array_equal(rep.tokens.numpy(), np.asarray(ref_rep.tokens))
-    # the cache was made at prompt + gen slots, as the reference grafts it
-    assert rep.cache["group_0"]["k"].shape[2] == min(
-        s + gen, model.groups[0].uniform_window or s + gen)
+    # every KV cache was made at prompt + gen slots, as the reference grafts
+    # it (an attention group of one window: that many)
+    window = getattr(model.groups[0], "uniform_window", None)
+    kv = {p: x.shape[-3] for p, x in cache_leaves(rep.cache).items()
+          if p.rsplit("/", 1)[-1] in ("k", "v")}
+    assert set(kv.values()) <= {min(s + gen, window or s + gen)}
+    assert bool(kv) == (arch != "xlstm-125m")
     assert rep.logits.shape == (b, cfg.vocab_size)
     assert rep.ms_per_token >= 0.0
 
@@ -132,6 +149,26 @@ def test_serve_cli_runs_on_the_cpu(capsys):
     assert "decode: 5 steps" in out and "generated token ids" in out
     with pytest.raises(NotImplementedError, match="checkpoint"):
         serve_cli.main(["--reduced", "--device", "cpu", "--checkpoint", "x"])
+
+
+@pytest.mark.parametrize("arch", ["llama-3.2-vision-11b", "zamba2-7b",
+                                  "llama4-scout-17b-a16e"])
+def test_serve_cli_serves_the_other_group_kinds(capsys, arch):
+    """The VLM with its image embeddings drawn by the CLI, the hybrid and
+    the MoE, at their smoke configs on the CPU."""
+    serve_cli.main(["--arch", arch, "--reduced", "--device", "cpu",
+                    "--batch", "2", "--prompt-len", "8", "--gen", "4"])
+    out = capsys.readouterr().out
+    assert "decode: 3 steps" in out and "generated token ids" in out
+
+
+def test_serve_of_the_vlm_needs_its_image_embeddings():
+    cfg = get_config("llama-3.2-vision-11b").smoke
+    model = Transformer(cfg)
+    params = model.init(torch.Generator().manual_seed(0), device="cpu")
+    with pytest.raises(ValueError, match="image_embeds"):
+        Session.build(model=model, device="cpu").serve(
+            params, {"tokens": torch.zeros((1, 4), dtype=torch.int64)}, gen=2)
 
 
 # -- (vi) guards -------------------------------------------------------------

@@ -31,7 +31,7 @@ from test_torch_session import _close, _trees_close
 
 from repro_torch import convert
 from repro_torch.api import PrivacySpec, Session
-from repro_torch.configs import ARCH_NAMES, get_config
+from repro_torch.configs import TRAIN_ARCHS, get_config
 from repro_torch.core import topology as T
 from repro_torch.core.partition import LayerParts, Partition, layer_list
 from repro_torch.core.partpsp import node_stacked
@@ -82,7 +82,7 @@ def loss_runs(R):
     """For each smoke config: the reference's hidden states, loss and
     gradients on seeded params and batch, and the port's inputs."""
     out = {}
-    for arch in ARCH_NAMES:
+    for arch in TRAIN_ARCHS:
         cfg = get_config(arch).smoke
         ref_model = R.models.Transformer(cfg_to_reference(R, cfg))
         params = jax.tree_util.tree_map(
@@ -97,7 +97,7 @@ def loss_runs(R):
     return out
 
 
-@pytest.mark.parametrize("arch", ARCH_NAMES)
+@pytest.mark.parametrize("arch", TRAIN_ARCHS)
 def test_loss_and_gradients_match_reference(loss_runs, arch):
     cfg, params, batch, want_h, want_aux, want_loss, want_g = loss_runs[arch]
     model = Transformer(cfg)
