@@ -109,11 +109,30 @@ Phases, each printing one JSON line:
                   moe_every = 2 among them) and zamba2-7b at full width with
                   one unit (flash at D = 112): the card against the CPU,
                   same parameters and Gumbel noise.
+19. ``group_training``  PartPSP training of the other group kinds at
+                  their published widths, 4 x 64 tokens a node, 3 steps,
+                  2-out graph, dense schedule: (a) xlstm-125m whole, N = 4;
+                  (b) zamba2-7b, one of its 11 units, N = 4; (c)
+                  llama-3.2-vision-11b, one of its 8 units, 1,600 image
+                  tokens, gates at 0.5, N = 2; each with phase 15's figures
+                  and the recurrent loops' forward time; (d) llama4-scout,
+                  one of its 48 layers: one node's loss and backward only
+                  (PartPSP at N = 2 does not fit one card).
+20. ``checkpoint_serve``  run b's consensus saved by
+                  ``Session.save_consensus``, restored as ``launch/serve.py
+                  --checkpoint`` restores it, and served (512-token prompt,
+                  8 tokens, flash at D = 112): logits bit for bit those of
+                  serving the in-memory ``consensus_view``.
+21. ``group_training_agreement``  the five smoke configs of phase 18
+                  trained 3 rounds on the card and on the CPU, noise off and
+                  on (the same Philox rows), every MoE token's routing
+                  margin above 1e-4.
 
 Each kernel counts its launches. The counts are set to 0 just before each
-path (phases 3-7, 10, 13, 15 and 17) and read just after; each path names the
-kernels it must launch (and the sparse paths must launch ``pushsum_mix``
-no time; the training path exactly its counts). Then come the card's
+path (phases 3-7, 10, 13, 15, 17, each run of 19, and each serve of 20)
+and read just after; each path names the kernels it must launch (and the
+sparse paths must launch ``pushsum_mix`` no time; the training paths
+exactly their counts). Then come the card's
 name and power limit (``nvidia-smi``), the ``kernels`` line with every
 kernel's times beside its bound, and the status line. Any
 failure raises and exits non-zero. Without a CUDA card, or without the
@@ -127,6 +146,7 @@ import math
 import re
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -214,6 +234,32 @@ TRAIN_FULL = dict(n=TRAIN_LM["n"], d_s=TRAIN_LM["d_s"])
 # card against CPU: the same model at full width with 2 layers, 4 nodes,
 # one sequence of 64 tokens a node, 3 steps, the noise through bits_at
 AGREE_LM = dict(n=4, layers=2, per_node_batch=1, seq_len=64, steps=3)
+
+# PartPSP training of the other group kinds at full width (phase 19): 4 x
+# 64 tokens a node (the reference launcher's --per-node-batch 4 --seq-len
+# 64), 3 steps, a 2-out graph, the dense schedule, sync every 5. Runs a-c
+# train with PartPSP: run -> the arch, N, the cut of its one group (None:
+# whole) and d_s under its rules; depth is cut only where one card (80 GB)
+# forces it. Run d (llama4-scout, one of 48 layers, 17.1 GB of f32
+# params) takes one node's loss and backward only: at N = 2 the params
+# take 34 GB and the local gradients another 33.7 GB.
+GROUP_TRAIN = dict(per_node_batch=4, seq_len=64, steps=3, sync_interval=5)
+GROUP_TRAIN_RUNS = {
+    "a": dict(arch="xlstm-125m", n=4, cut=None, d_s=95_669_064),
+    "b": dict(arch="zamba2-7b", n=4, cut=dict(n_units=1, trailing_mamba=0),
+              d_s=205_528_064),
+    "c": dict(arch="llama-3.2-vision-11b", n=2, cut=dict(n_units=1),
+              d_s=872_448_000),
+    "d": dict(arch="llama4-scout-17b-a16e", n=1, cut=dict(n_layers=1),
+              d_s=63_006_720),
+}
+# phase 20: run b's consensus checkpoint served on a 512-token prompt
+CHECKPOINT_SERVE = dict(prompt=512, gen=8)
+# phase 21: the five smoke configs, card against CPU. Routing is discrete:
+# at this seed of the params and batches every MoE token's top-1 margin
+# clears 1e-4 on the CPU in every pass (at SEED one of maverick's sits at
+# 2.9e-6, where the card's and the CPU's sums could route it apart).
+GROUP_AGREE = dict(n=4, per_node_batch=2, seq_len=16, steps=3, seed=2035)
 
 KERNELS = {
     "l1_norm_rows": dict(source="src/repro_torch/kernels/csrc/l1_norm.cu",
@@ -1643,6 +1689,20 @@ def lm_flops(cfg, tokens: int, seq: int) -> float:
     return cfg.total_layers * per_layer + 2.0 * tokens * d * cfg.vocab_size
 
 
+def training_launches(steps: int, sync_interval: int) -> dict:
+    """The exact launches of ``steps`` PartPSP rounds with noise on the
+    dense schedule: a norm and a perturbation a round (round 0 also takes
+    the norm of s for the recursion's start) and a mix a round that is not
+    a sync round; no other kernel."""
+    from repro_torch.core.dpps import is_sync_round
+
+    expected = {k: 0 for k in KERNELS}
+    expected.update(l1_norm_rows=steps + 1, dpps_perturb_rows=steps,
+                    pushsum_mix=sum(not is_sync_round(t, sync_interval)
+                                    for t in range(steps)))
+    return expected
+
+
 def transformer_training(torch, ops, T, dev) -> dict:
     """The main path of training: ``Session.build(DOutGraph(4, 2),
     model=Transformer(llama3.2-1b), partition=its shared_rules,
@@ -1659,7 +1719,6 @@ def transformer_training(torch, ops, T, dev) -> dict:
     from repro_torch.api import PrivacySpec, Session
     from repro_torch.configs import get_config
     from repro_torch.core import partpsp
-    from repro_torch.core.dpps import is_sync_round
     from repro_torch.core.tree_utils import tree_leaves
     from repro_torch.data import NodeShardedLoader, SyntheticLMStream
     from repro_torch.models.transformer import Transformer
@@ -1699,18 +1758,7 @@ def transformer_training(torch, ops, T, dev) -> dict:
     data_s = time.perf_counter() - t0
     require(tuple(batches[0]["tokens"].shape) == (n, pnb, seq), "batch shape")
 
-    events = {"grads": [], "dpps": []}
-
-    def timed(name, fn):
-        def call(*args, **kwargs):
-            e0 = torch.cuda.Event(enable_timing=True)
-            e1 = torch.cuda.Event(enable_timing=True)
-            e0.record()
-            result = fn(*args, **kwargs)
-            e1.record()
-            events[name].append((e0, e1))
-            return result
-        return call
+    events = {}
 
     from torch.profiler import ProfilerActivity, profile
 
@@ -1724,18 +1772,16 @@ def transformer_training(torch, ops, T, dev) -> dict:
             prof.start()
         return batches[t]
 
-    real = (partpsp._grads, partpsp.dpps_step)
     torch.cuda.synchronize()
     resident_gb = torch.cuda.memory_allocated() / 1e9
     torch.cuda.reset_peak_memory_stats()
     ops.reset_launch_counts()
-    partpsp._grads = timed("grads", real[0])
-    partpsp.dpps_step = timed("dpps", real[1])
+    restore = bracketed(torch, partpsp, ("_grads", "dpps_step"), events)
     try:
         rep = session.train(steps, batch_at)
         torch.cuda.synchronize()
     finally:
-        partpsp._grads, partpsp.dpps_step = real
+        restore()
     starts.append(time.perf_counter())
     prof.stop()
     launches = ops.launch_counts()
@@ -1758,16 +1804,12 @@ def transformer_training(torch, ops, T, dev) -> dict:
     require(all(bool(torch.isfinite(x).all()) for x in
                 tree_leaves(state.dpps.push.s) + list(state.local)),
             "trained state not finite")
-    mixes = sum(not is_sync_round(t, 5) for t in range(steps))
-    expected = {k: 0 for k in KERNELS}
-    # round 0 also takes the norm of s for the recursion's start
-    expected.update(l1_norm_rows=steps + 1, dpps_perturb_rows=steps,
-                    pushsum_mix=mixes)
+    expected = training_launches(steps, 5)
     require(launches == expected, f"training launches {launches}, expected "
                                   f"{expected}")
     step_ms = [(b - a) * 1e3 for a, b in zip(starts, starts[1:])]
-    grads_ms = [a.elapsed_time(b) for a, b in events["grads"]]
-    dpps_ms = [a.elapsed_time(b) for a, b in events["dpps"]]
+    grads_ms = [a.elapsed_time(b) for a, b, _ in events["_grads"]]
+    dpps_ms = [a.elapsed_time(b) for a, b, _ in events["dpps_step"]]
     require(len(grads_ms) == 2 * steps and len(dpps_ms) == steps,
             "event count")
     # the first step also warms the allocator; the last runs profiled
@@ -1992,6 +2034,473 @@ def group_serve_agreement(torch, ops, dev) -> dict:
     return dict(phase="group_serve_agreement", results=out)
 
 
+# -- phase 19: PartPSP training of the other group kinds at full width --------
+
+def group_train_config(run: dict):
+    """(ArchSpec, ModelConfig) of a :data:`GROUP_TRAIN_RUNS` entry: the
+    arch's published config with its one group cut as ``run["cut"]``
+    says."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+
+    spec = get_config(run["arch"])
+    cfg = spec.model
+    if run["cut"]:
+        (group,) = cfg.groups
+        cfg = dataclasses.replace(cfg, groups=(
+            dataclasses.replace(group, **run["cut"]),))
+    return spec, cfg
+
+
+def lm_batch_at(torch, cfg, n: int, dev, steps: int) -> list:
+    """``steps`` node-stacked batches of ``NodeShardedLoader(
+    SyntheticLMStream(...))`` (GROUP_TRAIN's per-node batch and length);
+    a VLM's carry image embeddings (normal x 0.1, (N, B, M, d_model)) from
+    a generator seeded with SEED + 1, as the serve phases draw them."""
+    from repro_torch.data import NodeShardedLoader, SyntheticLMStream
+
+    pnb, seq = GROUP_TRAIN["per_node_batch"], GROUP_TRAIN["seq_len"]
+    stream = SyntheticLMStream(vocab_size=cfg.vocab_size, seq_len=seq,
+                               n_nodes=n, seed=SEED, device=dev)
+    loader = NodeShardedLoader(stream, per_node_batch=pnb, seed=SEED)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 1)
+    out = []
+    for t in range(steps):
+        batch = dict(loader.batch_at(t))
+        if cfg.groups[0].kind == "cross_self":
+            batch["image_embeds"] = torch.randn(
+                (n, pnb, cfg.groups[0].n_image_tokens, cfg.d_model),
+                generator=gen, device=dev) * 0.1
+        out.append(batch)
+    return out
+
+
+def group_train_run(torch, ops, T, dev, label: str) -> tuple:
+    """Run ``label`` of :data:`GROUP_TRAIN_RUNS` (a-c): ``Session.build(
+    DOutGraph(N, 2), model=Transformer(cfg), params=its seeded init (the
+    VLM's gates at 0.5), partition=the arch's rules, schedule="dense")``
+    on the card, then ``train(3, batch_at)``, with the figures of phase 15:
+    ms a step (host clock, a synchronise at each step's start; steady =
+    the mean of steps 1-2), tokens/s, its two gradient passes against its
+    DPPS round (CUDA events), peak memory and the exact kernel launches.
+    Each recurrent time loop (``ssm._mlstm_scan``, ``_slstm_scan``,
+    ``_mamba2_scan``) is bracketed by CUDA events: their forward and
+    recompute time a step (their backward is in the passes' rest). gamma_n
+    is half the Remark-1 stability limit at the run's d_s. Returns (the
+    figures, (session, final state))."""
+    from repro_torch.api import PrivacySpec, Session
+    from repro_torch.core import partpsp
+    from repro_torch.core.tree_utils import tree_leaves
+    from repro_torch.models import ssm
+    from repro_torch.models.attention import open_cross_gates
+    from repro_torch.models.transformer import Transformer
+
+    run = GROUP_TRAIN_RUNS[label]
+    spec, cfg = group_train_config(run)
+    n, steps = run["n"], GROUP_TRAIN["steps"]
+    pnb, seq = GROUP_TRAIN["per_node_batch"], GROUP_TRAIN["seq_len"]
+    sync = GROUP_TRAIN["sync_interval"]
+    model = Transformer(cfg)
+    d_s = shared_dim(torch, model, spec.shared_rules, n)
+    require(d_s == run["d_s"], f"run {label}: d_s {d_s}")
+    topo = T.DOutGraph(n, 2)
+    c_prime, lam, limit, gamma_n = stability_gamma_n(T, topo, d_s)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    params = open_cross_gates(model.init(
+        torch.Generator(device=dev).manual_seed(SEED), device=dev))
+    session = Session.build(
+        topo, privacy=PrivacySpec(b=1.0, gamma_n=gamma_n, c_prime=c_prime,
+                                  lam=lam),
+        model=model, params=params, partition=spec.shared_rules,
+        algorithm="partpsp", gamma_l=0.05, gamma_s=0.05, clip=100.0,
+        schedule="dense", sync_interval=sync, seed=SEED, device=dev)
+    del params
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    require(session.plan.use_kernels and session.device.type == "cuda"
+            and session.plan.schedule == "dense",
+            f"run {label}: not on the card, its kernels and the dense "
+            "schedule")
+    n_params = sum(x[0].numel() for x in tree_leaves(session.init_params))
+    batches = lm_batch_at(torch, cfg, n, dev, steps)
+    require(tuple(batches[0]["tokens"].shape) == (n, pnb, seq), "batch shape")
+
+    starts = []
+
+    def batch_at(t):
+        torch.cuda.synchronize()
+        starts.append(time.perf_counter())
+        return batches[t]
+
+    loops = ("_mlstm_scan", "_slstm_scan", "_mamba2_scan")
+    events, loop_events = {}, {}
+    torch.cuda.synchronize()
+    resident_gb = torch.cuda.memory_allocated() / 1e9
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    restore = [bracketed(torch, partpsp, ("_grads", "dpps_step"), events),
+               bracketed(torch, ssm, loops, loop_events)]
+    try:
+        rep = session.train(steps, batch_at)
+        torch.cuda.synchronize()
+    finally:
+        for r in restore:
+            r()
+    starts.append(time.perf_counter())
+    launches = ops.launch_counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+
+    loss = [float(x) for x in rep.trajectory["loss_mean"]]
+    require(all(math.isfinite(x) for x in loss), f"run {label}: losses {loss}")
+    # falling or flat: each step draws a new batch, so "flat" allows 1 %
+    require(loss[-1] <= 1.01 * loss[0], f"run {label}: losses rise {loss}")
+    state = rep.state
+    a_mean = state.dpps.push.a.double().mean().item()
+    require(abs(a_mean - 1.0) < 1e-5, f"run {label}: mean(a) = {a_mean}")
+    require(all(bool(torch.isfinite(x).all()) for x in
+                tree_leaves(state.dpps.push.s) + list(state.local)),
+            f"run {label}: trained state not finite")
+    expected = training_launches(steps, sync)
+    require(launches == expected, f"run {label}: launches {launches}, "
+                                  f"expected {expected}")
+    step_ms = [(b - a) * 1e3 for a, b in zip(starts, starts[1:])]
+    grads_ms = [a.elapsed_time(b) for a, b, _ in events["_grads"]]
+    dpps_ms = [a.elapsed_time(b) for a, b, _ in events["dpps_step"]]
+    require(len(grads_ms) == 2 * steps and len(dpps_ms) == steps,
+            "event count")
+    loop_ms = {name: sum(a.elapsed_time(b) for a, b, _ in ev) / steps
+               for name, ev in loop_events.items()}
+    steady = slice(1, steps)  # the first step also warms the allocator
+    ms = sum(step_ms[steady]) / (steps - 1)
+    passes = [grads_ms[2 * t] + grads_ms[2 * t + 1] for t in range(steps)]
+    tokens = n * pnb * seq
+    out = dict(
+        run=label, arch=run["arch"], cut=run["cut"],
+        layers=cfg.total_layers, d_model=cfg.d_model, vocab=cfg.vocab_size,
+        params_per_node=n_params, nodes=n, topology=f"DOutGraph({n}, 2)",
+        schedule="dense", shared_rules=repr(spec.shared_rules), d_s=d_s,
+        d_local=session.partition.d_local(), per_node_batch=pnb,
+        seq_len=seq, image_tokens=batches[0]["image_embeds"].shape[2]
+        if "image_embeds" in batches[0] else None, steps=steps,
+        sync_interval=sync, c_prime=c_prime, lam=lam, b=1.0,
+        gamma_n=gamma_n, gamma_n_stability_limit=limit,
+        session_build_s=build_s, step_ms=step_ms, ms_per_step=ms,
+        first_step_ms=step_ms[0], tokens_per_step=tokens,
+        tokens_per_s=tokens / (ms / 1e3), grad_passes_ms=passes,
+        dpps_round_ms=dpps_ms,
+        grad_passes_ms_steady=sum(passes[steady]) / (steps - 1),
+        dpps_round_ms_steady=sum(dpps_ms[steady]) / (steps - 1),
+        rest_ms_steady=ms - (sum(passes[steady]) + sum(dpps_ms[steady]))
+        / (steps - 1),
+        recurrent_loop_fwd_ms_per_step=loop_ms,
+        recurrent_loop_fwd_share_of_step=sum(loop_ms.values())
+        / (sum(step_ms) / steps),
+        resident_gb_before=resident_gb, peak_mem_gb=peak_gb,
+        loss_first=loss[0], loss_last=loss[-1], losses=loss, a_mean=a_mean,
+        launches=launches)
+    del rep, batches
+    return out, (session, state, cfg)
+
+
+def moe_grad_run(torch, dev) -> dict:
+    """Run d: llama4-scout at full width, one of its 48 layers, one node:
+    ``Transformer.loss_fn`` (the cross entropy plus the MoE aux) and its
+    backward over every parameter, on one node's batch of GROUP_TRAIN's
+    size, twice (the second is the steady figure). PartPSP does not fit:
+    at N = 2 the params alone take 34 GB and the local gradients another
+    33.7 GB. Requires a finite loss, a positive aux and finite gradients,
+    the router's nonzero."""
+    from repro_torch.core.tree_utils import tree_flatten_with_path
+    from repro_torch.models.transformer import Transformer
+
+    run = GROUP_TRAIN_RUNS["d"]
+    spec, cfg = group_train_config(run)
+    model = Transformer(cfg)
+    params = model.init(torch.Generator(device=dev).manual_seed(SEED),
+                        device=dev)
+    named = tree_flatten_with_path(params)[0]
+    for _, x in named:
+        x.requires_grad_(True)
+    n_params = sum(x.numel() for _, x in named)
+    batch = {"tokens": lm_batch_at(torch, cfg, 1, dev, 1)[0]["tokens"][0]}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ms, loss = [], None
+    for _ in range(2):
+        grads = None
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss = model.loss_fn(params, batch)
+        grads = torch.autograd.grad(loss, [x for _, x in named])
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    with torch.no_grad():
+        _, aux = model.forward_train(params, batch)
+    loss = loss.item()
+    require(math.isfinite(loss) and float(aux) > 0.0,
+            f"run d: loss {loss}, aux {float(aux)}")
+    require(all(bool(torch.isfinite(g).all()) for g in grads),
+            "run d: gradients not finite")
+    router = [float(g.abs().max()) for (p, _), g in zip(named, grads)
+              if p.endswith("router")]
+    require(router and all(r > 0.0 for r in router),
+            f"run d: router gradient {router}")
+    tokens = batch["tokens"].numel()
+    out = dict(run="d", arch=run["arch"], cut=run["cut"],
+               layers=cfg.total_layers, d_model=cfg.d_model,
+               vocab=cfg.vocab_size, experts=cfg.groups[0].n_experts,
+               params=n_params, d_s_under_its_rules=run["d_s"], nodes=1,
+               partpsp=False, per_node_batch=GROUP_TRAIN["per_node_batch"],
+               seq_len=GROUP_TRAIN["seq_len"], pass_ms=ms,
+               pass_ms_steady=ms[-1], tokens_per_s=tokens / (ms[-1] / 1e3),
+               peak_mem_gb=peak_gb, loss=loss, aux=float(aux),
+               router_grad_max_abs=router[0])
+    del params, named, grads, loss
+    return out
+
+
+def serve_view(torch, ops, dev, model, params, prompt, noise):
+    """``Session.build(model=model).serve`` of ``params`` on ``prompt``
+    (1, S) with the decode's Gumbel ``noise`` (gen - 1, 1, V) -> (report,
+    launches)."""
+    from repro_torch.api import Session
+
+    ops.reset_launch_counts()
+    rep = Session.build(model=model, seed=SEED, device=dev).serve(
+        params, {"tokens": prompt}, gen=CHECKPOINT_SERVE["gen"],
+        noise_at=lambda t: noise[t])
+    torch.cuda.synchronize()
+    return rep, ops.launch_counts()
+
+
+def group_training(torch, ops, T, dev, ckpt_dir: str) -> tuple:
+    """Runs a-d of :data:`GROUP_TRAIN_RUNS`. After run b, its consensus
+    (``Session.save_consensus``) goes to ``ckpt_dir`` and the in-memory
+    ``consensus_view`` is served (flash prefill, D = 112) for phase 20 to
+    compare with; that serve's launches are phase 20's."""
+    import dataclasses
+
+    from repro_torch.engine.rounds import gumbel
+    from repro_torch.models.transformer import Transformer
+
+    runs, launches, memory_serve = {}, {k: 0 for k in KERNELS}, None
+    for label in ("a", "b", "c"):
+        out, (session, state, cfg) = group_train_run(torch, ops, T, dev,
+                                                     label)
+        runs[label] = out
+        for k, v in out["launches"].items():
+            launches[k] += v
+        if label == "b":
+            t0 = time.perf_counter()
+            session.save_consensus(ckpt_dir, state,
+                                   step=GROUP_TRAIN["steps"],
+                                   metadata={"arch": out["arch"],
+                                             "algorithm": "partpsp"})
+            save_s = time.perf_counter() - t0
+            model = Transformer(dataclasses.replace(cfg, flash_prefill=True))
+            gen = torch.Generator().manual_seed(SEED + 2)
+            prompt = torch.randint(0, cfg.vocab_size,
+                                   (1, CHECKPOINT_SERVE["prompt"]),
+                                   generator=gen).to(dev)
+            noise = gumbel(gen, (CHECKPOINT_SERVE["gen"] - 1, 1,
+                                 cfg.vocab_size), "cpu").to(dev)
+            rep, served = serve_view(torch, ops, dev, model,
+                                     session.consensus_view(state, 0),
+                                     prompt, noise)
+            memory_serve = dict(model=model, prompt=prompt, noise=noise,
+                                logits=rep.logits, tokens=rep.tokens,
+                                launches=served, save_s=save_s)
+            del rep
+        del session, state
+        torch.cuda.empty_cache()
+    runs["d"] = moe_grad_run(torch, dev)
+    torch.cuda.empty_cache()
+    return dict(phase="group_training", **GROUP_TRAIN, runs=runs,
+                launches=launches), memory_serve
+
+
+# -- phase 20: the consensus checkpoint from train to serve --------------------
+
+def checkpoint_serve(torch, ops, dev, ckpt_dir: str, memory: dict) -> dict:
+    """Run b's consensus as ``launch/serve.py --checkpoint`` restores it
+    (``model_params``: a fresh model's params, then ``load_checkpoint``
+    into them), served on the same prompt and Gumbel noise as the
+    in-memory ``consensus_view`` was in phase 19: the prefill logits equal
+    bit for bit and the tokens equal (the same card, the same kernels);
+    one flash launch (one unit) a serve."""
+    import os
+
+    from repro_torch.core.tree_utils import tree_leaves
+    from repro_torch.launch import serve as serve_cli
+
+    model = memory["model"]
+    t0 = time.perf_counter()
+    params, _, meta = serve_cli.model_params(model, dev, seed=SEED + 3,
+                                             checkpoint=ckpt_dir)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    require(meta["step"] == GROUP_TRAIN["steps"]
+            and meta["user"] == {"arch": GROUP_TRAIN_RUNS["b"]["arch"],
+                                 "algorithm": "partpsp"},
+            f"checkpoint meta {meta['step']}, {meta['user']}")
+    require(all(x.device.type == "cuda" for x in tree_leaves(params)),
+            "restored params not on the card")
+    rep, served = serve_view(torch, ops, dev, model, params, memory["prompt"],
+                             memory["noise"])
+    launches = {k: memory["launches"][k] + served[k] for k in KERNELS}
+    require(served["flash_attention"] == 1
+            and memory["launches"]["flash_attention"] == 1
+            and sum(launches.values()) == 2,
+            f"checkpoint serve launches {memory['launches']}, {served}")
+    require(bool(torch.isfinite(rep.logits).all()), "logits not finite")
+    err = (rep.logits - memory["logits"]).abs().max().item()
+    require(torch.equal(rep.logits, memory["logits"]),
+            f"restored logits differ from the in-memory view's: {err}")
+    require(torch.equal(rep.tokens, memory["tokens"]),
+            f"tokens {rep.tokens.tolist()} vs {memory['tokens'].tolist()}")
+    nbytes = os.path.getsize(os.path.join(ckpt_dir, "tensors.npz"))
+    out = dict(phase="checkpoint_serve", arch=GROUP_TRAIN_RUNS["b"]["arch"],
+               cut=GROUP_TRAIN_RUNS["b"]["cut"], leaves=len(meta["names"]),
+               checkpoint_gb=nbytes / 1e9, save_s=memory["save_s"],
+               load_s=load_s, prompt=CHECKPOINT_SERVE["prompt"],
+               gen=CHECKPOINT_SERVE["gen"], prefill_s=rep.prefill_s,
+               logits_bitwise_equal=True, logits_max_abs_err=err,
+               tokens=rep.tokens[0].tolist(), launches=launches)
+    del params, rep
+    torch.cuda.empty_cache()
+    return out
+
+
+# -- phase 21: training the other group kinds, the card against the CPU --------
+
+def group_training_agreement(torch, ops, ref, T, dev) -> dict:
+    """The five smoke configs of the other group kinds (scout, maverick
+    with ``moe_every = 2``, xlstm, zamba2, vision with image embeddings and
+    its gates at 0.5), each arch's rules, N = 4, 3 rounds, noise off and on
+    (half the Remark-1 limit; the same Philox rows fed to both through
+    ``bits_at``): ``Session.train`` on the card (kernels) and on the CPU
+    (plain versions) from the same parameters and batches. Every MoE
+    token's top-1 margin is above 1e-4 on both, so routing cannot flip.
+    Tolerances as phase 16's: the trajectory rtol 1e-4 plus 1e-6 of each
+    entry's largest magnitude, the trained state rtol 1e-4 plus 1e-5 of
+    each array's largest magnitude."""
+    from repro_torch.api import PrivacySpec, Session
+    from repro_torch.configs import get_config
+    from repro_torch.core.tree_utils import tree_leaves, tree_map
+    from repro_torch.models import moe
+    from repro_torch.models.attention import open_cross_gates
+    from repro_torch.models.transformer import Transformer
+
+    n, steps = GROUP_AGREE["n"], GROUP_AGREE["steps"]
+    pnb, seq = GROUP_AGREE["per_node_batch"], GROUP_AGREE["seq_len"]
+    real_route, margins = moe.moe_route, []
+
+    def route(router, tokens, n_experts, cap):
+        r = real_route(router, tokens, n_experts, cap)
+        top2 = torch.topk(r["probs"].detach(), 2, dim=-1).values
+        margins.append(float((top2[:, 0] - top2[:, 1]).min()))
+        return r
+
+    out = {}
+    moe.moe_route = route
+    try:
+        for arch in GROUP_SERVE_SMOKE:
+            spec = get_config(arch)
+            cfg, rules = spec.smoke, spec.shared_rules
+            model = Transformer(cfg)
+            params = open_cross_gates(model.init(
+                torch.Generator().manual_seed(GROUP_AGREE["seed"]),
+                device="cpu"))
+            gen = torch.Generator().manual_seed(GROUP_AGREE["seed"] + 1)
+            batches = []
+            for _ in range(steps):
+                b = {"tokens": torch.randint(0, cfg.vocab_size, (n, pnb, seq),
+                                             generator=gen)}
+                if cfg.groups[0].kind == "cross_self":
+                    b["image_embeds"] = torch.randn(
+                        (n, pnb, cfg.groups[0].n_image_tokens, cfg.d_model),
+                        generator=gen) * 0.1
+                batches.append(b)
+            topo = T.DOutGraph(n, 2)
+            d_s = shared_dim(torch, model, rules, n)
+            c_prime, lam, _, gamma_n = stability_gamma_n(T, topo, d_s)
+            bits = [philox_rows(torch, ref, t, n, d_s, dev)
+                    for t in range(steps)]
+            for noise in (False, True):
+                res, launches, margin = {}, None, {}
+                for key, device in (("card", dev), ("cpu", "cpu")):
+                    session = Session.build(
+                        topo, privacy=PrivacySpec(
+                            b=1.0, gamma_n=gamma_n, noise=noise,
+                            c_prime=c_prime, lam=lam),
+                        model=model,
+                        params=tree_map(lambda x: x.to(device), params),
+                        partition=rules, algorithm="partpsp", gamma_l=0.05,
+                        gamma_s=0.05, clip=100.0, schedule="dense",
+                        sync_interval=5, seed=SEED, device=device)
+                    require(session.plan.use_kernels == (key == "card"),
+                            "routing")
+                    on = [{k: v.to(device) for k, v in b.items()}
+                          for b in batches]
+                    bits_d = [x.to(device) for x in bits]
+                    margins.clear()
+                    ops.reset_launch_counts()
+                    rep = session.train(
+                        steps, lambda t: on[t],
+                        bits_at=(lambda t: bits_d[t]) if noise else None)
+                    if key == "card":
+                        torch.cuda.synchronize()
+                        launches = ops.launch_counts()
+                    margin[key] = min(margins) if margins else None
+                    st = rep.state
+                    res[key] = (
+                        rep.trajectory,
+                        [x.cpu() for x in tree_leaves(st.dpps.push.s)]
+                        + [st.dpps.push.a.cpu()]
+                        + [x.cpu() for x in st.local])
+                    del session, rep, st, on, bits_d
+                name = f"{arch}/noise_{'on' if noise else 'off'}"
+                require(all(m is None or m > 1e-4 for m in margin.values()),
+                        f"{name}: top-1 routing margins {margin}")
+                want = dict(l1_norm_rows=steps + 1, pushsum_mix=steps,
+                            dpps_perturb_rows=steps if noise else 0)
+                require(all(launches[k] == v for k, v in want.items())
+                        and sum(launches.values()) == sum(want.values()),
+                        f"{name}: launches {launches}, expected {want}")
+                errs = {}
+                for k, v in res["cpu"][0].items():
+                    g = torch.as_tensor(res["card"][0][k])
+                    w = torch.as_tensor(v)
+                    errs[k] = (g - w).abs().max().item()
+                    require(torch.allclose(g, w, rtol=1e-4,
+                                           atol=1e-6 * w.abs().max().item()),
+                            f"{name}: {k} card {g} CPU {w}")
+                state_err = 0.0
+                for g, w in zip(res["card"][1], res["cpu"][1]):
+                    d = (g - w).abs()
+                    state_err = max(state_err, d.max().item())
+                    lim = 1e-5 * w.abs().max().item() + 1e-4 * w.abs()
+                    require(bool((d <= lim).all()),
+                            f"{name}: trained state differs by "
+                            f"{d.max().item()} (trajectory errors {errs})")
+                out[name] = dict(
+                    d_s=d_s, gamma_n=gamma_n if noise else 0.0,
+                    losses=[float(x) for x in res["card"][0]["loss_mean"]],
+                    trajectory_max_abs_err=errs,
+                    state_max_abs_err=state_err, min_routing_margin=margin,
+                    launches=launches)
+                del res
+            del bits
+    finally:
+        moe.moe_route = real_route
+    torch.cuda.empty_cache()
+    return dict(phase="group_training_agreement", nodes=n, steps=steps,
+                per_node_batch=pnb, seq_len=seq, results=out)
+
+
 def sparse_graph(n: int, seed: int = 0):
     from repro_torch.net import ErdosRenyiGraph
 
@@ -2201,6 +2710,16 @@ def main() -> int:
         emit(served)
         launches.append(served["launches"])
     emit(group_serve_agreement(torch, ops, dev))
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as ckpt_dir:
+        trained, memory = group_training(torch, ops, T, dev, ckpt_dir)
+        emit(trained)
+        launches.append(trained["launches"])
+        served = checkpoint_serve(torch, ops, dev, ckpt_dir, memory)
+        emit(served)
+        launches.append(served["launches"])
+        del memory
+    emit(group_training_agreement(torch, ops, ref, T, dev))
 
     for (shape, k), (fn, other, name) in calls.items():
         r = small[shape][k]

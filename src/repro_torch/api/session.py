@@ -38,6 +38,7 @@ import numpy as np
 import torch
 
 from repro_torch.api.results import RunReport, ServeReport
+from repro_torch.checkpoint import save_checkpoint
 from repro_torch.core.dpps import (
     DPPSConfig,
     DPPSState,
@@ -229,6 +230,15 @@ class ProtocolSession:
         """Network-average shared params merged with ``node``'s local ones."""
         return tree_map(lambda x: x[node],
                         consensus_params(state, self.partition))
+
+    def save_consensus(self, path: str, state: PartPSPState, *,
+                       step: int = 0, metadata: dict | None = None) -> None:
+        """Persist the protocol's output for serving: s-bar and node 0's
+        local params (:meth:`consensus_view`), a single-node params tree
+        that :func:`repro_torch.checkpoint.load_checkpoint` restores into a
+        fresh model's (and the reference's loader too)."""
+        save_checkpoint(path, self.consensus_view(state, 0), step=step,
+                        metadata=metadata)
 
     # -- drivers -------------------------------------------------------------
 

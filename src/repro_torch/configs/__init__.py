@@ -1,10 +1,7 @@
 """Architecture registry of the port: ``get_config("<arch-id>")`` ->
 ArchSpec (mirrors ``repro.configs``).
 
-All ten of the reference's architectures serve. ``TRAIN_ARCHS`` are the
-five that also train: those whose every group is an ``AttnGroup``. The
-MoE, xLSTM, Zamba and VLM models raise ``NotImplementedError`` in
-``Transformer.loss_fn`` (ROADMAP Queue 1, item 3b).
+All ten of the reference's architectures train and serve.
 """
 from __future__ import annotations
 
@@ -34,10 +31,5 @@ def get_config(name: str) -> ArchSpec:
     return importlib.import_module(_ARCH_MODULES[name]).SPEC
 
 
-# The architectures the port trains: those whose every group is attention.
-TRAIN_ARCHS = tuple(n for n in ARCH_NAMES if all(
-    g.kind == "attn" for g in get_config(n).model.groups))
-
-
-__all__ = ["ARCH_NAMES", "TRAIN_ARCHS", "ArchSpec", "ShapeSpec",
+__all__ = ["ARCH_NAMES", "ArchSpec", "ShapeSpec",
            "INPUT_SHAPES", "get_config"]

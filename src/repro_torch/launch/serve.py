@@ -2,8 +2,9 @@
 (port of ``repro.launch.serve``).
 
 Builds the model of ``--arch`` (``--reduced``: its smoke config) from a
-seeded ``torch.Generator``, makes a seeded batch of prompts and runs
-``Session.build(model=...).serve(...)``. A VLM (llama-3.2-vision-11b) also
+seeded ``torch.Generator`` (``--checkpoint DIR``: then restores its params
+from a checkpoint, such as ``launch.train --checkpoint`` writes), makes a
+seeded batch of prompts and runs ``Session.build(model=...).serve(...)``. A VLM (llama-3.2-vision-11b) also
 gets image embeddings, normal x 0.1 of (B, n_image_tokens, d_model), as
 ``batch["image_embeds"]`` and ``enc=``. On the card by default; pass
 ``--device cpu`` for the plain PyTorch path.
@@ -11,10 +12,7 @@ gets image embeddings, normal x 0.1 of (B, n_image_tokens, d_model), as
     PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3.2-1b \\
         --reduced --device cpu --batch 2 --prompt-len 8 --gen 6
     PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2-7b \\
-        --reduced --device cpu
-
-``--checkpoint`` waits for the checkpoint port (ROADMAP Queue 1) and
-raises if given.
+        --reduced --device cpu --checkpoint ckpt
 """
 from __future__ import annotations
 
@@ -23,9 +21,24 @@ import argparse
 import torch
 
 from repro_torch.api import Session
+from repro_torch.checkpoint import load_checkpoint
 from repro_torch.configs import ARCH_NAMES, get_config
 from repro_torch.device import resolve_device
 from repro_torch.models.transformer import Transformer
+
+
+def model_params(model: Transformer, device, *, seed: int,
+                 checkpoint: str | None = None):
+    """-> (params, generator, checkpoint meta or None): ``model``'s params
+    from a generator on ``device`` seeded with ``seed`` (the generator is
+    returned, to draw the prompts after them) or, with ``checkpoint``,
+    restored from it into the structure of those params."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    params = model.init(gen, device=device)
+    meta = None
+    if checkpoint:
+        params, meta = load_checkpoint(checkpoint, params, device=device)
+    return params, gen, meta
 
 
 def main(argv=None) -> None:
@@ -41,16 +54,15 @@ def main(argv=None) -> None:
     ap.add_argument("--device", default=None,
                     help="torch device (default: the CUDA card)")
     args = ap.parse_args(argv)
-    if args.checkpoint:
-        raise NotImplementedError("--checkpoint: the checkpoint is not ported "
-                                  "yet (ROADMAP Queue 1)")
 
     arch = get_config(args.arch)
     cfg = arch.smoke if args.reduced else arch.model
     dev = resolve_device(args.device)
     model = Transformer(cfg)
-    gen = torch.Generator(device=dev).manual_seed(args.seed)
-    params = model.init(gen, device=dev)
+    params, gen, meta = model_params(model, dev, seed=args.seed,
+                                     checkpoint=args.checkpoint)
+    if meta is not None:
+        print(f"restored checkpoint (step {meta['step']})")
     session = Session.build(model=model, seed=args.seed, device=dev)
 
     b, s = args.batch, args.prompt_len

@@ -1,6 +1,6 @@
 """PartPSP training driver of the port (port of ``repro.launch.train``).
 
-Trains the attention-only family across N nodes on the synthetic Markov
+Trains any architecture of the zoo across N nodes on the synthetic Markov
 token stream: the model of ``--arch`` (``--reduced``: its smoke config),
 the arch's PartPSP partition rules, ``Session.build(..., model=...)`` and
 ``Session.train``. On the CUDA card by default; pass ``--device cpu`` for
@@ -8,13 +8,21 @@ the plain PyTorch path.
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch llama3.2-1b \\
         --reduced --device cpu --nodes 4 --steps 5 --gamma-n 1e-6
+    PYTHONPATH=src python -m repro_torch.launch.train --arch xlstm-125m \\
+        --reduced --device cpu --nodes 4 --steps 3 --gamma-n 1e-6 \\
+        --checkpoint ckpt
 
 Flags follow the reference's: ``--algorithm {partpsp,sgp,sgpdp,pedfl}``,
 ``--b``, ``--gamma-n``, ``--gamma-l``, ``--gamma-s``, ``--clip``,
 ``--topology`` (the families the port has) with ``--degree`` and the
 random families' knobs, ``--sync-interval``, ``--schedule
-{dense,circulant,sparse}``. Flags of parts not ported yet raise
-``NotImplementedError`` naming their ROADMAP item. Every ``--log-every``
+{dense,circulant,sparse}``, ``--checkpoint DIR`` (the consensus view for
+``launch.serve --checkpoint``). Flags of parts not ported yet raise
+``NotImplementedError`` naming their ROADMAP item. The batches carry
+tokens only (embeddings for an embedding-input model), as the
+reference's do: llama-3.2-vision-11b, which needs image embeddings, fails
+with a ``ValueError`` naming ``image_embeds``, as the reference's
+assertion does. Every ``--log-every``
 steps a line gives the loss, the sensitivity used and the seconds a step
 (the reference's ``MetricsHook`` waits for its port), printed when the
 run ends: the run is one ``Session.train`` call, so no earlier state is
@@ -29,7 +37,7 @@ import time
 import torch
 
 from repro_torch.api import PrivacySpec, Session
-from repro_torch.configs import TRAIN_ARCHS, get_config
+from repro_torch.configs import ARCH_NAMES, get_config
 from repro_torch.core.topology import (DOutGraph, ExpGraph,
                                        FullyConnectedGraph, RingGraph)
 from repro_torch.data import NodeShardedLoader, SyntheticLMStream
@@ -56,7 +64,6 @@ _UNPORTED = {
     "ledger_out": "item 5 (hooks: the privacy ledger)",
     "privacy_budget": "item 5 (hooks: the budget)",
     "metrics_out": "item 5 (hooks: MetricsHook)",
-    "checkpoint": "item 4 (repro.checkpoint)",
 }
 
 
@@ -134,9 +141,7 @@ def lm_batches(model_cfg, loader: NodeShardedLoader):
 
 def _parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--arch", choices=TRAIN_ARCHS, default="llama3.2-1b",
-                    help="the attention-only architectures; the others "
-                         "serve only (ROADMAP Queue 1, item 3b)")
+    ap.add_argument("--arch", choices=ARCH_NAMES, default="llama3.2-1b")
     ap.add_argument("--reduced", action="store_true",
                     help="use the smoke-scale config (CPU friendly)")
     ap.add_argument("--nodes", type=int, default=8)
@@ -165,6 +170,9 @@ def _parser() -> argparse.ArgumentParser:
     ap.add_argument("--log-every", type=int, default=10)
     ap.add_argument("--device", default=None,
                     help="torch device (default: the CUDA card)")
+    ap.add_argument("--checkpoint", default=None,
+                    help="write the consensus params (s-bar + node 0's "
+                         "local ones) here for serving")
     ap.add_argument("--driver", choices=("engine", "loop"), default="engine",
                     help="loop: the per-round driver, not ported yet")
     for flag in _UNPORTED:
@@ -233,6 +241,13 @@ def main(argv=None) -> None:
         "epsilon_spent": session.epsilon_spent(done),
         "epsilon_per_round": session.cfg.epsilon_per_round,
         "rounds": done}))
+    if args.checkpoint:
+        # consensus shared params are identical across nodes; persist node
+        # 0's view (s-bar + its personalised local params) for serving
+        session.save_consensus(args.checkpoint, report.state, step=done,
+                               metadata={"arch": args.arch,
+                                         "algorithm": args.algorithm})
+        print("checkpoint written to", args.checkpoint)
 
 
 if __name__ == "__main__":

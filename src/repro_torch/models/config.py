@@ -10,8 +10,8 @@ shapes agree between the two packages.
                       windows / rope thetas (gemma3's 5-local:1-global).
 * ``MoEGroup``, ``XLSTMGroup``, ``MambaGroup``, ``ZambaGroup``,
   ``CrossSelfGroup`` — the other families. The port's
-  :class:`repro_torch.models.transformer.Transformer` serves every kind
-  and trains ``AttnGroup`` only so far (ROADMAP Queue 1, item 3b).
+  :class:`repro_torch.models.transformer.Transformer` trains and serves
+  every kind.
 """
 from __future__ import annotations
 

@@ -11,7 +11,11 @@ Expert weights are stacked on a leading E axis.
 
 No step synchronises with the host: dropped tokens are written to an
 overflow row past the buffer (every such write writes zeros, so their
-order does not matter) rather than selected by a boolean mask.
+order does not matter) rather than selected by a boolean mask. Under
+autograd the overflow row is cut off before the experts run, so those
+writes carry no gradient to any parameter; a kept token's gradient comes
+back through its own slot, and the router's through the gate probability
+and the aux loss.
 """
 from __future__ import annotations
 

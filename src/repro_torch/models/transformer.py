@@ -37,16 +37,24 @@ says (the reference's other path streams the whole stack through its scan);
 the results are the same either way. A group whose layers all share one
 window keeps a ring buffer of that many slots.
 
-Every group kind of the reference serves: ``attn``, ``moe`` (all-MoE, or
-``moe_every`` - 1 dense layers before each MoE one), ``xlstm`` (units of
-mLSTM layers and an sLSTM), ``mamba``, ``zamba`` (units of Mamba2 layers,
-each followed by one shared attention block with a KV cache of its own
-for each application, then trailing Mamba2 layers) and ``cross_self``
-(units of one tanh-gated cross-attention over ``batch["image_embeds"]``
-and self-attention layers). A recurrent group's cache is its state (f32),
-written by the prefill and in place by each decode step. Training
-(``forward_train``, ``loss_fn``) takes ``attn`` groups only; the other
-kinds raise ``NotImplementedError`` (ROADMAP Queue 1, item 3b).
+Every group kind of the reference trains and serves: ``attn``, ``moe``
+(all-MoE, or ``moe_every`` - 1 dense layers before each MoE one),
+``xlstm`` (units of mLSTM layers and an sLSTM), ``mamba``, ``zamba``
+(units of Mamba2 layers, each followed by one shared attention block with
+a KV cache of its own for each application, then trailing Mamba2 layers)
+and ``cross_self`` (units of one tanh-gated cross-attention over
+``batch["image_embeds"]`` and self-attention layers). A recurrent group's
+cache is its state (f32), written by the prefill and in place by each
+decode step; training runs without a cache and writes nothing in place.
+
+A group's ``train`` returns (x, aux): the MoE groups' Switch load-balance
+loss summed over their MoE blocks, a zero for the other kinds, as the
+reference's groups return it. ``loss_fn`` adds the groups' sum to the
+cross entropy; the prefill drops it, as the reference's does. Training
+checkpoints at the reference's granularity: each ``attn`` layer, each MoE
+unit (its dense layers checkpointed inside it too), each mLSTM layer (the
+sLSTM is not), each Mamba2 layer, each zamba unit (its Mamba2 layers
+inside it too) and each cross/self unit (its self layers inside it too).
 """
 from __future__ import annotations
 
@@ -219,6 +227,16 @@ def _remat(fn, *args):
                       preserve_rng_state=False)
 
 
+def _no_aux(x: torch.Tensor) -> torch.Tensor:
+    """The aux loss of a group that makes none: a zero f32 scalar."""
+    return torch.zeros((), dtype=torch.float32, device=x.device)
+
+
+def _per_layer(cache, n: int) -> list:
+    """The layers of a layer-stacked cache, or ``n`` Nones without one."""
+    return [None] * n if cache is None else _layers(cache)
+
+
 def _write_prompt(cache: torch.Tensor, kv: torch.Tensor) -> None:
     """Positions [0, S) of ``kv`` (B, S, K, D) into one layer's cache
     (B, T, K, D): slots [0, S) when T >= S, else (a ring buffer) the last T
@@ -258,11 +276,10 @@ class _AttnGroupImpl:
 
     def train(self, params, x, positions, cache=None, use_flash=False,
               enc=None):
-        """Forward over the layers; with ``cache`` (this group's
-        :meth:`init_cache`) each layer's K/V is written into it. Each layer
-        runs under :func:`_remat` (checkpointed when grad is enabled). The
-        reference also returns an auxiliary loss, which only MoE groups
-        make."""
+        """Forward over the layers -> (x, zero aux); with ``cache`` (this
+        group's :meth:`init_cache`) each layer's K/V is written into it.
+        Each layer runs under :func:`_remat` (checkpointed when grad is
+        enabled)."""
         leaves, treedef = tree_flatten(params)
         layers = [layer_list(leaf) for leaf in leaves]
         for i in range(self.spec.n_layers):
@@ -272,7 +289,7 @@ class _AttnGroupImpl:
                 return self._block(lp, h, positions, i, cache, use_flash)
 
             x = _remat(block, x, *(ls[i] for ls in layers))
-        return x
+        return x, _no_aux(x)
 
     def _block(self, lp, x, positions, i: int, cache, use_flash: bool):
         """Layer i: pre-norm attention and MLP, each added to the residual."""
@@ -325,20 +342,26 @@ def _stacked(n: int, tree: dict) -> dict:
 def _residual_mixer(fn, lp, x, state, eps: float, **kw):
     """x + ``fn(cell, norm(x), state=state)`` for a pre-norm recurrent
     layer ``lp`` = {"ln", "cell"}; the new state is copied into ``state``
-    (a view of the cache) in place."""
+    (a view of the cache) in place. Without a state (training) the layer
+    starts from the zero state and its final state is dropped."""
     y, new = fn(lp["cell"], rms_norm(lp["ln"], x, eps), state=state, **kw)
-    for key, value in new.items():
-        state[key].copy_(value)
+    if state is not None:
+        for key, value in new.items():
+            state[key].copy_(value)
     return x + y
+
+
+def _plain(fn, *args):
+    return fn(*args)
 
 
 class _MoEGroupImpl:
     """All-MoE units (``moe_every`` = 1, llama4-scout) or units of
     ``moe_every`` - 1 dense blocks and one MoE block (llama4-maverick's
     alternation). An MoE block is global attention and the routed experts;
-    its aux loss is not kept (training these groups is ROADMAP Queue 1,
-    item 3b). Like every group but ``attn``, it runs with a cache only:
-    its ``train`` is the prefill."""
+    ``train`` sums the blocks' aux losses (the dense blocks add none).
+    Each unit runs under :func:`_remat`, as the reference checkpoints its
+    scan body."""
 
     def __init__(self, spec: MoEGroup, cfg: ModelConfig):
         self.spec, self.cfg = spec, cfg
@@ -375,31 +398,42 @@ class _MoEGroupImpl:
             batch, capacity, dtype, device)), "moe": kv}
 
     def _moe(self, lp, x):
+        """x + the block's routed experts -> (x, the block's aux loss)."""
         spec = self.spec
-        out, _ = moe_apply(lp["moe"], rms_norm(lp["ln2"], x, self.cfg.norm_eps),
-                           n_experts=spec.n_experts,
-                           capacity_factor=spec.capacity_factor,
-                           router_aux_weight=spec.router_aux_weight)
-        return x + out
+        out, aux = moe_apply(lp["moe"], rms_norm(lp["ln2"], x, self.cfg.norm_eps),
+                             n_experts=spec.n_experts,
+                             capacity_factor=spec.capacity_factor,
+                             router_aux_weight=spec.router_aux_weight)
+        return x + out, aux
 
     def _units(self, params, cache):
         """(unit params, its dense blocks' cache) of each unit, and the MoE
-        blocks' KV cache."""
+        blocks' KV cache (Nones without a cache)."""
+        n = self.spec.n_units
         if self._dense_unit is None:
-            return zip(_layers(params), [None] * self.spec.n_units), cache
+            return zip(_layers(params), [None] * n), cache
+        if cache is None:
+            return zip(_layers(params), [None] * n), None
         return zip(_layers(params), _layers(cache["dense"])), cache["moe"]
 
-    def train(self, params, x, positions, cache, use_flash=False, enc=None):
+    def train(self, params, x, positions, cache=None, use_flash=False,
+              enc=None):
         units, kv = self._units(params, cache)
-        for i, (lp, dense_cache) in enumerate(units):
-            if self._dense_unit is not None:
-                x = self._dense_unit.train(lp["dense"], x, positions,
-                                           cache=dense_cache,
-                                           use_flash=use_flash)
-                lp = lp["moe"]
-            x = self._moe(lp, self._attn.attend(lp, x, positions, i, kv,
-                                                use_flash))
-        return x
+        aux = _no_aux(x)
+        for i, (up, dense_cache) in enumerate(units):
+
+            def unit(h, up=up, dense_cache=dense_cache, i=i):
+                if self._dense_unit is not None:
+                    h, _ = self._dense_unit.train(up["dense"], h, positions,
+                                                  cache=dense_cache,
+                                                  use_flash=use_flash)
+                    up = up["moe"]
+                return self._moe(up, self._attn.attend(up, h, positions, i,
+                                                       kv, use_flash))
+
+            x, unit_aux = _remat(unit, x)
+            aux = aux + unit_aux
+        return x, aux
 
     def decode(self, params, x, pos: int, cache, enc=None):
         units, kv = self._units(params, cache)
@@ -407,7 +441,7 @@ class _MoEGroupImpl:
             if self._dense_unit is not None:
                 x = self._dense_unit.decode(lp["dense"], x, pos, dense_cache)
                 lp = lp["moe"]
-            x = self._moe(lp, self._attn.attend_step(lp, x, pos, i, kv))
+            x, _ = self._moe(lp, self._attn.attend_step(lp, x, pos, i, kv))
         return x
 
 
@@ -444,21 +478,29 @@ class _XLSTMGroupImpl:
                                   _stacked(spec.mlstm_per_unit, m)),
                 "slstm": _stacked(spec.n_units, s)}
 
-    def _run(self, params, x, cache, m_fn, s_fn):
-        cfg = self.cfg
-        for up, st in zip(_layers(params), _layers(cache)):
-            for lp, m_st in zip(_layers(up["mlstm"]), _layers(st["mlstm"])):
-                x = _residual_mixer(m_fn, lp, x, m_st, cfg.norm_eps,
-                                    n_heads=cfg.n_heads)
-            x = _residual_mixer(s_fn, up["slstm"], x, st["slstm"],
+    def _run(self, params, x, cache, m_fn, s_fn, wrap):
+        """Each unit's mLSTM layers (each through ``wrap``), then its
+        sLSTM."""
+        cfg, spec = self.cfg, self.spec
+        for up, st in zip(_layers(params), _per_layer(cache, spec.n_units)):
+            m_states = _per_layer(None if st is None else st["mlstm"],
+                                  spec.mlstm_per_unit)
+            for lp, m_st in zip(_layers(up["mlstm"]), m_states):
+                x = wrap(lambda h, lp=lp, m_st=m_st: _residual_mixer(
+                    m_fn, lp, h, m_st, cfg.norm_eps, n_heads=cfg.n_heads), x)
+            x = _residual_mixer(s_fn, up["slstm"], x,
+                                None if st is None else st["slstm"],
                                 cfg.norm_eps)
         return x
 
-    def train(self, params, x, positions, cache, use_flash=False, enc=None):
-        return self._run(params, x, cache, ssm.mlstm_seq, ssm.slstm_seq)
+    def train(self, params, x, positions, cache=None, use_flash=False,
+              enc=None):
+        return self._run(params, x, cache, ssm.mlstm_seq, ssm.slstm_seq,
+                         _remat), _no_aux(x)
 
     def decode(self, params, x, pos: int, cache, enc=None):
-        return self._run(params, x, cache, ssm.mlstm_step, ssm.slstm_step)
+        return self._run(params, x, cache, ssm.mlstm_step, ssm.slstm_step,
+                         _plain)
 
 
 class _MambaGroupImpl:
@@ -483,17 +525,20 @@ class _MambaGroupImpl:
             batch, self.cfg.d_model, self.spec.d_state, self.spec.expand,
             self.HEAD_DIM, device))
 
-    def _run(self, params, x, cache, fn):
-        for lp, st in zip(_layers(params), _layers(cache)):
-            x = _residual_mixer(fn, lp, x, st, self.cfg.norm_eps,
-                                head_dim=self.HEAD_DIM)
+    def _run(self, params, x, cache, fn, wrap):
+        """The layers, each through ``wrap``."""
+        for lp, st in zip(_layers(params),
+                          _per_layer(cache, self.spec.n_layers)):
+            x = wrap(lambda h, lp=lp, st=st: _residual_mixer(
+                fn, lp, h, st, self.cfg.norm_eps, head_dim=self.HEAD_DIM), x)
         return x
 
-    def train(self, params, x, positions, cache, use_flash=False, enc=None):
-        return self._run(params, x, cache, ssm.mamba2_seq)
+    def train(self, params, x, positions, cache=None, use_flash=False,
+              enc=None):
+        return self._run(params, x, cache, ssm.mamba2_seq, _remat), _no_aux(x)
 
     def decode(self, params, x, pos: int, cache, enc=None):
-        return self._run(params, x, cache, ssm.mamba2_step)
+        return self._run(params, x, cache, ssm.mamba2_step, _plain)
 
 
 class _ZambaGroupImpl:
@@ -537,17 +582,28 @@ class _ZambaGroupImpl:
                                                           dtype, device)
         return cache
 
-    def train(self, params, x, positions, cache, use_flash=False, enc=None):
+    def train(self, params, x, positions, cache=None, use_flash=False,
+              enc=None):
+        """Each unit (its Mamba2 layers and the shared block's application)
+        under :func:`_remat`, then the trailing layers."""
         shared = params["shared_attn"]
-        for u, (up, m_cache) in enumerate(zip(_layers(params["units_mamba"]),
-                                              _layers(cache["mamba"]))):
-            x = self._mamba_unit.train(up, x, positions, cache=m_cache)
-            x = _mlp_residual(shared, self._shared.attend(
-                shared, x, positions, u, cache["attn"], use_flash), self.cfg)
+        n = self.spec.n_units
+        kv = None if cache is None else cache["attn"]
+        units = zip(_layers(params["units_mamba"]),
+                    _per_layer(None if cache is None else cache["mamba"], n))
+        for u, (up, m_cache) in enumerate(units):
+
+            def unit(h, up=up, m_cache=m_cache, u=u):
+                h, _ = self._mamba_unit.train(up, h, positions, cache=m_cache)
+                return _mlp_residual(shared, self._shared.attend(
+                    shared, h, positions, u, kv, use_flash), self.cfg)
+
+            x = _remat(unit, x)
         if self._trailing is not None:
-            x = self._trailing.train(params["trailing"], x, positions,
-                                     cache=cache["trailing"])
-        return x
+            x, _ = self._trailing.train(
+                params["trailing"], x, positions,
+                cache=None if cache is None else cache["trailing"])
+        return x, _no_aux(x)
 
     def decode(self, params, x, pos: int, cache, enc=None):
         shared = params["shared_attn"]
@@ -587,10 +643,15 @@ class _CrossSelfGroupImpl:
         return _stacked(self.spec.n_units, self._self_unit.init_cache(
             batch, capacity, dtype, device))
 
-    def _cross(self, up, x, enc):
+    @staticmethod
+    def _need_enc(enc) -> None:
         if enc is None:
             raise ValueError("a cross_self group needs the image embeddings: "
-                             "batch['image_embeds'] in prefill, enc= in decode")
+                             "batch['image_embeds'] in training and prefill, "
+                             "enc= in decode")
+
+    def _cross(self, up, x, enc):
+        self._need_enc(enc)
         cfg = self.cfg
         return x + cross_attention(up["cross"],
                                    rms_norm(up["cross_ln"], x, cfg.norm_eps),
@@ -598,11 +659,22 @@ class _CrossSelfGroupImpl:
                                    n_kv_heads=cfg.n_kv_heads,
                                    head_dim=cfg.head_dim)
 
-    def train(self, params, x, positions, cache, use_flash=False, enc=None):
-        for up, c in zip(_layers(params), _layers(cache)):
-            x = self._self_unit.train(up["self"], self._cross(up, x, enc),
-                                      positions, cache=c, use_flash=use_flash)
-        return x
+    def train(self, params, x, positions, cache=None, use_flash=False,
+              enc=None):
+        """Each unit (cross layer and self layers) under :func:`_remat`."""
+        self._need_enc(enc)
+        for up, c in zip(_layers(params),
+                         _per_layer(cache, self.spec.n_units)):
+
+            def unit(h, up=up, c=c):
+                h, _ = self._self_unit.train(up["self"],
+                                             self._cross(up, h, enc),
+                                             positions, cache=c,
+                                             use_flash=use_flash)
+                return h
+
+            x = _remat(unit, x)
+        return x, _no_aux(x)
 
     def decode(self, params, x, pos: int, cache, enc=None):
         for up, c in zip(_layers(params), _layers(cache)):
@@ -672,11 +744,15 @@ class Transformer:
 
     def _backbone(self, params, x, positions, caches=None, use_flash=False,
                   enc=None):
+        """-> (final-normed hidden states, the groups' aux losses summed)."""
+        aux = _no_aux(x)
         for i, g in enumerate(self.groups):
-            x = g.train(params[f"group_{i}"], x, positions,
-                        cache=None if caches is None else caches[f"group_{i}"],
-                        use_flash=use_flash, enc=enc)
-        return rms_norm(params["final_ln"], x, self.cfg.norm_eps)
+            x, group_aux = g.train(
+                params[f"group_{i}"], x, positions,
+                cache=None if caches is None else caches[f"group_{i}"],
+                use_flash=use_flash, enc=enc)
+            aux = aux + group_aux
+        return rms_norm(params["final_ln"], x, self.cfg.norm_eps), aux
 
     def _head(self, params, x):
         if self.cfg.tie_embedding:
@@ -691,20 +767,15 @@ class Transformer:
 
     def forward_train(self, params, batch):
         """-> (final hidden states (B, S, d), aux loss). The logits are made
-        chunk by chunk inside :meth:`loss_fn`. ``aux`` is a zero scalar: only
-        MoE groups make one. Groups other than ``attn`` raise
-        ``NotImplementedError``: they serve, and train in a later slice."""
-        kinds = sorted({g.kind for g in self.cfg.groups} - {"attn"})
-        if kinds:
-            raise NotImplementedError(
-                f"training {self.cfg.name}: group kinds {kinds} serve only; "
-                "their training waits for ROADMAP Queue 1, item 3b (training "
-                "the MoE, xLSTM, Mamba2/Zamba2 and cross-attention kinds)")
+        chunk by chunk inside :meth:`loss_fn`. ``aux`` is the MoE groups'
+        load-balance loss (zero for the other kinds). A cross-attention
+        model reads the image embeddings ``batch["image_embeds"]`` (B, M,
+        d_model)."""
         x = self._embed_inputs(params, batch)
         b, s = x.shape[:2]
         positions = torch.arange(s, device=x.device)[None].expand(b, s)
-        h = self._backbone(params, x, positions)
-        return h, torch.zeros((), dtype=torch.float32, device=x.device)
+        return self._backbone(params, x, positions,
+                              enc=batch.get("image_embeds"))
 
     def loss_fn(self, params, batch) -> torch.Tensor:
         """Mean next-token cross entropy over B (S - 1) positions (+ aux),
@@ -752,9 +823,9 @@ class Transformer:
         positions = torch.arange(s, device=x.device)[None].expand(b, s)
         caches = self.init_cache(b, s if capacity is None else capacity,
                                  device=x.device)
-        h = self._backbone(params, x, positions, caches=caches,
-                           use_flash=self.cfg.flash_prefill,
-                           enc=batch.get("image_embeds"))
+        h, _ = self._backbone(params, x, positions, caches=caches,
+                              use_flash=self.cfg.flash_prefill,
+                              enc=batch.get("image_embeds"))
         return self._head(params, h[:, -1:])[:, 0], caches
 
     def decode_step(self, params, cache, token, pos: int, enc=None):

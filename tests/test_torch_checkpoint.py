@@ -1,0 +1,259 @@
+"""The port's checkpoints and optimizers against the reference, on the CPU.
+
+* ``repro_torch.checkpoint`` writes the reference's files: a checkpoint
+  either package writes (``save_checkpoint``, or ``Session.save_consensus``
+  from a PartPSP state) loads in the other, value for value, with the same
+  leaf names and order; shape and leaf-count mismatches raise with the
+  reference's messages.
+* ``launch.train --checkpoint`` then ``launch.serve --checkpoint`` on the
+  CPU for the recurrent models.
+* ``repro_torch.optim``: ``sgd`` (with and without momentum), ``adamw``
+  (with weight decay) and ``global_norm`` against the reference over three
+  updates.
+
+Checkpoints round-trip exactly (the same f32 bits); the two packages'
+consensus views of one state agree to rtol 1e-6 (s-bar is a mean over
+the nodes, summed in another order). The optimizers agree
+to rtol 1e-6 / atol 1e-7: the same elementwise f32 arithmetic, where XLA
+may fuse a multiply-add that PyTorch rounds twice.
+"""
+from __future__ import annotations
+
+import importlib
+import json
+import os
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from test_torch_models import cfg_to_reference
+from test_torch_reference import load_reference, to_numpy
+
+from repro_torch import convert
+from repro_torch.api import Session
+from repro_torch.checkpoint import load_checkpoint, save_checkpoint
+from repro_torch.configs import get_config
+from repro_torch.core import topology as T
+from repro_torch.core.tree_utils import tree_leaves, tree_map
+from repro_torch.launch import serve as serve_cli
+from repro_torch.launch import train as train_cli
+from repro_torch.models.transformer import Transformer
+from repro_torch.optim import adamw, global_norm, sgd
+
+ARCH = "zamba2-7b"
+N = 3
+
+
+@pytest.fixture(scope="module")
+def R():
+    ref = load_reference()
+    for name in ("repro.checkpoint", "repro.optim"):
+        importlib.import_module(name)
+    return ref
+
+
+def _ref_params(R, arch=ARCH, key=4):
+    cfg = get_config(arch).smoke
+    ref_model = R.models.Transformer(cfg_to_reference(R, cfg))
+    return cfg, ref_model, jax.tree_util.tree_map(
+        np.asarray, ref_model.init(jax.random.PRNGKey(key)))
+
+
+def _trees_equal(got, want):
+    """Leaf for leaf the same values (a tree of tensors or of arrays)."""
+    g, w = tree_leaves(got), jax.tree_util.tree_leaves(want)
+    assert len(g) == len(w)
+    for x, y in zip(g, w):
+        np.testing.assert_array_equal(to_numpy(x), np.asarray(y))
+
+
+def _sessions(R, cfg, ref_model, params):
+    """The port's and the reference's PartPSP sessions of the same params
+    and the arch's rules, and each one's initial training state with its
+    local leaves made to differ by node (so node 0's view is checked)."""
+    rules = tuple(get_config(ARCH).shared_rules)
+    port = Session.build(T.DOutGraph(N, 2), model=Transformer(cfg),
+                         params=convert.transformer_params_from_reference(
+                             params, cfg, device="cpu"),
+                         partition=rules, device="cpu")
+    ref = R.api.Session.build(R.core.topology.DOutGraph(N, 2),
+                              model=ref_model,
+                              params=jax.tree_util.tree_map(jnp.asarray,
+                                                            params),
+                              partition=rules)
+    scale = np.arange(1, N + 1, dtype=np.float32)
+    st = port.train_state()
+    st = st._replace(local=[x * torch.tensor(scale).reshape(
+        (N,) + (1,) * (x.dim() - 1)) for x in st.local])
+    rst = ref.train_state()
+    rst = rst._replace(local=[x * jnp.asarray(scale).reshape(
+        (N,) + (1,) * (x.ndim - 1)) for x in rst.local])
+    return port, st, ref, rst
+
+
+def test_port_consensus_checkpoint_loads_in_the_reference(R, tmp_path):
+    cfg, ref_model, params = _ref_params(R)
+    port, st, ref, rst = _sessions(R, cfg, ref_model, params)
+    port.save_consensus(str(tmp_path), st, step=5,
+                        metadata={"arch": ARCH, "algorithm": "partpsp"})
+    template = ref_model.init(jax.random.PRNGKey(0))
+    got, meta = R.checkpoint.load_checkpoint(str(tmp_path), template)
+    _trees_equal(port.consensus_view(st, 0), got)
+    # s-bar is a mean over the nodes, summed in another order by XLA
+    for a, b in zip(jax.tree_util.tree_leaves(got),
+                    jax.tree_util.tree_leaves(ref.consensus_view(rst, 0))):
+        np.testing.assert_allclose(np.asarray(a), np.asarray(b), rtol=1e-6,
+                                   atol=1e-7)
+    assert meta["step"] == 5
+    assert meta["user"] == {"arch": ARCH, "algorithm": "partpsp"}
+    assert jax.tree_util.tree_structure(got) == \
+        jax.tree_util.tree_structure(template)
+
+
+@pytest.mark.parametrize("writer", ["save_checkpoint", "save_consensus"])
+def test_reference_checkpoint_loads_in_the_port(R, tmp_path, writer):
+    cfg, ref_model, params = _ref_params(R)
+    if writer == "save_checkpoint":
+        R.checkpoint.save_checkpoint(str(tmp_path), params, step=3)
+        want = params
+    else:
+        _, _, ref, rst = _sessions(R, cfg, ref_model, params)
+        ref.save_consensus(str(tmp_path), rst, step=3)
+        want = ref.consensus_view(rst, 0)
+    template = Transformer(cfg).init(torch.Generator().manual_seed(0),
+                                     device="cpu")
+    got, meta = load_checkpoint(str(tmp_path), template, device="cpu")
+    assert meta["step"] == 3
+    assert [tuple(x.shape) for x in tree_leaves(got)] == \
+        [tuple(x.shape) for x in tree_leaves(template)]
+    assert all(x.device.type == "cpu" and x.dtype == torch.float32
+               for x in tree_leaves(got))
+    _trees_equal(got, want)
+
+
+def test_leaf_names_and_order_equal_the_references(R, tmp_path):
+    """The same tree written by both packages: the same ``names``,
+    ``dtypes``, ``shapes``, ``step`` and ``user``, and the same arrays under
+    the same ``a<i>`` keys. A tree of dicts, lists and tuples, and a
+    model's params."""
+    rng = np.random.default_rng(0)
+    mixed = {"b": [rng.normal(size=(2, 3)).astype(np.float32),
+                   (np.arange(4, dtype=np.int32),
+                    rng.normal(size=(5,)).astype(np.float32))],
+             "a": {"z": np.float32(2.5) * np.ones((1,), np.float32),
+                   "c": rng.normal(size=(3, 1)).astype(np.float32)}}
+    for i, tree in enumerate((mixed, _ref_params(R)[2])):
+        ours, theirs = tmp_path / f"port{i}", tmp_path / f"ref{i}"
+        save_checkpoint(str(ours), tree_map(torch.tensor, tree), step=i,
+                        metadata={"k": i})
+        R.checkpoint.save_checkpoint(str(theirs), tree, step=i,
+                                     metadata={"k": i})
+        metas = [json.loads((d / "meta.json").read_text())
+                 for d in (ours, theirs)]
+        for key in ("step", "names", "dtypes", "shapes", "user"):
+            assert metas[0][key] == metas[1][key], key
+        with np.load(ours / "tensors.npz") as a, \
+                np.load(theirs / "tensors.npz") as b:
+            assert sorted(a.files) == sorted(b.files)
+            for k in b.files:
+                np.testing.assert_array_equal(a[k], b[k])
+                assert a[k].dtype == b[k].dtype
+    assert metas[0]["names"][:2] == ["embed", "final_ln/scale"]
+
+
+@pytest.mark.parametrize("fault", ["shape", "leaf_count"])
+def test_load_checkpoint_checks_the_template(tmp_path, fault):
+    """The reference's checks and messages: the number of leaves, and
+    every leaf's shape."""
+    tree = {"w": torch.ones((2, 3)), "b": torch.zeros((3,))}
+    save_checkpoint(str(tmp_path), tree)
+    if fault == "shape":
+        bad, match = {"w": torch.ones((3, 2)), "b": torch.zeros((3,))}, \
+            r"leaf w: checkpoint shape \(2, 3\) != template shape \(3, 2\)"
+    else:
+        bad, match = {"w": torch.ones((2, 3))}, \
+            "checkpoint has 2 leaves, template has 1"
+    with pytest.raises(ValueError, match=match):
+        load_checkpoint(str(tmp_path), bad, device="cpu")
+    got, _ = load_checkpoint(str(tmp_path), tree, device="cpu")
+    assert torch.equal(got["w"], tree["w"]) and torch.equal(got["b"],
+                                                            tree["b"])
+
+
+@pytest.mark.parametrize("arch", ["xlstm-125m", "zamba2-7b"])
+def test_train_cli_checkpoint_then_serve_cli_restores_it(capsys, tmp_path,
+                                                         arch):
+    """``launch.train --checkpoint`` writes the trained consensus view,
+    which ``launch.serve --checkpoint`` restores into a fresh model."""
+    ckpt = str(tmp_path / "ckpt")
+    train_cli.main(["--arch", arch, "--reduced", "--device", "cpu",
+                    "--steps", "2", "--nodes", "3", "--per-node-batch", "2",
+                    "--seq-len", "16", "--gamma-n", "1e-7",
+                    "--checkpoint", ckpt])
+    out = capsys.readouterr().out
+    assert f"checkpoint written to {ckpt}" in out
+    meta = json.loads(open(os.path.join(ckpt, "meta.json")).read())
+    assert meta["step"] == 2
+    assert meta["user"] == {"arch": arch, "algorithm": "partpsp"}
+    template = Transformer(get_config(arch).smoke).init(
+        torch.Generator().manual_seed(0), device="cpu")
+    saved, _ = load_checkpoint(ckpt, template, device="cpu")
+    assert all(bool(torch.isfinite(x).all()) for x in tree_leaves(saved))
+    assert not all(torch.equal(a, b) for a, b in
+                   zip(tree_leaves(saved), tree_leaves(template)))
+    serve_cli.main(["--arch", arch, "--reduced", "--device", "cpu",
+                    "--batch", "2", "--prompt-len", "8", "--gen", "4",
+                    "--checkpoint", ckpt])
+    out = capsys.readouterr().out
+    assert "restored checkpoint (step 2)" in out
+    assert "decode: 3 steps" in out and "generated token ids" in out
+
+
+# -- optimizers ----------------------------------------------------------------
+
+def _opt_tree(seed):
+    rng = np.random.default_rng(seed)
+    return {"w": rng.normal(size=(4, 6)).astype(np.float32),
+            "layers": [rng.normal(size=(3,)).astype(np.float32),
+                       rng.normal(size=(2, 2, 5)).astype(np.float32)]}
+
+
+@pytest.mark.parametrize("name,kwargs", [
+    ("sgd", dict(lr=0.1)), ("sgd", dict(lr=0.1, momentum=0.9)),
+    ("adamw", dict(lr=0.01, weight_decay=0.05))])
+def test_optimizers_match_reference(R, name, kwargs):
+    ours = {"sgd": sgd, "adamw": adamw}[name](**kwargs)
+    theirs = getattr(R.optim, name)(**kwargs)
+    params = _opt_tree(0)
+    p, st = tree_map(torch.tensor, params), None
+    rp, rst = jax.tree_util.tree_map(jnp.asarray, params), None
+    st, rst = ours.init(p), theirs.init(rp)
+    for t in range(3):
+        grads = _opt_tree(10 + t)
+        p, st = ours.update(tree_map(torch.tensor, grads), st, p)
+        rp, rst = theirs.update(jax.tree_util.tree_map(jnp.asarray, grads),
+                                rst, rp)
+    assert int(st.step) == int(rst.step) == 3
+    for a, b in zip(tree_leaves(p), jax.tree_util.tree_leaves(rp)):
+        np.testing.assert_allclose(to_numpy(a), np.asarray(b), rtol=1e-6,
+                                   atol=1e-7)
+    for moment in ("mu", "nu"):
+        mine, want = getattr(st, moment), getattr(rst, moment)
+        assert (mine is None) == (want is None)
+        if want is not None:
+            for a, b in zip(tree_leaves(mine),
+                            jax.tree_util.tree_leaves(want)):
+                np.testing.assert_allclose(to_numpy(a), np.asarray(b),
+                                           rtol=1e-6, atol=1e-7)
+
+
+def test_global_norm_matches_reference(R):
+    tree = _opt_tree(3)
+    got = global_norm(tree_map(torch.tensor, tree))
+    want = R.optim.global_norm(jax.tree_util.tree_map(jnp.asarray, tree))
+    assert got.dtype == torch.float32
+    np.testing.assert_allclose(float(got), float(want), rtol=1e-6)
+    assert float(global_norm({})) == 0.0

@@ -27,7 +27,7 @@ import pytest
 import torch
 
 from repro_torch import convert
-from repro_torch.configs import ARCH_NAMES, TRAIN_ARCHS, get_config
+from repro_torch.configs import ARCH_NAMES, get_config
 from repro_torch.core.tree_utils import tree_flatten_with_path
 from repro_torch.kernels import ops
 from repro_torch.models import layers
@@ -352,7 +352,7 @@ def test_decode_against_a_long_cache_matches_reference(R):
 
 def test_configs_are_the_references(R):
     """All ten configs, full and smoke, and their PartPSP rules, equal the
-    reference's; TRAIN_ARCHS are its dense and audio (attention-only) ones."""
+    reference's."""
     for name in ARCH_NAMES:
         spec, ref_spec = get_config(name), R.configs.get_config(name)
         for mine, theirs in ((spec.model, ref_spec.model),
@@ -362,42 +362,6 @@ def test_configs_are_the_references(R):
         assert tuple(spec.shared_rules) == tuple(ref_spec.shared_rules)
         assert (spec.name, spec.family) == (ref_spec.name, ref_spec.family)
     assert ARCH_NAMES == tuple(R.configs.ARCH_NAMES)
-    assert TRAIN_ARCHS == tuple(n for n in R.configs.ARCH_NAMES
-                                if R.configs.get_config(n).family in
-                                ("dense", "audio"))
-
-
-@pytest.mark.parametrize("name", ["xlstm-125m", "llama-3.2-vision-11b",
-                                  "llama4-scout-17b-a16e",
-                                  "llama4-maverick-400b-a17b", "zamba2-7b"])
-def test_later_archs_raise_and_name_the_roadmap(name):
-    """The five serve (their configs load) but do not train yet: the loss
-    raises and names the ROADMAP item."""
-    cfg = get_config(name).smoke
-    model = Transformer(cfg)
-    params = model.init(torch.Generator().manual_seed(0), device="cpu")
-    batch = {"tokens": torch.zeros((1, 4), dtype=torch.int64)}
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1, item 3b"):
-        model.loss_fn(params, batch)
-    assert name not in TRAIN_ARCHS
-
-
-def test_other_group_kinds_raise():
-    """A model with a group kind other than ``attn`` builds and serves, and
-    raises ``NotImplementedError`` naming the ROADMAP when trained."""
-    from repro_torch.models.config import ModelConfig
-
-    cfg = ModelConfig(name="m", d_model=32, vocab_size=64, n_heads=4,
-                      n_kv_heads=2, head_dim=8, d_ff=64,
-                      groups=(MambaGroup(n_layers=2, d_state=8),))
-    model = Transformer(cfg)
-    params = model.init(torch.Generator().manual_seed(0), device="cpu")
-    toks = {"tokens": torch.zeros((1, 3), dtype=torch.int64)}
-    logits, _ = model.prefill(params, toks)
-    assert logits.shape == (1, 64) and bool(torch.isfinite(logits).all())
-    for fn in (model.loss_fn, model.forward_train):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            fn(params, toks)
 
 
 def test_transformer_params_from_reference_checks_every_path(R):

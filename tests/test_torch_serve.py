@@ -26,6 +26,7 @@ import torch
 
 from repro_torch import convert
 from repro_torch.api import ServeReport, Session
+from repro_torch.checkpoint import save_checkpoint
 from repro_torch.configs import get_config
 from repro_torch.engine.rounds import run_decode
 from repro_torch.launch import serve as serve_cli
@@ -142,13 +143,22 @@ def test_run_decode_needs_noise_and_feeds_the_sample_back():
     assert toks.shape == (0, 2) and cache == 0
 
 
-def test_serve_cli_runs_on_the_cpu(capsys):
-    serve_cli.main(["--arch", "llama3.2-1b", "--reduced", "--device", "cpu",
-                    "--batch", "2", "--prompt-len", "8", "--gen", "6"])
+def test_serve_cli_runs_on_the_cpu(capsys, tmp_path):
+    """A fresh model, then one restored from a checkpoint of other params
+    (the step printed as the reference's CLI prints it)."""
+    argv = ["--arch", "llama3.2-1b", "--reduced", "--device", "cpu",
+            "--batch", "2", "--prompt-len", "8", "--gen", "6"]
+    serve_cli.main(argv)
     out = capsys.readouterr().out
     assert "decode: 5 steps" in out and "generated token ids" in out
-    with pytest.raises(NotImplementedError, match="checkpoint"):
-        serve_cli.main(["--reduced", "--device", "cpu", "--checkpoint", "x"])
+    fresh = out.split("generated token ids")[1]
+    model = Transformer(get_config("llama3.2-1b").smoke)
+    save_checkpoint(str(tmp_path), model.init(
+        torch.Generator().manual_seed(9), device="cpu"), step=7)
+    serve_cli.main(argv + ["--checkpoint", str(tmp_path)])
+    out = capsys.readouterr().out
+    assert "restored checkpoint (step 7)" in out and "decode: 5 steps" in out
+    assert out.split("generated token ids")[1] != fresh
 
 
 @pytest.mark.parametrize("arch", ["llama-3.2-vision-11b", "zamba2-7b",

@@ -1,15 +1,23 @@
 """The port's training path against the reference, on the CPU.
 
 * ``Transformer.forward_train`` / ``loss_fn`` and the loss's gradients
-  against the reference's ``jax.value_and_grad`` for the five
-  attention-only smoke configs (musicgen-large on embeddings);
+  against the reference's ``jax.value_and_grad`` for all ten smoke configs
+  (musicgen-large on embeddings; the MoE configs' aux loss and router
+  gradient, with their top-1 routing margins asserted; the VLM with seeded
+  image embeddings and its cross gates at 0.5), and for a plain Mamba2
+  model;
 * the sequence-chunked loss against one unchunked cross entropy, and the
-  checkpointed gradients against gradients without checkpoint;
+  checkpointed gradients against gradients without checkpoint (an
+  attention model and the recurrent zamba2 smoke model);
 * ``Session.train(model=Transformer)`` against the reference's, 3 rounds,
   noise off and on (the port fed the reference's bits through
   ``bits_at``);
-* ``SyntheticLMStream`` / ``NodeShardedLoader``, the train CLI, and the
-  plain mix at N = 64 against the reference's interpret-mode kernel.
+* ``SyntheticLMStream`` / ``NodeShardedLoader``, the train CLI (the VLM's
+  missing image embeddings), and the plain mix at N = 64 against the
+  reference's interpret-mode kernel.
+
+``Session.train`` of the other group kinds and the checkpoint round trip
+are in ``test_torch_group_train.py`` and ``test_torch_checkpoint.py``.
 
 Tolerances (f32): loss and hidden states rtol 1e-4 / atol 1e-5 (matmuls and
 softmax summed in another order); gradients rtol 1e-4 plus 1e-5 of the
@@ -19,19 +27,21 @@ plus 1e-6 of the array's largest magnitude, as the MLP session test.
 """
 from __future__ import annotations
 
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
-from test_torch_models import cfg_to_reference
+from test_torch_models import cfg_to_reference, image_embeds
 from test_torch_reference import load_reference, reference_bits, to_numpy
 from test_torch_session import _close, _trees_close
 
 from repro_torch import convert
 from repro_torch.api import PrivacySpec, Session
-from repro_torch.configs import TRAIN_ARCHS, get_config
+from repro_torch.configs import ARCH_NAMES, get_config
 from repro_torch.core import topology as T
 from repro_torch.core.partition import LayerParts, Partition, layer_list
 from repro_torch.core.partpsp import node_stacked
@@ -40,7 +50,10 @@ from repro_torch.core.tree_utils import (tree_flatten, tree_leaves, tree_map,
 from repro_torch.data import NodeShardedLoader, SyntheticLMStream
 from repro_torch.kernels import ref
 from repro_torch.launch import train as train_cli
+from repro_torch.models import moe
 from repro_torch.models import transformer as tf
+from repro_torch.models.attention import open_cross_gates
+from repro_torch.models.config import MambaGroup
 from repro_torch.models.transformer import Transformer
 
 SEED, N, ROUNDS, SYNC, CHUNK = 2024, 4, 3, 2, 2
@@ -56,13 +69,37 @@ def R():
     return load_reference()
 
 
+# the top-1 routing margin every MoE token must clear for the port's routing
+# to be the reference's (a flip would change the token's output wholesale)
+MARGIN = 1e-4
+
+
 def _batch(cfg, b, s, seed):
     rng = np.random.default_rng(seed)
     toks = rng.integers(0, cfg.vocab_size, size=(b, s), dtype=np.int32)
     if cfg.input_mode == "embeddings":
         emb = (rng.normal(size=(b, s, cfg.d_model)) * 0.1).astype(np.float32)
         return {"embeds": emb, "labels": toks}
-    return {"tokens": toks}
+    batch = {"tokens": toks}
+    enc = image_embeds(cfg, b, seed)
+    if enc is not None:
+        batch["image_embeds"] = enc
+    return batch
+
+
+def routing_margins(monkeypatch) -> list:
+    """Record the gap between the largest and second router probability of
+    every token each ``moe_route`` call sees."""
+    margins, real = [], moe.moe_route
+
+    def route(router, tokens, n_experts, cap):
+        r = real(router, tokens, n_experts, cap)
+        top2 = torch.topk(r["probs"].detach(), 2, dim=-1).values
+        margins.append(float((top2[:, 0] - top2[:, 1]).min()))
+        return r
+
+    monkeypatch.setattr(moe, "moe_route", route)
+    return margins
 
 
 def _port_batch(batch):
@@ -77,50 +114,84 @@ def _grad_close(got, want):
 
 # -- the loss and its gradients, five configs ---------------------------------
 
+def _mamba_cfg():
+    """A model of one plain Mamba2 group (zamba2 runs Mamba2 in units)."""
+    return dataclasses.replace(get_config("llama3.2-1b").smoke,
+                               name="mamba-smoke",
+                               groups=(MambaGroup(n_layers=2, d_state=16),))
+
+
+def _reference_loss(R, cfg):
+    """The reference's hidden states, aux, loss and gradients of ``cfg`` on
+    seeded params (the VLM's gates at 0.5) and batch."""
+    ref_model = R.models.Transformer(cfg_to_reference(R, cfg))
+    params = open_cross_gates(jax.tree_util.tree_map(
+        np.asarray, ref_model.init(jax.random.PRNGKey(1))))
+    batch = _batch(cfg, B, S, seed=5)
+    jp = jax.tree_util.tree_map(jnp.asarray, params)
+    jb = jax.tree_util.tree_map(jnp.asarray, batch)
+    h, aux = ref_model.forward_train(jp, jb)
+    loss, grads = jax.value_and_grad(ref_model.loss_fn)(jp, jb)
+    return (cfg, params, batch, np.asarray(h), float(aux), float(loss),
+            jax.tree_util.tree_map(np.asarray, grads))
+
+
 @pytest.fixture(scope="module")
 def loss_runs(R):
     """For each smoke config: the reference's hidden states, loss and
     gradients on seeded params and batch, and the port's inputs."""
-    out = {}
-    for arch in TRAIN_ARCHS:
-        cfg = get_config(arch).smoke
-        ref_model = R.models.Transformer(cfg_to_reference(R, cfg))
-        params = jax.tree_util.tree_map(
-            np.asarray, ref_model.init(jax.random.PRNGKey(1)))
-        batch = _batch(cfg, B, S, seed=5)
-        jp = jax.tree_util.tree_map(jnp.asarray, params)
-        jb = jax.tree_util.tree_map(jnp.asarray, batch)
-        h, aux = ref_model.forward_train(jp, jb)
-        loss, grads = jax.value_and_grad(ref_model.loss_fn)(jp, jb)
-        out[arch] = (cfg, params, batch, np.asarray(h), float(aux),
-                     float(loss), jax.tree_util.tree_map(np.asarray, grads))
-    return out
+    return {arch: _reference_loss(R, get_config(arch).smoke)
+            for arch in ARCH_NAMES}
 
 
-@pytest.mark.parametrize("arch", TRAIN_ARCHS)
-def test_loss_and_gradients_match_reference(loss_runs, arch):
-    cfg, params, batch, want_h, want_aux, want_loss, want_g = loss_runs[arch]
+def _check_loss_and_gradients(run, monkeypatch):
+    """The port's forward, aux, loss and every leaf's gradient against the
+    reference's; every MoE token's routing margin above :data:`MARGIN`."""
+    cfg, params, batch, want_h, want_aux, want_loss, want_g = run
     model = Transformer(cfg)
     port = convert.transformer_params_from_reference(params, cfg, device="cpu")
     leaves = tree_leaves(port)
     for x in leaves:
         x.requires_grad_(True)
     pb = _port_batch(batch)
+    margins = routing_margins(monkeypatch)
     with torch.no_grad():
         h, aux = model.forward_train(port, pb)
     _close(h, want_h, 1e-4, 1e-5)
-    assert float(aux) == want_aux == 0.0
+    moe_blocks = sum(g.n_units for g in cfg.groups if g.kind == "moe")
+    assert len(margins) == moe_blocks
+    assert all(m > MARGIN for m in margins), margins
+    if moe_blocks:
+        assert want_aux > 0.0
+        np.testing.assert_allclose(float(aux), want_aux, rtol=1e-5)
+    else:
+        assert float(aux) == want_aux == 0.0
     loss = model.loss_fn(port, pb)
     np.testing.assert_allclose(loss.item(), want_loss, rtol=1e-4, atol=1e-5)
     # musicgen-large reads embeddings: its token table is unused (zero
     # gradient in the reference)
     grads = torch.autograd.grad(loss, leaves, allow_unused=True)
-    want = jax.tree_util.tree_leaves(want_g)
+    want = jax.tree_util.tree_flatten_with_path(want_g)[0]
     assert len(grads) == len(want)
-    for g, w, x in zip(grads, want, leaves):
+    for g, (path, w), x in zip(grads, want, leaves):
         g = torch.zeros_like(x) if g is None else g
         assert tuple(g.shape) == w.shape
         _grad_close(g, w)
+    return dict(zip((jax.tree_util.keystr(p) for p, _ in want), grads))
+
+
+@pytest.mark.parametrize("arch", ARCH_NAMES)
+def test_loss_and_gradients_match_reference(loss_runs, arch, monkeypatch):
+    grads = _check_loss_and_gradients(loss_runs[arch], monkeypatch)
+    routers = [g for p, g in grads.items() if "router" in p]
+    assert bool(routers) == (get_config(arch).family == "moe")
+    for g in routers:  # the router learns through the gate and the aux
+        assert float(g.abs().max()) > 0.0
+
+
+def test_mamba_group_loss_and_gradients_match_reference(R, monkeypatch):
+    """A model of plain Mamba2 layers (no zamba units around them)."""
+    _check_loss_and_gradients(_reference_loss(R, _mamba_cfg()), monkeypatch)
 
 
 def _tiny_model(arch="llama3.2-1b"):
@@ -168,6 +239,39 @@ def test_checkpointed_gradients_equal_plain_ones(monkeypatch):
                         lambda *a, **k: calls.append(1) or real(*a, **k))
     loss_ck, g_ck = grads()
     assert len(calls) == cfg.total_layers + 3
+    monkeypatch.setattr(tf, "_remat", lambda fn, *args: fn(*args))
+    loss, g = grads()
+    assert torch.equal(loss_ck, loss)
+    for a, b in zip(g_ck, g):
+        assert torch.equal(a, b)
+
+
+def test_checkpointed_recurrent_gradients_equal_plain_ones(monkeypatch):
+    """zamba2's smoke model: each unit checkpointed with its Mamba2 layers
+    checkpointed again inside it (the reference's nesting), bit for bit the
+    gradients without checkpoint."""
+    cfg = get_config("zamba2-7b").smoke
+    model = Transformer(cfg)
+    params = model.init(torch.Generator().manual_seed(3), device="cpu")
+    toks = torch.randint(0, cfg.vocab_size, (2, 24),
+                         generator=torch.Generator().manual_seed(5))
+
+    def grads():
+        leaves = [x.detach().requires_grad_(True) for x in tree_leaves(params)]
+        p = tree_unflatten(tree_flatten(params)[1], leaves)
+        loss = model.loss_fn(p, {"tokens": toks})
+        return loss, torch.autograd.grad(loss, leaves)
+
+    calls = []
+    real = tf.checkpoint
+    monkeypatch.setattr(tf, "checkpoint",
+                        lambda *a, **k: calls.append(1) or real(*a, **k))
+    loss_ck, g_ck = grads()
+    (group,) = cfg.groups
+    # the units, their Mamba2 layers (in the forward, and again in each
+    # unit's recompute) and the one loss chunk
+    assert len(calls) == group.n_units + 2 * group.n_units \
+        * group.mamba_per_unit + 1
     monkeypatch.setattr(tf, "_remat", lambda fn, *args: fn(*args))
     loss, g = grads()
     assert torch.equal(loss_ck, loss)
@@ -359,11 +463,20 @@ def test_train_cli_needs_the_card_without_device(monkeypatch):
 @pytest.mark.parametrize("flag,item", [
     ("--drop-rate=0.1", "item 6"), ("--max-delay=2", "item 7"),
     ("--wire=int8", "item 8"), ("--ledger-out=x.jsonl", "item 5"),
-    ("--privacy-budget=5", "item 5"), ("--checkpoint=c", "item 4"),
+    ("--privacy-budget=5", "item 5"),
     ("--metrics-out=m.json", "item 5"), ("--driver=loop", "item 5")])
 def test_train_cli_unported_flags_name_their_roadmap_item(flag, item):
     with pytest.raises(NotImplementedError, match=f"ROADMAP Queue 1 {item}"):
         train_cli.main(["--reduced", "--device", "cpu", flag])
+
+
+def test_train_cli_of_the_vlm_needs_image_embeddings():
+    """The launcher's batches carry tokens only, as the reference's
+    ``batch_at`` does, so the VLM fails as the reference's ``assert enc is
+    not None`` does."""
+    with pytest.raises(ValueError, match="image_embeds"):
+        train_cli.main(["--arch", "llama-3.2-vision-11b", "--reduced",
+                        "--device", "cpu", "--steps", "1", "--nodes", "2"])
 
 
 # -- the mix at N = 64 ---------------------------------------------------------
