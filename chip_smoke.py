@@ -127,12 +127,34 @@ Phases, each printing one JSON line:
                   trained 3 rounds on the card and on the CPU, noise off and
                   on (the same Philox rows), every MoE token's routing
                   margin above 1e-4.
+22. ``loop_training``  phase 15's session (llama3.2-1b at full width, N =
+                  4, its shared layer-stacked leaves), ``train(3,
+                  driver="loop")`` (the pytree runtime: a kernel launch a
+                  shared leaf) under ``LedgerHook``, ``BudgetHook``,
+                  ``MetricsHook`` and ``RealSensitivityHook``, then
+                  ``driver="engine"`` with the same hooks, batches and seed:
+                  ms a step, a DPPS round and the hooks' captures for both,
+                  exact launches a leaf, loop against engine, the ledgers'
+                  accounting equal, no real-sensitivity violation, peak
+                  memory; at llama's leaves (dense gossip) and the paper
+                  MLP's layers with bias vectors (sparse gossip on ER(128);
+                  leaves that start at col0 % 4 == 2), ``l1_norm_tree``,
+                  ``dpps_perturb_tree`` and the kernel gossip a leaf each
+                  against its plain version, and each tree perturbation
+                  launch bit for bit against the packed launch's columns;
+                  the paper MLP on ER(128), sparse schedule, loop against
+                  engine for 5 steps (``spmm`` a leaf).
+23. ``resume``    on the same session (the engine): 2 rounds,
+                  ``Session.save``, ``Session.restore`` into a fresh
+                  template, 1 more round, bit for bit 3 uninterrupted rounds
+                  in state and trajectory; the checkpoint's GB and the save
+                  and load seconds (a temporary directory, removed).
 
 Each kernel counts its launches. The counts are set to 0 just before each
-path (phases 3-7, 10, 13, 15, 17, each run of 19, and each serve of 20)
-and read just after; each path names the kernels it must launch (and the
-sparse paths must launch ``pushsum_mix`` no time; the training paths
-exactly their counts). Then come the card's
+path (phases 3-7, 10, 13, 15, 17, each run of 19 and 22, each serve of 20,
+and 23) and read just after; each path names the kernels it must launch
+(and the sparse paths must launch ``pushsum_mix`` no time; the training
+paths exactly their counts). Then come the card's
 name and power limit (``nvidia-smi``), the ``kernels`` line with every
 kernel's times beside its bound, and the status line. Any
 failure raises and exits non-zero. Without a CUDA card, or without the
@@ -260,6 +282,13 @@ CHECKPOINT_SERVE = dict(prompt=512, gen=8)
 # clears 1e-4 on the CPU in every pass (at SEED one of maverick's sits at
 # 2.9e-6, where the card's and the CPU's sums could route it apart).
 GROUP_AGREE = dict(n=4, per_node_batch=2, seq_len=16, steps=3, seed=2035)
+# phase 22: phase 15's session, 3 steps a driver; the MLP's loop against
+# its engine, 5 steps; the paper MLP's layers with bias vectors (784 -> 10
+# -> 784 -> 10) as perturbation leaves: the second starts at column 7850
+LOOP_STEPS, LOOP_MLP_STEPS = 3, 5
+MLP_BIAS_SHAPES = [(784, 10), (10,), (10, 784), (784,), (784, 10), (10,)]
+# phase 23: rounds before the save, rounds after the restore
+RESUME_SPLIT = (2, 1)
 
 KERNELS = {
     "l1_norm_rows": dict(source="src/repro_torch/kernels/csrc/l1_norm.cu",
@@ -2501,6 +2530,469 @@ def group_training_agreement(torch, ops, ref, T, dev) -> dict:
                 per_node_batch=pnb, seq_len=seq, results=out)
 
 
+# -- phase 22: the per-round loop driver and the hooks at full width ---------
+
+def tree_launches(leaves: int, t0: int, steps: int, sync_interval: int,
+                  mix: str = "pushsum_mix") -> dict:
+    """The exact launches of ``steps`` PartPSP rounds from round ``t0`` with
+    noise on, over ``leaves`` shared leaves: a norm and a perturbation a
+    leaf a round (round 0 also a norm a leaf of s for the recursion's
+    start) and a mix a leaf a round that is not a sync round (the packed
+    engine is ``leaves`` = 1)."""
+    from repro_torch.core.dpps import is_sync_round
+
+    expected = {k: 0 for k in KERNELS}
+    expected.update(
+        l1_norm_rows=leaves * (steps + (1 if t0 == 0 else 0)),
+        dpps_perturb_rows=leaves * steps,
+        **{mix: leaves * sum(not is_sync_round(t, sync_interval)
+                             for t in range(t0, t0 + steps))})
+    return expected
+
+
+def state_leaves(torch, state, device=None) -> list:
+    """The tensors of a PartPSP state in tree order (on ``device``)."""
+    from repro_torch.core.tree_utils import tree_leaves
+
+    return [x if device is None else x.to(device)
+            for x in tree_leaves(state) if isinstance(x, torch.Tensor)]
+
+
+def states_agree(torch, got: list, want: list, rtol: float = 1e-4,
+                 atol_rel: float = 1e-5) -> dict:
+    """Leaf by leaf (``want`` may lie on the host): the largest error, and
+    the leaves off rtol plus atol_rel of the leaf's largest magnitude."""
+    worst, bad = 0.0, []
+    for i, (g, w) in enumerate(zip(got, want)):
+        w = w.to(g.device)
+        err, ok = compare(g.reshape(g.shape[0], -1) if g.dim() else g[None],
+                          w.reshape(w.shape[0], -1) if w.dim() else w[None],
+                          rtol, atol_rel * w.abs().max().item())
+        worst = max(worst, err)
+        if not ok:
+            bad.append(dict(leaf=i, shape=list(w.shape), max_abs_err=err))
+        del w
+    return dict(max_abs_err=worst, off=bad, leaves=len(got))
+
+
+def lm_session(torch, T):
+    """phase 15's session: llama3.2-1b at full width, its rules, N = 4,
+    2-out, dense schedule, gamma_n half the stability limit; with its
+    batches (made before the runs)."""
+    from repro_torch.api import PrivacySpec, Session
+    from repro_torch.configs import get_config
+    from repro_torch.data import NodeShardedLoader, SyntheticLMStream
+    from repro_torch.models.transformer import Transformer
+
+    arch = get_config(TRAIN_LM["arch"])
+    cfg = arch.model
+    n = TRAIN_LM["n"]
+    topo = T.DOutGraph(n, 2)
+    model = Transformer(cfg)
+    d_s = shared_dim(torch, model, arch.shared_rules, n)
+    require(d_s == TRAIN_LM["d_s"], f"d_s {d_s}")
+    c_prime, lam, _, gamma_n = stability_gamma_n(T, topo, d_s)
+    session = Session.build(
+        topo, privacy=PrivacySpec(b=1.0, gamma_n=gamma_n, c_prime=c_prime,
+                                  lam=lam),
+        model=model, partition=arch.shared_rules, algorithm="partpsp",
+        gamma_l=0.05, gamma_s=0.05, clip=100.0, schedule="dense",
+        sync_interval=5, seed=SEED)
+    require(session.plan.use_kernels and session.device.type == "cuda",
+            "the session did not pick the card and its kernels")
+    stream = SyntheticLMStream(vocab_size=cfg.vocab_size,
+                               seq_len=TRAIN_LM["seq_len"], n_nodes=n,
+                               seed=SEED)
+    loader = NodeShardedLoader(stream, per_node_batch=TRAIN_LM[
+        "per_node_batch"], seed=SEED)
+    batches = [loader.batch_at(t) for t in range(max(LOOP_STEPS,
+                                                     sum(RESUME_SPLIT)))]
+    return session, batches, gamma_n
+
+
+def timed_train(torch, session, batches, steps: int, events: dict, **kw):
+    """``session.train`` with each step's host time (a synchronise at its
+    start), CUDA events around each DPPS round (``events["dpps_step"]``)
+    and around each round's hook captures (``events["capture_rows"]``: the
+    hooks' ``capture``, the real-sensitivity pass among them, which runs
+    after the DPPS round in both drivers); ``kw`` goes to ``train``."""
+    from repro_torch.api import hooks, session as session_mod
+    from repro_torch.core import partpsp
+
+    starts = []
+
+    def batch_at(t):
+        torch.cuda.synchronize()
+        starts.append(time.perf_counter())
+        return batches[t]
+
+    # the engine imports capture_rows from the hooks module at each run, the
+    # loop driver calls the session module's name
+    restores = [bracketed(torch, partpsp, ("dpps_step",), events),
+                bracketed(torch, hooks, ("capture_rows",), events),
+                bracketed(torch, session_mod, ("capture_rows",), events)]
+    try:
+        rep = session.train(steps, batch_at, **kw)
+        torch.cuda.synchronize()
+    finally:
+        for restore in restores:
+            restore()
+    starts.append(time.perf_counter())
+    return rep, [(b - a) * 1e3 for a, b in zip(starts, starts[1:])]
+
+
+LEDGER_ACCOUNTING = ("round", "mechanism", "algorithm", "wire_dtype",
+                     "wire_codec", "protected", "synced", "epsilon_round",
+                     "epsilon_total", "remaining", "exhausted")
+
+
+def loop_hooks(api, path: str):
+    warned, lines = [], []
+    return [api.LedgerHook(path), api.BudgetHook(1e12, warn=warned.append),
+            api.MetricsHook(print_fn=lines.append, log_every=1),
+            api.RealSensitivityHook(chunk=1)], warned, lines
+
+
+def leaves_agree(got: list, want: list, rtol: float, atol: float) -> tuple:
+    """(largest error, every leaf within atol + rtol |want|) over two lists
+    of node-stacked leaves on the card."""
+    err, ok = 0.0, True
+    for g, w in zip(got, want):
+        e, k = compare(g.reshape(g.shape[0], -1), w.reshape(w.shape[0], -1),
+                       rtol, atol)
+        err, ok = max(err, e), ok and k
+    return err, ok
+
+
+def norms_rel(torch, got, want) -> float:
+    return ((got.double() - want.double()).abs()
+            / want.double().abs()).max().item()
+
+
+def tree_checks(torch, ops, ref, dev, shapes: list, n: int, gossip,
+                mix: str, mix_tol: tuple) -> dict:
+    """The tree entry points on seeded leaves of ``shapes`` (N = ``n``), each
+    against its plain version on the same card tensors: ``l1_norm_tree``
+    (norms rel 1e-5: per-block partials against PyTorch's reduction order),
+    ``dpps_perturb_tree`` (s_noise rtol 1e-6 / atol 1e-6: the card's logf may
+    differ by an ulp; its norms rel 1e-5) and ``gossip(state, use_kernels)``,
+    a ``mix`` launch a leaf (rtol, atol = ``mix_tol``, the kernel's
+    tolerance against its plain version). Then each perturbation launch bit
+    for bit against one launch over the packed row, leaf by leaf, with each
+    leaf's first wire column."""
+    from repro_torch.core.pushsum import PushSumState
+
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    s = [torch.randn((n,) + tuple(sh), generator=gen, device=dev)
+         for sh in shapes]
+    eps = [torch.randn((n,) + tuple(sh), generator=gen, device=dev)
+           for sh in shapes]
+    scale = torch.tensor(0.7, device=dev)
+    out = {}
+
+    rel = norms_rel(torch, ops.l1_norm_tree(s), ref.l1_norm_tree(s))
+    require(rel < 1e-5, f"l1_norm_tree off its plain version by {rel}")
+    out["l1_norm_tree_rel_err"] = rel
+
+    got, g_eps, g_noise = ops.dpps_perturb_tree(s, eps, scale, 0.1,
+                                                seed=SEED, t=3)
+    want, w_eps, w_noise = ref.dpps_perturb_tree(s, eps, scale, 0.1,
+                                                 seed=SEED, t=3)
+    err, ok = leaves_agree(got, want, rtol=1e-6, atol=1e-6)
+    bit_equal = all(bool(torch.equal(g, w)) for g, w in zip(got, want))
+    del want
+    rels = [norms_rel(torch, g_eps, w_eps), norms_rel(torch, g_noise,
+                                                      w_noise)]
+    require(ok and max(rels) < 1e-5,
+            f"dpps_perturb_tree off its plain version: s_noise {err}, "
+            f"eps_l1 / noise_l1 rel {rels}")
+    out["dpps_perturb_tree"] = dict(max_abs_err=err, bit_equal=bit_equal,
+                                    eps_l1_rel_err=rels[0],
+                                    noise_l1_rel_err=rels[1])
+
+    state = PushSumState(s=s, a=torch.ones(n, device=dev))
+    k_state = gossip(state, True)
+    p_state = gossip(state, False)
+    err, ok = leaves_agree(k_state.s, p_state.s, *mix_tol)
+    require(ok and torch.equal(k_state.a, p_state.a),
+            f"the tree gossip through {mix} off its plain version: {err}")
+    out[f"{mix}_tree"] = dict(max_abs_err=err, rtol=mix_tol[0],
+                              atol=mix_tol[1])
+    del state, k_state, p_state
+
+    cols = ref.leaf_columns(s)
+    d_s = cols[-1] + s[-1][0].numel()
+    row = torch.empty((n, -(-d_s // 4) * 4), device=dev)
+    for x, c0 in zip(s, cols):
+        row[:, c0:c0 + x[0].numel()] = x.reshape(n, -1)
+    del s
+    erow = torch.empty_like(row)
+    for x, c0 in zip(eps, cols):
+        erow[:, c0:c0 + x[0].numel()] = x.reshape(n, -1)
+    del eps
+    packed = ops.dpps_perturb_rows(row, erow, scale, 0.1, d_s, seed=SEED,
+                                   t=3)[0]
+    del row, erow
+    bits = []
+    for x, c0 in zip(got, cols):
+        size = x[0].numel()
+        bits.append(dict(col0=c0, size=size, col0_mod4=c0 % 4,
+                         bit_equal=bool(torch.equal(
+                             x.reshape(n, size), packed[:, c0:c0 + size]))))
+    del got, packed
+    torch.cuda.empty_cache()
+    require(all(r["bit_equal"] for r in bits),
+            f"tree launches off the packed launch's columns: {bits}")
+    out["perturb_bits_against_packed"] = bits
+    return out
+
+
+def mlp_loop_against_engine(torch, api, mlp, data, ops, dev) -> dict:
+    """The paper MLP (partpsp-2: its two first layers shared) on ER(128),
+    sparse schedule, 5 steps: the loop (an ``spmm`` launch a leaf a round)
+    against the engine, within the training tolerance."""
+    n, steps = SPARSE_TRAIN_N, LOOP_MLP_STEPS
+    batches = training_batches(mlp, data, torch, n, steps)
+    params = mlp.init_mlp(torch.Generator().manual_seed(SEED))
+    session = api.Session.build(
+        sparse_graph(n), privacy=api.PrivacySpec(b=1.0, gamma_n=1e-5),
+        model=mlp.mlp_loss, params=params,
+        partition=mlp.PARTITIONS["partpsp-2"], algorithm="partpsp",
+        gamma_l=0.1, gamma_s=0.1, clip=100.0, schedule="sparse",
+        sync_interval=5, seed=SEED)
+    on = [tuple(x.to(dev) for x in b) for b in batches]
+    leaves = len(session.train_state().dpps.push.s)
+    runs, launches = {}, {}
+    for driver in ("loop", "engine"):
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        rep = session.train(steps, lambda t: on[t], driver=driver)
+        torch.cuda.synchronize()
+        runs[driver] = (rep, (time.perf_counter() - t0) / steps * 1e3)
+        launches[driver] = ops.launch_counts()
+        want = tree_launches(leaves if driver == "loop" else 1, 0, steps, 5,
+                             mix="spmm")
+        require(launches[driver] == want,
+                f"MLP {driver} launches {launches[driver]}, expected {want}")
+    loop, engine = runs["loop"][0], runs["engine"][0]
+    agree = states_agree(torch, state_leaves(torch, loop.state),
+                         state_leaves(torch, engine.state))
+    require(not agree["off"], f"MLP loop against engine: {agree}")
+    traj_err = {}
+    for k, v in engine.trajectory.items():
+        g, w = torch.as_tensor(loop.trajectory[k]), torch.as_tensor(v)
+        traj_err[k] = (g - w).abs().max().item()
+        require(torch.allclose(g.double(), w.double(), rtol=1e-4,
+                               atol=1e-6 * w.abs().max().item()),
+                f"MLP trajectory {k}: loop {g} engine {w}")
+    return dict(n=n, topology="ErdosRenyiGraph(128, p=8/128)",
+                schedule="sparse", partition="partpsp-2", leaves=leaves,
+                d_s=session.partition.d_shared(), steps=steps,
+                loop_ms_per_step=runs["loop"][1],
+                engine_ms_per_step=runs["engine"][1], launches=launches,
+                state=agree, trajectory_max_abs_err=traj_err)
+
+
+def loop_training(torch, api, mlp, data, ops, ref, T, dev,
+                  tmp: str) -> tuple:
+    """Phase 22. ``Session.train(3, driver="loop")`` of phase 15's session
+    (llama3.2-1b full width, N = 4) under ``LedgerHook``, ``BudgetHook``,
+    ``MetricsHook`` and ``RealSensitivityHook``, then ``driver="engine"``
+    with the same hooks, batches and seed: ms a step and a DPPS round (CUDA
+    events) and the hooks' captures (CUDA events) for both, exact launches
+    (the loop a kernel a shared leaf), loop against engine (state and
+    trajectory to rtol 1e-4 plus 1e-5 of each array's largest magnitude,
+    the training tolerance: the loop sums its norms a leaf at a time), the
+    ledgers' accounting fields equal, no real-sensitivity violation, peak
+    memory. Then :func:`tree_checks` at llama's shared leaves (the dense
+    gossip) and the MLP's (the sparse gossip on ER(128)): every tree entry
+    point against its plain version, each tree perturbation launch bit for
+    bit against the packed launch's columns; and the MLP run of
+    :func:`mlp_loop_against_engine`. Returns (line, session, batches,
+    launch counts) for phase 23."""
+    import os
+
+    from repro_torch.audit import PrivacyLedger
+    from repro_torch.core import pushsum
+
+    t0 = time.perf_counter()
+    session, batches, gamma_n = lm_session(torch, T)
+    build_s = time.perf_counter() - t0
+    shared = session.train_state().dpps.push.s
+    leaves = len(shared)
+    shapes = [tuple(x.shape[1:]) for x in shared]
+    del shared
+    steps = LOOP_STEPS
+    out, counts, ledgers, host = {}, [], {}, None
+    for driver in ("loop", "engine"):
+        path = os.path.join(tmp, f"ledger_{driver}.jsonl")
+        hooks, warned, lines = loop_hooks(api, path)
+        events = {}
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launch_counts()
+        rep, step_ms = timed_train(torch, session, batches, steps, events,
+                                   hooks=hooks, driver=driver)
+        launches = ops.launch_counts()
+        counts.append(launches)
+        want = tree_launches(leaves if driver == "loop" else 1, 0, steps, 5)
+        require(launches == want, f"{driver} launches {launches}, expected "
+                                  f"{want}")
+        real = hooks[3]
+        require(real.violations == 0 and len(real.reals) == steps,
+                f"{driver}: real sensitivity {real.reals} violations "
+                f"{real.violations}")
+        loss = [float(x) for x in rep.trajectory["loss_mean"]]
+        require(all(math.isfinite(x) for x in loss), f"{driver} losses {loss}")
+        require(not rep.aborted and not warned and len(lines) == steps,
+                f"{driver}: aborted {rep.aborted}, warned {warned}")
+        ledgers[driver] = PrivacyLedger.read_jsonl(path)
+        dpps_ms = [a.elapsed_time(b) for a, b, _ in events["dpps_step"]]
+        capture_ms = [a.elapsed_time(b) for a, b, _ in events["capture_rows"]]
+        require(len(dpps_ms) == len(capture_ms) == steps,
+                f"{driver}: {len(dpps_ms)} DPPS rounds and {len(capture_ms)} "
+                f"hook captures timed in {steps} steps")
+        out[driver] = dict(
+            step_ms=step_ms, ms_per_step=sum(step_ms[1:]) / (steps - 1),
+            dpps_round_ms=dpps_ms,
+            dpps_round_ms_steady=sum(dpps_ms[1:]) / (steps - 1),
+            hooks_capture_ms=capture_ms,
+            hooks_capture_ms_steady=sum(capture_ms[1:]) / (steps - 1),
+            peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
+            losses=loss, sensitivity_real=real.reals,
+            sensitivity_used=[float(x) for x in
+                              rep.trajectory["sensitivity_used"]],
+            real_sensitivity_violations=real.violations,
+            ledger_summary=hooks[0].summary(), launches=launches,
+            expected_launches=want, wire_bytes=rep.wire_bytes)
+        if driver == "loop":
+            host = (state_leaves(torch, rep.state, "cpu"),
+                    dict(rep.trajectory))
+        else:
+            agree = states_agree(torch, state_leaves(torch, rep.state),
+                                 host[0])
+            require(not agree["off"], f"loop against engine: {agree}")
+            traj_err = {}
+            for k, v in rep.trajectory.items():
+                g, w = torch.as_tensor(host[1][k]), torch.as_tensor(v)
+                traj_err[k] = (g - w).abs().max().item()
+                require(torch.allclose(g.double(), w.double(), rtol=1e-4,
+                                       atol=1e-6 * w.abs().max().item()),
+                        f"trajectory {k}: loop {g} engine {w}")
+        del rep
+        torch.cuda.empty_cache()
+    del host
+    require(len(ledgers["loop"]) == len(ledgers["engine"]) == steps
+            and all(a[k] == b[k] for a, b in zip(ledgers["loop"],
+                                                  ledgers["engine"])
+                    for k in LEDGER_ACCOUNTING),
+            f"ledgers differ: {ledgers}")
+    w = T.DOutGraph(TRAIN_LM["n"], 2).weight_matrix_torch(0, device=dev)
+    # rtol 1e-5 / atol 1e-6: fma in j order against cuBLAS's order
+    lm_tree = tree_checks(
+        torch, ops, ref, dev, shapes, TRAIN_LM["n"],
+        lambda st, k: pushsum.gossip_dense(st, w, use_kernels=k),
+        "pushsum_mix", (1e-5, 1e-6))
+    idx, vals, _, _ = csr_of(torch, sparse_graph(SPARSE_TRAIN_N), dev)
+    # rtol 1e-6 / atol 1e-6: fma against a separate multiply and add
+    mlp_tree = tree_checks(
+        torch, ops, ref, dev, MLP_BIAS_SHAPES, SPARSE_TRAIN_N,
+        lambda st, k: pushsum.gossip_sparse(st, idx, vals, use_kernels=k),
+        "spmm", (1e-6, 1e-6))
+    require(any(r["col0_mod4"]
+                for r in mlp_tree["perturb_bits_against_packed"]),
+            "no straddling leaf")
+    ops.reset_launch_counts()
+    mlp_run = mlp_loop_against_engine(torch, api, mlp, data, ops, dev)
+    counts += [mlp_run["launches"]["loop"], mlp_run["launches"]["engine"]]
+    line = dict(
+        phase="loop_training", arch=TRAIN_LM["arch"], nodes=TRAIN_LM["n"],
+        topology="DOutGraph(4, 2)", schedule="dense", d_s=TRAIN_LM["d_s"],
+        shared_leaves=leaves, shared_leaf_shapes=shapes,
+        per_node_batch=TRAIN_LM["per_node_batch"],
+        seq_len=TRAIN_LM["seq_len"], steps=steps, sync_interval=5,
+        gamma_n=gamma_n, session_build_s=build_s,
+        hooks=["LedgerHook", "BudgetHook", "MetricsHook",
+               "RealSensitivityHook(chunk=1)"],
+        loop=out["loop"], engine=out["engine"],
+        loop_over_engine_ms_per_step=out["loop"]["ms_per_step"]
+        / out["engine"]["ms_per_step"],
+        state_agreement=agree, trajectory_max_abs_err=traj_err,
+        ledger_accounting_equal=True, tree_checks_lm=lm_tree,
+        tree_checks_mlp=mlp_tree, mlp=mlp_run)
+    return line, session, batches, counts
+
+
+# -- phase 23: save, restore and resume at full width -------------------------
+
+def resume(torch, ops, session, batches, tmp: str) -> dict:
+    """Phase 23. On phase 22's session (the engine): 3 uninterrupted rounds
+    (the state kept on the host), then 2 rounds, ``Session.save``,
+    ``Session.restore`` into a fresh template (``train_state()``) and 1
+    more round: the state and trajectory bit for bit those of the 3
+    rounds. The checkpoint's size and the save and load seconds. About
+    4 x 1.236e9 f32 parameters: 19.8 GB on disk and in host memory."""
+    import os
+
+    first, then = RESUME_SPLIT
+    steps = first + then
+    batch_at = lambda t: batches[t]
+    ops.reset_launch_counts()
+    whole = session.train(steps, batch_at)
+    torch.cuda.synchronize()
+    want = state_leaves(torch, whole.state, "cpu")
+    want_traj = dict(whole.trajectory)
+    want_t = whole.state.dpps.t
+    del whole
+    torch.cuda.empty_cache()
+    part = session.train(first, batch_at)
+    torch.cuda.synchronize()
+    path = os.path.join(tmp, "state")
+    t0 = time.perf_counter()
+    session.save(path, part.state, step=first)
+    save_s = time.perf_counter() - t0
+    del part
+    torch.cuda.empty_cache()
+    size_gb = sum(os.path.getsize(os.path.join(path, f))
+                  for f in os.listdir(path)) / 1e9
+    t0 = time.perf_counter()
+    restored, meta = session.restore(path)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    require(restored.dpps.t == first and meta["step"] == first
+            and isinstance(restored.dpps.t, int), "restored round counter")
+    names = meta["names"]
+    rest = session.train(then, batch_at, state=restored)
+    torch.cuda.synchronize()
+    launches = ops.launch_counts()
+    expected = {k: a + b + c for (k, a), b, c in zip(
+        tree_launches(1, 0, steps, 5).items(),
+        tree_launches(1, 0, first, 5).values(),
+        tree_launches(1, first, then, 5).values())}
+    require(launches == expected, f"resume launches {launches}, expected "
+                                  f"{expected}")
+    got = state_leaves(torch, rest.state)
+    require(rest.state.dpps.t == want_t and len(got) == len(want),
+            "resumed state's structure")
+    equal = [bool(torch.equal(g, w.to(g.device))) for g, w in zip(got, want)]
+    require(all(equal), f"resumed state differs at leaves "
+                        f"{[i for i, e in enumerate(equal) if not e]}")
+    for k, v in rest.trajectory.items():
+        require(bool((v == want_traj[k][first:]).all()),
+                f"resumed trajectory {k}: {v} != {want_traj[k][first:]}")
+    del rest, restored, got, want
+    torch.cuda.empty_cache()
+    return dict(phase="resume", arch=TRAIN_LM["arch"], nodes=TRAIN_LM["n"],
+                d_s=TRAIN_LM["d_s"], rounds_before_save=first,
+                rounds_after_restore=then, checkpoint_gb=size_gb,
+                save_s=save_s, load_s=load_s, leaves=len(equal),
+                names_head=names[:3], names_tail=names[-3:],
+                t_leaf=[n for n in names if n.endswith("/.t")],
+                bit_equal_state=True, bit_equal_trajectory=True,
+                launches=launches)
+
+
 def sparse_graph(n: int, seed: int = 0):
     from repro_torch.net import ErdosRenyiGraph
 
@@ -2720,6 +3212,17 @@ def main() -> int:
         launches.append(served["launches"])
         del memory
     emit(group_training_agreement(torch, ops, ref, T, dev))
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        looped, session, lm_batches, counts = loop_training(
+            torch, api, mlp, data, ops, ref, T, dev, tmp)
+        emit(looped)
+        launches += counts
+        resumed = resume(torch, ops, session, lm_batches, tmp)
+        emit(resumed)
+        launches.append(resumed["launches"])
+        del session, lm_batches
+    torch.cuda.empty_cache()
 
     for (shape, k), (fn, other, name) in calls.items():
         r = small[shape][k]

@@ -5,7 +5,13 @@ lambda) calibration (unless the :class:`PrivacySpec` pins them), the
 :class:`repro_torch.engine.ProtocolPlan`, the configs stamped with the
 plan's choices, the partition and the node-stacked initial parameters.
 ``run`` drives DPPS consensus, ``train`` PartPSP training; both return a
-:class:`repro_torch.api.results.RunReport`. ``serve`` runs a batched
+:class:`repro_torch.api.results.RunReport`, take a
+:class:`repro_torch.api.hooks.RoundHook` pipeline (``hooks=``: the privacy
+ledger, the budget, metrics, the real sensitivity) and drive it as the
+reference's ``_drive`` does. ``train(driver="loop")`` is the per-round
+driver over the pytree runtime, the reference's oracle; ``save`` and
+``restore`` write and read the full state as a resume payload, in the
+reference's files and leaf names. ``serve`` runs a batched
 prefill and decode on a :class:`repro_torch.models.transformer.Transformer`
 and returns a :class:`repro_torch.api.results.ServeReport`; without a
 topology, ``Session.build(model=...)`` builds a serve-only session. A
@@ -32,13 +38,15 @@ from __future__ import annotations
 
 import dataclasses
 import time
-from typing import Any, Callable, Iterator
+from typing import Any, Callable, Iterable, Iterator
 
 import numpy as np
 import torch
 
-from repro_torch.api.results import RunReport, ServeReport
-from repro_torch.checkpoint import save_checkpoint
+from repro_torch.api.hooks import (RoundHook, RunAbort, RunContext,
+                                   capture_rows, hook_trace_spec)
+from repro_torch.api.results import RunReport, ServeReport, estimate_wire_bytes
+from repro_torch.checkpoint import load_checkpoint, save_checkpoint
 from repro_torch.core.dpps import (
     DPPSConfig,
     DPPSState,
@@ -54,9 +62,10 @@ from repro_torch.core.partpsp import (
     make_baseline_config,
     node_stacked,
     partpsp_init,
+    partpsp_step,
 )
 from repro_torch.core.topology import Topology, calibrate_constants
-from repro_torch.core.tree_utils import PyTree, tree_map
+from repro_torch.core.tree_utils import PyTree, tree_leaves, tree_map
 from repro_torch.device import resolve_device
 from repro_torch.engine import ProtocolPlan, run_decode, run_dpps, run_partpsp
 
@@ -79,6 +88,21 @@ class PrivacySpec:
 
 def _to_device(tree: PyTree, device: torch.device) -> PyTree:
     return tree_map(lambda x: torch.as_tensor(x).to(device), tree)
+
+
+def _with_t(state: Any, fn: Callable) -> Any:
+    """``state`` with its DPPS round counter replaced by ``fn(t)`` (a
+    PartPSP or a DPPS state; anything else unchanged)."""
+    if isinstance(state, PartPSPState):
+        return state._replace(dpps=_with_t(state.dpps, fn))
+    if isinstance(state, DPPSState):
+        return state._replace(t=fn(state.t))
+    return state
+
+
+def _host(traj: dict[str, Any]) -> dict[str, np.ndarray]:
+    return {k: v.detach().cpu().numpy() if isinstance(v, torch.Tensor)
+            else np.asarray(v) for k, v in traj.items()}
 
 
 @dataclasses.dataclass(frozen=True, eq=False)
@@ -118,6 +142,7 @@ class ProtocolSession:
         sync_interval: int | str | None = None,
         use_kernels: bool | None = None,
         chunk: int = 50,
+        packed: bool = True,
         seed: int = 0,
         device: str | torch.device | None = None,
     ) -> "ProtocolSession":
@@ -140,7 +165,8 @@ class ProtocolSession:
         ``torch.Generator`` on the session's device seeded with ``seed``)
         is broadcast so. ``partition`` is a :class:`Partition` or a rules
         tuple (unmatched leaves stay local; ``None`` shares every leaf).
-        ``seed`` keys the noise stream.
+        ``packed=False`` runs the engine over the pytree runtime. ``seed``
+        keys the noise stream.
         """
         dev = resolve_device(device) if plan is None else plan.device
         if topology is None:
@@ -160,7 +186,8 @@ class ProtocolSession:
         if plan is None:
             plan = ProtocolPlan.from_topology(
                 topology, schedule=schedule, use_kernels=use_kernels,
-                sync_interval=sync_interval, chunk=chunk, device=dev)
+                sync_interval=sync_interval, chunk=chunk, packed=packed,
+                device=dev)
         cfg_sync = sync_interval if isinstance(sync_interval, int) else 0
 
         train_cfg = part = stacked = None
@@ -240,6 +267,26 @@ class ProtocolSession:
         save_checkpoint(path, self.consensus_view(state, 0), step=step,
                         metadata=metadata)
 
+    def save(self, path: str, state: Any, *, step: int = 0,
+             metadata: dict | None = None) -> None:
+        """Persist a full protocol or training state (the resume payload):
+        the leaves under the reference's names (``.dpps/.push/.s/0``, ...,
+        ``.dpps/.t``, ``.local/0``, ...), the round counter as the int32 0-d
+        array the reference writes."""
+        save_checkpoint(path, _with_t(state, lambda t: np.asarray(
+            t, dtype=np.int32)), step=step, metadata=metadata)
+
+    def restore(self, path: str, template: Any = None) -> tuple[Any, dict]:
+        """Restore a state written by :meth:`save` (or by the reference's
+        ``Session.save``) into ``template``'s structure (default: a fresh
+        :meth:`train_state`), on the session's device -> (state, meta). The
+        round counter comes back as the host int the drivers fold into the
+        noise stream, so a restored run continues the same Philox stream."""
+        if template is None:
+            template = self.train_state()
+        state, meta = load_checkpoint(path, template, device=self.device)
+        return _with_t(state, lambda t: int(t)), meta
+
     # -- drivers -------------------------------------------------------------
 
     @property
@@ -255,33 +302,96 @@ class ProtocolSession:
                         if not is_sync_round(t, self.cfg.sync_interval))
         return protected * self.cfg.epsilon_per_round
 
-    def _drive(self, segments: Iterator, start: int) -> RunReport:
-        """Collect segments: each trajectory goes to the host (one sync a
-        segment); the first segment's wall time is ``compile_s``."""
-        t0 = time.perf_counter()
+    def _context(self, rounds: int, algorithm: str,
+                 d_s: int = 0) -> RunContext:
+        return RunContext(cfg=self.cfg, plan=self.plan, n_nodes=self.n_nodes,
+                          rounds=rounds, algorithm=algorithm,
+                          protected=self._protected, d_s=d_s)
+
+    def _drive(self, segments: Iterator, hooks: tuple, d_s: int,
+               start: int) -> RunReport:
+        """The shared host loop, as the reference's ``_drive``: hooks
+        consume each segment's trajectory (host numpy) at its boundary; a
+        :class:`RunAbort` from a hook stops the run, and the report carries
+        the rounds done with ``aborted=True``; every hook's ``finish`` runs
+        in a ``finally`` and its ``finish_run`` once the report exists.
+
+        The first segment's wall time (it includes the kernels' build or
+        load on first use) is ``compile_s``, everything after ``run_s``.
+        The card is synchronized at the first segment's end, at every
+        segment's end where a hook consumes (it reads the rows on the host)
+        and, for a hook with ``segment_span``, before each boundary is
+        stamped; otherwise the rows stay on the card until the run ends.
+        """
+        t_start = time.perf_counter()
         compile_s = 0.0
-        trajs, state, done = [], None, 0
-        for n, state, traj in segments:
-            trajs.append({k: v.cpu().numpy() for k, v in traj.items()})
-            if len(trajs) == 1:
-                compile_s = time.perf_counter() - t0
-            done += n
+        trajs: list[dict[str, Any]] = []
+        state, done, aborted, reason = None, start, False, None
+        span_hooks = [h for h in hooks if hasattr(h, "segment_span")]
+        seg_start = t_start
+        try:
+            for t0, n, state, traj in segments:
+                done = t0 + n
+                first = not trajs
+                exec_end = None
+                if first or span_hooks:
+                    self._sync()
+                    exec_end = time.perf_counter()
+                    if first:
+                        compile_s = exec_end - t_start
+                if hooks:
+                    traj = _host(traj)
+                trajs.append(traj)
+                for h in hooks:
+                    h.consume(traj, t0=t0)
+                if span_hooks:
+                    consume_end = time.perf_counter()
+                    for h in span_hooks:
+                        h.segment_span(t0=t0, n=n, start=seg_start,
+                                       execute_end=exec_end,
+                                       consume_end=consume_end,
+                                       compiled=first)
+                    seg_start = consume_end
+        except RunAbort as e:
+            aborted, reason = True, str(e)
+        finally:
+            for h in hooks:
+                h.finish()
+        trajs = [_host(t) for t in trajs]
         trajectory = ({k: np.concatenate([t[k] for t in trajs])
                        for k in trajs[0]} if trajs else {})
-        return RunReport(state=state, trajectory=trajectory, rounds=done,
-                         epsilon_spent=self.epsilon_spent(done, start=start),
-                         compile_s=compile_s,
-                         run_s=time.perf_counter() - t0 - compile_s)
+        executed = done - start
+        network = None
+        for h in hooks:
+            stats_fn = getattr(h, "network_stats", None)
+            if stats_fn is not None:
+                network = stats_fn()
+        report = RunReport(
+            state=state, trajectory=trajectory, rounds=executed,
+            epsilon_spent=self.epsilon_spent(executed, start=start),
+            wire_bytes=estimate_wire_bytes(self.plan, self.n_nodes, d_s,
+                                           executed),
+            compile_s=compile_s,
+            run_s=time.perf_counter() - t_start - compile_s, aborted=aborted,
+            abort_reason=reason, network=network)
+        for h in hooks:
+            finish_run = getattr(h, "finish_run", None)
+            if finish_run is not None:
+                finish_run(report)
+        return report
 
     def run(self, rounds: int, *, values: PyTree | None = None,
             state: DPPSState | None = None,
             eps_at: Callable[[int], PyTree] | None = None,
-            bits_at: Callable[[int], torch.Tensor] | None = None) -> RunReport:
+            bits_at: Callable[[int], Any] | None = None,
+            hooks: Iterable[RoundHook] = ()) -> RunReport:
         """``rounds`` DPPS rounds from ``values`` (fresh) or ``state``.
 
         ``eps_at(t)`` gives the perturbation tree of round t (``None``:
-        pure consensus). ``bits_at(t)`` feeds explicit (N, d_s) uint32
-        noise bits instead of the seeded Philox stream (tests only).
+        pure consensus). ``bits_at(t)`` feeds explicit noise bits instead of
+        the seeded Philox stream (tests only): the (N, d_s) uint32 wire row,
+        or, under ``packed=False``, one tensor a leaf. ``hooks`` consume at
+        every segment boundary.
         """
         if self.plan is None:
             raise ValueError("run() needs a session built with a topology")
@@ -290,28 +400,48 @@ class ProtocolSession:
                 raise ValueError("run() needs values= (fresh) or state=")
             state = self.consensus_state(values)
         start = state.t
+        hooks = tuple(hooks)
+        d_s = sum(x[0].numel() for x in tree_leaves(state.push.s))
+        for h in hooks:
+            h.prepare(self._context(rounds, "dpps", d_s))
 
         def segments():
             st = state
             for t0 in range(start, start + rounds, self.plan.chunk):
                 n = min(self.plan.chunk, start + rounds - t0)
                 st, traj = run_dpps(st, eps_at, cfg=self.cfg, plan=self.plan,
-                                    rounds=n, seed=self.seed, bits_at=bits_at)
-                yield n, st, traj
+                                    rounds=n, seed=self.seed, bits_at=bits_at,
+                                    hooks=hooks)
+                yield t0, n, st, traj
 
-        return self._drive(segments(), start)
+        return self._drive(segments(), hooks, d_s, start)
 
     def train(self, rounds: int, batch_at: Callable[[int], Any], *,
               state: PartPSPState | None = None,
-              bits_at: Callable[[int], torch.Tensor] | None = None) -> RunReport:
+              bits_at: Callable[[int], Any] | None = None,
+              hooks: Iterable[RoundHook] = (),
+              driver: str = "engine") -> RunReport:
         """``rounds`` PartPSP rounds (Alg. 2); ``batch_at(t)`` gives round
-        t's node-stacked batch."""
+        t's node-stacked batch.
+
+        ``driver="engine"`` runs ``plan.chunk``-round segments through
+        :func:`repro_torch.engine.run_partpsp`; ``driver="loop"`` the
+        per-round driver over the pytree runtime (one-round segments,
+        whatever ``plan.packed`` says), the reference's oracle. Both draw
+        round t's noise from ``(seed, t)``, so their trajectories agree.
+        """
         if self.loss_fn is None:
             raise ValueError("training needs a topology and a loss model= at "
                              "build time")
+        if driver not in ("engine", "loop"):
+            raise ValueError(f"unknown driver {driver!r}")
         if state is None:
             state = self.train_state()
         start = state.dpps.t
+        hooks = tuple(hooks)
+        d_s = self.partition.d_shared()
+        for h in hooks:
+            h.prepare(self._context(rounds, self.algorithm, d_s))
 
         def segments():
             st = state
@@ -320,11 +450,36 @@ class ProtocolSession:
                 st, traj = run_partpsp(
                     st, batch_at, cfg=self.train_cfg, partition=self.partition,
                     loss_fn=self.loss_fn, plan=self.plan, rounds=n,
-                    seed=self.seed, bits_at=bits_at)
-                yield n, st, traj
+                    seed=self.seed, bits_at=bits_at, hooks=hooks)
+                yield t0, n, st, traj
 
-        return self._drive(segments(), start)
+        if driver == "loop":
+            stream = self._loop_segments(state, batch_at, rounds, start,
+                                         hooks, bits_at)
+        else:
+            stream = segments()
+        return self._drive(stream, hooks, d_s, start)
 
+    def _loop_segments(self, state: PartPSPState, batch_at, rounds: int,
+                       start: int, hooks: tuple, bits_at):
+        """The per-round driver as a stream of one-round segments: the
+        pytree runtime (no packed layout) with each round's mixing operands,
+        so time-varying topologies rotate, and the hooks' captures merged
+        through :func:`capture_rows` on each round's diagnostics."""
+        spec = hook_trace_spec(hooks)
+        st = state
+        for t in range(start, start + rounds):
+            with torch.no_grad():
+                st, m = partpsp_step(
+                    st, batch_at(t), cfg=self.train_cfg,
+                    partition=self.partition, loss_fn=self.loss_fn,
+                    layout=None, seed=self.seed,
+                    bits=bits_at(t) if bits_at else None,
+                    return_s_half=spec.needs_s_half,
+                    return_wire_stats=spec.needs_wire_stats,
+                    **self.plan.mix_at(t))
+                rows = capture_rows(m, hooks)
+            yield t, 1, st, {k: v[None] for k, v in rows.items()}
 
     # -- serving -------------------------------------------------------------
 

@@ -16,12 +16,12 @@ single-leaf fast path of :meth:`pack` may alias their source safely.
 from __future__ import annotations
 
 import dataclasses
-import math
 from typing import NamedTuple
 
 import torch
 
 from repro_torch.core.tree_utils import PyTree, TreeDef, tree_flatten, tree_unflatten
+from repro_torch.kernels.ref import leaf_columns
 
 __all__ = ["Segment", "PackedLayout", "LANE"]
 
@@ -53,15 +53,13 @@ class PackedLayout:
         leaves, treedef = tree_flatten(tree)
         if not leaves:
             raise ValueError("cannot pack an empty shared tree")
-        segments, offset = [], 0
-        for leaf in leaves:
-            shape = tuple(leaf.shape[1:])
-            size = math.prod(shape) if shape else 1
-            segments.append(Segment(shape, leaf.dtype, offset, size))
-            offset += size
-        d_pad = -(-offset // lane) * lane
-        return cls(treedef=treedef, segments=tuple(segments), d_s=offset,
-                   d_pad=d_pad)
+        segments = tuple(
+            Segment(tuple(leaf.shape[1:]), leaf.dtype, offset,
+                    leaf[0].numel())
+            for leaf, offset in zip(leaves, leaf_columns(leaves)))
+        d_s = segments[-1].offset + segments[-1].size
+        d_pad = -(-d_s // lane) * lane
+        return cls(treedef=treedef, segments=segments, d_s=d_s, d_pad=d_pad)
 
     @property
     def pad(self) -> int:

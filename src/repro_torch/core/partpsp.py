@@ -1,5 +1,5 @@
 """PartPSP — Partial Communication Push-Sum SGD with DP (paper Algorithm 2),
-port of ``repro.core.partpsp`` (packed path).
+port of ``repro.core.partpsp`` (packed and pytree runtimes).
 
 Per round, for every node i (the node axis is a batch dimension):
 
@@ -145,18 +145,27 @@ def partpsp_step(
     cfg: PartPSPConfig,
     partition: Partition,
     loss_fn: LossFn,
-    layout: PackedLayout,
+    layout: PackedLayout | None = None,
     w: torch.Tensor | None = None,
     offsets: Sequence[int] | None = None,
     mix_weights: torch.Tensor | None = None,
     sparse_idx: torch.Tensor | None = None,
     sparse_vals: torch.Tensor | None = None,
     seed: int = 0,
-    bits: torch.Tensor | None = None,
+    bits: torch.Tensor | Sequence[torch.Tensor] | None = None,
+    return_s_half: bool = False,
+    return_wire_stats: bool = False,
+    mechanism: Any = None,
+    tap: Any = None,
 ) -> tuple[PartPSPState, dict[str, Any]]:
-    """One PartPSP round over the packed DPPS state (``layout``)."""
+    """One PartPSP round: over the packed DPPS state with ``layout``, over
+    the list of shared leaves with ``layout=None`` (the pytree runtime).
+    ``return_s_half``, ``return_wire_stats``, ``mechanism`` and ``tap`` go
+    to :func:`repro_torch.core.dpps.dpps_step`."""
     push = state.dpps.push
-    y = layout.unpack(correct(push.s, push.a))      # Eq. 10, shared leaves
+    y = correct(push.s, push.a)                     # Eq. 10, shared leaves
+    if layout is not None:
+        y = layout.unpack(y)
 
     # -- pass 1: local gradient at (y, l_t) (Eq. 5) ---------------------------
     local_req = [l.detach().requires_grad_(True) for l in state.local]
@@ -183,7 +192,10 @@ def partpsp_step(
     dpps_new, diag = dpps_step(state.dpps, eps, cfg.dpps, layout, w=w,
                                offsets=offsets, mix_weights=mix_weights,
                                sparse_idx=sparse_idx, sparse_vals=sparse_vals,
-                               seed=seed, bits=bits)
+                               seed=seed, bits=bits,
+                               return_s_half=return_s_half,
+                               return_wire_stats=return_wire_stats,
+                               mechanism=mechanism, tap=tap)
     metrics = {"loss_mean": losses.mean(), "loss_per_node": losses,
                "grad_l1_max": g_norms.max(), **diag}
     return PartPSPState(dpps=dpps_new, local=local_new), metrics

@@ -8,7 +8,12 @@ L1 clipping and accounting (port of ``repro.core.privacy``).
   tests, are the exact uint32 values the reference's kernel path consumed.
   The reference's eager threefry ``jax.random.laplace`` cannot be
   reproduced in PyTorch and is not ported.
-* Eq. 24: L1 gradient clip ``g / max(1, ||g||_1 / C)``.
+* :func:`noise_wire`: the plain tree draw of the pytree runtime, one
+  flat (N, d_s) draw over the wire row split per leaf in wire order, as
+  ``repro.core.privacy.noise_wire`` draws it, so the pytree and packed
+  runtimes take the same noise.
+* Eq. 24: L1 gradient clip ``g / max(1, ||g||_1 / C)``; the L2 clip of
+  the PEDFL baseline.
 * Accounting: pure-DP linear composition, ``rounds * b / gamma_n``.
 """
 from __future__ import annotations
@@ -18,14 +23,52 @@ from typing import Any
 
 import torch
 
-from repro_torch.core.tree_utils import PyTree, l1_norm_per_node, tree_map
+from repro_torch.core.tree_utils import (PyTree, l1_norm_per_node,
+                                         tree_flatten, tree_map,
+                                         tree_unflatten)
+from repro_torch.kernels import ref as kref
 
-__all__ = ["l1_clip_per_node", "PrivacyAccountant"]
+__all__ = ["noise_wire", "l1_clip_per_node", "l2_clip_per_node",
+           "PrivacyAccountant"]
+
+
+def noise_wire(tree: PyTree, scale, *, bits: torch.Tensor | None = None,
+               seed: int | None = None, t: int | None = None) -> PyTree:
+    """Laplace(0, scale) noise shaped like the node-stacked ``tree``: one
+    flat (N, d_s) draw over the wire row, sliced back into the leaves in
+    wire order. The bits are ``bits`` (N, d_s) uint32, or the Philox row of
+    ``(seed, t)`` (``kernels.ref.philox_bits``), the bits the packed
+    runtime draws for the same columns."""
+    leaves, treedef = tree_flatten(tree)
+    n = leaves[0].shape[0]
+    sizes = [x[0].numel() for x in leaves]
+    if bits is None:
+        bits = kref.philox_bits(seed, t, n, 0, sum(sizes),
+                                device=leaves[0].device)
+    flat = kref.laplace_from_bits(bits, scale)
+    out, off = [], 0
+    for x, size in zip(leaves, sizes):
+        out.append(flat[:, off:off + size].reshape(x.shape).to(x.dtype))
+        off += size
+    return tree_unflatten(treedef, out)
 
 
 def l1_clip_per_node(tree: PyTree, clip: float) -> tuple[PyTree, torch.Tensor]:
     """Paper Eq. 24: per-node L1 clip. Returns (clipped tree, pre-clip norms)."""
     norms = l1_norm_per_node(tree)
+    denom = torch.clamp_min(norms / clip, 1.0)
+    return tree_map(
+        lambda x: x / denom.reshape((-1,) + (1,) * (x.dim() - 1)).to(x.dtype),
+        tree), norms
+
+
+def l2_clip_per_node(tree: PyTree, clip: float) -> tuple[PyTree, torch.Tensor]:
+    """DP-SGD style per-node L2 clip (the PEDFL baseline). Returns (clipped
+    tree, pre-clip norms); the squares are summed leaf by leaf, as the
+    reference's ``tree_l2_norm_sq_per_node`` sums them."""
+    sq = [x.square().reshape(x.shape[0], -1).sum(dim=1)
+          for x in tree_flatten(tree)[0]]
+    norms = torch.sqrt(sum(sq[1:], start=sq[0]))
     denom = torch.clamp_min(norms / clip, 1.0)
     return tree_map(
         lambda x: x / denom.reshape((-1,) + (1,) * (x.dim() - 1)).to(x.dtype),

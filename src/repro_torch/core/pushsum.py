@@ -8,10 +8,12 @@ doubly-stochastic W, ``a`` stays 1 (Eq. 16).
 Schedules ported here: dense (``W @ s``), circulant (a weighted sum of
 rolls along the node axis) and sparse (a padded receiver-major CSR edge
 list, ``core.topology.padded_csr``: O(edges d) a round instead of
-O(N^2 d)). With ``use_kernels`` the packed branch's contraction goes
-through the ``pushsum_mix`` kernel (dense) or the ``spmm`` kernel
-(sparse); the (N,) weights ``a`` stay on the plain path, as the reference
-left them to XLA.
+O(N^2 d)). With ``use_kernels`` the contraction goes through the
+``pushsum_mix`` kernel (dense) or the ``spmm`` kernel (sparse): once over
+the packed buffer, or once a leaf of a tree state (``gossip_dense`` /
+``gossip_sparse``, as ``repro/core/pushsum.py:141-215``). The (N,) weights
+``a`` stay on the plain path, as the reference left them to XLA, and the
+circulant schedule's rolls have no kernel, as in the reference.
 """
 from __future__ import annotations
 
@@ -27,6 +29,7 @@ __all__ = [
     "PushSumState",
     "init_push_sum",
     "gossip_dense",
+    "gossip_circulant",
     "gossip_sparse",
     "gossip_packed",
     "sparse_mix",
@@ -71,17 +74,43 @@ def sparse_mix(idx: torch.Tensor, vals: torch.Tensor,
     return out.reshape((idx.shape[0],) + tuple(x.shape[1:]))
 
 
-def gossip_dense(state: PushSumState, w: torch.Tensor) -> PushSumState:
-    """One mixing round of a tree state with an (N, N) weight matrix."""
-    return PushSumState(s=tree_map(lambda x: _mix_dense(w, x), state.s),
+def _kernel_mix_dense(w: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    rows = x.reshape(x.shape[0], -1).contiguous()
+    return kops.pushsum_mix(w, rows).reshape(x.shape)
+
+
+def _kernel_mix_sparse(idx: torch.Tensor, vals: torch.Tensor,
+                       x: torch.Tensor) -> torch.Tensor:
+    return kops.leaf_out(kops.spmm(idx, vals, kops.leaf_rows(x)), x)
+
+
+def gossip_dense(state: PushSumState, w: torch.Tensor, *,
+                 use_kernels: bool = False) -> PushSumState:
+    """One mixing round of a tree state with an (N, N) weight matrix;
+    ``use_kernels``: one ``pushsum_mix`` launch a leaf."""
+    mix = _kernel_mix_dense if use_kernels else _mix_dense
+    return PushSumState(s=tree_map(lambda x: mix(w, x), state.s),
                         a=_mix_dense(w, state.a))
 
 
+def gossip_circulant(state: PushSumState, offsets: Sequence[int],
+                     weights: torch.Tensor) -> PushSumState:
+    """One mixing round of a tree state on a circulant topology: a weighted
+    sum of rolls along the node axis."""
+    offsets = tuple(int(o) for o in offsets)
+    return PushSumState(
+        s=tree_map(lambda x: _mix_circulant(offsets, weights, x), state.s),
+        a=_mix_circulant(offsets, weights, state.a))
+
+
 def gossip_sparse(state: PushSumState, idx: torch.Tensor,
-                  vals: torch.Tensor) -> PushSumState:
-    """One mixing round of a tree state over a padded-CSR edge list."""
-    return PushSumState(s=tree_map(lambda x: sparse_mix(idx, vals, x),
-                                   state.s),
+                  vals: torch.Tensor, *,
+                  use_kernels: bool = False) -> PushSumState:
+    """One mixing round of a tree state over a padded-CSR edge list;
+    ``use_kernels``: one ``spmm`` launch a leaf (its rows padded to a
+    multiple of 4 columns where they are not)."""
+    mix = _kernel_mix_sparse if use_kernels else sparse_mix
+    return PushSumState(s=tree_map(lambda x: mix(idx, vals, x), state.s),
                         a=sparse_mix(idx, vals, state.a))
 
 

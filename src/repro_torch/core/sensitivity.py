@@ -7,7 +7,8 @@ Each node i keeps a running scalar estimate
     S_i^(t) = lambda S_i^(t-1) + 2 C' (||eps_i^(t)||_1 + lambda gamma_n ||n_i^(t-1)||_1)
 
 and the network uses S^(t) = max_i S_i^(t). Only two scalars per node
-persist between rounds. ``real_sensitivity`` computes the exact
+persist between rounds. ``reset_sensitivity`` restarts the recursion after
+a synchronization round; ``real_sensitivity`` computes the exact
 max_{i,j} ||s_i - s_j||_1 for validation.
 """
 from __future__ import annotations
@@ -18,7 +19,8 @@ import torch
 
 from repro_torch.core.tree_utils import PyTree, l1_norm_per_node, tree_leaves
 
-__all__ = ["SensitivityState", "init_sensitivity", "real_sensitivity"]
+__all__ = ["SensitivityState", "init_sensitivity", "reset_sensitivity",
+           "real_sensitivity"]
 
 
 class SensitivityState(NamedTuple):
@@ -39,9 +41,33 @@ def init_sensitivity(s0: PyTree, eps0_l1: torch.Tensor, *, c_prime: float,
         lam=torch.tensor(lam, dtype=torch.float32, device=dev))
 
 
-def real_sensitivity(s_half: PyTree | torch.Tensor) -> torch.Tensor:
-    """Exact max_{i,j} ||s_i - s_j||_1 (validation only, O(N^2 d))."""
+def reset_sensitivity(state: SensitivityState, s_synced: PyTree,
+                      eps_l1: torch.Tensor) -> SensitivityState:
+    """Restart the recursion after a synchronization round (the t = 0
+    branch over the synced values)."""
+    s_local = 2.0 * state.c_prime * (l1_norm_per_node(s_synced) + eps_l1)
+    return state._replace(s_local=s_local,
+                          prev_noise_l1=torch.zeros_like(s_local))
+
+
+def real_sensitivity(s_half: PyTree | torch.Tensor, *,
+                     chunk: int | None = None) -> torch.Tensor:
+    """Exact max_{i,j} ||s_i - s_j||_1 (validation only, O(N^2 d)).
+
+    The dense form holds an (N, N, d) difference a leaf; ``chunk`` bounds it
+    to (chunk, N, d) by sweeping blocks of ``chunk`` rows, as the
+    reference's ``lax.map`` does. Every pairwise distance is reduced the
+    same way in both forms, and the max of the block maxima is the max.
+    ``chunk=None`` (or ``chunk >= N``) keeps the single-shot form.
+    """
     leaves = [s_half] if isinstance(s_half, torch.Tensor) else tree_leaves(s_half)
     flats = [x.reshape(x.shape[0], -1) for x in leaves]
-    return sum((f[:, None, :] - f[None, :, :]).abs().sum(-1)
-               for f in flats).max()
+    n = flats[0].shape[0]
+    step = n if chunk is None or chunk >= n else max(1, int(chunk))
+    best = None
+    for i0 in range(0, n, step):
+        dist = sum((f[i0:i0 + step, None, :] - f[None, :, :]).abs_().sum(-1)
+                   for f in flats)
+        block = dist.max()
+        best = block if best is None else torch.maximum(best, block)
+    return best

@@ -1,10 +1,14 @@
 """Minimal parameter trees and per-node reductions over them.
 
 The reference keeps parameters as JAX pytrees. The port keeps plain nested
-``dict`` / ``list`` / ``tuple`` containers of tensors and flattens them in
-``jax.tree_util.tree_flatten`` order (dict keys sorted), because packing
-offsets depend on the leaf order. Every leaf of node-stacked state carries a
-leading node dimension ``N``.
+``dict`` / ``list`` / ``tuple`` / ``NamedTuple`` containers of tensors and
+flattens them in ``jax.tree_util.tree_flatten`` order (dict keys sorted, a
+NamedTuple's fields in field order), because packing offsets depend on the
+leaf order. Leaf paths name a dict entry by its key, a list or tuple entry
+by its index and a NamedTuple field as jax names a ``GetAttrKey``
+(``.dpps``), so a protocol state's leaves carry the reference's names
+(``.dpps/.push/.s/0``). Every leaf of node-stacked state carries a leading
+node dimension ``N``.
 """
 from __future__ import annotations
 
@@ -27,9 +31,14 @@ PyTree = Any
 
 
 class TreeDef(NamedTuple):
-    kind: str                 # "leaf" | "dict" | "list" | "tuple"
-    keys: tuple = ()          # dict keys, sorted
+    kind: str       # "leaf" | "dict" | "list" | "tuple" | "namedtuple"
+    keys: tuple = ()          # dict keys, sorted; a NamedTuple's fields
     children: tuple = ()      # child TreeDefs
+    cls: type | None = None   # the NamedTuple class
+
+
+def _is_namedtuple(tree) -> bool:
+    return isinstance(tree, tuple) and hasattr(type(tree), "_fields")
 
 
 def _flatten(tree, path: tuple, out: list) -> TreeDef:
@@ -37,6 +46,11 @@ def _flatten(tree, path: tuple, out: list) -> TreeDef:
         keys = tuple(sorted(tree))
         return TreeDef("dict", keys, tuple(
             _flatten(tree[k], path + (str(k),), out) for k in keys))
+    if _is_namedtuple(tree):
+        fields = type(tree)._fields
+        return TreeDef("namedtuple", fields, tuple(
+            _flatten(x, path + ("." + f,), out)
+            for f, x in zip(fields, tree)), type(tree))
     if isinstance(tree, (list, tuple)):
         kind = "list" if isinstance(tree, list) else "tuple"
         return TreeDef(kind, (), tuple(
@@ -69,6 +83,8 @@ def tree_unflatten(treedef: TreeDef, leaves) -> PyTree:
         kids = [build(c) for c in td.children]
         if td.kind == "dict":
             return dict(zip(td.keys, kids))
+        if td.kind == "namedtuple":
+            return td.cls(*kids)
         return kids if td.kind == "list" else tuple(kids)
 
     out = build(treedef)

@@ -14,6 +14,9 @@
 * Kernel routing: ``use_kernels=None`` picks the CUDA kernels on a CUDA
   device and the plain versions on the CPU (:mod:`repro_torch.device`).
 * ``sync_interval="auto"`` syncs every ``max(2, 2 * period)`` rounds.
+* ``packed`` (default True): the drivers run the packed (N, d_pad) wire
+  buffer; ``packed=False`` runs the pytree runtime (one pass a leaf), the
+  reference's bit-equivalence oracle.
 """
 from __future__ import annotations
 
@@ -39,9 +42,9 @@ class ProtocolPlan:
     Fields: ``schedule`` ("dense" | "circulant" | "sparse"), ``period``,
     ``offsets`` and ``mix_weights`` (P, K) for circulant plans, ``ws``
     (P, N, N) f32 for dense ones, ``sparse_idx`` (P, N, K) int32 and
-    ``sparse_vals`` (P, N, K) f32 for sparse ones, ``use_kernels``, ``sync_interval`` (None keeps the
-    config's), ``chunk`` (rounds between host syncs of the trajectory) and
-    ``device``.
+    ``sparse_vals`` (P, N, K) f32 for sparse ones, ``use_kernels``,
+    ``sync_interval`` (None keeps the config's), ``chunk`` (rounds between
+    host syncs of the trajectory), ``packed`` and ``device``.
     """
 
     schedule: str
@@ -55,12 +58,13 @@ class ProtocolPlan:
     use_kernels: bool = False
     sync_interval: int | None = None
     chunk: int = 50
+    packed: bool = True
 
     @classmethod
     def from_topology(cls, topo: Topology, *, schedule: str | None = None,
                       use_kernels: bool | None = None,
                       sync_interval: int | str | None = None, chunk: int = 50,
-                      device=None) -> "ProtocolPlan":
+                      packed: bool = True, device=None) -> "ProtocolPlan":
         if schedule not in (None, "dense", "circulant", "sparse"):
             raise ValueError(f"unknown or unported schedule {schedule!r}")
         dev = resolve_device(device)
@@ -106,7 +110,7 @@ class ProtocolPlan:
                    offsets=offsets, mix_weights=mix_weights, ws=ws,
                    sparse_idx=sparse_idx, sparse_vals=sparse_vals,
                    use_kernels=use_kernels, sync_interval=sync_interval,
-                   chunk=chunk)
+                   chunk=chunk, packed=packed)
 
     @property
     def lane(self) -> int:

@@ -1,9 +1,16 @@
 """Multi-round protocol drivers, port of ``repro.engine.rounds``.
 
 The reference scans the round with ``jax.lax.scan``; here the round is a
-Python loop, since PyTorch runs eagerly. The shared tree is packed into
-the (N, d_pad) wire buffer before the loop and unpacked (as views) after
-it, as the reference does at segment boundaries.
+Python loop, since PyTorch runs eagerly. With ``plan.packed`` the shared
+tree is packed into the (N, d_pad) wire buffer before the loop and
+unpacked (as views) after it, as the reference does at segment
+boundaries; without it the rounds run the pytree runtime.
+
+``hooks`` (:class:`repro_torch.api.hooks.RoundHook`) attach as in the
+reference: the round provides what their :class:`TraceSpec` asks for
+(``s_half``, the ``wd_*`` stats) and each round's rows are merged through
+``capture_rows``, which shows ``s_half`` to the hooks and never emits it.
+The host side (``consume``) is the session's.
 
 Noise: round t's bits are a pure function of ``(seed, t, node)`` (Philox,
 see :mod:`repro_torch.kernels.ref`), as ``fold_in(key, t)`` makes them in
@@ -16,7 +23,7 @@ conformance tests use it to hand the port the reference's exact bits.
 """
 from __future__ import annotations
 
-from typing import Any, Callable
+from typing import Any, Callable, Sequence
 
 import torch
 
@@ -24,7 +31,7 @@ from repro_torch.core.dpps import DPPSConfig, DPPSState, dpps_step
 from repro_torch.core.packing import PackedLayout
 from repro_torch.core.partpsp import PartPSPConfig, PartPSPState, partpsp_step
 from repro_torch.core.pushsum import PushSumState
-from repro_torch.core.tree_utils import PyTree
+from repro_torch.core.tree_utils import PyTree, tree_map
 from repro_torch.engine.plan import ProtocolPlan
 
 __all__ = ["run_dpps", "run_partpsp", "run_decode", "gumbel", "wire_layout"]
@@ -33,19 +40,35 @@ BitsAt = Callable[[int], torch.Tensor] | None
 NoiseAt = Callable[[int], torch.Tensor] | None
 
 
-def wire_layout(plan: ProtocolPlan, shared: PyTree) -> PackedLayout:
-    """The packed layout the drivers run ``shared`` under."""
+def wire_layout(plan: ProtocolPlan, shared: PyTree) -> PackedLayout | None:
+    """The packed layout the drivers run ``shared`` under, or None for the
+    pytree runtime (``plan.packed`` False)."""
+    if not plan.packed:
+        return None
     return PackedLayout.from_tree(shared, lane=plan.lane)
 
 
-def _pack(state: DPPSState, layout: PackedLayout) -> DPPSState:
+def _pack(state: DPPSState, layout: PackedLayout | None) -> DPPSState:
+    if layout is None:
+        return state
     return state._replace(push=PushSumState(s=layout.pack(state.push.s),
                                             a=state.push.a))
 
 
-def _unpack(state: DPPSState, layout: PackedLayout) -> DPPSState:
+def _unpack(state: DPPSState, layout: PackedLayout | None) -> DPPSState:
+    if layout is None:
+        return state
     return state._replace(push=PushSumState(s=layout.unpack(state.push.s),
                                             a=state.push.a))
+
+
+def _hooks(hooks: Sequence[Any]):
+    """(capture merge, TraceSpec) of a hook pipeline (``repro_torch.api``
+    imports this module, so its hooks are imported here, late)."""
+    from repro_torch.api.hooks import capture_rows, hook_trace_spec
+
+    hooks = tuple(hooks)
+    return (lambda diag: capture_rows(diag, hooks)), hook_trace_spec(hooks)
 
 
 def _stack(rows: list[dict[str, Any]]) -> dict[str, torch.Tensor]:
@@ -56,12 +79,14 @@ def _stack(rows: list[dict[str, Any]]) -> dict[str, torch.Tensor]:
 
 def run_dpps(state: DPPSState, eps_at: Callable[[int], PyTree] | None, *,
              cfg: DPPSConfig, plan: ProtocolPlan, rounds: int, seed: int = 0,
-             bits_at: BitsAt = None) -> tuple[DPPSState, dict[str, torch.Tensor]]:
+             bits_at: BitsAt = None, hooks: Sequence[Any] = ()
+             ) -> tuple[DPPSState, dict[str, torch.Tensor]]:
     """``rounds`` DPPS rounds from ``state``. ``eps_at(t)`` gives round t's
     perturbation tree (``None``: pure consensus, zero perturbation).
-    Returns the final (unpacked) state and the per-round diagnostics
-    stacked on the device (leaves (T,) / (T, N))."""
+    Returns the final (unpacked) state and the per-round diagnostics, hook
+    captures merged, stacked on the device (leaves (T,) / (T, N))."""
     cfg = plan.resolve_dpps(cfg)
+    capture, spec = _hooks(hooks)
     layout = wire_layout(plan, state.push.s)
     st = _pack(state, layout)
     zeros = None
@@ -71,24 +96,28 @@ def run_dpps(state: DPPSState, eps_at: Callable[[int], PyTree] | None, *,
             t = st.t
             if eps_at is None:
                 if zeros is None:
-                    zeros = torch.zeros_like(st.push.s)
+                    zeros = tree_map(torch.zeros_like, st.push.s)
                 eps = zeros
             else:
                 eps = eps_at(t)
             st, diag = dpps_step(st, eps, cfg, layout, seed=seed,
                                  bits=bits_at(t) if bits_at else None,
+                                 return_s_half=spec.needs_s_half,
+                                 return_wire_stats=spec.needs_wire_stats,
                                  **plan.mix_at(t))
-            rows.append(diag)
+            rows.append(capture(diag))
     return _unpack(st, layout), _stack(rows)
 
 
 def run_partpsp(state: PartPSPState, batch_at: Callable[[int], Any], *,
                 cfg: PartPSPConfig, partition, loss_fn, plan: ProtocolPlan,
-                rounds: int, seed: int = 0, bits_at: BitsAt = None
+                rounds: int, seed: int = 0, bits_at: BitsAt = None,
+                hooks: Sequence[Any] = ()
                 ) -> tuple[PartPSPState, dict[str, torch.Tensor]]:
     """``rounds`` PartPSP training rounds (Alg. 2); ``batch_at(t)`` gives
     round t's node-stacked batch."""
     cfg = plan.resolve_partpsp(cfg)
+    capture, spec = _hooks(hooks)
     layout = wire_layout(plan, state.dpps.push.s)
     st = state._replace(dpps=_pack(state.dpps, layout))
     rows = []
@@ -98,8 +127,10 @@ def run_partpsp(state: PartPSPState, batch_at: Callable[[int], Any], *,
             st, metrics = partpsp_step(
                 st, batch_at(t), cfg=cfg, partition=partition,
                 loss_fn=loss_fn, layout=layout, seed=seed,
-                bits=bits_at(t) if bits_at else None, **plan.mix_at(t))
-            rows.append(metrics)
+                bits=bits_at(t) if bits_at else None,
+                return_s_half=spec.needs_s_half,
+                return_wire_stats=spec.needs_wire_stats, **plan.mix_at(t))
+            rows.append(capture(metrics))
     return st._replace(dpps=_unpack(st.dpps, layout)), _stack(rows)
 
 

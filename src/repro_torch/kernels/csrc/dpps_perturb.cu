@@ -16,7 +16,14 @@
 //    counter = (element quad lo, quad hi, node, round t); element e is word
 //    e % 4 of quad e / 4. The main path uses it: round t's noise is a pure
 //    function of (seed, t, node, e). repro_torch.kernels.ref.philox_bits
-//    computes the same bits on any device.
+//    computes the same bits on any device. The rows may be one leaf of the
+//    wire row, whose first column is col0 there: element j of the leaf is
+//    then wire column e = col0 + j, so a launch per leaf draws exactly the
+//    bits a launch over the packed row draws for those columns. Where
+//    col0 % 4 != 0 a leaf quad straddles two Philox counters; that
+//    instantiation evaluates both and picks the words (twice the Philox
+//    work, the simple way; col0 % 4 == 0, and so the packed row, takes
+//    the one-counter instantiation).
 // The noise scale S / b is read through a device pointer, so the round
 // needs no host sync.
 //
@@ -88,13 +95,46 @@ struct PerturbArgs {
   float* partials;   // (n, 2 blocks_per_row) where blocks_per_row > 1
   unsigned* tickets; // n counters at zero where blocks_per_row > 1
   int64_t n, d_pad, d_s, row0, quads_per_block, rows_per_block;
+  int64_t col0;  // the rows' first column in the wire row (Philox only)
   float gamma_n;
   uint32_t seed_lo, seed_hi, t;
 };
 
+// The three instantiations: bits from the caller; Philox where col0 % 4 ==
+// 0 (one counter a quad); Philox where a quad straddles two counters.
+constexpr int kBitsIn = 0, kPhilox = 1, kPhiloxStraddle = 2;
+
+// The four Philox words of quad q of `row`: wire columns col0 + 4q + k.
+template <int kMode>
+__device__ __forceinline__ void philox_words(const PerturbArgs& a, int64_t row, int64_t q,
+                                             uint32_t w[4]) {
+  const int64_t c = a.col0 / 4 + q;  // the counter of wire column col0 + 4q
+  w[0] = (uint32_t)(c & 0xffffffffu);
+  w[1] = (uint32_t)(c >> 32);
+  w[2] = (uint32_t)row;
+  w[3] = a.t;
+  philox4x32_10(w, a.seed_lo, a.seed_hi);
+  if (kMode == kPhiloxStraddle) {
+    const int r = (int)(a.col0 & 3);  // 1, 2 or 3
+    uint32_t v[4] = {(uint32_t)((c + 1) & 0xffffffffu), (uint32_t)((c + 1) >> 32),
+                     (uint32_t)row, a.t};
+    philox4x32_10(v, a.seed_lo, a.seed_hi);
+    // element k is word r + k of counter c, or word r + k - 4 of c + 1;
+    // selects keep both sets in registers
+    uint32_t o[4];
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      const int j = r + k;
+      o[k] = j == 1 ? w[1] : j == 2 ? w[2] : j == 3 ? w[3] : j == 4 ? v[0] : j == 5 ? v[1] : v[2];
+    }
+#pragma unroll
+    for (int k = 0; k < 4; ++k) w[k] = o[k];
+  }
+}
+
 // Quad q of `row`: s_noise's four values into `o`, |eps| and |noise| of the
 // real elements added to the sums in element order.
-template <bool kBitsIn>
+template <int kMode>
 __device__ __forceinline__ float4 perturb_quad(const PerturbArgs& a, int64_t row, int64_t q,
                                                float4 sv, float4 ev, float scale,
                                                float& eps_acc, float& noise_acc) {
@@ -102,16 +142,12 @@ __device__ __forceinline__ float4 perturb_quad(const PerturbArgs& a, int64_t row
   const float sa[4] = {sv.x, sv.y, sv.z, sv.w};
   const float ea[4] = {ev.x, ev.y, ev.z, ev.w};
   uint32_t w[4];
-  if (kBitsIn) {
+  if (kMode == kBitsIn) {
     const uint32_t* b = a.bits + row * a.d_s;
 #pragma unroll
     for (int k = 0; k < 4; ++k) w[k] = e0 + k < a.d_s ? b[e0 + k] : 0u;
   } else {
-    w[0] = (uint32_t)(q & 0xffffffffu);
-    w[1] = (uint32_t)(q >> 32);
-    w[2] = (uint32_t)row;
-    w[3] = a.t;
-    philox4x32_10(w, a.seed_lo, a.seed_hi);
+    philox_words<kMode>(a, row, q, w);
   }
   float o[4];
 #pragma unroll
@@ -134,7 +170,7 @@ constexpr int kUnroll = 2;  // quads of s and eps in flight a thread
 
 // Quads [qa, qb) of `row`, this thread's being qa + lane, + step, ...,
 // kUnroll of them loaded before the first is computed.
-template <bool kBitsIn>
+template <int kMode>
 __device__ __forceinline__ void perturb_range(const PerturbArgs& a, int64_t row, int64_t qa,
                                               int64_t qb, int lane, int step, float scale,
                                               float& eps_acc, float& noise_acc) {
@@ -156,14 +192,14 @@ __device__ __forceinline__ void perturb_range(const PerturbArgs& a, int64_t row,
     for (int u = 0; u < kUnroll; ++u) {
       const int64_t qq = q + (int64_t)u * step;
       if (qq >= qb) break;
-      __stcs(o4 + qq, qq < real ? perturb_quad<kBitsIn>(a, row, qq, sv[u], ev[u], scale,
+      __stcs(o4 + qq, qq < real ? perturb_quad<kMode>(a, row, qq, sv[u], ev[u], scale,
                                                         eps_acc, noise_acc)
                                 : make_float4(0.f, 0.f, 0.f, 0.f));
     }
   }
 }
 
-template <bool kBitsIn>
+template <int kMode>
 __global__ void __launch_bounds__(kThreads, 3) perturb_kernel(const PerturbArgs a) {
   __shared__ float smem[32];
   __shared__ bool last;
@@ -174,7 +210,7 @@ __global__ void __launch_bounds__(kThreads, 3) perturb_kernel(const PerturbArgs 
     const int64_t row = (int64_t)blockIdx.x * a.rows_per_block + threadIdx.x / lanes;
     const int lane = threadIdx.x % lanes;
     if (row < a.n)
-      perturb_range<kBitsIn>(a, row, 0, a.d_pad / 4, lane, lanes, scale, eps_acc, noise_acc);
+      perturb_range<kMode>(a, row, 0, a.d_pad / 4, lane, lanes, scale, eps_acc, noise_acc);
     for (int off = lanes / 2; off > 0; off >>= 1) {  // every lane of the warp takes part
       eps_acc += __shfl_down_sync(0xffffffffu, eps_acc, off, lanes);
       noise_acc += __shfl_down_sync(0xffffffffu, noise_acc, off, lanes);
@@ -188,7 +224,7 @@ __global__ void __launch_bounds__(kThreads, 3) perturb_kernel(const PerturbArgs 
   const int64_t row = a.row0 + blockIdx.y;
   const int64_t qa = (int64_t)blockIdx.x * a.quads_per_block;
   const int64_t qb = qa + a.quads_per_block < a.d_pad / 4 ? qa + a.quads_per_block : a.d_pad / 4;
-  perturb_range<kBitsIn>(a, row, qa, qb, threadIdx.x, blockDim.x, scale, eps_acc, noise_acc);
+  perturb_range<kMode>(a, row, qa, qb, threadIdx.x, blockDim.x, scale, eps_acc, noise_acc);
   eps_acc = block_sum(eps_acc, smem);
   noise_acc = block_sum(noise_acc, smem);
   if (gridDim.x == 1) {
@@ -225,18 +261,21 @@ __global__ void __launch_bounds__(kThreads, 3) perturb_kernel(const PerturbArgs 
 static int launch_perturb(bool bits_in, dim3 grid, unsigned threads, cudaStream_t st,
                           const PerturbArgs& a) {
   if (bits_in)
-    perturb_kernel<true><<<grid, threads, 0, st>>>(a);
+    perturb_kernel<kBitsIn><<<grid, threads, 0, st>>>(a);
+  else if (a.col0 % 4 != 0)
+    perturb_kernel<kPhiloxStraddle><<<grid, threads, 0, st>>>(a);
   else
-    perturb_kernel<false><<<grid, threads, 0, st>>>(a);
+    perturb_kernel<kPhilox><<<grid, threads, 0, st>>>(a);
   return (int)cudaGetLastError();
 }
 
 }  // namespace repro_torch
 
 // s, eps, out (n, d_pad) f32, 16-byte aligned, d_pad % 4 == 0, 0 < d_s <=
-// d_pad; bits (n, d_s) uint32 or NULL for the Philox variant; scale a
-// device pointer to one f32. (threads, rows_per_block, quads_per_block,
-// blocks_per_row) is the wrapper's plan (repro_torch.kernels.ops.
+// d_pad; bits (n, d_s) uint32 or NULL for the Philox variant, whose rows
+// start at wire column col0 >= 0; scale a device pointer to one f32.
+// (threads, rows_per_block, quads_per_block, blocks_per_row) is the
+// wrapper's plan (repro_torch.kernels.ops.
 // perturb_plan): rows_per_block > 1 takes short rows, threads /
 // rows_per_block lanes a row (a power of two <= 32), one block for
 // rows_per_block rows; rows_per_block 1 takes blocks_per_row blocks of
@@ -248,7 +287,7 @@ static int launch_perturb(bool bits_in, dim3 grid, unsigned threads, cudaStream_
 extern "C" int dpps_perturb_rows(const float* s, const float* eps, const uint32_t* bits,
                                  const float* scale, float gamma_n, int64_t n,
                                  int64_t d_pad, int64_t d_s, uint64_t seed, int64_t t,
-                                 int64_t threads, int64_t rows_per_block,
+                                 int64_t col0, int64_t threads, int64_t rows_per_block,
                                  int64_t quads_per_block, int64_t blocks_per_row,
                                  float* partials, unsigned* tickets, float* out,
                                  float* eps_l1, float* noise_l1, void* stream) {
@@ -257,12 +296,12 @@ extern "C" int dpps_perturb_rows(const float* s, const float* eps, const uint32_
   const int64_t n_quads = d_pad / 4;
   const int64_t lanes = rows_per_block > 0 ? threads / rows_per_block : 0;
   if (n < 1 || d_s < 1 || d_s > d_pad || d_pad % 4 != 0 || (uintptr_t)s % 16 != 0 ||
-      (uintptr_t)eps % 16 != 0 || (uintptr_t)out % 16 != 0 || threads < 32 ||
+      (uintptr_t)eps % 16 != 0 || (uintptr_t)out % 16 != 0 || col0 < 0 || threads < 32 ||
       threads > kThreads || threads % 32 != 0 || rows_per_block < 1 ||
       threads % rows_per_block != 0)
     return (int)cudaErrorInvalidValue;
   PerturbArgs a{s, eps, bits, scale, out, eps_l1, noise_l1, partials, tickets, n, d_pad, d_s,
-                0, quads_per_block, rows_per_block, gamma_n,
+                0, quads_per_block, rows_per_block, col0, gamma_n,
                 (uint32_t)(seed & 0xffffffffu), (uint32_t)(seed >> 32), (uint32_t)t};
   if (rows_per_block > 1) {
     const int64_t blocks = (n + rows_per_block - 1) / rows_per_block;

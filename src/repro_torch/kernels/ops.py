@@ -10,8 +10,13 @@ stream, raises if the C function reports a CUDA error, and adds one to its
 
 :func:`l1_clip_tree` and :func:`laplace_noise_tree` are the tree-level ops
 over them, the counterparts of ``repro.kernels.ops.l1_clip_tree`` and
-``laplace_noise_tree``. :func:`flash_attention` (the (H, S, D) layout of the
-Pallas kernel) and :func:`flash_attention_bshd` (the model's (B, S, H, D)
+``laplace_noise_tree``. :func:`l1_norm_tree`, :func:`dpps_perturb_tree` and
+:func:`laplace_noise_like` are the pytree runtime's entry points (the
+counterparts of ``repro/kernels/ops.py:65-181``): one launch of the row
+kernel a leaf, each leaf's flat (N, size) rows passed as a view where they
+are contiguous, 16-byte aligned and ``size % 4 == 0``, else padded to a
+multiple of 4 columns in one copy (:func:`leaf_rows`).
+:func:`flash_attention` (the (H, S, D) layout of the Pallas kernel) and :func:`flash_attention_bshd` (the model's (B, S, H, D)
 layout, counterpart of ``repro.kernels.ops.flash_attention_bshd``) launch
 one kernel and share its count, under ``flash_attention``.
 """
@@ -27,7 +32,8 @@ from repro_torch.kernels import build, ref
 
 __all__ = ["l1_norm_rows", "dpps_perturb_rows", "pushsum_mix", "spmm",
            "clip_scale_rows", "laplace_from_bits", "l1_clip_tree",
-           "laplace_noise_tree", "flash_attention", "flash_attention_bshd",
+           "laplace_noise_tree", "l1_norm_tree", "dpps_perturb_tree",
+           "laplace_noise_like", "leaf_rows", "leaf_out", "flash_attention", "flash_attention_bshd",
            "launch_counts", "reset_launch_counts", "spmm_plan", "l1_plan",
            "mix_plan", "perturb_plan", "flash_geometry", "flash_strides",
            "MIX_TEMPLATE_NODES", "MIX_TILES", "MAX_SPMM_NODES", "FLASH_TILES",
@@ -207,19 +213,24 @@ def l1_plan(n: int, d_s: int) -> dict:
 def dpps_perturb_rows(s: torch.Tensor, eps: torch.Tensor, scale,
                       gamma_n: float, d_s: int, *,
                       bits: torch.Tensor | None = None,
-                      seed: int | None = None, t: int | None = None):
+                      seed: int | None = None, t: int | None = None,
+                      col0: int = 0):
     """Fused ``s + eps + gamma_n Lap(scale)`` over (N, d_pad) rows.
 
     Returns ``(s_noise (N, d_pad), eps_l1 (N,), noise_l1 (N,))``. ``bits``
     (N, d_s) uint32 selects the bits-in variant; otherwise the Philox
-    variant draws the bits of ``(seed, t)`` in the kernel. On CUDA ``scale``
-    is a 0-d f32 device tensor, read by the kernel through its pointer.
+    variant draws the bits of ``(seed, t)`` in the kernel, at wire columns
+    ``[col0, col0 + d_s)`` (a leaf that starts at column ``col0`` of the
+    wire row; 0 for the packed row). On CUDA ``scale`` is a 0-d f32 device
+    tensor, read by the kernel through its pointer.
     """
     if bits is None and (seed is None or t is None):
         raise ValueError("pass bits= or both seed= and t=")
+    if col0 < 0:
+        raise ValueError(f"col0={col0} must be >= 0")
     if _is_cpu(s, eps, *([bits] if bits is not None else [])):
         return ref.dpps_perturb_rows(s, eps, scale, gamma_n, d_s, bits=bits,
-                                     seed=seed, t=t)
+                                     seed=seed, t=t, col0=col0)
     _check(s, "s", torch.float32, 2, align=True)
     _check(eps, "eps", torch.float32, 2, align=True)
     n, d_pad = s.shape
@@ -248,7 +259,8 @@ def dpps_perturb_rows(s: torch.Tensor, eps: torch.Tensor, scale,
         s.data_ptr(), eps.data_ptr(),
         bits.data_ptr() if bits is not None else None,
         scale.data_ptr(), float(gamma_n), n, d_pad, d_s,
-        int(seed or 0) & 0xFFFFFFFFFFFFFFFF, int(t or 0), plan["threads"],
+        int(seed or 0) & 0xFFFFFFFFFFFFFFFF, int(t or 0), int(col0),
+        plan["threads"],
         plan["rows_per_block"], plan["quads_per_block"], bpr,
         None if partials is None else partials.data_ptr(),
         None if tickets is None else tickets.data_ptr(), out.data_ptr(),
@@ -469,12 +481,105 @@ def l1_clip_tree(tree: PyTree, clip: float) -> tuple[PyTree, torch.Tensor]:
 
 def laplace_noise_tree(bits_tree: PyTree, scale) -> PyTree:
     """Laplace(0, scale) noise shaped like ``bits_tree``: one uint32 bit
-    tensor per leaf, one launch of :func:`laplace_from_bits` per leaf."""
+    tensor per leaf, one launch of :func:`laplace_from_bits` per leaf.
+    The tree noise entry points are here: :func:`laplace_noise_like` draws
+    one leaf's noise from bits or from the Philox bits of its wire columns,
+    and :func:`dpps_perturb_tree` draws the pytree runtime's noise inside
+    the fused perturbation, at each leaf's ``col0``."""
     device = tree_leaves(bits_tree)[0].device
     if device.type == "cuda":  # one device scalar for every leaf
         scale = _device_scale(scale, device)
     return tree_map(lambda b: laplace_from_bits(
         b.contiguous().reshape(-1), scale).reshape(b.shape), bits_tree)
+
+
+def leaf_rows(x: torch.Tensor) -> torch.Tensor:
+    """A node-stacked leaf's flat (N, size) rows as the row kernels take
+    them: a view where they are contiguous, 16-byte aligned and ``size %
+    4 == 0``; else one copy padded with zeros to a multiple of 4 columns."""
+    n, size = x.shape[0], x[0].numel()
+    rows = x.reshape(n, size)
+    if size % 4 == 0 and rows.is_contiguous() and rows.data_ptr() % 16 == 0:
+        return rows
+    out = rows.new_zeros((n, -(-size // 4) * 4))
+    out[:, :size] = rows
+    return out
+
+
+def leaf_out(out: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """A kernel's (N, d_pad) rows of leaf ``x`` (from :func:`leaf_rows`)
+    back in its shape (a copy only where the rows were padded)."""
+    size = x[0].numel()
+    if out.shape[1] != size:
+        out = out[:, :size].contiguous()
+    return out.reshape(x.shape)
+
+
+def l1_norm_tree(leaves) -> torch.Tensor:
+    """Per-node L1 norms of node-stacked leaves -> (N,): one
+    :func:`l1_norm_rows` launch a leaf, the norms summed in leaf order."""
+    if _is_cpu(*leaves):
+        return ref.l1_norm_tree(leaves)
+    total = None
+    for x in leaves:
+        norm = l1_norm_rows(leaf_rows(x), x[0].numel())
+        total = norm if total is None else total + norm
+    return total
+
+
+def dpps_perturb_tree(s_leaves, eps_leaves, scale, gamma_n: float, *,
+                      bits=None, seed: int | None = None,
+                      t: int | None = None):
+    """The fused perturbation over node-stacked leaves: one
+    :func:`dpps_perturb_rows` launch a leaf -> (s_noise leaves, eps_l1
+    (N,), noise_l1 (N,)), the norms summed in leaf order. ``bits`` is one
+    uint32 tensor a leaf (its leaf's shape); otherwise leaf i draws in the
+    kernel the Philox bits of its wire columns, ``col0`` its first column
+    (``ref.leaf_columns``), so the launches draw the bits one launch over
+    the packed row draws."""
+    if bits is None and (seed is None or t is None):
+        raise ValueError("pass bits= or both seed= and t=")
+    extra = [] if bits is None else list(bits)
+    if _is_cpu(*s_leaves, *eps_leaves, *extra):
+        return ref.dpps_perturb_tree(s_leaves, eps_leaves, scale, gamma_n,
+                                     bits=bits, seed=seed, t=t)
+    scale = _device_scale(scale, s_leaves[0].device)
+    out, eps_l1, noise_l1 = [], None, None
+    for i, (x, e, c0) in enumerate(zip(s_leaves, eps_leaves,
+                                       ref.leaf_columns(s_leaves))):
+        size = x[0].numel()
+        b = None if bits is None else \
+            bits[i].reshape(x.shape[0], size).contiguous()
+        sn, e1, n1 = dpps_perturb_rows(leaf_rows(x), leaf_rows(e), scale,
+                                       gamma_n, size, bits=b, seed=seed,
+                                       t=t, col0=c0)
+        out.append(leaf_out(sn, x))
+        eps_l1 = e1 if eps_l1 is None else eps_l1 + e1
+        noise_l1 = n1 if noise_l1 is None else noise_l1 + n1
+    return out, eps_l1, noise_l1
+
+
+def laplace_noise_like(x: torch.Tensor, scale, *,
+                       bits: torch.Tensor | None = None,
+                       seed: int | None = None, t: int | None = None,
+                       col0: int = 0) -> torch.Tensor:
+    """Laplace(0, scale) shaped like the node-stacked leaf ``x``, one
+    :func:`laplace_from_bits` launch: from ``bits`` (x's shape, uint32), or
+    from the Philox bits of wire columns ``[col0, col0 + size)`` of each
+    node's row in round ``t`` (``ref.philox_bits``, the bits the
+    perturbation kernel draws there). The counterpart of
+    ``repro.kernels.ops.laplace_noise_like``, which takes a key."""
+    if bits is None and (seed is None or t is None):
+        raise ValueError("pass bits= or both seed= and t=")
+    if _is_cpu(x, *([bits] if bits is not None else [])):
+        return ref.laplace_noise_like(x, scale, bits=bits, seed=seed, t=t,
+                                      col0=col0)
+    if bits is None:
+        bits = ref.philox_bits(seed, t, x.shape[0], col0,
+                               col0 + x[0].numel(), device=x.device)
+        bits = bits.to(torch.uint32)
+    return laplace_from_bits(bits.contiguous().reshape(-1),
+                             scale).reshape(x.shape)
 
 
 def _flash_window(window) -> int:

@@ -21,6 +21,10 @@ __all__ = [
     "l1_norm_rows",
     "clip_scale_rows",
     "dpps_perturb_rows",
+    "leaf_columns",
+    "l1_norm_tree",
+    "dpps_perturb_tree",
+    "laplace_noise_like",
     "pushsum_mix",
     "spmm",
     "flash_attention",
@@ -137,13 +141,16 @@ def clip_scale_rows(buf: torch.Tensor, d_s: int,
 def dpps_perturb_rows(s: torch.Tensor, eps: torch.Tensor, scale,
                       gamma_n: float, d_s: int, *,
                       bits: torch.Tensor | None = None,
-                      seed: int | None = None, t: int | None = None):
+                      seed: int | None = None, t: int | None = None,
+                      col0: int = 0):
     """Fused Eq. 7 + Eq. 8 over the packed rows.
 
     ``s_noise = s + eps + gamma_n Lap(bits; scale)`` on the first ``d_s``
     columns, exact zeros in the pad columns, plus per-row ``||eps||_1`` and
     ``||noise||_1``. ``bits`` (N, d_s) uint32 feeds explicit bits (the
-    bits-in variant); otherwise :func:`philox_bits` of ``(seed, t)``.
+    bits-in variant); otherwise :func:`philox_bits` of ``(seed, t)`` at wire
+    columns ``[col0, col0 + d_s)`` (a leaf whose first column in the wire
+    row is ``col0``).
 
     Plain version of ``csrc/dpps_perturb.cu``; mirrors the Pallas
     ``repro/kernels/dpps_perturb.py::dpps_perturb`` as ``repro.kernels.ops.
@@ -152,7 +159,7 @@ def dpps_perturb_rows(s: torch.Tensor, eps: torch.Tensor, scale,
     """
     n, d_pad = s.shape
     if bits is None:
-        bits = philox_bits(seed, t, n, 0, d_s, device=s.device)
+        bits = philox_bits(seed, t, n, col0, col0 + d_s, device=s.device)
     noise = laplace_from_bits(bits, scale)
     eps_w = eps[:, :d_s].to(torch.float32)
     row = s[:, :d_s].to(torch.float32) + eps_w + gamma_n * noise
@@ -160,6 +167,69 @@ def dpps_perturb_rows(s: torch.Tensor, eps: torch.Tensor, scale,
         row = torch.cat([row, row.new_zeros((n, d_pad - d_s))], dim=1)
     return (row.to(s.dtype), eps_w.abs().sum(dim=1),
             noise.abs().sum(dim=1))
+
+
+def leaf_columns(leaves) -> list[int]:
+    """The first wire column of each node-stacked leaf: the running sum of
+    the per-node sizes in leaf order. ``PackedLayout`` takes its segment
+    offsets from here, so the tree routes and the packed row agree."""
+    cols, off = [], 0
+    for x in leaves:
+        cols.append(off)
+        off += x[0].numel()
+    return cols
+
+
+def _leaf_bits(bits, i: int, x: torch.Tensor):
+    """Leaf i's (N, size) bits of ``bits`` (None, or one tensor a leaf)."""
+    return None if bits is None else bits[i].reshape(x.shape[0], -1)
+
+
+def l1_norm_tree(leaves) -> torch.Tensor:
+    """Per-node L1 norms of node-stacked leaves: each leaf's norm over its
+    flat (N, size) rows, summed in leaf order -> (N,). Plain version of
+    ``ops.l1_norm_tree``; mirrors ``repro.kernels.ops.l1_norm_tree``."""
+    total = None
+    for x in leaves:
+        norm = l1_norm_rows(x.reshape(x.shape[0], -1), x[0].numel())
+        total = norm if total is None else total + norm
+    return total
+
+
+def dpps_perturb_tree(s_leaves, eps_leaves, scale, gamma_n: float, *,
+                      bits=None, seed: int | None = None,
+                      t: int | None = None):
+    """:func:`dpps_perturb_rows` leaf by leaf -> (s_noise leaves, eps_l1
+    (N,), noise_l1 (N,)), the norms summed in leaf order. ``bits`` is one
+    uint32 tensor a leaf; otherwise leaf i draws the Philox bits of its wire
+    columns (``col0`` = :func:`leaf_columns`), the packed row's bits. Plain
+    version of ``ops.dpps_perturb_tree``; mirrors ``repro.kernels.ops.
+    dpps_perturb_tree``."""
+    out, eps_l1, noise_l1 = [], None, None
+    for i, (x, e, c0) in enumerate(zip(s_leaves, eps_leaves,
+                                       leaf_columns(s_leaves))):
+        n, size = x.shape[0], x[0].numel()
+        sn, e1, n1 = dpps_perturb_rows(
+            x.reshape(n, size), e.reshape(n, size), scale, gamma_n, size,
+            bits=_leaf_bits(bits, i, x), seed=seed, t=t, col0=c0)
+        out.append(sn.reshape(x.shape))
+        eps_l1 = e1 if eps_l1 is None else eps_l1 + e1
+        noise_l1 = n1 if noise_l1 is None else noise_l1 + n1
+    return out, eps_l1, noise_l1
+
+
+def laplace_noise_like(x: torch.Tensor, scale, *,
+                       bits: torch.Tensor | None = None,
+                       seed: int | None = None, t: int | None = None,
+                       col0: int = 0) -> torch.Tensor:
+    """Laplace(0, scale) shaped like the node-stacked leaf ``x``: from
+    ``bits`` (x's shape, uint32) or from the Philox bits of wire columns
+    ``[col0, col0 + size)`` of each node's row in round ``t``. Plain version
+    of ``ops.laplace_noise_like``."""
+    if bits is None:
+        n, size = x.shape[0], x[0].numel()
+        bits = philox_bits(seed, t, n, col0, col0 + size, device=x.device)
+    return laplace_from_bits(bits, scale).reshape(x.shape).to(x.dtype)
 
 
 def pushsum_mix(w: torch.Tensor, x: torch.Tensor) -> torch.Tensor:

@@ -17,16 +17,25 @@ Flags follow the reference's: ``--algorithm {partpsp,sgp,sgpdp,pedfl}``,
 ``--topology`` (the families the port has) with ``--degree`` and the
 random families' knobs, ``--sync-interval``, ``--schedule
 {dense,circulant,sparse}``, ``--checkpoint DIR`` (the consensus view for
-``launch.serve --checkpoint``). Flags of parts not ported yet raise
-``NotImplementedError`` naming their ROADMAP item. The batches carry
-tokens only (embeddings for an embedding-input model), as the
+``launch.serve --checkpoint``), ``--driver {engine,loop}`` (``loop``: the
+per-round driver over the pytree runtime), ``--ledger-out FILE`` (the
+per-round privacy ledger as JSONL), ``--privacy-budget EPS`` with
+``--strict-budget`` (abort once the budget is exceeded: no checkpoint is
+written and the run exits through ``SystemExit``) and ``--metrics-out
+FILE`` (the ``MetricsHook`` history as JSON). Flags of parts not ported
+yet raise ``NotImplementedError`` naming their ROADMAP item. The batches
+carry tokens only (embeddings for an embedding-input model), as the
 reference's do: llama-3.2-vision-11b, which needs image embeddings, fails
 with a ``ValueError`` naming ``image_embeds``, as the reference's
-assertion does. Every ``--log-every``
-steps a line gives the loss, the sensitivity used and the seconds a step
-(the reference's ``MetricsHook`` waits for its port), printed when the
-run ends: the run is one ``Session.train`` call, so no earlier state is
-held beside the running one.
+assertion does. The run always goes under a ``LedgerHook`` and a
+``MetricsHook``, as the reference's does: every ``--log-every`` steps (and
+the last) a line gives the loss, the sensitivity used and the mean
+seconds a step so far, at each segment boundary, and the run ends with
+``privacy: {ledger summary}``.
+
+    PYTHONPATH=src python -m repro_torch.launch.train --reduced \\
+        --device cpu --driver loop --ledger-out /tmp/l.jsonl \\
+        --privacy-budget 5 --strict-budget
 """
 from __future__ import annotations
 
@@ -36,7 +45,8 @@ import time
 
 import torch
 
-from repro_torch.api import PrivacySpec, Session
+from repro_torch.api import (BudgetHook, LedgerHook, MetricsHook,
+                             PrivacySpec, Session)
 from repro_torch.configs import ARCH_NAMES, get_config
 from repro_torch.core.topology import (DOutGraph, ExpGraph,
                                        FullyConnectedGraph, RingGraph)
@@ -61,9 +71,6 @@ _UNPORTED = {
     "timeout_rate": "item 7 (async delays)",
     "node_rates": "item 7 (async delays)",
     "wire": "item 8 (wire codecs)",
-    "ledger_out": "item 5 (hooks: the privacy ledger)",
-    "privacy_budget": "item 5 (hooks: the budget)",
-    "metrics_out": "item 5 (hooks: MetricsHook)",
 }
 
 
@@ -174,7 +181,15 @@ def _parser() -> argparse.ArgumentParser:
                     help="write the consensus params (s-bar + node 0's "
                          "local ones) here for serving")
     ap.add_argument("--driver", choices=("engine", "loop"), default="engine",
-                    help="loop: the per-round driver, not ported yet")
+                    help="loop: the per-round driver over the pytree runtime")
+    ap.add_argument("--ledger-out", default=None,
+                    help="stream the per-round privacy ledger to this JSONL")
+    ap.add_argument("--metrics-out", default=None,
+                    help="write the per-step metrics history here (JSON)")
+    ap.add_argument("--privacy-budget", type=float, default=None,
+                    help="total epsilon ceiling for the run")
+    ap.add_argument("--strict-budget", action="store_true",
+                    help="abort training once --privacy-budget is exceeded")
     for flag in _UNPORTED:
         ap.add_argument("--" + flag.replace("_", "-"), default=None,
                         help=f"not ported yet (ROADMAP Queue 1 "
@@ -189,9 +204,6 @@ def main(argv=None) -> None:
             raise NotImplementedError(
                 f"--{flag.replace('_', '-')}: not ported yet (ROADMAP Queue 1 "
                 f"{item})")
-    if args.driver == "loop":
-        raise NotImplementedError("--driver loop: the per-round loop driver is "
-                                  "not ported yet (ROADMAP Queue 1 item 5)")
     dev = resolve_device(args.device)
     topo = make_topology(args.topology, args.nodes, degree=args.degree,
                          p=args.er_p, matchings=args.matchings,
@@ -218,36 +230,47 @@ def main(argv=None) -> None:
                                seed=args.seed)
     batch_at = lm_batches(model_cfg, loader)
 
-    starts = []  # host time at the start of each step
+    t0 = time.perf_counter()
+    metrics = MetricsHook(
+        fields={"loss": "loss_mean", "sensitivity": "sensitivity_used",
+                "grad_l1_max": "grad_l1_max"},
+        log_every=args.log_every, total=args.steps,
+        formatter=lambda r: (f"step {r['step']:5d} loss={r['loss']:.4f} "
+                             f"S={r['sensitivity']:.3f} "
+                             f"({(time.perf_counter() - t0) / (r['step'] + 1):.2f}"
+                             f"s/step)"))
+    ledger = LedgerHook(path=args.ledger_out, budget=args.privacy_budget)
+    hooks = [ledger, metrics]
+    if args.privacy_budget is not None:
+        note = (" (engine driver enforces at segment granularity)"
+                if args.driver == "engine" else "")
+        hooks.append(BudgetHook(args.privacy_budget,
+                                strict=args.strict_budget, note=note))
 
-    def timed_batch_at(t: int):
-        if dev.type == "cuda":
-            torch.cuda.synchronize(dev)
-        starts.append(time.perf_counter())
-        return batch_at(t)
+    report = session.train(args.steps, batch_at, hooks=hooks,
+                           driver=args.driver)
 
-    report = session.train(args.steps, timed_batch_at)
-    if dev.type == "cuda":
-        torch.cuda.synchronize(dev)
-    starts.append(time.perf_counter())
-    traj, every = report.trajectory, max(1, args.log_every)
-    for t in range(args.steps):
-        if (t + 1) % every == 0 or t + 1 == args.steps:
-            print(f"step {t:5d} loss={float(traj['loss_mean'][t]):.4f} "
-                  f"S={float(traj['sensitivity_used'][t]):.3f} "
-                  f"({starts[t + 1] - starts[t]:.2f}s/step)")
-    done = report.rounds
-    print("privacy:", json.dumps({
-        "epsilon_spent": session.epsilon_spent(done),
-        "epsilon_per_round": session.cfg.epsilon_per_round,
-        "rounds": done}))
-    if args.checkpoint:
+    print("privacy:", json.dumps(ledger.summary()))
+    if args.ledger_out:
+        print("privacy ledger written to", args.ledger_out)
+    if args.metrics_out:
+        with open(args.metrics_out, "w") as f:
+            json.dump(metrics.history, f, indent=1)
+    if args.checkpoint and not report.aborted:
         # consensus shared params are identical across nodes; persist node
         # 0's view (s-bar + its personalised local params) for serving
-        session.save_consensus(args.checkpoint, report.state, step=done,
+        session.save_consensus(args.checkpoint, report.state,
+                               step=report.rounds,
                                metadata={"arch": args.arch,
                                          "algorithm": args.algorithm})
         print("checkpoint written to", args.checkpoint)
+    if report.aborted:
+        if args.checkpoint:
+            # strict mode never releases over-budget parameters, the
+            # serving checkpoint included
+            print("checkpoint NOT written (over budget):", args.checkpoint)
+        raise SystemExit(
+            "aborted: privacy budget exhausted (--strict-budget)")
 
 
 if __name__ == "__main__":

@@ -10,6 +10,13 @@
 * ``repro_torch.optim``: ``sgd`` (with and without momentum), ``adamw``
   (with weight decay) and ``global_norm`` against the reference over three
   updates.
+* Full-state checkpoints (``Session.save`` / ``Session.restore``): a
+  ``PartPSPState``'s ``names``, ``dtypes`` and ``shapes`` equal the
+  reference's exactly (``.dpps/.push/.s/0``, ..., ``.dpps/.t`` an int32 0-d
+  array, ``.local/0``, ...); a state either package writes restores in the
+  other and resumes as the uninterrupted run does (rtol 1e-4 / atol 1e-5,
+  the training tolerance), and within the port bit for bit (the restored
+  round counter continues the same Philox stream).
 
 Checkpoints round-trip exactly (the same f32 bits); the two packages'
 consensus views of one state agree to rtol 1e-6 (s-bar is a mean over
@@ -29,10 +36,12 @@ import numpy as np
 import pytest
 import torch
 
+from test_torch_hooks import _sessions as mlp_sessions
 from test_torch_models import cfg_to_reference
-from test_torch_reference import load_reference, to_numpy
+from test_torch_reference import load_reference, reference_bits, to_numpy
 
 from repro_torch import convert
+from repro_torch.convert import tree_from_numpy
 from repro_torch.api import Session
 from repro_torch.checkpoint import load_checkpoint, save_checkpoint
 from repro_torch.configs import get_config
@@ -257,3 +266,104 @@ def test_global_norm_matches_reference(R):
     assert got.dtype == torch.float32
     np.testing.assert_allclose(float(got), float(want), rtol=1e-6)
     assert float(global_norm({})) == 0.0
+
+
+# -- full-state checkpoints ---------------------------------------------------
+
+def test_full_state_names_dtypes_and_shapes_equal_the_references(R, tmp_path):
+    cfg, ref_model, params = _ref_params(R)
+    port, st, ref, rst = _sessions(R, cfg, ref_model, params)
+    st = st._replace(dpps=st.dpps._replace(t=3))
+    rst = rst._replace(dpps=rst.dpps._replace(t=jnp.asarray(3, jnp.int32)))
+    port.save(str(tmp_path / "port"), st, step=3, metadata={"k": 1})
+    ref.save(str(tmp_path / "ref"), rst, step=3, metadata={"k": 1})
+    metas = [json.loads((tmp_path / d / "meta.json").read_text())
+             for d in ("port", "ref")]
+    for key in ("step", "names", "dtypes", "shapes", "user"):
+        assert metas[0][key] == metas[1][key], key
+    names = metas[0]["names"]
+    assert names[0] == ".dpps/.push/.s/0"
+    assert [n for n in names if not n.startswith((".dpps/.push/.s/",
+                                                  ".local/"))] == [
+        ".dpps/.push/.a", ".dpps/.sens/.s_local",
+        ".dpps/.sens/.prev_noise_l1", ".dpps/.sens/.c_prime",
+        ".dpps/.sens/.lam", ".dpps/.t"]
+    t_index = names.index(".dpps/.t")
+    assert metas[0]["dtypes"][t_index] == "int32"
+    assert metas[0]["shapes"][t_index] == []
+    with np.load(tmp_path / "port" / "tensors.npz") as a, \
+            np.load(tmp_path / "ref" / "tensors.npz") as b:
+        for k in b.files:
+            np.testing.assert_array_equal(a[k], b[k])
+    got, meta = port.restore(str(tmp_path / "ref"))
+    assert got.dpps.t == 3 and isinstance(got.dpps.t, int)
+    assert type(got).__name__ == "PartPSPState"
+    _trees_equal(got.dpps.push.s, rst.dpps.push.s)
+    _trees_equal(got.local, rst.local)
+
+
+def _resume_runs(R, writer, tmp_path):
+    """Three engine rounds in the writer's package, saved; restored in the
+    other package (and in the writer's own) and run four more rounds."""
+    ref_session, session, batches = mlp_sessions(R)
+    d_s = session.partition.d_shared()
+    bits_at = lambda t: torch.from_numpy(reference_bits(
+        2024, t, session.n_nodes, d_s, partpsp=True))
+    port_batch = lambda t: tree_from_numpy(batches[t], device="cpu")
+    ref_batch = lambda t: jax.tree_util.tree_map(jnp.asarray, batches[t])
+    path = str(tmp_path / "state")
+    if writer == "port":
+        first = session.train(3, port_batch, bits_at=bits_at)
+        session.save(path, first.state, step=3)
+    else:
+        first = ref_session.train(3, ref_batch)
+        ref_session.save(path, first.state, step=3)
+    restored, meta = session.restore(path)
+    ref_restored, ref_meta = ref_session.restore(path)
+    assert meta["step"] == ref_meta["step"] == 3
+    assert restored.dpps.t == int(ref_restored.dpps.t) == 3
+    port_rest = session.train(4, port_batch, state=restored, bits_at=bits_at)
+    ref_rest = ref_session.train(4, ref_batch, state=ref_restored, start=3)
+    whole = ref_session.train(7, ref_batch)
+    return port_rest, ref_rest, whole
+
+
+def _close_states(got, want, rtol=1e-4, atol=1e-5):
+    for x, y in zip(tree_leaves(got), jax.tree_util.tree_leaves(want)):
+        if isinstance(x, int):
+            assert x == int(y)
+            continue
+        want_np = np.asarray(y)
+        np.testing.assert_allclose(to_numpy(x), want_np, rtol=rtol,
+                                   atol=atol + 1e-6 * float(
+                                       np.abs(want_np).max()))
+
+
+@pytest.mark.parametrize("writer", ["port", "reference"])
+def test_full_state_restores_across_packages_and_resumes(R, tmp_path,
+                                                         writer):
+    port_rest, ref_rest, whole = _resume_runs(R, writer, tmp_path)
+    assert port_rest.state.dpps.t == int(ref_rest.state.dpps.t) == 7
+    _close_states(port_rest.state, whole.state)
+    _close_states(ref_rest.state, whole.state, rtol=1e-6, atol=1e-7)
+    for k in ("loss_mean", "sensitivity_used", "noise_l1_mean"):
+        np.testing.assert_allclose(port_rest.trajectory[k],
+                                   np.asarray(whole.trajectory[k])[3:],
+                                   rtol=1e-4, atol=1e-5)
+
+
+def test_restored_run_continues_the_philox_stream_bit_for_bit(R, tmp_path):
+    _, session, batches = mlp_sessions(R)
+    batch_at = lambda t: tree_from_numpy(batches[t], device="cpu")
+    whole = session.train(7, batch_at)
+    first = session.train(3, batch_at)
+    session.save(str(tmp_path), first.state, step=3)
+    restored, _ = session.restore(str(tmp_path))
+    rest = session.train(4, batch_at, state=restored)
+    for x, y in zip(tree_leaves(rest.state), tree_leaves(whole.state)):
+        if isinstance(x, int):
+            assert x == y
+        else:
+            assert torch.equal(x, y)
+    for k, v in rest.trajectory.items():
+        np.testing.assert_array_equal(v, whole.trajectory[k][3:])

@@ -747,3 +747,104 @@ def test_transformer_training_on_the_card_matches_the_cpu(dev):
     for got, want in zip(out["cuda"][1], out["cpu"][1]):
         torch.testing.assert_close(got, want, rtol=1e-4,
                                    atol=1e-5 * want.abs().max().item())
+
+
+# -- the pytree runtime's entry points ----------------------------------------
+
+@pytest.mark.parametrize("col0", [0, 1, 2, 3, 7840, 7850, 7851])
+@pytest.mark.parametrize("n,size", [(4, 10), (10, 7840), (3, 300_001),
+                                    (4096, 7)])
+def test_perturbation_at_col0_draws_the_packed_launchs_columns(dev, n, size,
+                                                               col0):
+    """A launch over one leaf that starts at wire column col0 against one
+    launch over the packed row holding it there: s_noise bit for bit
+    (col0 % 4 != 0 straddles two Philox counters a quad), and the plain
+    version at col0 bit for bit too."""
+    gen = torch.Generator(device=dev).manual_seed(n + size + col0)
+    d_row = col0 + size
+    d_pad = -(-d_row // 4) * 4
+    s = torch.randn((n, d_pad), generator=gen, device=dev)
+    eps = torch.randn((n, d_pad), generator=gen, device=dev)
+    scale = torch.tensor(0.7, device=dev)
+    whole = ops.dpps_perturb_rows(s, eps, scale, 0.1, d_row, seed=5, t=3)
+    leaf_pad = -(-size // 4) * 4
+    ls = torch.zeros((n, leaf_pad), device=dev)
+    le = torch.zeros((n, leaf_pad), device=dev)
+    ls[:, :size], le[:, :size] = s[:, col0:d_row], eps[:, col0:d_row]
+    got = ops.dpps_perturb_rows(ls, le, scale, 0.1, size, seed=5, t=3,
+                                col0=col0)
+    assert torch.equal(got[0][:, :size], whole[0][:, col0:d_row])
+    assert torch.equal(got[0][:, size:], torch.zeros_like(got[0][:, size:]))
+    plain = ref.dpps_perturb_rows(ls, le, scale, 0.1, size, seed=5, t=3,
+                                  col0=col0)
+    assert torch.equal(got[0], plain[0])
+    for g, w in zip(got[1:], plain[1:]):
+        torch.testing.assert_close(g, w, rtol=1e-5, atol=0)
+
+
+def _leaves(dev, shapes, seed=0):
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    return [torch.randn((4,) + sh, generator=gen, device=dev) for sh in shapes]
+
+
+TREE_SHAPES = [(784, 10), (10,), (10, 784), (7,), (3, 5), (2048, 8192)]
+
+
+def test_tree_wrappers_match_their_plain_versions(dev):
+    """One launch a leaf (aligned leaves as views, the others padded):
+    l1_norm_tree to rtol 1e-5; dpps_perturb_tree's s_noise bit for bit and
+    the packed launch's too, its norms to rtol 1e-5; laplace_noise_like to
+    rtol 1e-6 (logf against the CPU's log)."""
+    s, eps = _leaves(dev, TREE_SHAPES), _leaves(dev, TREE_SHAPES, 1)
+    scale = torch.tensor(0.7, device=dev)
+    ops.reset_launch_counts()
+    torch.testing.assert_close(ops.l1_norm_tree(s), ref.l1_norm_tree(s),
+                               rtol=1e-5, atol=0)
+    got, g_eps, g_noise = ops.dpps_perturb_tree(s, eps, scale, 0.1, seed=5,
+                                               t=3)
+    want, w_eps, w_noise = ref.dpps_perturb_tree(s, eps, scale, 0.1, seed=5,
+                                                t=3)
+    counts = ops.launch_counts()
+    assert counts["l1_norm_rows"] == counts["dpps_perturb_rows"] == len(s)
+    for g, w in zip(got, want):
+        assert g.is_contiguous() and torch.equal(g, w)
+    for g, w in ((g_eps, w_eps), (g_noise, w_noise)):
+        torch.testing.assert_close(g, w, rtol=1e-5, atol=0)
+    d_s = sum(x[0].numel() for x in s)
+    packed = ops.dpps_perturb_rows(
+        torch.cat([x.reshape(4, -1) for x in s], 1),
+        torch.cat([x.reshape(4, -1) for x in eps], 1), scale, 0.1, d_s,
+        seed=5, t=3)[0]
+    assert torch.equal(torch.cat([x.reshape(4, -1) for x in got], 1), packed)
+    for x, c0 in zip(s, ref.leaf_columns(s)):
+        torch.testing.assert_close(
+            ops.laplace_noise_like(x, scale, seed=5, t=3, col0=c0),
+            ref.laplace_noise_like(x, scale, seed=5, t=3, col0=c0),
+            rtol=1e-6, atol=1e-6)
+
+
+@pytest.mark.parametrize("schedule", ["dense", "sparse"])
+def test_tree_gossip_launches_a_mix_a_leaf(dev, schedule):
+    """gossip_dense / gossip_sparse with use_kernels against the plain mix
+    (rtol 1e-5 / atol 1e-6, the mix kernels' tolerance above)."""
+    from repro_torch.core.pushsum import (PushSumState, gossip_dense,
+                                          gossip_sparse)
+    topo = ErdosRenyiGraph(4, p=0.9, seed=0)
+    s = _leaves(dev, TREE_SHAPES[:5])
+    a = torch.ones(4, device=dev)
+    ops.reset_launch_counts()
+    if schedule == "dense":
+        w = topo.weight_matrix_torch(0, device=dev)
+        got = gossip_dense(PushSumState(s, a), w, use_kernels=True)
+        want = gossip_dense(PushSumState(s, a), w)
+    else:
+        idx, vals = (torch.as_tensor(x, device=dev)
+                     for x in topo.sparse_weights(0))
+        vals = vals.to(torch.float32)
+        got = gossip_sparse(PushSumState(s, a), idx, vals, use_kernels=True)
+        want = gossip_sparse(PushSumState(s, a), idx, vals)
+    kernel = "pushsum_mix" if schedule == "dense" else "spmm"
+    assert ops.launch_counts()[kernel] == len(s)
+    for g, w in zip(got.s, want.s):
+        assert g.shape == w.shape
+        torch.testing.assert_close(g, w, rtol=1e-5, atol=1e-6)
