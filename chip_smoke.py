@@ -143,16 +143,40 @@ Phases, each printing one JSON line:
                   against its plain version, and each tree perturbation
                   launch bit for bit against the packed launch's columns;
                   the paper MLP on ER(128), sparse schedule, loop against
-                  engine for 5 steps (``spmm`` a leaf).
+                  engine for 5 steps (``spmm`` a leaf), noise on and off.
 23. ``resume``    on the same session (the engine): 2 rounds,
                   ``Session.save``, ``Session.restore`` into a fresh
                   template, 1 more round, bit for bit 3 uninterrupted rounds
                   in state and trajectory; the checkpoint's GB and the save
                   and load seconds (a temporary directory, removed).
+24. ``faults``    ``FaultModel(drop_rate=0.2, straggler_rate=0.1, churn=((4,
+                  5, 12),))``: (a) ``run(20)`` at the dense full width (the
+                  "dynamic" schedule) and (b) at the sparse full width
+                  (ER(24)), ms a round beside phases 3 and 5, the host ms
+                  of realizing a round's weights, mean(a) = 1, node 4
+                  isolated in its window, ``pushsum_mix`` bit for bit its
+                  plain version on a realized W and ``spmm`` on realized
+                  values (bit for bit ``pushsum_mix`` there too); (c) phase
+                  15's session under drop 0.2 and stragglers 0.25, 3 steps
+                  with ``LedgerHook`` and ``NetworkStatsHook``: ms a step,
+                  peak memory, the ledger's realized degrees, the network
+                  summary; (d) the paper MLP on ER(128), dense and sparse,
+                  5 steps by the loop and by the engine, noise on (masks,
+                  ``a``, the losses and the ``net_*`` rows bit for bit, the
+                  state to rtol 1e-4) and off (the state bit for bit).
+25. ``async``     (a) DPPS consensus over llama3.2-1b's shared width (N =
+                  4, d_s = 243,286,016), dense, ``DelayModel(max_delay=2,
+                  timeout_rate=0.1, rates=(1, 2, 1, 1))`` with drop 0.1, 10
+                  rounds: ms a round, peak memory beside its reckoning,
+                  B + 1 mixes a round, mass 1 to 1e-5, staleness <= 2;
+                  (b) the MLP on ER(128), sparse, delays and faults: the
+                  loop, the pytree engine and the packed engine as in
+                  24d; (c) 2 async rounds, ``Session.save``, restore, 1
+                  round: bit for bit 3 rounds.
 
 Each kernel counts its launches. The counts are set to 0 just before each
 path (phases 3-7, 10, 13, 15, 17, each run of 19 and 22, each serve of 20,
-and 23) and read just after; each path names the kernels it must launch
+23, and each run of 24 and 25) and read just after; each path names the kernels it must launch
 (and the sparse paths must launch ``pushsum_mix`` no time; the training
 paths exactly their counts). Then come the card's
 name and power limit (``nvidia-smi``), the ``kernels`` line with every
@@ -289,6 +313,13 @@ LOOP_STEPS, LOOP_MLP_STEPS = 3, 5
 MLP_BIAS_SHAPES = [(784, 10), (10,), (10, 784), (784,), (784, 10), (10,)]
 # phase 23: rounds before the save, rounds after the restore
 RESUME_SPLIT = (2, 1)
+# phase 24: the fault models of the consensus and MLP runs, and of training
+FAULTS = dict(drop_rate=0.2, straggler_rate=0.1, churn=((4, 5, 12),))
+FAULTS_TRAIN = dict(drop_rate=0.2, straggler_rate=0.25)
+# phase 25: bounded delays (B = 2) on llama3.2-1b's shared width, N = 4
+DELAYS = dict(max_delay=2, timeout_rate=0.1, rates=(1, 2, 1, 1))
+ASYNC_ROUNDS = 10
+ASYNC_MLP = dict(max_delay=2, timeout_rate=0.1, rates=(1, 2, 1, 1) * 32)
 
 KERNELS = {
     "l1_norm_rows": dict(source="src/repro_torch/kernels/csrc/l1_norm.cu",
@@ -2575,10 +2606,11 @@ def states_agree(torch, got: list, want: list, rtol: float = 1e-4,
     return dict(max_abs_err=worst, off=bad, leaves=len(got))
 
 
-def lm_session(torch, T):
+def lm_session(torch, T, **build_kw):
     """phase 15's session: llama3.2-1b at full width, its rules, N = 4,
     2-out, dense schedule, gamma_n half the stability limit; with its
-    batches (made before the runs)."""
+    batches (made before the runs). ``build_kw`` goes to ``Session.build``
+    (phase 24's ``faults=``)."""
     from repro_torch.api import PrivacySpec, Session
     from repro_torch.configs import get_config
     from repro_torch.data import NodeShardedLoader, SyntheticLMStream
@@ -2597,7 +2629,7 @@ def lm_session(torch, T):
                                   lam=lam),
         model=model, partition=arch.shared_rules, algorithm="partpsp",
         gamma_l=0.05, gamma_s=0.05, clip=100.0, schedule="dense",
-        sync_interval=5, seed=SEED)
+        sync_interval=5, seed=SEED, **build_kw)
     require(session.plan.use_kernels and session.device.type == "cuda",
             "the session did not pick the card and its kernels")
     stream = SyntheticLMStream(vocab_size=cfg.vocab_size,
@@ -2747,53 +2779,6 @@ def tree_checks(torch, ops, ref, dev, shapes: list, n: int, gossip,
     return out
 
 
-def mlp_loop_against_engine(torch, api, mlp, data, ops, dev) -> dict:
-    """The paper MLP (partpsp-2: its two first layers shared) on ER(128),
-    sparse schedule, 5 steps: the loop (an ``spmm`` launch a leaf a round)
-    against the engine, within the training tolerance."""
-    n, steps = SPARSE_TRAIN_N, LOOP_MLP_STEPS
-    batches = training_batches(mlp, data, torch, n, steps)
-    params = mlp.init_mlp(torch.Generator().manual_seed(SEED))
-    session = api.Session.build(
-        sparse_graph(n), privacy=api.PrivacySpec(b=1.0, gamma_n=1e-5),
-        model=mlp.mlp_loss, params=params,
-        partition=mlp.PARTITIONS["partpsp-2"], algorithm="partpsp",
-        gamma_l=0.1, gamma_s=0.1, clip=100.0, schedule="sparse",
-        sync_interval=5, seed=SEED)
-    on = [tuple(x.to(dev) for x in b) for b in batches]
-    leaves = len(session.train_state().dpps.push.s)
-    runs, launches = {}, {}
-    for driver in ("loop", "engine"):
-        torch.cuda.synchronize()
-        ops.reset_launch_counts()
-        t0 = time.perf_counter()
-        rep = session.train(steps, lambda t: on[t], driver=driver)
-        torch.cuda.synchronize()
-        runs[driver] = (rep, (time.perf_counter() - t0) / steps * 1e3)
-        launches[driver] = ops.launch_counts()
-        want = tree_launches(leaves if driver == "loop" else 1, 0, steps, 5,
-                             mix="spmm")
-        require(launches[driver] == want,
-                f"MLP {driver} launches {launches[driver]}, expected {want}")
-    loop, engine = runs["loop"][0], runs["engine"][0]
-    agree = states_agree(torch, state_leaves(torch, loop.state),
-                         state_leaves(torch, engine.state))
-    require(not agree["off"], f"MLP loop against engine: {agree}")
-    traj_err = {}
-    for k, v in engine.trajectory.items():
-        g, w = torch.as_tensor(loop.trajectory[k]), torch.as_tensor(v)
-        traj_err[k] = (g - w).abs().max().item()
-        require(torch.allclose(g.double(), w.double(), rtol=1e-4,
-                               atol=1e-6 * w.abs().max().item()),
-                f"MLP trajectory {k}: loop {g} engine {w}")
-    return dict(n=n, topology="ErdosRenyiGraph(128, p=8/128)",
-                schedule="sparse", partition="partpsp-2", leaves=leaves,
-                d_s=session.partition.d_shared(), steps=steps,
-                loop_ms_per_step=runs["loop"][1],
-                engine_ms_per_step=runs["engine"][1], launches=launches,
-                state=agree, trajectory_max_abs_err=traj_err)
-
-
 def loop_training(torch, api, mlp, data, ops, ref, T, dev,
                   tmp: str) -> tuple:
     """Phase 22. ``Session.train(3, driver="loop")`` of phase 15's session
@@ -2808,9 +2793,9 @@ def loop_training(torch, api, mlp, data, ops, ref, T, dev,
     memory. Then :func:`tree_checks` at llama's shared leaves (the dense
     gossip) and the MLP's (the sparse gossip on ER(128)): every tree entry
     point against its plain version, each tree perturbation launch bit for
-    bit against the packed launch's columns; and the MLP run of
-    :func:`mlp_loop_against_engine`. Returns (line, session, batches,
-    launch counts) for phase 23."""
+    bit against the packed launch's columns; and the paper MLP on ER(128),
+    sparse, loop against engine (:func:`mlp_drivers`, no faults). Returns
+    (line, session, batches, launch counts) for phase 23."""
     import os
 
     from repro_torch.audit import PrivacyLedger
@@ -2903,9 +2888,11 @@ def loop_training(torch, api, mlp, data, ops, ref, T, dev,
     require(any(r["col0_mod4"]
                 for r in mlp_tree["perturb_bits_against_packed"]),
             "no straddling leaf")
-    ops.reset_launch_counts()
-    mlp_run = mlp_loop_against_engine(torch, api, mlp, data, ops, dev)
-    counts += [mlp_run["launches"]["loop"], mlp_run["launches"]["engine"]]
+    mlp_run = mlp_drivers(torch, api, mlp, data, ops, dev,
+                          topo=sparse_graph(SPARSE_TRAIN_N), schedule="sparse",
+                          sync_interval=5)
+    counts += [launches for run in ("noise_on", "noise_off")
+               for launches in mlp_run[run]["launches"].values()]
     line = dict(
         phase="loop_training", arch=TRAIN_LM["arch"], nodes=TRAIN_LM["n"],
         topology="DOutGraph(4, 2)", schedule="dense", d_s=TRAIN_LM["d_s"],
@@ -2991,6 +2978,471 @@ def resume(torch, ops, session, batches, tmp: str) -> dict:
                 t_leaf=[n for n in names if n.endswith("/.t")],
                 bit_equal_state=True, bit_equal_trajectory=True,
                 launches=launches)
+
+
+# -- phase 24: network faults at full width -----------------------------------
+
+def faulted_consensus(torch, api, T, ops, ref, dev, *, topo, shape: dict,
+                      schedule: str, fault_free_ms: float) -> dict:
+    """``Session.run(20)`` under ``FaultModel(**FAULTS)`` over an (N, d_s)
+    f32 buffer, one timed call: ms a round beside the fault-free phase's,
+    the host ms of realizing each round's weights (its share of the round),
+    mean(a) = 1 to 1e-5, node 4 isolated in its churn window, exact
+    launches. Then the mix kernel against its plain version on one realized
+    round's weights (round 6, node 4 down), over column windows:
+    ``pushsum_mix`` bit for bit (N <= 32: one fma chain a column in both);
+    ``spmm`` to rtol 1e-6 / atol 1e-6 (fma against a multiply and an add)
+    and bit for bit against ``pushsum_mix`` on the same weights as a dense
+    W."""
+    from repro_torch.net import FaultModel
+
+    n, d_s = shape["n"], shape["d_s"]
+    c_prime, lam = T.calibrate_constants(topo)
+    gamma_n = 0.5 * (1.0 / lam - 1.0) / (2.0 * c_prime * d_s)
+    session = api.Session.build(topo, privacy=api.PrivacySpec(
+        b=1.0, gamma_n=gamma_n, c_prime=c_prime, lam=lam), schedule=schedule,
+        seed=SEED, faults=FaultModel(**FAULTS))
+    plan = session.plan
+    require(plan.dynamic and plan.use_kernels
+            and plan.schedule == ("sparse" if schedule == "sparse"
+                                  else "dynamic"), f"plan {plan.schedule}")
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    values = {"shared": torch.randn((n, d_s), generator=gen, device=dev)}
+    session.run(2, values=values)                   # warms the allocator
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    rep = session.run(CONSENSUS_ROUNDS, values=values)
+    torch.cuda.synchronize()
+    run_ms = (time.perf_counter() - t0) * 1e3
+    launches = ops.launch_counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    mix = "spmm" if schedule == "sparse" else "pushsum_mix"
+    expected = {k: 0 for k in KERNELS}
+    expected.update(l1_norm_rows=CONSENSUS_ROUNDS + 1,
+                    dpps_perturb_rows=CONSENSUS_ROUNDS,
+                    **{mix: CONSENSUS_ROUNDS})
+    require(launches == expected, f"launches {launches}, expected {expected}")
+    a = rep.state.push.a
+    a_mean = a.double().mean().item()
+    require(abs(a_mean - 1.0) < 1e-5 and bool((a > 0).all()),
+            f"mean(a) = {a_mean}")
+    require(bool(torch.isfinite(rep.state.push.s["shared"]).all()),
+            "state not finite")
+    traj = rep.trajectory
+    down = traj["net_out_degree"][5:12, 4]
+    require(bool((down == 0).all()) and int(traj["net_out_degree"][4, 4]) > 0,
+            f"churn: node 4's degrees {traj['net_out_degree'][:, 4]}")
+    dropped = [int(x) for x in traj["net_dropped_edges"]]
+    require(sum(dropped) > 0, "no edge dropped")
+    del rep
+    torch.cuda.empty_cache()
+
+    realize_ms = []
+    for t in range(CONSENSUS_ROUNDS):
+        kwargs = plan.mix_at(t)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if schedule == "sparse":
+            plan.faults.realize_sparse(kwargs["sparse_idx"],
+                                       kwargs["sparse_vals"], t, seed=SEED)
+        else:
+            plan.faults.realize(kwargs["w"], t, seed=SEED)
+        torch.cuda.synchronize()
+        realize_ms.append((time.perf_counter() - t0) * 1e3)
+    ms_per_round = run_ms / CONSENSUS_ROUNDS
+    realize_mean = sum(realize_ms) / len(realize_ms)
+
+    kwargs = plan.mix_at(6)
+    buf = values["shared"]
+    if schedule == "sparse":
+        idx = kwargs["sparse_idx"]
+        vals, _ = plan.faults.realize_sparse(idx, kwargs["sparse_vals"], 6,
+                                             seed=SEED)
+        w = torch.zeros((n, n), device=dev).index_put_(
+            (torch.arange(n, device=dev)[:, None].expand_as(idx),
+             idx.long()), vals, accumulate=True)
+        out = ops.spmm(idx, vals, buf)
+        plain = lambda c0, c1: ref.spmm(idx, vals, buf[:, c0:c1])
+        tol = (1e-6, 1e-6)
+    else:
+        w, _ = plan.faults.realize(kwargs["w"], 6, seed=SEED)
+        out = ops.pushsum_mix(w, buf)
+        plain = lambda c0, c1: ref.pushsum_mix(w, buf[:, c0:c1].contiguous())
+        tol = (0.0, 0.0)
+    require(bool((w[:, 4] == torch.eye(n, device=dev)[:, 4]).all()),
+            "node 4 is not isolated in round 6's realized weights")
+    worst, ok, bit = [0.0], [True], [True]
+
+    def check(c0, c1, want):
+        err, good = compare(out[:, c0:c1], want, *tol)
+        worst[0] = max(worst[0], err)
+        ok[0] = ok[0] and good
+        bit[0] = bit[0] and bool(torch.equal(out[:, c0:c1], want))
+
+    plain_ms = timed_windows(torch, plain, check, d_s, 1 << 24)
+    require(ok[0] and (schedule == "sparse" or bit[0]),
+            f"{mix} off its plain version on realized weights: {worst[0]}")
+    line = dict(n=n, d_s=d_s, topology=type(topo).__name__,
+                schedule=plan.schedule, faults=FAULTS, rounds=CONSENSUS_ROUNDS,
+                gamma_n=gamma_n, run_ms=run_ms, ms_per_round=ms_per_round,
+                fault_free_ms_per_round=fault_free_ms,
+                over_fault_free=ms_per_round / fault_free_ms,
+                realize_host_ms=realize_ms, realize_host_ms_mean=realize_mean,
+                realize_share_of_round=realize_mean / ms_per_round,
+                a_mean=a_mean, dropped_edges=dropped,
+                node4_out_degree=[int(x) for x in
+                                  traj["net_out_degree"][:, 4]],
+                peak_mem_gb=peak_gb, launches=launches,
+                realized_mix=dict(kernel=mix, max_abs_err=worst[0],
+                                  bit_equal_plain=bit[0], rtol=tol[0],
+                                  atol=tol[1], plain_ms_windows=plain_ms))
+    if schedule == "sparse":
+        same = [True]
+
+        def check_dense(c0, c1, want):
+            same[0] = same[0] and bool(torch.equal(out[:, c0:c1], want))
+
+        timed_windows(torch, lambda c0, c1: ops.pushsum_mix(
+            w, buf[:, c0:c1].contiguous()), check_dense, d_s, 1 << 24)
+        require(same[0], "spmm off pushsum_mix on the realized weights")
+        line["realized_mix"]["bit_equal_pushsum_mix"] = True
+    del out, values, buf
+    torch.cuda.empty_cache()
+    return line
+
+
+def faulted_training(torch, api, T, ops) -> dict:
+    """Phase 15's session (llama3.2-1b full width, N = 4) built with
+    ``FaultModel(**FAULTS_TRAIN)`` (the "dynamic" schedule), trained 3 steps
+    under a ``LedgerHook`` and a ``NetworkStatsHook``: ms a step, peak
+    memory, exact launches, the ledger's realized out-degrees and the
+    network summary."""
+    from repro_torch.net import FaultModel, NetworkStatsHook
+
+    session, batches, gamma_n = lm_session(
+        torch, T, faults=FaultModel(**FAULTS_TRAIN))
+    require(session.plan.schedule == "dynamic", session.plan.schedule)
+    steps = LOOP_STEPS
+    hooks = [api.LedgerHook(), NetworkStatsHook()]
+    events = {}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    rep, step_ms = timed_train(torch, session, batches, steps, events,
+                               hooks=hooks)
+    launches = ops.launch_counts()
+    want = tree_launches(1, 0, steps, 5)
+    require(launches == want, f"launches {launches}, expected {want}")
+    loss = [float(x) for x in rep.trajectory["loss_mean"]]
+    require(all(math.isfinite(x) for x in loss), f"losses {loss}")
+    a_mean = rep.state.dpps.push.a.double().mean().item()
+    require(abs(a_mean - 1.0) < 1e-5, f"mean(a) = {a_mean}")
+    entries = hooks[0].ledger.entries
+    degrees = [dict(round=e["round"], out_degree_min=e["out_degree_min"],
+                    out_degree_mean=e["out_degree_mean"],
+                    dropped_edges=e["dropped_edges"]) for e in entries]
+    require(len(degrees) == steps, f"ledger {entries}")
+    network = rep.network.summary()
+    dpps_ms = [a.elapsed_time(b) for a, b, _ in events["dpps_step"]]
+    line = dict(arch=TRAIN_LM["arch"], nodes=TRAIN_LM["n"],
+                d_s=TRAIN_LM["d_s"], faults=FAULTS_TRAIN, steps=steps,
+                gamma_n=gamma_n, step_ms=step_ms,
+                ms_per_step=sum(step_ms[1:]) / (steps - 1),
+                dpps_round_ms=dpps_ms,
+                peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
+                losses=loss, a_mean=a_mean, launches=launches,
+                ledger_degrees=degrees, network=network)
+    del rep, session, batches
+    torch.cuda.empty_cache()
+    return line
+
+
+NOISE_ROWS = ("sensitivity_used", "sensitivity_estimate",
+              "sensitivity_local", "eps_l1_max", "noise_l1_mean")
+
+
+def mlp_drivers(torch, api, mlp, data, ops, dev, *, topo, schedule: str,
+                faults=None, delays=None, sync_interval: int,
+                pair=("loop", "engine")) -> dict:
+    """The paper MLP (partpsp-2) ``LOOP_MLP_STEPS`` steps on ``topo``
+    under the fault and delay models (kwargs dicts), by the two runs of
+    ``pair`` ("loop": the per-round driver; "engine"; "pytree": the engine
+    with ``packed=False``), noise on and off, with exact launches (a leaf a
+    launch for the loop and the pytree runtime; ``B + 1`` mixes a round a
+    buffer under delays). Noise on: every ``net_*`` and ``async_*`` row,
+    ``a`` and the losses bit for bit, the state to rtol 1e-4 (the norms sum
+    a leaf at a time against once over the buffer, so a sensitivity can
+    differ by an ulp). Noise off: the state and every row but the norms'
+    bit for bit."""
+    from repro_torch.net import DelayModel, FaultModel
+
+    n, steps = topo.n_nodes, LOOP_MLP_STEPS
+    batches = training_batches(mlp, data, torch, n, steps)
+    on = [tuple(x.to(dev) for x in b) for b in batches]
+    params = mlp.init_mlp(torch.Generator().manual_seed(SEED))
+    mix = "spmm" if schedule == "sparse" else "pushsum_mix"
+    b = 0 if delays is None else delays["max_delay"]
+    out = {}
+    for noise in (True, False):
+        reps = {}
+        for run in pair:
+            session = api.Session.build(
+                topo, privacy=api.PrivacySpec(b=1.0, gamma_n=1e-5,
+                                              noise=noise, c_prime=0.8,
+                                              lam=0.6),
+                model=mlp.mlp_loss, params=params,
+                partition=mlp.PARTITIONS["partpsp-2"], algorithm="partpsp",
+                gamma_l=0.1, gamma_s=0.1, clip=100.0, schedule=schedule,
+                sync_interval=sync_interval, seed=SEED,
+                packed=run != "pytree",
+                faults=FaultModel(**faults) if faults else None,
+                delays=DelayModel(**delays) if delays else None)
+            leaves = len(session.train_state().dpps.push.s)
+            torch.cuda.synchronize()
+            ops.reset_launch_counts()
+            t0 = time.perf_counter()
+            rep = session.train(steps, lambda t: on[t],
+                                driver="loop" if run == "loop" else "engine")
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) / steps * 1e3
+            launches = ops.launch_counts()
+            per = 1 if run == "engine" else leaves
+            want = {k: 0 for k in KERNELS}
+            want.update(
+                l1_norm_rows=per * (steps + 1),
+                dpps_perturb_rows=per * steps if noise else 0,
+                **{mix: per * (b + 1) * sum(
+                    (t + 1) % sync_interval != 0 if sync_interval else True
+                    for t in range(steps))})
+            require(launches == want, f"MLP {run} noise={noise}: launches "
+                                      f"{launches}, expected {want}")
+            reps[run] = (rep, ms, launches)
+        (r0, ms0, l0), (r1, ms1, l1) = reps[pair[0]], reps[pair[1]]
+        s0, s1 = state_leaves(torch, r0.state), state_leaves(torch, r1.state)
+        a_equal = bool(torch.equal(r0.state.dpps.push.a,
+                                   r1.state.dpps.push.a))
+        state_bit = all(bool(torch.equal(x, y)) for x, y in zip(s0, s1))
+        agree = states_agree(torch, s0, s1)
+        draws_rows = [k for k in r0.trajectory
+                      if k.startswith(("net_", "async_")) or k in (
+                          "a_min", "a_max")]
+        rows_bit = {k: bool((r0.trajectory[k] == r1.trajectory[k]).all())
+                    for k in r0.trajectory}
+        require(a_equal and all(rows_bit[k] for k in draws_rows)
+                and rows_bit["loss_mean"],
+                f"MLP {pair} noise={noise}: masks / a / losses differ: "
+                f"{rows_bit}")
+        require(not agree["off"], f"MLP {pair} noise={noise}: {agree}")
+        if not noise:
+            require(state_bit and all(v for k, v in rows_bit.items()
+                                      if k not in NOISE_ROWS),
+                    f"MLP {pair} noise off: not bit for bit: {rows_bit}")
+        if delays is not None:
+            mass = r1.trajectory["async_mass_mean"]
+            require(bool((abs(mass - 1.0) <= 1e-5).all()), f"mass {mass}")
+            require(int(r1.trajectory["async_staleness_max"].max()) <= b,
+                    "staleness over B")
+        out["noise_on" if noise else "noise_off"] = dict(
+            ms_per_step={pair[0]: ms0, pair[1]: ms1},
+            launches={pair[0]: l0, pair[1]: l1}, a_bit_equal=a_equal,
+            draw_rows_bit_equal=draws_rows + ["loss_mean"],
+            state_bit_equal=state_bit,
+            state=agree,
+            dropped_edges=(int(r1.trajectory["net_dropped_edges"].sum())
+                           if "net_dropped_edges" in r1.trajectory else None))
+        del reps, r0, r1
+    return dict(n=n, topology=type(topo).__name__, schedule=schedule,
+                partition="partpsp-2", steps=steps, faults=faults,
+                delays=delays, sync_interval=sync_interval, pair=list(pair),
+                **out)
+
+
+def faults_phase(torch, api, mlp, data, ops, ref, T, dev, *,
+                 dense_ms: float, sparse_ms: float) -> tuple[dict, list]:
+    """Phase 24: (a) the dense full width (N = 5) and (b) the sparse full
+    width (ER(24)) under faults, (c) llama3.2-1b's training under faults,
+    (d) the paper MLP on ER(128), dense and sparse, loop against engine.
+    Returns (line, launch counts of each run)."""
+    counts = []
+    dense = faulted_consensus(torch, api, T, ops, ref, dev,
+                              topo=T.DOutGraph(FULL["n"], 2), shape=FULL,
+                              schedule="dense", fault_free_ms=dense_ms)
+    counts.append(dense["launches"])
+    sparse = faulted_consensus(torch, api, T, ops, ref, dev,
+                               topo=sparse_graph(SPARSE_FULL["n"]),
+                               shape=SPARSE_FULL, schedule="sparse",
+                               fault_free_ms=sparse_ms)
+    counts.append(sparse["launches"])
+    trained = faulted_training(torch, api, T, ops)
+    counts.append(trained["launches"])
+    mlps = {}
+    for schedule in ("dense", "sparse"):
+        mlps[schedule] = mlp_drivers(
+            torch, api, mlp, data, ops, dev,
+            topo=sparse_graph(SPARSE_TRAIN_N), schedule=schedule,
+            faults=FAULTS, sync_interval=5)
+        for noise in ("noise_on", "noise_off"):
+            counts += list(mlps[schedule][noise]["launches"].values())
+    return dict(phase="faults", dense_full=dense, sparse_full=sparse,
+                training=trained, mlp=mlps), counts
+
+
+# -- phase 25: bounded-delay async push-sum at full width ----------------------
+
+def async_consensus(torch, api, T, ops, dev) -> dict:
+    """DPPS consensus over llama3.2-1b's shared width (N = 4, d_s =
+    243,286,016: one buffer 3.89 GB) on 2-out, dense schedule,
+    ``DelayModel(**DELAYS)`` with ``drop_rate=0.1``, ``ASYNC_ROUNDS``
+    rounds in one timed call: ms a round, peak memory beside its
+    reckoning, the mix launched B + 1 times a round, mass and staleness."""
+    from repro_torch.net import DelayModel, FaultModel
+
+    n, d_s = TRAIN_FULL["n"], TRAIN_FULL["d_s"]
+    topo = T.DOutGraph(n, 2)
+    c_prime, lam = T.calibrate_constants(topo)
+    gamma_n = 0.5 * (1.0 / lam - 1.0) / (2.0 * c_prime * d_s)
+    delays = DelayModel(**DELAYS)
+    session = api.Session.build(topo, privacy=api.PrivacySpec(
+        b=1.0, gamma_n=gamma_n, c_prime=c_prime, lam=lam), schedule="dense",
+        sync_interval=0, seed=SEED, delays=delays,
+        faults=FaultModel(drop_rate=0.1))
+    require(session.plan.delays is delays and session.plan.dynamic,
+            "plan")
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    values = {"shared": torch.randn((n, d_s), generator=gen, device=dev)}
+    buffer_gb = n * d_pad_of(d_s) * 4 / 1e9
+    torch.cuda.synchronize()
+    base_gb = torch.cuda.memory_allocated() / 1e9
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    rep = session.run(ASYNC_ROUNDS, values=values)
+    torch.cuda.synchronize()
+    run_ms = (time.perf_counter() - t0) * 1e3
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    launches = ops.launch_counts()
+    b = delays.max_delay
+    expected = {k: 0 for k in KERNELS}
+    expected.update(l1_norm_rows=ASYNC_ROUNDS + 1,
+                    dpps_perturb_rows=ASYNC_ROUNDS,
+                    pushsum_mix=(b + 1) * ASYNC_ROUNDS)
+    require(launches == expected, f"launches {launches}, expected {expected}")
+    traj = rep.trajectory
+    mass = [float(x) for x in traj["async_mass_mean"]]
+    require(all(abs(x - 1.0) <= 1e-5 for x in mass), f"mass {mass}")
+    stale = int(traj["async_staleness_max"].max())
+    require(stale <= b, f"staleness {stale}")
+    require(all(bool(torch.isfinite(x).all()) for x in
+                (rep.state.push.s["shared"], rep.state.mail.cal_s["shared"],
+                 rep.state.mail.inbox_s["shared"])), "state not finite")
+    reckoned = 3 + (b + 1) + 1 + 1 + 1 + b + 1
+    require(peak_gb <= base_gb + (reckoned - 0.5) * buffer_gb,
+            f"peak {peak_gb} GB over the reckoned {reckoned} buffers")
+    line = dict(n=n, d_s=d_s, buffer_gb=buffer_gb, topology="DOutGraph(4, 2)",
+                schedule="dense", delays=dict(DELAYS, rates=list(
+                    DELAYS["rates"])), faults=dict(drop_rate=0.1),
+                rounds=ASYNC_ROUNDS, gamma_n=gamma_n, run_ms=run_ms,
+                ms_per_round=run_ms / ASYNC_ROUNDS,
+                allocated_before_gb=base_gb, peak_mem_gb=peak_gb,
+                # live buffers at a round's peak: the caller's values, the
+                # state, the zero perturbation, the incoming mailbox (B
+                # calendar slots and the inbox), the noised payload, the
+                # arrivals, the new state, the new calendar (B) and one
+                # slot's mix output
+                peak_reckoned_buffers=reckoned,
+                peak_reckoned_gb=reckoned * buffer_gb,
+                reference_step_leaf_buffers=17,
+                reference_reckoned_gb=17 * buffer_gb,
+                dense_full_width_note=(
+                    "the dense full width (N = 5, d_s = 505,956,352: 10.1 GB "
+                    "a buffer) needs about 12 such buffers with a B = 2 "
+                    "mailbox, 121 GB: more than the card holds; phase 25 "
+                    "runs llama3.2-1b's shared width instead"),
+                async_mass_mean=mass,
+                staleness_max=[int(x) for x in traj["async_staleness_max"]],
+                timeouts=[int(x) for x in traj["async_timeouts"]],
+                active=[int(x) for x in traj["async_active"]],
+                delay_hist=[[int(v) for v in row]
+                            for row in traj["async_delay_hist"]],
+                launches=launches)
+    del rep, values
+    torch.cuda.empty_cache()
+    return line
+
+
+def async_resume(torch, api, mlp, data, ops, dev, tmp: str) -> dict:
+    """Phase 25c: the paper MLP on ER(128), sparse schedule, delays and
+    faults, packed engine: 2 rounds, ``Session.save`` (the mailbox among
+    the leaves), ``Session.restore`` into a fresh template, 1 more round,
+    bit for bit 3 uninterrupted rounds."""
+    import os
+
+    from repro_torch.net import DelayModel, FaultModel
+
+    first, then = RESUME_SPLIT
+    topo = sparse_graph(SPARSE_TRAIN_N)
+    batches = training_batches(mlp, data, torch, topo.n_nodes, first + then)
+    on = [tuple(x.to(dev) for x in b) for b in batches]
+    session = api.Session.build(
+        topo, privacy=api.PrivacySpec(b=1.0, gamma_n=1e-5, c_prime=0.8,
+                                      lam=0.6),
+        model=mlp.mlp_loss, params=mlp.init_mlp(
+            torch.Generator().manual_seed(SEED)),
+        partition=mlp.PARTITIONS["partpsp-2"], algorithm="partpsp",
+        gamma_l=0.1, gamma_s=0.1, clip=100.0, schedule="sparse",
+        sync_interval=0, seed=SEED, delays=DelayModel(**ASYNC_MLP),
+        faults=FaultModel(**FAULTS))
+    batch_at = lambda t: on[t]
+    ops.reset_launch_counts()
+    whole = session.train(first + then, batch_at)
+    part = session.train(first, batch_at)
+    path = os.path.join(tmp, "async_state")
+    session.save(path, part.state, step=first)
+    restored, meta = session.restore(path)
+    require(restored.dpps.t == first, "restored counter")
+    rest = session.train(then, batch_at, state=restored, start=first)
+    torch.cuda.synchronize()
+    launches = ops.launch_counts()
+    got, want = state_leaves(torch, rest.state), state_leaves(torch,
+                                                             whole.state)
+    equal = [bool(torch.equal(g, w)) for g, w in zip(got, want)]
+    require(len(got) == len(want) and all(equal),
+            f"resumed async state differs at {equal}")
+    for k, v in rest.trajectory.items():
+        require(bool((v == whole.trajectory[k][first:]).all()),
+                f"resumed trajectory {k}")
+    mail = [x for x in meta["names"] if x.startswith(".dpps/.mail/")]
+    require(len(mail) == 6, f"mailbox leaves {mail}")
+    return dict(n=topo.n_nodes, rounds_before_save=first,
+                rounds_after_restore=then, leaves=len(equal),
+                mailbox_names=mail, bit_equal_state=True,
+                bit_equal_trajectory=True, launches=launches)
+
+
+def async_phase(torch, api, mlp, data, ops, T, dev,
+                tmp: str) -> tuple[dict, list]:
+    """Phase 25: (a) async consensus at llama3.2-1b's shared width; (b) the
+    paper MLP on ER(128), sparse schedule, delays and faults: loop against
+    engine and packed against pytree; (c) save, restore and resume."""
+    counts = []
+    cons = async_consensus(torch, api, T, ops, dev)
+    counts.append(cons["launches"])
+    topo = sparse_graph(SPARSE_TRAIN_N)
+    mlps = {}
+    for pair in (("loop", "engine"), ("pytree", "engine")):
+        key = "_against_".join(pair)
+        mlps[key] = mlp_drivers(torch, api, mlp, data, ops, dev, topo=topo,
+                                schedule="sparse", faults=FAULTS,
+                                delays=ASYNC_MLP, sync_interval=0, pair=pair)
+        mlps[key]["delays"] = dict(ASYNC_MLP, rates="(1, 2, 1, 1) x 32")
+        for noise in ("noise_on", "noise_off"):
+            counts += list(mlps[key][noise]["launches"].values())
+    resumed = async_resume(torch, api, mlp, data, ops, dev, tmp)
+    counts.append(resumed["launches"])
+    return dict(phase="async", consensus=cons, mlp=mlps,
+                resume=resumed), counts
 
 
 def sparse_graph(n: int, seed: int = 0):
@@ -3223,6 +3675,16 @@ def main() -> int:
         launches.append(resumed["launches"])
         del session, lm_batches
     torch.cuda.empty_cache()
+    faulted, counts = faults_phase(
+        torch, api, mlp, data, ops, ref, T, dev,
+        dense_ms=cons["ms_per_round"], sparse_ms=scons["ms_per_round"])
+    emit(faulted)
+    launches += counts
+    with tempfile.TemporaryDirectory() as tmp:
+        delayed, counts = async_phase(torch, api, mlp, data, ops, T, dev, tmp)
+    emit(delayed)
+    launches += counts
+    torch.cuda.empty_cache()
 
     for (shape, k), (fn, other, name) in calls.items():
         r = small[shape][k]
@@ -3249,17 +3711,25 @@ def main() -> int:
         else:
             at.update({f"rows_wide_{k}_shape": at_shape(r[name])
                        for k, r in rows["results"].items()})
+        extra = {}
+        if name == "pushsum_mix":  # phase 24a's realized W
+            extra["realized_weights"] = faulted["dense_full"]["realized_mix"]
         kernels.append(kernel_entry(
             name, dict(f, max_abs_err=max(
-                [f["max_abs_err"]] + [a["max_abs_err"] for a in at.values()])),
+                [f["max_abs_err"]] + [a["max_abs_err"] for a in at.values()]
+                + [r["max_abs_err"] for r in extra.values()])),
             total[name], shape=dict(FULL, d_pad=d_pad_of(FULL["d_s"])),
-            **{k: f[k] for k in ("plan", "copy_ms") if k in f}, **at))
+            **{k: f[k] for k in ("plan", "copy_ms") if k in f}, **at,
+            **extra))
     sp = spmm["full"]
+    realized = faulted["sparse_full"]["realized_mix"]  # phase 24b's
     kernels.append(kernel_entry(
-        "spmm", dict(sp, max_abs_err=max(r["max_abs_err"]
-                                         for r in spmm.values())),
+        "spmm", dict(sp, max_abs_err=max([r["max_abs_err"]
+                                          for r in spmm.values()]
+                                         + [realized["max_abs_err"]])),
         total["spmm"],
         shape=dict(n=sp["n"], d=sp["d"], k=sp["k"], edges=sp["edges"]),
+        realized_weights=realized,
         regime=sp["plan"]["regime"],
         train_shape=dict(at_shape(spmm["train"]), n=spmm["train"]["n"],
                          d=spmm["train"]["d"], k=spmm["train"]["k"],

@@ -15,7 +15,7 @@ into a :class:`TraceSpec` by :func:`hook_trace_spec`): ``tap`` (a
 transcript tap; the audit lab is ROADMAP Queue 1 item 9, so no hook of the
 port carries one yet), ``needs_s_half`` (the perturbed pre-noise state
 ``s^(t+1/2)`` in the diagnostics), ``needs_adjacency`` (the realized
-adjacency under faults, item 6) and ``needs_wire_stats`` (the ``wd_*``
+adjacency under faults: :class:`repro_torch.net.NetworkStatsHook`) and ``needs_wire_stats`` (the ``wd_*``
 health diagnostics). With no hooks the rounds are the hook-free ones; with
 hooks the protocol state's trajectory is unchanged, since hooks only add
 rows.

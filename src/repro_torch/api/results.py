@@ -56,7 +56,7 @@ class RunReport:
     included; ``aborted`` / ``abort_reason`` whether a hook stopped the run
     (a :class:`repro_torch.api.hooks.RunAbort`) and its message;
     ``network`` the realized-network record of a hook with
-    ``network_stats()`` (none is ported yet: ROADMAP Queue 1 item 6).
+    ``network_stats()`` (:class:`repro_torch.net.NetworkStatsHook`).
     """
 
     state: Any

@@ -25,7 +25,15 @@ Device rule: ``device=None`` is the CUDA card and raises without one;
 Schedules: ``"dense"``, ``"circulant"`` (chosen by default where the
 topology has circulant offsets) and ``"sparse"`` (only when asked for: the
 round's padded-CSR edge list, O(edges d) a round, for large networks such
-as :class:`repro_torch.net.ErdosRenyiGraph`).
+as :class:`repro_torch.net.ErdosRenyiGraph`). ``faults=`` (a
+:class:`repro_torch.net.FaultModel`) masks each round's weights ("dynamic"
+on the dense form); ``delays=`` (a :class:`repro_torch.net.DelayModel`)
+runs bounded-delay async push-sum with a message mailbox in the state.
+
+``run`` / ``train`` take ``start=`` as the reference's do, but the port
+reads the first round from the state's counter: ``start`` may only repeat
+it (the reference folds that counter into its noise key too, so both runs
+continue the same stream).
 
 Typical use::
 
@@ -68,6 +76,8 @@ from repro_torch.core.topology import Topology, calibrate_constants
 from repro_torch.core.tree_utils import PyTree, tree_leaves, tree_map
 from repro_torch.device import resolve_device
 from repro_torch.engine import ProtocolPlan, run_decode, run_dpps, run_partpsp
+from repro_torch.engine.rounds import (_async_merge, _check_async,
+                                       _ensure_mail, _round)
 
 __all__ = ["PrivacySpec", "ProtocolSession", "Session"]
 
@@ -98,6 +108,17 @@ def _with_t(state: Any, fn: Callable) -> Any:
     if isinstance(state, DPPSState):
         return state._replace(t=fn(state.t))
     return state
+
+
+def _first_round(start: int | None, t: int) -> int:
+    """The run's first round: the state's counter ``t``; ``start`` (the
+    reference's argument) may only repeat it."""
+    if start is not None and start != t:
+        raise ValueError(
+            f"start={start} is not the state's round counter t={t}: the port "
+            "reads the first round (and the noise, fault and delay streams) "
+            "from the state; pass start=None or start=state.t")
+    return t
 
 
 def _host(traj: dict[str, Any]) -> dict[str, np.ndarray]:
@@ -145,6 +166,8 @@ class ProtocolSession:
         packed: bool = True,
         seed: int = 0,
         device: str | torch.device | None = None,
+        faults: Any = None,
+        delays: Any = None,
     ) -> "ProtocolSession":
         """Derive a session from topology + privacy + deployment choices.
 
@@ -166,7 +189,10 @@ class ProtocolSession:
         is broadcast so. ``partition`` is a :class:`Partition` or a rules
         tuple (unmatched leaves stay local; ``None`` shares every leaf).
         ``packed=False`` runs the engine over the pytree runtime. ``seed``
-        keys the noise stream.
+        keys the noise stream (and the fault and delay streams).
+        ``faults`` / ``delays`` (:class:`repro_torch.net.FaultModel` /
+        :class:`repro_torch.net.DelayModel`) go to the derived plan; an
+        inactive model is dropped.
         """
         dev = resolve_device(device) if plan is None else plan.device
         if topology is None:
@@ -187,7 +213,15 @@ class ProtocolSession:
             plan = ProtocolPlan.from_topology(
                 topology, schedule=schedule, use_kernels=use_kernels,
                 sync_interval=sync_interval, chunk=chunk, packed=packed,
-                device=dev)
+                device=dev, faults=faults, delays=delays)
+        else:
+            for name, given in (("faults", faults), ("delays", delays)):
+                if given is not None:
+                    raise ValueError(
+                        f"pass {name}= either to Session.build (plan "
+                        "derived) or to ProtocolPlan.from_topology — not "
+                        "alongside an explicit plan=, which already fixed "
+                        "the schedule")
         cfg_sync = sync_interval if isinstance(sync_interval, int) else 0
 
         train_cfg = part = stacked = None
@@ -199,7 +233,9 @@ class ProtocolSession:
             train_cfg = make_baseline_config(
                 algorithm, gamma_l=gamma_l, gamma_s=gamma_s, clip=clip,
                 b=spec.b, gamma_n=spec.gamma_n, c_prime=c_prime, lam=lam,
-                schedule=plan.schedule, sync_interval=cfg_sync,
+                # "dynamic" is the drivers' schedule: the round mixes dense
+                schedule=("dense" if plan.schedule == "dynamic"
+                          else plan.schedule), sync_interval=cfg_sync,
                 sensitivity_mode=spec.sensitivity_mode)
             dpps = train_cfg.dpps
             if not spec.noise and algorithm != "sgp":
@@ -239,15 +275,28 @@ class ProtocolSession:
 
     # -- state ---------------------------------------------------------------
 
+    def _attach_mail(self, state: DPPSState) -> DPPSState:
+        """An async session's states carry their (empty) mailbox from round
+        0, so a fresh state and a restore template have one structure."""
+        delays = self.plan.delays
+        if delays is not None and not state.mail:
+            state = state._replace(mail=delays.init_mailbox(state.push.s))
+        return state
+
     def consensus_state(self, values: PyTree) -> DPPSState:
         """Protocol state over per-node private ``values`` (node-stacked)."""
-        return dpps_init(_to_device(values, self.device), self.cfg)
+        return self._attach_mail(dpps_init(_to_device(values, self.device),
+                                           self.cfg))
 
-    def train_state(self) -> PartPSPState:
-        """Fresh PartPSP state from the session's initial parameters."""
+    def _fresh_train_state(self) -> PartPSPState:
         if self.partition is None or self.init_params is None:
             raise ValueError("training needs model= and params= at build time")
         return partpsp_init(self.init_params, self.partition, self.train_cfg)
+
+    def train_state(self) -> PartPSPState:
+        """Fresh PartPSP state from the session's initial parameters."""
+        state = self._fresh_train_state()
+        return state._replace(dpps=self._attach_mail(state.dpps))
 
     def consensus(self, state: DPPSState) -> PyTree:
         """Protocol output s-bar (Alg. 1 Output) of a consensus run."""
@@ -384,22 +433,30 @@ class ProtocolSession:
             state: DPPSState | None = None,
             eps_at: Callable[[int], PyTree] | None = None,
             bits_at: Callable[[int], Any] | None = None,
-            hooks: Iterable[RoundHook] = ()) -> RunReport:
+            hooks: Iterable[RoundHook] = (), start: int | None = None,
+            fault_draws_at: Callable[[int], Any] | None = None,
+            delay_draws_at: Callable[[int], Any] | None = None) -> RunReport:
         """``rounds`` DPPS rounds from ``values`` (fresh) or ``state``.
 
         ``eps_at(t)`` gives the perturbation tree of round t (``None``:
         pure consensus). ``bits_at(t)`` feeds explicit noise bits instead of
         the seeded Philox stream (tests only): the (N, d_s) uint32 wire row,
-        or, under ``packed=False``, one tensor a leaf. ``hooks`` consume at
-        every segment boundary.
+        or, under ``packed=False``, one tensor a leaf. ``fault_draws_at(t)``
+        / ``delay_draws_at(t)`` feed a round's fault or delay draws
+        (:class:`repro_torch.net.FaultDraws` / ``DelayDraws``; tests only).
+        ``hooks`` consume at every segment boundary. ``start`` (None: the
+        state's counter) must equal the state's counter.
         """
         if self.plan is None:
             raise ValueError("run() needs a session built with a topology")
         if state is None:
             if values is None:
                 raise ValueError("run() needs values= (fresh) or state=")
-            state = self.consensus_state(values)
-        start = state.t
+            # no mailbox yet: the drivers attach an async run's empty one,
+            # which then dies with the first round instead of staying held
+            # here (three buffers of the state's size at B = 2)
+            state = dpps_init(_to_device(values, self.device), self.cfg)
+        start = _first_round(start, state.t)
         hooks = tuple(hooks)
         d_s = sum(x[0].numel() for x in tree_leaves(state.push.s))
         for h in hooks:
@@ -411,7 +468,8 @@ class ProtocolSession:
                 n = min(self.plan.chunk, start + rounds - t0)
                 st, traj = run_dpps(st, eps_at, cfg=self.cfg, plan=self.plan,
                                     rounds=n, seed=self.seed, bits_at=bits_at,
-                                    hooks=hooks)
+                                    hooks=hooks, fault_draws_at=fault_draws_at,
+                                    delay_draws_at=delay_draws_at)
                 yield t0, n, st, traj
 
         return self._drive(segments(), hooks, d_s, start)
@@ -419,8 +477,11 @@ class ProtocolSession:
     def train(self, rounds: int, batch_at: Callable[[int], Any], *,
               state: PartPSPState | None = None,
               bits_at: Callable[[int], Any] | None = None,
-              hooks: Iterable[RoundHook] = (),
-              driver: str = "engine") -> RunReport:
+              hooks: Iterable[RoundHook] = (), start: int | None = None,
+              driver: str = "engine",
+              fault_draws_at: Callable[[int], Any] | None = None,
+              delay_draws_at: Callable[[int], Any] | None = None
+              ) -> RunReport:
         """``rounds`` PartPSP rounds (Alg. 2); ``batch_at(t)`` gives round
         t's node-stacked batch.
 
@@ -428,7 +489,9 @@ class ProtocolSession:
         :func:`repro_torch.engine.run_partpsp`; ``driver="loop"`` the
         per-round driver over the pytree runtime (one-round segments,
         whatever ``plan.packed`` says), the reference's oracle. Both draw
-        round t's noise from ``(seed, t)``, so their trajectories agree.
+        round t's noise, faults and delays from ``(seed, t)``, so their
+        trajectories agree. ``start``, ``fault_draws_at`` and
+        ``delay_draws_at`` are as in :meth:`run`.
         """
         if self.loss_fn is None:
             raise ValueError("training needs a topology and a loss model= at "
@@ -436,8 +499,8 @@ class ProtocolSession:
         if driver not in ("engine", "loop"):
             raise ValueError(f"unknown driver {driver!r}")
         if state is None:
-            state = self.train_state()
-        start = state.dpps.t
+            state = self._fresh_train_state()  # no mailbox: as in run()
+        start = _first_round(start, state.dpps.t)
         hooks = tuple(hooks)
         d_s = self.partition.d_shared()
         for h in hooks:
@@ -450,34 +513,52 @@ class ProtocolSession:
                 st, traj = run_partpsp(
                     st, batch_at, cfg=self.train_cfg, partition=self.partition,
                     loss_fn=self.loss_fn, plan=self.plan, rounds=n,
-                    seed=self.seed, bits_at=bits_at, hooks=hooks)
+                    seed=self.seed, bits_at=bits_at, hooks=hooks,
+                    fault_draws_at=fault_draws_at,
+                    delay_draws_at=delay_draws_at)
                 yield t0, n, st, traj
 
         if driver == "loop":
             stream = self._loop_segments(state, batch_at, rounds, start,
-                                         hooks, bits_at)
+                                         hooks, bits_at, fault_draws_at,
+                                         delay_draws_at)
         else:
             stream = segments()
         return self._drive(stream, hooks, d_s, start)
 
     def _loop_segments(self, state: PartPSPState, batch_at, rounds: int,
-                       start: int, hooks: tuple, bits_at):
+                       start: int, hooks: tuple, bits_at, fault_draws_at,
+                       delay_draws_at):
         """The per-round driver as a stream of one-round segments: the
         pytree runtime (no packed layout) with each round's mixing operands,
-        so time-varying topologies rotate, and the hooks' captures merged
-        through :func:`capture_rows` on each round's diagnostics."""
+        so time-varying topologies rotate, realized by the plan's faults and
+        run through its delays' mailbox as the engine does, and the hooks'
+        captures merged through :func:`capture_rows` on each round's
+        diagnostics."""
         spec = hook_trace_spec(hooks)
-        st = state
+        plan = self.plan
+        asynchronous = _check_async(plan, self.train_cfg.dpps)
+        st = state._replace(dpps=_ensure_mail(state.dpps, plan,
+                                              asynchronous))
         for t in range(start, start + rounds):
             with torch.no_grad():
+                kwargs, net, close = _round(
+                    plan, st.dpps, t, self.seed, asynchronous=asynchronous,
+                    with_adjacency=spec.needs_adjacency,
+                    fault_draws_at=fault_draws_at,
+                    delay_draws_at=delay_draws_at)
                 st, m = partpsp_step(
                     st, batch_at(t), cfg=self.train_cfg,
                     partition=self.partition, loss_fn=self.loss_fn,
                     layout=None, seed=self.seed,
                     bits=bits_at(t) if bits_at else None,
                     return_s_half=spec.needs_s_half,
-                    return_wire_stats=spec.needs_wire_stats,
-                    **self.plan.mix_at(t))
+                    return_wire_stats=spec.needs_wire_stats, **kwargs)
+                if close is not None:
+                    st = st._replace(dpps=_async_merge(
+                        st.dpps, m, close, spec.needs_wire_stats))
+                if net is not None:
+                    m.update(net)
                 rows = capture_rows(m, hooks)
             yield t, 1, st, {k: v[None] for k, v in rows.items()}
 

@@ -30,7 +30,7 @@ kernel reads through its pointer.
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, NamedTuple, Sequence
+from typing import Any, Callable, NamedTuple, Sequence
 
 import torch
 
@@ -109,6 +109,11 @@ class DPPSState(NamedTuple):
     push: PushSumState
     sens: SensitivityState
     t: int  # host-side round counter
+    # The message mass in flight under bounded delays (a repro_torch.net.
+    # Mailbox, attached when the plan carries an active DelayModel). The
+    # empty default adds no tree leaves, so synchronous states and their
+    # checkpoints are unchanged.
+    mail: Any = ()
 
 
 def dpps_init(s0: PyTree, cfg: DPPSConfig) -> DPPSState:
@@ -145,6 +150,7 @@ def dpps_step(
     bits: torch.Tensor | Sequence[torch.Tensor] | None = None,
     return_s_half: bool = False,
     return_wire_stats: bool = False,
+    gossip_fn: Callable[[PushSumState], PushSumState] | None = None,
     mechanism: Any = None,
     tap: Any = None,
 ) -> tuple[DPPSState, dict[str, Any]]:
@@ -158,7 +164,10 @@ def dpps_step(
     (packed runtime) or one uint32 tensor a leaf (pytree runtime). ``w``
     (dense), ``offsets`` (+ ``mix_weights``, circulant) or ``sparse_idx``
     + ``sparse_vals`` (sparse, (N, K) padded CSR) must match
-    ``cfg.schedule``.
+    ``cfg.schedule``, unless ``gossip_fn`` is given: it then replaces the
+    built-in mix of a round that is not a sync round, taking the noised
+    ``PushSumState`` (the async mailbox, ``repro_torch.net.DelayModel.
+    open_round``, is one).
 
     ``return_s_half`` adds the perturbed pre-noise state ``s^(t+1/2)``
     under ``s_half`` (the buffer, or the tree); ``return_wire_stats`` the
@@ -256,7 +265,9 @@ def dpps_step(
         prev_l1 = torch.zeros_like(noise_l1)
     else:
         push_half = PushSumState(s=s_noise, a=state.push.a)
-        if cfg.schedule == "circulant":
+        if gossip_fn is not None:
+            push_new = gossip_fn(push_half)
+        elif cfg.schedule == "circulant":
             if offsets is None:
                 raise ValueError("circulant schedule requires offsets=")
             if packed:
@@ -288,7 +299,7 @@ def dpps_step(
                                      use_kernels=cfg.use_kernels))
         prev_l1 = noise_l1
 
-    new_state = DPPSState(
+    new_state = state._replace(
         push=push_new,
         sens=sens._replace(s_local=s_local, prev_noise_l1=prev_l1),
         t=t + 1)

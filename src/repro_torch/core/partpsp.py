@@ -155,13 +155,14 @@ def partpsp_step(
     bits: torch.Tensor | Sequence[torch.Tensor] | None = None,
     return_s_half: bool = False,
     return_wire_stats: bool = False,
+    gossip_fn: Any = None,
     mechanism: Any = None,
     tap: Any = None,
 ) -> tuple[PartPSPState, dict[str, Any]]:
     """One PartPSP round: over the packed DPPS state with ``layout``, over
     the list of shared leaves with ``layout=None`` (the pytree runtime).
-    ``return_s_half``, ``return_wire_stats``, ``mechanism`` and ``tap`` go
-    to :func:`repro_torch.core.dpps.dpps_step`."""
+    ``return_s_half``, ``return_wire_stats``, ``gossip_fn``, ``mechanism``
+    and ``tap`` go to :func:`repro_torch.core.dpps.dpps_step`."""
     push = state.dpps.push
     y = correct(push.s, push.a)                     # Eq. 10, shared leaves
     if layout is not None:
@@ -195,7 +196,8 @@ def partpsp_step(
                                seed=seed, bits=bits,
                                return_s_half=return_s_half,
                                return_wire_stats=return_wire_stats,
-                               mechanism=mechanism, tap=tap)
+                               gossip_fn=gossip_fn, mechanism=mechanism,
+                               tap=tap)
     metrics = {"loss_mean": losses.mean(), "loss_per_node": losses,
                "grad_l1_max": g_norms.max(), **diag}
     return PartPSPState(dpps=dpps_new, local=local_new), metrics

@@ -6,7 +6,19 @@
   ``W @ s``; ``dense`` for non-circulant topologies. ``sparse`` (only when
   asked for, never chosen automatically) mixes over each round's padded
   CSR edge list: O(edges d) a round instead of O(N^2 d), for large
-  networks. The dynamic and async schedules are not ported yet.
+  networks.
+* ``dynamic``: dense with faults, selected by attaching an active
+  :class:`repro_torch.net.FaultModel` (``faults=``) to a non-sparse plan.
+  The nominal W is stacked as for dense, and each round masks and
+  column-renormalises it (``FaultModel.realize``). A sparse plan with
+  faults stays ``sparse`` and masks its edge list in place
+  (``FaultModel.realize_sparse``); no dense W is stacked. An inactive
+  model is dropped: the plan is the fault-free one.
+* ``delays`` (an active :class:`repro_torch.net.DelayModel`): each round's
+  gossip runs through ``DelayModel.open_round`` with a message mailbox
+  beside the state. It needs the dense or sparse weights (``schedule=None``
+  means dense), composes with faults (the realized W feeds the mailbox)
+  and takes no sync rounds. An inactive model is dropped.
 * Time-varying topologies: circulant plans hold the superset offsets and a
   (period, K) weight table; dense plans a (period, N, N) stack of W;
   sparse plans (period, N, K) int32 / f32 stacks of the edge lists, with K
@@ -39,12 +51,15 @@ __all__ = ["ProtocolPlan"]
 class ProtocolPlan:
     """Static protocol-execution choices plus their per-round operands.
 
-    Fields: ``schedule`` ("dense" | "circulant" | "sparse"), ``period``,
+    Fields: ``schedule`` ("dense" | "circulant" | "sparse" | "dynamic"),
+    ``period``,
     ``offsets`` and ``mix_weights`` (P, K) for circulant plans, ``ws``
     (P, N, N) f32 for dense ones, ``sparse_idx`` (P, N, K) int32 and
     ``sparse_vals`` (P, N, K) f32 for sparse ones, ``use_kernels``,
     ``sync_interval`` (None keeps the config's), ``chunk`` (rounds between
-    host syncs of the trajectory), ``packed`` and ``device``.
+    host syncs of the trajectory), ``packed``, ``device``, ``faults`` (the
+    active FaultModel, or None) and ``delays`` (the active DelayModel, or
+    None).
     """
 
     schedule: str
@@ -59,14 +74,62 @@ class ProtocolPlan:
     sync_interval: int | None = None
     chunk: int = 50
     packed: bool = True
+    faults: Any = None  # repro_torch.net.FaultModel (duck-typed: no import)
+    delays: Any = None  # repro_torch.net.DelayModel (duck-typed: no import)
+
+    def __post_init__(self):
+        if self.schedule == "dynamic" and self.faults is None:
+            raise ValueError("schedule='dynamic' is selected by attaching "
+                             "an active FaultModel (faults=), not by hand")
+        if self.delays is not None and self.schedule == "circulant":
+            raise ValueError(
+                "bounded-delay async gossip needs the dense or sparse "
+                "weight form (per-message delay draws break circulant "
+                "structure); build the plan with schedule='dense' or "
+                "'sparse'")
+
+    @property
+    def dynamic(self) -> bool:
+        """Whether each round masks the weights with the fault model (the
+        dense W for "dynamic", the edge list for "sparse")."""
+        return (self.schedule == "dynamic"
+                or (self.schedule == "sparse" and self.faults is not None))
 
     @classmethod
     def from_topology(cls, topo: Topology, *, schedule: str | None = None,
                       use_kernels: bool | None = None,
                       sync_interval: int | str | None = None, chunk: int = 50,
-                      packed: bool = True, device=None) -> "ProtocolPlan":
+                      packed: bool = True, device=None, faults: Any = None,
+                      delays: Any = None) -> "ProtocolPlan":
+        """The plan of ``topo``: ``schedule=None`` picks circulant where the
+        topology has offsets; ``faults`` / ``delays`` attach an active
+        fault or delay model (inactive ones are dropped; see the module
+        docstring)."""
         if schedule not in (None, "dense", "circulant", "sparse"):
-            raise ValueError(f"unknown or unported schedule {schedule!r}")
+            raise ValueError(f"unknown schedule {schedule!r} (dynamic is "
+                             "selected by passing faults=, not schedule=)")
+        if faults is not None and not faults.active:
+            faults = None  # inactive model: the fault-free plan
+        if faults is not None and schedule == "circulant":
+            raise ValueError(
+                "fault injection needs the dense or sparse weight form "
+                "(masked edges break circulant structure); drop "
+                "schedule='circulant' — the plan stacks the topology's "
+                "per-round W (or its edge list under schedule='sparse')")
+        if delays is not None and not delays.active:
+            delays = None  # inactive model: the synchronous plan
+        if delays is not None:
+            if schedule == "circulant":
+                raise ValueError(
+                    "bounded-delay async gossip needs the dense or sparse "
+                    "weight form (per-message delay draws break circulant "
+                    "structure); use schedule='dense' or 'sparse'")
+            delays.validate_nodes(topo.n_nodes)
+            if sync_interval not in (None, 0):
+                raise ValueError(
+                    "sync_interval with an active DelayModel would average "
+                    "node states while message mass is still in flight "
+                    "(breaking conservation); use sync_interval=0")
         dev = resolve_device(device)
         use_kernels = resolve_use_kernels(use_kernels, dev)
         period = int(getattr(topo, "period", 1))
@@ -76,8 +139,14 @@ class ProtocolPlan:
                 per_round = None
                 break
             per_round.append(topo.mixing_weights(t))
-        if schedule is None:
-            schedule = "circulant" if per_round is not None else "dense"
+        if faults is not None:
+            if schedule != "sparse":
+                schedule, per_round = "dynamic", None
+        elif schedule is None:
+            if delays is not None:
+                schedule, per_round = "dense", None
+            else:
+                schedule = "circulant" if per_round is not None else "dense"
         if schedule == "circulant" and per_round is None:
             raise ValueError(f"{type(topo).__name__} is not circulant; use "
                              "schedule='dense'")
@@ -110,7 +179,7 @@ class ProtocolPlan:
                    offsets=offsets, mix_weights=mix_weights, ws=ws,
                    sparse_idx=sparse_idx, sparse_vals=sparse_vals,
                    use_kernels=use_kernels, sync_interval=sync_interval,
-                   chunk=chunk, packed=packed)
+                   chunk=chunk, packed=packed, faults=faults, delays=delays)
 
     @property
     def lane(self) -> int:
@@ -119,7 +188,8 @@ class ProtocolPlan:
         return LANE if self.use_kernels else 1
 
     def mix_at(self, t: int) -> dict[str, Any]:
-        """``dpps_step`` mixing kwargs for round ``t``."""
+        """``dpps_step`` mixing kwargs for round ``t``; a dynamic plan gives
+        the nominal weights, which the drivers realize with its faults."""
         r = t % self.period
         if self.schedule == "circulant":
             return dict(offsets=self.offsets, mix_weights=self.mix_weights[r])
@@ -129,8 +199,11 @@ class ProtocolPlan:
         return dict(w=self.ws[r])
 
     def resolve_dpps(self, cfg: DPPSConfig) -> DPPSConfig:
-        updates: dict[str, Any] = dict(schedule=self.schedule,
-                                       use_kernels=self.use_kernels)
+        # "dynamic" is the drivers' schedule; the round mixes the realized W
+        # as dense does
+        updates: dict[str, Any] = dict(
+            schedule="dense" if self.schedule == "dynamic" else self.schedule,
+            use_kernels=self.use_kernels)
         if self.sync_interval is not None:
             updates["sync_interval"] = int(self.sync_interval)
         return dataclasses.replace(cfg, **updates)

@@ -20,6 +20,19 @@ conformance tests use it to hand the port the reference's exact bits.
 
 :func:`run_decode` is the serving loop (the reference's scan-compiled
 ``run_decode``), one Python iteration a token.
+
+Faults (``plan.dynamic``, an active :class:`repro_torch.net.FaultModel`):
+each round realizes its masked, column-renormalised W (or edge-list
+values) from the nominal ones before the step, and its ``net_*`` rows join
+the diagnostics (``net_adj`` only when a hook declares
+``needs_adjacency``). Delays (``plan.delays``, an active
+:class:`repro_torch.net.DelayModel`): the state carries a message
+:class:`Mailbox` (``DPPSState.mail``, packed with the state), each round's
+gossip runs through ``DelayModel.open_round`` on the realized weights, and
+the ``async_*`` rows join the diagnostics. Both draw from the session seed
+and the round (their own Philox streams), so the engine and the loop
+driver draw the same; ``fault_draws_at(t)`` / ``delay_draws_at(t)`` feed
+explicit draws instead (the tests hand over the reference's).
 """
 from __future__ import annotations
 
@@ -38,6 +51,7 @@ __all__ = ["run_dpps", "run_partpsp", "run_decode", "gumbel", "wire_layout"]
 
 BitsAt = Callable[[int], torch.Tensor] | None
 NoiseAt = Callable[[int], torch.Tensor] | None
+DrawsAt = Callable[[int], Any] | None
 
 
 def wire_layout(plan: ProtocolPlan, shared: PyTree) -> PackedLayout | None:
@@ -49,17 +63,114 @@ def wire_layout(plan: ProtocolPlan, shared: PyTree) -> PackedLayout | None:
 
 
 def _pack(state: DPPSState, layout: PackedLayout | None) -> DPPSState:
+    """The state with its shared tree (and a mailbox's calendar and inbox,
+    which mirror it) packed onto the wire rows."""
     if layout is None:
         return state
+    mail = state.mail
+    if mail:
+        mail = mail._replace(cal_s=layout.pack(mail.cal_s),
+                             inbox_s=layout.pack(mail.inbox_s))
     return state._replace(push=PushSumState(s=layout.pack(state.push.s),
-                                            a=state.push.a))
+                                            a=state.push.a), mail=mail)
 
 
 def _unpack(state: DPPSState, layout: PackedLayout | None) -> DPPSState:
     if layout is None:
         return state
+    mail = state.mail
+    if mail:
+        mail = mail._replace(cal_s=layout.unpack(mail.cal_s),
+                             inbox_s=layout.unpack(mail.inbox_s))
     return state._replace(push=PushSumState(s=layout.unpack(state.push.s),
-                                            a=state.push.a))
+                                            a=state.push.a), mail=mail)
+
+
+def _check_async(plan: ProtocolPlan, cfg: DPPSConfig) -> bool:
+    """Whether the run carries a mailbox (``plan.delays``); ``cfg`` is
+    plan-resolved."""
+    if plan.delays is None:
+        return False
+    if cfg.sync_interval > 0:
+        raise ValueError(
+            "sync_interval > 0 with an active DelayModel would average "
+            "node states while message mass is still in flight (breaking "
+            "conservation); use sync_interval=0")
+    return True
+
+
+def _ensure_mail(state: DPPSState, plan: ProtocolPlan,
+                 asynchronous: bool) -> DPPSState:
+    """Attach an empty mailbox to an async run's state (a resumed one keeps
+    its own); refuse a mailbox on a synchronous run."""
+    if asynchronous:
+        if not state.mail:
+            state = state._replace(mail=plan.delays.init_mailbox(state.push.s))
+        return state
+    if state.mail:
+        raise ValueError(
+            "state carries an async Mailbox but the plan has no active "
+            "DelayModel — running it synchronously would abandon the "
+            "in-flight message mass; keep the DelayModel on the plan (or "
+            "drain the mailbox by finishing the async run first)")
+    return state
+
+
+def _realize_faults(plan: ProtocolPlan, kwargs: dict[str, Any], t: int,
+                    seed: int, with_adjacency: bool,
+                    fault_draws_at: DrawsAt) -> dict[str, Any]:
+    """Replace the round's nominal weights in ``kwargs`` by the realized
+    ones; return the round's ``net_*`` rows."""
+    draws = fault_draws_at(t) if fault_draws_at else None
+    if "sparse_idx" in kwargs:
+        vals, net = plan.faults.realize_sparse(
+            kwargs["sparse_idx"], kwargs["sparse_vals"], t, seed=seed,
+            draws=draws, with_adjacency=with_adjacency)
+        kwargs["sparse_vals"] = vals
+        return net
+    w, net = plan.faults.realize(kwargs["w"], t, seed=seed, draws=draws,
+                                 with_adjacency=with_adjacency)
+    kwargs["w"] = w
+    return net
+
+
+def _open_async(plan: ProtocolPlan, kwargs: dict[str, Any],
+                push: PushSumState, mail, t: int, seed: int,
+                delay_draws_at: DrawsAt):
+    """Swap the round's mixing operands (after :func:`_realize_faults`) for
+    the DelayModel's ``gossip_fn``; return its ``close``."""
+    mix = {name: kwargs.pop(name)
+           for name in ("w", "sparse_idx", "sparse_vals") if name in kwargs}
+    gossip_fn, close = plan.delays.open_round(
+        push, mail, t, seed=seed,
+        draws=delay_draws_at(t) if delay_draws_at else None,
+        use_kernels=plan.use_kernels, **mix)
+    kwargs["gossip_fn"] = gossip_fn
+    return close
+
+
+def _async_merge(st: DPPSState, diag: dict[str, Any], close,
+                 needs_wire_stats: bool) -> DPPSState:
+    """Fold the round's mailbox and ``async_*`` rows back in."""
+    mail, stats = close()
+    diag.update(stats)
+    if needs_wire_stats:
+        # under delays the conserved mass is state + inbox + calendar
+        diag["wd_mass_drift"] = (stats["async_mass_mean"] - 1.0).abs()
+    return st._replace(mail=mail)
+
+
+def _round(plan: ProtocolPlan, st: DPPSState, t: int, seed: int, *,
+           asynchronous: bool, with_adjacency: bool,
+           fault_draws_at: DrawsAt, delay_draws_at: DrawsAt):
+    """Round t's mixing kwargs for the step (realized, or a ``gossip_fn``),
+    the ``net_*`` rows (or None) and the async ``close`` (or None)."""
+    kwargs = plan.mix_at(t)
+    net = (_realize_faults(plan, kwargs, t, seed, with_adjacency,
+                           fault_draws_at) if plan.dynamic else None)
+    close = (_open_async(plan, kwargs, st.push, st.mail, t, seed,
+                         delay_draws_at) if asynchronous else None)
+    return kwargs, net, close
 
 
 def _hooks(hooks: Sequence[Any]):
@@ -79,7 +190,8 @@ def _stack(rows: list[dict[str, Any]]) -> dict[str, torch.Tensor]:
 
 def run_dpps(state: DPPSState, eps_at: Callable[[int], PyTree] | None, *,
              cfg: DPPSConfig, plan: ProtocolPlan, rounds: int, seed: int = 0,
-             bits_at: BitsAt = None, hooks: Sequence[Any] = ()
+             bits_at: BitsAt = None, hooks: Sequence[Any] = (),
+             fault_draws_at: DrawsAt = None, delay_draws_at: DrawsAt = None
              ) -> tuple[DPPSState, dict[str, torch.Tensor]]:
     """``rounds`` DPPS rounds from ``state``. ``eps_at(t)`` gives round t's
     perturbation tree (``None``: pure consensus, zero perturbation).
@@ -87,8 +199,12 @@ def run_dpps(state: DPPSState, eps_at: Callable[[int], PyTree] | None, *,
     captures merged, stacked on the device (leaves (T,) / (T, N))."""
     cfg = plan.resolve_dpps(cfg)
     capture, spec = _hooks(hooks)
+    asynchronous = _check_async(plan, cfg)
+    extra = dict(asynchronous=asynchronous,
+                 with_adjacency=spec.needs_adjacency,
+                 fault_draws_at=fault_draws_at, delay_draws_at=delay_draws_at)
     layout = wire_layout(plan, state.push.s)
-    st = _pack(state, layout)
+    st = _ensure_mail(_pack(state, layout), plan, asynchronous)
     zeros = None
     rows = []
     with torch.no_grad():
@@ -100,11 +216,16 @@ def run_dpps(state: DPPSState, eps_at: Callable[[int], PyTree] | None, *,
                 eps = zeros
             else:
                 eps = eps_at(t)
+            kwargs, net, close = _round(plan, st, t, seed, **extra)
             st, diag = dpps_step(st, eps, cfg, layout, seed=seed,
                                  bits=bits_at(t) if bits_at else None,
                                  return_s_half=spec.needs_s_half,
                                  return_wire_stats=spec.needs_wire_stats,
-                                 **plan.mix_at(t))
+                                 **kwargs)
+            if close is not None:
+                st = _async_merge(st, diag, close, spec.needs_wire_stats)
+            if net is not None:
+                diag.update(net)
             rows.append(capture(diag))
     return _unpack(st, layout), _stack(rows)
 
@@ -112,24 +233,36 @@ def run_dpps(state: DPPSState, eps_at: Callable[[int], PyTree] | None, *,
 def run_partpsp(state: PartPSPState, batch_at: Callable[[int], Any], *,
                 cfg: PartPSPConfig, partition, loss_fn, plan: ProtocolPlan,
                 rounds: int, seed: int = 0, bits_at: BitsAt = None,
-                hooks: Sequence[Any] = ()
+                hooks: Sequence[Any] = (), fault_draws_at: DrawsAt = None,
+                delay_draws_at: DrawsAt = None
                 ) -> tuple[PartPSPState, dict[str, torch.Tensor]]:
     """``rounds`` PartPSP training rounds (Alg. 2); ``batch_at(t)`` gives
     round t's node-stacked batch."""
     cfg = plan.resolve_partpsp(cfg)
     capture, spec = _hooks(hooks)
+    asynchronous = _check_async(plan, cfg.dpps)
+    extra = dict(asynchronous=asynchronous,
+                 with_adjacency=spec.needs_adjacency,
+                 fault_draws_at=fault_draws_at, delay_draws_at=delay_draws_at)
     layout = wire_layout(plan, state.dpps.push.s)
-    st = state._replace(dpps=_pack(state.dpps, layout))
+    st = state._replace(dpps=_ensure_mail(_pack(state.dpps, layout), plan,
+                                          asynchronous))
     rows = []
     with torch.no_grad():
         for _ in range(rounds):
             t = st.dpps.t
+            kwargs, net, close = _round(plan, st.dpps, t, seed, **extra)
             st, metrics = partpsp_step(
                 st, batch_at(t), cfg=cfg, partition=partition,
                 loss_fn=loss_fn, layout=layout, seed=seed,
                 bits=bits_at(t) if bits_at else None,
                 return_s_half=spec.needs_s_half,
-                return_wire_stats=spec.needs_wire_stats, **plan.mix_at(t))
+                return_wire_stats=spec.needs_wire_stats, **kwargs)
+            if close is not None:
+                st = st._replace(dpps=_async_merge(
+                    st.dpps, metrics, close, spec.needs_wire_stats))
+            if net is not None:
+                metrics.update(net)
             rows.append(capture(metrics))
     return st._replace(dpps=_unpack(st.dpps, layout)), _stack(rows)
 

@@ -14,9 +14,15 @@ the plain PyTorch path.
 
 Flags follow the reference's: ``--algorithm {partpsp,sgp,sgpdp,pedfl}``,
 ``--b``, ``--gamma-n``, ``--gamma-l``, ``--gamma-s``, ``--clip``,
-``--topology`` (the families the port has) with ``--degree`` and the
-random families' knobs, ``--sync-interval``, ``--schedule
-{dense,circulant,sparse}``, ``--checkpoint DIR`` (the consensus view for
+``--topology`` (the families the port has) with ``--degree``, the
+random families' knobs and ``--resample-period`` (a random family redrawn
+every round), ``--sync-interval``, ``--schedule {dense,circulant,sparse}``,
+``--use-kernels`` (the CUDA kernels; raises off the card), ``--chunk``
+(rounds a segment), ``--packed`` / ``--no-packed`` (the pytree runtime),
+the faults' ``--drop-rate``, ``--straggler-rate``, ``--churn
+NODE:T_DOWN:T_UP`` (repeatable) and ``--fault-seed``, the delays'
+``--max-delay``, ``--timeout-rate``, ``--node-rates r0,r1,...`` and
+``--delay-seed`` (they need ``--sync-interval 0``), ``--checkpoint DIR`` (the consensus view for
 ``launch.serve --checkpoint``), ``--driver {engine,loop}`` (``loop``: the
 per-round driver over the pytree runtime), ``--ledger-out FILE`` (the
 per-round privacy ledger as JSONL), ``--privacy-budget EPS`` with
@@ -54,56 +60,122 @@ from repro_torch.data import NodeShardedLoader, SyntheticLMStream
 from repro_torch.data.pipeline import seeded_generator
 from repro_torch.device import resolve_device
 from repro_torch.models.transformer import Transformer
-from repro_torch.net import (ErdosRenyiGraph, RandomMatchingGraph,
+from repro_torch.net import (DelayModel, ErdosRenyiGraph, FaultModel,
+                             RandomMatchingGraph, RandomSequenceTopology,
                              SmallWorldGraph, TorusGraph)
 
-__all__ = ["TOPOLOGY_CHOICES", "make_topology", "build_session", "main"]
+__all__ = ["TOPOLOGY_CHOICES", "make_topology", "build_session",
+           "faults_from_args", "delays_from_args", "main"]
 
 TOPOLOGY_CHOICES = ("dout", "exp", "ring", "full", "er", "matching",
                     "torus", "smallworld")
 
 # flag -> the ROADMAP Queue 1 item that ports what it drives
 _UNPORTED = {
-    "drop_rate": "item 6 (faults)",
-    "straggler_rate": "item 6 (faults)",
-    "churn": "item 6 (faults)",
-    "max_delay": "item 7 (async delays)",
-    "timeout_rate": "item 7 (async delays)",
-    "node_rates": "item 7 (async delays)",
     "wire": "item 8 (wire codecs)",
+    "wire_dtype": "item 8 (wire codecs)",
 }
 
 
 def make_topology(name: str, n_nodes: int, *, degree: int = 2,
                   p: float = 0.3, matchings: int = 1, beta: float = 0.1,
-                  rows: int = 0, seed: int = 0):
+                  rows: int = 0, seed: int = 0, period: int = 0):
     """The name -> Topology registry of the reference's ``repro.api.cli``,
-    over the families the port has."""
+    over the families the port has. ``period > 0`` redraws a seeded random
+    family every round with that cycle (:class:`RandomSequenceTopology`,
+    which raises for the unseeded families)."""
     if name == "dout":
-        return DOutGraph(n_nodes=n_nodes, d=degree)
-    if name == "exp":
-        return ExpGraph(n_nodes=n_nodes)
-    if name == "ring":
-        return RingGraph(n_nodes=n_nodes)
-    if name == "full":
-        return FullyConnectedGraph(n_nodes=n_nodes)
-    if name == "er":
-        return ErdosRenyiGraph(n_nodes=n_nodes, p=p, seed=seed)
-    if name == "matching":
-        return RandomMatchingGraph(n_nodes=n_nodes, k=matchings, seed=seed)
-    if name == "smallworld":
-        return SmallWorldGraph(n_nodes=n_nodes, beta=beta, seed=seed)
-    if name == "torus":
-        return TorusGraph(n_nodes=n_nodes, rows=rows)
-    raise ValueError(f"unknown topology {name!r}; choose from "
-                     f"{TOPOLOGY_CHOICES}")
+        topo = DOutGraph(n_nodes=n_nodes, d=degree)
+    elif name == "exp":
+        topo = ExpGraph(n_nodes=n_nodes)
+    elif name == "ring":
+        topo = RingGraph(n_nodes=n_nodes)
+    elif name == "full":
+        topo = FullyConnectedGraph(n_nodes=n_nodes)
+    elif name == "er":
+        topo = ErdosRenyiGraph(n_nodes=n_nodes, p=p, seed=seed)
+    elif name == "matching":
+        topo = RandomMatchingGraph(n_nodes=n_nodes, k=matchings, seed=seed)
+    elif name == "smallworld":
+        topo = SmallWorldGraph(n_nodes=n_nodes, beta=beta, seed=seed)
+    elif name == "torus":
+        topo = TorusGraph(n_nodes=n_nodes, rows=rows)
+    else:
+        raise ValueError(f"unknown topology {name!r}; choose from "
+                         f"{TOPOLOGY_CHOICES}")
+    if period > 0:
+        topo = RandomSequenceTopology(n_nodes=n_nodes, base=topo,
+                                      period=period)
+    return topo
+
+
+def _parse_churn(ap: argparse.ArgumentParser, specs: list[str],
+                 n_nodes: int | None) -> tuple[tuple[int, int, int], ...]:
+    """``NODE:T_DOWN:T_UP`` strings -> churn triples, checked at parse time
+    as the reference's ``repro.api.cli`` checks them."""
+    churn = []
+    for spec in specs:
+        parts = spec.split(":")
+        if len(parts) != 3:
+            ap.error(f"--churn {spec!r}: expected NODE:T_DOWN:T_UP "
+                     "(three ints separated by colons)")
+        try:
+            node, t_down, t_up = (int(p) for p in parts)
+        except ValueError:
+            ap.error(f"--churn {spec!r}: NODE, T_DOWN and T_UP must be ints")
+        if n_nodes is not None and not 0 <= node < n_nodes:
+            ap.error(f"--churn {spec!r}: node {node} out of range for "
+                     f"n_nodes={n_nodes}")
+        churn.append((node, t_down, t_up))
+    return tuple(churn)
+
+
+def faults_from_args(ap: argparse.ArgumentParser, args: argparse.Namespace,
+                     n_nodes: int | None = None) -> FaultModel | None:
+    """The FaultModel of the flags, or None when every knob is off; a bad
+    value dies as a parser error (``SystemExit``)."""
+    churn = _parse_churn(ap, args.churn, n_nodes)
+    if not (args.drop_rate or args.straggler_rate or churn):
+        return None
+    try:
+        return FaultModel(drop_rate=args.drop_rate,
+                          straggler_rate=args.straggler_rate, churn=churn,
+                          seed=args.fault_seed)
+    except ValueError as e:
+        ap.error(str(e))
+
+
+def delays_from_args(ap: argparse.ArgumentParser, args: argparse.Namespace,
+                     n_nodes: int | None = None) -> DelayModel | None:
+    """The DelayModel of the flags, or None when every knob is at rest."""
+    rates: tuple[int, ...] = ()
+    if args.node_rates:
+        try:
+            rates = tuple(int(r) for r in args.node_rates.split(","))
+        except ValueError:
+            ap.error(f"--node-rates {args.node_rates!r}: expected "
+                     "comma-separated ints (one rate per node)")
+        if n_nodes is not None and len(rates) != n_nodes:
+            ap.error(f"--node-rates has {len(rates)} entries but "
+                     f"n_nodes={n_nodes}; give one rate per node")
+    if not (args.max_delay or args.timeout_rate
+            or any(r > 1 for r in rates)):
+        return None
+    try:
+        return DelayModel(max_delay=args.max_delay,
+                          timeout_rate=args.timeout_rate, rates=rates,
+                          seed=args.delay_seed)
+    except ValueError as e:
+        ap.error(str(e))
 
 
 def build_session(arch_name: str, *, reduced: bool, n_nodes: int,
                   algorithm: str, b: float, gamma_n: float, gamma_l: float,
                   gamma_s: float, clip: float, topology, degree: int = 2,
                   sync_interval: int = 5, schedule: str = "dense",
-                  seed: int = 0, device=None):
+                  seed: int = 0, device=None, use_kernels: bool | None = None,
+                  chunk: int = 50, packed: bool = True, faults=None,
+                  delays=None):
     """Arch-specific assembly -> (model, model config, session), as the
     reference's ``build_session``: the model and the partition rules (full
     sharing for SGP/SGPDP, split points clamped to 1 on the 2-layer smoke
@@ -123,7 +195,9 @@ def build_session(arch_name: str, *, reduced: bool, n_nodes: int,
         topo, privacy=PrivacySpec(b=b, gamma_n=gamma_n), model=model,
         partition=rules, algorithm=algorithm, gamma_l=gamma_l,
         gamma_s=gamma_s, clip=clip, schedule=schedule,
-        sync_interval=sync_interval, seed=seed, device=device)
+        sync_interval=sync_interval, seed=seed, device=device,
+        use_kernels=use_kernels, chunk=chunk, packed=packed, faults=faults,
+        delays=delays)
     return model, model_cfg, session
 
 
@@ -170,9 +244,43 @@ def _parser() -> argparse.ArgumentParser:
     ap.add_argument("--sw-beta", type=float, default=0.1)
     ap.add_argument("--torus-rows", type=int, default=0)
     ap.add_argument("--graph-seed", type=int, default=0)
+    ap.add_argument("--resample-period", type=int, default=0,
+                    help="resample the random graph every round, cycling "
+                         "with this period (0 = static draw)")
+    ap.add_argument("--drop-rate", type=float, default=0.0,
+                    help="per-edge Bernoulli link-drop probability per round")
+    ap.add_argument("--straggler-rate", type=float, default=0.0,
+                    help="per-node probability a round's messages miss the "
+                         "deadline (outgoing edges dropped, renormalised)")
+    ap.add_argument("--churn", action="append", default=[],
+                    metavar="NODE:T_DOWN:T_UP",
+                    help="node NODE is down for rounds [T_DOWN, T_UP) "
+                         "(repeatable)")
+    ap.add_argument("--fault-seed", type=int, default=0,
+                    help="seed of the fault stream")
+    ap.add_argument("--max-delay", type=int, default=0,
+                    help="staleness bound B: messages get a uniform random "
+                         "delay in {0..B} rounds (0 = synchronous)")
+    ap.add_argument("--timeout-rate", type=float, default=0.0,
+                    help="per-message probability of a timeout; its mass "
+                         "goes back to the sender's self loop")
+    ap.add_argument("--node-rates", type=str, default="",
+                    help="comma-separated per-node round rates (node i "
+                         "takes part every r_i rounds)")
+    ap.add_argument("--delay-seed", type=int, default=0,
+                    help="seed of the delay and timeout stream")
     ap.add_argument("--sync-interval", type=int, default=5)
     ap.add_argument("--schedule", choices=("dense", "circulant", "sparse"),
                     default="dense")
+    ap.add_argument("--use-kernels", action="store_true",
+                    help="the CUDA kernels (the default on the card; raises "
+                         "on another device)")
+    ap.add_argument("--chunk", type=int, default=50,
+                    help="rounds per engine segment")
+    ap.add_argument("--packed", action=argparse.BooleanOptionalAction,
+                    default=True,
+                    help="run the engine over the packed (N, d_s) wire "
+                         "buffer (--no-packed keeps the pytree runtime)")
     ap.add_argument("--seed", type=int, default=2024)   # the paper's seed
     ap.add_argument("--log-every", type=int, default=10)
     ap.add_argument("--device", default=None,
@@ -198,29 +306,55 @@ def _parser() -> argparse.ArgumentParser:
 
 
 def main(argv=None) -> None:
-    args = _parser().parse_args(argv)
+    ap = _parser()
+    args = ap.parse_args(argv)
     for flag, item in _UNPORTED.items():
         if getattr(args, flag) is not None:
             raise NotImplementedError(
                 f"--{flag.replace('_', '-')}: not ported yet (ROADMAP Queue 1 "
                 f"{item})")
+    if args.chunk < 1:
+        ap.error("--chunk must be >= 1")
+    faults = faults_from_args(ap, args, n_nodes=args.nodes)
+    delays = delays_from_args(ap, args, n_nodes=args.nodes)
+    if delays is not None and args.sync_interval:
+        ap.error("--max-delay/--timeout-rate/--node-rates need "
+                 "--sync-interval 0: a synchronization round would average "
+                 "exact values while mass is still in flight in mailboxes")
+    if delays is not None and args.schedule == "circulant":
+        ap.error("--max-delay/--timeout-rate/--node-rates need --schedule "
+                 "dense or sparse: the mailbox runtime consumes per-round "
+                 "weight operands, not circulant offsets")
+    if faults is not None and args.schedule == "circulant":
+        ap.error("--drop-rate/--straggler-rate need --schedule dense or "
+                 "sparse: masked edges break circulant structure (dense "
+                 "switches to the dynamic schedule internally; sparse "
+                 "masks its edge list in place)")
     dev = resolve_device(args.device)
-    topo = make_topology(args.topology, args.nodes, degree=args.degree,
-                         p=args.er_p, matchings=args.matchings,
-                         beta=args.sw_beta, rows=args.torus_rows,
-                         seed=args.graph_seed)
+    try:
+        topo = make_topology(args.topology, args.nodes, degree=args.degree,
+                             p=args.er_p, matchings=args.matchings,
+                             beta=args.sw_beta, rows=args.torus_rows,
+                             seed=args.graph_seed,
+                             period=args.resample_period)
+    except ValueError as e:
+        ap.error(f"--topology {args.topology}: {e}")
     model, model_cfg, session = build_session(
         args.arch, reduced=args.reduced, n_nodes=args.nodes,
         algorithm=args.algorithm, b=args.b, gamma_n=args.gamma_n,
         gamma_l=args.gamma_l, gamma_s=args.gamma_s, clip=args.clip,
         topology=topo, sync_interval=args.sync_interval,
-        schedule=args.schedule, seed=args.seed, device=dev)
+        schedule=args.schedule, seed=args.seed, device=dev,
+        use_kernels=True if args.use_kernels else None, chunk=args.chunk,
+        packed=args.packed, faults=faults, delays=delays)
     part = session.partition
     print(f"arch={args.arch} ({'reduced' if args.reduced else 'FULL'}) "
           f"algorithm={args.algorithm} nodes={args.nodes} "
           f"topo={args.topology}(d={args.degree}) "
           f"schedule={session.plan.schedule} device={dev} "
           f"kernels={session.plan.use_kernels} "
+          f"driver={args.driver}[{'packed' if args.packed else 'pytree'}] "
+          f"faults={faults} delays={delays} "
           f"d_s={part.d_shared():,} d_l={part.d_local():,}")
 
     stream = SyntheticLMStream(vocab_size=model_cfg.vocab_size,

@@ -367,3 +367,64 @@ def test_restored_run_continues_the_philox_stream_bit_for_bit(R, tmp_path):
             assert torch.equal(x, y)
     for k, v in rest.trajectory.items():
         np.testing.assert_array_equal(v, whole.trajectory[k][3:])
+
+
+@pytest.mark.parametrize("reader", ["port", "reference"])
+def test_async_state_restores_across_packages_and_resumes(R, tmp_path,
+                                                          reader):
+    """A state carrying a Mailbox (delays and faults on): both packages
+    save 3 rounds under the same names, shapes and dtypes
+    (``.dpps/.mail/.cal_s/0``, ...); the ``reader``'s restore of the other
+    package's file resumes 3 rounds (``start=3``) to the reference's
+    uninterrupted 6, within the training tolerance; a ``start`` that is not
+    the restored counter raises."""
+    from test_torch_net import mlp_sessions
+    from test_torch_reference import (reference_delay_draws,
+                                      reference_fault_draws)
+
+    kw = dict(delays=dict(max_delay=2, timeout_rate=0.1, seed=3),
+              faults=dict(drop_rate=0.2), sync_interval=0, noise=True)
+    ref_session, session, batches = mlp_sessions(R, rounds=6, **kw)
+    d_s, n, plan = session.partition.d_shared(), session.n_nodes, session.plan
+    draws = dict(
+        bits_at=lambda t: torch.from_numpy(reference_bits(
+            2024, t, n, d_s, partpsp=True)),
+        fault_draws_at=lambda t: reference_fault_draws(plan.faults, 2024, t,
+                                                       (n, n)),
+        delay_draws_at=lambda t: reference_delay_draws(plan.delays, 2024, t,
+                                                       (n, n)))
+    port_batch = lambda t: tree_from_numpy(batches[t], device="cpu")
+    ref_batch = lambda t: jax.tree_util.tree_map(jnp.asarray, batches[t])
+    first = session.train(3, port_batch, **draws)
+    session.save(str(tmp_path / "port"), first.state, step=3)
+    ref_first = ref_session.train(3, ref_batch)
+    ref_session.save(str(tmp_path / "reference"), ref_first.state, step=3)
+    metas = [json.loads((tmp_path / d / "meta.json").read_text())
+             for d in ("port", "reference")]
+    for key in ("step", "names", "dtypes", "shapes"):
+        assert metas[0][key] == metas[1][key], key
+    names = metas[0]["names"]
+    assert [x for x in names if x.startswith(".dpps/.mail/")] == [
+        ".dpps/.mail/.cal_s/0", ".dpps/.mail/.cal_s/1",
+        ".dpps/.mail/.cal_a", ".dpps/.mail/.inbox_s/0",
+        ".dpps/.mail/.inbox_s/1", ".dpps/.mail/.inbox_a"]
+    path = str(tmp_path / ("reference" if reader == "port" else "port"))
+    whole = ref_session.train(6, ref_batch)
+    if reader == "port":
+        restored, _ = session.restore(path)
+        assert restored.dpps.t == 3
+        with pytest.raises(ValueError, match="start=0"):
+            session.train(1, port_batch, state=restored, start=0)
+        rest = session.train(3, port_batch, state=restored, start=3, **draws)
+    else:
+        restored, _ = ref_session.restore(path)
+        rest = ref_session.train(3, ref_batch, state=restored, start=3)
+    assert int(rest.state.dpps.t) == 6
+    _close_states(rest.state, whole.state)
+    for k in ("loss_mean", "async_mass_mean", "noise_l1_mean"):
+        np.testing.assert_allclose(rest.trajectory[k],
+                                   np.asarray(whole.trajectory[k])[3:],
+                                   rtol=1e-4, atol=1e-5)
+    for k in ("async_delay_hist", "net_out_degree", "async_participated"):
+        np.testing.assert_array_equal(rest.trajectory[k],
+                                      np.asarray(whole.trajectory[k])[3:])

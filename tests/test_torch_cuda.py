@@ -848,3 +848,95 @@ def test_tree_gossip_launches_a_mix_a_leaf(dev, schedule):
     for g, w in zip(got.s, want.s):
         assert g.shape == w.shape
         torch.testing.assert_close(g, w, rtol=1e-5, atol=1e-6)
+
+
+# -- faults and bounded delays on the card ------------------------------------
+
+def _mlp_session(dev, schedule, packed, noise, **models):
+    from repro_torch.models.mlp import PARTITIONS, init_mlp, mlp_loss
+
+    return Session.build(
+        ErdosRenyiGraph(16, p=0.4, seed=1), privacy=PrivacySpec(
+            b=1.0, gamma_n=1e-5, noise=noise, c_prime=0.8, lam=0.6),
+        model=mlp_loss, params=init_mlp(torch.Generator().manual_seed(0)),
+        partition=PARTITIONS["partpsp-2"], schedule=schedule, packed=packed,
+        sync_interval=0, seed=7, device=dev, **models)
+
+
+def _batches(dev, n=16, steps=4):
+    from repro_torch.models.mlp import D_IN, N_CLASSES
+
+    gen = torch.Generator().manual_seed(1)
+    return [(torch.randn((n, 8, D_IN), generator=gen).to(dev),
+             torch.randint(0, N_CLASSES, (n, 8), generator=gen).to(dev))
+            for _ in range(steps)]
+
+
+@pytest.mark.parametrize("schedule", ["dense", "sparse"])
+def test_realized_weights_mix_through_the_kernels(dev, schedule):
+    """A faulted round's realized W through ``pushsum_mix`` bit for bit
+    against its plain version (N <= 32: one fma chain a column in both);
+    the realized edge-list values through ``spmm`` to rtol 1e-6 / atol
+    1e-6 and bit for bit against ``pushsum_mix`` on the same weights; the
+    realization twice the same bits (the deterministic segment sum)."""
+    from repro_torch.core.topology import padded_csr
+    from repro_torch.net import FaultModel
+
+    fm = FaultModel(drop_rate=0.3, straggler_rate=0.1, churn=((2, 1, 3),))
+    w_np = ErdosRenyiGraph(24, p=0.3, seed=2).weight_matrix(0).astype(
+        "float32")
+    x = torch.randn((24, 8192), generator=torch.Generator().manual_seed(3))
+    x = x.to(dev)
+    w, _ = fm.realize(torch.from_numpy(w_np).to(dev), 2, seed=5)
+    assert torch.equal(ops.pushsum_mix(w, x), ref.pushsum_mix(w, x))
+    if schedule == "sparse":
+        idx, vals = padded_csr(w_np, int((w_np > 0).sum(1).max()))
+        idx = torch.from_numpy(idx).to(dev, torch.int32)
+        vals = torch.from_numpy(vals).to(dev, torch.float32)
+        real, _ = fm.realize_sparse(idx, vals, 2, seed=5)
+        again, _ = fm.realize_sparse(idx, vals, 2, seed=5)
+        assert torch.equal(real, again)
+        dense = torch.zeros((24, 24), device=dev).index_put_(
+            (torch.arange(24, device=dev)[:, None].expand_as(idx),
+             idx.long()), real, accumulate=True)
+        got = ops.spmm(idx, real, x)
+        torch.testing.assert_close(got, ref.spmm(idx, real, x), rtol=1e-6,
+                                   atol=1e-6)
+        assert torch.equal(got, ops.pushsum_mix(dense, x))
+
+
+@pytest.mark.parametrize("schedule", ["dense", "sparse"])
+def test_async_packed_and_pytree_and_loop_bit_equal_on_the_card(dev,
+                                                                schedule):
+    """Delays with faults, noise off: the packed engine, the pytree engine
+    and the loop give the same bits (each delay slot one kernel launch a
+    buffer or a leaf, one fma chain an output in sender order); noise on:
+    the masks, ``a`` and the async rows bit for bit, the state to rtol
+    1e-4 (the norms sum a leaf at a time in the pytree runtime)."""
+    from repro_torch.net import DelayModel, FaultModel
+
+    models = dict(delays=DelayModel(max_delay=2, timeout_rate=0.1,
+                                    rates=(1, 2) * 8),
+                  faults=FaultModel(drop_rate=0.2))
+    batches = _batches(dev)
+    for noise in (False, True):
+        reps = []
+        for packed, driver in ((True, "engine"), (False, "engine"),
+                               (True, "loop")):
+            session = _mlp_session(dev, schedule, packed, noise, **models)
+            reps.append(session.train(4, lambda t: batches[t],
+                                      driver=driver))
+        base = reps[0]
+        for rep in reps[1:]:
+            assert torch.equal(rep.state.dpps.push.a, base.state.dpps.push.a)
+            for k, v in base.trajectory.items():
+                if k.startswith(("net_", "async_")) or k in ("a_min",
+                                                             "a_max"):
+                    assert (rep.trajectory[k] == v).all(), k
+            for x, y in zip(tree_leaves(rep.state), tree_leaves(base.state)):
+                if not isinstance(x, torch.Tensor):
+                    assert x == y
+                elif noise:
+                    torch.testing.assert_close(x, y, rtol=1e-4, atol=1e-6)
+                else:
+                    assert torch.equal(x, y)

@@ -20,6 +20,11 @@ Other ``tests/test_torch_*.py`` files import from here
 * :func:`reference_gumbel` rebuilds the Gumbel noise the reference's
   ``run_decode`` adds to the logits at each decode step, so the port's
   ``run_decode`` can be fed the same draws through its ``noise_at`` seam.
+* :func:`reference_fault_draws` / :func:`reference_delay_draws` rebuild the
+  masks and delays ``repro.net.faults.FaultModel`` and ``repro.net.delays.
+  DelayModel`` drew in round ``t`` (their salted key folds of
+  ``fold_in(PRNGKey(seed), t)`` and the split into two keys), for the
+  port's ``draws=`` / ``fault_draws_at`` / ``delay_draws_at`` seams.
 """
 from __future__ import annotations
 
@@ -32,7 +37,11 @@ import pytest
 import torch
 
 __all__ = ["load_reference", "reference_bits", "reference_tree_bits",
-           "reference_gumbel", "to_numpy"]
+           "reference_gumbel", "reference_fault_draws",
+           "reference_delay_draws", "to_numpy"]
+
+# the salts of repro/net/faults.py and repro/net/delays.py
+_FAULT_SALT, _DELAY_SALT = 0x4E455446, 0x4E455444
 
 
 def _install_batchers_contains() -> None:
@@ -104,6 +113,49 @@ def reference_gumbel(key, steps: int, batch: int, vocab: int) -> np.ndarray:
         out.append(np.array(jax.random.gumbel(sub, (batch, vocab),
                                               jnp.float32)))
     return np.stack(out) if out else np.zeros((0, batch, vocab), np.float32)
+
+
+def _salted_keys(seed: int, t: int, salt: int, model_seed: int):
+    """``split(fold_in(fold_in(fold_in(PRNGKey(seed), t), salt),
+    model_seed))``: the reference's two keys of a fault or delay round."""
+    key = jax.random.fold_in(jax.random.PRNGKey(seed), t)
+    return jax.random.split(jax.random.fold_in(
+        jax.random.fold_in(key, salt), model_seed))
+
+
+def reference_fault_draws(fm, seed: int, t: int, shape: tuple[int, int]):
+    """The keep masks the reference's ``FaultModel.realize`` (``shape`` (N,
+    N)) or ``realize_sparse`` ((N, K)) drew in round t under the session
+    seed ``seed``, as a :class:`repro_torch.net.FaultDraws`. ``fm`` is
+    either package's FaultModel (its rates and seed are read)."""
+    from repro_torch.net import FaultDraws
+
+    k_drop, k_strag = _salted_keys(seed, t, _FAULT_SALT, fm.seed)
+    drop = sends = None
+    if fm.drop_rate > 0.0:
+        drop = torch.from_numpy(np.array(jax.random.bernoulli(
+            k_drop, 1.0 - fm.drop_rate, shape)))
+    if fm.straggler_rate > 0.0:
+        sends = torch.from_numpy(np.array(jax.random.bernoulli(
+            k_strag, 1.0 - fm.straggler_rate, (shape[0],))))
+    return FaultDraws(drop=drop, sends=sends)
+
+
+def reference_delay_draws(dm, seed: int, t: int, shape: tuple[int, int]):
+    """The timeouts (before masking with the sent messages) and delays the
+    reference's ``DelayModel.open_round`` drew in round t, as a
+    :class:`repro_torch.net.DelayDraws`."""
+    from repro_torch.net import DelayDraws
+
+    k_to, k_dly = _salted_keys(seed, t, _DELAY_SALT, dm.seed)
+    timeout = delay = None
+    if dm.timeout_rate > 0.0:
+        timeout = torch.from_numpy(np.array(jax.random.bernoulli(
+            k_to, dm.timeout_rate, shape)))
+    if dm.max_delay > 0:
+        delay = torch.from_numpy(np.array(jax.random.randint(
+            k_dly, shape, 0, dm.max_delay + 1)).astype(np.int64))
+    return DelayDraws(timeout=timeout, delay=delay)
 
 
 def to_numpy(x) -> np.ndarray:

@@ -461,8 +461,7 @@ def test_train_cli_needs_the_card_without_device(monkeypatch):
 
 
 @pytest.mark.parametrize("flag,item", [
-    ("--drop-rate=0.1", "item 6"), ("--max-delay=2", "item 7"),
-    ("--wire=int8", "item 8")])
+    ("--wire=int8", "item 8"), ("--wire-dtype=bf16", "item 8")])
 def test_train_cli_unported_flags_name_their_roadmap_item(flag, item):
     with pytest.raises(NotImplementedError, match=f"ROADMAP Queue 1 {item}"):
         train_cli.main(["--reduced", "--device", "cpu", flag])
