@@ -173,10 +173,49 @@ Phases, each printing one JSON line:
                   loop, the pytree engine and the packed engine as in
                   24d; (c) 2 async rounds, ``Session.save``, restore, 1
                   round: bit for bit 3 rounds.
+26. ``wire``      the wire codecs: (a) ``run(20)`` at the dense full width
+                  (N = 5, d_s = 505,956,352) under ``int8`` and ``bf16``:
+                  ms a round beside phase 3's raw f32 round, the time of
+                  one round's stochastic-rounding draw and encode, peak
+                  memory beside its reckoning, exact launches (a bf16
+                  round launches no mix), mean(a) = 1 to 1e-5, the
+                  compression ratio; (b) int8, bf16 and top-k consensus on
+                  the card against the CPU (N = 10, d_s = 7840), int8 and
+                  bf16 entries a quantum apart counted and bounded (int8
+                  none, bf16 0.1 %), and the paper MLP
+                  trained 10 steps under int8 and top-k, card against CPU
+                  (losses to 1e-3); (c) phase 15's session
+                  under int8, 3 steps with ``LedgerHook`` and
+                  ``NetworkStatsHook``: ms a step beside phase 15's, the
+                  ledger's codec and bytes; (d) ``topk:1/16`` on the paper
+                  MLP (d_s = 7840), 50 steps, dense (N = 10) and sparse
+                  (ER(128), ``spmm``): exact launches, the losses fall, the
+                  residual's L1 bounded; (e) int8 under delays and drops
+                  on ER(128); (f) a top-k state saved (``.dpps/.resid``),
+                  restored and resumed bit for bit.
+27. ``audit``     the attack battery at ``AuditConfig()`` (N = 4, dim 16,
+                  1,500 trials, each trial a ``run_dpps`` call on the
+                  card): the default Laplace (``dpps_perturb.cu``), the
+                  Gaussian, graph-homomorphic and half-scale Laplace
+                  mechanisms (their draws through ``laplace_noise.cu``)
+                  under the three threat models, each cell's empirical
+                  epsilon, claim, flag and trials, the fig5 claims held;
+                  ``LaplaceMechanism()`` bit for bit the default on 50
+                  trials (a comparison: its launches stay out of the
+                  kernels line); the wire battery (int8, top-k, the
+                  compress-first codec, each on the kernels: the
+                  compress-first codec's down-scaled noise through
+                  ``laplace_noise.cu``) at 800 trials, its claims held;
+                  the reconstruction table; membership inference on the
+                  paper MLP. A mechanism's noise norm launches
+                  ``dpps_perturb.cu`` alone (``ops.noise_l1_rows``),
+                  counted apart as ``norm_only_launches`` in
+                  ``dpps_perturb_rows``' entry.
 
 Each kernel counts its launches. The counts are set to 0 just before each
 path (phases 3-7, 10, 13, 15, 17, each run of 19 and 22, each serve of 20,
-23, and each run of 24 and 25) and read just after; each path names the kernels it must launch
+23, each run of 24, 25 and 26, and each battery of 27, a codec each in
+its wire battery) and read just after; each path names the kernels it must launch
 (and the sparse paths must launch ``pushsum_mix`` no time; the training
 paths exactly their counts). Then come the card's
 name and power limit (``nvidia-smi``), the ``kernels`` line with every
@@ -339,6 +378,11 @@ KERNELS = {
     "flash_attention": dict(
         source="src/repro_torch/kernels/csrc/flash_attention.cu",
         replaces="src/repro/kernels/flash_attention.py:91"),
+    # dpps_perturb.cu launched for a noise norm only (an audit mechanism's
+    # row): counted apart, reported in dpps_perturb_rows' entry
+    "noise_l1_rows": dict(
+        source="src/repro_torch/kernels/csrc/dpps_perturb.cu",
+        replaces="src/repro/kernels/dpps_perturb.py:49"),
 }
 DENSE_PATH = ("l1_norm_rows", "dpps_perturb_rows", "pushsum_mix")
 SPARSE_PATH = ("l1_norm_rows", "dpps_perturb_rows", "spmm")
@@ -3445,6 +3489,571 @@ def async_phase(torch, api, mlp, data, ops, T, dev,
                 resume=resumed), counts
 
 
+# -- phase 26: the wire codecs ------------------------------------------------
+
+WIRE_FULL_SPECS = ("int8", "bf16")
+TOPK_SPEC = "topk:1/16"
+WIRE_AGREE_STEPS = 10
+# temporaries a full-width round adds to phase 3's five (N, d_pad) buffers,
+# in f32 (N, 2^24) windows: int8 the Philox draw (its four int64 word
+# tensors and their stack, 2 windows each, the shifted words, the uniforms;
+# about 12 at once, counted generously) with the divided window; bf16 the
+# bf16 window of the in-place rounding (the plain mix writes phase 3's mix
+# output)
+WIRE_WINDOW_BUFFERS = {"int8": 12, "bf16": 0.5}
+
+
+def wire_consensus(torch, api, T, ops, dev, spec: str, f32_ms: float) -> dict:
+    """``run(CONSENSUS_ROUNDS)`` of DPPS consensus at the dense full width
+    (N = 5, d_s = 505,956,352, 2-out) under the codec ``spec``, in one timed
+    call: ms a round beside phase 3's raw f32 round, peak memory beside
+    its reckoning, the launches (a bf16 round launches no mix), mean(a);
+    int8 also the time of one round's stochastic-rounding draw and of its
+    encode alone."""
+    from repro_torch.core.pushsum import consensus_error
+    from repro_torch.wire import DRAW_COLUMNS, parse_wire_spec, wire_uniforms
+
+    n, d_s = FULL["n"], FULL["d_s"]
+    topo = T.DOutGraph(n, 2)
+    c_prime, lam = T.calibrate_constants(topo)
+    gamma_n = 0.5 * (1.0 / lam - 1.0) / (2.0 * c_prime * d_s)
+    codec = parse_wire_spec(spec)
+    session = api.Session.build(topo, privacy=api.PrivacySpec(
+        b=1.0, gamma_n=gamma_n, c_prime=c_prime, lam=lam), schedule="dense",
+        seed=SEED, wire=codec)
+    require(session.plan.use_kernels and session.plan.wire == codec, "plan")
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    values = {"shared": torch.randn((n, d_s), generator=gen, device=dev)}
+    err0 = consensus_error(values["shared"], chunk=1 << 24).item()
+    buffer_gb = n * d_pad_of(d_s) * 4 / 1e9
+    window_gb = n * DRAW_COLUMNS * 4 / 1e9
+    torch.cuda.synchronize()
+    base_gb = torch.cuda.memory_allocated() / 1e9
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    rep = session.run(CONSENSUS_ROUNDS, values=values)
+    torch.cuda.synchronize()
+    run_ms = (time.perf_counter() - t0) * 1e3
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    launches = ops.launch_counts()
+    expected = {k: 0 for k in KERNELS}
+    expected.update(l1_norm_rows=CONSENSUS_ROUNDS + 1,
+                    dpps_perturb_rows=CONSENSUS_ROUNDS,
+                    pushsum_mix=0 if spec == "bf16" else CONSENSUS_ROUNDS)
+    require(launches == expected, f"{spec} launches {launches}, expected "
+                                  f"{expected}")
+    state = rep.state
+    a_mean = state.push.a.double().mean().item()
+    require(abs(a_mean - 1.0) < 1e-5, f"{spec}: mean(a) = {a_mean}")
+    require(bool(torch.isfinite(state.push.s["shared"]).all()),
+            f"{spec}: state not finite")
+    err = consensus_error(state.push.s["shared"], a=state.push.a,
+                          chunk=1 << 24).item()
+    # phase 3's five buffers (the values, the zero perturbation, the state,
+    # the noised buffer, the mix output) and the codec's window temporaries
+    reckoned_gb = 5 * buffer_gb + WIRE_WINDOW_BUFFERS[spec] * window_gb
+    require(peak_gb <= base_gb + reckoned_gb - buffer_gb + 0.5,
+            f"{spec}: peak {peak_gb} GB over the reckoned {reckoned_gb}")
+    line = dict(spec=spec, n=n, d_s=d_s, buffer_gb=buffer_gb,
+                topology="DOutGraph(5, 2)", rounds=CONSENSUS_ROUNDS,
+                gamma_n=gamma_n, run_ms=run_ms,
+                ms_per_round=run_ms / CONSENSUS_ROUNDS,
+                f32_ms_per_round_phase3=f32_ms,
+                consensus_error_initial=err0, consensus_error_final=err,
+                a_mean=a_mean, allocated_before_gb=base_gb,
+                peak_mem_gb=peak_gb, peak_reckoned_gb=reckoned_gb,
+                payload_bytes=codec.payload_bytes(d_s),
+                compression_ratio=4.0 * d_s / codec.payload_bytes(d_s),
+                launches=launches)
+    del rep, state
+    if spec == "int8":
+        # one round's draw alone (the encode's windows), then the encode
+        wire = values["shared"]
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start.record()
+        for c0 in range(0, d_s, DRAW_COLUMNS):
+            wire_uniforms(SEED, 0, n, c0, min(c0 + DRAW_COLUMNS, d_s),
+                          device=dev)
+        end.record()
+        torch.cuda.synchronize()
+        line["draw_ms"] = start.elapsed_time(end)
+        out = torch.empty_like(wire)
+        start.record()
+        codec.encode(wire, (), seed=SEED, t=0, out=out)
+        end.record()
+        torch.cuda.synchronize()
+        line["encode_ms"] = start.elapsed_time(end)
+        del out
+    del values
+    torch.cuda.empty_cache()
+    return line
+
+
+# The share of entries that may sit a quantum apart between the card and
+# the CPU after phase 26b's consensus rounds.
+WIRE_OFF_LIMIT = {"int8": 0.0, "bf16": 1e-3}
+
+
+def wire_agreement(torch, api, T, dev) -> dict:
+    """Seeded consensus under each codec on the card and on the CPU (the
+    same noise bits and int8 uniforms: counter-based Philox): the state to
+    rtol 1e-5 plus 1e-6 of its largest magnitude, except entries where the
+    card's logf (an ulp from the CPU's log) or the kernels' summation order
+    moved a value across a rounding boundary, one quantum apart (int8
+    max|s| / 127, bf16 max|s| 2^-8). Those are counted and bounded
+    (:data:`WIRE_OFF_LIMIT`: none for int8, 0.1 % of the entries for bf16).
+    Top-k has no rounding: it must agree everywhere."""
+    from repro_torch.wire import parse_wire_spec
+
+    n, d_s = 10, 7840
+    vals = torch.randn((n, d_s), generator=torch.Generator().manual_seed(2))
+    out = {}
+    for spec in ("int8", "bf16", TOPK_SPEC):
+        states = {}
+        for device in ("cuda", "cpu"):
+            session = api.Session.build(
+                T.DOutGraph(n, 2), privacy=api.PrivacySpec(
+                    b=1.0, gamma_n=1e-6, c_prime=0.8, lam=0.6),
+                schedule="dense", sync_interval=5, chunk=4, seed=SEED,
+                device=device, wire=parse_wire_spec(spec))
+            rep = session.run(7, values={"x": vals})
+            states[device] = rep.state.push.s["x"].cpu()
+        got, want = states["cuda"], states["cpu"]
+        diff = (got - want).abs()
+        lim = 1e-5 * want.abs() + 1e-6 * want.abs().max()
+        off = int((diff > lim).sum())
+        quantum = {"int8": 1.0 / 127.0, "bf16": 2.0 ** -8}.get(
+            spec, 0.0) * float(want.abs().max())
+        limit = int(WIRE_OFF_LIMIT.get(spec, 0.0) * diff.numel())
+        require(off <= limit, f"{spec}: card against CPU off at {off} "
+                              f"entries (at most {limit})")
+        require(bool((diff <= lim + quantum).all()),
+                f"{spec}: card against CPU beyond a quantum: "
+                f"{diff.max().item()}")
+        out[spec] = dict(max_abs_err=diff.max().item(), entries=diff.numel(),
+                         quantum=quantum, off_by_a_quantum=off,
+                         off_limit=limit)
+    return dict(n=n, d_s=d_s, rounds=7, results=out)
+
+
+def wire_training_agreement(torch, api, mlp, data) -> dict:
+    """The paper MLP (partpsp-1, 2-out, N = 10) trained ``WIRE_AGREE_STEPS``
+    steps under int8 and under top-k on the card and on the CPU (the same
+    Philox streams): the losses to 1e-3 relative, as phase 8 holds
+    training; int8 entries of the shared state a quantum apart counted."""
+    from repro_torch.core.topology import DOutGraph
+    from repro_torch.wire import parse_wire_spec
+
+    n, steps = PAPER["n"], WIRE_AGREE_STEPS
+    batches = training_batches(mlp, data, torch, n, steps)
+    out = {}
+    for spec in ("int8", TOPK_SPEC):
+        reps = {}
+        for device in ("cuda", "cpu"):
+            session = api.Session.build(
+                DOutGraph(n, 2), privacy=api.PrivacySpec(
+                    b=1.0, gamma_n=1e-5, c_prime=0.8, lam=0.6),
+                model=mlp.mlp_loss, params=mlp.init_mlp(
+                    torch.Generator().manual_seed(SEED)),
+                partition=mlp.PARTITIONS["partpsp-1"], algorithm="partpsp",
+                gamma_l=0.1, gamma_s=0.1, clip=100.0, schedule="dense",
+                sync_interval=5, seed=SEED, device=device,
+                wire=parse_wire_spec(spec))
+            on = [tuple(x.to(session.device) for x in b) for b in batches]
+            reps[device] = session.train(steps, lambda t: on[t])
+        gpu = reps["cuda"].trajectory["loss_mean"]
+        cpu = reps["cpu"].trajectory["loss_mean"]
+        rel = float(abs(gpu - cpu).max() / abs(cpu).max())
+        require(rel < 1e-3, f"{spec} training on the card vs CPU: {rel}")
+        got = reps["cuda"].state.dpps.push.s[0].cpu()
+        want = reps["cpu"].state.dpps.push.s[0]
+        diff = (got - want).abs()
+        off = int((diff > 1e-5 * want.abs()
+                   + 1e-6 * want.abs().max()).sum())
+        out[spec] = dict(loss_max_rel_diff=rel,
+                         shared_max_abs_err=diff.max().item(),
+                         shared_entries=diff.numel(), shared_off=off)
+    return dict(n=n, steps=steps, results=out)
+
+
+def topk_training(torch, api, mlp, data, ops, dev, *, topo,
+                  schedule: str) -> dict:
+    """The paper MLP (partpsp-1, d_s = 7840) ``TRAIN_STEPS`` steps under
+    top-k (1/16, error feedback) on ``topo``: the losses fall, the exact
+    launches, the residual's mean L1 bounded, the compression ratio."""
+    from repro_torch.wire import parse_wire_spec
+
+    n = topo.n_nodes
+    batches = training_batches(mlp, data, torch, n, TRAIN_STEPS)
+    on = [tuple(x.to(dev) for x in b) for b in batches]
+    codec = parse_wire_spec(TOPK_SPEC)
+    session = api.Session.build(
+        topo, privacy=api.PrivacySpec(b=1.0, gamma_n=1e-5, c_prime=0.8,
+                                      lam=0.6),
+        model=mlp.mlp_loss, params=mlp.init_mlp(
+            torch.Generator().manual_seed(SEED)),
+        partition=mlp.PARTITIONS["partpsp-1"], algorithm="partpsp",
+        gamma_l=0.1, gamma_s=0.1, clip=100.0, schedule=schedule,
+        sync_interval=5, seed=SEED, wire=codec)
+    d_s = session.partition.d_shared()
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    class WireStats(api.RoundHook):  # asks the rounds for wd_wire_resid
+        needs_wire_stats = True
+
+    rep = session.train(TRAIN_STEPS, lambda t: on[t], hooks=[WireStats()])
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) / TRAIN_STEPS * 1e3
+    launches = ops.launch_counts()
+    mix = "spmm" if schedule == "sparse" else "pushsum_mix"
+    want = tree_launches(1, 0, TRAIN_STEPS, 5, mix=mix)
+    require(launches == want, f"top-k {schedule}: launches {launches}, "
+                              f"expected {want}")
+    loss = rep.trajectory["loss_mean"]
+    first, last = float(loss[:10].mean()), float(loss[-10:].mean())
+    require(all(math.isfinite(float(x)) for x in loss) and last < first,
+            f"top-k {schedule}: loss {first} -> {last}")
+    resid = [float(x) for x in rep.trajectory["wd_wire_resid"]]
+    require(all(math.isfinite(x) for x in resid), "residual not finite")
+    a_mean = rep.state.dpps.push.a.double().mean().item()
+    require(abs(a_mean - 1.0) < 1e-5, f"mean(a) = {a_mean}")
+    return dict(n=n, topology=type(topo).__name__, schedule=schedule,
+                spec=TOPK_SPEC, d_s=d_s, k=codec.effective_k(d_s),
+                steps=TRAIN_STEPS, ms_per_step=ms, loss_first10=first,
+                loss_last10=last, wire_resid_l1_first=resid[0],
+                wire_resid_l1_max=max(resid), wire_resid_l1_last=resid[-1],
+                a_mean=a_mean, payload_bytes=codec.payload_bytes(d_s),
+                compression_ratio=4.0 * d_s / codec.payload_bytes(d_s),
+                launches=launches)
+
+
+def int8_async(torch, api, mlp, data, ops, dev) -> dict:
+    """int8 under delays on ER(128) (sparse, the MLP, ``ASYNC_MLP`` with
+    drop 0.2): the noised payload is encoded before it is enqueued; mass
+    conserved, staleness <= B, B + 1 spmm launches a round."""
+    from repro_torch.net import DelayModel, FaultModel
+    from repro_torch.wire import Int8StochasticCodec
+
+    topo = sparse_graph(SPARSE_TRAIN_N)
+    steps = LOOP_MLP_STEPS
+    batches = training_batches(mlp, data, torch, topo.n_nodes, steps)
+    on = [tuple(x.to(dev) for x in b) for b in batches]
+    session = api.Session.build(
+        topo, privacy=api.PrivacySpec(b=1.0, gamma_n=1e-5, c_prime=0.8,
+                                      lam=0.6),
+        model=mlp.mlp_loss, params=mlp.init_mlp(
+            torch.Generator().manual_seed(SEED)),
+        partition=mlp.PARTITIONS["partpsp-2"], algorithm="partpsp",
+        gamma_l=0.1, gamma_s=0.1, clip=100.0, schedule="sparse",
+        sync_interval=0, seed=SEED, delays=DelayModel(**ASYNC_MLP),
+        faults=FaultModel(drop_rate=0.2), wire=Int8StochasticCodec())
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    rep = session.train(steps, lambda t: on[t])
+    torch.cuda.synchronize()
+    launches = ops.launch_counts()
+    b = ASYNC_MLP["max_delay"]
+    want = {k: 0 for k in KERNELS}
+    want.update(l1_norm_rows=steps + 1, dpps_perturb_rows=steps,
+                spmm=(b + 1) * steps)
+    require(launches == want, f"int8 async launches {launches}, expected "
+                              f"{want}")
+    mass = rep.trajectory["async_mass_mean"]
+    require(bool((abs(mass - 1.0) <= 1e-5).all()), f"mass {mass}")
+    stale = int(rep.trajectory["async_staleness_max"].max())
+    require(stale <= b, f"staleness {stale}")
+    loss = [float(x) for x in rep.trajectory["loss_mean"]]
+    require(all(math.isfinite(x) for x in loss), f"losses {loss}")
+    return dict(n=topo.n_nodes, schedule="sparse", steps=steps,
+                delays=dict(ASYNC_MLP, rates="(1, 2, 1, 1) x 32"),
+                faults=dict(drop_rate=0.2), spec="int8",
+                async_mass_mean=[float(x) for x in mass],
+                staleness_max=stale, losses=loss, launches=launches)
+
+
+def topk_resume(torch, api, mlp, data, ops, dev, tmp: str) -> dict:
+    """Top-k on the MLP (2-out, N = 10, dense): 2 rounds, ``Session.save``
+    (the residual as ``.dpps/.resid``), ``Session.restore``, 1 more round:
+    bit for bit 3 uninterrupted rounds, residual included."""
+    import os
+
+    from repro_torch.core.topology import DOutGraph
+    from repro_torch.wire import parse_wire_spec
+
+    first, then = RESUME_SPLIT
+    n = PAPER["n"]
+    batches = training_batches(mlp, data, torch, n, first + then)
+    on = [tuple(x.to(dev) for x in b) for b in batches]
+    session = api.Session.build(
+        DOutGraph(n, 2), privacy=api.PrivacySpec(b=1.0, gamma_n=1e-5,
+                                                 c_prime=0.8, lam=0.6),
+        model=mlp.mlp_loss, params=mlp.init_mlp(
+            torch.Generator().manual_seed(SEED)),
+        partition=mlp.PARTITIONS["partpsp-1"], algorithm="partpsp",
+        gamma_l=0.1, gamma_s=0.1, clip=100.0, schedule="dense",
+        sync_interval=5, seed=SEED, wire=parse_wire_spec(TOPK_SPEC))
+    batch_at = lambda t: on[t]
+    ops.reset_launch_counts()
+    whole = session.train(first + then, batch_at)
+    part = session.train(first, batch_at)
+    path = os.path.join(tmp, "topk_state")
+    session.save(path, part.state, step=first)
+    restored, meta = session.restore(path)
+    require(restored.dpps.t == first, "restored counter")
+    rest = session.train(then, batch_at, state=restored, start=first)
+    torch.cuda.synchronize()
+    launches = ops.launch_counts()
+    got, want = state_leaves(torch, rest.state), state_leaves(torch,
+                                                             whole.state)
+    equal = [bool(torch.equal(g, w)) for g, w in zip(got, want)]
+    require(len(got) == len(want) and all(equal),
+            f"resumed top-k state differs at {equal}")
+    for k, v in rest.trajectory.items():
+        require(bool((v == whole.trajectory[k][first:]).all()),
+                f"resumed trajectory {k}")
+    require(".dpps/.resid" in meta["names"], f"names {meta['names']}")
+    require(float(rest.state.dpps.resid.abs().sum()) > 0, "empty residual")
+    return dict(n=n, spec=TOPK_SPEC, rounds_before_save=first,
+                rounds_after_restore=then, leaves=len(equal),
+                resid_name=".dpps/.resid", bit_equal_state=True,
+                bit_equal_trajectory=True, launches=launches)
+
+
+def wire_training(torch, T, ops, f32_step_ms: float) -> dict:
+    """Phase 15's session (llama3.2-1b full width, N = 4) under int8, 3
+    steps with a ``LedgerHook`` and a ``NetworkStatsHook``: ms a step and
+    a DPPS round beside phase 15's, peak memory, exact launches, the
+    ledger's codec and bytes, the compression ratio."""
+    from repro_torch.api import LedgerHook
+    from repro_torch.net import NetworkStatsHook
+    from repro_torch.wire import Int8StochasticCodec
+
+    session, batches, gamma_n = lm_session(torch, T,
+                                           wire=Int8StochasticCodec())
+    steps = LOOP_STEPS
+    hooks = [LedgerHook(), NetworkStatsHook()]
+    events = {}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    rep, step_ms = timed_train(torch, session, batches, steps, events,
+                               hooks=hooks)
+    launches = ops.launch_counts()
+    want = tree_launches(1, 0, steps, 5)
+    require(launches == want, f"launches {launches}, expected {want}")
+    loss = [float(x) for x in rep.trajectory["loss_mean"]]
+    require(all(math.isfinite(x) for x in loss), f"losses {loss}")
+    a_mean = rep.state.dpps.push.a.double().mean().item()
+    require(abs(a_mean - 1.0) < 1e-5, f"mean(a) = {a_mean}")
+    entry = hooks[0].ledger.entries[0]
+    require(entry["wire_codec"] == "int8"
+            and entry["wire_bytes_per_edge"] == TRAIN_LM["d_s"] + 4,
+            f"ledger {entry}")
+    network = rep.network.summary()
+    dpps_ms = [a.elapsed_time(b) for a, b, _ in events["dpps_step"]]
+    line = dict(arch=TRAIN_LM["arch"], nodes=TRAIN_LM["n"],
+                d_s=TRAIN_LM["d_s"], spec="int8", steps=steps,
+                gamma_n=gamma_n, step_ms=step_ms,
+                ms_per_step=sum(step_ms[1:]) / (steps - 1),
+                f32_ms_per_step_phase15=f32_step_ms, dpps_round_ms=dpps_ms,
+                peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
+                losses=loss, a_mean=a_mean, launches=launches,
+                ledger_wire=dict(wire_codec=entry["wire_codec"],
+                                 wire_bytes_per_edge=entry[
+                                     "wire_bytes_per_edge"]),
+                network=network)
+    del rep, session, batches
+    torch.cuda.empty_cache()
+    return line
+
+
+def wire_phase(torch, api, mlp, data, ops, T, dev, tmp: str, *,
+               f32_ms: float, f32_step_ms: float) -> tuple[dict, list]:
+    """Phase 26: (a) int8 and bf16 consensus at the dense full width; (b)
+    card against CPU under each codec; (c) llama3.2-1b training under
+    int8; (d) top-k on the MLP, dense (N = 10) and sparse (ER(128)); (e)
+    int8 under delays on ER(128); (f) a top-k resume."""
+    counts, parts = [], {}
+
+    def part(name: str, line: dict) -> None:
+        # each part on its own line as it ends; the phase's line sums up
+        emit(dict(phase="wire", part=name, **line))
+        parts[name] = line
+        if "launches" in line:
+            counts.append(line["launches"])
+
+    for spec in WIRE_FULL_SPECS:
+        part(f"consensus_{spec}",
+             wire_consensus(torch, api, T, ops, dev, spec, f32_ms))
+    part("agreement", wire_agreement(torch, api, T, dev))
+    part("training_agreement",
+         wire_training_agreement(torch, api, mlp, data))
+    part("training_int8", wire_training(torch, T, ops, f32_step_ms))
+    for schedule, topo in (("dense", T.DOutGraph(PAPER["n"], 2)),
+                           ("sparse", sparse_graph(SPARSE_TRAIN_N))):
+        part(f"topk_{schedule}", topk_training(
+            torch, api, mlp, data, ops, dev, topo=topo, schedule=schedule))
+    part("int8_async", int8_async(torch, api, mlp, data, ops, dev))
+    part("topk_resume", topk_resume(torch, api, mlp, data, ops, dev, tmp))
+    summary = {name: {k: v for k, v in line.items()
+                      if k in ("ms_per_round", "ms_per_step", "draw_ms",
+                               "encode_ms", "peak_mem_gb",
+                               "peak_reckoned_gb", "compression_ratio",
+                               "launches", "results")}
+               for name, line in parts.items()}
+    return dict(phase="wire", summary=summary), counts
+
+
+# -- phase 27: the privacy audit lab ------------------------------------------
+
+AUDIT_MECHANISMS = ("laplace", "gaussian", "graph_homomorphic",
+                    "broken_laplace")
+AUDIT_WIRE = ("int8", TOPK_SPEC, "broken-compress-first")
+AUDIT_WIRE_TRIALS = 800
+MEMBERSHIP = dict(steps=60, examples=200)
+
+
+def audit_cells(results) -> list:
+    return [dict(mechanism=r.mechanism, threat=r.threat,
+                 eps_emp=r.empirical.epsilon_lower,
+                 eps_claim=r.theoretical_epsilon, flagged=r.flagged,
+                 trials=r.empirical.trials, tpr=r.empirical.tpr,
+                 fpr=r.empirical.fpr) for r in results]
+
+
+def membership(torch, api, mlp, data, dev) -> dict:
+    """Membership inference on PartPSP-1 shared parameters (the paper MLP,
+    2-out, N = 10), as ``benchmarks/fig5_audit.py::run_membership`` runs
+    it: train 60 steps, then threshold the per-example losses under node
+    0's consensus view of its own training examples (members) against
+    fresh draws of the task (non-members). gamma_n 1e-5: the reference's
+    1e-4 sits outside the stability region at the calibrated constants."""
+    from repro_torch.audit import example_scores, membership_inference
+    from repro_torch.core.topology import DOutGraph
+
+    n, steps = PAPER["n"], MEMBERSHIP["steps"]
+    batches = training_batches(mlp, data, torch, n, steps)
+    session, batch_at = training_setup(api, mlp, torch, None,
+                                       topo=DOutGraph(n, 2), schedule="dense",
+                                       batches=batches)
+    rep = session.train(steps, batch_at)
+    params = session.consensus_view(rep.state, 0)
+    m = MEMBERSHIP["examples"]
+    x_in = torch.cat([b[0][0] for b in batches])[:m].to(dev)
+    y_in = torch.cat([b[1][0] for b in batches])[:m].to(dev)
+    task = data.SyntheticClassification(d_in=mlp.D_IN, seed=SEED,
+                                        device="cpu")
+    x_out, y_out = task.sample(torch.Generator().manual_seed(SEED + 123), m)
+    s_in = example_scores(mlp.mlp_loss, params, x_in, y_in)
+    s_out = example_scores(mlp.mlp_loss, params, x_out.to(dev),
+                           y_out.to(dev))
+    est = membership_inference(s_in, s_out)
+    return dict(steps=steps, examples=m, eps_emp=est.epsilon_lower,
+                trials=est.trials, tpr=est.tpr, fpr=est.fpr,
+                loss_members=float(s_in.mean()),
+                loss_nonmembers=float(s_out.mean()))
+
+
+def audit_phase(torch, api, mlp, data, ops, dev) -> tuple[dict, list]:
+    """Phase 27: the attack battery on the card at ``AuditConfig()`` (N =
+    4, dim 16, 1,500 trials): four mechanisms under the three threats (the
+    default Laplace through dpps_perturb.cu, the mechanisms' draws through
+    laplace_noise.cu), the fig5 claims held; the wire battery at 800
+    trials, its claims held; ``LaplaceMechanism()`` bit for bit the default
+    on 50 trials; the reconstruction table; membership inference."""
+    from repro_torch.audit import (GLOBAL_OBSERVER, LOCAL_EAVESDROPPER,
+                                   THREAT_MODELS, AuditConfig,
+                                   distinguishing_attack, get_mechanism,
+                                   reconstruction_attack)
+    from repro_torch.audit.attacks import tapped_trials
+    from repro_torch.wire import parse_wire_spec
+
+    counts = []
+    audit = AuditConfig()
+    same = AuditConfig(trials=50)
+    # a comparison, not the path: its launches are read here and left out
+    # of the kernels line
+    ops.reset_launch_counts()
+    a = tapped_trials(same, None, 0)
+    b = tapped_trials(same, get_mechanism("laplace"), 0)
+    compared = ops.launch_counts()
+    bit_equal = {k: bool((a[k] == b[k]).all()) for k in a}
+    require(all(bit_equal.values()), f"Laplace mechanism != default: "
+                                     f"{bit_equal}")
+    require(compared["laplace_from_bits"] == same.trials
+            and compared["noise_l1_rows"] == same.trials * same.rounds,
+            f"mechanism draws launched {compared}")
+    t0 = time.perf_counter()
+    ops.reset_launch_counts()
+    grid = []
+    for name in AUDIT_MECHANISMS:
+        mech = None if name == "laplace" else get_mechanism(name)
+        for threat in THREAT_MODELS:
+            grid.append(distinguishing_attack(threat, mechanism=mech,
+                                              audit=audit))
+    counts.append(ops.launch_counts())
+    grid_s = time.perf_counter() - t0
+    require(all(counts[-1][k] > 0 for k in DENSE_PATH + (
+        "laplace_from_bits", "noise_l1_rows")),
+            f"the battery missed a kernel: {counts[-1]}")
+    by = {(r.mechanism, r.threat): r for r in grid}
+    for t in THREAT_MODELS:
+        require(not by[("laplace", t.name)].flagged,
+                f"Laplace flagged under {t.name}: {by[('laplace', t.name)]}")
+    require(any(by[("broken_laplace", t.name)].flagged
+                for t in THREAT_MODELS), "broken Laplace not flagged")
+    require(not by[("graph_homomorphic", LOCAL_EAVESDROPPER.name)].flagged,
+            "graph-homomorphic flagged by the eavesdropper")
+    require(by[("graph_homomorphic", GLOBAL_OBSERVER.name)].flagged,
+            "graph-homomorphic not flagged by the global observer")
+    t0 = time.perf_counter()
+    wire, wire_counts = [], {}
+    for spec in AUDIT_WIRE:
+        cfg = AuditConfig(trials=AUDIT_WIRE_TRIALS,
+                          wire=parse_wire_spec(spec))
+        ops.reset_launch_counts()
+        for threat in THREAT_MODELS:
+            r = distinguishing_attack(threat, audit=cfg)
+            wire.append(dict(audit_cells([r])[0], wire=spec))
+        wire_counts[spec] = ops.launch_counts()
+        counts.append(wire_counts[spec])
+        # every cell on the kernels: the honest codecs encode the fused
+        # perturbation's output; the compress-first codec draws its
+        # down-scaled noise through laplace_noise.cu
+        drawn = (("laplace_from_bits", "noise_l1_rows")
+                 if cfg.wire.compress_before_noise else ("dpps_perturb_rows",))
+        require(all(wire_counts[spec][k] > 0
+                    for k in ("l1_norm_rows", "pushsum_mix") + drawn),
+                f"{spec} battery missed a kernel: {wire_counts[spec]}")
+    wire_s = time.perf_counter() - t0
+    for cell in wire:
+        if cell["wire"] != "broken-compress-first":
+            require(not cell["flagged"], f"honest codec flagged: {cell}")
+    require(any(c["flagged"] for c in wire
+                if c["wire"] == "broken-compress-first"),
+            "compress-first codec not flagged")
+    ops.reset_launch_counts()
+    recon = {name: reconstruction_attack(
+        mechanism=None if name == "laplace" else get_mechanism(name),
+        audit=AuditConfig(trials=AUDIT_WIRE_TRIALS))
+        for name in ("laplace", "graph_homomorphic")}
+    counts.append(ops.launch_counts())
+    ops.reset_launch_counts()
+    mia = membership(torch, api, mlp, data, dev)
+    counts.append(ops.launch_counts())
+    return dict(phase="audit", n=audit.n_nodes, dim=audit.dim,
+                trials=audit.trials, laplace_mechanism_bit_equal=bit_equal,
+                cells=audit_cells(grid), battery_s=grid_s,
+                battery_launches=counts[0], wire_trials=AUDIT_WIRE_TRIALS,
+                wire_cells=wire, wire_battery_s=wire_s,
+                wire_battery_launches=wire_counts,
+                laplace_mechanism_compare_launches=compared,
+                reconstruction=recon,
+                membership=mia), counts
+
+
 def sparse_graph(n: int, seed: int = 0):
     from repro_torch.net import ErdosRenyiGraph
 
@@ -3685,6 +4294,16 @@ def main() -> int:
     emit(delayed)
     launches += counts
     torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        wired, counts = wire_phase(
+            torch, api, mlp, data, ops, T, dev, tmp,
+            f32_ms=cons["ms_per_round"], f32_step_ms=lm["ms_per_step"])
+    emit(wired)
+    launches += counts
+    torch.cuda.empty_cache()
+    audited, counts = audit_phase(torch, api, mlp, data, ops, dev)
+    emit(audited)
+    launches += counts
 
     for (shape, k), (fn, other, name) in calls.items():
         r = small[shape][k]
@@ -3714,13 +4333,15 @@ def main() -> int:
         extra = {}
         if name == "pushsum_mix":  # phase 24a's realized W
             extra["realized_weights"] = faulted["dense_full"]["realized_mix"]
+        norms = {"norm_only_launches": total["noise_l1_rows"]} \
+            if name == "dpps_perturb_rows" else {}
         kernels.append(kernel_entry(
             name, dict(f, max_abs_err=max(
                 [f["max_abs_err"]] + [a["max_abs_err"] for a in at.values()]
                 + [r["max_abs_err"] for r in extra.values()])),
             total[name], shape=dict(FULL, d_pad=d_pad_of(FULL["d_s"])),
             **{k: f[k] for k in ("plan", "copy_ms") if k in f}, **at,
-            **extra))
+            **extra, **norms))
     sp = spmm["full"]
     realized = faulted["sparse_full"]["realized_mix"]  # phase 24b's
     kernels.append(kernel_entry(

@@ -12,8 +12,8 @@ A hook couples one round-side capture with one host-side consumer:
 
 Four declarations tell the drivers what a round must provide (collected
 into a :class:`TraceSpec` by :func:`hook_trace_spec`): ``tap`` (a
-transcript tap; the audit lab is ROADMAP Queue 1 item 9, so no hook of the
-port carries one yet), ``needs_s_half`` (the perturbed pre-noise state
+:class:`repro_torch.audit.transcript.TranscriptTap`, which
+:class:`TranscriptHook` carries), ``needs_s_half`` (the perturbed pre-noise state
 ``s^(t+1/2)`` in the diagnostics), ``needs_adjacency`` (the realized
 adjacency under faults: :class:`repro_torch.net.NetworkStatsHook`) and ``needs_wire_stats`` (the ``wd_*``
 health diagnostics). With no hooks the rounds are the hook-free ones; with
@@ -174,14 +174,34 @@ def hook_trace_spec(hooks) -> TraceSpec:
 
 
 class TranscriptHook(RoundHook):
-    """Record the wire-visible transcript. It needs the audit lab's
-    ``TranscriptTap`` (``repro/audit/transcript.py``), which is not
-    ported yet."""
+    """Record the wire-visible transcript.
+
+    The capture happens inside ``dpps_step`` (the tap's ``tap_*`` rows are
+    part of the round's diagnostics), so ``capture`` adds nothing;
+    ``consume`` keeps each segment's ``tap_*`` rows and ``transcript()``
+    reassembles them into a round-indexed
+    :class:`repro_torch.audit.transcript.Transcript`. Both drivers (the
+    engine and the per-round loop) thread the tap alike.
+    """
 
     def __init__(self, tap: Any = None):
-        raise NotImplementedError(
-            "TranscriptHook: the audit lab's transcript tap is not ported "
-            "yet (ROADMAP Queue 1 item 9)")
+        from repro_torch.audit.transcript import TranscriptTap
+
+        self.tap = TranscriptTap() if tap is None else tap
+        self._segments: list[dict[str, np.ndarray]] = []
+
+    def consume(self, rows: dict[str, Any], *, t0: int) -> None:
+        self._segments.append({k: np.asarray(v) for k, v in rows.items()
+                               if k.startswith("tap_")})
+
+    def transcript(self):
+        from repro_torch.audit.transcript import Transcript
+
+        if not self._segments:
+            raise ValueError("no segments consumed yet")
+        keys = self._segments[0].keys()
+        return Transcript.from_trajectory(
+            {k: np.concatenate([s[k] for s in self._segments]) for k in keys})
 
 
 class RealSensitivityHook(RoundHook):
@@ -241,14 +261,22 @@ class LedgerHook(RoundHook):
 
     def prepare(self, ctx: RunContext) -> None:
         if self.ledger is None:
-            # The port's wire is raw f32 (the codecs and the bf16 wire are
-            # ROADMAP Queue 1 item 8): the bytes are implied by the dtype,
-            # so the per-edge figure stays unset, as the reference leaves it
-            # for a raw wire.
+            codec = getattr(ctx.plan, "wire", None) \
+                if ctx.plan is not None else None
+            d_s = int(getattr(ctx, "d_s", 0) or 0)
+            if codec is not None and getattr(codec, "active", False):
+                wire_codec = codec.name
+                bytes_edge = int(codec.payload_bytes(d_s)) if d_s else None
+            else:
+                # a raw wire: the bytes are implied by the dtype, so the
+                # per-edge figure stays unset, as the reference leaves it
+                wire_codec = ctx.cfg.wire_dtype
+                bytes_edge = None
             self.ledger = PrivacyLedger(
                 b=ctx.cfg.b, gamma_n=ctx.cfg.gamma_n, budget=self.budget,
                 mechanism=self.mechanism, path=self.path,
-                algorithm=ctx.algorithm, wire_dtype="f32", wire_codec="f32")
+                algorithm=ctx.algorithm, wire_dtype=ctx.cfg.wire_dtype,
+                wire_codec=wire_codec, wire_bytes_per_edge=bytes_edge)
         self._protected = ctx.protected
         self._sync_interval = ctx.cfg.sync_interval
 

@@ -2,10 +2,10 @@
 ``ServeReport`` and ``estimate_wire_bytes``).
 
 The wire-byte figure is an estimate of the protocol's network traffic:
-each round every node sends its noised message (``d_s`` f32 elements), its
-push-sum weight and its sensitivity scalar to each out-neighbour (paper
-Alg. 1 lines 4 and 6, Eq. 9). It counts payload only, no framing, as the
-reference's does.
+each round every node sends its noised message (``d_s`` elements in the
+plan's wire format, or the payload of its wire codec), its push-sum weight
+and its sensitivity scalar to each out-neighbour (paper Alg. 1 lines 4 and
+6, Eq. 9). It counts payload only, no framing, as the reference's does.
 """
 from __future__ import annotations
 
@@ -20,9 +20,15 @@ __all__ = ["RunReport", "ServeReport", "estimate_wire_bytes"]
 def estimate_wire_bytes(plan, n_nodes: int, d_s: int, rounds: int) -> int:
     """Estimated protocol payload bytes of ``rounds`` rounds. ``plan`` may be
     None (dense all-to-all is assumed). Self-loops (circulant offset 0, the
-    dense diagonal) never cross the wire and are left out. The port's wire
-    is raw f32 (the codecs and the bf16 wire are ROADMAP Queue 1 item 8)."""
-    payload = d_s * 4
+    dense diagonal) never cross the wire and are left out. An active wire
+    codec owns the message payload (int8 ``d_s + 4``, top-k ``6 k``, bf16
+    ``2 d_s``); the ledger and ``NetworkStatsHook`` read the same figure."""
+    codec = getattr(plan, "wire", None) if plan is not None else None
+    if codec is not None and getattr(codec, "active", False):
+        payload = int(codec.payload_bytes(d_s))
+    else:
+        payload = d_s * (2 if plan is not None and plan.wire_dtype == "bf16"
+                         else 4)
     if plan is not None and plan.schedule == "circulant" and plan.offsets:
         edges_per_round = n_nodes * sum(
             1 for o in plan.offsets if o % n_nodes != 0)

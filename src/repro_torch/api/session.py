@@ -29,6 +29,11 @@ as :class:`repro_torch.net.ErdosRenyiGraph`). ``faults=`` (a
 :class:`repro_torch.net.FaultModel`) masks each round's weights ("dynamic"
 on the dense form); ``delays=`` (a :class:`repro_torch.net.DelayModel`)
 runs bounded-delay async push-sum with a message mailbox in the state.
+``wire=`` (a :class:`repro_torch.wire.WireCodec`) compresses the packed
+wire after the noise (the bf16 wire, int8, top-k with its error-feedback
+residual in the state); the byte accounting of the report, the ledger and
+the network stats follows the codec. ``PrivacySpec(mechanism=)`` swaps the
+Eq. 8 Laplace draw for an audit-lab mechanism.
 
 ``run`` / ``train`` take ``start=`` as the reference's do, but the port
 reads the first round from the state's counter: ``start`` may only repeat
@@ -94,6 +99,16 @@ class PrivacySpec:
     lam: float | None = None
     sensitivity_mode: str = "estimated"
     fixed_sensitivity: float = 0.0
+    # a repro_torch.audit.mechanisms.NoiseMechanism or its name; None keeps
+    # the built-in draw (bit for bit LaplaceMechanism())
+    mechanism: Any = None
+
+    def resolve_mechanism(self) -> Any:
+        if isinstance(self.mechanism, str):
+            from repro_torch.audit.mechanisms import get_mechanism
+
+            return get_mechanism(self.mechanism)
+        return self.mechanism
 
 
 def _to_device(tree: PyTree, device: torch.device) -> PyTree:
@@ -121,9 +136,19 @@ def _first_round(start: int | None, t: int) -> int:
     return t
 
 
+def host_array(v: Any) -> np.ndarray:
+    """A trajectory row on the host. numpy has no bf16: a bf16 row (the
+    tapped messages of a bf16 wire) comes back as the f32 of its values."""
+    if not isinstance(v, torch.Tensor):
+        return np.asarray(v)
+    v = v.detach()
+    if v.dtype == torch.bfloat16:
+        v = v.to(torch.float32)
+    return v.cpu().numpy()
+
+
 def _host(traj: dict[str, Any]) -> dict[str, np.ndarray]:
-    return {k: v.detach().cpu().numpy() if isinstance(v, torch.Tensor)
-            else np.asarray(v) for k, v in traj.items()}
+    return {k: host_array(v) for k, v in traj.items()}
 
 
 @dataclasses.dataclass(frozen=True, eq=False)
@@ -143,6 +168,7 @@ class ProtocolSession:
     n_nodes: int
     device: torch.device
     model: Any = None                    # the servable model, if any
+    mechanism: Any = None                # the noise mechanism (None: Laplace)
 
     @classmethod
     def build(
@@ -168,6 +194,8 @@ class ProtocolSession:
         device: str | torch.device | None = None,
         faults: Any = None,
         delays: Any = None,
+        wire: Any = None,
+        wire_dtype: str = "f32",
     ) -> "ProtocolSession":
         """Derive a session from topology + privacy + deployment choices.
 
@@ -192,7 +220,11 @@ class ProtocolSession:
         keys the noise stream (and the fault and delay streams).
         ``faults`` / ``delays`` (:class:`repro_torch.net.FaultModel` /
         :class:`repro_torch.net.DelayModel`) go to the derived plan; an
-        inactive model is dropped.
+        inactive model is dropped. ``wire`` (a
+        :class:`repro_torch.wire.WireCodec`) and the older ``wire_dtype``
+        go there too: the messages are encoded after the noise, and an
+        identity codec is dropped, so the run is the raw f32 one bit for
+        bit. None of the three may come beside an explicit ``plan=``.
         """
         dev = resolve_device(device) if plan is None else plan.device
         if topology is None:
@@ -213,7 +245,8 @@ class ProtocolSession:
             plan = ProtocolPlan.from_topology(
                 topology, schedule=schedule, use_kernels=use_kernels,
                 sync_interval=sync_interval, chunk=chunk, packed=packed,
-                device=dev, faults=faults, delays=delays)
+                device=dev, faults=faults, delays=delays,
+                wire_dtype=wire_dtype, wire=wire)
         else:
             for name, given in (("faults", faults), ("delays", delays)):
                 if given is not None:
@@ -222,6 +255,11 @@ class ProtocolSession:
                         "derived) or to ProtocolPlan.from_topology — not "
                         "alongside an explicit plan=, which already fixed "
                         "the schedule")
+            if wire is not None and getattr(wire, "active", False):
+                raise ValueError(
+                    "pass wire= either to Session.build (plan derived) or "
+                    "to ProtocolPlan.from_topology — not alongside an "
+                    "explicit plan=, which already fixed the wire format")
         cfg_sync = sync_interval if isinstance(sync_interval, int) else 0
 
         train_cfg = part = stacked = None
@@ -271,16 +309,24 @@ class ProtocolSession:
         return cls(topology=topology, plan=plan, cfg=cfg, train_cfg=train_cfg,
                    partition=part, loss_fn=loss_fn, init_params=stacked,
                    seed=int(seed), algorithm=algorithm, n_nodes=n_nodes,
-                   device=dev, model=model)
+                   device=dev, model=model,
+                   mechanism=spec.resolve_mechanism())
 
     # -- state ---------------------------------------------------------------
 
     def _attach_mail(self, state: DPPSState) -> DPPSState:
         """An async session's states carry their (empty) mailbox from round
-        0, so a fresh state and a restore template have one structure."""
+        0, and a stateful codec's their zero residual, so a fresh state and
+        a restore template have one structure."""
         delays = self.plan.delays
         if delays is not None and not state.mail:
             state = state._replace(mail=delays.init_mailbox(state.push.s))
+        codec = self.plan.wire
+        if codec is not None and codec.stateful \
+                and not isinstance(state.resid, torch.Tensor):
+            d_s = sum(x[0].numel() for x in tree_leaves(state.push.s))
+            state = state._replace(resid=torch.zeros(
+                (self.n_nodes, d_s), dtype=torch.float32, device=self.device))
         return state
 
     def consensus_state(self, values: PyTree) -> DPPSState:
@@ -435,7 +481,9 @@ class ProtocolSession:
             bits_at: Callable[[int], Any] | None = None,
             hooks: Iterable[RoundHook] = (), start: int | None = None,
             fault_draws_at: Callable[[int], Any] | None = None,
-            delay_draws_at: Callable[[int], Any] | None = None) -> RunReport:
+            delay_draws_at: Callable[[int], Any] | None = None,
+            wire_draws_at: Callable[[int], Any] | None = None,
+            noise_draws_at: Callable[[int], Any] | None = None) -> RunReport:
         """``rounds`` DPPS rounds from ``values`` (fresh) or ``state``.
 
         ``eps_at(t)`` gives the perturbation tree of round t (``None``:
@@ -443,9 +491,12 @@ class ProtocolSession:
         the seeded Philox stream (tests only): the (N, d_s) uint32 wire row,
         or, under ``packed=False``, one tensor a leaf. ``fault_draws_at(t)``
         / ``delay_draws_at(t)`` feed a round's fault or delay draws
-        (:class:`repro_torch.net.FaultDraws` / ``DelayDraws``; tests only).
-        ``hooks`` consume at every segment boundary. ``start`` (None: the
-        state's counter) must equal the state's counter.
+        (:class:`repro_torch.net.FaultDraws` / ``DelayDraws``; tests only);
+        ``wire_draws_at(t)`` the int8 codecs' (N, d_s) uniforms and
+        ``noise_draws_at(t)`` the (N, d_s) unit draws of a noise row drawn
+        outside the fused perturbation (a mechanism's; tests
+        only). ``hooks`` consume at every segment boundary. ``start`` (None:
+        the state's counter) must equal the state's counter.
         """
         if self.plan is None:
             raise ValueError("run() needs a session built with a topology")
@@ -469,7 +520,10 @@ class ProtocolSession:
                 st, traj = run_dpps(st, eps_at, cfg=self.cfg, plan=self.plan,
                                     rounds=n, seed=self.seed, bits_at=bits_at,
                                     hooks=hooks, fault_draws_at=fault_draws_at,
-                                    delay_draws_at=delay_draws_at)
+                                    delay_draws_at=delay_draws_at,
+                                    mechanism=self.mechanism,
+                                    wire_draws_at=wire_draws_at,
+                                    noise_draws_at=noise_draws_at)
                 yield t0, n, st, traj
 
         return self._drive(segments(), hooks, d_s, start)
@@ -480,7 +534,9 @@ class ProtocolSession:
               hooks: Iterable[RoundHook] = (), start: int | None = None,
               driver: str = "engine",
               fault_draws_at: Callable[[int], Any] | None = None,
-              delay_draws_at: Callable[[int], Any] | None = None
+              delay_draws_at: Callable[[int], Any] | None = None,
+              wire_draws_at: Callable[[int], Any] | None = None,
+              noise_draws_at: Callable[[int], Any] | None = None
               ) -> RunReport:
         """``rounds`` PartPSP rounds (Alg. 2); ``batch_at(t)`` gives round
         t's node-stacked batch.
@@ -490,8 +546,9 @@ class ProtocolSession:
         per-round driver over the pytree runtime (one-round segments,
         whatever ``plan.packed`` says), the reference's oracle. Both draw
         round t's noise, faults and delays from ``(seed, t)``, so their
-        trajectories agree. ``start``, ``fault_draws_at`` and
-        ``delay_draws_at`` are as in :meth:`run`.
+        trajectories agree. The loop refuses a wire codec and the bf16
+        wire (the pytree runtime carries the raw f32 wire). ``start`` and
+        the ``*_draws_at`` seams are as in :meth:`run`.
         """
         if self.loss_fn is None:
             raise ValueError("training needs a topology and a loss model= at "
@@ -515,20 +572,22 @@ class ProtocolSession:
                     loss_fn=self.loss_fn, plan=self.plan, rounds=n,
                     seed=self.seed, bits_at=bits_at, hooks=hooks,
                     fault_draws_at=fault_draws_at,
-                    delay_draws_at=delay_draws_at)
+                    delay_draws_at=delay_draws_at, mechanism=self.mechanism,
+                    wire_draws_at=wire_draws_at,
+                    noise_draws_at=noise_draws_at)
                 yield t0, n, st, traj
 
         if driver == "loop":
             stream = self._loop_segments(state, batch_at, rounds, start,
                                          hooks, bits_at, fault_draws_at,
-                                         delay_draws_at)
+                                         delay_draws_at, noise_draws_at)
         else:
             stream = segments()
         return self._drive(stream, hooks, d_s, start)
 
     def _loop_segments(self, state: PartPSPState, batch_at, rounds: int,
                        start: int, hooks: tuple, bits_at, fault_draws_at,
-                       delay_draws_at):
+                       delay_draws_at, noise_draws_at):
         """The per-round driver as a stream of one-round segments: the
         pytree runtime (no packed layout) with each round's mixing operands,
         so time-varying topologies rotate, realized by the plan's faults and
@@ -537,6 +596,14 @@ class ProtocolSession:
         diagnostics."""
         spec = hook_trace_spec(hooks)
         plan = self.plan
+        if plan.wire is not None:
+            raise ValueError(
+                f"the loop driver runs the pytree path; wire codec "
+                f"{plan.wire.name!r} needs the packed buffer — use "
+                f"driver='engine'")
+        if self.train_cfg.dpps.wire_dtype != "f32":
+            raise ValueError("the loop driver runs the pytree path; "
+                             "wire_dtype='bf16' needs driver='engine'")
         asynchronous = _check_async(plan, self.train_cfg.dpps)
         st = state._replace(dpps=_ensure_mail(state.dpps, plan,
                                               asynchronous))
@@ -553,7 +620,10 @@ class ProtocolSession:
                     layout=None, seed=self.seed,
                     bits=bits_at(t) if bits_at else None,
                     return_s_half=spec.needs_s_half,
-                    return_wire_stats=spec.needs_wire_stats, **kwargs)
+                    return_wire_stats=spec.needs_wire_stats,
+                    mechanism=self.mechanism, tap=spec.tap,
+                    noise_draws=noise_draws_at(t) if noise_draws_at else None,
+                    **kwargs)
                 if close is not None:
                     st = st._replace(dpps=_async_merge(
                         st.dpps, m, close, spec.needs_wire_stats))

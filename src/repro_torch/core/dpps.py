@@ -35,7 +35,7 @@ from typing import Any, Callable, NamedTuple, Sequence
 import torch
 
 from repro_torch.core.packing import PackedLayout
-from repro_torch.core.privacy import noise_wire
+from repro_torch.core.privacy import laplace_row, noise_wire, split_row
 from repro_torch.core.pushsum import (
     PushSumState,
     consensus_error,
@@ -62,6 +62,7 @@ from repro_torch.core.tree_utils import (
 )
 from repro_torch.kernels import ops as kops
 from repro_torch.kernels import ref as kref
+from repro_torch.wire import Bf16Codec
 
 __all__ = ["DPPSConfig", "DPPSState", "dpps_init", "dpps_step",
            "dpps_consensus", "is_sync_round"]
@@ -84,6 +85,10 @@ class DPPSConfig:
     sync_interval: int = 0    # full sync every k rounds; 0 = never
     schedule: str = "dense"   # "dense" | "circulant" | "sparse"
     use_kernels: bool = False # the CUDA kernels instead of plain versions
+    wire_dtype: str = "f32"   # wire format; "bf16" needs the packed path
+    # The wire codec (a repro_torch.wire.WireCodec; None or inactive = the
+    # raw f32 wire), stamped from ProtocolPlan.wire by plan.resolve_dpps.
+    wire: Any = None
     # "estimated" (Remark 1), "real" (exact, O(N^2 d)), "fixed" (constant)
     sensitivity_mode: str = "estimated"
     fixed_sensitivity: float = 0.0
@@ -91,6 +96,21 @@ class DPPSConfig:
     def __post_init__(self):
         if self.schedule not in ("dense", "circulant", "sparse"):
             raise ValueError(f"unknown or unported schedule {self.schedule!r}")
+        if self.wire_dtype not in ("f32", "bf16"):
+            raise ValueError(f"unknown wire_dtype {self.wire_dtype!r}")
+        # As the plan does: an inactive codec is the raw wire and is
+        # dropped; an active codec's dtype stamps wire_dtype, and a
+        # contradicting pair is refused.
+        if self.wire is not None and not getattr(self.wire, "active", False):
+            object.__setattr__(self, "wire", None)
+        if self.wire is not None:
+            codec_dtype = getattr(self.wire, "wire_dtype", "f32")
+            if self.wire_dtype == "f32" and codec_dtype != "f32":
+                object.__setattr__(self, "wire_dtype", codec_dtype)
+            elif self.wire_dtype != codec_dtype:
+                raise ValueError(
+                    f"wire codec {self.wire.name!r} implies wire_dtype="
+                    f"{codec_dtype!r} but cfg.wire_dtype={self.wire_dtype!r}")
         if self.sensitivity_mode not in ("estimated", "real", "fixed"):
             raise ValueError(f"unknown sensitivity_mode {self.sensitivity_mode!r}")
         if self.noise and self.b <= 0:
@@ -114,6 +134,10 @@ class DPPSState(NamedTuple):
     # empty default adds no tree leaves, so synchronous states and their
     # checkpoints are unchanged.
     mail: Any = ()
+    # The per-node (N, d_s) error-feedback residual of a stateful wire codec
+    # (repro_torch.wire.TopKCodec), attached by the drivers; empty (no
+    # leaves) otherwise, as mail.
+    resid: Any = ()
 
 
 def dpps_init(s0: PyTree, cfg: DPPSConfig) -> DPPSState:
@@ -135,6 +159,43 @@ def _bits_row(bits, leaves) -> torch.Tensor | None:
                       for b, x in zip(bits, leaves)], dim=1)
 
 
+def _check_codec(cfg: DPPSConfig, state: DPPSState, packed: bool):
+    """The round's value codec (None for the raw or bf16 wire), after the
+    reference's checks (``repro/core/dpps.py:303-330``)."""
+    if cfg.wire_dtype != "f32" and not packed:
+        raise ValueError("wire_dtype='bf16' requires the packed runtime "
+                         "(ProtocolPlan.packed=True / layout=)")
+    codec = cfg.wire  # __post_init__ dropped inactive codecs
+    if codec is not None and not packed:
+        raise ValueError(
+            f"wire codec {codec.name!r} requires the packed runtime "
+            "(ProtocolPlan.packed=True / layout=) — the pytree oracle "
+            "carries the raw f32 wire")
+    if codec is None or not codec.transforms_values:
+        return None
+    if codec.stateful and not isinstance(state.resid, torch.Tensor):
+        raise ValueError(
+            f"wire codec {codec.name!r} carries an error-feedback "
+            "residual; attach DPPSState.resid as an (N, d_s) f32 buffer "
+            "(repro_torch.engine.run_dpps does this automatically)")
+    return codec
+
+
+def _noise_l1(noise: PyTree, use_kernels: bool, layout) -> torch.Tensor:
+    """Per-node ||noise||_1 of a drawn noise row (packed) or tree. On the
+    kernel route it is summed in the fused perturbation's order
+    (``ops.noise_l1_rows``), so a mechanism whose noise equals the fused
+    draw's (Laplace at scale factor 1) keeps ``mechanism=None``'s norms,
+    and with them its state, bit for bit."""
+    if not use_kernels:
+        return (noise.abs().sum(dim=-1) if isinstance(noise, torch.Tensor)
+                else l1_norm_per_node(noise))
+    if isinstance(noise, torch.Tensor):
+        buf = torch.nn.functional.pad(noise, (0, layout.pad))  # the lanes
+        return kops.noise_l1_rows(buf, noise.shape[1])
+    return kops.noise_l1_tree(tree_leaves(noise))
+
+
 def dpps_step(
     state: DPPSState,
     eps: torch.Tensor | PyTree,
@@ -153,6 +214,8 @@ def dpps_step(
     gossip_fn: Callable[[PushSumState], PushSumState] | None = None,
     mechanism: Any = None,
     tap: Any = None,
+    wire_draws: torch.Tensor | None = None,
+    noise_draws: torch.Tensor | None = None,
 ) -> tuple[DPPSState, dict[str, Any]]:
     """One DPPS round. Returns (new state, diag).
 
@@ -169,25 +232,47 @@ def dpps_step(
     ``PushSumState`` (the async mailbox, ``repro_torch.net.DelayModel.
     open_round``, is one).
 
+    ``cfg.wire`` (packed runtime only) encodes the noised wire row after
+    the noise (``repro_torch.wire``), in place in the noised buffer; a
+    stateful codec reads and returns ``state.resid``; the broken
+    compress-first codec encodes ``s^(t+1/2)`` before a down-scaled noise
+    instead. Gossip, the sync average, the tap and the ``wd_*`` rows all
+    read the one encoded buffer. ``cfg.wire_dtype="bf16"`` rounds the
+    noised buffer to bf16 values on every round that gossips
+    (``Bf16Codec.encode``) and mixes it with the plain f32 mix.
+    ``wire_draws`` (tests only) feeds the int8 codecs' (N, d_s) uniforms.
+
+    ``mechanism`` (a :class:`repro_torch.audit.mechanisms.NoiseMechanism`)
+    replaces the built-in Laplace draw of Eq. 8 and takes precedence over
+    ``use_kernels`` for the draw: it returns the (N, d_s) noise row of the
+    round's scale ``S / b``, drawn from the round's noise bits.
+    ``noise_draws`` (tests only) feeds the unit draws of a row drawn
+    outside the fused perturbation (a mechanism's, or the compress-first
+    codec's Laplace), which are then scaled. ``tap`` (a
+    :class:`repro_torch.audit.transcript.TranscriptTap`) adds the round's
+    wire-visible quantities under ``tap_*`` keys; packed rounds record the
+    (N, d_s) wire slice in the wire dtype.
+
     ``return_s_half`` adds the perturbed pre-noise state ``s^(t+1/2)``
     under ``s_half`` (the buffer, or the tree); ``return_wire_stats`` the
     watchdog's ``wd_nonfinite`` (non-finite wire entries), ``wd_mass_drift``
-    (``|mean(a) - 1|``) and ``wd_consensus_residual`` (the corrected
-    iterates' consensus error). ``mechanism`` and ``tap``, the audit lab's
-    seams, are not ported yet.
+    (``|mean(a) - 1|``), ``wd_consensus_residual`` (the corrected
+    iterates' consensus error) and, under a stateful codec,
+    ``wd_wire_resid`` (the mean per-node L1 of the carried residual).
     """
-    if mechanism is not None or tap is not None:
-        raise NotImplementedError(
-            "dpps_step(mechanism=, tap=): the audit lab's noise mechanisms "
-            "and transcript tap are not ported yet (ROADMAP Queue 1 item 9)")
     packed = layout is not None
+    codec = _check_codec(cfg, state, packed)
+    broken = codec is not None and codec.compress_before_noise
     s = state.push.s
     n = state.push.a.shape[0]
     t = state.t
     sens = state.sens
     noised = cfg.noise and cfg.gamma_n > 0
+    # the noise row is drawn explicitly for a mechanism and for the broken
+    # codec (which noises an encoded s_half); otherwise the fused perturb
+    explicit = noised and (mechanism is not None or broken)
     need_s_half = (return_s_half or cfg.sensitivity_mode == "real"
-                   or not noised)
+                   or not noised or explicit)
 
     # -- 1. perturb (Eq. 7): the fused kernel below forms s + eps; the eps
     # norm is needed first, since the noise scale depends on it.
@@ -201,6 +286,7 @@ def dpps_step(
     else:
         s_leaves, treedef = tree_flatten(s)
         eps_leaves = tree_leaves(eps)
+        d_s = sum(x[0].numel() for x in s_leaves)
         norm = kops.l1_norm_tree if cfg.use_kernels else l1_norm_per_node
         eps_l1 = norm(eps_leaves)
         s_half = (tree_unflatten(treedef, [x + e for x, e in
@@ -224,29 +310,75 @@ def dpps_step(
     else:
         s_used = s_net
 
+    new_resid = state.resid
+    if broken:
+        # The wrong ordering on purpose (audit bait, repro_torch.wire): the
+        # clean s_half is quantized first, and the noise below is scaled
+        # down by the codec's factor. Honest codecs never come here.
+        s_half, new_resid = layout.encode_wire(
+            codec, s_half, new_resid, seed=seed, t=t, draws=wire_draws,
+            inplace=True)
+
     # -- 3. Laplace noise (Eq. 8, Lemma 1), fused with the perturb add -------
+    noise_scale = s_used / cfg.b
+    if broken and codec.noise_scale_factor != 1.0:
+        noise_scale = noise_scale * codec.noise_scale_factor
     if not noised:
         s_noise = s_half
         noise_l1 = torch.zeros((n,), dtype=torch.float32,
                                device=state.push.a.device)
+    elif explicit:
+        bits_row = bits if packed else _bits_row(bits, s_leaves)
+        draw = dict(seed=seed, t=t, device=state.push.a.device,
+                    use_kernels=cfg.use_kernels, bits=bits_row)
+        sample = mechanism.sample if mechanism is not None else laplace_row
+        row = sample(n, d_s, noise_scale, draws=noise_draws, **draw)
+        if packed:
+            noise_l1 = _noise_l1(row, cfg.use_kernels, layout)
+            s_noise = layout.append_pad(
+                layout.wire_slice(s_half) + cfg.gamma_n * row, s_half)
+        else:
+            noise = split_row(row, s_half)
+            noise_l1 = _noise_l1(noise, cfg.use_kernels, None)
+            s_noise = tree_map(lambda h, z: h + cfg.gamma_n * z.to(h.dtype),
+                               s_half, noise)
+        del row
     elif packed:
         s_noise, _, noise_l1 = k.dpps_perturb_rows(
-            s, eps_buf, s_used / cfg.b, cfg.gamma_n, d_s, bits=bits,
+            s, eps_buf, noise_scale, cfg.gamma_n, d_s, bits=bits,
             seed=seed, t=t)
     elif cfg.use_kernels:
         out, _, noise_l1 = kops.dpps_perturb_tree(
-            s_leaves, eps_leaves, s_used / cfg.b, cfg.gamma_n,
+            s_leaves, eps_leaves, noise_scale, cfg.gamma_n,
             bits=bits, seed=seed, t=t)
         s_noise = tree_unflatten(treedef, out)
     else:
-        noise = noise_wire(s_half, s_used / cfg.b,
+        noise = noise_wire(s_half, noise_scale,
                            bits=_bits_row(bits, s_leaves), seed=seed, t=t)
         noise_l1 = l1_norm_per_node(noise)
         s_noise = tree_map(lambda h, z: h + cfg.gamma_n * z.to(h.dtype),
                            s_half, noise)
+    if codec is not None and not broken:
+        # Noise, then compress: the codec sees only the noised wire, so the
+        # encoding is DP post-processing. It is written into the noised
+        # buffer, which is fresh whenever the noise is on.
+        s_noise, new_resid = layout.encode_wire(
+            codec, s_noise, new_resid, seed=seed, t=t, draws=wire_draws,
+            inplace=s_noise is not s_half)
+    s_local_round = s_local
+    sync = is_sync_round(t, cfg.sync_interval)
+    bf16 = cfg.wire_dtype == "bf16"
+    if bf16 and not sync:
+        # The bf16 wire: the messages are rounded once, as the reference's
+        # gossip casts them, and the f32 mix below accumulates them (never
+        # in a mix kernel, as in the reference). A sync round averages the
+        # f32 noised buffer, as the reference's does.
+        s_noise, _ = layout.encode_wire(Bf16Codec(), s_noise, (), seed=seed,
+                                        t=t, inplace=s_noise is not s_half)
+    mix_kernels = cfg.use_kernels and not bf16
 
     # -- 4. gossip (Eq. 9), or the full synchronization (paper SIII.C) --------
-    if is_sync_round(t, cfg.sync_interval):
+    if sync:
         # Exact averaging of the noised parameters, per leaf view, and a
         # restart of the recursion. The mix of this round would be thrown
         # away, so it is not run.
@@ -285,7 +417,7 @@ def dpps_step(
                     "sparse schedule requires sparse_idx=/sparse_vals=")
             push_new = (gossip_packed(push_half, sparse_idx=sparse_idx,
                                       sparse_vals=sparse_vals,
-                                      use_kernels=cfg.use_kernels)
+                                      use_kernels=mix_kernels)
                         if packed else
                         gossip_sparse(push_half, sparse_idx, sparse_vals,
                                       use_kernels=cfg.use_kernels))
@@ -293,7 +425,7 @@ def dpps_step(
             if w is None:
                 raise ValueError("dense schedule requires w=")
             push_new = (gossip_packed(push_half, w=w,
-                                      use_kernels=cfg.use_kernels)
+                                      use_kernels=mix_kernels)
                         if packed else
                         gossip_dense(push_half, w,
                                      use_kernels=cfg.use_kernels))
@@ -302,7 +434,7 @@ def dpps_step(
     new_state = state._replace(
         push=push_new,
         sens=sens._replace(s_local=s_local, prev_noise_l1=prev_l1),
-        t=t + 1)
+        t=t + 1, resid=new_resid)
     diag = {
         "sensitivity_used": s_used,
         "sensitivity_estimate": s_net,
@@ -321,6 +453,25 @@ def dpps_step(
         diag["wd_mass_drift"] = (push_new.a.mean() - 1.0).abs()
         diag["wd_consensus_residual"] = consensus_error(push_new.s,
                                                         a=push_new.a)
+        if codec is not None and codec.stateful:
+            # error-feedback health: top-k is a contraction, so this stays
+            # bounded
+            diag["wd_wire_resid"] = new_resid.abs().sum(dim=-1).mean()
+    if tap is not None:
+        # What the network sees this round (repro_torch.audit.transcript):
+        # the noised (encoded) messages with the weights a they carry, and
+        # the local sensitivities broadcast for the max with the network
+        # scalar they give.
+        if packed:
+            wire = layout.wire_slice(s_noise)
+            if bf16:
+                wire = wire.to(torch.bfloat16)
+            msgs = [wire]
+        else:
+            msgs = s_noise
+        diag.update(tap.capture(s_noise=msgs, a_out=state.push.a,
+                                sens_local=s_local_round,
+                                sens_scalar=s_used))
     if return_s_half:
         diag["s_half"] = s_half
     return new_state, diag

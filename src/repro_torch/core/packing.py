@@ -11,7 +11,9 @@ segment offsets equal the reference's.
 Padding lanes hold zeros in the state, the perturbation and the noise, so
 they are inert through every pass; :meth:`wire_slice` strips them. Buffers
 are never updated in place, so views returned by :meth:`unpack` and the
-single-leaf fast path of :meth:`pack` may alias their source safely.
+single-leaf fast path of :meth:`pack` may alias their source safely. The
+one exception is :meth:`encode_wire` with ``inplace``, which the round
+uses only on its freshly noised buffer, which nothing else holds.
 """
 from __future__ import annotations
 
@@ -64,6 +66,32 @@ class PackedLayout:
     @property
     def pad(self) -> int:
         return self.d_pad - self.d_s
+
+    def wire_bytes_per_node(self, wire_dtype: str = "f32",
+                            codec=None) -> int:
+        """Bytes one node puts on the wire a round (d_s, not d_pad: the pad
+        lanes never leave the node). An active codec owns the figure: int8
+        ``d_s + 4``, top-k ``6 k``."""
+        if codec is not None and getattr(codec, "active", False):
+            return int(codec.payload_bytes(self.d_s))
+        return self.d_s * {"f32": 4, "bf16": 2}[wire_dtype]
+
+    def encode_wire(self, codec, buf: torch.Tensor, resid, *, seed: int,
+                    t: int, draws: torch.Tensor | None = None,
+                    inplace: bool = False) -> tuple[torch.Tensor, object]:
+        """A codec over the buffer's un-padded (N, d_s) slice -> (the buffer
+        with the encoded wire row and ``buf``'s pad lanes, the codec's new
+        residual). ``inplace`` writes the encoding into ``buf`` itself (a
+        buffer nothing reads afterwards); the pad lanes never reach the
+        codec."""
+        wire = self.wire_slice(buf)
+        if inplace:
+            _, new_resid = codec.encode(wire, resid, seed=seed, t=t,
+                                        draws=draws, out=wire)
+            return buf, new_resid
+        enc, new_resid = codec.encode(wire, resid, seed=seed, t=t,
+                                      draws=draws)
+        return self.append_pad(enc, buf), new_resid
 
     def _leaves(self, tree: PyTree) -> list:
         leaves = tree_flatten(tree)[0]

@@ -158,11 +158,14 @@ def partpsp_step(
     gossip_fn: Any = None,
     mechanism: Any = None,
     tap: Any = None,
+    wire_draws: torch.Tensor | None = None,
+    noise_draws: torch.Tensor | None = None,
 ) -> tuple[PartPSPState, dict[str, Any]]:
     """One PartPSP round: over the packed DPPS state with ``layout``, over
     the list of shared leaves with ``layout=None`` (the pytree runtime).
-    ``return_s_half``, ``return_wire_stats``, ``gossip_fn``, ``mechanism``
-    and ``tap`` go to :func:`repro_torch.core.dpps.dpps_step`."""
+    ``return_s_half``, ``return_wire_stats``, ``gossip_fn``, ``mechanism``,
+    ``tap``, ``wire_draws`` and ``noise_draws`` go to
+    :func:`repro_torch.core.dpps.dpps_step`."""
     push = state.dpps.push
     y = correct(push.s, push.a)                     # Eq. 10, shared leaves
     if layout is not None:
@@ -197,7 +200,8 @@ def partpsp_step(
                                return_s_half=return_s_half,
                                return_wire_stats=return_wire_stats,
                                gossip_fn=gossip_fn, mechanism=mechanism,
-                               tap=tap)
+                               tap=tap, wire_draws=wire_draws,
+                               noise_draws=noise_draws)
     metrics = {"loss_mean": losses.mean(), "loss_per_node": losses,
                "grad_l1_max": g_norms.max(), **diag}
     return PartPSPState(dpps=dpps_new, local=local_new), metrics

@@ -26,10 +26,16 @@ import torch
 from repro_torch.core.tree_utils import (PyTree, l1_norm_per_node,
                                          tree_flatten, tree_map,
                                          tree_unflatten)
+from repro_torch.kernels import ops as kops
 from repro_torch.kernels import ref as kref
 
-__all__ = ["noise_wire", "l1_clip_per_node", "l2_clip_per_node",
+__all__ = ["noise_wire", "laplace_row", "normal_row", "split_row",
+           "GAUSS_SALT", "l1_clip_per_node", "l2_clip_per_node",
            "PrivacyAccountant"]
+
+# The Gaussian mechanism's normals come from a Philox stream of their own:
+# the noise key with this salt xored into its high word.
+GAUSS_SALT = 0x47415553  # "GAUS"
 
 
 def noise_wire(tree: PyTree, scale, *, bits: torch.Tensor | None = None,
@@ -51,6 +57,61 @@ def noise_wire(tree: PyTree, scale, *, bits: torch.Tensor | None = None,
         out.append(flat[:, off:off + size].reshape(x.shape).to(x.dtype))
         off += size
     return tree_unflatten(treedef, out)
+
+
+def split_row(row: torch.Tensor, tree: PyTree) -> PyTree:
+    """An (N, d_s) wire row sliced back into the leaf shapes and dtypes of
+    the node-stacked ``tree``, in wire order."""
+    leaves, treedef = tree_flatten(tree)
+    out, off = [], 0
+    for x in leaves:
+        size = x[0].numel()
+        out.append(row[:, off:off + size].reshape(x.shape).to(x.dtype))
+        off += size
+    return tree_unflatten(treedef, out)
+
+
+def laplace_row(n: int, d_s: int, scale, *, seed: int, t: int, device=None,
+                bits: torch.Tensor | None = None,
+                draws: torch.Tensor | None = None,
+                use_kernels: bool = False) -> torch.Tensor:
+    """Laplace(0, scale) as the (N, d_s) wire row of round ``t``: the
+    transform of ``bits`` (N, d_s) or of the round's Philox noise bits
+    (``kernels.ref.philox_bits``), the bits the fused perturbation draws,
+    through ``ops.laplace_from_bits`` (``csrc/laplace_noise.cu``) with
+    ``use_kernels``; or, tests only, ``draws`` (unit-scale Laplace samples,
+    the reference's ``jax.random.laplace`` draws) times ``scale``, as the
+    reference's ``noise_like`` scales them."""
+    if draws is not None:
+        return draws.to(device=device, dtype=torch.float32) * scale
+    if bits is None:
+        bits = kref.philox_bits(seed, t, n, 0, d_s, device=device)
+    if not use_kernels:
+        return kref.laplace_from_bits(bits, scale)
+    flat = bits.to(torch.uint32).contiguous().reshape(-1)
+    return kops.laplace_from_bits(flat, scale).reshape(n, d_s)
+
+
+def normal_row(n: int, d_s: int, scale, *, seed: int, t: int, device=None,
+               draws: torch.Tensor | None = None) -> torch.Tensor:
+    """Normal(0, scale^2) as the (N, d_s) wire row of round ``t``.
+
+    Element ``e`` is Box-Muller over words ``2e`` and ``2e + 1`` of the
+    :data:`GAUSS_SALT` stream (``philox_bits(..., salt=GAUSS_SALT)``):
+    ``u1 = ((w1 >> 9) + 1) 2^-23`` in (0, 1], ``u2 = (w2 >> 9) 2^-23``,
+    ``sqrt(-2 log u1) cos(2 pi u2)``, in f32 on the tensors' device (the
+    same words on the card and on the CPU; the transcendentals may differ
+    by an ulp). ``draws`` (tests only) are unit normals, the reference's
+    ``jax.random.normal`` draws, times ``scale``."""
+    if draws is None:
+        words = kref.philox_bits(seed, t, n, 0, 2 * d_s, device=device,
+                                 salt=GAUSS_SALT)
+        u1 = ((words[:, 0::2] >> 9) + 1).to(torch.float32) * (1.0 / (1 << 23))
+        u2 = (words[:, 1::2] >> 9).to(torch.float32) * (1.0 / (1 << 23))
+        del words
+        draws = torch.sqrt(-2.0 * torch.log(u1)) * torch.cos(
+            (2.0 * torch.pi) * u2)
+    return draws.to(device=device, dtype=torch.float32) * scale
 
 
 def l1_clip_per_node(tree: PyTree, clip: float) -> tuple[PyTree, torch.Tensor]:

@@ -98,6 +98,17 @@ class Topology:
                 mat[(i + k) % n, i] += w
         return mat
 
+    def edges(self, t: int) -> set[tuple[int, int]]:
+        """Directed edge set {(sender, receiver)} at round t, self loops
+        included (the audit's curious-neighbour view reads it)."""
+        offs = self.offsets(t)
+        n = self.n_nodes
+        if offs is None:
+            # W[i, j] > 0 iff j sends to i (row convention)
+            recv, send = np.nonzero(self.weight_matrix(t) > 0.0)
+            return {(int(j), int(i)) for i, j in zip(recv, send)}
+        return {(i, (i + k) % n) for i in range(n) for k in offs}
+
     def weight_matrix_torch(self, t: int, *, device=None,
                             dtype=torch.float32) -> torch.Tensor:
         return torch.as_tensor(self.weight_matrix(t), dtype=dtype,

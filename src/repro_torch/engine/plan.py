@@ -29,6 +29,13 @@
 * ``packed`` (default True): the drivers run the packed (N, d_pad) wire
   buffer; ``packed=False`` runs the pytree runtime (one pass a leaf), the
   reference's bit-equivalence oracle.
+* ``wire`` (a :class:`repro_torch.wire.WireCodec`): the wire codec, applied
+  to the packed buffer after the noise. An inactive codec is dropped; an
+  active one stamps ``wire_dtype`` (``Bf16Codec`` -> "bf16") and needs
+  ``packed``. ``from_topology(wire_dtype="bf16")`` is the older spelling
+  of ``wire=Bf16Codec()``: it warns once a process (DeprecationWarning) and
+  a ``wire_dtype`` that contradicts ``wire`` raises. The bf16 wire does not
+  compose with delays (the mailbox accumulates in f32); value codecs do.
 """
 from __future__ import annotations
 
@@ -46,6 +53,18 @@ from repro_torch.device import resolve_device, resolve_use_kernels
 
 __all__ = ["ProtocolPlan"]
 
+_WARNED: set[str] = set()
+
+
+def _warn_once(key: str, msg: str) -> None:
+    """One DeprecationWarning a process for ``key``."""
+    if key in _WARNED:
+        return
+    _WARNED.add(key)
+    import warnings
+
+    warnings.warn(msg, DeprecationWarning, stacklevel=3)
+
 
 @dataclasses.dataclass(frozen=True)
 class ProtocolPlan:
@@ -58,8 +77,9 @@ class ProtocolPlan:
     ``sparse_vals`` (P, N, K) f32 for sparse ones, ``use_kernels``,
     ``sync_interval`` (None keeps the config's), ``chunk`` (rounds between
     host syncs of the trajectory), ``packed``, ``device``, ``faults`` (the
-    active FaultModel, or None) and ``delays`` (the active DelayModel, or
-    None).
+    active FaultModel, or None), ``delays`` (the active DelayModel, or
+    None), ``wire_dtype`` ("f32" | "bf16") and ``wire`` (the active
+    WireCodec, or None).
     """
 
     schedule: str
@@ -76,8 +96,34 @@ class ProtocolPlan:
     packed: bool = True
     faults: Any = None  # repro_torch.net.FaultModel (duck-typed: no import)
     delays: Any = None  # repro_torch.net.DelayModel (duck-typed: no import)
+    wire_dtype: str = "f32"
+    wire: Any = None    # repro_torch.wire.WireCodec (duck-typed: no import)
 
     def __post_init__(self):
+        # as the inactive fault and delay models are dropped; an active
+        # codec's dtype stamps wire_dtype
+        if self.wire is not None and not getattr(self.wire, "active", False):
+            object.__setattr__(self, "wire", None)
+        if self.wire is not None:
+            codec_dtype = getattr(self.wire, "wire_dtype", "f32")
+            if self.wire_dtype == "f32" and codec_dtype != "f32":
+                object.__setattr__(self, "wire_dtype", codec_dtype)
+            elif self.wire_dtype != codec_dtype:
+                raise ValueError(
+                    f"wire codec {self.wire.name!r} implies wire_dtype="
+                    f"{codec_dtype!r} but the plan says "
+                    f"{self.wire_dtype!r}")
+            if not self.packed:
+                raise ValueError(
+                    f"wire codec {self.wire.name!r} requires packed=True "
+                    "(compression is a pass over the packed (N, d_s) "
+                    "buffer; the pytree oracle carries the raw f32 wire)")
+        if self.wire_dtype not in ("f32", "bf16"):
+            raise ValueError(f"unknown wire_dtype {self.wire_dtype!r}")
+        if self.wire_dtype != "f32" and not self.packed:
+            raise ValueError("wire_dtype='bf16' requires packed=True "
+                             "(the packed layout is what makes the wire "
+                             "format a single cast)")
         if self.schedule == "dynamic" and self.faults is None:
             raise ValueError("schedule='dynamic' is selected by attaching "
                              "an active FaultModel (faults=), not by hand")
@@ -100,11 +146,38 @@ class ProtocolPlan:
                       use_kernels: bool | None = None,
                       sync_interval: int | str | None = None, chunk: int = 50,
                       packed: bool = True, device=None, faults: Any = None,
-                      delays: Any = None) -> "ProtocolPlan":
+                      delays: Any = None, wire_dtype: str = "f32",
+                      wire: Any = None) -> "ProtocolPlan":
         """The plan of ``topo``: ``schedule=None`` picks circulant where the
-        topology has offsets; ``faults`` / ``delays`` attach an active
-        fault or delay model (inactive ones are dropped; see the module
-        docstring)."""
+        topology has offsets; ``faults`` / ``delays`` / ``wire`` attach an
+        active fault model, delay model or wire codec (inactive ones are
+        dropped; see the module docstring)."""
+        if wire is not None and not getattr(wire, "active", False):
+            wire = None  # the identity codec: the raw packed wire
+        if wire_dtype != "f32":
+            _warn_once(
+                "wire_dtype",
+                "ProtocolPlan.from_topology(wire_dtype='bf16') is "
+                "deprecated; pass wire=repro_torch.wire.Bf16Codec() "
+                "(CLI: --wire bf16)")
+            if wire is None:
+                from repro_torch.wire import Bf16Codec
+
+                wire = Bf16Codec()
+            elif getattr(wire, "wire_dtype", "f32") != wire_dtype:
+                raise ValueError(
+                    f"conflicting wire settings: wire_dtype={wire_dtype!r} "
+                    f"vs codec {wire.name!r}")
+            wire_dtype = "f32"  # __post_init__ stamps it from the codec
+        if (wire is not None and delays is not None
+                and getattr(delays, "active", False)
+                and getattr(wire, "wire_dtype", "f32") != "f32"):
+            raise ValueError(
+                f"wire codec {wire.name!r} (a dtype-cast codec) does not "
+                "compose with the async mailbox runtime: the mailbox "
+                "calendars accumulate in-flight mass in f32. Use a "
+                "value codec (int8, topk) — those encode before enqueue "
+                "and the calendars stay f32 — or drop delays=")
         if schedule not in (None, "dense", "circulant", "sparse"):
             raise ValueError(f"unknown schedule {schedule!r} (dynamic is "
                              "selected by passing faults=, not schedule=)")
@@ -179,7 +252,8 @@ class ProtocolPlan:
                    offsets=offsets, mix_weights=mix_weights, ws=ws,
                    sparse_idx=sparse_idx, sparse_vals=sparse_vals,
                    use_kernels=use_kernels, sync_interval=sync_interval,
-                   chunk=chunk, packed=packed, faults=faults, delays=delays)
+                   chunk=chunk, packed=packed, faults=faults, delays=delays,
+                   wire_dtype=wire_dtype, wire=wire)
 
     @property
     def lane(self) -> int:
@@ -203,7 +277,8 @@ class ProtocolPlan:
         # as dense does
         updates: dict[str, Any] = dict(
             schedule="dense" if self.schedule == "dynamic" else self.schedule,
-            use_kernels=self.use_kernels)
+            use_kernels=self.use_kernels, wire_dtype=self.wire_dtype,
+            wire=self.wire)
         if self.sync_interval is not None:
             updates["sync_interval"] = int(self.sync_interval)
         return dataclasses.replace(cfg, **updates)

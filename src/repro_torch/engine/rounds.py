@@ -56,10 +56,15 @@ DrawsAt = Callable[[int], Any] | None
 
 def wire_layout(plan: ProtocolPlan, shared: PyTree) -> PackedLayout | None:
     """The packed layout the drivers run ``shared`` under, or None for the
-    pytree runtime (``plan.packed`` False)."""
+    pytree runtime (``plan.packed`` False). A plan's codec is checked
+    against the width here (top-k's uint16 index bound), before any
+    round runs."""
     if not plan.packed:
         return None
-    return PackedLayout.from_tree(shared, lane=plan.lane)
+    layout = PackedLayout.from_tree(shared, lane=plan.lane)
+    if plan.wire is not None:
+        plan.wire.payload_bytes(layout.d_s)
+    return layout
 
 
 def _pack(state: DPPSState, layout: PackedLayout | None) -> DPPSState:
@@ -91,6 +96,15 @@ def _check_async(plan: ProtocolPlan, cfg: DPPSConfig) -> bool:
     plan-resolved."""
     if plan.delays is None:
         return False
+    if cfg.wire_dtype != "f32":
+        what = (f"wire codec {plan.wire.name!r}" if plan.wire is not None
+                else "bf16 wire (wire_dtype='bf16')")
+        raise NotImplementedError(
+            f"{what} does not compose with the async mailbox runtime: the "
+            "mailbox calendars accumulate in-flight mass in f32. Value "
+            "codecs (int8, topk:K) DO compose — they encode the payload "
+            "before it is enqueued and the calendars stay f32 — so use "
+            "one of those, or drop to the raw f32 wire")
     if cfg.sync_interval > 0:
         raise ValueError(
             "sync_interval > 0 with an active DelayModel would average "
@@ -113,6 +127,31 @@ def _ensure_mail(state: DPPSState, plan: ProtocolPlan,
             "DelayModel — running it synchronously would abandon the "
             "in-flight message mass; keep the DelayModel on the plan (or "
             "drain the mailbox by finishing the async run first)")
+    return state
+
+
+def _ensure_resid(state: DPPSState, plan: ProtocolPlan,
+                  layout: PackedLayout | None) -> DPPSState:
+    """Attach a stateful codec's zero (N, d_s) residual (a resumed state
+    keeps its own); refuse a residual on a run whose codec carries none."""
+    codec = plan.wire
+    if codec is not None and codec.stateful:
+        if layout is None:
+            raise ValueError(
+                f"wire codec {codec.name!r} needs the packed layout; "
+                "build the plan with packed=True")
+        if not isinstance(state.resid, torch.Tensor):
+            state = state._replace(resid=torch.zeros(
+                (state.push.a.shape[0], layout.d_s), dtype=torch.float32,
+                device=state.push.a.device))
+        return state
+    if isinstance(state.resid, torch.Tensor):
+        raise ValueError(
+            "state carries an error-feedback residual but the plan's wire "
+            "codec is not stateful — running it would silently drop the "
+            "carried compression error; keep the top-k codec on the plan, "
+            "or discard the residual explicitly with "
+            "state._replace(resid=())")
     return state
 
 
@@ -188,15 +227,27 @@ def _stack(rows: list[dict[str, Any]]) -> dict[str, torch.Tensor]:
     return {k: torch.stack([r[k] for r in rows]) for k in rows[0]}
 
 
+def _draws(wire_draws_at: DrawsAt, noise_draws_at: DrawsAt,
+           t: int) -> dict[str, Any]:
+    return dict(wire_draws=wire_draws_at(t) if wire_draws_at else None,
+                noise_draws=noise_draws_at(t) if noise_draws_at else None)
+
+
 def run_dpps(state: DPPSState, eps_at: Callable[[int], PyTree] | None, *,
              cfg: DPPSConfig, plan: ProtocolPlan, rounds: int, seed: int = 0,
              bits_at: BitsAt = None, hooks: Sequence[Any] = (),
-             fault_draws_at: DrawsAt = None, delay_draws_at: DrawsAt = None
+             fault_draws_at: DrawsAt = None, delay_draws_at: DrawsAt = None,
+             mechanism: Any = None, wire_draws_at: DrawsAt = None,
+             noise_draws_at: DrawsAt = None
              ) -> tuple[DPPSState, dict[str, torch.Tensor]]:
     """``rounds`` DPPS rounds from ``state``. ``eps_at(t)`` gives round t's
     perturbation tree (``None``: pure consensus, zero perturbation).
     Returns the final (unpacked) state and the per-round diagnostics, hook
-    captures merged, stacked on the device (leaves (T,) / (T, N))."""
+    captures merged, stacked on the device (leaves (T,) / (T, N)).
+    ``mechanism`` (a :class:`repro_torch.audit.mechanisms.NoiseMechanism`)
+    replaces the Laplace draw; ``wire_draws_at(t)`` / ``noise_draws_at(t)``
+    (tests only) feed a round's int8 uniforms / a mechanism's unit
+    draws."""
     cfg = plan.resolve_dpps(cfg)
     capture, spec = _hooks(hooks)
     asynchronous = _check_async(plan, cfg)
@@ -204,7 +255,8 @@ def run_dpps(state: DPPSState, eps_at: Callable[[int], PyTree] | None, *,
                  with_adjacency=spec.needs_adjacency,
                  fault_draws_at=fault_draws_at, delay_draws_at=delay_draws_at)
     layout = wire_layout(plan, state.push.s)
-    st = _ensure_mail(_pack(state, layout), plan, asynchronous)
+    st = _ensure_resid(_ensure_mail(_pack(state, layout), plan,
+                                    asynchronous), plan, layout)
     zeros = None
     rows = []
     with torch.no_grad():
@@ -221,6 +273,8 @@ def run_dpps(state: DPPSState, eps_at: Callable[[int], PyTree] | None, *,
                                  bits=bits_at(t) if bits_at else None,
                                  return_s_half=spec.needs_s_half,
                                  return_wire_stats=spec.needs_wire_stats,
+                                 mechanism=mechanism, tap=spec.tap,
+                                 **_draws(wire_draws_at, noise_draws_at, t),
                                  **kwargs)
             if close is not None:
                 st = _async_merge(st, diag, close, spec.needs_wire_stats)
@@ -234,10 +288,12 @@ def run_partpsp(state: PartPSPState, batch_at: Callable[[int], Any], *,
                 cfg: PartPSPConfig, partition, loss_fn, plan: ProtocolPlan,
                 rounds: int, seed: int = 0, bits_at: BitsAt = None,
                 hooks: Sequence[Any] = (), fault_draws_at: DrawsAt = None,
-                delay_draws_at: DrawsAt = None
+                delay_draws_at: DrawsAt = None, mechanism: Any = None,
+                wire_draws_at: DrawsAt = None, noise_draws_at: DrawsAt = None
                 ) -> tuple[PartPSPState, dict[str, torch.Tensor]]:
     """``rounds`` PartPSP training rounds (Alg. 2); ``batch_at(t)`` gives
-    round t's node-stacked batch."""
+    round t's node-stacked batch. ``mechanism``, ``wire_draws_at`` and
+    ``noise_draws_at`` are as in :func:`run_dpps`."""
     cfg = plan.resolve_partpsp(cfg)
     capture, spec = _hooks(hooks)
     asynchronous = _check_async(plan, cfg.dpps)
@@ -245,8 +301,8 @@ def run_partpsp(state: PartPSPState, batch_at: Callable[[int], Any], *,
                  with_adjacency=spec.needs_adjacency,
                  fault_draws_at=fault_draws_at, delay_draws_at=delay_draws_at)
     layout = wire_layout(plan, state.dpps.push.s)
-    st = state._replace(dpps=_ensure_mail(_pack(state.dpps, layout), plan,
-                                          asynchronous))
+    st = state._replace(dpps=_ensure_resid(_ensure_mail(
+        _pack(state.dpps, layout), plan, asynchronous), plan, layout))
     rows = []
     with torch.no_grad():
         for _ in range(rounds):
@@ -257,7 +313,9 @@ def run_partpsp(state: PartPSPState, batch_at: Callable[[int], Any], *,
                 loss_fn=loss_fn, layout=layout, seed=seed,
                 bits=bits_at(t) if bits_at else None,
                 return_s_half=spec.needs_s_half,
-                return_wire_stats=spec.needs_wire_stats, **kwargs)
+                return_wire_stats=spec.needs_wire_stats,
+                mechanism=mechanism, tap=spec.tap,
+                **_draws(wire_draws_at, noise_draws_at, t), **kwargs)
             if close is not None:
                 st = st._replace(dpps=_async_merge(
                     st.dpps, metrics, close, spec.needs_wire_stats))

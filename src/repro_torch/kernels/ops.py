@@ -33,6 +33,7 @@ from repro_torch.kernels import build, ref
 __all__ = ["l1_norm_rows", "dpps_perturb_rows", "pushsum_mix", "spmm",
            "clip_scale_rows", "laplace_from_bits", "l1_clip_tree",
            "laplace_noise_tree", "l1_norm_tree", "dpps_perturb_tree",
+           "noise_l1_rows", "noise_l1_tree",
            "laplace_noise_like", "leaf_rows", "leaf_out", "flash_attention", "flash_attention_bshd",
            "launch_counts", "reset_launch_counts", "spmm_plan", "l1_plan",
            "mix_plan", "perturb_plan", "flash_geometry", "flash_strides",
@@ -231,6 +232,31 @@ def dpps_perturb_rows(s: torch.Tensor, eps: torch.Tensor, scale,
     if _is_cpu(s, eps, *([bits] if bits is not None else [])):
         return ref.dpps_perturb_rows(s, eps, scale, gamma_n, d_s, bits=bits,
                                      seed=seed, t=t, col0=col0)
+    out = _perturb_launch(s, eps, scale, gamma_n, d_s, bits=bits, seed=seed,
+                          t=t, col0=col0)
+    dpps_perturb_rows.launches += 1
+    return out
+
+
+def noise_l1_rows(noise: torch.Tensor, d_s: int) -> torch.Tensor:
+    """Per-row L1 norm of the first ``d_s`` columns of (N, d_pad) noise
+    rows, summed in ``csrc/dpps_perturb.cu``'s order: one launch of that
+    kernel with the noise as its perturbation and a zero noise scale (its
+    eps norm; the drawn noise and the (N, d_pad) output are thrown away).
+    A noise row drawn outside the fused perturbation (an audit mechanism's)
+    then has the norm the fused draw gives the same row, bit for bit. Its
+    launches are counted apart from the perturbations."""
+    if _is_cpu(noise):
+        return ref.l1_norm_rows(noise, d_s)
+    zero = torch.zeros((), dtype=torch.float32, device=noise.device)
+    norm = _perturb_launch(noise, noise, zero, 0.0, d_s, bits=None, seed=0,
+                           t=0, col0=0)[1]
+    noise_l1_rows.launches += 1
+    return norm
+
+
+def _perturb_launch(s, eps, scale, gamma_n, d_s, *, bits, seed, t, col0):
+    """One launch of ``csrc/dpps_perturb.cu`` (see :func:`dpps_perturb_rows`)."""
     _check(s, "s", torch.float32, 2, align=True)
     _check(eps, "eps", torch.float32, 2, align=True)
     n, d_pad = s.shape
@@ -265,7 +291,6 @@ def dpps_perturb_rows(s: torch.Tensor, eps: torch.Tensor, scale,
         None if partials is None else partials.data_ptr(),
         None if tickets is None else tickets.data_ptr(), out.data_ptr(),
         eps_l1.data_ptr(), noise_l1.data_ptr(), stream), "dpps_perturb_rows")
-    dpps_perturb_rows.launches += 1
     return out, eps_l1, noise_l1
 
 
@@ -559,6 +584,19 @@ def dpps_perturb_tree(s_leaves, eps_leaves, scale, gamma_n: float, *,
     return out, eps_l1, noise_l1
 
 
+def noise_l1_tree(leaves) -> torch.Tensor:
+    """Per-node L1 norms of node-stacked noise leaves -> (N,), in the fused
+    perturbation's order: one :func:`noise_l1_rows` launch a leaf, summed
+    in leaf order, as :func:`dpps_perturb_tree` sums its norms."""
+    if _is_cpu(*leaves):
+        return ref.l1_norm_tree(leaves)
+    total = None
+    for x in leaves:
+        norm = noise_l1_rows(leaf_rows(x), x[0].numel())
+        total = norm if total is None else total + norm
+    return total
+
+
 def laplace_noise_like(x: torch.Tensor, scale, *,
                        bits: torch.Tensor | None = None,
                        seed: int | None = None, t: int | None = None,
@@ -684,8 +722,10 @@ def flash_attention_bshd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                          window=window)
 
 
-_KERNELS = (l1_norm_rows, dpps_perturb_rows, pushsum_mix, spmm,
-            clip_scale_rows, laplace_from_bits, flash_attention)
+# noise_l1_rows launches csrc/dpps_perturb.cu too, counted under its own
+# name: a norm, not a perturbation
+_KERNELS = (l1_norm_rows, dpps_perturb_rows, noise_l1_rows, pushsum_mix,
+            spmm, clip_scale_rows, laplace_from_bits, flash_attention)
 for _fn in _KERNELS:
     _fn.launches = 0
 

@@ -66,7 +66,7 @@ def philox4x32_10(ctr: tuple[torch.Tensor, ...], key: tuple[int, int]):
 
 
 def philox_bits(seed: int, t: int, n_nodes: int, start: int, stop: int,
-                device=None) -> torch.Tensor:
+                device=None, *, salt: int = 0) -> torch.Tensor:
     """The production noise bits of round ``t``: (n_nodes, stop - start)
     int64 holding uint32 values for elements [start, stop) of every row.
 
@@ -75,7 +75,10 @@ def philox_bits(seed: int, t: int, n_nodes: int, start: int, stop: int,
     a pure function of (seed, t, node, e), as the Philox variant of
     ``csrc/dpps_perturb.cu`` computes it. It stands where the reference's
     ``fold_in(key, t)`` / ``split(key, N)`` / ``jax.random.bits`` chain
-    stands (``repro/engine/rounds.py``, ``repro/kernels/ops.py``).
+    stands (``repro/engine/rounds.py``, ``repro/kernels/ops.py``). A
+    nonzero ``salt`` is xored into the key's high word: a stream of its
+    own (the wire codecs' uniforms, the Gaussian mechanism's normals) that
+    shares no word with the noise bits.
     """
     q0, q1 = start // 4, -(-stop // 4)
     q = torch.arange(q0, q1, dtype=torch.int64, device=device)[None, :]
@@ -85,7 +88,8 @@ def philox_bits(seed: int, t: int, n_nodes: int, start: int, stop: int,
            nodes.expand(shape),
            torch.full(shape, int(t) & _MASK32, dtype=torch.int64,
                       device=device))
-    words = philox4x32_10(ctr, (seed & _MASK32, (seed >> 32) & _MASK32))
+    words = philox4x32_10(ctr, (seed & _MASK32,
+                                ((seed >> 32) ^ salt) & _MASK32))
     flat = torch.stack(words, dim=-1).reshape(n_nodes, 4 * (q1 - q0))
     lo = start - 4 * q0
     return flat[:, lo:lo + (stop - start)]

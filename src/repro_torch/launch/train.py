@@ -22,14 +22,18 @@ every round), ``--sync-interval``, ``--schedule {dense,circulant,sparse}``,
 the faults' ``--drop-rate``, ``--straggler-rate``, ``--churn
 NODE:T_DOWN:T_UP`` (repeatable) and ``--fault-seed``, the delays'
 ``--max-delay``, ``--timeout-rate``, ``--node-rates r0,r1,...`` and
-``--delay-seed`` (they need ``--sync-interval 0``), ``--checkpoint DIR`` (the consensus view for
+``--delay-seed`` (they need ``--sync-interval 0``), ``--wire SPEC`` (the wire
+codec: ``f32 | bf16 | int8 | topk:K | topk:1/M``, applied after the noise;
+it needs ``--packed`` and ``--driver engine``, and bf16 refuses the delay
+flags) with the older ``--wire-dtype {f32,bf16}`` (warns once, maps to
+``--wire bf16``), ``--checkpoint DIR`` (the consensus view for
 ``launch.serve --checkpoint``), ``--driver {engine,loop}`` (``loop``: the
 per-round driver over the pytree runtime), ``--ledger-out FILE`` (the
 per-round privacy ledger as JSONL), ``--privacy-budget EPS`` with
 ``--strict-budget`` (abort once the budget is exceeded: no checkpoint is
 written and the run exits through ``SystemExit``) and ``--metrics-out
-FILE`` (the ``MetricsHook`` history as JSON). Flags of parts not ported
-yet raise ``NotImplementedError`` naming their ROADMAP item. The batches
+FILE`` (the ``MetricsHook`` history as JSON). Every flag of the
+reference's launcher is taken. The batches
 carry tokens only (embeddings for an embedding-input model), as the
 reference's do: llama-3.2-vision-11b, which needs image embeddings, fails
 with a ``ValueError`` naming ``image_embeds``, as the reference's
@@ -60,21 +64,18 @@ from repro_torch.data import NodeShardedLoader, SyntheticLMStream
 from repro_torch.data.pipeline import seeded_generator
 from repro_torch.device import resolve_device
 from repro_torch.models.transformer import Transformer
+from repro_torch.engine.plan import _warn_once
 from repro_torch.net import (DelayModel, ErdosRenyiGraph, FaultModel,
                              RandomMatchingGraph, RandomSequenceTopology,
                              SmallWorldGraph, TorusGraph)
+from repro_torch.wire import WireCodec, parse_wire_spec
 
 __all__ = ["TOPOLOGY_CHOICES", "make_topology", "build_session",
-           "faults_from_args", "delays_from_args", "main"]
+           "faults_from_args", "delays_from_args", "wire_from_args",
+           "validate_wire_args", "main"]
 
 TOPOLOGY_CHOICES = ("dout", "exp", "ring", "full", "er", "matching",
                     "torus", "smallworld")
-
-# flag -> the ROADMAP Queue 1 item that ports what it drives
-_UNPORTED = {
-    "wire": "item 8 (wire codecs)",
-    "wire_dtype": "item 8 (wire codecs)",
-}
 
 
 def make_topology(name: str, n_nodes: int, *, degree: int = 2,
@@ -169,13 +170,69 @@ def delays_from_args(ap: argparse.ArgumentParser, args: argparse.Namespace,
         ap.error(str(e))
 
 
+def wire_from_args(ap: argparse.ArgumentParser,
+                   args: argparse.Namespace) -> WireCodec | None:
+    """The WireCodec of ``--wire`` (or the older ``--wire-dtype``), or None
+    for the raw f32 wire, as the reference's ``repro.api.cli`` builds it:
+    ``--wire-dtype bf16`` maps to the bf16 codec with one
+    DeprecationWarning a process; a conflicting ``--wire`` or a bad spec
+    dies as a parser error."""
+    spec = getattr(args, "wire", "f32") or "f32"
+    try:
+        codec = parse_wire_spec(spec)
+    except ValueError as e:
+        ap.error(f"--wire {spec!r}: {e}")
+    legacy = getattr(args, "wire_dtype", "f32")
+    if legacy != "f32":
+        _warn_once("cli_wire_dtype",
+                   "--wire-dtype bf16 is deprecated; use --wire bf16")
+        if not codec.active:
+            codec = parse_wire_spec(legacy)
+        elif codec.name != legacy:
+            ap.error(f"--wire {spec} conflicts with the deprecated "
+                     f"--wire-dtype {legacy}; drop --wire-dtype")
+    return codec if codec.active else None
+
+
+def validate_wire_args(ap: argparse.ArgumentParser,
+                       args: argparse.Namespace) -> WireCodec | None:
+    """The codec of the flags, after the reference's parse-time refusals
+    (``repro/api/cli.py:149-192``): a codec needs the packed runtime and
+    the engine driver; the bf16 wire refuses the delay flags. The
+    compress-first codec takes ``--use-kernels``, which the reference
+    refuses: the port's kernel route encodes before the down-scaled
+    noise."""
+    codec = wire_from_args(ap, args)
+    if codec is None:
+        return None
+    name = codec.name
+    if not args.packed:
+        ap.error(
+            f"--wire {name} requires the packed runtime: every wire codec "
+            "is a transform of the packed (N, d_s) buffer. Drop "
+            "--no-packed, or use --wire f32 (legacy: --wire-dtype f32) "
+            "with the pytree path.")
+    if args.driver != "engine":
+        ap.error(
+            f"--wire {name} requires --driver engine: the per-round "
+            "loop driver runs the pytree reference path, which is f32-only.")
+    if (args.max_delay or args.timeout_rate or args.node_rates) \
+            and not codec.transforms_values:
+        ap.error(
+            f"--wire {name} does not compose with the async mailbox "
+            "runtime: the mailbox calendars accumulate in-flight mass in "
+            "f32. Use a value codec (--wire int8, --wire topk:K) or drop "
+            "the delay flags.")
+    return codec
+
+
 def build_session(arch_name: str, *, reduced: bool, n_nodes: int,
                   algorithm: str, b: float, gamma_n: float, gamma_l: float,
                   gamma_s: float, clip: float, topology, degree: int = 2,
                   sync_interval: int = 5, schedule: str = "dense",
                   seed: int = 0, device=None, use_kernels: bool | None = None,
                   chunk: int = 50, packed: bool = True, faults=None,
-                  delays=None):
+                  delays=None, wire=None):
     """Arch-specific assembly -> (model, model config, session), as the
     reference's ``build_session``: the model and the partition rules (full
     sharing for SGP/SGPDP, split points clamped to 1 on the 2-layer smoke
@@ -197,7 +254,7 @@ def build_session(arch_name: str, *, reduced: bool, n_nodes: int,
         gamma_s=gamma_s, clip=clip, schedule=schedule,
         sync_interval=sync_interval, seed=seed, device=device,
         use_kernels=use_kernels, chunk=chunk, packed=packed, faults=faults,
-        delays=delays)
+        delays=delays, wire=wire)
     return model, model_cfg, session
 
 
@@ -298,23 +355,21 @@ def _parser() -> argparse.ArgumentParser:
                     help="total epsilon ceiling for the run")
     ap.add_argument("--strict-budget", action="store_true",
                     help="abort training once --privacy-budget is exceeded")
-    for flag in _UNPORTED:
-        ap.add_argument("--" + flag.replace("_", "-"), default=None,
-                        help=f"not ported yet (ROADMAP Queue 1 "
-                             f"{_UNPORTED[flag]})")
+    ap.add_argument("--wire", type=str, default="f32", metavar="SPEC",
+                    help="wire codec: f32 | bf16 | int8 | topk:K | "
+                         "topk:1/M, applied after the noise; needs "
+                         "--packed and --driver engine")
+    ap.add_argument("--wire-dtype", choices=("f32", "bf16"), default="f32",
+                    help="deprecated: subsumed by --wire (use --wire bf16)")
     return ap
 
 
 def main(argv=None) -> None:
     ap = _parser()
     args = ap.parse_args(argv)
-    for flag, item in _UNPORTED.items():
-        if getattr(args, flag) is not None:
-            raise NotImplementedError(
-                f"--{flag.replace('_', '-')}: not ported yet (ROADMAP Queue 1 "
-                f"{item})")
     if args.chunk < 1:
         ap.error("--chunk must be >= 1")
+    wire = validate_wire_args(ap, args)
     faults = faults_from_args(ap, args, n_nodes=args.nodes)
     delays = delays_from_args(ap, args, n_nodes=args.nodes)
     if delays is not None and args.sync_interval:
@@ -346,7 +401,7 @@ def main(argv=None) -> None:
         topology=topo, sync_interval=args.sync_interval,
         schedule=args.schedule, seed=args.seed, device=dev,
         use_kernels=True if args.use_kernels else None, chunk=args.chunk,
-        packed=args.packed, faults=faults, delays=delays)
+        packed=args.packed, faults=faults, delays=delays, wire=wire)
     part = session.partition
     print(f"arch={args.arch} ({'reduced' if args.reduced else 'FULL'}) "
           f"algorithm={args.algorithm} nodes={args.nodes} "
@@ -355,6 +410,7 @@ def main(argv=None) -> None:
           f"kernels={session.plan.use_kernels} "
           f"driver={args.driver}[{'packed' if args.packed else 'pytree'}] "
           f"faults={faults} delays={delays} "
+          f"wire={wire.name if wire is not None else 'f32'} "
           f"d_s={part.d_shared():,} d_l={part.d_local():,}")
 
     stream = SyntheticLMStream(vocab_size=model_cfg.vocab_size,

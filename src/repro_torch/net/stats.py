@@ -13,8 +13,8 @@
 
 A fault-free run gets stats too: without ``net_*`` rows the hook rebuilds
 the nominal adjacency of each round from the plan. The session attaches
-``network_stats()`` to ``RunReport.network``. The wire is raw f32 until the
-wire codecs are ported (ROADMAP Queue 1 item 8).
+``network_stats()`` to ``RunReport.network``. A message's bytes follow the
+plan's wire codec or wire dtype, as ``estimate_wire_bytes`` counts them.
 """
 from __future__ import annotations
 
@@ -189,10 +189,18 @@ class NetworkStatsHook(RoundHook):
         return adj, out_deg, np.zeros((n_rounds,), dtype=np.int64)
 
     def _wire_payload(self) -> tuple[str, int, float]:
-        """(codec name, message bytes, compression ratio): the raw f32 wire
-        (the codecs are ROADMAP Queue 1 item 8)."""
+        """(codec name, message bytes after compression, compression ratio
+        against the raw 4-byte f32 message): an active codec of the plan
+        owns the bytes, else the wire dtype does."""
         d_s = int(getattr(self._ctx, "d_s", 0) or 0)
-        return "f32", 4 * d_s, 1.0
+        codec = getattr(self._ctx.plan, "wire", None)
+        if codec is not None and getattr(codec, "active", False):
+            name, msg_bytes = codec.name, int(codec.payload_bytes(d_s))
+        else:
+            name = self._ctx.cfg.wire_dtype
+            msg_bytes = d_s * (2 if name == "bf16" else 4)
+        ratio = (4.0 * d_s / msg_bytes) if msg_bytes else 1.0
+        return name, msg_bytes, ratio
 
     def network_stats(self) -> NetworkStats | None:
         if self._ctx is None or not self._adj:

@@ -467,6 +467,7 @@ def test_wrappers_count_launches_and_reject_what_the_kernels_do_not_take(dev):
     ops.reset_launch_counts()
     ops.l1_norm_rows(s, 200)
     ops.dpps_perturb_rows(s, s, 1.0, 1.0, 200, seed=0, t=0)
+    ops.noise_l1_rows(s, 200)
     ops.pushsum_mix(torch.eye(3, device=dev), s)
     idx = torch.tensor([[0, 1], [1, 2], [0, 2]], dtype=torch.int32, device=dev)
     ops.spmm(idx, torch.full((3, 2), 0.5, device=dev), s)
@@ -475,9 +476,9 @@ def test_wrappers_count_launches_and_reject_what_the_kernels_do_not_take(dev):
     q = torch.zeros((1, 5, 2, 64), device=dev)
     ops.flash_attention_bshd(q, q, q)
     assert ops.launch_counts() == {
-        "l1_norm_rows": 1, "dpps_perturb_rows": 1, "pushsum_mix": 1,
-        "spmm": 1, "clip_scale_rows": 1, "laplace_from_bits": 1,
-        "flash_attention": 1}
+        "l1_norm_rows": 1, "dpps_perturb_rows": 1, "noise_l1_rows": 1,
+        "pushsum_mix": 1, "spmm": 1, "clip_scale_rows": 1,
+        "laplace_from_bits": 1, "flash_attention": 1}
     with pytest.raises(TypeError):
         ops.l1_norm_rows(s.double(), 200)
     with pytest.raises(ValueError):
@@ -499,7 +500,9 @@ def test_wrappers_count_launches_and_reject_what_the_kernels_do_not_take(dev):
         ops.flash_attention_bshd(q, q, q, window=0)
     with pytest.raises(TypeError):
         ops.flash_attention_bshd(q.double(), q.double(), q.double())
-    assert sum(ops.launch_counts().values()) == 7
+    with pytest.raises(TypeError):
+        ops.noise_l1_rows(s.double(), 200)
+    assert sum(ops.launch_counts().values()) == 8
 
 
 # Widths set from the card's SM count and the column tile at N, each on a
@@ -940,3 +943,156 @@ def test_async_packed_and_pytree_and_loop_bit_equal_on_the_card(dev,
                     torch.testing.assert_close(x, y, rtol=1e-4, atol=1e-6)
                 else:
                     assert torch.equal(x, y)
+
+
+def _consensus_reps(devices, *, spec=None, mechanism=None, packed=True,
+                    schedule="dense", rounds=6, n=8, d=300):
+    """A seeded consensus run of each device: the same values, the same
+    Philox streams (noise bits, int8 uniforms)."""
+    from repro_torch.wire import parse_wire_spec
+
+    vals = torch.randn((n, d), generator=torch.Generator().manual_seed(4))
+    reps = {}
+    for device in devices:
+        session = Session.build(
+            ErdosRenyiGraph(n, p=0.5, seed=1) if schedule == "sparse"
+            else DOutGraph(n, 2), privacy=PrivacySpec(
+                b=5.0, gamma_n=1e-3, mechanism=mechanism, c_prime=0.8,
+                lam=0.6), schedule=schedule, sync_interval=4, chunk=3,
+            seed=11, packed=packed, device=device,
+            wire=parse_wire_spec(spec) if spec else None)
+        reps[str(device)] = session.run(
+            rounds, values={"x": vals[:, :d // 2].contiguous(),
+                            "y": vals[:, d // 2:].contiguous()})
+    return reps
+
+
+@pytest.mark.parametrize("schedule", ["dense", "sparse", "circulant"])
+@pytest.mark.parametrize("spec", ["int8", "topk:1/16", "bf16"])
+def test_codec_rounds_on_the_card_match_the_cpu(dev, spec, schedule):
+    """The codecs' rounds on the card (kernels; the int8 uniforms from the
+    same Philox words) against the CPU: the state to rtol 1e-5 plus 1e-6
+    of its largest magnitude, except where the card's logf (an ulp from
+    the CPU's log) or the kernels' summation order moves a value across a
+    rounding boundary: an int8 entry may then differ by one quantum,
+    max|row| / 127, a bf16 one by one bf16 step, max|s| 2^-8. Such entries
+    are counted and bounded: none for int8, 1 % of the entries for bf16 (a
+    crossing's quantum reaches the receivers of the later rounds' mixes:
+    8 of these 2,400 entries on the sparse schedule, on an H100)."""
+    reps = _consensus_reps([dev, "cpu"], spec=spec, schedule=schedule)
+    card, cpu = reps[str(dev)], reps["cpu"]
+    off = entries = 0
+    for k in ("x", "y"):
+        got, want = card.state.push.s[k].cpu(), cpu.state.push.s[k]
+        lim = 1e-6 * want.abs().max().item()
+        quantum = {"int8": 1.0 / 127.0, "bf16": 2.0 ** -8}.get(spec, 0.0) * \
+            float(want.abs().max())
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=lim + quantum)
+        off += int(((got - want).abs() > 1e-5 * want.abs() + lim).sum())
+        entries += want.numel()
+    assert off <= int({"bf16": 1e-2}.get(spec, 0.0) * entries), off
+    torch.testing.assert_close(card.state.push.a.cpu(), cpu.state.push.a,
+                               rtol=1e-6, atol=1e-6)
+    if spec.startswith("topk"):
+        assert card.state.resid.device.type == "cuda"
+
+
+def test_noise_l1_rows_is_the_fused_perturbations_eps_norm(dev):
+    """A norm-only launch of dpps_perturb.cu sums as the perturbation sums
+    its eps: bit for bit, and the L1 norm to rtol 1e-5."""
+    z = torch.randn((4, 1024), device=dev)
+    zero = torch.zeros((), device=dev)
+    want = ops.dpps_perturb_rows(z, z, zero, 0.0, 1000, seed=0, t=0)[1]
+    got = ops.noise_l1_rows(z, 1000)
+    assert torch.equal(got, want)
+    torch.testing.assert_close(got, z[:, :1000].abs().sum(dim=1), rtol=1e-5,
+                               atol=0)
+
+
+def test_compress_first_codec_runs_on_the_kernels(dev):
+    """The compress-first codec on the kernel route: its down-scaled noise
+    drawn through laplace_noise.cu with its norm apart, no fused
+    perturbation, the mix kernel; the state against the CPU as the int8
+    codec's (a quantum at most, on at most 0.1 % of the entries)."""
+    ops.reset_launch_counts()
+    reps = _consensus_reps([dev], spec="broken-compress-first")
+    counts = ops.launch_counts()
+    assert counts["laplace_from_bits"] == 6 and counts["noise_l1_rows"] == 6
+    assert counts["dpps_perturb_rows"] == 0
+    assert counts["pushsum_mix"] == 5  # round 3 is a sync round
+    reps.update(_consensus_reps(["cpu"], spec="broken-compress-first"))
+    card, cpu = reps[str(dev)], reps["cpu"]
+    off = entries = 0
+    for k in ("x", "y"):
+        got, want = card.state.push.s[k].cpu(), cpu.state.push.s[k]
+        lim = 1e-6 * want.abs().max().item()
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=lim + float(
+            want.abs().max()) / 127.0)
+        off += int(((got - want).abs() > 1e-5 * want.abs() + lim).sum())
+        entries += want.numel()
+    assert off <= int(1e-3 * entries), off
+
+
+def test_bf16_rounds_launch_no_mix(dev):
+    from repro_torch.wire import Bf16Codec
+
+    session = Session.build(DOutGraph(8, 2), privacy=PrivacySpec(
+        b=5.0, gamma_n=1e-3), schedule="dense", seed=1, wire=Bf16Codec())
+    ops.reset_launch_counts()
+    session.run(3, values={"x": torch.randn((8, 4096), device=dev)})
+    counts = ops.launch_counts()
+    assert counts["pushsum_mix"] == 0 and counts["spmm"] == 0
+    assert counts["dpps_perturb_rows"] == 3 and counts["l1_norm_rows"] == 4
+
+
+@pytest.mark.parametrize("packed", [True, False])
+def test_laplace_mechanism_is_bit_for_bit_no_mechanism_on_the_card(dev,
+                                                                   packed):
+    """The mechanism's draw goes through laplace_noise.cu, its noise norm
+    in the fused perturbation's order: scale factor 1 keeps
+    ``mechanism=None``'s state and rows bit for bit."""
+    ops.reset_launch_counts()
+    mech = _consensus_reps([dev], mechanism="laplace", packed=packed)
+    counts = ops.launch_counts()
+    assert counts["laplace_from_bits"] == 6  # one a round
+    # the noise norm: one launch a round a buffer (packed) or leaf (x, y),
+    # counted apart from the perturbations, of which there are none
+    assert counts["noise_l1_rows"] == (6 if packed else 12)
+    assert counts["dpps_perturb_rows"] == 0
+    none = _consensus_reps([dev], packed=packed)
+    a, b = mech[str(dev)], none[str(dev)]
+    for k in ("x", "y"):
+        assert torch.equal(a.state.push.s[k], b.state.push.s[k])
+    for k, v in b.trajectory.items():
+        assert (a.trajectory[k] == v).all(), k
+
+
+@pytest.mark.parametrize("name", ["gaussian", "graph_homomorphic",
+                                  "broken_laplace"])
+def test_mechanisms_on_the_card_match_the_cpu(dev, name):
+    reps = _consensus_reps([dev, "cpu"], mechanism=name)
+    card, cpu = reps[str(dev)], reps["cpu"]
+    for k in ("x", "y"):
+        want = cpu.state.push.s[k]
+        torch.testing.assert_close(card.state.push.s[k].cpu(), want,
+                                   rtol=1e-5,
+                                   atol=1e-6 * want.abs().max().item())
+
+
+def test_audit_battery_on_the_card_holds_the_claims(dev):
+    """The default Laplace through dpps_perturb.cu and the three other
+    mechanisms at 400 trials: the fig5 claims."""
+    from repro_torch.audit import (GLOBAL_OBSERVER, LOCAL_EAVESDROPPER,
+                                   THREAT_MODELS, AuditConfig,
+                                   distinguishing_attack, get_mechanism)
+
+    audit = AuditConfig(trials=400, seed=0)
+    flag = {(m, t.name): distinguishing_attack(
+        t, mechanism=get_mechanism(m) if m != "default" else None,
+        audit=audit).flagged
+        for m in ("default", "graph_homomorphic", "broken_laplace")
+        for t in THREAT_MODELS}
+    assert not any(flag[("default", t.name)] for t in THREAT_MODELS)
+    assert any(flag[("broken_laplace", t.name)] for t in THREAT_MODELS)
+    assert not flag[("graph_homomorphic", LOCAL_EAVESDROPPER.name)]
+    assert flag[("graph_homomorphic", GLOBAL_OBSERVER.name)]

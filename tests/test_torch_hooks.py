@@ -239,8 +239,15 @@ def test_hook_trace_spec_rules(R):
         == (ref_spec.needs_s_half, ref_spec.needs_adjacency,
             ref_spec.needs_wire_stats) == (True, False, True)
     assert hook_trace_spec([]) == (None, False, False, False)
-    with pytest.raises(NotImplementedError, match="item 9"):
-        TranscriptHook()
+    # the transcript hook carries the tap (the audit lab, ported since
+    # the hook raised naming its ROADMAP item)
+    from repro_torch.audit import TranscriptTap
+    spec = hook_trace_spec([TranscriptHook(), Wire()])
+    ref_spec = R.api.hooks.hook_trace_spec([R.api.TranscriptHook(), Wire()])
+    assert spec.tap == TranscriptTap() and ref_spec.tap is not None
+    assert spec[1:] == tuple(ref_spec[1:])
+    with pytest.raises(ValueError, match="at most one tap"):
+        hook_trace_spec([TranscriptHook(), Tap()])
 
 
 def test_capture_rows_shows_s_half_to_the_hooks_only():

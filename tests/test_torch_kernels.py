@@ -77,12 +77,25 @@ def test_philox_bits_are_a_function_of_seed_round_node_element():
 
 
 def test_laplace_from_bits_matches_reference(R):
+    """The plain transform against the reference's, and each of them
+    against the float64 transform of the same f32 magnitudes (so a
+    mismatch names the side that moved), all to rtol 1e-6."""
     rng = np.random.default_rng(0)
     bits = rng.integers(0, 2 ** 32, size=(4, 1000), dtype=np.uint32)
     bits[0, :4] = [1 << 31, 0, 0xFFFFFFFF, (1 << 31) + 256]
     scale = 0.37
     got = ref.laplace_from_bits(torch.from_numpy(bits), scale)
     want = np.asarray(R.kernels.ref.laplace_from_bits(jnp.asarray(bits), scale))
+    c = (bits >> 8).astype(np.float32) * np.float32(2.0 ** -24) - np.float32(
+        0.5)
+    mag = np.maximum(np.float32(1.0) - np.float32(2.0) * np.abs(c),
+                     np.float32(1e-30))
+    truth = (-np.float64(np.float32(scale)) * np.sign(c).astype(np.float64)
+             * np.log(mag.astype(np.float64)))
+    np.testing.assert_allclose(to_numpy(got), truth, rtol=1e-6, atol=0,
+                               err_msg="the port's transform moved")
+    np.testing.assert_allclose(want, truth, rtol=1e-6, atol=0,
+                               err_msg="the reference's transform moved")
     np.testing.assert_allclose(to_numpy(got), want, rtol=1e-6, atol=0)
     assert got[0, 0].item() == 0.0  # padding bits give exactly zero noise
     # a 0-d scale tensor (the kernel path's device scalar) works the same
@@ -191,6 +204,8 @@ def test_cpu_tensors_take_the_plain_version_and_count_no_launch():
     buf = torch.ones((2, 128))
     ops.l1_norm_rows(buf, 100)
     ops.dpps_perturb_rows(buf, buf, 1.0, 1.0, 100, seed=0, t=0)
+    torch.testing.assert_close(ops.noise_l1_rows(buf, 100),
+                               torch.full((2,), 100.0), rtol=0, atol=0)
     ops.pushsum_mix(torch.eye(2), buf)
     ops.spmm(torch.tensor([[0, 1], [0, 1]], dtype=torch.int32),
              torch.full((2, 2), 0.5), buf)
@@ -205,9 +220,9 @@ def test_cpu_tensors_take_the_plain_version_and_count_no_launch():
                         q[0].transpose(0, 1).contiguous(),
                         q[0].transpose(0, 1).contiguous(), window=3)
     assert ops.launch_counts() == {
-        "l1_norm_rows": 0, "dpps_perturb_rows": 0, "pushsum_mix": 0,
-        "spmm": 0, "clip_scale_rows": 0, "laplace_from_bits": 0,
-        "flash_attention": 0}
+        "l1_norm_rows": 0, "dpps_perturb_rows": 0, "noise_l1_rows": 0,
+        "pushsum_mix": 0, "spmm": 0, "clip_scale_rows": 0,
+        "laplace_from_bits": 0, "flash_attention": 0}
 
 
 # -- the CUDA kernels' launch geometry (stated in ops.py, checked here) -----

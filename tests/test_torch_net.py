@@ -18,8 +18,8 @@ launcher's flags; ``start=``.
   1e-4 (training), the ``net_*`` rows exactly; the ledger's accounting and
   realized degrees equal, ``NetworkStatsHook``'s summary equal; the port's
   loop against its engine.
-* The launcher takes every reference flag but item 8's (``--wire``,
-  ``--wire-dtype``: ``NotImplementedError`` naming it); ``--churn`` parse
+* The launcher takes every reference flag, item 8's ``--wire`` and
+  ``--wire-dtype`` among them (the ledger records the codec); ``--churn`` parse
   errors as the reference's; ``--use-kernels`` raises off the card.
 * ``start=``: ``None`` or the state's counter; anything else raises.
 """
@@ -592,9 +592,18 @@ def test_train_cli_use_kernels_raises_off_the_card():
 
 @pytest.mark.parametrize("flag", [["--wire", "int8"], ["--wire", "f32"],
                                   ["--wire-dtype", "bf16"]])
-def test_train_cli_wire_flags_name_item_8(flag):
-    with pytest.raises(NotImplementedError, match="item 8"):
+def test_train_cli_wire_flags_name_item_8(flag, capsys):
+    """The wire flags of ROADMAP item 8 (ported since they raised naming
+    it) select the codec the run's ledger records."""
+    import warnings
+
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", DeprecationWarning)
         train_cli.main(ARGS + flag)
+    out = capsys.readouterr().out
+    want = {"int8": "int8", "f32": "f32", "bf16": "bf16"}[flag[1]]
+    assert f"wire={want} " in out
+    assert f'"wire_codec": "{want}"' in out
 
 
 def _cli_error(argv) -> str:

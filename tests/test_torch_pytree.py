@@ -268,11 +268,26 @@ def test_packed_s_half_and_wire_stats_equal_the_pytree_runtimes():
 
 
 def test_mechanism_and_tap_name_the_audit_item():
-    cfg = DPPSConfig(noise=False)
-    st = dpps_init([torch.zeros((2, 3))], cfg)
-    with pytest.raises(NotImplementedError, match="item 9"):
-        dpps_step(st, [torch.zeros((2, 3))], cfg, None, w=torch.eye(2),
-                  mechanism=object())
+    """The audit lab's seams on the pytree runtime (ported since they
+    raised naming ROADMAP item 9): ``LaplaceMechanism()`` is bit for bit
+    the built-in draw, and the tap adds the round's ``tap_*`` rows (the
+    flat wire row, the weights sent, the sensitivities)."""
+    from repro_torch.audit import LaplaceMechanism, TranscriptTap
+
+    cfg = DPPSConfig(gamma_n=0.1)
+    vals = [torch.arange(6.0).reshape(2, 3), torch.ones((2, 1, 2))]
+    eps = [torch.full((2, 3), 0.5), torch.zeros((2, 1, 2))]
+    st = dpps_init(vals, cfg)
+    base, d0 = dpps_step(st, eps, cfg, None, w=torch.eye(2), seed=4)
+    new, d1 = dpps_step(st, eps, cfg, None, w=torch.eye(2), seed=4,
+                        mechanism=LaplaceMechanism(), tap=TranscriptTap())
+    for x, y in zip(base.push.s, new.push.s):
+        assert torch.equal(x, y)
+    assert torch.equal(d1["tap_messages"],
+                       torch.cat([x.reshape(2, -1) for x in new.push.s], 1))
+    assert torch.equal(d1["tap_weights"], st.push.a)
+    assert torch.equal(d1["tap_sens_local"], d0["sensitivity_local"])
+    assert torch.equal(d1["tap_sensitivity"], d0["sensitivity_used"])
 
 
 def _mlp_setup(R):

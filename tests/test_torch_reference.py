@@ -25,6 +25,12 @@ Other ``tests/test_torch_*.py`` files import from here
   DelayModel`` drew in round ``t`` (their salted key folds of
   ``fold_in(PRNGKey(seed), t)`` and the split into two keys), for the
   port's ``draws=`` / ``fault_draws_at`` / ``delay_draws_at`` seams.
+* :func:`reference_wire_uniforms` rebuilds the stochastic-rounding
+  uniforms of the reference's int8 codecs in round ``t`` (``uniform(
+  fold_in(round key, WIRE_SALT), (N, d_s))``), for the port's
+  ``wire_draws_at`` seam; :func:`reference_noise_draws` the unit draws a
+  reference mechanism (or the plain Laplace row) takes from a round key,
+  for ``noise_draws_at``.
 """
 from __future__ import annotations
 
@@ -38,10 +44,12 @@ import torch
 
 __all__ = ["load_reference", "reference_bits", "reference_tree_bits",
            "reference_gumbel", "reference_fault_draws",
-           "reference_delay_draws", "to_numpy"]
+           "reference_delay_draws", "reference_round_key",
+           "reference_wire_uniforms", "reference_noise_draws", "to_numpy"]
 
-# the salts of repro/net/faults.py and repro/net/delays.py
+# the salts of repro/net/faults.py, repro/net/delays.py, repro/wire/codecs.py
 _FAULT_SALT, _DELAY_SALT = 0x4E455446, 0x4E455444
+_WIRE_SALT = 0x57495245
 
 
 def _install_batchers_contains() -> None:
@@ -156,6 +164,44 @@ def reference_delay_draws(dm, seed: int, t: int, shape: tuple[int, int]):
         delay = torch.from_numpy(np.array(jax.random.randint(
             k_dly, shape, 0, dm.max_delay + 1)).astype(np.int64))
     return DelayDraws(timeout=timeout, delay=delay)
+
+
+def reference_round_key(seed: int, t: int, *, partpsp: bool = False):
+    """The key the reference's ``dpps_step`` gets in round t of a session
+    seeded ``seed``: ``fold_in(PRNGKey(seed), t)``, whose third split under
+    ``run_partpsp``."""
+    key = jax.random.fold_in(jax.random.PRNGKey(seed), t)
+    return jax.random.split(key, 3)[2] if partpsp else key
+
+
+def reference_wire_uniforms(seed: int, t: int, n_nodes: int, d_s: int, *,
+                            partpsp: bool = False) -> np.ndarray:
+    """The (N, d_s) f32 uniforms the reference's int8 codecs drew in round
+    t: ``jax.random.uniform(fold_in(round key, WIRE_SALT), (N, d_s))``
+    (``repro/core/dpps.py`` folds the salt, ``repro/wire/codecs.py`` draws)."""
+    key = jax.random.fold_in(reference_round_key(seed, t, partpsp=partpsp),
+                             _WIRE_SALT)
+    return np.array(jax.random.uniform(key, (n_nodes, d_s), jnp.float32))
+
+
+def reference_noise_draws(name: str, key, shapes) -> np.ndarray:
+    """The (N, d_s) unit draws the reference's noise row ``name`` takes from
+    the round key ``key`` over leaves of ``shapes`` ((N, ...) each):
+    "laplace" / "broken_laplace" and the plain row of the compress-first
+    codec are one flat ``jax.random.laplace(key, (N, d_s))``
+    (``privacy.flat_wire_draw``); "gaussian" and "graph_homomorphic" draw
+    each leaf from ``split(key, n_leaves)`` (``privacy.noise_tree``), with
+    ``jax.random.normal`` / ``jax.random.laplace``, concatenated in wire
+    order."""
+    n = shapes[0][0]
+    sizes = [int(np.prod(s[1:])) for s in shapes]
+    if name in ("laplace", "broken_laplace"):
+        return np.array(jax.random.laplace(key, (n, sum(sizes)), jnp.float32))
+    sampler = {"gaussian": jax.random.normal,
+               "graph_homomorphic": jax.random.laplace}[name]
+    rows = [np.array(sampler(k, tuple(shape), jnp.float32)).reshape(n, -1)
+            for k, shape in zip(jax.random.split(key, len(shapes)), shapes)]
+    return np.concatenate(rows, axis=1)
 
 
 def to_numpy(x) -> np.ndarray:

@@ -461,10 +461,18 @@ def test_train_cli_needs_the_card_without_device(monkeypatch):
 
 
 @pytest.mark.parametrize("flag,item", [
-    ("--wire=int8", "item 8"), ("--wire-dtype=bf16", "item 8")])
+    ("--wire=int8", "int8"), ("--wire-dtype=bf16", "bf16")])
 def test_train_cli_unported_flags_name_their_roadmap_item(flag, item):
-    with pytest.raises(NotImplementedError, match=f"ROADMAP Queue 1 {item}"):
-        train_cli.main(["--reduced", "--device", "cpu", flag])
+    """The last flags that raised naming their ROADMAP item (item 8's) are
+    ported: they select their codec, and no flag is left unported."""
+    import warnings
+
+    ap = train_cli._parser()
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", DeprecationWarning)
+        codec = train_cli.validate_wire_args(ap, ap.parse_args([flag]))
+    assert codec.name == item
+    assert not hasattr(train_cli, "_UNPORTED")
 
 
 def test_train_cli_of_the_vlm_needs_image_embeddings():
