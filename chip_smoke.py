@@ -211,11 +211,45 @@ Phases, each printing one JSON line:
                   ``dpps_perturb.cu`` alone (``ops.noise_l1_rows``),
                   counted apart as ``norm_only_launches`` in
                   ``dpps_perturb_rows``' entry.
+28. ``obs``       the observability layer and the shared CLI, in a fresh
+                  process (``--obs-phase``: the profiler drops device
+                  events in a process that has run for minutes): (a)
+                  ``Session.profile(3)`` at the dense (N = 5, d_s =
+                  505,956,352) and the sparse (ER(24), d_s = 95,669,064)
+                  full widths: a breakdown with no note whose phases sum
+                  to the device total, each phase's ms a round beside
+                  phase 3's and 5's kernel times, the passed state bit for
+                  bit unchanged; the same rounds by ``run`` under
+                  ``torch.profiler``, every ``l1_norm.cu`` launch in
+                  ``dpps_perturb`` (round 0's norm of s^(0) in
+                  ``dpps_sensitivity``, as the reference lays it out),
+                  every ``dpps_perturb.cu`` launch in ``dpps_noise``,
+                  every ``pushsum_mix.cu`` / ``spmm.cu`` launch in
+                  ``dpps_gossip``; (b) ``Session.profile(1, batch_at=)``
+                  of phase 15's llama3.2-1b session: the gradient phases'
+                  share of the device time against the DPPS round's; (c)
+                  phase 25's async consensus at llama's shared width, 20
+                  rounds under ``WatchdogHook(strict=True)``,
+                  ``TimelineHook``, ``MetricsHook``, a ``JsonlExporter``
+                  and ``write_prometheus``: no alert, a valid Chrome trace
+                  whose ``send->deliver`` counts sum to the delay
+                  histogram's; (d) a NaN in one node's values aborts the
+                  strict watchdog at round 0 (``nonfinite_wire``), and the
+                  watchdog's cost a round at the dense full width; (e) two
+                  ``Session.record`` s and ``registry.check`` pass, a
+                  synthetic 2x ``us_per_round`` record is a regression;
+                  (f) ``launch/train.py`` through ``api/cli.py``: 3 steps
+                  of the reduced llama3.2-1b on ER(4, p = 0.5), drops
+                  0.1, the int8 wire, ``--use-kernels``. Last, the paper
+                  MLP's step and the ER(4096) round of this run (annotated
+                  by ``phase()``) beside PERF.md's figures from before the
+                  annotations.
 
 Each kernel counts its launches. The counts are set to 0 just before each
 path (phases 3-7, 10, 13, 15, 17, each run of 19 and 22, each serve of 20,
-23, each run of 24, 25 and 26, and each battery of 27, a codec each in
-its wire battery) and read just after; each path names the kernels it must launch
+23, each run of 24, 25 and 26, each battery of 27, a codec each in
+its wire battery, and each run of 28) and read just after; each path
+names the kernels it must launch
 (and the sparse paths must launch ``pushsum_mix`` no time; the training
 paths exactly their counts). Then come the card's
 name and power limit (``nvidia-smi``), the ``kernels`` line with every
@@ -4054,6 +4088,398 @@ def audit_phase(torch, api, mlp, data, ops, dev) -> tuple[dict, list]:
                 membership=mia), counts
 
 
+# -- phase 28: the observability layer ---------------------------------------
+
+# a device kernel's name (the profiler's demangled one) -> the phase its
+# launch falls in, the reference's layout (repro/core/dpps.py): the eps norm
+# in the perturbation, the fused perturbation in the noise, the mix in the
+# gossip (pushsum_mix's own range nests there); round 0's norm of s^(0) is
+# the sensitivity's init
+KERNEL_PHASES = {"l1_norm_kernel": "dpps_perturb",
+                 "perturb_kernel": "dpps_noise",
+                 "mix_kernel": "dpps_gossip", "mix_tile_kernel": "dpps_gossip",
+                 "spmm_rows_kernel": "dpps_gossip",
+                 "spmm_tiles_kernel": "dpps_gossip"}
+OBS_ROUNDS = 3
+OBS_ASYNC = dict(rounds=20, chunk=5)
+OBS_WATCH_ROUNDS = 10
+OBS_RECORD = dict(n=5, d_s=1 << 24, rounds=10, chunk=2)
+OBS_CLI = ["--arch", "llama3.2-1b", "--reduced", "--nodes", "4",
+           "--steps", "3", "--topology", "er", "--er-p", "0.5",
+           "--drop-rate", "0.1", "--wire", "int8", "--use-kernels",
+           "--gamma-n", "1e-7", "--log-every", "1"]
+# PERF.md §5's figures from before the phase annotations (H100 80GB HBM3
+# at 700 W): the paper MLP's step dense and sparse, the ER(4096) round, ms
+PRE_OBS_MS = dict(mlp_dense_step=6.31, mlp_sparse_step=3.17,
+                  er4096_round=0.445)
+
+
+def kernel_of(name: str) -> str | None:
+    for k in KERNEL_PHASES:
+        if re.search(rf"\b{k}\b", name):
+            return k
+    return None
+
+
+def kernel_phases(torch, run) -> dict:
+    """``run()`` under ``torch.profiler`` (CPU and CUDA): each kernel of
+    ``KERNEL_PHASES`` by the phase its launches fall in, as
+    ``repro_torch.obs.trace.attribute`` places them -> {kernel: {phase:
+    launches}}; with none found, what the profiler did record."""
+    from repro_torch.obs.trace import attribute
+
+    with torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        run()
+        torch.cuda.synchronize()
+    events = prof.events()
+    found: dict = {}
+    for name, where, _ in attribute(events, device="cuda")[0]:
+        k = kernel_of(name)
+        if k is not None:
+            found.setdefault(k, {})
+            found[k][where] = found[k].get(where, 0) + 1
+    if not found:  # what the profiler did record, for the failure below
+        device = [e.name for e in events
+                  if e.device_type != torch.autograd.DeviceType.CPU]
+        free, total = torch.cuda.mem_get_info()
+        found["recorded"] = dict(
+            events=len(events), device_events=len(device),
+            device_names=sorted(set(n[:60] for n in device))[:20],
+            free_gb=free / 1e9, total_gb=total / 1e9,
+            reserved_gb=torch.cuda.memory_reserved() / 1e9)
+    return found
+
+
+def obs_session(torch, api, T, dev, *, topo, shape: dict, schedule: str,
+                **build_kw):
+    """Phase 3's session and values at ``shape``: constants calibrated,
+    gamma_n half the Remark-1 limit."""
+    n, d_s = shape["n"], shape["d_s"]
+    c_prime, lam = T.calibrate_constants(topo)
+    gamma_n = 0.5 * (1.0 / lam - 1.0) / (2.0 * c_prime * d_s)
+    session = api.Session.build(topo, privacy=api.PrivacySpec(
+        b=1.0, gamma_n=gamma_n, c_prime=c_prime, lam=lam), schedule=schedule,
+        seed=SEED, **build_kw)
+    require(session.plan.use_kernels and session.device.type == "cuda",
+            "the session did not pick the card and its kernels")
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    return session, {"shared": torch.randn((n, d_s), generator=gen,
+                                           device=dev)}
+
+
+def profile_consensus(torch, api, T, ops, dev, *, topo, shape: dict,
+                      schedule: str, mix: str, breakdown: dict) -> tuple:
+    """28a: ``Session.profile(OBS_ROUNDS, state=...)`` at ``shape``: a
+    non-empty breakdown with no note, its phases summing to the device
+    total, the passed state unchanged (bit for bit against a copy); each
+    phase's ms a round beside phase 3's kernel times (``breakdown``); then
+    the same rounds by ``run`` under the profiler, every norm,
+    perturbation and mix launch in its phase."""
+    session, values = obs_session(torch, api, T, dev, topo=topo, shape=shape,
+                                  schedule=schedule)
+    state = session.consensus_state(values)
+    before = state.push.s["shared"].clone()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    rep = session.profile(OBS_ROUNDS, state=state)
+    launches = ops.launch_counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    require(rep.note is None and rep.phases, f"profile: {rep.note}")
+    require(rep.backend == "torch-cuda", rep.backend)
+    require(abs(sum(rep.phases.values()) - rep.device_total_s)
+            <= 1e-9 + 1e-9 * rep.device_total_s, "phases do not sum")
+    require(torch.equal(state.push.s["shared"], before) and state.t == 0,
+            "profile changed the passed state")
+    del before
+    from repro_torch.core.dpps import is_sync_round
+
+    sync = session.cfg.sync_interval
+    mixes = sum(not is_sync_round(t, sync) for t in range(OBS_ROUNDS))
+    ops.reset_launch_counts()
+    found = kernel_phases(torch, lambda: session.run(OBS_ROUNDS,
+                                                     state=state))
+    checked = ops.launch_counts()
+    want = {"l1_norm_kernel": {"dpps_perturb": OBS_ROUNDS,
+                               "dpps_sensitivity": 1},
+            "perturb_kernel": {"dpps_noise": OBS_ROUNDS}}
+    got_mix = {}
+    for k, by in found.items():
+        if k not in want:
+            for where, c in by.items():
+                got_mix[where] = got_mix.get(where, 0) + c
+    require({k: found.get(k) for k in want} == want,
+            f"norm/perturbation launches by phase {found}")
+    require(got_mix == {"dpps_gossip": mixes} and checked[mix] == mixes,
+            f"mix launches by phase {got_mix}, counted {checked[mix]}")
+    per_round = {k: v * 1e3 / OBS_ROUNDS for k, v in sorted(
+        rep.phases.items(), key=lambda kv: -kv[1])}
+    del state, values, session
+    torch.cuda.empty_cache()
+    return dict(shape=shape, schedule=schedule, topology=type(topo).__name__,
+                rounds=OBS_ROUNDS, sync_interval=sync,
+                summary=rep.summary(), phases_ms_per_round=per_round,
+                device_total_ms_per_round=rep.device_total_s * 1e3
+                / OBS_ROUNDS,
+                round_breakdown_ms=breakdown, kernels_by_phase=found,
+                peak_mem_gb=peak_gb), launches
+
+
+def profile_training(torch, T, ops) -> tuple:
+    """28b: ``Session.profile(1, batch_at=...)`` of phase 15's session
+    (llama3.2-1b at full width, N = 4): the gradient phases' share of the
+    device time against the DPPS round's phases."""
+    session, batches, _ = lm_session(torch, T)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    rep = session.profile(1, batch_at=lambda t: batches[t])
+    launches = ops.launch_counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    require(rep.phases, f"profile: {rep.note}")
+    require(abs(sum(rep.phases.values()) - rep.device_total_s)
+            <= 1e-9 + 1e-9 * rep.device_total_s, "phases do not sum")
+    grads = ("partpsp_local_grads", "partpsp_shared_grads", "partpsp_clip")
+    dpps = [k for k in rep.phases if k.startswith("dpps_")]
+    total = rep.device_total_s
+    share = {k: v / total for k, v in rep.phases.items()}
+    require(all(share.get(k, 0.0) > 0.0 for k in grads[:2]),
+            f"no gradient phase: {rep.phases}")
+    del session, batches
+    torch.cuda.empty_cache()
+    return dict(arch=TRAIN_LM["arch"], n=TRAIN_LM["n"], d_s=TRAIN_LM["d_s"],
+                summary=rep.summary(), shares=share,
+                gradient_share=sum(share.get(k, 0.0) for k in grads),
+                dpps_share=sum(share[k] for k in dpps),
+                dpps_ms=sum(rep.phases[k] for k in dpps) * 1e3,
+                peak_mem_gb=peak_gb), launches
+
+
+def watched_async(torch, api, T, ops, dev, tmp: str) -> tuple:
+    """28c: phase 25's async consensus at llama's shared width (N = 4, B =
+    2, drops 0.1), ``OBS_ASYNC`` rounds under ``WatchdogHook(strict=True)``,
+    ``TimelineHook``, ``MetricsHook``, a ``JsonlExporter`` on their bus and
+    ``write_prometheus``: no alert, a valid Chrome trace whose
+    ``send->deliver`` counts sum to ``async_delay_hist``'s."""
+    from repro_torch.net import DelayModel, FaultModel
+    from repro_torch.obs import (JsonlExporter, MetricsBus, TimelineHook,
+                                 WatchdogHook, validate_chrome_trace,
+                                 write_prometheus)
+
+    rounds = OBS_ASYNC["rounds"]
+    session, values = obs_session(
+        torch, api, T, dev, topo=T.DOutGraph(TRAIN_FULL["n"], 2),
+        shape=TRAIN_FULL, schedule="dense", sync_interval=0,
+        chunk=OBS_ASYNC["chunk"], delays=DelayModel(**DELAYS),
+        faults=FaultModel(drop_rate=0.1))
+    paths = {k: str(Path(tmp) / name) for k, name in (
+        ("trace", "timeline.json"), ("events", "events.jsonl"),
+        ("prom", "metrics.prom"))}
+    bus = MetricsBus()
+    exporter = JsonlExporter(paths["events"]).attach(bus)
+    watchdog = WatchdogHook(strict=True, bus=bus)
+    timeline = TimelineHook(paths["trace"], bus=bus)
+    metrics = api.MetricsHook(fields={"sens": "sensitivity_estimate",
+                                      "mass": "async_mass_mean"},
+                              log_every=10 ** 9, print_fn=lambda s: None,
+                              bus=bus)
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    rep = session.run(rounds, values=values,
+                      hooks=[watchdog, timeline, metrics])
+    torch.cuda.synchronize()
+    run_ms = (time.perf_counter() - t0) * 1e3
+    launches = ops.launch_counts()
+    exporter.close()
+    write_prometheus(bus, paths["prom"])
+    require(not rep.aborted and rep.rounds == rounds,
+            f"watched run aborted: {rep.abort_reason}")
+    require(watchdog.alerts == [], f"alerts {watchdog.alerts}")
+    obj = json.loads(Path(paths["trace"]).read_text())
+    validate_chrome_trace(obj)
+    evs = obj["traceEvents"]
+    sent = sum(e["args"]["count"] for e in evs if e["ph"] == "b")
+    hist = int(rep.trajectory["async_delay_hist"].sum())
+    require(sent == hist, f"send->deliver counts {sent}, histogram {hist}")
+    require(len(metrics.history) == rounds, "metrics history")
+    sizes = {k: Path(p).stat().st_size for k, p in paths.items()}
+    kinds = {}
+    for e in evs:
+        kinds[e["ph"]] = kinds.get(e["ph"], 0) + 1
+    del rep, values, session
+    torch.cuda.empty_cache()
+    return dict(n=TRAIN_FULL["n"], d_s=TRAIN_FULL["d_s"], rounds=rounds,
+                chunk=OBS_ASYNC["chunk"],
+                delays=dict(DELAYS, rates=list(DELAYS["rates"])),
+                faults=dict(drop_rate=0.1), run_ms=run_ms,
+                ms_per_round=run_ms / rounds, alerts=0,
+                trace_events=len(evs), trace_events_by_kind=kinds,
+                send_deliver_messages=sent, exporter_lines=exporter.written,
+                bytes=sizes), launches
+
+
+def watchdog_phase(torch, api, T, ops, dev) -> tuple:
+    """28d: a NaN in one node's values (N = 5, d_s = 4096, chunk 2) makes
+    the strict watchdog abort at round 0 with ``nonfinite_wire``; then the
+    watchdog's cost at the dense full width: ``run(OBS_WATCH_ROUNDS)``
+    without and with it, in turns (plain, watched, watched, plain)."""
+    from repro_torch.obs import MetricsBus, WatchdogHook
+
+    session = api.Session.build(T.DOutGraph(5, 2), privacy=api.PrivacySpec(
+        b=5.0, gamma_n=1e-4), schedule="dense", chunk=2, seed=SEED)
+    x = torch.randn((5, 4096), device=dev)
+    x[2, 7] = float("nan")
+    strict = WatchdogHook(strict=True, warn=lambda m: None, bus=MetricsBus())
+    ops.reset_launch_counts()
+    rep = session.run(6, values={"x": x}, hooks=[strict])
+    counts = [ops.launch_counts()]
+    first = strict.alerts[0] if strict.alerts else None
+    require(rep.aborted and rep.rounds == 2 and first is not None
+            and (first.check, first.round) == ("nonfinite_wire", 0),
+            f"NaN run: aborted={rep.aborted} rounds={rep.rounds} {first}")
+    nan = dict(aborted=rep.aborted, rounds=rep.rounds,
+               abort_reason=rep.abort_reason,
+               first_alert=dict(check=first.check, round=first.round,
+                                severity=first.severity, value=first.value))
+
+    session, values = obs_session(torch, api, T, dev,
+                                  topo=T.DOutGraph(FULL["n"], 2), shape=FULL,
+                                  schedule="dense")
+    session.run(1, values=values)  # warm
+    ms = {"plain": [], "watched": []}
+    for kind in ("plain", "watched", "watched", "plain"):
+        hook = WatchdogHook(warn=lambda m: None, bus=MetricsBus())
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        rep = session.run(OBS_WATCH_ROUNDS, values=values,
+                          hooks=[hook] if kind == "watched" else [])
+        torch.cuda.synchronize()
+        ms[kind].append((time.perf_counter() - t0) * 1e3 / OBS_WATCH_ROUNDS)
+        counts.append(ops.launch_counts())
+        if kind == "watched":
+            require(hook.alerts == [], f"alerts {hook.alerts}")
+        del rep
+    del values, session
+    torch.cuda.empty_cache()
+    plain, watched = (sum(v) / len(v) for v in (ms["plain"], ms["watched"]))
+    return dict(nan_abort=nan, shape=FULL, rounds=OBS_WATCH_ROUNDS,
+                ms_per_round=ms, watchdog_ms_per_round=watched - plain), counts
+
+
+def record_phase(torch, api, T, ops, dev, tmp: str) -> tuple:
+    """28e: two ``Session.record`` s of a consensus run into a temporary
+    history, ``registry.check`` passes; a synthetic 2x ``us_per_round``
+    record is named as a regression."""
+    import dataclasses
+
+    from repro_torch.obs import registry
+
+    session, values = obs_session(
+        torch, api, T, dev, topo=T.DOutGraph(OBS_RECORD["n"], 2),
+        shape=OBS_RECORD, schedule="dense", chunk=OBS_RECORD["chunk"])
+    history = str(Path(tmp) / "history.jsonl")
+    session.run(OBS_RECORD["rounds"], values=values)  # warm
+    ops.reset_launch_counts()
+    recs = [session.record(session.run(OBS_RECORD["rounds"], values=values),
+                           name="chip_smoke", history=history)
+            for _ in range(2)]
+    launches = ops.launch_counts()
+    regressions, lines = registry.check(history)
+    require(regressions == [], f"registry check: {lines}")
+    base = [r.metrics["us_per_round"] for r in recs]
+    slow = dataclasses.replace(recs[-1], metrics=dict(
+        recs[-1].metrics, us_per_round=2.0 * sum(base) / len(base)))
+    registry.append_record(slow, history)
+    regressions, slow_lines = registry.check(history)
+    require(regressions == ["us_per_round"], f"slowdown: {slow_lines}")
+    del values, session
+    return dict(shape=OBS_RECORD, backend=recs[0].backend,
+                scale=recs[0].scale, metrics=[r.metrics for r in recs],
+                check=lines, slowdown_check=slow_lines), launches
+
+
+def cli_phase(ops) -> tuple:
+    """28f: ``launch/train.py`` through the shared CLI on the card: 3 steps
+    of the reduced llama3.2-1b on ER(4, p = 0.5) under drops, the int8
+    wire and the kernels."""
+    import contextlib
+    import io
+
+    from repro_torch.launch import train as train_cli
+
+    out = io.StringIO()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        train_cli.main(OBS_CLI)
+    seconds = time.perf_counter() - t0
+    launches = ops.launch_counts()
+    text = out.getvalue()
+    require("wire=int8 " in text and "kernels=True" in text
+            and "schedule=dynamic" in text and "privacy:" in text,
+            f"launcher output: {text}")
+    require(launches["l1_norm_rows"] > 0 and launches["dpps_perturb_rows"]
+            and launches["pushsum_mix"] > 0, f"launches {launches}")
+    return dict(argv=OBS_CLI, seconds=seconds, stdout=text.splitlines(),
+                launches=launches), launches
+
+
+def obs_subprocess(torch, **kw) -> tuple[dict, list]:
+    """Phase 28 in a fresh process (``chip_smoke.py --obs-phase JSON``),
+    its line and launch counts read back from its last stdout line: the
+    profiler drops device events in a process that has run for minutes
+    (PERF.md §7), so the profiles run where it has just started."""
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    proc = subprocess.run(
+        [sys.executable, str(ROOT / "chip_smoke.py"), "--obs-phase",
+         json.dumps(kw)], capture_output=True, text=True, timeout=900)
+    lines = proc.stdout.strip().splitlines()
+    require(proc.returncode == 0 and lines,
+            f"phase 28 exited {proc.returncode}: {proc.stderr[-4000:]}")
+    result = json.loads(lines[-1])
+    return result["out"], result["counts"]
+
+
+def obs_phase(torch, api, T, ops, dev, *, dense: dict, sparse: dict,
+              mlp_ms: dict, er_ms: float) -> tuple[dict, list]:
+    """Phase 28: the observability layer and the shared CLI on the card
+    (28a-f, above); then the cost of the phase annotations: the paper MLP's
+    step and the ER(4096) round measured in this run (phases 4, 6 and 13,
+    annotated) beside PERF.md §5's figures from before them."""
+    counts = []
+    out = {"phase": "obs"}
+    out["profile_dense"], c = profile_consensus(
+        torch, api, T, ops, dev, topo=T.DOutGraph(FULL["n"], 2), shape=FULL,
+        schedule="dense", mix="pushsum_mix", breakdown=dense)
+    counts.append(c)
+    out["profile_sparse"], c = profile_consensus(
+        torch, api, T, ops, dev, topo=sparse_graph(SPARSE_FULL["n"]),
+        shape=SPARSE_FULL, schedule="sparse", mix="spmm", breakdown=sparse)
+    counts.append(c)
+    out["profile_training"], c = profile_training(torch, T, ops)
+    counts.append(c)
+    with tempfile.TemporaryDirectory() as tmp:
+        out["watched_async"], c = watched_async(torch, api, T, ops, dev, tmp)
+        counts.append(c)
+        out["watchdog"], cs = watchdog_phase(torch, api, T, ops, dev)
+        counts += cs
+        out["record"], c = record_phase(torch, api, T, ops, dev, tmp)
+        counts.append(c)
+    out["cli"], c = cli_phase(ops)
+    counts.append(c)
+    out["annotation_cost_ms"] = dict(
+        this_run=dict(mlp_dense_step=mlp_ms["dense"],
+                      mlp_sparse_step=mlp_ms["sparse"], er4096_round=er_ms),
+        before=PRE_OBS_MS)
+    torch.cuda.empty_cache()
+    return out, counts
+
+
 def sparse_graph(n: int, seed: int = 0):
     from repro_torch.net import ErdosRenyiGraph
 
@@ -4086,6 +4512,9 @@ def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--out", type=Path, default=None,
                         help="directory for the compiler's full report")
+    parser.add_argument("--obs-phase", default=None, metavar="JSON",
+                        help="run phase 28 alone with these keyword "
+                             "arguments (the whole run starts it so)")
     args = parser.parse_args()
 
     import torch
@@ -4108,12 +4537,20 @@ def main() -> int:
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    emit(dict(phase="precision",
-              matmul_allow_tf32=torch.backends.cuda.matmul.allow_tf32,
-              cudnn_allow_tf32=torch.backends.cudnn.allow_tf32,
-              float32_matmul_precision=torch.get_float32_matmul_precision()))
+    if args.obs_phase is None:
+        emit(dict(phase="precision",
+                  matmul_allow_tf32=torch.backends.cuda.matmul.allow_tf32,
+                  cudnn_allow_tf32=torch.backends.cudnn.allow_tf32,
+                  float32_matmul_precision=(
+                      torch.get_float32_matmul_precision())))
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
+    if args.obs_phase is not None:
+        build.build_all()  # built by the parent: loads the libraries
+        out, counts = obs_phase(torch, api, T, ops, dev,
+                                **json.loads(args.obs_phase))
+        print(json.dumps({"out": out, "counts": counts}), flush=True)
+        return 0
 
     t0 = time.perf_counter()
     report = build.build_all()
@@ -4303,6 +4740,15 @@ def main() -> int:
     torch.cuda.empty_cache()
     audited, counts = audit_phase(torch, api, mlp, data, ops, dev)
     emit(audited)
+    launches += counts
+    torch.cuda.empty_cache()
+    observed, counts = obs_subprocess(
+        torch, dense=cons["round_breakdown_ms"],
+        sparse=scons["round_breakdown_ms"],
+        mlp_ms={"dense": train["ms_per_step"],
+                "sparse": strain["ms_per_step"]},
+        er_ms=er["ms_per_round"])
+    emit(observed)
     launches += counts
 
     for (shape, k), (fn, other, name) in calls.items():

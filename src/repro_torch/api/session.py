@@ -33,7 +33,10 @@ runs bounded-delay async push-sum with a message mailbox in the state.
 wire after the noise (the bf16 wire, int8, top-k with its error-feedback
 residual in the state); the byte accounting of the report, the ledger and
 the network stats follows the codec. ``PrivacySpec(mechanism=)`` swaps the
-Eq. 8 Laplace draw for an audit-lab mechanism.
+Eq. 8 Laplace draw for an audit-lab mechanism. ``profile`` runs one
+segment under ``torch.profiler`` and breaks its device time down by round
+phase; ``record`` appends a report to the cross-run registry
+(:mod:`repro_torch.obs`).
 
 ``run`` / ``train`` take ``start=`` as the reference's do, but the port
 reads the first round from the state's counter: ``start`` may only repeat
@@ -50,6 +53,7 @@ Typical use::
 from __future__ import annotations
 
 import dataclasses
+import os
 import time
 from typing import Any, Callable, Iterable, Iterator
 
@@ -631,6 +635,173 @@ class ProtocolSession:
                     m.update(net)
                 rows = capture_rows(m, hooks)
             yield t, 1, st, {k: v[None] for k, v in rows.items()}
+
+    # -- profiling -----------------------------------------------------------
+
+    def profile(self, rounds: int = 50, *, values: PyTree | None = None,
+                state: Any = None,
+                batch_at: Callable[[int], Any] | None = None,
+                hooks: Iterable[RoundHook] = (), seed: int | None = None,
+                trace_dir: str | None = None):
+        """Profile one segment: the wall-clock split and the per-phase
+        device-time breakdown (a :class:`repro_torch.obs.ProfileReport`).
+
+        Runs one ``min(rounds, plan.chunk)``-round segment of consensus
+        (``values=`` / ``state=``) or of PartPSP training (``batch_at=``)
+        under ``torch.profiler`` (CUDA activity on the card) and attributes
+        its device time to the :func:`repro_torch.obs.phase` ranges
+        (:func:`repro_torch.obs.trace.phase_breakdown`). ``seed`` keys the
+        noise stream (default: the session's), as the reference's ``key``.
+        ``hooks`` shape the run through their captures, as in :meth:`run`;
+        their ``consume`` does not run. The passed state is not changed.
+
+        ``note`` says so when the trace holds fewer of the port's kernels
+        than the segment launched: the profiler drops device events in a
+        process that has run for a while (PERF.md §7), and the breakdown
+        is then partial.
+        Eager PyTorch traces nothing, so ``trace_s`` is 0.0; ``compile_s``
+        is one warm-up round (it builds and loads the kernels on first
+        use), ``execute_s`` the profiled segment. The drivers never write
+        into the state they are given, so the warm-up runs from the passed
+        state itself and its result is dropped: a copy would cost another
+        state's memory (20 GB for llama3.2-1b's training state at N = 4).
+        ``trace_dir`` keeps the profiler's Chrome trace there
+        (``trace.json``).
+        """
+        from repro_torch.kernels import ops as kops
+        from repro_torch.obs.trace import ProfileReport, phase_breakdown
+
+        if self.plan is None:
+            raise ValueError("profile() needs a session built with a "
+                             "topology")
+        seed = self.seed if seed is None else int(seed)
+        hooks = tuple(hooks)
+        n = min(rounds, self.plan.chunk)
+        if batch_at is not None:
+            if state is None:
+                state = self._fresh_train_state()
+
+            def segment(st, k):
+                return run_partpsp(
+                    st, batch_at, cfg=self.train_cfg,
+                    partition=self.partition, loss_fn=self.loss_fn,
+                    plan=self.plan, rounds=k, seed=seed, hooks=hooks,
+                    mechanism=self.mechanism)
+        else:
+            if state is None:
+                if values is None:
+                    raise ValueError("profile() needs values=/state= "
+                                     "(consensus) or batch_at= (training)")
+                state = dpps_init(_to_device(values, self.device), self.cfg)
+
+            def segment(st, k):
+                return run_dpps(st, None, cfg=self.cfg, plan=self.plan,
+                                rounds=k, seed=seed, hooks=hooks,
+                                mechanism=self.mechanism)
+
+        t0 = time.perf_counter()
+        segment(state, 1)
+        self._sync()
+        compile_s = time.perf_counter() - t0
+
+        activities = [torch.profiler.ProfilerActivity.CPU]
+        if self.device.type == "cuda":
+            activities.append(torch.profiler.ProfilerActivity.CUDA)
+        launched = sum(kops.launch_counts().values())
+        t0 = time.perf_counter()
+        with torch.profiler.profile(activities=activities) as prof:
+            segment(state, n)
+            self._sync()
+        execute_s = time.perf_counter() - t0
+        launched = sum(kops.launch_counts().values()) - launched
+        events = prof.events()
+        phases, device_total_s, note = phase_breakdown(
+            events, device=self.device.type)
+        # each counted launch is at least one kernel of the port's own
+        # namespace on the card: fewer in the trace means the profiler
+        # dropped device events, and the breakdown is partial
+        seen = sum(1 for e in events if "repro_torch::" in e.name
+                   and e.device_type != torch.autograd.DeviceType.CPU)
+        if note is None and seen < launched:
+            note = (f"the profiler recorded {seen} of the segment's "
+                    f"{launched} kernel launches; the breakdown is partial")
+        if trace_dir is not None:
+            os.makedirs(trace_dir, exist_ok=True)
+            prof.export_chrome_trace(os.path.join(trace_dir, "trace.json"))
+        return ProfileReport(
+            rounds=n, backend=f"torch-{self.device.type}", trace_s=0.0,
+            compile_s=compile_s, execute_s=execute_s, phases=phases,
+            device_total_s=device_total_s, trace_dir=trace_dir, note=note)
+
+    # -- cross-run registry --------------------------------------------------
+
+    def _fingerprint(self) -> str:
+        """A stable hash of the session's config and plan scalars: the
+        registry's comparability stamp for session records (two runs with
+        the same fingerprint and scale are the same deployment)."""
+        import hashlib
+        import json
+
+        plan, cfg = self.plan, self.cfg
+        desc = {
+            "algorithm": self.algorithm,
+            "n_nodes": self.n_nodes,
+            "schedule": getattr(plan, "schedule", None),
+            "packed": getattr(plan, "packed", None),
+            "wire_dtype": getattr(plan, "wire_dtype", None),
+            "chunk": getattr(plan, "chunk", None),
+            "period": getattr(plan, "period", None),
+            "sync_interval": getattr(cfg, "sync_interval", None),
+            "b": getattr(cfg, "b", None),
+            "gamma_n": getattr(cfg, "gamma_n", None),
+            "noise": getattr(cfg, "noise", None),
+            "faults": repr(getattr(plan, "faults", None)),
+            "delays": repr(getattr(plan, "delays", None)),
+            "wire": repr(getattr(plan, "wire", None)),
+        }
+        blob = json.dumps(desc, sort_keys=True, default=str).encode()
+        return hashlib.sha256(blob).hexdigest()[:16]
+
+    def record(self, report: RunReport, *, name: str,
+               history: str = "BENCH_history.jsonl",
+               extra: dict[str, float] | None = None):
+        """Append this run to the cross-run registry as bench
+        ``session/<name>``, with the session's scale (n_nodes, d_s, rounds,
+        schedule, packed, backend, algorithm) and fingerprint; ``python -m
+        repro_torch.obs.registry check`` then gates later runs of the same
+        deployment against it (us a round, wire bytes, epsilon). The
+        backend is ``"torch-<device type>"``, so the port's records never
+        share a scale key with the JAX package's. ``extra`` adds the
+        caller's metrics. Returns the appended
+        :class:`repro_torch.obs.registry.RunRecord`."""
+        from repro_torch.obs.registry import RunRecord, append_record
+
+        if self.plan is None:
+            raise ValueError("record() needs a session built with a "
+                             "topology")
+        push = getattr(report.state, "push", None)
+        if push is None and report.state is not None:
+            push = getattr(getattr(report.state, "dpps", None), "push", None)
+        d_s = 0
+        if push is not None:
+            d_s = sum(int(np.prod(x.shape[1:])) if x.dim() > 1 else 1
+                      for x in tree_leaves(push.s))
+        chunk = getattr(self.plan, "chunk", 0) or 0
+        steady = max(report.rounds - chunk, 0)
+        backend = f"torch-{self.device.type}"
+        scale = {
+            "n_nodes": self.n_nodes, "d_s": d_s,
+            "rounds": report.rounds,
+            "schedule": getattr(self.plan, "schedule", None),
+            "packed": getattr(self.plan, "packed", None),
+            "backend": backend,
+            "algorithm": self.algorithm,
+        }
+        rec = RunRecord.from_report(
+            name, report, scale=scale, fingerprint=self._fingerprint(),
+            backend=backend, steady_rounds=steady, extra=extra)
+        append_record(rec, history)
+        return rec
 
     # -- serving -------------------------------------------------------------
 

@@ -62,6 +62,15 @@ from repro_torch.core.tree_utils import (
 )
 from repro_torch.kernels import ops as kops
 from repro_torch.kernels import ref as kref
+from repro_torch.obs.trace import (
+    PHASE_DPPS_GOSSIP,
+    PHASE_DPPS_NOISE,
+    PHASE_DPPS_PERTURB,
+    PHASE_DPPS_SENSITIVITY,
+    PHASE_DPPS_SYNC,
+    PHASE_DPPS_WIRE_STATS,
+    phase,
+)
 from repro_torch.wire import Bf16Codec
 
 __all__ = ["DPPSConfig", "DPPSState", "dpps_init", "dpps_step",
@@ -181,6 +190,18 @@ def _check_codec(cfg: DPPSConfig, state: DPPSState, packed: bool):
     return codec
 
 
+def _nonfinite(x: torch.Tensor, chunk: int = 1 << 24) -> torch.Tensor:
+    """The count of non-finite entries of ``x``, over its (N, -1) rows in
+    ``chunk``-column blocks: a bool tensor's sum casts it to int64 first,
+    which at the full width would be a second buffer twice the state's
+    size."""
+    rows = x.reshape(x.shape[0], -1)
+    total = torch.zeros((), dtype=torch.int64, device=x.device)
+    for c0 in range(0, rows.shape[1], chunk):
+        total += (~torch.isfinite(rows[:, c0:c0 + chunk])).sum()
+    return total
+
+
 def _noise_l1(noise: PyTree, use_kernels: bool, layout) -> torch.Tensor:
     """Per-node ||noise||_1 of a drawn noise row (packed) or tree. On the
     kernel route it is summed in the fused perturbation's order
@@ -276,39 +297,42 @@ def dpps_step(
 
     # -- 1. perturb (Eq. 7): the fused kernel below forms s + eps; the eps
     # norm is needed first, since the noise scale depends on it.
-    if packed:
-        k = kops if cfg.use_kernels else kref
-        d_s = layout.d_s
-        eps_buf = eps if isinstance(eps, torch.Tensor) else layout.pack(eps)
-        eps_l1 = k.l1_norm_rows(eps_buf, d_s)
-        s_half = s + eps_buf if need_s_half else None
-        s_norm = lambda: k.l1_norm_rows(s, d_s)
-    else:
-        s_leaves, treedef = tree_flatten(s)
-        eps_leaves = tree_leaves(eps)
-        d_s = sum(x[0].numel() for x in s_leaves)
-        norm = kops.l1_norm_tree if cfg.use_kernels else l1_norm_per_node
-        eps_l1 = norm(eps_leaves)
-        s_half = (tree_unflatten(treedef, [x + e for x, e in
-                                           zip(s_leaves, eps_leaves)])
-                  if need_s_half or not cfg.use_kernels else None)
-        s_norm = lambda: norm(s_leaves)
+    with phase(PHASE_DPPS_PERTURB):
+        if packed:
+            k = kops if cfg.use_kernels else kref
+            d_s = layout.d_s
+            eps_buf = (eps if isinstance(eps, torch.Tensor)
+                       else layout.pack(eps))
+            eps_l1 = k.l1_norm_rows(eps_buf, d_s)
+            s_half = s + eps_buf if need_s_half else None
+            s_norm = lambda: k.l1_norm_rows(s, d_s)
+        else:
+            s_leaves, treedef = tree_flatten(s)
+            eps_leaves = tree_leaves(eps)
+            d_s = sum(x[0].numel() for x in s_leaves)
+            norm = kops.l1_norm_tree if cfg.use_kernels else l1_norm_per_node
+            eps_l1 = norm(eps_leaves)
+            s_half = (tree_unflatten(treedef, [x + e for x, e in
+                                               zip(s_leaves, eps_leaves)])
+                      if need_s_half or not cfg.use_kernels else None)
+            s_norm = lambda: norm(s_leaves)
 
     # -- 2. sensitivity estimate (Eq. 22 / Remark 1) -------------------------
-    if t == 0:
-        s_local = 2.0 * sens.c_prime * (s_norm() + eps_l1)
-    else:
-        s_local = sens.lam * sens.s_local + 2.0 * sens.c_prime * (
-            eps_l1 + sens.lam * cfg.gamma_n * sens.prev_noise_l1)
-    s_net = s_local.max()
-    if cfg.sensitivity_mode == "real":
-        s_used = real_sensitivity(layout.wire_slice(s_half) if packed
-                                  else s_half)
-    elif cfg.sensitivity_mode == "fixed":
-        s_used = torch.tensor(cfg.fixed_sensitivity, dtype=torch.float32,
-                              device=state.push.a.device)
-    else:
-        s_used = s_net
+    with phase(PHASE_DPPS_SENSITIVITY):
+        if t == 0:
+            s_local = 2.0 * sens.c_prime * (s_norm() + eps_l1)
+        else:
+            s_local = sens.lam * sens.s_local + 2.0 * sens.c_prime * (
+                eps_l1 + sens.lam * cfg.gamma_n * sens.prev_noise_l1)
+        s_net = s_local.max()
+        if cfg.sensitivity_mode == "real":
+            s_used = real_sensitivity(layout.wire_slice(s_half) if packed
+                                      else s_half)
+        elif cfg.sensitivity_mode == "fixed":
+            s_used = torch.tensor(cfg.fixed_sensitivity, dtype=torch.float32,
+                                  device=state.push.a.device)
+        else:
+            s_used = s_net
 
     new_resid = state.resid
     if broken:
@@ -320,116 +344,121 @@ def dpps_step(
             inplace=True)
 
     # -- 3. Laplace noise (Eq. 8, Lemma 1), fused with the perturb add -------
-    noise_scale = s_used / cfg.b
-    if broken and codec.noise_scale_factor != 1.0:
-        noise_scale = noise_scale * codec.noise_scale_factor
-    if not noised:
-        s_noise = s_half
-        noise_l1 = torch.zeros((n,), dtype=torch.float32,
-                               device=state.push.a.device)
-    elif explicit:
-        bits_row = bits if packed else _bits_row(bits, s_leaves)
-        draw = dict(seed=seed, t=t, device=state.push.a.device,
-                    use_kernels=cfg.use_kernels, bits=bits_row)
-        sample = mechanism.sample if mechanism is not None else laplace_row
-        row = sample(n, d_s, noise_scale, draws=noise_draws, **draw)
-        if packed:
-            noise_l1 = _noise_l1(row, cfg.use_kernels, layout)
-            s_noise = layout.append_pad(
-                layout.wire_slice(s_half) + cfg.gamma_n * row, s_half)
+    with phase(PHASE_DPPS_NOISE):
+        noise_scale = s_used / cfg.b
+        if broken and codec.noise_scale_factor != 1.0:
+            noise_scale = noise_scale * codec.noise_scale_factor
+        if not noised:
+            s_noise = s_half
+            noise_l1 = torch.zeros((n,), dtype=torch.float32,
+                                   device=state.push.a.device)
+        elif explicit:
+            bits_row = bits if packed else _bits_row(bits, s_leaves)
+            draw = dict(seed=seed, t=t, device=state.push.a.device,
+                        use_kernels=cfg.use_kernels, bits=bits_row)
+            sample = mechanism.sample if mechanism is not None else laplace_row
+            row = sample(n, d_s, noise_scale, draws=noise_draws, **draw)
+            if packed:
+                noise_l1 = _noise_l1(row, cfg.use_kernels, layout)
+                s_noise = layout.append_pad(
+                    layout.wire_slice(s_half) + cfg.gamma_n * row, s_half)
+            else:
+                noise = split_row(row, s_half)
+                noise_l1 = _noise_l1(noise, cfg.use_kernels, None)
+                s_noise = tree_map(
+                    lambda h, z: h + cfg.gamma_n * z.to(h.dtype),
+                    s_half, noise)
+            del row
+        elif packed:
+            s_noise, _, noise_l1 = k.dpps_perturb_rows(
+                s, eps_buf, noise_scale, cfg.gamma_n, d_s, bits=bits,
+                seed=seed, t=t)
+        elif cfg.use_kernels:
+            out, _, noise_l1 = kops.dpps_perturb_tree(
+                s_leaves, eps_leaves, noise_scale, cfg.gamma_n,
+                bits=bits, seed=seed, t=t)
+            s_noise = tree_unflatten(treedef, out)
         else:
-            noise = split_row(row, s_half)
-            noise_l1 = _noise_l1(noise, cfg.use_kernels, None)
+            noise = noise_wire(s_half, noise_scale,
+                               bits=_bits_row(bits, s_leaves), seed=seed, t=t)
+            noise_l1 = l1_norm_per_node(noise)
             s_noise = tree_map(lambda h, z: h + cfg.gamma_n * z.to(h.dtype),
                                s_half, noise)
-        del row
-    elif packed:
-        s_noise, _, noise_l1 = k.dpps_perturb_rows(
-            s, eps_buf, noise_scale, cfg.gamma_n, d_s, bits=bits,
-            seed=seed, t=t)
-    elif cfg.use_kernels:
-        out, _, noise_l1 = kops.dpps_perturb_tree(
-            s_leaves, eps_leaves, noise_scale, cfg.gamma_n,
-            bits=bits, seed=seed, t=t)
-        s_noise = tree_unflatten(treedef, out)
-    else:
-        noise = noise_wire(s_half, noise_scale,
-                           bits=_bits_row(bits, s_leaves), seed=seed, t=t)
-        noise_l1 = l1_norm_per_node(noise)
-        s_noise = tree_map(lambda h, z: h + cfg.gamma_n * z.to(h.dtype),
-                           s_half, noise)
-    if codec is not None and not broken:
-        # Noise, then compress: the codec sees only the noised wire, so the
-        # encoding is DP post-processing. It is written into the noised
-        # buffer, which is fresh whenever the noise is on.
-        s_noise, new_resid = layout.encode_wire(
-            codec, s_noise, new_resid, seed=seed, t=t, draws=wire_draws,
-            inplace=s_noise is not s_half)
+        if codec is not None and not broken:
+            # Noise, then compress: the codec sees only the noised wire, so the
+            # encoding is DP post-processing. It is written into the noised
+            # buffer, which is fresh whenever the noise is on.
+            s_noise, new_resid = layout.encode_wire(
+                codec, s_noise, new_resid, seed=seed, t=t, draws=wire_draws,
+                inplace=s_noise is not s_half)
     s_local_round = s_local
     sync = is_sync_round(t, cfg.sync_interval)
     bf16 = cfg.wire_dtype == "bf16"
-    if bf16 and not sync:
-        # The bf16 wire: the messages are rounded once, as the reference's
-        # gossip casts them, and the f32 mix below accumulates them (never
-        # in a mix kernel, as in the reference). A sync round averages the
-        # f32 noised buffer, as the reference's does.
-        s_noise, _ = layout.encode_wire(Bf16Codec(), s_noise, (), seed=seed,
-                                        t=t, inplace=s_noise is not s_half)
     mix_kernels = cfg.use_kernels and not bf16
 
     # -- 4. gossip (Eq. 9), or the full synchronization (paper SIII.C) --------
-    if sync:
-        # Exact averaging of the noised parameters, per leaf view, and a
-        # restart of the recursion. The mix of this round would be thrown
-        # away, so it is not run.
-        means = tree_map(lambda x: x.mean(dim=0, keepdim=True),
-                         layout.view_tree(s_noise) if packed else s_noise)
-        mean_l1 = l1_norm_per_node(means)                       # (1,)
-        bcast = tree_map(lambda m: m.expand((n,) + tuple(m.shape[1:])),
-                         means)
-        # the packed buffer copies the broadcast views once; a tree state
-        # holds each leaf as its own tensor, as the kernels take them
-        push_new = PushSumState(
-            s=(layout.append_pad(layout.flat_row(bcast), s_noise) if packed
-               else tree_map(torch.Tensor.contiguous, bcast)),
-            a=torch.ones_like(state.push.a))
-        s_local = (2.0 * sens.c_prime * mean_l1).expand(n).clone()
-        prev_l1 = torch.zeros_like(noise_l1)
-    else:
-        push_half = PushSumState(s=s_noise, a=state.push.a)
-        if gossip_fn is not None:
-            push_new = gossip_fn(push_half)
-        elif cfg.schedule == "circulant":
-            if offsets is None:
-                raise ValueError("circulant schedule requires offsets=")
-            if packed:
-                push_new = gossip_packed(push_half, offsets=offsets,
-                                         weights=mix_weights)
-            else:
-                if mix_weights is None:
-                    mix_weights = torch.full(
-                        (len(offsets),), 1.0 / len(offsets),
-                        dtype=torch.float32, device=state.push.a.device)
-                push_new = gossip_circulant(push_half, offsets, mix_weights)
-        elif cfg.schedule == "sparse":
-            if sparse_idx is None or sparse_vals is None:
-                raise ValueError(
-                    "sparse schedule requires sparse_idx=/sparse_vals=")
-            push_new = (gossip_packed(push_half, sparse_idx=sparse_idx,
-                                      sparse_vals=sparse_vals,
-                                      use_kernels=mix_kernels)
-                        if packed else
-                        gossip_sparse(push_half, sparse_idx, sparse_vals,
-                                      use_kernels=cfg.use_kernels))
+    with phase(PHASE_DPPS_SYNC if sync else PHASE_DPPS_GOSSIP):
+        if bf16 and not sync:
+            # The bf16 wire: the messages are rounded once, as the reference's
+            # gossip casts them, and the f32 mix below accumulates them (never
+            # in a mix kernel, as in the reference). A sync round averages the
+            # f32 noised buffer, as the reference's does.
+            s_noise, _ = layout.encode_wire(Bf16Codec(), s_noise, (),
+                                            seed=seed, t=t,
+                                            inplace=s_noise is not s_half)
+        if sync:
+            # Exact averaging of the noised parameters, per leaf view, and a
+            # restart of the recursion. The mix of this round would be thrown
+            # away, so it is not run.
+            means = tree_map(lambda x: x.mean(dim=0, keepdim=True),
+                             layout.view_tree(s_noise) if packed else s_noise)
+            mean_l1 = l1_norm_per_node(means)                       # (1,)
+            bcast = tree_map(lambda m: m.expand((n,) + tuple(m.shape[1:])),
+                             means)
+            # the packed buffer copies the broadcast views once; a tree state
+            # holds each leaf as its own tensor, as the kernels take them
+            push_new = PushSumState(
+                s=(layout.append_pad(layout.flat_row(bcast), s_noise) if packed
+                   else tree_map(torch.Tensor.contiguous, bcast)),
+                a=torch.ones_like(state.push.a))
+            s_local = (2.0 * sens.c_prime * mean_l1).expand(n).clone()
+            prev_l1 = torch.zeros_like(noise_l1)
         else:
-            if w is None:
-                raise ValueError("dense schedule requires w=")
-            push_new = (gossip_packed(push_half, w=w,
-                                      use_kernels=mix_kernels)
-                        if packed else
-                        gossip_dense(push_half, w,
-                                     use_kernels=cfg.use_kernels))
-        prev_l1 = noise_l1
+            push_half = PushSumState(s=s_noise, a=state.push.a)
+            if gossip_fn is not None:
+                push_new = gossip_fn(push_half)
+            elif cfg.schedule == "circulant":
+                if offsets is None:
+                    raise ValueError("circulant schedule requires offsets=")
+                if packed:
+                    push_new = gossip_packed(push_half, offsets=offsets,
+                                             weights=mix_weights)
+                else:
+                    if mix_weights is None:
+                        mix_weights = torch.full(
+                            (len(offsets),), 1.0 / len(offsets),
+                            dtype=torch.float32, device=state.push.a.device)
+                    push_new = gossip_circulant(push_half, offsets,
+                                                mix_weights)
+            elif cfg.schedule == "sparse":
+                if sparse_idx is None or sparse_vals is None:
+                    raise ValueError(
+                        "sparse schedule requires sparse_idx=/sparse_vals=")
+                push_new = (gossip_packed(push_half, sparse_idx=sparse_idx,
+                                          sparse_vals=sparse_vals,
+                                          use_kernels=mix_kernels)
+                            if packed else
+                            gossip_sparse(push_half, sparse_idx, sparse_vals,
+                                          use_kernels=cfg.use_kernels))
+            else:
+                if w is None:
+                    raise ValueError("dense schedule requires w=")
+                push_new = (gossip_packed(push_half, w=w,
+                                          use_kernels=mix_kernels)
+                            if packed else
+                            gossip_dense(push_half, w,
+                                         use_kernels=cfg.use_kernels))
+            prev_l1 = noise_l1
 
     new_state = state._replace(
         push=push_new,
@@ -445,18 +474,20 @@ def dpps_step(
         "a_max": push_new.a.max(),
     }
     if return_wire_stats:
-        # The watchdog's inputs (repro.obs.watchdog in the reference):
-        # judged on the host at segment boundaries.
-        diag["wd_nonfinite"] = sum(
-            (~torch.isfinite(x)).sum().to(torch.int32)
-            for x in tree_leaves(s_noise))
-        diag["wd_mass_drift"] = (push_new.a.mean() - 1.0).abs()
-        diag["wd_consensus_residual"] = consensus_error(push_new.s,
-                                                        a=push_new.a)
-        if codec is not None and codec.stateful:
-            # error-feedback health: top-k is a contraction, so this stays
-            # bounded
-            diag["wd_wire_resid"] = new_resid.abs().sum(dim=-1).mean()
+        with phase(PHASE_DPPS_WIRE_STATS):
+            # The watchdog's inputs (repro.obs.watchdog in the reference):
+            # judged on the host at segment boundaries.
+            diag["wd_nonfinite"] = sum(_nonfinite(x).to(torch.int32)
+                                       for x in tree_leaves(s_noise))
+            diag["wd_mass_drift"] = (push_new.a.mean() - 1.0).abs()
+            # in 2^24-column blocks: a full-width buffer's temporaries
+            # stay at (N, 2^24); one block (the same sum) below that
+            diag["wd_consensus_residual"] = consensus_error(
+                push_new.s, a=push_new.a, chunk=1 << 24)
+            if codec is not None and codec.stateful:
+                # error-feedback health: top-k is a contraction, so this stays
+                # bounded
+                diag["wd_wire_resid"] = new_resid.abs().sum(dim=-1).mean()
     if tap is not None:
         # What the network sees this round (repro_torch.audit.transcript):
         # the noised (encoded) messages with the weights a they carry, and

@@ -36,6 +36,8 @@ from repro_torch.core.privacy import l1_clip_per_node
 from repro_torch.core.pushsum import correct
 from repro_torch.core.tree_utils import (PyTree, l1_norm_per_node, node_mean,
                                          tree_flatten, tree_unflatten)
+from repro_torch.obs.trace import (PHASE_CLIP, PHASE_GRADS_LOCAL,
+                                    PHASE_GRADS_SHARED, phase)
 
 __all__ = ["PartPSPConfig", "PartPSPState", "make_baseline_config",
            "partpsp_init", "partpsp_step", "consensus_params", "node_stacked"]
@@ -172,26 +174,30 @@ def partpsp_step(
         y = layout.unpack(y)
 
     # -- pass 1: local gradient at (y, l_t) (Eq. 5) ---------------------------
-    local_req = [l.detach().requires_grad_(True) for l in state.local]
-    losses, g_local = _grads(loss_fn, partition, y, local_req, batch,
-                             local_req)
-    local_new = []
-    for l in state.local:  # each gradient is freed once its leaf is updated
-        local_new.append(l - cfg.gamma_l * g_local.pop(0).to(l.dtype))
-    del local_req
+    with phase(PHASE_GRADS_LOCAL):
+        local_req = [l.detach().requires_grad_(True) for l in state.local]
+        losses, g_local = _grads(loss_fn, partition, y, local_req, batch,
+                                 local_req)
+        local_new = []
+        for l in state.local:  # each gradient is freed once its leaf is done
+            local_new.append(l - cfg.gamma_l * g_local.pop(0).to(l.dtype))
+        del local_req
 
-    # -- pass 2: shared gradient at (y, l_{t+1}) (Eq. 6) -----------------------
-    y_req = [v.detach().requires_grad_(True) for v in y]
-    _, g_shared = _grads(loss_fn, partition, y_req, local_new, batch, y_req)
-    del y, y_req
+    # -- pass 2: shared gradient at (y, l_{t+1}) (Eq. 6) ----------------------
+    with phase(PHASE_GRADS_SHARED):
+        y_req = [v.detach().requires_grad_(True) for v in y]
+        _, g_shared = _grads(loss_fn, partition, y_req, local_new, batch,
+                             y_req)
+        del y, y_req
 
     # -- clip (Eq. 24) and the DPPS perturbation (Eq. 25) ---------------------
-    if cfg.clip > 0:
-        g_shared, g_norms = l1_clip_per_node(g_shared, cfg.clip)
-    else:
-        g_norms = l1_norm_per_node(g_shared)
-    eps = [(-cfg.gamma_s * g).to(torch.float32) for g in g_shared]
-    del g_shared
+    with phase(PHASE_CLIP):
+        if cfg.clip > 0:
+            g_shared, g_norms = l1_clip_per_node(g_shared, cfg.clip)
+        else:
+            g_norms = l1_norm_per_node(g_shared)
+        eps = [(-cfg.gamma_s * g).to(torch.float32) for g in g_shared]
+        del g_shared
 
     dpps_new, diag = dpps_step(state.dpps, eps, cfg.dpps, layout, w=w,
                                offsets=offsets, mix_weights=mix_weights,

@@ -24,6 +24,7 @@ import torch
 from repro_torch.core.tree_utils import PyTree, tree_leaves, tree_map
 from repro_torch.kernels import ops as kops
 from repro_torch.kernels import ref as kref
+from repro_torch.obs.trace import PHASE_PUSHSUM_MIX, phase
 
 __all__ = [
     "PushSumState",
@@ -89,8 +90,9 @@ def gossip_dense(state: PushSumState, w: torch.Tensor, *,
     """One mixing round of a tree state with an (N, N) weight matrix;
     ``use_kernels``: one ``pushsum_mix`` launch a leaf."""
     mix = _kernel_mix_dense if use_kernels else _mix_dense
-    return PushSumState(s=tree_map(lambda x: mix(w, x), state.s),
-                        a=_mix_dense(w, state.a))
+    with phase(PHASE_PUSHSUM_MIX):
+        return PushSumState(s=tree_map(lambda x: mix(w, x), state.s),
+                            a=_mix_dense(w, state.a))
 
 
 def gossip_circulant(state: PushSumState, offsets: Sequence[int],
@@ -98,9 +100,11 @@ def gossip_circulant(state: PushSumState, offsets: Sequence[int],
     """One mixing round of a tree state on a circulant topology: a weighted
     sum of rolls along the node axis."""
     offsets = tuple(int(o) for o in offsets)
-    return PushSumState(
-        s=tree_map(lambda x: _mix_circulant(offsets, weights, x), state.s),
-        a=_mix_circulant(offsets, weights, state.a))
+    with phase(PHASE_PUSHSUM_MIX):
+        return PushSumState(
+            s=tree_map(lambda x: _mix_circulant(offsets, weights, x),
+                       state.s),
+            a=_mix_circulant(offsets, weights, state.a))
 
 
 def gossip_sparse(state: PushSumState, idx: torch.Tensor,
@@ -110,8 +114,9 @@ def gossip_sparse(state: PushSumState, idx: torch.Tensor,
     ``use_kernels``: one ``spmm`` launch a leaf (its rows padded to a
     multiple of 4 columns where they are not)."""
     mix = _kernel_mix_sparse if use_kernels else sparse_mix
-    return PushSumState(s=tree_map(lambda x: mix(idx, vals, x), state.s),
-                        a=sparse_mix(idx, vals, state.a))
+    with phase(PHASE_PUSHSUM_MIX):
+        return PushSumState(s=tree_map(lambda x: mix(idx, vals, x), state.s),
+                            a=sparse_mix(idx, vals, state.a))
 
 
 def gossip_packed(state: PushSumState, *, w: torch.Tensor | None = None,
@@ -124,23 +129,25 @@ def gossip_packed(state: PushSumState, *, w: torch.Tensor | None = None,
     ``offsets`` (circulant), ``sparse_idx``/``sparse_vals`` (sparse) or
     ``w`` (dense)."""
     buf = state.s
-    if offsets is not None:
-        offsets = tuple(int(o) for o in offsets)
-        if weights is None:
-            weights = torch.full((len(offsets),), 1.0 / len(offsets),
-                                 dtype=torch.float32, device=buf.device)
-        return PushSumState(s=_mix_circulant(offsets, weights, buf),
-                            a=_mix_circulant(offsets, weights, state.a))
-    if sparse_idx is not None:
-        s_new = (kops.spmm(sparse_idx, sparse_vals, buf) if use_kernels
-                 else sparse_mix(sparse_idx, sparse_vals, buf))
-        return PushSumState(s=s_new,
-                            a=sparse_mix(sparse_idx, sparse_vals, state.a))
-    if w is None:
-        raise ValueError("gossip_packed() needs w=, offsets= or "
-                         "sparse_idx=/sparse_vals=")
-    s_new = kops.pushsum_mix(w, buf) if use_kernels else _mix_dense(w, buf)
-    return PushSumState(s=s_new, a=_mix_dense(w, state.a))
+    with phase(PHASE_PUSHSUM_MIX):
+        if offsets is not None:
+            offsets = tuple(int(o) for o in offsets)
+            if weights is None:
+                weights = torch.full((len(offsets),), 1.0 / len(offsets),
+                                     dtype=torch.float32, device=buf.device)
+            return PushSumState(s=_mix_circulant(offsets, weights, buf),
+                                a=_mix_circulant(offsets, weights, state.a))
+        if sparse_idx is not None:
+            s_new = (kops.spmm(sparse_idx, sparse_vals, buf) if use_kernels
+                     else sparse_mix(sparse_idx, sparse_vals, buf))
+            return PushSumState(
+                s=s_new, a=sparse_mix(sparse_idx, sparse_vals, state.a))
+        if w is None:
+            raise ValueError("gossip_packed() needs w=, offsets= or "
+                             "sparse_idx=/sparse_vals=")
+        s_new = (kops.pushsum_mix(w, buf) if use_kernels
+                 else _mix_dense(w, buf))
+        return PushSumState(s=s_new, a=_mix_dense(w, state.a))
 
 
 def correct(s: PyTree, a: torch.Tensor) -> PyTree:

@@ -46,6 +46,7 @@ from repro_torch.core.partpsp import PartPSPConfig, PartPSPState, partpsp_step
 from repro_torch.core.pushsum import PushSumState
 from repro_torch.core.tree_utils import PyTree, tree_map
 from repro_torch.engine.plan import ProtocolPlan
+from repro_torch.obs.trace import PHASE_FAULTS, PHASE_PACK, PHASE_UNPACK, phase
 
 __all__ = ["run_dpps", "run_partpsp", "run_decode", "gumbel", "wire_layout"]
 
@@ -72,23 +73,26 @@ def _pack(state: DPPSState, layout: PackedLayout | None) -> DPPSState:
     which mirror it) packed onto the wire rows."""
     if layout is None:
         return state
-    mail = state.mail
-    if mail:
-        mail = mail._replace(cal_s=layout.pack(mail.cal_s),
-                             inbox_s=layout.pack(mail.inbox_s))
-    return state._replace(push=PushSumState(s=layout.pack(state.push.s),
-                                            a=state.push.a), mail=mail)
+    with phase(PHASE_PACK):
+        mail = state.mail
+        if mail:
+            mail = mail._replace(cal_s=layout.pack(mail.cal_s),
+                                 inbox_s=layout.pack(mail.inbox_s))
+        return state._replace(push=PushSumState(s=layout.pack(state.push.s),
+                                                a=state.push.a), mail=mail)
 
 
 def _unpack(state: DPPSState, layout: PackedLayout | None) -> DPPSState:
     if layout is None:
         return state
-    mail = state.mail
-    if mail:
-        mail = mail._replace(cal_s=layout.unpack(mail.cal_s),
-                             inbox_s=layout.unpack(mail.inbox_s))
-    return state._replace(push=PushSumState(s=layout.unpack(state.push.s),
-                                            a=state.push.a), mail=mail)
+    with phase(PHASE_UNPACK):
+        mail = state.mail
+        if mail:
+            mail = mail._replace(cal_s=layout.unpack(mail.cal_s),
+                                 inbox_s=layout.unpack(mail.inbox_s))
+        return state._replace(
+            push=PushSumState(s=layout.unpack(state.push.s), a=state.push.a),
+            mail=mail)
 
 
 def _check_async(plan: ProtocolPlan, cfg: DPPSConfig) -> bool:
@@ -161,16 +165,17 @@ def _realize_faults(plan: ProtocolPlan, kwargs: dict[str, Any], t: int,
     """Replace the round's nominal weights in ``kwargs`` by the realized
     ones; return the round's ``net_*`` rows."""
     draws = fault_draws_at(t) if fault_draws_at else None
-    if "sparse_idx" in kwargs:
-        vals, net = plan.faults.realize_sparse(
-            kwargs["sparse_idx"], kwargs["sparse_vals"], t, seed=seed,
-            draws=draws, with_adjacency=with_adjacency)
-        kwargs["sparse_vals"] = vals
+    with phase(PHASE_FAULTS):
+        if "sparse_idx" in kwargs:
+            vals, net = plan.faults.realize_sparse(
+                kwargs["sparse_idx"], kwargs["sparse_vals"], t, seed=seed,
+                draws=draws, with_adjacency=with_adjacency)
+            kwargs["sparse_vals"] = vals
+            return net
+        w, net = plan.faults.realize(kwargs["w"], t, seed=seed, draws=draws,
+                                     with_adjacency=with_adjacency)
+        kwargs["w"] = w
         return net
-    w, net = plan.faults.realize(kwargs["w"], t, seed=seed, draws=draws,
-                                 with_adjacency=with_adjacency)
-    kwargs["w"] = w
-    return net
 
 
 def _open_async(plan: ProtocolPlan, kwargs: dict[str, Any],

@@ -12,9 +12,11 @@ the plain PyTorch path.
         --reduced --device cpu --nodes 4 --steps 3 --gamma-n 1e-6 \\
         --checkpoint ckpt
 
-Flags follow the reference's: ``--algorithm {partpsp,sgp,sgpdp,pedfl}``,
+Flags follow the reference's; the topology, fault, delay and protocol
+flags and their parse-time checks come from :mod:`repro_torch.api.cli`:
+``--algorithm {partpsp,sgp,sgpdp,pedfl}``,
 ``--b``, ``--gamma-n``, ``--gamma-l``, ``--gamma-s``, ``--clip``,
-``--topology`` (the families the port has) with ``--degree``, the
+``--topology`` (the registry's families) with ``--degree``, the
 random families' knobs and ``--resample-period`` (a random family redrawn
 every round), ``--sync-interval``, ``--schedule {dense,circulant,sparse}``,
 ``--use-kernels`` (the CUDA kernels; raises off the card), ``--chunk``
@@ -57,173 +59,22 @@ import torch
 
 from repro_torch.api import (BudgetHook, LedgerHook, MetricsHook,
                              PrivacySpec, Session)
+from repro_torch.api.cli import (TOPOLOGY_CHOICES, add_delay_arguments,
+                                 add_fault_arguments, add_protocol_arguments,
+                                 add_topology_arguments, delays_from_args,
+                                 faults_from_args, make_topology,
+                                 topology_from_args, validate_protocol_args,
+                                 wire_from_args)
 from repro_torch.configs import ARCH_NAMES, get_config
-from repro_torch.core.topology import (DOutGraph, ExpGraph,
-                                       FullyConnectedGraph, RingGraph)
 from repro_torch.data import NodeShardedLoader, SyntheticLMStream
 from repro_torch.data.pipeline import seeded_generator
 from repro_torch.device import resolve_device
 from repro_torch.models.transformer import Transformer
-from repro_torch.engine.plan import _warn_once
-from repro_torch.net import (DelayModel, ErdosRenyiGraph, FaultModel,
-                             RandomMatchingGraph, RandomSequenceTopology,
-                             SmallWorldGraph, TorusGraph)
-from repro_torch.wire import WireCodec, parse_wire_spec
 
+# the registry and the flag parsers live in repro_torch.api.cli; the names
+# stay importable from here, as the reference's launcher imports them
 __all__ = ["TOPOLOGY_CHOICES", "make_topology", "build_session",
-           "faults_from_args", "delays_from_args", "wire_from_args",
-           "validate_wire_args", "main"]
-
-TOPOLOGY_CHOICES = ("dout", "exp", "ring", "full", "er", "matching",
-                    "torus", "smallworld")
-
-
-def make_topology(name: str, n_nodes: int, *, degree: int = 2,
-                  p: float = 0.3, matchings: int = 1, beta: float = 0.1,
-                  rows: int = 0, seed: int = 0, period: int = 0):
-    """The name -> Topology registry of the reference's ``repro.api.cli``,
-    over the families the port has. ``period > 0`` redraws a seeded random
-    family every round with that cycle (:class:`RandomSequenceTopology`,
-    which raises for the unseeded families)."""
-    if name == "dout":
-        topo = DOutGraph(n_nodes=n_nodes, d=degree)
-    elif name == "exp":
-        topo = ExpGraph(n_nodes=n_nodes)
-    elif name == "ring":
-        topo = RingGraph(n_nodes=n_nodes)
-    elif name == "full":
-        topo = FullyConnectedGraph(n_nodes=n_nodes)
-    elif name == "er":
-        topo = ErdosRenyiGraph(n_nodes=n_nodes, p=p, seed=seed)
-    elif name == "matching":
-        topo = RandomMatchingGraph(n_nodes=n_nodes, k=matchings, seed=seed)
-    elif name == "smallworld":
-        topo = SmallWorldGraph(n_nodes=n_nodes, beta=beta, seed=seed)
-    elif name == "torus":
-        topo = TorusGraph(n_nodes=n_nodes, rows=rows)
-    else:
-        raise ValueError(f"unknown topology {name!r}; choose from "
-                         f"{TOPOLOGY_CHOICES}")
-    if period > 0:
-        topo = RandomSequenceTopology(n_nodes=n_nodes, base=topo,
-                                      period=period)
-    return topo
-
-
-def _parse_churn(ap: argparse.ArgumentParser, specs: list[str],
-                 n_nodes: int | None) -> tuple[tuple[int, int, int], ...]:
-    """``NODE:T_DOWN:T_UP`` strings -> churn triples, checked at parse time
-    as the reference's ``repro.api.cli`` checks them."""
-    churn = []
-    for spec in specs:
-        parts = spec.split(":")
-        if len(parts) != 3:
-            ap.error(f"--churn {spec!r}: expected NODE:T_DOWN:T_UP "
-                     "(three ints separated by colons)")
-        try:
-            node, t_down, t_up = (int(p) for p in parts)
-        except ValueError:
-            ap.error(f"--churn {spec!r}: NODE, T_DOWN and T_UP must be ints")
-        if n_nodes is not None and not 0 <= node < n_nodes:
-            ap.error(f"--churn {spec!r}: node {node} out of range for "
-                     f"n_nodes={n_nodes}")
-        churn.append((node, t_down, t_up))
-    return tuple(churn)
-
-
-def faults_from_args(ap: argparse.ArgumentParser, args: argparse.Namespace,
-                     n_nodes: int | None = None) -> FaultModel | None:
-    """The FaultModel of the flags, or None when every knob is off; a bad
-    value dies as a parser error (``SystemExit``)."""
-    churn = _parse_churn(ap, args.churn, n_nodes)
-    if not (args.drop_rate or args.straggler_rate or churn):
-        return None
-    try:
-        return FaultModel(drop_rate=args.drop_rate,
-                          straggler_rate=args.straggler_rate, churn=churn,
-                          seed=args.fault_seed)
-    except ValueError as e:
-        ap.error(str(e))
-
-
-def delays_from_args(ap: argparse.ArgumentParser, args: argparse.Namespace,
-                     n_nodes: int | None = None) -> DelayModel | None:
-    """The DelayModel of the flags, or None when every knob is at rest."""
-    rates: tuple[int, ...] = ()
-    if args.node_rates:
-        try:
-            rates = tuple(int(r) for r in args.node_rates.split(","))
-        except ValueError:
-            ap.error(f"--node-rates {args.node_rates!r}: expected "
-                     "comma-separated ints (one rate per node)")
-        if n_nodes is not None and len(rates) != n_nodes:
-            ap.error(f"--node-rates has {len(rates)} entries but "
-                     f"n_nodes={n_nodes}; give one rate per node")
-    if not (args.max_delay or args.timeout_rate
-            or any(r > 1 for r in rates)):
-        return None
-    try:
-        return DelayModel(max_delay=args.max_delay,
-                          timeout_rate=args.timeout_rate, rates=rates,
-                          seed=args.delay_seed)
-    except ValueError as e:
-        ap.error(str(e))
-
-
-def wire_from_args(ap: argparse.ArgumentParser,
-                   args: argparse.Namespace) -> WireCodec | None:
-    """The WireCodec of ``--wire`` (or the older ``--wire-dtype``), or None
-    for the raw f32 wire, as the reference's ``repro.api.cli`` builds it:
-    ``--wire-dtype bf16`` maps to the bf16 codec with one
-    DeprecationWarning a process; a conflicting ``--wire`` or a bad spec
-    dies as a parser error."""
-    spec = getattr(args, "wire", "f32") or "f32"
-    try:
-        codec = parse_wire_spec(spec)
-    except ValueError as e:
-        ap.error(f"--wire {spec!r}: {e}")
-    legacy = getattr(args, "wire_dtype", "f32")
-    if legacy != "f32":
-        _warn_once("cli_wire_dtype",
-                   "--wire-dtype bf16 is deprecated; use --wire bf16")
-        if not codec.active:
-            codec = parse_wire_spec(legacy)
-        elif codec.name != legacy:
-            ap.error(f"--wire {spec} conflicts with the deprecated "
-                     f"--wire-dtype {legacy}; drop --wire-dtype")
-    return codec if codec.active else None
-
-
-def validate_wire_args(ap: argparse.ArgumentParser,
-                       args: argparse.Namespace) -> WireCodec | None:
-    """The codec of the flags, after the reference's parse-time refusals
-    (``repro/api/cli.py:149-192``): a codec needs the packed runtime and
-    the engine driver; the bf16 wire refuses the delay flags. The
-    compress-first codec takes ``--use-kernels``, which the reference
-    refuses: the port's kernel route encodes before the down-scaled
-    noise."""
-    codec = wire_from_args(ap, args)
-    if codec is None:
-        return None
-    name = codec.name
-    if not args.packed:
-        ap.error(
-            f"--wire {name} requires the packed runtime: every wire codec "
-            "is a transform of the packed (N, d_s) buffer. Drop "
-            "--no-packed, or use --wire f32 (legacy: --wire-dtype f32) "
-            "with the pytree path.")
-    if args.driver != "engine":
-        ap.error(
-            f"--wire {name} requires --driver engine: the per-round "
-            "loop driver runs the pytree reference path, which is f32-only.")
-    if (args.max_delay or args.timeout_rate or args.node_rates) \
-            and not codec.transforms_values:
-        ap.error(
-            f"--wire {name} does not compose with the async mailbox "
-            "runtime: the mailbox calendars accumulate in-flight mass in "
-            "f32. Use a value codec (--wire int8, --wire topk:K) or drop "
-            "the delay flags.")
-    return codec
+           "faults_from_args", "delays_from_args", "wire_from_args", "main"]
 
 
 def build_session(arch_name: str, *, reduced: bool, n_nodes: int,
@@ -293,51 +144,15 @@ def _parser() -> argparse.ArgumentParser:
     ap.add_argument("--gamma-l", type=float, default=0.05)
     ap.add_argument("--gamma-s", type=float, default=0.05)
     ap.add_argument("--clip", type=float, default=100.0)
-    ap.add_argument("--topology", choices=TOPOLOGY_CHOICES, default="dout")
-    ap.add_argument("--degree", type=int, default=2,
-                    help="dout: out-degree incl. the self loop")
-    ap.add_argument("--er-p", type=float, default=0.3)
-    ap.add_argument("--matchings", type=int, default=1)
-    ap.add_argument("--sw-beta", type=float, default=0.1)
-    ap.add_argument("--torus-rows", type=int, default=0)
-    ap.add_argument("--graph-seed", type=int, default=0)
-    ap.add_argument("--resample-period", type=int, default=0,
-                    help="resample the random graph every round, cycling "
-                         "with this period (0 = static draw)")
-    ap.add_argument("--drop-rate", type=float, default=0.0,
-                    help="per-edge Bernoulli link-drop probability per round")
-    ap.add_argument("--straggler-rate", type=float, default=0.0,
-                    help="per-node probability a round's messages miss the "
-                         "deadline (outgoing edges dropped, renormalised)")
-    ap.add_argument("--churn", action="append", default=[],
-                    metavar="NODE:T_DOWN:T_UP",
-                    help="node NODE is down for rounds [T_DOWN, T_UP) "
-                         "(repeatable)")
-    ap.add_argument("--fault-seed", type=int, default=0,
-                    help="seed of the fault stream")
-    ap.add_argument("--max-delay", type=int, default=0,
-                    help="staleness bound B: messages get a uniform random "
-                         "delay in {0..B} rounds (0 = synchronous)")
-    ap.add_argument("--timeout-rate", type=float, default=0.0,
-                    help="per-message probability of a timeout; its mass "
-                         "goes back to the sender's self loop")
-    ap.add_argument("--node-rates", type=str, default="",
-                    help="comma-separated per-node round rates (node i "
-                         "takes part every r_i rounds)")
-    ap.add_argument("--delay-seed", type=int, default=0,
-                    help="seed of the delay and timeout stream")
+    add_topology_arguments(ap)
+    add_fault_arguments(ap)
+    add_delay_arguments(ap)
     ap.add_argument("--sync-interval", type=int, default=5)
     ap.add_argument("--schedule", choices=("dense", "circulant", "sparse"),
                     default="dense")
     ap.add_argument("--use-kernels", action="store_true",
                     help="the CUDA kernels (the default on the card; raises "
                          "on another device)")
-    ap.add_argument("--chunk", type=int, default=50,
-                    help="rounds per engine segment")
-    ap.add_argument("--packed", action=argparse.BooleanOptionalAction,
-                    default=True,
-                    help="run the engine over the packed (N, d_s) wire "
-                         "buffer (--no-packed keeps the pytree runtime)")
     ap.add_argument("--seed", type=int, default=2024)   # the paper's seed
     ap.add_argument("--log-every", type=int, default=10)
     ap.add_argument("--device", default=None,
@@ -355,23 +170,18 @@ def _parser() -> argparse.ArgumentParser:
                     help="total epsilon ceiling for the run")
     ap.add_argument("--strict-budget", action="store_true",
                     help="abort training once --privacy-budget is exceeded")
-    ap.add_argument("--wire", type=str, default="f32", metavar="SPEC",
-                    help="wire codec: f32 | bf16 | int8 | topk:K | "
-                         "topk:1/M, applied after the noise; needs "
-                         "--packed and --driver engine")
-    ap.add_argument("--wire-dtype", choices=("f32", "bf16"), default="f32",
-                    help="deprecated: subsumed by --wire (use --wire bf16)")
+    add_protocol_arguments(ap)
     return ap
 
 
 def main(argv=None) -> None:
     ap = _parser()
     args = ap.parse_args(argv)
-    if args.chunk < 1:
-        ap.error("--chunk must be >= 1")
-    wire = validate_wire_args(ap, args)
+    validate_protocol_args(ap, args)
+    topo = topology_from_args(ap, args, args.nodes)
     faults = faults_from_args(ap, args, n_nodes=args.nodes)
     delays = delays_from_args(ap, args, n_nodes=args.nodes)
+    wire = wire_from_args(ap, args)
     if delays is not None and args.sync_interval:
         ap.error("--max-delay/--timeout-rate/--node-rates need "
                  "--sync-interval 0: a synchronization round would average "
@@ -380,20 +190,16 @@ def main(argv=None) -> None:
         ap.error("--max-delay/--timeout-rate/--node-rates need --schedule "
                  "dense or sparse: the mailbox runtime consumes per-round "
                  "weight operands, not circulant offsets")
+    if args.schedule == "circulant" and topo.offsets(0) is None:
+        ap.error(f"--topology {args.topology} is not circulant "
+                 f"({type(topo).__name__} has no offset structure); use "
+                 "--schedule dense")
     if faults is not None and args.schedule == "circulant":
         ap.error("--drop-rate/--straggler-rate need --schedule dense or "
                  "sparse: masked edges break circulant structure (dense "
                  "switches to the dynamic schedule internally; sparse "
                  "masks its edge list in place)")
     dev = resolve_device(args.device)
-    try:
-        topo = make_topology(args.topology, args.nodes, degree=args.degree,
-                             p=args.er_p, matchings=args.matchings,
-                             beta=args.sw_beta, rows=args.torus_rows,
-                             seed=args.graph_seed,
-                             period=args.resample_period)
-    except ValueError as e:
-        ap.error(f"--topology {args.topology}: {e}")
     model, model_cfg, session = build_session(
         args.arch, reduced=args.reduced, n_nodes=args.nodes,
         algorithm=args.algorithm, b=args.b, gamma_n=args.gamma_n,

@@ -231,8 +231,9 @@ class RandomSequenceTopology(Topology):
         if self.base is None:
             raise ValueError("RandomSequenceTopology needs a base= topology")
         if not hasattr(self.base, "seed"):
-            raise ValueError(f"base {type(self.base).__name__} has no seed "
-                             "field; only seeded families can be resampled")
+            raise ValueError(
+                f"base {type(self.base).__name__} has no seed field; only "
+                "seeded random families can be resampled per round")
         if self.base.n_nodes != self.n_nodes:
             raise ValueError(f"base n_nodes={self.base.n_nodes} != wrapper "
                              f"n_nodes={self.n_nodes}")

@@ -1096,3 +1096,108 @@ def test_audit_battery_on_the_card_holds_the_claims(dev):
     assert any(flag[("broken_laplace", t.name)] for t in THREAT_MODELS)
     assert not flag[("graph_homomorphic", LOCAL_EAVESDROPPER.name)]
     assert flag[("graph_homomorphic", GLOBAL_OBSERVER.name)]
+
+
+# -- the observability layer on the card ---------------------------------------
+
+# a device kernel's name (demangled by the profiler) -> the phase its launch
+# must fall in (the reference's layout; PERF.md's kernel table)
+KERNEL_PHASES = {"l1_norm_kernel": "dpps_perturb",
+                 "perturb_kernel": "dpps_noise",
+                 "mix_kernel": "dpps_gossip", "mix_tile_kernel": "dpps_gossip",
+                 "spmm_rows_kernel": "dpps_gossip",
+                 "spmm_tiles_kernel": "dpps_gossip"}
+
+
+def _kernel_of(name: str) -> str | None:
+    import re
+
+    for k in KERNEL_PHASES:
+        if re.search(rf"\b{k}\b", name):
+            return k
+    return None
+
+
+@pytest.mark.parametrize("schedule", ["dense", "sparse"])
+def test_profile_attributes_each_kernel_launch_to_its_phase(dev, schedule):
+    from repro_torch.obs.trace import attribute
+
+    topo = DOutGraph(5, 2) if schedule == "dense" else ErdosRenyiGraph(
+        24, p=8 / 24, seed=0)
+    session = Session.build(topo, privacy=PrivacySpec(b=5.0, gamma_n=1e-4),
+                            schedule=schedule, sync_interval=0, seed=3)
+    n = topo.n_nodes
+    values = {"x": torch.randn((n, 300_001), device=dev)}
+    state = session.consensus_state(values)
+    before = state.push.s["x"].clone()
+    report = session.profile(3, state=state)
+    assert report.note is None and report.backend == "torch-cuda"
+    assert torch.equal(state.push.s["x"], before)
+    assert sum(report.phases.values()) == pytest.approx(
+        report.device_total_s, rel=1e-9)
+    for name in ("dpps_perturb", "dpps_noise", "dpps_gossip"):
+        assert report.phases.get(name, 0.0) > 0.0, (name, report.phases)
+    ops.reset_launch_counts()
+    with torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        session.run(3, values=values)
+        torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    found = {}
+    for name, where, _ in attribute(prof.events(), device="cuda")[0]:
+        k = _kernel_of(name)
+        if k is not None:
+            # round 0's norm of s^(0) is the sensitivity's init, as in the
+            # reference's layout
+            want = ("dpps_sensitivity" if k == "l1_norm_kernel"
+                    and found.get(k, 0) == 1 else KERNEL_PHASES[k])
+            assert where == want, (name, where)
+            found[k] = found.get(k, 0) + 1
+    mix = "pushsum_mix" if schedule == "dense" else "spmm"
+    assert found.get("l1_norm_kernel") == counts["l1_norm_rows"] == 4
+    assert found.get("perturb_kernel") == counts["dpps_perturb_rows"] == 3
+    assert sum(v for k, v in found.items() if "mix" in k or "spmm" in k) \
+        == counts[mix] == 3
+
+
+def test_strict_watchdog_aborts_on_a_nan_on_the_card(dev):
+    from repro_torch.obs import MetricsBus, WatchdogHook
+
+    session = Session.build(DOutGraph(5, 2), privacy=PrivacySpec(
+        b=5.0, gamma_n=1e-4), schedule="dense", chunk=2, seed=3)
+    x = torch.randn((5, 4096), device=dev)
+    x[2, 7] = float("nan")
+    hook = WatchdogHook(strict=True, warn=lambda m: None, bus=MetricsBus())
+    report = session.run(6, values={"x": x}, hooks=[hook])
+    assert report.aborted and report.rounds == 2
+    assert report.abort_reason.startswith("watchdog critical")
+    first = hook.alerts[0]
+    assert (first.check, first.round, first.severity) == (
+        "nonfinite_wire", 0, "critical")
+
+
+def test_phase_opens_no_record_function_outside_a_profiler(dev, monkeypatch):
+    opened = []
+
+    class Counting:
+        def __init__(self, name):
+            opened.append(name)
+
+        def __enter__(self):
+            return self
+
+        def __exit__(self, *exc):
+            return False
+
+    monkeypatch.setattr(torch.profiler, "record_function", Counting)
+    session = Session.build(DOutGraph(5, 2), privacy=PrivacySpec(
+        b=5.0, gamma_n=1e-4), schedule="dense", seed=3)
+    values = {"x": torch.randn((5, 4096), device=dev)}
+    session.run(3, values=values)
+    torch.cuda.synchronize()
+    assert opened == []
+    with torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CPU]):
+        session.run(3, values=values)
+    assert {"dpps_perturb", "dpps_noise", "dpps_gossip"} <= set(opened)

@@ -49,6 +49,7 @@ from repro_torch.core.tree_utils import (tree_flatten, tree_leaves, tree_map,
                                          tree_unflatten)
 from repro_torch.data import NodeShardedLoader, SyntheticLMStream
 from repro_torch.kernels import ref
+from repro_torch.api import cli as cli_mod
 from repro_torch.launch import train as train_cli
 from repro_torch.models import moe
 from repro_torch.models import transformer as tf
@@ -470,7 +471,7 @@ def test_train_cli_unported_flags_name_their_roadmap_item(flag, item):
     ap = train_cli._parser()
     with warnings.catch_warnings():
         warnings.simplefilter("ignore", DeprecationWarning)
-        codec = train_cli.validate_wire_args(ap, ap.parse_args([flag]))
+        codec = _validated_codec(ap, ap.parse_args([flag]))
     assert codec.name == item
     assert not hasattr(train_cli, "_UNPORTED")
 
@@ -498,3 +499,9 @@ def test_plain_mix_at_64_nodes_matches_the_interpret_kernel(R):
                                   interpret=True))
     got = ref.pushsum_mix(torch.tensor(w), torch.tensor(x))
     np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-6)
+
+
+def _validated_codec(ap, args):
+    """The launcher's codec after the shared CLI's parse-time refusals."""
+    cli_mod.validate_protocol_args(ap, args)
+    return cli_mod.wire_from_args(ap, args)

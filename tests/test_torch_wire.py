@@ -63,6 +63,7 @@ from repro_torch.core.packing import PackedLayout
 from repro_torch.engine import ProtocolPlan, run_dpps
 from repro_torch.engine import plan as plan_mod
 from repro_torch.kernels import ref as kref
+from repro_torch.api import cli as cli_mod
 from repro_torch.launch import train as train_cli
 from repro_torch.models.mlp import PARTITIONS, mlp_loss
 from repro_torch.net import DelayModel, NetworkStatsHook
@@ -616,7 +617,7 @@ def test_cli_wire_flags(R, argv, want, monkeypatch):
     ap = train_cli._parser()
     with warnings.catch_warnings():
         warnings.simplefilter("ignore", DeprecationWarning)
-        codec = train_cli.validate_wire_args(ap, ap.parse_args(argv))
+        codec = _validated_codec(ap, ap.parse_args(argv))
         ref_ap = argparse.ArgumentParser()
         R.api.cli.add_protocol_arguments(ref_ap)
         R.api.cli.add_delay_arguments(ref_ap)
@@ -645,7 +646,7 @@ def test_cli_takes_compress_first_with_kernels():
     before the down-scaled noise), so ``--use-kernels`` does not refuse it
     as the reference's launcher does."""
     ap = train_cli._parser()
-    codec = train_cli.validate_wire_args(ap, ap.parse_args(
+    codec = _validated_codec(ap, ap.parse_args(
         ["--wire", "broken-compress-first", "--use-kernels"]))
     assert codec == BrokenCompressFirstCodec()
 
@@ -699,3 +700,9 @@ def test_topk_state_restores_across_packages_and_resumes(R, tmp_path, reader):
     np.testing.assert_allclose(rest.trajectory["loss_mean"],
                                np.asarray(whole.trajectory["loss_mean"])[3:],
                                rtol=1e-4, atol=1e-5)
+
+
+def _validated_codec(ap, args):
+    """The launcher's codec after the shared CLI's parse-time refusals."""
+    cli_mod.validate_protocol_args(ap, args)
+    return cli_mod.wire_from_args(ap, args)
