@@ -244,12 +244,31 @@ Phases, each printing one JSON line:
                   MLP's step and the ER(4096) round of this run (annotated
                   by ``phase()``) beside PERF.md's figures from before the
                   annotations.
+29. ``launch``    the launch tooling (``repro_torch.launch``): (a) the dry
+                  run (``python -m repro_torch.launch.dryrun --arch A
+                  --nodes 16``) of all ten architectures x four shapes on
+                  meta, one process an architecture, the card hidden from
+                  them, started together: every row's FLOPs, bytes, peak
+                  and ``fits``, no error row, the reference's skips,
+                  every ok row's FLOPs > 0, the wall time; (b) meanwhile
+                  phase 15's step (llama3.2-1b, N = 4, 2 x 1,024 tokens a
+                  node) as a ``TrainPlan``: ``cost()`` on meta, then one
+                  ``step_fn`` on the card under ``FlopCounterMode``: its
+                  aten FLOPs equal the prediction's exactly, its launches
+                  the meta launches, its peak within 1 % of the predicted;
+                  two more steps timed without the counter (TFLOP/s and
+                  the share of the f32 peak); (c) of (a)'s rows that fit,
+                  the prefill and the decode row with the largest predicted
+                  peak: one ``ServePlan.step_fn`` each on the card, peak
+                  within 1 % of the row's, launches the row's (the
+                  xlstm-125m prefill at one mLSTM and one sLSTM layer of
+                  its 12, against that cut's prediction: ``SERVE_CUTS``).
 
 Each kernel counts its launches. The counts are set to 0 just before each
 path (phases 3-7, 10, 13, 15, 17, each run of 19 and 22, each serve of 20,
 23, each run of 24, 25 and 26, each battery of 27, a codec each in
-its wire battery, and each run of 28) and read just after; each path
-names the kernels it must launch
+its wire battery, each run of 28, and each card step of 29) and read just
+after; each path names the kernels it must launch
 (and the sparse paths must launch ``pushsum_mix`` no time; the training
 paths exactly their counts). Then come the card's
 name and power limit (``nvidia-smi``), the ``kernels`` line with every
@@ -262,6 +281,7 @@ from __future__ import annotations
 import argparse
 import json
 import math
+import os
 import re
 import subprocess
 import sys
@@ -1185,14 +1205,6 @@ def agreement(torch, api, T, mlp, trained: dict) -> dict:
 
 # -- phase 9: flash attention against its plain version ----------------------
 
-def visible_pairs(s: int, window) -> int:
-    """(query, key) pairs a causal row set of length s sees: sum over rows i
-    of min(i + 1, window)."""
-    if window is None or window >= s:
-        return s * (s + 1) // 2
-    return window * (window + 1) // 2 + (s - window) * window
-
-
 def check_flash(torch, F, ops, ref, name: str, dev, iters: int) -> dict:
     """``ops.flash_attention_bshd`` against ``ref.flash_attention`` at one
     shape. The plain version's (B, H, rows, keys) scores do not fit at 32k,
@@ -1249,7 +1261,7 @@ def check_flash(torch, F, ops, ref, name: str, dev, iters: int) -> dict:
         sdpa_err = (sdpa().transpose(1, 2) - got).abs().max().item()
         library_ms = cuda_ms(torch, sdpa, iters, warmup=1)
         del kr, vr, band
-    pairs = visible_pairs(s, window) * b * h
+    pairs = ops.visible_pairs(s, -1 if window is None else window) * b * h
     nbytes = 4.0 * (2 * b * s * h * d + 2 * b * s * kh * d)
     # 4 D flops a visible pair and head, each as three TF32 products
     out = dict(shape=dict(b=b, s=s, h=h, kh=kh, d=d, window=window),
@@ -4480,6 +4492,247 @@ def obs_phase(torch, api, T, ops, dev, *, dense: dict, sparse: dict,
     return out, counts
 
 
+# -- phase 29: the launch tooling ----------------------------------------------
+
+# 29a: the dry run at the reference's single-pod node count, one process an
+# architecture (all at once: each traces on meta, on the host alone)
+DRYRUN_NODES = 16
+# 29b-c: a predicted peak is held within this share of the card's. The
+# largest gap measured on an H100 80GB HBM3 at 700 W was 0.14 % (29b:
+# 47.399 GB against 47.331 predicted) and the smallest 4e-7; one node's
+# stacked gradient is 10.4 % of 29b's peak, so a count that dropped it
+# fails here
+PEAK_TOLERANCE = 0.01
+# 29b: the TRAIN_LM step (N = 4, 2 x 1,024 tokens a node) as a ShapeSpec
+TRAIN_LM_SHAPE = dict(name="train_lm", seq_len=TRAIN_LM["seq_len"],
+                      global_batch=TRAIN_LM["n"] * TRAIN_LM["per_node_batch"],
+                      kind="train")
+LAUNCH_TIMED_STEPS = 2
+# 29c: a fitting row whose whole depth takes minutes on the card runs at
+# a cut of its first group, predicted at that cut (the row's whole-depth
+# prediction printed beside): xlstm-125m's prefill_32k (B = 32, S =
+# 32,768) took 164-258 s at its 12 layers and 98 s at 4 on an H100 80GB
+# HBM3 at 700 W (its time loops are 32,768 steps a layer); one mLSTM and
+# one sLSTM layer keep both of its kinds
+SERVE_CUTS = {("xlstm-125m", "prefill_32k"): dict(n_units=1,
+                                                  mlstm_per_unit=1)}
+
+
+def card_line() -> str:
+    """The card's name and power limit, as ``nvidia-smi`` gives them."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True, check=True,
+        timeout=60).stdout.strip().splitlines()[0]
+
+
+def dryrun_start(tmp: str) -> dict:
+    """29a: ``python -m repro_torch.launch.dryrun --arch A --nodes 16
+    --out tmp/A.json`` for every architecture, all started at once, on
+    meta with the card hidden -> {arch: Popen}."""
+    from repro_torch.configs import ARCH_NAMES
+
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="", PYTHONPATH=str(SRC))
+    return {arch: subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", arch,
+         "--nodes", str(DRYRUN_NODES), "--out", f"{tmp}/{arch}.json"],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True, env=env)
+        for arch in ARCH_NAMES}
+
+
+def dryrun_finish(procs: dict, tmp: str, t0: float, card: str) -> tuple:
+    """29a's rows: no error row, the reference's skips (long_500k for the
+    full-attention architectures), every ok row's FLOPs > 0."""
+    from repro_torch.configs import INPUT_SHAPES, get_config
+
+    rows = []
+    for arch, proc in procs.items():
+        out, _ = proc.communicate(timeout=600)
+        require(proc.returncode == 0,
+                f"dry run of {arch} exited {proc.returncode}: {out[-3000:]}")
+        rows += json.loads(Path(f"{tmp}/{arch}.json").read_text())
+    wall_s = time.perf_counter() - t0
+    want = {(a, sh) for a in procs for sh in INPUT_SHAPES}
+    require({(r["arch"], r["shape"]) for r in rows} == want, "dry-run rows")
+    require(not [r for r in rows if r["status"] == "error"], "dry-run errors")
+    skipped = {(r["arch"], r["shape"]) for r in rows
+               if r["status"] == "skipped"}
+    require(skipped == {(a, "long_500k") for a in procs
+                        if not get_config(a).runs_shape("long_500k")},
+            f"dry-run skips {sorted(skipped)}")
+    ok = [r for r in rows if r["status"] == "ok"]
+    require(all(r["flops_per_chip"] > 0 for r in ok), "a row counts no FLOPs")
+    return dict(
+        phase="launch", part="dryrun", card=card, nodes=DRYRUN_NODES,
+        processes=len(procs), wall_s=wall_s, ok=len(ok),
+        skipped=len(skipped), errors=0,
+        max_trace_s=max(r["trace_s"] for r in ok),
+        rows=[dict(arch=r["arch"], shape=r["shape"], status=r["status"],
+                   **({k: r[k] for k in (
+                       "flops_per_chip", "aten_flops", "kernel_flops",
+                       "bytes_per_chip", "peak_bytes", "fits", "bottleneck",
+                       "model_flops_per_chip", "useful_flops_ratio",
+                       "launches", "trace_s")} if r["status"] == "ok"
+                      else {"reason": r["reason"]})) for r in rows]), rows
+
+
+def peak_within(pred: float, measured: float, what: str) -> float:
+    rel = abs(pred - measured) / measured
+    require(rel <= PEAK_TOLERANCE,
+            f"{what}: predicted peak {pred / 1e9:.3f} GB, measured "
+            f"{measured / 1e9:.3f} GB ({100 * rel:.1f} % apart)")
+    return rel
+
+
+def launch_train(torch, ops, dev, card: str) -> tuple:
+    """29b: the TRAIN_LM step (llama3.2-1b, N = 4, 2 x 1,024 tokens a node)
+    as a ``TrainPlan``: predicted by ``cost()`` on meta, then run on the
+    card. The aten FLOPs ``FlopCounterMode`` counts on the card equal the
+    prediction's, the card's launches its meta launches, the measured peak
+    (over what was allocated before the state) its peak within
+    ``PEAK_TOLERANCE``; then the step timed without the counter."""
+    import dataclasses
+
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from repro_torch.configs import ShapeSpec, get_config
+    from repro_torch.launch.op_analysis import HW
+    from repro_torch.launch.steps import build_train_plan
+
+    arch = get_config(TRAIN_LM["arch"])
+    plan = build_train_plan(arch, TRAIN_LM["n"],
+                            shape=ShapeSpec(**TRAIN_LM_SHAPE))
+    # gamma_n at half the Remark-1 stability limit of the plan's (C',
+    # lambda) at this d_s: the reference's default 0.01 diverges in a few
+    # rounds at full width (the counts do not depend on it)
+    dpps = plan.cfg.dpps
+    limit = (1.0 / dpps.lam - 1.0) * dpps.b / (
+        2.0 * dpps.c_prime * plan.partition.d_shared())
+    plan.cfg = dataclasses.replace(plan.cfg, dpps=dataclasses.replace(
+        dpps, gamma_n=0.5 * limit))
+    t0 = time.perf_counter()
+    pred = plan.cost()
+    predict_s = time.perf_counter() - t0
+
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    state = plan.init_state(dev, seed=SEED)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    batch = {"tokens": torch.randint(
+        0, arch.model.vocab_size, tuple(plan.batch_specs["tokens"].shape),
+        generator=gen, device=dev, dtype=torch.int32)}
+    torch.cuda.synchronize()
+    state_gb = (torch.cuda.memory_allocated() - base) / 1e9
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    with FlopCounterMode(display=False) as counter:
+        state, metrics = plan.step_fn(state, batch, SEED)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    launches = ops.launch_counts()
+    card_flops = float(counter.get_total_flops())
+    require(card_flops == pred.aten_flops,
+            f"card aten FLOPs {card_flops} != predicted {pred.aten_flops}")
+    require(launches == {k: pred.launches.get(k, 0) for k in launches},
+            f"card launches {launches} != predicted {pred.launches}")
+    rel = peak_within(pred.peak_memory_bytes, peak, "TrainPlan step")
+    loss = float(metrics["loss_mean"])
+    require(math.isfinite(loss), f"loss {loss}")
+    ms = []
+    for t in range(LAUNCH_TIMED_STEPS):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        state, metrics = plan.step_fn(state, batch, SEED + 1 + t)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t1) * 1e3)
+    require(all(bool(torch.isfinite(x).all()) for x in state.local),
+            "trained state not finite")
+    step_ms = min(ms)
+    tflops = card_flops / (step_ms / 1e3) / 1e12
+    out = dict(
+        phase="launch", part="train", card=card, arch=TRAIN_LM["arch"],
+        nodes=TRAIN_LM["n"], shape=TRAIN_LM_SHAPE,
+        d_s=plan.partition.d_shared(), gamma_n=plan.cfg.dpps.gamma_n,
+        predict_s=predict_s, state_gb=state_gb,
+        predicted=dict(aten_flops=pred.aten_flops,
+                       kernel_flops=pred.kernel_flops, flops=pred.flops,
+                       bytes=pred.bytes_accessed,
+                       peak_gb=pred.peak_memory_bytes / 1e9,
+                       launches=pred.launches, model_flops=pred.model_flops,
+                       f32_floor_ms=pred.t_compute * 1e3,
+                       memory_floor_ms=pred.t_memory * 1e3),
+        card_aten_flops=card_flops, card_launches=launches,
+        peak_gb=peak / 1e9, peak_rel_diff=rel, loss=loss, step_ms=ms,
+        achieved_tflops=tflops, share_of_f32_peak=tflops * 1e12
+        / HW.peak_flops("float32"),
+        model_tflops=pred.model_flops / (step_ms / 1e3) / 1e12)
+    del state, batch, metrics
+    torch.cuda.empty_cache()
+    return out, launches
+
+
+def launch_serve(torch, ops, dev, rows: list, card: str) -> tuple:
+    """29c: of 29a's rows marked ``fits``, the prefill and the decode row
+    with the largest predicted peak; one ``ServePlan.step_fn`` of each on
+    the card, its measured peak against the row's within
+    ``PEAK_TOLERANCE`` and its launches against the row's (a row of
+    ``SERVE_CUTS`` at its cut, against the cut's prediction)."""
+    import dataclasses
+
+    from repro_torch.configs import INPUT_SHAPES, get_config
+    from repro_torch.launch.steps import build_serve_plan
+
+    out, counts = dict(phase="launch", part="serve", card=card), []
+    for kind in ("prefill", "decode"):
+        fit = [r for r in rows if r["status"] == "ok" and r["fits"]
+               and INPUT_SHAPES[r["shape"]].kind == kind]
+        require(fit, f"no {kind} row fits the card")
+        row = max(fit, key=lambda r: r["peak_bytes"])
+        spec = get_config(row["arch"])
+        cut = SERVE_CUTS.get((row["arch"], row["shape"]))
+        if cut is not None:
+            groups = spec.model.groups
+            spec = dataclasses.replace(spec, model=dataclasses.replace(
+                spec.model, groups=(dataclasses.replace(groups[0], **cut),)
+                + groups[1:]))
+        plan = build_serve_plan(spec, shape_name=row["shape"])
+        want = row
+        if cut is not None:
+            terms = plan.cost()
+            want = dict(terms.row(), peak_bytes=terms.peak_memory_bytes)
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        base = torch.cuda.memory_allocated()
+        args = plan.init_args(dev, seed=SEED)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        logits, _ = plan.step_fn(*args)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated() - base
+        launches = ops.launch_counts()
+        counts.append(launches)
+        require(bool(torch.isfinite(logits).all()), f"{kind} logits")
+        require(launches == {k: want["launches"].get(k, 0) for k in launches},
+                f"{kind} launches {launches} != predicted {want['launches']}")
+        rel = peak_within(want["peak_bytes"], peak, f"{row['arch']} {kind}")
+        out[kind] = dict(arch=row["arch"], shape=row["shape"], cut=cut,
+                         batch=plan.shape.global_batch,
+                         seq_len=plan.shape.seq_len,
+                         predicted_peak_gb=want["peak_bytes"] / 1e9,
+                         peak_gb=peak / 1e9, peak_rel_diff=rel,
+                         seconds=seconds, launches=launches,
+                         predicted_flops=want["flops_per_chip"],
+                         row_predicted_peak_gb=row["peak_bytes"] / 1e9,
+                         row_predicted_flops=row["flops_per_chip"])
+        del args, logits
+        torch.cuda.empty_cache()
+    return out, counts
+
+
 def sparse_graph(n: int, seed: int = 0):
     from repro_torch.net import ErdosRenyiGraph
 
@@ -4756,10 +5009,28 @@ def main() -> int:
         r["device_us"], r["kernels_a_call"] = device_us(torch, fn)
         r[f"{name}_device_us"], r[f"{name}_kernels_a_call"] = device_us(
             torch, other)
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True, check=True,
-        timeout=60).stdout.strip().splitlines()[0]
+    smi = card_line()
+    # phase 29: the dry run in processes of its own while the card runs
+    # the TRAIN_LM step; then the serve rows the dry run says fit
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        procs = dryrun_start(tmp)
+        try:
+            trained, counts = launch_train(torch, ops, dev, smi)
+            dry, dry_rows = dryrun_finish(procs, tmp, t0, smi)
+        finally:
+            for proc in procs.values():
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait()
+    if args.out is not None:
+        (args.out / "dryrun.json").write_text(json.dumps(dry_rows, indent=1))
+    emit(dry)
+    emit(trained)
+    launches.append(counts)
+    served, counts = launch_serve(torch, ops, dev, dry_rows, smi)
+    emit(served)
+    launches += counts
     total = {k: sum(path[k] for path in launches) for k in KERNELS}
     kernels = []
     for name in DENSE_PATH:

@@ -8,6 +8,8 @@ from __future__ import annotations
 import importlib
 
 from repro_torch.configs.base import INPUT_SHAPES, ArchSpec, ShapeSpec
+from repro_torch.configs.shapes import (input_specs, serve_batch_specs,
+                                        train_batch_specs)
 
 _ARCH_MODULES = {
     "gemma3-1b": "repro_torch.configs.gemma3_1b",
@@ -32,4 +34,5 @@ def get_config(name: str) -> ArchSpec:
 
 
 __all__ = ["ARCH_NAMES", "ArchSpec", "ShapeSpec",
-           "INPUT_SHAPES", "get_config"]
+           "INPUT_SHAPES", "get_config", "input_specs", "train_batch_specs",
+           "serve_batch_specs"]

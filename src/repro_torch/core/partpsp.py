@@ -30,6 +30,7 @@ from typing import Any, Callable, NamedTuple, Sequence
 import torch
 
 from repro_torch.core.dpps import DPPSConfig, DPPSState, dpps_init, dpps_step
+from repro_torch.core.loops import node_loop
 from repro_torch.core.packing import PackedLayout
 from repro_torch.core.partition import Partition
 from repro_torch.core.privacy import l1_clip_per_node
@@ -55,7 +56,10 @@ def node_stacked(loss_fn: Callable) -> LossFn:
     ``torch.utils.checkpoint``, which the transformer's training forward
     runs every layer under. Each leaf is unbound over the nodes once, so
     the backward stacks one gradient for it rather than adding a full-size
-    tensor for every node. The returned loss takes split layer stacks as
+    tensor for every node. The loop is :func:`repro_torch.core.loops.
+    node_loop` (under a dry run's cost count, its loop rule: node 0 stands
+    for all, as the reference's vmapped body is one computation). The
+    returned loss takes split layer stacks as
     :class:`repro_torch.core.partition.LayerParts` (``takes_layer_parts``),
     which ``loss_fn`` must read through
     :func:`repro_torch.core.partition.layer_list`.
@@ -64,12 +68,9 @@ def node_stacked(loss_fn: Callable) -> LossFn:
     def stacked(params: PyTree, batch: Any) -> torch.Tensor:
         p_leaves, p_def = tree_flatten(params)
         b_leaves, b_def = tree_flatten(batch)
-        p_nodes = [x.unbind(0) for x in p_leaves]
-        b_nodes = [x.unbind(0) for x in b_leaves]
-        return torch.stack([
-            loss_fn(tree_unflatten(p_def, [p[i] for p in p_nodes]),
-                    tree_unflatten(b_def, [b[i] for b in b_nodes]))
-            for i in range(len(b_nodes[0]))])
+        return node_loop(loss_fn, b_leaves[0].shape[0], p_leaves, b_leaves,
+                         lambda p, b: (tree_unflatten(p_def, p),
+                                       tree_unflatten(b_def, b)))
 
     stacked.takes_layer_parts = True
     return stacked
@@ -82,6 +83,11 @@ class PartPSPConfig:
     clip: float = 100.0            # L1 clipping threshold C (0 disables)
     dpps: DPPSConfig = dataclasses.field(default_factory=DPPSConfig)
     algorithm: str = "partpsp"     # partpsp | sgp | sgpdp | pedfl
+    # False: the fused single-pass variant (the reference's efficiency
+    # option), the shared gradient taken at (y, l_t) in pass 1. Last here
+    # (the reference puts it before ``algorithm``), so positional
+    # construction keeps its meaning.
+    two_pass: bool = True
 
     def __post_init__(self):
         if self.algorithm not in ("partpsp", "sgp", "sgpdp", "pedfl"):
@@ -176,8 +182,15 @@ def partpsp_step(
     # -- pass 1: local gradient at (y, l_t) (Eq. 5) ---------------------------
     with phase(PHASE_GRADS_LOCAL):
         local_req = [l.detach().requires_grad_(True) for l in state.local]
-        losses, g_local = _grads(loss_fn, partition, y, local_req, batch,
-                                 local_req)
+        if cfg.two_pass:
+            losses, g_local = _grads(loss_fn, partition, y, local_req, batch,
+                                     local_req)
+        else:  # one pass: the shared gradient at (y, l_t) too
+            y_req = [v.detach().requires_grad_(True) for v in y]
+            losses, g_both = _grads(loss_fn, partition, y_req, local_req,
+                                    batch, local_req + y_req)
+            g_local, g_shared = g_both[:len(local_req)], g_both[len(local_req):]
+            del g_both, y_req
         local_new = []
         for l in state.local:  # each gradient is freed once its leaf is done
             local_new.append(l - cfg.gamma_l * g_local.pop(0).to(l.dtype))
@@ -185,10 +198,12 @@ def partpsp_step(
 
     # -- pass 2: shared gradient at (y, l_{t+1}) (Eq. 6) ----------------------
     with phase(PHASE_GRADS_SHARED):
-        y_req = [v.detach().requires_grad_(True) for v in y]
-        _, g_shared = _grads(loss_fn, partition, y_req, local_new, batch,
-                             y_req)
-        del y, y_req
+        if cfg.two_pass:
+            y_req = [v.detach().requires_grad_(True) for v in y]
+            _, g_shared = _grads(loss_fn, partition, y_req, local_new, batch,
+                                 y_req)
+            del y_req
+        del y
 
     # -- clip (Eq. 24) and the DPPS perturbation (Eq. 25) ---------------------
     with phase(PHASE_CLIP):

@@ -28,6 +28,7 @@ __all__ = [
     "TimeVaryingTopology",
     "padded_csr",
     "spectral_gap",
+    "derive_constants",
     "contraction_rate",
     "calibrate_constants",
 ]
@@ -238,6 +239,27 @@ def contraction_rate(topo: Topology, *, period: int | None = None) -> float:
     for t in range(period):
         worst = max(worst, float(np.linalg.norm(topo.weight_matrix(t) - j, 2)))
     return worst
+
+
+def derive_constants(
+    topo: Topology,
+    *,
+    safety: float = 1.05,
+    lam_floor: float = 0.05,
+    lam_ceil: float = 0.995,
+) -> tuple[float, float]:
+    """A provably-motivated (C', lambda) pair for the Eq. (11) recursion
+    (the reference's, which its launch plans take).
+
+    lambda: per-round deviation contraction (second singular value, max over
+    the topology's period) with a safety margin. C': sqrt(N) covers the
+    L2->L1 node aggregation in Lemma 2's Theorem-1-of-[41] step; the paper
+    instead *tunes* C' per setup (0.78/0.95) and validates Esti >= Real
+    empirically (Fig. 2) — use :func:`calibrate_constants` to reproduce that.
+    """
+    lam = min(lam_ceil, max(lam_floor, contraction_rate(topo) * safety))
+    c_prime = safety * float(np.sqrt(topo.n_nodes))
+    return c_prime, lam
 
 
 def calibrate_constants(

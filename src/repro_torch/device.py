@@ -5,6 +5,9 @@
   PyTorch path (the tests do).
 * ``use_kernels=None`` means the hand-written kernels on CUDA and their
   plain PyTorch versions on the CPU. ``use_kernels=True`` on the CPU raises.
+  The meta device (a dry run, ``repro_torch.launch.dryrun``) routes as the
+  card does: its tensors hold no data, and the kernel wrappers' meta paths
+  return outputs of the kernels' shapes and count their launches.
 """
 from __future__ import annotations
 
@@ -28,8 +31,8 @@ def resolve_device(device: str | torch.device | None = None) -> torch.device:
 
 def resolve_use_kernels(use_kernels: bool | None, device: torch.device) -> bool:
     if use_kernels is None:
-        return device.type == "cuda"
-    if use_kernels and device.type != "cuda":
+        return device.type in ("cuda", "meta")
+    if use_kernels and device.type not in ("cuda", "meta"):
         raise ValueError(
             f"use_kernels=True needs a CUDA device, got {device}; the CUDA "
             "kernels have no CPU build (use_kernels=None picks the plain "

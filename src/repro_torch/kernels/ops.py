@@ -16,6 +16,15 @@ counterparts of ``repro/kernels/ops.py:65-181``): one launch of the row
 kernel a leaf, each leaf's flat (N, size) rows passed as a view where they
 are contiguous, 16-byte aligned and ``size % 4 == 0``, else padded to a
 multiple of 4 columns in one copy (:func:`leaf_rows`).
+
+On meta tensors (a dry run, :mod:`repro_torch.launch.op_analysis`) a
+wrapper checks its inputs as on the card, returns empty outputs of the
+kernel's shape and dtype, and charges the active cost count the launch
+the card would make, with its kernel's FLOPs and bytes
+(:func:`kernel_cost`, the reckoning of each kernel's bound in ``PERF.md``
+§6): the count's ``launches`` holds them, and ``launches`` here counts
+only what a card ran. A meta tensor holds no data, so this computes
+nothing and stands in for nothing that runs.
 :func:`flash_attention` (the (H, S, D) layout of the Pallas kernel) and :func:`flash_attention_bshd` (the model's (B, S, H, D)
 layout, counterpart of ``repro.kernels.ops.flash_attention_bshd``) launch
 one kernel and share its count, under ``flash_attention``.
@@ -26,6 +35,7 @@ import functools
 
 import torch
 
+from repro_torch.core import loops
 from repro_torch.core.packing import LANE, PackedLayout
 from repro_torch.core.tree_utils import PyTree, tree_leaves, tree_map
 from repro_torch.kernels import build, ref
@@ -35,10 +45,11 @@ __all__ = ["l1_norm_rows", "dpps_perturb_rows", "pushsum_mix", "spmm",
            "laplace_noise_tree", "l1_norm_tree", "dpps_perturb_tree",
            "noise_l1_rows", "noise_l1_tree",
            "laplace_noise_like", "leaf_rows", "leaf_out", "flash_attention", "flash_attention_bshd",
-           "launch_counts", "reset_launch_counts", "spmm_plan", "l1_plan",
+           "launch_counts", "reset_launch_counts",
+           "spmm_plan", "l1_plan",
            "mix_plan", "perturb_plan", "flash_geometry", "flash_strides",
            "MIX_TEMPLATE_NODES", "MIX_TILES", "MAX_SPMM_NODES", "FLASH_TILES",
-           "FLASH_HEAD_DIMS"]
+           "FLASH_HEAD_DIMS", "kernel_cost", "visible_pairs"]
 
 MAX_SPMM_NODES = 2 ** 31 - 1  # csrc/spmm.cu: idx is int32
 
@@ -95,12 +106,67 @@ FLASH_STAGES = 2  # the K/V ring of csrc/flash_attention.cu
 
 
 def _is_cpu(*tensors: torch.Tensor) -> bool:
-    if all(t.is_cuda for t in tensors):
-        return False
+    """True for CPU tensors (the plain version), False for CUDA tensors or
+    meta ones (the kernel, or its meta path); mixed devices raise."""
     devices = {t.device.type for t in tensors}
+    if devices <= {"cuda"} or devices == {"meta"}:
+        return False
     if devices != {"cpu"}:
         raise ValueError(f"tensors on mixed or unsupported devices: {devices}")
     return True
+
+
+def visible_pairs(s: int, window: int) -> int:
+    """(query, key) pairs a causal sequence of length s sees under a
+    sliding ``window`` (-1: global): sum over rows i of min(i + 1, window)."""
+    if window < 0 or window >= s:
+        return s * (s + 1) // 2
+    return window * (window + 1) // 2 + (s - window) * window
+
+
+def kernel_cost(kernel: str, **dims) -> tuple[float, float]:
+    """(f32 FLOPs, bytes) of one launch of ``kernel``, the reckoning of its
+    bound: each input read once, each output written once; the operations
+    as ``chip_smoke.py`` counts them (the perturbation's 25 int32 Philox
+    operations an element are not FLOPs and are left out). ``dims``: ``n``,
+    ``d_s``, ``d_pad`` for the row kernels (and ``bits`` for the
+    perturbation's bits-in variant, which reads them); ``n``, ``d`` (and
+    ``k`` slots) for the mixes; ``m`` for the Laplace draw; ``b``, ``s``,
+    ``h``, ``kh``, ``d``, ``window`` for flash attention (4 D FLOPs a
+    visible pair and head)."""
+    g = dims.get
+    if kernel == "l1_norm_rows":
+        return 2.0 * g("n") * g("d_s"), 4.0 * g("n") * g("d_s") + 4 * g("n")
+    if kernel in ("dpps_perturb_rows", "noise_l1_rows"):
+        n, d_s = g("n"), g("d_s")
+        nbytes = 8.0 * n * d_s + 4.0 * n * g("d_pad") + 8 * n + 4
+        return 17.0 * n * d_s, nbytes + (4.0 * n * d_s if g("bits") else 0)
+    if kernel == "pushsum_mix":
+        n, d = g("n"), g("d")
+        return 2.0 * n * n * d, 8.0 * n * d + 4.0 * n * n
+    if kernel == "spmm":
+        n, d, k = g("n"), g("d"), g("k")
+        return 2.0 * n * k * d, 8.0 * n * d + 8.0 * n * k
+    if kernel == "clip_scale_rows":
+        return 1.0 * g("n") * g("d_s"), 8.0 * g("n") * g("d_pad") + 4 * g("n")
+    if kernel == "laplace_from_bits":
+        return 25.0 * g("m"), 8.0 * g("m") + 4
+    if kernel == "flash_attention":
+        b, s, h, kh, d = g("b"), g("s"), g("h"), g("kh"), g("d")
+        pairs = visible_pairs(s, g("window")) * b * h
+        return 4.0 * d * pairs, 4.0 * (2 * b * s * h * d + 2 * b * s * kh * d)
+    raise KeyError(f"unknown kernel {kernel!r}")
+
+
+def _count(fn, t: torch.Tensor, **dims) -> None:
+    """One launch of ``fn``'s kernel on ``t``'s device: counted in
+    ``launches`` on the card; on meta tensors charged to the active cost
+    count (:func:`repro_torch.core.loops.charge`, whose loop rule may make
+    it stand for more)."""
+    if t.is_meta:
+        loops.charge(fn.__name__, *kernel_cost(fn.__name__, **dims))
+    else:
+        fn.launches += 1
 
 
 def _check(t: torch.Tensor, name: str, dtype: torch.dtype, ndim: int,
@@ -147,16 +213,17 @@ def l1_norm_rows(buf: torch.Tensor, d_s: int) -> torch.Tensor:
     if not (0 < d_s <= d_pad) or d_pad % 4 or n < 1:
         raise ValueError(f"need 0 < d_s <= d_pad, d_pad % 4 == 0 and N >= 1, "
                          f"got N={n}, d_s={d_s}, d_pad={d_pad}")
-    plan = l1_plan(n, d_s)
-    bpr = plan["blocks_per_row"]
-    stream = _stream(buf)
-    partials, tickets = _row_scratch("l1_norm", buf, stream, n * bpr, n)
     out = buf.new_empty((n,))
-    _raise_on(build.function("l1_norm")(
-        buf.data_ptr(), n, d_pad, d_s, plan["threads"], bpr,
-        plan["quads_per_block"], partials.data_ptr(), tickets.data_ptr(),
-        out.data_ptr(), stream), "l1_norm_rows")
-    l1_norm_rows.launches += 1
+    if not buf.is_meta:
+        plan = l1_plan(n, d_s)
+        bpr = plan["blocks_per_row"]
+        stream = _stream(buf)
+        partials, tickets = _row_scratch("l1_norm", buf, stream, n * bpr, n)
+        _raise_on(build.function("l1_norm")(
+            buf.data_ptr(), n, d_pad, d_s, plan["threads"], bpr,
+            plan["quads_per_block"], partials.data_ptr(), tickets.data_ptr(),
+            out.data_ptr(), stream), "l1_norm_rows")
+    _count(l1_norm_rows, buf, n=n, d_s=d_s)
     return out
 
 
@@ -234,7 +301,8 @@ def dpps_perturb_rows(s: torch.Tensor, eps: torch.Tensor, scale,
                                      seed=seed, t=t, col0=col0)
     out = _perturb_launch(s, eps, scale, gamma_n, d_s, bits=bits, seed=seed,
                           t=t, col0=col0)
-    dpps_perturb_rows.launches += 1
+    _count(dpps_perturb_rows, s, n=s.shape[0], d_s=d_s, d_pad=s.shape[1],
+           bits=bits is not None)
     return out
 
 
@@ -251,7 +319,8 @@ def noise_l1_rows(noise: torch.Tensor, d_s: int) -> torch.Tensor:
     zero = torch.zeros((), dtype=torch.float32, device=noise.device)
     norm = _perturb_launch(noise, noise, zero, 0.0, d_s, bits=None, seed=0,
                            t=0, col0=0)[1]
-    noise_l1_rows.launches += 1
+    _count(noise_l1_rows, noise, n=noise.shape[0], d_s=d_s,
+           d_pad=noise.shape[1])
     return norm
 
 
@@ -272,6 +341,10 @@ def _perturb_launch(s, eps, scale, gamma_n, d_s, *, bits, seed, t, col0):
     scale = _device_scale(scale, s.device)
     if not (0 <= int(t if t is not None else 0) < 2 ** 32):
         raise ValueError(f"round t={t} out of the uint32 counter range")
+    out = torch.empty_like(s)
+    eps_l1, noise_l1 = s.new_empty((n,)), s.new_empty((n,))
+    if s.is_meta:
+        return out, eps_l1, noise_l1
     plan = perturb_plan(n, d_pad)
     bpr = plan["blocks_per_row"]
     stream = _stream(s)
@@ -279,8 +352,6 @@ def _perturb_launch(s, eps, scale, gamma_n, d_s, *, bits, seed, t, col0):
     if bpr > 1:
         partials, tickets = _row_scratch("dpps_perturb", s, stream,
                                          2 * n * bpr, n)
-    out = torch.empty_like(s)
-    eps_l1, noise_l1 = s.new_empty((n,)), s.new_empty((n,))
     _raise_on(build.function("dpps_perturb")(
         s.data_ptr(), eps.data_ptr(),
         bits.data_ptr() if bits is not None else None,
@@ -332,12 +403,13 @@ def pushsum_mix(w: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     if tuple(w.shape) != (n, n) or n < 1 or d < 1:
         raise ValueError(f"need w (N, N) for x (N, D) with N, D >= 1, got "
                          f"w {tuple(w.shape)}, x {tuple(x.shape)}")
-    plan = mix_plan(n, d, _sm_count(x.device))
     out = torch.empty_like(x)
-    _raise_on(build.function("pushsum_mix")(
-        w.data_ptr(), x.data_ptr(), out.data_ptr(), n, d,
-        *plan["args"], _stream(x)), "pushsum_mix")
-    pushsum_mix.launches += 1
+    if not x.is_meta:
+        plan = mix_plan(n, d, _sm_count(x.device))
+        _raise_on(build.function("pushsum_mix")(
+            w.data_ptr(), x.data_ptr(), out.data_ptr(), n, d,
+            *plan["args"], _stream(x)), "pushsum_mix")
+    _count(pushsum_mix, x, n=n, d=d)
     return out
 
 
@@ -399,13 +471,14 @@ def spmm(idx: torch.Tensor, vals: torch.Tensor, x: torch.Tensor) -> torch.Tensor
     if not (1 <= n <= MAX_SPMM_NODES) or d < 4 or d % 4:
         raise ValueError(f"need 1 <= N <= {MAX_SPMM_NODES} and D % 4 == 0, "
                          f"got x {tuple(x.shape)}")
-    plan = spmm_plan(n, k, d, _sm_count(x.device))
     out = torch.empty_like(x)
-    _raise_on(build.function("spmm")(
-        idx.data_ptr(), vals.data_ptr(), x.data_ptr(), out.data_ptr(), n, k,
-        d, plan["tile"], plan["stages"], plan["threads"], plan["blocks"],
-        plan["smem_bytes"], _stream(x)), "spmm")
-    spmm.launches += 1
+    if not x.is_meta:
+        plan = spmm_plan(n, k, d, _sm_count(x.device))
+        _raise_on(build.function("spmm")(
+            idx.data_ptr(), vals.data_ptr(), x.data_ptr(), out.data_ptr(), n,
+            k, d, plan["tile"], plan["stages"], plan["threads"],
+            plan["blocks"], plan["smem_bytes"], _stream(x)), "spmm")
+    _count(spmm, x, n=n, d=d, k=k)
     return out
 
 
@@ -465,10 +538,11 @@ def clip_scale_rows(buf: torch.Tensor, d_s: int,
                          f"(N,), got d_s={d_s}, buf {tuple(buf.shape)}, "
                          f"denom {tuple(denom.shape)}")
     out = torch.empty_like(buf)
-    _raise_on(build.function("clip_scale")(
-        buf.data_ptr(), denom.data_ptr(), n, d_pad, d_s, out.data_ptr(),
-        _stream(buf)), "clip_scale_rows")
-    clip_scale_rows.launches += 1
+    if not buf.is_meta:
+        _raise_on(build.function("clip_scale")(
+            buf.data_ptr(), denom.data_ptr(), n, d_pad, d_s, out.data_ptr(),
+            _stream(buf)), "clip_scale_rows")
+    _count(clip_scale_rows, buf, n=n, d_s=d_s, d_pad=d_pad)
     return out
 
 
@@ -482,10 +556,11 @@ def laplace_from_bits(bits: torch.Tensor, scale) -> torch.Tensor:
     out = torch.empty(bits.shape, dtype=torch.float32, device=bits.device)
     if bits.numel() == 0:
         return out
-    _raise_on(build.function("laplace_noise")(
-        bits.data_ptr(), scale.data_ptr(), bits.numel(), out.data_ptr(),
-        _stream(bits)), "laplace_from_bits")
-    laplace_from_bits.launches += 1
+    if not bits.is_meta:
+        _raise_on(build.function("laplace_noise")(
+            bits.data_ptr(), scale.data_ptr(), bits.numel(), out.data_ptr(),
+            _stream(bits)), "laplace_from_bits")
+    _count(laplace_from_bits, bits, m=bits.numel())
     return out
 
 
@@ -521,9 +596,13 @@ def laplace_noise_tree(bits_tree: PyTree, scale) -> PyTree:
 def leaf_rows(x: torch.Tensor) -> torch.Tensor:
     """A node-stacked leaf's flat (N, size) rows as the row kernels take
     them: a view where they are contiguous, 16-byte aligned and ``size %
-    4 == 0``; else one copy padded with zeros to a multiple of 4 columns."""
+    4 == 0``; else one copy padded with zeros to a multiple of 4 columns.
+    A bf16 or f16 leaf is copied to f32 rows first, as the reference's
+    kernels compute a half-precision leaf in f32."""
     n, size = x.shape[0], x[0].numel()
     rows = x.reshape(n, size)
+    if rows.dtype in (torch.bfloat16, torch.float16):
+        rows = rows.float()
     if size % 4 == 0 and rows.is_contiguous() and rows.data_ptr() % 16 == 0:
         return rows
     out = rows.new_zeros((n, -(-size // 4) * 4))
@@ -647,12 +726,13 @@ def _flash_launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     out = torch.empty_like(q)
     if out.numel() == 0:
         return out
-    geo = flash_geometry(b, s, h, d)
-    _raise_on(build.function("flash_attention")(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, s, h, kh,
-        d, *q_strides, *k_strides, window, geo["bq"], geo["bk"],
-        geo["dsplit"], geo["smem_bytes"], _stream(q)), "flash_attention")
-    flash_attention.launches += 1
+    if not q.is_meta:
+        geo = flash_geometry(b, s, h, d)
+        _raise_on(build.function("flash_attention")(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, s, h,
+            kh, d, *q_strides, *k_strides, window, geo["bq"], geo["bk"],
+            geo["dsplit"], geo["smem_bytes"], _stream(q)), "flash_attention")
+    _count(flash_attention, q, b=b, s=s, h=h, kh=kh, d=d, window=window)
     return out
 
 
@@ -731,6 +811,7 @@ for _fn in _KERNELS:
 
 
 def launch_counts() -> dict[str, int]:
+    """Each kernel's launches on a card since the last reset."""
     return {fn.__name__: fn.launches for fn in _KERNELS}
 
 

@@ -1,0 +1,170 @@
+"""Dry run: trace every (architecture x input shape) on the meta device,
+count its loop-aware roofline terms and its peak memory, and say whether
+it fits one card (port of ``repro.launch.dryrun``).
+
+    PYTHONPATH=src python -m repro_torch.launch.dryrun --arch llama3.2-1b --shape train_4k
+    PYTHONPATH=src python -m repro_torch.launch.dryrun --all --nodes 16 \\
+        --out dryrun.json
+
+Nothing is allocated and no device but meta is touched: the steps run on
+meta tensors under :func:`repro_torch.launch.op_analysis.analyze_step`,
+the hand-written kernels through their wrappers' meta paths. ``--nodes``
+(default 16, the gossip nodes of the reference's single-pod mesh) takes
+the place of the reference's ``--mesh``: the port runs on one card. Rows
+append to a JSON list so long sweeps resume; an ``ok`` row carries
+``peak_bytes`` and ``fits`` (the peak within the card's 80 GB) and
+``trace_s`` in place of XLA's ``lower_s`` / ``compile_s``.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import time
+import traceback
+
+from repro_torch.configs import ARCH_NAMES, INPUT_SHAPES, get_config
+from repro_torch.launch.op_analysis import HW
+from repro_torch.launch.steps import build_serve_plan, build_train_plan
+
+SKIP_REASON = ("full-attention arch; long_500k needs sub-quadratic "
+               "attention (DESIGN.md)")
+
+
+def _variant(schedule: str, param_dtype: str | None, two_pass: bool | None,
+             cache_dtype: str | None) -> str:
+    """The row's variant key: the reference's, less ``carrycache``, which
+    changes nothing the port runs (``--carry-cache``)."""
+    return "+".join(
+        [schedule]
+        + ([param_dtype] if param_dtype else [])
+        + (["onepass"] if two_pass is False else [])
+        + ([f"cache-{cache_dtype}"] if cache_dtype else []))
+
+
+def run_one(arch_name: str, shape_name: str, *, nodes: int = 16,
+            schedule: str = "dense", param_dtype: str | None = None,
+            two_pass: bool | None = None, cache_dtype: str | None = None,
+            carry_cache: bool = False, verbose: bool = True) -> dict:
+    arch = get_config(arch_name)
+    shape = INPUT_SHAPES[shape_name]
+    mesh_name = f"nodes{nodes}"
+    if not arch.runs_shape(shape_name):
+        return {"arch": arch_name, "shape": shape_name, "mesh": mesh_name,
+                "status": "skipped", "reason": SKIP_REASON}
+    variant = _variant(schedule, param_dtype, two_pass, cache_dtype)
+    t0 = time.time()
+    try:
+        if shape.kind == "train":
+            plan = build_train_plan(arch, nodes, shape_name=shape_name,
+                                    schedule=schedule,
+                                    param_dtype=param_dtype,
+                                    two_pass=two_pass)
+        else:
+            plan = build_serve_plan(arch, shape_name=shape_name,
+                                    param_dtype=param_dtype,
+                                    cache_dtype=cache_dtype,
+                                    carry_cache=carry_cache)
+        terms = plan.cost()
+        trace_s = time.time() - t0
+        row = terms.row()
+        row.update({
+            "mesh": mesh_name, "status": "ok", "schedule": variant,
+            "trace_s": round(trace_s, 1),
+            "peak_bytes": terms.peak_memory_bytes,
+            "fits": terms.peak_memory_bytes <= HW.memory_bytes,
+        })
+        if verbose:
+            print(f"[{arch_name} x {shape_name} x {mesh_name} x {variant}] OK "
+                  f"trace={trace_s:.1f}s")
+            print(f"  flops={terms.flops:.3e} (aten {terms.aten_flops:.3e}, "
+                  f"kernels {terms.kernel_flops:.3e}) "
+                  f"bytes={terms.bytes_accessed:.3e} "
+                  f"peak={terms.peak_memory_bytes / 1e9:.2f} GB "
+                  f"fits={row['fits']}")
+            print(f"  roofline: compute={terms.t_compute*1e3:.2f}ms "
+                  f"memory={terms.t_memory*1e3:.2f}ms "
+                  f"collective={terms.t_collective*1e3:.2f}ms "
+                  f"-> {terms.bottleneck}-bound  "
+                  f"useful_flops={terms.useful_flops_ratio:.2f}")
+        return row
+    except Exception as e:  # a failure here is a port bug — surface it
+        if verbose:
+            traceback.print_exc()
+        return {"arch": arch_name, "shape": shape_name, "mesh": mesh_name,
+                "schedule": variant, "status": "error",
+                "error": f"{type(e).__name__}: {e}"}
+
+
+def main(argv=None) -> None:
+    ap = argparse.ArgumentParser(description=__doc__)
+    ap.add_argument("--arch", choices=ARCH_NAMES)
+    ap.add_argument("--shape", choices=tuple(INPUT_SHAPES))
+    ap.add_argument("--nodes", type=int, default=16,
+                    help="gossip nodes of the training step (the reference's "
+                         "--mesh pod1 has 16)")
+    ap.add_argument("--schedule", choices=("dense", "circulant"), default="dense")
+    ap.add_argument("--param-dtype", choices=("float32", "bfloat16"), default=None)
+    ap.add_argument("--single-pass", action="store_true",
+                    help="fused single-gradient-pass PartPSP variant")
+    ap.add_argument("--cache-dtype", choices=("float32", "bfloat16"), default=None)
+    ap.add_argument("--carry-cache", action="store_true",
+                    help="the reference's decode_cache_in_carry path; a no-op "
+                         "here (the port's decode always writes its cache in "
+                         "place, that path's layout), left out of the row's "
+                         "variant")
+    ap.add_argument("--all", action="store_true",
+                    help="sweep every (arch x shape)")
+    ap.add_argument("--out", default=None, help="append JSON rows to this file")
+    args = ap.parse_args(argv)
+
+    archs = ARCH_NAMES if (args.all or not args.arch) else (args.arch,)
+    shapes = tuple(INPUT_SHAPES) if (args.all or not args.shape) else (args.shape,)
+    two_pass = False if args.single_pass else None
+    variant = _variant(args.schedule, args.param_dtype, two_pass,
+                       args.cache_dtype)
+    mesh_name = f"nodes{args.nodes}"
+
+    rows = []
+    if args.out and os.path.exists(args.out):
+        with open(args.out) as f:
+            rows = json.load(f)
+    done = {(r["arch"], r["shape"], r["mesh"], r.get("schedule", "dense"))
+            for r in rows if r.get("status") == "ok"}
+
+    t_all = time.time()
+    for arch_name in archs:
+        for shape_name in shapes:
+            key = (arch_name, shape_name, mesh_name, variant)
+            if key in done:
+                print(f"[{arch_name} x {shape_name} x {mesh_name}] cached")
+                continue
+            row = run_one(arch_name, shape_name, nodes=args.nodes,
+                          schedule=args.schedule,
+                          param_dtype=args.param_dtype, two_pass=two_pass,
+                          cache_dtype=args.cache_dtype,
+                          carry_cache=args.carry_cache)
+            rows = [r for r in rows
+                    if (r["arch"], r["shape"], r["mesh"],
+                        r.get("schedule", "dense")) != key]
+            rows.append(row)
+            if args.out:
+                os.makedirs(os.path.dirname(args.out) or ".", exist_ok=True)
+                with open(args.out, "w") as f:
+                    json.dump(rows, f, indent=1, default=str)
+
+    n_ok = sum(1 for r in rows if r.get("status") == "ok")
+    n_skip = sum(1 for r in rows if r.get("status") == "skipped")
+    n_err = sum(1 for r in rows if r.get("status") == "error")
+    print(f"\ndry-run summary: {n_ok} ok, {n_skip} skipped (documented), "
+          f"{n_err} errors")
+    print(f"dry-run wall time: {time.time() - t_all:.1f} s")
+    if n_err:
+        for r in rows:
+            if r.get("status") == "error":
+                print(f"  ERROR {r['arch']} x {r['shape']} x {r['mesh']}: {r['error']}")
+        raise SystemExit(1)
+
+
+if __name__ == "__main__":
+    main()

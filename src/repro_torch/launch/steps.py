@@ -1,0 +1,245 @@
+"""Step builders (port of ``repro.launch.steps``): arch spec + node count ->
+the PartPSP training step or the prefill / decode step, with meta-device
+stand-ins of its inputs and its loop-aware cost.
+
+The reference takes a mesh and derives its node count from the mesh's
+gossip axes (``n_gossip_nodes``); the port runs on one card and takes
+``n_nodes`` until the sharding port (ROADMAP Queue 1 item 11) brings a
+mesh, so there are no ``in_shardings`` / ``out_shardings``. The
+reference's ``jitted()`` / ``lower()`` become :meth:`TrainPlan.
+abstract_args` (the meta state, batch and seed: the reference's
+``_abstract_state`` and ``batch_specs``) and :meth:`TrainPlan.cost`
+(:func:`repro_torch.launch.op_analysis.analyze_step` of ``step_fn`` on
+them, the kernels routed as on the card). ``step_fn`` runs on real tensors,
+on the card unless they lie on the CPU.
+
+Used by ``launch/dryrun.py`` and by ``chip_smoke.py`` (phase 29).
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Callable
+
+import torch
+
+from repro_torch.configs import (INPUT_SHAPES, ArchSpec, ShapeSpec,
+                                 serve_batch_specs, train_batch_specs)
+from repro_torch.core.dpps import DPPSConfig
+from repro_torch.core.partition import Partition
+from repro_torch.core.partpsp import (PartPSPConfig, PartPSPState,
+                                      node_stacked, partpsp_init, partpsp_step)
+from repro_torch.core.topology import DOutGraph, Topology, derive_constants
+from repro_torch.core.tree_utils import tree_map
+from repro_torch.device import resolve_device, resolve_use_kernels
+from repro_torch.launch.flops import model_flops
+from repro_torch.launch.op_analysis import RooflineTerms, analyze_step
+from repro_torch.models.transformer import Transformer
+
+__all__ = ["TrainPlan", "ServePlan", "build_train_plan", "build_serve_plan"]
+
+
+def _shape(shape_name: str, shape: ShapeSpec | None) -> ShapeSpec:
+    return INPUT_SHAPES[shape_name] if shape is None else shape
+
+
+def _init_params(model: Transformer, device, seed: int):
+    dev = torch.device(device)
+    gen = torch.Generator(device="cpu" if dev.type == "meta" else dev)
+    return model.init(gen.manual_seed(int(seed)), device=dev)
+
+
+@dataclasses.dataclass
+class TrainPlan:
+    """Everything needed to cost or run one PartPSP training step."""
+
+    arch: ArchSpec
+    model: Transformer
+    partition: Partition
+    cfg: PartPSPConfig
+    topology: Topology
+    shape: ShapeSpec
+    n_nodes: int
+    batch_specs: Any
+    _mix: dict = dataclasses.field(default_factory=dict, repr=False)
+
+    def init_state(self, device=None, seed: int = 0) -> PartPSPState:
+        """A node-stacked state on ``device`` (the card by default): the
+        model's ``init`` from ``seed``, one copy for each node (the
+        reference's ``_abstract_state`` holds N copies, as every state after
+        the first round does)."""
+        params = _init_params(self.model, resolve_device(device), seed)
+        n = self.n_nodes
+        stacked = tree_map(
+            lambda x: x[None].expand((n,) + tuple(x.shape)).contiguous(),
+            params)
+        del params
+        return partpsp_init(stacked, self.partition, self.cfg)
+
+    def abstract_args(self) -> tuple:
+        """(meta state, meta batch, seed) that ``step_fn`` takes."""
+        return self.init_state("meta"), self.batch_specs, 0
+
+    def step_fn(self, state: PartPSPState, batch: Any, seed: int = 0,
+                bits=None) -> tuple[PartPSPState, dict]:
+        """One PartPSP round on ``state``'s device (the kernels on the card
+        and on meta, the plain versions on the CPU); ``bits`` are the
+        noise bits of each shared leaf (default: the Philox draw of
+        ``seed``)."""
+        dev = state.dpps.push.a.device
+        cfg = dataclasses.replace(self.cfg, dpps=dataclasses.replace(
+            self.cfg.dpps, use_kernels=resolve_use_kernels(None, dev)))
+        return partpsp_step(state, batch, cfg=cfg, partition=self.partition,
+                            loss_fn=node_stacked(self.model.loss_fn),
+                            seed=seed, bits=bits, **self.mix_args(dev))
+
+    def mix_args(self, device) -> dict:
+        """The round's mix arguments on ``device``: circulant offsets and
+        weights, or the dense W."""
+        key = str(device)
+        if key not in self._mix:
+            if self.cfg.dpps.schedule == "circulant":
+                offsets, wts = self.topology.mixing_weights(0)
+                self._mix[key] = dict(offsets=offsets, mix_weights=(
+                    torch.as_tensor(wts, dtype=torch.float32, device=device)))
+            else:
+                self._mix[key] = dict(w=self.topology.weight_matrix_torch(
+                    0, device=device))
+        return self._mix[key]
+
+    def cost(self) -> RooflineTerms:
+        """The step's roofline terms, counted on meta tensors."""
+        return analyze_step(
+            self.step_fn, *self.abstract_args(), arch=self.arch.name,
+            shape=self.shape.name, nodes=self.n_nodes,
+            model_flops=model_flops(self.arch, self.shape),
+            compute_dtype=self.model.cfg.param_dtype)
+
+
+@dataclasses.dataclass
+class ServePlan:
+    """One prefill or decode step of the consensus model."""
+
+    arch: ArchSpec
+    model: Transformer
+    kind: str                    # "prefill" | "decode"
+    shape: ShapeSpec
+    batch_specs: Any
+    cache_dtype: str | None = None
+
+    def step_fn(self, params, *args):
+        """prefill: ``(params, batch)`` -> (last logits, cache); decode:
+        ``(params, cache, token, pos[, image_embeds])`` -> (logits, cache),
+        the cache written in place. Without grad, as ``Session.serve``."""
+        with torch.no_grad():
+            if self.kind == "prefill":
+                return self.model.prefill(params, args[0])
+            cache, token, pos, *enc = args
+            return self.model.decode_step(params, cache, token, pos,
+                                          enc=enc[0] if enc else None)
+
+    def init_args(self, device=None, seed: int = 0) -> tuple:
+        """``step_fn``'s arguments on ``device`` (the card by default; meta
+        for the dry run): the model's ``init`` from ``seed``, inputs drawn
+        from ``seed`` (tokens uniform over the vocabulary, embeddings
+        normal x 0.1), a zero cache of ``seq_len`` slots, and a decode step
+        at the cache's last slot."""
+        dev = resolve_device(device)
+        params = _init_params(self.model, dev, seed)
+        gen = None if dev.type == "meta" else \
+            torch.Generator(device=dev).manual_seed(int(seed) + 1)
+
+        def draw(spec):
+            if dev.type == "meta":
+                return spec
+            if spec.dtype == torch.int32:
+                return torch.randint(0, self.model.cfg.vocab_size,
+                                     tuple(spec.shape), generator=gen,
+                                     device=dev, dtype=torch.int32)
+            return torch.randn(tuple(spec.shape), generator=gen,
+                               device=dev).mul_(0.1)
+
+        b, s = self.shape.global_batch, self.shape.seq_len
+        if self.kind == "prefill":
+            return params, {k: draw(v) for k, v in self.batch_specs.items()}
+        cache = self.model.init_cache(
+            b, s, getattr(torch, self.cache_dtype) if self.cache_dtype
+            else None, device=dev)
+        extra = (draw(self.batch_specs["image_embeds"]),) \
+            if "image_embeds" in self.batch_specs else ()
+        return (params, cache, draw(self.batch_specs["token"]), s - 1) + extra
+
+    def abstract_args(self) -> tuple:
+        return self.init_args("meta")
+
+    def cost(self) -> RooflineTerms:
+        return analyze_step(
+            self.step_fn, *self.abstract_args(), arch=self.arch.name,
+            shape=self.shape.name, nodes=1,
+            model_flops=model_flops(self.arch, self.shape),
+            compute_dtype=self.model.cfg.param_dtype)
+
+
+def build_train_plan(
+    arch: ArchSpec,
+    n_nodes: int = 16,
+    *,
+    shape_name: str = "train_4k",
+    shape: ShapeSpec | None = None,
+    cfg: PartPSPConfig | None = None,
+    topology: Topology | None = None,
+    schedule: str | None = None,
+    param_dtype: str | None = None,   # SPerf knob: e.g. "bfloat16"
+    two_pass: bool | None = None,     # SPerf knob: False = fused grads
+) -> TrainPlan:
+    """The reference's plan, with ``n_nodes`` for its mesh's gossip nodes.
+    ``shape`` (a ``ShapeSpec`` of kind "train") replaces ``shape_name``."""
+    shape = _shape(shape_name, shape)
+    assert shape.kind == "train", shape
+    model_cfg = arch.model
+    if param_dtype is not None:
+        model_cfg = dataclasses.replace(model_cfg, param_dtype=param_dtype)
+    model = Transformer(model_cfg)
+    topo = topology or DOutGraph(n_nodes=n_nodes, d=2)
+    if cfg is None:
+        c_prime, lam = derive_constants(topo)
+        cfg = PartPSPConfig(
+            gamma_l=0.05, gamma_s=0.05, clip=100.0,
+            dpps=DPPSConfig(b=1.0, gamma_n=0.01, c_prime=c_prime, lam=lam,
+                            schedule=schedule or "dense"))
+    if schedule is not None:
+        cfg = dataclasses.replace(cfg, dpps=dataclasses.replace(
+            cfg.dpps, schedule=schedule))
+    if two_pass is not None:
+        cfg = dataclasses.replace(cfg, two_pass=two_pass)
+
+    # the partition from the node-stacked parameter shapes (meta, no copy)
+    params = _init_params(model, "meta", 0)
+    stacked = tree_map(lambda x: x[None].expand((n_nodes,) + tuple(x.shape)),
+                       params)
+    partition = Partition.from_rules(stacked, arch.shared_rules,
+                                     default="local")
+    return TrainPlan(arch=arch, model=model, partition=partition, cfg=cfg,
+                     topology=topo, shape=shape, n_nodes=n_nodes,
+                     batch_specs=train_batch_specs(arch, shape, n_nodes))
+
+
+def build_serve_plan(arch: ArchSpec, *, shape_name: str,
+                     shape: ShapeSpec | None = None,
+                     param_dtype: str | None = None,
+                     cache_dtype: str | None = None,
+                     carry_cache: bool = False) -> ServePlan:
+    """The prefill or decode plan of ``shape_name`` (or ``shape``). The
+    prefill runs flash attention, as ``Session.serve`` does on the card.
+    ``carry_cache`` sets ``decode_cache_in_carry`` as the reference's plan
+    does, and changes no op: the port's decode takes that path's layout
+    whatever the flag says."""
+    shape = _shape(shape_name, shape)
+    assert shape.kind in ("prefill", "decode"), shape
+    model_cfg = dataclasses.replace(arch.model, flash_prefill=True)
+    if param_dtype is not None:
+        model_cfg = dataclasses.replace(model_cfg, param_dtype=param_dtype)
+    if carry_cache:
+        model_cfg = dataclasses.replace(model_cfg, decode_cache_in_carry=True)
+    return ServePlan(arch=arch, model=Transformer(model_cfg), kind=shape.kind,
+                     shape=shape, batch_specs=serve_batch_specs(arch, shape),
+                     cache_dtype=cache_dtype)

@@ -9,7 +9,9 @@ Each mixer has
 
 The reference scans time with ``lax.scan``; here ``*_seq`` is a Python
 loop over the positions (``_mlstm_scan``, ``_slstm_scan``,
-``_mamba2_scan``), one step of a few small launches each on the card.
+``_mamba2_scan``), one step of a few small launches each on the card,
+through :func:`repro_torch.core.loops.time_loop` (a plain loop; under a
+dry run's cost count, its loop rule).
 Whatever does not depend on the carried state is computed for the whole
 sequence before the loop: the projections, the gate activations that take
 no state (the forget gate's log-sigmoid, Mamba2's decay and ``dt B``), and
@@ -26,6 +28,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from repro_torch.core.loops import time_loop
 from repro_torch.models.layers import dense_init
 
 __all__ = [
@@ -102,12 +105,11 @@ def _mlstm_cell(C, n, m, q, k, v, i_pre, f_log):
 def _mlstm_scan(state, q, k, v, i_pre, f_log):
     """The mLSTM recurrence over S positions of (B, S, ...) f32 inputs ->
     ((B, S, H, hd) outputs, final (C, n, m))."""
-    C, n, m = state
-    hs = []
-    for inp in zip(*(x.unbind(1) for x in (q, k, v, i_pre, f_log))):
-        C, n, m, h_t = _mlstm_cell(C, n, m, *inp)
-        hs.append(h_t)
-    return torch.stack(hs, dim=1), (C, n, m)
+    def step(carry, inp):
+        C, n, m, h_t = _mlstm_cell(*carry, *inp)
+        return (C, n, m), h_t
+
+    return time_loop(step, tuple(state), (q, k, v, i_pre, f_log))
 
 
 def _mlstm_carry(state: dict):
@@ -181,11 +183,11 @@ def _slstm_cell(r, carry, wx_t):
 def _slstm_scan(r, carry, wx):
     """The sLSTM recurrence over the S positions of ``wx`` (B, S, 4d) f32
     -> ((B, S, d) outputs, final (c, n, m, h))."""
-    hs = []
-    for wx_t in wx.unbind(1):
-        carry = _slstm_cell(r, carry, wx_t)
-        hs.append(carry[3])
-    return torch.stack(hs, dim=1), carry
+    def step(carry, inp):
+        carry = _slstm_cell(r, carry, inp[0])
+        return carry, carry[3]
+
+    return time_loop(step, tuple(carry), (wx,))
 
 
 def slstm_seq(params: dict, x: torch.Tensor, state: dict | None = None):
@@ -264,13 +266,15 @@ def _mamba2_scan(h, decay, dtb, xh, cmat):
     cut into its steps once, shaped to broadcast as the reference's cell
     does: decay (B, nh, 1, 1), dt B (B, nh, n, 1), x (B, nh, 1, hd), C
     (B, 1, 1, n)."""
-    ys = []
-    for dec_t, dtb_t, x_t, c_t in zip(
-            decay[..., None, None].unbind(1), dtb[..., None].unbind(1),
-            xh[..., None, :].unbind(1), cmat[:, :, None, None, :].unbind(1)):
+    def step(h, inp):
+        dec_t, dtb_t, x_t, c_t = inp
         h = dec_t * h + dtb_t * x_t
-        ys.append(torch.matmul(c_t, h))                      # (B, nh, 1, hd)
-    return torch.cat(ys, dim=2).transpose(1, 2), h
+        return h, torch.matmul(c_t, h)                       # (B, nh, 1, hd)
+
+    ys, h = time_loop(step, h, (decay[..., None, None], dtb[..., None],
+                                xh[..., None, :], cmat[:, :, None, None, :]),
+                      out_dim=2, cat=True)
+    return ys.transpose(1, 2), h
 
 
 def _mamba2_out(params, y, xh, z, x):

@@ -826,6 +826,27 @@ def test_tree_wrappers_match_their_plain_versions(dev):
             rtol=1e-6, atol=1e-6)
 
 
+def test_half_leaves_take_the_kernels_as_f32_rows(dev):
+    """A bf16 leaf (the shared state of a bf16-parameter plan) goes to the
+    row kernels as f32 rows, as the reference's kernels compute a bf16
+    leaf: the norms and the perturbation equal those of the leaves cast to
+    f32, bit for bit, one launch a leaf."""
+    half = [x.to(torch.bfloat16) for x in _leaves(dev, TREE_SHAPES)]
+    s32, eps = [x.float() for x in half], _leaves(dev, TREE_SHAPES, 1)
+    scale = torch.tensor(0.7, device=dev)
+    ops.reset_launch_counts()
+    assert torch.equal(ops.l1_norm_tree(half), ops.l1_norm_tree(s32))
+    assert torch.equal(ops.noise_l1_tree(half), ops.noise_l1_tree(s32))
+    got = ops.dpps_perturb_tree(half, eps, scale, 0.1, seed=5, t=3)
+    want = ops.dpps_perturb_tree(s32, eps, scale, 0.1, seed=5, t=3)
+    for g, w in zip(got[0], want[0]):
+        assert g.dtype == torch.float32 and torch.equal(g, w)
+    assert torch.equal(got[1], want[1]) and torch.equal(got[2], want[2])
+    counts = ops.launch_counts()
+    assert counts["l1_norm_rows"] == counts["dpps_perturb_rows"] \
+        == counts["noise_l1_rows"] == 2 * len(half)
+
+
 @pytest.mark.parametrize("schedule", ["dense", "sparse"])
 def test_tree_gossip_launches_a_mix_a_leaf(dev, schedule):
     """gossip_dense / gossip_sparse with use_kernels against the plain mix

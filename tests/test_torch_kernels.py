@@ -543,8 +543,9 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(monkeypatch, case):
     assert sum(ops.launch_counts().values()) == 0
 
 
-@pytest.mark.parametrize("devices", [("cpu", "meta"), ("meta",),
-                                     ("meta", "meta")])
+# meta alone takes the wrappers' meta path (tests/test_torch_meta_ops.py)
+@pytest.mark.parametrize("devices", [("cpu", "meta"), ("meta", "cpu"),
+                                     ("cpu", "cpu", "meta")])
 def test_wrappers_refuse_mixed_or_unsupported_devices(devices):
     tensors = [torch.zeros((2, 128), device=d) for d in devices]
     with pytest.raises(ValueError, match="mixed or unsupported"):
