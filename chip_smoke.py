@@ -263,12 +263,33 @@ Phases, each printing one JSON line:
                   within 1 % of the row's, launches the row's (the
                   xlstm-125m prefill at one mLSTM and one sLSTM layer of
                   its 12, against that cut's prediction: ``SERVE_CUTS``).
+30. ``shard``     the sharded engine (``repro_torch.engine.shard``): (a) a
+                  one-rank NCCL world (``file://`` store in a temporary
+                  directory, no network) and its (1, 1) ("data",
+                  "model") mesh; ``shard_run_dpps`` at the dense full
+                  width (5, 505,956,352), the sparse one (ER(24), K =
+                  14) and circulant at (10, 7840), 5 noised rounds, each
+                  bit for bit ``run_dpps`` (state and sensitivity rows),
+                  ms a round beside the engine's, a round's c10d calls
+                  (``CollectiveCount``) equal to ``shard_collectives``,
+                  the peak beside six reckoned buffers; ``shard_run_
+                  partpsp`` on the paper MLP (N = 10, 3 steps) bit for
+                  bit ``run_partpsp``; (b) the row blocks a world of
+                  several ranks launches: ``pushsum_mix`` with W (B, N) at
+                  the dense full width (B = 1 of 5) and the training
+                  shape (B = 1 of 4), ``spmm`` with (B, K) slots at the
+                  sparse full width (B = 6 of 24), the perturbation of
+                  rows [node0, node0 + B) at both full widths, each bit
+                  for bit the rows of the full launch, one block against
+                  its plain version, timed beside its bound and library
+                  call (``torch.sparse.mm`` where it agrees with the
+                  kernel, else ``torch.matmul`` of the dense W rows).
 
 Each kernel counts its launches. The counts are set to 0 just before each
 path (phases 3-7, 10, 13, 15, 17, each run of 19 and 22, each serve of 20,
 23, each run of 24, 25 and 26, each battery of 27, a codec each in
-its wire battery, each run of 28, and each card step of 29) and read just
-after; each path names the kernels it must launch
+its wire battery, each run of 28, each card step of 29, and each sharded
+run of 30a) and read just after; each path names the kernels it must launch
 (and the sparse paths must launch ``pushsum_mix`` no time; the training
 paths exactly their counts). Then come the card's
 name and power limit (``nvidia-smi``), the ``kernels`` line with every
@@ -796,8 +817,7 @@ def check_spmm(torch, ops, ref, topo, d: int, dev, iters: int,
                cols: int) -> dict:
     """``spmm`` against its plain version (over column windows of ``cols``:
     its per-slot (N, cols) temporaries would not fit at full width), and
-    ``torch.sparse.mm`` of the CSR W (one cuSPARSE call) as the library
-    yardstick, at x (N, d)."""
+    :func:`library_spmm` of W as the library yardstick, at x (N, d)."""
     n = topo.n_nodes
     idx, vals, w, nnz = csr_of(torch, topo, dev)
     k = idx.shape[1]
@@ -819,21 +839,41 @@ def check_spmm(torch, ops, ref, topo, d: int, dev, iters: int,
         cols)
     bit_exact = bool(torch.equal(got, ops.pushsum_mix(w, x)))
     require(bit_exact, f"spmm differs from pushsum_mix at N={n}, d={d}")
+    library = library_spmm(torch, w, x, got, max(1, iters // 2))
     del got
-    w_csr = w.to_sparse_csr()
     plan = ops.spmm_plan(n, k, d, torch.cuda.get_device_properties(
         dev).multi_processor_count)
     out = dict(n=n, d=d, k=k, edges=nnz, plan=plan, max_abs_err=err[0],
                equals_pushsum_mix=bit_exact,
                ms=cuda_ms(torch, lambda: ops.spmm(idx, vals, x), iters),
-               plain_ms=plain_ms,
-               library_ms=cuda_ms(torch, lambda: torch.sparse.mm(w_csr, x),
-                                  max(1, iters // 2)),
+               plain_ms=plain_ms, **library,
                bound=bound(8.0 * n * d + 8.0 * n * k,
                            f32_ops=2.0 * nnz * d))
     del x
     torch.cuda.empty_cache()
     return out
+
+
+def library_spmm(torch, w, x, want, iters: int) -> dict:
+    """The library yardstick of ``spmm`` for the dense W rows ``w``
+    against x: ``torch.sparse.mm`` of their CSR (one cuSPARSE call) where
+    its result agrees with the kernel's (rtol 1e-5 / atol 1e-6, the mix's
+    tolerance), else ``torch.matmul(w, x)`` (one cuBLAS call), held to the
+    same tolerance. cuSPARSE gave wrong values where the dense operand
+    passed 2^31 elements: its time and error stay beside the yardstick as
+    ``sparse_mm_ms`` / ``sparse_mm_max_abs_err``."""
+    w_csr = w.to_sparse_csr()
+    err, ok = compare(torch.sparse.mm(w_csr, x), want, rtol=1e-5, atol=1e-6)
+    sparse_ms = cuda_ms(torch, lambda: torch.sparse.mm(w_csr, x), iters)
+    out = dict(sparse_mm_ms=sparse_ms, sparse_mm_max_abs_err=err,
+               sparse_mm_agrees=ok)
+    if ok:
+        return dict(out, library="torch.sparse.mm", library_ms=sparse_ms,
+                    library_max_abs_err=err)
+    err, ok = compare(torch.matmul(w, x), want, rtol=1e-5, atol=1e-6)
+    require(ok, f"spmm: torch.matmul of W disagrees with the kernel: {err}")
+    return dict(out, library="torch.matmul", library_max_abs_err=err,
+                library_ms=cuda_ms(torch, lambda: torch.matmul(w, x), iters))
 
 
 def philox_statistics(torch, ops, dev) -> dict:
@@ -1576,8 +1616,8 @@ def mix_wide(torch, ops, ref, dev) -> dict:
         require(torch.equal(ops.pushsum_mix(w, x), got),
                 f"pushsum_mix gives other bits on a second launch at N={n}")
         for tile in ops.MIX_TILES:
-            ops.mix_plan = lambda n_, d_, sms_, tile=tile: plan(n_, d_, sms_,
-                                                                tile)
+            ops.mix_plan = lambda n_, d_, sms_, tile=tile, **kw: plan(
+                n_, d_, sms_, tile, **kw)
             try:
                 same = torch.equal(ops.pushsum_mix(w, x), got)
             finally:
@@ -4733,6 +4773,406 @@ def launch_serve(torch, ops, dev, rows: list, card: str) -> tuple:
     return out, counts
 
 
+# -- phase 30: the sharded engine ----------------------------------------------
+
+SHARD_ROUNDS = 5
+SHARD_STEPS = 3
+SHARD_PAPER = dict(n=10, d_s=PAPER["d_s"])  # circulant, DOutGraph(10, 2)
+
+
+def shard_world(tmp: str):
+    """30a's world: one rank on the card, NCCL, its store a file in ``tmp``
+    (no network); the ("data", "model") = (1, 1) mesh over it."""
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_host_mesh
+
+    dist.init_process_group("nccl", init_method=f"file://{tmp}/store",
+                            rank=0, world_size=1)
+    return make_host_mesh(device_type="cuda")
+
+
+def shard_collectives(schedule: str, rounds: int, *, partpsp: bool = False,
+                      buffers: int = 1) -> dict:
+    """The c10d calls a one-rank run of ``rounds`` issues, as
+    ``engine/shard.py`` is written: a dense or sparse round all-gathers
+    each packed buffer and ``a``; a circulant roll has no peer and
+    exchanges nothing; every round all-reduces its five node reductions
+    (seven under PartPSP); no round here is a sync round."""
+    out = {"all-reduce": rounds * (7 if partpsp else 5)}
+    if schedule != "circulant":
+        out["all-gather"] = rounds * (buffers + 1)
+    return out
+
+
+def shard_launches(schedule: str, rounds: int) -> dict:
+    """A run's exact launches: the eps norm each round and s's at round 0,
+    a perturbation each round, the schedule's mix each round."""
+    mix = {"dense": "pushsum_mix", "sparse": "spmm"}.get(schedule)
+    out = {"l1_norm_rows": rounds + 1, "dpps_perturb_rows": rounds}
+    if mix is not None:
+        out[mix] = rounds
+    return out
+
+
+def require_exact(launches: dict, want: dict, where: str) -> None:
+    got = {k: v for k, v in launches.items() if v}
+    require(got == want, f"{where}: launches {got}, expected {want}")
+
+
+def shard_consensus(torch, T, ops, dev, mesh, *, topo, shape: dict,
+                    schedule: str, label: str) -> tuple[dict, dict]:
+    """30a: ``shard_run_dpps`` over the one rank's block (every node) against
+    ``run_dpps`` of the same state, ``SHARD_ROUNDS`` noised rounds: ``s``,
+    ``a``, the sensitivity state and rows bit for bit; ms a round beside
+    the engine's, each after an untimed round (the sharded one also opens
+    the communicator, and its c10d calls are counted: a round's exactly);
+    the launches of the timed runs exactly; the
+    sharded run's peak beside its reckoning: six (N, d_pad) f32 buffers
+    (the state the caller holds, the zero perturbation, and in a round
+    the last round's state, the noised buffer, the gathered copy and the
+    mix's output). The sharded run goes first and its final state is kept
+    for the comparison, so the engine's run holds six buffers too (held
+    at seven, near the card's capacity, the dense full width's rounds
+    took 1.86 s, not 28 ms, on an H100 80GB HBM3 at 700 W)."""
+    from repro_torch import engine
+    from repro_torch.core.dpps import DPPSConfig, dpps_init
+    from repro_torch.launch.op_analysis import CollectiveCount
+    from repro_torch.launch.sharding import shard_rows
+
+    n, d_s = shape["n"], shape["d_s"]
+    d_pad = d_pad_of(d_s)
+    c_prime, lam = T.calibrate_constants(topo)
+    b = 1.0
+    gamma_n = 0.5 * (1.0 / lam - 1.0) * b / (2.0 * c_prime * d_s)
+    plan = engine.ProtocolPlan.from_topology(topo, schedule=schedule,
+                                             mesh=mesh)
+    require(plan.use_kernels and plan.schedule == schedule,
+            f"{label}: the plan did not pick the card's kernels")
+    cfg = DPPSConfig(b=b, gamma_n=gamma_n, c_prime=c_prime, lam=lam)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    state = dpps_init({"shared": torch.randn((n, d_s), generator=gen,
+                                             device=dev)},
+                      plan.resolve_dpps(cfg))
+    kw = dict(cfg=cfg, plan=plan, seed=SEED)
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, (time.perf_counter() - t0) * 1e3 / SHARD_ROUNDS
+
+    def retries():
+        return torch.cuda.memory_stats().get("num_alloc_retries", 0)
+
+    # one untimed round, which opens the communicator, under the count of
+    # collectives (a dispatch mode: kept off the timed runs)
+    count = CollectiveCount()
+    with count:
+        engine.shard_run_dpps(mesh, shard_rows(state, mesh), None, rounds=1,
+                              **kw)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    r0 = retries()
+    ops.reset_launch_counts()
+    (sh, traj), shard_ms = timed(lambda: engine.shard_run_dpps(
+        mesh, shard_rows(state, mesh), None, rounds=SHARD_ROUNDS, **kw))
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    shard_retries = retries() - r0
+    launches = ops.launch_counts()
+    engine.run_dpps(state, None, rounds=1, **kw)  # untimed, as above
+    ops.reset_launch_counts()
+    r0 = retries()
+    (single, straj), engine_ms = timed(lambda: engine.run_dpps(
+        state, None, rounds=SHARD_ROUNDS, **kw))
+    engine_retries = retries() - r0
+    engine_launches = ops.launch_counts()
+    want = shard_launches(schedule, SHARD_ROUNDS)
+    require_exact(launches, want, label)
+    require_exact(engine_launches, want, f"{label} (engine)")
+    calls = dict(count.calls)
+    want_calls = shard_collectives(schedule, 1)
+    require(calls == want_calls,
+            f"{label}: collectives a round {calls}, expected {want_calls}")
+    equal = {
+        "s": torch.equal(sh.push.s["shared"], single.push.s["shared"]),
+        "a": torch.equal(sh.push.a, single.push.a),
+        "s_local": torch.equal(sh.sens.s_local, single.sens.s_local),
+        "prev_noise_l1": torch.equal(sh.sens.prev_noise_l1,
+                                     single.sens.prev_noise_l1)}
+    for k in ("sensitivity_used", "sensitivity_estimate", "eps_l1_max",
+              "a_min", "a_max"):
+        equal[k] = torch.equal(traj[k], straj[k])
+    require(all(equal.values()), f"{label}: sharded != engine: {equal}")
+    require("sensitivity_local" not in traj, f"{label}: per-node series")
+    finite = bool(torch.isfinite(sh.push.s["shared"]).all())
+    require(finite, f"{label}: state not finite")
+    gathered = 4.0 * n * d_pad
+    out = dict(part=label, n=n, d_s=d_s, d_pad=d_pad, schedule=schedule,
+               rounds=SHARD_ROUNDS, gamma_n=gamma_n, bit_equal=equal,
+               ms_per_round=shard_ms, engine_ms_per_round=engine_ms,
+               all_gather_gb_per_round=(2 * gathered + 8 * n) / 1e9
+               if schedule != "circulant" else 0.0,
+               collectives_a_round=calls,
+               collectives_a_round_predicted=want_calls,
+               collective_bytes_a_round=dict(count.bytes),
+               peak_mem_gb=peak_gb,
+               peak_reckoned_gb=(6 * 4.0 * n * d_pad / 1e9
+                                 if schedule != "circulant" else None),
+               alloc_retries=dict(shard=shard_retries, engine=engine_retries),
+               launches=launches)
+    del state, single, sh
+    torch.cuda.empty_cache()
+    return out, launches
+
+
+def shard_training(torch, api, mlp, data, T, ops, mesh) -> tuple[dict, dict]:
+    """30a: ``shard_run_partpsp`` on the paper MLP (N = 10, 2-out, dense,
+    ``SHARD_STEPS`` steps) against ``run_partpsp``: the shared and local
+    leaves, ``a`` and the sensitivity state bit for bit."""
+    from repro_torch import engine
+    from repro_torch.core.tree_utils import tree_leaves
+    from repro_torch.launch.op_analysis import CollectiveCount
+    from repro_torch.launch.sharding import shard_rows
+
+    batches = training_batches(mlp, data, torch, 10, SHARD_STEPS)
+    session, batch_at = training_setup(api, mlp, torch, None,
+                                       topo=T.DOutGraph(10, 2),
+                                       schedule="dense", batches=batches)
+    require(session.plan.use_kernels, "shard training: no kernels")
+    kw = dict(cfg=session.train_cfg, partition=session.partition,
+              loss_fn=session.loss_fn, plan=session.plan,
+              rounds=SHARD_STEPS, seed=session.seed)
+    state0 = session.train_state()
+    single, _ = engine.run_partpsp(state0, batch_at, **kw)
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    count = CollectiveCount()
+    t0 = time.perf_counter()
+    with count:
+        sh, traj = engine.shard_run_partpsp(
+            mesh, shard_rows(state0, mesh),
+            lambda t: shard_rows(batch_at(t), mesh), **kw)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3 / SHARD_STEPS
+    launches = ops.launch_counts()
+    want = dict(shard_launches("dense", SHARD_STEPS))
+    require_exact(launches, want, "shard training")
+    calls = dict(count.calls)
+    want_calls = shard_collectives("dense", SHARD_STEPS, partpsp=True)
+    require(calls == want_calls,
+            f"shard training: collectives {calls}, expected {want_calls}")
+    pairs = list(zip(tree_leaves(sh), tree_leaves(single)))
+    equal = all(torch.equal(x, y) for x, y in pairs
+                if isinstance(x, torch.Tensor))
+    require(equal, "shard training: sharded != engine")
+    require("loss_per_node" not in traj, "shard training: per-node series")
+    return dict(part="paper_mlp", n=10, d_s=session.partition.d_shared(),
+                steps=SHARD_STEPS, bit_equal=equal,
+                leaves_compared=sum(isinstance(x, torch.Tensor)
+                                    for x, _ in pairs),
+                ms_per_step=ms, collectives=calls,
+                collectives_predicted=want_calls, launches=launches,
+                loss_mean=[float(x) for x in traj["loss_mean"]]), launches
+
+
+def dout_w(torch, n: int, dev):
+    """W of the 2-out graph, as phase 2 builds it."""
+    w = torch.zeros((n, n), device=dev)
+    for i in range(n):
+        for k in range(2):
+            w[(i + k) % n, i] += 0.5
+    return w
+
+
+def row_block_mix(torch, ops, ref, dev, *, n: int, d: int, ranks: int,
+                  label: str) -> dict:
+    """30b: ``pushsum_mix`` with W's (B, N) row blocks, B = N / ranks, each
+    the same rows of the full launch bit for bit; one block against its
+    plain version, timed beside its bound and ``torch.matmul``."""
+    w = dout_w(torch, n, dev)
+    gen = torch.Generator(device=dev).manual_seed(SEED + n)
+    x = torch.randn((n, d), generator=gen, device=dev)
+    full = ops.pushsum_mix(w, x)
+    b = n // ranks
+    blocks = [w[r * b:(r + 1) * b] for r in range(ranks)]
+    equal = all(torch.equal(ops.pushsum_mix(wb, x), full[r * b:(r + 1) * b])
+                for r, wb in enumerate(blocks))
+    require(equal, f"{label}: a row block differs from the full launch")
+    del full
+    wb = blocks[-1]
+    # rtol 1e-5 / atol 1e-6: fma in j order against cuBLAS's order
+    err, ok = compare(ops.pushsum_mix(wb, x), ref.pushsum_mix(wb, x),
+                      rtol=1e-5, atol=1e-6)
+    require(ok, f"{label}: the block disagrees with plain: {err}")
+    flops, nbytes = ops.kernel_cost("pushsum_mix", n=n, d=d, b=b)
+    out = dict(n=n, d=d, b=b, ranks=ranks, equals_full_rows=equal,
+               max_abs_err=err,
+               plan=ops.mix_plan(n, d, torch.cuda.get_device_properties(
+                   dev).multi_processor_count, rows=b),
+               ms=cuda_ms(torch, lambda: ops.pushsum_mix(wb, x), 5),
+               plain_ms=cuda_ms(torch, lambda: ref.pushsum_mix(wb, x), 3),
+               library_ms=cuda_ms(torch, lambda: torch.matmul(wb, x), 3),
+               bound=bound(nbytes, f32_ops=flops))
+    del x
+    torch.cuda.empty_cache()
+    return out
+
+
+def row_block_spmm(torch, ops, ref, dev, *, topo, d: int, ranks: int) -> dict:
+    """30b: ``spmm`` with (B, K) row blocks of the padded CSR, each the
+    same rows of the full launch bit for bit; one block against its plain
+    version, timed beside its bound (the senders its real edges read, its
+    rows written, its slots) and :func:`library_spmm` of its W rows."""
+    n = topo.n_nodes
+    idx, vals, w, _ = csr_of(torch, topo, dev)
+    gen = torch.Generator(device=dev).manual_seed(SEED + n)
+    x = torch.randn((n, d), generator=gen, device=dev)
+    full = ops.spmm(idx, vals, x)
+    b = n // ranks
+    equal = all(torch.equal(
+        ops.spmm(idx[r * b:(r + 1) * b], vals[r * b:(r + 1) * b], x),
+        full[r * b:(r + 1) * b]) for r in range(ranks))
+    require(equal, "spmm: a row block differs from the full launch")
+    del full
+    rows = slice((ranks - 1) * b, ranks * b)
+    ib, vb = idx[rows], vals[rows]
+    # rtol 1e-6 / atol 1e-6: fma against a separate multiply and add
+    err, ok = compare(ops.spmm(ib, vb, x), ref.spmm(ib, vb, x), rtol=1e-6,
+                      atol=1e-6)
+    require(ok, f"spmm: the block disagrees with plain: {err}")
+    real = vb > 0
+    senders = int(torch.unique(ib[real]).numel())
+    edges = int(real.sum())
+    k = idx.shape[1]
+    library = library_spmm(torch, w[rows], x, ops.spmm(ib, vb, x), 3)
+    out = dict(n=n, d=d, b=b, k=k, ranks=ranks, edges=edges,
+               senders=senders, equals_full_rows=equal, max_abs_err=err,
+               plan=ops.spmm_plan(n, k, d, torch.cuda.get_device_properties(
+                   dev).multi_processor_count, rows=b),
+               ms=cuda_ms(torch, lambda: ops.spmm(ib, vb, x), 5),
+               plain_ms=cuda_ms(torch, lambda: ref.spmm(ib, vb, x), 1),
+               **library,
+               bound=bound(4.0 * (senders + b) * d + 8.0 * b * k,
+                           f32_ops=2.0 * edges * d))
+    del x
+    torch.cuda.empty_cache()
+    return out
+
+
+def row_block_perturb(torch, ops, ref, dev, *, shape: dict, ranks: int,
+                      label: str) -> dict:
+    """30b: the perturbation of rows [node0, node0 + B), node0 > 0 (the
+    last rank's block): the same rows of the full launch bit for bit, its
+    Philox keyed by global node; against its plain version over column
+    windows (its Philox temporaries would not fit whole), timed beside its
+    bound and the copy yardstick."""
+    n, d_s = shape["n"], shape["d_s"]
+    d_pad = d_pad_of(d_s)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    s = torch.randn((n, d_pad), generator=gen, device=dev)
+    eps = torch.randn((n, d_pad), generator=gen, device=dev).mul_(0.1)
+    s[:, d_s:] = 0.0
+    eps[:, d_s:] = 0.0
+    scale, gamma_n, t = torch.tensor(0.7, device=dev), 0.1, 3
+    full = ops.dpps_perturb_rows(s, eps, scale, gamma_n, d_s, seed=SEED, t=t)
+    b = n // ranks
+    node0 = (ranks - 1) * b
+    rows = slice(node0, node0 + b)
+    sb, eb = s[rows], eps[rows]
+    got = ops.dpps_perturb_rows(sb, eb, scale, gamma_n, d_s, seed=SEED, t=t,
+                                node0=node0)
+    equal = all(torch.equal(g, f[rows]) for g, f in zip(got, full))
+    require(equal, f"{label}: the block's draw differs from the full rows")
+    del full
+    err, events, cols = 0.0, [], 1 << 25
+    for c0 in range(0, d_s, cols):
+        c1 = min(d_s, c0 + cols)
+        ev0 = torch.cuda.Event(enable_timing=True)
+        ev1 = torch.cuda.Event(enable_timing=True)
+        ev0.record()
+        p_out, _, _ = ref.dpps_perturb_rows(
+            sb[:, c0:c1], eb[:, c0:c1], scale, gamma_n, c1 - c0,
+            bits=ref.philox_bits(SEED, t, b, c0, c1, device=dev,
+                                 node0=node0).to(torch.uint32))
+        ev1.record()
+        events.append((ev0, ev1))
+        diff = (got[0][:, c0:c1] - p_out).abs()
+        err = max(err, diff.max().item())
+        # rtol 1e-6 / atol 1e-6: the card's logf may differ by an ulp
+        require(bool((diff <= 1e-6 + 1e-6 * p_out.abs()).all()),
+                f"{label}: the block disagrees with plain at [{c0}, {c1})")
+        del p_out, diff
+    torch.cuda.synchronize()
+    out = dict(n=n, d_s=d_s, b=b, node0=node0, ranks=ranks,
+               equals_full_rows=equal, max_abs_err=err,
+               plan=ops.perturb_plan(b, d_pad),
+               ms=cuda_ms(torch, lambda: ops.dpps_perturb_rows(
+                   sb, eb, scale, gamma_n, d_s, seed=SEED, t=t,
+                   node0=node0), 5),
+               plain_ms=sum(a.elapsed_time(z) for a, z in events),
+               library_ms=None, copy_ms=copy_ms(torch, sb, eb, 5),
+               bound=perturb_bound(b, d_s, d_pad))
+    del s, eps, got
+    torch.cuda.empty_cache()
+    return out
+
+
+def shard_phase(torch, api, mlp, data, T, ops, ref, dev) -> tuple:
+    """Phase 30: (a) the sharded engine over a one-rank NCCL world against
+    the single-card engine; (b) the changed kernels at the row blocks a
+    world of several ranks would launch. -> (emitted dict, 30a's launch
+    counts, 30b's entries by kernel)."""
+    import torch.distributed as dist
+
+    t0 = time.perf_counter()
+    out, counts = dict(phase="shard"), []
+    with tempfile.TemporaryDirectory() as tmp:
+        mesh = shard_world(tmp)
+        try:
+            for label, topo, shape, schedule in (
+                    ("dense_full", T.DOutGraph(FULL["n"], 2), FULL, "dense"),
+                    ("sparse_full", sparse_graph(SPARSE_FULL["n"]),
+                     SPARSE_FULL, "sparse"),
+                    ("circulant_paper", T.DOutGraph(SHARD_PAPER["n"], 2),
+                     SHARD_PAPER, "circulant")):
+                out[label], c = shard_consensus(
+                    torch, T, ops, dev, mesh, topo=topo, shape=shape,
+                    schedule=schedule, label=label)
+                counts.append(c)
+            out["paper_mlp"], c = shard_training(torch, api, mlp, data, T,
+                                                 ops, mesh)
+            counts.append(c)
+        finally:
+            dist.destroy_process_group()
+    blocks = {
+        "pushsum_mix": {
+            "row_block_full_shape": row_block_mix(
+                torch, ops, ref, dev, n=FULL["n"], d=d_pad_of(FULL["d_s"]),
+                ranks=FULL["n"], label="mix, dense full width"),
+            "row_block_training_shape": row_block_mix(
+                torch, ops, ref, dev, n=TRAIN_FULL["n"],
+                d=d_pad_of(TRAIN_FULL["d_s"]), ranks=TRAIN_FULL["n"],
+                label="mix, training shape")},
+        "spmm": {"row_block_sparse_full_shape": row_block_spmm(
+            torch, ops, ref, dev, topo=sparse_graph(SPARSE_FULL["n"]),
+            d=d_pad_of(SPARSE_FULL["d_s"]), ranks=4)},
+        "dpps_perturb_rows": {
+            "row_block_full_shape": row_block_perturb(
+                torch, ops, ref, dev, shape=FULL, ranks=FULL["n"],
+                label="perturbation, dense full width"),
+            "row_block_sparse_full_shape": row_block_perturb(
+                torch, ops, ref, dev, shape=SPARSE_FULL, ranks=4,
+                label="perturbation, sparse full width")}}
+    out["row_blocks"] = {k: {s: dict(r, bound_ms=r["bound"][0],
+                                     bound_by=r["bound"][1])
+                             for s, r in v.items()}
+                         for k, v in blocks.items()}
+    out["seconds"] = time.perf_counter() - t0
+    return out, counts, blocks
+
+
 def sparse_graph(n: int, seed: int = 0):
     from repro_torch.net import ErdosRenyiGraph
 
@@ -4751,7 +5191,9 @@ def kernel_entry(name: str, r: dict, launches: int, **extra) -> dict:
 HOST_DEVICE_KEYS = ("host_us", "device_us", "kernels_a_call",
                     "library_host_us", "library_device_us",
                     "library_kernels_a_call", "copy_ms", "copy_host_us",
-                    "copy_device_us", "copy_kernels_a_call", "plan")
+                    "copy_device_us", "copy_kernels_a_call", "plan",
+                    "library", "library_max_abs_err", "sparse_mm_ms",
+                    "sparse_mm_max_abs_err", "sparse_mm_agrees")
 
 
 def at_shape(r: dict) -> dict:
@@ -4759,6 +5201,14 @@ def at_shape(r: dict) -> dict:
                 plain_ms=r["plain_ms"], bound_ms=r["bound"][0],
                 bound_by=r["bound"][1], library_ms=r["library_ms"],
                 **{k: r[k] for k in HOST_DEVICE_KEYS if k in r})
+
+
+def row_block_shapes(blocks: dict) -> dict:
+    """Phase 30b's entries of one kernel, each with its block's shape."""
+    keys = ("n", "d", "d_s", "b", "k", "node0", "ranks", "edges", "senders",
+            "equals_full_rows")
+    return {name: dict(at_shape(r), **{k: r[k] for k in keys if k in r})
+            for name, r in blocks.items()}
 
 
 def main() -> int:
@@ -5031,6 +5481,10 @@ def main() -> int:
     served, counts = launch_serve(torch, ops, dev, dry_rows, smi)
     emit(served)
     launches += counts
+    sharded, counts, blocks = shard_phase(torch, api, mlp, data, T, ops, ref,
+                                          dev)
+    emit(sharded)
+    launches += counts
     total = {k: sum(path[k] for path in launches) for k in KERNELS}
     kernels = []
     for name in DENSE_PATH:
@@ -5047,6 +5501,7 @@ def main() -> int:
         else:
             at.update({f"rows_wide_{k}_shape": at_shape(r[name])
                        for k, r in rows["results"].items()})
+        at.update(row_block_shapes(blocks.get(name, {})))
         extra = {}
         if name == "pushsum_mix":  # phase 24a's realized W
             extra["realized_weights"] = faulted["dense_full"]["realized_mix"]
@@ -5061,12 +5516,18 @@ def main() -> int:
             **extra, **norms))
     sp = spmm["full"]
     realized = faulted["sparse_full"]["realized_mix"]  # phase 24b's
+    sp_blocks = row_block_shapes(blocks["spmm"])
     kernels.append(kernel_entry(
         "spmm", dict(sp, max_abs_err=max([r["max_abs_err"]
                                           for r in spmm.values()]
-                                         + [realized["max_abs_err"]])),
+                                         + [realized["max_abs_err"]]
+                                         + [r["max_abs_err"]
+                                            for r in sp_blocks.values()])),
         total["spmm"],
         shape=dict(n=sp["n"], d=sp["d"], k=sp["k"], edges=sp["edges"]),
+        **{k: sp[k] for k in ("library", "library_max_abs_err",
+                              "sparse_mm_ms", "sparse_mm_max_abs_err",
+                              "sparse_mm_agrees")},
         realized_weights=realized,
         regime=sp["plan"]["regime"],
         train_shape=dict(at_shape(spmm["train"]), n=spmm["train"]["n"],
@@ -5074,7 +5535,8 @@ def main() -> int:
                          regime=spmm["train"]["plan"]["regime"]),
         sweep_shape=dict(at_shape(spmm["sweep"]), n=spmm["sweep"]["n"],
                          d=spmm["sweep"]["d"], k=spmm["sweep"]["k"],
-                         regime=spmm["sweep"]["plan"]["regime"])))
+                         regime=spmm["sweep"]["plan"]["regime"]),
+        **sp_blocks))
     for name in ("clip_scale_rows", "laplace_from_bits"):
         extra = {} if name != "clip_scale_rows" else {
             f"rows_wide_{k}_shape": at_shape(r[name])

@@ -304,8 +304,8 @@ class RunAbort(RuntimeError):
     it at segment boundaries, stops the run, and reports ``aborted=True``
     with the message as ``abort_reason``. Subclasses:
     :class:`BudgetExhausted` (strict privacy budget) and
-    the reference's ``WatchdogAbort`` (strict health watchdog, ROADMAP
-    Queue 1 item 10)."""
+    ``WatchdogAbort`` (strict health watchdog,
+    :mod:`repro_torch.obs.watchdog`)."""
 
 
 class BudgetExhausted(RunAbort):

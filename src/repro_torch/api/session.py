@@ -200,6 +200,7 @@ class ProtocolSession:
         delays: Any = None,
         wire: Any = None,
         wire_dtype: str = "f32",
+        mesh: Any = None,
     ) -> "ProtocolSession":
         """Derive a session from topology + privacy + deployment choices.
 
@@ -229,6 +230,9 @@ class ProtocolSession:
         go there too: the messages are encoded after the noise, and an
         identity codec is dropped, so the run is the raw f32 one bit for
         bit. None of the three may come beside an explicit ``plan=``.
+        ``mesh`` (a ``DeviceMesh``) goes to the derived plan, which checks
+        that its gossip shards divide the node count; the sharded runs are
+        :func:`repro_torch.engine.shard_run_dpps` / ``shard_run_partpsp``.
         """
         dev = resolve_device(device) if plan is None else plan.device
         if topology is None:
@@ -250,7 +254,7 @@ class ProtocolSession:
                 topology, schedule=schedule, use_kernels=use_kernels,
                 sync_interval=sync_interval, chunk=chunk, packed=packed,
                 device=dev, faults=faults, delays=delays,
-                wire_dtype=wire_dtype, wire=wire)
+                wire_dtype=wire_dtype, wire=wire, mesh=mesh)
         else:
             for name, given in (("faults", faults), ("delays", delays)):
                 if given is not None:

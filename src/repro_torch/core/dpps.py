@@ -22,6 +22,12 @@ the pytree runtime's plain draw is one flat draw over the wire row
 (:func:`repro_torch.core.privacy.noise_wire`), its kernel route draws each
 leaf's wire columns (``ops.dpps_perturb_tree``).
 
+Node-axis reductions (the sensitivity max of Alg. 1 line 4, the sync
+average, the scalar diagnostics) go through :class:`NodeOps`: over the
+rows this process holds by default, over every rank's rows under the
+sharded engine (:mod:`repro_torch.engine.shard`), which also passes the
+global index of its first row as ``node0`` to key the noise.
+
 The round counter ``DPPSState.t`` is a host integer, so the ``t == 0``
 sensitivity init and the sync schedule are decided on the host with no
 device sync; the noise scale ``S / b`` stays a 0-d device tensor that the
@@ -73,13 +79,36 @@ from repro_torch.obs.trace import (
 )
 from repro_torch.wire import Bf16Codec
 
-__all__ = ["DPPSConfig", "DPPSState", "dpps_init", "dpps_step",
-           "dpps_consensus", "is_sync_round"]
+__all__ = ["DPPSConfig", "DPPSState", "NodeOps", "LOCAL_NODE_OPS",
+           "dpps_init", "dpps_step", "dpps_consensus", "is_sync_round"]
 
 
 def is_sync_round(t: int, sync_interval: int) -> bool:
     """Whether round ``t`` ends with a full synchronization (paper SIII.C)."""
     return sync_interval > 0 and (t + 1) % sync_interval == 0
+
+
+class NodeOps(NamedTuple):
+    """Node-axis reductions the protocol needs, swappable per execution
+    mode (``repro.core.dpps.NodeOps``).
+
+    The defaults (:data:`LOCAL_NODE_OPS`) reduce over the node-stacked
+    leading axis of one process's tensors. :mod:`repro_torch.engine.shard`
+    substitutes collective versions (``all_reduce`` over the gossip group)
+    when each rank holds a block of the node rows."""
+
+    vmax: Callable[[torch.Tensor], torch.Tensor]       # (N,) -> () max
+    vmin: Callable[[torch.Tensor], torch.Tensor]       # (N,) -> () min
+    vmean: Callable[[torch.Tensor], torch.Tensor]      # (N,) -> () mean
+    leaf_mean: Callable[[torch.Tensor], torch.Tensor]  # (N, ...) -> (1, ...)
+
+
+LOCAL_NODE_OPS = NodeOps(
+    vmax=torch.max,
+    vmin=torch.min,
+    vmean=torch.mean,
+    leaf_mean=lambda x: x.mean(dim=0, keepdim=True),
+)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -233,6 +262,8 @@ def dpps_step(
     return_s_half: bool = False,
     return_wire_stats: bool = False,
     gossip_fn: Callable[[PushSumState], PushSumState] | None = None,
+    node_ops: NodeOps = LOCAL_NODE_OPS,
+    node0: int = 0,
     mechanism: Any = None,
     tap: Any = None,
     wire_draws: torch.Tensor | None = None,
@@ -251,7 +282,12 @@ def dpps_step(
     ``cfg.schedule``, unless ``gossip_fn`` is given: it then replaces the
     built-in mix of a round that is not a sync round, taking the noised
     ``PushSumState`` (the async mailbox, ``repro_torch.net.DelayModel.
-    open_round``, is one).
+    open_round``, is one). ``node_ops`` swaps the node-axis reductions
+    (:class:`NodeOps`), and ``node0`` is the global node of the state's
+    first row: the Philox draw keys row i by node ``node0 + i``, so a
+    rank of the sharded engine draws the same rows of the whole network's
+    noise (explicit ``bits`` are the rows' own; a mechanism's or a codec's
+    draw is refused beside a nonzero ``node0``).
 
     ``cfg.wire`` (packed runtime only) encodes the noised wire row after
     the noise (``repro_torch.wire``), in place in the noised buffer; a
@@ -283,6 +319,10 @@ def dpps_step(
     """
     packed = layout is not None
     codec = _check_codec(cfg, state, packed)
+    if node0 and (mechanism is not None or cfg.wire is not None):
+        raise ValueError("node0 keys the Laplace draw only; a mechanism's "
+                         "or a wire codec's draw takes the rows as nodes 0, "
+                         "1, ...")
     broken = codec is not None and codec.compress_before_noise
     s = state.push.s
     n = state.push.a.shape[0]
@@ -324,7 +364,7 @@ def dpps_step(
         else:
             s_local = sens.lam * sens.s_local + 2.0 * sens.c_prime * (
                 eps_l1 + sens.lam * cfg.gamma_n * sens.prev_noise_l1)
-        s_net = s_local.max()
+        s_net = node_ops.vmax(s_local)
         if cfg.sensitivity_mode == "real":
             s_used = real_sensitivity(layout.wire_slice(s_half) if packed
                                       else s_half)
@@ -372,15 +412,16 @@ def dpps_step(
         elif packed:
             s_noise, _, noise_l1 = k.dpps_perturb_rows(
                 s, eps_buf, noise_scale, cfg.gamma_n, d_s, bits=bits,
-                seed=seed, t=t)
+                seed=seed, t=t, node0=node0)
         elif cfg.use_kernels:
             out, _, noise_l1 = kops.dpps_perturb_tree(
                 s_leaves, eps_leaves, noise_scale, cfg.gamma_n,
-                bits=bits, seed=seed, t=t)
+                bits=bits, seed=seed, t=t, node0=node0)
             s_noise = tree_unflatten(treedef, out)
         else:
             noise = noise_wire(s_half, noise_scale,
-                               bits=_bits_row(bits, s_leaves), seed=seed, t=t)
+                               bits=_bits_row(bits, s_leaves), seed=seed, t=t,
+                               node0=node0)
             noise_l1 = l1_norm_per_node(noise)
             s_noise = tree_map(lambda h, z: h + cfg.gamma_n * z.to(h.dtype),
                                s_half, noise)
@@ -410,7 +451,7 @@ def dpps_step(
             # Exact averaging of the noised parameters, per leaf view, and a
             # restart of the recursion. The mix of this round would be thrown
             # away, so it is not run.
-            means = tree_map(lambda x: x.mean(dim=0, keepdim=True),
+            means = tree_map(node_ops.leaf_mean,
                              layout.view_tree(s_noise) if packed else s_noise)
             mean_l1 = l1_norm_per_node(means)                       # (1,)
             bcast = tree_map(lambda m: m.expand((n,) + tuple(m.shape[1:])),
@@ -426,6 +467,10 @@ def dpps_step(
         else:
             push_half = PushSumState(s=s_noise, a=state.push.a)
             if gossip_fn is not None:
+                if packed and bf16:
+                    raise NotImplementedError(
+                        "bf16 wire + custom gossip_fn (sharded engine) is "
+                        "not implemented; use wire_dtype='f32' on the mesh")
                 push_new = gossip_fn(push_half)
             elif cfg.schedule == "circulant":
                 if offsets is None:
@@ -468,10 +513,10 @@ def dpps_step(
         "sensitivity_used": s_used,
         "sensitivity_estimate": s_net,
         "sensitivity_local": s_local,
-        "eps_l1_max": eps_l1.max(),
-        "noise_l1_mean": noise_l1.mean(),
-        "a_min": push_new.a.min(),
-        "a_max": push_new.a.max(),
+        "eps_l1_max": node_ops.vmax(eps_l1),
+        "noise_l1_mean": node_ops.vmean(noise_l1),
+        "a_min": node_ops.vmin(push_new.a),
+        "a_max": node_ops.vmax(push_new.a),
     }
     if return_wire_stats:
         with phase(PHASE_DPPS_WIRE_STATS):
@@ -487,7 +532,8 @@ def dpps_step(
             if codec is not None and codec.stateful:
                 # error-feedback health: top-k is a contraction, so this stays
                 # bounded
-                diag["wd_wire_resid"] = new_resid.abs().sum(dim=-1).mean()
+                diag["wd_wire_resid"] = node_ops.vmean(
+                    new_resid.abs().sum(dim=-1))
     if tap is not None:
         # What the network sees this round (repro_torch.audit.transcript):
         # the noised (encoded) messages with the weights a they carry, and

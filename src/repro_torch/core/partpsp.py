@@ -29,7 +29,8 @@ from typing import Any, Callable, NamedTuple, Sequence
 
 import torch
 
-from repro_torch.core.dpps import DPPSConfig, DPPSState, dpps_init, dpps_step
+from repro_torch.core.dpps import (LOCAL_NODE_OPS, DPPSConfig, DPPSState,
+                                   NodeOps, dpps_init, dpps_step)
 from repro_torch.core.loops import node_loop
 from repro_torch.core.packing import PackedLayout
 from repro_torch.core.partition import Partition
@@ -164,6 +165,8 @@ def partpsp_step(
     return_s_half: bool = False,
     return_wire_stats: bool = False,
     gossip_fn: Any = None,
+    node_ops: NodeOps = LOCAL_NODE_OPS,
+    node0: int = 0,
     mechanism: Any = None,
     tap: Any = None,
     wire_draws: torch.Tensor | None = None,
@@ -171,9 +174,10 @@ def partpsp_step(
 ) -> tuple[PartPSPState, dict[str, Any]]:
     """One PartPSP round: over the packed DPPS state with ``layout``, over
     the list of shared leaves with ``layout=None`` (the pytree runtime).
-    ``return_s_half``, ``return_wire_stats``, ``gossip_fn``, ``mechanism``,
-    ``tap``, ``wire_draws`` and ``noise_draws`` go to
-    :func:`repro_torch.core.dpps.dpps_step`."""
+    ``return_s_half``, ``return_wire_stats``, ``gossip_fn``, ``node_ops``,
+    ``node0``, ``mechanism``, ``tap``, ``wire_draws`` and ``noise_draws``
+    go to :func:`repro_torch.core.dpps.dpps_step`; ``node_ops`` also
+    reduces ``loss_mean`` and ``grad_l1_max``."""
     push = state.dpps.push
     y = correct(push.s, push.a)                     # Eq. 10, shared leaves
     if layout is not None:
@@ -220,11 +224,12 @@ def partpsp_step(
                                seed=seed, bits=bits,
                                return_s_half=return_s_half,
                                return_wire_stats=return_wire_stats,
-                               gossip_fn=gossip_fn, mechanism=mechanism,
+                               gossip_fn=gossip_fn, node_ops=node_ops,
+                               node0=node0, mechanism=mechanism,
                                tap=tap, wire_draws=wire_draws,
                                noise_draws=noise_draws)
-    metrics = {"loss_mean": losses.mean(), "loss_per_node": losses,
-               "grad_l1_max": g_norms.max(), **diag}
+    metrics = {"loss_mean": node_ops.vmean(losses), "loss_per_node": losses,
+               "grad_l1_max": node_ops.vmax(g_norms), **diag}
     return PartPSPState(dpps=dpps_new, local=local_new), metrics
 
 

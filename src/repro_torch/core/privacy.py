@@ -39,18 +39,20 @@ GAUSS_SALT = 0x47415553  # "GAUS"
 
 
 def noise_wire(tree: PyTree, scale, *, bits: torch.Tensor | None = None,
-               seed: int | None = None, t: int | None = None) -> PyTree:
+               seed: int | None = None, t: int | None = None,
+               node0: int = 0) -> PyTree:
     """Laplace(0, scale) noise shaped like the node-stacked ``tree``: one
     flat (N, d_s) draw over the wire row, sliced back into the leaves in
     wire order. The bits are ``bits`` (N, d_s) uint32, or the Philox row of
-    ``(seed, t)`` (``kernels.ref.philox_bits``), the bits the packed
-    runtime draws for the same columns."""
+    ``(seed, t)`` (``kernels.ref.philox_bits``) of global nodes ``node0``,
+    ``node0 + 1``, ..., the bits the packed runtime draws for the same
+    columns."""
     leaves, treedef = tree_flatten(tree)
     n = leaves[0].shape[0]
     sizes = [x[0].numel() for x in leaves]
     if bits is None:
         bits = kref.philox_bits(seed, t, n, 0, sum(sizes),
-                                device=leaves[0].device)
+                                device=leaves[0].device, node0=node0)
     flat = kref.laplace_from_bits(bits, scale)
     out, off = [], 0
     for x, size in zip(leaves, sizes):

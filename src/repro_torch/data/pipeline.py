@@ -2,9 +2,11 @@
 
 Produces node-stacked batches, leaves shaped (n_nodes, per_node, ...).
 Deterministic: batch t is a pure function of (seed, t), drawn from a
-``torch.Generator`` on the stream's device seeded from both. The
-reference's ``sharding`` (placing batches on a mesh) waits for the
-sharding port (ROADMAP Queue 1 item 11).
+``torch.Generator`` on the stream's device seeded from both. Given a
+``mesh`` (the reference's ``sharding``), every rank draws the same batch
+and keeps its own node rows (:func:`repro_torch.launch.sharding.
+shard_rows`), so per-node data never crosses node boundaries and the
+ranks together hold exactly the single-process batch.
 """
 from __future__ import annotations
 
@@ -34,11 +36,17 @@ class NodeShardedLoader:
     generator: Any
     per_node_batch: int
     seed: int = 0
+    mesh: Any = None  # a DeviceMesh: yield this rank's node rows
 
     def batch_at(self, step: int) -> Any:
-        return self.generator.batch(
+        batch = self.generator.batch(
             seeded_generator(self.generator.device, self.seed, step),
             self.per_node_batch)
+        if self.mesh is None:
+            return batch
+        from repro_torch.launch.sharding import shard_rows
+
+        return shard_rows(batch, self.mesh)
 
     def __iter__(self) -> Iterator[Any]:
         step = 0

@@ -1,7 +1,11 @@
-"""Protocol plan and round drivers (mirrors ``repro.engine``)."""
+"""Protocol plan, round drivers and the sharded engine (mirrors
+``repro.engine``)."""
 from repro_torch.engine.plan import ProtocolPlan
 from repro_torch.engine.rounds import (run_decode, run_dpps, run_partpsp,
                                       wire_layout)
+from repro_torch.engine.shard import (shard_run_dpps, shard_run_partpsp,
+                                     sharded_gossip_builder, sharded_node_ops)
 
 __all__ = ["ProtocolPlan", "run_decode", "run_dpps", "run_partpsp",
-           "wire_layout"]
+           "wire_layout", "shard_run_dpps", "shard_run_partpsp",
+           "sharded_gossip_builder", "sharded_node_ops"]

@@ -147,11 +147,14 @@ class ProtocolPlan:
                       sync_interval: int | str | None = None, chunk: int = 50,
                       packed: bool = True, device=None, faults: Any = None,
                       delays: Any = None, wire_dtype: str = "f32",
-                      wire: Any = None) -> "ProtocolPlan":
+                      wire: Any = None, mesh: Any = None) -> "ProtocolPlan":
         """The plan of ``topo``: ``schedule=None`` picks circulant where the
         topology has offsets; ``faults`` / ``delays`` / ``wire`` attach an
         active fault model, delay model or wire codec (inactive ones are
-        dropped; see the module docstring)."""
+        dropped; see the module docstring). With a ``mesh`` (a
+        ``DeviceMesh``, :mod:`repro_torch.launch.mesh`) its gossip-axis
+        extent must divide the node count, so the node axis shards evenly
+        (:mod:`repro_torch.engine.shard`)."""
         if wire is not None and not getattr(wire, "active", False):
             wire = None  # the identity codec: the raw packed wire
         if wire_dtype != "f32":
@@ -223,6 +226,14 @@ class ProtocolPlan:
         if schedule == "circulant" and per_round is None:
             raise ValueError(f"{type(topo).__name__} is not circulant; use "
                              "schedule='dense'")
+        if mesh is not None:
+            from repro_torch.launch.mesh import n_gossip_nodes
+
+            n_shards = n_gossip_nodes(mesh)
+            if topo.n_nodes % max(n_shards, 1) != 0:
+                raise ValueError(
+                    f"n_nodes={topo.n_nodes} not divisible by the mesh's "
+                    f"{n_shards} gossip shards")
         offsets = mix_weights = ws = sparse_idx = sparse_vals = None
         if schedule == "sparse":
             # each round's W once: a random sequence draws it anew per call

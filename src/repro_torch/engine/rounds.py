@@ -33,6 +33,13 @@ the ``async_*`` rows join the diagnostics. Both draw from the session seed
 and the round (their own Philox streams), so the engine and the loop
 driver draw the same; ``fault_draws_at(t)`` / ``delay_draws_at(t)`` feed
 explicit draws instead (the tests hand over the reference's).
+
+The private ``_gossip_builder`` / ``_node_ops`` / ``_node0`` arguments are
+the seam :mod:`repro_torch.engine.shard` runs the same rounds through on
+a rank's row block: the builder turns a round's mixing operands into the
+collective ``gossip_fn``, the node ops reduce over every rank, and
+``_node0`` (the global node of the block's first row) keys the noise.
+Faults and delays are refused beside a builder, as in the reference.
 """
 from __future__ import annotations
 
@@ -40,7 +47,8 @@ from typing import Any, Callable, Sequence
 
 import torch
 
-from repro_torch.core.dpps import DPPSConfig, DPPSState, dpps_step
+from repro_torch.core.dpps import (LOCAL_NODE_OPS, DPPSConfig, DPPSState,
+                                   NodeOps, dpps_step)
 from repro_torch.core.packing import PackedLayout
 from repro_torch.core.partpsp import PartPSPConfig, PartPSPState, partpsp_step
 from repro_torch.core.pushsum import PushSumState
@@ -95,11 +103,31 @@ def _unpack(state: DPPSState, layout: PackedLayout | None) -> DPPSState:
             mail=mail)
 
 
-def _check_async(plan: ProtocolPlan, cfg: DPPSConfig) -> bool:
+def _check_dynamic(plan: ProtocolPlan, gossip_builder) -> None:
+    """Refuse a fault-masked plan beside a gossip builder (the reference's
+    ``_check_dynamic``)."""
+    if plan.dynamic and gossip_builder is not None:
+        raise NotImplementedError(
+            "fault injection (ProtocolPlan.dynamic) is not implemented for "
+            "the sharded engine's collective gossip — static plans shard "
+            "(including schedule='sparse'), fault-masked ones do not; run "
+            "the fault study on the single-device engine (schedule='sparse' "
+            "masks the edge list without stacking dense (T, N, N) weights), "
+            "or detach the FaultModel on the mesh")
+
+
+def _check_async(plan: ProtocolPlan, cfg: DPPSConfig,
+                 gossip_builder=None) -> bool:
     """Whether the run carries a mailbox (``plan.delays``); ``cfg`` is
     plan-resolved."""
     if plan.delays is None:
         return False
+    if gossip_builder is not None:
+        raise NotImplementedError(
+            "bounded-delay async gossip (ProtocolPlan.delays) is not "
+            "implemented for the sharded engine's collective gossip; run "
+            "the async study on the single-device engine, or detach the "
+            "DelayModel on the mesh")
     if cfg.wire_dtype != "f32":
         what = (f"wire codec {plan.wire.name!r}" if plan.wire is not None
                 else "bf16 wire (wire_dtype='bf16')")
@@ -206,14 +234,22 @@ def _async_merge(st: DPPSState, diag: dict[str, Any], close,
 
 def _round(plan: ProtocolPlan, st: DPPSState, t: int, seed: int, *,
            asynchronous: bool, with_adjacency: bool,
-           fault_draws_at: DrawsAt, delay_draws_at: DrawsAt):
-    """Round t's mixing kwargs for the step (realized, or a ``gossip_fn``),
-    the ``net_*`` rows (or None) and the async ``close`` (or None)."""
+           fault_draws_at: DrawsAt, delay_draws_at: DrawsAt,
+           gossip_builder=None, node_ops: NodeOps = LOCAL_NODE_OPS,
+           node0: int = 0):
+    """Round t's mixing and reduction kwargs for the step (realized, a
+    mailbox's ``gossip_fn`` or a builder's), the ``net_*`` rows (or None)
+    and the async ``close`` (or None)."""
     kwargs = plan.mix_at(t)
-    net = (_realize_faults(plan, kwargs, t, seed, with_adjacency,
-                           fault_draws_at) if plan.dynamic else None)
-    close = (_open_async(plan, kwargs, st.push, st.mail, t, seed,
-                         delay_draws_at) if asynchronous else None)
+    net = close = None
+    if gossip_builder is not None:  # no faults or delays beside it
+        kwargs = dict(gossip_fn=gossip_builder(kwargs))
+    else:
+        net = (_realize_faults(plan, kwargs, t, seed, with_adjacency,
+                               fault_draws_at) if plan.dynamic else None)
+        close = (_open_async(plan, kwargs, st.push, st.mail, t, seed,
+                             delay_draws_at) if asynchronous else None)
+    kwargs.update(node_ops=node_ops, node0=node0)
     return kwargs, net, close
 
 
@@ -243,7 +279,8 @@ def run_dpps(state: DPPSState, eps_at: Callable[[int], PyTree] | None, *,
              bits_at: BitsAt = None, hooks: Sequence[Any] = (),
              fault_draws_at: DrawsAt = None, delay_draws_at: DrawsAt = None,
              mechanism: Any = None, wire_draws_at: DrawsAt = None,
-             noise_draws_at: DrawsAt = None
+             noise_draws_at: DrawsAt = None, _gossip_builder=None,
+             _node_ops: NodeOps = LOCAL_NODE_OPS, _node0: int = 0
              ) -> tuple[DPPSState, dict[str, torch.Tensor]]:
     """``rounds`` DPPS rounds from ``state``. ``eps_at(t)`` gives round t's
     perturbation tree (``None``: pure consensus, zero perturbation).
@@ -255,10 +292,13 @@ def run_dpps(state: DPPSState, eps_at: Callable[[int], PyTree] | None, *,
     draws."""
     cfg = plan.resolve_dpps(cfg)
     capture, spec = _hooks(hooks)
-    asynchronous = _check_async(plan, cfg)
+    _check_dynamic(plan, _gossip_builder)
+    asynchronous = _check_async(plan, cfg, _gossip_builder)
     extra = dict(asynchronous=asynchronous,
                  with_adjacency=spec.needs_adjacency,
-                 fault_draws_at=fault_draws_at, delay_draws_at=delay_draws_at)
+                 fault_draws_at=fault_draws_at, delay_draws_at=delay_draws_at,
+                 gossip_builder=_gossip_builder, node_ops=_node_ops,
+                 node0=_node0)
     layout = wire_layout(plan, state.push.s)
     st = _ensure_resid(_ensure_mail(_pack(state, layout), plan,
                                     asynchronous), plan, layout)
@@ -294,17 +334,22 @@ def run_partpsp(state: PartPSPState, batch_at: Callable[[int], Any], *,
                 rounds: int, seed: int = 0, bits_at: BitsAt = None,
                 hooks: Sequence[Any] = (), fault_draws_at: DrawsAt = None,
                 delay_draws_at: DrawsAt = None, mechanism: Any = None,
-                wire_draws_at: DrawsAt = None, noise_draws_at: DrawsAt = None
+                wire_draws_at: DrawsAt = None, noise_draws_at: DrawsAt = None,
+                _gossip_builder=None, _node_ops: NodeOps = LOCAL_NODE_OPS,
+                _node0: int = 0
                 ) -> tuple[PartPSPState, dict[str, torch.Tensor]]:
     """``rounds`` PartPSP training rounds (Alg. 2); ``batch_at(t)`` gives
     round t's node-stacked batch. ``mechanism``, ``wire_draws_at`` and
     ``noise_draws_at`` are as in :func:`run_dpps`."""
     cfg = plan.resolve_partpsp(cfg)
     capture, spec = _hooks(hooks)
-    asynchronous = _check_async(plan, cfg.dpps)
+    _check_dynamic(plan, _gossip_builder)
+    asynchronous = _check_async(plan, cfg.dpps, _gossip_builder)
     extra = dict(asynchronous=asynchronous,
                  with_adjacency=spec.needs_adjacency,
-                 fault_draws_at=fault_draws_at, delay_draws_at=delay_draws_at)
+                 fault_draws_at=fault_draws_at, delay_draws_at=delay_draws_at,
+                 gossip_builder=_gossip_builder, node_ops=_node_ops,
+                 node0=_node0)
     layout = wire_layout(plan, state.dpps.push.s)
     st = state._replace(dpps=_ensure_resid(_ensure_mail(
         _pack(state.dpps, layout), plan, asynchronous), plan, layout))

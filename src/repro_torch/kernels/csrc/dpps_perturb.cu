@@ -15,7 +15,10 @@
 //  * Philox: Philox4x32-10 computed in the kernel, key = the 64-bit seed,
 //    counter = (element quad lo, quad hi, node, round t); element e is word
 //    e % 4 of quad e / 4. The main path uses it: round t's noise is a pure
-//    function of (seed, t, node, e). repro_torch.kernels.ref.philox_bits
+//    function of (seed, t, node, e). The node word is the global node
+//    node0 + row: a rank of the sharded engine (repro_torch.engine.shard)
+//    holding nodes [node0, node0 + n) draws exactly the rows the whole
+//    network's launch draws for them. repro_torch.kernels.ref.philox_bits
 //    computes the same bits on any device. The rows may be one leaf of the
 //    wire row, whose first column is col0 there: element j of the leaf is
 //    then wire column e = col0 + j, so a launch per leaf draws exactly the
@@ -96,6 +99,7 @@ struct PerturbArgs {
   unsigned* tickets; // n counters at zero where blocks_per_row > 1
   int64_t n, d_pad, d_s, row0, quads_per_block, rows_per_block;
   int64_t col0;  // the rows' first column in the wire row (Philox only)
+  int64_t node0; // the global node of row 0 (Philox only)
   float gamma_n;
   uint32_t seed_lo, seed_hi, t;
 };
@@ -111,13 +115,13 @@ __device__ __forceinline__ void philox_words(const PerturbArgs& a, int64_t row, 
   const int64_t c = a.col0 / 4 + q;  // the counter of wire column col0 + 4q
   w[0] = (uint32_t)(c & 0xffffffffu);
   w[1] = (uint32_t)(c >> 32);
-  w[2] = (uint32_t)row;
+  w[2] = (uint32_t)(a.node0 + row);
   w[3] = a.t;
   philox4x32_10(w, a.seed_lo, a.seed_hi);
   if (kMode == kPhiloxStraddle) {
     const int r = (int)(a.col0 & 3);  // 1, 2 or 3
     uint32_t v[4] = {(uint32_t)((c + 1) & 0xffffffffu), (uint32_t)((c + 1) >> 32),
-                     (uint32_t)row, a.t};
+                     (uint32_t)(a.node0 + row), a.t};
     philox4x32_10(v, a.seed_lo, a.seed_hi);
     // element k is word r + k of counter c, or word r + k - 4 of c + 1;
     // selects keep both sets in registers
@@ -273,7 +277,8 @@ static int launch_perturb(bool bits_in, dim3 grid, unsigned threads, cudaStream_
 
 // s, eps, out (n, d_pad) f32, 16-byte aligned, d_pad % 4 == 0, 0 < d_s <=
 // d_pad; bits (n, d_s) uint32 or NULL for the Philox variant, whose rows
-// start at wire column col0 >= 0; scale a device pointer to one f32.
+// start at wire column col0 >= 0 and are the global nodes node0 >= 0,
+// node0 + 1, ...; scale a device pointer to one f32.
 // (threads, rows_per_block, quads_per_block, blocks_per_row) is the
 // wrapper's plan (repro_torch.kernels.ops.
 // perturb_plan): rows_per_block > 1 takes short rows, threads /
@@ -287,7 +292,8 @@ static int launch_perturb(bool bits_in, dim3 grid, unsigned threads, cudaStream_
 extern "C" int dpps_perturb_rows(const float* s, const float* eps, const uint32_t* bits,
                                  const float* scale, float gamma_n, int64_t n,
                                  int64_t d_pad, int64_t d_s, uint64_t seed, int64_t t,
-                                 int64_t col0, int64_t threads, int64_t rows_per_block,
+                                 int64_t col0, int64_t node0, int64_t threads,
+                                 int64_t rows_per_block,
                                  int64_t quads_per_block, int64_t blocks_per_row,
                                  float* partials, unsigned* tickets, float* out,
                                  float* eps_l1, float* noise_l1, void* stream) {
@@ -296,12 +302,13 @@ extern "C" int dpps_perturb_rows(const float* s, const float* eps, const uint32_
   const int64_t n_quads = d_pad / 4;
   const int64_t lanes = rows_per_block > 0 ? threads / rows_per_block : 0;
   if (n < 1 || d_s < 1 || d_s > d_pad || d_pad % 4 != 0 || (uintptr_t)s % 16 != 0 ||
-      (uintptr_t)eps % 16 != 0 || (uintptr_t)out % 16 != 0 || col0 < 0 || threads < 32 ||
+      (uintptr_t)eps % 16 != 0 || (uintptr_t)out % 16 != 0 || col0 < 0 || node0 < 0 ||
+      threads < 32 ||
       threads > kThreads || threads % 32 != 0 || rows_per_block < 1 ||
       threads % rows_per_block != 0)
     return (int)cudaErrorInvalidValue;
   PerturbArgs a{s, eps, bits, scale, out, eps_l1, noise_l1, partials, tickets, n, d_pad, d_s,
-                0, quads_per_block, rows_per_block, col0, gamma_n,
+                0, quads_per_block, rows_per_block, col0, node0, gamma_n,
                 (uint32_t)(seed & 0xffffffffu), (uint32_t)(seed >> 32), (uint32_t)t};
   if (rows_per_block > 1) {
     const int64_t blocks = (n + rows_per_block - 1) / rows_per_block;

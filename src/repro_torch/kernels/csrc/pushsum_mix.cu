@@ -1,4 +1,7 @@
-// Push-sum mixing: out = W @ x for W (N, N) f32 and x (N, D) f32 (Eq. 9).
+// Push-sum mixing: out = W @ x for W (M, N) f32 and x (N, D) f32 (Eq. 9):
+// M = N for the whole network, M < N for a row block of W (the receivers a
+// rank of the sharded engine holds, repro_torch.engine.shard, against the
+// gathered senders).
 //
 // Replaces the Pallas kernel repro/kernels/pushsum_mix.py::_kernel
 // (wrapper pushsum_mix), reached through repro.core.pushsum.gossip_packed
@@ -11,6 +14,10 @@
 // runs the same chain over a topology's CSR slots in ascending sender order
 // (an fma with a zero weight leaves the sum as it is), gives the dense
 // kernel's bits on that topology.
+//
+// A row block's outputs are the same rows of the whole mix, bit for bit:
+// an output's chain reads only its row of W and all N senders, whatever M
+// is and whichever rows the block holds.
 //
 // N <= 32 (mix_kernel): memory-bound. It reads x and writes out once, 8
 // bytes per element, and does 2N flops per element: about 2 flop/byte at
@@ -72,9 +79,9 @@ constexpr int kMaxNodes = 32;
 
 template <int N>
 __global__ void mix_kernel(const float* __restrict__ w, const float* __restrict__ x,
-                           float* __restrict__ out, int64_t d) {
+                           float* __restrict__ out, int m, int64_t d) {
   __shared__ float ws[N * N];
-  for (int i = threadIdx.x; i < N * N; i += blockDim.x) ws[i] = w[i];
+  for (int i = threadIdx.x; i < m * N; i += blockDim.x) ws[i] = w[i];
   __syncthreads();
   const int64_t col = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
   if (col >= d) return;
@@ -83,6 +90,7 @@ __global__ void mix_kernel(const float* __restrict__ w, const float* __restrict_
   for (int j = 0; j < N; ++j) xv[j] = x[(int64_t)j * d + col];
 #pragma unroll
   for (int i = 0; i < N; ++i) {
+    if (i >= m) break;  // the row block's M <= N receivers
     float acc = 0.f;
 #pragma unroll
     for (int j = 0; j < N; ++j) acc = fmaf(ws[i * N + j], xv[j], acc);
@@ -91,9 +99,10 @@ __global__ void mix_kernel(const float* __restrict__ w, const float* __restrict_
 }
 
 template <int N>
-static void launch(const float* w, const float* x, float* out, int64_t d, cudaStream_t st) {
+static void launch(const float* w, const float* x, float* out, int64_t m, int64_t d,
+                   cudaStream_t st) {
   const unsigned blocks = (unsigned)((d + kMixThreads - 1) / kMixThreads);
-  mix_kernel<N><<<blocks, kMixThreads, 0, st>>>(w, x, out, d);
+  mix_kernel<N><<<blocks, kMixThreads, 0, st>>>(w, x, out, (int)m, d);
 }
 
 // One tile shape of the N > 32 kernel: BM x BN outputs a block, TM x TN a
@@ -136,11 +145,12 @@ __device__ __forceinline__ void lds_vec(const float* p, float* v) {
 constexpr int kVecW = 1, kVecX = 2, kVecOut = 4, kColsFastest = 8;
 
 // Copy stage [j0, j0 + BK) of W's rows [row0, row0 + BM) and x's columns
-// [col0, col0 + BN) into one ring slot (zeros past N and D).
+// [col0, col0 + BN) into one ring slot (zeros past M rows, N senders and D).
 template <int BM, int BN, int TM, int TN, int BK, int STAGES>
 __device__ __forceinline__ void mix_load(float* slot, const float* __restrict__ w,
-                                         const float* __restrict__ x, int64_t n, int64_t d,
-                                         int64_t row0, int64_t col0, int64_t j0, int flags) {
+                                         const float* __restrict__ x, int64_t m, int64_t n,
+                                         int64_t d, int64_t row0, int64_t col0, int64_t j0,
+                                         int flags) {
   using T = MixTile<BM, BN, TM, TN, BK, STAGES>;
   float* ws = slot;                       // ws[r][jj] = W[row0 + r, j0 + jj]
   float* xs = slot + BM * T::kWStride;    // xs[jj][c] = x[j0 + jj, col0 + c]
@@ -153,7 +163,7 @@ __device__ __forceinline__ void mix_load(float* slot, const float* __restrict__ 
       if (kWQuads % T::kThreads != 0 && e >= kWQuads) break;
       const int r = e / (BK / 4), jj = 4 * (e % (BK / 4));
       const int64_t i = row0 + r, j = j0 + jj;  // N % 4 == 0: a quad is all in or all out
-      const bool ok = i < n && j < n;
+      const bool ok = i < m && j < n;
       cp_async16(ws + r * T::kWStride + jj, ok ? w + i * n + j : w, ok);
     }
   } else {
@@ -163,7 +173,7 @@ __device__ __forceinline__ void mix_load(float* slot, const float* __restrict__ 
       if ((4 * kWQuads) % T::kThreads != 0 && e >= 4 * kWQuads) break;
       const int r = e / BK, jj = e % BK;
       const int64_t i = row0 + r, j = j0 + jj;
-      const bool ok = i < n && j < n;
+      const bool ok = i < m && j < n;
       cp_async4(ws + r * T::kWStride + jj, ok ? w + i * n + j : w, ok);
     }
   }
@@ -298,7 +308,8 @@ __device__ __forceinline__ void MixGrid::origin(int64_t t, int64_t& row0, int64_
 // stages ahead, one barrier a stage, each stage multiplied in sender order.
 template <int BM, int BN, int TM, int TN, int BK, int STAGES, bool kRowGuard>
 __device__ __forceinline__ void mix_walk(float* smem, const float* __restrict__ w,
-                                         const float* __restrict__ x, int64_t n, int64_t d,
+                                         const float* __restrict__ x, int64_t m, int64_t n,
+                                         int64_t d,
                                          int64_t row0, int64_t col0, int flags, int ty,
                                          int tx, int live, float (&acc)[TM][TN]) {
   using T = MixTile<BM, BN, TM, TN, BK, STAGES>;
@@ -306,8 +317,8 @@ __device__ __forceinline__ void mix_walk(float* smem, const float* __restrict__ 
 #pragma unroll
   for (int st = 0; st < STAGES - 1; ++st) {
     if (st < steps)
-      mix_load<BM, BN, TM, TN, BK, STAGES>(smem + st * T::kStageFloats, w, x, n, d, row0, col0,
-                                           (int64_t)st * BK, flags);
+      mix_load<BM, BN, TM, TN, BK, STAGES>(smem + st * T::kStageFloats, w, x, m, n, d, row0,
+                                           col0, (int64_t)st * BK, flags);
     cp_async_commit();
   }
   int slot = 0;
@@ -317,7 +328,8 @@ __device__ __forceinline__ void mix_walk(float* smem, const float* __restrict__ 
     if (k + STAGES - 1 < steps)   // into stage k - 1's slot
       mix_load<BM, BN, TM, TN, BK, STAGES>(smem + (slot == 0 ? STAGES - 1 : slot - 1) *
                                                       T::kStageFloats,
-                                           w, x, n, d, row0, col0, (k + STAGES - 1) * BK, flags);
+                                           w, x, m, n, d, row0, col0, (k + STAGES - 1) * BK,
+                                           flags);
     cp_async_commit();
     const float* stage = smem + slot * T::kStageFloats;
     const int64_t j0 = k * BK;
@@ -336,7 +348,7 @@ __device__ __forceinline__ void mix_walk(float* smem, const float* __restrict__ 
 template <int BM, int BN, int TM, int TN, int BK, int STAGES>
 __global__ void __launch_bounds__((MixTile<BM, BN, TM, TN, BK, STAGES>::kThreads))
     mix_tile_kernel(const float* __restrict__ w, const float* __restrict__ x,
-                    float* __restrict__ out, int64_t n, int64_t d, MixGrid grid) {
+                    float* __restrict__ out, int64_t m, int64_t n, int64_t d, MixGrid grid) {
   using T = MixTile<BM, BN, TM, TN, BK, STAGES>;
   extern __shared__ __align__(16) float smem[];
   const int tx = threadIdx.x % T::kColGroups, ty = threadIdx.x / T::kColGroups;
@@ -347,19 +359,19 @@ __global__ void __launch_bounds__((MixTile<BM, BN, TM, TN, BK, STAGES>::kThreads
   for (int k = 0; k < TM; ++k)
 #pragma unroll
     for (int c = 0; c < TN; ++c) acc[k][c] = 0.f;
-  if (row0 + BM <= n) {
-    mix_walk<BM, BN, TM, TN, BK, STAGES, false>(smem, w, x, n, d, row0, col0, grid.flags, ty, tx,
-                                                TM, acc);
-  } else {  // rows ty + k BM/TM < N: the first `live` of the thread's rows
-    const int64_t real = n - row0 - ty;
+  if (row0 + BM <= m) {
+    mix_walk<BM, BN, TM, TN, BK, STAGES, false>(smem, w, x, m, n, d, row0, col0, grid.flags, ty,
+                                                tx, TM, acc);
+  } else {  // rows ty + k BM/TM < M: the first `live` of the thread's rows
+    const int64_t real = m - row0 - ty;
     const int live = real <= 0 ? 0 : (int)((real + T::kRowGroups - 1) / T::kRowGroups);
-    mix_walk<BM, BN, TM, TN, BK, STAGES, true>(smem, w, x, n, d, row0, col0, grid.flags, ty, tx,
-                                               live, acc);
+    mix_walk<BM, BN, TM, TN, BK, STAGES, true>(smem, w, x, m, n, d, row0, col0, grid.flags, ty,
+                                               tx, live, acc);
   }
 #pragma unroll
   for (int r = 0; r < TM; ++r) {
     const int64_t i = row0 + ty + r * T::kRowGroups;
-    if (i >= n) continue;
+    if (i >= m) continue;
 #pragma unroll
     for (int m = 0; m < T::kVecs; ++m) {
       const int64_t col = col0 + m * T::kVecStride + T::kVec * tx;
@@ -377,11 +389,11 @@ __global__ void __launch_bounds__((MixTile<BM, BN, TM, TN, BK, STAGES>::kThreads
 }
 
 template <int BM, int BN, int TM, int TN, int BK, int STAGES>
-static int launch_tile(const float* w, const float* x, float* out, int64_t n, int64_t d,
-                       int64_t smem_bytes, cudaStream_t st) {
+static int launch_tile(const float* w, const float* x, float* out, int64_t m, int64_t n,
+                       int64_t d, int64_t smem_bytes, cudaStream_t st) {
   using T = MixTile<BM, BN, TM, TN, BK, STAGES>;
   if (smem_bytes != T::kSmemBytes) return (int)cudaErrorInvalidValue;
-  MixGrid grid{(n + BM - 1) / BM, (d + BN - 1) / BN, 0};
+  MixGrid grid{(m + BM - 1) / BM, (d + BN - 1) / BN, 0};
   const int64_t tiles = grid.row_tiles * grid.col_tiles;
   if (tiles >= ((int64_t)1 << 31)) return (int)cudaErrorInvalidValue;
   grid.flags = ((uintptr_t)w % 16 == 0 && n % 4 == 0 ? kVecW : 0) |
@@ -392,7 +404,7 @@ static int launch_tile(const float* w, const float* x, float* out, int64_t n, in
   const cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, T::kSmemBytes);
   if (err != cudaSuccess) return (int)err;
-  kernel<<<(unsigned)tiles, T::kThreads, T::kSmemBytes, st>>>(w, x, out, n, d, grid);
+  kernel<<<(unsigned)tiles, T::kThreads, T::kSmemBytes, st>>>(w, x, out, m, n, d, grid);
   return (int)cudaGetLastError();
 }
 
@@ -407,25 +419,26 @@ static int launch_tile(const float* w, const float* x, float* out, int64_t n, in
 
 #define REPRO_MIX_CASE(K) \
   case K:                 \
-    launch<K>(w, x, out, d, st); \
+    launch<K>(w, x, out, m, d, st); \
     break;
 
-// w (n, n) f32, x and out (n, d) f32, n >= 1, d >= 1. n <= 32 takes
+// w (m, n) f32 (a row block of W: 1 <= m <= n; m = n the whole W), x (n, d)
+// and out (m, d) f32, n >= 1, d >= 1. n <= 32 takes
 // mix_kernel<n> (the tile arguments all 0); n > 32 takes the
 // mix_tile_kernel instantiation of tile (bm, bn, tm, tn, bk, stages) with
 // its dynamic shared memory smem_bytes (the wrapper's plan). Returns
 // cudaGetLastError(), or cudaErrorInvalidValue for arguments the kernels
 // do not take.
-extern "C" int pushsum_mix(const float* w, const float* x, float* out, int64_t n, int64_t d,
-                           int64_t bm, int64_t bn, int64_t tm, int64_t tn, int64_t bk,
-                           int64_t stages, int64_t smem_bytes, void* stream) {
+extern "C" int pushsum_mix(const float* w, const float* x, float* out, int64_t m, int64_t n,
+                           int64_t d, int64_t bm, int64_t bn, int64_t tm, int64_t tn,
+                           int64_t bk, int64_t stages, int64_t smem_bytes, void* stream) {
   using namespace repro_torch;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (d < 1) return (int)cudaErrorInvalidValue;
+  if (d < 1 || m < 1 || m > n) return (int)cudaErrorInvalidValue;
   if (n > kMaxNodes) {
 #define REPRO_MIX_TILE_CASE(BM, BN, TM, TN, BK, STAGES)                                  \
   if (bm == BM && bn == BN && tm == TM && tn == TN && bk == BK && stages == STAGES)      \
-    return launch_tile<BM, BN, TM, TN, BK, STAGES>(w, x, out, n, d, smem_bytes, st);
+    return launch_tile<BM, BN, TM, TN, BK, STAGES>(w, x, out, m, n, d, smem_bytes, st);
     REPRO_MIX_TILES(REPRO_MIX_TILE_CASE)
 #undef REPRO_MIX_TILE_CASE
     return (int)cudaErrorInvalidValue;

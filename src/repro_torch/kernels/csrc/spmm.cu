@@ -1,6 +1,10 @@
 // Sparse push-sum mixing over a padded receiver-major CSR edge list:
 //   out[i, c] = sum_k vals[i, k] * x[idx[i, k], c]       (Eq. 9, sparse W)
-// for idx (N, K) int32, vals (N, K) f32, x and out (N, D) f32.
+// for idx (M, K) int32, vals (M, K) f32, x (N, D) f32 and out (M, D) f32:
+// M = N for the whole network, M < N for a row block of receivers (a rank
+// of the sharded engine, repro_torch.engine.shard, mixing its own rows from
+// the gathered senders). A receiver's sum reads only its own slots, so a
+// row block's outputs are the same rows of the whole mix, bit for bit.
 //
 // Replaces the Pallas kernel repro/kernels/spmm.py::_kernel (wrapper spmm),
 // reached through repro.core.pushsum.gossip_sparse and the sparse branch of
@@ -19,7 +23,8 @@
 //   shared-memory slots, each holding x[:, c0:c0+tile] for all N rows, is
 //   filled by 16-byte cp.async two tiles ahead, so the loads of tiles t + 1
 //   and t + 2 are in flight while tile t is reduced and stored: x is read
-//   from device memory exactly once. Each thread owns four neighbouring
+//   from device memory exactly once. A slot holds all N senders, whatever
+//   M is. Each thread owns four neighbouring
 //   columns of one receiver row at a time, forms the sum from the slot's
 //   rows and writes it with one 16-byte store. The slot table (each slot's
 //   sender as a quad offset into a ring slot, and its weight) is copied to
@@ -86,24 +91,26 @@ __device__ __forceinline__ void stage_tile(float4* xs, const float* __restrict__
   cp_async_commit();
 }
 
-// Shared memory: the ring, then the slot table (n rows of kp = k rounded up
-// to 4 slots: the sender's quad offset in a ring slot, then the weights).
+// Shared memory: the ring, then the slot table (m receiver rows of kp = k
+// rounded up to 4 slots: the sender's quad offset in a ring slot, then the
+// weights).
 __global__ void spmm_tiles_kernel(const int32_t* __restrict__ idx,
                                   const float* __restrict__ vals, const float* __restrict__ x,
-                                  float* __restrict__ out, int n, int k, int64_t d,
+                                  float* __restrict__ out, int m, int n, int k, int64_t d,
                                   int quads_shift, int64_t n_tiles) {
   extern __shared__ float4 ring[];  // kSpmmStages slots of (n, tile / 4) quads
   const int quads = 1 << quads_shift;
   const int slot = n << quads_shift;
+  const int outs = m << quads_shift;  // the receivers' quads of a tile
   const int kp = (k + 3) & ~3;
   int* offs = reinterpret_cast<int*>(ring + kSpmmStages * slot);
-  float* wts = reinterpret_cast<float*>(offs + n * kp);
+  float* wts = reinterpret_cast<float*>(offs + m * kp);
   const int64_t first = blockIdx.x, step = gridDim.x;
   const int64_t count = first < n_tiles ? (n_tiles - 1 - first) / step + 1 : 0;
 #pragma unroll
   for (int s = 0; s < kSpmmStages - 1; ++s)
     stage_tile(ring + s * slot, x, n, d, quads_shift, first + s * step, s < count);
-  for (int e = threadIdx.x; e < n * kp; e += blockDim.x) {  // read at the first barrier
+  for (int e = threadIdx.x; e < m * kp; e += blockDim.x) {  // read at the first barrier
     const int i = e / kp, s = e - i * kp;
     offs[e] = s < k ? __ldg(idx + (int64_t)i * k + s) << quads_shift : 0;
     wts[e] = s < k ? __ldg(vals + (int64_t)i * k + s) : 0.f;
@@ -118,7 +125,7 @@ __global__ void spmm_tiles_kernel(const int32_t* __restrict__ idx,
     const int64_t c0 = (first + it * step) << (quads_shift + 2);
     const int64_t rem = (d - c0) >> 2;
     const int width = rem >= quads ? quads : (int)rem;
-    for (int e = threadIdx.x; e < slot; e += blockDim.x) {
+    for (int e = threadIdx.x; e < outs; e += blockDim.x) {
       const int i = e >> quads_shift, q = e & (quads - 1);
       if (q >= width) continue;
       // four slots a shared-memory load (the warp's lanes share row i: broadcast)
@@ -141,10 +148,10 @@ __global__ void spmm_tiles_kernel(const int32_t* __restrict__ idx,
 
 __global__ void spmm_rows_kernel(const int32_t* __restrict__ idx,
                                  const float* __restrict__ vals, const float* __restrict__ x,
-                                 float* __restrict__ out, int n, int k, int64_t d) {
+                                 float* __restrict__ out, int m, int k, int64_t d) {
   const int64_t row_quads = d >> 2;
   const int64_t e = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (e >= n * row_quads) return;
+  if (e >= m * row_quads) return;
   const int64_t i = e / row_quads, q = e - i * row_quads;
   const int32_t* ir = idx + i * k;
   const float* vr = vals + i * k;
@@ -158,29 +165,30 @@ __global__ void spmm_rows_kernel(const int32_t* __restrict__ idx,
 
 }  // namespace repro_torch
 
-// idx (n, k) int32 with entries in [0, n), vals (n, k) f32, x and out (n, d)
-// f32, 16-byte aligned, d % 4 == 0. (tile, stages, threads, blocks,
-// smem_bytes) is the wrapper's plan (repro_torch.kernels.ops.spmm_plan):
+// idx (m, k) int32 with entries in [0, n), vals (m, k) f32, x (n, d) and out
+// (m, d) f32, 16-byte aligned, d % 4 == 0, 1 <= m <= n. (tile, stages,
+// threads, blocks, smem_bytes) is the wrapper's plan (repro_torch.kernels.ops.spmm_plan):
 // tile 0 runs the row regime, tile a power of two in [4, 512] the
 // column-tile ring of `stages` slots on `blocks` persistent blocks. Returns cudaGetLastError(), or
 // cudaErrorInvalidValue for a shape or plan the kernel does not take.
 extern "C" int spmm(const int32_t* idx, const float* vals, const float* x, float* out,
-                    int64_t n, int64_t k, int64_t d, int64_t tile, int64_t stages,
+                    int64_t m, int64_t n, int64_t k, int64_t d, int64_t tile, int64_t stages,
                     int64_t threads, int64_t blocks, int64_t smem_bytes, void* stream) {
   using namespace repro_torch;
-  if (n < 1 || n >= ((int64_t)1 << 31) || k < 1 || d < 4 || d % 4 != 0 || threads < 32 ||
-      threads > 1024 || threads % 32 != 0 || blocks < 1 || blocks >= ((int64_t)1 << 31))
+  if (n < 1 || n >= ((int64_t)1 << 31) || m < 1 || m > n || k < 1 || d < 4 || d % 4 != 0 ||
+      threads < 32 || threads > 1024 || threads % 32 != 0 || blocks < 1 ||
+      blocks >= ((int64_t)1 << 31))
     return (int)cudaErrorInvalidValue;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (tile == 0) {
-    if (blocks * threads < n * (d / 4)) return (int)cudaErrorInvalidValue;
-    spmm_rows_kernel<<<(unsigned)blocks, (unsigned)threads, 0, st>>>(idx, vals, x, out, (int)n,
+    if (blocks * threads < m * (d / 4)) return (int)cudaErrorInvalidValue;
+    spmm_rows_kernel<<<(unsigned)blocks, (unsigned)threads, 0, st>>>(idx, vals, x, out, (int)m,
                                                                     (int)k, d);
     return (int)cudaGetLastError();
   }
   int quads_shift = 0;
   while ((4 << quads_shift) < tile) ++quads_shift;
-  const int64_t smem = 4 * (kSpmmStages * n * tile + 2 * n * ((k + 3) & ~3));
+  const int64_t smem = 4 * (kSpmmStages * n * tile + 2 * m * ((k + 3) & ~3));
   if (stages != kSpmmStages || (4 << quads_shift) != tile || tile > 512 ||
       smem != smem_bytes || smem > kSpmmSmemMax)
     return (int)cudaErrorInvalidValue;
@@ -191,6 +199,6 @@ extern "C" int spmm(const int32_t* idx, const float* vals, const float* x, float
   }
   const int64_t n_tiles = (d + tile - 1) / tile;
   spmm_tiles_kernel<<<(unsigned)blocks, (unsigned)threads, (size_t)smem, st>>>(
-      idx, vals, x, out, (int)n, (int)k, d, quads_shift, n_tiles);
+      idx, vals, x, out, (int)m, (int)n, (int)k, d, quads_shift, n_tiles);
   return (int)cudaGetLastError();
 }

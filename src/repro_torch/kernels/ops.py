@@ -130,8 +130,9 @@ def kernel_cost(kernel: str, **dims) -> tuple[float, float]:
     as ``chip_smoke.py`` counts them (the perturbation's 25 int32 Philox
     operations an element are not FLOPs and are left out). ``dims``: ``n``,
     ``d_s``, ``d_pad`` for the row kernels (and ``bits`` for the
-    perturbation's bits-in variant, which reads them); ``n``, ``d`` (and
-    ``k`` slots) for the mixes; ``m`` for the Laplace draw; ``b``, ``s``,
+    perturbation's bits-in variant, which reads them); ``n`` senders,
+    ``d`` (and ``k`` slots) for the mixes, with ``b`` receivers (a row
+    block; default ``n``); ``m`` for the Laplace draw; ``b``, ``s``,
     ``h``, ``kh``, ``d``, ``window`` for flash attention (4 D FLOPs a
     visible pair and head)."""
     g = dims.get
@@ -143,10 +144,12 @@ def kernel_cost(kernel: str, **dims) -> tuple[float, float]:
         return 17.0 * n * d_s, nbytes + (4.0 * n * d_s if g("bits") else 0)
     if kernel == "pushsum_mix":
         n, d = g("n"), g("d")
-        return 2.0 * n * n * d, 8.0 * n * d + 4.0 * n * n
+        b = g("b") or n
+        return 2.0 * b * n * d, 4.0 * (n + b) * d + 4.0 * b * n
     if kernel == "spmm":
         n, d, k = g("n"), g("d"), g("k")
-        return 2.0 * n * k * d, 8.0 * n * d + 8.0 * n * k
+        b = g("b") or n
+        return 2.0 * b * k * d, 4.0 * (n + b) * d + 8.0 * b * k
     if kernel == "clip_scale_rows":
         return 1.0 * g("n") * g("d_s"), 8.0 * g("n") * g("d_pad") + 4 * g("n")
     if kernel == "laplace_from_bits":
@@ -282,25 +285,26 @@ def dpps_perturb_rows(s: torch.Tensor, eps: torch.Tensor, scale,
                       gamma_n: float, d_s: int, *,
                       bits: torch.Tensor | None = None,
                       seed: int | None = None, t: int | None = None,
-                      col0: int = 0):
+                      col0: int = 0, node0: int = 0):
     """Fused ``s + eps + gamma_n Lap(scale)`` over (N, d_pad) rows.
 
     Returns ``(s_noise (N, d_pad), eps_l1 (N,), noise_l1 (N,))``. ``bits``
     (N, d_s) uint32 selects the bits-in variant; otherwise the Philox
     variant draws the bits of ``(seed, t)`` in the kernel, at wire columns
     ``[col0, col0 + d_s)`` (a leaf that starts at column ``col0`` of the
-    wire row; 0 for the packed row). On CUDA ``scale`` is a 0-d f32 device
-    tensor, read by the kernel through its pointer.
+    wire row; 0 for the packed row) of global nodes ``[node0, node0 + N)``
+    (a rank's row block; 0 for the whole network). On CUDA ``scale`` is a
+    0-d f32 device tensor, read by the kernel through its pointer.
     """
     if bits is None and (seed is None or t is None):
         raise ValueError("pass bits= or both seed= and t=")
-    if col0 < 0:
-        raise ValueError(f"col0={col0} must be >= 0")
+    if col0 < 0 or node0 < 0:
+        raise ValueError(f"col0={col0} and node0={node0} must be >= 0")
     if _is_cpu(s, eps, *([bits] if bits is not None else [])):
         return ref.dpps_perturb_rows(s, eps, scale, gamma_n, d_s, bits=bits,
-                                     seed=seed, t=t, col0=col0)
+                                     seed=seed, t=t, col0=col0, node0=node0)
     out = _perturb_launch(s, eps, scale, gamma_n, d_s, bits=bits, seed=seed,
-                          t=t, col0=col0)
+                          t=t, col0=col0, node0=node0)
     _count(dpps_perturb_rows, s, n=s.shape[0], d_s=d_s, d_pad=s.shape[1],
            bits=bits is not None)
     return out
@@ -318,13 +322,14 @@ def noise_l1_rows(noise: torch.Tensor, d_s: int) -> torch.Tensor:
         return ref.l1_norm_rows(noise, d_s)
     zero = torch.zeros((), dtype=torch.float32, device=noise.device)
     norm = _perturb_launch(noise, noise, zero, 0.0, d_s, bits=None, seed=0,
-                           t=0, col0=0)[1]
+                           t=0, col0=0, node0=0)[1]
     _count(noise_l1_rows, noise, n=noise.shape[0], d_s=d_s,
            d_pad=noise.shape[1])
     return norm
 
 
-def _perturb_launch(s, eps, scale, gamma_n, d_s, *, bits, seed, t, col0):
+def _perturb_launch(s, eps, scale, gamma_n, d_s, *, bits, seed, t, col0,
+                    node0):
     """One launch of ``csrc/dpps_perturb.cu`` (see :func:`dpps_perturb_rows`)."""
     _check(s, "s", torch.float32, 2, align=True)
     _check(eps, "eps", torch.float32, 2, align=True)
@@ -341,6 +346,9 @@ def _perturb_launch(s, eps, scale, gamma_n, d_s, *, bits, seed, t, col0):
     scale = _device_scale(scale, s.device)
     if not (0 <= int(t if t is not None else 0) < 2 ** 32):
         raise ValueError(f"round t={t} out of the uint32 counter range")
+    if node0 + n > 2 ** 32:
+        raise ValueError(f"nodes [{node0}, {node0 + n}) out of the uint32 "
+                         "counter range")
     out = torch.empty_like(s)
     eps_l1, noise_l1 = s.new_empty((n,)), s.new_empty((n,))
     if s.is_meta:
@@ -357,7 +365,7 @@ def _perturb_launch(s, eps, scale, gamma_n, d_s, *, bits, seed, t, col0):
         bits.data_ptr() if bits is not None else None,
         scale.data_ptr(), float(gamma_n), n, d_pad, d_s,
         int(seed or 0) & 0xFFFFFFFFFFFFFFFF, int(t or 0), int(col0),
-        plan["threads"],
+        int(node0), plan["threads"],
         plan["rows_per_block"], plan["quads_per_block"], bpr,
         None if partials is None else partials.data_ptr(),
         None if tickets is None else tickets.data_ptr(), out.data_ptr(),
@@ -392,33 +400,41 @@ def perturb_plan(n: int, d_pad: int) -> dict:
 
 
 def pushsum_mix(w: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
-    """``W @ x`` for W (N, N) and x (N, D), any N >= 1 and D >= 1, f32
-    accumulation -> (N, D). Each output is one fma chain over the senders
-    in increasing order, whichever kernel :func:`mix_plan` picks."""
+    """``W @ x`` for W (B, N) and x (N, D), any N >= 1, 1 <= B <= N and D
+    >= 1, f32 accumulation -> (B, D). B = N mixes the whole network; B < N
+    a row block of receivers (a rank of the sharded engine against the
+    gathered senders). Each output is one fma chain over the senders in
+    increasing order, whichever kernel :func:`mix_plan` picks, so a row
+    block gives the same rows of the whole mix bit for bit."""
     if _is_cpu(w, x):
         return ref.pushsum_mix(w, x)
     _check(w, "w", torch.float32, 2)
     _check(x, "x", torch.float32, 2)
     n, d = x.shape
-    if tuple(w.shape) != (n, n) or n < 1 or d < 1:
-        raise ValueError(f"need w (N, N) for x (N, D) with N, D >= 1, got "
-                         f"w {tuple(w.shape)}, x {tuple(x.shape)}")
-    out = torch.empty_like(x)
+    b = w.shape[0]
+    if w.shape[1] != n or not 1 <= b <= n or d < 1:
+        raise ValueError(f"need w (B, N) for x (N, D) with 1 <= B <= N and "
+                         f"D >= 1, got w {tuple(w.shape)}, x "
+                         f"{tuple(x.shape)}")
+    out = x.new_empty((b, d))
     if not x.is_meta:
-        plan = mix_plan(n, d, _sm_count(x.device))
+        plan = mix_plan(n, d, _sm_count(x.device), rows=b)
         _raise_on(build.function("pushsum_mix")(
-            w.data_ptr(), x.data_ptr(), out.data_ptr(), n, d,
+            w.data_ptr(), x.data_ptr(), out.data_ptr(), b, n, d,
             *plan["args"], _stream(x)), "pushsum_mix")
-    _count(pushsum_mix, x, n=n, d=d)
+    _count(pushsum_mix, x, n=n, d=d, b=b)
     return out
 
 
-def mix_plan(n: int, d: int, sms: int, tile: str | None = None) -> dict:
-    """The launch of ``csrc/pushsum_mix.cu`` for W (N, N) and x (N, D) on a
-    card with ``sms`` SMs: ``{"kernel", "tile", "threads", "tiles",
-    "smem_bytes", "args"}`` (``tiles``: output tiles, each a block's walk
-    over the senders; ``args``: the C function's tile arguments, BM, BN,
-    TM, TN, BK, STAGES and the dynamic shared memory).
+def mix_plan(n: int, d: int, sms: int, tile: str | None = None,
+             rows: int | None = None) -> dict:
+    """The launch of ``csrc/pushsum_mix.cu`` for W (B, N) and x (N, D) on a
+    card with ``sms`` SMs, B = ``rows`` (default N): ``{"kernel", "tile",
+    "threads", "tiles", "smem_bytes", "args"}`` (``tiles``: output tiles,
+    each a block's walk over the senders; ``args``: the C function's tile
+    arguments, BM, BN, TM, TN, BK, STAGES and the dynamic shared memory).
+    A row block's tile follows the same rule with its B rows counted in
+    the tiles; no tile changes a bit of the output.
 
     N <= :data:`MIX_TEMPLATE_NODES`: ``"template"``, one column a thread in
     blocks of 256, a block for each 256 columns (the tile arguments all 0).
@@ -434,7 +450,7 @@ def mix_plan(n: int, d: int, sms: int, tile: str | None = None) -> dict:
 
     def tiles(name):
         bm, bn = MIX_TILES[name][:2]
-        return -(-n // bm) * -(-d // bn)
+        return -(-(rows or n) // bm) * -(-d // bn)
 
     if tile is None:
         if d <= MIX_NARROW_D:
@@ -452,11 +468,14 @@ def mix_plan(n: int, d: int, sms: int, tile: str | None = None) -> dict:
 
 
 def spmm(idx: torch.Tensor, vals: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
-    """Padded-CSR mix ``out[i] = sum_k vals[i, k] x[idx[i, k]]`` -> (N, D).
+    """Padded-CSR mix ``out[i] = sum_k vals[i, k] x[idx[i, k]]`` -> (B, D).
 
-    ``idx`` (N, K) int32 with entries in [0, N) (``core.topology.
+    ``idx`` (B, K) int32 with entries in [0, N) (``core.topology.
     padded_csr`` builds them; the kernel does not check the range),
-    ``vals`` (N, K) f32, ``x`` (N, D) f32 with D % 4 == 0."""
+    ``vals`` (B, K) f32, ``x`` (N, D) f32 with D % 4 == 0, 1 <= B <= N:
+    B = N the whole network, B < N a row block of receivers (a rank of the
+    sharded engine), whose outputs are the same rows of the whole mix bit
+    for bit."""
     if _is_cpu(idx, vals, x):
         return ref.spmm(idx, vals, x)
     _check(idx, "idx", torch.int32, 2)
@@ -464,46 +483,51 @@ def spmm(idx: torch.Tensor, vals: torch.Tensor, x: torch.Tensor) -> torch.Tensor
     _check(x, "x", torch.float32, 2, align=True)
     n, d = x.shape
     k = idx.shape[1]
-    if tuple(vals.shape) != tuple(idx.shape) or idx.shape[0] != n or k < 1:
-        raise ValueError(f"need idx, vals (N, K) for x (N, D), got idx "
+    b = idx.shape[0]
+    if tuple(vals.shape) != tuple(idx.shape) or not 1 <= b <= n or k < 1:
+        raise ValueError(f"need idx, vals (B, K) for x (N, D), 1 <= B <= N, "
+                         f"got idx "
                          f"{tuple(idx.shape)}, vals {tuple(vals.shape)}, x "
                          f"{tuple(x.shape)}")
     if not (1 <= n <= MAX_SPMM_NODES) or d < 4 or d % 4:
         raise ValueError(f"need 1 <= N <= {MAX_SPMM_NODES} and D % 4 == 0, "
                          f"got x {tuple(x.shape)}")
-    out = torch.empty_like(x)
+    out = x.new_empty((b, d))
     if not x.is_meta:
-        plan = spmm_plan(n, k, d, _sm_count(x.device))
+        plan = spmm_plan(n, k, d, _sm_count(x.device), rows=b)
         _raise_on(build.function("spmm")(
-            idx.data_ptr(), vals.data_ptr(), x.data_ptr(), out.data_ptr(), n,
-            k, d, plan["tile"], plan["stages"], plan["threads"],
+            idx.data_ptr(), vals.data_ptr(), x.data_ptr(), out.data_ptr(), b,
+            n, k, d, plan["tile"], plan["stages"], plan["threads"],
             plan["blocks"], plan["smem_bytes"], _stream(x)), "spmm")
-    _count(spmm, x, n=n, d=d, k=k)
+    _count(spmm, x, n=n, d=d, k=k, b=b)
     return out
 
 
-def spmm_plan(n: int, k: int, d: int, sms: int) -> dict:
-    """The launch of ``csrc/spmm.cu`` for K slots a row over x (N, D) on a
-    card with ``sms`` SMs: ``{"regime", "tile", "stages", "threads",
-    "blocks", "smem_bytes"}``.
+def spmm_plan(n: int, k: int, d: int, sms: int,
+              rows: int | None = None) -> dict:
+    """The launch of ``csrc/spmm.cu`` for K slots a row of B = ``rows``
+    receivers (default N) over x (N, D) on a card with ``sms`` SMs:
+    ``{"regime", "tile", "stages", "threads", "blocks", "smem_bytes"}``.
 
     The tile is the largest power of two <= 512 with N * tile * 4 bytes <=
     :data:`SPMM_STAGE_BYTES`. Column tiles (``"tiles"``) where such a tile
     of at least 4 columns exists (N <= 1024), the row holds at least one
-    tile for each SM (D >= sms * tile) and the slot table (N rows of K
+    tile for each SM (D >= sms * tile) and the slot table (B rows of K
     rounded up to 4 slots, 8 bytes a slot) fits in
     :data:`SPMM_TABLE_BYTES`: as many persistent blocks of 256 threads as
     the tiles, the SMs' shared memory and :data:`SPMM_BLOCKS_PER_SM` allow,
     each streaming its tiles through a ring of :data:`SPMM_STAGES` slots.
     Otherwise rows (``"rows"``, tile 0): one thread a (receiver row,
     4 columns), the block halved from 256 threads (to 32 at least) until
-    the grid has a block for each SM.
+    the grid has a block for each SM. The ring holds all N senders whatever
+    B is; no regime changes a bit of the output.
     """
+    b = n if rows is None else rows
     tile = SPMM_MAX_TILE
     while tile > 4 and n * tile * 4 > SPMM_STAGE_BYTES:
         tile //= 2
     n_tiles = -(-d // tile)
-    table = 8 * n * (-(-k // 4) * 4)
+    table = 8 * b * (-(-k // 4) * 4)
     smem = SPMM_STAGES * n * tile * 4 + table
     if (n * tile * 4 <= SPMM_STAGE_BYTES and n_tiles >= sms
             and table <= SPMM_TABLE_BYTES):
@@ -511,7 +535,7 @@ def spmm_plan(n: int, k: int, d: int, sms: int) -> dict:
         return dict(regime="tiles", tile=tile, stages=SPMM_STAGES,
                     threads=SPMM_THREADS, blocks=min(n_tiles, per_sm * sms),
                     smem_bytes=smem)
-    items = n * (d // 4)
+    items = b * (d // 4)
     threads = SPMM_THREADS
     while threads > 32 and -(-items // threads) < sms:
         threads //= 2
@@ -611,12 +635,13 @@ def leaf_rows(x: torch.Tensor) -> torch.Tensor:
 
 
 def leaf_out(out: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
-    """A kernel's (N, d_pad) rows of leaf ``x`` (from :func:`leaf_rows`)
-    back in its shape (a copy only where the rows were padded)."""
+    """A kernel's (B, d_pad) rows of leaf ``x`` (from :func:`leaf_rows`;
+    B = N, or a row block's receivers) back in its row shape (a copy only
+    where the rows were padded)."""
     size = x[0].numel()
     if out.shape[1] != size:
         out = out[:, :size].contiguous()
-    return out.reshape(x.shape)
+    return out.reshape((out.shape[0],) + tuple(x.shape[1:]))
 
 
 def l1_norm_tree(leaves) -> torch.Tensor:
@@ -633,20 +658,21 @@ def l1_norm_tree(leaves) -> torch.Tensor:
 
 def dpps_perturb_tree(s_leaves, eps_leaves, scale, gamma_n: float, *,
                       bits=None, seed: int | None = None,
-                      t: int | None = None):
+                      t: int | None = None, node0: int = 0):
     """The fused perturbation over node-stacked leaves: one
     :func:`dpps_perturb_rows` launch a leaf -> (s_noise leaves, eps_l1
     (N,), noise_l1 (N,)), the norms summed in leaf order. ``bits`` is one
     uint32 tensor a leaf (its leaf's shape); otherwise leaf i draws in the
     kernel the Philox bits of its wire columns, ``col0`` its first column
     (``ref.leaf_columns``), so the launches draw the bits one launch over
-    the packed row draws."""
+    the packed row draws; the rows are global nodes ``node0``, ``node0 +
+    1``, ... (:func:`dpps_perturb_rows`)."""
     if bits is None and (seed is None or t is None):
         raise ValueError("pass bits= or both seed= and t=")
     extra = [] if bits is None else list(bits)
     if _is_cpu(*s_leaves, *eps_leaves, *extra):
         return ref.dpps_perturb_tree(s_leaves, eps_leaves, scale, gamma_n,
-                                     bits=bits, seed=seed, t=t)
+                                     bits=bits, seed=seed, t=t, node0=node0)
     scale = _device_scale(scale, s_leaves[0].device)
     out, eps_l1, noise_l1 = [], None, None
     for i, (x, e, c0) in enumerate(zip(s_leaves, eps_leaves,
@@ -656,7 +682,7 @@ def dpps_perturb_tree(s_leaves, eps_leaves, scale, gamma_n: float, *,
             bits[i].reshape(x.shape[0], size).contiguous()
         sn, e1, n1 = dpps_perturb_rows(leaf_rows(x), leaf_rows(e), scale,
                                        gamma_n, size, bits=b, seed=seed,
-                                       t=t, col0=c0)
+                                       t=t, col0=c0, node0=node0)
         out.append(leaf_out(sn, x))
         eps_l1 = e1 if eps_l1 is None else eps_l1 + e1
         noise_l1 = n1 if noise_l1 is None else noise_l1 + n1

@@ -66,9 +66,11 @@ def philox4x32_10(ctr: tuple[torch.Tensor, ...], key: tuple[int, int]):
 
 
 def philox_bits(seed: int, t: int, n_nodes: int, start: int, stop: int,
-                device=None, *, salt: int = 0) -> torch.Tensor:
+                device=None, *, salt: int = 0, node0: int = 0) -> torch.Tensor:
     """The production noise bits of round ``t``: (n_nodes, stop - start)
-    int64 holding uint32 values for elements [start, stop) of every row.
+    int64 holding uint32 values for elements [start, stop) of the rows of
+    global nodes ``node0`` ... ``node0 + n_nodes - 1`` (a rank's row block
+    of the sharded engine; 0 for the whole network).
 
     Element ``e`` of node ``n`` is word ``e % 4`` of Philox4x32-10 with key
     ``(seed lo, seed hi)`` and counter ``(e // 4 lo, e // 4 hi, n, t)`` —
@@ -82,7 +84,8 @@ def philox_bits(seed: int, t: int, n_nodes: int, start: int, stop: int,
     """
     q0, q1 = start // 4, -(-stop // 4)
     q = torch.arange(q0, q1, dtype=torch.int64, device=device)[None, :]
-    nodes = torch.arange(n_nodes, dtype=torch.int64, device=device)[:, None]
+    nodes = torch.arange(node0, node0 + n_nodes, dtype=torch.int64,
+                         device=device)[:, None]
     shape = (n_nodes, q1 - q0)
     ctr = (q.expand(shape) & _MASK32, (q >> 32).expand(shape),
            nodes.expand(shape),
@@ -146,7 +149,7 @@ def dpps_perturb_rows(s: torch.Tensor, eps: torch.Tensor, scale,
                       gamma_n: float, d_s: int, *,
                       bits: torch.Tensor | None = None,
                       seed: int | None = None, t: int | None = None,
-                      col0: int = 0):
+                      col0: int = 0, node0: int = 0):
     """Fused Eq. 7 + Eq. 8 over the packed rows.
 
     ``s_noise = s + eps + gamma_n Lap(bits; scale)`` on the first ``d_s``
@@ -154,7 +157,7 @@ def dpps_perturb_rows(s: torch.Tensor, eps: torch.Tensor, scale,
     ``||noise||_1``. ``bits`` (N, d_s) uint32 feeds explicit bits (the
     bits-in variant); otherwise :func:`philox_bits` of ``(seed, t)`` at wire
     columns ``[col0, col0 + d_s)`` (a leaf whose first column in the wire
-    row is ``col0``).
+    row is ``col0``) of global nodes ``[node0, node0 + N)``.
 
     Plain version of ``csrc/dpps_perturb.cu``; mirrors the Pallas
     ``repro/kernels/dpps_perturb.py::dpps_perturb`` as ``repro.kernels.ops.
@@ -163,7 +166,8 @@ def dpps_perturb_rows(s: torch.Tensor, eps: torch.Tensor, scale,
     """
     n, d_pad = s.shape
     if bits is None:
-        bits = philox_bits(seed, t, n, col0, col0 + d_s, device=s.device)
+        bits = philox_bits(seed, t, n, col0, col0 + d_s, device=s.device,
+                           node0=node0)
     noise = laplace_from_bits(bits, scale)
     eps_w = eps[:, :d_s].to(torch.float32)
     row = s[:, :d_s].to(torch.float32) + eps_w + gamma_n * noise
@@ -202,7 +206,7 @@ def l1_norm_tree(leaves) -> torch.Tensor:
 
 def dpps_perturb_tree(s_leaves, eps_leaves, scale, gamma_n: float, *,
                       bits=None, seed: int | None = None,
-                      t: int | None = None):
+                      t: int | None = None, node0: int = 0):
     """:func:`dpps_perturb_rows` leaf by leaf -> (s_noise leaves, eps_l1
     (N,), noise_l1 (N,)), the norms summed in leaf order. ``bits`` is one
     uint32 tensor a leaf; otherwise leaf i draws the Philox bits of its wire
@@ -215,7 +219,8 @@ def dpps_perturb_tree(s_leaves, eps_leaves, scale, gamma_n: float, *,
         n, size = x.shape[0], x[0].numel()
         sn, e1, n1 = dpps_perturb_rows(
             x.reshape(n, size), e.reshape(n, size), scale, gamma_n, size,
-            bits=_leaf_bits(bits, i, x), seed=seed, t=t, col0=c0)
+            bits=_leaf_bits(bits, i, x), seed=seed, t=t, col0=c0,
+            node0=node0)
         out.append(sn.reshape(x.shape))
         eps_l1 = e1 if eps_l1 is None else eps_l1 + e1
         noise_l1 = n1 if noise_l1 is None else noise_l1 + n1

@@ -235,7 +235,8 @@ def sweep_mix(dev, emit) -> None:
                   ms=cuda_ms(lambda: ops.pushsum_mix(w, x), iters),
                   max_abs_err=err))
         for tile in tiles:
-            forced = lambda n_, d_, sms_, tile=tile: plan(n_, d_, sms_, tile)
+            forced = lambda n_, d_, sms_, tile=tile, **kw: plan(
+                n_, d_, sms_, tile, **kw)
             same = _patched(("mix_plan",), (forced,), lambda: bool(
                 torch.equal(ops.pushsum_mix(w, x), base)))
             emit(dict(kernel="pushsum_mix", n=n, d=d, tile=tile,

@@ -16,8 +16,10 @@ and reads every aten op as it dispatches:
                    reference's ``_SKIP_OPS``), and an in-place write into a
                    window is charged the window, since only the view's
                    elements are counted
-    collectives    operand bytes of each c10d op that dispatches, by kind
-                   (none on one card)
+    collectives    operand bytes and calls of each c10d op that dispatches,
+                   by kind (an all-gather's operand is the rank's input,
+                   not the gathered output); none on one card unless a
+                   process group runs the step (the sharded engine)
     peak memory    the bytes of the storages alive at once: the step's
                    inputs, then every new output storage until it dies
                    (autograd's saved tensors keep theirs alive)
@@ -52,7 +54,8 @@ from torch.utils._pytree import tree_flatten
 from torch.utils.flop_counter import flop_registry
 
 
-__all__ = ["HardwareSpec", "HW", "CostMode", "RooflineTerms", "analyze_step"]
+__all__ = ["HardwareSpec", "HW", "CostMode", "CollectiveCount",
+           "RooflineTerms", "analyze_step"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -112,9 +115,44 @@ _COLLECTIVES = {
 def _collective(func) -> str | None:
     if func.namespace not in ("c10d", "_c10d_functional"):
         return None
-    name = func._schema.name.split("::")[-1]
+    # "_allgather_base_" is what all_gather_into_tensor dispatches
+    name = func._schema.name.split("::")[-1].lstrip("_")
     return next((kind for key, kind in _COLLECTIVES.items()
                  if name.startswith(key)), None)
+
+
+def _coll_charge(func, kind: str | None, args, kwargs) -> int | None:
+    """The operand bytes of a c10d op of ``kind`` (None: not one to count):
+    its input tensors (an all-gather's or reduce-scatter's second argument:
+    what the rank contributes), every tensor argument for the others. A
+    permute is counted once, at its send: a receive is not counted."""
+    if kind is None or func._schema.name.split("::")[-1].startswith("recv"):
+        return None
+    operands = args[1] if kind in ("all-gather", "reduce-scatter") \
+        else (args, kwargs)
+    return sum(_nbytes(t) for t in tree_flatten(operands)[0]
+               if isinstance(t, torch.Tensor))
+
+
+class CollectiveCount(TorchDispatchMode):
+    """Counts the c10d collectives dispatched while it is on (``calls`` and
+    operand ``bytes`` by the reference's kind) and runs every op as it is:
+    unlike :class:`CostMode` it decomposes nothing and tracks no storage,
+    so a run on the card under it computes what it computes without it."""
+
+    def __init__(self):
+        super().__init__()
+        self.calls: dict[str, int] = defaultdict(int)
+        self.bytes: dict[str, int] = defaultdict(int)
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        kwargs = kwargs or {}
+        kind = _collective(func)
+        nbytes = _coll_charge(func, kind, args, kwargs)
+        if nbytes is not None:
+            self.calls[kind] += 1
+            self.bytes[kind] += nbytes
+        return func(*args, **kwargs)
 
 
 # ops whose decompose() gave NotImplemented (it depends on the op alone)
@@ -165,6 +203,7 @@ class CostMode(TorchDispatchMode):
         self.kernel_bytes = 0.0
         self.launches: dict[str, int] = defaultdict(int)
         self.coll: dict[str, float] = defaultdict(float)
+        self.coll_calls: dict[str, int] = defaultdict(int)
         self.live = 0
         self.peak = 0
         self._storages: dict[int, _Storage] = {}
@@ -196,8 +235,10 @@ class CostMode(TorchDispatchMode):
             self.aten_flops += f * self.scale
             self.raw_flops += f
         kind = _collective(func)
-        if kind is not None:
-            self.coll[kind] += sum(map(_nbytes, ins)) * self.scale
+        nbytes = _coll_charge(func, kind, args, kwargs)
+        if nbytes is not None:
+            self.coll[kind] += nbytes * self.scale
+            self.coll_calls[kind] += self.scale
         if not (func.is_view or func in _NO_BYTES or kind is not None):
             b = sum(map(_nbytes, ins)) + sum(map(_nbytes, outs))
             self.op_bytes += b * self.scale

@@ -1,11 +1,13 @@
-"""Step builders (port of ``repro.launch.steps``): arch spec + node count ->
-the PartPSP training step or the prefill / decode step, with meta-device
-stand-ins of its inputs and its loop-aware cost.
+"""Step builders (port of ``repro.launch.steps``): arch spec + mesh (or node
+count) -> the PartPSP training step or the prefill / decode step, with
+meta-device stand-ins of its inputs and its loop-aware cost.
 
 The reference takes a mesh and derives its node count from the mesh's
-gossip axes (``n_gossip_nodes``); the port runs on one card and takes
-``n_nodes`` until the sharding port (ROADMAP Queue 1 item 11) brings a
-mesh, so there are no ``in_shardings`` / ``out_shardings``. The
+gossip axes (``n_gossip_nodes``); :func:`build_train_plan` takes a
+``DeviceMesh`` so too (:mod:`repro_torch.launch.mesh`), or an int node
+count, which the dry run's ``--nodes`` gives. The step is one process's:
+there are no ``in_shardings`` / ``out_shardings`` (the sharded engine,
+:mod:`repro_torch.engine.shard`, runs the node axis over ranks). The
 reference's ``jitted()`` / ``lower()`` become :meth:`TrainPlan.
 abstract_args` (the meta state, batch and seed: the reference's
 ``_abstract_state`` and ``batch_specs``) and :meth:`TrainPlan.cost`
@@ -32,6 +34,7 @@ from repro_torch.core.topology import DOutGraph, Topology, derive_constants
 from repro_torch.core.tree_utils import tree_map
 from repro_torch.device import resolve_device, resolve_use_kernels
 from repro_torch.launch.flops import model_flops
+from repro_torch.launch.mesh import n_gossip_nodes
 from repro_torch.launch.op_analysis import RooflineTerms, analyze_step
 from repro_torch.models.transformer import Transformer
 
@@ -181,7 +184,7 @@ class ServePlan:
 
 def build_train_plan(
     arch: ArchSpec,
-    n_nodes: int = 16,
+    n_nodes: Any = 16,
     *,
     shape_name: str = "train_4k",
     shape: ShapeSpec | None = None,
@@ -191,8 +194,12 @@ def build_train_plan(
     param_dtype: str | None = None,   # SPerf knob: e.g. "bfloat16"
     two_pass: bool | None = None,     # SPerf knob: False = fused grads
 ) -> TrainPlan:
-    """The reference's plan, with ``n_nodes`` for its mesh's gossip nodes.
-    ``shape`` (a ``ShapeSpec`` of kind "train") replaces ``shape_name``."""
+    """The reference's plan. ``n_nodes`` is a mesh (a ``DeviceMesh``, whose
+    gossip axes give the node count, as the reference's ``mesh`` does) or
+    the node count itself. ``shape`` (a ``ShapeSpec`` of kind "train")
+    replaces ``shape_name``."""
+    if not isinstance(n_nodes, int):
+        n_nodes = n_gossip_nodes(n_nodes)
     shape = _shape(shape_name, shape)
     assert shape.kind == "train", shape
     model_cfg = arch.model

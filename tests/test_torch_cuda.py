@@ -282,7 +282,8 @@ def _each_tile(monkeypatch, dev, fn):
     out = {}
     for tile in ops.MIX_TILES:
         monkeypatch.setattr(ops, "mix_plan",
-                            lambda n, d, sms, tile=tile: plan(n, d, sms, tile))
+                            lambda n, d, sms, tile=tile, **kw: plan(
+                                n, d, sms, tile, **kw))
         out[tile] = fn()
     monkeypatch.setattr(ops, "mix_plan", plan)
     return out
@@ -301,7 +302,8 @@ def test_tiled_mix_is_one_chain_under_every_tile(dev, monkeypatch, n, d,
     a second launch), within rtol 1e-5 / atol 1e-6 of the plain version
     (fma in j order against cuBLAS's order); on a W whose rows and senders
     past 32 are zero, the first 32 rows are the template kernel's bits and
-    the rest exact zeros."""
+    the rest exact zeros; a row block of W (B < N) gives the same rows of
+    the whole mix under every tile."""
     gen = torch.Generator(device=dev).manual_seed(n * 7 + d + offset)
     flat = torch.randn(n * d + offset, generator=gen, device=dev)
     x = flat[offset:].view(n, d)
@@ -310,17 +312,19 @@ def test_tiled_mix_is_one_chain_under_every_tile(dev, monkeypatch, n, d,
     corner = torch.zeros_like(w)
     corner[:32, :32] = w[:32, :32]
     template = ops.pushsum_mix(w[:32, :32].contiguous(), x[:32].contiguous())
+    rows = slice(n // 3, n // 3 + n // 2)
     got = _each_tile(monkeypatch, dev, lambda: (
         ops.pushsum_mix(w, x), ops.pushsum_mix(w, x),
-        ops.pushsum_mix(corner, x)))
+        ops.pushsum_mix(corner, x), ops.pushsum_mix(w[rows], x)))
     first = got[next(iter(got))][0]
     torch.testing.assert_close(first, ref.pushsum_mix(w, x), rtol=1e-5,
                                atol=1e-6)
-    for tile, (a, b, c) in got.items():
+    for tile, (a, b, c, block) in got.items():
         assert torch.equal(a, first), tile
         assert torch.equal(b, first), tile
         assert torch.equal(c[:32], template), tile
         assert not bool(c[32:].any()), tile
+        assert torch.equal(block, first[rows]), tile
     torch.cuda.synchronize()
 
 
@@ -1222,3 +1226,60 @@ def test_phase_opens_no_record_function_outside_a_profiler(dev, monkeypatch):
             torch.profiler.ProfilerActivity.CPU]):
         session.run(3, values=values)
     assert {"dpps_perturb", "dpps_noise", "dpps_gossip"} <= set(opened)
+
+
+# -- row blocks: a rank's launches in the sharded engine -----------------------
+
+def _blocks(n):
+    """(B, first row) blocks of N rows: B in {1, 3, N - 1}, at the first,
+    an inner and the last rows."""
+    out = []
+    for b in (1, 3, n - 1):
+        out += [(b, 0), (b, (n - b) // 2), (b, n - b)]
+    return out
+
+
+@pytest.mark.parametrize("n", [24, 64])  # the template mix, and the tiles
+@pytest.mark.parametrize("d", [1000, 32_768])
+def test_mix_row_blocks_are_the_rows_of_the_full_launch(dev, n, d):
+    """``pushsum_mix`` with W (B, N) and ``spmm`` with (B, K) slots give the
+    same rows of the whole launch, bit for bit (one chain an output), under
+    both spmm regimes (D = 1000 rows, 32,768 column tiles)."""
+    from repro_torch.core.topology import padded_csr
+
+    gen = torch.Generator(device=dev).manual_seed(n * d)
+    w = torch.rand((n, n), generator=gen, device=dev)
+    x = torch.randn((n, d), generator=gen, device=dev)
+    full = ops.pushsum_mix(w, x)
+    w_np = ErdosRenyiGraph(n, p=8 / n, seed=1).weight_matrix(0)
+    idx, vals = padded_csr(w_np, int((w_np > 0).sum(1).max()))
+    idx = torch.as_tensor(idx, device=dev)
+    vals = torch.as_tensor(vals, dtype=torch.float32, device=dev)
+    sparse = ops.spmm(idx, vals, x)
+    for b, r0 in _blocks(n):
+        rows = slice(r0, r0 + b)
+        assert torch.equal(ops.pushsum_mix(w[rows], x), full[rows]), (b, r0)
+        assert torch.equal(ops.spmm(idx[rows], vals[rows], x),
+                           sparse[rows]), (b, r0)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    assert ops.spmm_plan(n, idx.shape[1], d, sms)["regime"] == (
+        "rows" if d == 1000 else "tiles")
+    assert ops.mix_plan(n, d, sms)["kernel"] == (
+        "template" if n <= ops.MIX_TEMPLATE_NODES else "tiles")
+
+
+@pytest.mark.parametrize("n,d_s", [(24, 7840), (64, 300_001)])
+def test_perturbation_row_blocks_draw_the_rows_of_the_full_launch(dev, n,
+                                                                  d_s):
+    """The Philox draw keyed at ``node0`` gives the same rows of the whole
+    launch, bit for bit, at short rows and long (several blocks a row)."""
+    gen = torch.Generator(device=dev).manual_seed(n + d_s)
+    s, eps = _rows(gen, dev, n, d_s), _rows(gen, dev, n, d_s)
+    scale = torch.tensor(0.7, device=dev)
+    full = ops.dpps_perturb_rows(s, eps, scale, 0.1, d_s, seed=5, t=3)
+    for b, r0 in _blocks(n):
+        rows = slice(r0, r0 + b)
+        part = ops.dpps_perturb_rows(s[rows], eps[rows], scale, 0.1, d_s,
+                                     seed=5, t=3, node0=r0)
+        for whole, got in zip(full, part):
+            assert torch.equal(got, whole[rows]), (b, r0)

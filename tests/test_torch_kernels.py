@@ -197,6 +197,73 @@ def test_pushsum_mix_matches_reference(R, n, d):
         rtol=1e-5, atol=1e-6)
 
 
+# -- row blocks: a rank's launches in the sharded engine ----------------------
+
+ROW_BLOCKS = [(1, 0), (1, 7), (3, 2), (7, 1)]  # (B, first row) of N = 8
+
+
+@pytest.mark.parametrize("b,r0", ROW_BLOCKS)
+def test_row_block_mixes_match_the_reference_rows(R, b, r0):
+    """A (B, N) block of W, and a (B, K) block of the padded CSR, against
+    the rows of the reference's whole mix (its oracle and its
+    interpret-mode Pallas kernel)."""
+    from repro_torch.core.topology import DOutGraph, padded_csr
+
+    n, d = 8, 260
+    rows = slice(r0, r0 + b)
+    rng = np.random.default_rng(b * 10 + r0)
+    w = rng.dirichlet(np.ones(n), size=n).T.astype(np.float32)
+    x = rng.normal(size=(n, d)).astype(np.float32)
+    got = to_numpy(ops.pushsum_mix(torch.from_numpy(w[rows]).contiguous(),
+                                   torch.from_numpy(x)))
+    assert got.shape == (b, d)
+    for want in (R.kernels.ref.pushsum_mix(jnp.asarray(w), jnp.asarray(x)),
+                 R.kernels.ops.pushsum_mix(jnp.asarray(w), jnp.asarray(x))):
+        np.testing.assert_allclose(got, np.asarray(want)[rows], rtol=1e-5,
+                                   atol=1e-6)
+    idx, vals = padded_csr(DOutGraph(n, 3).weight_matrix(0))
+    vals = vals.astype(np.float32)
+    got = to_numpy(ops.spmm(torch.from_numpy(idx[rows]).contiguous(),
+                            torch.from_numpy(vals[rows]).contiguous(),
+                            torch.from_numpy(x)))
+    want = np.asarray(R.kernels.ref.spmm(jnp.asarray(idx), jnp.asarray(vals),
+                                         jnp.asarray(x)))[rows]
+    np.testing.assert_allclose(got, want, rtol=1e-6, atol=1e-6)
+
+
+@pytest.mark.parametrize("b,r0", ROW_BLOCKS)
+def test_row_block_perturbation_matches_the_reference_rows(R, b, r0):
+    """The block's rows fed their own reference bits against the
+    reference oracle's rows; its Philox draw keyed at ``node0 = r0`` equal
+    bit for bit to the same rows of the whole draw."""
+    n, d_s, seed, t, scale, gamma_n = 8, 300, 3, 2, 0.8, 0.05
+    rows = slice(r0, r0 + b)
+    rng = np.random.default_rng(b * 10 + r0)
+    s, eps = _rows(rng, n, d_s), _rows(rng, n, d_s)
+    bits = reference_bits(seed, t, n, d_s)
+    got_s, got_e, got_n = ops.dpps_perturb_rows(
+        torch.from_numpy(s[rows]), torch.from_numpy(eps[rows]),
+        torch.tensor(scale), gamma_n, d_s,
+        bits=torch.from_numpy(bits[rows]), node0=r0)
+    for i, node in enumerate(range(r0, r0 + b)):
+        o_s, o_e, o_n = R.kernels.ref.dpps_perturb(
+            jnp.asarray(s[node, :d_s]), jnp.asarray(eps[node, :d_s]),
+            jnp.asarray(bits[node]), scale, gamma_n)
+        np.testing.assert_allclose(to_numpy(got_s)[i, :d_s], np.asarray(o_s),
+                                   rtol=1e-6, atol=1e-6)
+        np.testing.assert_allclose(float(got_e[i]), float(o_e), rtol=1e-5)
+        np.testing.assert_allclose(float(got_n[i]), float(o_n), rtol=1e-5)
+    full = ops.dpps_perturb_rows(torch.from_numpy(s), torch.from_numpy(eps),
+                                 scale, gamma_n, d_s, seed=seed, t=t)
+    block = ops.dpps_perturb_rows(torch.from_numpy(s[rows]),
+                                  torch.from_numpy(eps[rows]), scale, gamma_n,
+                                  d_s, seed=seed, t=t, node0=r0)
+    for whole, part in zip(full, block):
+        assert torch.equal(whole[rows], part)
+    assert torch.equal(ref.philox_bits(seed, t, b, 5, d_s, node0=r0),
+                       ref.philox_bits(seed, t, n, 5, d_s)[rows])
+
+
 # -- the wrappers' routing ---------------------------------------------------
 
 def test_cpu_tensors_take_the_plain_version_and_count_no_launch():
@@ -513,6 +580,13 @@ def _bad_inputs():
             torch.eye(33)[:, :32].contiguous(), torch.zeros((33, 128))),
             ValueError),
         "mix_w_shape": (lambda: ops.pushsum_mix(torch.eye(4), s), ValueError),
+        # a row block of more receivers than senders
+        "mix_rows": (lambda: ops.pushsum_mix(torch.ones((4, 3)), s),
+                     ValueError),
+        "spmm_rows": (lambda: ops.spmm(torch.zeros((4, 2), dtype=torch.int32),
+                                       torch.ones((4, 2)), s), ValueError),
+        "perturb_node0": (lambda: ops.dpps_perturb_rows(
+            s, s, 1.0, 1.0, 200, seed=0, t=0, node0=-1), ValueError),
         "mix_dtype": (lambda: ops.pushsum_mix(torch.eye(3), s.double()),
                       TypeError),
         "spmm_d": (lambda: ops.spmm(idx, torch.ones((3, 2)), s[:, :126]
