@@ -284,12 +284,35 @@ Phases, each printing one JSON line:
                   its plain version, timed beside its bound and library
                   call (``torch.sparse.mm`` where it agrees with the
                   kernel, else ``torch.matmul`` of the dense W rows).
+31. ``model_axis`` tensor and expert parallelism for serving
+                  (``repro_torch.models.parallel``): (a) llama3.2-1b at
+                  full width through ``build_serve_plan(arch, mesh)`` on a
+                  one-rank NCCL world's (1, 1) mesh, a 4,096-token
+                  prefill and 16 greedy decode steps, logits bit for bit
+                  the unsharded plan's, each step's c10d calls
+                  (``CollectiveCount``) equal to ``tp_collectives``; (b) a
+                  2-rank gloo world on the one card (``chip_smoke.py
+                  --tp-rank JSON`` subprocesses; gloo all-reduces CUDA
+                  tensors through the host, NCCL refuses two ranks on one
+                  device), mesh (1, 2): llama3.2-1b (4,096-token prefill,
+                  16 steps) and llama4-scout at one MoE layer (1,024, 8)
+                  at full width, each rank's logits within 1e-4 of the
+                  unsharded plan's on the same weights, its greedy tokens
+                  equal, the ranks bit-equal, the calls counted, the peak
+                  below the unsharded one beside its reckoning, and one
+                  ``flash_attention.cu`` launch at its head shard against
+                  the plain version; the data seed the first giving every
+                  top-1 logit margin above 2e-4 and routing margin above
+                  1e-5. Its times are two ranks sharing one card with
+                  host-staged all-reduces: no speed figures of tensor
+                  parallelism.
 
 Each kernel counts its launches. The counts are set to 0 just before each
 path (phases 3-7, 10, 13, 15, 17, each run of 19 and 22, each serve of 20,
 23, each run of 24, 25 and 26, each battery of 27, a codec each in
-its wire battery, each run of 28, each card step of 29, and each sharded
-run of 30a) and read just after; each path names the kernels it must launch
+its wire battery, each run of 28, each card step of 29, each sharded
+run of 30a, and each timed run of 31, a rank's among them) and read just
+after; each path names the kernels it must launch
 (and the sparse paths must launch ``pushsum_mix`` no time; the training
 paths exactly their counts). Then come the card's
 name and power limit (``nvidia-smi``), the ``kernels`` line with every
@@ -356,11 +379,17 @@ FLASH_SHAPES = {  # (B, S, H, K, D, window)
     # layers at GROUP_SERVE_PROMPT
     "scout_4k": (1, GROUP_SERVE_PROMPT, 40, 8, 128, None),
     "vision_4k": (1, GROUP_SERVE_PROMPT, 32, 8, 128, None),
+    # a rank's head shard in phase 31b (M = 2): llama3.2-1b's 16 of 32
+    # query heads and 4 of 8 KV heads at 4,096 tokens, llama4-scout's 20
+    # and 4 at 1,024
+    "llama_4k_rank_of_2": (1, 4096, 16, 4, 64, None),
+    "scout_1k_rank_of_2": (1, 1024, 20, 4, 128, None),
 }
 # SDPA as the yardstick: is_causal where global, a banded boolean attn_mask
 # (S x S, 1 GiB at 32k) where windowed
 FLASH_SDPA = ("llama_32k", "gemma3_32k_window512", "gemma3_32k_global",
-              "ragged_minitron", "zamba2_4k", "scout_4k", "vision_4k")
+              "ragged_minitron", "zamba2_4k", "scout_4k", "vision_4k",
+              "llama_4k_rank_of_2", "scout_1k_rank_of_2")
 
 # pushsum_mix past its template (N > 32): (N, D); N = 4096 at d = 8 is
 # bench_sparse.py's dense point, at 128 the same as the kernel path pads it;
@@ -5173,6 +5202,331 @@ def shard_phase(torch, api, mlp, data, T, ops, ref, dev) -> tuple:
     return out, counts, blocks
 
 
+# -- phase 31: the model axis (tensor and expert parallelism for serving) ------
+
+# 31b's runs: arch, layers kept (None: all), prompt, greedy decode steps.
+# llama4-scout keeps one MoE layer of its 48 (~17 GB of f32 weights whole,
+# ~8.6 GB a rank at M = 2).
+TP_RUNS = {
+    "llama": dict(arch="llama3.2-1b", layers=None, prompt=4096, steps=16),
+    "scout": dict(arch="llama4-scout-17b-a16e", layers=1, prompt=1024,
+                  steps=8),
+}
+TP_RANKS = 2
+TP_WARMUP_STEPS = 1
+# Logits of the sharded run against the unsharded one: atol 1e-4 (only
+# the 2-way split of the wo / w_down sums changes an order). A greedy
+# token cannot flip within that where every top-1 logit margin of the
+# unsharded run is above twice it; MoE routing cannot where every top-1
+# router-probability margin is above 1e-5 (the router's input differs by
+# ~1e-6 relative). The data seed is the first of TP_SEED_TRIES that gives
+# the unsharded run those margins.
+TP_ATOL = 1e-4
+TP_LOGIT_MARGIN = 2 * TP_ATOL
+TP_ROUTE_MARGIN = 1e-5
+TP_SEED_TRIES = 8
+TP_JOIN_S = 600
+
+
+def tp_config(run: dict):
+    """(ArchSpec, ModelConfig) of a 31b run: the published width, its one
+    group cut to ``layers``."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+
+    spec = get_config(run["arch"])
+    cfg = spec.model
+    if run["layers"] is not None:
+        (group,) = cfg.groups
+        cfg = dataclasses.replace(cfg, groups=(
+            dataclasses.replace(group, n_layers=run["layers"]),))
+    return dataclasses.replace(spec, model=cfg), cfg
+
+
+def tp_collectives(cfg, b: int, s: int) -> dict:
+    """The c10d calls and operand bytes a step of ``b`` sequences of ``s``
+    new positions issues on a rank of the model axis (any M, a data dim of
+    1), as ``models/parallel.py`` is written: an all-reduce of the (b, s,
+    d) activations after each layer's wo and its w_down (or MoE combine),
+    one after the embedding lookup, one of the (b, V) logits."""
+    layers = sum(g.n_layers for g in cfg.groups)
+    act = 4 * b * s * cfg.d_model
+    return {"all-reduce": [2 * layers + 2,
+                           (2 * layers + 1) * act + 4 * b * cfg.vocab_size]}
+
+
+def tp_serve(torch, ops, dev, run: dict, mesh, data_seed: int) -> dict:
+    """A prefill of ``run["prompt"]`` tokens and ``run["steps"]`` greedy
+    decode steps through ``build_serve_plan(arch, mesh)`` (None: the
+    unsharded plan) on this process's card, the weights the model's draw
+    from SEED (over a model axis, the rank's shard of it), the prompt
+    from ``data_seed``. A warm-up of the same prompt and TP_WARMUP_STEPS
+    decode steps first (a process's first prefill at a new size took
+    seconds on the card), its c10d calls counted (``CollectiveCount``,
+    whose dispatch mode costs host time an op, so the timed run goes
+    without it); the launch counts are set to 0 just before the timed
+    prefill and read after the decode. -> CPU copies of the logits and
+    tokens, the times, the warm-up's c10d calls a step (prefill, then
+    each decode step), the launches, the peak beside its reckoning, and
+    the top-1 margins (logits, MoE routing)."""
+    from repro_torch.configs import ShapeSpec
+    from repro_torch.core.tree_utils import tree_leaves
+    from repro_torch.launch.op_analysis import CollectiveCount
+    from repro_torch.launch.steps import build_serve_plan
+    from repro_torch.models import moe
+
+    arch, cfg = tp_config(run)
+    s, steps = run["prompt"], run["steps"]
+    plans = {kind: build_serve_plan(arch, mesh, shape_name=kind,
+                                    shape=ShapeSpec(kind, n, 1, kind))
+             for kind, n in (("prefill", s), ("decode", s + steps))}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    params = plans["prefill"].init_args(dev, seed=SEED)[0]
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    param_bytes = sum(x.numel() * x.element_size()
+                      for x in tree_leaves(params))
+    route, margins = moe.moe_route, []
+
+    def recorded(router, tokens, n_experts, cap):
+        r = route(router, tokens, n_experts, cap)
+        top2 = r["probs"].topk(2, dim=-1).values
+        margins.append((top2[:, 0] - top2[:, 1]).min())
+        return r
+
+    def generate(tokens, n: int, calls=None):
+        def counted(fn, *args, **kw):
+            if calls is None:
+                return fn(*args, **kw)
+            count = CollectiveCount()
+            with count:
+                out = fn(*args, **kw)
+            calls.append({k: [count.calls[k], count.bytes[k]]
+                          for k in count.calls})
+            return out
+
+        p = tokens.shape[1]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, cache = counted(plans["prefill"].step_fn, params,
+                                {"tokens": tokens}, capacity=p + n)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        out = [logits]
+        for i in range(n):
+            tok = out[-1].argmax(dim=-1)
+            logits, cache = counted(plans["decode"].step_fn, params, cache,
+                                    tok, p + i)
+            out.append(logits)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        kv = sum(x.numel() * x.element_size() for x in tree_leaves(cache))
+        return out, (t1 - t0) * 1e3, (t2 - t1) * 1e3 / max(n, 1), kv
+
+    gen = torch.Generator(device=dev).manual_seed(data_seed)
+    tokens = torch.randint(0, cfg.vocab_size, (1, s), generator=gen,
+                           device=dev)
+    calls = []
+    generate(tokens, TP_WARMUP_STEPS, calls)
+    moe.moe_route = recorded
+    try:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launch_counts()
+        logits, prefill_ms, decode_ms, kv = generate(tokens, steps)
+        launches = ops.launch_counts()
+    finally:
+        moe.moe_route = route
+    peak = torch.cuda.max_memory_allocated()
+    stacked = torch.cat(logits).float()
+    top2 = stacked.topk(2, dim=-1).values
+    return dict(
+        logits=stacked.cpu(), tokens=stacked.argmax(dim=-1).cpu(),
+        prefill_ms=prefill_ms, decode_ms_per_step=decode_ms, init_s=init_s,
+        calls=calls, launches=launches, peak_gb=peak / 1e9,
+        params_gb=param_bytes / 1e9, cache_gb=kv / 1e9,
+        reckoned_gb=(param_bytes + kv) / 1e9,
+        logit_margin=(top2[:, 0] - top2[:, 1]).min().item(),
+        routing_margin=min(m.item() for m in margins) if margins else None,
+        data_seed=data_seed, prompt=s, steps=steps,
+        layers=cfg.total_layers, heads=(cfg.n_heads, cfg.n_kv_heads))
+
+
+def tp_flash_check(torch, ops, ref, dev, cfg, s: int, m: int,
+                   rank: int) -> dict:
+    """One flash launch at rank ``rank``'s head shard of ``cfg`` (H/M query
+    heads, its K/M KV heads, or the one it shares) against the plain
+    version at that shape, random q, k, v; atol 1e-5 + rtol 1e-4, as
+    phase 9."""
+    from repro_torch.models.parallel import ModelAxis
+
+    local = ModelAxis(size=m, rank=rank).local_config(cfg)
+    h, kh, d = local.n_heads, local.n_kv_heads, cfg.head_dim
+    gen = torch.Generator(device=dev).manual_seed(SEED + rank)
+    q = torch.randn((1, s, h, d), generator=gen, device=dev)
+    k = torch.randn((1, s, kh, d), generator=gen, device=dev)
+    v = torch.randn((1, s, kh, d), generator=gen, device=dev)
+    got = ops.flash_attention_bshd(q, k, v)
+    want = ref.flash_attention(q.transpose(1, 2), k.transpose(1, 2),
+                               v.transpose(1, 2),
+                               group=h // kh).transpose(1, 2)
+    diff = (got - want).abs()
+    require(bool((diff <= 1e-5 + 1e-4 * want.abs()).all()),
+            f"flash_attention disagrees at rank {rank}'s shard (1, {s}, "
+            f"{h}, {kh}, {d}): max abs err {diff.max().item()}")
+    return dict(shape=dict(b=1, s=s, h=h, kh=kh, d=d, window=None),
+                max_abs_err=diff.max().item())
+
+
+def tp_rank(torch, ops, ref, dev, *, rank: int, store: str, out: str,
+            seeds: dict) -> None:
+    """31b's rank ``rank`` (``chip_smoke.py --tp-rank JSON``): a gloo world
+    of TP_RANKS processes on the one card (gloo all-reduces CUDA tensors,
+    staged through the host; NCCL refuses two ranks on one device), the
+    ("data", "model") = (1, TP_RANKS) mesh; each of TP_RUNS through
+    ``tp_serve`` and the flash launch at its shard; the results saved to
+    ``out``."""
+    import datetime
+
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_host_mesh
+
+    dist.init_process_group("gloo", init_method=f"file://{store}",
+                            rank=rank, world_size=TP_RANKS,
+                            timeout=datetime.timedelta(seconds=300))
+    try:
+        mesh = make_host_mesh(shape=(1, TP_RANKS))
+        result = {}
+        for name, run in TP_RUNS.items():
+            result[name] = tp_serve(torch, ops, dev, run, mesh, seeds[name])
+            result[name]["flash_check"] = tp_flash_check(
+                torch, ops, ref, dev, tp_config(run)[1],
+                run["prompt"], TP_RANKS, rank)
+            torch.cuda.empty_cache()
+        torch.save(result, out)
+    finally:
+        dist.destroy_process_group()
+
+
+def tp_reference(torch, ops, dev, run: dict) -> dict:
+    """The unsharded run at the first data seed whose logit and routing
+    margins hold (TP_SEED_TRIES tries)."""
+    for data_seed in range(SEED, SEED + TP_SEED_TRIES):
+        r = tp_serve(torch, ops, dev, run, None, data_seed)
+        torch.cuda.empty_cache()
+        if r["logit_margin"] > TP_LOGIT_MARGIN and (
+                r["routing_margin"] is None
+                or r["routing_margin"] > TP_ROUTE_MARGIN):
+            return r
+    raise AssertionError(f"{run['arch']}: no data seed in {TP_SEED_TRIES} "
+                         "gives the top-1 margins")
+
+
+def tp_summary(r: dict) -> dict:
+    return {k: v for k, v in r.items() if k not in ("logits", "tokens")}
+
+
+def model_axis_phase(torch, ops, ref, dev, smi: str) -> tuple:
+    """Phase 31: (a) llama3.2-1b at full width through ``build_serve_plan(
+    arch, mesh)`` on a one-rank NCCL world's (1, 1) mesh, bit for bit the
+    unsharded plan; (b) llama3.2-1b and llama4-scout (one MoE layer) at
+    full width over a 2-rank gloo world on the one card, against the
+    unsharded plan on the same weights. -> (emitted dict, the main paths'
+    launch counts, each rank's flash checks)."""
+    import torch.distributed as dist
+
+    t0 = time.perf_counter()
+    out = dict(phase="model_axis", card=smi, note=(
+        "31b's times are two ranks sharing one card's SMs, their "
+        "all-reduces gloo's, staged through the host: not speed figures "
+        "of tensor parallelism, which wait for a cell of several cards"))
+    counts = []
+    refs = {name: tp_reference(torch, ops, dev, run)
+            for name, run in TP_RUNS.items()}
+    with tempfile.TemporaryDirectory() as tmp:
+        mesh = shard_world(tmp)
+        try:
+            one = tp_serve(torch, ops, dev, TP_RUNS["llama"], mesh,
+                           refs["llama"]["data_seed"])
+        finally:
+            dist.destroy_process_group()
+    torch.cuda.empty_cache()
+    want = refs["llama"]
+    _, cfg = tp_config(TP_RUNS["llama"])
+    require(torch.equal(one["logits"], want["logits"]),
+            "31a: the one-rank model axis is not the unsharded plan bit for "
+            "bit")
+    calls = [tp_collectives(cfg, 1, want["prompt"])] + \
+        [tp_collectives(cfg, 1, 1)] * TP_WARMUP_STEPS
+    require(one["calls"] == calls,
+            f"31a: c10d calls {one['calls'][:2]}, expected {calls[:2]}")
+    require(one["launches"]["flash_attention"] == cfg.total_layers,
+            f"31a: flash launches {one['launches']}")
+    counts.append(one["launches"])
+    out["a"] = dict(tp_summary(one), bit_for_bit=True,
+                    unsharded=tp_summary(want))
+
+    with tempfile.TemporaryDirectory() as tmp:
+        seeds = {name: r["data_seed"] for name, r in refs.items()}
+        procs = [subprocess.Popen(
+            [sys.executable, str(ROOT / "chip_smoke.py"), "--tp-rank",
+             json.dumps(dict(rank=rank, store=f"{tmp}/store",
+                             out=f"{tmp}/rank{rank}.pt", seeds=seeds))],
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+            for rank in range(TP_RANKS)]
+        try:
+            logs = [p.communicate(timeout=TP_JOIN_S) for p in procs]
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        for rank, (p, (_, err)) in enumerate(zip(procs, logs)):
+            require(p.returncode == 0,
+                    f"31b rank {rank} exited {p.returncode}: {err[-4000:]}")
+        ranks = [torch.load(f"{tmp}/rank{rank}.pt", weights_only=False)
+                 for rank in range(TP_RANKS)]
+    out["b"], flash_checks = {}, []
+    for name, run in TP_RUNS.items():
+        want = refs[name]
+        _, cfg = tp_config(run)
+        calls = [tp_collectives(cfg, 1, run["prompt"])] + \
+            [tp_collectives(cfg, 1, 1)] * TP_WARMUP_STEPS
+        for rank, r in enumerate(ranks):
+            got = r[name]
+            require(torch.equal(got["logits"], ranks[0][name]["logits"]),
+                    f"31b {name}: rank {rank}'s logits differ from rank 0's")
+            err = (got["logits"] - want["logits"]).abs().max().item()
+            require(err <= TP_ATOL,
+                    f"31b {name}: rank {rank} logits max abs err {err}")
+            require(torch.equal(got["tokens"], want["tokens"]),
+                    f"31b {name}: rank {rank}'s greedy tokens differ")
+            require(got["calls"] == calls,
+                    f"31b {name}: rank {rank} c10d calls {got['calls'][:2]}, "
+                    f"expected {calls[:2]}")
+            require(got["launches"]["flash_attention"] == cfg.total_layers,
+                    f"31b {name}: rank {rank} flash launches "
+                    f"{got['launches']}")
+            require(got["peak_gb"] < want["peak_gb"],
+                    f"31b {name}: rank {rank}'s peak {got['peak_gb']} GB is "
+                    f"not below the unsharded {want['peak_gb']} GB")
+            counts.append(got["launches"])
+            got["max_abs_err"] = err
+            flash_checks.append(dict(got["flash_check"], rank=rank, run=name,
+                                     launches=got["launches"][
+                                         "flash_attention"]))
+        out["b"][name] = dict(
+            unsharded=tp_summary(want),
+            ranks=[tp_summary(r[name]) for r in ranks], ranks_bit_equal=True,
+            tolerance=dict(atol=TP_ATOL, logit_margin=TP_LOGIT_MARGIN,
+                           routing_margin=TP_ROUTE_MARGIN))
+    out["seconds"] = time.perf_counter() - t0
+    return out, counts, flash_checks
+
+
 def sparse_graph(n: int, seed: int = 0):
     from repro_torch.net import ErdosRenyiGraph
 
@@ -5218,6 +5572,9 @@ def main() -> int:
     parser.add_argument("--obs-phase", default=None, metavar="JSON",
                         help="run phase 28 alone with these keyword "
                              "arguments (the whole run starts it so)")
+    parser.add_argument("--tp-rank", default=None, metavar="JSON",
+                        help="run one rank of phase 31b with these keyword "
+                             "arguments (the whole run starts them so)")
     args = parser.parse_args()
 
     import torch
@@ -5240,13 +5597,18 @@ def main() -> int:
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    if args.tp_rank is not None:
+        torch.cuda.set_device(dev)
+        build.build_all()  # built by the parent: loads the libraries
+        tp_rank(torch, ops, ref, dev, **json.loads(args.tp_rank))
+        return 0
     if args.obs_phase is None:
         emit(dict(phase="precision",
                   matmul_allow_tf32=torch.backends.cuda.matmul.allow_tf32,
                   cudnn_allow_tf32=torch.backends.cudnn.allow_tf32,
                   float32_matmul_precision=(
                       torch.get_float32_matmul_precision())))
-    dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
     if args.obs_phase is not None:
         build.build_all()  # built by the parent: loads the libraries
@@ -5485,6 +5847,9 @@ def main() -> int:
                                           dev)
     emit(sharded)
     launches += counts
+    axis_line, counts, tp_flash = model_axis_phase(torch, ops, ref, dev, smi)
+    emit(axis_line)
+    launches += counts
     total = {k: sum(path[k] for path in launches) for k in KERNELS}
     kernels = []
     for name in DENSE_PATH:
@@ -5548,8 +5913,10 @@ def main() -> int:
     fa = flash["llama_32k"]
     kernels.append(kernel_entry(
         "flash_attention",
-        dict(fa, max_abs_err=max(r["max_abs_err"] for r in flash.values())),
+        dict(fa, max_abs_err=max([r["max_abs_err"] for r in flash.values()]
+                                 + [r["max_abs_err"] for r in tp_flash])),
         total["flash_attention"], shape=fa["shape"],
+        model_axis_rank_shards=tp_flash,
         max_rel_err=max(r["max_rel_err"] for r in flash.values()),
         pct_of_bound=fa["pct_of_bound"],
         f32_core_bound_ms=fa["f32_core_bound_ms"],

@@ -33,7 +33,9 @@ middle step frees all of its copies at once).
 
 :func:`charge` is the kernels' side: a wrapper in
 :mod:`repro_torch.kernels.ops` that meets meta tensors charges the counter
-its kernel's FLOPs and bytes.
+its kernel's FLOPs and bytes. :func:`charge_collective` is the model
+axis's (:mod:`repro_torch.models.parallel`): on meta tensors it issues no
+c10d call and charges the counter the collective's operand bytes.
 """
 from __future__ import annotations
 
@@ -42,7 +44,7 @@ from typing import Any, Callable, Sequence
 import torch
 from torch.utils._python_dispatch import _get_current_dispatch_mode_stack
 
-__all__ = ["charge", "node_loop", "time_loop"]
+__all__ = ["charge", "charge_collective", "node_loop", "time_loop"]
 
 
 def _counter():
@@ -60,6 +62,14 @@ def charge(kernel: str, flops: float, nbytes: float) -> None:
     c = _counter()
     if c is not None:
         c.charge_kernel(kernel, flops, nbytes)
+
+
+def charge_collective(kind: str, nbytes: float) -> None:
+    """Charge the active cost count, if any, one collective of ``kind``
+    (the reference's name: "all-reduce", ...) on ``nbytes`` of operand."""
+    c = _counter()
+    if c is not None:
+        c.charge_collective(kind, nbytes)
 
 
 def _ruled(tensors: Sequence[torch.Tensor]):

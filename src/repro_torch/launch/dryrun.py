@@ -14,6 +14,15 @@ the place of the reference's ``--mesh``: the port runs on one card. Rows
 append to a JSON list so long sweeps resume; an ``ok`` row carries
 ``peak_bytes`` and ``fits`` (the peak within the card's 80 GB) and
 ``trace_s`` in place of XLA's ``lower_s`` / ``compile_s``.
+
+``--model-shards M`` (default 1, the rows above) splits each serve row's
+model over M ranks of the "model" dim (:mod:`repro_torch.models.
+parallel`) and counts one rank: its FLOPs, bytes, peak, ``fits`` and the
+collectives its model axis charges on meta (``mesh`` is ``model<M>``).
+The data dim stays 1, so the batch is whole on the rank (``batch_whole``
+in the row). A row whose model M does not split (a dim M does not
+divide, a group kind the axis does not split) is skipped with the reason;
+train rows ignore it.
 """
 from __future__ import annotations
 
@@ -26,6 +35,7 @@ import traceback
 from repro_torch.configs import ARCH_NAMES, INPUT_SHAPES, get_config
 from repro_torch.launch.op_analysis import HW
 from repro_torch.launch.steps import build_serve_plan, build_train_plan
+from repro_torch.models.parallel import ModelAxis
 
 SKIP_REASON = ("full-attention arch; long_500k needs sub-quadratic "
                "attention (DESIGN.md)")
@@ -42,16 +52,30 @@ def _variant(schedule: str, param_dtype: str | None, two_pass: bool | None,
         + ([f"cache-{cache_dtype}"] if cache_dtype else []))
 
 
+def _mesh_name(kind: str, nodes: int, model_shards: int) -> str:
+    return f"model{model_shards}" if kind != "train" and model_shards > 1 \
+        else f"nodes{nodes}"
+
+
 def run_one(arch_name: str, shape_name: str, *, nodes: int = 16,
             schedule: str = "dense", param_dtype: str | None = None,
             two_pass: bool | None = None, cache_dtype: str | None = None,
-            carry_cache: bool = False, verbose: bool = True) -> dict:
+            carry_cache: bool = False, model_shards: int = 1,
+            verbose: bool = True) -> dict:
     arch = get_config(arch_name)
     shape = INPUT_SHAPES[shape_name]
-    mesh_name = f"nodes{nodes}"
+    sharded = shape.kind != "train" and model_shards > 1
+    mesh_name = _mesh_name(shape.kind, nodes, model_shards)
     if not arch.runs_shape(shape_name):
         return {"arch": arch_name, "shape": shape_name, "mesh": mesh_name,
                 "status": "skipped", "reason": SKIP_REASON}
+    if sharded:
+        try:
+            ModelAxis(size=model_shards).check(arch.model)
+        except (ValueError, NotImplementedError) as e:
+            return {"arch": arch_name, "shape": shape_name, "mesh": mesh_name,
+                    "status": "skipped",
+                    "reason": f"{type(e).__name__}: {e}"}
     variant = _variant(schedule, param_dtype, two_pass, cache_dtype)
     t0 = time.time()
     try:
@@ -61,7 +85,8 @@ def run_one(arch_name: str, shape_name: str, *, nodes: int = 16,
                                     param_dtype=param_dtype,
                                     two_pass=two_pass)
         else:
-            plan = build_serve_plan(arch, shape_name=shape_name,
+            plan = build_serve_plan(arch, model_shards if sharded else None,
+                                    shape_name=shape_name,
                                     param_dtype=param_dtype,
                                     cache_dtype=cache_dtype,
                                     carry_cache=carry_cache)
@@ -74,6 +99,9 @@ def run_one(arch_name: str, shape_name: str, *, nodes: int = 16,
             "peak_bytes": terms.peak_memory_bytes,
             "fits": terms.peak_memory_bytes <= HW.memory_bytes,
         })
+        if sharded:
+            row.update({"model_shards": model_shards, "batch_whole": True,
+                        "coll_calls": dict(terms.coll_calls)})
         if verbose:
             print(f"[{arch_name} x {shape_name} x {mesh_name} x {variant}] OK "
                   f"trace={trace_s:.1f}s")
@@ -113,6 +141,10 @@ def main(argv=None) -> None:
                          "here (the port's decode always writes its cache in "
                          "place, that path's layout), left out of the row's "
                          "variant")
+    ap.add_argument("--model-shards", type=int, default=1,
+                    help="serve rows: one rank of a model split over this "
+                         "many ranks of the mesh's 'model' dim (the data "
+                         "dim 1: the batch whole on the rank)")
     ap.add_argument("--all", action="store_true",
                     help="sweep every (arch x shape)")
     ap.add_argument("--out", default=None, help="append JSON rows to this file")
@@ -123,7 +155,6 @@ def main(argv=None) -> None:
     two_pass = False if args.single_pass else None
     variant = _variant(args.schedule, args.param_dtype, two_pass,
                        args.cache_dtype)
-    mesh_name = f"nodes{args.nodes}"
 
     rows = []
     if args.out and os.path.exists(args.out):
@@ -135,6 +166,8 @@ def main(argv=None) -> None:
     t_all = time.time()
     for arch_name in archs:
         for shape_name in shapes:
+            mesh_name = _mesh_name(INPUT_SHAPES[shape_name].kind, args.nodes,
+                                   args.model_shards)
             key = (arch_name, shape_name, mesh_name, variant)
             if key in done:
                 print(f"[{arch_name} x {shape_name} x {mesh_name}] cached")
@@ -143,7 +176,8 @@ def main(argv=None) -> None:
                           schedule=args.schedule,
                           param_dtype=args.param_dtype, two_pass=two_pass,
                           cache_dtype=args.cache_dtype,
-                          carry_cache=args.carry_cache)
+                          carry_cache=args.carry_cache,
+                          model_shards=args.model_shards)
             rows = [r for r in rows
                     if (r["arch"], r["shape"], r["mesh"],
                         r.get("schedule", "dense")) != key]

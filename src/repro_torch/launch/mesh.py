@@ -11,8 +11,10 @@ Multi-pod  : (pod=2, data=16, model=16) = 512 ranks
 
 The decentralized gossip axes are ("data",) single-pod and ("pod", "data")
 multi-pod (32 nodes); "model" is tensor/expert parallelism inside each
-node, which the port does not run yet (:mod:`repro_torch.engine.shard`
-shards the node axis only).
+node. The sharded engine (:mod:`repro_torch.engine.shard`) runs the node
+axis over the gossip axes; serving runs the model dim
+(:func:`model_axis`, :mod:`repro_torch.models.parallel`), training does
+not yet (ROADMAP item 11b's remainder).
 """
 from __future__ import annotations
 
@@ -22,7 +24,7 @@ import torch
 import torch.distributed as dist
 
 __all__ = ["make_production_mesh", "gossip_axes", "n_gossip_nodes",
-           "make_host_mesh"]
+           "make_host_mesh", "model_axis", "as_model_axis"]
 
 
 def _world_size() -> int:
@@ -63,12 +65,56 @@ def n_gossip_nodes(mesh) -> int:
     return math.prod(size[a] for a in gossip_axes(mesh))
 
 
-def make_host_mesh(n_nodes: int = 1, device_type: str = "cpu"):
-    """Degenerate one-rank ("data", "model") = (1, 1) mesh for tests and
-    examples; needs a default process group of one rank (a single process
-    holds every node: no collective has a peer)."""
-    if _world_size() != 1:
-        raise RuntimeError("make_host_mesh needs a default process group of "
-                           f"one rank, have {_world_size()}")
-    return _mesh(device_type, (1, 1), ("data", "model"))
+def make_host_mesh(n_nodes: int = 1, device_type: str = "cpu",
+                   shape: tuple[int, int] = (1, 1)):
+    """A ("data", "model") mesh of ``shape`` over every rank of the default
+    process group, for tests, examples and ``chip_smoke.py``. The default
+    (1, 1) needs a group of one rank (a single process holds every node:
+    no collective has a peer). ``device_type`` names the mesh's devices
+    only: a gloo mesh of "cpu" serves CUDA tensors too (gloo all-reduces
+    them, staged through the host)."""
+    need = math.prod(shape)
+    if _world_size() != need:
+        ranks = "one rank" if need == 1 else f"{need} ranks"
+        raise RuntimeError(f"make_host_mesh{tuple(shape)} needs a default "
+                           f"process group of {ranks}, have {_world_size()}")
+    return _mesh(device_type, tuple(shape), ("data", "model"))
+
+
+def model_axis(mesh):
+    """This rank's :class:`repro_torch.models.parallel.ModelAxis` of
+    ``mesh``: the group, size and rank of its "model" dim, and of its one
+    gossip ("data") dim (a mesh of several gossip axes is refused, as the
+    sharded engine refuses it)."""
+    from repro_torch.models.parallel import ModelAxis
+
+    names = mesh.mesh_dim_names
+    data = gossip_axes(mesh)
+    if "model" not in names or len(data) > 1:
+        raise NotImplementedError(
+            f"the model axis needs a mesh of ('data', 'model') dims, got "
+            f"{names}")
+    size = dict(zip(names, mesh.shape))
+    kw = {}
+    if data:
+        kw = dict(data_size=size[data[0]],
+                  data_rank=mesh.get_local_rank(data[0]),
+                  data_group=mesh.get_group(data[0]))
+    return ModelAxis(size=size["model"], rank=mesh.get_local_rank("model"),
+                     group=mesh.get_group("model"), **kw)
+
+
+def as_model_axis(mesh):
+    """``mesh`` as a model axis: None (no axis), an int M (rank 0 of M with
+    no process group: the dry run's meta count), a ``ModelAxis``, or a
+    ``DeviceMesh`` (:func:`model_axis`)."""
+    from repro_torch.models.parallel import NO_AXIS, ModelAxis
+
+    if mesh is None:
+        return NO_AXIS
+    if isinstance(mesh, ModelAxis):
+        return mesh
+    if isinstance(mesh, int):
+        return ModelAxis(size=mesh)
+    return model_axis(mesh)
 

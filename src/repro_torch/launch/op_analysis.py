@@ -19,7 +19,9 @@ and reads every aten op as it dispatches:
     collectives    operand bytes and calls of each c10d op that dispatches,
                    by kind (an all-gather's operand is the rank's input,
                    not the gathered output); none on one card unless a
-                   process group runs the step (the sharded engine)
+                   process group runs the step (the sharded engine), or
+                   the model axis charges them on meta
+                   (:func:`repro_torch.core.loops.charge_collective`)
     peak memory    the bytes of the storages alive at once: the step's
                    inputs, then every new output storage until it dies
                    (autograd's saved tensors keep theirs alive)
@@ -257,6 +259,13 @@ class CostMode(TorchDispatchMode):
         self.kernel_bytes += nbytes * self.scale
         self.launches[kernel] += self.scale
 
+    def charge_collective(self, kind: str, nbytes: float) -> None:
+        """One c10d collective of ``kind`` counted without a call (the
+        model axis on meta tensors), as :meth:`__torch_dispatch__` counts
+        one that dispatches."""
+        self.coll[kind] += nbytes * self.scale
+        self.coll_calls[kind] += self.scale
+
     def charge_bytes(self, nbytes: float) -> None:
         """Bytes of an op counted without running it (the loop rule's
         repeated stack)."""
@@ -371,6 +380,7 @@ class RooflineTerms:
     kernel_bytes: float = 0.0
     launches: dict[str, int] = dataclasses.field(default_factory=dict)
     compute_dtype: str = "float32"
+    coll_calls: dict[str, int] = dataclasses.field(default_factory=dict)
 
     @property
     def coll_total(self) -> float:
@@ -443,4 +453,5 @@ def analyze_step(fn: Callable, *args, arch: str, shape: str, nodes: int,
         model_flops=model_flops, raw_flops=mode.raw_flops,
         raw_bytes=mode.raw_bytes, aten_flops=mode.aten_flops,
         kernel_flops=mode.kernel_flops, kernel_bytes=mode.kernel_bytes,
-        launches=dict(mode.launches), compute_dtype=compute_dtype)
+        launches=dict(mode.launches), compute_dtype=compute_dtype,
+        coll_calls=dict(mode.coll_calls))

@@ -1,4 +1,5 @@
-"""Which node rows a rank holds: the node half of ``repro.launch.sharding``.
+"""What a rank holds: ``repro.launch.sharding``'s node half (the node rows
+of a protocol state) and the serving half of its model axis.
 
 The reference turns a model's PartitionSpec trees into ``NamedSharding``
 trees: train-state leaves are node-stacked, their node dim over the gossip
@@ -6,8 +7,8 @@ axes and their other dims after the model pspec ("model" for heads, ffn,
 experts); batches shard their node dim the same way; serving places
 consensus params and caches by the model pspec.
 
-The port shards the node axis only (:mod:`repro_torch.engine.shard`), so
-this module holds the node half: each rank of the mesh's gossip axis holds
+For training the port shards the node axis (:mod:`repro_torch.engine.
+shard`): each rank of the mesh's gossip axis holds
 the contiguous block of rows ``[rank B, (rank + 1) B)``, B = N / shards, of
 every node-stacked leaf (a tensor of at least one dimension: the protocol
 states keep no other), and every 0-d tensor and host scalar (``c_prime``,
@@ -15,9 +16,19 @@ states keep no other), and every 0-d tensor and host scalar (``c_prime``,
 :func:`train_batch_shardings` give that layout as a tree of row slices
 (``None``: replicated); :func:`shard_rows` cuts a global tree into a
 rank's rows by it, and :func:`gather_rows` gathers a rank's rows back into
-the global tree over the gossip group. The model half (tensor parallelism
-inside a node: ``serve_param_shardings``, ``serve_cache_shardings``, the
-model pspecs of the train state) is not ported.
+the global tree over the gossip group.
+
+The model half, for serving: :func:`serve_param_shardings` and
+:func:`serve_cache_shardings` give the reference's pspecs applied by rank
+(:mod:`repro_torch.models.parallel`): each leaf a tuple of (dim, slice)
+pairs, or ``None`` for a leaf the rank holds whole; :func:`shard_params`
+cuts the whole model's parameters (the port's own, or
+``convert.transformer_params_from_reference``'s) into the rank's part,
+and :func:`gather_params` gathers the parts back over the model group.
+A ``mesh`` here is a ``DeviceMesh`` of ("data", "model") dims, or what
+:func:`repro_torch.launch.mesh.as_model_axis` takes. The model pspecs of
+the train state (DPPS over model-sharded leaves) are not ported (ROADMAP
+item 11b's remainder).
 """
 from __future__ import annotations
 
@@ -26,11 +37,15 @@ from typing import Any
 import torch
 import torch.distributed as dist
 
-from repro_torch.core.tree_utils import PyTree, tree_flatten, tree_unflatten
-from repro_torch.launch.mesh import gossip_axes, n_gossip_nodes
+from repro_torch.core.tree_utils import (PyTree, tree_flatten,
+                                         tree_flatten_with_path,
+                                         tree_unflatten)
+from repro_torch.launch.mesh import as_model_axis, gossip_axes, n_gossip_nodes
 
 __all__ = ["node_rows", "train_state_shardings", "train_batch_shardings",
-           "shard_rows", "gather_rows", "all_gather_rows", "gossip_axis"]
+           "shard_rows", "gather_rows", "all_gather_rows", "gossip_axis",
+           "serve_param_shardings", "serve_cache_shardings", "shard_params",
+           "gather_params"]
 
 
 def gossip_axis(mesh) -> str:
@@ -116,3 +131,75 @@ def gather_rows(tree: PyTree, mesh) -> PyTree:
     return tree_unflatten(treedef, [
         all_gather_rows(x, group, n_shards) if _is_node_leaf(x) else x
         for x in leaves])
+
+
+# -- the model axis (serving) ---------------------------------------------------
+
+def _rank_model(model, mesh):
+    """``model``'s architecture as rank ``mesh`` of its model axis."""
+    from repro_torch.models.transformer import Transformer
+
+    return Transformer(model.cfg, axis=as_model_axis(mesh))
+
+
+def _nest(flat: dict) -> dict:
+    """{"a/b": x, ...} -> {"a": {"b": x}, ...}."""
+    out: dict = {}
+    for path, x in flat.items():
+        *head, last = path.split("/")
+        node = out
+        for k in head:
+            node = node.setdefault(k, {})
+        node[last] = x
+    return out
+
+
+def serve_param_shardings(model, mesh) -> dict:
+    """The parameter tree of what this rank holds: (dim, slice) pairs, or
+    ``None`` for a leaf held whole."""
+    return _nest(_rank_model(model, mesh).param_shards())
+
+
+def serve_cache_shardings(model, mesh, *, batch: int, capacity: int,
+                          shard_seq: bool = False) -> dict:
+    """The cache tree (``batch`` sequences, ``capacity`` slots) of what
+    this rank holds: its batch rows over "data" (the reference's
+    ``batch_axis="data"``) and its KV heads (the reference replicates KV
+    unless 16 divides K). ``shard_seq`` with a data dim above 1 raises
+    ``NotImplementedError``."""
+    return _nest(_rank_model(model, mesh).cache_shards(
+        batch, capacity, shard_seq=shard_seq))
+
+
+def shard_params(params: PyTree, mesh, model) -> PyTree:
+    """This rank's part of the whole model's ``params``."""
+    return _rank_model(model, mesh).shard_params(params)
+
+
+def gather_params(shards: PyTree, mesh, model) -> PyTree:
+    """The whole model's parameters from every rank's :func:`shard_params`
+    part (its inverse): one all-gather over the model group a sharded
+    leaf, the ranks' blocks joined in rank order, each replicated KV head
+    taken once. Every rank of the group calls it."""
+    from repro_torch.models.parallel import ModelAxis
+
+    rank_model = _rank_model(model, mesh)
+    axis = rank_model.axis
+    if axis.size == 1:
+        return shards
+    per_rank = [
+        _rank_model(model, ModelAxis(size=axis.size, rank=r)).param_shards()
+        for r in range(axis.size)]
+    pairs, treedef = tree_flatten_with_path(shards)
+    out = []
+    for path, x in pairs:
+        if per_rank[0][path] is None:
+            out.append(x)
+            continue
+        parts = [torch.empty_like(x) for _ in range(axis.size)]
+        dist.all_gather(parts, x.contiguous(), group=axis.group)
+        starts = [sh[path][0][1].start for sh in per_rank]
+        keep = [part for r, part in enumerate(parts)  # a replicated head once
+                if starts.index(starts[r]) == r]
+        out.append(torch.cat(keep, dim=per_rank[0][path][0][0]))
+    return tree_unflatten(treedef, out)

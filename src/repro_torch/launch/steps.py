@@ -5,9 +5,15 @@ meta-device stand-ins of its inputs and its loop-aware cost.
 The reference takes a mesh and derives its node count from the mesh's
 gossip axes (``n_gossip_nodes``); :func:`build_train_plan` takes a
 ``DeviceMesh`` so too (:mod:`repro_torch.launch.mesh`), or an int node
-count, which the dry run's ``--nodes`` gives. The step is one process's:
-there are no ``in_shardings`` / ``out_shardings`` (the sharded engine,
-:mod:`repro_torch.engine.shard`, runs the node axis over ranks). The
+count, which the dry run's ``--nodes`` gives. :func:`build_serve_plan`
+takes the mesh whose "model" dim splits the served model (tensor and
+expert parallelism, :mod:`repro_torch.models.parallel`), or an int M
+(the dry run's ``--model-shards``: rank 0's step counted on meta, no
+process group). A step is one process's, one rank's: there are no
+``in_shardings`` / ``out_shardings`` (the sharded engine,
+:mod:`repro_torch.engine.shard`, runs the node axis over ranks; a serve
+plan's ``init_args`` give the rank's shard, what the reference's
+``in_shardings`` would place on its device). The
 reference's ``jitted()`` / ``lower()`` become :meth:`TrainPlan.
 abstract_args` (the meta state, batch and seed: the reference's
 ``_abstract_state`` and ``batch_specs``) and :meth:`TrainPlan.cost`
@@ -15,7 +21,7 @@ abstract_args` (the meta state, batch and seed: the reference's
 them, the kernels routed as on the card). ``step_fn`` runs on real tensors,
 on the card unless they lie on the CPU.
 
-Used by ``launch/dryrun.py`` and by ``chip_smoke.py`` (phase 29).
+Used by ``launch/dryrun.py`` and by ``chip_smoke.py`` (phases 29, 31).
 """
 from __future__ import annotations
 
@@ -34,7 +40,7 @@ from repro_torch.core.topology import DOutGraph, Topology, derive_constants
 from repro_torch.core.tree_utils import tree_map
 from repro_torch.device import resolve_device, resolve_use_kernels
 from repro_torch.launch.flops import model_flops
-from repro_torch.launch.mesh import n_gossip_nodes
+from repro_torch.launch.mesh import as_model_axis, n_gossip_nodes
 from repro_torch.launch.op_analysis import RooflineTerms, analyze_step
 from repro_torch.models.transformer import Transformer
 
@@ -120,7 +126,8 @@ class TrainPlan:
 
 @dataclasses.dataclass
 class ServePlan:
-    """One prefill or decode step of the consensus model."""
+    """One prefill or decode step of the consensus model: the whole model's,
+    or, over a model axis (``model.axis``), one rank's on its shard."""
 
     arch: ArchSpec
     model: Transformer
@@ -129,44 +136,54 @@ class ServePlan:
     batch_specs: Any
     cache_dtype: str | None = None
 
-    def step_fn(self, params, *args):
-        """prefill: ``(params, batch)`` -> (last logits, cache); decode:
-        ``(params, cache, token, pos[, image_embeds])`` -> (logits, cache),
-        the cache written in place. Without grad, as ``Session.serve``."""
+    def step_fn(self, params, *args, capacity: int | None = None):
+        """prefill: ``(params, batch)`` -> (last logits, cache), the cache of
+        ``capacity`` slots (default the prompt's); decode: ``(params,
+        cache, token, pos[, image_embeds])`` -> (logits, cache), the cache
+        written in place. Without grad, as ``Session.serve``. Over a model
+        axis: the rank's step on its shard, every rank's logits the whole
+        vocabulary's, bit for bit alike."""
         with torch.no_grad():
             if self.kind == "prefill":
-                return self.model.prefill(params, args[0])
+                return self.model.prefill(params, args[0], capacity=capacity)
             cache, token, pos, *enc = args
             return self.model.decode_step(params, cache, token, pos,
                                           enc=enc[0] if enc else None)
 
-    def init_args(self, device=None, seed: int = 0) -> tuple:
+    def init_args(self, device=None, seed: int = 0, params=None) -> tuple:
         """``step_fn``'s arguments on ``device`` (the card by default; meta
-        for the dry run): the model's ``init`` from ``seed``, inputs drawn
-        from ``seed`` (tokens uniform over the vocabulary, embeddings
-        normal x 0.1), a zero cache of ``seq_len`` slots, and a decode step
-        at the cache's last slot."""
+        for the dry run): the model's ``init`` from ``seed`` (over a model
+        axis the rank's shard of the whole draw), or the rank's shard of
+        the whole model's ``params`` (e.g. the converted reference's);
+        inputs drawn from ``seed`` (tokens uniform over the vocabulary,
+        embeddings normal x 0.1) for the whole batch, of which the rank
+        keeps its rows over "data"; a zero cache of ``seq_len`` slots, and
+        a decode step at the cache's last slot."""
         dev = resolve_device(device)
-        params = _init_params(self.model, dev, seed)
+        params = _init_params(self.model, dev, seed) if params is None \
+            else self.model.shard_params(params)
         gen = None if dev.type == "meta" else \
             torch.Generator(device=dev).manual_seed(int(seed) + 1)
+        b, s = self.shape.global_batch, self.shape.seq_len
+        rows = self.model.axis.batch_rows(b)
 
         def draw(spec):
             if dev.type == "meta":
-                return spec
+                return spec[rows]
             if spec.dtype == torch.int32:
-                return torch.randint(0, self.model.cfg.vocab_size,
-                                     tuple(spec.shape), generator=gen,
-                                     device=dev, dtype=torch.int32)
-            return torch.randn(tuple(spec.shape), generator=gen,
-                               device=dev).mul_(0.1)
+                x = torch.randint(0, self.model.cfg.vocab_size,
+                                  tuple(spec.shape), generator=gen,
+                                  device=dev, dtype=torch.int32)
+            else:
+                x = torch.randn(tuple(spec.shape), generator=gen,
+                                device=dev).mul_(0.1)
+            return x[rows]
 
-        b, s = self.shape.global_batch, self.shape.seq_len
         if self.kind == "prefill":
             return params, {k: draw(v) for k, v in self.batch_specs.items()}
         cache = self.model.init_cache(
-            b, s, getattr(torch, self.cache_dtype) if self.cache_dtype
-            else None, device=dev)
+            rows.stop - rows.start, s, getattr(torch, self.cache_dtype)
+            if self.cache_dtype else None, device=dev)
         extra = (draw(self.batch_specs["image_embeds"]),) \
             if "image_embeds" in self.batch_specs else ()
         return (params, cache, draw(self.batch_specs["token"]), s - 1) + extra
@@ -175,11 +192,18 @@ class ServePlan:
         return self.init_args("meta")
 
     def cost(self) -> RooflineTerms:
-        return analyze_step(
+        """One rank's roofline terms (the whole model's without an axis),
+        counted on meta tensors; the collectives of a model axis charged
+        as the ranks would issue them."""
+        m = self.model.axis.size
+        terms = analyze_step(
             self.step_fn, *self.abstract_args(), arch=self.arch.name,
             shape=self.shape.name, nodes=1,
-            model_flops=model_flops(self.arch, self.shape),
+            model_flops=model_flops(self.arch, self.shape) / m,
             compute_dtype=self.model.cfg.param_dtype)
+        if m > 1:
+            terms.mesh = f"model{m}"
+        return terms
 
 
 def build_train_plan(
@@ -230,7 +254,8 @@ def build_train_plan(
                      batch_specs=train_batch_specs(arch, shape, n_nodes))
 
 
-def build_serve_plan(arch: ArchSpec, *, shape_name: str,
+def build_serve_plan(arch: ArchSpec, mesh: Any = None, *,
+                     shape_name: str,
                      shape: ShapeSpec | None = None,
                      param_dtype: str | None = None,
                      cache_dtype: str | None = None,
@@ -239,7 +264,15 @@ def build_serve_plan(arch: ArchSpec, *, shape_name: str,
     prefill runs flash attention, as ``Session.serve`` does on the card.
     ``carry_cache`` sets ``decode_cache_in_carry`` as the reference's plan
     does, and changes no op: the port's decode takes that path's layout
-    whatever the flag says."""
+    whatever the flag says.
+
+    ``mesh`` (a ``DeviceMesh`` of ("data", "model") dims) makes the plan
+    this rank's: its model is split over the "model" dim
+    (:mod:`repro_torch.models.parallel`: the attention and MoE groups;
+    the others raise at M > 1, as does an M that does not divide H,
+    d_ff, E or V), its batch over "data". An int M is rank 0 of M with
+    no process group, for the dry run's meta count only; None (the
+    default) is the whole model on one process, today's plan."""
     shape = _shape(shape_name, shape)
     assert shape.kind in ("prefill", "decode"), shape
     model_cfg = dataclasses.replace(arch.model, flash_prefill=True)
@@ -247,6 +280,8 @@ def build_serve_plan(arch: ArchSpec, *, shape_name: str,
         model_cfg = dataclasses.replace(model_cfg, param_dtype=param_dtype)
     if carry_cache:
         model_cfg = dataclasses.replace(model_cfg, decode_cache_in_carry=True)
-    return ServePlan(arch=arch, model=Transformer(model_cfg), kind=shape.kind,
-                     shape=shape, batch_specs=serve_batch_specs(arch, shape),
+    return ServePlan(arch=arch,
+                     model=Transformer(model_cfg, axis=as_model_axis(mesh)),
+                     kind=shape.kind, shape=shape,
+                     batch_specs=serve_batch_specs(arch, shape),
                      cache_dtype=cache_dtype)

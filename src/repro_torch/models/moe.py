@@ -16,6 +16,14 @@ autograd the overflow row is cut off before the experts run, so those
 writes carry no gradient to any parameter; a kept token's gradient comes
 back through its own slot, and the router's through the gate probability
 and the aux loss.
+
+Over a model axis (:mod:`repro_torch.models.parallel`) every rank routes
+every token over all E experts with the whole router (the same capacity,
+the same drops), keeps the slots of its own experts ``[r E/M, (r+1)
+E/M)`` and runs only those rows of the dispatch buffer; the shared
+expert's column / row blocks add their partial, and the caller's one
+all-reduce combines the ranks. A data dim above 1 routes the tokens of
+every data rank (:meth:`ModelAxis.gather_rows`) and keeps its own rows.
 """
 from __future__ import annotations
 
@@ -23,6 +31,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.models.layers import dense_init
+from repro_torch.models.parallel import NO_AXIS, ModelAxis
 
 __all__ = ["init_moe", "moe_apply", "moe_capacity", "moe_route"]
 
@@ -68,26 +77,38 @@ def moe_route(router: torch.Tensor, tokens: torch.Tensor, n_experts: int,
 
 
 def moe_apply(params: dict, x: torch.Tensor, *, n_experts: int,
-              capacity_factor: float, router_aux_weight: float
-              ) -> tuple[torch.Tensor, torch.Tensor]:
-    """x (B, S, d) -> (output (B, S, d), Switch load-balance aux loss)."""
+              capacity_factor: float, router_aux_weight: float,
+              axis: ModelAxis = NO_AXIS) -> tuple[torch.Tensor, torch.Tensor]:
+    """x (B, S, d) -> (output (B, S, d), Switch load-balance aux loss).
+    Over a model ``axis`` the output is this rank's partial sum (its
+    experts' and its shared-expert block's), and ``params`` its shard."""
     b, s, d = x.shape
     tokens = x.reshape(b * s, d)
-    cap = moe_capacity(capacity_factor, b * s, n_experts)
-    r = moe_route(params["router"], tokens, n_experts, cap)
-    keep = r["keep"][:, None]
+    routed = axis.gather_rows(tokens)
+    cap = moe_capacity(capacity_factor, routed.shape[0], n_experts)
+    r = moe_route(params["router"], routed, n_experts, cap)
+    slot, n_local = r["slot"], n_experts
+    if axis.off:
+        keep = r["keep"][:, None]
+    else:  # this rank's experts only; the others' tokens take the overflow row
+        mine = axis.block(n_experts, "n_experts")
+        n_local = mine.stop - mine.start
+        keep = r["keep"] & (r["expert_idx"] >= mine.start) & \
+            (r["expert_idx"] < mine.stop)
+        slot = torch.where(keep, slot - mine.start * cap, n_local * cap)
+        keep = keep[:, None]
 
-    buf = torch.zeros((n_experts * cap + 1, d), dtype=x.dtype, device=x.device)
-    buf[r["slot"]] = torch.where(keep, tokens, 0.0)
-    dispatched = buf[:-1].reshape(n_experts, cap, d)
+    buf = torch.zeros((n_local * cap + 1, d), dtype=x.dtype, device=x.device)
+    buf[slot] = torch.where(keep, routed, 0.0)
+    dispatched = buf[:-1].reshape(n_local, cap, d)
 
     gate = F.silu(torch.bmm(dispatched, params["w_gate"]).float()).to(x.dtype)
     up = torch.bmm(dispatched, params["w_up"])
     h = torch.bmm(gate * up, params["w_down"])               # (E, cap, d)
 
-    h_flat = torch.cat([h.reshape(n_experts * cap, d), h.new_zeros((1, d))])
-    out = h_flat[r["slot"]] * r["expert_prob"][:, None].to(x.dtype)
-    out = torch.where(keep, out, 0.0)
+    h_flat = torch.cat([h.reshape(n_local * cap, d), h.new_zeros((1, d))])
+    out = h_flat[slot] * r["expert_prob"][:, None].to(x.dtype)
+    out = axis.local_rows(torch.where(keep, out, 0.0))
 
     if "shared" in params:
         sh = params["shared"]

@@ -1,0 +1,233 @@
+"""The model axis: tensor and expert parallelism of a served model over the
+M ranks of a mesh's "model" dim (the port's stand-in for what GSPMD
+derives from the reference's pspecs, ``repro/launch/steps.py:160-218``).
+
+Rank r of M holds the reference's pspecs applied by rank
+(:func:`leaf_sharding`): query heads ``[r H/M, (r+1) H/M)`` of ``wq`` and
+the rows of ``wo`` that read them, the KV heads those query heads read of
+``wk`` / ``wv`` (K/M of them where M divides K; where K divides M the one
+head of its M/K ranks, whole on each), column blocks of ``w_up`` /
+``w_gate`` and row blocks of ``w_down`` (the dense MLP and the shared
+expert), experts ``[r E/M, (r+1) E/M)``, vocabulary rows of ``embed`` and
+columns of ``lm_head``; norms and the router whole. Its KV cache follows
+its KV heads. A data dim of the mesh splits the batch into row blocks.
+
+Every collective goes through one :class:`ModelAxis`:
+
+* :meth:`ModelAxis.reduce`, a SUM all-reduce over "model": after ``wo``,
+  after ``w_down`` or after the MoE combine (the shared expert's partial
+  folded in), and after the masked vocabulary-row lookup
+  (:meth:`ModelAxis.embed`);
+* :meth:`ModelAxis.gather_vocab`, the logits' vocabulary gather, written
+  as an all-reduce into a zero-filled (..., V) buffer: exact (every other
+  rank adds zeros), and an op gloo runs on CUDA tensors (gloo has only
+  all-reduce and broadcast there). A ring all-reduce moves 2 (M - 1) / M
+  of the buffer a rank against an all-gather's (M - 1) / M: twice the
+  wire bytes, on one (B, V) row a step;
+* :meth:`ModelAxis.gather_rows`, the MoE groups' routed tokens gathered
+  over "data" the same way, so routing, capacity and drops are the
+  whole batch's, as the reference's GSPMD program computes them (only
+  where the data dim is above 1: a data dim of one issues nothing).
+
+The default axis (:data:`NO_AXIS`: M = 1, no group) is off: every method
+returns its input and the model runs today's ops, op for op. An axis with
+a group issues its c10d calls whatever M (M = 1: identities). An axis of
+M > 1 without a group is the dry run's (:mod:`repro_torch.launch.
+dryrun`): on meta tensors it issues no call and charges the collective's
+operand bytes to the active cost count
+(:func:`repro_torch.core.loops.charge_collective`); on real tensors it
+raises.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any
+
+import torch
+import torch.distributed as dist
+import torch.nn.functional as F
+
+from repro_torch.core import loops
+
+__all__ = ["ModelAxis", "NO_AXIS", "SHARDED_KINDS", "leaf_sharding",
+           "take"]
+
+# group kinds the model axis splits; the others run only at M = 1
+SHARDED_KINDS = ("attn", "moe")
+_KV_LEAVES = ("wk", "wv")
+
+
+@dataclasses.dataclass(frozen=True)
+class ModelAxis:
+    """Rank ``rank`` of ``size`` along "model" (``group`` its c10d group,
+    None without a process group) and of ``data_size`` along "data"."""
+
+    size: int = 1
+    rank: int = 0
+    group: Any = None
+    data_size: int = 1
+    data_rank: int = 0
+    data_group: Any = None
+
+    @property
+    def off(self) -> bool:
+        """No axis: one rank, no group; every method is the identity."""
+        return (self.group is None and self.size == 1
+                and self.data_group is None and self.data_size == 1)
+
+    # -- the rank's share ----------------------------------------------------
+    def block(self, n: int, name: str = "dim") -> slice:
+        """This rank's contiguous block of ``n`` along "model"."""
+        if n % self.size:
+            raise ValueError(f"{name} = {n} does not divide over the "
+                             f"{self.size} ranks of the model axis")
+        b = n // self.size
+        return slice(self.rank * b, (self.rank + 1) * b)
+
+    def batch_rows(self, n: int) -> slice:
+        """This rank's rows of a batch of ``n`` along "data"."""
+        if n % self.data_size:
+            raise ValueError(f"batch {n} does not divide over the "
+                             f"{self.data_size} ranks of the data axis")
+        b = n // self.data_size
+        return slice(self.data_rank * b, (self.data_rank + 1) * b)
+
+    def kv_heads(self, n_heads: int, n_kv_heads: int) -> slice:
+        """The KV heads this rank's query heads read: a block of K/M where
+        M divides K, else (K divides M) the one head of its M/K ranks."""
+        m, k = self.size, n_kv_heads
+        self.block(n_heads, "n_heads")
+        if k % m == 0:
+            return self.block(k, "n_kv_heads")
+        if m % k == 0:
+            j = self.rank // (m // k)
+            return slice(j, j + 1)
+        raise ValueError(f"n_kv_heads = {k} and the model axis's {m} ranks: "
+                         "neither divides the other")
+
+    def check(self, cfg) -> None:
+        """Refuse a model this axis cannot split: a group kind other than
+        attention and MoE, or M not dividing a sharded dim."""
+        if self.size == 1:
+            return
+        kinds = sorted({g.kind for g in cfg.groups} - set(SHARDED_KINDS))
+        if kinds:
+            raise NotImplementedError(
+                f"the model axis (M = {self.size}) splits only the attn and "
+                f"moe groups; {kinds} wait for ROADMAP item 11b's remainder")
+        self.kv_heads(cfg.n_heads, cfg.n_kv_heads)
+        self.block(cfg.vocab_size, "vocab_size")
+        for g in cfg.groups:
+            dense = g.kind == "attn" or g.moe_every > 1 or g.shared_expert
+            if dense:
+                self.block(cfg.d_ff, "d_ff")
+            if g.kind == "moe":
+                self.block(g.n_experts, "n_experts")
+
+    def local_config(self, cfg):
+        """``cfg`` with this rank's query and KV head counts."""
+        if self.size == 1:
+            return cfg
+        kv = self.kv_heads(cfg.n_heads, cfg.n_kv_heads)
+        return dataclasses.replace(cfg, n_heads=cfg.n_heads // self.size,
+                                   n_kv_heads=kv.stop - kv.start)
+
+    # -- collectives ---------------------------------------------------------
+    @staticmethod
+    def _sum(x: torch.Tensor, group, size: int) -> torch.Tensor:
+        """SUM all-reduce of ``x`` in place over ``group``; on meta without
+        a group, charged to the cost count."""
+        if group is not None:
+            x = x.contiguous()
+            dist.all_reduce(x, op=dist.ReduceOp.SUM, group=group)
+        elif size > 1:
+            if not x.is_meta:
+                raise RuntimeError("a model axis of more than one rank needs "
+                                   "a process group (launch.mesh.model_axis)")
+            loops.charge_collective("all-reduce", x.numel() * x.element_size())
+        return x
+
+    def reduce(self, x: torch.Tensor) -> torch.Tensor:
+        """The sum of every rank's partial ``x`` over "model" (in place)."""
+        if self.off:
+            return x
+        return self._sum(x, self.group, self.size)
+
+    def gather_vocab(self, x: torch.Tensor, vocab: int) -> torch.Tensor:
+        """(..., V/M) logits of this rank's vocabulary block -> (..., V): an
+        all-reduce into a zero-filled buffer."""
+        if self.off:
+            return x
+        full = x.new_zeros(tuple(x.shape[:-1]) + (vocab,))
+        full[..., self.block(vocab, "vocab_size")] = x
+        return self.reduce(full)
+
+    def embed(self, tokens: torch.Tensor, table: torch.Tensor,
+              vocab: int) -> torch.Tensor:
+        """Rows of the embedding for ``tokens``, this rank holding rows
+        [r V/M, (r+1) V/M) of ``table``: a masked lookup, then the sum."""
+        if self.off:
+            return F.embedding(tokens, table)
+        rows = self.block(vocab, "vocab_size")
+        local = tokens - rows.start
+        mine = (local >= 0) & (local < table.shape[0])
+        x = F.embedding(local.clamp(0, table.shape[0] - 1), table)
+        return self.reduce(torch.where(mine[..., None], x, 0.0))
+
+    def gather_rows(self, x: torch.Tensor) -> torch.Tensor:
+        """(T, ...) rows of this rank's batch -> (data T, ...) of every
+        data rank, in rank order."""
+        if self.data_size == 1:
+            return x
+        t = x.shape[0]
+        full = x.new_zeros((self.data_size * t,) + tuple(x.shape[1:]))
+        full[self.data_rank * t:(self.data_rank + 1) * t] = x
+        return self._sum(full, self.data_group, self.data_size)
+
+    def local_rows(self, x: torch.Tensor) -> torch.Tensor:
+        """This rank's rows of a :meth:`gather_rows` result."""
+        if self.data_size == 1:
+            return x
+        t = x.shape[0] // self.data_size
+        return x[self.data_rank * t:(self.data_rank + 1) * t]
+
+
+NO_AXIS = ModelAxis()
+
+
+def leaf_sharding(axis: ModelAxis, path: str, spec: tuple, shape: tuple,
+                  cfg, *, kv_dim: int | None = None):
+    """What rank ``axis`` holds of a leaf at ``path`` with the reference's
+    pspec ``spec`` (a tuple of axis names): a tuple of (dim, slice) pairs,
+    or None for a leaf it holds whole. Its "model" dim is cut into M
+    blocks, but ``wk`` / ``wv`` give their KV heads' columns; a cache's
+    ``kv_dim`` (its KV-head dim) gives its KV heads whatever the spec says,
+    and its "data" dim its batch rows."""
+    key = path.rsplit("/", 1)[-1]
+    out = []
+    if "data" in spec and axis.data_size > 1:
+        dim = spec.index("data")
+        out.append((dim, axis.batch_rows(shape[dim])))
+    if axis.size > 1:
+        if kv_dim is not None:
+            out.append((kv_dim, axis.kv_heads(cfg.n_heads, cfg.n_kv_heads)))
+        elif "model" in spec:
+            dim = spec.index("model")
+            if key in _KV_LEAVES:
+                kv = axis.kv_heads(cfg.n_heads, cfg.n_kv_heads)
+                d = cfg.head_dim
+                out.append((dim, slice(kv.start * d, kv.stop * d)))
+            else:
+                out.append((dim, axis.block(shape[dim], path)))
+    return tuple(out) or None
+
+
+def take(x: torch.Tensor, shard) -> torch.Tensor:
+    """The part ``shard`` (see :func:`leaf_sharding`) of ``x``, as a tensor
+    of its own (no view that would keep the whole alive); ``x`` itself for
+    a whole leaf."""
+    if shard is None:
+        return x
+    for dim, sl in shard:
+        x = x.narrow(dim, sl.start, sl.stop - sl.start)
+    return x.clone(memory_format=torch.contiguous_format)

@@ -55,6 +55,15 @@ checkpoints at the reference's granularity: each ``attn`` layer, each MoE
 unit (its dense layers checkpointed inside it too), each mLSTM layer (the
 sLSTM is not), each Mamba2 layer, each zamba unit (its Mamba2 layers
 inside it too) and each cross/self unit (its self layers inside it too).
+
+``param_pspecs`` / ``cache_pspecs`` give the reference's PartitionSpec
+trees as tuples of mesh axis names. ``Transformer(cfg, axis=)`` is one
+rank of the model split over a mesh's "model" dim
+(:mod:`repro_torch.models.parallel`): the attention and MoE groups run
+on the rank's heads, FFN blocks and experts, the embedding and head on
+its vocabulary block, each partial summed through the axis's
+all-reduces; its ``param_shards`` / ``cache_shards`` say what it holds.
+Serving only; the other group kinds run only at M = 1.
 """
 from __future__ import annotations
 
@@ -62,11 +71,11 @@ import math
 from typing import Any
 
 import torch
-import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.core.partition import layer_list
-from repro_torch.core.tree_utils import tree_flatten, tree_map, tree_unflatten
+from repro_torch.core.tree_utils import (tree_flatten, tree_flatten_with_path,
+                                         tree_map, tree_unflatten)
 from repro_torch.device import resolve_device
 from repro_torch.kernels import ops as kops
 from repro_torch.models import ssm
@@ -78,6 +87,8 @@ from repro_torch.models.config import (AttnGroup, CrossSelfGroup, MambaGroup,
 from repro_torch.models.layers import (dense_init, init_rms_norm, mlp_apply,
                                        mlp_init, rms_norm, rope, softcap)
 from repro_torch.models.moe import init_moe, moe_apply
+from repro_torch.models.parallel import (NO_AXIS, SHARDED_KINDS, ModelAxis,
+                                         leaf_sharding, take)
 
 __all__ = ["Transformer"]
 
@@ -249,9 +260,55 @@ def _write_prompt(cache: torch.Tensor, kv: torch.Tensor) -> None:
         cache[:, slots] = kv[:, s - t:].to(cache.dtype)
 
 
-def _mlp_residual(lp, x, cfg: ModelConfig):
-    return x + mlp_apply(lp["mlp"], rms_norm(lp["ln2"], x, cfg.norm_eps),
-                         cfg.activation)
+def _mlp_residual(lp, x, cfg: ModelConfig, axis: ModelAxis = NO_AXIS):
+    return x + axis.reduce(mlp_apply(
+        lp["mlp"], rms_norm(lp["ln2"], x, cfg.norm_eps), cfg.activation))
+
+
+# ---------------------------------------------------------------------------
+# Partition specs (the reference's, as tuples of mesh axis names)
+# ---------------------------------------------------------------------------
+
+def _prepend(tree):
+    """Each spec of a (nested dict) spec tree with one more leading
+    unsharded dim."""
+    if isinstance(tree, dict):
+        return {k: _prepend(v) for k, v in tree.items()}
+    return (None,) + tree
+
+
+def _spec_paths(tree, prefix: str = "") -> dict:
+    """{"group_0/attn/wq": spec, ...} of a spec tree, the paths
+    :func:`repro_torch.core.tree_utils.tree_flatten_with_path` gives."""
+    if not isinstance(tree, dict):
+        return {prefix: tree}
+    out = {}
+    for k in sorted(tree):
+        out.update(_spec_paths(tree[k], f"{prefix}/{k}" if prefix else k))
+    return out
+
+
+def _attn_block_pspec(cfg: ModelConfig, prefix=()) -> dict:
+    mlp = {"w_up": (*prefix, None, "model"), "w_down": (*prefix, "model", None)}
+    if cfg.activation in ("silu", "geglu"):
+        mlp["w_gate"] = (*prefix, None, "model")
+    return {
+        "ln1": {"scale": (*prefix, None)},
+        "attn": {"wq": (*prefix, None, "model"), "wk": (*prefix, None, "model"),
+                 "wv": (*prefix, None, "model"), "wo": (*prefix, "model", None)},
+        "ln2": {"scale": (*prefix, None)},
+        "mlp": mlp,
+    }
+
+
+def _kv_pspec(cfg: ModelConfig, batch_axis, seq_axis) -> dict:
+    """The reference's KV cache spec: the KV heads over "model" only where
+    16 divides their count (``repro/models/transformer.py:253-256``); the
+    port's cache follows the rank's KV heads instead
+    (:meth:`Transformer.cache_shards`)."""
+    kv = (None, batch_axis, seq_axis,
+          "model" if cfg.n_kv_heads % 16 == 0 else None, None)
+    return {"k": kv, "v": kv}
 
 
 # ---------------------------------------------------------------------------
@@ -261,8 +318,9 @@ def _mlp_residual(lp, x, cfg: ModelConfig):
 class _AttnGroupImpl:
     """n GQA decoder blocks (pre-norm attention and MLP)."""
 
-    def __init__(self, spec: AttnGroup, cfg: ModelConfig):
-        self.spec, self.cfg = spec, cfg
+    def __init__(self, spec: AttnGroup, cfg: ModelConfig,
+                 axis: ModelAxis = NO_AXIS):
+        self.spec, self.cfg, self.axis = spec, cfg, axis
         ws = spec.layer_windows()
         self.windows = [w if w is not None else -1 for w in ws]
         self.thetas = [float(t) for t in spec.layer_thetas(cfg.rope_theta)]
@@ -273,6 +331,12 @@ class _AttnGroupImpl:
     def init(self, gen: torch.Generator, dtype, device) -> dict:
         return _stack_init(self.spec.n_layers, lambda: _init_attn_block(
             gen, self.cfg, dtype, device))
+
+    def pspec(self) -> dict:
+        return _attn_block_pspec(self.cfg, prefix=(None,))
+
+    def cache_pspec(self, *, batch_axis=None, seq_axis=None) -> dict:
+        return _kv_pspec(self.cfg, batch_axis, seq_axis)
 
     def train(self, params, x, positions, cache=None, use_flash=False,
               enc=None):
@@ -294,7 +358,7 @@ class _AttnGroupImpl:
     def _block(self, lp, x, positions, i: int, cache, use_flash: bool):
         """Layer i: pre-norm attention and MLP, each added to the residual."""
         return _mlp_residual(lp, self.attend(lp, x, positions, i, cache,
-                                             use_flash), self.cfg)
+                                             use_flash), self.cfg, self.axis)
 
     def attend(self, lp, x, positions, i: int, cache, use_flash: bool):
         """x + layer i's pre-norm attention over the whole sequence; with
@@ -306,15 +370,15 @@ class _AttnGroupImpl:
         if cache is not None:
             _write_prompt(cache["k"][i], k)
             _write_prompt(cache["v"][i], v)
-        return x + a
+        return x + self.axis.reduce(a)
 
     def attend_step(self, lp, x, pos: int, i: int, cache):
         """One token of :meth:`attend`, writing its K/V slot in place."""
         cfg = self.cfg
-        return x + _attn_decode(lp["attn"], rms_norm(lp["ln1"], x, cfg.norm_eps),
-                                pos, cache["k"][i], cache["v"][i], cfg,
-                                self.thetas[i], self.windows[i],
-                                self.uniform_window is not None)
+        return x + self.axis.reduce(_attn_decode(
+            lp["attn"], rms_norm(lp["ln1"], x, cfg.norm_eps), pos,
+            cache["k"][i], cache["v"][i], cfg, self.thetas[i],
+            self.windows[i], self.uniform_window is not None))
 
     def init_cache(self, batch: int, capacity: int, dtype, device) -> dict:
         cfg = self.cfg
@@ -329,7 +393,7 @@ class _AttnGroupImpl:
         ``cache`` in place."""
         for i, lp in enumerate(_layers(params)):
             x = _mlp_residual(lp, self.attend_step(lp, x, pos, i, cache),
-                              self.cfg)
+                              self.cfg, self.axis)
         return x
 
 
@@ -363,12 +427,14 @@ class _MoEGroupImpl:
     Each unit runs under :func:`_remat`, as the reference checkpoints its
     scan body."""
 
-    def __init__(self, spec: MoEGroup, cfg: ModelConfig):
-        self.spec, self.cfg = spec, cfg
+    def __init__(self, spec: MoEGroup, cfg: ModelConfig,
+                 axis: ModelAxis = NO_AXIS):
+        self.spec, self.cfg, self.axis = spec, cfg, axis
         self._dense_unit = (_AttnGroupImpl(AttnGroup(n_layers=spec.moe_every - 1),
-                                           cfg) if spec.moe_every > 1 else None)
+                                           cfg, axis)
+                            if spec.moe_every > 1 else None)
         # the MoE blocks' attention halves: one global layer a unit
-        self._attn = _AttnGroupImpl(AttnGroup(n_layers=spec.n_units), cfg)
+        self._attn = _AttnGroupImpl(AttnGroup(n_layers=spec.n_units), cfg, axis)
 
     def _init_block(self, gen, dtype, device) -> dict:
         cfg, spec = self.cfg, self.spec
@@ -390,6 +456,29 @@ class _MoEGroupImpl:
             "dense": self._dense_unit.init(gen, dtype, device),
             "moe": self._init_block(gen, dtype, device)})
 
+    def pspec(self) -> dict:
+        moe = {"router": (None, None, None),
+               "w_gate": (None, "model", None, None),
+               "w_up": (None, "model", None, None),
+               "w_down": (None, "model", None, None)}
+        if self.spec.shared_expert:
+            moe["shared"] = {"w_gate": (None, None, "model"),
+                             "w_up": (None, None, "model"),
+                             "w_down": (None, "model", None)}
+        base = _attn_block_pspec(self.cfg, prefix=(None,))
+        base.pop("mlp")
+        base["moe"] = moe
+        if self._dense_unit is None:
+            return base
+        return {"dense": _prepend(self._dense_unit.pspec()), "moe": base}
+
+    def cache_pspec(self, *, batch_axis=None, seq_axis=None) -> dict:
+        kv = _kv_pspec(self.cfg, batch_axis, seq_axis)
+        if self._dense_unit is None:
+            return kv
+        return {"dense": _prepend(self._dense_unit.cache_pspec(
+            batch_axis=batch_axis, seq_axis=seq_axis)), "moe": kv}
+
     def init_cache(self, batch: int, capacity: int, dtype, device) -> dict:
         kv = self._attn.init_cache(batch, capacity, dtype, device)
         if self._dense_unit is None:
@@ -403,8 +492,9 @@ class _MoEGroupImpl:
         out, aux = moe_apply(lp["moe"], rms_norm(lp["ln2"], x, self.cfg.norm_eps),
                              n_experts=spec.n_experts,
                              capacity_factor=spec.capacity_factor,
-                             router_aux_weight=spec.router_aux_weight)
-        return x + out, aux
+                             router_aux_weight=spec.router_aux_weight,
+                             axis=self.axis)
+        return x + self.axis.reduce(out), aux
 
     def _units(self, params, cache):
         """(unit params, its dense blocks' cache) of each unit, and the MoE
@@ -469,6 +559,25 @@ class _XLSTMGroupImpl:
         return _stack_init(self.spec.n_units,
                            lambda: self._init_unit(gen, dtype, device))
 
+    def pspec(self) -> dict:
+        m = {"w_up": (None, None, None, "model"),
+             "w_q": (None, None, None, "model"),
+             "w_k": (None, None, None, "model"),
+             "w_v": (None, None, None, "model"),
+             "w_if": (None, None, None, None), "b_if": (None, None, None),
+             "w_o": (None, None, None, "model"),
+             "w_down": (None, None, "model", None)}
+        s = {"w": (None, None, None), "r": (None, None, None), "b": (None, None)}
+        return {"mlstm": {"ln": {"scale": (None, None, None)}, "cell": m},
+                "slstm": {"ln": {"scale": (None, None)}, "cell": s}}
+
+    def cache_pspec(self, *, batch_axis=None, seq_axis=None) -> dict:
+        bax = batch_axis  # the recurrent state has no sequence dim
+        m = {"C": (None, None, bax, None, None, None),
+             "n": (None, None, bax, None, None), "m": (None, None, bax, None)}
+        return {"mlstm": m,
+                "slstm": {k: (None, bax, None) for k in ("c", "n", "m", "h")}}
+
     def init_cache(self, batch: int, capacity: int, dtype, device) -> dict:
         cfg, spec = self.cfg, self.spec
         m = ssm.mlstm_state(batch, cfg.d_model, cfg.n_heads, spec.proj_factor,
@@ -520,6 +629,16 @@ class _MambaGroupImpl:
             "cell": ssm.init_mamba2(gen, cfg.d_model, spec.d_state,
                                     spec.expand, self.HEAD_DIM, dtype, device)})
 
+    def pspec(self) -> dict:
+        cell = {"w_in": (None, None, "model"), "w_b": (None, None, None),
+                "w_c": (None, None, None), "w_dt": (None, None, None),
+                "b_dt": (None, None), "a_log": (None, None),
+                "d_skip": (None, None), "w_out": (None, "model", None)}
+        return {"ln": {"scale": (None, None)}, "cell": cell}
+
+    def cache_pspec(self, *, batch_axis=None, seq_axis=None) -> dict:
+        return {"h": (None, batch_axis, "model", None, None)}
+
     def init_cache(self, batch: int, capacity: int, dtype, device) -> dict:
         return _stacked(self.spec.n_layers, ssm.mamba2_state(
             batch, self.cfg.d_model, self.spec.d_state, self.spec.expand,
@@ -570,6 +689,21 @@ class _ZambaGroupImpl:
         if self._trailing is not None:
             params["trailing"] = self._trailing.init(gen, dtype, device)
         return params
+
+    def pspec(self) -> dict:
+        out = {"units_mamba": _prepend(self._mamba_unit.pspec()),
+               "shared_attn": _attn_block_pspec(self.cfg)}
+        if self._trailing is not None:
+            out["trailing"] = self._trailing.pspec()
+        return out
+
+    def cache_pspec(self, *, batch_axis=None, seq_axis=None) -> dict:
+        out = {"mamba": _prepend(self._mamba_unit.cache_pspec(
+                   batch_axis=batch_axis)),
+               "attn": _kv_pspec(self.cfg, batch_axis, seq_axis)}
+        if self._trailing is not None:
+            out["trailing"] = self._trailing.cache_pspec(batch_axis=batch_axis)
+        return out
 
     def init_cache(self, batch: int, capacity: int, dtype, device) -> dict:
         n = self.spec.n_units
@@ -639,6 +773,18 @@ class _CrossSelfGroupImpl:
                                           device),
             "self": self._self_unit.init(gen, dtype, device)})
 
+    def pspec(self) -> dict:
+        return {"cross_ln": {"scale": (None, None)},
+                "cross": {"wq": (None, None, "model"),
+                          "wk": (None, None, "model"),
+                          "wv": (None, None, "model"),
+                          "wo": (None, "model", None), "gate": (None, None)},
+                "self": _prepend(self._self_unit.pspec())}
+
+    def cache_pspec(self, *, batch_axis=None, seq_axis=None) -> dict:
+        return _prepend(self._self_unit.cache_pspec(batch_axis=batch_axis,
+                                                    seq_axis=seq_axis))
+
     def init_cache(self, batch: int, capacity: int, dtype, device) -> dict:
         return _stacked(self.spec.n_units, self._self_unit.init_cache(
             batch, capacity, dtype, device))
@@ -698,13 +844,26 @@ _GROUP_IMPLS = {
 # ---------------------------------------------------------------------------
 
 class Transformer:
-    """The assembled model: embed -> groups -> final norm -> (tied) LM head."""
+    """The assembled model: embed -> groups -> final norm -> (tied) LM head.
+
+    ``axis`` (a :class:`repro_torch.models.parallel.ModelAxis`; default
+    none) makes it one rank of a model split over the mesh's "model" dim:
+    its groups run on the rank's heads, FFN blocks and experts, its
+    embedding and head on the rank's vocabulary block, each partial summed
+    over the ranks where the reference's GSPMD program would. Serving
+    only: training over a model axis raises."""
 
     LOSS_CHUNK = 512  # sequence positions a chunk of the cross entropy
 
-    def __init__(self, cfg: ModelConfig):
+    def __init__(self, cfg: ModelConfig, axis: ModelAxis | None = None):
         self.cfg = cfg
-        self.groups = [_GROUP_IMPLS[g.kind](g, cfg) for g in cfg.groups]
+        self.axis = NO_AXIS if axis is None else axis
+        self.axis.check(cfg)
+        local = self.axis.local_config(cfg)
+        self.groups = [
+            _GROUP_IMPLS[g.kind](g, local, self.axis)
+            if g.kind in SHARDED_KINDS else _GROUP_IMPLS[g.kind](g, local)
+            for g in cfg.groups]
 
     @property
     def dtype(self) -> torch.dtype:
@@ -713,7 +872,12 @@ class Transformer:
     # -- parameters -----------------------------------------------------------
     def init(self, gen: torch.Generator, device=None) -> dict:
         """Fresh parameters from ``gen`` (a generator on ``device``; the
-        card by default)."""
+        card by default). Over a model axis of M > 1: the rank's shard of
+        the whole model's draw (every rank draws the whole model and keeps
+        its part, so one seed's shards make up the unsharded model's
+        parameters)."""
+        if self.axis.size > 1:
+            return self.shard_params(Transformer(self.cfg).init(gen, device))
         cfg = self.cfg
         dev = resolve_device(device)
         params: dict[str, Any] = {
@@ -728,6 +892,74 @@ class Transformer:
             params[f"group_{i}"] = g.init(gen, self.dtype, dev)
         return params
 
+    def _whole_groups(self) -> list:
+        """The groups of the whole model (a rank's hold its local heads)."""
+        return self.groups if self.axis.size == 1 else \
+            Transformer(self.cfg).groups
+
+    def param_pspecs(self) -> dict:
+        """The reference's PartitionSpec tree of the parameters, each spec a
+        tuple of mesh axis names (``None``: unsharded dim)."""
+        specs: dict[str, Any] = {"embed": ("model", None),
+                                 "final_ln": {"scale": (None,)}}
+        if not self.cfg.tie_embedding:
+            specs["lm_head"] = (None, "model")
+        for i, g in enumerate(self._whole_groups()):
+            specs[f"group_{i}"] = g.pspec()
+        return specs
+
+    def cache_pspecs(self, *, batch_axis="data", seq_axis=None) -> dict:
+        """The reference's PartitionSpec tree of the cache, as tuples."""
+        return {f"group_{i}": g.cache_pspec(batch_axis=batch_axis,
+                                            seq_axis=seq_axis)
+                for i, g in enumerate(self._whole_groups())}
+
+    def _whole_shapes(self, make) -> list:
+        """(path, shape) of each leaf of ``make(the whole model)`` on meta."""
+        return [(p, tuple(x.shape)) for p, x in
+                tree_flatten_with_path(make(Transformer(self.cfg)))[0]]
+
+    def param_shards(self) -> dict:
+        """What this rank holds of each parameter, by path (the paths of
+        :func:`repro_torch.core.tree_utils.tree_flatten_with_path`): a
+        tuple of (dim, slice) pairs
+        (:func:`repro_torch.models.parallel.leaf_sharding`), ``None`` for a
+        leaf it holds whole."""
+        specs = _spec_paths(self.param_pspecs())
+        return {p: leaf_sharding(self.axis, p, specs[p], shape, self.cfg)
+                for p, shape in self._whole_shapes(lambda m: m.init(
+                    torch.Generator(device="cpu"), device="meta"))}
+
+    def cache_shards(self, batch: int, capacity: int, *,
+                     shard_seq: bool = False) -> dict:
+        """:meth:`param_shards` of a (batch, capacity) cache of the whole
+        model: the rank's rows of the batch over "data", and of a KV leaf
+        its KV heads (the reference's spec replicates KV unless 16 divides
+        K). ``shard_seq`` (the reference's sequence-sharded long-context
+        decode) is refused where the data dim is above 1."""
+        if shard_seq and self.axis.data_size > 1:
+            raise NotImplementedError(
+                "shard_seq over a data dim above 1 (long_500k's "
+                "sequence-sharded decode) waits for ROADMAP item 11b's "
+                "remainder")
+        specs = _spec_paths(self.cache_pspecs(
+            batch_axis=None if shard_seq else "data"))
+        return {
+            p: leaf_sharding(self.axis, p, specs[p], shape, self.cfg,
+                             kv_dim=len(shape) - 2
+                             if p.rsplit("/", 1)[-1] in ("k", "v") else None)
+            for p, shape in self._whole_shapes(lambda m: m.init_cache(
+                batch, capacity, device="meta"))}
+
+    def shard_params(self, params: dict) -> dict:
+        """This rank's part of the whole model's ``params`` (a new tree; a
+        leaf held whole is the same tensor)."""
+        if self.axis.size == 1:
+            return params
+        shards = self.param_shards()
+        pairs, treedef = tree_flatten_with_path(params)
+        return tree_unflatten(treedef, [take(x, shards[p]) for p, x in pairs])
+
     # -- forward --------------------------------------------------------------
     def _scale_embed(self, x: torch.Tensor) -> torch.Tensor:
         if self.cfg.embed_scale:  # sqrt(d_model) rounded to f32, as a scalar
@@ -739,7 +971,8 @@ class Transformer:
         if self.cfg.input_mode == "embeddings":
             x = batch["embeds"].to(self.dtype)
         else:
-            x = F.embedding(batch["tokens"], params["embed"])
+            x = self.axis.embed(batch["tokens"], params["embed"],
+                                self.cfg.vocab_size)
         return self._scale_embed(x)
 
     def _backbone(self, params, x, positions, caches=None, use_flash=False,
@@ -759,7 +992,9 @@ class Transformer:
             logits = x @ params["embed"].T
         else:
             logits = x @ params["lm_head"]
-        return softcap(logits.float(), self.cfg.logit_softcap)
+        return self.axis.gather_vocab(
+            softcap(logits.float(), self.cfg.logit_softcap),
+            self.cfg.vocab_size)
 
     # -- training ---------------------------------------------------------------
     def _labels(self, batch):
@@ -771,6 +1006,10 @@ class Transformer:
         load-balance loss (zero for the other kinds). A cross-attention
         model reads the image embeddings ``batch["image_embeds"]`` (B, M,
         d_model)."""
+        if not self.axis.off:
+            raise NotImplementedError(
+                "training over the model axis (the train-state model "
+                "pspecs) waits for ROADMAP item 11b's remainder")
         x = self._embed_inputs(params, batch)
         b, s = x.shape[:2]
         positions = torch.arange(s, device=x.device)[None].expand(b, s)
@@ -836,7 +1075,8 @@ class Transformer:
         if self.cfg.input_mode == "embeddings":
             x = token[:, None, :].to(self.dtype)
         else:
-            x = F.embedding(token, params["embed"])[:, None, :]
+            x = self.axis.embed(token, params["embed"],
+                                self.cfg.vocab_size)[:, None, :]
         x = self._scale_embed(x)
         for i, g in enumerate(self.groups):
             x = g.decode(params[f"group_{i}"], x, int(pos), cache[f"group_{i}"],
