@@ -99,10 +99,12 @@ Phases, each printing one JSON line:
 16. ``training_agreement``  the same model with 2 layers, 4 nodes, 3 steps,
                   noise through ``bits_at``: the card against the CPU.
 17. ``serve`` of the other group kinds at full width on a 4,096-token
-                  prompt, 32 tokens generated: zamba2-7b (all 81 layer
-                  applications), llama-3.2-vision-11b (all 40 layers, 1,600
-                  image tokens, gates at 0.5), xlstm-125m (all 12) and
-                  llama4-scout-17b-a16e at 4 of its 48 layers; as phase 10,
+                  prompt, 32 tokens generated: zamba2-7b at 4 of its 11
+                  units (28 of its 70 Mamba2 layers, 4 applications of the
+                  shared block), llama-3.2-vision-11b (all 40 layers, 1,600
+                  image tokens, gates at 0.5), xlstm-125m at 1 of its 3
+                  units and llama4-scout-17b-a16e at 4 of its 48 layers
+                  (the recurrent kinds cut for the script's time); as phase 10,
                   with each recurrent scan bracketed by CUDA events too (its
                   share of the prefill).
 18. ``group_serve_agreement``  those kinds' five smoke configs (maverick's
@@ -111,7 +113,8 @@ Phases, each printing one JSON line:
                   same parameters and Gumbel noise.
 19. ``group_training``  PartPSP training of the other group kinds at
                   their published widths, 4 x 64 tokens a node, 3 steps,
-                  2-out graph, dense schedule: (a) xlstm-125m whole, N = 4;
+                  2-out graph, dense schedule: (a) xlstm-125m, one of its
+                  3 units, N = 4;
                   (b) zamba2-7b, one of its 11 units, N = 4; (c)
                   llama-3.2-vision-11b, one of its 8 units, 1,600 image
                   tokens, gates at 0.5, N = 2; each with phase 15's figures
@@ -306,13 +309,40 @@ Phases, each printing one JSON line:
                   1e-5. Its times are two ranks sharing one card with
                   host-staged all-reduces: no speed figures of tensor
                   parallelism.
+32. ``model_axis_train`` PartPSP training over the model axis
+                  (``build_train_plan(arch, mesh)``): (a) 29b's TrainPlan
+                  (llama3.2-1b, N = 4, 2 x 1,024 tokens a node) unsharded
+                  and on a one-rank NCCL world's (1, 1) mesh, 2 steps
+                  each: the states bit for bit alike (a digest of every
+                  leaf's bits), the first step's c10d calls equal to
+                  ``train_collectives``, the launches exact; the strided
+                  perturbation (``dpps_perturb.cu`` at a column map) at
+                  rank 0's half of llama's shared w_up and at maps whose
+                  run, offset and column straddle Philox counters, bit
+                  for bit the whole launch's columns and the plain
+                  version's, timed beside a contiguous launch; (b) a
+                  2-rank gloo world on the card (``chip_smoke.py
+                  --train-rank JSON`` subprocesses), M = 2: llama3.2-1b at
+                  full width, N = 4, 1 x 512 tokens a node, 2 steps,
+                  against the unsharded plan run first in this process on
+                  the same weights and Philox bits (losses within 1e-5
+                  relative, the parameter leaves within atol 1e-4 at a
+                  stride of at most 2^24 elements a leaf, every leaf's L1
+                  norm and the sensitivity vectors within 1e-5), each
+                  rank's calls, launches (the strided ones apart) and peak
+                  below the unsharded one; (c) llama4-scout at one MoE
+                  layer, one node's loss and backward at M = 2, its
+                  gradient shards against the unsharded ones likewise,
+                  every top-1 router margin above 1e-5. Its times are two
+                  ranks sharing one card: no speed figures of tensor
+                  parallelism.
 
 Each kernel counts its launches. The counts are set to 0 just before each
 path (phases 3-7, 10, 13, 15, 17, each run of 19 and 22, each serve of 20,
 23, each run of 24, 25 and 26, each battery of 27, a codec each in
 its wire battery, each run of 28, each card step of 29, each sharded
-run of 30a, and each timed run of 31, a rank's among them) and read just
-after; each path names the kernels it must launch
+run of 30a, each timed run of 31, a rank's among them, and 32a's and
+each 32b rank's steps) and read just after; each path names the kernels it must launch
 (and the sparse paths must launch ``pushsum_mix`` no time; the training
 paths exactly their counts). Then come the card's
 name and power limit (``nvidia-smi``), the ``kernels`` line with every
@@ -358,14 +388,19 @@ SEED = 2024
 # cut to 1 to fit one card; 32 tokens generated.
 SERVE_PROMPT, SERVE_GEN = 32_768, 32
 # The other group kinds at full width on a prompt of train_4k's length
-# (4,096): arch -> layers kept (None: all). llama4-scout keeps 4 of its 48
-# layers: 8.81 GB a layer in f32 (16 experts of 3 x 5120 x 8192), 43.5 GB
-# with the embedding and head; all 48 would be 431 GB. llama4-maverick
-# (65.9 GB a unit of one dense and one 128-expert layer) runs at its smoke
-# config only, in phase 18.
+# (4,096): arch -> the cut of its one group (None: whole). llama4-scout
+# keeps 4 of its 48 layers: 8.81 GB a layer in f32 (16 experts of 3 x 5120
+# x 8192), 43.5 GB with the embedding and head; all 48 would be 431 GB.
+# zamba2-7b keeps 4 of its 11 units (and its 4 trailing Mamba2 layers: 28
+# of 70), xlstm-125m 1 of its 3 units: their prefill is a host-bound loop
+# over the 4,096 positions a recurrent layer (whole, 20-29 s and 11-20 s
+# on an H100 80GB HBM3 at 700 W), cut so that the whole script keeps its
+# time limit with phase 32. llama4-maverick (65.9 GB a unit of one dense
+# and one 128-expert layer) runs at its smoke config only, in phase 18.
 GROUP_SERVE_PROMPT = 4096
-GROUP_SERVE = {"zamba2-7b": None, "llama-3.2-vision-11b": None,
-               "xlstm-125m": None, "llama4-scout-17b-a16e": 4}
+GROUP_SERVE = {"zamba2-7b": dict(n_units=4), "llama-3.2-vision-11b": None,
+               "xlstm-125m": dict(n_units=1),
+               "llama4-scout-17b-a16e": dict(n_layers=4)}
 GROUP_SERVE_SMOKE = ("llama4-scout-17b-a16e", "llama4-maverick-400b-a17b",
                      "xlstm-125m", "zamba2-7b", "llama-3.2-vision-11b")
 FLASH_SHAPES = {  # (B, S, H, K, D, window)
@@ -428,13 +463,15 @@ AGREE_LM = dict(n=4, layers=2, per_node_batch=1, seq_len=64, steps=3)
 # 64 tokens a node (the reference launcher's --per-node-batch 4 --seq-len
 # 64), 3 steps, a 2-out graph, the dense schedule, sync every 5. Runs a-c
 # train with PartPSP: run -> the arch, N, the cut of its one group (None:
-# whole) and d_s under its rules; depth is cut only where one card (80 GB)
-# forces it. Run d (llama4-scout, one of 48 layers, 17.1 GB of f32
+# whole) and d_s under its rules; depth is cut where one card (80 GB)
+# forces it, and in run a (xlstm-125m, 1 of its 3 units) where its
+# host-bound time loops (12.6-14.5 s a step whole on an H100 80GB HBM3 at
+# 700 W) would take the whole script near its time limit. Run d (llama4-scout, one of 48 layers, 17.1 GB of f32
 # params) takes one node's loss and backward only: at N = 2 the params
 # take 34 GB and the local gradients another 33.7 GB.
 GROUP_TRAIN = dict(per_node_batch=4, seq_len=64, steps=3, sync_interval=5)
 GROUP_TRAIN_RUNS = {
-    "a": dict(arch="xlstm-125m", n=4, cut=None, d_s=95_669_064),
+    "a": dict(arch="xlstm-125m", n=4, cut=dict(n_units=1), d_s=31_889_688),
     "b": dict(arch="zamba2-7b", n=4, cut=dict(n_units=1, trailing_mamba=0),
               d_s=205_528_064),
     "c": dict(arch="llama-3.2-vision-11b", n=2, cut=dict(n_units=1),
@@ -1397,11 +1434,11 @@ def bracketed(torch, module, names, events: dict, length: int | None = None):
 
 
 def serve(torch, ops, dev, arch: str, *, prompt: int = SERVE_PROMPT,
-          layers: int | None = None) -> dict:
+          cut: dict | None = None) -> dict:
     """``Session.build(model=...).serve`` of ``arch`` at its full published
     width, f32, ``flash_prefill`` on: one ``prompt``-token prompt,
-    ``SERVE_GEN`` tokens; all layers, or the first ``layers`` of its one
-    group. A VLM gets image embeddings (normal x 0.1, its n_image_tokens)
+    ``SERVE_GEN`` tokens; all layers, or its one group cut as ``cut``
+    says (e.g. ``n_layers``, ``n_units``). A VLM gets image embeddings (normal x 0.1, its n_image_tokens)
     and its gates at 0.5. Each flash launch of the prefill, and each
     recurrent scan (``ssm._mlstm_scan``, ``_slstm_scan``, ``_mamba2_scan``),
     is bracketed by CUDA events (the functions themselves are called as
@@ -1420,10 +1457,10 @@ def serve(torch, ops, dev, arch: str, *, prompt: int = SERVE_PROMPT,
 
     spec = get_config(arch)
     cfg = dataclasses.replace(spec.model, flash_prefill=True)
-    if layers is not None:
+    if cut is not None:
         (group,) = cfg.groups
         cfg = dataclasses.replace(cfg, groups=(
-            dataclasses.replace(group, n_layers=layers),))
+            dataclasses.replace(group, **cut),))
     model = Transformer(cfg)
     n_attn = attention_layers(cfg)
     torch.cuda.synchronize()
@@ -5527,6 +5564,656 @@ def model_axis_phase(torch, ops, ref, dev, smi: str) -> tuple:
     return out, counts, flash_checks
 
 
+# -- phase 32: training over the model axis ------------------------------------
+
+# 32b: llama3.2-1b at full width over TP_RANKS gloo ranks on the one card
+# (M = 2), N = 4 nodes of one 512-token sequence, 2 steps, against the
+# unsharded TrainPlan on the same weights and Philox bits, run first in
+# this process and freed before the ranks start. Reckoned peaks (f32, the
+# step's largest buffers): unsharded, the state (19.8 GB), the updated
+# local leaves and their gradients (15.9 GB each) and y (3.9 GB), ~56 GB;
+# a rank half of each, ~28 GB, the two ~57 GB together: under 70 GB of
+# the card, so N stays 4.
+TRAIN_TP = dict(arch="llama3.2-1b", n=4, per_node_batch=1, seq_len=512,
+                steps=2)
+# the loss within 1e-5 relative and every leaf within atol 1e-4 of the
+# unsharded run's (only the order of the model axis's sums differs); a
+# leaf is compared at a stride over the rank's shard, at most
+# TRAIN_TP_SAMPLE of its elements (a leaf of no more whole), and its L1
+# norm within TRAIN_TP_NORM_RTOL
+TRAIN_TP_LOSS_RTOL = 1e-5
+TRAIN_TP_ATOL = 1e-4
+TRAIN_TP_SAMPLE = 1 << 24
+TRAIN_TP_NORM_RTOL = 1e-5
+TRAIN_TP_JOIN_S = 600
+# 32c: llama4-scout at one MoE layer of its 48 (phase 19's run d), one
+# node's loss and backward over every parameter at M = 2; the data seed
+# the first of TP_SEED_TRIES whose every top-1 router margin in the
+# unsharded pass is above TP_ROUTE_MARGIN (31b's rule)
+# the strided perturbation: a rank's block [a, b) of the last dim of a
+# (lead, width) leaf at wire column col0; run, off and col0 not multiples
+# of 4 (a quad straddles Philox counters), runs of 11 (quads across run
+# ends), long rows (several blocks a row)
+STRIDED_MAPS = ((6, 10, 3, 8, 5), (1000, 33, 11, 22, 1),
+                (3, 100_003, 7, 100_000, 2))
+# the main path's largest strided leaf: rank 0's half of the columns of
+# llama3.2-1b's shared w_up ((4, 2048, 8192) a node: lead 4 x 2048, width
+# 8192), N = 4, at its column in the wire row (after wk, wo, wq, wv, the
+# two norm scales, w_down and w_gate of the four shared layers)
+STRIDED_MAIN = (4, 4 * 2048, 8192, 0, 4096, 176_177_152)
+
+
+def state_digests(torch, leaves, chunk: int = 1 << 26) -> list:
+    """Each tensor's 32-bit words as two int64 sums (modulo 2^64): plain,
+    and weighted by position % 65521 + 1; a digest of its bits, taken on
+    its device in chunks."""
+    out = []
+    for x in leaves:
+        flat = x.detach().contiguous().reshape(-1).view(torch.int32)
+        total = torch.zeros((), dtype=torch.int64, device=x.device)
+        weighted = torch.zeros_like(total)
+        for c0 in range(0, flat.numel(), chunk):
+            part = flat[c0:c0 + chunk].to(torch.int64)
+            pos = torch.arange(c0, c0 + part.numel(), device=x.device)
+            total += part.sum()
+            weighted += (part * (pos % 65521 + 1)).sum()
+        out.append([int(total), int(weighted)])
+    return out
+
+
+def train_pass_collectives(cfg, seq: int, m: int) -> int:
+    """The all-reduces of one node's loss and backward on a rank of the
+    model axis where no KV head is shared (M <= K), as the code is
+    written: one after the embedding, two a layer (after wo, after w_down
+    or the MoE combine) and, at M > 1, three a 512-position loss chunk
+    (its max, its exponentials' sum, its target's logit); the backward's
+    recomputation of each layer's first and, at M > 1, each chunk's first
+    two; the copy-to-model sums, two an attention layer, three an MoE
+    unit (its attention's input, its experts' tokens, its gate
+    probability), one a chunk's head."""
+    layers = sum(g.n_layers for g in cfg.groups)
+    units = sum(g.n_layers for g in cfg.groups if g.kind == "moe")
+    chunks = -(-(seq - 1) // 512)
+    return ((cfg.input_mode == "tokens") + 5 * layers + units + chunks
+            + (5 * chunks if m > 1 else 0))
+
+
+def train_collectives(cfg, nodes: int, seq: int, m: int, t: int) -> dict:
+    """A rank's PartPSP round t over ``nodes`` node rows (a data dim of 1):
+    two passes a node, and the per-node norms finished over "model" (the
+    perturbation's, the noise's, the clip's; s^(0)'s at round 0)."""
+    return {"all-reduce": 2 * nodes * train_pass_collectives(cfg, seq, m)
+            + 3 + (t == 0)}
+
+
+def lm_steps(torch, dev, plan, steps: int, count=None) -> tuple:
+    """``steps`` steps of a TRAIN_LM plan from the seeded init on 29b's
+    batch (seeds SEED, SEED + 1, ...), the first under ``count`` (a
+    ``CollectiveCount``) where one is given -> (digests of the final
+    state's leaves, the last step's ms, its loss)."""
+    state = plan.init_state(dev, seed=SEED)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    batch = {"tokens": torch.randint(
+        0, plan.model.cfg.vocab_size, tuple(plan.batch_specs["tokens"].shape),
+        generator=gen, device=dev, dtype=torch.int32)}
+    for t in range(steps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if t == 0 and count is not None:
+            with count:
+                state, metrics = plan.step_fn(state, batch, SEED + t)
+        else:
+            state, metrics = plan.step_fn(state, batch, SEED + t)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+    digests = state_digests(torch, state_leaves(torch, state))
+    loss = float(metrics["loss_mean"])
+    del state, batch, metrics
+    torch.cuda.empty_cache()
+    return digests, ms, loss
+
+
+def train_one_rank(torch, ops, dev, lm: dict) -> tuple:
+    """32a: 29b's TrainPlan (TRAIN_LM, its gamma_n) unsharded and as rank 0
+    of a one-rank NCCL world's (1, 1) mesh, two steps each from the same
+    seeded state and batch: the states bit for bit alike (a digest of
+    every leaf's bits), the rank's first step's c10d calls the code's
+    count (under ``CollectiveCount``; the second timed without it), its
+    launches the tree runtime's exact count."""
+    import dataclasses
+
+    import torch.distributed as dist
+
+    from repro_torch.configs import ShapeSpec, get_config
+    from repro_torch.launch.op_analysis import CollectiveCount
+    from repro_torch.launch.steps import build_train_plan
+
+    arch = get_config(TRAIN_LM["arch"])
+
+    def plan_of(mesh):
+        plan = build_train_plan(arch, TRAIN_LM["n"] if mesh is None else mesh,
+                                nodes=TRAIN_LM["n"],
+                                shape=ShapeSpec(**TRAIN_LM_SHAPE))
+        plan.cfg = dataclasses.replace(plan.cfg, dpps=dataclasses.replace(
+            plan.cfg.dpps, gamma_n=lm["gamma_n"]))
+        return plan
+
+    want, whole_ms, _ = lm_steps(torch, dev, plan_of(None), 2)
+    count = CollectiveCount()
+    with tempfile.TemporaryDirectory() as tmp:
+        mesh = shard_world(tmp)
+        try:
+            plan = plan_of(mesh)
+            ops.reset_launch_counts()
+            digests, step_ms, loss = lm_steps(torch, dev, plan, 2, count)
+            launches = ops.launch_counts()
+        finally:
+            dist.destroy_process_group()
+    leaves = len(plan.partition.split_static(
+        [None] * len(plan.partition.leaf_plans()))[0])
+    calls = {k: count.calls[k] for k in count.calls}
+    want_calls = train_collectives(arch.model, TRAIN_LM["n"],
+                                   TRAIN_LM["seq_len"], 1, 0)
+    require(digests == want,
+            "32a: the one-rank model axis's state after two steps is not "
+            "the unsharded plan's bit for bit")
+    require(calls == want_calls, f"32a: c10d calls {calls}, expected "
+            f"{want_calls}")
+    require_exact(launches, {k: v for k, v in tree_launches(
+        leaves, 0, 2, plan.cfg.dpps.sync_interval).items() if v},
+        "32a training")
+    return dict(bit_for_bit=True, steps=2, calls_first_step=calls,
+                step_ms=step_ms, unsharded_step_ms=whole_ms,
+                phase29b_step_ms=lm["step_ms"], loss=loss,
+                launches=launches), launches
+
+
+def tp_train_plan(mesh, gamma_n: float | None = None):
+    """32b's TrainPlan (TRAIN_TP): the unsharded one (mesh None) or a
+    rank's; gamma_n half the Remark-1 stability limit of the unsharded
+    plan's d_s (as 29b's)."""
+    import dataclasses
+
+    from repro_torch.configs import ShapeSpec, get_config
+    from repro_torch.launch.steps import build_train_plan
+
+    arch = get_config(TRAIN_TP["arch"])
+    shape = ShapeSpec("train_tp", TRAIN_TP["seq_len"],
+                      TRAIN_TP["n"] * TRAIN_TP["per_node_batch"], "train")
+    plan = build_train_plan(arch, TRAIN_TP["n"] if mesh is None else mesh,
+                            nodes=TRAIN_TP["n"], shape=shape)
+    dpps = plan.cfg.dpps
+    if gamma_n is None:
+        gamma_n = 0.5 * (1.0 / dpps.lam - 1.0) * dpps.b / (
+            2.0 * dpps.c_prime * plan.partition.d_shared())
+    plan.cfg = dataclasses.replace(plan.cfg, dpps=dataclasses.replace(
+        dpps, gamma_n=gamma_n))
+    return plan, gamma_n
+
+
+def rank_launches(plan, rank: int) -> tuple[dict, int]:
+    """The exact launches of rank ``rank``'s TRAIN_TP steps at M = TP_RANKS
+    (the tree runtime, a data dim of 1): a norm of each shared leaf whose
+    columns the rank counts a step (and of s at round 0), a perturbation
+    and a mix of each shared leaf a step; and how many of the
+    perturbations draw at strided columns (a leaf split on a dim after its
+    first)."""
+    from repro_torch.launch.sharding import train_columns
+    from repro_torch.models.parallel import ModelAxis
+    from repro_torch.models.transformer import Transformer
+
+    steps = TRAIN_TP["steps"]
+    axis = ModelAxis(size=TP_RANKS, rank=rank)
+    counted, maps = train_columns(Transformer(plan.model.cfg, axis=axis),
+                                  plan.partition, axis)
+    want = {k: 0 for k in KERNELS}
+    want.update(l1_norm_rows=sum(counted) * (steps + 1),
+                dpps_perturb_rows=len(maps) * steps,
+                pushsum_mix=len(maps) * steps)
+    return want, sum(not m.contiguous for m in maps) * steps
+
+
+def tp_tokens(torch, dev, shape: tuple, vocab: int, seed: int):
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    return torch.randint(0, vocab, shape, generator=gen, device=dev,
+                         dtype=torch.int32)
+
+
+def shard_samples(torch, named: dict, blocks, ranks: int) -> list:
+    """For each of ``ranks`` model ranks, each leaf's shard (``blocks[r]
+    [path]``: its (dim, slice) pairs, None whole) as (stride, its elements
+    at that stride (on the host), its L1 norm in f64)."""
+    from repro_torch.models.parallel import take
+
+    out = []
+    for r in range(ranks):
+        leaves = {}
+        for path, x in named.items():
+            shard = take(x.detach(), blocks[r][path])
+            flat = shard.reshape(-1)
+            k = -(-flat.numel() // TRAIN_TP_SAMPLE)
+            leaves[path] = (k, flat[::k].cpu(), float(
+                shard.abs().sum(dtype=torch.float64)))
+            del shard, flat
+        out.append(leaves)
+    return out
+
+
+def samples_agree(torch, named: dict, want: dict) -> dict:
+    """A rank's leaves against :func:`shard_samples`' entries: the largest
+    error at the sampled elements of the parameter leaves, the largest
+    relative error of ``a`` and the (N,) sensitivity vectors (noise norms
+    of ~1e9 at full width), the largest relative L1-norm gap."""
+    worst, rel, norm_gap, compared = 0.0, 0.0, 0.0, 0
+    require(set(named) == set(want), "the rank's leaves are not the "
+            "unsharded run's")
+    for path, x in named.items():
+        k, sample, norm = want[path]
+        got = x.detach().reshape(-1)[::k]
+        diff = (got - sample.to(got.device)).abs()
+        if path.startswith((".dpps/.push/.a", ".dpps/.sens/")):
+            rel = max(rel, (diff / sample.to(got.device).abs()).max().item())
+        else:
+            worst = max(worst, diff.max().item())
+        norm_gap = max(norm_gap, abs(float(x.detach().abs().sum(
+            dtype=torch.float64)) - norm) / max(norm, 1e-30))
+        compared += got.numel()
+    return dict(max_abs_err=worst, vectors_max_rel_err=rel,
+                max_norm_rel_gap=norm_gap, compared=compared,
+                leaves=len(named))
+
+
+def named_state(torch, state) -> dict:
+    from repro_torch.core.tree_utils import tree_flatten_with_path
+
+    return {p: x for p, x in tree_flatten_with_path(state)[0]
+            if isinstance(x, torch.Tensor) and x.dim()}
+
+
+def moe_train_config():
+    """32c's (ArchSpec, ModelConfig): llama4-scout at one MoE layer."""
+    import dataclasses
+
+    spec, cfg = group_train_config(GROUP_TRAIN_RUNS["d"])
+    return dataclasses.replace(spec, model=cfg), cfg
+
+
+def router_margins(torch, model, params, tokens) -> float:
+    """The smallest top-1 router-probability margin of ``model``'s loss
+    forward on one node's ``tokens`` (without grad)."""
+    from repro_torch.models import moe
+
+    route, margins = moe.moe_route, []
+
+    def recorded(router, toks, n_experts, cap):
+        r = route(router, toks, n_experts, cap)
+        top2 = r["probs"].topk(2, dim=-1).values
+        margins.append((top2[:, 0] - top2[:, 1]).min().item())
+        return r
+
+    moe.moe_route = recorded
+    try:
+        with torch.no_grad():
+            model.loss_fn(params, {"tokens": tokens})
+    finally:
+        moe.moe_route = route
+    return min(margins)
+
+
+def moe_loss_grads(torch, model, params, tokens):
+    """One node's loss and its gradient of every leaf (by path)."""
+    from repro_torch.core.tree_utils import (tree_flatten_with_path,
+                                             tree_unflatten)
+
+    pairs, treedef = tree_flatten_with_path(params)
+    leaves = [x.detach().requires_grad_(True) for _, x in pairs]
+    loss = model.loss_fn(tree_unflatten(treedef, leaves), {"tokens": tokens})
+    grads = torch.autograd.grad(loss, leaves)
+    return float(loss.detach()), {p: g for (p, _), g in zip(pairs, grads)}
+
+
+def tp_train_reference(torch, dev, tmp: str) -> dict:
+    """32b and 32c unsharded, in this process: 32b's TRAIN_TP steps from
+    the seeded init (losses, ms), its final state sampled for each rank's
+    shard; 32c's loss and gradients at the first data seed whose router
+    margins hold, sampled likewise. The samples are saved to ``tmp``."""
+    from repro_torch.launch.sharding import train_state_blocks
+    from repro_torch.models.parallel import ModelAxis
+    from repro_torch.models.transformer import Transformer
+
+    plan, gamma_n = tp_train_plan(None)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    state = plan.init_state(dev, seed=SEED)
+    tokens = tp_tokens(torch, dev, tuple(plan.batch_specs["tokens"].shape),
+                       plan.model.cfg.vocab_size, SEED + 2)
+    losses, ms = [], []
+    for t in range(TRAIN_TP["steps"]):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, metrics = plan.step_fn(state, {"tokens": tokens}, SEED + t)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append(float(metrics["loss_mean"]))
+    peak = torch.cuda.max_memory_allocated() - base
+    named = named_state(torch, state)
+    leaves = list(named)
+    blocks = []
+    for r in range(TP_RANKS):
+        b = train_state_blocks(state, plan.model, ModelAxis(size=TP_RANKS,
+                                                            rank=r),
+                               plan.partition)
+        blocks.append({p: ((0, slice(0, TRAIN_TP["n"])),) + blk
+                       for p, blk in zip(leaves, b)})
+    lm = shard_samples(torch, named, blocks, TP_RANKS)
+    del state, named, metrics
+    torch.cuda.empty_cache()
+
+    spec, cfg = moe_train_config()
+    model = Transformer(cfg)
+    params = model.init(torch.Generator(device=dev).manual_seed(SEED),
+                        device=dev)
+    shape = (GROUP_TRAIN["per_node_batch"], GROUP_TRAIN["seq_len"])
+    for data_seed in range(SEED, SEED + TP_SEED_TRIES):
+        tok = tp_tokens(torch, dev, shape, cfg.vocab_size, data_seed)
+        margin = router_margins(torch, model, params, tok)
+        if margin > TP_ROUTE_MARGIN:
+            break
+    else:
+        raise AssertionError(f"32c: no data seed in {TP_SEED_TRIES} gives "
+                             "every top-1 router margin above "
+                             f"{TP_ROUTE_MARGIN}")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    loss, grads = moe_loss_grads(torch, model, params, tok)
+    torch.cuda.synchronize()
+    moe_ms = (time.perf_counter() - t0) * 1e3
+    shards = [Transformer(cfg, axis=ModelAxis(size=TP_RANKS, rank=r))
+              .param_shards() for r in range(TP_RANKS)]
+    moe_samples = shard_samples(torch, grads, shards, TP_RANKS)
+    del params, grads, model
+    torch.cuda.empty_cache()
+    paths = []
+    for r in range(TP_RANKS):
+        path = f"{tmp}/expected{r}.pt"
+        torch.save({"lm": lm[r], "moe": moe_samples[r]}, path)
+        paths.append(path)
+    return dict(paths=paths, gamma_n=gamma_n, losses=losses, step_ms=ms,
+                launches=[rank_launches(plan, r) for r in range(TP_RANKS)],
+                peak_gb=peak / 1e9, moe_loss=loss, moe_ms=moe_ms,
+                moe_data_seed=data_seed, routing_margin=margin,
+                d_s=plan.partition.d_shared())
+
+
+def train_tp_rank(torch, ops, dev, *, rank: int, store: str, out: str,
+                  expected: str, gamma_n: float, moe_seed: int) -> None:
+    """32b and 32c's rank ``rank`` (``chip_smoke.py --train-rank JSON``): a
+    gloo world of TP_RANKS processes on the one card, the (1, TP_RANKS)
+    mesh. 32b: the TRAIN_TP plan's two steps from the rank's shard of the
+    seeded init (the first under ``CollectiveCount``), its launches and
+    peak, its state against the unsharded run's samples; 32c: one node's
+    loss and backward of llama4-scout at one MoE layer, the rank's
+    gradient shards against the unsharded ones' samples. The results are
+    saved to ``out``."""
+    import dataclasses
+    import datetime
+
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_host_mesh, model_axis
+    from repro_torch.launch.op_analysis import CollectiveCount
+    from repro_torch.models.transformer import Transformer
+
+    dist.init_process_group("gloo", init_method=f"file://{store}",
+                            rank=rank, world_size=TP_RANKS,
+                            timeout=datetime.timedelta(seconds=300))
+    try:
+        want = torch.load(expected, weights_only=False)
+        mesh = make_host_mesh(shape=(1, TP_RANKS))
+        plan, _ = tp_train_plan(mesh, gamma_n)
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        state = plan.init_state(dev, seed=SEED)
+        torch.cuda.synchronize()
+        state_gb = (torch.cuda.memory_allocated() - base) / 1e9
+        local_gb = sum(x.numel() * x.element_size()
+                       for x in state.local) / 1e9
+        shared_gb = sum(x.numel() * x.element_size()
+                        for x in state.dpps.push.s) / 1e9
+        tokens = tp_tokens(torch, dev, tuple(
+            plan.batch_specs["tokens"].shape), plan.model.cfg.vocab_size,
+            SEED + 2)
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launch_counts()
+        losses, ms, calls = [], [], []
+        for t in range(TRAIN_TP["steps"]):
+            count = CollectiveCount() if t == 0 else None
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            if count is not None:
+                with count:
+                    state, metrics = plan.step_fn(state, {"tokens": tokens},
+                                                  SEED + t)
+                calls.append({k: count.calls[k] for k in count.calls})
+            else:
+                state, metrics = plan.step_fn(state, {"tokens": tokens},
+                                              SEED + t)
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+            losses.append(float(metrics["loss_mean"]))
+        launches = ops.launch_counts()
+        mapped = ops.dpps_perturb_rows.mapped_launches
+        peak = torch.cuda.max_memory_allocated() - base
+        lm = samples_agree(torch, named_state(torch, state), want["lm"])
+        del state, metrics
+        torch.cuda.empty_cache()
+
+        _, cfg = moe_train_config()
+        axis = dataclasses.replace(model_axis(mesh), data_size=1, data_rank=0,
+                                   data_group=None)
+        model = Transformer(cfg, axis=axis)
+        params = model.init(torch.Generator(device=dev).manual_seed(SEED),
+                            device=dev)
+        tok = tp_tokens(torch, dev, (GROUP_TRAIN["per_node_batch"],
+                                     GROUP_TRAIN["seq_len"]),
+                        cfg.vocab_size, moe_seed)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        count = CollectiveCount()
+        with count:
+            moe_loss, grads = moe_loss_grads(torch, model, params, tok)
+        torch.cuda.synchronize()
+        moe_ms = (time.perf_counter() - t0) * 1e3
+        moe = samples_agree(torch, grads, want["moe"])
+        moe_calls = {k: count.calls[k] for k in count.calls}
+        del params, grads
+        torch.cuda.empty_cache()
+        torch.save(dict(
+            losses=losses, step_ms=ms, calls=calls, launches=launches,
+            mapped_launches=mapped, peak_gb=peak / 1e9,
+            reckoned_gb=state_gb + 2 * local_gb + shared_gb,
+            state_gb=state_gb, lm=lm, moe=moe, moe_loss=moe_loss,
+            moe_ms=moe_ms, moe_calls=moe_calls), out)
+    finally:
+        dist.destroy_process_group()
+
+
+def strided_perturbation(torch, ops, ref, dev) -> dict:
+    """The perturbation at a column map on the card. (a) The main path's
+    largest strided leaf: rank 0's half of the columns of llama3.2-1b's
+    shared w_up ((4, 2048, 8192) a node, N = 4) at its wire column: s_noise
+    bit for bit the whole leaf's launch at those columns and the plain
+    version's, its norms within rtol 1e-5; timed beside a contiguous
+    launch of the same rows (col0 0), the plain version, the copy and the
+    bound. (b) STRIDED_MAPS, bit for bit likewise."""
+    from repro_torch.kernels.ref import ColumnMap
+
+    out = {}
+    scale = torch.tensor(0.7, device=dev)
+    cases = [STRIDED_MAIN] + [(4,) + m for m in STRIDED_MAPS]
+    for i, (n, lead, width, a, b, col0) in enumerate(cases):
+        size, part = lead * width, lead * (b - a)
+        gen = torch.Generator(device=dev).manual_seed(SEED + i)
+        s = torch.randn((n, -(-size // 4) * 4), generator=gen, device=dev)
+        eps = torch.randn(s.shape, generator=gen, device=dev)
+        whole = ops.dpps_perturb_rows(s, eps, scale, 0.1, size, seed=SEED,
+                                      t=3, col0=col0, node0=1)[0]
+
+        def cut(x):
+            return x[:, :size].reshape(n, lead, width)[..., a:b].reshape(
+                n, -1)
+
+        ls, le = ops.leaf_rows(cut(s)), ops.leaf_rows(cut(eps))
+        want_noise = cut(whole)
+        del s, eps, whole
+        cmap = ColumnMap(col0, b - a, width, a)
+        got = ops.dpps_perturb_rows(ls, le, scale, 0.1, part, seed=SEED,
+                                    t=3, node0=1, col_map=cmap)
+        require(torch.equal(got[0][:, :part], want_noise),
+                f"strided perturbation {cases[i]}: s_noise is not the whole "
+                "launch's columns")
+        del want_noise
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        plain = ref.dpps_perturb_rows(ls, le, scale, 0.1, part, seed=SEED,
+                                      t=3, node0=1, col_map=cmap)
+        torch.cuda.synchronize()
+        plain_ms = (time.perf_counter() - t0) * 1e3
+        require(torch.equal(got[0], plain[0]),
+                f"strided perturbation {cases[i]}: s_noise is not the plain "
+                "version's")
+        norm_err = max(((g - p).abs() / p.abs()).max().item()
+                       for g, p in zip(got[1:], plain[1:]))
+        require(norm_err <= 1e-5, f"strided perturbation {cases[i]}: norms "
+                f"{norm_err} from the plain version's")
+        entry = dict(n=n, lead=lead, width=width, block=[a, b], col0=col0,
+                     run=cmap.run, stride=cmap.stride, off=cmap.off,
+                     bit_for_bit=True, norm_rel_err=norm_err,
+                     max_abs_err=(got[0] - plain[0]).abs().max().item())
+        del plain
+        if i == 0:
+            d_pad = ls.shape[1]
+            entry.update(
+                ms=cuda_ms(torch, lambda: ops.dpps_perturb_rows(
+                    ls, le, scale, 0.1, part, seed=SEED, t=3,
+                    col_map=cmap), 20),
+                contiguous_ms=cuda_ms(torch, lambda: ops.dpps_perturb_rows(
+                    ls, le, scale, 0.1, part, seed=SEED, t=3), 20),
+                plain_ms=plain_ms, library_ms=None,
+                copy_ms=copy_ms(torch, ls, le, 20),
+                bound=perturb_bound(n, part, d_pad))
+            entry["pct_of_bound"] = 100.0 * entry["bound"][0] / entry["ms"]
+            entry["vs_contiguous"] = entry["ms"] / entry["contiguous_ms"]
+            out["main"] = entry
+        else:
+            out[f"map{i}"] = entry
+        del ls, le, got
+        torch.cuda.empty_cache()
+    return out
+
+
+def model_axis_train_phase(torch, ops, ref, dev, smi: str,
+                           lm: dict) -> tuple:
+    """Phase 32: (a) 29b's TrainPlan on a one-rank NCCL world's (1, 1) mesh,
+    bit for bit 29b's after two steps; (b) llama3.2-1b at full width over
+    a 2-rank gloo world on the one card (M = 2), N = 4, 2 steps, against
+    the unsharded plan on the same weights and bits; (c) llama4-scout at
+    one MoE layer, one node's loss and backward at M = 2 against the
+    unsharded one; the strided perturbation against its plain version and
+    the whole launch. -> (emitted dict, the main paths' launch counts,
+    the strided perturbation's entry)."""
+    from repro_torch.configs import get_config
+
+    t_start = time.perf_counter()
+    out = dict(phase="model_axis_train", card=smi, note=(
+        "32b's and 32c's times are two ranks sharing one card's SMs, their "
+        "all-reduces gloo's, staged through the host: not speed figures "
+        "of tensor parallelism, which wait for a cell of several cards"))
+    out["a"], counts = train_one_rank(torch, ops, dev, lm)
+    counts = [counts]
+    strided = strided_perturbation(torch, ops, ref, dev)
+    with tempfile.TemporaryDirectory() as tmp:
+        want = tp_train_reference(torch, dev, tmp)
+        procs = [subprocess.Popen(
+            [sys.executable, str(ROOT / "chip_smoke.py"), "--train-rank",
+             json.dumps(dict(rank=rank, store=f"{tmp}/store",
+                             out=f"{tmp}/rank{rank}.pt",
+                             expected=want["paths"][rank],
+                             gamma_n=want["gamma_n"],
+                             moe_seed=want["moe_data_seed"]))],
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+            for rank in range(TP_RANKS)]
+        try:
+            logs = [p.communicate(timeout=TRAIN_TP_JOIN_S) for p in procs]
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        for rank, (p, (_, err)) in enumerate(zip(procs, logs)):
+            require(p.returncode == 0,
+                    f"32b rank {rank} exited {p.returncode}: {err[-4000:]}")
+        ranks = [torch.load(f"{tmp}/rank{rank}.pt", weights_only=False)
+                 for rank in range(TP_RANKS)]
+    cfg = get_config(TRAIN_TP["arch"]).model
+    _, moe_cfg = moe_train_config()
+    want_calls = [train_collectives(cfg, TRAIN_TP["n"], TRAIN_TP["seq_len"],
+                                    TP_RANKS, 0)]
+    want_moe = {"all-reduce": train_pass_collectives(
+        moe_cfg, GROUP_TRAIN["seq_len"], TP_RANKS)}
+    for rank, r in enumerate(ranks):
+        gap = max(abs(a - b) / abs(b) for a, b in zip(r["losses"],
+                                                       want["losses"]))
+        require(gap <= TRAIN_TP_LOSS_RTOL,
+                f"32b rank {rank}: losses {r['losses']} against "
+                f"{want['losses']}")
+        require(r["lm"]["max_abs_err"] <= TRAIN_TP_ATOL,
+                f"32b rank {rank}: state {r['lm']}")
+        require(r["lm"]["max_norm_rel_gap"] <= TRAIN_TP_NORM_RTOL
+                and r["lm"]["vectors_max_rel_err"] <= TRAIN_TP_NORM_RTOL,
+                f"32b rank {rank}: leaf norms and vectors {r['lm']}")
+        require(r["calls"] == want_calls,
+                f"32b rank {rank}: c10d calls {r['calls']}, expected "
+                f"{want_calls}")
+        launches, mapped = want["launches"][rank]
+        require(r["launches"] == launches and r["mapped_launches"] == mapped,
+                f"32b rank {rank}: launches {r['launches']}, strided "
+                f"{r['mapped_launches']}, expected {launches}, {mapped}")
+        require(r["peak_gb"] < want["peak_gb"],
+                f"32b rank {rank}: peak {r['peak_gb']} GB not below the "
+                f"unsharded {want['peak_gb']} GB")
+        require(abs(r["moe_loss"] - want["moe_loss"])
+                <= TRAIN_TP_LOSS_RTOL * abs(want["moe_loss"]),
+                f"32c rank {rank}: loss {r['moe_loss']} against "
+                f"{want['moe_loss']}")
+        require(r["moe"]["max_abs_err"] <= TRAIN_TP_ATOL
+                and r["moe"]["max_norm_rel_gap"] <= TRAIN_TP_NORM_RTOL,
+                f"32c rank {rank}: gradients {r['moe']}")
+        require(r["moe_calls"] == want_moe,
+                f"32c rank {rank}: c10d calls {r['moe_calls']}, expected "
+                f"{want_moe}")
+        counts.append(r["launches"])
+    out["b"] = dict(unsharded={k: want[k] for k in (
+        "losses", "step_ms", "peak_gb", "gamma_n", "d_s")},
+        ranks=[{k: r[k] for k in (
+            "losses", "step_ms", "calls", "launches", "mapped_launches",
+            "peak_gb", "reckoned_gb", "state_gb", "lm")} for r in ranks],
+        tolerance=dict(loss_rtol=TRAIN_TP_LOSS_RTOL, atol=TRAIN_TP_ATOL,
+                       norm_rtol=TRAIN_TP_NORM_RTOL,
+                       sample=TRAIN_TP_SAMPLE), **TRAIN_TP)
+    out["c"] = dict(unsharded={k: want[k] for k in (
+        "moe_loss", "moe_ms", "moe_data_seed", "routing_margin")},
+        ranks=[{k: r[k] for k in ("moe_loss", "moe_ms", "moe", "moe_calls")}
+               for r in ranks], route_margin=TP_ROUTE_MARGIN)
+    out["strided"] = strided
+    out["seconds"] = time.perf_counter() - t_start
+    strided["main"]["mapped_launches"] = sum(r["mapped_launches"]
+                                              for r in ranks)
+    return out, counts, strided
+
+
 def sparse_graph(n: int, seed: int = 0):
     from repro_torch.net import ErdosRenyiGraph
 
@@ -5575,6 +6262,9 @@ def main() -> int:
     parser.add_argument("--tp-rank", default=None, metavar="JSON",
                         help="run one rank of phase 31b with these keyword "
                              "arguments (the whole run starts them so)")
+    parser.add_argument("--train-rank", default=None, metavar="JSON",
+                        help="run one rank of phase 32b-c with these keyword "
+                             "arguments (the whole run starts them so)")
     args = parser.parse_args()
 
     import torch
@@ -5602,6 +6292,11 @@ def main() -> int:
         torch.cuda.set_device(dev)
         build.build_all()  # built by the parent: loads the libraries
         tp_rank(torch, ops, ref, dev, **json.loads(args.tp_rank))
+        return 0
+    if args.train_rank is not None:
+        torch.cuda.set_device(dev)
+        build.build_all()  # built by the parent: loads the libraries
+        train_tp_rank(torch, ops, dev, **json.loads(args.train_rank))
         return 0
     if args.obs_phase is None:
         emit(dict(phase="precision",
@@ -5759,9 +6454,9 @@ def main() -> int:
     launches.append(lm["launches"])
     emit(training_agreement(torch, ops, ref, T, dev))
     torch.cuda.empty_cache()
-    for arch, layers in GROUP_SERVE.items():
+    for arch, cut in GROUP_SERVE.items():
         served = serve(torch, ops, dev, arch, prompt=GROUP_SERVE_PROMPT,
-                       layers=layers)
+                       cut=cut)
         emit(served)
         launches.append(served["launches"])
     emit(group_serve_agreement(torch, ops, dev))
@@ -5839,6 +6534,7 @@ def main() -> int:
         (args.out / "dryrun.json").write_text(json.dumps(dry_rows, indent=1))
     emit(dry)
     emit(trained)
+    lm_step = trained
     launches.append(counts)
     served, counts = launch_serve(torch, ops, dev, dry_rows, smi)
     emit(served)
@@ -5849,6 +6545,10 @@ def main() -> int:
     launches += counts
     axis_line, counts, tp_flash = model_axis_phase(torch, ops, ref, dev, smi)
     emit(axis_line)
+    launches += counts
+    train_line, counts, strided = model_axis_train_phase(torch, ops, ref,
+                                                         dev, smi, lm_step)
+    emit(train_line)
     launches += counts
     total = {k: sum(path[k] for path in launches) for k in KERNELS}
     kernels = []
@@ -5870,8 +6570,17 @@ def main() -> int:
         extra = {}
         if name == "pushsum_mix":  # phase 24a's realized W
             extra["realized_weights"] = faulted["dense_full"]["realized_mix"]
-        norms = {"norm_only_launches": total["noise_l1_rows"]} \
-            if name == "dpps_perturb_rows" else {}
+        norms = {}
+        if name == "dpps_perturb_rows":  # phase 32's strided launches
+            at["model_axis_strided_shape"] = dict(
+                at_shape(strided["main"]), **{
+                    k: strided["main"][k] for k in (
+                        "n", "lead", "width", "block", "col0", "run",
+                        "stride", "off", "contiguous_ms", "pct_of_bound",
+                        "vs_contiguous", "mapped_launches")})
+            norms = {"norm_only_launches": total["noise_l1_rows"],
+                     "model_axis_straddling_maps": {
+                         k: v for k, v in strided.items() if k != "main"}}
         kernels.append(kernel_entry(
             name, dict(f, max_abs_err=max(
                 [f["max_abs_err"]] + [a["max_abs_err"] for a in at.values()]

@@ -28,6 +28,17 @@ rows this process holds by default, over every rank's rows under the
 sharded engine (:mod:`repro_torch.engine.shard`), which also passes the
 global index of its first row as ``node0`` to key the noise.
 
+Column-axis reductions go through :class:`ColumnOps`: where a rank of a
+model axis holds a shard of each shared leaf (``launch.steps.
+build_train_plan`` on a mesh), each per-node L1 norm of a shared vector
+(the perturbation's, round 0's s^(0), the noise's, the sync average's,
+PartPSP's clip norm) is the rank's partial over the leaves it counts
+(each column once: a leaf several ranks hold whole, or a shared KV head,
+is counted by the first of them), then a SUM all-reduce over "model";
+and the noise is drawn at the whole leaf's wire columns
+(``kernels.ref.ColumnMap``), so a rank draws exactly the unsharded
+draw's columns. The mix and ``a`` need no model collective.
+
 The round counter ``DPPSState.t`` is a host integer, so the ``t == 0``
 sensitivity init and the sync schedule are decided on the host with no
 device sync; the noise scale ``S / b`` stays a 0-d device tensor that the
@@ -80,7 +91,8 @@ from repro_torch.obs.trace import (
 from repro_torch.wire import Bf16Codec
 
 __all__ = ["DPPSConfig", "DPPSState", "NodeOps", "LOCAL_NODE_OPS",
-           "dpps_init", "dpps_step", "dpps_consensus", "is_sync_round"]
+           "ColumnOps", "LOCAL_COLUMN_OPS", "dpps_init", "dpps_step",
+           "dpps_consensus", "is_sync_round"]
 
 
 def is_sync_round(t: int, sync_interval: int) -> bool:
@@ -109,6 +121,34 @@ LOCAL_NODE_OPS = NodeOps(
     vmean=torch.mean,
     leaf_mean=lambda x: x.mean(dim=0, keepdim=True),
 )
+
+
+class ColumnOps(NamedTuple):
+    """Column-axis reductions of the per-node norms of a shared vector whose
+    leaves the ranks of a model axis split (the shared leaves' order).
+
+    ``col_sum`` finishes a rank's partial norm (N,) (a SUM all-reduce over
+    "model"; the identity by default); ``counted`` says, for each shared
+    leaf, whether this rank counts its columns (None: all); ``col_maps``
+    gives each leaf's wire columns (``kernels.ref.ColumnMap``; None: the
+    rank's leaves are the whole wire row)."""
+
+    col_sum: Callable[[torch.Tensor], torch.Tensor]
+    counted: Sequence[bool] | None = None
+    col_maps: Sequence[Any] | None = None
+
+    @property
+    def local(self) -> bool:
+        return self.counted is None and self.col_maps is None
+
+
+LOCAL_COLUMN_OPS = ColumnOps(col_sum=lambda x: x)
+
+
+def _tree_norm(leaves, use_kernels: bool, columns: ColumnOps):
+    """Per-node L1 norm of the shared vector from this rank's ``leaves``."""
+    norm = kops.l1_norm_tree if use_kernels else l1_norm_per_node
+    return columns.col_sum(norm(leaves, columns.counted))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -268,6 +308,7 @@ def dpps_step(
     tap: Any = None,
     wire_draws: torch.Tensor | None = None,
     noise_draws: torch.Tensor | None = None,
+    columns: ColumnOps = LOCAL_COLUMN_OPS,
 ) -> tuple[DPPSState, dict[str, Any]]:
     """One DPPS round. Returns (new state, diag).
 
@@ -287,7 +328,9 @@ def dpps_step(
     first row: the Philox draw keys row i by node ``node0 + i``, so a
     rank of the sharded engine draws the same rows of the whole network's
     noise (explicit ``bits`` are the rows' own; a mechanism's or a codec's
-    draw is refused beside a nonzero ``node0``).
+    draw is refused beside a nonzero ``node0``). ``columns``
+    (:class:`ColumnOps`, the pytree runtime only) finishes the per-node
+    norms over a model axis and keys the noise by global wire column.
 
     ``cfg.wire`` (packed runtime only) encodes the noised wire row after
     the noise (``repro_torch.wire``), in place in the noised buffer; a
@@ -323,6 +366,11 @@ def dpps_step(
         raise ValueError("node0 keys the Laplace draw only; a mechanism's "
                          "or a wire codec's draw takes the rows as nodes 0, "
                          "1, ...")
+    if not columns.local and (packed or mechanism is not None
+                              or cfg.sensitivity_mode == "real"):
+        raise ValueError("a model axis's column shards take the pytree "
+                         "runtime (layout=None), the Laplace draw and the "
+                         "estimated or fixed sensitivity")
     broken = codec is not None and codec.compress_before_noise
     s = state.push.s
     n = state.push.a.shape[0]
@@ -350,12 +398,11 @@ def dpps_step(
             s_leaves, treedef = tree_flatten(s)
             eps_leaves = tree_leaves(eps)
             d_s = sum(x[0].numel() for x in s_leaves)
-            norm = kops.l1_norm_tree if cfg.use_kernels else l1_norm_per_node
-            eps_l1 = norm(eps_leaves)
+            eps_l1 = _tree_norm(eps_leaves, cfg.use_kernels, columns)
             s_half = (tree_unflatten(treedef, [x + e for x, e in
                                                zip(s_leaves, eps_leaves)])
                       if need_s_half or not cfg.use_kernels else None)
-            s_norm = lambda: norm(s_leaves)
+            s_norm = lambda: _tree_norm(s_leaves, cfg.use_kernels, columns)
 
     # -- 2. sensitivity estimate (Eq. 22 / Remark 1) -------------------------
     with phase(PHASE_DPPS_SENSITIVITY):
@@ -416,13 +463,16 @@ def dpps_step(
         elif cfg.use_kernels:
             out, _, noise_l1 = kops.dpps_perturb_tree(
                 s_leaves, eps_leaves, noise_scale, cfg.gamma_n,
-                bits=bits, seed=seed, t=t, node0=node0)
+                bits=bits, seed=seed, t=t, node0=node0,
+                col_maps=columns.col_maps, counted=columns.counted)
+            noise_l1 = columns.col_sum(noise_l1)
             s_noise = tree_unflatten(treedef, out)
         else:
             noise = noise_wire(s_half, noise_scale,
                                bits=_bits_row(bits, s_leaves), seed=seed, t=t,
-                               node0=node0)
-            noise_l1 = l1_norm_per_node(noise)
+                               node0=node0, col_maps=columns.col_maps)
+            noise_l1 = columns.col_sum(l1_norm_per_node(noise,
+                                                        columns.counted))
             s_noise = tree_map(lambda h, z: h + cfg.gamma_n * z.to(h.dtype),
                                s_half, noise)
         if codec is not None and not broken:
@@ -453,7 +503,8 @@ def dpps_step(
             # away, so it is not run.
             means = tree_map(node_ops.leaf_mean,
                              layout.view_tree(s_noise) if packed else s_noise)
-            mean_l1 = l1_norm_per_node(means)                       # (1,)
+            mean_l1 = columns.col_sum(l1_norm_per_node(
+                means, columns.counted))                             # (1,)
             bcast = tree_map(lambda m: m.expand((n,) + tuple(m.shape[1:])),
                              means)
             # the packed buffer copies the broadcast views once; a tree state

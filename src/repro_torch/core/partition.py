@@ -128,6 +128,26 @@ class Partition:
                 local.append(leaf[:, k:])
         return shared, local
 
+    def leaf_plans(self) -> tuple[tuple[str, Action], ...]:
+        """(path, action) of each leaf, in leaf order."""
+        return tuple((plan.path, plan.action) for plan in self._plans)
+
+    def split_static(self, values: Sequence) -> tuple[list, list]:
+        """Split one static value a leaf (in leaf order; e.g. a spec) as
+        :meth:`split` splits the leaves: a split_layers leaf gives its
+        value to both sides (a cut along the layer dim changes no spec),
+        as the reference's ``split_static`` does."""
+        values = list(values)
+        if len(values) != len(self._plans):
+            raise ValueError("values do not match the partition template")
+        shared, local = [], []
+        for value, plan in zip(values, self._plans):
+            if plan.action != "local":
+                shared.append(value)
+            if plan.action != "shared":
+                local.append(value)
+        return shared, local
+
     def merge(self, shared: Sequence, local: Sequence, *,
               layer_parts: bool = False) -> PyTree:
         """Inverse of :meth:`split`. With ``layer_parts`` a split leaf is

@@ -29,8 +29,9 @@ from typing import Any, Callable, NamedTuple, Sequence
 
 import torch
 
-from repro_torch.core.dpps import (LOCAL_NODE_OPS, DPPSConfig, DPPSState,
-                                   NodeOps, dpps_init, dpps_step)
+from repro_torch.core.dpps import (LOCAL_COLUMN_OPS, LOCAL_NODE_OPS,
+                                   ColumnOps, DPPSConfig, DPPSState, NodeOps,
+                                   dpps_init, dpps_step)
 from repro_torch.core.loops import node_loop
 from repro_torch.core.packing import PackedLayout
 from repro_torch.core.partition import Partition
@@ -171,13 +172,17 @@ def partpsp_step(
     tap: Any = None,
     wire_draws: torch.Tensor | None = None,
     noise_draws: torch.Tensor | None = None,
+    columns: ColumnOps = LOCAL_COLUMN_OPS,
 ) -> tuple[PartPSPState, dict[str, Any]]:
     """One PartPSP round: over the packed DPPS state with ``layout``, over
     the list of shared leaves with ``layout=None`` (the pytree runtime).
     ``return_s_half``, ``return_wire_stats``, ``gossip_fn``, ``node_ops``,
-    ``node0``, ``mechanism``, ``tap``, ``wire_draws`` and ``noise_draws``
-    go to :func:`repro_torch.core.dpps.dpps_step`; ``node_ops`` also
-    reduces ``loss_mean`` and ``grad_l1_max``."""
+    ``node0``, ``mechanism``, ``tap``, ``wire_draws``, ``noise_draws`` and
+    ``columns`` go to :func:`repro_torch.core.dpps.dpps_step`;
+    ``node_ops`` also reduces ``loss_mean`` and ``grad_l1_max``, and
+    ``columns`` makes the clip norm the whole shared vector's over a model
+    axis (each rank holding its shards of the leaves; ``loss_fn`` then the
+    rank's model's, whose backward sums over "model" itself)."""
     push = state.dpps.push
     y = correct(push.s, push.a)                     # Eq. 10, shared leaves
     if layout is not None:
@@ -212,9 +217,12 @@ def partpsp_step(
     # -- clip (Eq. 24) and the DPPS perturbation (Eq. 25) ---------------------
     with phase(PHASE_CLIP):
         if cfg.clip > 0:
-            g_shared, g_norms = l1_clip_per_node(g_shared, cfg.clip)
+            g_shared, g_norms = l1_clip_per_node(
+                g_shared, cfg.clip, counted=columns.counted,
+                col_sum=columns.col_sum)
         else:
-            g_norms = l1_norm_per_node(g_shared)
+            g_norms = columns.col_sum(l1_norm_per_node(g_shared,
+                                                       columns.counted))
         eps = [(-cfg.gamma_s * g).to(torch.float32) for g in g_shared]
         del g_shared
 
@@ -227,7 +235,7 @@ def partpsp_step(
                                gossip_fn=gossip_fn, node_ops=node_ops,
                                node0=node0, mechanism=mechanism,
                                tap=tap, wire_draws=wire_draws,
-                               noise_draws=noise_draws)
+                               noise_draws=noise_draws, columns=columns)
     metrics = {"loss_mean": node_ops.vmean(losses), "loss_per_node": losses,
                "grad_l1_max": node_ops.vmax(g_norms), **diag}
     return PartPSPState(dpps=dpps_new, local=local_new), metrics

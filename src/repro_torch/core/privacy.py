@@ -40,17 +40,24 @@ GAUSS_SALT = 0x47415553  # "GAUS"
 
 def noise_wire(tree: PyTree, scale, *, bits: torch.Tensor | None = None,
                seed: int | None = None, t: int | None = None,
-               node0: int = 0) -> PyTree:
+               node0: int = 0, col_maps=None) -> PyTree:
     """Laplace(0, scale) noise shaped like the node-stacked ``tree``: one
     flat (N, d_s) draw over the wire row, sliced back into the leaves in
     wire order. The bits are ``bits`` (N, d_s) uint32, or the Philox row of
     ``(seed, t)`` (``kernels.ref.philox_bits``) of global nodes ``node0``,
     ``node0 + 1``, ..., the bits the packed runtime draws for the same
-    columns."""
+    columns; with ``col_maps`` (a rank's shards of a model-sharded tree,
+    one ``kernels.ref.ColumnMap`` a leaf) each leaf's bits at its
+    columns of the whole wire row."""
     leaves, treedef = tree_flatten(tree)
     n = leaves[0].shape[0]
     sizes = [x[0].numel() for x in leaves]
-    if bits is None:
+    if bits is None and col_maps is not None:
+        dev = leaves[0].device
+        bits = torch.cat([kref.philox_map(seed, t, n, cmap, size, dev,
+                                          node0=node0)
+                          for cmap, size in zip(col_maps, sizes)], dim=1)
+    elif bits is None:
         bits = kref.philox_bits(seed, t, n, 0, sum(sizes),
                                 device=leaves[0].device, node0=node0)
     flat = kref.laplace_from_bits(bits, scale)
@@ -116,9 +123,15 @@ def normal_row(n: int, d_s: int, scale, *, seed: int, t: int, device=None,
     return draws.to(device=device, dtype=torch.float32) * scale
 
 
-def l1_clip_per_node(tree: PyTree, clip: float) -> tuple[PyTree, torch.Tensor]:
-    """Paper Eq. 24: per-node L1 clip. Returns (clipped tree, pre-clip norms)."""
-    norms = l1_norm_per_node(tree)
+def l1_clip_per_node(tree: PyTree, clip: float, *, counted=None,
+                     col_sum=None) -> tuple[PyTree, torch.Tensor]:
+    """Paper Eq. 24: per-node L1 clip. Returns (clipped tree, pre-clip norms).
+    Over a model axis (a rank's shards of the tree) ``counted`` and
+    ``col_sum`` make the norm the whole vector's
+    (:class:`repro_torch.core.dpps.ColumnOps`): each rank divides by it."""
+    norms = l1_norm_per_node(tree, counted)
+    if col_sum is not None:
+        norms = col_sum(norms)
     denom = torch.clamp_min(norms / clip, 1.0)
     return tree_map(
         lambda x: x / denom.reshape((-1,) + (1,) * (x.dim() - 1)).to(x.dtype),

@@ -100,13 +100,21 @@ def tree_map(fn: Callable, tree: PyTree, *rest: PyTree) -> PyTree:
                                     for x, *ys in zip(leaves, *others)])
 
 
-def l1_norm_per_node(tree: PyTree) -> torch.Tensor:
+def l1_norm_per_node(tree: PyTree, counted=None) -> torch.Tensor:
     """sum over leaves of ||leaf_i||_1 for each node i -> (N,).
 
     One reduction over the flat wire row (leaf rows concatenated in leaf
     order), as ``repro.core.tree_utils.tree_l1_norm_per_node`` does.
+    ``counted`` (one bool a leaf) keeps only the leaves whose columns this
+    rank of a model axis counts (zeros where it counts none).
     """
     leaves = tree_leaves(tree)
+    if counted is not None:
+        kept = [x for x, keep in zip(leaves, counted) if keep]
+        if not kept:
+            return torch.zeros((leaves[0].shape[0],), dtype=torch.float32,
+                               device=leaves[0].device)
+        leaves = kept
     rows = [x.reshape(x.shape[0] if x.dim() else 1, -1) for x in leaves]
     row = rows[0] if len(rows) == 1 else torch.cat(rows, dim=1)
     return row.abs().sum(dim=1)

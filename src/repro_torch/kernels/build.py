@@ -35,7 +35,7 @@ _SIGNATURES = {
     "l1_norm": ("l1_norm_rows", [_P] + [_I64] * 6 + [_P, _P, _P, _P]),
     "dpps_perturb": ("dpps_perturb_rows",
                      [_P, _P, _P, _P, _F32, _I64, _I64, _I64, _U64, _I64,
-                      _I64, _I64] + [_I64] * 4 + [_P] * 6),
+                      _I64, _I64, _I64, _I64] + [_I64] * 4 + [_P] * 6),
     "pushsum_mix": ("pushsum_mix", [_P, _P, _P] + [_I64] * 10 + [_P]),
     "spmm": ("spmm", [_P, _P, _P, _P] + [_I64] * 9 + [_P]),
     "clip_scale": ("clip_scale_rows", [_P, _P, _I64, _I64, _I64, _P, _P]),

@@ -26,7 +26,17 @@
 //    col0 % 4 != 0 a leaf quad straddles two Philox counters; that
 //    instantiation evaluates both and picks the words (twice the Philox
 //    work, the simple way; col0 % 4 == 0, and so the packed row, takes
-//    the one-counter instantiation).
+//    the one-counter instantiation). A rank of the model axis holds a
+//    block of a leaf (repro_torch.models.parallel): element j of its rows
+//    is wire column col0 + (j / run) * stride + j % run (run the rank's
+//    elements of the split dim and its trailing dims, stride the whole
+//    leaf's; col0 with the block's offset folded in), so a rank draws the
+//    whole leaf's bits at its columns. That instantiation takes one
+//    32-bit divide a quad and one Philox counter where the quad's four
+//    columns are one counter's (every quad where the run, the stride and
+//    col0 are multiples of 4: every run of the attention and MLP blocks
+//    at published widths); else, the simple way, a counter for each of
+//    its elements (a quad across counters or across a run's end).
 // The noise scale S / b is read through a device pointer, so the round
 // needs no host sync.
 //
@@ -99,30 +109,60 @@ struct PerturbArgs {
   unsigned* tickets; // n counters at zero where blocks_per_row > 1
   int64_t n, d_pad, d_s, row0, quads_per_block, rows_per_block;
   int64_t col0;  // the rows' first column in the wire row (Philox only)
+  int64_t run, stride;  // the column map of a leaf's block (kPhiloxMapped)
   int64_t node0; // the global node of row 0 (Philox only)
   float gamma_n;
   uint32_t seed_lo, seed_hi, t;
 };
 
-// The three instantiations: bits from the caller; Philox where col0 % 4 ==
-// 0 (one counter a quad); Philox where a quad straddles two counters.
-constexpr int kBitsIn = 0, kPhilox = 1, kPhiloxStraddle = 2;
+// The four instantiations: bits from the caller; Philox where col0 % 4 ==
+// 0 (one counter a quad); Philox where a quad straddles two counters;
+// Philox at a block's mapped columns.
+constexpr int kBitsIn = 0, kPhilox = 1, kPhiloxStraddle = 2, kPhiloxMapped = 3;
 
-// The four Philox words of quad q of `row`: wire columns col0 + 4q + k.
-template <int kMode>
-__device__ __forceinline__ void philox_words(const PerturbArgs& a, int64_t row, int64_t q,
-                                             uint32_t w[4]) {
-  const int64_t c = a.col0 / 4 + q;  // the counter of wire column col0 + 4q
+// The four Philox words of counter c of `row` into w.
+__device__ __forceinline__ void philox_counter(const PerturbArgs& a, int64_t row, int64_t c,
+                                               uint32_t w[4]) {
   w[0] = (uint32_t)(c & 0xffffffffu);
   w[1] = (uint32_t)(c >> 32);
   w[2] = (uint32_t)(a.node0 + row);
   w[3] = a.t;
   philox4x32_10(w, a.seed_lo, a.seed_hi);
+}
+
+// The four Philox words of quad q of `row`: wire columns col0 + 4q + k.
+template <int kMode>
+__device__ __forceinline__ void philox_words(const PerturbArgs& a, int64_t row, int64_t q,
+                                             uint32_t w[4]) {
+  if (kMode == kPhiloxMapped) {
+    // elements 4q .. 4q + 3 lie in run r from element m of it (a 32-bit
+    // divide: d_pad < 2^31 in this mode); run >= 4, so the quad reaches
+    // at most into run r + 1
+    const uint32_t j0 = 4u * (uint32_t)q, run = (uint32_t)a.run;
+    const uint32_t r = j0 / run, m = j0 - r * run;
+    const int64_t e0 = a.col0 + (int64_t)r * a.stride + m;  // element 0's column
+    if ((e0 & 3) == 0 && run - m >= 4) {  // one counter: every quad of an aligned map
+      philox_counter(a, row, e0 >> 2, w);
+      return;
+    }
+    // element k's own counter and word (a quad across counters or runs)
+    const int64_t e1 = e0 + a.stride - a.run;  // element k >= run - m: e1 + k
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      const int64_t e = k < (int)(run - m) ? e0 + k : e1 + k;
+      uint32_t v[4];
+      philox_counter(a, row, e >> 2, v);
+      const int x = (int)(e & 3);
+      w[k] = x == 0 ? v[0] : x == 1 ? v[1] : x == 2 ? v[2] : v[3];
+    }
+    return;
+  }
+  const int64_t c = a.col0 / 4 + q;  // the counter of wire column col0 + 4q
+  philox_counter(a, row, c, w);
   if (kMode == kPhiloxStraddle) {
     const int r = (int)(a.col0 & 3);  // 1, 2 or 3
-    uint32_t v[4] = {(uint32_t)((c + 1) & 0xffffffffu), (uint32_t)((c + 1) >> 32),
-                     (uint32_t)(a.node0 + row), a.t};
-    philox4x32_10(v, a.seed_lo, a.seed_hi);
+    uint32_t v[4];
+    philox_counter(a, row, c + 1, v);
     // element k is word r + k of counter c, or word r + k - 4 of c + 1;
     // selects keep both sets in registers
     uint32_t o[4];
@@ -266,6 +306,8 @@ static int launch_perturb(bool bits_in, dim3 grid, unsigned threads, cudaStream_
                           const PerturbArgs& a) {
   if (bits_in)
     perturb_kernel<kBitsIn><<<grid, threads, 0, st>>>(a);
+  else if (a.run > 0)
+    perturb_kernel<kPhiloxMapped><<<grid, threads, 0, st>>>(a);
   else if (a.col0 % 4 != 0)
     perturb_kernel<kPhiloxStraddle><<<grid, threads, 0, st>>>(a);
   else
@@ -277,8 +319,10 @@ static int launch_perturb(bool bits_in, dim3 grid, unsigned threads, cudaStream_
 
 // s, eps, out (n, d_pad) f32, 16-byte aligned, d_pad % 4 == 0, 0 < d_s <=
 // d_pad; bits (n, d_s) uint32 or NULL for the Philox variant, whose rows
-// start at wire column col0 >= 0 and are the global nodes node0 >= 0,
-// node0 + 1, ...; scale a device pointer to one f32.
+// start at wire column col0 >= 0 (run 0) or, with 4 <= run <= stride,
+// have element j at column col0 + (j / run) * stride + j % run, and are
+// the global nodes node0 >= 0, node0 + 1, ...; scale a device pointer to
+// one f32.
 // (threads, rows_per_block, quads_per_block, blocks_per_row) is the
 // wrapper's plan (repro_torch.kernels.ops.
 // perturb_plan): rows_per_block > 1 takes short rows, threads /
@@ -292,7 +336,8 @@ static int launch_perturb(bool bits_in, dim3 grid, unsigned threads, cudaStream_
 extern "C" int dpps_perturb_rows(const float* s, const float* eps, const uint32_t* bits,
                                  const float* scale, float gamma_n, int64_t n,
                                  int64_t d_pad, int64_t d_s, uint64_t seed, int64_t t,
-                                 int64_t col0, int64_t node0, int64_t threads,
+                                 int64_t col0, int64_t run, int64_t stride, int64_t node0,
+                                 int64_t threads,
                                  int64_t rows_per_block,
                                  int64_t quads_per_block, int64_t blocks_per_row,
                                  float* partials, unsigned* tickets, float* out,
@@ -303,12 +348,13 @@ extern "C" int dpps_perturb_rows(const float* s, const float* eps, const uint32_
   const int64_t lanes = rows_per_block > 0 ? threads / rows_per_block : 0;
   if (n < 1 || d_s < 1 || d_s > d_pad || d_pad % 4 != 0 || (uintptr_t)s % 16 != 0 ||
       (uintptr_t)eps % 16 != 0 || (uintptr_t)out % 16 != 0 || col0 < 0 || node0 < 0 ||
+      run < 0 || (run > 0 && (run < 4 || stride < run || d_pad >= ((int64_t)1 << 31))) ||
       threads < 32 ||
       threads > kThreads || threads % 32 != 0 || rows_per_block < 1 ||
       threads % rows_per_block != 0)
     return (int)cudaErrorInvalidValue;
   PerturbArgs a{s, eps, bits, scale, out, eps_l1, noise_l1, partials, tickets, n, d_pad, d_s,
-                0, quads_per_block, rows_per_block, col0, node0, gamma_n,
+                0, quads_per_block, rows_per_block, col0, run, stride, node0, gamma_n,
                 (uint32_t)(seed & 0xffffffffu), (uint32_t)(seed >> 32), (uint32_t)t};
   if (rows_per_block > 1) {
     const int64_t blocks = (n + rows_per_block - 1) / rows_per_block;

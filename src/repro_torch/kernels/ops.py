@@ -281,11 +281,28 @@ def l1_plan(n: int, d_s: int) -> dict:
                 blocks_per_row=max(1, -(-(d_s // 4) // L1_QUADS_PER_BLOCK)))
 
 
+def _launch_columns(col0: int, col_map) -> tuple[int, int, int]:
+    """(col0, run, stride) as ``csrc/dpps_perturb.cu`` takes them: the map's
+    ``off`` folded into ``col0``, run 0 for contiguous columns."""
+    if col_map is None:
+        return col0, 0, 0
+    c0, run, stride, off = (int(v) for v in col_map)
+    if min(c0, off) < 0 or run < 1 or stride < run or off + run > stride:
+        raise ValueError(f"column map {tuple(col_map)}: need col0, off >= "
+                         "0, 1 <= run <= stride and off + run <= stride")
+    if run == stride:
+        return c0 + off, 0, 0
+    if run < 4:
+        raise ValueError(f"column map {tuple(col_map)}: the kernel takes "
+                         "runs of at least 4 elements")
+    return c0 + off, run, stride
+
+
 def dpps_perturb_rows(s: torch.Tensor, eps: torch.Tensor, scale,
                       gamma_n: float, d_s: int, *,
                       bits: torch.Tensor | None = None,
                       seed: int | None = None, t: int | None = None,
-                      col0: int = 0, node0: int = 0):
+                      col0: int = 0, node0: int = 0, col_map=None):
     """Fused ``s + eps + gamma_n Lap(scale)`` over (N, d_pad) rows.
 
     Returns ``(s_noise (N, d_pad), eps_l1 (N,), noise_l1 (N,))``. ``bits``
@@ -293,8 +310,12 @@ def dpps_perturb_rows(s: torch.Tensor, eps: torch.Tensor, scale,
     variant draws the bits of ``(seed, t)`` in the kernel, at wire columns
     ``[col0, col0 + d_s)`` (a leaf that starts at column ``col0`` of the
     wire row; 0 for the packed row) of global nodes ``[node0, node0 + N)``
-    (a rank's row block; 0 for the whole network). On CUDA ``scale`` is a
-    0-d f32 device tensor, read by the kernel through its pointer.
+    (a rank's row block; 0 for the whole network). ``col_map`` (a
+    :class:`repro_torch.kernels.ref.ColumnMap`, replacing ``col0``) draws
+    instead at its columns: a rank's block of a model-sharded leaf, whose
+    elements are a strided set of the whole leaf's columns. On CUDA
+    ``scale`` is a 0-d f32 device tensor, read by the kernel through its
+    pointer.
     """
     if bits is None and (seed is None or t is None):
         raise ValueError("pass bits= or both seed= and t=")
@@ -302,9 +323,16 @@ def dpps_perturb_rows(s: torch.Tensor, eps: torch.Tensor, scale,
         raise ValueError(f"col0={col0} and node0={node0} must be >= 0")
     if _is_cpu(s, eps, *([bits] if bits is not None else [])):
         return ref.dpps_perturb_rows(s, eps, scale, gamma_n, d_s, bits=bits,
-                                     seed=seed, t=t, col0=col0, node0=node0)
+                                     seed=seed, t=t, col0=col0, node0=node0,
+                                     col_map=col_map)
+    col0, run, stride = _launch_columns(col0, col_map)
+    if run and s.shape[1] >= 2 ** 31:
+        raise ValueError("the kernel takes a column map over rows of fewer "
+                         "than 2^31 elements")
     out = _perturb_launch(s, eps, scale, gamma_n, d_s, bits=bits, seed=seed,
-                          t=t, col0=col0, node0=node0)
+                          t=t, col0=col0, node0=node0, run=run, stride=stride)
+    if run and bits is None and not s.is_meta:
+        dpps_perturb_rows.mapped_launches += 1
     _count(dpps_perturb_rows, s, n=s.shape[0], d_s=d_s, d_pad=s.shape[1],
            bits=bits is not None)
     return out
@@ -329,8 +357,10 @@ def noise_l1_rows(noise: torch.Tensor, d_s: int) -> torch.Tensor:
 
 
 def _perturb_launch(s, eps, scale, gamma_n, d_s, *, bits, seed, t, col0,
-                    node0):
-    """One launch of ``csrc/dpps_perturb.cu`` (see :func:`dpps_perturb_rows`)."""
+                    node0, run=0, stride=0):
+    """One launch of ``csrc/dpps_perturb.cu`` (see :func:`dpps_perturb_rows`;
+    ``run`` 0: contiguous columns from ``col0``, else element j at column
+    ``col0 + (j // run) * stride + j % run``)."""
     _check(s, "s", torch.float32, 2, align=True)
     _check(eps, "eps", torch.float32, 2, align=True)
     n, d_pad = s.shape
@@ -365,7 +395,7 @@ def _perturb_launch(s, eps, scale, gamma_n, d_s, *, bits, seed, t, col0,
         bits.data_ptr() if bits is not None else None,
         scale.data_ptr(), float(gamma_n), n, d_pad, d_s,
         int(seed or 0) & 0xFFFFFFFFFFFFFFFF, int(t or 0), int(col0),
-        int(node0), plan["threads"],
+        int(run), int(stride), int(node0), plan["threads"],
         plan["rows_per_block"], plan["quads_per_block"], bpr,
         None if partials is None else partials.data_ptr(),
         None if tickets is None else tickets.data_ptr(), out.data_ptr(),
@@ -644,46 +674,58 @@ def leaf_out(out: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     return out.reshape((out.shape[0],) + tuple(x.shape[1:]))
 
 
-def l1_norm_tree(leaves) -> torch.Tensor:
+def l1_norm_tree(leaves, counted=None) -> torch.Tensor:
     """Per-node L1 norms of node-stacked leaves -> (N,): one
-    :func:`l1_norm_rows` launch a leaf, the norms summed in leaf order."""
+    :func:`l1_norm_rows` launch a leaf, the norms summed in leaf order.
+    ``counted`` (one bool a leaf; default all) leaves out a leaf whose
+    columns another rank of a model axis counts: it is not launched."""
     if _is_cpu(*leaves):
-        return ref.l1_norm_tree(leaves)
+        return ref.l1_norm_tree(leaves, counted)
     total = None
-    for x in leaves:
-        norm = l1_norm_rows(leaf_rows(x), x[0].numel())
+    for i, x in enumerate(leaves):
+        if counted is None or counted[i]:
+            norm = l1_norm_rows(leaf_rows(x), x[0].numel())
+        else:
+            norm = x.new_zeros((x.shape[0],), dtype=torch.float32)
         total = norm if total is None else total + norm
     return total
 
 
 def dpps_perturb_tree(s_leaves, eps_leaves, scale, gamma_n: float, *,
                       bits=None, seed: int | None = None,
-                      t: int | None = None, node0: int = 0):
+                      t: int | None = None, node0: int = 0, col_maps=None,
+                      counted=None):
     """The fused perturbation over node-stacked leaves: one
     :func:`dpps_perturb_rows` launch a leaf -> (s_noise leaves, eps_l1
     (N,), noise_l1 (N,)), the norms summed in leaf order. ``bits`` is one
     uint32 tensor a leaf (its leaf's shape); otherwise leaf i draws in the
     kernel the Philox bits of its wire columns, ``col0`` its first column
     (``ref.leaf_columns``), so the launches draw the bits one launch over
-    the packed row draws; the rows are global nodes ``node0``, ``node0 +
-    1``, ... (:func:`dpps_perturb_rows`)."""
+    the packed row draws; or, with ``col_maps``, at ``col_maps[i]`` (a
+    rank's shards of a model-sharded tree, each drawing the whole leaf's
+    bits at its columns); the rows are global nodes ``node0``, ``node0 +
+    1``, ... (:func:`dpps_perturb_rows`). ``counted`` (one bool a leaf;
+    default all) leaves out of the norms a leaf another rank counts."""
     if bits is None and (seed is None or t is None):
         raise ValueError("pass bits= or both seed= and t=")
     extra = [] if bits is None else list(bits)
     if _is_cpu(*s_leaves, *eps_leaves, *extra):
         return ref.dpps_perturb_tree(s_leaves, eps_leaves, scale, gamma_n,
-                                     bits=bits, seed=seed, t=t, node0=node0)
+                                     bits=bits, seed=seed, t=t, node0=node0,
+                                     col_maps=col_maps, counted=counted)
     scale = _device_scale(scale, s_leaves[0].device)
     out, eps_l1, noise_l1 = [], None, None
-    for i, (x, e, c0) in enumerate(zip(s_leaves, eps_leaves,
-                                       ref.leaf_columns(s_leaves))):
+    maps = ref.tree_column_maps(s_leaves, col_maps)
+    for i, (x, e, cmap) in enumerate(zip(s_leaves, eps_leaves, maps)):
         size = x[0].numel()
         b = None if bits is None else \
             bits[i].reshape(x.shape[0], size).contiguous()
         sn, e1, n1 = dpps_perturb_rows(leaf_rows(x), leaf_rows(e), scale,
                                        gamma_n, size, bits=b, seed=seed,
-                                       t=t, col0=c0, node0=node0)
+                                       t=t, node0=node0, col_map=cmap)
         out.append(leaf_out(sn, x))
+        if counted is not None and not counted[i]:
+            e1, n1 = torch.zeros_like(e1), torch.zeros_like(n1)
         eps_l1 = e1 if eps_l1 is None else eps_l1 + e1
         noise_l1 = n1 if noise_l1 is None else noise_l1 + n1
     return out, eps_l1, noise_l1
@@ -834,13 +876,18 @@ _KERNELS = (l1_norm_rows, dpps_perturb_rows, noise_l1_rows, pushsum_mix,
             spmm, clip_scale_rows, laplace_from_bits, flash_attention)
 for _fn in _KERNELS:
     _fn.launches = 0
+# of dpps_perturb_rows' launches, those at a column map's strided columns
+dpps_perturb_rows.mapped_launches = 0
 
 
 def launch_counts() -> dict[str, int]:
-    """Each kernel's launches on a card since the last reset."""
+    """Each kernel's launches on a card since the last reset (the strided
+    perturbations among ``dpps_perturb_rows``' are also in
+    ``dpps_perturb_rows.mapped_launches``)."""
     return {fn.__name__: fn.launches for fn in _KERNELS}
 
 
 def reset_launch_counts() -> None:
     for fn in _KERNELS:
         fn.launches = 0
+    dpps_perturb_rows.mapped_launches = 0

@@ -12,16 +12,22 @@ torch on the CPU has no ``>>`` for ``uint32``, so bits are widened to
 """
 from __future__ import annotations
 
+from typing import NamedTuple
+
 import torch
 
 __all__ = [
     "philox4x32_10",
     "philox_bits",
+    "ColumnMap",
+    "philox_columns",
+    "philox_map",
     "laplace_from_bits",
     "l1_norm_rows",
     "clip_scale_rows",
     "dpps_perturb_rows",
     "leaf_columns",
+    "tree_column_maps",
     "l1_norm_tree",
     "dpps_perturb_tree",
     "laplace_noise_like",
@@ -98,6 +104,70 @@ def philox_bits(seed: int, t: int, n_nodes: int, start: int, stop: int,
     return flat[:, lo:lo + (stop - start)]
 
 
+class ColumnMap(NamedTuple):
+    """The wire columns of a leaf's flat per-node elements where the rank
+    holds a block of the leaf (a model-axis shard): element j is wire
+    column ``col0 + (j // run) * stride + off + j % run``. ``col0`` is the
+    whole leaf's first column in the wire row, ``stride`` the elements of
+    the whole leaf from one index of the dims before the split dim to the
+    next (the split dim's width times its trailing dims' sizes), ``run``
+    the rank's share of them (its block's width times the same) and
+    ``off`` where its block starts (the block's first index times the
+    same). ``run == stride`` is the contiguous case: column ``col0 + off +
+    j`` (a split on the leaf's leading dim, or no split)."""
+
+    col0: int
+    run: int
+    stride: int
+    off: int = 0
+
+    @property
+    def contiguous(self) -> bool:
+        return self.run == self.stride
+
+    def columns(self, start: int, stop: int, device=None) -> torch.Tensor:
+        """The wire columns of elements [start, stop), int64."""
+        j = torch.arange(start, stop, dtype=torch.int64, device=device)
+        return self.col0 + (j // self.run) * self.stride + self.off + \
+            j % self.run
+
+
+def philox_columns(seed: int, t: int, n_nodes: int, cols: torch.Tensor, *,
+                   node0: int = 0) -> torch.Tensor:
+    """The noise bits of round ``t`` at the wire columns ``cols`` (int64,
+    any order) of global nodes ``node0`` ... ``node0 + n_nodes - 1``:
+    (n_nodes, len(cols)) int64 holding uint32 values, column e being word
+    ``e % 4`` of the Philox counter ``e // 4`` as in :func:`philox_bits`.
+    The plain version of ``csrc/dpps_perturb.cu``'s column map (a rank's
+    shard of a leaf draws the whole leaf's bits at its columns); each
+    element evaluates its own counter."""
+    q = (cols // 4)[None, :]
+    nodes = torch.arange(node0, node0 + n_nodes, dtype=torch.int64,
+                         device=cols.device)[:, None]
+    shape = (n_nodes, cols.shape[0])
+    ctr = (q.expand(shape) & _MASK32, (q >> 32).expand(shape),
+           nodes.expand(shape),
+           torch.full(shape, int(t) & _MASK32, dtype=torch.int64,
+                      device=cols.device))
+    words = torch.stack(philox4x32_10(ctr, (seed & _MASK32,
+                                            (seed >> 32) & _MASK32)), dim=-1)
+    return words.gather(-1, (cols % 4)[None, :, None].expand(
+        shape + (1,)))[..., 0]
+
+
+def philox_map(seed: int, t: int, n_nodes: int, col_map: ColumnMap,
+               size: int, device=None, *, node0: int = 0) -> torch.Tensor:
+    """The noise bits of a leaf's first ``size`` elements at the columns of
+    ``col_map``: :func:`philox_bits` where they are contiguous, else
+    :func:`philox_columns`."""
+    if col_map.contiguous:
+        c0 = col_map.col0 + col_map.off
+        return philox_bits(seed, t, n_nodes, c0, c0 + size, device=device,
+                           node0=node0)
+    return philox_columns(seed, t, n_nodes,
+                          col_map.columns(0, size, device), node0=node0)
+
+
 def laplace_from_bits(bits: torch.Tensor, scale) -> torch.Tensor:
     """Laplace(0, scale) from uint32 bits by the inverse CDF.
 
@@ -149,7 +219,8 @@ def dpps_perturb_rows(s: torch.Tensor, eps: torch.Tensor, scale,
                       gamma_n: float, d_s: int, *,
                       bits: torch.Tensor | None = None,
                       seed: int | None = None, t: int | None = None,
-                      col0: int = 0, node0: int = 0):
+                      col0: int = 0, node0: int = 0,
+                      col_map: ColumnMap | None = None):
     """Fused Eq. 7 + Eq. 8 over the packed rows.
 
     ``s_noise = s + eps + gamma_n Lap(bits; scale)`` on the first ``d_s``
@@ -157,7 +228,9 @@ def dpps_perturb_rows(s: torch.Tensor, eps: torch.Tensor, scale,
     ``||noise||_1``. ``bits`` (N, d_s) uint32 feeds explicit bits (the
     bits-in variant); otherwise :func:`philox_bits` of ``(seed, t)`` at wire
     columns ``[col0, col0 + d_s)`` (a leaf whose first column in the wire
-    row is ``col0``) of global nodes ``[node0, node0 + N)``.
+    row is ``col0``) of global nodes ``[node0, node0 + N)``, or, with
+    ``col_map`` (which then replaces ``col0``), at its columns
+    (:func:`philox_columns`).
 
     Plain version of ``csrc/dpps_perturb.cu``; mirrors the Pallas
     ``repro/kernels/dpps_perturb.py::dpps_perturb`` as ``repro.kernels.ops.
@@ -166,8 +239,8 @@ def dpps_perturb_rows(s: torch.Tensor, eps: torch.Tensor, scale,
     """
     n, d_pad = s.shape
     if bits is None:
-        bits = philox_bits(seed, t, n, col0, col0 + d_s, device=s.device,
-                           node0=node0)
+        bits = philox_map(seed, t, n, col_map or ColumnMap(col0, 1, 1), d_s,
+                          s.device, node0=node0)
     noise = laplace_from_bits(bits, scale)
     eps_w = eps[:, :d_s].to(torch.float32)
     row = s[:, :d_s].to(torch.float32) + eps_w + gamma_n * noise
@@ -193,37 +266,62 @@ def _leaf_bits(bits, i: int, x: torch.Tensor):
     return None if bits is None else bits[i].reshape(x.shape[0], -1)
 
 
-def l1_norm_tree(leaves) -> torch.Tensor:
+def l1_norm_tree(leaves, counted=None) -> torch.Tensor:
     """Per-node L1 norms of node-stacked leaves: each leaf's norm over its
-    flat (N, size) rows, summed in leaf order -> (N,). Plain version of
+    flat (N, size) rows, summed in leaf order -> (N,); ``counted`` as
+    :func:`dpps_perturb_tree` takes it. Plain version of
     ``ops.l1_norm_tree``; mirrors ``repro.kernels.ops.l1_norm_tree``."""
     total = None
-    for x in leaves:
+    for i, x in enumerate(leaves):
         norm = l1_norm_rows(x.reshape(x.shape[0], -1), x[0].numel())
-        total = norm if total is None else total + norm
+        total = _counted(total, norm, counted is None or counted[i])
     return total
+
+
+def tree_column_maps(leaves, col_maps=None) -> list:
+    """Each leaf's :class:`ColumnMap`: ``col_maps`` where given (a rank's
+    shards of a model-sharded tree), else the contiguous columns from
+    :func:`leaf_columns`."""
+    if col_maps is not None:
+        if len(col_maps) != len(leaves):
+            raise ValueError(f"{len(col_maps)} column maps for "
+                             f"{len(leaves)} leaves")
+        return list(col_maps)
+    return [ColumnMap(c0, 1, 1) for c0 in leaf_columns(leaves)]
+
+
+def _counted(total, norm, counted: bool):
+    """``total + norm`` where the leaf's columns are counted here, else
+    ``total + 0 norm`` (the shape, not the value)."""
+    if not counted:
+        norm = torch.zeros_like(norm)
+    return norm if total is None else total + norm
 
 
 def dpps_perturb_tree(s_leaves, eps_leaves, scale, gamma_n: float, *,
                       bits=None, seed: int | None = None,
-                      t: int | None = None, node0: int = 0):
+                      t: int | None = None, node0: int = 0, col_maps=None,
+                      counted=None):
     """:func:`dpps_perturb_rows` leaf by leaf -> (s_noise leaves, eps_l1
     (N,), noise_l1 (N,)), the norms summed in leaf order. ``bits`` is one
     uint32 tensor a leaf; otherwise leaf i draws the Philox bits of its wire
-    columns (``col0`` = :func:`leaf_columns`), the packed row's bits. Plain
-    version of ``ops.dpps_perturb_tree``; mirrors ``repro.kernels.ops.
+    columns (``col0`` = :func:`leaf_columns`, the packed row's bits, or its
+    ``col_maps[i]``). ``counted`` (one bool a leaf; default all) leaves out
+    of the norms a leaf whose columns another rank counts. Plain version of
+    ``ops.dpps_perturb_tree``; mirrors ``repro.kernels.ops.
     dpps_perturb_tree``."""
     out, eps_l1, noise_l1 = [], None, None
-    for i, (x, e, c0) in enumerate(zip(s_leaves, eps_leaves,
-                                       leaf_columns(s_leaves))):
+    maps = tree_column_maps(s_leaves, col_maps)
+    for i, (x, e, cmap) in enumerate(zip(s_leaves, eps_leaves, maps)):
         n, size = x.shape[0], x[0].numel()
         sn, e1, n1 = dpps_perturb_rows(
             x.reshape(n, size), e.reshape(n, size), scale, gamma_n, size,
-            bits=_leaf_bits(bits, i, x), seed=seed, t=t, col0=c0,
-            node0=node0)
+            bits=_leaf_bits(bits, i, x), seed=seed, t=t, node0=node0,
+            col_map=cmap)
         out.append(sn.reshape(x.shape))
-        eps_l1 = e1 if eps_l1 is None else eps_l1 + e1
-        noise_l1 = n1 if noise_l1 is None else noise_l1 + n1
+        keep = counted is None or counted[i]
+        eps_l1 = _counted(eps_l1, e1, keep)
+        noise_l1 = _counted(noise_l1, n1, keep)
     return out, eps_l1, noise_l1
 
 

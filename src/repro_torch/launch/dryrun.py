@@ -15,14 +15,16 @@ append to a JSON list so long sweeps resume; an ``ok`` row carries
 ``peak_bytes`` and ``fits`` (the peak within the card's 80 GB) and
 ``trace_s`` in place of XLA's ``lower_s`` / ``compile_s``.
 
-``--model-shards M`` (default 1, the rows above) splits each serve row's
-model over M ranks of the "model" dim (:mod:`repro_torch.models.
-parallel`) and counts one rank: its FLOPs, bytes, peak, ``fits`` and the
-collectives its model axis charges on meta (``mesh`` is ``model<M>``).
-The data dim stays 1, so the batch is whole on the rank (``batch_whole``
-in the row). A row whose model M does not split (a dim M does not
-divide, a group kind the axis does not split) is skipped with the reason;
-train rows ignore it.
+``--model-shards M`` (default 1, the rows above) splits each row's model
+over M ranks of the "model" dim (:mod:`repro_torch.models.parallel`) and
+counts one rank: its FLOPs, bytes, peak, ``fits`` and the collectives
+its model axis charges on meta, the backward's among them (``mesh`` is
+``model<M>`` for a serve row, ``nodes<N>+model<M>`` for a train row).
+The data dim stays 1: a serve row's batch is whole on the rank
+(``batch_whole`` in the row), a train row's rank holds all N nodes' rows
+of its shard (a (1, M) mesh's rank; ``build_train_plan(arch, N,
+model_shards=M)``). A row whose model M does not split (a dim M does not
+divide, a group kind the axis does not split) is skipped with the reason.
 """
 from __future__ import annotations
 
@@ -53,8 +55,10 @@ def _variant(schedule: str, param_dtype: str | None, two_pass: bool | None,
 
 
 def _mesh_name(kind: str, nodes: int, model_shards: int) -> str:
-    return f"model{model_shards}" if kind != "train" and model_shards > 1 \
-        else f"nodes{nodes}"
+    if model_shards == 1:
+        return f"nodes{nodes}"
+    return f"nodes{nodes}+model{model_shards}" if kind == "train" \
+        else f"model{model_shards}"
 
 
 def run_one(arch_name: str, shape_name: str, *, nodes: int = 16,
@@ -64,7 +68,7 @@ def run_one(arch_name: str, shape_name: str, *, nodes: int = 16,
             verbose: bool = True) -> dict:
     arch = get_config(arch_name)
     shape = INPUT_SHAPES[shape_name]
-    sharded = shape.kind != "train" and model_shards > 1
+    sharded = model_shards > 1
     mesh_name = _mesh_name(shape.kind, nodes, model_shards)
     if not arch.runs_shape(shape_name):
         return {"arch": arch_name, "shape": shape_name, "mesh": mesh_name,
@@ -83,7 +87,8 @@ def run_one(arch_name: str, shape_name: str, *, nodes: int = 16,
             plan = build_train_plan(arch, nodes, shape_name=shape_name,
                                     schedule=schedule,
                                     param_dtype=param_dtype,
-                                    two_pass=two_pass)
+                                    two_pass=two_pass,
+                                    model_shards=model_shards)
         else:
             plan = build_serve_plan(arch, model_shards if sharded else None,
                                     shape_name=shape_name,
@@ -100,8 +105,10 @@ def run_one(arch_name: str, shape_name: str, *, nodes: int = 16,
             "fits": terms.peak_memory_bytes <= HW.memory_bytes,
         })
         if sharded:
-            row.update({"model_shards": model_shards, "batch_whole": True,
+            row.update({"model_shards": model_shards,
                         "coll_calls": dict(terms.coll_calls)})
+            row["nodes_whole" if shape.kind == "train"
+                else "batch_whole"] = True
         if verbose:
             print(f"[{arch_name} x {shape_name} x {mesh_name} x {variant}] OK "
                   f"trace={trace_s:.1f}s")
@@ -142,9 +149,10 @@ def main(argv=None) -> None:
                          "place, that path's layout), left out of the row's "
                          "variant")
     ap.add_argument("--model-shards", type=int, default=1,
-                    help="serve rows: one rank of a model split over this "
-                         "many ranks of the mesh's 'model' dim (the data "
-                         "dim 1: the batch whole on the rank)")
+                    help="one rank of a model split over this many ranks "
+                         "of the mesh's 'model' dim (the data dim 1: a "
+                         "serve row's batch, a train row's nodes whole on "
+                         "the rank)")
     ap.add_argument("--all", action="store_true",
                     help="sweep every (arch x shape)")
     ap.add_argument("--out", default=None, help="append JSON rows to this file")

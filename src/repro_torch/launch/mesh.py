@@ -12,9 +12,9 @@ Multi-pod  : (pod=2, data=16, model=16) = 512 ranks
 The decentralized gossip axes are ("data",) single-pod and ("pod", "data")
 multi-pod (32 nodes); "model" is tensor/expert parallelism inside each
 node. The sharded engine (:mod:`repro_torch.engine.shard`) runs the node
-axis over the gossip axes; serving runs the model dim
-(:func:`model_axis`, :mod:`repro_torch.models.parallel`), training does
-not yet (ROADMAP item 11b's remainder).
+axis over the gossip axes; serving and training run the model dim
+(:func:`model_axis`, :mod:`repro_torch.models.parallel`; a training
+rank's plan, ``launch.steps.build_train_plan(arch, mesh)``, runs both).
 """
 from __future__ import annotations
 

@@ -1,5 +1,5 @@
 """What a rank holds: ``repro.launch.sharding``'s node half (the node rows
-of a protocol state) and the serving half of its model axis.
+of a protocol state) and its model axis, for serving and for training.
 
 The reference turns a model's PartitionSpec trees into ``NamedSharding``
 trees: train-state leaves are node-stacked, their node dim over the gossip
@@ -26,9 +26,19 @@ cuts the whole model's parameters (the port's own, or
 ``convert.transformer_params_from_reference``'s) into the rank's part,
 and :func:`gather_params` gathers the parts back over the model group.
 A ``mesh`` here is a ``DeviceMesh`` of ("data", "model") dims, or what
-:func:`repro_torch.launch.mesh.as_model_axis` takes. The model pspecs of
-the train state (DPPS over model-sharded leaves) are not ported (ROADMAP
-item 11b's remainder).
+:func:`repro_torch.launch.mesh.as_model_axis` takes.
+
+The model half of the train state: :func:`train_state_pspecs` gives the
+reference's specs (its ``prepend_axes(pspec, gossip)`` of every
+node-stacked leaf; the (N,) vectors over the gossip axes; the scalars
+replicated) as tuples; :func:`train_state_shardings` with ``model=``
+gives them applied by rank: each node-stacked leaf's (dim, slice) pairs,
+its node rows first, then its model block (the node dim counted);
+:func:`shard_train_state` cuts a global state (the port's, or a
+converted reference state) into the rank's part, and
+:func:`gather_train_state` gathers the parts back (every rank calls it);
+:func:`train_columns` gives each shared leaf's wire columns and whether
+this rank counts them (:class:`repro_torch.core.dpps.ColumnOps`).
 """
 from __future__ import annotations
 
@@ -45,7 +55,8 @@ from repro_torch.launch.mesh import as_model_axis, gossip_axes, n_gossip_nodes
 __all__ = ["node_rows", "train_state_shardings", "train_batch_shardings",
            "shard_rows", "gather_rows", "all_gather_rows", "gossip_axis",
            "serve_param_shardings", "serve_cache_shardings", "shard_params",
-           "gather_params"]
+           "gather_params", "train_state_pspecs", "shard_train_state",
+           "gather_train_state", "train_state_blocks", "train_columns"]
 
 
 def gossip_axis(mesh) -> str:
@@ -83,14 +94,24 @@ def _node_count(tree: PyTree) -> int:
     return counts.pop()
 
 
-def train_state_shardings(state: PyTree, mesh) -> PyTree:
+def train_state_shardings(state: PyTree, mesh, model=None,
+                          partition=None) -> PyTree:
     """A ``PartPSPState`` (or ``DPPSState``)-shaped tree of what this rank
     holds: the row slice of each node-stacked leaf, ``None`` for the
-    replicated scalars. The state is the global one (N rows)."""
+    replicated scalars. The state is the global one (N rows). With
+    ``model`` (a ``Transformer``) and ``partition`` (a ``PartPSPState``
+    of its parameters), each node-stacked leaf's (dim, slice) pairs
+    instead: ``(0, rows)``, then its block over "model" (the reference's
+    ``prepend_axes(pspec, gossip)`` applied by rank)."""
     rows = node_rows(mesh, _node_count(state))
     leaves, treedef = tree_flatten(state)
-    return tree_unflatten(treedef, [rows if _is_node_leaf(x) else None
-                                    for x in leaves])
+    if model is None:
+        return tree_unflatten(treedef, [rows if _is_node_leaf(x) else None
+                                        for x in leaves])
+    blocks = iter(train_state_blocks(state, model, mesh, partition))
+    return tree_unflatten(treedef, [
+        ((0, rows),) + next(blocks) if _is_node_leaf(x) else None
+        for x in leaves])
 
 
 def train_batch_shardings(batch: PyTree, mesh) -> PyTree:
@@ -176,30 +197,173 @@ def shard_params(params: PyTree, mesh, model) -> PyTree:
     return _rank_model(model, mesh).shard_params(params)
 
 
+def _gather_model(x: torch.Tensor, per_rank: list, group) -> torch.Tensor:
+    """The whole leaf from every model rank's block ``x``: one all-gather
+    over ``group``, the blocks joined in rank order along their dim, a
+    block several ranks hold (a replicated KV head) taken once.
+    ``per_rank`` is each rank's (dim, slice) pairs of the leaf (None:
+    held whole)."""
+    if per_rank[0] is None:
+        return x
+    parts = [torch.empty_like(x) for _ in per_rank]
+    dist.all_gather(parts, x.contiguous(), group=group)
+    starts = [pairs[0][1].start for pairs in per_rank]
+    keep = [part for r, part in enumerate(parts)  # a replicated head once
+            if starts.index(starts[r]) == r]
+    return torch.cat(keep, dim=per_rank[0][0][0])
+
+
+def _per_rank_shards(model, axis) -> list[dict]:
+    """Each model rank's ``param_shards`` (rank r of ``axis.size``)."""
+    from repro_torch.models.parallel import ModelAxis
+
+    return [_rank_model(model, ModelAxis(size=axis.size, rank=r))
+            .param_shards() for r in range(axis.size)]
+
+
 def gather_params(shards: PyTree, mesh, model) -> PyTree:
     """The whole model's parameters from every rank's :func:`shard_params`
     part (its inverse): one all-gather over the model group a sharded
     leaf, the ranks' blocks joined in rank order, each replicated KV head
     taken once. Every rank of the group calls it."""
-    from repro_torch.models.parallel import ModelAxis
-
-    rank_model = _rank_model(model, mesh)
-    axis = rank_model.axis
+    axis = _rank_model(model, mesh).axis
     if axis.size == 1:
         return shards
-    per_rank = [
-        _rank_model(model, ModelAxis(size=axis.size, rank=r)).param_shards()
-        for r in range(axis.size)]
+    per_rank = _per_rank_shards(model, axis)
     pairs, treedef = tree_flatten_with_path(shards)
-    out = []
-    for path, x in pairs:
-        if per_rank[0][path] is None:
-            out.append(x)
+    return tree_unflatten(treedef, [
+        _gather_model(x, [sh[path] for sh in per_rank], axis.group)
+        for path, x in pairs])
+
+
+# -- the model axis (training) ---------------------------------------------------
+
+def _shifted(pairs) -> tuple:
+    """(dim, slice) pairs of a parameter, its dims counted after a node
+    dim."""
+    return tuple((dim + 1, sl) for dim, sl in pairs or ())
+
+
+def _is_param_path(path: str) -> bool:
+    """A state leaf that is a parameter leaf (a shared or a local one), not
+    ``a`` or a sensitivity vector."""
+    return path.startswith((".dpps/.push/.s/", ".local/"))
+
+
+def _state_blocks(state, per_leaf: list) -> list:
+    """``per_leaf`` (one value a parameter leaf, in the partition's leaf
+    order) as the state's node-stacked leaves take it: its shared leaves'
+    values, then its local leaves'; ``()`` for ``a`` and the (N,)
+    vectors."""
+    blocks = iter(per_leaf)
+    return [next(blocks) if _is_param_path(p) else ()
+            for p, x in tree_flatten_with_path(state)[0] if _is_node_leaf(x)]
+
+
+def train_state_blocks(state, model, mesh, partition) -> list:
+    """This rank's model block of each node-stacked leaf of ``state`` (in
+    leaf order), as (dim, slice) pairs counted after the node dim; ``mesh``
+    as :func:`repro_torch.launch.mesh.as_model_axis` takes it (a
+    ``ModelAxis`` names a rank without a process group)."""
+    shards = _rank_model(model, mesh).param_shards()
+    shared, local = partition.split_static(
+        [_shifted(shards[path]) for path, _ in partition.leaf_plans()])
+    return _state_blocks(state, shared + local)
+
+
+def train_state_pspecs(model, partition, mesh) -> dict:
+    """The reference's ``train_state_shardings(model, partition, mesh)``
+    as spec tuples, by the state's leaf paths (``.dpps/.push/.s/0``, ...,
+    :func:`repro_torch.core.tree_utils.tree_flatten_with_path`'s): each
+    parameter leaf its pspec after the gossip axes, ``a`` and the (N,)
+    sensitivity vectors over the gossip axes, the scalars replicated."""
+    from repro_torch.models.transformer import _spec_paths
+
+    gax = gossip_axes(mesh)
+    head = gax if len(gax) > 1 else gax[0]
+    specs = _spec_paths(model.param_pspecs())
+    shared, local = partition.split_static(
+        [(head,) + tuple(specs[path]) for path, _ in partition.leaf_plans()])
+    out = {f".dpps/.push/.s/{i}": spec for i, spec in enumerate(shared)}
+    out.update({".dpps/.push/.a": (head,), ".dpps/.sens/.s_local": (head,),
+                ".dpps/.sens/.prev_noise_l1": (head,),
+                ".dpps/.sens/.c_prime": (), ".dpps/.sens/.lam": (),
+                ".dpps/.t": ()})
+    out.update({f".local/{i}": spec for i, spec in enumerate(local)})
+    return out
+
+
+def shard_train_state(state: PyTree, mesh, model, partition) -> PyTree:
+    """This rank's part of a global ``PartPSPState`` (N rows, the whole
+    model's leaves): its node rows (:func:`node_rows`) of its model
+    blocks of each node-stacked leaf (new tensors,
+    ``models.parallel.take``), the scalars as they are."""
+    from repro_torch.models.parallel import take
+
+    rows = node_rows(mesh, _node_count(state))
+    blocks = iter(train_state_blocks(state, model, mesh, partition))
+    leaves, treedef = tree_flatten(state)
+    return tree_unflatten(treedef, [
+        take(x, ((0, rows),) + next(blocks)) if _is_node_leaf(x) else x
+        for x in leaves])
+
+
+def gather_train_state(state: PyTree, mesh, model, partition) -> PyTree:
+    """The global state from every rank's :func:`shard_train_state` part:
+    each parameter leaf's model blocks gathered over "model"
+    (:func:`gather_params`'s rule), then every node-stacked leaf's rows
+    over the gossip axis (:func:`gather_rows`). Every rank of the mesh
+    calls it."""
+    axis = _rank_model(model, mesh).axis
+    if axis.size > 1:
+        per_rank = _per_rank_shards(model, axis)
+        shared, local = partition.split_static(
+            [[_shifted(sh[path]) or None for sh in per_rank]
+             for path, _ in partition.leaf_plans()])
+        blocks = iter(_state_blocks(state, shared + local))
+        leaves, treedef = tree_flatten(state)
+        state = tree_unflatten(treedef, [
+            _gather_model(x, next(blocks) or [None], axis.group)
+            if _is_node_leaf(x) else x for x in leaves])
+    return gather_rows(state, mesh)
+
+
+def train_columns(model, partition, axis) -> tuple[list, list]:
+    """(counted, col_maps) of each shared leaf of rank ``axis`` (a
+    ``ModelAxis``) of ``model``'s architecture: whether this rank counts
+    the leaf's columns in a per-node norm (columns several ranks hold, a
+    replicated leaf's or a shared KV head's, count on the first of them),
+    and its wire columns in the whole model's wire row
+    (``kernels.ref.ColumnMap``: the whole leaf's first column, and the
+    rank's block of it)."""
+    import math
+
+    from repro_torch.kernels.ref import ColumnMap
+    from repro_torch.models.transformer import Transformer
+
+    whole = {p: tuple(x.shape) for p, x in tree_flatten_with_path(
+        Transformer(model.cfg).init(torch.Generator(), device="meta"))[0]}
+    per_rank = _per_rank_shards(model, axis)
+    counted, col_maps, col0 = [], [], 0
+    for path, action in partition.leaf_plans():
+        if action == "local":
             continue
-        parts = [torch.empty_like(x) for _ in range(axis.size)]
-        dist.all_gather(parts, x.contiguous(), group=axis.group)
-        starts = [sh[path][0][1].start for sh in per_rank]
-        keep = [part for r, part in enumerate(parts)  # a replicated head once
-                if starts.index(starts[r]) == r]
-        out.append(torch.cat(keep, dim=per_rank[0][path][0][0]))
-    return tree_unflatten(treedef, out)
+        shape = whole[path]
+        if isinstance(action, tuple):  # the shared layers [:k]
+            shape = (int(action[1]),) + shape[1:]
+        starts = [None if sh[path] is None else sh[path][0][1].start
+                  for sh in per_rank]
+        counted.append(starts.index(starts[axis.rank]) == axis.rank)
+        pairs = per_rank[axis.rank][path]
+        if pairs is None:
+            col_maps.append(ColumnMap(col0, 1, 1))
+        else:
+            dim, sl = pairs[0]
+            trail = math.prod(shape[dim + 1:])
+            cmap = ColumnMap(col0, (sl.stop - sl.start) * trail,
+                             shape[dim] * trail, sl.start * trail)
+            # a block of the leading dim is a contiguous run of columns
+            col_maps.append(ColumnMap(col0 + cmap.off, 1, 1) if dim == 0
+                            else cmap)
+        col0 += math.prod(shape)
+    return counted, col_maps

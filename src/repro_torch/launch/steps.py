@@ -4,8 +4,14 @@ meta-device stand-ins of its inputs and its loop-aware cost.
 
 The reference takes a mesh and derives its node count from the mesh's
 gossip axes (``n_gossip_nodes``); :func:`build_train_plan` takes a
-``DeviceMesh`` so too (:mod:`repro_torch.launch.mesh`), or an int node
-count, which the dry run's ``--nodes`` gives. :func:`build_serve_plan`
+``DeviceMesh`` of ("data", "model") dims so too (:mod:`repro_torch.launch.
+mesh`): its plan is one rank's, the rank's block of N / D node rows
+(``engine.shard``'s seams over "data") of its shard of the model
+(``models.parallel`` over "model", the protocol's norms finished over it:
+``core.dpps.ColumnOps``), the reference's ``train_state_shardings``
+applied by rank; or an int node count, which the dry run's ``--nodes``
+gives (``model_shards=M``: rank 0 of M with no process group, for the dry
+run's meta count). :func:`build_serve_plan`
 takes the mesh whose "model" dim splits the served model (tensor and
 expert parallelism, :mod:`repro_torch.models.parallel`), or an int M
 (the dry run's ``--model-shards``: rank 0's step counted on meta, no
@@ -32,7 +38,7 @@ import torch
 
 from repro_torch.configs import (INPUT_SHAPES, ArchSpec, ShapeSpec,
                                  serve_batch_specs, train_batch_specs)
-from repro_torch.core.dpps import DPPSConfig
+from repro_torch.core.dpps import LOCAL_COLUMN_OPS, ColumnOps, DPPSConfig
 from repro_torch.core.partition import Partition
 from repro_torch.core.partpsp import (PartPSPConfig, PartPSPState,
                                       node_stacked, partpsp_init, partpsp_step)
@@ -40,7 +46,8 @@ from repro_torch.core.topology import DOutGraph, Topology, derive_constants
 from repro_torch.core.tree_utils import tree_map
 from repro_torch.device import resolve_device, resolve_use_kernels
 from repro_torch.launch.flops import model_flops
-from repro_torch.launch.mesh import as_model_axis, n_gossip_nodes
+from repro_torch.launch.mesh import (as_model_axis, gossip_axes, model_axis,
+                                     n_gossip_nodes)
 from repro_torch.launch.op_analysis import RooflineTerms, analyze_step
 from repro_torch.models.transformer import Transformer
 
@@ -69,15 +76,36 @@ class TrainPlan:
     shape: ShapeSpec
     n_nodes: int
     batch_specs: Any
+    # a rank's plan (build_train_plan on a DeviceMesh): the mesh, and the
+    # column ops of its shard of the shared leaves
+    mesh: Any = None
+    columns: ColumnOps = LOCAL_COLUMN_OPS
+    # the mix arguments and the data seams, made once a device
     _mix: dict = dataclasses.field(default_factory=dict, repr=False)
+
+    @property
+    def data(self) -> tuple[Any, int, int]:
+        """(group, size, rank) of the mesh's gossip ("data") dim; (None, 1,
+        0) without a mesh."""
+        if self.mesh is None:
+            return None, 1, 0
+        (name,) = gossip_axes(self.mesh)
+        size = dict(zip(self.mesh.mesh_dim_names, self.mesh.shape))[name]
+        return self.mesh.get_group(name), size, self.mesh.get_local_rank(name)
+
+    @property
+    def block(self) -> int:
+        """The node rows this plan's process holds (N / D over a mesh)."""
+        return self.n_nodes // self.data[1]
 
     def init_state(self, device=None, seed: int = 0) -> PartPSPState:
         """A node-stacked state on ``device`` (the card by default): the
         model's ``init`` from ``seed``, one copy for each node (the
         reference's ``_abstract_state`` holds N copies, as every state after
-        the first round does)."""
+        the first round does). A rank's plan: its node rows of its shard of
+        that state."""
         params = _init_params(self.model, resolve_device(device), seed)
-        n = self.n_nodes
+        n = self.block
         stacked = tree_map(
             lambda x: x[None].expand((n,) + tuple(x.shape)).contiguous(),
             params)
@@ -93,13 +121,43 @@ class TrainPlan:
         """One PartPSP round on ``state``'s device (the kernels on the card
         and on meta, the plain versions on the CPU); ``bits`` are the
         noise bits of each shared leaf (default: the Philox draw of
-        ``seed``)."""
+        ``seed``). A rank's plan runs its round on its part of the state
+        and of the batch (its node rows): with a data dim above 1 over
+        ``engine.shard``'s seams (the mix's all-gather and W rows, the
+        node reductions' all-reduces, the noise keyed by global node), and
+        its norms finished over "model" (``columns``)."""
         dev = state.dpps.push.a.device
+        kernels = resolve_use_kernels(None, dev)
         cfg = dataclasses.replace(self.cfg, dpps=dataclasses.replace(
-            self.cfg.dpps, use_kernels=resolve_use_kernels(None, dev)))
+            self.cfg.dpps, use_kernels=kernels))
         return partpsp_step(state, batch, cfg=cfg, partition=self.partition,
                             loss_fn=node_stacked(self.model.loss_fn),
-                            seed=seed, bits=bits, **self.mix_args(dev))
+                            seed=seed, bits=bits, columns=self.columns,
+                            **self.mix_args(dev), **self._data_seams(
+                                dev, kernels))
+
+    def _data_seams(self, device, kernels: bool) -> dict:
+        """``engine.shard``'s seams over a data dim above 1 (its gossip
+        builder, node ops and ``node0``), made once a device; none
+        otherwise."""
+        group, size, rank = self.data
+        if size == 1:
+            return {}
+        key = ("seams", str(device), kernels)
+        if key not in self._mix:
+            from repro_torch.engine.plan import ProtocolPlan
+            from repro_torch.engine.shard import (sharded_gossip_builder,
+                                                  sharded_node_ops)
+
+            proto = ProtocolPlan.from_topology(
+                self.topology, schedule=self.cfg.dpps.schedule,
+                use_kernels=kernels, device=device)
+            gossip = sharded_gossip_builder(proto, group, size, rank)
+            self._mix[key] = dict(
+                gossip_fn=gossip(self.mix_args(device)),
+                node_ops=sharded_node_ops(group, self.n_nodes),
+                node0=rank * self.block)
+        return self._mix[key]
 
     def mix_args(self, device) -> dict:
         """The round's mix arguments on ``device``: circulant offsets and
@@ -116,12 +174,18 @@ class TrainPlan:
         return self._mix[key]
 
     def cost(self) -> RooflineTerms:
-        """The step's roofline terms, counted on meta tensors."""
-        return analyze_step(
+        """The step's roofline terms, counted on meta tensors: one rank's
+        over a model axis, its collectives charged as the ranks would
+        issue them."""
+        m = self.model.axis.size
+        terms = analyze_step(
             self.step_fn, *self.abstract_args(), arch=self.arch.name,
             shape=self.shape.name, nodes=self.n_nodes,
-            model_flops=model_flops(self.arch, self.shape),
+            model_flops=model_flops(self.arch, self.shape) / m,
             compute_dtype=self.model.cfg.param_dtype)
+        if m > 1:
+            terms.mesh = f"nodes{self.n_nodes}+model{m}"
+        return terms
 
 
 @dataclasses.dataclass
@@ -217,19 +281,38 @@ def build_train_plan(
     schedule: str | None = None,
     param_dtype: str | None = None,   # SPerf knob: e.g. "bfloat16"
     two_pass: bool | None = None,     # SPerf knob: False = fused grads
+    nodes: int | None = None,
+    model_shards: int = 1,
 ) -> TrainPlan:
-    """The reference's plan. ``n_nodes`` is a mesh (a ``DeviceMesh``, whose
-    gossip axes give the node count, as the reference's ``mesh`` does) or
-    the node count itself. ``shape`` (a ``ShapeSpec`` of kind "train")
-    replaces ``shape_name``."""
+    """The reference's plan. ``n_nodes`` is the node count, or a mesh whose
+    gossip axes give it, as the reference's ``mesh`` does (``nodes``
+    replaces that count: N / D node rows a data rank). A
+    ``DeviceMesh`` of ("data", "model") dims makes the plan its rank's:
+    the rank's node rows and its shard of the model
+    (:mod:`repro_torch.models.parallel`: the attention and MoE groups; the
+    others raise at M > 1, as does an M that does not divide H, d_ff, E
+    or V), the model's data dim 1 (each node routes its own batch). An
+    int with ``model_shards`` M > 1 is rank 0 of M with no process group
+    (every node on the rank), for the dry run's meta count only.
+    ``shape`` (a ``ShapeSpec`` of kind "train") replaces ``shape_name``."""
+    mesh, axis = None, as_model_axis(model_shards if model_shards > 1
+                                     else None)
+    if _is_device_mesh(n_nodes):
+        mesh = n_nodes
+        axis = dataclasses.replace(model_axis(mesh), data_size=1,
+                                   data_rank=0, data_group=None)
     if not isinstance(n_nodes, int):
         n_nodes = n_gossip_nodes(n_nodes)
+    n_nodes = nodes or n_nodes
+    if mesh is not None and n_nodes % n_gossip_nodes(mesh):
+        raise ValueError(f"node count {n_nodes} must divide evenly over "
+                         f"{n_gossip_nodes(mesh)} gossip shards")
     shape = _shape(shape_name, shape)
     assert shape.kind == "train", shape
     model_cfg = arch.model
     if param_dtype is not None:
         model_cfg = dataclasses.replace(model_cfg, param_dtype=param_dtype)
-    model = Transformer(model_cfg)
+    model = Transformer(model_cfg, axis=axis)
     topo = topology or DOutGraph(n_nodes=n_nodes, d=2)
     if cfg is None:
         c_prime, lam = derive_constants(topo)
@@ -243,15 +326,34 @@ def build_train_plan(
     if two_pass is not None:
         cfg = dataclasses.replace(cfg, two_pass=two_pass)
 
-    # the partition from the node-stacked parameter shapes (meta, no copy)
+    # the partition from the node-stacked parameter shapes (meta, no copy;
+    # a rank's shard shapes over a model axis)
     params = _init_params(model, "meta", 0)
     stacked = tree_map(lambda x: x[None].expand((n_nodes,) + tuple(x.shape)),
                        params)
     partition = Partition.from_rules(stacked, arch.shared_rules,
                                      default="local")
+    batch_specs = train_batch_specs(arch, shape, n_nodes)
+    columns = LOCAL_COLUMN_OPS
+    if mesh is not None or axis.size > 1:
+        from repro_torch.launch.sharding import train_columns
+
+        block = n_nodes // (n_gossip_nodes(mesh) if mesh is not None else 1)
+        batch_specs = tree_map(lambda x: x[:block], batch_specs)
+        counted, col_maps = train_columns(model, partition, axis)
+        columns = ColumnOps(col_sum=axis.sum_columns, counted=counted,
+                            col_maps=col_maps)
     return TrainPlan(arch=arch, model=model, partition=partition, cfg=cfg,
                      topology=topo, shape=shape, n_nodes=n_nodes,
-                     batch_specs=train_batch_specs(arch, shape, n_nodes))
+                     batch_specs=batch_specs, mesh=mesh, columns=columns)
+
+
+def _is_device_mesh(x) -> bool:
+    """Whether ``x`` is a ``DeviceMesh`` (a rank's mesh, with process
+    groups), not a node count or an object that only names its dims."""
+    from torch.distributed.device_mesh import DeviceMesh
+
+    return isinstance(x, DeviceMesh)
 
 
 def build_serve_plan(arch: ArchSpec, mesh: Any = None, *,

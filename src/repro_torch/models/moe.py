@@ -24,6 +24,10 @@ E/M)`` and runs only those rows of the dispatch buffer; the shared
 expert's column / row blocks add their partial, and the caller's one
 all-reduce combines the ranks. A data dim above 1 routes the tokens of
 every data rank (:meth:`ModelAxis.gather_rows`) and keeps its own rows.
+In training the routing is replicated (its gradient whole on every
+rank); the tokens the experts and the shared expert read, and the gate
+probability that weighs the rank's experts' outputs, pass through
+:meth:`ModelAxis.copy`, whose backward sums the ranks' partial gradients.
 """
 from __future__ import annotations
 
@@ -87,6 +91,10 @@ def moe_apply(params: dict, x: torch.Tensor, *, n_experts: int,
     routed = axis.gather_rows(tokens)
     cap = moe_capacity(capacity_factor, routed.shape[0], n_experts)
     r = moe_route(params["router"], routed, n_experts, cap)
+    # what the rank's experts read: without grad, the tokens themselves
+    # (training's axis has a data dim of 1, so routed is tokens there)
+    mine_in = axis.copy(tokens)
+    dispatched_in = routed if mine_in is tokens else mine_in
     slot, n_local = r["slot"], n_experts
     if axis.off:
         keep = r["keep"][:, None]
@@ -99,7 +107,7 @@ def moe_apply(params: dict, x: torch.Tensor, *, n_experts: int,
         keep = keep[:, None]
 
     buf = torch.zeros((n_local * cap + 1, d), dtype=x.dtype, device=x.device)
-    buf[slot] = torch.where(keep, routed, 0.0)
+    buf[slot] = torch.where(keep, dispatched_in, 0.0)
     dispatched = buf[:-1].reshape(n_local, cap, d)
 
     gate = F.silu(torch.bmm(dispatched, params["w_gate"]).float()).to(x.dtype)
@@ -107,13 +115,13 @@ def moe_apply(params: dict, x: torch.Tensor, *, n_experts: int,
     h = torch.bmm(gate * up, params["w_down"])               # (E, cap, d)
 
     h_flat = torch.cat([h.reshape(n_local * cap, d), h.new_zeros((1, d))])
-    out = h_flat[slot] * r["expert_prob"][:, None].to(x.dtype)
+    out = h_flat[slot] * axis.copy(r["expert_prob"])[:, None].to(x.dtype)
     out = axis.local_rows(torch.where(keep, out, 0.0))
 
     if "shared" in params:
         sh = params["shared"]
-        sgate = F.silu((tokens @ sh["w_gate"]).float()).to(x.dtype)
-        out = out + (sgate * (tokens @ sh["w_up"])) @ sh["w_down"]
+        sgate = F.silu((mine_in @ sh["w_gate"]).float()).to(x.dtype)
+        out = out + (sgate * (mine_in @ sh["w_up"])) @ sh["w_down"]
 
     # Switch-style load-balance loss: E * sum_e f_e * p_e
     frac_tokens = r["onehot"].float().mean(dim=0)

@@ -1,6 +1,7 @@
-"""The model axis: tensor and expert parallelism of a served model over the
-M ranks of a mesh's "model" dim (the port's stand-in for what GSPMD
-derives from the reference's pspecs, ``repro/launch/steps.py:160-218``).
+"""The model axis: tensor and expert parallelism of a model over the M
+ranks of a mesh's "model" dim, for serving and for training (the port's
+stand-in for what GSPMD derives from the reference's pspecs,
+``repro/launch/steps.py:95-218``).
 
 Rank r of M holds the reference's pspecs applied by rank
 (:func:`leaf_sharding`): query heads ``[r H/M, (r+1) H/M)`` of ``wq`` and
@@ -29,14 +30,31 @@ Every collective goes through one :class:`ModelAxis`:
   whole batch's, as the reference's GSPMD program computes them (only
   where the data dim is above 1: a data dim of one issues nothing).
 
+Training (grad enabled) runs the same sums as collectives autograd sees,
+in the Megatron pattern: :meth:`ModelAxis.reduce` is then
+*reduce-from-model* (forward a SUM all-reduce, backward the identity) and
+:meth:`ModelAxis.copy` *copy-to-model* (forward the identity, backward a
+SUM all-reduce), where the replicated stream enters a column-split block:
+the normed input of ``wq`` / ``wk`` / ``wv``, of ``w_up`` / ``w_gate``,
+of the head, and the MoE block's dispatched tokens and gate
+probabilities (the router itself runs replicated on every rank, so its
+gradient, the load-balance loss's among it, is whole on every rank). A
+KV head that M/K ranks share sums its ``wk`` / ``wv`` gradient over them
+(:meth:`ModelAxis.shared_kv`), and the loss is vocabulary-parallel
+(:meth:`ModelAxis.cross_entropy`): no (..., V) logits cross the wire.
+Without grad (serving) the ops are the in-place all-reduces they were.
+A training axis has a data dim of 1: there "data" splits the nodes of
+the protocol (:mod:`repro_torch.engine.shard`), and each node routes its
+own batch's tokens.
+
 The default axis (:data:`NO_AXIS`: M = 1, no group) is off: every method
 returns its input and the model runs today's ops, op for op. An axis with
 a group issues its c10d calls whatever M (M = 1: identities). An axis of
 M > 1 without a group is the dry run's (:mod:`repro_torch.launch.
 dryrun`): on meta tensors it issues no call and charges the collective's
 operand bytes to the active cost count
-(:func:`repro_torch.core.loops.charge_collective`); on real tensors it
-raises.
+(:func:`repro_torch.core.loops.charge_collective`), in the backward too;
+on real tensors it raises.
 """
 from __future__ import annotations
 
@@ -134,12 +152,13 @@ class ModelAxis:
 
     # -- collectives ---------------------------------------------------------
     @staticmethod
-    def _sum(x: torch.Tensor, group, size: int) -> torch.Tensor:
-        """SUM all-reduce of ``x`` in place over ``group``; on meta without
-        a group, charged to the cost count."""
+    def _sum(x: torch.Tensor, group, size: int,
+             op=dist.ReduceOp.SUM) -> torch.Tensor:
+        """``op`` (SUM) all-reduce of ``x`` in place over ``group``; on meta
+        without a group, charged to the cost count."""
         if group is not None:
             x = x.contiguous()
-            dist.all_reduce(x, op=dist.ReduceOp.SUM, group=group)
+            dist.all_reduce(x, op=op, group=group)
         elif size > 1:
             if not x.is_meta:
                 raise RuntimeError("a model axis of more than one rank needs "
@@ -148,10 +167,64 @@ class ModelAxis:
         return x
 
     def reduce(self, x: torch.Tensor) -> torch.Tensor:
-        """The sum of every rank's partial ``x`` over "model" (in place)."""
+        """The sum of every rank's partial ``x`` over "model": in place
+        without grad; with grad, reduce-from-model (a new tensor; backward
+        the identity)."""
         if self.off:
             return x
+        if torch.is_grad_enabled():
+            return _ReduceFromModel.apply(x, self)
         return self._sum(x, self.group, self.size)
+
+    def sum_columns(self, x: torch.Tensor) -> torch.Tensor:
+        """The SUM over "model" of this rank's partial per-node norms
+        (outside autograd): the column-sum seam of a model-sharded protocol
+        state (:class:`repro_torch.core.dpps.ColumnOps`)."""
+        if self.off:
+            return x
+        return self._sum(x.detach().clone(), self.group, self.size)
+
+    def copy(self, x: torch.Tensor) -> torch.Tensor:
+        """``x`` (replicated over "model") where it enters a column-split
+        block: with grad, copy-to-model (the identity; backward the SUM of
+        every rank's partial gradient); without grad, ``x``."""
+        if self.off or not torch.is_grad_enabled():
+            return x
+        return _CopyToModel.apply(x, self)
+
+    def shared_kv(self, cfg):
+        """Where M/K ranks share each KV head (K < M) and grad is enabled:
+        a function of this rank's ``wk`` / ``wv`` (its head's D columns
+        last) whose backward sums the gradient over the ranks holding the
+        same head (an all-reduce over "model" of the (..., K D) gradient
+        with the rank's head in its columns, zeros elsewhere: exact). Else
+        None."""
+        if self.off or self.size <= cfg.n_kv_heads \
+                or not torch.is_grad_enabled():
+            return None
+        kv = self.kv_heads(cfg.n_heads, cfg.n_kv_heads)
+        d = cfg.head_dim
+        cols, total = slice(kv.start * d, kv.stop * d), cfg.n_kv_heads * d
+        return lambda w: _SharedHead.apply(w, self, cols, total)
+
+    def cross_entropy(self, logits: torch.Tensor, targets: torch.Tensor,
+                      vocab: int) -> torch.Tensor:
+        """``sum(logsumexp(z) - z[target])`` over the positions, ``z`` the
+        whole vocabulary's logits, from this rank's block (..., V/M) of
+        them (f32): its max, a MAX all-reduce (no gradient), its sum of
+        exponentials, a SUM all-reduce; the target's logit a masked pick
+        and a SUM all-reduce."""
+        rows = self.block(vocab, "vocab_size")
+        with torch.no_grad():
+            top = self._sum(logits.amax(dim=-1), self.group, self.size,
+                            op=dist.ReduceOp.MAX)
+        lse = torch.log(self.reduce(
+            torch.exp(logits - top[..., None]).sum(dim=-1))) + top
+        local = targets - rows.start
+        mine = (local >= 0) & (local < logits.shape[-1])
+        picked = logits.gather(
+            -1, local.clamp(0, logits.shape[-1] - 1)[..., None])[..., 0]
+        return (lse - self.reduce(torch.where(mine, picked, 0.0))).sum()
 
     def gather_vocab(self, x: torch.Tensor, vocab: int) -> torch.Tensor:
         """(..., V/M) logits of this rank's vocabulary block -> (..., V): an
@@ -190,6 +263,54 @@ class ModelAxis:
             return x
         t = x.shape[0] // self.data_size
         return x[self.data_rank * t:(self.data_rank + 1) * t]
+
+
+class _ReduceFromModel(torch.autograd.Function):
+    """Forward: the SUM all-reduce of a copy of ``x``; backward: the
+    identity (every rank already holds the whole gradient)."""
+
+    @staticmethod
+    def forward(ctx, x, axis):
+        return axis._sum(x.clone(memory_format=torch.contiguous_format),
+                         axis.group, axis.size)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad, None
+
+
+class _CopyToModel(torch.autograd.Function):
+    """Forward: the identity; backward: the SUM all-reduce of the rank's
+    partial gradient (a copy: autograd's own buffer is left alone)."""
+
+    @staticmethod
+    def forward(ctx, x, axis):
+        ctx.axis = axis
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, grad):
+        axis = ctx.axis
+        return axis._sum(grad.clone(memory_format=torch.contiguous_format),
+                         axis.group, axis.size), None
+
+
+class _SharedHead(torch.autograd.Function):
+    """Forward: the identity on a shared KV head's ``wk`` / ``wv``;
+    backward: the sum of the gradient over the ranks holding that head."""
+
+    @staticmethod
+    def forward(ctx, w, axis, cols, total):
+        ctx.axis, ctx.cols, ctx.total = axis, cols, total
+        return w.view_as(w)
+
+    @staticmethod
+    def backward(ctx, grad):
+        axis, cols = ctx.axis, ctx.cols
+        full = grad.new_zeros(tuple(grad.shape[:-1]) + (ctx.total,))
+        full[..., cols] = grad
+        full = axis._sum(full, axis.group, axis.size)
+        return full[..., cols].contiguous(), None, None, None
 
 
 NO_AXIS = ModelAxis()

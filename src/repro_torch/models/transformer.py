@@ -63,7 +63,11 @@ rank of the model split over a mesh's "model" dim
 on the rank's heads, FFN blocks and experts, the embedding and head on
 its vocabulary block, each partial summed through the axis's
 all-reduces; its ``param_shards`` / ``cache_shards`` say what it holds.
-Serving only; the other group kinds run only at M = 1.
+It serves and trains: in training the sums are collectives autograd
+sees, a block's replicated input passes through the axis's
+copy-to-model, a shared KV head sums its gradient over its ranks, and
+the loss is vocabulary-parallel (no logits cross the wire). The other
+group kinds run only at M = 1.
 """
 from __future__ import annotations
 
@@ -73,7 +77,7 @@ from typing import Any
 import torch
 from torch.utils.checkpoint import checkpoint
 
-from repro_torch.core.partition import layer_list
+from repro_torch.core.partition import LayerParts, layer_list
 from repro_torch.core.tree_utils import (tree_flatten, tree_flatten_with_path,
                                          tree_map, tree_unflatten)
 from repro_torch.device import resolve_device
@@ -262,7 +266,8 @@ def _write_prompt(cache: torch.Tensor, kv: torch.Tensor) -> None:
 
 def _mlp_residual(lp, x, cfg: ModelConfig, axis: ModelAxis = NO_AXIS):
     return x + axis.reduce(mlp_apply(
-        lp["mlp"], rms_norm(lp["ln2"], x, cfg.norm_eps), cfg.activation))
+        lp["mlp"], axis.copy(rms_norm(lp["ln2"], x, cfg.norm_eps)),
+        cfg.activation))
 
 
 # ---------------------------------------------------------------------------
@@ -364,7 +369,8 @@ class _AttnGroupImpl:
         """x + layer i's pre-norm attention over the whole sequence; with
         ``cache``, its K/V into the cache's layer ``i``."""
         cfg = self.cfg
-        a, k, v = _attn_train(lp["attn"], rms_norm(lp["ln1"], x, cfg.norm_eps),
+        a, k, v = _attn_train(lp["attn"], self.axis.copy(
+                                  rms_norm(lp["ln1"], x, cfg.norm_eps)),
                               positions, cfg, self.thetas[i], self.windows[i],
                               use_flash=use_flash)
         if cache is not None:
@@ -850,8 +856,8 @@ class Transformer:
     none) makes it one rank of a model split over the mesh's "model" dim:
     its groups run on the rank's heads, FFN blocks and experts, its
     embedding and head on the rank's vocabulary block, each partial summed
-    over the ranks where the reference's GSPMD program would. Serving
-    only: training over a model axis raises."""
+    over the ranks where the reference's GSPMD program would, in serving
+    and in training (a training axis has a data dim of 1)."""
 
     LOSS_CHUNK = 512  # sequence positions a chunk of the cross entropy
 
@@ -987,14 +993,35 @@ class Transformer:
             aux = aux + group_aux
         return rms_norm(params["final_ln"], x, self.cfg.norm_eps), aux
 
-    def _head(self, params, x):
+    def _logits(self, params, x):
+        """The (f32, soft-capped) logits of this rank's vocabulary block."""
         if self.cfg.tie_embedding:
             logits = x @ params["embed"].T
         else:
             logits = x @ params["lm_head"]
-        return self.axis.gather_vocab(
-            softcap(logits.float(), self.cfg.logit_softcap),
-            self.cfg.vocab_size)
+        return softcap(logits.float(), self.cfg.logit_softcap)
+
+    def _head(self, params, x):
+        return self.axis.gather_vocab(self._logits(params, x),
+                                      self.cfg.vocab_size)
+
+    def _train_params(self, params):
+        """``params`` with each shared KV head's ``wk`` / ``wv`` (a layer
+        stack, or a :class:`LayerParts` of two) through the axis's
+        :meth:`ModelAxis.shared_kv`: one gradient sum a leaf a backward."""
+        share = self.axis.shared_kv(self.cfg)
+        if share is None:
+            return params
+
+        def wrap(path: str, x):
+            if not path.endswith(("attn/wk", "attn/wv")):
+                return x
+            if isinstance(x, LayerParts):
+                return LayerParts([share(p) for p in x.parts], x.layer_axis)
+            return share(x)
+
+        pairs, treedef = tree_flatten_with_path(params)
+        return tree_unflatten(treedef, [wrap(p, x) for p, x in pairs])
 
     # -- training ---------------------------------------------------------------
     def _labels(self, batch):
@@ -1005,11 +1032,14 @@ class Transformer:
         chunk by chunk inside :meth:`loss_fn`. ``aux`` is the MoE groups'
         load-balance loss (zero for the other kinds). A cross-attention
         model reads the image embeddings ``batch["image_embeds"]`` (B, M,
-        d_model)."""
-        if not self.axis.off:
+        d_model). Over a model axis: this rank's shard of ``params``, a
+        data dim of 1 (each node routes its own batch's tokens)."""
+        if self.axis.data_size > 1:
             raise NotImplementedError(
-                "training over the model axis (the train-state model "
-                "pspecs) waits for ROADMAP item 11b's remainder")
+                "training over the model axis takes a data dim of 1: there "
+                "\"data\" splits the protocol's nodes "
+                "(launch.steps.build_train_plan)")
+        params = self._train_params(params)
         x = self._embed_inputs(params, batch)
         b, s = x.shape[:2]
         positions = torch.arange(s, device=x.device)[None].expand(b, s)
@@ -1022,15 +1052,20 @@ class Transformer:
         chunk's head and logsumexp under :func:`_remat`. One node's params
         and batch: ``tokens`` (B, S), or ``embeds`` (B, S, d_model) and
         ``labels`` (B, S) for embedding-input models. The reference's
-        ``key`` argument is not taken: no layer draws random numbers."""
+        ``key`` argument is not taken: no layer draws random numbers. Over
+        a model axis of M > 1 each chunk's cross entropy is
+        vocabulary-parallel (:meth:`ModelAxis.cross_entropy`)."""
         h, aux = self.forward_train(params, batch)
         targets = self._labels(batch)[:, 1:].long()  # token t+1 from hidden t
         h = h[:, :-1]
         b, sm1 = h.shape[:2]
         chunk = min(self.LOSS_CHUNK, sm1)
+        axis, vocab = self.axis, self.cfg.vocab_size
 
         def chunk_loss(h_c, t_c):
-            logits = self._head(params, h_c)  # (B, c, V) f32
+            logits = self._logits(params, axis.copy(h_c))  # (B, c, V/M) f32
+            if axis.size > 1:
+                return axis.cross_entropy(logits, t_c, vocab)
             picked = logits.gather(-1, t_c[..., None])[..., 0]
             return (torch.logsumexp(logits, dim=-1) - picked).sum()
 

@@ -789,6 +789,56 @@ def test_perturbation_at_col0_draws_the_packed_launchs_columns(dev, n, size,
         torch.testing.assert_close(g, w, rtol=1e-5, atol=0)
 
 
+@pytest.mark.parametrize("lead,width,a,b,col0", [
+    (64, 1024, 256, 512, 0),        # llama's runs: aligned, one counter
+    (8, 4096, 1024, 3072, 4096),
+    (6, 10, 3, 8, 5),               # run, off and col0 not multiples of 4
+    (1000, 33, 11, 22, 1),          # runs of 11: quads across run ends
+    (3, 100_003, 7, 100_000, 2),    # long rows: several blocks a row
+])
+def test_strided_perturbation_draws_the_whole_launchs_columns(dev, lead,
+                                                              width, a, b,
+                                                              col0):
+    """A rank's block [a, b) of the last dim of a (lead, width) leaf at wire
+    column col0, launched with its column map: s_noise bit for bit the
+    whole leaf's launch at those columns and the plain version's; its
+    noise norm bit for bit a bits-in launch fed the whole draw's bits at
+    those columns, and within rtol 1e-5 of the plain version's."""
+    n = 4
+    size, part = lead * width, lead * (b - a)
+    gen = torch.Generator(device=dev).manual_seed(size + a)
+    s = torch.randn((n, -(-size // 4) * 4), generator=gen, device=dev)
+    eps = torch.randn(s.shape, generator=gen, device=dev)
+    scale = torch.tensor(0.7, device=dev)
+    whole = ops.dpps_perturb_rows(s, eps, scale, 0.1, size, seed=5, t=3,
+                                  col0=col0, node0=1)
+
+    def cut(x):
+        return x[:, :size].reshape(n, lead, width)[..., a:b].reshape(n, -1)
+
+    ls, le = ops.leaf_rows(cut(s)), ops.leaf_rows(cut(eps))
+    cmap = ref.ColumnMap(col0, b - a, width, a)
+    got = ops.dpps_perturb_rows(ls, le, scale, 0.1, part, seed=5, t=3,
+                                node0=1, col_map=cmap)
+    assert torch.equal(got[0][:, :part], cut(whole[0]))
+    plain = ref.dpps_perturb_rows(ls, le, scale, 0.1, part, seed=5, t=3,
+                                  node0=1, col_map=cmap)
+    assert torch.equal(got[0], plain[0])
+    bits = ref.philox_map(5, 3, n, cmap, part, dev, node0=1)
+    fed = ops.dpps_perturb_rows(ls, le, scale, 0.1, part,
+                                bits=bits.to(torch.uint32).contiguous())
+    for g, f in zip(got, fed):
+        assert torch.equal(g, f)
+    torch.testing.assert_close(got[2], plain[2], rtol=1e-5, atol=0)
+
+
+def test_perturbation_refuses_runs_under_a_quad(dev):
+    s = torch.zeros((2, 8), device=dev)
+    with pytest.raises(ValueError, match="at least 4"):
+        ops.dpps_perturb_rows(s, s, 1.0, 0.1, 6, seed=1, t=0,
+                              col_map=ref.ColumnMap(0, 3, 7, 2))
+
+
 def _leaves(dev, shapes, seed=0):
     gen = torch.Generator(device=dev).manual_seed(seed)
     return [torch.randn((4,) + sh, generator=gen, device=dev) for sh in shapes]

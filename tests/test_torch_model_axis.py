@@ -680,7 +680,23 @@ def test_sequence_sharded_decode_over_data_is_refused():
         "group_0": {"k": None, "v": None}}
 
 
-def test_training_and_groupless_ranks_are_refused():
+def test_training_an_unsplit_group_is_refused():
+    """xlstm-125m's smoke config (an xLSTM group, which the axis does not
+    split) is refused in training at M = 2, by the train plan as by the
+    model; at M = 1 its plan builds."""
+    from repro_torch.configs import ShapeSpec
+    from repro_torch.launch.steps import build_train_plan
+
+    arch = smoke_arch("xlstm-125m")
+    shape = ShapeSpec("t", 8, 4, "train")
+    with pytest.raises(NotImplementedError, match="11b"):
+        build_train_plan(arch, 2, shape=shape, model_shards=2)
+    assert build_train_plan(arch, 2, shape=shape).model.axis.off
+
+
+def test_groupless_ranks_are_refused():
+    """A rank of M = 2 without a process group serves and trains nothing
+    on real tensors (its collectives have no peer; meta is the dry run's)."""
     from repro_torch.models.parallel import ModelAxis
     from repro_torch.models.transformer import Transformer
 
@@ -688,7 +704,7 @@ def test_training_and_groupless_ranks_are_refused():
     model = Transformer(cfg, axis=ModelAxis(size=2))
     params = model.init(torch.Generator().manual_seed(0), "cpu")
     tokens = torch.zeros((1, 4), dtype=torch.int64)
-    with pytest.raises(NotImplementedError, match="11b"):
-        model.loss_fn(params, {"tokens": tokens})
     with pytest.raises(RuntimeError, match="process group"):
         model.prefill(params, {"tokens": tokens})
+    with pytest.raises(RuntimeError, match="process group"):
+        model.loss_fn(params, {"tokens": tokens})
