@@ -147,7 +147,8 @@ Phases, each printing one JSON line:
                   launch bit for bit against the packed launch's columns;
                   the paper MLP on ER(128), sparse schedule, loop against
                   engine for 5 steps (``spmm`` a leaf), noise on and off.
-23. ``resume``    on the same session (the engine): 2 rounds,
+23. ``resume``    on phase 15's session cut to its 4 shared layers (the
+                  engine, an 8.1 GB state): 2 rounds,
                   ``Session.save``, ``Session.restore`` into a fresh
                   template, 1 more round, bit for bit 3 uninterrupted rounds
                   in state and trajectory; the checkpoint's GB and the save
@@ -251,10 +252,11 @@ Phases, each printing one JSON line:
                   run (``python -m repro_torch.launch.dryrun --arch A
                   --nodes 16``) of all ten architectures x four shapes on
                   meta, one process an architecture, the card hidden from
-                  them, started together: every row's FLOPs, bytes, peak
-                  and ``fits``, no error row, the reference's skips,
-                  every ok row's FLOPs > 0, the wall time; (b) meanwhile
-                  phase 15's step (llama3.2-1b, N = 4, 2 x 1,024 tokens a
+                  them, niced, started together before phase 24 (with
+                  33d's) so that they trace beside phases 24-28: every
+                  row's FLOPs, bytes, peak and ``fits``, no error row, the
+                  reference's skips, every ok row's FLOPs > 0, the wall
+                  time and phase 29's wait; (b) phase 15's step (llama3.2-1b, N = 4, 2 x 1,024 tokens a
                   node) as a ``TrainPlan``: ``cost()`` on meta, then one
                   ``step_fn`` on the card under ``FlopCounterMode``: its
                   aten FLOPs equal the prediction's exactly, its launches
@@ -293,7 +295,7 @@ Phases, each printing one JSON line:
                   one-rank NCCL world's (1, 1) mesh, a 4,096-token
                   prefill and 16 greedy decode steps, logits bit for bit
                   the unsharded plan's, each step's c10d calls
-                  (``CollectiveCount``) equal to ``tp_collectives``; (b) a
+                  (``C10dCount``) equal to ``tp_collectives``; (b) a
                   2-rank gloo world on the one card (``chip_smoke.py
                   --tp-rank JSON`` subprocesses; gloo all-reduces CUDA
                   tensors through the host, NCCL refuses two ranks on one
@@ -336,13 +338,43 @@ Phases, each printing one JSON line:
                   every top-1 router margin above 1e-5. Its times are two
                   ranks sharing one card: no speed figures of tensor
                   parallelism.
+33. ``model_axis_groups`` the model axis for the xLSTM, Mamba2/Zamba2
+                  and cross-attention groups: (a) on a one-rank NCCL
+                  world's (1, 1) mesh, xlstm-125m whole (a 512-token
+                  prompt), zamba2-7b at one unit and no trailing layers
+                  and llama-3.2-vision-11b at one of its 8 units with its
+                  1,600 image tokens (1,024 tokens each), 8 greedy decode
+                  steps each, logits bit for bit the unsharded plan's,
+                  c10d calls equal to ``axis_collectives``; (b) the same
+                  three over a 2-rank gloo world on the card
+                  (``chip_smoke.py --groups-rank JSON`` subprocesses), M =
+                  2: logits within 1e-4 of the unsharded plan's, greedy
+                  tokens equal (every top-1 margin above 2e-4), the ranks
+                  bit-equal, the calls counted, each rank's peak below the
+                  unsharded one, ``flash_attention.cu`` at each rank's
+                  head shard (zamba2's shared block, D = 112; the VLM's
+                  self layers, D = 128) against the plain version; (c) on
+                  the same ranks, PartPSP of the three cut as phase 19
+                  cuts them, N = 2, 1 x 256 tokens a node, 2 steps,
+                  gamma_n 1/100 of 32b's (``GROUPS_NOISE``), against the
+                  unsharded plan run in this process (while the ranks
+                  serve) on the same weights and Philox bits at 32b's
+                  tolerances, the calls (``C10dCount``), the launches
+                  (xlstm's strided perturbations among them) and the
+                  peaks; (d) the dry run's rows of
+                  the three at ``--model-shards 2`` (prefill_32k and
+                  train_4k, on meta, the card hidden): ``ok``, one rank's
+                  FLOPs and peak below phase 29's unsharded rows. Its
+                  times are two ranks sharing one card: no speed figures
+                  of tensor parallelism.
 
 Each kernel counts its launches. The counts are set to 0 just before each
 path (phases 3-7, 10, 13, 15, 17, each run of 19 and 22, each serve of 20,
 23, each run of 24, 25 and 26, each battery of 27, a codec each in
 its wire battery, each run of 28, each card step of 29, each sharded
-run of 30a, each timed run of 31, a rank's among them, and 32a's and
-each 32b rank's steps) and read just after; each path names the kernels it must launch
+run of 30a, each timed run of 31 and 33a-b, a rank's among them, 32a's
+and each 32b rank's steps, and each 33c rank's steps) and read just
+after; each path names the kernels it must launch
 (and the sparse paths must launch ``pushsum_mix`` no time; the training
 paths exactly their counts). Then come the card's
 name and power limit (``nvidia-smi``), the ``kernels`` line with every
@@ -419,12 +451,18 @@ FLASH_SHAPES = {  # (B, S, H, K, D, window)
     # and 4 at 1,024
     "llama_4k_rank_of_2": (1, 4096, 16, 4, 64, None),
     "scout_1k_rank_of_2": (1, 1024, 20, 4, 128, None),
+    # and in phase 33b: zamba2-7b's shared block (16 of 32 heads, D = 112)
+    # and llama-3.2-vision-11b's self layers (16 of 32, 4 of 8 KV heads)
+    # at 1,024 tokens
+    "zamba2_1k_rank_of_2": (1, 1024, 16, 16, 112, None),
+    "vision_1k_rank_of_2": (1, 1024, 16, 4, 128, None),
 }
 # SDPA as the yardstick: is_causal where global, a banded boolean attn_mask
 # (S x S, 1 GiB at 32k) where windowed
 FLASH_SDPA = ("llama_32k", "gemma3_32k_window512", "gemma3_32k_global",
               "ragged_minitron", "zamba2_4k", "scout_4k", "vision_4k",
-              "llama_4k_rank_of_2", "scout_1k_rank_of_2")
+              "llama_4k_rank_of_2", "scout_1k_rank_of_2",
+              "zamba2_1k_rank_of_2", "vision_1k_rank_of_2")
 
 # pushsum_mix past its template (N > 32): (N, D); N = 4096 at d = 8 is
 # bench_sparse.py's dense point, at 128 the same as the kernel path pads it;
@@ -491,8 +529,14 @@ GROUP_AGREE = dict(n=4, per_node_batch=2, seq_len=16, steps=3, seed=2035)
 # -> 784 -> 10) as perturbation leaves: the second starts at column 7850
 LOOP_STEPS, LOOP_MLP_STEPS = 3, 5
 MLP_BIAS_SHAPES = [(784, 10), (10,), (10, 784), (784,), (784, 10), (10,)]
-# phase 23: rounds before the save, rounds after the restore
+# phase 23: rounds before the save, rounds after the restore; phase 15's
+# model cut to its first RESUME_LAYERS layers, the four its rule shares (the
+# same d_s and shared leaves; 4 x 505M f32 parameters, an 8.1 GB state in
+# place of the whole model's 19.8 GB, whose save and load took 58-65 s on
+# an H100 80GB HBM3 at 700 W: cut to keep the script inside its time limit
+# with phase 33)
 RESUME_SPLIT = (2, 1)
+RESUME_LAYERS = 4
 # phase 24: the fault models of the consensus and MLP runs, and of training
 FAULTS = dict(drop_rate=0.2, straggler_rate=0.1, churn=((4, 5, 12),))
 FAULTS_TRAIN = dict(drop_rate=0.2, straggler_rate=0.25)
@@ -2802,11 +2846,14 @@ def states_agree(torch, got: list, want: list, rtol: float = 1e-4,
     return dict(max_abs_err=worst, off=bad, leaves=len(got))
 
 
-def lm_session(torch, T, **build_kw):
+def lm_session(torch, T, layers: int | None = None, **build_kw):
     """phase 15's session: llama3.2-1b at full width, its rules, N = 4,
     2-out, dense schedule, gamma_n half the stability limit; with its
-    batches (made before the runs). ``build_kw`` goes to ``Session.build``
-    (phase 24's ``faults=``)."""
+    batches (made before the runs). ``layers`` cuts the model to its first
+    layers (phase 23; at least the four its rule shares). ``build_kw``
+    goes to ``Session.build`` (phase 24's ``faults=``)."""
+    import dataclasses
+
     from repro_torch.api import PrivacySpec, Session
     from repro_torch.configs import get_config
     from repro_torch.data import NodeShardedLoader, SyntheticLMStream
@@ -2814,6 +2861,10 @@ def lm_session(torch, T, **build_kw):
 
     arch = get_config(TRAIN_LM["arch"])
     cfg = arch.model
+    if layers is not None:
+        (group,) = cfg.groups
+        cfg = dataclasses.replace(cfg, groups=(
+            dataclasses.replace(group, n_layers=layers),))
     n = TRAIN_LM["n"]
     topo = T.DOutGraph(n, 2)
     model = Transformer(cfg)
@@ -3110,12 +3161,13 @@ def loop_training(torch, api, mlp, data, ops, ref, T, dev,
 # -- phase 23: save, restore and resume at full width -------------------------
 
 def resume(torch, ops, session, batches, tmp: str) -> dict:
-    """Phase 23. On phase 22's session (the engine): 3 uninterrupted rounds
-    (the state kept on the host), then 2 rounds, ``Session.save``,
-    ``Session.restore`` into a fresh template (``train_state()``) and 1
-    more round: the state and trajectory bit for bit those of the 3
-    rounds. The checkpoint's size and the save and load seconds. About
-    4 x 1.236e9 f32 parameters: 19.8 GB on disk and in host memory."""
+    """Phase 23. On phase 15's session cut to RESUME_LAYERS layers (the
+    engine): 3 uninterrupted rounds (the state kept on the host), then 2
+    rounds, ``Session.save``, ``Session.restore`` into a fresh template
+    (``train_state()``) and 1 more round: the state and trajectory bit for
+    bit those of the 3 rounds. The checkpoint's size and the save and load
+    seconds. About 4 x 505M f32 parameters: 8.1 GB on disk and in host
+    memory."""
     import os
 
     first, then = RESUME_SPLIT
@@ -3167,7 +3219,8 @@ def resume(torch, ops, session, batches, tmp: str) -> dict:
     del rest, restored, got, want
     torch.cuda.empty_cache()
     return dict(phase="resume", arch=TRAIN_LM["arch"], nodes=TRAIN_LM["n"],
-                d_s=TRAIN_LM["d_s"], rounds_before_save=first,
+                layers=RESUME_LAYERS, d_s=TRAIN_LM["d_s"],
+                rounds_before_save=first,
                 rounds_after_restore=then, checkpoint_gb=size_gb,
                 save_s=save_s, load_s=load_s, leaves=len(equal),
                 names_head=names[:3], names_tail=names[-3:],
@@ -4635,29 +4688,33 @@ def card_line() -> str:
 def dryrun_start(tmp: str) -> dict:
     """29a: ``python -m repro_torch.launch.dryrun --arch A --nodes 16
     --out tmp/A.json`` for every architecture, all started at once, on
-    meta with the card hidden -> {arch: Popen}."""
+    meta with the card hidden, niced -> {arch: Popen}."""
     from repro_torch.configs import ARCH_NAMES
 
     env = dict(os.environ, CUDA_VISIBLE_DEVICES="", PYTHONPATH=str(SRC))
     return {arch: subprocess.Popen(
         [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", arch,
          "--nodes", str(DRYRUN_NODES), "--out", f"{tmp}/{arch}.json"],
-        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True, env=env)
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True, env=env,
+        preexec_fn=niced)
         for arch in ARCH_NAMES}
 
 
 def dryrun_finish(procs: dict, tmp: str, t0: float, card: str) -> tuple:
     """29a's rows: no error row, the reference's skips (long_500k for the
-    full-attention architectures), every ok row's FLOPs > 0."""
+    full-attention architectures), every ok row's FLOPs > 0. ``wall_s``
+    runs from the processes' start (``t0``, before phase 24) to here,
+    ``wait_s`` is what phase 29 waited for them."""
     from repro_torch.configs import INPUT_SHAPES, get_config
 
     rows = []
+    t_wait = time.perf_counter()
     for arch, proc in procs.items():
         out, _ = proc.communicate(timeout=600)
         require(proc.returncode == 0,
                 f"dry run of {arch} exited {proc.returncode}: {out[-3000:]}")
         rows += json.loads(Path(f"{tmp}/{arch}.json").read_text())
-    wall_s = time.perf_counter() - t0
+    wall_s, wait_s = time.perf_counter() - t0, time.perf_counter() - t_wait
     want = {(a, sh) for a in procs for sh in INPUT_SHAPES}
     require({(r["arch"], r["shape"]) for r in rows} == want, "dry-run rows")
     require(not [r for r in rows if r["status"] == "error"], "dry-run errors")
@@ -4670,7 +4727,7 @@ def dryrun_finish(procs: dict, tmp: str, t0: float, card: str) -> tuple:
     require(all(r["flops_per_chip"] > 0 for r in ok), "a row counts no FLOPs")
     return dict(
         phase="launch", part="dryrun", card=card, nodes=DRYRUN_NODES,
-        processes=len(procs), wall_s=wall_s, ok=len(ok),
+        processes=len(procs), wall_s=wall_s, wait_s=wait_s, ok=len(ok),
         skipped=len(skipped), errors=0,
         max_trace_s=max(r["trace_s"] for r in ok),
         rows=[dict(arch=r["arch"], shape=r["shape"], status=r["status"],
@@ -5266,18 +5323,21 @@ TP_JOIN_S = 600
 
 
 def tp_config(run: dict):
-    """(ArchSpec, ModelConfig) of a 31b run: the published width, its one
-    group cut to ``layers``."""
+    """(ArchSpec, ModelConfig) of a 31b or 33 run: the published width, its
+    one group cut to ``layers`` (31b) or by the fields of ``cut`` (33;
+    None: whole)."""
     import dataclasses
 
     from repro_torch.configs import get_config
 
     spec = get_config(run["arch"])
     cfg = spec.model
-    if run["layers"] is not None:
+    cut = run.get("cut") or ({} if run.get("layers") is None
+                             else dict(n_layers=run["layers"]))
+    if cut:
         (group,) = cfg.groups
         cfg = dataclasses.replace(cfg, groups=(
-            dataclasses.replace(group, n_layers=run["layers"]),))
+            dataclasses.replace(group, **cut),))
     return dataclasses.replace(spec, model=cfg), cfg
 
 
@@ -5293,23 +5353,58 @@ def tp_collectives(cfg, b: int, s: int) -> dict:
                            (2 * layers + 1) * act + 4 * b * cfg.vocab_size]}
 
 
+class C10dCount:
+    """Counts the c10d calls and operand bytes made through
+    ``torch.distributed``'s ``all_reduce`` and all-gathers while it is on,
+    by the reference's kind (the port calls them as module attributes):
+    one wrapper a call, where ``CollectiveCount``'s dispatch mode costs
+    host time an op (it doubled a host-bound xlstm training step, phase
+    33)."""
+
+    KINDS = {"all_reduce": "all-reduce", "all_gather": "all-gather",
+             "all_gather_into_tensor": "all-gather"}
+
+    def __enter__(self):
+        import torch.distributed as dist
+
+        self.calls, self.bytes, self._saved = {}, {}, {}
+        for name, kind in self.KINDS.items():
+            fn = self._saved[name] = getattr(dist, name)
+
+            def counted(*args, _fn=fn, _kind=kind, _name=name, **kw):
+                x = args[1] if _name != "all_reduce" else args[0]
+                self.calls[_kind] = self.calls.get(_kind, 0) + 1
+                self.bytes[_kind] = self.bytes.get(_kind, 0) + (
+                    x.numel() * x.element_size())
+                return _fn(*args, **kw)
+
+            setattr(dist, name, counted)
+        return self
+
+    def __exit__(self, *exc):
+        import torch.distributed as dist
+
+        for name, fn in self._saved.items():
+            setattr(dist, name, fn)
+        return False
+
+
 def tp_serve(torch, ops, dev, run: dict, mesh, data_seed: int) -> dict:
     """A prefill of ``run["prompt"]`` tokens and ``run["steps"]`` greedy
     decode steps through ``build_serve_plan(arch, mesh)`` (None: the
     unsharded plan) on this process's card, the weights the model's draw
     from SEED (over a model axis, the rank's shard of it), the prompt
-    from ``data_seed``. A warm-up of the same prompt and TP_WARMUP_STEPS
+    (and a VLM's image embeddings, passed to every step) from
+    ``data_seed``. A warm-up of the same prompt and TP_WARMUP_STEPS
     decode steps first (a process's first prefill at a new size took
-    seconds on the card), its c10d calls counted (``CollectiveCount``,
-    whose dispatch mode costs host time an op, so the timed run goes
-    without it); the launch counts are set to 0 just before the timed
-    prefill and read after the decode. -> CPU copies of the logits and
+    seconds on the card), its c10d calls counted (``C10dCount``; the
+    timed run goes without it); the launch counts are set to 0 just
+    before the timed prefill and read after the decode. -> CPU copies of the logits and
     tokens, the times, the warm-up's c10d calls a step (prefill, then
     each decode step), the launches, the peak beside its reckoning, and
     the top-1 margins (logits, MoE routing)."""
     from repro_torch.configs import ShapeSpec
     from repro_torch.core.tree_utils import tree_leaves
-    from repro_torch.launch.op_analysis import CollectiveCount
     from repro_torch.launch.steps import build_serve_plan
     from repro_torch.models import moe
 
@@ -5326,6 +5421,8 @@ def tp_serve(torch, ops, dev, run: dict, mesh, data_seed: int) -> dict:
     param_bytes = sum(x.numel() * x.element_size()
                       for x in tree_leaves(params))
     route, margins = moe.moe_route, []
+    # a cross-attention model's image embeddings, drawn below: [enc]
+    vlm, enc = any(g.kind == "cross_self" for g in cfg.groups), []
 
     def recorded(router, tokens, n_experts, cap):
         r = route(router, tokens, n_experts, cap)
@@ -5337,7 +5434,7 @@ def tp_serve(torch, ops, dev, run: dict, mesh, data_seed: int) -> dict:
         def counted(fn, *args, **kw):
             if calls is None:
                 return fn(*args, **kw)
-            count = CollectiveCount()
+            count = C10dCount()
             with count:
                 out = fn(*args, **kw)
             calls.append({k: [count.calls[k], count.bytes[k]]
@@ -5345,17 +5442,20 @@ def tp_serve(torch, ops, dev, run: dict, mesh, data_seed: int) -> dict:
             return out
 
         p = tokens.shape[1]
+        batch = {"tokens": tokens}
+        if enc:
+            batch["image_embeds"] = enc[0]
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        logits, cache = counted(plans["prefill"].step_fn, params,
-                                {"tokens": tokens}, capacity=p + n)
+        logits, cache = counted(plans["prefill"].step_fn, params, batch,
+                                capacity=p + n)
         torch.cuda.synchronize()
         t1 = time.perf_counter()
         out = [logits]
         for i in range(n):
             tok = out[-1].argmax(dim=-1)
             logits, cache = counted(plans["decode"].step_fn, params, cache,
-                                    tok, p + i)
+                                    tok, p + i, *enc)
             out.append(logits)
         torch.cuda.synchronize()
         t2 = time.perf_counter()
@@ -5365,6 +5465,10 @@ def tp_serve(torch, ops, dev, run: dict, mesh, data_seed: int) -> dict:
     gen = torch.Generator(device=dev).manual_seed(data_seed)
     tokens = torch.randint(0, cfg.vocab_size, (1, s), generator=gen,
                            device=dev)
+    if vlm:  # normal x 0.1, drawn after the prompt
+        (group,) = cfg.groups
+        enc.append(torch.randn((1, group.n_image_tokens, cfg.d_model),
+                               generator=gen, device=dev).mul_(0.1))
     calls = []
     generate(tokens, TP_WARMUP_STEPS, calls)
     moe.moe_route = recorded
@@ -5805,6 +5909,7 @@ def samples_agree(torch, named: dict, want: dict) -> dict:
     relative error of ``a`` and the (N,) sensitivity vectors (noise norms
     of ~1e9 at full width), the largest relative L1-norm gap."""
     worst, rel, norm_gap, compared = 0.0, 0.0, 0.0, 0
+    worst_leaf = None
     require(set(named) == set(want), "the rank's leaves are not the "
             "unsharded run's")
     for path, x in named.items():
@@ -5813,14 +5918,14 @@ def samples_agree(torch, named: dict, want: dict) -> dict:
         diff = (got - sample.to(got.device)).abs()
         if path.startswith((".dpps/.push/.a", ".dpps/.sens/")):
             rel = max(rel, (diff / sample.to(got.device).abs()).max().item())
-        else:
-            worst = max(worst, diff.max().item())
+        elif diff.max().item() > worst:
+            worst, worst_leaf = diff.max().item(), path
         norm_gap = max(norm_gap, abs(float(x.detach().abs().sum(
             dtype=torch.float64)) - norm) / max(norm, 1e-30))
         compared += got.numel()
-    return dict(max_abs_err=worst, vectors_max_rel_err=rel,
-                max_norm_rel_gap=norm_gap, compared=compared,
-                leaves=len(named))
+    return dict(max_abs_err=worst, worst_leaf=worst_leaf,
+                vectors_max_rel_err=rel, max_norm_rel_gap=norm_gap,
+                compared=compared, leaves=len(named))
 
 
 def named_state(torch, state) -> dict:
@@ -6214,6 +6319,590 @@ def model_axis_train_phase(torch, ops, ref, dev, smi: str,
     return out, counts, strided
 
 
+# -- phase 33: the model axis for the recurrent and cross-attention groups -----
+
+# 33a-b's serves at published widths, each with 8 greedy decode steps:
+# xlstm-125m whole on a 512-token prompt; zamba2-7b at one of its 11 units
+# and no trailing layers, and llama-3.2-vision-11b at one of its 8 units
+# (its 1,600 image tokens), on 1,024 tokens. Their prefills are host-bound
+# time loops (phase 18), hence the cuts.
+GROUPS_SERVE = {
+    "xlstm": dict(arch="xlstm-125m", cut=None, prompt=512, steps=8),
+    "zamba2": dict(arch="zamba2-7b", cut=dict(n_units=1, trailing_mamba=0),
+                   prompt=1024, steps=8),
+    "vision": dict(arch="llama-3.2-vision-11b", cut=dict(n_units=1),
+                   prompt=1024, steps=8),
+}
+# 33c: PartPSP of each at M = 2, cut in depth as phase 19 cuts them, on a
+# 2-out graph of N = 2 nodes, one 256-token sequence a node, 2 steps,
+# against the unsharded plan on the same weights and Philox bits. gamma_n
+# is GROUPS_NOISE of the Remark-1 stability limit (32b takes half of it):
+# at half, the noised mLSTM / Mamba2 / cross layers make the local
+# gradients ill-conditioned (xlstm's embedding grew from 0.11 to 1.41 in
+# two steps, and a 1e-7 relative change of it alone moved the unsharded
+# plan's final embedding by 2.2e-4 at the smoke widths on the CPU, 0.5 at
+# full width on the card), so the model axis's 1e-7 sum-order differences
+# leave the 32b tolerances; at 1/100 of that the same change moves it
+# 1e-7.
+GROUPS_TRAIN = dict(n=2, per_node_batch=1, seq_len=256, steps=2)
+GROUPS_NOISE = 0.005
+GROUPS_TRAIN_RUNS = {
+    "xlstm": dict(arch="xlstm-125m", cut=dict(n_units=1)),
+    "zamba2": dict(arch="zamba2-7b", cut=dict(n_units=1, trailing_mamba=0)),
+    "vision": dict(arch="llama-3.2-vision-11b", cut=dict(n_units=1)),
+}
+# 33d: the dry run's rows of the three at --model-shards 2 (full size, on
+# meta, the card hidden, one process a row), held below phase 29's rows
+GROUPS_DRY = tuple((run["arch"], shape) for run in GROUPS_SERVE.values()
+                   for shape in ("prefill_32k", "train_4k"))
+GROUPS_JOIN_S = 600
+
+
+def axis_collectives(cfg, b: int, s: int) -> dict:
+    """The c10d calls and operand bytes a step of ``b`` sequences of ``s``
+    new positions issues on a rank of the model axis (a data dim of 1), as
+    ``models/parallel.py``, ``ssm.py`` and ``attention.py`` are written:
+    the embedding's sum and the (b, V) logits' gather; an mLSTM layer's
+    gather of its (b, s, d_inner) up-projection and its w_down sum; a
+    Mamba2 layer's w_out sum; an attention layer's wo and w_down sums
+    (zamba's shared block once a unit); a cross layer's wo sum; the sLSTM
+    none."""
+    act = 4 * b * s * cfg.d_model
+    calls, nbytes = 2, act + 4 * b * cfg.vocab_size
+    for g in cfg.groups:
+        if g.kind in ("attn", "moe"):
+            n = 2 * g.n_layers
+        elif g.kind == "xlstm":
+            n = 2 * g.n_units * g.mlstm_per_unit
+            nbytes += (n // 2) * 4 * b * s * int(cfg.d_model * g.proj_factor)
+            calls, nbytes = calls + n, nbytes + (n // 2) * act
+            continue
+        elif g.kind == "mamba":
+            n = g.n_layers
+        elif g.kind == "zamba":
+            n = g.n_units * (g.mamba_per_unit + 2) + g.trailing_mamba
+        else:  # cross_self
+            n = g.n_units * (1 + 2 * g.self_per_unit)
+        calls, nbytes = calls + n, nbytes + n * act
+    return {"all-reduce": [calls, nbytes]}
+
+
+def groups_pass_collectives(cfg, diff: str, seq: int, m: int) -> int:
+    """The all-reduces of one node's loss and backward in the PartPSP pass
+    that differentiates the ``diff`` ("local" or "shared") leaves of a 33c
+    run (under its arch's rules: the mLSTM layers, zamba's shared block
+    and the VLM's self layers shared; the embedding local), as the code is
+    written: the forward's sums (``axis_collectives``); each
+    copy-to-model's gradient sum whose input needs one (an mLSTM's input,
+    w_if and b_if; a Mamba2 layer's input and its six whole leaves; an
+    attention layer's two; a cross layer's input), the mLSTM gather's;
+    the checkpoint recomputation's re-issued sums (an mLSTM's gather, an
+    attention layer's first, a unit's inner layers but a cross/self
+    unit's last self layer); the loss's embedding sum, a copy-to-model a
+    512-position chunk and, at M > 1, its three vocabulary-parallel sums
+    and the two its recomputation re-issues."""
+    chunks = -(-(seq - 1) // 512)
+    calls = 1 + chunks + (5 * chunks if m > 1 else 0)
+    local = diff == "local"
+    for g in cfg.groups:
+        if g.kind == "xlstm":
+            calls += g.n_units * g.mlstm_per_unit * (5 if local else 7)
+        elif g.kind == "zamba":
+            p = g.mamba_per_unit
+            if local:
+                calls += g.n_units * (9 * p + 5) + 8 * g.trailing_mamba
+            else:
+                calls += (2 * p + 5) + (g.n_units - 1) * (3 * p + 5) \
+                    + 2 * g.trailing_mamba
+        elif g.kind == "cross_self":
+            p = g.self_per_unit
+            calls += g.n_units * (7 * p + 1) - (0 if local else 1)
+    return calls
+
+
+def groups_train_collectives(cfg, part, nodes: int, seq: int, m: int,
+                             t: int) -> dict:
+    """A rank's round t of a 33c run: both passes of each of its nodes,
+    each shared KV head's gradient sum a pass that differentiates it
+    (M > K), the per-node norms finished over "model" (the perturbation's,
+    the noise's, the clip's; s^(0)'s at round 0)."""
+    kv = 0
+    if m > cfg.n_kv_heads:
+        heads = [a for p, a in part.leaf_plans() if p.endswith(
+            ("attn/wk", "attn/wv", "cross/wk", "cross/wv"))]
+        kv = sum(a != "shared" for a in heads) + sum(a != "local"
+                                                     for a in heads)
+    per_node = groups_pass_collectives(cfg, "local", seq, m) + \
+        groups_pass_collectives(cfg, "shared", seq, m) + kv
+    return {"all-reduce": nodes * per_node + 3 + (t == 0)}
+
+
+def groups_train_plan(run: dict, mesh, gamma_n: float | None = None):
+    """33c's TrainPlan of ``run``: the unsharded one (mesh None) or a
+    rank's; gamma_n GROUPS_NOISE of the Remark-1 stability limit of the
+    unsharded plan's d_s."""
+    import dataclasses
+
+    from repro_torch.configs import ShapeSpec
+    from repro_torch.launch.steps import build_train_plan
+
+    arch, _ = tp_config(run)
+    n = GROUPS_TRAIN["n"]
+    shape = ShapeSpec("train_groups", GROUPS_TRAIN["seq_len"],
+                      n * GROUPS_TRAIN["per_node_batch"], "train")
+    plan = build_train_plan(arch, n if mesh is None else mesh, nodes=n,
+                            shape=shape)
+    dpps = plan.cfg.dpps
+    if gamma_n is None:
+        gamma_n = GROUPS_NOISE * (1.0 / dpps.lam - 1.0) * dpps.b / (
+            2.0 * dpps.c_prime * plan.partition.d_shared())
+    plan.cfg = dataclasses.replace(plan.cfg, dpps=dataclasses.replace(
+        dpps, gamma_n=gamma_n))
+    return plan, gamma_n
+
+
+def groups_batch(torch, dev, plan) -> dict:
+    """A 33c batch: tokens from SEED + 2, a VLM's image embeddings (normal
+    x 0.1) after them."""
+    specs = plan.batch_specs
+    gen = torch.Generator(device=dev).manual_seed(SEED + 2)
+    batch = {"tokens": torch.randint(
+        0, plan.model.cfg.vocab_size, tuple(specs["tokens"].shape),
+        generator=gen, device=dev, dtype=torch.int32)}
+    if "image_embeds" in specs:
+        batch["image_embeds"] = torch.randn(
+            tuple(specs["image_embeds"].shape), generator=gen,
+            device=dev).mul_(0.1)
+    return batch
+
+
+def groups_launches(plan, rank: int) -> tuple[dict, int]:
+    """Rank ``rank``'s exact launches in a 33c run (the tree runtime): a
+    norm of each shared leaf whose columns it counts a step (and of s at
+    round 0), a perturbation and a mix of each shared leaf a step; and how
+    many perturbations draw at strided columns."""
+    from repro_torch.launch.sharding import train_columns
+    from repro_torch.models.parallel import ModelAxis
+    from repro_torch.models.transformer import Transformer
+
+    steps = GROUPS_TRAIN["steps"]
+    axis = ModelAxis(size=TP_RANKS, rank=rank)
+    counted, maps = train_columns(Transformer(plan.model.cfg, axis=axis),
+                                  plan.partition, axis)
+    want = {k: 0 for k in KERNELS}
+    want.update(l1_norm_rows=sum(counted) * (steps + 1),
+                dpps_perturb_rows=len(maps) * steps,
+                pushsum_mix=len(maps) * steps)
+    return want, sum(not m.contiguous for m in maps) * steps
+
+
+def groups_train_reference(torch, dev) -> dict:
+    """33c unsharded, in this process: each run's steps from the seeded
+    init (losses, ms, peak), its final state sampled for each rank's
+    shard (``samples[rank]``), each rank's exact launches."""
+    from repro_torch.launch.sharding import train_state_blocks
+    from repro_torch.models.parallel import ModelAxis
+
+    samples = [{} for _ in range(TP_RANKS)]
+    out = {}
+    n = GROUPS_TRAIN["n"]
+    # in the ranks' reverse order: this process's largest run (the VLM's,
+    # 37 GB on an H100 80GB HBM3) runs beside the ranks' smallest
+    for name in reversed(GROUPS_TRAIN_RUNS):
+        run = GROUPS_TRAIN_RUNS[name]
+        plan, gamma_n = groups_train_plan(run, None)
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        state = plan.init_state(dev, seed=SEED)
+        batch = groups_batch(torch, dev, plan)
+        losses, ms = [], []
+        for t in range(GROUPS_TRAIN["steps"]):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, metrics = plan.step_fn(state, batch, SEED + t)
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+            losses.append(float(metrics["loss_mean"]))
+        peak = torch.cuda.max_memory_allocated() - base
+        named = named_state(torch, state)
+        leaves = list(named)
+        blocks = []
+        for r in range(TP_RANKS):
+            b = train_state_blocks(state, plan.model,
+                                   ModelAxis(size=TP_RANKS, rank=r),
+                                   plan.partition)
+            blocks.append({p: ((0, slice(0, n)),) + blk
+                           for p, blk in zip(leaves, b)})
+        for r, got in enumerate(shard_samples(torch, named, blocks,
+                                              TP_RANKS)):
+            samples[r][name] = got
+        out[name] = dict(gamma_n=gamma_n, losses=losses, step_ms=ms,
+                         peak_gb=peak / 1e9, d_s=plan.partition.d_shared(),
+                         launches=[groups_launches(plan, r)
+                                   for r in range(TP_RANKS)],
+                         samples=[samples[r].pop(name)
+                                  for r in range(TP_RANKS)])
+        del state, named, metrics, batch
+        torch.cuda.empty_cache()
+    return out
+
+
+def sample_gaps(torch, got: dict, want: dict) -> dict:
+    """A rank's :func:`shard_samples` of its own leaves against the
+    unsharded run's of the rank's shard: :func:`samples_agree`'s gaps."""
+    worst, rel, norm_gap, compared, worst_leaf = 0.0, 0.0, 0.0, 0, None
+    require(set(got) == set(want), "the rank's leaves are not the "
+            "unsharded run's")
+    for path, (k, sample, norm) in got.items():
+        k_want, sample_want, norm_want = want[path]
+        require(k == k_want and sample.shape == sample_want.shape,
+                f"{path}: sampled {k}, {tuple(sample.shape)} against "
+                f"{k_want}, {tuple(sample_want.shape)}")
+        diff = (sample - sample_want).abs()
+        if path.startswith((".dpps/.push/.a", ".dpps/.sens/")):
+            rel = max(rel, (diff / sample_want.abs()).max().item())
+        elif diff.max().item() > worst:
+            worst, worst_leaf = diff.max().item(), path
+        norm_gap = max(norm_gap, abs(norm - norm_want) / max(norm_want,
+                                                            1e-30))
+        compared += sample.numel()
+    return dict(max_abs_err=worst, worst_leaf=worst_leaf,
+                vectors_max_rel_err=rel, max_norm_rel_gap=norm_gap,
+                compared=compared, leaves=len(got))
+
+
+def groups_rank(torch, ops, ref, dev, *, rank: int, store: str, out: str,
+                seeds: str) -> None:
+    """33b and 33c's rank ``rank`` (``chip_smoke.py --groups-rank JSON``): a
+    gloo world of TP_RANKS processes on the one card, the (1, TP_RANKS)
+    mesh, beside the parent's 33a and unsharded 33c. 33c first: each of
+    GROUPS_TRAIN_RUNS, its steps from the rank's shard of the seeded init
+    (the first under ``C10dCount``), its launches and peak, and its final
+    state sampled as the parent samples the rank's shard of the unsharded
+    one (:func:`shard_samples`); then 33b, once the parent has written the
+    data seeds of its unsharded serves to ``seeds``: each of GROUPS_SERVE
+    through ``tp_serve`` and, where it attends, the flash launch at its
+    head shard. Saved to ``out``."""
+    import datetime
+
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_host_mesh
+
+    dist.init_process_group("gloo", init_method=f"file://{store}",
+                            rank=rank, world_size=TP_RANKS,
+                            timeout=datetime.timedelta(seconds=300))
+    try:
+        mesh = make_host_mesh(shape=(1, TP_RANKS))
+        trained = {}
+        for name, run in GROUPS_TRAIN_RUNS.items():
+            # gamma_n from the unsharded plan's d_s (on meta)
+            plan, _ = groups_train_plan(run, mesh,
+                                        groups_train_plan(run, None)[1])
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            state = plan.init_state(dev, seed=SEED)
+            batch = groups_batch(torch, dev, plan)
+            torch.cuda.reset_peak_memory_stats()
+            ops.reset_launch_counts()
+            losses, ms, calls = [], [], []
+            for t in range(GROUPS_TRAIN["steps"]):
+                count = C10dCount() if t == 0 else None
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                if count is not None:
+                    with count:
+                        state, metrics = plan.step_fn(state, batch, SEED + t)
+                    calls.append(dict(count.calls))
+                else:
+                    state, metrics = plan.step_fn(state, batch, SEED + t)
+                torch.cuda.synchronize()
+                ms.append((time.perf_counter() - t0) * 1e3)
+                losses.append(float(metrics["loss_mean"]))
+            trained[name] = dict(
+                losses=losses, step_ms=ms, calls=calls,
+                launches=ops.launch_counts(),
+                mapped_launches=ops.dpps_perturb_rows.mapped_launches,
+                peak_gb=(torch.cuda.max_memory_allocated() - base) / 1e9)
+            named = named_state(torch, state)
+            trained[name]["samples"] = shard_samples(
+                torch, named, [dict.fromkeys(named)], 1)[0]
+            del state, metrics, batch, named
+            torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        while not os.path.exists(seeds):
+            if time.perf_counter() - t0 > GROUPS_JOIN_S:
+                raise TimeoutError(f"33b: no data seeds in {seeds}")
+            time.sleep(0.2)
+        data_seeds = json.loads(Path(seeds).read_text())
+        waited_s = time.perf_counter() - t0
+        served = {}
+        for name, run in GROUPS_SERVE.items():
+            served[name] = tp_serve(torch, ops, dev, run, mesh,
+                                    data_seeds[name])
+            _, cfg = tp_config(run)
+            if attention_layers(cfg):
+                served[name]["flash_check"] = tp_flash_check(
+                    torch, ops, ref, dev, cfg, run["prompt"], TP_RANKS, rank)
+            torch.cuda.empty_cache()
+        torch.save(dict(served=served, trained=trained,
+                        waited_for_seeds_s=waited_s), out)
+    finally:
+        dist.destroy_process_group()
+
+
+def groups_dryrun_start(tmp: str) -> dict:
+    """33d: ``python -m repro_torch.launch.dryrun --arch A --shape S
+    --model-shards 2 --nodes 16`` for each of GROUPS_DRY, all at once, on
+    meta with the card hidden, niced -> {(arch, shape): Popen}."""
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="", PYTHONPATH=str(SRC))
+    return {(arch, shape): subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", arch,
+         "--shape", shape, "--nodes", str(DRYRUN_NODES), "--model-shards",
+         str(TP_RANKS), "--out", f"{tmp}/{arch}_{shape}.json"],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True, env=env,
+        preexec_fn=niced)
+        for arch, shape in GROUPS_DRY}
+
+
+def niced() -> None:
+    """A child process's lower priority (os.nice acts on it alone): the
+    dry runs' meta traces yield the host to the phases they run beside."""
+    os.nice(10)
+
+
+def dry_runs_start() -> tuple:
+    """Phase 29a's and 33d's dry runs, started before phase 24: CPU-only
+    processes that trace beside phases 24-28 instead of holding up phase
+    29 (each phase reads its rows when it comes). Stopped, and their
+    directory removed, at exit whatever happens. -> (29a's processes, 33d's
+    processes, their directory, the start time)."""
+    import atexit
+    import shutil
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_dryrun")
+    procs, groups = dryrun_start(tmp), groups_dryrun_start(tmp)
+
+    def stop():
+        for proc in [*procs.values(), *groups.values()]:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    atexit.register(stop)
+    return procs, groups, tmp, time.perf_counter()
+
+
+def groups_dryrun_finish(procs: dict, tmp: str, dry_rows: list) -> list:
+    """33d's rows: each ``ok``, its FLOPs a chip and peak below phase 29's
+    unsharded row of the same (arch, shape), its collectives counted."""
+    whole = {(r["arch"], r["shape"]): r for r in dry_rows}
+    rows = []
+    for (arch, shape), proc in procs.items():
+        out, _ = proc.communicate(timeout=GROUPS_JOIN_S)
+        require(proc.returncode == 0, f"33d: dry run of {arch} x {shape} "
+                f"exited {proc.returncode}: {out[-3000:]}")
+        (row,) = json.loads(Path(f"{tmp}/{arch}_{shape}.json").read_text())
+        w = whole[(arch, shape)]
+        require(row["status"] == "ok" == w["status"],
+                f"33d: {arch} x {shape} at M = {TP_RANKS}: {row}")
+        require(row["flops_per_chip"] < w["flops_per_chip"]
+                and row["peak_bytes"] < w["peak_bytes"],
+                f"33d: {arch} x {shape}: a rank's FLOPs / peak "
+                f"{row['flops_per_chip']} / {row['peak_bytes']} not below "
+                f"the whole {w['flops_per_chip']} / {w['peak_bytes']}")
+        require(row["coll_calls"].get("all-reduce", 0) > 0,
+                f"33d: {arch} x {shape}: no collective counted")
+        rows.append(dict(arch=arch, shape=shape, mesh=row["mesh"], **{
+            k: row[k] for k in ("flops_per_chip", "peak_bytes", "fits",
+                                "coll_calls", "trace_s")},
+            whole_flops_per_chip=w["flops_per_chip"],
+            whole_peak_bytes=w["peak_bytes"]))
+    return rows
+
+
+def model_axis_groups_phase(torch, ops, ref, dev, smi: str, dry_rows: list,
+                            dry: tuple) -> tuple:
+    """Phase 33: the model axis for the xLSTM, Mamba2/Zamba2 and
+    cross-attention groups. (a) GROUPS_SERVE through ``build_serve_plan(
+    arch, mesh)`` on a one-rank NCCL world's (1, 1) mesh, bit for bit the
+    unsharded plan; (b) the same over a 2-rank gloo world on the one card
+    (M = 2) against the unsharded plan, with ``flash_attention.cu`` at
+    each rank's head shard; (c) GROUPS_TRAIN_RUNS trained at M = 2 on the
+    same ranks against the unsharded plan; (d) the dry run's rows at
+    --model-shards 2 below phase 29's (``dry``: their processes and
+    directory, started with phase 29's). The ranks train (c) while this
+    process runs (a) and (c) unsharded, then serve (b) on (a)'s data
+    seeds. -> (emitted dict, the main paths' launch counts, each rank's
+    flash checks, the strided perturbations of 33c)."""
+    import torch.distributed as dist
+
+    t_start = time.perf_counter()
+    out = dict(phase="model_axis_groups", card=smi, note=(
+        "33b's and 33c's times are two ranks sharing one card's SMs, their "
+        "all-reduces gloo's, staged through the host: not speed figures "
+        "of tensor parallelism, which wait for a cell of several cards"))
+    counts = []
+    with tempfile.TemporaryDirectory() as tmp:
+        # the ranks' output to files: this process reads no pipe meanwhile
+        seeds_path = f"{tmp}/seeds.json"
+        logs = [open(f"{tmp}/rank{rank}.log", "w+")
+                for rank in range(TP_RANKS)]
+        procs = [subprocess.Popen(
+            [sys.executable, str(ROOT / "chip_smoke.py"), "--groups-rank",
+             json.dumps(dict(rank=rank, store=f"{tmp}/store",
+                             out=f"{tmp}/rank{rank}.pt", seeds=seeds_path))],
+            stdout=log, stderr=subprocess.STDOUT, text=True)
+            for rank, log in enumerate(logs)]
+        try:
+            refs = {name: tp_reference(torch, ops, dev, run)
+                    for name, run in GROUPS_SERVE.items()}
+            Path(seeds_path + ".part").write_text(json.dumps(
+                {name: r["data_seed"] for name, r in refs.items()}))
+            os.replace(seeds_path + ".part", seeds_path)
+            with tempfile.TemporaryDirectory() as one_tmp:
+                mesh = shard_world(one_tmp)
+                try:
+                    ones = {name: tp_serve(torch, ops, dev, run, mesh,
+                                           refs[name]["data_seed"])
+                            for name, run in GROUPS_SERVE.items()}
+                finally:
+                    dist.destroy_process_group()
+            torch.cuda.empty_cache()
+            want_train = groups_train_reference(torch, dev)
+            for p in procs:
+                p.wait(timeout=GROUPS_JOIN_S)
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        bad = []
+        for rank, (p, log) in enumerate(zip(procs, logs)):
+            log.seek(0)
+            if p.returncode != 0:
+                bad.append(f"rank {rank} exited {p.returncode}: "
+                           f"{log.read()[-4000:]}")
+            log.close()
+        require(not bad, "33b-c " + "\n".join(bad))
+        ranks = [torch.load(f"{tmp}/rank{rank}.pt", weights_only=False)
+                 for rank in range(TP_RANKS)]
+    dry_t0 = time.perf_counter()
+    out["d"] = dict(rows=groups_dryrun_finish(*dry, dry_rows),
+                    wait_s=time.perf_counter() - dry_t0)
+
+    out["a"] = {}
+    for name, run in GROUPS_SERVE.items():
+        one, want = ones[name], refs[name]
+        _, cfg = tp_config(run)
+        require(torch.equal(one["logits"], want["logits"]),
+                f"33a {name}: the one-rank model axis is not the unsharded "
+                "plan bit for bit")
+        calls = [axis_collectives(cfg, 1, run["prompt"])] + \
+            [axis_collectives(cfg, 1, 1)] * TP_WARMUP_STEPS
+        require(one["calls"] == calls, f"33a {name}: c10d calls "
+                f"{one['calls'][:2]}, expected {calls[:2]}")
+        require(one["launches"]["flash_attention"] == attention_layers(cfg),
+                f"33a {name}: flash launches {one['launches']}")
+        counts.append(one["launches"])
+        out["a"][name] = dict(tp_summary(one), bit_for_bit=True,
+                              unsharded=tp_summary(want))
+
+    out["b"], flash_checks = {}, []
+    for name, run in GROUPS_SERVE.items():
+        want = refs[name]
+        _, cfg = tp_config(run)
+        calls = [axis_collectives(cfg, 1, run["prompt"])] + \
+            [axis_collectives(cfg, 1, 1)] * TP_WARMUP_STEPS
+        for rank, r in enumerate(ranks):
+            got = r["served"][name]
+            require(torch.equal(got["logits"],
+                                ranks[0]["served"][name]["logits"]),
+                    f"33b {name}: rank {rank}'s logits differ from rank 0's")
+            err = (got["logits"] - want["logits"]).abs().max().item()
+            require(err <= TP_ATOL,
+                    f"33b {name}: rank {rank} logits max abs err {err}")
+            require(torch.equal(got["tokens"], want["tokens"]),
+                    f"33b {name}: rank {rank}'s greedy tokens differ")
+            require(got["calls"] == calls,
+                    f"33b {name}: rank {rank} c10d calls "
+                    f"{got['calls'][:2]}, expected {calls[:2]}")
+            require(got["launches"]["flash_attention"]
+                    == attention_layers(cfg),
+                    f"33b {name}: rank {rank} flash launches "
+                    f"{got['launches']}")
+            require(got["peak_gb"] < want["peak_gb"],
+                    f"33b {name}: rank {rank}'s peak {got['peak_gb']} GB is "
+                    f"not below the unsharded {want['peak_gb']} GB")
+            counts.append(got["launches"])
+            got["max_abs_err"] = err
+            if "flash_check" in got:
+                flash_checks.append(dict(
+                    got["flash_check"], rank=rank, run=name,
+                    launches=got["launches"]["flash_attention"]))
+        out["b"][name] = dict(
+            unsharded=tp_summary(want),
+            ranks=[tp_summary(r["served"][name]) for r in ranks],
+            ranks_bit_equal=True,
+            tolerance=dict(atol=TP_ATOL, logit_margin=TP_LOGIT_MARGIN))
+
+    out["c"], strided = {}, dict(launches=0, by_run={})
+    seq, nodes = GROUPS_TRAIN["seq_len"], GROUPS_TRAIN["n"]
+    for name, run in GROUPS_TRAIN_RUNS.items():
+        want = want_train[name]
+        plan, _ = groups_train_plan(run, None, want["gamma_n"])
+        want_calls = [groups_train_collectives(
+            plan.model.cfg, plan.partition, nodes, seq, TP_RANKS, 0)]
+        for rank, r in enumerate(ranks):
+            got = r["trained"][name]
+            gap = max(abs(a - b) / abs(b)
+                      for a, b in zip(got["losses"], want["losses"]))
+            require(gap <= TRAIN_TP_LOSS_RTOL,
+                    f"33c {name} rank {rank}: losses {got['losses']} "
+                    f"against {want['losses']}")
+            st = got["state"] = sample_gaps(torch, got.pop("samples"),
+                                            want["samples"][rank])
+            require(st["max_abs_err"] <= TRAIN_TP_ATOL,
+                    f"33c {name} rank {rank}: state {st}")
+            require(st["max_norm_rel_gap"] <= TRAIN_TP_NORM_RTOL
+                    and st["vectors_max_rel_err"] <= TRAIN_TP_NORM_RTOL,
+                    f"33c {name} rank {rank}: leaf norms and vectors {st}")
+            require(got["calls"] == want_calls,
+                    f"33c {name} rank {rank}: c10d calls {got['calls']}, "
+                    f"expected {want_calls}")
+            launches, mapped = want["launches"][rank]
+            require(got["launches"] == launches
+                    and got["mapped_launches"] == mapped,
+                    f"33c {name} rank {rank}: launches {got['launches']}, "
+                    f"strided {got['mapped_launches']}, expected "
+                    f"{launches}, {mapped}")
+            require(got["peak_gb"] < want["peak_gb"],
+                    f"33c {name} rank {rank}: peak {got['peak_gb']} GB not "
+                    f"below the unsharded {want['peak_gb']} GB")
+            counts.append(got["launches"])
+            strided["launches"] += got["mapped_launches"]
+            strided["by_run"][name] = strided["by_run"].get(
+                name, 0) + got["mapped_launches"]
+        out["c"][name] = dict(
+            unsharded={k: want[k] for k in ("losses", "step_ms", "peak_gb",
+                                            "gamma_n", "d_s")},
+            ranks=[r["trained"][name] for r in ranks],
+            calls_first_step=want_calls, **run)
+    out["c"]["ranks_waited_for_seeds_s"] = [r["waited_for_seeds_s"]
+                                            for r in ranks]
+    require(strided["by_run"].get("xlstm", 0) > 0,
+            "33c: xlstm's strided perturbations were not launched")
+    out["c"]["tolerance"] = dict(loss_rtol=TRAIN_TP_LOSS_RTOL,
+                                 atol=TRAIN_TP_ATOL,
+                                 norm_rtol=TRAIN_TP_NORM_RTOL,
+                                 sample=TRAIN_TP_SAMPLE, **GROUPS_TRAIN)
+    out["seconds"] = time.perf_counter() - t_start
+    return out, counts, flash_checks, strided
+
+
 def sparse_graph(n: int, seed: int = 0):
     from repro_torch.net import ErdosRenyiGraph
 
@@ -6265,6 +6954,9 @@ def main() -> int:
     parser.add_argument("--train-rank", default=None, metavar="JSON",
                         help="run one rank of phase 32b-c with these keyword "
                              "arguments (the whole run starts them so)")
+    parser.add_argument("--groups-rank", default=None, metavar="JSON",
+                        help="run one rank of phase 33b-c with these keyword "
+                             "arguments (the whole run starts them so)")
     args = parser.parse_args()
 
     import torch
@@ -6297,6 +6989,11 @@ def main() -> int:
         torch.cuda.set_device(dev)
         build.build_all()  # built by the parent: loads the libraries
         train_tp_rank(torch, ops, dev, **json.loads(args.train_rank))
+        return 0
+    if args.groups_rank is not None:
+        torch.cuda.set_device(dev)
+        build.build_all()  # built by the parent: loads the libraries
+        groups_rank(torch, ops, ref, dev, **json.loads(args.groups_rank))
         return 0
     if args.obs_phase is None:
         emit(dict(phase="precision",
@@ -6476,11 +7173,15 @@ def main() -> int:
             torch, api, mlp, data, ops, ref, T, dev, tmp)
         emit(looped)
         launches += counts
+        del session, lm_batches
+        torch.cuda.empty_cache()
+        session, lm_batches, _ = lm_session(torch, T, layers=RESUME_LAYERS)
         resumed = resume(torch, ops, session, lm_batches, tmp)
         emit(resumed)
         launches.append(resumed["launches"])
         del session, lm_batches
     torch.cuda.empty_cache()
+    dry_procs, groups_dry, dry_tmp, dry_t0 = dry_runs_start()
     faulted, counts = faults_phase(
         torch, api, mlp, data, ops, ref, T, dev,
         dense_ms=cons["ms_per_round"], sparse_ms=scons["ms_per_round"])
@@ -6517,19 +7218,11 @@ def main() -> int:
         r[f"{name}_device_us"], r[f"{name}_kernels_a_call"] = device_us(
             torch, other)
     smi = card_line()
-    # phase 29: the dry run in processes of its own while the card runs
-    # the TRAIN_LM step; then the serve rows the dry run says fit
-    with tempfile.TemporaryDirectory() as tmp:
-        t0 = time.perf_counter()
-        procs = dryrun_start(tmp)
-        try:
-            trained, counts = launch_train(torch, ops, dev, smi)
-            dry, dry_rows = dryrun_finish(procs, tmp, t0, smi)
-        finally:
-            for proc in procs.values():
-                if proc.poll() is None:
-                    proc.kill()
-                    proc.wait()
+    # phase 29: the TRAIN_LM step on the card and the dry run's rows (its
+    # processes started before phase 24); then the serve rows the dry run
+    # says fit
+    trained, counts = launch_train(torch, ops, dev, smi)
+    dry, dry_rows = dryrun_finish(dry_procs, dry_tmp, dry_t0, smi)
     if args.out is not None:
         (args.out / "dryrun.json").write_text(json.dumps(dry_rows, indent=1))
     emit(dry)
@@ -6549,6 +7242,11 @@ def main() -> int:
     train_line, counts, strided = model_axis_train_phase(torch, ops, ref,
                                                          dev, smi, lm_step)
     emit(train_line)
+    launches += counts
+    groups_line, counts, groups_flash, groups_strided = \
+        model_axis_groups_phase(torch, ops, ref, dev, smi, dry_rows,
+                                (groups_dry, dry_tmp))
+    emit(groups_line)
     launches += counts
     total = {k: sum(path[k] for path in launches) for k in KERNELS}
     kernels = []
@@ -6580,7 +7278,8 @@ def main() -> int:
                         "vs_contiguous", "mapped_launches")})
             norms = {"norm_only_launches": total["noise_l1_rows"],
                      "model_axis_straddling_maps": {
-                         k: v for k, v in strided.items() if k != "main"}}
+                         k: v for k, v in strided.items() if k != "main"},
+                     "model_axis_groups_strided_launches": groups_strided}
         kernels.append(kernel_entry(
             name, dict(f, max_abs_err=max(
                 [f["max_abs_err"]] + [a["max_abs_err"] for a in at.values()]
@@ -6623,9 +7322,10 @@ def main() -> int:
     kernels.append(kernel_entry(
         "flash_attention",
         dict(fa, max_abs_err=max([r["max_abs_err"] for r in flash.values()]
-                                 + [r["max_abs_err"] for r in tp_flash])),
+                                 + [r["max_abs_err"]
+                                    for r in tp_flash + groups_flash])),
         total["flash_attention"], shape=fa["shape"],
-        model_axis_rank_shards=tp_flash,
+        model_axis_rank_shards=tp_flash + groups_flash,
         max_rel_err=max(r["max_rel_err"] for r in flash.values()),
         pct_of_bound=fa["pct_of_bound"],
         f32_core_bound_ms=fa["f32_core_bound_ms"],

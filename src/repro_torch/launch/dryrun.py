@@ -23,8 +23,11 @@ its model axis charges on meta, the backward's among them (``mesh`` is
 The data dim stays 1: a serve row's batch is whole on the rank
 (``batch_whole`` in the row), a train row's rank holds all N nodes' rows
 of its shard (a (1, M) mesh's rank; ``build_train_plan(arch, N,
-model_shards=M)``). A row whose model M does not split (a dim M does not
-divide, a group kind the axis does not split) is skipped with the reason.
+model_shards=M)``). Every group kind splits; the mLSTM's gather of ``u``
+is an all-reduce into a zero-filled buffer (as the vocabulary gather is),
+so it counts under "all-reduce" in ``coll_calls``, as the c10d calls do.
+A row whose model M does not split (a dim M does not divide) is skipped
+with the reason.
 """
 from __future__ import annotations
 

@@ -199,10 +199,12 @@ def shard_params(params: PyTree, mesh, model) -> PyTree:
 
 def _gather_model(x: torch.Tensor, per_rank: list, group) -> torch.Tensor:
     """The whole leaf from every model rank's block ``x``: one all-gather
-    over ``group``, the blocks joined in rank order along their dim, a
-    block several ranks hold (a replicated KV head) taken once.
-    ``per_rank`` is each rank's (dim, slice) pairs of the leaf (None:
-    held whole)."""
+    over ``group``, the blocks joined in rank order along their dim (each
+    half of it for a ``Halves`` block), a block several ranks hold (a
+    replicated KV head) taken once. ``per_rank`` is each rank's (dim,
+    slice) pairs of the leaf (None: held whole)."""
+    from repro_torch.models.parallel import Halves
+
     if per_rank[0] is None:
         return x
     parts = [torch.empty_like(x) for _ in per_rank]
@@ -210,7 +212,11 @@ def _gather_model(x: torch.Tensor, per_rank: list, group) -> torch.Tensor:
     starts = [pairs[0][1].start for pairs in per_rank]
     keep = [part for r, part in enumerate(parts)  # a replicated head once
             if starts.index(starts[r]) == r]
-    return torch.cat(keep, dim=per_rank[0][0][0])
+    dim, sl = per_rank[0][0]
+    if isinstance(sl, Halves):
+        return torch.cat([p.unflatten(dim, (2, -1)) for p in keep],
+                         dim=dim + 1).flatten(dim, dim + 1)
+    return torch.cat(keep, dim=dim)
 
 
 def _per_rank_shards(model, axis) -> list[dict]:
@@ -335,10 +341,13 @@ def train_columns(model, partition, axis) -> tuple[list, list]:
     replicated leaf's or a shared KV head's, count on the first of them),
     and its wire columns in the whole model's wire row
     (``kernels.ref.ColumnMap``: the whole leaf's first column, and the
-    rank's block of it)."""
+    rank's block of it; for Mamba2's ``w_in`` (a ``Halves`` block) one map
+    of the leaf viewed as (..., d, 2, d_inner): runs of the rank's
+    d_inner / M columns, a stride of d_inner)."""
     import math
 
     from repro_torch.kernels.ref import ColumnMap
+    from repro_torch.models.parallel import Halves
     from repro_torch.models.transformer import Transformer
 
     whole = {p: tuple(x.shape) for p, x in tree_flatten_with_path(
@@ -360,8 +369,9 @@ def train_columns(model, partition, axis) -> tuple[list, list]:
         else:
             dim, sl = pairs[0]
             trail = math.prod(shape[dim + 1:])
+            width = shape[dim] // 2 if isinstance(sl, Halves) else shape[dim]
             cmap = ColumnMap(col0, (sl.stop - sl.start) * trail,
-                             shape[dim] * trail, sl.start * trail)
+                             width * trail, sl.start * trail)
             # a block of the leading dim is a contiguous run of columns
             col_maps.append(ColumnMap(col0 + cmap.off, 1, 1) if dim == 0
                             else cmap)

@@ -289,9 +289,9 @@ def build_train_plan(
     replaces that count: N / D node rows a data rank). A
     ``DeviceMesh`` of ("data", "model") dims makes the plan its rank's:
     the rank's node rows and its shard of the model
-    (:mod:`repro_torch.models.parallel`: the attention and MoE groups; the
-    others raise at M > 1, as does an M that does not divide H, d_ff, E
-    or V), the model's data dim 1 (each node routes its own batch). An
+    (:mod:`repro_torch.models.parallel`: every group kind; an M that does
+    not divide H, d_ff, E, V or a Mamba2 group's heads raises), the
+    model's data dim 1 (each node routes its own batch). An
     int with ``model_shards`` M > 1 is rank 0 of M with no process group
     (every node on the rank), for the dry run's meta count only.
     ``shape`` (a ``ShapeSpec`` of kind "train") replaces ``shape_name``."""
@@ -370,9 +370,9 @@ def build_serve_plan(arch: ArchSpec, mesh: Any = None, *,
 
     ``mesh`` (a ``DeviceMesh`` of ("data", "model") dims) makes the plan
     this rank's: its model is split over the "model" dim
-    (:mod:`repro_torch.models.parallel`: the attention and MoE groups;
-    the others raise at M > 1, as does an M that does not divide H,
-    d_ff, E or V), its batch over "data". An int M is rank 0 of M with
+    (:mod:`repro_torch.models.parallel`: every group kind; an M that does
+    not divide H, d_ff, E, V or a Mamba2 group's heads raises), its batch
+    (and a VLM's image embeddings) over "data". An int M is rank 0 of M with
     no process group, for the dry run's meta count only; None (the
     default) is the whole model on one process, today's plan."""
     shape = _shape(shape_name, shape)

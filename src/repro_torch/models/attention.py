@@ -4,7 +4,11 @@
 The self-attention arithmetic lives in :mod:`repro_torch.models.
 transformer`, as in the reference. Cross-attention (the VLM's gated
 image layers) is the plain einsum with materialised scores, as in the
-reference, which has no kernel for it.
+reference, which has no kernel for it. Over a model axis it runs on the
+rank's heads (``n_heads`` / ``n_kv_heads`` the rank's, its ``wq`` /
+``wk`` / ``wv`` column blocks and ``wo`` row block); the ``wo`` partial
+is summed over "model" before the tanh gate scales it, so the gate's
+gradient is whole on every rank.
 """
 from __future__ import annotations
 
@@ -13,6 +17,7 @@ import math
 import torch
 
 from repro_torch.models.layers import dense_init
+from repro_torch.models.parallel import NO_AXIS, ModelAxis
 
 __all__ = ["init_attention", "init_cross_attention", "cross_attention",
            "open_cross_gates"]
@@ -40,10 +45,13 @@ def init_cross_attention(gen: torch.Generator, d_model: int, n_heads: int,
 
 
 def cross_attention(params: dict, x: torch.Tensor, enc: torch.Tensor, *,
-                    n_heads: int, n_kv_heads: int,
-                    head_dim: int) -> torch.Tensor:
+                    n_heads: int, n_kv_heads: int, head_dim: int,
+                    axis: ModelAxis = NO_AXIS) -> torch.Tensor:
     """x (B, S, d_model) attends, unmasked, over ``enc`` (B, M, d_model),
-    the image embeddings; the output is scaled by tanh(gate)."""
+    the image embeddings; the output is scaled by tanh(gate). Over
+    ``axis``: ``x`` and ``enc`` enter the rank's heads through its
+    copy-to-model, the heads' ``wo`` partial leaves through its sum."""
+    x, enc = axis.copy(x), axis.copy(enc)
     b, s, _ = x.shape
     group = n_heads // n_kv_heads
     q = (x @ params["wq"]).reshape(b, s, n_kv_heads, group, head_dim)
@@ -55,7 +63,7 @@ def cross_attention(params: dict, x: torch.Tensor, enc: torch.Tensor, *,
     out = torch.einsum("bkgst,btkd->bskgd", probs, v.float())
     out = out.reshape(b, s, n_heads * head_dim).to(x.dtype)
     gate = torch.tanh(params["gate"].float()).to(x.dtype)
-    return (out @ params["wo"]) * gate
+    return axis.reduce(out @ params["wo"]) * gate
 
 
 def open_cross_gates(params: dict, gate: float = 0.5) -> dict:

@@ -11,7 +11,17 @@ head of its M/K ranks, whole on each), column blocks of ``w_up`` /
 ``w_gate`` and row blocks of ``w_down`` (the dense MLP and the shared
 expert), experts ``[r E/M, (r+1) E/M)``, vocabulary rows of ``embed`` and
 columns of ``lm_head``; norms and the router whole. Its KV cache follows
-its KV heads. A data dim of the mesh splits the batch into row blocks.
+its KV heads. The recurrent and cross-attention groups split by head too:
+an mLSTM's ``w_up`` / ``w_q`` / ``w_k`` / ``w_v`` / ``w_o`` column
+blocks and ``w_down`` row block are its heads' (``n_heads`` of the
+config), a Mamba2 layer's ``w_in`` the ``x`` and the gate ``z`` columns of
+its ``nh / M`` heads (:class:`Halves`) and ``w_out`` their rows, a cross
+layer's ``wq`` / ``wk`` / ``wv`` / ``wo`` as self-attention's; an mLSTM
+cache its heads' ``C`` / ``n`` / ``m``, a Mamba2 cache its heads' ``h``.
+The sLSTM, the gates' and the SSM's small leaves (``w_if``, ``b_if``,
+``w_b``, ``w_c``, ``w_dt``, ``b_dt``, ``a_log``, ``d_skip``) and a cross
+layer's ``gate`` stay whole. A data dim of the mesh splits the batch into
+row blocks.
 
 Every collective goes through one :class:`ModelAxis`:
 
@@ -25,6 +35,9 @@ Every collective goes through one :class:`ModelAxis`:
   all-reduce and broadcast there). A ring all-reduce moves 2 (M - 1) / M
   of the buffer a rank against an all-gather's (M - 1) / M: twice the
   wire bytes, on one (B, V) row a step;
+* :meth:`ModelAxis.gather`, the mLSTM's up-projection ``u`` gathered
+  over "model" the same way (its ``w_up`` is column-split, while its
+  ``w_q`` / ``w_k`` / ``w_v`` / ``w_if`` read the whole of ``u``);
 * :meth:`ModelAxis.gather_rows`, the MoE groups' routed tokens gathered
   over "data" the same way, so routing, capacity and drops are the
   whole batch's, as the reference's GSPMD program computes them (only
@@ -38,9 +51,15 @@ SUM all-reduce), where the replicated stream enters a column-split block:
 the normed input of ``wq`` / ``wk`` / ``wv``, of ``w_up`` / ``w_gate``,
 of the head, and the MoE block's dispatched tokens and gate
 probabilities (the router itself runs replicated on every rank, so its
-gradient, the load-balance loss's among it, is whole on every rank). A
-KV head that M/K ranks share sums its ``wk`` / ``wv`` gradient over them
-(:meth:`ModelAxis.shared_kv`), and the loss is vocabulary-parallel
+gradient, the load-balance loss's among it, is whole on every rank), and
+each whole leaf that a head-split block reads only in part (the mLSTM's
+``w_if`` / ``b_if``; Mamba2's ``w_b``, ``w_c``, ``w_dt``, ``b_dt``,
+``a_log``, ``d_skip``): each rank's gradient of it is its heads' share,
+summed over "model" so that it is whole on every rank and counted once.
+:meth:`ModelAxis.gather` is then *gather-to-model* (backward the SUM of
+the ranks' partial gradients of the whole ``u``, then the rank's block).
+A KV head that M/K ranks share sums its ``wk`` / ``wv`` gradient over
+them (:meth:`ModelAxis.shared_kv`), and the loss is vocabulary-parallel
 (:meth:`ModelAxis.cross_entropy`): no (..., V) logits cross the wire.
 Without grad (serving) the ops are the in-place all-reduces they were.
 A training axis has a data dim of 1: there "data" splits the nodes of
@@ -67,12 +86,30 @@ import torch.nn.functional as F
 
 from repro_torch.core import loops
 
-__all__ = ["ModelAxis", "NO_AXIS", "SHARDED_KINDS", "leaf_sharding",
-           "take"]
+__all__ = ["ModelAxis", "NO_AXIS", "SHARDED_KINDS", "MAMBA2_HEAD_DIM",
+           "Halves", "leaf_sharding", "take", "mamba2_heads"]
 
-# group kinds the model axis splits; the others run only at M = 1
-SHARDED_KINDS = ("attn", "moe")
+# the group kinds the model axis splits: all of them
+SHARDED_KINDS = ("attn", "moe", "xlstm", "mamba", "zamba", "cross_self")
 _KV_LEAVES = ("wk", "wv")
+# Mamba2's head dim (the reference's, fixed at 64 whatever the config)
+MAMBA2_HEAD_DIM = 64
+
+
+def mamba2_heads(cfg, group) -> int:
+    """The Mamba2 heads ``nh = expand d_model / 64`` of a mamba or zamba
+    group of ``cfg``."""
+    return group.expand * cfg.d_model // MAMBA2_HEAD_DIM
+
+
+@dataclasses.dataclass(frozen=True)
+class Halves:
+    """A rank's share of a dim cut into two equal halves (Mamba2's ``w_in``:
+    the ``x`` columns, then the gate ``z`` columns): indices ``[start,
+    stop)`` of each half, the rank's heads' in both."""
+
+    start: int
+    stop: int
 
 
 @dataclasses.dataclass(frozen=True)
@@ -124,23 +161,29 @@ class ModelAxis:
                          "neither divides the other")
 
     def check(self, cfg) -> None:
-        """Refuse a model this axis cannot split: a group kind other than
-        attention and MoE, or M not dividing a sharded dim."""
+        """Refuse a model this axis cannot split: M not dividing a sharded
+        dim (``n_heads``, the attention's and the mLSTM's; ``n_kv_heads``
+        where neither it nor M divides the other; ``vocab_size``; ``d_ff``;
+        ``n_experts``; a Mamba2 group's heads ``nh``), a ``ValueError``
+        naming the dim."""
         if self.size == 1:
             return
-        kinds = sorted({g.kind for g in cfg.groups} - set(SHARDED_KINDS))
-        if kinds:
-            raise NotImplementedError(
-                f"the model axis (M = {self.size}) splits only the attn and "
-                f"moe groups; {kinds} wait for ROADMAP item 11b's remainder")
         self.kv_heads(cfg.n_heads, cfg.n_kv_heads)
         self.block(cfg.vocab_size, "vocab_size")
         for g in cfg.groups:
-            dense = g.kind == "attn" or g.moe_every > 1 or g.shared_expert
-            if dense:
+            if g.kind in ("attn", "zamba", "cross_self") or (
+                    g.kind == "moe" and (g.moe_every > 1
+                                         or g.shared_expert)):
                 self.block(cfg.d_ff, "d_ff")
             if g.kind == "moe":
                 self.block(g.n_experts, "n_experts")
+            if g.kind in ("mamba", "zamba"):
+                self.block(mamba2_heads(cfg, g), "nh (the Mamba2 heads)")
+
+    def heads(self, n: int, name: str = "n_heads") -> slice:
+        """This rank's heads of ``n``: :meth:`block`, None where the rank
+        holds all of them (M = 1)."""
+        return None if self.size == 1 else self.block(n, name)
 
     def local_config(self, cfg):
         """``cfg`` with this rank's query and KV head counts."""
@@ -191,6 +234,24 @@ class ModelAxis:
         if self.off or not torch.is_grad_enabled():
             return x
         return _CopyToModel.apply(x, self)
+
+    def gather(self, x: torch.Tensor) -> torch.Tensor:
+        """(..., n/M) block of this rank -> (..., n), every rank's block in
+        rank order: an all-reduce into a zero-filled buffer (exact; gloo
+        runs it on CUDA tensors). With grad, gather-to-model: backward the
+        SUM all-reduce of the whole gradient (each rank's paths give only a
+        partial one), then the rank's block."""
+        if self.off:
+            return x
+        if torch.is_grad_enabled():
+            return _GatherFromModel.apply(x, self)
+        return self._gather(x)
+
+    def _gather(self, x: torch.Tensor) -> torch.Tensor:
+        n = x.shape[-1]
+        full = x.new_zeros(tuple(x.shape[:-1]) + (n * self.size,))
+        full[..., self.rank * n:(self.rank + 1) * n] = x
+        return self._sum(full, self.group, self.size)
 
     def shared_kv(self, cfg):
         """Where M/K ranks share each KV head (K < M) and grad is enabled:
@@ -279,6 +340,23 @@ class _ReduceFromModel(torch.autograd.Function):
         return grad, None
 
 
+class _GatherFromModel(torch.autograd.Function):
+    """Forward: every rank's block of the last dim, gathered; backward: the
+    SUM all-reduce of the gradient (a copy), then the rank's block."""
+
+    @staticmethod
+    def forward(ctx, x, axis):
+        ctx.axis, ctx.n = axis, x.shape[-1]
+        return axis._gather(x)
+
+    @staticmethod
+    def backward(ctx, grad):
+        axis, n = ctx.axis, ctx.n
+        full = axis._sum(grad.clone(memory_format=torch.contiguous_format),
+                         axis.group, axis.size)
+        return full[..., axis.rank * n:(axis.rank + 1) * n].contiguous(), None
+
+
 class _CopyToModel(torch.autograd.Function):
     """Forward: the identity; backward: the SUM all-reduce of the rank's
     partial gradient (a copy: autograd's own buffer is left alone)."""
@@ -317,13 +395,18 @@ NO_AXIS = ModelAxis()
 
 
 def leaf_sharding(axis: ModelAxis, path: str, spec: tuple, shape: tuple,
-                  cfg, *, kv_dim: int | None = None):
+                  cfg, *, kv_dim: int | None = None,
+                  heads_dim: int | None = None):
     """What rank ``axis`` holds of a leaf at ``path`` with the reference's
-    pspec ``spec`` (a tuple of axis names): a tuple of (dim, slice) pairs,
-    or None for a leaf it holds whole. Its "model" dim is cut into M
-    blocks, but ``wk`` / ``wv`` give their KV heads' columns; a cache's
-    ``kv_dim`` (its KV-head dim) gives its KV heads whatever the spec says,
-    and its "data" dim its batch rows."""
+    pspec ``spec`` (a tuple of axis names): a tuple of (dim, slice) pairs
+    (a :class:`Halves` in place of the slice for Mamba2's ``w_in``), or
+    None for a leaf it holds whole. Its "model" dim is cut into M blocks,
+    but ``wk`` / ``wv`` give their KV heads' columns and ``w_in`` its
+    heads' ``x`` and ``z`` columns (the reference's pspec gives rank r
+    the r-th of M contiguous blocks of the two halves together); a
+    cache's ``kv_dim`` (its KV-head dim) gives its KV heads and its
+    ``heads_dim`` (an mLSTM state's head dim) its heads of ``n_heads``,
+    whatever the spec says, and its "data" dim its batch rows."""
     key = path.rsplit("/", 1)[-1]
     out = []
     if "data" in spec and axis.data_size > 1:
@@ -332,12 +415,17 @@ def leaf_sharding(axis: ModelAxis, path: str, spec: tuple, shape: tuple,
     if axis.size > 1:
         if kv_dim is not None:
             out.append((kv_dim, axis.kv_heads(cfg.n_heads, cfg.n_kv_heads)))
+        elif heads_dim is not None:
+            out.append((heads_dim, axis.block(cfg.n_heads, "n_heads")))
         elif "model" in spec:
             dim = spec.index("model")
             if key in _KV_LEAVES:
                 kv = axis.kv_heads(cfg.n_heads, cfg.n_kv_heads)
                 d = cfg.head_dim
                 out.append((dim, slice(kv.start * d, kv.stop * d)))
+            elif key == "w_in":
+                half = axis.block(shape[dim] // 2, path)
+                out.append((dim, Halves(half.start, half.stop)))
             else:
                 out.append((dim, axis.block(shape[dim], path)))
     return tuple(out) or None
@@ -350,5 +438,9 @@ def take(x: torch.Tensor, shard) -> torch.Tensor:
     if shard is None:
         return x
     for dim, sl in shard:
-        x = x.narrow(dim, sl.start, sl.stop - sl.start)
+        if isinstance(sl, Halves):
+            x = x.unflatten(dim, (2, -1)).narrow(
+                dim + 1, sl.start, sl.stop - sl.start).flatten(dim, dim + 1)
+        else:
+            x = x.narrow(dim, sl.start, sl.stop - sl.start)
     return x.clone(memory_format=torch.contiguous_format)

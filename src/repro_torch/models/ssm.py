@@ -22,6 +22,16 @@ written in place.
 
 As the reference, the short causal conv of Mamba2 and the mLSTM block's
 depthwise conv are left out, and the gate biases start at small constants.
+
+Over a model axis (``axis=``, :mod:`repro_torch.models.parallel`) the
+mLSTM and Mamba2 run on the rank's heads: its column blocks of the split
+projections, its heads' columns of the whole gate leaves (each through
+:meth:`~repro_torch.models.parallel.ModelAxis.copy`, so its gradient is
+summed over the ranks), the mLSTM's ``u`` gathered whole; the output is
+the rank's partial sum of ``w_down`` / ``w_out``, which the caller
+reduces. Every size comes from the caller (the config) or from a whole
+leaf's unsplit dim, never from a split dim of a shard. The sLSTM has no
+axis: it runs whole on every rank.
 """
 from __future__ import annotations
 
@@ -30,6 +40,7 @@ import torch.nn.functional as F
 
 from repro_torch.core.loops import time_loop
 from repro_torch.models.layers import dense_init
+from repro_torch.models.parallel import NO_AXIS, ModelAxis
 
 __all__ = [
     "init_mlstm", "mlstm_seq", "mlstm_step", "mlstm_state",
@@ -63,25 +74,49 @@ def init_mlstm(gen: torch.Generator, d_model: int, n_heads: int,
 
 
 def mlstm_state(batch: int, d_model: int, n_heads: int,
-                proj_factor: float = 2.0, device=None) -> dict:
+                proj_factor: float = 2.0, device=None, *,
+                local_heads: int | None = None) -> dict:
+    """The zero state of ``local_heads`` (default all ``n_heads``) of the
+    mLSTM's heads, each of ``d_model proj_factor / n_heads`` dims."""
     hd = int(d_model * proj_factor) // n_heads
+    h = n_heads if local_heads is None else local_heads
     f32 = dict(dtype=torch.float32, device=device)
-    return {"C": torch.zeros((batch, n_heads, hd, hd), **f32),
-            "n": torch.zeros((batch, n_heads, hd), **f32),
-            "m": torch.full((batch, n_heads), -1e30, **f32)}
+    return {"C": torch.zeros((batch, h, hd, hd), **f32),
+            "n": torch.zeros((batch, h, hd), **f32),
+            "m": torch.full((batch, h), -1e30, **f32)}
 
 
-def _mlstm_gates_qkv(params: dict, x: torch.Tensor, n_heads: int):
-    """x (B, S, d_model) -> q, k, v (B, S, H, hd), i/f pre-activations
-    (B, S, H) f32, o (B, S, d_inner)."""
-    h = n_heads
-    hd = params["w_q"].shape[1] // h
-    u = x @ params["w_up"]
+def _head_cols(w: torch.Tensor, cols) -> torch.Tensor:
+    """``w``'s last-dim ``cols`` (a slice or an index tensor), or ``w``
+    itself for None (every column: the op the whole model runs)."""
+    return w if cols is None else w[..., cols]
+
+
+def _mlstm_gate_cols(heads: slice | None, n_heads: int, device):
+    """The columns of ``w_if`` / ``b_if`` that ``heads`` read: their input
+    gates ``[a, b)``, then their forget gates ``H + [a, b)``."""
+    if heads is None:
+        return None
+    idx = torch.arange(heads.start, heads.stop, device=device)
+    return torch.cat([idx, idx + n_heads])
+
+
+def _mlstm_gates_qkv(params: dict, x: torch.Tensor, n_heads: int,
+                     head_dim: int, axis: ModelAxis = NO_AXIS):
+    """x (B, S, d_model) -> q, k, v (B, S, h, hd), i/f pre-activations
+    (B, S, h) f32, o (B, S, h hd), for the rank's h of the ``n_heads``
+    heads (all without an axis)."""
+    heads = axis.heads(n_heads, "n_heads")
+    h = n_heads if heads is None else heads.stop - heads.start
+    hd = head_dim
+    u = axis.gather(x @ params["w_up"])
     q = (u @ params["w_q"]).reshape(u.shape[:-1] + (h, hd))
     k = (u @ params["w_k"]).reshape(u.shape[:-1] + (h, hd)) / \
         float(torch.sqrt(torch.tensor(hd, dtype=torch.float32)))
     v = (u @ params["w_v"]).reshape(u.shape[:-1] + (h, hd))
-    gif = (u @ params["w_if"] + params["b_if"]).float()
+    cols = _mlstm_gate_cols(heads, n_heads, x.device)
+    gif = (u @ _head_cols(axis.copy(params["w_if"]), cols)
+           + _head_cols(axis.copy(params["b_if"]), cols)).float()
     o = torch.sigmoid((x @ params["w_o"]).float()).to(x.dtype)
     return q, k, v, gif[..., :h], gif[..., h:], o
 
@@ -116,22 +151,38 @@ def _mlstm_carry(state: dict):
     return tuple(state[k].float() for k in ("C", "n", "m"))
 
 
+def _mlstm_head_dim(params: dict, n_heads: int, head_dim: int | None) -> int:
+    """``head_dim``, or d_inner / H from ``w_q``'s rows (a dim no axis
+    splits)."""
+    return params["w_q"].shape[0] // n_heads if head_dim is None else head_dim
+
+
 def mlstm_seq(params: dict, x: torch.Tensor, *, n_heads: int,
-              state: dict | None = None):
+              state: dict | None = None, head_dim: int | None = None,
+              axis: ModelAxis = NO_AXIS):
+    """The mLSTM over the S positions of x (B, S, d_model) -> (the rank's
+    partial output (B, S, d_model), final state). ``n_heads``: the whole
+    model's heads; ``head_dim`` (default d_inner / n_heads); ``axis``: the
+    rank's heads only (its output a partial sum over "model")."""
     b, s, d = x.shape
+    hd = _mlstm_head_dim(params, n_heads, head_dim)
+    heads = axis.heads(n_heads, "n_heads")
     if state is None:
-        state = mlstm_state(b, d, n_heads, params["w_up"].shape[1] / d,
-                            device=x.device)
-    q, k, v, i_pre, f_pre, o = _mlstm_gates_qkv(params, x, n_heads)
+        state = mlstm_state(b, d, n_heads, n_heads * hd / d, device=x.device,
+                            local_heads=None if heads is None
+                            else heads.stop - heads.start)
+    q, k, v, i_pre, f_pre, o = _mlstm_gates_qkv(params, x, n_heads, hd, axis)
     hs, (C, n, m) = _mlstm_scan(_mlstm_carry(state), q.float(), k.float(),
                                 v.float(), i_pre, F.logsigmoid(f_pre))
     h = hs.reshape(b, s, -1).to(x.dtype)                  # (B, S, d_inner)
     return (o * h) @ params["w_down"], {"C": C, "n": n, "m": m}
 
 
-def mlstm_step(params: dict, x: torch.Tensor, state: dict, *, n_heads: int):
+def mlstm_step(params: dict, x: torch.Tensor, state: dict, *, n_heads: int,
+               head_dim: int | None = None, axis: ModelAxis = NO_AXIS):
     """x: (B, 1, d_model)."""
-    q, k, v, i_pre, f_pre, o = _mlstm_gates_qkv(params, x, n_heads)
+    hd = _mlstm_head_dim(params, n_heads, head_dim)
+    q, k, v, i_pre, f_pre, o = _mlstm_gates_qkv(params, x, n_heads, hd, axis)
     C, n, m = _mlstm_carry(state)
     C, n, m, h = _mlstm_cell(C, n, m, q[:, 0].float(), k[:, 0].float(),
                              v[:, 0].float(), i_pre[:, 0],
@@ -230,31 +281,46 @@ def init_mamba2(gen: torch.Generator, d_model: int, d_state: int = 64,
 
 
 def mamba2_state(batch: int, d_model: int, d_state: int = 64,
-                 expand: int = 2, head_dim: int = 64, device=None) -> dict:
-    nh = expand * d_model // head_dim
+                 expand: int = 2, head_dim: int = 64, device=None, *,
+                 local_heads: int | None = None) -> dict:
+    """The zero state of ``local_heads`` (default all ``expand d_model /
+    head_dim``) of the Mamba2 heads."""
+    nh = expand * d_model // head_dim if local_heads is None else local_heads
     return {"h": torch.zeros((batch, nh, d_state, head_dim),
                              dtype=torch.float32, device=device)}
 
 
-def _mamba2_proj(params, x, head_dim: int):
-    """x (B, S, d_model) -> xh (B, S, nh, hd), z (B, S, d_inner), B and C
-    (B, S, n), dt (B, S, nh) f32."""
-    nh = params["w_dt"].shape[1]
-    d_inner = nh * head_dim
+def _mamba2_heads(params, n_heads: int | None, axis: ModelAxis):
+    """(the whole layer's heads, the rank's slice of them or None): ``n_heads``
+    or ``w_dt``'s columns (a whole leaf)."""
+    nh = params["w_dt"].shape[1] if n_heads is None else n_heads
+    return nh, axis.heads(nh, "nh (the Mamba2 heads)")
+
+
+def _mamba2_proj(params, x, head_dim: int, nh: int, heads,
+                 axis: ModelAxis):
+    """x (B, S, d_model) -> xh (B, S, h, hd), z (B, S, h hd), B and C (B, S,
+    n), dt (B, S, h) f32, for the rank's h of the ``nh`` heads (``heads``;
+    None: all). The rank's ``w_in`` is its heads' ``x`` columns, then
+    their ``z`` columns."""
+    h = nh if heads is None else heads.stop - heads.start
+    d_inner = h * head_dim
     xz = x @ params["w_in"]
     xi, z = xz[..., :d_inner], xz[..., d_inner:]
-    xh = xi.reshape(xi.shape[:-1] + (nh, head_dim))
-    bmat = x @ params["w_b"]
-    cmat = x @ params["w_c"]
-    dt = F.softplus((x @ params["w_dt"] + params["b_dt"]).float())
+    xh = xi.reshape(xi.shape[:-1] + (h, head_dim))
+    bmat = x @ axis.copy(params["w_b"])
+    cmat = x @ axis.copy(params["w_c"])
+    dt = F.softplus((x @ _head_cols(axis.copy(params["w_dt"]), heads)
+                     + _head_cols(axis.copy(params["b_dt"]), heads)).float())
     return xh, z, bmat, cmat, dt
 
 
-def _mamba2_gates(params, bmat, dt):
-    """The state-free factors of the cell: decay = exp(dt A) (..., nh) and
-    dt B (..., nh, n), f32, the first factor of the reference's
+def _mamba2_gates(params, bmat, dt, heads, axis: ModelAxis):
+    """The state-free factors of the cell: decay = exp(dt A) (..., h) and
+    dt B (..., h, n), f32, the first factor of the reference's
     ``dt * B * x``."""
-    a_neg = -torch.exp(params["a_log"].float())
+    a_log = _head_cols(axis.copy(params["a_log"]), heads)
+    a_neg = -torch.exp(a_log.float())
     return torch.exp(dt * a_neg), dt[..., None] * bmat[..., None, :].float()
 
 
@@ -277,32 +343,42 @@ def _mamba2_scan(h, decay, dtb, xh, cmat):
     return ys.transpose(1, 2), h
 
 
-def _mamba2_out(params, y, xh, z, x):
-    """y (B, S, nh, hd) f32 readouts + D x, gated by silu(z), projected."""
-    y = y + params["d_skip"].float()[:, None] * xh.float()
+def _mamba2_out(params, y, xh, z, x, heads, axis: ModelAxis):
+    """y (B, S, h, hd) f32 readouts + D x, gated by silu(z), projected (the
+    rank's partial sum over its heads' rows of ``w_out``)."""
+    d_skip = _head_cols(axis.copy(params["d_skip"]), heads)
+    y = y + d_skip.float()[:, None] * xh.float()
     y = y.reshape(x.shape[0], x.shape[1], -1).to(x.dtype)
     y = y * F.silu(z.float()).to(x.dtype)
     return y @ params["w_out"]
 
 
-def mamba2_seq(params: dict, x: torch.Tensor, *, head_dim: int = 64,
-               state: dict | None = None):
-    b, s, d = x.shape
+def _mamba2(params, x, state, head_dim: int, n_heads, axis: ModelAxis):
+    nh, heads = _mamba2_heads(params, n_heads, axis)
+    xh, z, bmat, cmat, dt = _mamba2_proj(params, x, head_dim, nh, heads,
+                                         axis)
+    decay, dtb = _mamba2_gates(params, bmat, dt, heads, axis)
     if state is None:
+        b, _, d = x.shape
         state = mamba2_state(b, d, params["w_b"].shape[1],
-                             params["w_in"].shape[1] // (2 * d), head_dim,
-                             device=x.device)
-    xh, z, bmat, cmat, dt = _mamba2_proj(params, x, head_dim)
-    decay, dtb = _mamba2_gates(params, bmat, dt)
+                             nh * head_dim // d, head_dim, device=x.device,
+                             local_heads=None if heads is None
+                             else heads.stop - heads.start)
     ys, h = _mamba2_scan(state["h"].float(), decay, dtb, xh.float(),
                          cmat.float())
-    return _mamba2_out(params, ys, xh, z, x), {"h": h}
+    return _mamba2_out(params, ys, xh, z, x, heads, axis), {"h": h}
+
+
+def mamba2_seq(params: dict, x: torch.Tensor, *, head_dim: int = 64,
+               state: dict | None = None, n_heads: int | None = None,
+               axis: ModelAxis = NO_AXIS):
+    """Mamba2 over the S positions of x (B, S, d_model) -> (the rank's
+    partial output, final state). ``n_heads``: the layer's heads nh
+    (default ``w_dt``'s columns); ``axis``: the rank's heads only."""
+    return _mamba2(params, x, state, head_dim, n_heads, axis)
 
 
 def mamba2_step(params: dict, x: torch.Tensor, state: dict, *,
-                head_dim: int = 64):
-    xh, z, bmat, cmat, dt = _mamba2_proj(params, x, head_dim)
-    decay, dtb = _mamba2_gates(params, bmat, dt)
-    ys, h = _mamba2_scan(state["h"].float(), decay, dtb, xh.float(),
-                         cmat.float())
-    return _mamba2_out(params, ys, xh, z, x), {"h": h}
+                head_dim: int = 64, n_heads: int | None = None,
+                axis: ModelAxis = NO_AXIS):
+    return _mamba2(params, x, state, head_dim, n_heads, axis)

@@ -66,8 +66,11 @@ all-reduces; its ``param_shards`` / ``cache_shards`` say what it holds.
 It serves and trains: in training the sums are collectives autograd
 sees, a block's replicated input passes through the axis's
 copy-to-model, a shared KV head sums its gradient over its ranks, and
-the loss is vocabulary-parallel (no logits cross the wire). The other
-group kinds run only at M = 1.
+the loss is vocabulary-parallel (no logits cross the wire). Every group
+kind splits: the mLSTM and Mamba2 layers run on the rank's heads (the
+mLSTM's ``u`` gathered whole, the whole gate leaves' gradients summed),
+the sLSTM whole on every rank, zamba's shared block and the VLM's self
+and cross layers on the rank's heads as attention does.
 """
 from __future__ import annotations
 
@@ -91,8 +94,8 @@ from repro_torch.models.config import (AttnGroup, CrossSelfGroup, MambaGroup,
 from repro_torch.models.layers import (dense_init, init_rms_norm, mlp_apply,
                                        mlp_init, rms_norm, rope, softcap)
 from repro_torch.models.moe import init_moe, moe_apply
-from repro_torch.models.parallel import (NO_AXIS, SHARDED_KINDS, ModelAxis,
-                                         leaf_sharding, take)
+from repro_torch.models.parallel import (MAMBA2_HEAD_DIM, NO_AXIS, ModelAxis,
+                                         leaf_sharding, mamba2_heads, take)
 
 __all__ = ["Transformer"]
 
@@ -409,12 +412,20 @@ def _stacked(n: int, tree: dict) -> dict:
     return tree_map(lambda x: x.expand((n,) + tuple(x.shape)).clone(), tree)
 
 
-def _residual_mixer(fn, lp, x, state, eps: float, **kw):
+def _residual_mixer(fn, lp, x, state, eps: float, axis=None, **kw):
     """x + ``fn(cell, norm(x), state=state)`` for a pre-norm recurrent
     layer ``lp`` = {"ln", "cell"}; the new state is copied into ``state``
     (a view of the cache) in place. Without a state (training) the layer
-    starts from the zero state and its final state is dropped."""
-    y, new = fn(lp["cell"], rms_norm(lp["ln"], x, eps), state=state, **kw)
+    starts from the zero state and its final state is dropped. ``axis``
+    (a head-split mixer's): the normed input enters through its
+    copy-to-model and ``fn`` runs on the rank's heads, whose partial
+    output is summed over "model"; None (the sLSTM): whole."""
+    h = rms_norm(lp["ln"], x, eps)
+    if axis is None:
+        y, new = fn(lp["cell"], h, state=state, **kw)
+    else:
+        y, new = fn(lp["cell"], axis.copy(h), state=state, axis=axis, **kw)
+        y = axis.reduce(y)
     if state is not None:
         for key, value in new.items():
             state[key].copy_(value)
@@ -544,11 +555,17 @@ class _MoEGroupImpl:
 class _XLSTMGroupImpl:
     """Units of ``mlstm_per_unit`` mLSTM layers and one sLSTM layer, each
     pre-norm and added to the residual; attention-free. The cache is the
-    states: mLSTM ``C``, ``n``, ``m`` (units, mlstm_per_unit, B, ...) and
-    sLSTM ``c``, ``n``, ``m``, ``h`` (units, B, d)."""
+    states: mLSTM ``C``, ``n``, ``m`` (units, mlstm_per_unit, B, heads,
+    ...) and sLSTM ``c``, ``n``, ``m``, ``h`` (units, B, d). Over a model
+    axis the mLSTM runs on the rank's heads (``cfg`` is the rank's: its
+    ``n_heads`` the rank's H / M), its cache its heads' states; the sLSTM
+    runs whole on every rank."""
 
-    def __init__(self, spec: XLSTMGroup, cfg: ModelConfig):
-        self.spec, self.cfg = spec, cfg
+    def __init__(self, spec: XLSTMGroup, cfg: ModelConfig,
+                 axis: ModelAxis = NO_AXIS):
+        self.spec, self.cfg, self.axis = spec, cfg, axis
+        self.n_heads = cfg.n_heads * axis.size  # the whole model's
+        self.head_dim = int(cfg.d_model * spec.proj_factor) // self.n_heads
 
     def _init_unit(self, gen, dtype, device) -> dict:
         cfg, spec = self.cfg, self.spec
@@ -586,8 +603,9 @@ class _XLSTMGroupImpl:
 
     def init_cache(self, batch: int, capacity: int, dtype, device) -> dict:
         cfg, spec = self.cfg, self.spec
-        m = ssm.mlstm_state(batch, cfg.d_model, cfg.n_heads, spec.proj_factor,
-                            device)
+        m = ssm.mlstm_state(batch, cfg.d_model, self.n_heads,
+                            spec.proj_factor, device,
+                            local_heads=cfg.n_heads)
         s = ssm.slstm_state(batch, cfg.d_model, device)
         return {"mlstm": _stacked(spec.n_units,
                                   _stacked(spec.mlstm_per_unit, m)),
@@ -602,7 +620,8 @@ class _XLSTMGroupImpl:
                                   spec.mlstm_per_unit)
             for lp, m_st in zip(_layers(up["mlstm"]), m_states):
                 x = wrap(lambda h, lp=lp, m_st=m_st: _residual_mixer(
-                    m_fn, lp, h, m_st, cfg.norm_eps, n_heads=cfg.n_heads), x)
+                    m_fn, lp, h, m_st, cfg.norm_eps, axis=self.axis,
+                    n_heads=self.n_heads, head_dim=self.head_dim), x)
             x = _residual_mixer(s_fn, up["slstm"], x,
                                 None if st is None else st["slstm"],
                                 cfg.norm_eps)
@@ -621,12 +640,15 @@ class _XLSTMGroupImpl:
 class _MambaGroupImpl:
     """n pre-norm Mamba2 layers; attention-free. Mamba2's head dim is its
     own (64, as in the reference), not ``cfg.head_dim``. The cache is each
-    layer's state ``h`` (n, B, heads, d_state, 64)."""
+    layer's state ``h`` (n, B, heads, d_state, 64). Over a model axis each
+    layer runs on the rank's nh / M heads, its cache their states."""
 
-    HEAD_DIM = 64
+    HEAD_DIM = MAMBA2_HEAD_DIM
 
-    def __init__(self, spec: MambaGroup, cfg: ModelConfig):
-        self.spec, self.cfg = spec, cfg
+    def __init__(self, spec: MambaGroup, cfg: ModelConfig,
+                 axis: ModelAxis = NO_AXIS):
+        self.spec, self.cfg, self.axis = spec, cfg, axis
+        self.n_heads = mamba2_heads(cfg, spec)  # nh, the whole layer's
 
     def init(self, gen: torch.Generator, dtype, device) -> dict:
         cfg, spec = self.cfg, self.spec
@@ -648,14 +670,16 @@ class _MambaGroupImpl:
     def init_cache(self, batch: int, capacity: int, dtype, device) -> dict:
         return _stacked(self.spec.n_layers, ssm.mamba2_state(
             batch, self.cfg.d_model, self.spec.d_state, self.spec.expand,
-            self.HEAD_DIM, device))
+            self.HEAD_DIM, device,
+            local_heads=self.n_heads // self.axis.size))
 
     def _run(self, params, x, cache, fn, wrap):
         """The layers, each through ``wrap``."""
         for lp, st in zip(_layers(params),
                           _per_layer(cache, self.spec.n_layers)):
             x = wrap(lambda h, lp=lp, st=st: _residual_mixer(
-                fn, lp, h, st, self.cfg.norm_eps, head_dim=self.HEAD_DIM), x)
+                fn, lp, h, st, self.cfg.norm_eps, axis=self.axis,
+                head_dim=self.HEAD_DIM, n_heads=self.n_heads), x)
         return x
 
     def train(self, params, x, positions, cache=None, use_flash=False,
@@ -670,20 +694,24 @@ class _ZambaGroupImpl:
     """Units of ``mamba_per_unit`` Mamba2 layers and one application of a
     shared attention block (one set of weights for every unit: Zamba2's
     parameter sharing), then the trailing Mamba2 layers. Each application
-    keeps a KV cache of its own (``attn``: (units, B, T, K, D))."""
+    keeps a KV cache of its own (``attn``: (units, B, T, K, D)). Over a
+    model axis the Mamba2 layers and the shared block run on the rank's
+    heads."""
 
-    def __init__(self, spec: ZambaGroup, cfg: ModelConfig):
-        self.spec, self.cfg = spec, cfg
+    def __init__(self, spec: ZambaGroup, cfg: ModelConfig,
+                 axis: ModelAxis = NO_AXIS):
+        self.spec, self.cfg, self.axis = spec, cfg, axis
         self._mamba_unit = _MambaGroupImpl(
             MambaGroup(n_layers=spec.mamba_per_unit, d_state=spec.d_state,
-                       expand=spec.expand), cfg)
+                       expand=spec.expand), cfg, axis)
         self._trailing = (_MambaGroupImpl(
             MambaGroup(n_layers=spec.trailing_mamba, d_state=spec.d_state,
-                       expand=spec.expand), cfg)
+                       expand=spec.expand), cfg, axis)
             if spec.trailing_mamba else None)
         # the shared block's applications: one global layer a unit, each
         # with its own cache
-        self._shared = _AttnGroupImpl(AttnGroup(n_layers=spec.n_units), cfg)
+        self._shared = _AttnGroupImpl(AttnGroup(n_layers=spec.n_units), cfg,
+                                      axis)
 
     def init(self, gen: torch.Generator, dtype, device) -> dict:
         params = {
@@ -736,7 +764,8 @@ class _ZambaGroupImpl:
             def unit(h, up=up, m_cache=m_cache, u=u):
                 h, _ = self._mamba_unit.train(up, h, positions, cache=m_cache)
                 return _mlp_residual(shared, self._shared.attend(
-                    shared, h, positions, u, kv, use_flash), self.cfg)
+                    shared, h, positions, u, kv, use_flash), self.cfg,
+                    self.axis)
 
             x = _remat(unit, x)
         if self._trailing is not None:
@@ -751,7 +780,7 @@ class _ZambaGroupImpl:
                                               _layers(cache["mamba"]))):
             x = self._mamba_unit.decode(up, x, pos, m_cache)
             x = _mlp_residual(shared, self._shared.attend_step(
-                shared, x, pos, u, cache["attn"]), self.cfg)
+                shared, x, pos, u, cache["attn"]), self.cfg, self.axis)
         if self._trailing is not None:
             x = self._trailing.decode(params["trailing"], x, pos,
                                       cache["trailing"])
@@ -763,12 +792,14 @@ class _CrossSelfGroupImpl:
     ``enc`` (B, M, d_model) and ``self_per_unit`` self-attention blocks
     (Llama-3.2-Vision). The cache is the self blocks' K/V, (units,
     self_per_unit, B, T, K, D); the cross layers recompute theirs from
-    ``enc`` at every step, as the reference does."""
+    ``enc`` at every step, as the reference does. Over a model axis the
+    cross and self layers run on the rank's heads."""
 
-    def __init__(self, spec: CrossSelfGroup, cfg: ModelConfig):
-        self.spec, self.cfg = spec, cfg
+    def __init__(self, spec: CrossSelfGroup, cfg: ModelConfig,
+                 axis: ModelAxis = NO_AXIS):
+        self.spec, self.cfg, self.axis = spec, cfg, axis
         self._self_unit = _AttnGroupImpl(AttnGroup(n_layers=spec.self_per_unit),
-                                         cfg)
+                                         cfg, axis)
 
     def init(self, gen: torch.Generator, dtype, device) -> dict:
         cfg = self.cfg
@@ -809,7 +840,7 @@ class _CrossSelfGroupImpl:
                                    rms_norm(up["cross_ln"], x, cfg.norm_eps),
                                    enc, n_heads=cfg.n_heads,
                                    n_kv_heads=cfg.n_kv_heads,
-                                   head_dim=cfg.head_dim)
+                                   head_dim=cfg.head_dim, axis=self.axis)
 
     def train(self, params, x, positions, cache=None, use_flash=False,
               enc=None):
@@ -857,7 +888,8 @@ class Transformer:
     its groups run on the rank's heads, FFN blocks and experts, its
     embedding and head on the rank's vocabulary block, each partial summed
     over the ranks where the reference's GSPMD program would, in serving
-    and in training (a training axis has a data dim of 1)."""
+    and in training (a training axis has a data dim of 1). Every group
+    kind splits."""
 
     LOSS_CHUNK = 512  # sequence positions a chunk of the cross entropy
 
@@ -866,10 +898,8 @@ class Transformer:
         self.axis = NO_AXIS if axis is None else axis
         self.axis.check(cfg)
         local = self.axis.local_config(cfg)
-        self.groups = [
-            _GROUP_IMPLS[g.kind](g, local, self.axis)
-            if g.kind in SHARDED_KINDS else _GROUP_IMPLS[g.kind](g, local)
-            for g in cfg.groups]
+        self.groups = [_GROUP_IMPLS[g.kind](g, local, self.axis)
+                       for g in cfg.groups]
 
     @property
     def dtype(self) -> torch.dtype:
@@ -939,10 +969,12 @@ class Transformer:
     def cache_shards(self, batch: int, capacity: int, *,
                      shard_seq: bool = False) -> dict:
         """:meth:`param_shards` of a (batch, capacity) cache of the whole
-        model: the rank's rows of the batch over "data", and of a KV leaf
-        its KV heads (the reference's spec replicates KV unless 16 divides
-        K). ``shard_seq`` (the reference's sequence-sharded long-context
-        decode) is refused where the data dim is above 1."""
+        model: the rank's rows of the batch over "data", of a KV leaf its
+        KV heads (the reference's spec replicates KV unless 16 divides K),
+        of an mLSTM state its heads (the reference's spec replicates it),
+        of a Mamba2 state its heads (the reference's spec). ``shard_seq``
+        (the reference's sequence-sharded long-context decode) is refused
+        where the data dim is above 1."""
         if shard_seq and self.axis.data_size > 1:
             raise NotImplementedError(
                 "shard_seq over a data dim above 1 (long_500k's "
@@ -950,10 +982,15 @@ class Transformer:
                 "remainder")
         specs = _spec_paths(self.cache_pspecs(
             batch_axis=None if shard_seq else "data"))
+        def dims(p: str, shape: tuple) -> dict:
+            if p.rsplit("/", 1)[-1] in ("k", "v"):
+                return {"kv_dim": len(shape) - 2}
+            # (units, mlstm_per_unit, B, heads, ...)
+            return {"heads_dim": 3} if "/mlstm/" in p else {}
+
         return {
             p: leaf_sharding(self.axis, p, specs[p], shape, self.cfg,
-                             kv_dim=len(shape) - 2
-                             if p.rsplit("/", 1)[-1] in ("k", "v") else None)
+                             **dims(p, shape))
             for p, shape in self._whole_shapes(lambda m: m.init_cache(
                 batch, capacity, device="meta"))}
 
@@ -1014,7 +1051,8 @@ class Transformer:
             return params
 
         def wrap(path: str, x):
-            if not path.endswith(("attn/wk", "attn/wv")):
+            if not path.endswith(("attn/wk", "attn/wv", "cross/wk",
+                                  "cross/wv")):
                 return x
             if isinstance(x, LayerParts):
                 return LayerParts([share(p) for p in x.parts], x.layer_axis)

@@ -616,9 +616,6 @@ def test_dry_run_charges_a_rank_less_than_the_whole(monkeypatch):
 
 @pytest.mark.parametrize("arch, shards, reason", [
     ("gemma3-1b", 8, "n_heads"),
-    ("xlstm-125m", 2, "11b"),
-    ("zamba2-7b", 2, "11b"),
-    ("llama-3.2-vision-11b", 2, "11b"),
 ])
 def test_dry_run_skips_where_m_does_not_split(arch, shards, reason):
     from repro_torch.launch import dryrun
@@ -627,6 +624,30 @@ def test_dry_run_skips_where_m_does_not_split(arch, shards, reason):
                          verbose=False)
     assert row["status"] == "skipped" and reason in row["reason"]
     assert row["mesh"] == f"model{shards}"
+
+
+@pytest.mark.parametrize("arch", ["xlstm-125m", "zamba2-7b",
+                                  "llama-3.2-vision-11b"])
+def test_dry_run_splits_the_recurrent_and_cross_groups(monkeypatch, arch):
+    """``--model-shards 2`` on a serve row of the xLSTM, zamba2 and VLM
+    archs (the smoke model at D = 64 in place of the published one) is an
+    ``ok`` row: one rank's FLOPs and peak below the whole model's, its
+    all-reduces in the row."""
+    from repro_torch.launch import dryrun
+
+    def smoke64(name):
+        spec = smoke_arch(name)
+        return dataclasses.replace(spec, model=dataclasses.replace(
+            spec.model, head_dim=64))
+
+    monkeypatch.setattr(dryrun, "get_config", smoke64)
+    whole = dryrun.run_one(arch, "prefill_32k", verbose=False)
+    row = dryrun.run_one(arch, "prefill_32k", model_shards=2, verbose=False)
+    assert whole["status"] == row["status"] == "ok"
+    assert row["mesh"] == "model2" and row["model_shards"] == 2
+    assert row["coll_calls"]["all-reduce"] > 2
+    assert row["flops_per_chip"] < whole["flops_per_chip"]
+    assert row["peak_bytes"] < whole["peak_bytes"]
 
 
 # -- refusals ---------------------------------------------------------------------
@@ -652,16 +673,20 @@ def test_m_not_dividing_a_dim_is_refused(cfg, m, dim):
 
 @pytest.mark.parametrize("arch", ["xlstm-125m", "zamba2-7b",
                                   "llama-3.2-vision-11b"])
-def test_unsplit_groups_are_refused(arch):
+def test_recurrent_and_cross_groups_split_at_m_2(arch):
+    """The xLSTM, zamba2 and VLM groups build over two ranks, the model
+    and its serve plan, each rank holding a block of its split leaves."""
     from repro_torch.launch.steps import build_serve_plan
     from repro_torch.models.parallel import ModelAxis
     from repro_torch.models.transformer import Transformer
 
-    with pytest.raises(NotImplementedError, match="11b"):
-        Transformer(smoke_arch(arch).model, axis=ModelAxis(size=2))
-    with pytest.raises(NotImplementedError, match="11b"):
-        build_serve_plan(smoke_arch(arch), 2, shape_name="prompt",
-                         shape=shapes()[0])
+    for rank in range(2):
+        model = Transformer(smoke_arch(arch).model,
+                            axis=ModelAxis(size=2, rank=rank))
+        assert any(v is not None for v in model.param_shards().values())
+    plan = build_serve_plan(smoke_arch(arch), 2, shape_name="prompt",
+                            shape=shapes()[0])
+    assert plan.model.axis.size == 2
     Transformer(smoke_arch(arch).model, axis=ModelAxis(size=1))  # M = 1 runs
 
 
@@ -680,17 +705,19 @@ def test_sequence_sharded_decode_over_data_is_refused():
         "group_0": {"k": None, "v": None}}
 
 
-def test_training_an_unsplit_group_is_refused():
-    """xlstm-125m's smoke config (an xLSTM group, which the axis does not
-    split) is refused in training at M = 2, by the train plan as by the
-    model; at M = 1 its plan builds."""
+def test_training_refuses_an_m_not_dividing_the_mlstm_heads():
+    """xlstm-125m's smoke config (H = 4 mLSTM heads) trains over M = 2
+    ranks; M = 8 is refused by the train plan with a ``ValueError`` naming
+    the heads; at M = 1 its plan builds with no axis."""
     from repro_torch.configs import ShapeSpec
     from repro_torch.launch.steps import build_train_plan
 
     arch = smoke_arch("xlstm-125m")
     shape = ShapeSpec("t", 8, 4, "train")
-    with pytest.raises(NotImplementedError, match="11b"):
-        build_train_plan(arch, 2, shape=shape, model_shards=2)
+    assert build_train_plan(arch, 2, shape=shape,
+                            model_shards=2).model.axis.size == 2
+    with pytest.raises(ValueError, match="n_heads"):
+        build_train_plan(arch, 2, shape=shape, model_shards=8)
     assert build_train_plan(arch, 2, shape=shape).model.axis.off
 
 
