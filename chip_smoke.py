@@ -57,7 +57,9 @@ Phases, each printing one JSON line:
                   H = 32, K = 8, D = 64), (b) gemma3-1b's (H = 4, K = 1,
                   D = 256) with window 512 and global, (c) a ragged B = 2,
                   S = 1,000, H = 24, K = 8, D = 128, (d) zamba2-7b's shared
-                  attention block (B = 1, S = 4,096, H = K = 32, D = 112);
+                  attention block (B = 1, S = 4,096, H = K = 32, D = 112),
+                  and the rank shards of phases 31, 33 and 34 (34's at an
+                  offset into a GQA group: ``FLASH_OFFSETS``);
                   the plain version over
                   windows of query rows (rows [r0, r1) against keys [0, r1)),
                   every row checked; SDPA timed as the yardstick at all
@@ -99,12 +101,11 @@ Phases, each printing one JSON line:
 16. ``training_agreement``  the same model with 2 layers, 4 nodes, 3 steps,
                   noise through ``bits_at``: the card against the CPU.
 17. ``serve`` of the other group kinds at full width on a 4,096-token
-                  prompt, 32 tokens generated: zamba2-7b at 4 of its 11
-                  units (28 of its 70 Mamba2 layers, 4 applications of the
-                  shared block), llama-3.2-vision-11b (all 40 layers, 1,600
-                  image tokens, gates at 0.5), xlstm-125m at 1 of its 3
-                  units and llama4-scout-17b-a16e at 4 of its 48 layers
-                  (the recurrent kinds cut for the script's time); as phase 10,
+                  prompt, 32 tokens generated: llama-3.2-vision-11b (all
+                  40 layers, 1,600 image tokens, gates at 0.5), xlstm-125m
+                  at 1 of its 3 units and llama4-scout-17b-a16e at 4 of
+                  its 48 layers (zamba2-7b serves in phases 18, 33 and 34,
+                  for the script's time); as phase 10,
                   with each recurrent scan bracketed by CUDA events too (its
                   share of the prefill).
 18. ``group_serve_agreement``  those kinds' five smoke configs (maverick's
@@ -177,7 +178,8 @@ Phases, each printing one JSON line:
                   loop, the pytree engine and the packed engine as in
                   24d; (c) 2 async rounds, ``Session.save``, restore, 1
                   round: bit for bit 3 rounds.
-26. ``wire``      the wire codecs: (a) ``run(20)`` at the dense full width
+26. ``wire``      the wire codecs: (a) ``run(10)`` (cut from 20 for the
+                  script's time limit) at the dense full width
                   (N = 5, d_s = 505,956,352) under ``int8`` and ``bf16``:
                   ms a round beside phase 3's raw f32 round, the time of
                   one round's stochastic-rounding draw and encode, peak
@@ -197,8 +199,9 @@ Phases, each printing one JSON line:
                   residual's L1 bounded; (e) int8 under delays and drops
                   on ER(128); (f) a top-k state saved (``.dpps/.resid``),
                   restored and resumed bit for bit.
-27. ``audit``     the attack battery at ``AuditConfig()`` (N = 4, dim 16,
-                  1,500 trials, each trial a ``run_dpps`` call on the
+27. ``audit``     the attack battery at ``AuditConfig()``'s setting (N =
+                  4, dim 16) with 800 trials (cut from 1,500 for the
+                  script's time limit), each trial a ``run_dpps`` call on the
                   card): the default Laplace (``dpps_perturb.cu``), the
                   Gaussian, graph-homomorphic and half-scale Laplace
                   mechanisms (their draws through ``laplace_noise.cu``)
@@ -262,12 +265,11 @@ Phases, each printing one JSON line:
                   aten FLOPs equal the prediction's exactly, its launches
                   the meta launches, its peak within 1 % of the predicted;
                   two more steps timed without the counter (TFLOP/s and
-                  the share of the f32 peak); (c) of (a)'s rows that fit,
-                  the prefill and the decode row with the largest predicted
-                  peak: one ``ServePlan.step_fn`` each on the card, peak
-                  within 1 % of the row's, launches the row's (the
-                  xlstm-125m prefill at one mLSTM and one sLSTM layer of
-                  its 12, against that cut's prediction: ``SERVE_CUTS``).
+                  the share of the f32 peak); (c) of (a)'s decode rows
+                  that fit, the one with the largest predicted peak: one
+                  ``ServePlan.step_fn`` on the card, peak within 1 % of
+                  the row's, launches the row's (the one fitting prefill
+                  row, xlstm-125m's, left for phase 34's time).
 30. ``shard``     the sharded engine (``repro_torch.engine.shard``): (a) a
                   one-rank NCCL world (``file://`` store in a temporary
                   directory, no network) and its (1, 1) ("data",
@@ -325,7 +327,7 @@ Phases, each printing one JSON line:
                   version's, timed beside a contiguous launch; (b) a
                   2-rank gloo world on the card (``chip_smoke.py
                   --train-rank JSON`` subprocesses), M = 2: llama3.2-1b at
-                  full width, N = 4, 1 x 512 tokens a node, 2 steps,
+                  full width, N = 4, 1 x 256 tokens a node, 2 steps,
                   against the unsharded plan run first in this process on
                   the same weights and Philox bits (losses within 1e-5
                   relative, the parameter leaves within atol 1e-4 at a
@@ -355,7 +357,7 @@ Phases, each printing one JSON line:
                   head shard (zamba2's shared block, D = 112; the VLM's
                   self layers, D = 128) against the plain version; (c) on
                   the same ranks, PartPSP of the three cut as phase 19
-                  cuts them, N = 2, 1 x 256 tokens a node, 2 steps,
+                  cuts them, N = 2, 1 x 128 tokens a node, 2 steps,
                   gamma_n 1/100 of 32b's (``GROUPS_NOISE``), against the
                   unsharded plan run in this process (while the ranks
                   serve) on the same weights and Philox bits at 32b's
@@ -367,13 +369,41 @@ Phases, each printing one JSON line:
                   FLOPs and peak below phase 29's unsharded rows. Its
                   times are two ranks sharing one card: no speed figures
                   of tensor parallelism.
+34. ``model_axis_rest`` the rest of the model axis: head counts that M
+                  does not divide (a rank's whole heads, ranks without
+                  any) and the long_500k decode with each KV cache's
+                  slots over "data" (the reference's ``shard_seq``): (a)
+                  on a one-rank NCCL world's (1, 1) mesh, gemma3-1b at
+                  full width (512-token prompt, 2 greedy steps) and the
+                  long_500k decode of gemma3-1b, bit for bit the unsharded
+                  plan's; (b) gemma3-1b (H = 4) over 8 gloo ranks on the
+                  card (``chip_smoke.py --rest-rank JSON``), mesh (1, 8),
+                  ranks 0, 2, 4, 6 without heads: logits within 1e-4 of
+                  the unsharded plan's, greedy tokens equal, the ranks
+                  bit-equal, the calls counted, each rank's flash
+                  launches (26 or none) and one launch at its head share
+                  against the plain version; (c) 4 greedy long_500k
+                  steps at positions 524,284-524,287 of gemma3-1b whole
+                  (27.9 GB of cache) and zamba2-7b at one unit, from a
+                  seeded cache drawn by blocks of slots (a rank draws its
+                  own), over 2 gloo ranks at (2, 1), teacher-forced by
+                  the unsharded run's tokens: logits within 1e-4, tokens
+                  equal where the margin is above 2e-4, the data ranks
+                  bit-equal, each step's c10d calls (the data ranks'
+                  MAX and SUM merge an attention layer), each rank's
+                  peak below the unsharded one; (d) the dry run's rows
+                  of llama4-scout prefill_32k and gemma3-1b's and
+                  zamba2-7b's long_500k on ``--mesh pod16x16`` (started
+                  with 29a's): ``ok``, the busiest model rank named. Its
+                  times are ranks sharing one card: no speed figures.
 
 Each kernel counts its launches. The counts are set to 0 just before each
 path (phases 3-7, 10, 13, 15, 17, each run of 19 and 22, each serve of 20,
 23, each run of 24, 25 and 26, each battery of 27, a codec each in
 its wire battery, each run of 28, each card step of 29, each sharded
 run of 30a, each timed run of 31 and 33a-b, a rank's among them, 32a's
-and each 32b rank's steps, and each 33c rank's steps) and read just
+and each 32b rank's steps, each 33c rank's steps, and each run of 34a-c,
+a rank's among them) and read just
 after; each path names the kernels it must launch
 (and the sparse paths must launch ``pushsum_mix`` no time; the training
 paths exactly their counts). Then come the card's
@@ -423,15 +453,16 @@ SERVE_PROMPT, SERVE_GEN = 32_768, 32
 # (4,096): arch -> the cut of its one group (None: whole). llama4-scout
 # keeps 4 of its 48 layers: 8.81 GB a layer in f32 (16 experts of 3 x 5120
 # x 8192), 43.5 GB with the embedding and head; all 48 would be 431 GB.
-# zamba2-7b keeps 4 of its 11 units (and its 4 trailing Mamba2 layers: 28
-# of 70), xlstm-125m 1 of its 3 units: their prefill is a host-bound loop
-# over the 4,096 positions a recurrent layer (whole, 20-29 s and 11-20 s
-# on an H100 80GB HBM3 at 700 W), cut so that the whole script keeps its
-# time limit with phase 32. llama4-maverick (65.9 GB a unit of one dense
-# and one 128-expert layer) runs at its smoke config only, in phase 18.
+# xlstm-125m keeps 1 of its 3 units: its prefill is a host-bound loop over
+# the 4,096 positions a recurrent layer (whole, 11-20 s on an H100 80GB
+# HBM3 at 700 W). zamba2-7b's serve left this phase for the script's time
+# limit with phase 34 (4 of its 11 units took 12.6 s): it serves at full
+# width in phase 18 (one unit, card against CPU), 33 (one unit, over the
+# model axis) and 34 (one unit, long_500k decode over "data").
+# llama4-maverick (65.9 GB a unit of one dense and one 128-expert layer)
+# runs at its smoke config only, in phase 18.
 GROUP_SERVE_PROMPT = 4096
-GROUP_SERVE = {"zamba2-7b": dict(n_units=4), "llama-3.2-vision-11b": None,
-               "xlstm-125m": dict(n_units=1),
+GROUP_SERVE = {"llama-3.2-vision-11b": None, "xlstm-125m": dict(n_units=1),
                "llama4-scout-17b-a16e": dict(n_layers=4)}
 GROUP_SERVE_SMOKE = ("llama4-scout-17b-a16e", "llama4-maverick-400b-a17b",
                      "xlstm-125m", "zamba2-7b", "llama-3.2-vision-11b")
@@ -456,13 +487,24 @@ FLASH_SHAPES = {  # (B, S, H, K, D, window)
     # at 1,024 tokens
     "zamba2_1k_rank_of_2": (1, 1024, 16, 16, 112, None),
     "vision_1k_rank_of_2": (1, 1024, 16, 4, 128, None),
+    # a rank's run of heads at an offset into its first GQA group
+    # (FLASH_OFFSETS): llama4-scout's heads [3, 6) reading KV heads 0 and
+    # 1 (a group of 5 straddled) at 4,096 tokens; phase 34b's rank of 8
+    # holding one of gemma3-1b's 4 heads (its one KV head) at 512
+    "scout_4k_heads_3_to_6": (1, GROUP_SERVE_PROMPT, 3, 2, 128, None),
+    "gemma3_512_rank_of_8": (1, 512, 1, 1, 256, None),
 }
+# the shapes above whose query heads start inside a GQA group: (group,
+# head0), query head i reading KV head (head0 + i) // group
+FLASH_OFFSETS = {"scout_4k_heads_3_to_6": (5, 3),
+                 "gemma3_512_rank_of_8": (4, 1)}
 # SDPA as the yardstick: is_causal where global, a banded boolean attn_mask
 # (S x S, 1 GiB at 32k) where windowed
 FLASH_SDPA = ("llama_32k", "gemma3_32k_window512", "gemma3_32k_global",
               "ragged_minitron", "zamba2_4k", "scout_4k", "vision_4k",
               "llama_4k_rank_of_2", "scout_1k_rank_of_2",
-              "zamba2_1k_rank_of_2", "vision_1k_rank_of_2")
+              "zamba2_1k_rank_of_2", "vision_1k_rank_of_2",
+              "scout_4k_heads_3_to_6", "gemma3_512_rank_of_8")
 
 # pushsum_mix past its template (N > 32): (N, D); N = 4096 at d = 8 is
 # bench_sparse.py's dense point, at 128 the same as the kernel path pads it;
@@ -1362,21 +1404,26 @@ def check_flash(torch, F, ops, ref, name: str, dev, iters: int) -> dict:
     [0, r1), positions offset by ``q_start = r0``; every row is checked.
     Tolerance atol 1e-5 / rtol 1e-4 on outputs of magnitude about 1: the
     online softmax sums in another order than the plain one and expf may
-    differ from the plain exp by an ulp."""
+    differ from the plain exp by an ulp. A shape of FLASH_OFFSETS is a
+    rank's run of heads at that offset (query head i reads KV head (head0
+    + i) // group)."""
     b, s, h, kh, d, window = FLASH_SHAPES[name]
+    group, head0 = FLASH_OFFSETS.get(name, (h // kh, 0))
     gen = torch.Generator(device=dev).manual_seed(SEED + s + d)
     q = torch.randn((b, s, h, d), generator=gen, device=dev)
     k = torch.randn((b, s, kh, d), generator=gen, device=dev)
     v = torch.randn((b, s, kh, d), generator=gen, device=dev)
-    got = ops.flash_attention_bshd(q, k, v, window=window)
+    launch = lambda: ops.flash_attention_bshd(q, k, v, window=window,
+                                              group=group, head0=head0)
+    got = launch()
     qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))  # (B, heads, S, D)
     rows = max(16, min(s, (1 << 29) // (b * h * s)))
     errs = dict(abs=0.0, rel=0.0)
 
     def plain(r0, r1):
         return ref.flash_attention(qt[:, :, r0:r1], kt[:, :, :r1],
-                                   vt[:, :, :r1], group=h // kh,
-                                   window=window, q_start=r0)
+                                   vt[:, :, :r1], group=group,
+                                   window=window, q_start=r0, head0=head0)
 
     def check(r0, r1, want):
         g = got[:, r0:r1].transpose(1, 2)
@@ -1392,15 +1439,15 @@ def check_flash(torch, F, ops, ref, name: str, dev, iters: int) -> dict:
 
     plain(0, min(s, rows))  # warm-up
     plain_ms = timed_windows(torch, plain, check, s, rows)
-    ms = cuda_ms(torch, lambda: ops.flash_attention_bshd(q, k, v, window=window),
-                 iters, warmup=1)
+    ms = cuda_ms(torch, launch, iters, warmup=1)
     library_ms = sdpa_err = None
     if name in FLASH_SDPA:
         # the yardstick: one PyTorch call, KV heads repeated to the query
-        # heads (the memory-efficient backend takes f32, is_causal and a
-        # mask); a window as a banded boolean (S, S) mask
-        kr = kt.repeat_interleave(h // kh, dim=1)
-        vr = vt.repeat_interleave(h // kh, dim=1)
+        # heads that read them (the memory-efficient backend takes f32,
+        # is_causal and a mask); a window as a banded boolean (S, S) mask
+        reads = (head0 + torch.arange(h, device=dev)) // group
+        kr = kt.index_select(1, reads)
+        vr = vt.index_select(1, reads)
         band = None
         if window is not None:
             pos = torch.arange(s, device=dev)
@@ -1414,7 +1461,8 @@ def check_flash(torch, F, ops, ref, name: str, dev, iters: int) -> dict:
     pairs = ops.visible_pairs(s, -1 if window is None else window) * b * h
     nbytes = 4.0 * (2 * b * s * h * d + 2 * b * s * kh * d)
     # 4 D flops a visible pair and head, each as three TF32 products
-    out = dict(shape=dict(b=b, s=s, h=h, kh=kh, d=d, window=window),
+    out = dict(shape=dict(b=b, s=s, h=h, kh=kh, d=d, window=window,
+                          group=group, head0=head0),
                geometry=ops.flash_geometry(b, s, h, d),
                rows_per_plain_window=rows, max_abs_err=errs["abs"],
                max_rel_err=errs["rel"], ms=ms, plain_ms=plain_ms,
@@ -3697,6 +3745,10 @@ def async_phase(torch, api, mlp, data, ops, T, dev,
 # -- phase 26: the wire codecs ------------------------------------------------
 
 WIRE_FULL_SPECS = ("int8", "bf16")
+# 26a's rounds at the dense full width: half of CONSENSUS_ROUNDS, for the
+# script's time limit with phase 34 (int8's eager Philox draw takes ~1 s a
+# round)
+WIRE_ROUNDS = 10
 TOPK_SPEC = "topk:1/16"
 WIRE_AGREE_STEPS = 10
 # temporaries a full-width round adds to phase 3's five (N, d_pad) buffers,
@@ -3709,7 +3761,7 @@ WIRE_WINDOW_BUFFERS = {"int8": 12, "bf16": 0.5}
 
 
 def wire_consensus(torch, api, T, ops, dev, spec: str, f32_ms: float) -> dict:
-    """``run(CONSENSUS_ROUNDS)`` of DPPS consensus at the dense full width
+    """``run(WIRE_ROUNDS)`` of DPPS consensus at the dense full width
     (N = 5, d_s = 505,956,352, 2-out) under the codec ``spec``, in one timed
     call: ms a round beside phase 3's raw f32 round, peak memory beside
     its reckoning, the launches (a bf16 round launches no mix), mean(a);
@@ -3737,15 +3789,15 @@ def wire_consensus(torch, api, T, ops, dev, spec: str, f32_ms: float) -> dict:
     torch.cuda.reset_peak_memory_stats()
     ops.reset_launch_counts()
     t0 = time.perf_counter()
-    rep = session.run(CONSENSUS_ROUNDS, values=values)
+    rep = session.run(WIRE_ROUNDS, values=values)
     torch.cuda.synchronize()
     run_ms = (time.perf_counter() - t0) * 1e3
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     launches = ops.launch_counts()
     expected = {k: 0 for k in KERNELS}
-    expected.update(l1_norm_rows=CONSENSUS_ROUNDS + 1,
-                    dpps_perturb_rows=CONSENSUS_ROUNDS,
-                    pushsum_mix=0 if spec == "bf16" else CONSENSUS_ROUNDS)
+    expected.update(l1_norm_rows=WIRE_ROUNDS + 1,
+                    dpps_perturb_rows=WIRE_ROUNDS,
+                    pushsum_mix=0 if spec == "bf16" else WIRE_ROUNDS)
     require(launches == expected, f"{spec} launches {launches}, expected "
                                   f"{expected}")
     state = rep.state
@@ -3761,9 +3813,9 @@ def wire_consensus(torch, api, T, ops, dev, spec: str, f32_ms: float) -> dict:
     require(peak_gb <= base_gb + reckoned_gb - buffer_gb + 0.5,
             f"{spec}: peak {peak_gb} GB over the reckoned {reckoned_gb}")
     line = dict(spec=spec, n=n, d_s=d_s, buffer_gb=buffer_gb,
-                topology="DOutGraph(5, 2)", rounds=CONSENSUS_ROUNDS,
+                topology="DOutGraph(5, 2)", rounds=WIRE_ROUNDS,
                 gamma_n=gamma_n, run_ms=run_ms,
-                ms_per_round=run_ms / CONSENSUS_ROUNDS,
+                ms_per_round=run_ms / WIRE_ROUNDS,
                 f32_ms_per_round_phase3=f32_ms,
                 consensus_error_initial=err0, consensus_error_final=err,
                 a_mean=a_mean, allocated_before_gb=base_gb,
@@ -4117,6 +4169,10 @@ AUDIT_MECHANISMS = ("laplace", "gaussian", "graph_homomorphic",
                     "broken_laplace")
 AUDIT_WIRE = ("int8", TOPK_SPEC, "broken-compress-first")
 AUDIT_WIRE_TRIALS = 800
+# the main battery's trials: ``AuditConfig()``'s default 1,500 cut to the
+# wire battery's 800 for the script's time limit with phase 34 (the fig5
+# claims hold at 400 in tests/test_torch_audit.py)
+AUDIT_TRIALS = 800
 MEMBERSHIP = dict(steps=60, examples=200)
 
 
@@ -4162,8 +4218,9 @@ def membership(torch, api, mlp, data, dev) -> dict:
 
 
 def audit_phase(torch, api, mlp, data, ops, dev) -> tuple[dict, list]:
-    """Phase 27: the attack battery on the card at ``AuditConfig()`` (N =
-    4, dim 16, 1,500 trials): four mechanisms under the three threats (the
+    """Phase 27: the attack battery on the card at ``AuditConfig()``'s
+    setting (N = 4, dim 16) with AUDIT_TRIALS trials: four mechanisms
+    under the three threats (the
     default Laplace through dpps_perturb.cu, the mechanisms' draws through
     laplace_noise.cu), the fig5 claims held; the wire battery at 800
     trials, its claims held; ``LaplaceMechanism()`` bit for bit the default
@@ -4176,7 +4233,7 @@ def audit_phase(torch, api, mlp, data, ops, dev) -> tuple[dict, list]:
     from repro_torch.wire import parse_wire_spec
 
     counts = []
-    audit = AuditConfig()
+    audit = AuditConfig(trials=AUDIT_TRIALS)
     same = AuditConfig(trials=50)
     # a comparison, not the path: its launches are read here and left out
     # of the kernels line
@@ -4667,14 +4724,10 @@ TRAIN_LM_SHAPE = dict(name="train_lm", seq_len=TRAIN_LM["seq_len"],
                       global_batch=TRAIN_LM["n"] * TRAIN_LM["per_node_batch"],
                       kind="train")
 LAUNCH_TIMED_STEPS = 2
-# 29c: a fitting row whose whole depth takes minutes on the card runs at
-# a cut of its first group, predicted at that cut (the row's whole-depth
-# prediction printed beside): xlstm-125m's prefill_32k (B = 32, S =
-# 32,768) took 164-258 s at its 12 layers and 98 s at 4 on an H100 80GB
-# HBM3 at 700 W (its time loops are 32,768 steps a layer); one mLSTM and
-# one sLSTM layer keep both of its kinds
-SERVE_CUTS = {("xlstm-125m", "prefill_32k"): dict(n_units=1,
-                                                  mlstm_per_unit=1)}
+# 29c runs the fitting decode row only: the one prefill row that fits,
+# xlstm-125m's prefill_32k (B = 32, S = 32,768), took 47.8 s even at one
+# mLSTM and one sLSTM layer of its 12 on an H100 80GB HBM3 at 700 W (its
+# time loops are 32,768 steps a layer), and left for phase 34's time
 
 
 def card_line() -> str:
@@ -4836,34 +4889,21 @@ def launch_train(torch, ops, dev, card: str) -> tuple:
 
 
 def launch_serve(torch, ops, dev, rows: list, card: str) -> tuple:
-    """29c: of 29a's rows marked ``fits``, the prefill and the decode row
-    with the largest predicted peak; one ``ServePlan.step_fn`` of each on
-    the card, its measured peak against the row's within
-    ``PEAK_TOLERANCE`` and its launches against the row's (a row of
-    ``SERVE_CUTS`` at its cut, against the cut's prediction)."""
-    import dataclasses
-
+    """29c: of 29a's decode rows marked ``fits``, the one with the largest
+    predicted peak: one ``ServePlan.step_fn`` on the card, its measured
+    peak against the row's within ``PEAK_TOLERANCE`` and its launches
+    against the row's."""
     from repro_torch.configs import INPUT_SHAPES, get_config
     from repro_torch.launch.steps import build_serve_plan
 
     out, counts = dict(phase="launch", part="serve", card=card), []
-    for kind in ("prefill", "decode"):
+    for kind in ("decode",):
         fit = [r for r in rows if r["status"] == "ok" and r["fits"]
                and INPUT_SHAPES[r["shape"]].kind == kind]
         require(fit, f"no {kind} row fits the card")
         row = max(fit, key=lambda r: r["peak_bytes"])
-        spec = get_config(row["arch"])
-        cut = SERVE_CUTS.get((row["arch"], row["shape"]))
-        if cut is not None:
-            groups = spec.model.groups
-            spec = dataclasses.replace(spec, model=dataclasses.replace(
-                spec.model, groups=(dataclasses.replace(groups[0], **cut),)
-                + groups[1:]))
-        plan = build_serve_plan(spec, shape_name=row["shape"])
-        want = row
-        if cut is not None:
-            terms = plan.cost()
-            want = dict(terms.row(), peak_bytes=terms.peak_memory_bytes)
+        plan = build_serve_plan(get_config(row["arch"]),
+                                shape_name=row["shape"])
         torch.cuda.synchronize()
         torch.cuda.empty_cache()
         base = torch.cuda.memory_allocated()
@@ -4879,18 +4919,16 @@ def launch_serve(torch, ops, dev, rows: list, card: str) -> tuple:
         launches = ops.launch_counts()
         counts.append(launches)
         require(bool(torch.isfinite(logits).all()), f"{kind} logits")
-        require(launches == {k: want["launches"].get(k, 0) for k in launches},
-                f"{kind} launches {launches} != predicted {want['launches']}")
-        rel = peak_within(want["peak_bytes"], peak, f"{row['arch']} {kind}")
-        out[kind] = dict(arch=row["arch"], shape=row["shape"], cut=cut,
+        require(launches == {k: row["launches"].get(k, 0) for k in launches},
+                f"{kind} launches {launches} != predicted {row['launches']}")
+        rel = peak_within(row["peak_bytes"], peak, f"{row['arch']} {kind}")
+        out[kind] = dict(arch=row["arch"], shape=row["shape"],
                          batch=plan.shape.global_batch,
                          seq_len=plan.shape.seq_len,
-                         predicted_peak_gb=want["peak_bytes"] / 1e9,
+                         predicted_peak_gb=row["peak_bytes"] / 1e9,
                          peak_gb=peak / 1e9, peak_rel_diff=rel,
                          seconds=seconds, launches=launches,
-                         predicted_flops=want["flops_per_chip"],
-                         row_predicted_peak_gb=row["peak_bytes"] / 1e9,
-                         row_predicted_flops=row["flops_per_chip"])
+                         predicted_flops=row["flops_per_chip"])
         del args, logits
         torch.cuda.empty_cache()
     return out, counts
@@ -5497,28 +5535,40 @@ def tp_serve(torch, ops, dev, run: dict, mesh, data_seed: int) -> dict:
 
 def tp_flash_check(torch, ops, ref, dev, cfg, s: int, m: int,
                    rank: int) -> dict:
-    """One flash launch at rank ``rank``'s head shard of ``cfg`` (H/M query
-    heads, its K/M KV heads, or the one it shares) against the plain
-    version at that shape, random q, k, v; atol 1e-5 + rtol 1e-4, as
-    phase 9."""
+    """One flash launch at rank ``rank``'s head run of ``cfg`` (its query
+    heads, whole heads whatever H / M, and the KV heads they read: a
+    ``ModelAxis.attn_heads`` share, its head offset ``off`` into its first
+    KV head's group) against the plain version at that shape and offset,
+    random q, k, v; atol 1e-5 + rtol 1e-4, as phase 9. A rank without heads
+    launches nothing."""
     from repro_torch.models.parallel import ModelAxis
 
-    local = ModelAxis(size=m, rank=rank).local_config(cfg)
-    h, kh, d = local.n_heads, local.n_kv_heads, cfg.head_dim
+    share = ModelAxis(size=m, rank=rank).attn_heads(cfg.n_heads,
+                                                    cfg.n_kv_heads)
+    h, kh, d = share.h, share.kv, cfg.head_dim
     gen = torch.Generator(device=dev).manual_seed(SEED + rank)
     q = torch.randn((1, s, h, d), generator=gen, device=dev)
     k = torch.randn((1, s, kh, d), generator=gen, device=dev)
     v = torch.randn((1, s, kh, d), generator=gen, device=dev)
-    got = ops.flash_attention_bshd(q, k, v)
+    shape = dict(b=1, s=s, h=h, kh=kh, d=d, window=None, head0=share.off,
+                 group=share.group)
+    before = ops.launch_counts()["flash_attention"]
+    got = ops.flash_attention_bshd(q, k, v, group=share.group,
+                                   head0=share.off)
+    launched = ops.launch_counts()["flash_attention"] - before
+    require(launched == (1 if h else 0),
+            f"flash_attention launched {launched} times at rank {rank}'s "
+            f"share {shape}")
+    if not h:
+        return dict(shape=shape, max_abs_err=0.0, launched=0)
     want = ref.flash_attention(q.transpose(1, 2), k.transpose(1, 2),
-                               v.transpose(1, 2),
-                               group=h // kh).transpose(1, 2)
+                               v.transpose(1, 2), group=share.group,
+                               head0=share.off).transpose(1, 2)
     diff = (got - want).abs()
     require(bool((diff <= 1e-5 + 1e-4 * want.abs()).all()),
-            f"flash_attention disagrees at rank {rank}'s shard (1, {s}, "
-            f"{h}, {kh}, {d}): max abs err {diff.max().item()}")
-    return dict(shape=dict(b=1, s=s, h=h, kh=kh, d=d, window=None),
-                max_abs_err=diff.max().item())
+            f"flash_attention disagrees at rank {rank}'s shard {shape}: "
+            f"max abs err {diff.max().item()}")
+    return dict(shape=shape, max_abs_err=diff.max().item(), launched=1)
 
 
 def tp_rank(torch, ops, ref, dev, *, rank: int, store: str, out: str,
@@ -5671,14 +5721,15 @@ def model_axis_phase(torch, ops, ref, dev, smi: str) -> tuple:
 # -- phase 32: training over the model axis ------------------------------------
 
 # 32b: llama3.2-1b at full width over TP_RANKS gloo ranks on the one card
-# (M = 2), N = 4 nodes of one 512-token sequence, 2 steps, against the
+# (M = 2), N = 4 nodes of one 256-token sequence (cut from 512 for the
+# script's time limit with phase 34), 2 steps, against the
 # unsharded TrainPlan on the same weights and Philox bits, run first in
 # this process and freed before the ranks start. Reckoned peaks (f32, the
 # step's largest buffers): unsharded, the state (19.8 GB), the updated
 # local leaves and their gradients (15.9 GB each) and y (3.9 GB), ~56 GB;
 # a rank half of each, ~28 GB, the two ~57 GB together: under 70 GB of
 # the card, so N stays 4.
-TRAIN_TP = dict(arch="llama3.2-1b", n=4, per_node_batch=1, seq_len=512,
+TRAIN_TP = dict(arch="llama3.2-1b", n=4, per_node_batch=1, seq_len=256,
                 steps=2)
 # the loss within 1e-5 relative and every leaf within atol 1e-4 of the
 # unsharded run's (only the order of the model axis's sums differs); a
@@ -6334,7 +6385,8 @@ GROUPS_SERVE = {
                    prompt=1024, steps=8),
 }
 # 33c: PartPSP of each at M = 2, cut in depth as phase 19 cuts them, on a
-# 2-out graph of N = 2 nodes, one 256-token sequence a node, 2 steps,
+# 2-out graph of N = 2 nodes, one 128-token sequence a node (cut from 256
+# for the script's time limit with phase 34), 2 steps,
 # against the unsharded plan on the same weights and Philox bits. gamma_n
 # is GROUPS_NOISE of the Remark-1 stability limit (32b takes half of it):
 # at half, the noised mLSTM / Mamba2 / cross layers make the local
@@ -6344,7 +6396,7 @@ GROUPS_SERVE = {
 # full width on the card), so the model axis's 1e-7 sum-order differences
 # leave the 32b tolerances; at 1/100 of that the same change moves it
 # 1e-7.
-GROUPS_TRAIN = dict(n=2, per_node_batch=1, seq_len=256, steps=2)
+GROUPS_TRAIN = dict(n=2, per_node_batch=1, seq_len=128, steps=2)
 GROUPS_NOISE = 0.005
 GROUPS_TRAIN_RUNS = {
     "xlstm": dict(arch="xlstm-125m", cut=dict(n_units=1)),
@@ -6674,26 +6726,27 @@ def niced() -> None:
 
 
 def dry_runs_start() -> tuple:
-    """Phase 29a's and 33d's dry runs, started before phase 24: CPU-only
-    processes that trace beside phases 24-28 instead of holding up phase
-    29 (each phase reads its rows when it comes). Stopped, and their
-    directory removed, at exit whatever happens. -> (29a's processes, 33d's
-    processes, their directory, the start time)."""
+    """Phase 29a's, 33d's and 34d's dry runs, started before phase 24:
+    CPU-only processes that trace beside phases 24-28 instead of holding
+    up phase 29 (each phase reads its rows when it comes). Stopped, and
+    their directory removed, at exit whatever happens. -> (29a's
+    processes, 33d's, 34d's, their directory, the start time)."""
     import atexit
     import shutil
 
     tmp = tempfile.mkdtemp(prefix="chip_smoke_dryrun")
     procs, groups = dryrun_start(tmp), groups_dryrun_start(tmp)
+    rest = rest_dryrun_start(tmp)
 
     def stop():
-        for proc in [*procs.values(), *groups.values()]:
+        for proc in [*procs.values(), *groups.values(), *rest.values()]:
             if proc.poll() is None:
                 proc.kill()
                 proc.wait()
         shutil.rmtree(tmp, ignore_errors=True)
 
     atexit.register(stop)
-    return procs, groups, tmp, time.perf_counter()
+    return procs, groups, rest, tmp, time.perf_counter()
 
 
 def groups_dryrun_finish(procs: dict, tmp: str, dry_rows: list) -> list:
@@ -6903,6 +6956,385 @@ def model_axis_groups_phase(torch, ops, ref, dev, smi: str, dry_rows: list,
     return out, counts, flash_checks, strided
 
 
+# -- phase 34: the rest of the model axis ------------------------------------
+
+# 34a-b: gemma3-1b at full width (H = 4, K = 1, D = 256, 26 layers) served
+# through build_serve_plan(arch, mesh): a 512-token prompt and 2 greedy
+# decode steps. 34b over REST_RANKS gloo ranks on the card, mesh (1, 8):
+# ranks 1, 3, 5 and 7 hold one query head each (and the one KV head), the
+# other four none (an M that does not divide H).
+REST_SERVE = dict(arch="gemma3-1b", layers=None, prompt=512, steps=2)
+REST_RANKS = 8
+# 34c: long_500k decode (global batch 1, 524,288 slots) over
+# REST_SEQ_RANKS gloo ranks at (2, 1): each KV cache's slots split over
+# "data" (gemma3-1b whole: 26 x 524,288 x 256 x 4 B x 2 = 27.9 GB, 14 GB a
+# rank; zamba2-7b at one unit: its shared block's 15.0 GB), REST_LONG_STEPS
+# greedy steps at positions 524,284-524,287 from a seeded cache: each KV
+# leaf drawn in REST_FILL_BLOCKS blocks of slots, block b of leaf i from
+# its own generator, so a rank draws its blocks alone and the whole cache
+# is the blocks together (no 524k prefill).
+REST_LONG = {"gemma3-1b": None, "zamba2-7b": dict(n_units=1)}
+REST_LONG_STEPS = 4
+REST_SEQ_RANKS = 2
+REST_FILL_BLOCKS = 8
+# 34d: the dry run's rows on the reference's production mesh (data 16,
+# model 16), started with 29a's and 33d's
+REST_DRY = (("llama4-scout-17b-a16e", "prefill_32k"),
+            ("gemma3-1b", "long_500k"), ("zamba2-7b", "long_500k"))
+REST_JOIN_S = 600
+
+
+def rest_long_config(arch: str):
+    """(ArchSpec, ModelConfig) of a 34c run: the published width, zamba2's
+    group cut to one unit (its trailing Mamba2 layers kept)."""
+    return tp_config(dict(arch=arch, cut=REST_LONG[arch]))
+
+
+def rest_long_cache(torch, model, dev) -> dict:
+    """``model``'s long_500k cache on this rank (its slots where they are
+    split over "data"), filled from the seeded draw: each KV leaf's slots
+    in REST_FILL_BLOCKS blocks, block b of leaf i normal x 0.5 from a
+    generator seeded by (i, b), the rank drawing its own blocks; each
+    recurrent state whole, normal x 0.1 from a generator seeded by its
+    leaf."""
+    from repro_torch.configs import INPUT_SHAPES
+    from repro_torch.core.tree_utils import tree_flatten_with_path
+
+    t = INPUT_SHAPES["long_500k"].seq_len
+    axis = model.axis
+    cache = model.init_cache(1, t, device=dev)
+    for i, (path, x) in enumerate(tree_flatten_with_path(cache)[0]):
+        gen = torch.Generator(device=dev)
+        if not path.endswith(("/k", "/v")):
+            gen.manual_seed(SEED * 1000 + i)
+            x.copy_(torch.randn(x.shape, generator=gen, device=dev) * 0.1)
+            continue
+        local = x.shape[-3]
+        whole = local * (axis.data_size if axis.seq_split else 1)
+        per = whole // REST_FILL_BLOCKS
+        first = (axis.data_rank * local if axis.seq_split else 0) // per
+        for j in range(local // per):
+            gen.manual_seed((SEED * 1000 + i) * REST_FILL_BLOCKS + first + j)
+            blk = x.narrow(-3, j * per, per)
+            blk.copy_(torch.randn(blk.shape, generator=gen, device=dev)
+                      * 0.5)
+    return cache
+
+
+def rest_long(torch, ops, dev, arch: str, mesh, tokens=None) -> dict:
+    """REST_LONG_STEPS greedy long_500k decode steps of ``arch`` through
+    ``build_serve_plan(arch, mesh, shape_name="long_500k")`` (None: the
+    unsharded plan) from :func:`rest_long_cache`, the weights the model's
+    draw from SEED, the first token seeded; ``tokens`` (the unsharded
+    run's) teacher-forces the steps after the first. The launch counts are
+    set to 0 before the steps and read after. -> CPU logits, tokens, the
+    top-1 margins, ms a step, c10d calls a step, launches, peak, the cache
+    on the rank."""
+    from repro_torch.configs import INPUT_SHAPES
+    from repro_torch.core.tree_utils import tree_leaves
+    from repro_torch.launch.steps import build_serve_plan
+
+    spec, cfg = rest_long_config(arch)
+    plan = build_serve_plan(spec, mesh, shape_name="long_500k")
+    t = INPUT_SHAPES["long_500k"].seq_len
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    params = plan.model.init(torch.Generator(device=dev).manual_seed(SEED),
+                             dev)
+    t0 = time.perf_counter()
+    cache = rest_long_cache(torch, plan.model, dev)
+    torch.cuda.synchronize()
+    fill_s = time.perf_counter() - t0
+    cache_gb = sum(x.numel() * x.element_size()
+                   for x in tree_leaves(cache)) / 1e9
+    gen = torch.Generator(device=dev).manual_seed(SEED + 34)
+    tok = torch.randint(0, cfg.vocab_size, (1,), generator=gen, device=dev)
+    logits, calls, times = [], [], []
+    ops.reset_launch_counts()
+    for i in range(REST_LONG_STEPS):
+        count = C10dCount()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with count:
+            lg, cache = plan.step_fn(params, cache, tok,
+                                     t - REST_LONG_STEPS + i)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        calls.append(dict(count.calls))
+        logits.append(lg.float())
+        tok = lg.argmax(dim=-1) if tokens is None else \
+            tokens[i].to(dev).reshape(1)
+    launches = ops.launch_counts()
+    stacked = torch.cat(logits)
+    top2 = stacked.topk(2, dim=-1).values
+    out = dict(logits=stacked.cpu(), tokens=stacked.argmax(dim=-1).cpu(),
+               margins=(top2[:, 0] - top2[:, 1]).cpu(), ms_per_step=times,
+               calls=calls, launches=launches, fill_s=fill_s,
+               cache_gb=cache_gb, peak_gb=torch.cuda.max_memory_allocated()
+               / 1e9, seq_split=plan.model.axis.seq_split,
+               slots=t // (plan.model.axis.data_size
+                           if plan.model.axis.seq_split else 1))
+    del cache, params
+    torch.cuda.empty_cache()
+    return out
+
+
+def rest_long_calls(cfg, data: int) -> int:
+    """The c10d calls of a long_500k decode step on a rank of a (data, 1)
+    mesh: the embedding's and the logits' sums and each attention layer's
+    ``wo`` and MLP sums over "model" (a group of one rank issues them),
+    each Mamba2 layer's ``w_out`` sum, and with a data dim above 1 each
+    attention application's MAX and SUM over "data"."""
+    merge = 2 if data > 1 else 0
+    calls = 2
+    for g in cfg.groups:
+        if g.kind == "attn":
+            calls += (2 + merge) * g.n_layers
+        elif g.kind == "zamba":
+            calls += g.n_units * (g.mamba_per_unit + 2 + merge) \
+                + g.trailing_mamba
+    return calls
+
+
+def rest_summary(r: dict) -> dict:
+    return {k: v for k, v in r.items()
+            if k not in ("logits", "tokens", "margins")}
+
+
+def rest_rank(torch, ops, ref, dev, *, rank: int, store: str, out: str,
+              kind: str, world: int, data_seed: int | None = None,
+              tokens: dict | None = None) -> None:
+    """One rank of 34b (``kind`` "serve": gemma3-1b over the (1, world)
+    mesh, ``tp_serve`` and the flash launch at its head share) or 34c
+    (``kind`` "long": each of REST_LONG over the (world, 1) mesh, teacher
+    -forced by the unsharded run's ``tokens``), a gloo world on the one
+    card (``chip_smoke.py --rest-rank JSON``); the results saved to
+    ``out``."""
+    import datetime
+
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_host_mesh
+
+    dist.init_process_group("gloo", init_method=f"file://{store}",
+                            rank=rank, world_size=world,
+                            timeout=datetime.timedelta(seconds=300))
+    try:
+        if kind == "serve":
+            mesh = make_host_mesh(shape=(1, world))
+            r = tp_serve(torch, ops, dev, REST_SERVE, mesh, data_seed)
+            r["flash_check"] = tp_flash_check(
+                torch, ops, ref, dev, tp_config(REST_SERVE)[1],
+                REST_SERVE["prompt"], world, rank)
+        else:
+            mesh = make_host_mesh(shape=(world, 1))
+            r = {arch: rest_long(torch, ops, dev, arch, mesh,
+                                 torch.tensor(tokens[arch]))
+                 for arch in REST_LONG}
+        torch.save(r, out)
+    finally:
+        dist.destroy_process_group()
+
+
+def rest_ranks(torch, tmp: str, world: int, **kw) -> list:
+    """``world`` ``chip_smoke.py --rest-rank JSON`` processes on the card,
+    their output to files (two ranks on pipes no one read died once) ->
+    each rank's saved results."""
+    procs, logs = [], []
+    for rank in range(world):
+        log = open(f"{tmp}/rank{rank}.log", "w")
+        logs.append(log)
+        procs.append(subprocess.Popen(
+            [sys.executable, str(ROOT / "chip_smoke.py"), "--rest-rank",
+             json.dumps(dict(kw, rank=rank, store=f"{tmp}/store",
+                             out=f"{tmp}/rank{rank}.pt", world=world))],
+            stdout=log, stderr=subprocess.STDOUT))
+    try:
+        for p in procs:
+            p.wait(timeout=REST_JOIN_S)
+    finally:
+        for p, log in zip(procs, logs):
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+            log.close()
+    for rank, p in enumerate(procs):
+        log = Path(f"{tmp}/rank{rank}.log").read_text()
+        require(p.returncode == 0, f"34 {kw['kind']} rank {rank} exited "
+                f"{p.returncode}: {log[-4000:]}")
+    out = [torch.load(f"{tmp}/rank{rank}.pt", weights_only=False)
+           for rank in range(world)]
+    for rank in range(world):
+        os.remove(f"{tmp}/rank{rank}.pt")
+    return out
+
+
+def rest_dryrun_start(tmp: str) -> dict:
+    """34d: ``python -m repro_torch.launch.dryrun --arch A --shape S --mesh
+    pod16x16`` for each of REST_DRY, all at once, on meta with the card
+    hidden, niced -> {(arch, shape): Popen}."""
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="", PYTHONPATH=str(SRC))
+    return {(arch, shape): subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", arch,
+         "--shape", shape, "--mesh", "pod16x16", "--out",
+         f"{tmp}/pod_{arch}_{shape}.json"],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True, env=env,
+        preexec_fn=niced)
+        for arch, shape in REST_DRY}
+
+
+def rest_dryrun_finish(procs: dict, tmp: str) -> list:
+    """34d's rows: each ``ok`` on pod16x16, its busiest model rank named,
+    its collectives counted (a long_500k row's KV slots split over
+    "data")."""
+    rows = []
+    for (arch, shape), proc in procs.items():
+        out, _ = proc.communicate(timeout=REST_JOIN_S)
+        require(proc.returncode == 0, f"34d: dry run of {arch} x {shape} "
+                f"exited {proc.returncode}: {out[-3000:]}")
+        (row,) = json.loads(
+            Path(f"{tmp}/pod_{arch}_{shape}.json").read_text())
+        require(row["status"] == "ok" and row["mesh"] == "pod16x16",
+                f"34d: {arch} x {shape} on pod16x16: {row}")
+        require(row["coll_calls"].get("all-reduce", 0) > 0
+                and row["seq_sharded"] == (shape == "long_500k"),
+                f"34d: {arch} x {shape}: {row}")
+        rows.append({k: row[k] for k in (
+            "arch", "shape", "mesh", "model_rank", "heads", "kv_heads",
+            "flops_per_chip", "peak_bytes", "fits", "coll_calls",
+            "seq_sharded", "trace_s")})
+    return rows
+
+
+def rest_axis_phase(torch, ops, ref, dev, smi: str, dry: tuple) -> tuple:
+    """Phase 34: (a) a one-rank NCCL world's (1, 1) mesh with both of this
+    phase's features on (the head shares, the long_500k plans' shard_seq):
+    gemma3-1b's serve and both long_500k decodes bit for bit the
+    unsharded plan; (b) gemma3-1b over REST_RANKS gloo ranks at (1, 8),
+    four ranks without heads; (c) the long_500k decodes over
+    REST_SEQ_RANKS gloo ranks at (2, 1), each KV cache's slots split;
+    (d) the production-mesh dry-run rows. -> (emitted dict, the main paths'
+    launch counts, the flash checks at each rank's head share)."""
+    import torch.distributed as dist
+
+    t0 = time.perf_counter()
+    out = dict(phase="model_axis_rest", card=smi, note=(
+        "34b-c's times are ranks sharing one card's SMs, their "
+        "all-reduces gloo's, staged through the host: not speed figures "
+        "of tensor or sequence parallelism"))
+    counts, flash_checks = [], []
+    _, cfg = tp_config(REST_SERVE)
+    want = tp_reference(torch, ops, dev, REST_SERVE)
+    longs = {arch: rest_long(torch, ops, dev, arch, None)
+             for arch in REST_LONG}
+    for arch, r in longs.items():
+        require(bool(torch.isfinite(r["logits"]).all()),
+                f"34: {arch} long_500k logits")
+
+    # (a) one NCCL rank
+    with tempfile.TemporaryDirectory() as tmp:
+        mesh = shard_world(tmp)
+        try:
+            one = tp_serve(torch, ops, dev, REST_SERVE, mesh,
+                           want["data_seed"])
+            one_long = {"gemma3-1b": rest_long(torch, ops, dev,
+                                               "gemma3-1b", mesh)}
+        finally:
+            dist.destroy_process_group()
+    torch.cuda.empty_cache()
+    require(torch.equal(one["logits"], want["logits"]),
+            "34a: gemma3-1b over a one-rank mesh is not the unsharded plan "
+            "bit for bit")
+    require(one["launches"]["flash_attention"] == cfg.total_layers,
+            f"34a: flash launches {one['launches']}")
+    counts.append(one["launches"])
+    for arch, r in one_long.items():
+        require(torch.equal(r["logits"], longs[arch]["logits"]),
+                f"34a: {arch}'s long_500k decode over a one-rank mesh is not "
+                "the unsharded plan bit for bit")
+        _, lcfg = rest_long_config(arch)
+        require(r["calls"] == [{"all-reduce": rest_long_calls(lcfg, 1)}]
+                * REST_LONG_STEPS, f"34a: {arch} c10d calls {r['calls']}")
+    out["a"] = dict(serve=tp_summary(one), unsharded=tp_summary(want),
+                    long={a: rest_summary(r) for a, r in one_long.items()},
+                    bit_for_bit=True)
+
+    # (b) eight gloo ranks at (1, 8): four hold no heads
+    with tempfile.TemporaryDirectory() as tmp:
+        ranks = rest_ranks(torch, tmp, REST_RANKS, kind="serve",
+                           data_seed=want["data_seed"])
+    calls = [tp_collectives(cfg, 1, REST_SERVE["prompt"])] + \
+        [tp_collectives(cfg, 1, 1)] * TP_WARMUP_STEPS
+    from repro_torch.models.parallel import ModelAxis
+
+    for rank, got in enumerate(ranks):
+        share = ModelAxis(size=REST_RANKS, rank=rank).attn_heads(
+            cfg.n_heads, cfg.n_kv_heads)
+        require(torch.equal(got["logits"], ranks[0]["logits"]),
+                f"34b: rank {rank}'s logits differ from rank 0's")
+        err = (got["logits"] - want["logits"]).abs().max().item()
+        require(err <= TP_ATOL, f"34b: rank {rank} logits max abs err {err}")
+        require(torch.equal(got["tokens"], want["tokens"]),
+                f"34b: rank {rank}'s greedy tokens differ")
+        require(got["calls"] == calls, f"34b: rank {rank} c10d calls "
+                f"{got['calls'][:2]}, expected {calls[:2]}")
+        require(got["launches"]["flash_attention"] == (
+            cfg.total_layers if share.h else 0),
+            f"34b: rank {rank} ({share}) flash launches {got['launches']}")
+        got["max_abs_err"], got["heads"] = err, (share.h, share.kv)
+        counts.append(got["launches"])
+        flash_checks.append(dict(got["flash_check"], rank=rank,
+                                 run="gemma3-1b_m8",
+                                 launches=got["launches"]["flash_attention"]))
+    out["b"] = dict(unsharded=tp_summary(want), ranks_bit_equal=True,
+                    ranks=[dict(tp_summary(r), heads=r["heads"])
+                           for r in ranks],
+                    tolerance=dict(atol=TP_ATOL,
+                                   logit_margin=TP_LOGIT_MARGIN))
+
+    # (c) the long_500k decodes over two data ranks, slots split
+    with tempfile.TemporaryDirectory() as tmp:
+        ranks = rest_ranks(torch, tmp, REST_SEQ_RANKS, kind="long",
+                           tokens={a: r["tokens"].tolist()
+                                   for a, r in longs.items()})
+    out["c"] = {}
+    for arch, w in longs.items():
+        _, lcfg = rest_long_config(arch)
+        for rank, r in enumerate(ranks):
+            got = r[arch]
+            require(got["seq_split"], f"34c: {arch} rank {rank} not split")
+            require(torch.equal(got["logits"], ranks[0][arch]["logits"]),
+                    f"34c: {arch}: rank {rank}'s logits differ from rank 0's")
+            err = (got["logits"] - w["logits"]).abs().max().item()
+            require(err <= TP_ATOL,
+                    f"34c: {arch} rank {rank} logits max abs err {err}")
+            sure = w["margins"] > TP_LOGIT_MARGIN
+            require(bool((got["tokens"] == w["tokens"])[sure].all()),
+                    f"34c: {arch} rank {rank}'s greedy tokens differ where "
+                    f"the margin is above {TP_LOGIT_MARGIN}")
+            require(got["calls"] == [{"all-reduce": rest_long_calls(
+                lcfg, REST_SEQ_RANKS)}] * REST_LONG_STEPS,
+                f"34c: {arch} rank {rank} c10d calls {got['calls']}")
+            require(got["peak_gb"] < w["peak_gb"],
+                    f"34c: {arch} rank {rank}'s peak {got['peak_gb']} GB not "
+                    f"below the unsharded {w['peak_gb']}")
+            got["max_abs_err"] = err
+        out["c"][arch] = dict(
+            unsharded=rest_summary(w),
+            min_margin=w["margins"].min().item(),
+            tokens_equal=all(torch.equal(r[arch]["tokens"], w["tokens"])
+                             for r in ranks),
+            ranks=[rest_summary(r[arch]) for r in ranks],
+            ranks_bit_equal=True, tolerance=dict(atol=TP_ATOL))
+
+    # (d) the production mesh's dry-run rows
+    out["d"] = rest_dryrun_finish(*dry)
+    out["seconds"] = time.perf_counter() - t0
+    return out, counts, flash_checks
+
+
+
 def sparse_graph(n: int, seed: int = 0):
     from repro_torch.net import ErdosRenyiGraph
 
@@ -6957,6 +7389,9 @@ def main() -> int:
     parser.add_argument("--groups-rank", default=None, metavar="JSON",
                         help="run one rank of phase 33b-c with these keyword "
                              "arguments (the whole run starts them so)")
+    parser.add_argument("--rest-rank", default=None, metavar="JSON",
+                        help="run one rank of phase 34b-c with these keyword "
+                             "arguments (the whole run starts them so)")
     args = parser.parse_args()
 
     import torch
@@ -6994,6 +7429,11 @@ def main() -> int:
         torch.cuda.set_device(dev)
         build.build_all()  # built by the parent: loads the libraries
         groups_rank(torch, ops, ref, dev, **json.loads(args.groups_rank))
+        return 0
+    if args.rest_rank is not None:
+        torch.cuda.set_device(dev)
+        build.build_all()  # built by the parent: loads the libraries
+        rest_rank(torch, ops, ref, dev, **json.loads(args.rest_rank))
         return 0
     if args.obs_phase is None:
         emit(dict(phase="precision",
@@ -7181,7 +7621,7 @@ def main() -> int:
         launches.append(resumed["launches"])
         del session, lm_batches
     torch.cuda.empty_cache()
-    dry_procs, groups_dry, dry_tmp, dry_t0 = dry_runs_start()
+    dry_procs, groups_dry, rest_dry, dry_tmp, dry_t0 = dry_runs_start()
     faulted, counts = faults_phase(
         torch, api, mlp, data, ops, ref, T, dev,
         dense_ms=cons["ms_per_round"], sparse_ms=scons["ms_per_round"])
@@ -7247,6 +7687,10 @@ def main() -> int:
         model_axis_groups_phase(torch, ops, ref, dev, smi, dry_rows,
                                 (groups_dry, dry_tmp))
     emit(groups_line)
+    launches += counts
+    rest_line, counts, rest_flash = rest_axis_phase(
+        torch, ops, ref, dev, smi, (rest_dry, dry_tmp))
+    emit(rest_line)
     launches += counts
     total = {k: sum(path[k] for path in launches) for k in KERNELS}
     kernels = []
@@ -7322,10 +7766,10 @@ def main() -> int:
     kernels.append(kernel_entry(
         "flash_attention",
         dict(fa, max_abs_err=max([r["max_abs_err"] for r in flash.values()]
-                                 + [r["max_abs_err"]
-                                    for r in tp_flash + groups_flash])),
+                                 + [r["max_abs_err"] for r in
+                                    tp_flash + groups_flash + rest_flash])),
         total["flash_attention"], shape=fa["shape"],
-        model_axis_rank_shards=tp_flash + groups_flash,
+        model_axis_rank_shards=tp_flash + groups_flash + rest_flash,
         max_rel_err=max(r["max_rel_err"] for r in flash.values()),
         pct_of_bound=fa["pct_of_bound"],
         f32_core_bound_ms=fa["f32_core_bound_ms"],

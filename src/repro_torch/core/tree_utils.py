@@ -100,17 +100,31 @@ def tree_map(fn: Callable, tree: PyTree, *rest: PyTree) -> PyTree:
                                     for x, *ys in zip(leaves, *others)])
 
 
+def counted_part(x: torch.Tensor, keep):
+    """The part of node-stacked leaf ``x`` whose columns this rank of a
+    model axis counts in a per-node norm (``keep`` one entry of a
+    ``counted`` list): all of it (None or True), none (False, or an empty
+    leaf: None is returned), or its ``keep`` slice of the last dim (a
+    run of KV heads whose first another rank counts)."""
+    if keep is False or x[0].numel() == 0:
+        return None
+    if keep is None or keep is True:
+        return x
+    return x[..., keep]
+
+
 def l1_norm_per_node(tree: PyTree, counted=None) -> torch.Tensor:
     """sum over leaves of ||leaf_i||_1 for each node i -> (N,).
 
     One reduction over the flat wire row (leaf rows concatenated in leaf
     order), as ``repro.core.tree_utils.tree_l1_norm_per_node`` does.
-    ``counted`` (one bool a leaf) keeps only the leaves whose columns this
-    rank of a model axis counts (zeros where it counts none).
+    ``counted`` (one entry a leaf, :func:`counted_part`'s) keeps only the
+    columns this rank of a model axis counts (zeros where it counts none).
     """
     leaves = tree_leaves(tree)
     if counted is not None:
-        kept = [x for x, keep in zip(leaves, counted) if keep]
+        kept = [counted_part(x, keep) for x, keep in zip(leaves, counted)]
+        kept = [x for x in kept if x is not None]
         if not kept:
             return torch.zeros((leaves[0].shape[0],), dtype=torch.float32,
                                device=leaves[0].device)

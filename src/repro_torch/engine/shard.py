@@ -58,7 +58,8 @@ from repro_torch.engine import rounds as _rounds
 from repro_torch.engine.plan import ProtocolPlan
 from repro_torch.kernels import ops as kops
 from repro_torch.launch.mesh import n_gossip_nodes
-from repro_torch.launch.sharding import all_gather_rows, gossip_axis
+from repro_torch.launch.sharding import (_charge_on_meta, all_gather_rows,
+                                         gossip_axis)
 
 __all__ = [
     "sharded_node_ops",
@@ -95,9 +96,13 @@ def _gossip_axis(mesh) -> tuple[Any, int, int]:
 
 def sharded_node_ops(group, n_nodes: int) -> NodeOps:
     """NodeOps whose reductions span every rank of ``group`` (``n_nodes``
-    nodes in all): one ``all_reduce`` each."""
+    nodes in all): one ``all_reduce`` each (``group`` None on meta: each
+    charged to the cost count, the dry run's rank of a data dim)."""
     def reduce(x: torch.Tensor, op) -> torch.Tensor:
-        dist.all_reduce(x, op=op, group=group)
+        if group is None:
+            _charge_on_meta(x, "all-reduce")
+        else:
+            dist.all_reduce(x, op=op, group=group)
         return x
 
     op = dist.ReduceOp

@@ -40,7 +40,7 @@ _SIGNATURES = {
     "spmm": ("spmm", [_P, _P, _P, _P] + [_I64] * 9 + [_P]),
     "clip_scale": ("clip_scale_rows", [_P, _P, _I64, _I64, _I64, _P, _P]),
     "laplace_noise": ("laplace_from_bits", [_P, _P, _I64, _P, _P]),
-    "flash_attention": ("flash_attention", [_P, _P, _P, _P] + [_I64] * 16
+    "flash_attention": ("flash_attention", [_P, _P, _P, _P] + [_I64] * 18
                         + [_P]),
 }
 SOURCES = tuple(_SIGNATURES)

@@ -1,7 +1,12 @@
 // Causal grouped-query attention forward with an optional sliding window,
 // by the online ("flash") softmax, to f32 accuracy on the tensor cores:
-//   o[b, i, h] = sum_j softmax_j(q[b, i, h] . k[b, j, h / group] / sqrt(D)) v[b, j, h / group]
-// over the keys j <= i (and i - j < window when window >= 0).
+//   o[b, i, h] = sum_j softmax_j(q[b, i, h] . k[b, j, c] / sqrt(D)) v[b, j, c],
+//   c = (head0 + h) / group,
+// over the keys j <= i (and i - j < window when window >= 0). head0 is 0
+// for a whole model (h = kh * group); a rank of a model axis launches its
+// own run of query heads, which may start head0 heads into its first KV
+// head's group and end inside its last (repro_torch.models.parallel.
+// HeadShare): one launch covers exactly the rank's heads, none padded.
 //
 // Replaces the Pallas kernel src/repro/kernels/flash_attention.py:91
 // (body _kernel at :31, wrapper flash_attention), which
@@ -98,6 +103,7 @@ struct FlashArgs {
   int64_t q_sb, q_ss, q_sh;  // element strides of q and o: batch, position, head
   int64_t k_sb, k_ss, k_sh;  // element strides of k and v
   int group;                 // query heads per KV head
+  int head0;                 // query head 0's place in KV head 0's group
   int window;                // < 0: global; at most s
   float scale;               // 1 / sqrt(D)
   int nq;                    // query tiles
@@ -185,7 +191,7 @@ __global__ void __launch_bounds__(FlashTile<D, WM, BK, DSPLIT>::kThreads)
   const int row[2] = {wq0 + g, wq0 + g + 8};  // the rows this lane holds
   const float* qg = a.q + b * a.q_sb + h * a.q_sh;
   // one offset for K and V (registers are at their limit at D = 256)
-  const int64_t kv = b * a.k_sb + (h / a.group) * a.k_sh;
+  const int64_t kv = b * a.k_sb + ((a.head0 + h) / a.group) * a.k_sh;
 
   // Key tiles this query tile can see: [k_first, q_last].
   const int q_last = (q0 + T::kBQ < a.s ? q0 + T::kBQ : a.s) - 1;
@@ -386,21 +392,25 @@ static int launch(FlashArgs a, int64_t b, int64_t h, int64_t smem_bytes, cudaStr
 
 // q, o: (b, s, h, d) at element strides (q_sb, q_ss, q_sh) and unit stride
 // over d; k, v: (b, s, kh, d) at (k_sb, k_ss, k_sh). f32, 16-byte aligned,
-// every stride a multiple of 4. d in {64, 112, 128, 256}, h = kh * group,
-// window < 0 (global) or >= 1. (bq, bk, dsplit, smem_bytes) is the wrapper's
-// tile for d (repro_torch.kernels.ops.FLASH_TILES); the grid is
+// every stride a multiple of 4. d in {64, 112, 128, 256}; query head i
+// reads KV head (head0 + i) / group, and the h heads read exactly KV heads
+// [0, kh) (0 <= head0 < group); window < 0 (global) or >= 1. (bq, bk,
+// dsplit, smem_bytes) is the wrapper's tile for d
+// (repro_torch.kernels.ops.FLASH_TILES); the grid is
 // (ceil(s / bq), h, b). Returns cudaGetLastError(), or
 // cudaErrorInvalidValue for a shape or tile the kernel does not take.
 extern "C" int flash_attention(const float* q, const float* k, const float* v, float* o,
-                               int64_t b, int64_t s, int64_t h, int64_t kh, int64_t d,
+                               int64_t b, int64_t s, int64_t h, int64_t kh,
+                               int64_t group, int64_t head0, int64_t d,
                                int64_t q_sb, int64_t q_ss, int64_t q_sh, int64_t k_sb,
                                int64_t k_ss, int64_t k_sh, int64_t window, int64_t bq,
                                int64_t bk, int64_t dsplit, int64_t smem_bytes, void* stream) {
   using namespace repro_torch;
-  if (b < 1 || s < 1 || kh < 1 || h < 1 || h % kh != 0 || window == 0 || b > 65535 ||
-      h > 65535 || s > ((int64_t)1 << 31) - 512)  // positions and tile ends fit an int
+  if (b < 1 || s < 1 || kh < 1 || h < 1 || group < 1 || head0 < 0 || head0 >= group ||
+      (head0 + h - 1) / group != kh - 1 || window == 0 || b > 65535 || h > 65535 ||
+      group > 65535 || s > ((int64_t)1 << 31) - 512)  // positions and tile ends fit an int
     return (int)cudaErrorInvalidValue;
-  FlashArgs a{q, k, v, o, (int)s, q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, (int)(h / kh),
+  FlashArgs a{q, k, v, o, (int)s, q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, (int)group, (int)head0,
               (int)(window < s ? window : s), (float)(1.0 / sqrt((double)d)), 0};
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
 #define REPRO_FLASH_TILE(D, BQ, BK, DSPLIT)                          \

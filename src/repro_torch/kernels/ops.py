@@ -37,7 +37,8 @@ import torch
 
 from repro_torch.core import loops
 from repro_torch.core.packing import LANE, PackedLayout
-from repro_torch.core.tree_utils import PyTree, tree_leaves, tree_map
+from repro_torch.core.tree_utils import (PyTree, counted_part, tree_leaves,
+                                         tree_map)
 from repro_torch.kernels import build, ref
 
 __all__ = ["l1_norm_rows", "dpps_perturb_rows", "pushsum_mix", "spmm",
@@ -677,16 +678,19 @@ def leaf_out(out: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
 def l1_norm_tree(leaves, counted=None) -> torch.Tensor:
     """Per-node L1 norms of node-stacked leaves -> (N,): one
     :func:`l1_norm_rows` launch a leaf, the norms summed in leaf order.
-    ``counted`` (one bool a leaf; default all) leaves out a leaf whose
-    columns another rank of a model axis counts: it is not launched."""
+    ``counted`` (one entry a leaf, ``core.tree_utils.counted_part``'s;
+    default all) leaves out the columns another rank of a model axis
+    counts: a leaf it counts none of (or an empty one) is not launched,
+    one it counts in part launches on a copy of that part."""
     if _is_cpu(*leaves):
         return ref.l1_norm_tree(leaves, counted)
     total = None
     for i, x in enumerate(leaves):
-        if counted is None or counted[i]:
-            norm = l1_norm_rows(leaf_rows(x), x[0].numel())
-        else:
+        part = counted_part(x, None if counted is None else counted[i])
+        if part is None:
             norm = x.new_zeros((x.shape[0],), dtype=torch.float32)
+        else:
+            norm = l1_norm_rows(leaf_rows(part), part[0].numel())
         total = norm if total is None else total + norm
     return total
 
@@ -704,8 +708,12 @@ def dpps_perturb_tree(s_leaves, eps_leaves, scale, gamma_n: float, *,
     the packed row draws; or, with ``col_maps``, at ``col_maps[i]`` (a
     rank's shards of a model-sharded tree, each drawing the whole leaf's
     bits at its columns); the rows are global nodes ``node0``, ``node0 +
-    1``, ... (:func:`dpps_perturb_rows`). ``counted`` (one bool a leaf;
-    default all) leaves out of the norms a leaf another rank counts."""
+    1``, ... (:func:`dpps_perturb_rows`). ``counted`` (one entry a leaf,
+    ``core.tree_utils.counted_part``'s; default all) leaves out of the
+    norms the columns another rank counts: a leaf counted in part takes
+    its norms from a second launch over a copy of that part (the same
+    Philox columns, ``ref.counted_map``). An empty leaf (a rank without
+    heads) launches nothing."""
     if bits is None and (seed is None or t is None):
         raise ValueError("pass bits= or both seed= and t=")
     extra = [] if bits is None else list(bits)
@@ -716,16 +724,31 @@ def dpps_perturb_tree(s_leaves, eps_leaves, scale, gamma_n: float, *,
     scale = _device_scale(scale, s_leaves[0].device)
     out, eps_l1, noise_l1 = [], None, None
     maps = ref.tree_column_maps(s_leaves, col_maps)
-    for i, (x, e, cmap) in enumerate(zip(s_leaves, eps_leaves, maps)):
+
+    def launch(x, e, b, cmap):
         size = x[0].numel()
-        b = None if bits is None else \
-            bits[i].reshape(x.shape[0], size).contiguous()
-        sn, e1, n1 = dpps_perturb_rows(leaf_rows(x), leaf_rows(e), scale,
-                                       gamma_n, size, bits=b, seed=seed,
-                                       t=t, node0=node0, col_map=cmap)
-        out.append(leaf_out(sn, x))
-        if counted is not None and not counted[i]:
-            e1, n1 = torch.zeros_like(e1), torch.zeros_like(n1)
+        b = None if b is None else b.reshape(x.shape[0], size).contiguous()
+        return dpps_perturb_rows(leaf_rows(x), leaf_rows(e), scale, gamma_n,
+                                 size, bits=b, seed=seed, t=t, node0=node0,
+                                 col_map=cmap)
+
+    for i, (x, e, cmap) in enumerate(zip(s_leaves, eps_leaves, maps)):
+        keep = None if counted is None else counted[i]
+        zero = x.new_zeros((x.shape[0],), dtype=torch.float32)
+        if x[0].numel() == 0:
+            out.append(x.clone())
+            e1 = n1 = zero
+        else:
+            sn, e1, n1 = launch(x, e, None if bits is None else bits[i],
+                                cmap)
+            out.append(leaf_out(sn, x))
+            if keep is False:
+                e1 = n1 = zero
+            elif isinstance(keep, slice):
+                _, e1, n1 = launch(
+                    x[..., keep], e[..., keep],
+                    None if bits is None else bits[i][..., keep],
+                    ref.counted_map(cmap, keep))
         eps_l1 = e1 if eps_l1 is None else eps_l1 + e1
         noise_l1 = n1 if noise_l1 is None else noise_l1 + n1
     return out, eps_l1, noise_l1
@@ -778,19 +801,41 @@ def _flash_window(window) -> int:
     return max(window, -1)
 
 
+def _flash_heads(h: int, kh: int, group: int | None, head0: int) -> tuple:
+    """(group, head0) of ``h`` query heads over ``kh`` KV heads, query head
+    i reading KV head (head0 + i) // group: ``group`` None is H / K (which
+    must divide), one KV head is read as a group of all ``h``; a
+    ``ValueError`` unless the heads read exactly KV heads [0, kh)."""
+    if group is None:
+        if kh < 1 or h % kh:
+            raise ValueError(f"{h} query heads over {kh} KV heads: pass "
+                             "group= and head0=, or H % K == 0")
+        group = h // kh
+    if kh == 1 and h >= 1 and head0 + h <= group:
+        return h, 0
+    if group < 1 or head0 < 0 or (h and (head0 >= group or (
+            head0 + h - 1) // group != kh - 1)):
+        raise ValueError(f"{h} query heads from head {head0} of the groups "
+                         f"of {kh} KV heads x {group}: they must read "
+                         "exactly those KV heads")
+    return group, head0
+
+
 def _flash_launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                   b: int, s: int, h: int, kh: int, d: int, q_strides: tuple,
-                  k_strides: tuple, window: int) -> torch.Tensor:
+                  k_strides: tuple, window: int, group: int,
+                  head0: int = 0) -> torch.Tensor:
     """One launch of ``csrc/flash_attention.cu`` for contiguous q, k, v whose
-    (batch, position, head) element strides are given; o is laid out as q."""
+    (batch, position, head) element strides are given; o is laid out as q.
+    Query head i reads KV head (``head0`` + i) // ``group``. No heads: no
+    launch (an empty output)."""
     for t, name in ((q, "q"), (k, "k"), (v, "v")):
         _check(t, name, torch.float32, q.dim(), align=True)
     if d not in FLASH_HEAD_DIMS:
         raise ValueError(f"head dim {d} not in {FLASH_HEAD_DIMS}")
-    if kh < 1 or h % kh or v.shape != k.shape:
-        raise ValueError(f"need k, v of one shape with h % kh == 0, got q "
-                         f"{tuple(q.shape)}, k {tuple(k.shape)}, v "
-                         f"{tuple(v.shape)}")
+    if v.shape != k.shape:
+        raise ValueError(f"need k, v of one shape, got k {tuple(k.shape)}, "
+                         f"v {tuple(v.shape)}")
     out = torch.empty_like(q)
     if out.numel() == 0:
         return out
@@ -798,8 +843,9 @@ def _flash_launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         geo = flash_geometry(b, s, h, d)
         _raise_on(build.function("flash_attention")(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, s, h,
-            kh, d, *q_strides, *k_strides, window, geo["bq"], geo["bk"],
-            geo["dsplit"], geo["smem_bytes"], _stream(q)), "flash_attention")
+            kh, group, head0, d, *q_strides, *k_strides, window, geo["bq"],
+            geo["bk"], geo["dsplit"], geo["smem_bytes"], _stream(q)),
+            "flash_attention")
     _count(flash_attention, q, b=b, s=s, h=h, kh=kh, d=d, window=window)
     return out
 
@@ -846,28 +892,37 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     return _flash_launch(q, k, v, b=1, s=s, h=h, kh=kh, d=d,
                          q_strides=flash_strides("hsd", s, h, d),
                          k_strides=flash_strides("hsd", s, kh, d),
-                         window=window)
+                         window=window, group=group)
 
 
 def flash_attention_bshd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                         window: int | None = None) -> torch.Tensor:
+                         window: int | None = None, group: int | None = None,
+                         head0: int = 0) -> torch.Tensor:
     """Model-layout flash attention: q (B, S, H, D), k, v (B, S, K, D), rope
     already applied -> (B, S, H, D). One launch for the whole batch, any S
-    (the kernel masks the ragged edge; nothing is padded)."""
+    (the kernel masks the ragged edge; nothing is padded). Query head i
+    reads KV head (``head0`` + i) // ``group`` (default H / K, ``head0``
+    0): a model axis's rank launches its own run of heads, which may start
+    inside a GQA group and end inside another
+    (:class:`~repro_torch.models.parallel.HeadShare`); a rank without
+    heads launches nothing."""
     window = _flash_window(window)
     b, s, h, d = q.shape
     kh = k.shape[2]
-    if kh < 1 or h % kh or tuple(k.shape) != (b, s, kh, d):
-        raise ValueError(f"need k, v (B, S, K, D) with H % K == 0 for q "
-                         f"{tuple(q.shape)}; got k {tuple(k.shape)}")
+    if tuple(k.shape) != (b, s, kh, d):
+        raise ValueError(f"need k, v (B, S, K, D) for q {tuple(q.shape)}; "
+                         f"got k {tuple(k.shape)}")
+    if h == 0:
+        return torch.empty_like(q)
+    group, head0 = _flash_heads(h, kh, group, head0)
     if _is_cpu(q, k, v):
         return ref.flash_attention(
             q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
-            group=h // kh, window=window).transpose(1, 2)
+            group=group, window=window, head0=head0).transpose(1, 2)
     return _flash_launch(q, k, v, b=b, s=s, h=h, kh=kh, d=d,
                          q_strides=flash_strides("bshd", s, h, d),
                          k_strides=flash_strides("bshd", s, kh, d),
-                         window=window)
+                         window=window, group=group, head0=head0)
 
 
 # noise_l1_rows launches csrc/dpps_perturb.cu too, counted under its own

@@ -15,6 +15,9 @@ from __future__ import annotations
 from typing import NamedTuple
 
 import torch
+import torch.nn.functional as F
+
+from repro_torch.core.tree_utils import counted_part
 
 __all__ = [
     "philox4x32_10",
@@ -273,9 +276,22 @@ def l1_norm_tree(leaves, counted=None) -> torch.Tensor:
     ``ops.l1_norm_tree``; mirrors ``repro.kernels.ops.l1_norm_tree``."""
     total = None
     for i, x in enumerate(leaves):
-        norm = l1_norm_rows(x.reshape(x.shape[0], -1), x[0].numel())
-        total = _counted(total, norm, counted is None or counted[i])
+        part = counted_part(x, None if counted is None else counted[i])
+        norm = x.new_zeros((x.shape[0],), dtype=torch.float32) \
+            if part is None else l1_norm_rows(part.reshape(x.shape[0], -1),
+                                              part[0].numel())
+        total = norm if total is None else total + norm
     return total
+
+
+def counted_map(col_map: ColumnMap, keep: slice) -> ColumnMap:
+    """``col_map`` (a block split on the leaf's last dim) cut to the
+    ``keep`` slice of that dim."""
+    if col_map.contiguous:
+        raise ValueError("a part of a leaf is counted only on its last "
+                         f"dim, got the map {tuple(col_map)}")
+    return ColumnMap(col_map.col0, keep.stop - keep.start, col_map.stride,
+                     col_map.off + keep.start)
 
 
 def tree_column_maps(leaves, col_maps=None) -> list:
@@ -290,14 +306,6 @@ def tree_column_maps(leaves, col_maps=None) -> list:
     return [ColumnMap(c0, 1, 1) for c0 in leaf_columns(leaves)]
 
 
-def _counted(total, norm, counted: bool):
-    """``total + norm`` where the leaf's columns are counted here, else
-    ``total + 0 norm`` (the shape, not the value)."""
-    if not counted:
-        norm = torch.zeros_like(norm)
-    return norm if total is None else total + norm
-
-
 def dpps_perturb_tree(s_leaves, eps_leaves, scale, gamma_n: float, *,
                       bits=None, seed: int | None = None,
                       t: int | None = None, node0: int = 0, col_maps=None,
@@ -306,22 +314,40 @@ def dpps_perturb_tree(s_leaves, eps_leaves, scale, gamma_n: float, *,
     (N,), noise_l1 (N,)), the norms summed in leaf order. ``bits`` is one
     uint32 tensor a leaf; otherwise leaf i draws the Philox bits of its wire
     columns (``col0`` = :func:`leaf_columns`, the packed row's bits, or its
-    ``col_maps[i]``). ``counted`` (one bool a leaf; default all) leaves out
-    of the norms a leaf whose columns another rank counts. Plain version of
-    ``ops.dpps_perturb_tree``; mirrors ``repro.kernels.ops.
-    dpps_perturb_tree``."""
+    ``col_maps[i]``). ``counted`` (one entry a leaf, ``core.tree_utils.
+    counted_part``'s;
+    default all) leaves out of the norms the columns another rank counts:
+    a leaf counted in part gives the norms of a second pass over the
+    counted part alone. An empty leaf (a rank without heads) draws
+    nothing. Plain version of ``ops.dpps_perturb_tree``; mirrors
+    ``repro.kernels.ops.dpps_perturb_tree``."""
     out, eps_l1, noise_l1 = [], None, None
     maps = tree_column_maps(s_leaves, col_maps)
     for i, (x, e, cmap) in enumerate(zip(s_leaves, eps_leaves, maps)):
         n, size = x.shape[0], x[0].numel()
-        sn, e1, n1 = dpps_perturb_rows(
-            x.reshape(n, size), e.reshape(n, size), scale, gamma_n, size,
-            bits=_leaf_bits(bits, i, x), seed=seed, t=t, node0=node0,
-            col_map=cmap)
-        out.append(sn.reshape(x.shape))
-        keep = counted is None or counted[i]
-        eps_l1 = _counted(eps_l1, e1, keep)
-        noise_l1 = _counted(noise_l1, n1, keep)
+        keep = None if counted is None else counted[i]
+        zero = x.new_zeros((n,), dtype=torch.float32)
+        if size == 0:
+            out.append(x.clone())
+            e1 = n1 = zero
+        else:
+            lb = _leaf_bits(bits, i, x)
+            sn, e1, n1 = dpps_perturb_rows(
+                x.reshape(n, size), e.reshape(n, size), scale, gamma_n,
+                size, bits=lb, seed=seed, t=t, node0=node0, col_map=cmap)
+            out.append(sn.reshape(x.shape))
+            if keep is False:
+                e1 = n1 = zero
+            elif isinstance(keep, slice):
+                xs, es = x[..., keep], e[..., keep]
+                sub = xs[0].numel()
+                _, e1, n1 = dpps_perturb_rows(
+                    xs.reshape(n, sub), es.reshape(n, sub), scale, gamma_n,
+                    sub, bits=None if lb is None else
+                    bits[i][..., keep].reshape(n, sub), seed=seed, t=t,
+                    node0=node0, col_map=counted_map(cmap, keep))
+        eps_l1 = e1 if eps_l1 is None else eps_l1 + e1
+        noise_l1 = n1 if noise_l1 is None else noise_l1 + n1
     return out, eps_l1, noise_l1
 
 
@@ -371,11 +397,15 @@ def spmm(idx: torch.Tensor, vals: torch.Tensor, x: torch.Tensor) -> torch.Tensor
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     group: int = 1, window: int | None = None,
-                    q_start: int = 0) -> torch.Tensor:
+                    q_start: int = 0, head0: int = 0) -> torch.Tensor:
     """Causal (optionally sliding-window) GQA attention, softmax in f32.
 
-    q (..., H, Sq, D); k, v (..., H // group, Sk, D); query head h reads KV
-    head h // group. Query row i sits at position ``q_start + i``, key j at
+    q (..., H, Sq, D); k, v (..., K, Sk, D); query head h reads KV head
+    (``head0`` + h) // group: H = K group with ``head0`` 0, or a rank's
+    run of heads that starts ``head0`` heads into its first KV head's
+    group (a model axis's :class:`~repro_torch.models.parallel.HeadShare`;
+    computed here over the KV heads' whole groups, the run cut out after).
+    Query row i sits at position ``q_start + i``, key j at
     position j; key j is seen by row i when ``j <= q_start + i`` and, with
     ``window`` >= 0, ``q_start + i - j < window`` (``None`` or < 0: global).
     ``q_start`` lets a caller take the rows of a long sequence in windows
@@ -387,8 +417,13 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     """
     *lead, h, sq, d = q.shape
     kh, sk = k.shape[-3], k.shape[-2]
-    if h != kh * group:
-        raise ValueError(f"{h} query heads != {kh} KV heads x group {group}")
+    if head0 != 0 or h != kh * group:
+        if head0 < 0 or head0 + h > kh * group or (h and head0 >= group):
+            raise ValueError(f"{h} query heads from head {head0} of the "
+                             f"groups of {kh} KV heads x {group}")
+        qp = F.pad(q, (0, 0, 0, 0, head0, kh * group - head0 - h))
+        return flash_attention(qp, k, v, group=group, window=window,
+                               q_start=q_start)[..., head0:head0 + h, :, :]
     qg = q.float().reshape(*lead, kh, group, sq, d)
     scores = torch.einsum("...kgqd,...ktd->...kgqt", qg, k.float()) / \
         torch.sqrt(torch.tensor(float(d)))

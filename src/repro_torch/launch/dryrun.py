@@ -18,16 +18,26 @@ append to a JSON list so long sweeps resume; an ``ok`` row carries
 ``--model-shards M`` (default 1, the rows above) splits each row's model
 over M ranks of the "model" dim (:mod:`repro_torch.models.parallel`) and
 counts one rank: its FLOPs, bytes, peak, ``fits`` and the collectives
-its model axis charges on meta, the backward's among them (``mesh`` is
-``model<M>`` for a serve row, ``nodes<N>+model<M>`` for a train row).
-The data dim stays 1: a serve row's batch is whole on the rank
-(``batch_whole`` in the row), a train row's rank holds all N nodes' rows
-of its shard (a (1, M) mesh's rank; ``build_train_plan(arch, N,
-model_shards=M)``). Every group kind splits; the mLSTM's gather of ``u``
-is an all-reduce into a zero-filled buffer (as the vocabulary gather is),
-so it counts under "all-reduce" in ``coll_calls``, as the c10d calls do.
-A row whose model M does not split (a dim M does not divide) is skipped
-with the reason.
+its model axis charges on meta, the backward's among them. ``--data-shards
+D`` (default 1) splits the data dim too: a train row's N node rows (a
+rank holds N / D, the gossip's all-gathers and node reductions charged),
+a serve row's batch, or, for a decode of global batch 1 (long_500k), each
+KV cache's slots (the reference's ``shard_seq``: the batch and the
+recurrent states whole on the rank, each attention's data ranks merged by
+a MAX and a SUM all-reduce). ``--mesh pod16x16`` / ``pod2x16x16`` are the
+reference's production meshes (``repro/launch/mesh.py``): data 16 (32
+over data x pod, the node count too) and model 16. A row's model rank is
+the busiest (the most query heads, then KV heads: M need not divide H,
+:meth:`~repro_torch.models.parallel.ModelAxis.span`), named in the row
+(``model_rank``, ``heads``, ``kv_heads``), its data rank 0 (``mesh`` is
+``model<M>`` / ``data<D>+model<M>`` for a serve row,
+``nodes<N>+model<M>`` / ``nodes<N>+data<D>+model<M>`` for a train row,
+or the production mesh's name). Every group kind splits; the mLSTM's
+gather of ``u`` is an all-reduce into a zero-filled buffer (as the
+vocabulary gather is), so it counts under "all-reduce" in
+``coll_calls``, as the c10d calls do. A row whose model M does not split
+(a leaf dim of the reference's "model" pspecs that M does not divide) is
+skipped with the reason.
 """
 from __future__ import annotations
 
@@ -57,22 +67,46 @@ def _variant(schedule: str, param_dtype: str | None, two_pass: bool | None,
         + ([f"cache-{cache_dtype}"] if cache_dtype else []))
 
 
-def _mesh_name(kind: str, nodes: int, model_shards: int) -> str:
-    if model_shards == 1:
+# the reference's production meshes: (data shards, model shards, nodes)
+MESHES = {"pod16x16": (16, 16, 16), "pod2x16x16": (32, 16, 32)}
+
+
+def _mesh_name(kind: str, nodes: int, model_shards: int,
+               data_shards: int = 1) -> str:
+    if model_shards == 1 and data_shards == 1:
         return f"nodes{nodes}"
-    return f"nodes{nodes}+model{model_shards}" if kind == "train" \
-        else f"model{model_shards}"
+    parts = ([f"nodes{nodes}"] if kind == "train" else []) \
+        + ([f"data{data_shards}"] if data_shards > 1 else []) \
+        + [f"model{model_shards}"]
+    return "+".join(parts)
+
+
+def busiest_rank(cfg, model_shards: int) -> tuple[int, int, int]:
+    """(rank, query heads, KV heads) of the model rank holding the most
+    query heads, then KV heads (the first of them)."""
+    axis = [ModelAxis(size=model_shards, rank=r) for r in range(model_shards)]
+    load = [(a.span(cfg.n_heads), a.kv_heads(cfg.n_heads, cfg.n_kv_heads))
+            for a in axis]
+    size = [(q.stop - q.start, k.stop - k.start) for q, k in load]
+    r = size.index(max(size))
+    return r, *size[r]
 
 
 def run_one(arch_name: str, shape_name: str, *, nodes: int = 16,
             schedule: str = "dense", param_dtype: str | None = None,
             two_pass: bool | None = None, cache_dtype: str | None = None,
             carry_cache: bool = False, model_shards: int = 1,
+            data_shards: int = 1, mesh: str | None = None,
             verbose: bool = True) -> dict:
+    """One row; ``mesh`` (a name of :data:`MESHES`) sets ``data_shards``,
+    ``model_shards`` and ``nodes``."""
+    if mesh is not None:
+        data_shards, model_shards, nodes = MESHES[mesh]
     arch = get_config(arch_name)
     shape = INPUT_SHAPES[shape_name]
-    sharded = model_shards > 1
-    mesh_name = _mesh_name(shape.kind, nodes, model_shards)
+    sharded = model_shards > 1 or data_shards > 1
+    mesh_name = mesh or _mesh_name(shape.kind, nodes, model_shards,
+                                   data_shards)
     if not arch.runs_shape(shape_name):
         return {"arch": arch_name, "shape": shape_name, "mesh": mesh_name,
                 "status": "skipped", "reason": SKIP_REASON}
@@ -83,6 +117,7 @@ def run_one(arch_name: str, shape_name: str, *, nodes: int = 16,
             return {"arch": arch_name, "shape": shape_name, "mesh": mesh_name,
                     "status": "skipped",
                     "reason": f"{type(e).__name__}: {e}"}
+    rank, heads, kv_heads = busiest_rank(arch.model, model_shards)
     variant = _variant(schedule, param_dtype, two_pass, cache_dtype)
     t0 = time.time()
     try:
@@ -91,10 +126,12 @@ def run_one(arch_name: str, shape_name: str, *, nodes: int = 16,
                                     schedule=schedule,
                                     param_dtype=param_dtype,
                                     two_pass=two_pass,
-                                    model_shards=model_shards)
+                                    model_shards=model_shards,
+                                    model_rank=rank, data_shards=data_shards)
         else:
-            plan = build_serve_plan(arch, model_shards if sharded else None,
-                                    shape_name=shape_name,
+            axis = ModelAxis(size=model_shards, rank=rank,
+                             data_size=data_shards) if sharded else None
+            plan = build_serve_plan(arch, axis, shape_name=shape_name,
                                     param_dtype=param_dtype,
                                     cache_dtype=cache_dtype,
                                     carry_cache=carry_cache)
@@ -109,9 +146,14 @@ def run_one(arch_name: str, shape_name: str, *, nodes: int = 16,
         })
         if sharded:
             row.update({"model_shards": model_shards,
+                        "data_shards": data_shards, "model_rank": rank,
+                        "heads": heads, "kv_heads": kv_heads,
                         "coll_calls": dict(terms.coll_calls)})
-            row["nodes_whole" if shape.kind == "train"
-                else "batch_whole"] = True
+            if shape.kind != "train":
+                row["seq_sharded"] = plan.model.axis.seq_split
+            if data_shards == 1:
+                row["nodes_whole" if shape.kind == "train"
+                    else "batch_whole"] = True
         if verbose:
             print(f"[{arch_name} x {shape_name} x {mesh_name} x {variant}] OK "
                   f"trace={trace_s:.1f}s")
@@ -156,6 +198,15 @@ def main(argv=None) -> None:
                          "of the mesh's 'model' dim (the data dim 1: a "
                          "serve row's batch, a train row's nodes whole on "
                          "the rank)")
+    ap.add_argument("--data-shards", type=int, default=1,
+                    help="one rank of the mesh's 'data' dim of this many "
+                         "ranks: a train row's node rows, a serve row's "
+                         "batch, a long_500k decode's KV slots")
+    ap.add_argument("--mesh", choices=tuple(MESHES), default=None,
+                    help="the reference's production mesh: pod16x16 (data "
+                         "16, model 16, 16 nodes) or pod2x16x16 (data x pod "
+                         "32, model 16, 32 nodes); sets --nodes, "
+                         "--data-shards and --model-shards")
     ap.add_argument("--all", action="store_true",
                     help="sweep every (arch x shape)")
     ap.add_argument("--out", default=None, help="append JSON rows to this file")
@@ -177,8 +228,9 @@ def main(argv=None) -> None:
     t_all = time.time()
     for arch_name in archs:
         for shape_name in shapes:
-            mesh_name = _mesh_name(INPUT_SHAPES[shape_name].kind, args.nodes,
-                                   args.model_shards)
+            mesh_name = args.mesh or _mesh_name(
+                INPUT_SHAPES[shape_name].kind, args.nodes, args.model_shards,
+                args.data_shards)
             key = (arch_name, shape_name, mesh_name, variant)
             if key in done:
                 print(f"[{arch_name} x {shape_name} x {mesh_name}] cached")
@@ -188,7 +240,8 @@ def main(argv=None) -> None:
                           param_dtype=args.param_dtype, two_pass=two_pass,
                           cache_dtype=args.cache_dtype,
                           carry_cache=args.carry_cache,
-                          model_shards=args.model_shards)
+                          model_shards=args.model_shards,
+                          data_shards=args.data_shards, mesh=args.mesh)
             rows = [r for r in rows
                     if (r["arch"], r["shape"], r["mesh"],
                         r.get("schedule", "dense")) != key]

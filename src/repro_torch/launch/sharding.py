@@ -54,7 +54,8 @@ from repro_torch.launch.mesh import as_model_axis, gossip_axes, n_gossip_nodes
 
 __all__ = ["node_rows", "train_state_shardings", "train_batch_shardings",
            "shard_rows", "gather_rows", "all_gather_rows", "gossip_axis",
-           "serve_param_shardings", "serve_cache_shardings", "shard_params",
+           "serve_param_shardings", "serve_cache_shardings", "shard_cache",
+           "shard_params",
            "gather_params", "train_state_pspecs", "shard_train_state",
            "gather_train_state", "train_state_blocks", "train_columns"]
 
@@ -134,12 +135,27 @@ def shard_rows(tree: PyTree, mesh) -> PyTree:
 def all_gather_rows(x: torch.Tensor, group, n_shards: int) -> torch.Tensor:
     """Every rank's ``x`` (B, ...) stacked in rank order -> (n_shards B,
     ...): one all-gather over ``group`` into a fresh tensor, even where the
-    group has one rank."""
+    group has one rank; ``group`` None on meta: charged, not issued (the
+    dry run's rank of a data dim)."""
     full = x.new_empty((n_shards * x.shape[0],) + tuple(x.shape[1:]))
+    if group is None:  # the dry run's rank of a data dim: charged on meta
+        _charge_on_meta(x, "all-gather")
+        return full
     # all_gather_into_tensor: torch 2.11 has no all_gather_single, and
     # torch 2.13 keeps the older name (deprecated) as a call to it
     dist.all_gather_into_tensor(full, x.contiguous(), group=group)
     return full
+
+
+def _charge_on_meta(x: torch.Tensor, kind: str) -> None:
+    """Charge one collective of ``kind`` on ``x`` to the active cost count
+    (a rank without a process group: the dry run's, on meta only)."""
+    from repro_torch.core import loops
+
+    if not x.is_meta:
+        raise RuntimeError("a data dim of more than one rank needs a "
+                           "process group (launch.mesh)")
+    loops.charge_collective(kind, x.numel() * x.element_size())
 
 
 def gather_rows(tree: PyTree, mesh) -> PyTree:
@@ -186,10 +202,29 @@ def serve_cache_shardings(model, mesh, *, batch: int, capacity: int,
     """The cache tree (``batch`` sequences, ``capacity`` slots) of what
     this rank holds: its batch rows over "data" (the reference's
     ``batch_axis="data"``) and its KV heads (the reference replicates KV
-    unless 16 divides K). ``shard_seq`` with a data dim above 1 raises
-    ``NotImplementedError``."""
+    unless 16 divides K); with ``shard_seq`` (the reference's
+    ``seq_axis="data"``, a decode of global batch 1) its block of each KV
+    leaf's slots over "data" in place of batch rows (a ``ValueError``
+    where they do not divide), the recurrent states whole over "data"."""
     return _nest(_rank_model(model, mesh).cache_shards(
         batch, capacity, shard_seq=shard_seq))
+
+
+def shard_cache(cache: PyTree, mesh, model, *, batch: int, capacity: int,
+                shard_seq: bool = False) -> PyTree:
+    """This rank's part of a whole model's (``batch``, ``capacity``)
+    cache, by :func:`serve_cache_shardings` (a prefill's cache cut to be
+    decoded sequence-sharded: the reference has no sequence-sharded
+    prefill): new tensors, a leaf held whole copied too (a decode writes
+    its cache in place)."""
+    from repro_torch.models.parallel import take
+
+    shards = _rank_model(model, mesh).cache_shards(batch, capacity,
+                                                    shard_seq=shard_seq)
+    pairs, treedef = tree_flatten_with_path(cache)
+    return tree_unflatten(treedef, [
+        x.clone() if shards[p] is None else take(x, shards[p])
+        for p, x in pairs])
 
 
 def shard_params(params: PyTree, mesh, model) -> PyTree:
@@ -197,26 +232,41 @@ def shard_params(params: PyTree, mesh, model) -> PyTree:
     return _rank_model(model, mesh).shard_params(params)
 
 
-def _gather_model(x: torch.Tensor, per_rank: list, group) -> torch.Tensor:
-    """The whole leaf from every model rank's block ``x``: one all-gather
-    over ``group``, the blocks joined in rank order along their dim (each
-    half of it for a ``Halves`` block), a block several ranks hold (a
-    replicated KV head) taken once. ``per_rank`` is each rank's (dim,
-    slice) pairs of the leaf (None: held whole)."""
-    from repro_torch.models.parallel import Halves
+def _block_of(pairs) -> slice:
+    """A model block's run of its dim (each half's, for a ``Halves``)."""
+    sl = pairs[0][1]
+    return slice(sl.start, sl.stop)
+
+
+def _gather_model(x: torch.Tensor, per_rank: list, axis) -> torch.Tensor:
+    """The whole leaf from every model rank's block ``x``: an all-reduce
+    over "model" of a zero-filled whole leaf into which each rank writes
+    the part of its block that no earlier rank holds
+    (:func:`~repro_torch.models.parallel.owned_runs`: a KV head several
+    ranks hold is written once), exact for blocks of any sizes, empty
+    ones too (each half of the dim for a ``Halves`` block). ``per_rank``
+    is each rank's (dim, slice) pair of the leaf (None: held whole)."""
+    from repro_torch.models.parallel import Halves, owned_runs
 
     if per_rank[0] is None:
         return x
-    parts = [torch.empty_like(x) for _ in per_rank]
-    dist.all_gather(parts, x.contiguous(), group=group)
-    starts = [pairs[0][1].start for pairs in per_rank]
-    keep = [part for r, part in enumerate(parts)  # a replicated head once
-            if starts.index(starts[r]) == r]
-    dim, sl = per_rank[0][0]
-    if isinstance(sl, Halves):
-        return torch.cat([p.unflatten(dim, (2, -1)) for p in keep],
-                         dim=dim + 1).flatten(dim, dim + 1)
-    return torch.cat(keep, dim=dim)
+    (dim, sl), = per_rank[axis.rank]
+    runs = [_block_of(pairs) for pairs in per_rank]
+    own = owned_runs(runs)[axis.rank]
+    width = max(r.stop for r in runs)
+    halves = isinstance(sl, Halves)
+    shape = list(x.shape)
+    shape[dim] = 2 * width if halves else width
+    full = x.new_zeros(shape)
+    src, dst = x, full
+    if halves:
+        src, dst, dim = x.unflatten(dim, (2, -1)), full.unflatten(
+            dim, (2, -1)), dim + 1
+    n = own.stop - own.start
+    dst.narrow(dim, own.start, n).copy_(src.narrow(dim, own.start - sl.start,
+                                                   n))
+    dist.all_reduce(full, group=axis.group)
+    return full
 
 
 def _per_rank_shards(model, axis) -> list[dict]:
@@ -238,7 +288,7 @@ def gather_params(shards: PyTree, mesh, model) -> PyTree:
     per_rank = _per_rank_shards(model, axis)
     pairs, treedef = tree_flatten_with_path(shards)
     return tree_unflatten(treedef, [
-        _gather_model(x, [sh[path] for sh in per_rank], axis.group)
+        _gather_model(x, [sh[path] for sh in per_rank], axis)
         for path, x in pairs])
 
 
@@ -329,25 +379,27 @@ def gather_train_state(state: PyTree, mesh, model, partition) -> PyTree:
         blocks = iter(_state_blocks(state, shared + local))
         leaves, treedef = tree_flatten(state)
         state = tree_unflatten(treedef, [
-            _gather_model(x, next(blocks) or [None], axis.group)
+            _gather_model(x, next(blocks) or [None], axis)
             if _is_node_leaf(x) else x for x in leaves])
     return gather_rows(state, mesh)
 
 
 def train_columns(model, partition, axis) -> tuple[list, list]:
     """(counted, col_maps) of each shared leaf of rank ``axis`` (a
-    ``ModelAxis``) of ``model``'s architecture: whether this rank counts
-    the leaf's columns in a per-node norm (columns several ranks hold, a
-    replicated leaf's or a shared KV head's, count on the first of them),
-    and its wire columns in the whole model's wire row
+    ``ModelAxis``) of ``model``'s architecture: which of the leaf's
+    columns this rank counts in a per-node norm (columns several ranks
+    hold, a replicated leaf's or a KV head's that two ranks' query heads
+    read, count on the first of them): True (all), False (none), or a
+    slice of the leaf's last dim (a run of KV heads whose first another
+    rank counts); and its wire columns in the whole model's wire row
     (``kernels.ref.ColumnMap``: the whole leaf's first column, and the
     rank's block of it; for Mamba2's ``w_in`` (a ``Halves`` block) one map
-    of the leaf viewed as (..., d, 2, d_inner): runs of the rank's
-    d_inner / M columns, a stride of d_inner)."""
+    of the leaf viewed as (..., d, 2, d_inner): runs of the rank's heads'
+    columns, a stride of d_inner)."""
     import math
 
     from repro_torch.kernels.ref import ColumnMap
-    from repro_torch.models.parallel import Halves
+    from repro_torch.models.parallel import Halves, owned_runs
     from repro_torch.models.transformer import Transformer
 
     whole = {p: tuple(x.shape) for p, x in tree_flatten_with_path(
@@ -360,20 +412,32 @@ def train_columns(model, partition, axis) -> tuple[list, list]:
         shape = whole[path]
         if isinstance(action, tuple):  # the shared layers [:k]
             shape = (int(action[1]),) + shape[1:]
-        starts = [None if sh[path] is None else sh[path][0][1].start
-                  for sh in per_rank]
-        counted.append(starts.index(starts[axis.rank]) == axis.rank)
         pairs = per_rank[axis.rank][path]
         if pairs is None:
+            counted.append(axis.rank == 0)
             col_maps.append(ColumnMap(col0, 1, 1))
+            col0 += math.prod(shape)
+            continue
+        runs = [_block_of(sh[path]) for sh in per_rank]
+        mine, own = runs[axis.rank], owned_runs(runs)[axis.rank]
+        dim, sl = pairs[0]
+        if own == mine or mine.stop == mine.start:
+            counted.append(True)
+        elif own.stop == own.start:
+            counted.append(False)
+        else:  # KV heads: the leaf's last dim
+            assert dim == len(shape) - 1, (path, dim)
+            counted.append(slice(own.start - mine.start,
+                                 own.stop - mine.start))
+        trail = math.prod(shape[dim + 1:])
+        width = shape[dim] // 2 if isinstance(sl, Halves) else shape[dim]
+        run = (sl.stop - sl.start) * trail
+        if run == 0:  # a rank without heads holds none of the leaf
+            col_maps.append(ColumnMap(col0, 1, 1))
+        elif dim == 0:  # a block of the leading dim: a run of columns
+            col_maps.append(ColumnMap(col0 + sl.start * trail, 1, 1))
         else:
-            dim, sl = pairs[0]
-            trail = math.prod(shape[dim + 1:])
-            width = shape[dim] // 2 if isinstance(sl, Halves) else shape[dim]
-            cmap = ColumnMap(col0, (sl.stop - sl.start) * trail,
-                             width * trail, sl.start * trail)
-            # a block of the leading dim is a contiguous run of columns
-            col_maps.append(ColumnMap(col0 + cmap.off, 1, 1) if dim == 0
-                            else cmap)
+            col_maps.append(ColumnMap(col0, run, width * trail,
+                                      sl.start * trail))
         col0 += math.prod(shape)
     return counted, col_maps

@@ -49,6 +49,7 @@ from repro_torch.launch.flops import model_flops
 from repro_torch.launch.mesh import (as_model_axis, gossip_axes, model_axis,
                                      n_gossip_nodes)
 from repro_torch.launch.op_analysis import RooflineTerms, analyze_step
+from repro_torch.models.parallel import ModelAxis
 from repro_torch.models.transformer import Transformer
 
 __all__ = ["TrainPlan", "ServePlan", "build_train_plan", "build_serve_plan"]
@@ -80,15 +81,18 @@ class TrainPlan:
     # column ops of its shard of the shared leaves
     mesh: Any = None
     columns: ColumnOps = LOCAL_COLUMN_OPS
+    # the dry run's rank of a data dim without a mesh: its N / D node rows,
+    # the gossip's collectives charged on meta
+    data_shards: int = 1
     # the mix arguments and the data seams, made once a device
     _mix: dict = dataclasses.field(default_factory=dict, repr=False)
 
     @property
     def data(self) -> tuple[Any, int, int]:
-        """(group, size, rank) of the mesh's gossip ("data") dim; (None, 1,
-        0) without a mesh."""
+        """(group, size, rank) of the mesh's gossip ("data") dim; (None, D,
+        0) without a mesh (``data_shards`` D, the dry run's rank 0)."""
         if self.mesh is None:
-            return None, 1, 0
+            return None, self.data_shards, 0
         (name,) = gossip_axes(self.mesh)
         size = dict(zip(self.mesh.mesh_dim_names, self.mesh.shape))[name]
         return self.mesh.get_group(name), size, self.mesh.get_local_rank(name)
@@ -175,13 +179,14 @@ class TrainPlan:
 
     def cost(self) -> RooflineTerms:
         """The step's roofline terms, counted on meta tensors: one rank's
-        over a model axis, its collectives charged as the ranks would
-        issue them."""
+        over a model axis (and its data dim's node rows), its collectives
+        charged as the ranks would issue them."""
         m = self.model.axis.size
         terms = analyze_step(
             self.step_fn, *self.abstract_args(), arch=self.arch.name,
             shape=self.shape.name, nodes=self.n_nodes,
-            model_flops=model_flops(self.arch, self.shape) / m,
+            model_flops=model_flops(self.arch, self.shape) / (
+                m * self.data[1]),
             compute_dtype=self.model.cfg.param_dtype)
         if m > 1:
             terms.mesh = f"nodes{self.n_nodes}+model{m}"
@@ -263,7 +268,8 @@ class ServePlan:
         terms = analyze_step(
             self.step_fn, *self.abstract_args(), arch=self.arch.name,
             shape=self.shape.name, nodes=1,
-            model_flops=model_flops(self.arch, self.shape) / m,
+            model_flops=model_flops(self.arch, self.shape) / (
+                m * self.model.axis.data_size),
             compute_dtype=self.model.cfg.param_dtype)
         if m > 1:
             terms.mesh = f"model{m}"
@@ -283,20 +289,26 @@ def build_train_plan(
     two_pass: bool | None = None,     # SPerf knob: False = fused grads
     nodes: int | None = None,
     model_shards: int = 1,
+    model_rank: int = 0,
+    data_shards: int = 1,
 ) -> TrainPlan:
     """The reference's plan. ``n_nodes`` is the node count, or a mesh whose
     gossip axes give it, as the reference's ``mesh`` does (``nodes``
     replaces that count: N / D node rows a data rank). A
     ``DeviceMesh`` of ("data", "model") dims makes the plan its rank's:
     the rank's node rows and its shard of the model
-    (:mod:`repro_torch.models.parallel`: every group kind; an M that does
-    not divide H, d_ff, E, V or a Mamba2 group's heads raises), the
+    (:mod:`repro_torch.models.parallel`: every group kind, by whole
+    heads; an M that does not divide a leaf dim the reference's pspecs
+    put on "model" raises), the
     model's data dim 1 (each node routes its own batch). An
-    int with ``model_shards`` M > 1 is rank 0 of M with no process group
-    (every node on the rank), for the dry run's meta count only.
+    int with ``model_shards`` M > 1 is rank ``model_rank`` of M with no
+    process group, and ``data_shards`` D > 1 its N / D node rows (the
+    gossip's all-gathers and the node reductions charged, not issued),
+    for the dry run's meta count only.
     ``shape`` (a ``ShapeSpec`` of kind "train") replaces ``shape_name``."""
-    mesh, axis = None, as_model_axis(model_shards if model_shards > 1
-                                     else None)
+    mesh, axis = None, as_model_axis(
+        ModelAxis(size=model_shards, rank=model_rank) if model_shards > 1
+        else None)
     if _is_device_mesh(n_nodes):
         mesh = n_nodes
         axis = dataclasses.replace(model_axis(mesh), data_size=1,
@@ -338,14 +350,22 @@ def build_train_plan(
     if mesh is not None or axis.size > 1:
         from repro_torch.launch.sharding import train_columns
 
-        block = n_nodes // (n_gossip_nodes(mesh) if mesh is not None else 1)
+        block = n_nodes // (n_gossip_nodes(mesh) if mesh is not None
+                            else data_shards)
         batch_specs = tree_map(lambda x: x[:block], batch_specs)
         counted, col_maps = train_columns(model, partition, axis)
         columns = ColumnOps(col_sum=axis.sum_columns, counted=counted,
                             col_maps=col_maps)
+    elif data_shards > 1:
+        batch_specs = tree_map(lambda x: x[:n_nodes // data_shards],
+                               batch_specs)
+    if mesh is None and n_nodes % data_shards:
+        raise ValueError(f"node count {n_nodes} must divide evenly over "
+                         f"{data_shards} gossip shards")
     return TrainPlan(arch=arch, model=model, partition=partition, cfg=cfg,
                      topology=topo, shape=shape, n_nodes=n_nodes,
-                     batch_specs=batch_specs, mesh=mesh, columns=columns)
+                     batch_specs=batch_specs, mesh=mesh, columns=columns,
+                     data_shards=1 if mesh is not None else data_shards)
 
 
 def _is_device_mesh(x) -> bool:
@@ -370,11 +390,16 @@ def build_serve_plan(arch: ArchSpec, mesh: Any = None, *,
 
     ``mesh`` (a ``DeviceMesh`` of ("data", "model") dims) makes the plan
     this rank's: its model is split over the "model" dim
-    (:mod:`repro_torch.models.parallel`: every group kind; an M that does
-    not divide H, d_ff, E, V or a Mamba2 group's heads raises), its batch
-    (and a VLM's image embeddings) over "data". An int M is rank 0 of M with
-    no process group, for the dry run's meta count only; None (the
-    default) is the whole model on one process, today's plan."""
+    (:mod:`repro_torch.models.parallel`: every group kind, by whole heads
+    whatever H; an M that does not divide a leaf dim the reference's
+    pspecs put on "model" raises), its batch (and a VLM's image
+    embeddings) over "data"; a decode of global batch 1 (long_500k) sets
+    the reference's ``shard_seq``: each KV cache's slots over "data"
+    instead, the batch and the recurrent states whole on every data rank.
+    An int M is rank 0 of M with no process group, and a ``ModelAxis``
+    without groups names a rank of a (data, model) mesh, for the dry run's
+    meta count only; None (the default) is the whole model on one
+    process, today's plan."""
     shape = _shape(shape_name, shape)
     assert shape.kind in ("prefill", "decode"), shape
     model_cfg = dataclasses.replace(arch.model, flash_prefill=True)
@@ -382,8 +407,12 @@ def build_serve_plan(arch: ArchSpec, mesh: Any = None, *,
         model_cfg = dataclasses.replace(model_cfg, param_dtype=param_dtype)
     if carry_cache:
         model_cfg = dataclasses.replace(model_cfg, decode_cache_in_carry=True)
+    axis = as_model_axis(mesh)
+    if shape.kind == "decode" and shape.global_batch == 1:
+        # long_500k: the KV slots over "data" (the reference's shard_seq)
+        axis = dataclasses.replace(axis, shard_seq=True)
     return ServePlan(arch=arch,
-                     model=Transformer(model_cfg, axis=as_model_axis(mesh)),
+                     model=Transformer(model_cfg, axis=axis),
                      kind=shape.kind, shape=shape,
                      batch_specs=serve_batch_specs(arch, shape),
                      cache_dtype=cache_dtype)

@@ -5,8 +5,9 @@ The self-attention arithmetic lives in :mod:`repro_torch.models.
 transformer`, as in the reference. Cross-attention (the VLM's gated
 image layers) is the plain einsum with materialised scores, as in the
 reference, which has no kernel for it. Over a model axis it runs on the
-rank's heads (``n_heads`` / ``n_kv_heads`` the rank's, its ``wq`` /
-``wk`` / ``wv`` column blocks and ``wo`` row block); the ``wo`` partial
+rank's heads (a :class:`~repro_torch.models.parallel.HeadShare`: its
+``wq`` columns and ``wo`` rows, the KV heads they read of ``wk`` /
+``wv``, which may be parts of two GQA groups); the ``wo`` partial
 is summed over "model" before the tanh gate scales it, so the gate's
 gradient is whole on every rank.
 """
@@ -48,20 +49,24 @@ def cross_attention(params: dict, x: torch.Tensor, enc: torch.Tensor, *,
                     n_heads: int, n_kv_heads: int, head_dim: int,
                     axis: ModelAxis = NO_AXIS) -> torch.Tensor:
     """x (B, S, d_model) attends, unmasked, over ``enc`` (B, M, d_model),
-    the image embeddings; the output is scaled by tanh(gate). Over
-    ``axis``: ``x`` and ``enc`` enter the rank's heads through its
-    copy-to-model, the heads' ``wo`` partial leaves through its sum."""
+    the image embeddings; the output is scaled by tanh(gate). ``n_heads``
+    / ``n_kv_heads``: the whole model's. Over ``axis``: the rank's heads
+    (:meth:`ModelAxis.attn_heads`), ``x`` and ``enc`` entering them
+    through its copy-to-model, the heads' ``wo`` partial leaving through
+    its sum."""
+    share = axis.attn_heads(n_heads, n_kv_heads)
     x, enc = axis.copy(x), axis.copy(enc)
     b, s, _ = x.shape
-    group = n_heads // n_kv_heads
-    q = (x @ params["wq"]).reshape(b, s, n_kv_heads, group, head_dim)
-    k = (enc @ params["wk"]).reshape(b, -1, n_kv_heads, head_dim)
-    v = (enc @ params["wv"]).reshape(b, -1, n_kv_heads, head_dim)
-    scores = torch.einsum("bskgd,btkd->bkgst", q.float(), k.float()) / \
+    m = enc.shape[1]
+    q = (x @ params["wq"]).reshape(b, s, share.h, head_dim)
+    k = (enc @ params["wk"]).reshape(b, m, share.kv, head_dim)
+    v = (enc @ params["wv"]).reshape(b, m, share.kv, head_dim)
+    qg, back = share.grid(q)
+    scores = torch.einsum("bskgd,btkd->bkgst", qg.float(), k.float()) / \
         math.sqrt(head_dim)
     probs = torch.softmax(scores, dim=-1)
-    out = torch.einsum("bkgst,btkd->bskgd", probs, v.float())
-    out = out.reshape(b, s, n_heads * head_dim).to(x.dtype)
+    out = back(torch.einsum("bkgst,btkd->bskgd", probs, v.float()))
+    out = out.reshape(b, s, share.h * head_dim).to(x.dtype)
     gate = torch.tanh(params["gate"].float()).to(x.dtype)
     return axis.reduce(out @ params["wo"]) * gate
 

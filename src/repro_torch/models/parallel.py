@@ -4,20 +4,26 @@ stand-in for what GSPMD derives from the reference's pspecs,
 ``repro/launch/steps.py:95-218``).
 
 Rank r of M holds the reference's pspecs applied by rank
-(:func:`leaf_sharding`): query heads ``[r H/M, (r+1) H/M)`` of ``wq`` and
-the rows of ``wo`` that read them, the KV heads those query heads read of
-``wk`` / ``wv`` (K/M of them where M divides K; where K divides M the one
-head of its M/K ranks, whole on each), column blocks of ``w_up`` /
-``w_gate`` and row blocks of ``w_down`` (the dense MLP and the shared
-expert), experts ``[r E/M, (r+1) E/M)``, vocabulary rows of ``embed`` and
-columns of ``lm_head``; norms and the router whole. Its KV cache follows
-its KV heads. The recurrent and cross-attention groups split by head too:
-an mLSTM's ``w_up`` / ``w_q`` / ``w_k`` / ``w_v`` / ``w_o`` column
-blocks and ``w_down`` row block are its heads' (``n_heads`` of the
-config), a Mamba2 layer's ``w_in`` the ``x`` and the gate ``z`` columns of
-its ``nh / M`` heads (:class:`Halves`) and ``w_out`` their rows, a cross
-layer's ``wq`` / ``wk`` / ``wv`` / ``wo`` as self-attention's; an mLSTM
-cache its heads' ``C`` / ``n`` / ``m``, a Mamba2 cache its heads' ``h``.
+(:func:`leaf_sharding`), by whole heads: query heads ``[floor(r H / M),
+floor((r + 1) H / M))`` (:func:`span`: runs whose lengths differ by at
+most one, empty where M > H) of ``wq`` and the rows of ``wo`` that read
+them, the KV heads those query heads read of ``wk`` / ``wv`` (a KV head
+that several ranks' query heads read is whole on each of them; a GQA
+group may straddle two ranks: :class:`HeadShare`), column blocks of
+``w_up`` / ``w_gate`` and row blocks of ``w_down`` (the dense MLP and the
+shared expert), experts ``[r E/M, (r+1) E/M)``, vocabulary rows of
+``embed`` and columns of ``lm_head``; norms and the router whole. M need
+divide only the leaf dims the reference's pspecs put on "model"
+(:meth:`ModelAxis.check`), not the head counts. Its KV cache follows its
+KV heads, and with the reference's ``shard_seq`` (a decode of global
+batch 1) its slots split over "data". The recurrent and cross-attention
+groups split by head too: an mLSTM's ``w_q`` / ``w_k`` / ``w_v`` /
+``w_o`` column runs and ``w_down`` row run are its heads' (``n_heads`` of
+the config; ``w_up`` in M even blocks, its ``u`` gathered whole), a
+Mamba2 layer's ``w_in`` the ``x`` and the gate ``z`` columns of its heads
+of nh (:class:`Halves`) and ``w_out`` their rows, a cross layer's ``wq``
+/ ``wk`` / ``wv`` / ``wo`` as self-attention's; an mLSTM cache its heads'
+``C`` / ``n`` / ``m``, a Mamba2 cache its heads' ``h``.
 The sLSTM, the gates' and the SSM's small leaves (``w_if``, ``b_if``,
 ``w_b``, ``w_c``, ``w_dt``, ``b_dt``, ``a_log``, ``d_skip``) and a cross
 layer's ``gate`` stay whole. A data dim of the mesh splits the batch into
@@ -41,7 +47,10 @@ Every collective goes through one :class:`ModelAxis`:
 * :meth:`ModelAxis.gather_rows`, the MoE groups' routed tokens gathered
   over "data" the same way, so routing, capacity and drops are the
   whole batch's, as the reference's GSPMD program computes them (only
-  where the data dim is above 1: a data dim of one issues nothing).
+  where the data dim is above 1 and splits the batch);
+* :meth:`ModelAxis.seq_max` and :meth:`ModelAxis.seq_sum`, the MAX and
+  the SUM over "data" that merge the data ranks' partials of a decode's
+  attention where the KV slots are split (:attr:`ModelAxis.seq_split`).
 
 Training (grad enabled) runs the same sums as collectives autograd sees,
 in the Megatron pattern: :meth:`ModelAxis.reduce` is then
@@ -58,8 +67,8 @@ each whole leaf that a head-split block reads only in part (the mLSTM's
 summed over "model" so that it is whole on every rank and counted once.
 :meth:`ModelAxis.gather` is then *gather-to-model* (backward the SUM of
 the ranks' partial gradients of the whole ``u``, then the rank's block).
-A KV head that M/K ranks share sums its ``wk`` / ``wv`` gradient over
-them (:meth:`ModelAxis.shared_kv`), and the loss is vocabulary-parallel
+A KV head that several ranks hold sums its ``wk`` / ``wv`` gradient
+over them (:meth:`ModelAxis.shared_kv`), and the loss is vocabulary-parallel
 (:meth:`ModelAxis.cross_entropy`): no (..., V) logits cross the wire.
 Without grad (serving) the ops are the in-place all-reduces they were.
 A training axis has a data dim of 1: there "data" splits the nodes of
@@ -87,7 +96,8 @@ import torch.nn.functional as F
 from repro_torch.core import loops
 
 __all__ = ["ModelAxis", "NO_AXIS", "SHARDED_KINDS", "MAMBA2_HEAD_DIM",
-           "Halves", "leaf_sharding", "take", "mamba2_heads"]
+           "Halves", "HeadShare", "leaf_sharding", "take", "mamba2_heads",
+           "span", "owned_runs"]
 
 # the group kinds the model axis splits: all of them
 SHARDED_KINDS = ("attn", "moe", "xlstm", "mamba", "zamba", "cross_self")
@@ -112,6 +122,69 @@ class Halves:
     stop: int
 
 
+def span(n: int, size: int, rank: int) -> slice:
+    """Rank ``rank``'s items of ``n`` over ``size`` ranks: ``[floor(rank n /
+    size), floor((rank + 1) n / size))``, whole items in runs whose lengths
+    differ by at most one, empty runs where ``size > n``."""
+    return slice(rank * n // size, (rank + 1) * n // size)
+
+
+def _kv_of(q: slice, group: int) -> slice:
+    """The KV heads query heads ``q`` read (head h reads KV head h //
+    ``group``); an empty run for no query heads."""
+    if q.stop == q.start:
+        return slice(q.start // group, q.start // group)
+    return slice(q.start // group, (q.stop - 1) // group + 1)
+
+
+def owned_runs(runs: list) -> list:
+    """Each rank's part of its run (a slice of one dim, in rank order, the
+    runs' starts never decreasing) that no earlier rank holds: where
+    neighbours share items (a KV head two ranks read), the first of them
+    owns it."""
+    out, top = [], 0
+    for sl in runs:
+        start = min(max(sl.start, top), sl.stop)
+        out.append(slice(start, sl.stop))
+        top = max(top, sl.stop)
+    return out
+
+
+@dataclasses.dataclass(frozen=True)
+class HeadShare:
+    """A rank's query heads ``[q0, q0 + h)`` and the KV heads ``[k0, k0 +
+    kv)`` they read, query head q reading KV head q // ``group`` (H / K of
+    the whole model)."""
+
+    q0: int
+    h: int
+    k0: int
+    kv: int
+    group: int
+
+    @property
+    def off(self) -> int:
+        """Where the rank's first query head sits in its KV heads' groups:
+        local head i reads local KV head (off + i) // group."""
+        return self.q0 - self.k0 * self.group
+
+    def grid(self, q: torch.Tensor):
+        """q (B, S, h, D) of the rank's heads -> (qg (B, S, kv, g, D), a
+        function taking an output on that grid back to (B, S, h, D)): a
+        reshape where the heads fill whole groups or read one KV head;
+        else the KV heads' whole groups, zero heads padded in before and
+        after the rank's (a GQA group straddling two ranks) and cut off
+        again."""
+        b, s, h, d = q.shape
+        kv, g = (self.kv, self.h) if self.kv <= 1 else (self.kv, self.group)
+        if kv * g == h:
+            return q.reshape(b, s, kv, g, d), lambda o: o.reshape(b, s, h, d)
+        lo = self.off
+        qp = F.pad(q, (0, 0, lo, kv * g - lo - h))
+        return qp.reshape(b, s, kv, g, d), \
+            lambda o: o.reshape(b, s, kv * g, d)[:, :, lo:lo + h]
+
+
 @dataclasses.dataclass(frozen=True)
 class ModelAxis:
     """Rank ``rank`` of ``size`` along "model" (``group`` its c10d group,
@@ -123,6 +196,7 @@ class ModelAxis:
     data_size: int = 1
     data_rank: int = 0
     data_group: Any = None
+    shard_seq: bool = False
 
     @property
     def off(self) -> bool:
@@ -131,6 +205,13 @@ class ModelAxis:
                 and self.data_group is None and self.data_size == 1)
 
     # -- the rank's share ----------------------------------------------------
+    @property
+    def seq_split(self) -> bool:
+        """The KV caches' slots split over "data" (the sequence-sharded
+        decode of a global batch of one, the reference's ``shard_seq``):
+        the batch whole on every data rank, its recurrent states too."""
+        return self.shard_seq and self.data_size > 1
+
     def block(self, n: int, name: str = "dim") -> slice:
         """This rank's contiguous block of ``n`` along "model"."""
         if n % self.size:
@@ -139,59 +220,71 @@ class ModelAxis:
         b = n // self.size
         return slice(self.rank * b, (self.rank + 1) * b)
 
-    def batch_rows(self, n: int) -> slice:
-        """This rank's rows of a batch of ``n`` along "data"."""
+    def span(self, n: int) -> slice:
+        """This rank's whole items of ``n`` (heads) along "model": :func:`span`
+        of its rank."""
+        return span(n, self.size, self.rank)
+
+    def data_block(self, n: int, name: str) -> slice:
+        """This rank's block of ``n`` along "data" (the batch rows, or the
+        KV slots of a sequence-sharded cache)."""
         if n % self.data_size:
-            raise ValueError(f"batch {n} does not divide over the "
+            raise ValueError(f"{name} {n} does not divide over the "
                              f"{self.data_size} ranks of the data axis")
         b = n // self.data_size
         return slice(self.data_rank * b, (self.data_rank + 1) * b)
 
+    def batch_rows(self, n: int) -> slice:
+        """This rank's rows of a batch of ``n`` along "data" (all of them
+        where the sequence is split instead)."""
+        if self.seq_split:
+            return slice(0, n)
+        return self.data_block(n, "batch")
+
     def kv_heads(self, n_heads: int, n_kv_heads: int) -> slice:
-        """The KV heads this rank's query heads read: a block of K/M where
-        M divides K, else (K divides M) the one head of its M/K ranks."""
-        m, k = self.size, n_kv_heads
-        self.block(n_heads, "n_heads")
-        if k % m == 0:
-            return self.block(k, "n_kv_heads")
-        if m % k == 0:
-            j = self.rank // (m // k)
-            return slice(j, j + 1)
-        raise ValueError(f"n_kv_heads = {k} and the model axis's {m} ranks: "
-                         "neither divides the other")
+        """The KV heads this rank's query heads (:meth:`span` of
+        ``n_heads``) read: query head q reads KV head q // (H / K); a run
+        of them, shared with a neighbour where a GQA group straddles two
+        ranks; empty for a rank without heads."""
+        return _kv_of(self.span(n_heads), n_heads // n_kv_heads)
+
+    def attn_heads(self, n_heads: int, n_kv_heads: int) -> "HeadShare":
+        """This rank's :class:`HeadShare` of an attention of ``n_heads``
+        query and ``n_kv_heads`` KV heads."""
+        q, g = self.span(n_heads), n_heads // n_kv_heads
+        kv = _kv_of(q, g)
+        return HeadShare(q.start, q.stop - q.start, kv.start,
+                         kv.stop - kv.start, g)
+
+    def kv_overlap(self, cfg) -> bool:
+        """Whether some KV head of ``cfg`` is held by more than one rank
+        (a property of H, K and M, the same on every rank)."""
+        runs = [_kv_of(span(cfg.n_heads, self.size, r),
+                       cfg.n_heads // cfg.n_kv_heads)
+                for r in range(self.size)]
+        return bool(owned_runs(runs) != runs)
 
     def check(self, cfg) -> None:
-        """Refuse a model this axis cannot split: M not dividing a sharded
-        dim (``n_heads``, the attention's and the mLSTM's; ``n_kv_heads``
-        where neither it nor M divides the other; ``vocab_size``; ``d_ff``;
-        ``n_experts``; a Mamba2 group's heads ``nh``), a ``ValueError``
-        naming the dim."""
+        """Refuse a model this axis cannot split: a leaf dim that the
+        reference's pspecs put on "model" and M does not divide (H D, K D,
+        ``d_ff``, V, E, Mamba2's 2 d_inner, an mLSTM's column leaves): a
+        ``ValueError`` naming every such leaf and the config dims it is
+        made of. The head counts need not divide M (:meth:`span`)."""
         if self.size == 1:
             return
-        self.kv_heads(cfg.n_heads, cfg.n_kv_heads)
-        self.block(cfg.vocab_size, "vocab_size")
-        for g in cfg.groups:
-            if g.kind in ("attn", "zamba", "cross_self") or (
-                    g.kind == "moe" and (g.moe_every > 1
-                                         or g.shared_expert)):
-                self.block(cfg.d_ff, "d_ff")
-            if g.kind == "moe":
-                self.block(g.n_experts, "n_experts")
-            if g.kind in ("mamba", "zamba"):
-                self.block(mamba2_heads(cfg, g), "nh (the Mamba2 heads)")
+        from repro_torch.models.transformer import Transformer
 
-    def heads(self, n: int, name: str = "n_heads") -> slice:
-        """This rank's heads of ``n``: :meth:`block`, None where the rank
+        bad = [f"{path} dim {dim} = {n} ({_dim_name(path)})"
+               for path, dim, n in Transformer(cfg).model_dims()
+               if n % self.size]
+        if bad:
+            raise ValueError(f"{'; '.join(bad)}: does not divide over the "
+                             f"{self.size} ranks of the model axis")
+
+    def heads(self, n: int) -> slice | None:
+        """This rank's heads of ``n``: :meth:`span`, None where the rank
         holds all of them (M = 1)."""
-        return None if self.size == 1 else self.block(n, name)
-
-    def local_config(self, cfg):
-        """``cfg`` with this rank's query and KV head counts."""
-        if self.size == 1:
-            return cfg
-        kv = self.kv_heads(cfg.n_heads, cfg.n_kv_heads)
-        return dataclasses.replace(cfg, n_heads=cfg.n_heads // self.size,
-                                   n_kv_heads=kv.stop - kv.start)
+        return None if self.size == 1 else self.span(n)
 
     # -- collectives ---------------------------------------------------------
     @staticmethod
@@ -254,14 +347,15 @@ class ModelAxis:
         return self._sum(full, self.group, self.size)
 
     def shared_kv(self, cfg):
-        """Where M/K ranks share each KV head (K < M) and grad is enabled:
-        a function of this rank's ``wk`` / ``wv`` (its head's D columns
-        last) whose backward sums the gradient over the ranks holding the
-        same head (an all-reduce over "model" of the (..., K D) gradient
-        with the rank's head in its columns, zeros elsewhere: exact). Else
-        None."""
-        if self.off or self.size <= cfg.n_kv_heads \
-                or not torch.is_grad_enabled():
+        """Where some KV head is held by more than one rank (K < M, or a GQA
+        group straddling two ranks) and grad is enabled: a function of this
+        rank's ``wk`` / ``wv`` (its KV heads' D columns each, last) whose
+        backward sums the gradient over the ranks holding the same heads
+        (an all-reduce over "model" of the (..., K D) gradient with the
+        rank's heads in their columns, zeros elsewhere: exact for any set
+        of holders). Else None."""
+        if self.off or not torch.is_grad_enabled() \
+                or not self.kv_overlap(cfg):
             return None
         kv = self.kv_heads(cfg.n_heads, cfg.n_kv_heads)
         d = cfg.head_dim
@@ -310,8 +404,9 @@ class ModelAxis:
 
     def gather_rows(self, x: torch.Tensor) -> torch.Tensor:
         """(T, ...) rows of this rank's batch -> (data T, ...) of every
-        data rank, in rank order."""
-        if self.data_size == 1:
+        data rank, in rank order (the rank's own rows where the batch is
+        whole on every data rank)."""
+        if self.data_size == 1 or self.seq_split:
             return x
         t = x.shape[0]
         full = x.new_zeros((self.data_size * t,) + tuple(x.shape[1:]))
@@ -320,10 +415,20 @@ class ModelAxis:
 
     def local_rows(self, x: torch.Tensor) -> torch.Tensor:
         """This rank's rows of a :meth:`gather_rows` result."""
-        if self.data_size == 1:
+        if self.data_size == 1 or self.seq_split:
             return x
         t = x.shape[0] // self.data_size
         return x[self.data_rank * t:(self.data_rank + 1) * t]
+
+    def seq_max(self, x: torch.Tensor) -> torch.Tensor:
+        """The MAX over "data" of the data ranks' partial maxima (a
+        sequence-sharded decode's scores), in place."""
+        return self._sum(x, self.data_group, self.data_size,
+                         op=dist.ReduceOp.MAX)
+
+    def seq_sum(self, x: torch.Tensor) -> torch.Tensor:
+        """The SUM over "data" of the data ranks' partial sums, in place."""
+        return self._sum(x, self.data_group, self.data_size)
 
 
 class _ReduceFromModel(torch.autograd.Function):
@@ -394,38 +499,86 @@ class _SharedHead(torch.autograd.Function):
 NO_AXIS = ModelAxis()
 
 
+def _dim_name(path: str) -> str:
+    """The config dims a "model" leaf dim at ``path`` is made of (for a
+    refusal's message)."""
+    key = path.rsplit("/", 1)[-1]
+    if key in ("embed", "lm_head"):
+        return "vocab_size"
+    if "/mlstm/" in path:
+        return "the mLSTM's d_inner: n_heads x its head dim"
+    if key == "w_in":
+        return "2 d_inner of nh (the Mamba2 heads) x 64"
+    if key == "w_out":
+        return "d_inner of nh (the Mamba2 heads) x 64"
+    if key in ("wq", "wo"):
+        return "n_heads x head_dim"
+    if key in _KV_LEAVES:
+        return "n_kv_heads x head_dim"
+    if "/moe/" in path and "/shared/" not in path:
+        return "n_experts"
+    return "d_ff"
+
+
+def _head_leaf(path: str, n: int, cfg) -> tuple[int, int] | None:
+    """(heads, columns a head) of a "model" leaf dim of width ``n`` that a
+    rank holds by whole heads (:meth:`ModelAxis.span`): the attention's
+    ``wq`` columns and ``wo`` rows (H heads of ``head_dim``), an mLSTM's
+    ``w_q`` / ``w_k`` / ``w_v`` / ``w_o`` columns and ``w_down`` rows
+    (``n_heads`` of d_inner / H), Mamba2's ``w_out`` rows (nh of 64); None
+    for a leaf cut into even blocks (its ``w_up``: the whole ``u`` is
+    gathered) or by KV heads."""
+    key = path.rsplit("/", 1)[-1]
+    if "/mlstm/" in path:
+        if key in ("w_q", "w_k", "w_v", "w_o", "w_down"):
+            return cfg.n_heads, n // cfg.n_heads
+        return None
+    if key == "w_out":
+        return n // MAMBA2_HEAD_DIM, MAMBA2_HEAD_DIM
+    if key in ("wq", "wo"):
+        return cfg.n_heads, cfg.head_dim
+    return None
+
+
 def leaf_sharding(axis: ModelAxis, path: str, spec: tuple, shape: tuple,
                   cfg, *, kv_dim: int | None = None,
                   heads_dim: int | None = None):
     """What rank ``axis`` holds of a leaf at ``path`` with the reference's
     pspec ``spec`` (a tuple of axis names): a tuple of (dim, slice) pairs
     (a :class:`Halves` in place of the slice for Mamba2's ``w_in``), or
-    None for a leaf it holds whole. Its "model" dim is cut into M blocks,
-    but ``wk`` / ``wv`` give their KV heads' columns and ``w_in`` its
-    heads' ``x`` and ``z`` columns (the reference's pspec gives rank r
-    the r-th of M contiguous blocks of the two halves together); a
-    cache's ``kv_dim`` (its KV-head dim) gives its KV heads and its
-    ``heads_dim`` (an mLSTM state's head dim) its heads of ``n_heads``,
-    whatever the spec says, and its "data" dim its batch rows."""
+    None for a leaf it holds whole. Its "model" dim is cut by whole heads
+    where it is made of heads (:func:`_head_leaf`; ``wk`` / ``wv`` the KV
+    heads its query heads read, ``w_in`` its heads' ``x`` and ``z``
+    columns, where the reference's pspec gives rank r the r-th of M even
+    blocks), else into M even blocks; a cache's ``kv_dim`` (its KV-head
+    dim) gives its KV heads and its ``heads_dim`` (an mLSTM state's head
+    dim) its heads of ``n_heads``, whatever the spec says, and its "data"
+    dim its batch rows, or its KV slots where the sequence is split."""
     key = path.rsplit("/", 1)[-1]
     out = []
     if "data" in spec and axis.data_size > 1:
         dim = spec.index("data")
-        out.append((dim, axis.batch_rows(shape[dim])))
+        out.append((dim, axis.data_block(
+            shape[dim], "KV slots" if axis.seq_split else "batch")))
     if axis.size > 1:
         if kv_dim is not None:
             out.append((kv_dim, axis.kv_heads(cfg.n_heads, cfg.n_kv_heads)))
         elif heads_dim is not None:
-            out.append((heads_dim, axis.block(cfg.n_heads, "n_heads")))
+            out.append((heads_dim, axis.span(cfg.n_heads)))
         elif "model" in spec:
             dim = spec.index("model")
+            heads = _head_leaf(path, shape[dim], cfg)
             if key in _KV_LEAVES:
                 kv = axis.kv_heads(cfg.n_heads, cfg.n_kv_heads)
                 d = cfg.head_dim
                 out.append((dim, slice(kv.start * d, kv.stop * d)))
             elif key == "w_in":
-                half = axis.block(shape[dim] // 2, path)
-                out.append((dim, Halves(half.start, half.stop)))
+                h = axis.span(shape[dim] // 2 // MAMBA2_HEAD_DIM)
+                out.append((dim, Halves(h.start * MAMBA2_HEAD_DIM,
+                                        h.stop * MAMBA2_HEAD_DIM)))
+            elif heads is not None:
+                h, unit = axis.span(heads[0]), heads[1]
+                out.append((dim, slice(h.start * unit, h.stop * unit)))
             else:
                 out.append((dim, axis.block(shape[dim], path)))
     return tuple(out) or None

@@ -106,7 +106,7 @@ def _mlstm_gates_qkv(params: dict, x: torch.Tensor, n_heads: int,
     """x (B, S, d_model) -> q, k, v (B, S, h, hd), i/f pre-activations
     (B, S, h) f32, o (B, S, h hd), for the rank's h of the ``n_heads``
     heads (all without an axis)."""
-    heads = axis.heads(n_heads, "n_heads")
+    heads = axis.heads(n_heads)
     h = n_heads if heads is None else heads.stop - heads.start
     hd = head_dim
     u = axis.gather(x @ params["w_up"])
@@ -166,7 +166,7 @@ def mlstm_seq(params: dict, x: torch.Tensor, *, n_heads: int,
     rank's heads only (its output a partial sum over "model")."""
     b, s, d = x.shape
     hd = _mlstm_head_dim(params, n_heads, head_dim)
-    heads = axis.heads(n_heads, "n_heads")
+    heads = axis.heads(n_heads)
     if state is None:
         state = mlstm_state(b, d, n_heads, n_heads * hd / d, device=x.device,
                             local_heads=None if heads is None
@@ -294,7 +294,7 @@ def _mamba2_heads(params, n_heads: int | None, axis: ModelAxis):
     """(the whole layer's heads, the rank's slice of them or None): ``n_heads``
     or ``w_dt``'s columns (a whole leaf)."""
     nh = params["w_dt"].shape[1] if n_heads is None else n_heads
-    return nh, axis.heads(nh, "nh (the Mamba2 heads)")
+    return nh, axis.heads(nh)
 
 
 def _mamba2_proj(params, x, head_dim: int, nh: int, heads,

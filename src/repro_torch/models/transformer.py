@@ -74,6 +74,7 @@ and cross layers on the rank's heads as attention does.
 """
 from __future__ import annotations
 
+import dataclasses
 import math
 from typing import Any
 
@@ -94,8 +95,9 @@ from repro_torch.models.config import (AttnGroup, CrossSelfGroup, MambaGroup,
 from repro_torch.models.layers import (dense_init, init_rms_norm, mlp_apply,
                                        mlp_init, rms_norm, rope, softcap)
 from repro_torch.models.moe import init_moe, moe_apply
-from repro_torch.models.parallel import (MAMBA2_HEAD_DIM, NO_AXIS, ModelAxis,
-                                         leaf_sharding, mamba2_heads, take)
+from repro_torch.models.parallel import (MAMBA2_HEAD_DIM, NO_AXIS, HeadShare,
+                                         ModelAxis, leaf_sharding,
+                                         mamba2_heads, take)
 
 __all__ = ["Transformer"]
 
@@ -109,10 +111,13 @@ _PV_CHUNK = 512
 # ---------------------------------------------------------------------------
 
 def _attn_qkv(params, x, cfg: ModelConfig):
+    """q (B, S, h, D), k, v (B, S, kv, D) of the rank's heads (all without
+    an axis)."""
     b, s, _ = x.shape
-    q = (x @ params["wq"]).reshape(b, s, cfg.n_heads, cfg.head_dim)
-    k = (x @ params["wk"]).reshape(b, s, cfg.n_kv_heads, cfg.head_dim)
-    v = (x @ params["wv"]).reshape(b, s, cfg.n_kv_heads, cfg.head_dim)
+    d = cfg.head_dim
+    q = (x @ params["wq"]).reshape(b, s, params["wq"].shape[-1] // d, d)
+    k = (x @ params["wk"]).reshape(b, s, params["wk"].shape[-1] // d, d)
+    v = (x @ params["wv"]).reshape(b, s, params["wv"].shape[-1] // d, d)
     return q, k, v
 
 
@@ -140,64 +145,90 @@ def _probs_v(probs, v):
     return out[:, None]
 
 
-def _softmax_attend(q, k, v, mask, cfg: ModelConfig, dtype):
-    """Plain GQA attention of q (B, S, H, D) over k, v (B, T, K, D) under
-    ``mask`` (broadcast to (B, K, g, S, T)) -> (B, S, H * D)."""
-    b, s = q.shape[:2]
-    group = cfg.n_heads // cfg.n_kv_heads
-    qg = q.reshape(b, s, cfg.n_kv_heads, group, cfg.head_dim)
+def _softmax_attend(q, k, v, mask, share: HeadShare, dtype,
+                    axis: ModelAxis = NO_AXIS):
+    """Plain GQA attention of q (B, S, h, D) over k, v (B, T, kv, D) under
+    ``mask`` (broadcast to (B, kv, g, S, T)) -> (B, S, h D). Where the
+    cache's slots are split over "data" (``axis.seq_split``, one query
+    row) each data rank takes the exponentials of its slots against the
+    MAX over "data" of every rank's maximum, then one SUM over "data" of
+    their sums and their products with v, and divides. A rank without
+    heads runs the same ops on empty tensors (its collectives, and what a
+    checkpoint's recomputation saves, stay the other ranks')."""
+    b, s, h, d = q.shape
+    qg, back = share.grid(q)
     scores = torch.einsum("bskgd,btkd->bkgst", qg.float(), k.float()) / \
-        math.sqrt(cfg.head_dim)
-    probs = torch.softmax(scores.masked_fill_(~mask, _NEG_INF), dim=-1)
-    out = _probs_v(probs, v.float())
-    return out.reshape(b, s, cfg.n_heads * cfg.head_dim).to(dtype)
+        math.sqrt(d)
+    scores = scores.masked_fill_(~mask, _NEG_INF)
+    if not axis.seq_split:
+        out = _probs_v(torch.softmax(scores, dim=-1), v.float())
+    else:
+        top = axis.seq_max(scores.amax(dim=-1, keepdim=True))
+        p = torch.exp(scores - top)                     # (B, kv, g, 1, T)
+        part = torch.cat([_probs_v(p, v.float())[:, 0],  # (B, kv, g, D)
+                          p.sum(dim=-1)], dim=-1)       # (B, kv, g, D + 1)
+        part = axis.seq_sum(part)
+        out = (part[..., :d] / part[..., d:])[:, None]
+    return back(out).reshape(b, s, h * d).to(dtype)
 
 
 def _attn_train(params, x, positions, cfg: ModelConfig, theta: float,
-                window: int, use_flash: bool = False):
-    """Full-sequence causal GQA; ``window`` < 0 is global. Returns
-    (out, k, v): k, v (rope applied) feed the prefill cache. ``use_flash``
-    routes the softmax through the flash-attention kernel."""
+                window: int, share: HeadShare, use_flash: bool = False):
+    """Full-sequence causal GQA of the rank's heads ``share``; ``window`` < 0
+    is global. Returns (out, k, v): k, v (rope applied) feed the prefill
+    cache. ``use_flash`` routes the softmax through the flash-attention
+    kernel, at the rank's head offset."""
     q, k, v = _attn_qkv(params, x, cfg)
     q = rope(q, positions, theta)
     k = rope(k, positions, theta)
+    b, s = x.shape[:2]
     if use_flash:
-        b, s = x.shape[:2]
-        out = kops.flash_attention_bshd(q, k, v, window=window)
-        out = out.reshape(b, s, cfg.n_heads * cfg.head_dim).to(x.dtype)
+        out = kops.flash_attention_bshd(q, k, v, window=window,
+                                        group=share.group, head0=share.off)
+        out = out.reshape(b, s, -1).to(x.dtype)
         return out @ params["wo"], k, v
     qpos = positions[:, None, None, :, None]
     kpos = positions[:, None, None, None, :]
     mask = qpos >= kpos
     if window >= 0:
         mask = mask & ((qpos - kpos) < window)
-    return _softmax_attend(q, k, v, mask, cfg, x.dtype) @ params["wo"], k, v
+    return _softmax_attend(q, k, v, mask, share, x.dtype) @ params["wo"], \
+        k, v
 
 
 def _attn_decode(params, x, pos: int, k_cache, v_cache, cfg: ModelConfig,
-                 theta: float, window: int, ring: bool):
+                 theta: float, window: int, ring: bool, share: HeadShare,
+                 axis: ModelAxis = NO_AXIS):
     """One-token GQA against one layer's cache k, v (B, T, K, D), whose
     token slot it writes in place (slot ``pos % T`` for a ring buffer of
-    T = window slots)."""
+    T = window slots). Where the slots are split over "data"
+    (``axis.seq_split``) the cache holds the rank's T / D of them, the
+    rank owning slot ``pos`` writes it, and the attention merges the data
+    ranks' partials (:func:`_softmax_attend`)."""
     b = x.shape[0]
     t = k_cache.shape[1]
+    first, whole = 0, t
+    if axis.seq_split:
+        first, whole = axis.data_rank * t, t * axis.data_size
     posv = torch.full((b, 1), pos, dtype=torch.int64, device=x.device)
     q, k_new, v_new = _attn_qkv(params, x, cfg)
     q = rope(q, posv, theta)
     k_new = rope(k_new, posv, theta)
-    slot = pos % t if ring else pos
-    k_cache[:, slot] = k_new[:, 0].to(k_cache.dtype)
-    v_cache[:, slot] = v_new[:, 0].to(v_cache.dtype)
-    slots = torch.arange(t, device=x.device)
+    slot = (pos % whole if ring else pos) - first
+    if 0 <= slot < t:
+        k_cache[:, slot] = k_new[:, 0].to(k_cache.dtype)
+        v_cache[:, slot] = v_new[:, 0].to(v_cache.dtype)
+    slots = torch.arange(first, first + t, device=x.device)
     if ring:
-        # slot s holds position pos - ((pos - s) mod t): every slot is in the
-        # window once pos >= t, before that only the slots <= pos are filled
-        mask = slots <= pos if pos < t else torch.ones_like(slots, dtype=torch.bool)
+        # slot s holds position pos - ((pos - s) mod T): every slot is in the
+        # window once pos >= T, before that only the slots <= pos are filled
+        mask = slots <= pos if pos < whole else \
+            torch.ones_like(slots, dtype=torch.bool)
     else:
         mask = slots <= pos
         if window >= 0:
             mask = mask & ((pos - slots) < window)
-    out = _softmax_attend(q, k_cache, v_cache, mask, cfg, x.dtype)
+    out = _softmax_attend(q, k_cache, v_cache, mask, share, x.dtype, axis)
     return out @ params["wo"]
 
 
@@ -243,6 +274,10 @@ def _remat(fn, *args):
         return fn(*args)
     return checkpoint(fn, *args, use_reentrant=False,
                       preserve_rng_state=False)
+
+
+def _count(sl: slice) -> int:
+    return sl.stop - sl.start
 
 
 def _no_aux(x: torch.Tensor) -> torch.Tensor:
@@ -329,6 +364,7 @@ class _AttnGroupImpl:
     def __init__(self, spec: AttnGroup, cfg: ModelConfig,
                  axis: ModelAxis = NO_AXIS):
         self.spec, self.cfg, self.axis = spec, cfg, axis
+        self.share = axis.attn_heads(cfg.n_heads, cfg.n_kv_heads)
         ws = spec.layer_windows()
         self.windows = [w if w is not None else -1 for w in ws]
         self.thetas = [float(t) for t in spec.layer_thetas(cfg.rope_theta)]
@@ -375,7 +411,7 @@ class _AttnGroupImpl:
         a, k, v = _attn_train(lp["attn"], self.axis.copy(
                                   rms_norm(lp["ln1"], x, cfg.norm_eps)),
                               positions, cfg, self.thetas[i], self.windows[i],
-                              use_flash=use_flash)
+                              self.share, use_flash=use_flash)
         if cache is not None:
             _write_prompt(cache["k"][i], k)
             _write_prompt(cache["v"][i], v)
@@ -387,13 +423,19 @@ class _AttnGroupImpl:
         return x + self.axis.reduce(_attn_decode(
             lp["attn"], rms_norm(lp["ln1"], x, cfg.norm_eps), pos,
             cache["k"][i], cache["v"][i], cfg, self.thetas[i],
-            self.windows[i], self.uniform_window is not None))
+            self.windows[i], self.uniform_window is not None, self.share,
+            self.axis))
 
     def init_cache(self, batch: int, capacity: int, dtype, device) -> dict:
-        cfg = self.cfg
+        """The layers' K/V of the rank's KV heads: ``capacity`` slots (the
+        window's, for a ring buffer), or the rank's block of them where the
+        slots are split over "data"."""
         t = (capacity if self.uniform_window is None
              else min(capacity, self.uniform_window))
-        shape = (self.spec.n_layers, batch, t, cfg.n_kv_heads, cfg.head_dim)
+        if self.axis.seq_split:
+            t = _count(self.axis.data_block(t, "KV slots"))
+        shape = (self.spec.n_layers, batch, t, self.share.kv,
+                 self.cfg.head_dim)
         return {"k": torch.zeros(shape, dtype=dtype, device=device),
                 "v": torch.zeros(shape, dtype=dtype, device=device)}
 
@@ -557,14 +599,14 @@ class _XLSTMGroupImpl:
     pre-norm and added to the residual; attention-free. The cache is the
     states: mLSTM ``C``, ``n``, ``m`` (units, mlstm_per_unit, B, heads,
     ...) and sLSTM ``c``, ``n``, ``m``, ``h`` (units, B, d). Over a model
-    axis the mLSTM runs on the rank's heads (``cfg`` is the rank's: its
-    ``n_heads`` the rank's H / M), its cache its heads' states; the sLSTM
-    runs whole on every rank."""
+    axis the mLSTM runs on the rank's heads (a :meth:`ModelAxis.span` of
+    the config's ``n_heads``), its cache their states; the sLSTM runs
+    whole on every rank."""
 
     def __init__(self, spec: XLSTMGroup, cfg: ModelConfig,
                  axis: ModelAxis = NO_AXIS):
         self.spec, self.cfg, self.axis = spec, cfg, axis
-        self.n_heads = cfg.n_heads * axis.size  # the whole model's
+        self.n_heads = cfg.n_heads
         self.head_dim = int(cfg.d_model * spec.proj_factor) // self.n_heads
 
     def _init_unit(self, gen, dtype, device) -> dict:
@@ -605,7 +647,7 @@ class _XLSTMGroupImpl:
         cfg, spec = self.cfg, self.spec
         m = ssm.mlstm_state(batch, cfg.d_model, self.n_heads,
                             spec.proj_factor, device,
-                            local_heads=cfg.n_heads)
+                            local_heads=_count(self.axis.span(self.n_heads)))
         s = ssm.slstm_state(batch, cfg.d_model, device)
         return {"mlstm": _stacked(spec.n_units,
                                   _stacked(spec.mlstm_per_unit, m)),
@@ -641,7 +683,8 @@ class _MambaGroupImpl:
     """n pre-norm Mamba2 layers; attention-free. Mamba2's head dim is its
     own (64, as in the reference), not ``cfg.head_dim``. The cache is each
     layer's state ``h`` (n, B, heads, d_state, 64). Over a model axis each
-    layer runs on the rank's nh / M heads, its cache their states."""
+    layer runs on the rank's heads of nh (a :meth:`ModelAxis.span`), its
+    cache their states."""
 
     HEAD_DIM = MAMBA2_HEAD_DIM
 
@@ -671,7 +714,7 @@ class _MambaGroupImpl:
         return _stacked(self.spec.n_layers, ssm.mamba2_state(
             batch, self.cfg.d_model, self.spec.d_state, self.spec.expand,
             self.HEAD_DIM, device,
-            local_heads=self.n_heads // self.axis.size))
+            local_heads=_count(self.axis.span(self.n_heads))))
 
     def _run(self, params, x, cache, fn, wrap):
         """The layers, each through ``wrap``."""
@@ -889,7 +932,9 @@ class Transformer:
     embedding and head on the rank's vocabulary block, each partial summed
     over the ranks where the reference's GSPMD program would, in serving
     and in training (a training axis has a data dim of 1). Every group
-    kind splits."""
+    kind splits, whatever its head count. An axis with ``shard_seq`` and a
+    data dim above 1 decodes with each KV cache's slots split over
+    "data" (and does no prefill)."""
 
     LOSS_CHUNK = 512  # sequence positions a chunk of the cross entropy
 
@@ -897,8 +942,7 @@ class Transformer:
         self.cfg = cfg
         self.axis = NO_AXIS if axis is None else axis
         self.axis.check(cfg)
-        local = self.axis.local_config(cfg)
-        self.groups = [_GROUP_IMPLS[g.kind](g, local, self.axis)
+        self.groups = [_GROUP_IMPLS[g.kind](g, cfg, self.axis)
                        for g in cfg.groups]
 
     @property
@@ -966,22 +1010,32 @@ class Transformer:
                 for p, shape in self._whole_shapes(lambda m: m.init(
                     torch.Generator(device="cpu"), device="meta"))}
 
+    def model_dims(self) -> list[tuple[str, int, int]]:
+        """(path, dim, width) of every parameter dim that the reference's
+        pspecs put on "model", of the whole model (on meta)."""
+        specs = _spec_paths(self.param_pspecs())
+        return [(p, specs[p].index("model"), shape[specs[p].index("model")])
+                for p, shape in self._whole_shapes(lambda m: m.init(
+                    torch.Generator(device="cpu"), device="meta"))
+                if "model" in specs[p]]
+
     def cache_shards(self, batch: int, capacity: int, *,
-                     shard_seq: bool = False) -> dict:
+                     shard_seq: bool | None = None) -> dict:
         """:meth:`param_shards` of a (batch, capacity) cache of the whole
         model: the rank's rows of the batch over "data", of a KV leaf its
         KV heads (the reference's spec replicates KV unless 16 divides K),
         of an mLSTM state its heads (the reference's spec replicates it),
         of a Mamba2 state its heads (the reference's spec). ``shard_seq``
-        (the reference's sequence-sharded long-context decode) is refused
-        where the data dim is above 1."""
-        if shard_seq and self.axis.data_size > 1:
-            raise NotImplementedError(
-                "shard_seq over a data dim above 1 (long_500k's "
-                "sequence-sharded decode) waits for ROADMAP item 11b's "
-                "remainder")
+        (the reference's sequence-sharded long-context decode; default the
+        axis's own): each KV leaf's block of its slots over "data" in place
+        of batch rows (a ``ValueError`` where they do not divide), the
+        recurrent states whole over "data"."""
+        if shard_seq is None:
+            shard_seq = self.axis.shard_seq
+        axis = dataclasses.replace(self.axis, shard_seq=shard_seq)
         specs = _spec_paths(self.cache_pspecs(
-            batch_axis=None if shard_seq else "data"))
+            batch_axis=None if shard_seq else "data",
+            seq_axis="data" if shard_seq else None))
         def dims(p: str, shape: tuple) -> dict:
             if p.rsplit("/", 1)[-1] in ("k", "v"):
                 return {"kv_dim": len(shape) - 2}
@@ -989,7 +1043,7 @@ class Transformer:
             return {"heads_dim": 3} if "/mlstm/" in p else {}
 
         return {
-            p: leaf_sharding(self.axis, p, specs[p], shape, self.cfg,
+            p: leaf_sharding(axis, p, specs[p], shape, self.cfg,
                              **dims(p, shape))
             for p, shape in self._whole_shapes(lambda m: m.init_cache(
                 batch, capacity, device="meta"))}
@@ -1130,6 +1184,11 @@ class Transformer:
         needs no second, larger cache. A recurrent group's cache is its
         state after the prompt. A cross-attention model reads the image
         embeddings ``batch["image_embeds"]`` (B, M, d_model)."""
+        if self.axis.seq_split:
+            raise ValueError(
+                "a model whose KV slots are split over \"data\" decodes "
+                "only: prefill on a plan without shard_seq, then cut its "
+                "cache (launch.sharding.shard_cache)")
         x = self._embed_inputs(params, batch)
         b, s = x.shape[:2]
         positions = torch.arange(s, device=x.device)[None].expand(b, s)

@@ -655,6 +655,43 @@ def _flash_against_plain(dev, b, s, kh, group, d, window):
     torch.cuda.synchronize()
 
 
+@pytest.mark.parametrize("q0,h", [(3, 3), (5, 2), (7, 3), (4, 0)])
+def test_flash_attention_at_a_head_offset(dev, q0, h):
+    """A rank's run of llama4-scout's query heads (H = 40, K = 8, D = 128,
+    a 1,000-token prompt): heads [3, 6) straddle GQA groups 0 and 1
+    (``head0`` 3 into KV head 0's group), [5, 7) and [7, 10) sit in group
+    1: one launch over exactly those heads and the KV heads they read,
+    against the plain version at the same offset and against the whole
+    model's attention cut to those heads; a rank of no heads launches
+    nothing."""
+    b, s, kh_all, group, d = 1, 1000, 8, 5, 128
+    gen = torch.Generator(device=dev).manual_seed(q0 * 7 + h)
+    q_all = torch.randn((b, s, kh_all * group, d), generator=gen, device=dev)
+    k_all = torch.randn((b, s, kh_all, d), generator=gen, device=dev)
+    v_all = torch.randn((b, s, kh_all, d), generator=gen, device=dev)
+    k0 = q0 // group
+    k1 = (q0 + h - 1) // group + 1 if h else k0
+    q = q_all[:, :, q0:q0 + h].contiguous()
+    k = k_all[:, :, k0:k1].contiguous()
+    v = v_all[:, :, k0:k1].contiguous()
+    ops.reset_launch_counts()
+    got = ops.flash_attention_bshd(q, k, v, group=group,
+                                   head0=q0 - k0 * group)
+    assert ops.launch_counts()["flash_attention"] == (1 if h else 0)
+    assert got.shape == q.shape
+    if not h:
+        return
+    plain = ref.flash_attention(q.transpose(1, 2), k.transpose(1, 2),
+                                v.transpose(1, 2), group=group,
+                                head0=q0 - k0 * group).transpose(1, 2)
+    torch.testing.assert_close(got, plain, rtol=1e-4, atol=1e-5)
+    whole = ref.flash_attention(q_all.transpose(1, 2), k_all.transpose(1, 2),
+                                v_all.transpose(1, 2), group=group
+                                ).transpose(1, 2)[:, :, q0:q0 + h]
+    torch.testing.assert_close(got, whole, rtol=1e-4, atol=1e-5)
+    torch.cuda.synchronize()
+
+
 def test_flash_prefill_on_the_card_matches_the_cpu(dev):
     """A two-layer llama3.2-1b-shaped model (head_dim 64, the kernel's) with
     a local and a global layer: the card's flash prefill against the CPU's

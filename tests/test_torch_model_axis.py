@@ -436,8 +436,8 @@ def test_kv_heads_are_replicated_where_k_divides_m():
         axis = ModelAxis(size=4, rank=rank)
         model = Transformer(cfg, axis=axis)
         j = rank // 2
-        local = model.groups[0].cfg
-        assert (local.n_heads, local.n_kv_heads) == (2, 1)
+        share = model.groups[0].share
+        assert (share.h, share.kv) == (2, 1)
         shard = model.shard_params(params)
         for leaf in ("wk", "wv"):
             assert torch.equal(shard["group_0"]["attn"][leaf],
@@ -615,15 +615,39 @@ def test_dry_run_charges_a_rank_less_than_the_whole(monkeypatch):
 
 
 @pytest.mark.parametrize("arch, shards, reason", [
-    ("gemma3-1b", 8, "n_heads"),
+    ("gemma3-1b", 3, "vocab_size"),
 ])
 def test_dry_run_skips_where_m_does_not_split(arch, shards, reason):
+    """A row whose M does not divide a leaf dim of the reference's "model"
+    pspecs (gemma3-1b's V = 262,144 and H D = 1,024 over 3) is skipped
+    with the reason; M = 8, which divides every such dim but not its H =
+    4, is an ``ok`` row (:func:`test_dry_run_splits_where_m_does_not_
+    divide_the_heads`)."""
     from repro_torch.launch import dryrun
 
     row = dryrun.run_one(arch, "prefill_32k", model_shards=shards,
                          verbose=False)
     assert row["status"] == "skipped" and reason in row["reason"]
     assert row["mesh"] == f"model{shards}"
+
+
+def test_dry_run_splits_where_m_does_not_divide_the_heads(monkeypatch):
+    """gemma3-1b at M = 8 (H = 4, K = 1: four ranks hold no heads): an
+    ``ok`` row of the busiest rank, which holds one query head and the KV
+    head (gemma3-1b's smoke config at D = 64, M = 8)."""
+    from repro_torch.launch import dryrun
+
+    def smoke64(name):
+        arch = smoke_arch(name)
+        return dataclasses.replace(arch, model=dataclasses.replace(
+            arch.model, head_dim=64))
+
+    monkeypatch.setattr(dryrun, "get_config", smoke64)
+    row = dryrun.run_one("gemma3-1b", "prefill_32k", model_shards=8,
+                         verbose=False)
+    assert row["status"] == "ok" and row["mesh"] == "model8"
+    assert (row["model_rank"], row["heads"], row["kv_heads"]) == (1, 1, 1)
+    assert row["coll_calls"]["all-reduce"] > 2
 
 
 @pytest.mark.parametrize("arch", ["xlstm-125m", "zamba2-7b",
@@ -661,7 +685,8 @@ def _cfg(arch: str, **kw):
     (lambda: _cfg("llama3.2-1b", d_ff=250), 4, "d_ff"),
     (lambda: _cfg("llama4-scout-17b-a16e"), 8, "n_experts"),
     (lambda: _cfg("llama3.2-1b", vocab_size=510), 4, "vocab_size"),
-    (lambda: _cfg("llama3.2-1b", n_heads=12, n_kv_heads=3), 2, "n_kv_heads"),
+    (lambda: _cfg("llama3.2-1b", n_heads=12, n_kv_heads=3), 32,
+     "n_kv_heads"),
 ])
 def test_m_not_dividing_a_dim_is_refused(cfg, m, dim):
     from repro_torch.models.parallel import ModelAxis
@@ -691,24 +716,67 @@ def test_recurrent_and_cross_groups_split_at_m_2(arch):
 
 
 def test_sequence_sharded_decode_over_data_is_refused():
+    """``shard_seq`` over a data dim of D: each KV leaf's slots in D
+    blocks (gemma3-1b's smoke group: 2 layers, capacity S), refused with
+    a ``ValueError`` where D does not divide them; a data dim of one
+    splits nothing."""
     from repro_torch.launch.sharding import serve_cache_shardings
     from repro_torch.models.parallel import ModelAxis
     from repro_torch.models.transformer import Transformer
 
     model = Transformer(smoke_arch("gemma3-1b").model)
-    axis = ModelAxis(size=1, data_size=2)
-    with pytest.raises(NotImplementedError, match="11b"):
-        serve_cache_shardings(model, axis, batch=1, capacity=S,
-                              shard_seq=True)
+    for r in range(2):
+        axis = ModelAxis(size=1, data_size=2, data_rank=r)
+        got = serve_cache_shardings(model, axis, batch=1, capacity=S,
+                                    shard_seq=True)
+        half = slice(r * S // 2, (r + 1) * S // 2)
+        assert got == {"group_0": {"k": ((2, half),), "v": ((2, half),)}}
+    with pytest.raises(ValueError, match="KV slots"):
+        serve_cache_shardings(model, ModelAxis(size=1, data_size=5),
+                              batch=1, capacity=S, shard_seq=True)
     assert serve_cache_shardings(model, ModelAxis(size=1), batch=1,
                                  capacity=S, shard_seq=True) == {
         "group_0": {"k": None, "v": None}}
 
 
+def test_straddling_gqa_groups_build_and_run():
+    """H = 12, K = 3 at M = 2 (refused before the head runs: M divides K D
+    and H D): rank 0's query heads 0-5 read KV heads 0 and 1, rank 1's
+    6-11 read 1 and 2, GQA group 1 straddling the two; each rank's
+    ``wq`` / ``wk`` / ``wv`` / ``wo`` shards follow, and a rank's prefill
+    and decode run (on meta: the dry run's count, its collectives
+    charged; the flash kernel's meta path takes D = 64)."""
+    from repro_torch.configs import ShapeSpec
+    from repro_torch.launch.steps import build_serve_plan
+    from repro_torch.models.parallel import ModelAxis
+    from repro_torch.models.transformer import Transformer
+
+    cfg = _cfg("llama3.2-1b", n_heads=12, n_kv_heads=3, head_dim=64)
+    d = cfg.head_dim
+    for r, (q, kv) in enumerate(((slice(0, 6), slice(0, 2)),
+                                 (slice(6, 12), slice(1, 3)))):
+        axis = ModelAxis(size=2, rank=r)
+        shards = Transformer(cfg, axis=axis).param_shards()
+        assert shards["group_0/attn/wq"] == ((2, slice(q.start * d,
+                                                       q.stop * d)),)
+        assert shards["group_0/attn/wo"] == ((1, slice(q.start * d,
+                                                       q.stop * d)),)
+        assert shards["group_0/attn/wk"] == ((2, slice(kv.start * d,
+                                                       kv.stop * d)),)
+        arch = dataclasses.replace(smoke_arch("llama3.2-1b"), model=cfg)
+        for shape in (ShapeSpec("p", S, B, "prefill"),
+                      ShapeSpec("d", S, B, "decode")):
+            plan = build_serve_plan(arch, axis, shape_name="p", shape=shape)
+            assert plan.model.groups[0].share.off == (0, 2)[r]
+            assert plan.cost().coll_calls["all-reduce"] > 0
+
+
 def test_training_refuses_an_m_not_dividing_the_mlstm_heads():
     """xlstm-125m's smoke config (H = 4 mLSTM heads) trains over M = 2
-    ranks; M = 8 is refused by the train plan with a ``ValueError`` naming
-    the heads; at M = 1 its plan builds with no axis."""
+    ranks and over M = 8 (ranks 0, 2, 4 and 6 hold no head: M divides its
+    column leaves); M = 3, which divides none of them, is refused by the
+    train plan with a ``ValueError`` naming the heads; at M = 1 its plan
+    builds with no axis."""
     from repro_torch.configs import ShapeSpec
     from repro_torch.launch.steps import build_train_plan
 
@@ -716,8 +784,12 @@ def test_training_refuses_an_m_not_dividing_the_mlstm_heads():
     shape = ShapeSpec("t", 8, 4, "train")
     assert build_train_plan(arch, 2, shape=shape,
                             model_shards=2).model.axis.size == 2
+    plan = build_train_plan(arch, 2, shape=shape, model_shards=8)
+    assert plan.model.axis.size == 8
+    assert plan.model.param_shards()[
+        "group_0/mlstm/cell/w_q"][0][1] == slice(0, 0)
     with pytest.raises(ValueError, match="n_heads"):
-        build_train_plan(arch, 2, shape=shape, model_shards=8)
+        build_train_plan(arch, 2, shape=shape, model_shards=3)
     assert build_train_plan(arch, 2, shape=shape).model.axis.off
 
 

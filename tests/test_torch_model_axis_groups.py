@@ -744,16 +744,15 @@ def test_the_groups_build_over_the_axis(arch, m):
 
 
 @pytest.mark.parametrize("arch, m, dim, heads", [
-    ("xlstm-125m", 8, "n_heads", None),
-    ("zamba2-7b", 8, "nh", 8),
-    ("mamba2", 8, "nh", 8),
+    ("xlstm-125m", 3, "n_heads", None),
+    ("zamba2-7b", 3, "nh", None),
+    ("mamba2", 3, "nh", None),
     ("llama-3.2-vision-11b", 3, "n_heads", None),
 ])
 def test_m_not_dividing_the_groups_heads_is_refused(arch, m, dim, heads):
-    """An M that does not divide the mLSTM heads (H = 4), the Mamba2
-    heads (nh = 4; the smoke configs given 8 attention heads, so nh alone
-    refuses M = 8) or the VLM's heads raises a ``ValueError`` naming the
-    dim."""
+    """An M that does not divide a "model" leaf dim of the mLSTM (its
+    d_inner, n_heads x its head dim), of Mamba2 (2 d_inner of nh heads) or
+    of the VLM (H D) raises a ``ValueError`` naming the config dims."""
     from repro_torch.models.parallel import ModelAxis
     from repro_torch.models.transformer import Transformer
 
@@ -762,6 +761,42 @@ def test_m_not_dividing_the_groups_heads_is_refused(arch, m, dim, heads):
         cfg = dataclasses.replace(cfg, n_heads=heads, n_kv_heads=heads)
     with pytest.raises(ValueError, match=dim):
         Transformer(cfg, axis=ModelAxis(size=m))
+
+
+@pytest.mark.parametrize("arch, m, heads", [
+    ("xlstm-125m", 8, None),
+    ("zamba2-7b", 8, 8),
+    ("mamba2", 8, 8),
+])
+def test_groups_split_where_m_does_not_divide_their_heads(arch, m, heads):
+    """M = 8 over 4 mLSTM or Mamba2 heads (refused before the head runs;
+    the smoke configs given 8 attention heads, so nh alone is short of M):
+    every rank builds, odd ranks hold a head and even ranks none (an empty
+    block of each head leaf, ``w_in`` an empty ``Halves``), and both
+    plans build for the busiest rank."""
+    from repro_torch.configs import ShapeSpec
+    from repro_torch.launch.steps import build_serve_plan, build_train_plan
+    from repro_torch.models.parallel import Halves, ModelAxis
+    from repro_torch.models.transformer import Transformer
+
+    spec = smoke_arch(arch)
+    cfg = spec.model if heads is None else dataclasses.replace(
+        spec.model, n_heads=heads, n_kv_heads=heads)
+    spec = dataclasses.replace(spec, model=cfg)
+    for r in range(m):
+        shards = Transformer(cfg, axis=ModelAxis(size=m, rank=r)) \
+            .param_shards()
+        key = next(p for p in shards if p.endswith(
+            ("cell/w_q", "cell/w_in")))
+        sl = shards[key][0][1]
+        assert ((sl.stop - sl.start) > 0) == (r % 2 == 1), (r, key, sl)
+        assert isinstance(sl, Halves) == key.endswith("w_in")
+    assert build_serve_plan(spec, ModelAxis(size=m, rank=1),
+                            shape_name="prompt", shape=serve_shapes()[0]
+                            ).model.axis.size == m
+    plan = build_train_plan(spec, N, shape=ShapeSpec("t", TS, N, "train"),
+                            model_shards=m, model_rank=1)
+    assert plan.model.axis.rank == 1 and len(plan.columns.col_maps) > 0
 
 
 def test_w_in_holds_its_heads_x_and_z_columns():
