@@ -396,14 +396,31 @@ Phases, each printing one JSON line:
                   zamba2-7b's long_500k on ``--mesh pod16x16`` (started
                   with 29a's): ``ok``, the busiest model rank named. Its
                   times are ranks sharing one card: no speed figures.
+35. ``examples``  the six ``examples_torch`` scripts on the card through
+                  their ``main(argv)`` (stdout kept apart, its last lines
+                  in the record): quickstart, ``partpsp_train.py
+                  --full-scale --nodes 4 --steps 2 --chunk 1`` (llama3.2-1b
+                  at full width, d_s = 243,286,016; its second step timed
+                  alone), decentralized_serve, fault_tolerance,
+                  observability and ``privacy_sweep.py --smoke``: each
+                  one's seconds, peak, launches (``l1_norm`` and
+                  ``dpps_perturb`` on every one, ``pushsum_mix`` on the
+                  dense ones) and outcome; ``attention_train`` with flash
+                  against without at llama3.2-1b's width (B = 1, S =
+                  2,048; atol 1e-5, rtol 1e-4; one flash launch, a
+                  comparison kept out of the kernels line); and, last, a
+                  probe of the profiler in this long process: 3 sparse
+                  rounds (ER(24), d = 300,001) under ``torch.profiler``,
+                  the wrappers' launch counts beside the trace's kernels,
+                  the state against the plain route on the card.
 
 Each kernel counts its launches. The counts are set to 0 just before each
 path (phases 3-7, 10, 13, 15, 17, each run of 19 and 22, each serve of 20,
 23, each run of 24, 25 and 26, each battery of 27, a codec each in
 its wire battery, each run of 28, each card step of 29, each sharded
 run of 30a, each timed run of 31 and 33a-b, a rank's among them, 32a's
-and each 32b rank's steps, each 33c rank's steps, and each run of 34a-c,
-a rank's among them) and read just
+and each 32b rank's steps, each 33c rank's steps, each run of 34a-c,
+a rank's among them, and each example of 35) and read just
 after; each path names the kernels it must launch
 (and the sparse paths must launch ``pushsum_mix`` no time; the training
 paths exactly their counts). Then come the card's
@@ -427,6 +444,7 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 SRC = ROOT / "src"
+PROCESS_T0 = time.perf_counter()
 
 # The card's published peaks (H100 SXM data sheet, dense, no sparsity).
 HBM_BYTES_PER_S = 3.35e12
@@ -7341,6 +7359,213 @@ def sparse_graph(n: int, seed: int = 0):
     return ErdosRenyiGraph(n, p=8.0 / n, seed=seed)
 
 
+# -- phase 35: the examples on the port -----------------------------------------
+
+EXAMPLES_DIR = ROOT / "examples_torch"
+PROTOCOL_KERNELS = ("l1_norm_rows", "dpps_perturb_rows")
+# (script, arguments, the kernels its path must launch): the circulant
+# schedules (d-Out graphs) mix by rolls, which have no kernel; the dense
+# ones launch pushsum_mix. partpsp_train runs llama3.2-1b at full width,
+# one step a segment (so its second step is timed alone).
+EXAMPLE_RUNS = (
+    ("quickstart", [], PROTOCOL_KERNELS),
+    ("partpsp_train", ["--full-scale", "--nodes", "4", "--steps", "2",
+                       "--chunk", "1"], PROTOCOL_KERNELS),
+    ("decentralized_serve", [], DENSE_PATH),
+    ("fault_tolerance", [], DENSE_PATH),
+    ("observability", ["--events", "{tmp}/events.jsonl"], PROTOCOL_KERNELS),
+    ("privacy_sweep", ["--smoke"], PROTOCOL_KERNELS),
+)
+# attention_train at llama3.2-1b's width: (B, S, d_model, H, K, D, theta)
+EXAMPLE_ATTN = (1, 2048, 2048, 32, 8, 64, 500000.0)
+
+
+def load_example(name: str):
+    """``examples_torch/<name>.py`` as a module, its directory on
+    ``sys.path`` (privacy_sweep imports ``paper_setup`` beside it)."""
+    import importlib.util
+
+    if str(EXAMPLES_DIR) not in sys.path:
+        sys.path.insert(0, str(EXAMPLES_DIR))
+    spec = importlib.util.spec_from_file_location(
+        f"examples_torch_{name}", EXAMPLES_DIR / f"{name}.py")
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def example_checks(name: str, out) -> dict:
+    """Each example's own outcome, beyond its launches."""
+    import numpy as np
+
+    if name == "quickstart":
+        require(math.isfinite(out["error"]), "quickstart: consensus error")
+        return dict(error=out["error"], epsilon=out["report"].epsilon_spent)
+    if name == "partpsp_train":
+        rep = out["report"]
+        loss = np.asarray(rep.trajectory["loss_mean"])
+        require(loss.shape == (2,) and np.isfinite(loss).all(),
+                f"partpsp_train: loss {loss}")
+        require(out["summary"]["rounds"] == 2, "partpsp_train: summary")
+        # the second step alone (one step a segment; the first carries the
+        # kernels' load)
+        return dict(d_shared=out["d_shared"], d_local=out["d_local"],
+                    loss=loss.tolist(), first_step_s=rep.compile_s,
+                    step_ms=rep.run_s * 1e3, summary=out["summary"])
+    if name == "decentralized_serve":
+        toks = out["serve"].tokens.cpu()
+        require(tuple(toks.shape) == (2, 12) and bool(
+            ((toks >= 0) & (toks < out["vocab_size"])).all()),
+            f"decentralized_serve: tokens {toks}")
+        loss = np.asarray(out["report"].trajectory["loss_mean"])
+        require(np.isfinite(loss).all(), "decentralized_serve: loss")
+        return dict(final_loss=float(loss[-1]), tokens=toks[0].tolist())
+    if name == "fault_tolerance":
+        require(abs(out["mass"] - 1.0) < 1e-5, "fault_tolerance: mass")
+        return dict(mass=out["mass"], error=out["error"])
+    if name == "observability":
+        require(out["alerts"] == [] and out["events"] > 0,
+                f"observability: {len(out['alerts'])} alerts, "
+                f"{out['events']} events")
+        return dict(events=out["events"], profile_note=out["profile"].note,
+                    profile_phases=out["profile"].phases)
+    for row in out:  # privacy_sweep's rows
+        r = row["result"]
+        require(0.0 <= r.accuracy <= 1.0 and math.isfinite(r.loss),
+                f"privacy_sweep: {row}")
+        require(not row.get("flagged", False),
+                f"privacy_sweep: the audit flagged {row}")
+    return dict(rows=[dict(algorithm=row["algorithm"], b=row["b"],
+                           accuracy=row["result"].accuracy,
+                           eps_total=row["result"].eps_total,
+                           eps_emp=row.get("eps_emp")) for row in out])
+
+
+def attention_check(torch, ops, dev) -> dict:
+    """``attention_train(use_flash=True)`` at llama3.2-1b's width against
+    ``use_flash=False`` on the same card tensors (atol 1e-5, rtol 1e-4);
+    the flash launch is the entry point's kernel route, counted here and
+    kept out of the kernels line (a comparison)."""
+    from repro_torch.models.attention import attention_train, init_attention
+
+    b, s, dm, h, k, d, theta = EXAMPLE_ATTN
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    params = init_attention(gen, dm, h, k, d, device=dev)
+    x = torch.randn((b, s, dm), generator=gen, device=dev)
+    pos = torch.arange(s, device=dev)[None].expand(b, s)
+    heads = dict(n_heads=h, n_kv_heads=k, head_dim=d, theta=theta)
+    with torch.no_grad():
+        ops.reset_launch_counts()
+        got = attention_train(params, x, pos, use_flash=True, **heads)
+        torch.cuda.synchronize()
+        launches = ops.launch_counts()["flash_attention"]
+        want = attention_train(params, x, pos, use_flash=False, **heads)
+    err = float((got - want).abs().max())
+    require(launches == 1, f"attention_train(use_flash=True) launched "
+                           f"flash_attention {launches} times")
+    require(torch.allclose(got, want, atol=1e-5, rtol=1e-4),
+            f"attention_train: flash against plain max abs err {err}")
+    return dict(shape=dict(zip(("b", "s", "d_model", "h", "k", "d"),
+                               EXAMPLE_ATTN[:6])),
+                flash_launches=launches, max_abs_err=err)
+
+
+def profiler_probe(torch, api, ops, dev) -> dict:
+    """Whether the port or ``torch.profiler`` loses device events late in
+    a long process (ROADMAP Queue 3 item 2): 3 sparse rounds of the card
+    test ``test_profile_attributes_each_kernel_launch_to_its_phase``
+    under the profiler in this process, after every other phase. The
+    wrappers' counts are their launches; the state against the plain
+    route on the card (to 1e-5 of its largest magnitude) shows the
+    kernels ran; the trace's
+    kernels of the port's namespace are what the profiler kept."""
+    from repro_torch.net import ErdosRenyiGraph
+
+    topo = ErdosRenyiGraph(24, p=8 / 24, seed=0)
+    values = {"x": torch.randn((24, 300_001), device=dev,
+                               generator=torch.Generator(
+                                   device=dev).manual_seed(SEED))}
+    states = {}
+    for kernels in (True, False):
+        session = api.Session.build(
+            topo, privacy=api.PrivacySpec(b=5.0, gamma_n=1e-4),
+            schedule="sparse", sync_interval=0, seed=3, use_kernels=kernels)
+        if kernels:
+            ops.reset_launch_counts()
+            t0 = time.perf_counter()
+            with torch.profiler.profile(activities=[
+                    torch.profiler.ProfilerActivity.CPU,
+                    torch.profiler.ProfilerActivity.CUDA]) as prof:
+                rep = session.run(3, values=values)
+                torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+            counts = {k: v for k, v in ops.launch_counts().items() if v}
+            seen = {}
+            for e in prof.events():
+                if ("repro_torch::" in e.name and e.device_type
+                        != torch.autograd.DeviceType.CPU):
+                    seen[e.name] = seen.get(e.name, 0) + 1
+        else:
+            rep = session.run(3, values=values)
+        states[kernels] = rep.state.push.s["x"]
+    # the kernel route against the plain one, to 1e-5 of the state's
+    # largest magnitude (3 noised rounds; the mix and the norms sum in
+    # their own orders)
+    err = float((states[True] - states[False]).abs().max())
+    scale = float(states[False].abs().max())
+    require(err <= 1e-5 * scale, f"profiler probe: the kernel route is "
+                                 f"{err} from the plain one (max {scale})")
+    return dict(process_s=time.perf_counter() - PROCESS_T0,
+                max_abs_err=err, max_abs=scale,
+                profiled_s=seconds, launched=counts,
+                launched_total=sum(counts.values()),
+                traced=seen, traced_total=sum(seen.values()))
+
+
+def examples_phase(torch, api, ops, dev) -> tuple[dict, list]:
+    """35: the six ``examples_torch`` scripts on the card, each through its
+    ``main(argv)`` (stdout kept apart: its last lines in the record), the
+    launch counts set to 0 just before each and read just after, each
+    script's kernels required; then ``attention_train`` with flash against
+    without, and the profiler probe."""
+    import contextlib
+    import gc
+    import io
+
+    t_phase = time.perf_counter()
+    runs, counts = {}, []
+    with tempfile.TemporaryDirectory() as tmp:
+        for name, argv, expected in EXAMPLE_RUNS:
+            argv = [a.format(tmp=tmp) for a in argv]
+            module = load_example(name)
+            text = io.StringIO()
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            ops.reset_launch_counts()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(text):
+                out = module.main(argv)
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+            launches = ops.launch_counts()
+            require_launches(launches, expected, f"examples_torch/{name}.py")
+            counts.append(launches)
+            runs[name] = dict(argv=argv, seconds=seconds,
+                              peak_gb=torch.cuda.max_memory_allocated() / 1e9,
+                              launches={k: v for k, v in launches.items()
+                                        if v},
+                              stdout_tail=text.getvalue().splitlines()[-4:],
+                              **example_checks(name, out))
+            del out, module
+            gc.collect()
+            torch.cuda.empty_cache()
+    attention = attention_check(torch, ops, dev)
+    probe = profiler_probe(torch, api, ops, dev)
+    return dict(phase="examples", runs=runs, attention_train=attention,
+                profiler_probe=probe,
+                seconds=time.perf_counter() - t_phase), counts
+
+
 def kernel_entry(name: str, r: dict, launches: int, **extra) -> dict:
     meta = KERNELS[name]
     return dict(name=name, route="cuda", source=meta["source"],
@@ -7691,6 +7916,9 @@ def main() -> int:
     rest_line, counts, rest_flash = rest_axis_phase(
         torch, ops, ref, dev, smi, (rest_dry, dry_tmp))
     emit(rest_line)
+    launches += counts
+    examples_line, counts = examples_phase(torch, api, ops, dev)
+    emit(examples_line)
     launches += counts
     total = {k: sum(path[k] for path in launches) for k in KERNELS}
     kernels = []

@@ -53,6 +53,7 @@ Typical use::
 from __future__ import annotations
 
 import dataclasses
+import functools
 import os
 import time
 from typing import Any, Callable, Iterable, Iterator
@@ -86,7 +87,7 @@ from repro_torch.core.tree_utils import PyTree, tree_leaves, tree_map
 from repro_torch.device import resolve_device
 from repro_torch.engine import ProtocolPlan, run_decode, run_dpps, run_partpsp
 from repro_torch.engine.rounds import (_async_merge, _check_async,
-                                       _ensure_mail, _round)
+                                       _ensure_mail, _round, run_segments)
 
 __all__ = ["PrivacySpec", "ProtocolSession", "Session"]
 
@@ -521,20 +522,13 @@ class ProtocolSession:
         for h in hooks:
             h.prepare(self._context(rounds, "dpps", d_s))
 
-        def segments():
-            st = state
-            for t0 in range(start, start + rounds, self.plan.chunk):
-                n = min(self.plan.chunk, start + rounds - t0)
-                st, traj = run_dpps(st, eps_at, cfg=self.cfg, plan=self.plan,
-                                    rounds=n, seed=self.seed, bits_at=bits_at,
-                                    hooks=hooks, fault_draws_at=fault_draws_at,
-                                    delay_draws_at=delay_draws_at,
-                                    mechanism=self.mechanism,
-                                    wire_draws_at=wire_draws_at,
-                                    noise_draws_at=noise_draws_at)
-                yield t0, n, st, traj
-
-        return self._drive(segments(), hooks, d_s, start)
+        segments = run_segments(
+            self.consensus_runner(hooks), state, eps_at, self.seed,
+            steps=rounds, chunk=self.plan.chunk, start=start,
+            bits_at=bits_at, fault_draws_at=fault_draws_at,
+            delay_draws_at=delay_draws_at, wire_draws_at=wire_draws_at,
+            noise_draws_at=noise_draws_at)
+        return self._drive(segments, hooks, d_s, start)
 
     def train(self, rounds: int, batch_at: Callable[[int], Any], *,
               state: PartPSPState | None = None,
@@ -571,26 +565,17 @@ class ProtocolSession:
         for h in hooks:
             h.prepare(self._context(rounds, self.algorithm, d_s))
 
-        def segments():
-            st = state
-            for t0 in range(start, start + rounds, self.plan.chunk):
-                n = min(self.plan.chunk, start + rounds - t0)
-                st, traj = run_partpsp(
-                    st, batch_at, cfg=self.train_cfg, partition=self.partition,
-                    loss_fn=self.loss_fn, plan=self.plan, rounds=n,
-                    seed=self.seed, bits_at=bits_at, hooks=hooks,
-                    fault_draws_at=fault_draws_at,
-                    delay_draws_at=delay_draws_at, mechanism=self.mechanism,
-                    wire_draws_at=wire_draws_at,
-                    noise_draws_at=noise_draws_at)
-                yield t0, n, st, traj
-
         if driver == "loop":
             stream = self._loop_segments(state, batch_at, rounds, start,
                                          hooks, bits_at, fault_draws_at,
                                          delay_draws_at, noise_draws_at)
         else:
-            stream = segments()
+            stream = run_segments(
+                self.segment_runner(hooks), state, batch_at, self.seed,
+                steps=rounds, chunk=self.plan.chunk, start=start,
+                bits_at=bits_at, fault_draws_at=fault_draws_at,
+                delay_draws_at=delay_draws_at, wire_draws_at=wire_draws_at,
+                noise_draws_at=noise_draws_at)
         return self._drive(stream, hooks, d_s, start)
 
     def _loop_segments(self, state: PartPSPState, batch_at, rounds: int,
@@ -640,6 +625,68 @@ class ProtocolSession:
                 rows = capture_rows(m, hooks)
             yield t, 1, st, {k: v[None] for k, v in rows.items()}
 
+    # -- the runners the drivers call ----------------------------------------
+
+    def _cached_runner(self, kind: str, hooks: tuple, build: Callable):
+        """One runner a (kind, hook pipeline), built once: the key holds
+        the hook objects themselves, as the reference's does."""
+        cache = self.__dict__.get("_runners")
+        if cache is None:
+            cache = {}
+            object.__setattr__(self, "_runners", cache)
+        key = (kind, hooks)
+        if key not in cache:
+            cache[key] = build()
+        return cache[key]
+
+    def consensus_runner(self, hooks: Iterable[RoundHook] = ()) -> Callable:
+        """The segment function :meth:`run` drives: :func:`repro_torch.
+        engine.run_dpps` bound to the session's configs, plan, mechanism
+        and ``hooks``; call it ``(state, eps_at, rounds=, seed=, ...)``.
+        The reference's is jitted with its state donated; this one is the
+        plain function (the drivers never write into the state they are
+        given)."""
+        if self.plan is None:
+            raise ValueError("consensus_runner() needs a session built with "
+                             "a topology")
+        hooks = tuple(hooks)
+        return self._cached_runner("dpps", hooks, lambda: functools.partial(
+            run_dpps, cfg=self.cfg, plan=self.plan, hooks=hooks,
+            mechanism=self.mechanism))
+
+    def segment_runner(self, hooks: Iterable[RoundHook] = ()) -> Callable:
+        """The training segment function :meth:`train` drives:
+        :func:`repro_torch.engine.run_partpsp` bound as
+        :meth:`consensus_runner` binds ``run_dpps``; call it ``(state,
+        batch_at, rounds=, seed=, ...)`` (the reference's takes the
+        segment's batches stacked, :func:`repro_torch.engine.stack_rounds`;
+        the port's reads round t's from ``batch_at(t)``)."""
+        if self.loss_fn is None:
+            raise ValueError("training needs a topology and a loss model= at "
+                             "build time")
+        hooks = tuple(hooks)
+        return self._cached_runner("partpsp", hooks, lambda: functools.partial(
+            run_partpsp, cfg=self.train_cfg, partition=self.partition,
+            loss_fn=self.loss_fn, plan=self.plan, hooks=hooks,
+            mechanism=self.mechanism))
+
+    def step_fn(self, t: int = 0) -> Callable:
+        """One PartPSP round over the pytree runtime with round ``t``'s
+        nominal mixing operands bound (the loop driver's primitive):
+        ``step(state, batch, seed=..., bits=...) -> (state, metrics)``."""
+        if self.loss_fn is None:
+            raise ValueError("training needs a topology and a loss model= at "
+                             "build time")
+        step = functools.partial(
+            partpsp_step, cfg=self.train_cfg, partition=self.partition,
+            loss_fn=self.loss_fn, mechanism=self.mechanism,
+            **self.plan.mix_at(t))
+
+        def run(state: PartPSPState, batch: Any, **kwargs):
+            with torch.no_grad():
+                return step(state, batch, **kwargs)
+        return run
+
     # -- profiling -----------------------------------------------------------
 
     def profile(self, rounds: int = 50, *, values: PyTree | None = None,
@@ -685,12 +732,10 @@ class ProtocolSession:
             if state is None:
                 state = self._fresh_train_state()
 
+            runner = self.segment_runner(hooks)
+
             def segment(st, k):
-                return run_partpsp(
-                    st, batch_at, cfg=self.train_cfg,
-                    partition=self.partition, loss_fn=self.loss_fn,
-                    plan=self.plan, rounds=k, seed=seed, hooks=hooks,
-                    mechanism=self.mechanism)
+                return runner(st, batch_at, rounds=k, seed=seed)
         else:
             if state is None:
                 if values is None:
@@ -698,10 +743,10 @@ class ProtocolSession:
                                      "(consensus) or batch_at= (training)")
                 state = dpps_init(_to_device(values, self.device), self.cfg)
 
+            runner = self.consensus_runner(hooks)
+
             def segment(st, k):
-                return run_dpps(st, None, cfg=self.cfg, plan=self.plan,
-                                rounds=k, seed=seed, hooks=hooks,
-                                mechanism=self.mechanism)
+                return runner(st, None, rounds=k, seed=seed)
 
         t0 = time.perf_counter()
         segment(state, 1)

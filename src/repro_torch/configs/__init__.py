@@ -33,6 +33,10 @@ def get_config(name: str) -> ArchSpec:
     return importlib.import_module(_ARCH_MODULES[name]).SPEC
 
 
+def all_configs() -> dict[str, ArchSpec]:
+    return {name: get_config(name) for name in ARCH_NAMES}
+
+
 __all__ = ["ARCH_NAMES", "ArchSpec", "ShapeSpec",
-           "INPUT_SHAPES", "get_config", "input_specs", "train_batch_specs",
-           "serve_batch_specs"]
+           "INPUT_SHAPES", "get_config", "all_configs", "input_specs",
+           "train_batch_specs", "serve_batch_specs"]

@@ -64,6 +64,10 @@ class PackedLayout:
         return cls(treedef=treedef, segments=segments, d_s=d_s, d_pad=d_pad)
 
     @property
+    def n_segments(self) -> int:
+        return len(self.segments)
+
+    @property
     def pad(self) -> int:
         return self.d_pad - self.d_s
 
@@ -145,6 +149,16 @@ class PackedLayout:
     def l1_norm_per_node(self, buf: torch.Tensor) -> torch.Tensor:
         """Per-node L1 norm of the wire lanes -> (...,)."""
         return self.wire_slice(buf).abs().sum(dim=-1)
+
+    def laplace_noise_flat(self, n_nodes: int, scale, **draw) -> torch.Tensor:
+        """The round's Laplace noise as the flat (N, d_s) row: the same
+        :func:`repro_torch.core.privacy.flat_wire_draw` call that
+        ``noise_wire`` slices into leaves, so the two are bit-equal by
+        construction; ``draw`` are its keywords (``seed``, ``t``, ``bits``,
+        ``draws``, ``device``, ``node0``)."""
+        from repro_torch.core.privacy import flat_wire_draw
+
+        return flat_wire_draw(n_nodes, self.d_s, scale, **draw)
 
     def flat_row(self, tree: PyTree) -> torch.Tensor:
         """Tree with leaves (N, *seg.shape) -> the un-padded (N, d_s) row."""

@@ -188,6 +188,15 @@ class Partition:
                 total += n * k // plan.shape[1] if plan.shape[1] else 0
         return int(total)
 
+    def describe(self) -> str:
+        """``d_shared`` and ``d_local``, then a leaf a line: its path, shape
+        and action (the reference's text, character for character)."""
+        lines = [f"d_shared={self.d_shared():,} d_local={self.d_local():,}"]
+        for plan in self._plans:
+            lines.append(f"  {plan.path:60s} {plan.shape!s:24s} -> "
+                         f"{plan.action}")
+        return "\n".join(lines)
+
     def d_local(self, *, per_node: bool = True) -> int:
         """Number of scalars that stay on the node (per node)."""
         total = 0

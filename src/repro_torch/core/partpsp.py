@@ -35,7 +35,7 @@ from repro_torch.core.dpps import (LOCAL_COLUMN_OPS, LOCAL_NODE_OPS,
 from repro_torch.core.loops import node_loop
 from repro_torch.core.packing import PackedLayout
 from repro_torch.core.partition import Partition
-from repro_torch.core.privacy import l1_clip_per_node
+from repro_torch.core.privacy import PrivacyAccountant, l1_clip_per_node
 from repro_torch.core.pushsum import correct
 from repro_torch.core.tree_utils import (PyTree, l1_norm_per_node, node_mean,
                                          tree_flatten, tree_unflatten)
@@ -43,7 +43,8 @@ from repro_torch.obs.trace import (PHASE_CLIP, PHASE_GRADS_LOCAL,
                                     PHASE_GRADS_SHARED, phase)
 
 __all__ = ["PartPSPConfig", "PartPSPState", "make_baseline_config",
-           "partpsp_init", "partpsp_step", "consensus_params", "node_stacked"]
+           "partpsp_init", "partpsp_step", "consensus_params", "node_stacked",
+           "privacy_summary"]
 
 LossFn = Callable[[PyTree, Any], torch.Tensor]
 
@@ -250,3 +251,13 @@ def consensus_params(state: PartPSPState, partition: Partition) -> PyTree:
     return partition.merge([x[None].expand((n,) + tuple(x.shape)) for x in s_bar],
                            state.local)
 
+
+def privacy_summary(cfg: PartPSPConfig, rounds: int) -> dict[str, Any]:
+    """The accountant's summary after ``rounds`` rounds of ``cfg``: every
+    round is protected where the noise is on at a positive rate, none
+    otherwise (sync rounds are not told apart, as in the reference)."""
+    acct = PrivacyAccountant(b=cfg.dpps.b, gamma_n=cfg.dpps.gamma_n)
+    protected = cfg.dpps.noise and cfg.dpps.gamma_n > 0
+    for _ in range(rounds):
+        acct = acct.step(protected=protected)
+    return acct.summary()

@@ -33,6 +33,7 @@ __all__ = [
     "gossip_circulant",
     "gossip_sparse",
     "gossip_packed",
+    "gossip",
     "sparse_mix",
     "correct",
     "consensus_error",
@@ -42,6 +43,11 @@ __all__ = [
 class PushSumState(NamedTuple):
     s: PyTree            # gossiped values, leaves (N, ...), or (N, d_pad)
     a: torch.Tensor      # push-sum normalizing weights, (N,)
+
+    @property
+    def y(self) -> PyTree:
+        """The corrected values s / a (Eq. 10)."""
+        return correct(self.s, self.a)
 
 
 def init_push_sum(s: PyTree, n_nodes: int, device) -> PushSumState:
@@ -148,6 +154,23 @@ def gossip_packed(state: PushSumState, *, w: torch.Tensor | None = None,
         s_new = (kops.pushsum_mix(w, buf) if use_kernels
                  else _mix_dense(w, buf))
         return PushSumState(s=s_new, a=_mix_dense(w, state.a))
+
+
+def gossip(state: PushSumState, *, w: torch.Tensor | None = None,
+           offsets: Sequence[int] | None = None,
+           weights: torch.Tensor | None = None,
+           use_kernels: bool = False) -> PushSumState:
+    """One mixing round of a tree state on the schedule given: circulant
+    ``offsets`` (``weights`` default to 1 / len(offsets)) or the dense
+    ``w``, whose ``use_kernels`` route is :func:`gossip_dense`'s."""
+    if offsets is not None:
+        if weights is None:
+            weights = torch.full((len(offsets),), 1.0 / len(offsets),
+                                 dtype=torch.float32, device=state.a.device)
+        return gossip_circulant(state, offsets, weights)
+    if w is None:
+        raise ValueError("gossip() needs either w= or offsets=")
+    return gossip_dense(state, w, use_kernels=use_kernels)
 
 
 def correct(s: PyTree, a: torch.Tensor) -> PyTree:

@@ -19,8 +19,8 @@ import torch
 
 from repro_torch.core.tree_utils import PyTree, l1_norm_per_node, tree_leaves
 
-__all__ = ["SensitivityState", "init_sensitivity", "reset_sensitivity",
-           "real_sensitivity"]
+__all__ = ["SensitivityState", "init_sensitivity", "update_sensitivity",
+           "reset_sensitivity", "network_sensitivity", "real_sensitivity"]
 
 
 class SensitivityState(NamedTuple):
@@ -41,6 +41,19 @@ def init_sensitivity(s0: PyTree, eps0_l1: torch.Tensor, *, c_prime: float,
         lam=torch.tensor(lam, dtype=torch.float32, device=dev))
 
 
+def update_sensitivity(state: SensitivityState, eps_l1: torch.Tensor,
+                       noise_l1: torch.Tensor, *,
+                       gamma_n: float = 1.0) -> SensitivityState:
+    """t > 0 branch of Remark 1: ``eps_l1`` is this round's per-node
+    ||eps_i^(t)||_1, ``noise_l1`` the ||n_i^(t)||_1 of the noise drawn this
+    round (the next round's n^(t-1)). The reference's form leaves out
+    gamma_n, which is this one at ``gamma_n=1``; ``dpps_step`` applies the
+    round's rate in the same order of operations."""
+    s_new = state.lam * state.s_local + 2.0 * state.c_prime * (
+        eps_l1 + state.lam * gamma_n * state.prev_noise_l1)
+    return state._replace(s_local=s_new, prev_noise_l1=noise_l1)
+
+
 def reset_sensitivity(state: SensitivityState, s_synced: PyTree,
                       eps_l1: torch.Tensor) -> SensitivityState:
     """Restart the recursion after a synchronization round (the t = 0
@@ -48,6 +61,11 @@ def reset_sensitivity(state: SensitivityState, s_synced: PyTree,
     s_local = 2.0 * state.c_prime * (l1_norm_per_node(s_synced) + eps_l1)
     return state._replace(s_local=s_local,
                           prev_noise_l1=torch.zeros_like(s_local))
+
+
+def network_sensitivity(state: SensitivityState) -> torch.Tensor:
+    """S^(t) = max_i S_i^(t), the one-scalar all-reduce of Alg. 1 line 4."""
+    return state.s_local.max()
 
 
 def real_sensitivity(s_half: PyTree | torch.Tensor, *,

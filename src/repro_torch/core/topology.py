@@ -27,7 +27,10 @@ __all__ = [
     "FullyConnectedGraph",
     "TimeVaryingTopology",
     "padded_csr",
+    "is_doubly_stochastic",
+    "is_strongly_connected_over_window",
     "spectral_gap",
+    "effective_contraction",
     "derive_constants",
     "contraction_rate",
     "calibrate_constants",
@@ -82,6 +85,22 @@ class Topology:
     def offsets(self, t: int) -> Sequence[int] | None:
         raise NotImplementedError(
             f"{type(self).__name__} does not implement offsets()")
+
+    def out_degree(self, t: int) -> int:
+        """Out-neighbours (self loop included) at round ``t``: the offsets'
+        count, or for a non-circulant graph the support of W's sender
+        columns, which must be the same for every node."""
+        offs = self.offsets(t)
+        if offs is not None:
+            return len(offs)
+        degs = (self.weight_matrix(t) > 0.0).sum(axis=0)
+        if degs.min() != degs.max():
+            raise NotImplementedError(
+                f"{type(self).__name__} is non-circulant with irregular "
+                f"out-degrees (min {int(degs.min())}, max {int(degs.max())} "
+                f"at t={t}); there is no single out_degree — read per-node "
+                "degrees off weight_matrix(t) > 0 column sums instead")
+        return int(degs[0])
 
     def weight_matrix(self, t: int) -> np.ndarray:
         """Doubly stochastic W^(t) as float64 numpy (row convention)."""
@@ -222,6 +241,33 @@ class TimeVaryingTopology(Topology):
         return self._at(t).weight_matrix(t)
 
 
+def is_doubly_stochastic(mat: np.ndarray, atol: float = 1e-9) -> bool:
+    """Square, no entry below -atol, every row and column summing to 1."""
+    mat = np.asarray(mat)
+    if mat.ndim != 2 or mat.shape[0] != mat.shape[1]:
+        return False
+    if (mat < -atol).any():
+        return False
+    ones = np.ones(mat.shape[0])
+    return bool(np.allclose(mat.sum(axis=0), ones, atol=atol)
+                and np.allclose(mat.sum(axis=1), ones, atol=atol))
+
+
+def is_strongly_connected_over_window(topo: Topology, t0: int,
+                                      window: int) -> bool:
+    """Assumption 1: the union graph over rounds [t0, t0 + window) is
+    strongly connected (reachability by boolean matrix powers)."""
+    n = topo.n_nodes
+    adj = np.eye(n, dtype=bool)
+    for t in range(t0, t0 + window):
+        for j, i in topo.edges(t):
+            adj[i, j] = True
+    reach = adj.copy()
+    for _ in range(n):
+        reach = reach | (reach @ adj)
+    return bool(reach.all())
+
+
 def spectral_gap(topo: Topology, t: int = 0) -> float:
     """1 - |second eigenvalue| of W^(t)."""
     eig = np.sort(np.abs(np.linalg.eigvals(topo.weight_matrix(t))))[::-1]
@@ -239,6 +285,24 @@ def contraction_rate(topo: Topology, *, period: int | None = None) -> float:
     for t in range(period):
         worst = max(worst, float(np.linalg.norm(topo.weight_matrix(t) - j, 2)))
     return worst
+
+
+def effective_contraction(topo: Topology, *,
+                          period: int | None = None) -> float:
+    """Per-round geometric contraction over a full period,
+    ``||prod_t W^(t) - J||_2^(1 / period)`` clamped to [1e-4, 0.9999]
+    before the root: a time-varying graph need not contract every round,
+    its period product does. Equals :func:`contraction_rate` on a static
+    graph (within the clamp)."""
+    if period is None:
+        period = getattr(topo, "period", 1)
+    n = topo.n_nodes
+    j = np.ones((n, n)) / n
+    prod = np.eye(n)
+    for t in range(period):
+        prod = topo.weight_matrix(t) @ prod
+    rate = float(np.linalg.norm(prod - j, 2))
+    return min(0.9999, max(1e-4, rate)) ** (1.0 / period)
 
 
 def derive_constants(

@@ -25,6 +25,16 @@ __all__ = [
     "tree_map",
     "l1_norm_per_node",
     "node_mean",
+    "tree_l1_norm_per_node",
+    "tree_l2_norm_sq_per_node",
+    "tree_scale_per_node",
+    "tree_add",
+    "tree_sub",
+    "tree_scale",
+    "tree_zeros_like",
+    "tree_node_mean",
+    "tree_count_params",
+    "tree_any_nan",
 ]
 
 PyTree = Any
@@ -138,3 +148,59 @@ def node_mean(tree: PyTree) -> PyTree:
     """Average over the leading node dimension (the consensus target)."""
     return tree_map(lambda x: x.mean(dim=0), tree)
 
+
+# The reference's names: the same functions where the port had them.
+tree_l1_norm_per_node = l1_norm_per_node
+tree_node_mean = node_mean
+
+
+def tree_l2_norm_sq_per_node(tree: PyTree) -> torch.Tensor:
+    """sum over leaves of ||leaf_i||_2^2 for each node i -> (N,), summed
+    leaf by leaf."""
+    sq = [x.square().reshape(x.shape[0], -1).sum(dim=1)
+          for x in tree_leaves(tree)]
+    return sum(sq[1:], start=sq[0])
+
+
+def tree_scale_per_node(tree: PyTree, scale: torch.Tensor) -> PyTree:
+    """Node i's slice of every leaf times ``scale[i]``."""
+    return tree_map(lambda x: x * scale.reshape(
+        (-1,) + (1,) * (x.dim() - 1)).to(x.dtype), tree)
+
+
+def tree_add(a: PyTree, b: PyTree) -> PyTree:
+    return tree_map(torch.add, a, b)
+
+
+def tree_sub(a: PyTree, b: PyTree) -> PyTree:
+    return tree_map(torch.sub, a, b)
+
+
+def tree_scale(tree: PyTree, scale) -> PyTree:
+    """Every leaf times the scalar ``scale``, in the leaf's dtype."""
+    return tree_map(lambda x: x * torch.as_tensor(scale, dtype=x.dtype,
+                                                  device=x.device), tree)
+
+
+def tree_zeros_like(tree: PyTree) -> PyTree:
+    return tree_map(torch.zeros_like, tree)
+
+
+def tree_count_params(tree: PyTree, *, per_node: bool = True) -> int:
+    """Total element count; with ``per_node`` the node dim is not counted."""
+    total = 0
+    for x in tree_leaves(tree):
+        n = x.numel()
+        if per_node and x.dim() >= 1:
+            n //= x.shape[0]
+        total += n
+    return int(total)
+
+
+def tree_any_nan(tree: PyTree) -> torch.Tensor:
+    """A 0-d bool: whether any leaf holds a NaN or an infinity."""
+    flags = [(~torch.isfinite(x)).any() for x in tree_leaves(tree)]
+    out = flags[0]
+    for f in flags[1:]:
+        out = out | f
+    return out

@@ -19,7 +19,11 @@ the reference, so split runs and resumed states continue the same stream.
 conformance tests use it to hand the port the reference's exact bits.
 
 :func:`run_decode` is the serving loop (the reference's scan-compiled
-``run_decode``), one Python iteration a token.
+``run_decode``), one Python iteration a token. :func:`run_segments`
+drives a segment runner (``Session.consensus_runner`` /
+``segment_runner``: :func:`run_dpps` / :func:`run_partpsp` bound to a
+session) chunk by chunk, as ``Session.run`` / ``train`` do;
+:func:`stack_rounds` stacks per-round trees for scripts that want them.
 
 Faults (``plan.dynamic``, an active :class:`repro_torch.net.FaultModel`):
 each round realizes its masked, column-renormalised W (or edge-list
@@ -43,7 +47,7 @@ Faults and delays are refused beside a builder, as in the reference.
 """
 from __future__ import annotations
 
-from typing import Any, Callable, Sequence
+from typing import Any, Callable, Iterator, Sequence
 
 import torch
 
@@ -56,7 +60,8 @@ from repro_torch.core.tree_utils import PyTree, tree_map
 from repro_torch.engine.plan import ProtocolPlan
 from repro_torch.obs.trace import PHASE_FAULTS, PHASE_PACK, PHASE_UNPACK, phase
 
-__all__ = ["run_dpps", "run_partpsp", "run_decode", "gumbel", "wire_layout"]
+__all__ = ["run_dpps", "run_partpsp", "run_decode", "run_segments",
+           "stack_rounds", "gumbel", "wire_layout"]
 
 BitsAt = Callable[[int], torch.Tensor] | None
 NoiseAt = Callable[[int], torch.Tensor] | None
@@ -272,6 +277,34 @@ def _draws(wire_draws_at: DrawsAt, noise_draws_at: DrawsAt,
            t: int) -> dict[str, Any]:
     return dict(wire_draws=wire_draws_at(t) if wire_draws_at else None,
                 noise_draws=noise_draws_at(t) if noise_draws_at else None)
+
+
+def stack_rounds(make_round: Callable[[int], PyTree], t0: int,
+                 n: int) -> PyTree:
+    """Rounds ``t0 .. t0 + n - 1`` of host-made trees stacked leaf by leaf
+    on a leading (T,) axis."""
+    items = [make_round(t) for t in range(t0, t0 + n)]
+    return tree_map(lambda *xs: torch.stack(xs), *items)
+
+
+def run_segments(run_chunk: Callable, state, batch_at: Callable[[int], Any],
+                 seed: int = 0, *, steps: int, chunk: int, start: int = 0,
+                 **kwargs) -> Iterator:
+    """Drive a segment runner (``Session.consensus_runner`` /
+    ``segment_runner``) over ``steps`` rounds in ``chunk``-round segments.
+
+    Yields ``(t0, n, state, traj)`` after each segment: its first round,
+    its length (the last may be shorter), the advanced state and its
+    per-round rows, as the reference's does. The runner reads round t's
+    input from ``batch_at(t)`` (``eps_at`` for consensus) where the
+    reference's takes the segment's inputs stacked; ``seed`` keys the
+    noise where it takes a key; ``kwargs`` go to every call (the draws
+    seams)."""
+    for t0 in range(start, start + steps, chunk):
+        n = min(chunk, start + steps - t0)
+        state, traj = run_chunk(state, batch_at, rounds=n, seed=seed,
+                                **kwargs)
+        yield t0, n, state, traj
 
 
 def run_dpps(state: DPPSState, eps_at: Callable[[int], PyTree] | None, *,

@@ -74,7 +74,7 @@ from repro_torch.models.transformer import Transformer
 # the registry and the flag parsers live in repro_torch.api.cli; the names
 # stay importable from here, as the reference's launcher imports them
 __all__ = ["TOPOLOGY_CHOICES", "make_topology", "build_session",
-           "faults_from_args", "delays_from_args", "wire_from_args", "main"]
+           "build_trainer", "build_engine_trainer", "faults_from_args", "delays_from_args", "wire_from_args", "main"]
 
 
 def build_session(arch_name: str, *, reduced: bool, n_nodes: int,
@@ -107,6 +107,30 @@ def build_session(arch_name: str, *, reduced: bool, n_nodes: int,
         use_kernels=use_kernels, chunk=chunk, packed=packed, faults=faults,
         delays=delays, wire=wire)
     return model, model_cfg, session
+
+
+def build_trainer(arch_name: str, **kwargs):
+    """The per-round driver over :func:`build_session`'s session: ``(model,
+    model_cfg, topo, cfg, partition, state, step)``, ``step`` its
+    ``step_fn()`` (round 0's mixing operands bound; call it ``step(state,
+    batch, seed=...)``), as the reference's tuple."""
+    model, model_cfg, session = build_session(arch_name, **kwargs)
+    return (model, model_cfg, session.topology, session.train_cfg,
+            session.partition, session.train_state(), session.step_fn())
+
+
+def build_engine_trainer(arch_name: str, *, chunk: int = 50,
+                         packed: bool = True, **kwargs):
+    """The engine driver over :func:`build_session`'s session: ``(model,
+    model_cfg, topo, cfg, partition, state, run_chunk, plan)``, ``run_chunk``
+    its ``segment_runner()`` (call it ``run_chunk(state, batch_at,
+    rounds=n, seed=...)``, or drive it with
+    :func:`repro_torch.engine.run_segments`), as the reference's tuple."""
+    model, model_cfg, session = build_session(arch_name, chunk=chunk,
+                                              packed=packed, **kwargs)
+    return (model, model_cfg, session.topology, session.train_cfg,
+            session.partition, session.train_state(),
+            session.segment_runner(), session.plan)
 
 
 def lm_batches(model_cfg, loader: NodeShardedLoader):

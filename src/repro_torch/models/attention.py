@@ -1,8 +1,14 @@
-"""GQA attention parameters and cross-attention (port of
-``repro.models.attention``).
+"""GQA attention parameters, the self-attention functions and
+cross-attention (port of ``repro.models.attention``).
 
-The self-attention arithmetic lives in :mod:`repro_torch.models.
-transformer`, as in the reference. Cross-attention (the VLM's gated
+:func:`attention_train` and :func:`attention_decode` are the reference's
+public functions over the arithmetic the model runs, which lives in
+:mod:`repro_torch.models.transformer` (``_attn_train``, ``_attn_decode``;
+imported when called, since that module imports this one):
+``use_flash=True`` on the card routes the prefill softmax through
+``csrc/flash_attention.cu``. A decode step writes its K/V slot into the
+cache it is given and returns that cache, where the reference returns
+updated copies. Cross-attention (the VLM's gated
 image layers) is the plain einsum with materialised scores, as in the
 reference, which has no kernel for it. Over a model axis it runs on the
 rank's heads (a :class:`~repro_torch.models.parallel.HeadShare`: its
@@ -17,10 +23,12 @@ import math
 
 import torch
 
+from repro_torch.device import resolve_device
 from repro_torch.models.layers import dense_init
 from repro_torch.models.parallel import NO_AXIS, ModelAxis
 
-__all__ = ["init_attention", "init_cross_attention", "cross_attention",
+__all__ = ["init_attention", "attention_train", "attention_decode",
+           "init_kv_cache", "init_cross_attention", "cross_attention",
            "open_cross_gates"]
 
 
@@ -33,6 +41,51 @@ def init_attention(gen: torch.Generator, d_model: int, n_heads: int,
         "wv": dense_init(gen, (d_model, n_kv_heads * head_dim), dtype, device),
         "wo": dense_init(gen, (n_heads * head_dim, d_model), dtype, device),
     }
+
+
+def _window(window) -> int:
+    return -1 if window is None else int(window)
+
+
+def attention_train(params: dict, x: torch.Tensor, positions: torch.Tensor,
+                    *, n_heads: int, n_kv_heads: int, head_dim: int, theta,
+                    window=None, use_flash: bool = False) -> torch.Tensor:
+    """Full-sequence causal (optionally sliding-window: ``window`` >= 1;
+    None or < 0 is global) GQA self-attention of x (B, S, d_model) at
+    ``positions`` (B, S) -> (B, S, d_model). ``use_flash``: the softmax
+    through the flash-attention kernel (its plain version on the CPU)."""
+    from repro_torch.models.transformer import _attn_train
+
+    out, _, _ = _attn_train(params, x, positions, head_dim, float(theta),
+                            _window(window),
+                            NO_AXIS.attn_heads(n_heads, n_kv_heads),
+                            use_flash=use_flash)
+    return out
+
+
+def init_kv_cache(batch: int, capacity: int, n_kv_heads: int, head_dim: int,
+                  n_layers: int, dtype=torch.float32, device=None) -> dict:
+    """Zeroed K/V of ``n_layers`` layers, (L, B, T, K, D) each."""
+    shape = (n_layers, batch, capacity, n_kv_heads, head_dim)
+    device = resolve_device(device)
+    return {"k": torch.zeros(shape, dtype=dtype, device=device),
+            "v": torch.zeros(shape, dtype=dtype, device=device)}
+
+
+def attention_decode(params: dict, x: torch.Tensor, pos: int,
+                     k_cache: torch.Tensor, v_cache: torch.Tensor, *,
+                     n_heads: int, n_kv_heads: int, head_dim: int, theta,
+                     window=None) -> tuple[torch.Tensor, torch.Tensor,
+                                           torch.Tensor]:
+    """One decode step of x (B, 1, d_model) at position ``pos`` against one
+    layer's cache k, v (B, T, K, D) -> (out, k_cache, v_cache), the caches
+    those given with slot ``pos`` written in place."""
+    from repro_torch.models.transformer import _attn_decode
+
+    out = _attn_decode(params, x, int(pos), k_cache, v_cache, head_dim,
+                       float(theta), _window(window), False,
+                       NO_AXIS.attn_heads(n_heads, n_kv_heads))
+    return out, k_cache, v_cache
 
 
 def init_cross_attention(gen: torch.Generator, d_model: int, n_heads: int,

@@ -110,11 +110,10 @@ _PV_CHUNK = 512
 # Attention core
 # ---------------------------------------------------------------------------
 
-def _attn_qkv(params, x, cfg: ModelConfig):
+def _attn_qkv(params, x, d: int):
     """q (B, S, h, D), k, v (B, S, kv, D) of the rank's heads (all without
-    an axis)."""
+    an axis), D = ``d``."""
     b, s, _ = x.shape
-    d = cfg.head_dim
     q = (x @ params["wq"]).reshape(b, s, params["wq"].shape[-1] // d, d)
     k = (x @ params["wk"]).reshape(b, s, params["wk"].shape[-1] // d, d)
     v = (x @ params["wv"]).reshape(b, s, params["wv"].shape[-1] // d, d)
@@ -172,13 +171,13 @@ def _softmax_attend(q, k, v, mask, share: HeadShare, dtype,
     return back(out).reshape(b, s, h * d).to(dtype)
 
 
-def _attn_train(params, x, positions, cfg: ModelConfig, theta: float,
+def _attn_train(params, x, positions, head_dim: int, theta: float,
                 window: int, share: HeadShare, use_flash: bool = False):
     """Full-sequence causal GQA of the rank's heads ``share``; ``window`` < 0
     is global. Returns (out, k, v): k, v (rope applied) feed the prefill
     cache. ``use_flash`` routes the softmax through the flash-attention
     kernel, at the rank's head offset."""
-    q, k, v = _attn_qkv(params, x, cfg)
+    q, k, v = _attn_qkv(params, x, head_dim)
     q = rope(q, positions, theta)
     k = rope(k, positions, theta)
     b, s = x.shape[:2]
@@ -196,7 +195,7 @@ def _attn_train(params, x, positions, cfg: ModelConfig, theta: float,
         k, v
 
 
-def _attn_decode(params, x, pos: int, k_cache, v_cache, cfg: ModelConfig,
+def _attn_decode(params, x, pos: int, k_cache, v_cache, head_dim: int,
                  theta: float, window: int, ring: bool, share: HeadShare,
                  axis: ModelAxis = NO_AXIS):
     """One-token GQA against one layer's cache k, v (B, T, K, D), whose
@@ -211,7 +210,7 @@ def _attn_decode(params, x, pos: int, k_cache, v_cache, cfg: ModelConfig,
     if axis.seq_split:
         first, whole = axis.data_rank * t, t * axis.data_size
     posv = torch.full((b, 1), pos, dtype=torch.int64, device=x.device)
-    q, k_new, v_new = _attn_qkv(params, x, cfg)
+    q, k_new, v_new = _attn_qkv(params, x, head_dim)
     q = rope(q, posv, theta)
     k_new = rope(k_new, posv, theta)
     slot = (pos % whole if ring else pos) - first
@@ -410,8 +409,8 @@ class _AttnGroupImpl:
         cfg = self.cfg
         a, k, v = _attn_train(lp["attn"], self.axis.copy(
                                   rms_norm(lp["ln1"], x, cfg.norm_eps)),
-                              positions, cfg, self.thetas[i], self.windows[i],
-                              self.share, use_flash=use_flash)
+                              positions, cfg.head_dim, self.thetas[i],
+                              self.windows[i], self.share, use_flash=use_flash)
         if cache is not None:
             _write_prompt(cache["k"][i], k)
             _write_prompt(cache["v"][i], v)
@@ -422,7 +421,7 @@ class _AttnGroupImpl:
         cfg = self.cfg
         return x + self.axis.reduce(_attn_decode(
             lp["attn"], rms_norm(lp["ln1"], x, cfg.norm_eps), pos,
-            cache["k"][i], cache["v"][i], cfg, self.thetas[i],
+            cache["k"][i], cache["v"][i], cfg.head_dim, self.thetas[i],
             self.windows[i], self.uniform_window is not None, self.share,
             self.axis))
 
